@@ -1,0 +1,58 @@
+"""Carry scenarios and results across from the JAX package, through numpy.
+
+``scenario_from_arrays`` reads any object with the field names of
+``repro.core.Scenario`` (a JAX ``Scenario`` included) leaf by leaf with
+``np.asarray`` and builds the port's ``Scenario``.  It imports nothing of
+JAX: a JAX array converts itself.  Workloads drawn with ``jax.random`` (the
+reference's generated scenarios) come across as data; the port never redraws
+them.  A scenario carrying a piece outside the port (a topology, an outage
+schedule, extra instruments) raises ``NotImplementedError`` here, from the
+port's ``Scenario``.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.core.energy import PowerModel
+from repro_torch.core.entities import (
+    Cloudlets, Hosts, Market, Policy, Scenario, VMRequests, resolve_device)
+
+
+def _tree(cls, src, dev):
+    kw = {}
+    for f in dataclasses.fields(cls):
+        leaf = getattr(src, f.name)
+        kw[f.name] = (None if leaf is None else
+                      torch.from_numpy(np.array(leaf)).to(dev))
+    return cls(**kw)
+
+
+def scenario_from_arrays(obj, device=None) -> Scenario:
+    """The port's ``Scenario`` holding ``obj``'s arrays on ``device``."""
+    dev = resolve_device(device)
+    return Scenario(
+        hosts=_tree(Hosts, obj.hosts, dev),
+        vms=_tree(VMRequests, obj.vms, dev),
+        cloudlets=_tree(Cloudlets, obj.cloudlets, dev),
+        market=_tree(Market, obj.market, dev),
+        policy=_tree(Policy, obj.policy, dev),
+        power=None if obj.power is None else _tree(PowerModel, obj.power, dev),
+        topology=obj.topology,
+        outages=obj.outages,
+        instruments=tuple(obj.instruments),
+        max_steps=int(obj.max_steps),
+    )
+
+
+def result_to_numpy(res) -> dict[str, np.ndarray]:
+    """A ``SimResult`` (or ``History``) of either package as numpy arrays,
+    by field name."""
+    out = {}
+    for f in dataclasses.fields(res):
+        x = getattr(res, f.name)
+        out[f.name] = (x.detach().cpu().numpy() if isinstance(x, torch.Tensor)
+                       else np.asarray(x))
+    return out

@@ -1,0 +1,53 @@
+"""repro_torch.core: the batch-major event engine (the port of ``repro.core``).
+
+Entities are dataclasses of tensors; every engine function takes a leading
+scenario axis, and one scenario is the ``B = 1`` case.
+"""
+from repro_torch.core.entities import (
+    INF,
+    SPACE_SHARED,
+    TIME_SHARED,
+    Cloudlets,
+    Hosts,
+    Market,
+    Policy,
+    Scenario,
+    SimResult,
+    SimState,
+    VMRequests,
+    finished_mask,
+    resolve_device,
+)
+from repro_torch.core.energy import PowerModel
+from repro_torch.core.engine import (
+    History,
+    init_state,
+    is_batched,
+    scenario_row,
+    simulate,
+    simulate_history,
+    simulate_instrumented,
+)
+from repro_torch.core.step import Instrument, StepEvent, batch_event_step
+from repro_torch.core.campaign import broadcast_campaign, stack_scenarios
+from repro_torch.core import (
+    energy,
+    kvserve,
+    policies,
+    provision,
+    scenarios,
+    segments,
+    step,
+)
+
+__all__ = [
+    "INF", "SPACE_SHARED", "TIME_SHARED",
+    "Cloudlets", "Hosts", "Market", "Policy", "PowerModel",
+    "Scenario", "SimResult", "SimState", "VMRequests", "finished_mask",
+    "resolve_device", "History", "Instrument", "StepEvent",
+    "batch_event_step", "init_state", "is_batched", "scenario_row",
+    "simulate", "simulate_history", "simulate_instrumented",
+    "broadcast_campaign", "stack_scenarios",
+    "energy", "kvserve", "policies", "provision", "scenarios", "segments",
+    "step",
+]

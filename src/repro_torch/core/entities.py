@@ -1,0 +1,304 @@
+"""CloudSim entities as dataclasses of tensors (the port of ``repro.core.entities``).
+
+Same struct-of-arrays layout as the JAX reference: a datacenter is the ``d``
+axis of every ``[D, H]`` host tensor, a VM a row of ``VMRequests``, a cloudlet
+a row of ``Cloudlets`` (DESIGN.md §1).  Entity *counts* are shapes; entity
+*state* is data.  Work counters are float32 and indices int32, as in the
+reference (DESIGN.md §2, "f64-free").
+
+The engine is batch-major: every function in ``core/`` takes a leading
+scenario axis ``[B, ...]`` on every leaf (scalars become ``[B]``).  Scenario
+constructors return one unbatched scenario; ``engine.simulate`` adds the axis
+on entry and removes it on exit.
+
+Each dataclass carries ``replace``, ``map`` and ``to(device)`` in place of the
+reference's pytree registration.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+
+import torch
+from torch import Tensor
+
+# Scheduling policies (paper §3.2, Figure 4).
+SPACE_SHARED = 0
+TIME_SHARED = 1
+
+# A time/MI that behaves as "never/unreachable" (float32-representable).
+INF = 3.0e38
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means the GPU.  Without one, the caller must ask for the CPU
+    explicitly: the port never drops to the CPU on its own."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' to run the "
+                "engine on the CPU"
+            )
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+class TensorTree:
+    """Helpers shared by the frozen dataclasses below."""
+
+    def replace(self, **changes):
+        return dataclasses.replace(self, **changes)
+
+    def map(self, fn):
+        """Apply ``fn`` to every tensor leaf; nested trees recurse, and
+        ``None``, ints and tuples pass through."""
+        out = {}
+        for f in dataclasses.fields(self):
+            v = getattr(self, f.name)
+            if isinstance(v, Tensor):
+                out[f.name] = fn(v)
+            elif isinstance(v, TensorTree):
+                out[f.name] = v.map(fn)
+        return dataclasses.replace(self, **out)
+
+    def to(self, device):
+        return self.map(lambda x: x.to(device))
+
+    def leaves(self) -> list[Tensor]:
+        out = []
+        for f in dataclasses.fields(self):
+            v = getattr(self, f.name)
+            if isinstance(v, Tensor):
+                out.append(v)
+            elif isinstance(v, TensorTree):
+                out.extend(v.leaves())
+        return out
+
+
+@dataclass(frozen=True)
+class Hosts(TensorTree):
+    """Physical machines, ``[D, H]`` per field (paper §3.1 ``Host``)."""
+
+    cores: Tensor       # [D,H] i32  processing elements per host
+    mips: Tensor        # [D,H] f32  MIPS per core
+    ram_mb: Tensor      # [D,H] f32
+    storage_mb: Tensor  # [D,H] f32
+    bw_mbps: Tensor     # [D,H] f32
+    kv_blocks: Tensor   # [D,H] f32  KV-cache blocks (0: not a serving host)
+    exists: Tensor      # [D,H] bool (ragged datacenters are masked)
+
+    @property
+    def n_dc(self) -> int:
+        return self.cores.shape[-2]
+
+    @property
+    def n_hosts(self) -> int:
+        return self.cores.shape[-1]
+
+
+@dataclass(frozen=True)
+class VMRequests(TensorTree):
+    """VM creation requests, ``[V]`` per field (paper §4 ``VirtualMachine``)."""
+
+    dc: Tensor          # [V] i32  origin datacenter
+    cores: Tensor       # [V] i32
+    mips: Tensor        # [V] f32  per core
+    ram_mb: Tensor      # [V] f32
+    storage_mb: Tensor  # [V] f32
+    bw_mbps: Tensor     # [V] f32
+    kv_blocks: Tensor   # [V] f32  KV-cache blocks reserved on the host
+    request_t: Tensor   # [V] f32  when the broker asks for the VM
+    image_mb: Tensor    # [V] f32  migration transfer volume
+    exists: Tensor      # [V] bool
+    pool: Tensor        # [V] bool autoscaler spare rows
+
+    @property
+    def n_vms(self) -> int:
+        return self.dc.shape[-1]
+
+
+@dataclass(frozen=True)
+class Cloudlets(TensorTree):
+    """Task units, ``[C]`` per field (paper §4 ``Cloudlet``).  Rows are
+    ordered by ``submit_t``: FCFS is row order.  ``vm == -1`` rows are
+    broker-dispatched; ``prompt_tokens > 0`` rows are LLM-serving requests
+    (see the reference's ``Cloudlets`` for the full contract)."""
+
+    vm: Tensor              # [C] i32  target VM (-1: dispatched at submit)
+    length_mi: Tensor       # [C] f32  per-core million instructions
+    cores: Tensor           # [C] i32
+    submit_t: Tensor        # [C] f32
+    input_mb: Tensor        # [C] f32
+    input_dc: Tensor        # [C] i32  (-1: VM-local input)
+    output_mb: Tensor       # [C] f32
+    deadline: Tensor        # [C] f32  absolute SLA finish time (INF: none)
+    prompt_tokens: Tensor   # [C] f32
+    max_new_tokens: Tensor  # [C] f32
+    exists: Tensor          # [C] bool
+
+    @property
+    def n_cloudlets(self) -> int:
+        return self.vm.shape[-1]
+
+
+@dataclass(frozen=True)
+class Market(TensorTree):
+    """Per-datacenter prices (paper §3.3), ``[D]`` per field."""
+
+    cost_per_cpu_sec: Tensor
+    cost_per_ram_mb: Tensor
+    cost_per_storage_mb: Tensor
+    cost_per_bw_mb: Tensor
+
+
+@dataclass(frozen=True)
+class Policy(TensorTree):
+    """All policy selectors: scalar tensors (``[B]`` in a campaign), so a
+    campaign may sweep them.  Field meanings as in ``repro.core.Policy``."""
+
+    host_policy: Tensor        # i32 SPACE_SHARED | TIME_SHARED (VMM level)
+    vm_policy: Tensor          # i32 cloudlet scheduler inside each VM
+    federation: Tensor         # bool CloudCoordinator migration on/off
+    core_reserving: Tensor     # bool provisioner also reserves PEs
+    best_fit: Tensor           # bool best-fit (leftover RAM) vs first-fit
+    sensor_interval: Tensor    # f32 Sensor refresh period
+    migration_fixed_s: Tensor  # f32 fixed VM re-creation latency
+    interdc_bw_mbps: Tensor    # f32 inter-datacenter link
+    horizon: Tensor            # f32 simulation end time
+    autoscale: Tensor          # bool
+    scale_up_thresh: Tensor    # f32
+    scale_down_thresh: Tensor  # f32
+    live_migration: Tensor     # bool
+    migrate_balance_thresh: Tensor      # f32
+    migrate_consolidate_thresh: Tensor  # f32
+    ckpt_interval: Tensor      # f32
+    evacuation: Tensor         # bool
+    evac_lead_s: Tensor        # f32
+    locality_dispatch: Tensor  # bool
+    block_tokens: Tensor       # f32 tokens per KV-cache block
+    batch_degradation: Tensor  # f32 decode slow-down per extra batch member
+
+
+@dataclass(frozen=True)
+class Scenario(TensorTree):
+    """A complete experiment: infrastructure + workload + policy + prices.
+
+    ``power`` (an ``energy.PowerModel``) is optional, as in the reference.
+    ``topology``, ``outages`` and extra ``instruments`` belong to later slices
+    of the port: a scenario carrying one raises ``NotImplementedError``.
+    ``max_steps`` is a static Python int (0: derived bound).  The reference's
+    ``sweep_impl`` has no counterpart: the advance sweep is routed by device.
+    """
+
+    hosts: Hosts
+    vms: VMRequests
+    cloudlets: Cloudlets
+    market: Market
+    policy: Policy
+    power: object = None        # energy.PowerModel | None
+    topology: object = None     # not ported yet
+    outages: object = None      # not ported yet
+    instruments: tuple = ()     # not ported yet (defaults are always on)
+    max_steps: int = 0
+
+    def __post_init__(self):
+        if self.topology is not None:
+            raise NotImplementedError(
+                "Scenario.topology (energy.Topology and the inter-DC link "
+                "ledger, DESIGN.md §13) is not ported to repro_torch yet"
+            )
+        if self.outages is not None:
+            raise NotImplementedError(
+                "Scenario.outages (host failures, DESIGN.md §9) is not "
+                "ported to repro_torch yet"
+            )
+        if tuple(self.instruments):
+            names = [type(i).__name__ for i in self.instruments]
+            raise NotImplementedError(
+                f"Scenario.instruments {names}: only the default Sensor, "
+                "Market and Energy instruments are ported to repro_torch yet"
+            )
+
+
+@dataclass(frozen=True)
+class SimState(TensorTree):
+    """Everything the event loop carries, batch-major (``[B, ...]``).
+
+    The reference's transfer-ledger fields (``link_*``, ``vm_xfer_*``,
+    ``cl_xfer_*``) and ``vm_mig_src`` belong to the topology and live
+    migration slices and are not carried yet.
+    """
+
+    t: Tensor             # [B] f32 simulation clock
+    step: Tensor          # [B] i32 event-batch counter
+    vm_host: Tensor       # [B,V] i32 host index within vm_dc, -1 if unplaced
+    vm_dc: Tensor         # [B,V] i32 current datacenter
+    vm_placed: Tensor     # [B,V] bool
+    vm_failed: Tensor     # [B,V] bool creation rejected everywhere
+    vm_evicted: Tensor    # [B,V] bool lost its slot to a host failure
+    vm_avail_t: Tensor    # [B,V] f32 creation/migration completes
+    vm_released: Tensor   # [B,V] bool resources returned
+    vm_migrations: Tensor  # [B,V] i32
+    pool_active: Tensor   # [B,V] bool pool row activated by the autoscaler
+    host_up: Tensor       # [B,D,H] bool
+    free_ram: Tensor      # [B,D,H] f32
+    free_storage: Tensor  # [B,D,H] f32
+    free_bw: Tensor       # [B,D,H] f32
+    free_cores: Tensor    # [B,D,H] f32
+    free_kv: Tensor       # [B,D,H] f32
+    cl_vm: Tensor         # [B,C] i32 current VM assignment (-1: undispatched)
+    cl_ready_t: Tensor    # [B,C] f32 stage-in completes (INF until dispatched)
+    cl_admitted: Tensor   # [B,C] bool serving row in its VM's decode batch
+    cl_kv: Tensor         # [B,C] f32 KV blocks the row holds
+    rem_mi: Tensor        # [B,C] f32 remaining MI (per core)
+    cl_rollback_mi: Tensor  # [B,C] f32 work re-done after preemption
+    started: Tensor       # [B,C] bool
+    start_t: Tensor       # [B,C] f32 (INF until started)
+    finish_t: Tensor      # [B,C] f32 (INF until finished)
+    cpu_time: Tensor      # [B,C] f32 accumulated executing seconds
+    sensed_load: Tensor   # [B,D] f32 last Sensor reading
+    last_tick: Tensor     # [B] f32
+    cpu_cost: Tensor      # [B,D] f32
+    ram_cost: Tensor      # [B,D] f32
+    storage_cost: Tensor  # [B,D] f32
+    bw_cost: Tensor       # [B,D] f32
+    energy_j: Tensor      # [B,D] f32
+    vm_downtime: Tensor   # [B,V] f32
+    n_evacuations: Tensor  # [B] i32
+
+
+@dataclass(frozen=True)
+class SimResult(TensorTree):
+    """Derived outcome of one simulation (the paper's tables).  Field
+    meanings as in ``repro.core.SimResult``."""
+
+    finish_t: Tensor
+    start_t: Tensor
+    cl_vm: Tensor
+    turnaround: Tensor
+    makespan: Tensor
+    mean_turnaround: Tensor
+    n_finished: Tensor
+    n_events: Tensor
+    n_migrations: Tensor
+    vm_placed: Tensor
+    vm_dc: Tensor
+    vm_failed: Tensor
+    cpu_cost: Tensor
+    ram_cost: Tensor
+    storage_cost: Tensor
+    bw_cost: Tensor
+    energy_j: Tensor
+    total_cost: Tensor
+    end_t: Tensor
+    sla_violations: Tensor
+    downtime: Tensor
+    n_evacuations: Tensor
+    ttft_p50: Tensor
+    ttft_p99: Tensor
+    tpot_p50: Tensor
+    tpot_p99: Tensor
+
+
+def finished_mask(res: SimResult) -> Tensor:
+    return torch.isfinite(res.finish_t) & (res.finish_t < INF / 2)

@@ -1,0 +1,194 @@
+"""The advance sweep as a hand-written CUDA kernel for Hopper.
+
+Replaces ``repro/kernels/vm_update.py::advance_sweep_pallas``.  The kernel
+source is ``csrc/vm_update.cu`` (its header says what bounds it and how the
+design answers that); this module plans the launch, builds the source with
+``nvcc`` at first use into ``build/repro_torch/`` at the repository root, and
+binds it through ``ctypes``.  Nothing is built or loaded at import.
+
+The wrapper takes CUDA tensors only.  On a CPU tensor the caller routes to
+``ref.advance_sweep_ref`` (``ops.advance_sweep``); this function raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+from torch import Tensor
+
+_SRC = Path(__file__).resolve().parents[1] / "csrc" / "vm_update.cu"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
+)
+
+# Launch plan limits, from the H100 (see csrc/vm_update.cu):
+N_SM = 132
+FUSED_THREADS = 512         # at most 128 registers a thread at this size
+ITEMS_MAX = 16              # row elements a thread keeps in registers
+FUSED_CAP = FUSED_THREADS * ITEMS_MAX
+SPLIT_THREADS = 256
+SPLIT_ITEMS = 4
+SPLIT_TILE = SPLIT_THREADS * SPLIT_ITEMS
+MAX_GRID_Y = 65535          # rows of the split grid
+
+
+def _next_pow2(n: int) -> int:
+    return 1 << max(n - 1, 0).bit_length()
+
+
+def kernel_plan(b: int, c: int) -> dict:
+    """Launch geometry for a ``[b, c]`` sweep: the single source of truth
+    for ``advance_sweep_cuda``.
+
+    Fused (one block per row, the row in registers) while the row fits the
+    cap; split into ``SPLIT_TILE`` tiles when it does not, or when fewer rows
+    than SMs would leave the card mostly idle on a long row.
+    """
+    if c > FUSED_CAP or (b < N_SM and c > 4 * SPLIT_TILE):
+        nb = -(-c // SPLIT_TILE)
+        return {"variant": "split", "threads": SPLIT_THREADS,
+                "items": SPLIT_ITEMS, "nb": nb, "grid": (nb, b)}
+    threads = min(FUSED_THREADS, max(32, _next_pow2(-(-c // 4))))
+    items = _next_pow2(-(-c // threads))
+    return {"variant": "fused", "threads": threads, "items": items,
+            "nb": 1, "grid": (b,)}
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    for cand in (os.path.join(cuda_home, "bin", "nvcc"), shutil.which("nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def build() -> dict:
+    """Compile ``csrc/vm_update.cu`` unless this source was built already.
+
+    Returns ``{"path", "seconds", "log"}``; ``seconds`` is None when an
+    existing build was reused, and ``log`` holds nvcc's ``-Xptxas -v``
+    report (registers, shared memory and spills of each kernel).
+    """
+    key = hashlib.sha256(_SRC.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    path = BUILD_DIR / f"libvm_update-{key.hexdigest()[:16]}.so"
+    if path.exists():
+        return {"path": path, "seconds": None, "log": ""}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_suffix(f".{os.getpid()}.tmp")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
+        capture_output=True, text=True,
+    )
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed building {_SRC} (exit {proc.returncode}):\n"
+            f"{proc.stdout}{proc.stderr}"
+        )
+    os.replace(tmp, path)
+    return {"path": path, "seconds": seconds, "log": proc.stdout + proc.stderr}
+
+
+_LIB = None
+
+
+def _library() -> ctypes.CDLL:
+    global _LIB
+    if _LIB is None:
+        lib = ctypes.CDLL(str(build()["path"]))
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.advance_sweep_fused.argtypes = [p, p, p, p, p, p, i, ll, i, i, p]
+        lib.advance_sweep_fused.restype = i
+        lib.advance_sweep_split.argtypes = [p, p, p, p, p, p, p, i, ll, i, i,
+                                            i, p]
+        lib.advance_sweep_split.restype = i
+        _LIB = lib
+    return _LIB
+
+
+def _check(rem: Tensor, rate: Tensor, active: Tensor, bound_dt: Tensor):
+    for name, x in (("rem", rem), ("rate", rate), ("active", active),
+                    ("bound_dt", bound_dt)):
+        if not x.is_cuda:
+            raise ValueError(f"advance_sweep_cuda: {name} is on {x.device}, "
+                             "not a CUDA device")
+        if x.device != rem.device:
+            raise ValueError(f"advance_sweep_cuda: {name} is on {x.device}, "
+                             f"rem on {rem.device}")
+        if not x.is_contiguous():
+            raise ValueError(f"advance_sweep_cuda: {name} is not contiguous")
+    for name, x in (("rem", rem), ("rate", rate), ("bound_dt", bound_dt)):
+        if x.dtype != torch.float32:
+            raise ValueError(f"advance_sweep_cuda: {name} is {x.dtype}, "
+                             "expected torch.float32")
+    if active.dtype not in (torch.bool, torch.uint8):
+        raise ValueError(f"advance_sweep_cuda: active is {active.dtype}, "
+                         "expected torch.bool or torch.uint8")
+    if rem.dim() != 2 or rate.shape != rem.shape or active.shape != rem.shape:
+        raise ValueError(
+            "advance_sweep_cuda: rem, rate and active must share one [B, C] "
+            f"shape, got {tuple(rem.shape)}, {tuple(rate.shape)}, "
+            f"{tuple(active.shape)}")
+    if bound_dt.shape != rem.shape[:1]:
+        raise ValueError(f"advance_sweep_cuda: bound_dt has shape "
+                         f"{tuple(bound_dt.shape)}, expected ({rem.shape[0]},)")
+
+
+def advance_sweep_cuda(rem: Tensor, rate: Tensor, active: Tensor,
+                       bound_dt: Tensor) -> tuple[Tensor, Tensor]:
+    """The advance sweep on the card: ``[B, C]`` (or ``[C]`` with a scalar
+    bound) -> ``(dt, rem')``, same contract as ``ref.advance_sweep_ref``.
+
+    Launches on the current stream and does not synchronise.  Each call that
+    launches adds one to ``advance_sweep_cuda.launches``.
+    """
+    squeeze = rem.dim() == 1
+    if squeeze:
+        rem, rate, active = rem[None], rate[None], active[None]
+        bound_dt = bound_dt.reshape(1)
+    _check(rem, rate, active, bound_dt)
+    b, c = rem.shape
+    dt = torch.empty(b, dtype=torch.float32, device=rem.device)
+    out = torch.empty_like(rem)
+    if b > 0:
+        plan = kernel_plan(b, c)
+        lib = _library()
+        with torch.cuda.device(rem.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            if plan["variant"] == "fused":
+                err = lib.advance_sweep_fused(
+                    rem.data_ptr(), rate.data_ptr(), active.data_ptr(),
+                    bound_dt.data_ptr(), dt.data_ptr(), out.data_ptr(), b, c,
+                    plan["threads"], plan["items"], stream)
+            else:
+                if b > MAX_GRID_Y:
+                    raise ValueError(
+                        f"advance_sweep_cuda: {b} rows exceed the split "
+                        f"grid's {MAX_GRID_Y}")
+                scratch = torch.empty((b, plan["nb"]), dtype=torch.float32,
+                                      device=rem.device)
+                err = lib.advance_sweep_split(
+                    rem.data_ptr(), rate.data_ptr(), active.data_ptr(),
+                    bound_dt.data_ptr(), scratch.data_ptr(), dt.data_ptr(),
+                    out.data_ptr(), b, c, plan["threads"], plan["items"],
+                    plan["nb"], stream)
+        if err != 0:
+            raise RuntimeError(
+                f"advance_sweep_cuda: launch failed with CUDA error {err} "
+                f"(plan {plan})")
+        advance_sweep_cuda.launches += 1
+    if squeeze:
+        return dt[0], out[0]
+    return dt, out
+
+
+advance_sweep_cuda.launches = 0

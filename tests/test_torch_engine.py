@@ -1,0 +1,233 @@
+"""The port's event engine against the JAX package's, on the CPU.
+
+Each scenario is built by the JAX package, carried across through numpy with
+``convert.scenario_from_arrays``, and run by both engines: the reference as
+``jax.jit(repro.core.simulate)`` with the plain ``sweep_impl="jnp"`` sweep.
+Integer and boolean fields (``n_events`` among them) must match exactly;
+float fields within rtol 1e-5, the reference's own engine tolerance (float
+sums may add in another order, and XLA may fuse a multiply-add that PyTorch
+rounds twice).  Within the port, every row of a campaign must be bitwise the
+scenario run alone.
+"""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import AutoscaleInstrument
+from repro.core import Outages as JaxOutages
+from repro.core import SPACE_SHARED, TIME_SHARED
+from repro.core import scenarios as jscn
+from repro.core import simulate as jax_simulate
+from repro.core.energy import PowerModel as JaxPowerModel
+from repro.core.energy import Topology as JaxTopology
+from repro_torch.convert import result_to_numpy, scenario_from_arrays
+from repro_torch.core import (
+    broadcast_campaign, scenarios, simulate, simulate_instrumented,
+    stack_scenarios)
+
+pytestmark = pytest.mark.tier1
+
+_jax_simulate = jax.jit(jax_simulate)
+
+
+def _service_routed():
+    """Every row broker-dispatched (``vm == -1``): exercises
+    ``dispatch_cloudlets``."""
+    scn = jscn.generated_scenario(jax.random.PRNGKey(7))
+    vm = jnp.full_like(scn.cloudlets.vm, -1)
+    return scn.replace(cloudlets=scn.cloudlets.replace(vm=vm))
+
+
+def _powered():
+    """Fig. 9/10 at 300 hosts under an idle-gated power model."""
+    scn = jscn.fig9_10_scenario(TIME_SHARED, n_hosts=300, n_groups=3)
+    return scn.replace(power=JaxPowerModel.uniform(1, gate_idle=True))
+
+
+PARITY = {
+    **{f"fig4_{h}{v}": (lambda h=h, v=v: jscn.fig4_scenario(h, v))
+       for h in (SPACE_SHARED, TIME_SHARED) for v in (SPACE_SHARED, TIME_SHARED)},
+    "table1_federated": lambda: jscn.table1_scenario(True),
+    "table1_alone": lambda: jscn.table1_scenario(False),
+    "fig9_10_space": lambda: jscn.fig9_10_scenario(
+        SPACE_SHARED, n_hosts=300, n_groups=3),
+    "fig9_10_time": lambda: jscn.fig9_10_scenario(
+        TIME_SHARED, n_hosts=300, n_groups=3),
+    **{f"generated_{s}": (lambda s=s: jscn.generated_scenario(
+        jax.random.PRNGKey(s))) for s in range(3)},
+    "service_routed": _service_routed,
+    "powered": _powered,
+}
+
+
+def assert_results_match(jax_res, torch_res):
+    a, b = result_to_numpy(jax_res), result_to_numpy(torch_res)
+    assert a.keys() == b.keys()
+    for k in a:
+        assert b[k].shape == a[k].shape, k
+        if a[k].dtype.kind in "biu":
+            assert b[k].dtype == a[k].dtype, k
+            np.testing.assert_array_equal(b[k], a[k], err_msg=k)
+        else:
+            np.testing.assert_allclose(b[k], a[k], rtol=1e-5, atol=0,
+                                       err_msg=k)
+
+
+def assert_bitwise(x, y):
+    a, b = result_to_numpy(x), result_to_numpy(y)
+    for k in a:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+@pytest.mark.parametrize("name", sorted(PARITY))
+def test_simulate_matches_jax(name):
+    jscn_ = PARITY[name]()
+    res = simulate(scenario_from_arrays(jscn_, "cpu"), device="cpu")
+    assert_results_match(_jax_simulate(jscn_), res)
+
+
+def test_paper_anchors_from_the_port_constructors():
+    """The port's own constructors reproduce the paper's anchors."""
+    ss = simulate(scenarios.fig4_scenario(0, 0, device="cpu"), device="cpu")
+    assert ss.finish_t.tolist() == [400.0, 400.0, 800.0, 800.0,
+                                    1200.0, 1200.0, 1600.0, 1600.0]
+    fed = simulate(scenarios.table1_scenario(True, device="cpu"), device="cpu")
+    assert int(fed.n_finished) == 25 and int(fed.n_migrations) == 10
+    f910 = simulate(scenarios.fig9_10_scenario(
+        SPACE_SHARED, n_hosts=300, n_groups=3, device="cpu"), device="cpu")
+    # 1200 s each, up to the float32 rounding of clocks in the thousands
+    took = (f910.finish_t - f910.start_t).numpy()
+    np.testing.assert_allclose(took, 1200.0, rtol=1e-6)
+    empty = simulate(scenarios.fig7_8_scenario(1000, device="cpu"), device="cpu")
+    assert int(empty.n_finished) == 1
+
+
+@pytest.mark.parametrize("family", ["fig4", "table1", "fig9_10"])
+def test_port_constructors_match_jax_constructors(family):
+    """The port's constructors give the arrays the reference's give."""
+    pairs = {
+        "fig4": (jscn.fig4_scenario(1, 0),
+                 scenarios.fig4_scenario(1, 0, device="cpu")),
+        "table1": (jscn.table1_scenario(True),
+                   scenarios.table1_scenario(True, device="cpu")),
+        "fig9_10": (jscn.fig9_10_scenario(TIME_SHARED, n_hosts=40, n_groups=2),
+                    scenarios.fig9_10_scenario(TIME_SHARED, n_hosts=40,
+                                               n_groups=2, device="cpu")),
+    }
+    jax_scn, port_scn = pairs[family]
+    carried = scenario_from_arrays(jax_scn, "cpu")
+    assert carried.max_steps == port_scn.max_steps
+    for a, b in zip(carried.leaves(), port_scn.leaves()):
+        assert a.dtype == b.dtype
+        assert torch.equal(a, b)
+
+
+def _campaign_rows():
+    return [scenario_from_arrays(PARITY[n](), "cpu")
+            for n in ("table1_federated", "table1_alone")]
+
+
+@pytest.mark.parametrize("family", ["fig4", "table1", "generated"])
+def test_batch_rows_are_bitwise_solo_runs(family):
+    if family == "fig4":
+        rows = [scenarios.fig4_scenario(h, v, device="cpu")
+                for h in (0, 1) for v in (0, 1)]
+    elif family == "table1":
+        rows = _campaign_rows()
+    else:
+        rows = [scenario_from_arrays(PARITY[f"generated_{s}"](), "cpu")
+                for s in range(3)] + [
+                    scenario_from_arrays(_service_routed(), "cpu")]
+    batch = simulate(stack_scenarios(rows), device="cpu")
+    for i, scn in enumerate(rows):
+        assert_bitwise(batch.map(lambda x: x[i]), simulate(scn, device="cpu"))
+
+
+def test_broadcast_campaign_sweeps_a_policy():
+    template = scenarios.fig4_scenario(0, 0, device="cpu")
+    rows = [scenarios.fig4_scenario(h, v, device="cpu")
+            for h in (0, 1) for v in (0, 1)]
+    policies = stack_scenarios(rows).policy
+    swept = simulate(broadcast_campaign(template, 4, policy=policies),
+                     device="cpu")
+    assert_bitwise(swept, simulate(stack_scenarios(rows), device="cpu"))
+    with pytest.raises(ValueError, match="leading dim 4"):
+        broadcast_campaign(template, 4, policy=template.policy)
+
+
+def test_stack_scenarios_refuses_mixed_static_fields():
+    a = scenarios.fig4_scenario(0, 0, device="cpu")
+    with pytest.raises(ValueError, match="max_steps"):
+        stack_scenarios([a, a.replace(max_steps=7)])
+    carried = scenario_from_arrays(_powered(), "cpu")
+    with pytest.raises(ValueError, match="power"):
+        stack_scenarios([carried, carried.replace(power=None)])
+
+
+def test_port_never_imports_jax():
+    """The port runs end to end without JAX or the JAX package loaded."""
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    code = (
+        "import sys\n"
+        "import repro_torch, repro_torch.convert, repro_torch.kernels.ops\n"
+        "from repro_torch.core import PowerModel, scenarios, simulate, "
+        "simulate_history\n"
+        "scn = scenarios.fig4_scenario(1, 1, device='cpu')\n"
+        "scn = scn.replace(power=PowerModel.uniform(1, device='cpu'))\n"
+        "simulate(scn, device='cpu'); simulate_history(scn, device='cpu')\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, PYTHONPATH=src)
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_default_device_is_the_gpu(monkeypatch):
+    """``device=None`` means CUDA; without a GPU it raises instead of
+    running on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        scenarios.fig4_scenario(0, 0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        simulate(scenarios.fig4_scenario(0, 0, device="cpu"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        scenario_from_arrays(jscn.fig4_scenario(0, 0))
+
+
+def _with_topology():
+    return jscn.table1_scenario(True).replace(topology=JaxTopology.uniform(3))
+
+
+def _with_outages():
+    never = jnp.full((3, 10, 1), 3.0e38, jnp.float32)
+    return jscn.table1_scenario(True).replace(
+        outages=JaxOutages(fail_t=never, repair_t=never))
+
+
+@pytest.mark.parametrize("build,piece", [
+    (_with_topology, "topology"),
+    (_with_outages, "outages"),
+    (lambda: jscn.table1_scenario(True).replace(
+        instruments=(AutoscaleInstrument(),)), "instruments"),
+])
+def test_unported_pieces_raise(build, piece):
+    with pytest.raises(NotImplementedError, match=piece):
+        scenario_from_arrays(build(), "cpu")
+
+
+def test_unported_options_raise():
+    with pytest.raises(NotImplementedError, match="MigrationInstrument"):
+        scenarios.table1_scenario(True, live_migration=True, device="cpu")
+    scn = scenarios.fig4_scenario(0, 0, device="cpu")
+    with pytest.raises(NotImplementedError, match="extra instruments"):
+        simulate_instrumented(scn, extra_instruments=(object(),), device="cpu")
