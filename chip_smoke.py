@@ -3,15 +3,21 @@
     python3 chip_smoke.py
 
 Drives ``repro_torch`` (never JAX, never the JAX package ``repro``) through
-its main path on the card and fails with a non-zero exit code if any phase
-fails:
+its two paths on the card, the event engine and the serving engine, and fails
+with a non-zero exit code if any phase fails:
 
-1. build     compile every kernel of the path from ``src/repro_torch/csrc``
+1. build     compile every kernel of both paths from ``src/repro_torch/csrc``
+             (one nvcc per source, started together) and print nvcc's
+             register and spill lines
 2. kernels   each kernel against its plain PyTorch version on the card at the
-             main path's shapes (``dt`` bitwise, ``rem'`` within rtol 1e-6 /
-             atol 1e-5), with its device time (CUDA-graph replay), the
-             plain version's, its time per call with the enqueue, and its
-             bound
+             paths' shapes, with its device time (CUDA-graph replay, or CUDA
+             events for calls of many milliseconds), the plain version's,
+             its time per call with the enqueue, and its bound.  Advance
+             sweep: ``dt`` bitwise, ``rem'`` within rtol 1e-6 / atol 1e-5.
+             Flash attention: within 2e-5 (f32) / 2e-2 (bf16) at six shapes
+             from the serving prefill to a gemma2-27b local layer, with
+             ``scaled_dot_product_attention`` timed as a yardstick where it
+             computes the same function
 3. anchors   the paper's experiments through ``simulate`` on the card: Fig. 4
              (four policy pairs), Table 1, Fig. 9/10 at 10,000 hosts and
              Fig. 7/8 at 100,000 hosts, each against the port's own CPU run
@@ -19,6 +25,16 @@ fails:
 4. campaign  1024 Fig. 9/10 rows at 10,000 hosts as one batch-major run;
              rows 0 and 1 bitwise their solo runs
 5. proof     the advance-sweep kernel's launch count over phases 3-4
+6. serving   internlm2-1.8b at full width and depth (bf16, random weights from
+             a seed) served by ``ServingEngine`` (4 slots of 1,024 tokens,
+             re-planning by simulation every 8 steps) to 8 requests of 128-512
+             prompt tokens and 32 new tokens; every request done, the flash
+             kernel launched once per layer per prefill, the advance sweep
+             launched by the re-plans; wall time, prefill and decode tokens/s,
+             the flash kernel's share of device time, peak memory
+7. parity    the same model at full width, 2 layers, f32: prefill logits and
+             8 greedy decode steps on the card against the port's CPU run
+             (logits within atol/rtol 1e-3, tokens identical)
 
 Every line of numbers carries the card's name and power limit.  The line
 before the last is the per-kernel JSON record; the last line is
@@ -27,13 +43,17 @@ with an error before printing any result.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
 import json
 import subprocess
 import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 if not torch.cuda.is_available():
     sys.exit("chip_smoke: no CUDA device is available")
@@ -43,14 +63,42 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch.convert import result_to_numpy  # noqa: E402
 from repro_torch.core import (  # noqa: E402
     SPACE_SHARED, TIME_SHARED, scenarios, simulate, stack_scenarios, step)
-from repro_torch.kernels import ref, vm_update  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.kernels import build as kbuild  # noqa: E402
+from repro_torch.kernels import flash_attention, ref, vm_update  # noqa: E402
+from repro_torch.models import build_model  # noqa: E402
+from repro_torch.serving import ServingEngine  # noqa: E402
+
+# the plain versions and the parity phase compare in full f32 (no TF32)
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 FP32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
 KERNEL_SHAPES = [(1024, 500), (1, 500), (1, 131072), (1, 3 * 2**17),
                  (8192, 4096)]
 MAIN_SHAPE = (1024, 500)    # the advance sweep of the Fig. 9/10 campaign
 CAMPAIGN_ROWS = 1024
+# flash attention: name, (B, Hq, Hk, Sq, Sk, D), dtype, masking
+FLASH_SHAPES = [
+    ("serving prefill", (1, 16, 8, 512, 512, 128), torch.bfloat16,
+     dict(causal=True)),
+    ("long prefill", (1, 16, 8, 8192, 8192, 128), torch.bfloat16,
+     dict(causal=True)),
+    ("gemma2-27b local layer", (1, 32, 16, 8192, 8192, 128), torch.bfloat16,
+     dict(causal=True, window=4096, softcap=50.0)),
+    ("phi3 head dim", (2, 32, 32, 1024, 1024, 96), torch.bfloat16,
+     dict(causal=True)),
+    ("f32 ragged", (2, 4, 2, 300, 300, 64), torch.float32, dict(causal=True)),
+    ("offset rows", (1, 16, 8, 128, 1000, 128), torch.float32,
+     dict(causal=True)),
+]
+FLASH_MAIN = "serving prefill"
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+SERVE_ARCH = "internlm2-1.8b"
+SERVE = dict(n_slots=4, max_len=1024, replan_every=8)
+SERVE_REQUESTS, SERVE_NEW_TOKENS = 8, 32
 
 
 def card() -> str:
@@ -75,13 +123,15 @@ def check(ok: bool, what: str) -> None:
 
 # --------------------------------------------------------------- 1. build
 def phase_build() -> None:
-    built = vm_update.build()
-    took = ("reused an existing build" if built["seconds"] is None
-            else f"nvcc {built['seconds']:.3f} s")
-    say("build", f"advance_sweep {built['path'].name}: {took}")
-    for line in built["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"    {line.strip()}")
+    built = kbuild.build((vm_update.SRC, vm_update.NVCC_FLAGS),
+                         (flash_attention.SRC, flash_attention.NVCC_FLAGS))
+    for name, b in zip(("advance_sweep", "flash_attention"), built):
+        took = ("reused an existing build" if b["seconds"] is None
+                else f"nvcc {b['seconds']:.3f} s")
+        say("build", f"{name} {b['path'].name}: {took}")
+        for line in b["log"].splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"    {line.strip()}")
 
 
 # ------------------------------------------------------------- 2. kernels
@@ -134,6 +184,20 @@ def device_ms(fn, args, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def events_ms(fn, args, reps: int) -> float:
+    """Device time per call of calls many milliseconds long: CUDA events
+    around ``reps`` eager calls after one warm-up (the enqueue is hidden
+    behind the device time)."""
+    fn(*args)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        fn(*args)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def sweep_bound_ms(b: int, c: int) -> tuple[float, str]:
     """Least time for the sweep: each input read once and each output
     written once (rem, rate f32, active bool, bound f32 in; rem' and dt f32
@@ -145,7 +209,7 @@ def sweep_bound_ms(b: int, c: int) -> tuple[float, str]:
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
-def phase_kernels() -> dict:
+def phase_sweep_kernel() -> dict:
     record = {}
     for i, (b, c) in enumerate(KERNEL_SHAPES):
         args = sweep_inputs(b, c, seed=i)
@@ -177,6 +241,81 @@ def phase_kernels() -> dict:
         if (b, c) == MAIN_SHAPE:
             record = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                       "bound_ms": bound_ms, "bound_by": bound_by}
+    return record
+
+
+def flash_inputs(shape, dtype, seed: int):
+    b, hq, hk, sq, sk, d = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rand(h, s):
+        return torch.randn(b, h, s, d, device="cuda", generator=g).to(dtype)
+
+    return rand(hq, sq), rand(hk, sk), rand(hk, sk)
+
+
+def flash_bound_ms(shape, dtype, kw) -> tuple[float, str, int, int]:
+    """Least time for attention: 4 * D operations per valid (query, key)
+    pair over the card's peak for the dtype, or q, k, v read once and o
+    written once over the memory rate, whichever is larger.  Returns
+    (ms, what bounds it, operations, bytes)."""
+    b, hq, hk, sq, sk, d = shape
+    mask = ref.attention_mask(sq, sk, kw.get("causal", True), kw.get("window"),
+                              "cuda")
+    ops = 4 * d * int(mask.sum()) * b * hq
+    nbytes = (2 * b * hq * sq + 2 * b * hk * sk) * d * dtype.itemsize
+    peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S
+    by_ops, by_bytes = ops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    if by_ops >= by_bytes:
+        return by_ops, "operations", ops, nbytes
+    return by_bytes, "bytes", ops, nbytes
+
+
+def phase_flash_kernel() -> dict:
+    record = {}
+    for i, (name, shape, dtype, kw) in enumerate(FLASH_SHAPES):
+        b, hq, hk, sq, sk, d = shape
+        args = flash_inputs(shape, dtype, seed=100 + i)
+        kernel = functools.partial(flash_attention.flash_attention_cuda, **kw)
+        plain = functools.partial(ref.attention_ref, **kw)
+        out, want = kernel(*args), plain(*args)
+        torch.cuda.synchronize()
+        err = float((out.float() - want.float()).abs().max())
+        tol = FLASH_TOL[dtype]
+        check(torch.allclose(out.float(), want.float(), rtol=tol, atol=tol),
+              f"flash_attention {name} within {tol}: max |err| {err}")
+        del out, want
+        # the plain version holds [B, Hq, Sq, Sk] f32 scores: long calls are
+        # timed eagerly with events, short ones by graph replay
+        long_call = b * hq * sq * sk >= 2**27
+        timer, reps = (events_ms, 3) if long_call else (device_ms, 20)
+        times = {"plain": [], "kernel": []}
+        for which in ("plain", "kernel", "kernel", "plain"):
+            fn = plain if which == "plain" else kernel
+            times[which].append(timer(fn, args, reps))
+        ms, plain_ms = (sum(times[k]) / 2 for k in ("kernel", "plain"))
+        per_call = call_ms(kernel, args, reps)
+        library_ms = None
+        if sq == sk and kw.get("window") is None and not kw.get("softcap"):
+            sdpa = functools.partial(F.scaled_dot_product_attention,
+                                     is_causal=kw["causal"], enable_gqa=True)
+            library_ms = timer(sdpa, args, reps)
+        bound_ms, bound_by, ops, nbytes = flash_bound_ms(shape, dtype, kw)
+        say("kernels", (
+            f"flash_attention {name} q [{b}, {hq}, {sq}, {d}] k/v "
+            f"[{b}, {hk}, {sk}, {d}] {str(dtype).split('.')[1]} {kw}: "
+            f"max |err| {err!r} (tolerance {tol}); device time: kernel "
+            f"{ms!r} ms, plain {plain_ms!r} ms, "
+            f"scaled_dot_product_attention {library_ms!r} ms; kernel per "
+            f"call with its enqueue {per_call!r} ms; {ops} operations, "
+            f"{nbytes} bytes, bound {bound_ms!r} ms ({bound_by}), "
+            f"{bound_ms / ms:.4f} of bound, {ops / ms / 1e9!r} TFLOP/s"))
+        if name == FLASH_MAIN:
+            record = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": bound_ms, "bound_by": bound_by,
+                      "library_ms": library_ms}
+        del args
+    torch.cuda.empty_cache()
     return record
 
 
@@ -286,15 +425,155 @@ def phase_campaign(solo: dict) -> int:
     return batch_steps
 
 
+# ------------------------------------------------------------- 6. serving
+def serve_once(model, params, prompts) -> tuple[ServingEngine, float]:
+    eng = ServingEngine(model, params, **SERVE)
+    for p in prompts:
+        eng.submit(p, max_new_tokens=SERVE_NEW_TOKENS)
+    t0 = time.perf_counter()
+    eng.run_until_drained()
+    torch.cuda.synchronize()
+    return eng, time.perf_counter() - t0
+
+
+def phase_serving() -> int:
+    """Returns the flash kernel's launches over the counted run."""
+    cfg = get_config(SERVE_ARCH)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(x.numel() for x in leaves(params))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, size=int(n))
+               for n in rng.integers(128, 513, size=SERVE_REQUESTS)]
+
+    # a first run under the profiler warms up and gives the device time;
+    # its raw events are summed directly (key_averages takes minutes here)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        _, traced_wall = serve_once(model, params, prompts)
+    by_name: dict[str, list] = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            acc = by_name.setdefault(e.name(), [0.0, 0])
+            acc[0] += e.duration_ns() / 1e6
+            acc[1] += 1
+    busy_ms = sum(ms for ms, _ in by_name.values())
+    flash_ms = sum(ms for name, (ms, _) in by_name.items()
+                   if "flash_fwd" in name)
+    share = (f"{flash_ms / busy_ms!r} ({flash_ms!r} ms of {busy_ms!r} "
+             f"ms device time; idle share {1 - busy_ms / 1e3 / traced_wall!r}"
+             f" of the traced wall {traced_wall!r} s)" if busy_ms > 0
+             else "not measured")
+    say("serving", f"traced run: {sum(n for _, n in by_name.values())} "
+        f"device activities, {busy_ms!r} ms device time; the most:")
+    for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
+        print(f"    {ms:10.3f} ms  {n:6d} launches  {name[:100]}")
+
+    # the counted run
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.flash_attention_cuda.launches = 0
+    vm_update.advance_sweep_cuda.launches = 0
+    eng, wall = serve_once(model, params, prompts)
+    flash_launches = flash_attention.flash_attention_cuda.launches
+    sweep_launches = vm_update.advance_sweep_cuda.launches
+    st = eng.stats
+    check(all(r.done and r.generated == SERVE_NEW_TOKENS
+              for r in eng.requests), "every request served its 32 tokens")
+    check(flash_launches == cfg.n_layers * st["prefills"],
+          f"flash launches {flash_launches} == {cfg.n_layers} layers x "
+          f"{st['prefills']} prefills")
+    check(sweep_launches > 0, "the re-plans launched the advance sweep")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    say("serving", (
+        f"{SERVE_ARCH} full width and depth ({cfg.n_layers} layers, "
+        f"{n_params} parameters, f32 weights, bf16 compute, init {init_s!r} "
+        f"s): {len(prompts)} requests, prompts {[len(p) for p in prompts]}, "
+        f"{SERVE_NEW_TOKENS} new tokens each, {SERVE}: wall {wall!r} s, "
+        f"{eng.steps} engine steps, {st['prefills']} prefills of "
+        f"{st['prefill_tokens']} tokens in {st['prefill_s']!r} s = "
+        f"{st['prefill_tokens'] / st['prefill_s']!r} prefill tokens/s, "
+        f"{st['decode_steps']} decode steps of {st['decode_tokens']} tokens "
+        f"in {st['decode_s']!r} s = {st['decode_tokens'] / st['decode_s']!r} "
+        f"decode tokens/s; final policy {eng.sched.policy}; flash kernel "
+        f"{flash_launches} launches, advance sweep {sweep_launches} launches "
+        f"(re-plans); flash share of device time {share}; peak memory "
+        f"{peak!r} GiB"))
+    del params, eng
+    torch.cuda.empty_cache()
+    return flash_launches
+
+
+def leaves(tree):
+    for v in tree.values():
+        yield from (leaves(v) if isinstance(v, dict) else (v,))
+
+
+# -------------------------------------------------------------- 7. parity
+def phase_parity() -> None:
+    """The card against the port's CPU run at full width, 2 layers, f32.
+    The kernel adds the keys of a row in another order than the plain
+    version (tiles of 64, FMAs), and cuBLAS the products of the matmuls:
+    differences of ~1e-6 relative per layer, far inside 1e-3 on logits of
+    order 1, and too small to swap the greedy token (its margin over the
+    runner-up is checked)."""
+    cfg = dataclasses.replace(get_config(SERVE_ARCH, dtype="float32"),
+                              n_layers=2)
+    model = build_model(cfg)
+    cpu = model.init(torch.Generator().manual_seed(1))
+    gpu = to_device(cpu, "cuda")
+    prompt = torch.from_numpy(
+        np.random.default_rng(1).integers(0, cfg.vocab, size=(1, 200)))
+    max_len = 256
+    worst, tokens = 0.0, []
+    runs = {}
+    for dev, params in (("cpu", cpu), ("cuda", gpu)):
+        logits, caches = model.prefill(params, {"tokens": prompt.to(dev)},
+                                       max_len)
+        steps = [logits.cpu()]
+        tok = logits.argmax(-1)[:, None]
+        pos = torch.full((1,), prompt.shape[1], device=dev)
+        for _ in range(8):
+            logits, caches = model.decode_step(params, caches, tok, pos)
+            steps.append(logits.cpu())
+            tok, pos = logits.argmax(-1)[:, None], pos + 1
+        runs[dev] = steps
+    for i, (a, b) in enumerate(zip(runs["cuda"], runs["cpu"])):
+        check(torch.allclose(a, b, atol=1e-3, rtol=1e-3),
+              f"parity step {i}: logits within 1e-3")
+        check(torch.equal(a.argmax(-1), b.argmax(-1)),
+              f"parity step {i}: greedy token")
+        worst = max(worst, float((a - b).abs().max()))
+        top2 = b.topk(2, -1).values
+        tokens.append((int(b.argmax()), float(top2[0, 0] - top2[0, 1])))
+    say("parity", (
+        f"{SERVE_ARCH} full width, 2 layers, f32: prefill of 200 tokens and "
+        f"8 greedy decode steps on the card equal the CPU run: max |logit "
+        f"err| {worst!r}, tokens and CPU top-1 margins {tokens}"))
+
+
+def to_device(tree, dev):
+    return {k: to_device(v, dev) if isinstance(v, dict) else v.to(dev)
+            for k, v in tree.items()}
+
+
 def main() -> None:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}")
+    took = {}
+    t0 = time.perf_counter()
     phase_build()
-    record = phase_kernels()
+    took["build"] = time.perf_counter() - t0
+    sweep_record = phase_sweep_kernel()
+    flash_record = phase_flash_kernel()
+    took["kernels"] = time.perf_counter() - t0 - sum(took.values())
 
     vm_update.advance_sweep_cuda.launches = 0
     solo, steps = phase_anchors()
     steps += phase_campaign(solo)
+    took["anchors and campaign"] = time.perf_counter() - t0 - sum(took.values())
     launches = vm_update.advance_sweep_cuda.launches
     check(launches > 0, "the main path launched the advance-sweep kernel")
     check(launches == steps,
@@ -302,14 +581,27 @@ def main() -> None:
     say("proof", f"advance_sweep kernel launched {launches} times over "
         f"phases 3-4, one per batch step")
 
+    flash_launches = phase_serving()
+    took["serving"] = time.perf_counter() - t0 - sum(took.values())
+    phase_parity()
+    took["parity"] = time.perf_counter() - t0 - sum(took.values())
+    say("timing", ", ".join(f"{k} {v:.1f} s" for k, v in took.items()))
+
     kernels = [{
         "name": "advance_sweep",
         "route": "cuda",
         "source": "src/repro_torch/csrc/vm_update.cu",
         "replaces": "src/repro/kernels/vm_update.py:123",
         "launches": launches,
-        **record,
+        **sweep_record,
         "library_ms": None,
+    }, {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:99",
+        "launches": flash_launches,
+        **flash_record,
     }]
     print(CARD)
     print(json.dumps({"kernels": kernels}))

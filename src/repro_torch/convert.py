@@ -1,4 +1,5 @@
-"""Carry scenarios and results across from the JAX package, through numpy.
+"""Carry scenarios, results and model parameters across from the JAX
+package, through numpy.
 
 ``scenario_from_arrays`` reads any object with the field names of
 ``repro.core.Scenario`` (a JAX ``Scenario`` included) leaf by leaf with
@@ -7,7 +8,8 @@ JAX: a JAX array converts itself.  Workloads drawn with ``jax.random`` (the
 reference's generated scenarios) come across as data; the port never redraws
 them.  A scenario carrying a piece outside the port (a topology, an outage
 schedule, extra instruments) raises ``NotImplementedError`` here, from the
-port's ``Scenario``.
+port's ``Scenario``.  ``params_from_arrays`` maps a parameter (or cache)
+tree of nested dicts leaf by leaf.
 """
 from __future__ import annotations
 
@@ -56,3 +58,21 @@ def result_to_numpy(res) -> dict[str, np.ndarray]:
         out[f.name] = (x.detach().cpu().numpy() if isinstance(x, torch.Tensor)
                        else np.asarray(x))
     return out
+
+
+def _leaf(x, dev) -> torch.Tensor:
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":      # numpy has no bf16: carry the bits
+        return torch.from_numpy(a.view(np.uint16).copy()).view(
+            torch.bfloat16).to(dev)
+    return torch.from_numpy(np.array(a)).to(dev)
+
+
+def params_from_arrays(tree, device=None):
+    """The port's tensors for a nested dict of arrays (the JAX package's
+    parameter or cache tree, or any leaves ``np.asarray`` reads), on
+    ``device``; the dict structure is kept."""
+    dev = resolve_device(device)
+    if isinstance(tree, dict):
+        return {k: params_from_arrays(v, dev) for k, v in tree.items()}
+    return _leaf(tree, dev)

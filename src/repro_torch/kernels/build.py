@@ -1,0 +1,83 @@
+"""Build the port's CUDA sources with ``nvcc`` and bind them with ``ctypes``.
+
+One helper for every kernel: a source under ``csrc/`` is compiled for
+``sm_90a`` into a shared library with a plain C interface, at first use,
+under ``build/repro_torch/`` at the repository root (git-ignored).  The
+library's name carries a hash of the source and the flags, so an edited
+source builds anew and an unchanged one is reused.  ``build`` starts one
+``nvcc`` per source that is not built yet, all at once, and waits for them.
+Nothing is built or loaded at import.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+BASE_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
+)
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    for cand in (os.path.join(cuda_home, "bin", "nvcc"), shutil.which("nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def library_path(src: Path, flags: tuple[str, ...]) -> Path:
+    """Where the library of ``src`` built with ``flags`` lives."""
+    key = hashlib.sha256(src.read_bytes() + " ".join(flags).encode())
+    return BUILD_DIR / f"lib{src.stem}-{key.hexdigest()[:16]}.so"
+
+
+def build(*sources: tuple[Path, tuple[str, ...]]) -> list[dict]:
+    """Compile each ``(source, flags)`` pair unless it was built already.
+
+    Returns one ``{"path", "seconds", "log"}`` per pair, in order;
+    ``seconds`` is None when an existing build was reused, and ``log`` holds
+    nvcc's ``-Xptxas -v`` report (registers, shared memory and spills of
+    each kernel).  Raises if any nvcc fails.
+    """
+    out: list[dict | None] = [None] * len(sources)
+    running = []
+    for i, (src, flags) in enumerate(sources):
+        path = library_path(src, flags)
+        if path.exists():
+            out[i] = {"path": path, "seconds": None, "log": ""}
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.Popen(
+            [_nvcc(), *flags, "-o", str(tmp), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        running.append((i, src, path, tmp, proc, time.perf_counter()))
+    failed = []
+    for i, src, path, tmp, proc, t0 in running:
+        log, _ = proc.communicate()
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed building {src} (exit "
+                          f"{proc.returncode}):\n{log}")
+            continue
+        os.replace(tmp, path)
+        out[i] = {"path": path, "seconds": seconds, "log": log}
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return out
+
+
+def load(src: Path, flags: tuple[str, ...]) -> ctypes.CDLL:
+    """The library of ``src``, built if needed.  The caller declares
+    ``argtypes`` and ``restype`` of what it calls, and keeps the library
+    (``functools.cache`` on its own loader) so that it loads once."""
+    return ctypes.CDLL(str(build((src, flags))[0]["path"]))

@@ -3,8 +3,8 @@
 A CPU tensor goes to the plain PyTorch version (``ref.py``); a CUDA tensor
 goes to the hand-written kernel, which launches or raises.  There is no
 fallback from the kernel to the plain version, and no option that picks
-one: the reference's ``sweep_impl`` ("jnp" | "pallas") becomes the device
-the engine runs on.
+one: the reference's ``sweep_impl`` ("jnp" | "pallas") and ``attn_impl``
+("xla" | "pallas") become the device the tensors lie on.
 """
 from __future__ import annotations
 
@@ -14,6 +14,7 @@ import torch
 from torch import Tensor
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.vm_update import advance_sweep_cuda
 
 
@@ -32,3 +33,19 @@ def advance_sweep(rem: Tensor, rate: Tensor, active: Tensor,
     """Engine advance sweep, routed by the device ``rem`` lies on."""
     return resolve_advance(rem.device)(rem, rate, active, bound_dt)
 
+
+
+def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
+                    window: int | None = None, softcap: float = 0.0,
+                    scale: float | None = None) -> Tensor:
+    """Attention routed by the device ``q`` lies on: the CUDA kernel for a
+    CUDA tensor, ``ref.attention_ref`` for a CPU tensor."""
+    kind = q.device.type
+    if kind == "cuda":
+        fn = flash_attention_cuda
+    elif kind == "cpu":
+        fn = ref.attention_ref
+    else:
+        raise ValueError(f"no flash attention for device type {kind!r}")
+    return fn(q, k, v, causal=causal, window=window, softcap=softcap,
+              scale=scale)

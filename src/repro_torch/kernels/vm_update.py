@@ -2,9 +2,10 @@
 
 Replaces ``repro/kernels/vm_update.py::advance_sweep_pallas``.  The kernel
 source is ``csrc/vm_update.cu`` (its header says what bounds it and how the
-design answers that); this module plans the launch, builds the source with
-``nvcc`` at first use into ``build/repro_torch/`` at the repository root, and
-binds it through ``ctypes``.  Nothing is built or loaded at import.
+design answers that); this module plans the launch, and ``kernels/build.py``
+builds the source with ``nvcc`` at first use into ``build/repro_torch/`` at
+the repository root and binds it through ``ctypes``.  Nothing is built or
+loaded at import.
 
 The wrapper takes CUDA tensors only.  On a CPU tensor the caller routes to
 ``ref.advance_sweep_ref`` (``ops.advance_sweep``); this function raises.
@@ -12,22 +13,16 @@ The wrapper takes CUDA tensors only.  On a CPU tensor the caller routes to
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
+import functools
 
 import torch
 from torch import Tensor
 
-_SRC = Path(__file__).resolve().parents[1] / "csrc" / "vm_update.cu"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
-)
+from repro_torch.kernels import build as kbuild
+
+SRC = kbuild.CSRC / "vm_update.cu"
+# -fmad=false: rem - rate*dt stays two roundings, as in PyTorch (see the .cu)
+NVCC_FLAGS = (*kbuild.BASE_FLAGS, "-fmad=false")
 
 # Launch plan limits, from the H100 (see csrc/vm_update.cu):
 N_SM = 132
@@ -62,57 +57,15 @@ def kernel_plan(b: int, c: int) -> dict:
             "nb": 1, "grid": (b,)}
 
 
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    for cand in (os.path.join(cuda_home, "bin", "nvcc"), shutil.which("nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
-
-
-def build() -> dict:
-    """Compile ``csrc/vm_update.cu`` unless this source was built already.
-
-    Returns ``{"path", "seconds", "log"}``; ``seconds`` is None when an
-    existing build was reused, and ``log`` holds nvcc's ``-Xptxas -v``
-    report (registers, shared memory and spills of each kernel).
-    """
-    key = hashlib.sha256(_SRC.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    path = BUILD_DIR / f"libvm_update-{key.hexdigest()[:16]}.so"
-    if path.exists():
-        return {"path": path, "seconds": None, "log": ""}
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_suffix(f".{os.getpid()}.tmp")
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
-        capture_output=True, text=True,
-    )
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed building {_SRC} (exit {proc.returncode}):\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, path)
-    return {"path": path, "seconds": seconds, "log": proc.stdout + proc.stderr}
-
-
-_LIB = None
-
-
+@functools.cache
 def _library() -> ctypes.CDLL:
-    global _LIB
-    if _LIB is None:
-        lib = ctypes.CDLL(str(build()["path"]))
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.advance_sweep_fused.argtypes = [p, p, p, p, p, p, i, ll, i, i, p]
-        lib.advance_sweep_fused.restype = i
-        lib.advance_sweep_split.argtypes = [p, p, p, p, p, p, p, i, ll, i, i,
-                                            i, p]
-        lib.advance_sweep_split.restype = i
-        _LIB = lib
-    return _LIB
+    lib = kbuild.load(SRC, NVCC_FLAGS)
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.advance_sweep_fused.argtypes = [p, p, p, p, p, p, i, ll, i, i, p]
+    lib.advance_sweep_fused.restype = i
+    lib.advance_sweep_split.argtypes = [p, p, p, p, p, p, p, i, ll, i, i, i, p]
+    lib.advance_sweep_split.restype = i
+    return lib
 
 
 def _check(rem: Tensor, rate: Tensor, active: Tensor, bound_dt: Tensor):

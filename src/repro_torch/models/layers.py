@@ -1,0 +1,108 @@
+"""Shared model primitives: norms, rotary embeddings, SwiGLU, embeddings.
+
+The port of ``repro.models.layers``, to the same math.  Parameters are plain
+nested dicts of tensors, kept in f32 and cast to the compute dtype at each
+use, as in the reference.  Initialisation draws from an explicit
+``torch.Generator`` on the device the parameters are made on; its numbers
+differ from ``jax.random``'s, so parity tests carry the reference's
+parameters across (``convert.params_from_arrays``).  The reference's
+``shard_act`` constraints have no counterpart on one card.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import Tensor
+
+
+def trunc_normal(generator: torch.Generator, shape, scale: float | None = None,
+                 dtype=torch.float32) -> Tensor:
+    """``std`` times a standard normal truncated to [-2, 2]; ``std`` is
+    ``scale`` or fan-in ``**-0.5`` (product of all but the last dim)."""
+    fan_in = shape[0] if len(shape) >= 1 else 1
+    if len(shape) >= 2:
+        fan_in = 1
+        for d in shape[:-1]:
+            fan_in *= d
+    std = scale if scale is not None else fan_in ** -0.5
+    x = torch.empty(shape, dtype=dtype, device=generator.device)
+    torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    return x.mul_(std)
+
+
+def rms_norm(x: Tensor, scale: Tensor, eps: float = 1e-6) -> Tensor:
+    """RMS norm in f32; ``scale`` is stored as ``scale - 1`` (gemma-style)
+    and multiplies as ``1 + scale``."""
+    xf = x.float()
+    var = xf.square().mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * (1.0 + scale.float())).to(x.dtype)
+
+
+def init_rms_norm(d: int, device=None) -> Tensor:
+    return torch.zeros(d, dtype=torch.float32, device=device)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings
+# ---------------------------------------------------------------------------
+
+def rope_freqs(d_head: int, theta: float, device=None) -> Tensor:
+    exps = torch.arange(0, d_head, 2, dtype=torch.float32, device=device) / d_head
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: Tensor, positions: Tensor, theta: float) -> Tensor:
+    """x: ``[B, S, H, Dh]``; positions: ``[B, S]`` int.  Rotates the split
+    halves ``(x1, x2)`` of the head dim, not interleaved pairs."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)                # [Dh/2]
+    ang = positions[..., None].float() * freqs                       # [B,S,Dh/2]
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# SwiGLU MLP
+# ---------------------------------------------------------------------------
+
+def init_mlp(generator: torch.Generator, d_model: int, d_ff: int) -> dict:
+    return {
+        "w_gate": trunc_normal(generator, (d_model, d_ff)),
+        "w_up": trunc_normal(generator, (d_model, d_ff)),
+        "w_down": trunc_normal(generator, (d_ff, d_model)),
+    }
+
+
+def mlp(params: dict, x: Tensor) -> Tensor:
+    dt = x.dtype
+    g = x @ params["w_gate"].to(dt)
+    u = x @ params["w_up"].to(dt)
+    return (F.silu(g) * u) @ params["w_down"].to(dt)
+
+
+# ---------------------------------------------------------------------------
+# Embedding / unembedding
+# ---------------------------------------------------------------------------
+
+def init_embed(generator: torch.Generator, vocab: int, d_model: int) -> Tensor:
+    return trunc_normal(generator, (vocab, d_model), scale=1.0)
+
+
+def embed(table: Tensor, tokens: Tensor, dtype) -> Tensor:
+    # rows first, then the cast: the same values as the reference's
+    # cast-then-gather, without casting the whole table
+    return table[tokens].to(dtype)
+
+
+def unembed(x: Tensor, table_or_head: Tensor, softcap: float = 0.0) -> Tensor:
+    """x ``[..., D]`` @ head ``[D, V]`` (or a tied embedding ``[V, D]``,
+    transposed) -> f32 logits, then the final softcap."""
+    w = table_or_head
+    if w.shape[0] != x.shape[-1]:
+        w = w.T                                                      # tied [V,D]
+    logits = (x @ w.to(x.dtype)).float()
+    if softcap > 0.0:
+        logits = softcap * torch.tanh(logits / softcap)
+    return logits

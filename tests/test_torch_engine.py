@@ -182,6 +182,14 @@ def test_port_never_imports_jax():
         "scn = scenarios.fig4_scenario(1, 1, device='cpu')\n"
         "scn = scn.replace(power=PowerModel.uniform(1, device='cpu'))\n"
         "simulate(scn, device='cpu'); simulate_history(scn, device='cpu')\n"
+        "import torch, repro_torch.serving, repro_torch.launch.serve\n"
+        "from repro_torch.configs import get_config\n"
+        "from repro_torch.models import build_model\n"
+        "model = build_model(get_config('internlm2-1.8b', smoke=True))\n"
+        "params = model.init(torch.Generator('cpu').manual_seed(0))\n"
+        "logits, _ = model.prefill(params, {'tokens': torch.zeros(1, 5, "
+        "dtype=torch.long)}, 8)\n"
+        "assert logits.shape == (1, 256) and bool(logits.isfinite().all())\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
