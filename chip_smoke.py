@@ -3,12 +3,12 @@
     python3 chip_smoke.py
 
 Drives ``repro_torch`` (never JAX, never the JAX package ``repro``) through
-its two paths on the card, the event engine and the serving engine, and fails
-with a non-zero exit code if any phase fails:
+its three paths on the card, the event engine, the serving engine and the
+training loop, and fails with a non-zero exit code if any phase fails:
 
-1. build     compile every kernel of both paths from ``src/repro_torch/csrc``
-             (one nvcc per source, started together) and print nvcc's
-             register and spill lines
+1. build     compile every kernel of the three paths from
+             ``src/repro_torch/csrc`` (one nvcc per source, started together)
+             and print nvcc's register, shared-memory and spill lines
 2. kernels   each kernel against its plain PyTorch version on the card at the
              paths' shapes, with its device time (CUDA-graph replay, or CUDA
              events for calls of many milliseconds), the plain version's,
@@ -17,7 +17,11 @@ with a non-zero exit code if any phase fails:
              Flash attention: within 2e-5 (f32) / 2e-2 (bf16) at six shapes
              from the serving prefill to a gemma2-27b local layer, with
              ``scaled_dot_product_attention`` timed as a yardstick where it
-             computes the same function
+             computes the same function.  SSD scan: within 2e-2 (bf16) of
+             the plain chunked version at mamba2-130m's training shape and
+             a jamba-shaped one, within 2e-4 (f32) of the sequential scan at
+             a ragged one (no PyTorch call computes it); ``SSDScan``'s
+             gradients within 1e-4 of each leaf's largest value
 3. anchors   the paper's experiments through ``simulate`` on the card: Fig. 4
              (four policy pairs), Table 1, Fig. 9/10 at 10,000 hosts and
              Fig. 7/8 at 100,000 hosts, each against the port's own CPU run
@@ -35,6 +39,17 @@ with a non-zero exit code if any phase fails:
 7. parity    the same model at full width, 2 layers, f32: prefill logits and
              8 greedy decode steps on the card against the port's CPU run
              (logits within atol/rtol 1e-3, tokens identical)
+8. train     mamba2-130m at full width and depth (bf16 compute, f32 master
+             weights and AdamW) trained by ``run_training`` for 20 steps of
+             8 x 2,048 tokens on the Markov pipeline: losses and gradient
+             norms finite, the last 5 steps' mean loss below the first
+             step's, the SSD kernel launched once per layer per step;
+             tokens/s, step time, the SSD kernel's share of device time over
+             2 profiled steps, the idle share, peak memory
+9. train parity  mamba2-130m at full width, 2 layers, f32: one
+             ``make_train_step`` and the gradients on the card against the
+             CPU (loss rtol 1e-4, each gradient leaf within 1e-3 of its
+             largest value), ``lm_logits`` within atol/rtol 1e-3
 
 Every line of numbers carries the card's name and power limit.  The line
 before the last is the per-kernel JSON record; the last line is
@@ -60,14 +75,21 @@ if not torch.cuda.is_available():
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+from repro_torch import tree  # noqa: E402
 from repro_torch.convert import result_to_numpy  # noqa: E402
 from repro_torch.core import (  # noqa: E402
     SPACE_SHARED, TIME_SHARED, scenarios, simulate, stack_scenarios, step)
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import build as kbuild  # noqa: E402
-from repro_torch.kernels import flash_attention, ref, vm_update  # noqa: E402
+from repro_torch.data import ShardedLoader  # noqa: E402
+from repro_torch.kernels import (  # noqa: E402
+    flash_attention, ops, ref, ssd_scan, vm_update)
+from repro_torch.launch.train import run_training  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models.lm import lm_logits  # noqa: E402
 from repro_torch.serving import ServingEngine  # noqa: E402
+from repro_torch.train import OptConfig, adamw_init, make_train_step  # noqa: E402
+from repro_torch.train.step import value_and_grad  # noqa: E402
 
 # the plain versions and the parity phase compare in full f32 (no TF32)
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -99,6 +121,19 @@ FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 SERVE_ARCH = "internlm2-1.8b"
 SERVE = dict(n_slots=4, max_len=1024, replan_every=8)
 SERVE_REQUESTS, SERVE_NEW_TOKENS = 8, 32
+# SSD scan: name, (B, S, H, P, G, N), dtype, chunk, the plain version held to
+SSD_SHAPES = [
+    ("mamba2-130m training", (8, 2048, 24, 64, 1, 128), torch.bfloat16, 128,
+     "chunked"),
+    ("f32 ragged", (2, 300, 8, 32, 2, 64), torch.float32, 128, "sequential"),
+    ("jamba-shaped", (1, 4096, 128, 64, 1, 16), torch.bfloat16, 128,
+     "chunked"),
+]
+SSD_MAIN = "mamba2-130m training"
+SSD_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
+TRAIN_ARCH = "mamba2-130m"
+TRAIN = dict(steps=20, global_batch=8, seq_len=2048, lr=1e-3, log_every=5,
+             seed=0)
 
 
 def card() -> str:
@@ -124,13 +159,15 @@ def check(ok: bool, what: str) -> None:
 # --------------------------------------------------------------- 1. build
 def phase_build() -> None:
     built = kbuild.build((vm_update.SRC, vm_update.NVCC_FLAGS),
-                         (flash_attention.SRC, flash_attention.NVCC_FLAGS))
-    for name, b in zip(("advance_sweep", "flash_attention"), built):
+                         (flash_attention.SRC, flash_attention.NVCC_FLAGS),
+                         (ssd_scan.SRC, ssd_scan.NVCC_FLAGS))
+    for name, b in zip(("advance_sweep", "flash_attention", "ssd_scan"),
+                       built):
         took = ("reused an existing build" if b["seconds"] is None
                 else f"nvcc {b['seconds']:.3f} s")
         say("build", f"{name} {b['path'].name}: {took}")
         for line in b["log"].splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("registers", "spill", "smem")):
                 print(f"    {line.strip()}")
 
 
@@ -319,6 +356,103 @@ def phase_flash_kernel() -> dict:
     return record
 
 
+def ssd_inputs(shape, dtype, seed: int):
+    """Inputs of the size of a Mamba2 layer: dt as softplus gives it at
+    init and after some training, A from mamba2's init (-1 .. -16)."""
+    b, s, h, p, g, n = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rnd = functools.partial(torch.randn, device="cuda", generator=gen)
+    x = (rnd(b, s, h, p) * 0.5).to(dtype)
+    dt = torch.rand(b, s, h, device="cuda", generator=gen) * 0.099 + 0.001
+    A = -torch.linspace(1.0, 16.0, h, device="cuda")
+    Bm, Cm = ((rnd(b, s, g, n) * 0.3).to(dtype) for _ in range(2))
+    D = torch.rand(h, device="cuda", generator=gen)
+    return x, dt, A, Bm, Cm, D
+
+
+def ssd_bound_ms(shape, dtype, chunk) -> tuple[float, str, int, int]:
+    """Least time for the scan: per (b, h) and row of the sequence, Q N
+    multiply-adds for C.B and 3 P N for W x, C h and the state update (the
+    TPU kernel's work, Q^2 N + 3 Q P N per chunk) over the card's peak for
+    the dtype; or x, dt, B, C read once and y written once over the memory
+    rate, whichever is larger.  Returns (ms, what bounds it, operations,
+    bytes)."""
+    b, s, h, p, g, n = shape
+    ops_ = 2 * b * h * s * (chunk * n + 3 * p * n)
+    nbytes = (2 * b * s * h * p + 2 * b * s * g * n) * dtype.itemsize \
+        + b * s * h * 4 + 2 * h * 4
+    peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S
+    by_ops, by_bytes = ops_ / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    if by_ops >= by_bytes:
+        return by_ops, "operations", ops_, nbytes
+    return by_bytes, "bytes", ops_, nbytes
+
+
+def phase_ssd_kernel() -> dict:
+    record = {}
+    for i, (name, shape, dtype, chunk, against) in enumerate(SSD_SHAPES):
+        b, s, h, p, g, n = shape
+        args = ssd_inputs(shape, dtype, seed=200 + i)
+        kernel = functools.partial(ssd_scan.ssd_scan_cuda, chunk=chunk)
+        plain = functools.partial(ref.ssd_scan_ref, chunk=chunk)
+        out = kernel(*args)
+        want = (ref.ssd_ref(*args) if against == "sequential"
+                else plain(*args))
+        torch.cuda.synchronize()
+        check(bool(out.float().isfinite().all()), f"ssd_scan {name} finite")
+        err = float((out.float() - want.float()).abs().max())
+        tol = SSD_TOL[dtype]
+        check(torch.allclose(out.float(), want.float(), rtol=tol, atol=tol),
+              f"ssd_scan {name} within {tol} of the {against} version: "
+              f"max |err| {err}")
+        del out, want
+        # calls of milliseconds: CUDA events around eager calls, in turns
+        times = {"plain": [], "kernel": []}
+        for which in ("plain", "kernel", "kernel", "plain"):
+            fn = plain if which == "plain" else kernel
+            times[which].append(events_ms(fn, args, 5))
+        ms, plain_ms = (sum(times[k]) / 2 for k in ("kernel", "plain"))
+        per_call = call_ms(kernel, args, 5)
+        bound_ms, bound_by, ops_, nbytes = ssd_bound_ms(shape, dtype, chunk)
+        say("kernels", (
+            f"ssd_scan {name} x [{b}, {s}, {h}, {p}] B/C [{b}, {s}, {g}, {n}] "
+            f"{str(dtype).split('.')[1]} chunk {chunk}: max |err| {err!r} "
+            f"against the {against} version (tolerance {tol}); device time: "
+            f"kernel {ms!r} ms, plain {plain_ms!r} ms; kernel per call with "
+            f"its enqueue {per_call!r} ms; {ops_} operations, {nbytes} bytes, "
+            f"bound {bound_ms!r} ms ({bound_by}), {bound_ms / ms:.4f} of "
+            f"bound, {ops_ / ms / 1e9!r} TFLOP/s"))
+        if name == SSD_MAIN:
+            record = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": bound_ms, "bound_by": bound_by,
+                      "library_ms": None}
+        del args
+    torch.cuda.empty_cache()
+
+    # gradients: SSDScan (kernel forward, plain backward) against autograd
+    # through the plain version, f32 at a block of mamba2-130m's widths
+    shape = (2, 512, 24, 64, 1, 128)
+    args = ssd_inputs(shape, torch.float32, seed=300)
+    mine = [a.clone().requires_grad_(True) for a in args]
+    theirs = [a.clone().requires_grad_(True) for a in args]
+    gy = torch.randn(shape[:4], device="cuda",
+                     generator=torch.Generator("cuda").manual_seed(301))
+    got = torch.autograd.grad(ops.ssd_scan(*mine, chunk=128), mine, gy)
+    want = torch.autograd.grad(ref.ssd_scan_ref(*theirs, chunk=128), theirs,
+                               gy)
+    worst = {}
+    for leaf, a, w in zip(("x", "dt", "A", "Bm", "Cm", "D"), got, want):
+        scale = float(w.abs().max())
+        worst[leaf] = float((a - w).abs().max()) / scale
+        check(bool(a.isfinite().all()) and worst[leaf] <= 1e-4,
+              f"SSDScan gradient of {leaf} within 1e-4 of its largest value "
+              f"({worst[leaf]!r})")
+    say("kernels", f"SSDScan gradients at x {list(shape[:4])} f32 against "
+        f"the plain version's autograd, max |err| / max |grad| per leaf: "
+        f"{worst}")
+    return record
+
+
 # ------------------------------------------------------------- 3. anchors
 def same_as_cpu(gpu_res, scn, name: str) -> None:
     """The card's result against the port's own CPU run of the scenario."""
@@ -444,22 +578,16 @@ def phase_serving() -> int:
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    n_params = sum(x.numel() for x in leaves(params))
+    n_params = sum(x.numel() for x in tree.leaves(params))
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab, size=int(n))
                for n in rng.integers(128, 513, size=SERVE_REQUESTS)]
 
-    # a first run under the profiler warms up and gives the device time;
-    # its raw events are summed directly (key_averages takes minutes here)
+    # a first run under the profiler warms up and gives the device time
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         _, traced_wall = serve_once(model, params, prompts)
-    by_name: dict[str, list] = {}
-    for e in prof.profiler.kineto_results.events():
-        if e.device_type() == torch.autograd.DeviceType.CUDA:
-            acc = by_name.setdefault(e.name(), [0.0, 0])
-            acc[0] += e.duration_ns() / 1e6
-            acc[1] += 1
+    by_name = device_time_by_name(prof)
     busy_ms = sum(ms for ms, _ in by_name.values())
     flash_ms = sum(ms for name, (ms, _) in by_name.items()
                    if "flash_fwd" in name)
@@ -506,11 +634,6 @@ def phase_serving() -> int:
     return flash_launches
 
 
-def leaves(tree):
-    for v in tree.values():
-        yield from (leaves(v) if isinstance(v, dict) else (v,))
-
-
 # -------------------------------------------------------------- 7. parity
 def phase_parity() -> None:
     """The card against the port's CPU run at full width, 2 layers, f32.
@@ -523,7 +646,7 @@ def phase_parity() -> None:
                               n_layers=2)
     model = build_model(cfg)
     cpu = model.init(torch.Generator().manual_seed(1))
-    gpu = to_device(cpu, "cuda")
+    gpu = tree.map_tree(lambda t: t.to("cuda"), cpu)
     prompt = torch.from_numpy(
         np.random.default_rng(1).integers(0, cfg.vocab, size=(1, 200)))
     max_len = 256
@@ -554,9 +677,141 @@ def phase_parity() -> None:
         f"err| {worst!r}, tokens and CPU top-1 margins {tokens}"))
 
 
-def to_device(tree, dev):
-    return {k: to_device(v, dev) if isinstance(v, dict) else v.to(dev)
-            for k, v in tree.items()}
+def device_time_by_name(prof) -> dict[str, list]:
+    """``{kernel name: [device ms, launches]}`` from a profiler's raw CUDA
+    events (key_averages takes minutes on long traces)."""
+    by_name: dict[str, list] = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            acc = by_name.setdefault(e.name(), [0.0, 0])
+            acc[0] += e.duration_ns() / 1e6
+            acc[1] += 1
+    return by_name
+
+
+# --------------------------------------------------------------- 8. train
+def phase_train() -> int:
+    """Returns the SSD kernel's launches over the counted run."""
+    cfg = get_config(TRAIN_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    ssd_scan.ssd_scan_cuda.launches = 0
+    flash_attention.flash_attention_cuda.launches = 0
+    vm_update.advance_sweep_cuda.launches = 0
+    t0 = time.perf_counter()
+    out = run_training(cfg, **TRAIN)
+    wall = time.perf_counter() - t0
+    ssd_launches = ssd_scan.ssd_scan_cuda.launches
+    others = (flash_attention.flash_attention_cuda.launches,
+              vm_update.advance_sweep_cuda.launches)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses, norms = out["losses"], out["grad_norms"]
+    steps = TRAIN["steps"]
+    check(out["steps_run"] == steps, f"ran {out['steps_run']} of {steps} steps")
+    check(all(np.isfinite(losses)) and all(np.isfinite(norms)),
+          f"losses {losses} and grad norms {norms} finite")
+    last5 = float(np.mean(losses[-5:]))
+    check(last5 < losses[0], f"mean loss of the last 5 steps {last5} below "
+          f"the first step's {losses[0]}")
+    check(ssd_launches == cfg.n_layers * steps == out["ssd_launches"],
+          f"SSD launches {ssd_launches} (run_training counted "
+          f"{out['ssd_launches']}) == {cfg.n_layers} layers x {steps} steps")
+    n_params = sum(x.numel() for x in tree.leaves(out["params"]))
+    tokens = TRAIN["global_batch"] * TRAIN["seq_len"]
+    first_step, after_first = out["step_seconds"][0], out["step_seconds"][1:]
+    mean_step = sum(after_first) / len(after_first)
+
+    # two more steps under the profiler: where the device time goes
+    model = build_model(cfg)
+    step_fn = make_train_step(model, OptConfig(lr=TRAIN["lr"]))
+    params, opt_state = out["params"], adamw_init(out["params"])
+    loader = ShardedLoader(cfg.vocab, TRAIN["global_batch"], TRAIN["seq_len"],
+                           seed=1)
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in next(loader).items()}
+               for _ in range(2)]
+    loader.close()
+    del out
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        for batch in batches:
+            params, opt_state, metrics = step_fn(params, opt_state, batch)
+            float(metrics["loss"])
+        traced_wall = time.perf_counter() - t1
+    by_name = device_time_by_name(prof)
+    busy_ms = sum(ms for ms, _ in by_name.values())
+    ssd_ms = sum(ms for name, (ms, _) in by_name.items() if "ssd_fwd" in name)
+    share = (f"{ssd_ms / busy_ms!r} ({ssd_ms!r} ms of {busy_ms!r} ms device "
+             f"time; idle share {1 - busy_ms / 1e3 / traced_wall!r} of the "
+             f"traced wall {traced_wall!r} s)" if busy_ms > 0
+             else "not measured")
+    say("train", f"2 traced steps: {sum(n for _, n in by_name.values())} "
+        f"device activities, {busy_ms!r} ms device time; the most:")
+    for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
+        print(f"    {ms:10.3f} ms  {n:6d} launches  {name[:100]}")
+    say("train", (
+        f"{TRAIN_ARCH} full width and depth ({cfg.n_layers} layers, "
+        f"{n_params} parameters, f32 weights and AdamW, bf16 compute): "
+        f"{steps} steps of {TRAIN['global_batch']} x {TRAIN['seq_len']} "
+        f"tokens, lr {TRAIN['lr']}: wall {wall!r} s, first step "
+        f"{first_step!r} s, then {mean_step!r} s a step (min "
+        f"{min(after_first)!r}, max {max(after_first)!r}) = "
+        f"{tokens / mean_step!r} tokens/s; losses "
+        f"{[round(x, 4) for x in losses]}; grad norms "
+        f"{[round(x, 3) for x in norms]}; SSD kernel {ssd_launches} "
+        f"launches (flash {others[0]}, advance sweep {others[1]}); SSD share "
+        f"of device time {share}; peak memory {peak!r} GiB"))
+    del params, opt_state, batches, prof
+    torch.cuda.empty_cache()
+    return ssd_launches
+
+
+# ------------------------------------------------------- 9. train parity
+def phase_train_parity() -> None:
+    """One train step and the gradients at full width, 2 layers, f32, on
+    the card against the CPU.  cuBLAS and the kernel add in other orders
+    than the CPU: ~1e-6 relative per layer.  Parameters after the step are
+    not compared: at step 1 AdamW moves a weight by about lr times the sign
+    of its gradient, so a tiny gradient of opposite sign differs by 2 lr."""
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH, dtype="float32"),
+                              n_layers=2)
+    model = build_model(cfg)
+    cpu = model.init(torch.Generator().manual_seed(2))
+    gpu = tree.map_tree(lambda t: t.to("cuda"), cpu)
+    full = np.random.default_rng(2).integers(0, cfg.vocab, size=(2, 513))
+    batch = {"tokens": torch.from_numpy(full[:, :-1]),
+             "labels": torch.from_numpy(full[:, 1:].copy())}
+    step_fn = make_train_step(model, OptConfig(lr=1e-3, warmup_steps=5,
+                                               total_steps=20))
+    runs = {}
+    for dev, params in (("cpu", cpu), ("cuda", gpu)):
+        b = {k: v.to(dev) for k, v in batch.items()}
+        _, _, metrics = step_fn(params, adamw_init(params), b)
+        _, grads = value_and_grad(model, params, b)
+        with torch.no_grad():
+            logits = lm_logits(params, cfg, b["tokens"])
+        runs[dev] = (float(metrics["loss"]), float(metrics["grad_norm"]),
+                     {tree.key(p): v.cpu()
+                      for p, v in tree.leaves_with_path(grads)},
+                     logits.cpu())
+    (l0, n0, g0, z0), (l1, n1, g1, z1) = runs["cpu"], runs["cuda"]
+    check(abs(l1 - l0) <= 1e-4 * abs(l0), f"train parity loss {l1} vs {l0}")
+    worst = 0.0
+    for k in g0:
+        scale = float(g0[k].abs().max())
+        err = float((g1[k] - g0[k]).abs().max())
+        check(err <= 1e-3 * scale, f"train parity gradient {k}: {err} vs "
+              f"largest {scale}")
+        worst = max(worst, err / scale if scale else 0.0)
+    check(torch.allclose(z1, z0, atol=1e-3, rtol=1e-3),
+          "train parity lm_logits within 1e-3")
+    say("train parity", (
+        f"{TRAIN_ARCH} full width, 2 layers, f32, batch 2 x 512: one "
+        f"make_train_step on the card equals the CPU: loss {l1!r} vs {l0!r}, "
+        f"grad norm {n1!r} vs {n0!r}; {len(g0)} gradient leaves, worst |err| "
+        f"/ largest |grad| {worst!r}; max |logit err| "
+        f"{float((z1 - z0).abs().max())!r}"))
+
 
 
 def main() -> None:
@@ -568,6 +823,7 @@ def main() -> None:
     took["build"] = time.perf_counter() - t0
     sweep_record = phase_sweep_kernel()
     flash_record = phase_flash_kernel()
+    ssd_record = phase_ssd_kernel()
     took["kernels"] = time.perf_counter() - t0 - sum(took.values())
 
     vm_update.advance_sweep_cuda.launches = 0
@@ -585,6 +841,10 @@ def main() -> None:
     took["serving"] = time.perf_counter() - t0 - sum(took.values())
     phase_parity()
     took["parity"] = time.perf_counter() - t0 - sum(took.values())
+    ssd_launches = phase_train()
+    took["train"] = time.perf_counter() - t0 - sum(took.values())
+    phase_train_parity()
+    took["train parity"] = time.perf_counter() - t0 - sum(took.values())
     say("timing", ", ".join(f"{k} {v:.1f} s" for k, v in took.items()))
 
     kernels = [{
@@ -602,6 +862,13 @@ def main() -> None:
         "replaces": "src/repro/kernels/flash_attention.py:99",
         "launches": flash_launches,
         **flash_record,
+    }, {
+        "name": "ssd_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:81",
+        "launches": ssd_launches,
+        **ssd_record,
     }]
     print(CARD)
     print(json.dumps({"kernels": kernels}))

@@ -9,7 +9,8 @@ reference's generated scenarios) come across as data; the port never redraws
 them.  A scenario carrying a piece outside the port (a topology, an outage
 schedule, extra instruments) raises ``NotImplementedError`` here, from the
 port's ``Scenario``.  ``params_from_arrays`` maps a parameter (or cache)
-tree of nested dicts leaf by leaf.
+tree of nested dicts leaf by leaf; ``opt_state_from_arrays`` carries an
+AdamW state of either package (``mu``, ``nu``, a 0-d int32 ``step``).
 """
 from __future__ import annotations
 
@@ -76,3 +77,17 @@ def params_from_arrays(tree, device=None):
     if isinstance(tree, dict):
         return {k: params_from_arrays(v, dev) for k, v in tree.items()}
     return _leaf(tree, dev)
+
+
+def opt_state_from_arrays(state, device=None) -> dict:
+    """The port's AdamW state (``train.optimizer.adamw_init`` /
+    ``adamw_update``) for the JAX package's: the moment trees leaf by leaf
+    and the step as a 0-d int32 tensor, on ``device``."""
+    if set(state) != {"mu", "nu", "step"}:
+        raise ValueError(f"an AdamW state has keys mu, nu and step, not "
+                         f"{sorted(state)}")
+    out = params_from_arrays(state, device)
+    if out["step"].shape != () or out["step"].dtype != torch.int32:
+        raise ValueError(f"AdamW step is {out['step'].dtype} of shape "
+                         f"{tuple(out['step'].shape)}, expected a 0-d int32")
+    return out

@@ -1,3 +1,3 @@
 """Kernels of the port: plain PyTorch versions (``ref``), the CUDA kernels
-and their wrappers (``vm_update``, ``flash_attention``), the shared nvcc
-build (``build``), and routing by device (``ops``)."""
+and their wrappers (``vm_update``, ``flash_attention``, ``ssd_scan``), the
+shared nvcc build (``build``), and routing by device (``ops``)."""

@@ -6,7 +6,9 @@ under ``build/repro_torch/`` at the repository root (git-ignored).  The
 library's name carries a hash of the source and the flags, so an edited
 source builds anew and an unchanged one is reused.  ``build`` starts one
 ``nvcc`` per source that is not built yet, all at once, and waits for them.
-Nothing is built or loaded at import.
+Nothing is built or loaded at import.  A kernel called through ``ctypes``
+writes into a fresh tensor outside the autograd graph, so every wrapper
+calls ``refuse_autograd`` first.
 """
 from __future__ import annotations
 
@@ -17,6 +19,8 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -81,3 +85,17 @@ def load(src: Path, flags: tuple[str, ...]) -> ctypes.CDLL:
     ``argtypes`` and ``restype`` of what it calls, and keeps the library
     (``functools.cache`` on its own loader) so that it loads once."""
     return ctypes.CDLL(str(build((src, flags))[0]["path"]))
+
+
+def refuse_autograd(name: str, **tensors: torch.Tensor) -> None:
+    """Raise where autograd would record a kernel's output: the ctypes call
+    writes into a fresh tensor that has no ``grad_fn``, so the gradient of
+    every input that requires one would be lost without a word."""
+    if not torch.is_grad_enabled():
+        return
+    need = [k for k, t in tensors.items() if t.requires_grad]
+    if need:
+        raise RuntimeError(
+            f"{name} has no backward: the gradient of {', '.join(need)} "
+            "would be lost.  Call it under torch.no_grad(), or through a "
+            "differentiable form")

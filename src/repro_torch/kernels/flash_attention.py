@@ -7,7 +7,11 @@ and how the design answers that); ``kernels/build.py`` builds it with
 loaded at import.
 
 The wrapper takes CUDA tensors only.  On a CPU tensor the caller routes to
-``ref.attention_ref`` (``ops.flash_attention``); this function raises.
+``ref.attention_ref`` (``ops.flash_attention``); this function raises.  The
+kernel has no backward yet: under autograd, with q, k or v requiring a
+gradient, the wrapper raises rather than return a result cut off from the
+graph (serving runs without gradients; training a dense model on the card
+waits for a backward kernel).
 """
 from __future__ import annotations
 
@@ -88,6 +92,7 @@ def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor, *,
     Launches on the current stream and does not synchronise.  Each call that
     launches adds one to ``flash_attention_cuda.launches``.
     """
+    kbuild.refuse_autograd("flash_attention_cuda", q=q, k=k, v=v)
     _check(q, k, v, window)
     b, hq, sq, d = q.shape
     hk, sk = k.shape[1], k.shape[2]

@@ -4,7 +4,9 @@ A CPU tensor goes to the plain PyTorch version (``ref.py``); a CUDA tensor
 goes to the hand-written kernel, which launches or raises.  There is no
 fallback from the kernel to the plain version, and no option that picks
 one: the reference's ``sweep_impl`` ("jnp" | "pallas") and ``attn_impl``
-("xla" | "pallas") become the device the tensors lie on.
+("xla" | "pallas") become the device the tensors lie on.  ``ssd_scan`` is
+differentiable on both devices: on the card through ``SSDScan`` (kernel
+forward, plain-version backward), on the CPU through the plain version.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ from torch import Tensor
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.ssd_scan import SSDScan
 from repro_torch.kernels.vm_update import advance_sweep_cuda
 
 
@@ -34,7 +37,6 @@ def advance_sweep(rem: Tensor, rate: Tensor, active: Tensor,
     return resolve_advance(rem.device)(rem, rate, active, bound_dt)
 
 
-
 def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
                     window: int | None = None, softcap: float = 0.0,
                     scale: float | None = None) -> Tensor:
@@ -49,3 +51,16 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
         raise ValueError(f"no flash attention for device type {kind!r}")
     return fn(q, k, v, causal=causal, window=window, softcap=softcap,
               scale=scale)
+
+
+def ssd_scan(x: Tensor, dt: Tensor, A: Tensor, Bm: Tensor, Cm: Tensor,
+             D: Tensor, *, chunk: int = 128) -> Tensor:
+    """The Mamba2 SSD scan routed by the device ``x`` lies on: the CUDA
+    kernel (through ``SSDScan``) for a CUDA tensor, ``ref.ssd_scan_ref`` for
+    a CPU tensor.  S need not be a multiple of ``chunk``."""
+    kind = x.device.type
+    if kind == "cuda":
+        return SSDScan.apply(x, dt, A, Bm, Cm, D, chunk)
+    if kind == "cpu":
+        return ref.ssd_scan_ref(x, dt, A, Bm, Cm, D, chunk=chunk)
+    raise ValueError(f"no SSD scan for device type {kind!r}")

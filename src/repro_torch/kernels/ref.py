@@ -1,11 +1,14 @@
 """Plain PyTorch versions of the port's kernels (the ``ref.py`` contract).
 
 Each is the semantic ground truth its kernel is held against on the card,
-and the CPU path: a wrapper given a CPU tensor computes this.
+and the CPU path: a wrapper given a CPU tensor computes this.  ``ssd_ref``
+and ``ssd_chunked_ref`` are also the JAX package's own plain versions of the
+SSD scan; ``ssd_scan_ref`` is the function the SSD kernel computes.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import Tensor
 
 INF = 3.0e38
@@ -71,13 +74,122 @@ def attention_ref(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
     g = hq // hk
     scale = d ** -0.5 if scale is None else scale
     qg = q.reshape(b, hk, g, sq, d).float()
-    # in place where it saves a [.., Sq, Sk] buffer (the card holds long ones)
-    s = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float()).mul_(scale)
+    # in place where it saves a [.., Sq, Sk] buffer (the card holds long
+    # ones), unless autograd needs the intermediates
+    inplace = not (torch.is_grad_enabled() and
+                   (q.requires_grad or k.requires_grad or v.requires_grad))
+
+    def op(t: Tensor, name: str, *args) -> Tensor:
+        return getattr(t, name + "_" if inplace else name)(*args)
+
+    s = op(torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float()), "mul", scale)
     if softcap > 0.0:
-        s = s.div_(softcap).tanh_().mul_(softcap)
-    s = s.masked_fill_(~attention_mask(sq, sk, causal, window, q.device), NEG)
+        s = op(op(op(s, "div", softcap), "tanh"), "mul", softcap)
+    s = op(s, "masked_fill", ~attention_mask(sq, sk, causal, window, q.device),
+           NEG)
     keep = s > NEG / 2
-    p = s.sub_(s.amax(-1, keepdim=True)).exp_().masked_fill_(~keep, 0.0)
+    p = op(op(op(s, "sub", s.amax(-1, keepdim=True)), "exp"), "masked_fill",
+           ~keep, 0.0)
     l_sum = p.sum(-1, keepdim=True).clamp_min(1e-30)
     out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float()) / l_sum
     return out.reshape(b, hq, sq, d).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 SSD (state-space duality)
+# ---------------------------------------------------------------------------
+
+def _heads(m: Tensor, h: int) -> Tensor:
+    """``[B, S, G, N]`` -> ``[B, S, H, N]`` f32: head h reads group
+    ``h // (H // G)``."""
+    return m.float().repeat_interleave(h // m.shape[2], dim=2)
+
+
+def ssd_ref(x: Tensor, dt: Tensor, A: Tensor, Bm: Tensor, Cm: Tensor,
+            D: Tensor) -> Tensor:
+    """Sequential scan: ``y_t = C_t h_t + D x_t`` with
+    ``h_t = exp(dt_t A) h_{t-1} + dt_t x_t B_t^T``, in f32.
+
+    x ``[B, S, H, P]``, dt ``[B, S, H]`` (post-softplus), A ``[H]`` (< 0),
+    Bm/Cm ``[B, S, G, N]``, D ``[H]``; y in x's dtype.
+    """
+    b, s, h, p = x.shape
+    Bh, Ch = _heads(Bm, h), _heads(Cm, h)
+    xf, dtf = x.float(), dt.float()
+    state = x.new_zeros((b, h, p, Bm.shape[3]), dtype=torch.float32)
+    ys = []
+    for t in range(s):
+        decay = torch.exp(dtf[:, t] * A)[..., None, None]          # [B,H,1,1]
+        upd = (dtf[:, t, :, None, None] * xf[:, t, :, :, None]) \
+            * Bh[:, t, :, None, :]
+        state = decay * state + upd                                 # [B,H,P,N]
+        ys.append(torch.einsum("bhpn,bhn->bhp", state, Ch[:, t]))
+    y = torch.stack(ys, 1) + D[None, None, :, None] * xf
+    return y.to(x.dtype)
+
+
+def ssd_chunked_ref(x: Tensor, dt: Tensor, A: Tensor, Bm: Tensor, Cm: Tensor,
+                    D: Tensor, chunk: int = 64, return_state: bool = False):
+    """Chunk-parallel SSD, the math of the kernel (and of the JAX package's
+    ``ref.ssd_chunked_ref``, its training path).  S must be a multiple of
+    ``chunk``.  With ``return_state`` also returns the final ``[B, H, P, N]``
+    state.
+
+    The intra-chunk decay ``exp(cum_i - cum_j)`` is masked to ``i >= j``
+    *before* the exponential.  The reference exponentiates the whole
+    ``[Q, Q]`` square and then selects; the masked entries (``i < j``) have
+    ``cum_i - cum_j > 0`` and overflow to inf once ``sum dt |A|`` over a
+    chunk passes ~88, and the gradient of the select is then ``0 * inf =
+    NaN``.  Masking first gives the same values and a finite gradient.
+    """
+    b, s, h, p = x.shape
+    n = Bm.shape[3]
+    if s % chunk:
+        raise ValueError(f"ssd_chunked_ref: S={s} is not a multiple of "
+                         f"chunk={chunk} (pad with dt = 0)")
+    nc = s // chunk
+    xc = x.float().reshape(b, nc, chunk, h, p)
+    dtc = dt.float().reshape(b, nc, chunk, h)
+    Bc = _heads(Bm, h).reshape(b, nc, chunk, h, n)
+    Cc = _heads(Cm, h).reshape(b, nc, chunk, h, n)
+
+    cum = torch.cumsum(dtc * A, dim=2)                        # [B,nc,Q,H]
+    seg = cum[:, :, -1, :]                                    # [B,nc,H]
+
+    # intra-chunk (dual quadratic form)
+    CB = torch.einsum("bcqhn,bckhn->bchqk", Cc, Bc)           # [B,nc,H,Q,K]
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]      # [B,nc,Q,K,H]
+    tri = torch.ones(chunk, chunk, dtype=torch.bool, device=x.device).tril()
+    L = diff.masked_fill(~tri[None, None, :, :, None], -torch.inf).exp()
+    W = CB * L.movedim(-1, 2)                                 # [B,nc,H,Q,K]
+    y_intra = torch.einsum("bchqk,bckh,bckhp->bcqhp", W, dtc, xc)
+
+    # inter-chunk: carry the state across chunks
+    w = torch.exp(seg[:, :, None, :] - cum) * dtc             # [B,nc,Q,H]
+    state_in = torch.einsum("bcqhp,bcqh,bcqhn->bchpn", xc, w, Bc)
+    decay = torch.exp(seg)                                    # [B,nc,H]
+    state = x.new_zeros((b, h, p, n), dtype=torch.float32)
+    before = []
+    for c in range(nc):
+        before.append(state)                                  # state BEFORE c
+        state = decay[:, c, :, None, None] * state + state_in[:, c]
+    h_prev = torch.stack(before, 1)                           # [B,nc,H,P,N]
+    y_inter = torch.einsum("bcqhn,bchpn,bcqh->bcqhp", Cc, h_prev, cum.exp())
+    y = (y_intra + y_inter).reshape(b, s, h, p)
+    y = (y + D[None, None, :, None] * x.float()).to(x.dtype)
+    if return_state:
+        return y, state
+    return y
+
+
+def ssd_scan_ref(x: Tensor, dt: Tensor, A: Tensor, Bm: Tensor, Cm: Tensor,
+                 D: Tensor, *, chunk: int = 128) -> Tensor:
+    """What the SSD kernel computes (and the JAX package's
+    ``ssd_scan_pallas``): the chunked scan over S padded up to a multiple of
+    ``chunk`` with ``dt = 0`` (identity steps), cut back to S."""
+    s = x.shape[1]
+    pad = (-s) % chunk
+    if pad:
+        x, Bm, Cm = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (x, Bm, Cm))
+        dt = F.pad(dt, (0, 0, 0, pad))
+    return ssd_chunked_ref(x, dt, A, Bm, Cm, D, chunk=chunk)[:, :s]

@@ -1,4 +1,5 @@
-"""repro_torch.models — the model zoo of the port (dense family so far).
+"""repro_torch.models — the model zoo of the port (dense and SSM families so
+far).
 
 Shares the parameter-dict style and the ``Model`` API of ``repro.models``.
 """

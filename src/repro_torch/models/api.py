@@ -1,9 +1,10 @@
 """Unified model API: the port of ``repro.models.api``.
 
-``Model`` wraps init / prefill / decode behind one interface.  The port runs
-the dense family (phi3, qwen3, gemma2, internlm2); ``build_model`` raises
-``NotImplementedError`` naming any other family.  ``loss`` (training),
-``param_specs`` and ``input_specs`` (the dry run) wait for later slices.
+``Model`` wraps init / train-loss / prefill / decode behind one interface.
+The port runs the dense family (phi3, qwen3, gemma2, internlm2) and the SSM
+family (mamba2); ``build_model`` raises ``NotImplementedError`` naming any
+other family.  ``param_specs`` and ``input_specs`` (the dry run) wait for a
+later slice.
 """
 from __future__ import annotations
 
@@ -17,8 +18,7 @@ from repro_torch.models.config import ModelConfig
 
 _NOT_YET = {
     "moe": "MoE layers (models/moe.py)",
-    "ssm": "SSM mixers (models/ssm.py)",
-    "hybrid": "SSM mixers and MoE layers (models/ssm.py, models/moe.py)",
+    "hybrid": "MoE layers (models/moe.py)",
     "encdec": "the encoder-decoder (models/encdec.py)",
     "vlm": "M-RoPE and frontend embeddings",
 }
@@ -31,6 +31,12 @@ class Model:
     def init(self, generator: torch.Generator) -> dict:
         """Random f32 parameters on ``generator.device``."""
         return lm.init_lm(generator, self.cfg)
+
+    def loss(self, params, batch: dict[str, Any]):
+        """Mean next-token loss of ``batch`` (``tokens``, ``labels`` with
+        -100 masked, optional ``positions``): a 0-d f32 tensor."""
+        return lm.lm_loss(params, self.cfg, batch["tokens"], batch["labels"],
+                          positions=batch.get("positions"))
 
     def prefill(self, params, batch: dict[str, Any], max_len: int):
         return lm.prefill(params, self.cfg, batch["tokens"], max_len,

@@ -1,4 +1,4 @@
-"""Decoder-only LM, dense family: the port of ``repro.models.lm``.
+"""Decoder-only LM, dense and SSM families: the port of ``repro.models.lm``.
 
 The parameter tree is the reference's: nested dicts, with the layer stack
 under ``periods`` stacked on a leading ``n_periods`` axis, so that
@@ -7,9 +7,10 @@ by leaf.  The reference scans over periods; the port loops over them in
 Python.  Weights stay f32 and are cast to the compute dtype at each use, as
 in the reference.
 
-Ported: ``init_lm``, ``forward_hidden``, ``lm_logits``, ``init_caches``
-(attention entries), ``prefill`` and ``decode_step``.  An SSM mixer or an MoE
-MLP raises ``NotImplementedError``; ``lm_loss`` waits for the training slice.
+Ported: ``init_lm``, ``forward_hidden``, ``lm_loss``, ``lm_logits``,
+``init_caches``, ``prefill`` and ``decode_step``, for attention and SSM
+mixers with dense MLPs (or none, as in mamba2).  An MoE MLP, the vlm and
+encdec families raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -18,18 +19,18 @@ from torch import Tensor
 
 from repro_torch.core import resolve_device
 from repro_torch.models import attention as attn
-from repro_torch.models import layers
+from repro_torch.models import layers, ssm
 from repro_torch.models.config import ModelConfig
 
+AUX_LOSS_WEIGHT = 0.01
+LOSS_CHUNK = 512
 
-def _dense_only(cfg: ModelConfig) -> None:
+
+def _check_ported(cfg: ModelConfig) -> None:
     for i in range(cfg.period):
-        if cfg.mixer_kind(i) != "attn":
+        if cfg.mlp_kind(i) == "moe":
             raise NotImplementedError(
-                f"{cfg.name}: SSM mixers are not ported yet")
-        if cfg.mlp_kind(i) != "dense":
-            raise NotImplementedError(
-                f"{cfg.name}: {cfg.mlp_kind(i)} MLPs are not ported yet")
+                f"{cfg.name}: moe MLPs are not ported yet")
     if cfg.family in ("vlm", "encdec") or cfg.n_frontend_tokens:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is not ported yet")
@@ -51,21 +52,25 @@ def _stack(trees: list[dict]) -> dict:
 # ---------------------------------------------------------------------------
 
 def _init_period(generator: torch.Generator, cfg: ModelConfig) -> dict:
+    """One period's parameters, drawn per sub-layer in the reference's
+    order: mixer, then MLP."""
     p = {}
     dev = generator.device
     for i in range(cfg.period):
-        p[f"sub{i}"] = {
-            "norm1": layers.init_rms_norm(cfg.d_model, dev),
-            "mixer": attn.init_attention(generator, cfg),
-            "norm2": layers.init_rms_norm(cfg.d_model, dev),
-            "mlp": layers.init_mlp(generator, cfg.d_model, cfg.d_ff),
-        }
+        sub: dict = {"norm1": layers.init_rms_norm(cfg.d_model, dev)}
+        sub["mixer"] = (attn.init_attention(generator, cfg)
+                        if cfg.mixer_kind(i) == "attn"
+                        else ssm.init_ssm(generator, cfg))
+        if cfg.mlp_kind(i) != "none":
+            sub["norm2"] = layers.init_rms_norm(cfg.d_model, dev)
+            sub["mlp"] = layers.init_mlp(generator, cfg.d_model, cfg.d_ff)
+        p[f"sub{i}"] = sub
     return p
 
 
 def init_lm(generator: torch.Generator, cfg: ModelConfig) -> dict:
     """Random parameters on ``generator.device``, drawn from it in order."""
-    _dense_only(cfg)
+    _check_ported(cfg)
     params = {
         "embed": layers.init_embed(generator, cfg.vocab, cfg.d_model),
         "final_norm": layers.init_rms_norm(cfg.d_model, generator.device),
@@ -81,7 +86,9 @@ def init_lm(generator: torch.Generator, cfg: ModelConfig) -> dict:
 # forward (full-sequence trunk)
 # ---------------------------------------------------------------------------
 
-def _mlp_block(cfg: ModelConfig, sub: dict, x: Tensor) -> Tensor:
+def _mlp_block(cfg: ModelConfig, i: int, sub: dict, x: Tensor) -> Tensor:
+    if cfg.mlp_kind(i) == "none":
+        return x
     h = layers.rms_norm(x, sub["norm2"], cfg.norm_eps)
     return x + layers.mlp(sub["mlp"], h)
 
@@ -90,17 +97,20 @@ def _apply_period(cfg: ModelConfig, pp: dict, x: Tensor, positions) -> Tensor:
     for i in range(cfg.period):
         sub = pp[f"sub{i}"]
         h = layers.rms_norm(x, sub["norm1"], cfg.norm_eps)
-        x = x + attn.attention(sub["mixer"], cfg, h, positions, causal=True,
+        if cfg.mixer_kind(i) == "attn":
+            h = attn.attention(sub["mixer"], cfg, h, positions, causal=True,
                                window=cfg.layer_window(i))
-        x = _mlp_block(cfg, sub, x)
+        else:
+            h = ssm.ssm_apply(sub["mixer"], cfg, h)
+        x = _mlp_block(cfg, i, sub, x + h)
     return x
 
 
 def forward_hidden(params: dict, cfg: ModelConfig, tokens: Tensor,
                    positions: Tensor | None = None) -> tuple[Tensor, Tensor]:
     """Returns (final hidden ``[B, S, D]``, aux loss); the aux loss is the
-    MoE balance term, zero for the dense family."""
-    _dense_only(cfg)
+    MoE balance term, zero for the ported families."""
+    _check_ported(cfg)
     x = layers.embed(params["embed"], tokens, cfg.compute_dtype)
     for n in range(cfg.n_periods):
         x = _apply_period(cfg, _period(params["periods"], n), x, positions)
@@ -110,6 +120,29 @@ def forward_hidden(params: dict, cfg: ModelConfig, tokens: Tensor,
 
 def _unembed_table(params, cfg):
     return params["embed"] if cfg.tie_embeddings else params["head"]
+
+
+def lm_loss(params: dict, cfg: ModelConfig, tokens: Tensor, labels: Tensor,
+            positions: Tensor | None = None) -> Tensor:
+    """Mean next-token cross-entropy over the labels ``>= 0`` (-100 =
+    masked), plus ``AUX_LOSS_WEIGHT`` times the aux loss.  The logits are
+    made ``LOSS_CHUNK`` positions at a time, as in the reference, so the
+    whole ``[B, S, V]`` tensor never exists at once in the forward; the
+    reference pads the last chunk with masked labels, which adds nothing."""
+    hidden, aux = forward_hidden(params, cfg, tokens, positions)
+    table = _unembed_table(params, cfg)
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.int64, device=hidden.device)
+    for s0 in range(0, hidden.shape[1], LOSS_CHUNK):
+        logits = layers.unembed(hidden[:, s0:s0 + LOSS_CHUNK], table,
+                                cfg.final_softcap)               # f32 [B,C,V]
+        lab = labels[:, s0:s0 + LOSS_CHUNK]
+        mask = lab >= 0
+        gold = logits.gather(-1, lab.clamp_min(0).long()[..., None])[..., 0]
+        nll = torch.where(mask, torch.logsumexp(logits, -1) - gold, 0.0)
+        tot = tot + nll.sum()
+        cnt = cnt + mask.sum()
+    return tot / cnt.clamp_min(1) + AUX_LOSS_WEIGHT * aux
 
 
 def lm_logits(params, cfg, tokens, positions=None):
@@ -124,33 +157,50 @@ def lm_logits(params, cfg, tokens, positions=None):
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
                 device=None) -> dict:
-    """Stacked per-period KV caches ``[n_periods, batch, Hk, max_len, Dh]``
-    in the compute dtype, zeros, on ``device`` (``None``: the GPU)."""
-    _dense_only(cfg)
+    """Stacked per-period caches on ``device`` (``None``: the GPU), zeros:
+    for an attention sub-layer k/v ``[n_periods, batch, Hk, max_len, Dh]``
+    in the compute dtype; for an SSM sub-layer the conv window
+    ``[n_periods, batch, W-1, conv_dim]`` in the compute dtype and the state
+    ``[n_periods, batch, H, P, N]`` in f32."""
+    _check_ported(cfg)
     device = resolve_device(device)
-    shape = (cfg.n_periods, batch, cfg.n_kv_heads, max_len, cfg.d_head)
     dt = cfg.compute_dtype
-    return {f"sub{i}": {"k": torch.zeros(shape, dtype=dt, device=device),
-                        "v": torch.zeros(shape, dtype=dt, device=device)}
-            for i in range(cfg.period)}
+    caches = {}
+    for i in range(cfg.period):
+        if cfg.mixer_kind(i) == "attn":
+            shape = (cfg.n_periods, batch, cfg.n_kv_heads, max_len, cfg.d_head)
+            caches[f"sub{i}"] = {
+                "k": torch.zeros(shape, dtype=dt, device=device),
+                "v": torch.zeros(shape, dtype=dt, device=device)}
+        else:
+            c = ssm.init_ssm_cache(cfg, batch, cfg.n_periods, dt, device)
+            caches[f"sub{i}"] = {"conv": c["conv"], "state": c["ssm"]}
+    return caches
 
 
 def decode_step(params: dict, cfg: ModelConfig, caches: dict, token: Tensor,
                 pos: Tensor) -> tuple[Tensor, dict]:
-    """One decode step: logits ``[B, V]``, and the caches with this token's
-    k/v written at ``pos`` (in place: the returned dict is ``caches``)."""
-    _dense_only(cfg)
+    """One decode step: logits ``[B, V]``, and the caches with this token
+    written in (in place: the returned dict is ``caches``): k/v at ``pos``,
+    the SSM conv window and state advanced by one step."""
+    _check_ported(cfg)
     x = layers.embed(params["embed"], token, cfg.compute_dtype)  # [B,1,D]
     for n in range(cfg.n_periods):
         pp = _period(params["periods"], n)
         cache_p = _period(caches, n)
         for i in range(cfg.period):
-            sub = pp[f"sub{i}"]
+            sub, cache = pp[f"sub{i}"], cache_p[f"sub{i}"]
             h = layers.rms_norm(x, sub["norm1"], cfg.norm_eps)
-            h, _ = attn.attention_decode(
-                sub["mixer"], cfg, h, cache_p[f"sub{i}"]["k"],
-                cache_p[f"sub{i}"]["v"], pos, window=cfg.layer_window(i))
-            x = _mlp_block(cfg, sub, x + h)
+            if cfg.mixer_kind(i) == "attn":
+                h, _ = attn.attention_decode(
+                    sub["mixer"], cfg, h, cache["k"], cache["v"], pos,
+                    window=cfg.layer_window(i))
+            else:
+                h, conv_s, ssm_s = ssm.ssm_decode(
+                    sub["mixer"], cfg, h, cache["conv"], cache["state"])
+                cache["conv"].copy_(conv_s)
+                cache["state"].copy_(ssm_s)
+            x = _mlp_block(cfg, i, sub, x + h)
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = layers.unembed(x[:, 0], _unembed_table(params, cfg),
                             cfg.final_softcap)
@@ -160,8 +210,9 @@ def decode_step(params: dict, cfg: ModelConfig, caches: dict, token: Tensor,
 def prefill(params: dict, cfg: ModelConfig, tokens: Tensor, max_len: int,
             positions: Tensor | None = None) -> tuple[Tensor, dict]:
     """Process a prompt ``[B, S]``: last-position logits ``[B, V]`` and the
-    caches, filled to ``S`` and zero-padded to ``max_len``."""
-    _dense_only(cfg)
+    caches: k/v filled to ``S`` and zero-padded to ``max_len``, the SSM conv
+    tail and final state."""
+    _check_ported(cfg)
     x = layers.embed(params["embed"], tokens, cfg.compute_dtype)
     B, S, _ = x.shape
     if positions is None:
@@ -173,12 +224,17 @@ def prefill(params: dict, cfg: ModelConfig, tokens: Tensor, max_len: int,
         for i in range(cfg.period):
             sub = pp[f"sub{i}"]
             h = layers.rms_norm(x, sub["norm1"], cfg.norm_eps)
-            h, (kT, vT) = attn.attention_prefill(
-                sub["mixer"], cfg, h, positions, window=cfg.layer_window(i))
-            pad = (0, 0, 0, max_len - S)
-            cache_out[f"sub{i}"] = {"k": torch.nn.functional.pad(kT, pad),
-                                    "v": torch.nn.functional.pad(vT, pad)}
-            x = _mlp_block(cfg, sub, x + h)
+            if cfg.mixer_kind(i) == "attn":
+                h, (kT, vT) = attn.attention_prefill(
+                    sub["mixer"], cfg, h, positions,
+                    window=cfg.layer_window(i))
+                pad = (0, 0, 0, max_len - S)
+                cache_out[f"sub{i}"] = {"k": torch.nn.functional.pad(kT, pad),
+                                        "v": torch.nn.functional.pad(vT, pad)}
+            else:
+                h, conv_s, ssm_s = ssm.ssm_prefill(sub["mixer"], cfg, h)
+                cache_out[f"sub{i}"] = {"conv": conv_s, "state": ssm_s}
+            x = _mlp_block(cfg, i, sub, x + h)
         per_period.append(cache_out)
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = layers.unembed(x[:, -1], _unembed_table(params, cfg),

@@ -16,6 +16,10 @@ under time sharing re-prefills its prompt when it is re-admitted, and its
 re-plan, comes from wall time, so re-planning is not deterministic across
 runs.
 
+Serving computes no gradients: ``step`` runs under ``torch.no_grad()``, so
+the flash kernel's wrapper, which refuses autograd, serves parameters that
+require a gradient too.
+
 ``stats`` counts the prefills and the prompt tokens they took, the decode
 steps and the tokens they produced for live requests, and the seconds each
 took (host clock, ending in a device synchronisation).
@@ -100,6 +104,7 @@ class ServingEngine:
         self.stats["prefill_s"] += time.perf_counter() - t0
 
     # ------------------------------------------------------------- main loop
+    @torch.no_grad()
     def step(self) -> dict:
         """One engine iteration: (re)plan, admit+prefill, decode one batched token."""
         if self.replan_every and self.steps % self.replan_every == 0:

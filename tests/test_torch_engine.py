@@ -172,7 +172,8 @@ def test_stack_scenarios_refuses_mixed_static_fields():
 
 
 def test_port_never_imports_jax():
-    """The port runs end to end without JAX or the JAX package loaded."""
+    """The port runs end to end without JAX or the JAX package loaded: a
+    simulation, a smoke prefill and a smoke train step."""
     src = str(Path(__file__).resolve().parents[1] / "src")
     code = (
         "import sys\n"
@@ -190,6 +191,12 @@ def test_port_never_imports_jax():
         "logits, _ = model.prefill(params, {'tokens': torch.zeros(1, 5, "
         "dtype=torch.long)}, 8)\n"
         "assert logits.shape == (1, 256) and bool(logits.isfinite().all())\n"
+        "import repro_torch.launch.train, repro_torch.train, repro_torch.ckpt\n"
+        "import repro_torch.data\n"
+        "out = repro_torch.launch.train.run_training(\n"
+        "    get_config('mamba2-130m', smoke=True), steps=1, global_batch=2,\n"
+        "    seq_len=16, log_every=0, device='cpu')\n"
+        "assert out['steps_run'] == 1 and out['losses'][0] == out['losses'][0]\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"

@@ -106,3 +106,16 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     """No fallback: the CUDA wrapper raises rather than compute on the CPU."""
     with pytest.raises(ValueError, match="not a CUDA device"):
         fa.flash_attention_cuda(*_port(_qkv(4, 1, 2, 2, 8, 8, 64), "float32"))
+
+
+def test_kernel_wrapper_refuses_autograd():
+    """The kernel has no backward: under autograd, with an input that needs
+    a gradient, the wrapper raises rather than return a result cut off from
+    the graph.  Without a gradient to lose it goes on to its other checks."""
+    q, k, v = _port(_qkv(6, 1, 2, 2, 8, 8, 64), "float32")
+    q.requires_grad_(True)
+    v.requires_grad_(True)
+    with pytest.raises(RuntimeError, match="gradient of q, v would be lost"):
+        fa.flash_attention_cuda(q, k, v)
+    with torch.no_grad(), pytest.raises(ValueError, match="not a CUDA device"):
+        fa.flash_attention_cuda(q, k, v)

@@ -32,6 +32,7 @@ from repro.serving import capacity as jax_capacity
 from repro.serving import choose_policy as jax_choose_policy
 from repro.serving import queue_scenario as jax_queue_scenario
 from repro.serving.scheduler import Request as JaxRequest
+from repro_torch import tree
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.convert import params_from_arrays, scenario_from_arrays
 from repro_torch.models import build_model, lm
@@ -43,8 +44,8 @@ pytestmark = pytest.mark.tier1
 DENSE = ["internlm2-1.8b", "gemma2-27b", "qwen3-32b", "phi3-mini-3.8b"]
 NOT_PORTED = {
     "qwen3-moe-235b-a22b": "moe", "granite-moe-1b-a400m": "moe",
-    "mamba2-130m": "ssm", "jamba-v0.1-52b": "hybrid",
-    "whisper-large-v3": "encdec", "qwen2-vl-72b": "vlm",
+    "jamba-v0.1-52b": "hybrid", "whisper-large-v3": "encdec",
+    "qwen2-vl-72b": "vlm",
 }
 
 
@@ -198,6 +199,47 @@ def test_engines_step_in_lockstep(policy, slots):
         assert eng.stats["prefills"] > len(eng.requests)    # re-prefills
     else:
         assert eng.stats["prefills"] == len(eng.requests)
+
+
+def test_ssm_engines_step_in_lockstep():
+    """mamba2 through both engines: the slot rows of the conv and state
+    caches are written by prefill and advanced by decode."""
+    jcfg, jmodel, jparams, model, params = _models("mamba2-130m", seed=5)
+    kw = dict(n_slots=2, max_len=24, policy=SPACE_SHARED, replan_every=0)
+    jeng = JaxServingEngine(jmodel, jparams, **kw)
+    eng = ServingEngine(model, params, device="cpu", **kw)
+    for prompt, new in _lockstep_requests(np.random.default_rng(3),
+                                          jcfg.vocab):
+        jeng.submit(prompt, max_new_tokens=new)
+        eng.submit(prompt, max_new_tokens=new)
+    while any(not r.done for r in jeng.requests) and jeng.steps < 40:
+        jout, out = jeng.step(), eng.step()
+        assert out["finished"] == jout["finished"]
+        assert eng.tokens.tolist() == np.asarray(jeng.tokens).tolist()
+    assert eng.steps == jeng.steps and all(r.done for r in eng.requests)
+    _same_tree(eng.caches, jeng.caches, 1e-5)
+
+
+def test_serving_runs_without_gradients(monkeypatch):
+    """The engine serves under ``torch.no_grad()``, so the flash kernel's
+    wrapper, which refuses autograd, serves parameters that require a
+    gradient."""
+    from repro_torch.models import attention
+    _, _, _, model, params = _models("internlm2-1.8b")
+    for leaf in tree.leaves(params):
+        leaf.requires_grad_(True)
+    seen = []
+    plain = attention.ops.flash_attention
+
+    def recording(*args, **kw):
+        seen.append(torch.is_grad_enabled())
+        return plain(*args, **kw)
+
+    monkeypatch.setattr(attention.ops, "flash_attention", recording)
+    eng = ServingEngine(model, params, n_slots=1, max_len=16, device="cpu")
+    eng.submit(np.arange(5), max_new_tokens=3)
+    eng.run_until_drained()
+    assert seen and not any(seen) and eng.requests[0].done
 
 
 def _queue(n, seed):

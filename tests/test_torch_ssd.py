@@ -1,0 +1,204 @@
+"""The port's SSD scan against the JAX package's, on the CPU.
+
+The port's plain versions (``ref.ssd_ref``, ``ref.ssd_chunked_ref`` with its
+final state, ``ref.ssd_scan_ref``) are held against the JAX ``ref``
+functions and the Pallas kernel ``ssd_scan_pallas`` in interpret mode, on
+the same numpy inputs, within 2e-4: the tolerance of the reference's kernel
+tests (``tests/test_kernels.py``; the chunked and sequential forms add in
+different orders).  Gradients are held to 1e-4 of each leaf's largest
+value.  The CUDA kernel runs only on a card: its tests are in
+``test_torch_ssd_cuda.py``.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as jref
+from repro.kernels.ssd_scan import ssd_scan_pallas
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ssd_scan as ssd
+
+pytestmark = pytest.mark.tier1
+
+TOL = 2e-4
+NAMES = ("x", "dt", "A", "Bm", "Cm", "D")
+
+
+def _inputs(seed, b, s, h, p, g, n, dt_lo=0.001, dt_hi=0.1, A=None):
+    """x, dt, A, Bm, Cm, D as numpy f32, drawn as the reference's tests
+    draw them."""
+    rng = np.random.default_rng(seed)
+    A = -rng.uniform(0.5, 2, h) if A is None else np.asarray(A)
+    arrays = (rng.standard_normal((b, s, h, p)) * 0.5,
+              rng.uniform(dt_lo, dt_hi, (b, s, h)), A,
+              rng.standard_normal((b, s, g, n)) * 0.3,
+              rng.standard_normal((b, s, g, n)) * 0.3,
+              rng.uniform(0, 1, h))
+    return [a.astype(np.float32) for a in arrays]
+
+
+def _port(arrays, grad=False):
+    return [torch.from_numpy(a).requires_grad_(grad) for a in arrays]
+
+
+def _jax(arrays):
+    return [jnp.asarray(a) for a in arrays]
+
+
+def _close(out, want, tol=TOL):
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want),
+                               rtol=tol, atol=tol)
+
+
+def _grads_close(got, want, tol=1e-4):
+    for name, a, w in zip(NAMES, got, want):
+        a, w = a.numpy(), np.asarray(w)
+        assert np.isfinite(a).all(), name
+        scale = max(float(np.abs(w).max()), 1.0)
+        assert float(np.abs(a - w).max()) <= tol * scale, name
+
+
+SHAPES = [
+    # b, s, h, p, g, n, chunk: the reference's kernel-test shapes, and a
+    # sequence that is not a multiple of the chunk
+    (1, 64, 2, 16, 1, 16, 32),
+    (2, 128, 4, 32, 2, 32, 64),
+    (1, 96, 2, 16, 1, 32, 32),
+    (1, 200, 2, 16, 1, 16, 128),
+]
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", SHAPES)
+def test_plain_versions_match_jax_ref(b, s, h, p, g, n, chunk):
+    arrays = _inputs(s * 13 + n, b, s, h, p, g, n)
+    _close(ref.ssd_ref(*_port(arrays)), jref.ssd_ref(*_jax(arrays)))
+    if s % chunk == 0:
+        _close(ref.ssd_chunked_ref(*_port(arrays), chunk=chunk),
+               jref.ssd_chunked_ref(*_jax(arrays), chunk=chunk))
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", SHAPES)
+def test_scan_matches_pallas_interpret(b, s, h, p, g, n, chunk):
+    """``ssd_scan_ref`` (what the CUDA kernel computes) and ``ops.ssd_scan``
+    on the CPU against the Pallas kernel, padding included."""
+    arrays = _inputs(s * 7 + p, b, s, h, p, g, n)
+    want = ssd_scan_pallas(*_jax(arrays), chunk=chunk, interpret=True)
+    _close(ref.ssd_scan_ref(*_port(arrays), chunk=chunk), want)
+    _close(ops.ssd_scan(*_port(arrays), chunk=chunk), want)
+
+
+def test_chunked_final_state_matches_jax():
+    arrays = _inputs(3, 2, 128, 4, 8, 2, 16)
+    y, state = ref.ssd_chunked_ref(*_port(arrays), chunk=32,
+                                   return_state=True)
+    jy, jstate = jref.ssd_chunked_ref(*_jax(arrays), chunk=32,
+                                      return_state=True)
+    _close(y, jy)
+    _close(state, jstate)
+    # and the sequential scan's state: the last row's y, with D = 0, is C h
+    arrays[5][:] = 0.0
+    _, state = ref.ssd_chunked_ref(*_port(arrays), chunk=32,
+                                   return_state=True)
+    Ch = np.repeat(arrays[4][:, -1], 2, axis=1)               # [B, H, N]
+    last = np.einsum("bhpn,bhn->bhp", state.numpy(), Ch)
+    np.testing.assert_allclose(last, ref.ssd_ref(*_port(arrays))[:, -1],
+                               rtol=TOL, atol=TOL)
+
+
+def test_chunked_ref_refuses_a_ragged_sequence():
+    with pytest.raises(ValueError, match="multiple of chunk"):
+        ref.ssd_chunked_ref(*_port(_inputs(0, 1, 40, 2, 16, 1, 16)), chunk=32)
+
+
+def test_gradient_is_finite_where_the_masked_exp_overflows():
+    """dt = 0.1 and |A| = 16 over a chunk of 128: sum dt |A| reaches ~200,
+    and exp(cum_i - cum_j) above the diagonal overflows.  The port masks
+    before the exponential, so its gradient is finite, and it equals
+    jax.grad of the sequential scan (which never forms those entries) and,
+    for the leaves where JAX's own chunked gradient is finite, that one."""
+    arrays = _inputs(5, 1, 256, 2, 16, 1, 16, dt_lo=0.1, dt_hi=0.1,
+                     A=[-16.0, -1.0])
+    leaves = _port(arrays, grad=True)
+    got = torch.autograd.grad(ref.ssd_chunked_ref(*leaves, chunk=128).sum(),
+                              leaves)
+    argnums = tuple(range(6))
+    seq = jax.grad(lambda *a: jref.ssd_ref(*a).sum(), argnums)(*_jax(arrays))
+    _grads_close(got, seq)
+    chunked = jax.grad(lambda *a: jref.ssd_chunked_ref(*a, chunk=128).sum(),
+                       argnums)(*_jax(arrays))
+    finite = [i for i, g in enumerate(chunked) if np.isfinite(g).all()]
+    assert {0, 3, 4, 5} <= set(finite)
+    _grads_close([got[i] for i in finite], [chunked[i] for i in finite])
+
+
+def _jax_grads(arrays, gy, chunk):
+    def f(*a):
+        return jnp.sum(jref.ssd_chunked_ref(*a, chunk=chunk) * gy)
+    return jax.grad(f, tuple(range(6)))(*_jax(arrays))
+
+
+def test_ops_gradient_on_the_cpu_matches_jax():
+    """The CPU route (autograd through the plain version) against jax.grad
+    of the reference's chunked scan, its training path."""
+    arrays = _inputs(6, 2, 128, 4, 16, 2, 32)
+    gy = np.random.default_rng(7).standard_normal((2, 128, 4, 16)).astype(
+        np.float32)
+    leaves = _port(arrays, grad=True)
+    y = ops.ssd_scan(*leaves, chunk=64)
+    got = torch.autograd.grad(y, leaves, torch.from_numpy(gy))
+    _grads_close(got, _jax_grads(arrays, gy, 64))
+
+
+def test_ssdscan_backward_matches_jax(monkeypatch):
+    """``SSDScan`` (the card's route) run on the CPU, with the kernel
+    replaced by its plain version: its backward, which recomputes the plain
+    version under autograd, against jax.grad.  Its forward runs with
+    autograd off, as the kernel's wrapper requires."""
+    grad_mode = []
+
+    def kernel_stand_in(*args, chunk):
+        grad_mode.append(torch.is_grad_enabled())
+        return ref.ssd_scan_ref(*args, chunk=chunk)
+
+    monkeypatch.setattr(ssd, "ssd_scan_cuda", kernel_stand_in)
+    arrays = _inputs(8, 1, 96, 4, 16, 1, 32)
+    gy = np.random.default_rng(9).standard_normal((1, 96, 4, 16)).astype(
+        np.float32)
+    leaves = _port(arrays, grad=True)
+    y = ssd.SSDScan.apply(*leaves, 64)      # S = 96: ragged for chunk 64
+    assert grad_mode == [False] and y.grad_fn is not None
+    got = torch.autograd.grad(y, leaves, torch.from_numpy(gy))
+    padded = [np.pad(a, [(0, 0), (0, 32)] + [(0, 0)] * (a.ndim - 2))
+              if a.ndim > 1 else a for a in arrays]
+    want = _jax_grads(padded, np.pad(gy, [(0, 0), (0, 32), (0, 0), (0, 0)]),
+                      64)
+    want = [w[:, :96] if w.ndim > 1 else w for w in want]
+    _grads_close(got, want)
+    # only the inputs that need a gradient get one
+    part = [leaves[0]] + [t.detach() for t in leaves[1:]]
+    (gx,) = torch.autograd.grad(ssd.SSDScan.apply(*part, 64), [part[0]],
+                                torch.from_numpy(gy))
+    _grads_close([gx], want[:1])
+
+
+def test_cpu_tensors_route_to_the_plain_version():
+    args = _port(_inputs(10, 1, 64, 2, 16, 1, 16))
+    launches = ssd.ssd_scan_cuda.launches
+    out = ops.ssd_scan(*args, chunk=32)
+    assert torch.equal(out, ref.ssd_scan_ref(*args, chunk=32))
+    assert ssd.ssd_scan_cuda.launches == launches
+    with pytest.raises(ValueError, match="device type 'meta'"):
+        ops.ssd_scan(*[a.to("meta") for a in args], chunk=32)
+
+
+def test_kernel_wrapper_refuses_cpu_tensors_and_autograd():
+    """No fallback: the CUDA wrapper raises rather than compute on the CPU,
+    and rather than return a result cut off from the graph."""
+    args = _port(_inputs(11, 1, 64, 2, 16, 1, 16))
+    with pytest.raises(ValueError, match="not a CUDA device"):
+        ssd.ssd_scan_cuda(*args)
+    args[3].requires_grad_(True)
+    with pytest.raises(RuntimeError, match="gradient of Bm would be lost"):
+        ssd.ssd_scan_cuda(*args)
