@@ -1,0 +1,110 @@
+"""How far ``chip_smoke.py``'s checks of the bf16 flash kernel reach, on one
+NVIDIA GPU.
+
+    python3 scripts/flash_fault_reach.py
+
+Builds three broken copies of ``src/repro_torch/csrc/flash_attention.cu`` in
+a temporary directory, each with one fault a pipelined kernel can have:
+
+* ``dropped_tile``: rows that see more than 16 key tiles skip their first;
+* ``stale_stage``: the last key tile of a row of more than 9 tiles takes V
+  from the other stage of the shared-memory ring;
+* ``missed_rescale``: every fourth key tile leaves O unrescaled.
+
+Runs the sound kernel and each copy at ``chip_smoke.py``'s bf16 shapes and
+prints, for each, the largest elementwise error and whether the elementwise
+2e-2 check passes, and the relative error of the whole output and of its
+worst row against chip_smoke's limits.  Exits non-zero if the sound kernel
+fails a check or a broken copy passes them all at a shape where its fault
+applies.  Every line carries the card's name and power limit.  Imports
+nothing of JAX or of the JAX package.
+"""
+from __future__ import annotations
+
+import sys
+import tempfile
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke as cs  # noqa: E402  (exits without a CUDA device)
+from repro_torch.kernels import build as kbuild  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import ref  # noqa: E402
+
+ANCHOR = "    kt_lo = first_col <= 0 ? 0 : first_col / kBk;\n  }\n"
+RESCALE = "    for (int e = 0; e < kNo; ++e) acc_o[e] *= alpha[(e / 2) & 1];"
+V_STAGE = "gmma_desc(v_s + s * kKVTile + kk * 16 * 128, kKVBox)"
+FAULTS = {
+    "dropped_tile": (ANCHOR, ANCHOR + "  if (kt_hi - kt_lo > 16) ++kt_lo;\n"),
+    "stale_stage": (V_STAGE, "gmma_desc(v_s + ((i == n_tiles - 1 && i > 8) "
+                    "? s ^ 1 : s) * kKVTile + kk * 16 * 128, kKVBox)"),
+    "missed_rescale": (RESCALE, "    if (i % 4 != 3)\n" + RESCALE),
+}
+# key tiles a row needs before the fault applies
+MIN_TILES = {"sound": 0, "dropped_tile": 17, "stale_stage": 10,
+             "missed_rescale": 4}
+
+
+def readings(name: str) -> bool:
+    """Every bf16 shape through the kernel the wrapper has loaded; True if
+    chip_smoke's checks give the verdict this kernel should get."""
+    right = True
+    for i, (label, shape, dtype, kw) in enumerate(cs.FLASH_SHAPES):
+        if dtype != torch.bfloat16:
+            continue
+        args = cs.flash_inputs(shape, dtype, seed=100 + i)
+        out = fa.flash_attention_cuda(*args, **kw).float()
+        want = ref.attention_ref(*args, **kw).float()
+        diff = out - want
+        err = float(diff.abs().max())
+        close = bool(torch.allclose(out, want, rtol=cs.FLASH_TOL[dtype],
+                                    atol=cs.FLASH_TOL[dtype]))
+        rel = float(diff.norm() / want.norm())
+        row = float((diff.norm(dim=-1)
+                     / want.norm(dim=-1).clamp_min(1e-30)).max())
+        passes = (close and rel < cs.FLASH_REL_TOL[dtype]
+                  and row < cs.FLASH_ROW_TOL[dtype])
+        applies = -(-shape[4] // fa.WGMMA_BLOCK_K) >= MIN_TILES[name]
+        if name == "sound":
+            right &= passes
+        elif applies:
+            right &= not passes
+        cs.say(name, f"{label} {list(shape)} {kw}: max "
+               f"|err| {err!r} (elementwise {cs.FLASH_TOL[dtype]}: "
+               f"{'passes' if close else 'fails'}); relative error {rel!r} "
+               f"(limit {cs.FLASH_REL_TOL[dtype]}), worst row {row!r} "
+               f"(limit {cs.FLASH_ROW_TOL[dtype]}); "
+               f"{'passes' if passes else 'fails'} chip_smoke's checks"
+               f"{'' if applies else ' (the fault needs longer rows)'}")
+        del args, out, want, diff
+        torch.cuda.empty_cache()
+    return right
+
+
+def main() -> None:
+    right = readings("sound")
+    src = fa.SRC.read_text()
+    tmp = Path(tempfile.mkdtemp(prefix="flash_faults_"))
+    kbuild.BUILD_DIR = tmp / "lib"
+    load = fa._library.__wrapped__  # the uncached loader, to rebind SRC
+    for name, (old, new) in FAULTS.items():
+        if src.count(old) != 1:
+            sys.exit(f"flash_fault_reach: the source no longer has one "
+                     f"{old.strip()!r} to break")
+        path = tmp / f"flash_attention_{name}.cu"
+        path.write_text(src.replace(old, new))
+        fa.SRC = path
+        lib = load()
+        fa._library = lambda lib=lib: lib
+        right &= readings(name)
+    print(cs.CARD)
+    if not right:
+        sys.exit("flash_fault_reach: a check gave the wrong verdict")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,8 +1,8 @@
 // Flash attention (forward), hand-written for Hopper (sm_90a).
 //
-// Replaces repro/kernels/flash_attention.py::flash_attention_pallas, the TPU
-// kernel of the JAX package (body _flash_kernel).  For q [B, Hq, Sq, D] and
-// k, v [B, Hk, Sk, D], query head h reads kv head h / (Hq / Hk) (GQA, no
+// Replaces repro/kernels/flash_attention.py:99 flash_attention_pallas, the
+// TPU kernel of the JAX package (body _flash_kernel).  For q [B, Hq, Sq, D]
+// and k, v [B, Hk, Sk, D], query head h reads kv head h / (Hq / Hk) (GQA, no
 // K/V repetition in memory) and, with rows aligned to the end of the key
 // axis (row = i + Sk - Sq):
 //
@@ -13,87 +13,507 @@
 //   l    = exp(m - m') * l + sum p;  acc = exp(m - m') * acc + p . v
 //   o    = acc / max(l, 1e-30)      (a row whose keys are all masked gives 0)
 //
-// f32 or bf16 in, f32 arithmetic throughout, output in the input type.
+// Output in the input type.
 //
 // What bounds it.  Attention does 4 * D operations per valid (query, key)
 // pair and moves q, k, v and o once: at the serving prefill (Sq = Sk = 512,
 // D = 128) that is ~128 operations per byte, and at 8192 tokens ~2,000, so
 // the H100 is bound by arithmetic, not by its 3.35 TB/s, at every shape the
-// serving path gives it.  The card's rate for bf16 is its tensor cores'
-// (989 TFLOP/s); this first version does all its arithmetic on the CUDA
-// cores in f32 (67 TFLOP/s), which the f32 path needs to meet 2e-5 (no
-// TF32), and which the bf16 path shares for simplicity.  wgmma, TMA and warp
-// specialisation are for a later version.
+// serving path gives it.  For bf16 that arithmetic belongs on the tensor
+// cores (989 TFLOP/s); the CUDA cores give 67 TFLOP/s in f32.
 //
-// What the design does about it.
+// Two kernels; the launch plan (kernels/flash_attention.py kernel_plan)
+// picks one by dtype, and its query tile; the entry point finds the
+// instantiation, which brings its own key tile, threads and shared memory
+// (flash_attention_geometry reports them):
 //
-// * The TPU kernel's sequential key axis, with the running max, sum and
-//   accumulator in VMEM scratch across grid steps (grid (B, Hq, nq, nk)),
-//   becomes a loop over key tiles inside one block: one block per
-//   (64-row query tile, head, batch) keeps its statistics and its 64 x D
-//   accumulator in registers for the whole loop.
-// * Register tiling against shared-memory traffic.  256 threads; thread
-//   (ty, tx) owns rows 4ty..4ty+3 and, of S = Q K^T, the columns tx + 16j
-//   (j < 4): per 4 steps of d it reads 4 float4 of Q and 4 float4 of K from
-//   shared memory for 64 FMAs.  Of O it owns the same 4 rows and columns
-//   2tx + 32g (+0, +1), so the softmax rescale of a row never leaves the
-//   thread; row max and sum reduce over the 16 lanes of a half-warp with
-//   shuffles.  Row strides padded by 4 floats make every shared-memory
-//   access of a warp conflict-free or a broadcast.
-// * The whole-tile skip of the TPU kernel becomes the loop's bounds: the
-//   first key tile the sliding window reaches to the last tile the causal
-//   mask allows.  Tiles that are partly masked are masked element by
-//   element, and the ragged edges of Sq and Sk are masked in the kernel
-//   (rows past the edge load as zeros), never padded in memory.
-// * Shared memory: Q tile, one K/V tile (V overwrites K once S is done) and
-//   P, all f32: 83 KB at D = 128, so two blocks share an SM.  Query tiles
-//   are issued heaviest first (the last rows see the most keys).
+// * bf16: flash_fwd_wgmma<D, WG>, on the tensor cores.  A block of WG
+//   warpgroups (128 threads each) owns 64 * WG query rows, 64 per
+//   warpgroup, and loops over key tiles of 128.
+//   - TMA: one thread loads Q once and each K and V tile into a ring of two
+//     shared-memory stages, completing on mbarriers, so tile j + 1 is in
+//     flight while tile j is computed; an "empty" mbarrier per stage, on
+//     which every consumer warp arrives after its P . V, lets the stage be
+//     refilled.  The maps are 3-D over [B * H, S, D]: rows past S (the
+//     ragged edges of Sq and Sk) are zero-filled by the hardware, never
+//     read from the next head.  A box is 64 columns (128 bytes, the most the
+//     128-byte swizzle takes), so D = 128 loads as two boxes and D = 96 as
+//     two with columns 96-127 zero-filled.
+//   - S = Q K^T: wgmma m64n128k16, Q and K both K-major from shared memory.
+//   - The online softmax in the S accumulator registers: a row's 128
+//     columns spread over the 4 threads of a quad, reduced with two
+//     shuffles; exp2 with scale * log2(e) folded in; element masks only on
+//     the tiles that need them (ragged Sk, the causal diagonal, the
+//     window's first tiles); the loop's bounds skip whole tiles, as the
+//     TPU kernel's grid does.
+//   - O += P V: P goes to bf16 in registers, where the S accumulator's
+//     layout is the A-fragment layout of wgmma's register operand; V is
+//     [keys, D], MN-major for B (the transpose bit).  O stays in registers
+//     for the whole loop, rescaled there by exp(m - m').
+//   - Blocks: 128-row tiles (two warpgroups) fill the card at long
+//     prompts; when B * Hq * ceil(Sq / 128) < 132 SMs the plan drops to
+//     64-row tiles (one warpgroup).  Query tiles run heaviest first.
+//   Shared memory at D = 128 and 128-row tiles: Q 32 KB + K 2 x 32 KB +
+//   V 2 x 32 KB = 160 KB, one block an SM.  A simple first design: no
+//   producer warp of its own, no overlap of one warpgroup's softmax with
+//   the other's products beyond what the scheduler finds.
+//
+// * f32: flash_fwd_f32<D>, on the CUDA cores in f32 FMAs, which its 2e-5
+//   tolerance needs (no TF32).  One block of 256 threads per 64-row query
+//   tile loops over key tiles of 64; thread (ty, tx) owns rows
+//   4ty..4ty+3 and, of S, the columns tx + 16j (j < 4), of O the columns
+//   2tx + 32g (+0, +1), so the rescale of a row never leaves the thread;
+//   row max and sum reduce over a half-warp with shuffles.  Q, one K/V
+//   tile and P in shared memory as f32 (83 KB at D = 128), row strides
+//   padded by 4 floats against bank conflicts; synchronous loads.
 //
 // The C entry point launches on the caller's stream, does not synchronise,
-// and returns cudaGetLastError() (or the error of cudaFuncSetAttribute) so
-// the Python wrapper can raise.
+// and returns cudaGetLastError() (or the error of cudaFuncSetAttribute, or
+// the codes of kNoEncoder / kEncodeFailed below) so the Python wrapper can
+// raise.  cuTensorMapEncodeTiled is a driver-API function: it is looked up
+// in the driver library the CUDA runtime has loaded (dlopen/dlsym), so the
+// library links nothing beyond the runtime.
 
+#include <cuda.h>  // CUtensorMap and its enums (types only)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <dlfcn.h>
 #include <stdint.h>
 
 namespace {
+
+constexpr float kNeg = -1.0e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kNoEncoder = 999;      // the driver has no cuTensorMapEncodeTiled
+constexpr int kEncodeFailed = 1000;  // + the CUresult of a failed encoding
+
+// ===================================================== bf16: tensor cores
+
+constexpr int kBk = 128;  // keys per tile (the N of S = Q K^T)
+
+// Dynamic shared memory of flash_fwd_wgmma<D, WG>: 1 KB to align the base
+// to the 128-byte swizzle's 1024-byte pattern, Q, two K and two V stages,
+// and the mbarriers.
+template <int D, int kWG>
+constexpr int wgmma_smem_bytes() {
+  constexpr int dp = D <= 64 ? 64 : 128;
+  return 1024 + (64 * kWG + 4 * kBk) * dp * 2 + 64;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+// Wait until the phase of parity `parity` of the barrier has completed.  A
+// wait that never ends (a fault in the pipeline) traps after ~2^28 tries,
+// so the launch fails instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  for (uint32_t tries = 0;; ++tries) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (tries == (1u << 28)) __trap();
+  }
+}
+
+// One box of a 3-D tensor map at {column, row, head} into shared memory,
+// completing `bar`'s transaction count.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// wgmma's shared-memory matrix descriptor for the 128-byte swizzled layout
+// TMA writes (rows of 128 bytes, 8-row groups 1024 bytes apart): start
+// address, leading byte offset (for an MN-major operand, the distance
+// between its 64-column boxes; unused for K-major), stride byte offset
+// (1024: the next 8 rows), layout type 1 (128-byte swizzle).
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>(lbo >> 4) << 16 |
+         static_cast<uint64_t>(1024 >> 4) << 32 |
+         static_cast<uint64_t>(1) << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+// Keep the compiler from moving reads of an accumulator across the wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// S += A B^T, m64n128k16, A and B from shared memory (both K-major)
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D += A B, m64n64k16, A from registers, B from shared memory MN-major
+// (imm-trans-b = 1)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D += A B, m64n128k16, A from registers, B from shared memory MN-major
+// (imm-trans-b = 1)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&x);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// Accumulator layout of wgmma m64nN (each warp w of the warpgroup owns rows
+// 16w..16w+15): thread `lane` holds, for each 8-column block j,
+// d[4j + e] at row lane / 4 + 8 * (e / 2), column 8j + 2 * (lane % 4) + e % 2.
+template <int D, int kWG>
+__global__ void __launch_bounds__(128 * kWG, 1)
+flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
+                const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv,
+                __nv_bfloat16* __restrict__ o, int Hq, int Hk, int Sq, int Sk,
+                int causal, int window, float softcap, float scale) {
+  constexpr int kBq = 64 * kWG;
+  constexpr int kDp = D <= 64 ? 64 : 128;  // columns in shared memory
+  constexpr int kBoxes = kDp / 64;
+  constexpr uint32_t kQBox = kBq * 128;    // bytes of one 64-column box
+  constexpr uint32_t kKVBox = kBk * 128;
+  constexpr uint32_t kKVTile = kBoxes * kKVBox;
+  constexpr int kNo = kDp / 2;             // O accumulator floats a thread
+  extern __shared__ uint8_t smem[];
+  const uint32_t q_s = (smem_u32(smem) + 1023u) & ~1023u;
+  const uint32_t k_s = q_s + kBoxes * kQBox;  // stage s at k_s + s * kKVTile
+  const uint32_t v_s = k_s + 2 * kKVTile;
+  const uint32_t q_full = v_s + 2 * kKVTile;  // then k_full[2], v_full[2], empty[2]
+  const uint32_t k_full = q_full + 8, v_full = q_full + 24, empty = q_full + 40;
+
+  const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest query tiles first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int qh = b * Hq + h, kh = b * Hk + h / (Hq / Hk);
+  const int q0 = qt * kBq;
+  const int q_rows = min(kBq, Sq - q0);
+  const int offset = Sk - Sq;
+
+  // Key tiles this query tile can see: the loop's bounds are the TPU
+  // kernel's whole-tile skip.
+  const int row_lo = q0 + offset;
+  const int row_hi = q0 + q_rows - 1 + offset;
+  const int nk = (Sk + kBk - 1) / kBk;
+  int kt_hi = nk;
+  if (causal) kt_hi = row_hi < 0 ? 0 : min(nk, row_hi / kBk + 1);
+  int kt_lo = 0;
+  if (window >= 0) {
+    const int first_col = row_lo - window + 1;
+    kt_lo = first_col <= 0 ? 0 : first_col / kBk;
+  }
+  const int n_tiles = kt_hi - kt_lo;
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128, warp = (tid / 32) % 4, lane = tid % 32;
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(k_full + 8 * s, 1);
+      mbar_init(v_full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 4 * kWG);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  // Key tile i of the loop into stage i % 2 (thread 0 only).
+  auto load_kv = [&](int i) {
+    const int s = i & 1, k0 = (kt_lo + i) * kBk;
+    mbar_expect_tx(k_full + 8 * s, kKVTile);
+    for (int x = 0; x < kBoxes; ++x)
+      tma_load(k_s + s * kKVTile + x * kKVBox, &tk, k_full + 8 * s, 64 * x, k0, kh);
+    mbar_expect_tx(v_full + 8 * s, kKVTile);
+    for (int x = 0; x < kBoxes; ++x)
+      tma_load(v_s + s * kKVTile + x * kKVBox, &tv, v_full + 8 * s, 64 * x, k0, kh);
+  };
+  if (tid == 0 && n_tiles > 0) {
+    mbar_expect_tx(q_full, kBoxes * kQBox);
+    for (int x = 0; x < kBoxes; ++x)
+      tma_load(q_s + x * kQBox, &tq, q_full, 64 * x, q0, qh);
+    load_kv(0);
+  }
+
+  float acc_o[kNo];
+#pragma unroll
+  for (int i = 0; i < kNo; ++i) acc_o[i] = 0.f;
+  float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
+  const float scale_l2 = scale * kLog2e;
+  const float cap_l2 = softcap * kLog2e, scale_cap = scale / softcap;
+  const int c_lane = 2 * (lane % 4);
+  const int row0 = q0 + 64 * wg + 16 * warp + lane / 4 + offset;  // and row0 + 8
+  const uint32_t q_wg = q_s + wg * 64 * 128;
+
+  if (n_tiles > 0) mbar_wait(q_full, 0);
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i & 1;
+    const uint32_t parity = (i >> 1) & 1;
+    const int k0 = (kt_lo + i) * kBk;
+    if (tid == 0 && i + 1 < n_tiles) {
+      // tile i - 1 used the stage tile i + 1 goes to: wait until every
+      // consumer warp is done with it
+      if (i >= 1) mbar_wait(empty + 8 * ((i + 1) & 1), ((i - 1) >> 1) & 1);
+      load_kv(i + 1);
+    }
+    __syncwarp();
+
+    // S = Q K^T
+    float acc_s[2 * kBk / 4];
+#pragma unroll
+    for (int e = 0; e < 2 * kBk / 4; ++e) acc_s[e] = 0.f;  // overwritten (scale-d 0)
+    mbar_wait(k_full + 8 * s, parity);
+    __syncwarp();
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t col = (kk % 4) * 32;  // bytes into a 128-byte row
+      wgmma_ss_n128(acc_s,
+                    gmma_desc(q_wg + (kk / 4) * kQBox + col, 16),
+                    gmma_desc(k_s + s * kKVTile + (kk / 4) * kKVBox + col, 16),
+                    kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc_s);
+
+    // scale (log2 units), softcap, mask
+    if (softcap > 0.f) {
+#pragma unroll
+      for (int e = 0; e < 2 * kBk / 4; ++e) acc_s[e] = cap_l2 * tanhf(acc_s[e] * scale_cap);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 2 * kBk / 4; ++e) acc_s[e] *= scale_l2;
+    }
+    const bool need_mask = k0 + kBk > Sk || (causal && k0 + kBk - 1 > row_lo) ||
+                           (window >= 0 && k0 <= row_hi - window);
+    if (need_mask) {
+#pragma unroll
+      for (int e = 0; e < 2 * kBk / 4; ++e) {
+        const int col = k0 + 8 * (e / 4) + c_lane + (e & 1);
+        const int row = row0 + 8 * ((e / 2) & 1);
+        const bool ok = col < Sk && (!causal || col <= row) && (window < 0 || col > row - window);
+        acc_s[e] = ok ? acc_s[e] : kNeg;
+      }
+    }
+
+    // online softmax of rows row0 (r = 0) and row0 + 8 (r = 1)
+    float mx[2] = {kNeg, kNeg};
+#pragma unroll
+    for (int e = 0; e < 2 * kBk / 4; ++e) mx[(e / 2) & 1] = fmaxf(mx[(e / 2) & 1], acc_s[e]);
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m_new = fmaxf(m[r], quad_max(mx[r]));
+      alpha[r] = exp2f(m[r] - m_new);
+      m[r] = m_new;
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int e = 0; e < 2 * kBk / 4; ++e) {
+      const int r = (e / 2) & 1;
+      const float p = acc_s[e] > 0.5f * kNeg ? exp2f(acc_s[e] - m[r]) : 0.f;
+      l[r] += p;  // this thread's columns; the quad adds up at the end
+      acc_s[e] = p;
+    }
+    // P as wgmma's A fragment: slice kk (keys 16kk..16kk+15) is the
+    // accumulator's blocks 2kk and 2kk + 1
+    uint32_t pa[kBk / 4];
+#pragma unroll
+    for (int kk = 0; kk < kBk / 16; ++kk) {
+      pa[4 * kk + 0] = pack_bf16(acc_s[8 * kk + 0], acc_s[8 * kk + 1]);
+      pa[4 * kk + 1] = pack_bf16(acc_s[8 * kk + 2], acc_s[8 * kk + 3]);
+      pa[4 * kk + 2] = pack_bf16(acc_s[8 * kk + 4], acc_s[8 * kk + 5]);
+      pa[4 * kk + 3] = pack_bf16(acc_s[8 * kk + 6], acc_s[8 * kk + 7]);
+    }
+#pragma unroll
+    for (int e = 0; e < kNo; ++e) acc_o[e] *= alpha[(e / 2) & 1];
+
+    // O += P V
+    mbar_wait(v_full + 8 * s, parity);
+    __syncwarp();
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBk / 16; ++kk) {
+      const uint64_t dv = gmma_desc(v_s + s * kKVTile + kk * 16 * 128, kKVBox);
+      if constexpr (kDp == 64)
+        wgmma_rs_n64(acc_o, pa + 4 * kk, dv);
+      else
+        wgmma_rs_n128(acc_o, pa + 4 * kk, dv);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc_o);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * s);
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) inv[r] = 1.f / fmaxf(quad_sum(l[r]), 1e-30f);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int rr = 64 * wg + 16 * warp + lane / 4 + 8 * r;
+    if (rr < q_rows) {
+      __nv_bfloat16* orow = o + (static_cast<size_t>(qh) * Sq + q0 + rr) * D + c_lane;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
+            __floats2bfloat162_rn(acc_o[4 * j + 2 * r] * inv[r], acc_o[4 * j + 2 * r + 1] * inv[r]);
+    }
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static const EncodeTiled fn = []() -> EncodeTiled {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_LOCAL);
+    return lib ? reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled")) : nullptr;
+  }();
+  return fn;
+}
+
+// A 3-D map over bf16 [heads, rows, d] (innermost first: d, rows, heads)
+// with boxes of 64 columns x box_rows rows x 1 head, 128-byte swizzle, out
+// of bounds filled with zeros.
+int encode(CUtensorMap* map, const void* ptr, int d, int rows, int heads, int box_rows) {
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return kNoEncoder;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(heads)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d) * 2,
+                                 static_cast<cuuint64_t>(rows) * d * 2};
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t steps[3] = {1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+                        strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kEncodeFailed + static_cast<int>(r);
+}
+
+template <int D, int kWG>
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, int Hq, int Hk,
+                 int Sq, int Sk, int causal, int window, float softcap, float scale,
+                 cudaStream_t stream) {
+  constexpr int kSmem = wgmma_smem_bytes<D, kWG>();
+  // once per instantiation, at its first launch (outside any graph capture)
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_fwd_wgmma<D, kWG>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
+  }
+  CUtensorMap tq, tk, tv;
+  int err = encode(&tq, q, D, Sq, B * Hq, 64 * kWG);
+  if (err == 0) err = encode(&tk, k, D, Sk, B * Hk, kBk);
+  if (err == 0) err = encode(&tv, v, D, Sk, B * Hk, kBk);
+  if (err != 0) return err;
+  const dim3 grid((Sq + 64 * kWG - 1) / (64 * kWG), Hq, B);
+  flash_fwd_wgmma<D, kWG><<<grid, 128 * kWG, kSmem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), Hq, Hk, Sq, Sk, causal, window, softcap,
+      scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ======================================================= f32: CUDA cores
 
 constexpr int kBlockQ = 64;
 constexpr int kBlockK = 64;
 constexpr int kThreads = 256;
 constexpr int kLdP = kBlockK + 4;
-constexpr float kNeg = -1.0e30f;
 
-// Four consecutive elements as floats (16-byte or 8-byte aligned loads).
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  // bf16 -> f32 is exact: the 16 bits become the high half of the float
-  return make_float4(__uint_as_float(raw.x << 16),
-                     __uint_as_float(raw.x & 0xffff0000u),
-                     __uint_as_float(raw.y << 16),
-                     __uint_as_float(raw.y & 0xffff0000u));
-}
-
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-
-// A [64, D] tile of rows [0, rows) into shared memory as f32 with row
-// stride D + 4; rows past the edge are zeros (V rows must be: 0 * garbage
-// could be NaN).
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int rows) {
+// A [64, D] tile of rows [0, rows) into shared memory with row stride
+// D + 4; rows past the edge are zeros (V rows must be: 0 * garbage could
+// be NaN).
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst, const float* src, int rows) {
   constexpr int kVecs = D / 4;
   for (int idx = threadIdx.x; idx < kBlockQ * kVecs; idx += kThreads) {
     const int r = idx / kVecs, c = (idx % kVecs) * 4;
-    const float4 x = r < rows ? load4(src + static_cast<size_t>(r) * D + c)
+    const float4 x = r < rows ? *reinterpret_cast<const float4*>(src + static_cast<size_t>(r) * D + c)
                               : make_float4(0.f, 0.f, 0.f, 0.f);
     *reinterpret_cast<float4*>(dst + r * (D + 4) + c) = x;
   }
@@ -111,15 +531,15 @@ __device__ __forceinline__ float half_warp_sum(float x) {
 }
 
 template <int D>
-constexpr int smem_bytes() {
+constexpr int f32_smem_bytes() {
   return (2 * kBlockQ * (D + 4) + kBlockQ * kLdP) * static_cast<int>(sizeof(float));
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads, 2)
-flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, T* __restrict__ o, int Hq, int Hk, int Sq,
-          int Sk, int causal, int window, float softcap, float scale) {
+flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, float* __restrict__ o, int Hq, int Hk, int Sq,
+              int Sk, int causal, int window, float softcap, float scale) {
   constexpr int kLd = D + 4;
   constexpr int kGroups = D / 32;  // float2 column groups of O per thread
   extern __shared__ float4 smem4[];
@@ -133,10 +553,10 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = qt * kBlockQ;
   const int q_rows = min(kBlockQ, Sq - q0);
   const int offset = Sk - Sq;
-  const T* qg = q + (static_cast<size_t>(b) * Hq + h) * Sq * D + static_cast<size_t>(q0) * D;
-  const T* kg = k + (static_cast<size_t>(b) * Hk + hk) * Sk * D;
-  const T* vg = v + (static_cast<size_t>(b) * Hk + hk) * Sk * D;
-  T* og = o + (static_cast<size_t>(b) * Hq + h) * Sq * D + static_cast<size_t>(q0) * D;
+  const float* qg = q + (static_cast<size_t>(b) * Hq + h) * Sq * D + static_cast<size_t>(q0) * D;
+  const float* kg = k + (static_cast<size_t>(b) * Hk + hk) * Sk * D;
+  const float* vg = v + (static_cast<size_t>(b) * Hk + hk) * Sk * D;
+  float* og = o + (static_cast<size_t>(b) * Hq + h) * Sq * D + static_cast<size_t>(q0) * D;
 
   const int lane = threadIdx.x & 31;
   const int tx = lane & 15;
@@ -165,13 +585,13 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
     for (int c = 0; c < 2 * kGroups; ++c) acc[i][c] = 0.f;
   }
 
-  load_tile<T, D>(qs, qg, q_rows);
+  load_tile<D>(qs, qg, q_rows);
 
   for (int kt = kt_lo; kt < kt_hi; ++kt) {
     const int k0 = kt * kBlockK;
     const int k_rows = min(kBlockK, Sk - k0);
     __syncthreads();  // the previous tile's P . V is done with kvs and ps
-    load_tile<T, D>(kvs, kg + static_cast<size_t>(k0) * D, k_rows);
+    load_tile<D>(kvs, kg + static_cast<size_t>(k0) * D, k_rows);
     __syncthreads();
 
     // S = Q K^T for rows 4ty + i, columns tx + 16j
@@ -233,7 +653,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < 4; ++j) ps[(4 * ty + i) * kLdP + tx + 16 * j] = s[i][j];
     }
     __syncthreads();  // S is done with K; P is complete
-    load_tile<T, D>(kvs, vg + static_cast<size_t>(k0) * D, k_rows);
+    load_tile<D>(kvs, vg + static_cast<size_t>(k0) * D, k_rows);
     __syncthreads();
 
     // acc += P V for rows 4ty + i, columns 2tx + 32g (+0, +1)
@@ -265,62 +685,87 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
     if (r < q_rows) {
 #pragma unroll
       for (int g = 0; g < kGroups; ++g)
-        store2(og + static_cast<size_t>(r) * D + 2 * tx + 32 * g,
-               acc[i][2 * g] / li, acc[i][2 * g + 1] / li);
+        *reinterpret_cast<float2*>(og + static_cast<size_t>(r) * D + 2 * tx + 32 * g) =
+            make_float2(acc[i][2 * g] / li, acc[i][2 * g + 1] / li);
     }
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int Hq, int Hk, int Sq, int Sk, int causal, int window,
-           float softcap, float scale, cudaStream_t stream) {
-  constexpr int kSmem = smem_bytes<D>();
+template <int D>
+int launch_f32(const void* q, const void* k, const void* v, void* o, int B, int Hq, int Hk,
+               int Sq, int Sk, int causal, int window, float softcap, float scale,
+               cudaStream_t stream) {
+  constexpr int kSmem = f32_smem_bytes<D>();
   // once per instantiation, at its first launch (outside any graph capture)
   static bool configured = false;
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+        flash_fwd_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
   const dim3 grid((Sq + kBlockQ - 1) / kBlockQ, Hq, B);
-  flash_fwd<T, D><<<grid, kThreads, kSmem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Hq, Hk, Sq, Sk, causal,
-      window, softcap, scale);
+  flash_fwd_f32<D><<<grid, kThreads, kSmem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), Hq, Hk, Sq, Sk, causal, window, softcap, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch_head_dim(const void* q, const void* k, const void* v, void* o,
-                      int B, int Hq, int Hk, int Sq, int Sk, int D, int causal,
-                      int window, float softcap, float scale,
-                      cudaStream_t stream) {
-  switch (D) {
-    case 64:
-      return launch<T, 64>(q, k, v, o, B, Hq, Hk, Sq, Sk, causal, window, softcap, scale, stream);
-    case 96:
-      return launch<T, 96>(q, k, v, o, B, Hq, Hk, Sq, Sk, causal, window, softcap, scale, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, o, B, Hq, Hk, Sq, Sk, causal, window, softcap, scale, stream);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+// ========================================================== entry point
+
+using Launch = int (*)(const void*, const void*, const void*, void*, int, int, int, int, int,
+                       int, int, float, float, cudaStream_t);
+
+struct Variant {
+  int dtype, d, block_q, block_k, threads, smem;
+  Launch launch;
+};
+
+// Every instantiation, found by (dtype, D, block_q): the launch plan
+// (kernels/flash_attention.py kernel_plan) picks those three; the key tile,
+// threads and shared memory are the instantiation's own.
+constexpr Variant kVariants[] = {
+    {1, 64, 64, kBk, 128, wgmma_smem_bytes<64, 1>(), launch_wgmma<64, 1>},
+    {1, 64, 128, kBk, 256, wgmma_smem_bytes<64, 2>(), launch_wgmma<64, 2>},
+    {1, 96, 64, kBk, 128, wgmma_smem_bytes<96, 1>(), launch_wgmma<96, 1>},
+    {1, 96, 128, kBk, 256, wgmma_smem_bytes<96, 2>(), launch_wgmma<96, 2>},
+    {1, 128, 64, kBk, 128, wgmma_smem_bytes<128, 1>(), launch_wgmma<128, 1>},
+    {1, 128, 128, kBk, 256, wgmma_smem_bytes<128, 2>(), launch_wgmma<128, 2>},
+    {0, 64, kBlockQ, kBlockK, kThreads, f32_smem_bytes<64>(), launch_f32<64>},
+    {0, 96, kBlockQ, kBlockK, kThreads, f32_smem_bytes<96>(), launch_f32<96>},
+    {0, 128, kBlockQ, kBlockK, kThreads, f32_smem_bytes<128>(), launch_f32<128>},
+};
+
+const Variant* find(int dtype, int D, int block_q) {
+  for (const Variant& x : kVariants)
+    if (x.dtype == dtype && x.d == D && x.block_q == block_q) return &x;
+  return nullptr;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  window < 0: no sliding window.
-extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
-                                   void* o, int B, int Hq, int Hk, int Sq,
-                                   int Sk, int D, int dtype, int causal,
-                                   int window, float softcap, float scale,
-                                   void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch_head_dim<float>(q, k, v, o, B, Hq, Hk, Sq, Sk, D, causal, window, softcap, scale, s);
-  if (dtype == 1)
-    return dispatch_head_dim<__nv_bfloat16>(q, k, v, o, B, Hq, Hk, Sq, Sk, D, causal, window, softcap, scale, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+// dtype: 0 = float32 (the CUDA-core kernel), 1 = bfloat16 (the tensor-core
+// kernel).  The key tile, threads and shared memory of the instantiation
+// (dtype, D, block_q), or cudaErrorInvalidValue if there is none.
+extern "C" int flash_attention_geometry(int dtype, int D, int block_q, int* block_k,
+                                        int* threads, int* smem) {
+  const Variant* x = find(dtype, D, block_q);
+  if (x == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  *block_k = x->block_k;
+  *threads = x->threads;
+  *smem = x->smem;
+  return 0;
+}
+
+// window < 0: no sliding window.  (dtype, D, block_q) are the launch plan's;
+// one no instantiation takes is refused with cudaErrorInvalidValue before
+// anything is launched.
+extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, int B,
+                                   int Hq, int Hk, int Sq, int Sk, int D, int dtype,
+                                   int causal, int window, float softcap, float scale,
+                                   int block_q, void* stream) {
+  const Variant* x = find(dtype, D, block_q);
+  if (x == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return x->launch(q, k, v, o, B, Hq, Hk, Sq, Sk, causal, window, softcap, scale,
+                   static_cast<cudaStream_t>(stream));
 }

@@ -6,7 +6,10 @@ under ``build/repro_torch/`` at the repository root (git-ignored).  The
 library's name carries a hash of the source and the flags, so an edited
 source builds anew and an unchanged one is reused.  ``build`` starts one
 ``nvcc`` per source that is not built yet, all at once, and waits for them.
-Nothing is built or loaded at import.  A kernel called through ``ctypes``
+Nothing is built or loaded at import.  The libraries link nothing beyond
+the CUDA runtime: the flash kernel finds the driver-API function it needs
+(``cuTensorMapEncodeTiled``) in the loaded driver with ``dlsym``, so no
+``-lcuda`` is needed.  A kernel called through ``ctypes``
 writes into a fresh tensor outside the autograd graph, so every wrapper
 calls ``refuse_autograd`` first.
 """
@@ -30,12 +33,13 @@ BASE_FLAGS = (
 )
 
 
-def _nvcc() -> str:
+def cuda_tool(name: str) -> str:
+    """Path of a CUDA toolkit program (``nvcc``, ``cuobjdump``)."""
     cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    for cand in (os.path.join(cuda_home, "bin", "nvcc"), shutil.which("nvcc")):
+    for cand in (os.path.join(cuda_home, "bin", name), shutil.which(name)):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+    raise RuntimeError(f"{name} not found: set CUDA_HOME or put it on PATH")
 
 
 def library_path(src: Path, flags: tuple[str, ...]) -> Path:
@@ -62,7 +66,7 @@ def build(*sources: tuple[Path, tuple[str, ...]]) -> list[dict]:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
         proc = subprocess.Popen(
-            [_nvcc(), *flags, "-o", str(tmp), str(src)],
+            [cuda_tool("nvcc"), *flags, "-o", str(tmp), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         running.append((i, src, path, tmp, proc, time.perf_counter()))
     failed = []

@@ -119,3 +119,120 @@ def test_kernel_wrapper_refuses_autograd():
         fa.flash_attention_cuda(q, k, v)
     with torch.no_grad(), pytest.raises(ValueError, match="not a CUDA device"):
         fa.flash_attention_cuda(q, k, v)
+
+
+# --------------------------------------------------------- the launch plan
+# Key tile, threads and shared-memory bytes of each instantiation, by
+# (dtype, D, query rows), written out from csrc/flash_attention.cu's layout:
+# bf16 (wgmma_smem_bytes) is 1 KB of alignment, Q and two K and two V
+# stages of 128-key tiles at 64 or 128 bf16 columns, and 64 bytes of
+# mbarriers; f32 (f32_smem_bytes) is Q and one K/V tile of 64 rows at
+# D + 4 floats, and P at 68 floats.
+GEOMETRY = {
+    (torch.bfloat16, 64, 64): (128, 128, 74_816),
+    (torch.bfloat16, 64, 128): (128, 256, 83_008),
+    (torch.bfloat16, 96, 64): (128, 128, 148_544),
+    (torch.bfloat16, 96, 128): (128, 256, 164_928),
+    (torch.bfloat16, 128, 64): (128, 128, 148_544),
+    (torch.bfloat16, 128, 128): (128, 256, 164_928),
+    (torch.float32, 64, 64): (64, 256, 52_224),
+    (torch.float32, 96, 64): (64, 256, 68_608),
+    (torch.float32, 128, 64): (64, 256, 84_992),
+}
+
+PLAN_SHAPES = [
+    # b, hq, hk, sq, sk, then the bf16 plan's query rows and blocks along
+    # the query axis, and the f32 plan's blocks (64 rows): the serving
+    # prefill, 8192 tokens, a gemma2-27b local layer, phi3's batch,
+    # decode-like and ragged shapes
+    (1, 16, 8, 512, 512, 64, 8, 8),
+    (1, 16, 8, 8192, 8192, 128, 64, 128),
+    (1, 32, 16, 8192, 8192, 128, 64, 128),
+    (2, 32, 32, 1024, 1024, 128, 8, 16),
+    (1, 4, 4, 1, 256, 64, 1, 1),
+    (2, 4, 2, 300, 300, 64, 5, 5),
+    (1, 16, 8, 128, 1000, 64, 2, 2),
+]
+
+
+@pytest.mark.parametrize("key", list(GEOMETRY), ids=str)
+def test_kernel_geometry_fits_the_card_and_wgmma(key):
+    """Every instantiation's shared memory is within a block's 232,448
+    bytes, and its tiles are ones wgmma takes: 64-row multiples, N (the key
+    tile) a multiple of 8 up to 256, K (D) a multiple of 16."""
+    dtype, d, block_q = key
+    block_k, threads, smem = GEOMETRY[key]
+    assert fa.geometry(dtype, d, block_q) == GEOMETRY[key]
+    assert smem <= 232_448 and threads <= 1024
+    assert block_q % 64 == 0 and d % 16 == 0
+    assert block_k % 8 == 0 and block_k <= 256
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+@pytest.mark.parametrize("b,hq,hk,sq,sk,rows,gx_bf16,gx_f32", PLAN_SHAPES)
+def test_kernel_plan_fits_the_card(b, hq, hk, sq, sk, rows, gx_bf16, gx_f32,
+                                   d, dtype):
+    """The plan at each shape: its query rows, the instantiation's geometry
+    and a grid of (query tiles, heads, batch)."""
+    plan = fa.kernel_plan(b, hq, hk, sq, sk, d, dtype)
+    block_q, gx = (rows, gx_bf16) if dtype == torch.bfloat16 else (64, gx_f32)
+    block_k, threads, smem = GEOMETRY[(dtype, d, block_q)]
+    assert plan == {
+        "variant": "wgmma" if dtype == torch.bfloat16 else "cuda_cores",
+        "block_q": block_q, "block_k": block_k, "threads": threads,
+        "smem": smem, "grid": (gx, hq, b)}
+
+
+@pytest.mark.parametrize("b,hq,sq,rows", [
+    (1, 16, 512, 64),      # serving prefill: 64 blocks of 128 rows < 132
+    (1, 16, 8192, 128),    # 8192 tokens: 1024 blocks
+    (1, 131, 128, 64),     # 131 < 132
+    (1, 132, 128, 128),    # 132: not fewer than the SMs
+    (1, 33, 512, 128),     # 33 x 4 = 132
+    (2, 16, 257, 64),      # 2 x 16 x 3 = 96
+    (2, 32, 1024, 128),
+])
+def test_kernel_plan_drops_to_64_rows_below_the_sm_count(b, hq, sq, rows):
+    """The 64-row tile exactly when ``B * Hq * ceil(Sq / 128) < 132``."""
+    plan = fa.kernel_plan(b, hq, hq, sq, sq, 128, torch.bfloat16)
+    assert (b * hq * -(-sq // 128) < 132) == (rows == 64)
+    assert plan["block_q"] == rows
+
+
+@pytest.mark.parametrize("n_sm,rows", [(132, 64), (114, 128), (120, 128),
+                                        (121, 64)])
+def test_kernel_plan_counts_the_cards_sms(n_sm, rows):
+    """The switch to 64-row tiles follows the card's SM count: 30 heads of
+    512 tokens make 120 blocks of 128 rows, fewer than an H100 SXM's 132
+    SMs but not than an H100 PCIe's 114."""
+    plan = fa.kernel_plan(1, 30, 30, 512, 512, 128, torch.bfloat16, n_sm)
+    assert plan["block_q"] == rows
+
+
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+def test_kernel_plan_variant_by_dtype(d):
+    """bf16 on the tensor cores, f32 on the CUDA cores: no other choice."""
+    for dtype, variant in ((torch.bfloat16, "wgmma"),
+                           (torch.float32, "cuda_cores")):
+        assert fa.kernel_plan(1, 16, 8, 512, 512, d, dtype)["variant"] == \
+            variant
+
+
+@pytest.mark.parametrize("shape,dtype,match", [
+    ((1, 4, 64, 16), torch.bfloat16, "head dim 16"),
+    ((1, 4, 64, 256), torch.float32, "head dim 256"),
+    ((1, 4, 64, 64), torch.float16, "float16"),
+    ((65536, 1, 8, 64), torch.bfloat16, "exceed the grid"),
+    ((1, 65536, 8, 64), torch.float32, "exceed the grid"),
+])
+def test_kernel_wrapper_raises_on_what_the_plan_refuses(shape, dtype, match):
+    """The plan refuses before any device is looked at: meta tensors (no
+    memory) reach it here, and the wrapper raises its ValueError."""
+    q = torch.empty(shape, dtype=dtype, device="meta")
+    kv = torch.empty(shape[0], 1, shape[2], shape[3], dtype=dtype,
+                     device="meta")
+    with pytest.raises(ValueError, match=match):
+        fa.kernel_plan(*shape[:2], 1, shape[2], shape[2], shape[3], dtype)
+    with pytest.raises(ValueError, match=match):
+        fa.flash_attention_cuda(q, kv, kv)

@@ -3,11 +3,21 @@
 Every test here is marked ``cuda`` and skips without an NVIDIA GPU.  The file
 imports neither JAX nor the JAX package, so it runs where the card is:
 
-    python -m pytest -q -m cuda tests/test_torch_flash_cuda.py
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_flash_cuda.py
 
 Tolerances are the reference's kernel tolerances (2e-5 for f32, 2e-2 for
 bf16): the kernel sums keys in another order than the plain version, and
-bf16 rounds the output.
+bf16 rounds P before its product with V and rounds the output.  bf16 runs
+the tensor-core kernel (plan variant ``"wgmma"``), f32 the CUDA-core one
+(``"cuda_cores"``); each case checks which one launched.
+
+An elementwise 2e-2 is as large as a typical output element at thousands of
+keys (about sqrt(e / keys) for these inputs), so each case also holds every
+output row's relative error, ``|out_r - want_r| / |want_r|``, under
+``ROW_TOL``: bf16 rounding alone gave at most 4.4e-3 at chip_smoke.py's
+shapes on an H100, while a key tile dropped or read from the wrong ring
+stage moves a row by about ``sqrt(128 / keys)`` or more
+(``scripts/flash_fault_reach.py``).
 """
 import numpy as np
 import pytest
@@ -19,6 +29,8 @@ from repro_torch.kernels import ops, ref
 pytestmark = [pytest.mark.tier1, pytest.mark.cuda]
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+VARIANT = {"float32": "cuda_cores", "bfloat16": "wgmma"}
+ROW_TOL = {"float32": 1e-5, "bfloat16": 8e-3}
 
 
 def _card(seed, b, hq, hk, sq, sk, d, dtype):
@@ -28,6 +40,13 @@ def _card(seed, b, hq, hk, sq, sk, d, dtype):
     return [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
             .to("cuda", getattr(torch, dtype))
             for s in ((b, hq, sq, d), (b, hk, sk, d), (b, hk, sk, d))]
+
+
+def worst_row_error(out, want) -> float:
+    """The largest relative error of an output row (a row of zeros wanted
+    must come out as zeros)."""
+    diff = (out.float() - want.float()).norm(dim=-1)
+    return float((diff / want.float().norm(dim=-1).clamp_min(1e-30)).max())
 
 
 CUDA_CASES = [
@@ -51,9 +70,61 @@ def test_cuda_kernel_matches_plain_version(b, hq, hk, sq, sk, d, dtype, kw):
     want = ref.attention_ref(*args, **kw)
     torch.cuda.synchronize()
     assert fa.flash_attention_cuda.launches == launches + 1
+    assert fa.flash_attention_cuda.last_plan["variant"] == VARIANT[dtype]
     assert out.dtype == want.dtype
     torch.testing.assert_close(out.float(), want.float(), rtol=TOL[dtype],
                                atol=TOL[dtype])
+    assert worst_row_error(out, want) < ROW_TOL[dtype]
+
+
+# the tensor-core kernel's edge cases, each with 64-row tiles (one
+# warpgroup: B * Hq * ceil(Sq / 128) < 132) and, where noted, 128-row tiles
+BF16_CASES = [
+    # b, hq, hk, sq, sk, d, kwargs
+    (1, 4, 2, 300, 300, 128, dict(causal=True)),                # ragged
+    (1, 4, 2, 200, 333, 64, dict(causal=False)),                # ragged, both
+    (2, 32, 8, 700, 700, 128, dict(causal=True)),               # ragged, 128 rows
+    (1, 4, 2, 200, 130, 128, dict(causal=True)),                # sq > sk
+    (1, 4, 2, 128, 1000, 128, dict(causal=True)),               # offset rows
+    (1, 4, 2, 70, 190, 96, dict(causal=True)),                  # offset, ragged
+    (2, 4, 2, 70, 190, 96, dict(causal=False, window=50)),      # window only
+    (2, 4, 2, 300, 300, 64, dict(causal=True, window=100)),
+    (1, 4, 4, 500, 500, 64, dict(causal=True, window=100, softcap=30.0)),
+    (2, 32, 16, 640, 640, 128, dict(causal=True, window=200, softcap=50.0)),
+    (1, 8, 8, 256, 256, 128, dict(causal=True)),                # GQA group 1
+    (1, 8, 4, 256, 256, 128, dict(causal=True)),                # group 2
+    (1, 16, 2, 256, 256, 128, dict(causal=True)),               # group 8
+    (3, 4, 2, 257, 257, 128, dict(causal=True)),                # B > 1
+    (4, 16, 4, 384, 384, 64, dict(causal=True)),                # D 64, 128 rows
+    (2, 32, 32, 512, 512, 96, dict(causal=True)),               # D 96, 128 rows
+    (1, 4, 2, 64, 64, 96, dict(causal=True)),                   # one tile
+    (1, 4, 2, 1, 100, 128, dict(causal=True)),                  # one row
+    # long rows: 12 to 32 key tiles through the two-stage ring
+    (1, 16, 8, 4096, 4096, 128, dict(causal=True)),             # 128 rows
+    (1, 4, 2, 3000, 5000, 96, dict(causal=True, window=1500, softcap=50.0)),
+    (2, 8, 2, 2500, 2500, 64, dict(causal=False)),              # 128 rows
+]
+
+
+@pytest.mark.parametrize("b,hq,hk,sq,sk,d,kw", BF16_CASES)
+def test_bf16_kernel_edge_cases(b, hq, hk, sq, sk, d, kw):
+    args = _card(7 * sq + sk + d, b, hq, hk, sq, sk, d, "bfloat16")
+    launches = fa.flash_attention_cuda.launches
+    out = ops.flash_attention(*args, **kw)
+    want = ref.attention_ref(*args, **kw)
+    torch.cuda.synchronize()
+    plan = fa.flash_attention_cuda.last_plan
+    assert fa.flash_attention_cuda.launches == launches + 1
+    assert plan["variant"] == "wgmma"
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    assert plan["block_q"] == (64 if b * hq * -(-sq // 128) < n_sm else 128)
+    assert out.dtype == torch.bfloat16 and bool(out.isfinite().all())
+    torch.testing.assert_close(out.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+    assert worst_row_error(out, want) < ROW_TOL["bfloat16"]
+    if kw.get("causal") and sq > sk:
+        # the first sq - sk rows see no key and give 0
+        assert torch.count_nonzero(out[:, :, :sq - sk]) == 0
 
 
 def test_cuda_kernel_refuses_what_it_does_not_take():
