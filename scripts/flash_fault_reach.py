@@ -4,7 +4,8 @@ NVIDIA GPU.
     python3 scripts/flash_fault_reach.py
 
 Builds three broken copies of ``src/repro_torch/csrc/flash_attention.cu`` in
-a temporary directory, each with one fault a pipelined kernel can have:
+a temporary directory (beside a copy of the headers it includes), each with
+one fault a pipelined kernel can have:
 
 * ``dropped_tile``: rows that see more than 16 key tiles skip their first;
 * ``stale_stage``: the last key tile of a row of more than 9 tiles takes V
@@ -90,6 +91,8 @@ def main() -> None:
     src = fa.SRC.read_text()
     tmp = Path(tempfile.mkdtemp(prefix="flash_faults_"))
     kbuild.BUILD_DIR = tmp / "lib"
+    for header in kbuild.CSRC.glob("*.cuh"):      # what the copies include
+        (tmp / header.name).write_text(header.read_text())
     load = fa._library.__wrapped__  # the uncached loader, to rebind SRC
     for name, (old, new) in FAULTS.items():
         if src.count(old) != 1:

@@ -3,13 +3,14 @@
 One helper for every kernel: a source under ``csrc/`` is compiled for
 ``sm_90a`` into a shared library with a plain C interface, at first use,
 under ``build/repro_torch/`` at the repository root (git-ignored).  The
-library's name carries a hash of the source and the flags, so an edited
-source builds anew and an unchanged one is reused.  ``build`` starts one
+library's name carries a hash of the source, of the headers it includes
+from ``csrc/`` (``#include "hopper.cuh"``) and of the flags, so an edited
+source or header builds anew and an unchanged one is reused.  ``build`` starts one
 ``nvcc`` per source that is not built yet, all at once, and waits for them.
 Nothing is built or loaded at import.  The libraries link nothing beyond
-the CUDA runtime: the flash kernel finds the driver-API function it needs
-(``cuTensorMapEncodeTiled``) in the loaded driver with ``dlsym``, so no
-``-lcuda`` is needed.  A kernel called through ``ctypes``
+the CUDA runtime: the tensor-core kernels find the driver-API function they
+need (``cuTensorMapEncodeTiled``) in the loaded driver with ``dlsym``, so
+no ``-lcuda`` is needed.  A kernel called through ``ctypes``
 writes into a fresh tensor outside the autograd graph, so every wrapper
 calls ``refuse_autograd`` first.
 """
@@ -18,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -42,9 +44,23 @@ def cuda_tool(name: str) -> str:
     raise RuntimeError(f"{name} not found: set CUDA_HOME or put it on PATH")
 
 
+def _sources(src: Path) -> list[Path]:
+    """``src`` and, depth first, every file it includes with quotes
+    (``#include "name"``, looked up beside it), each once."""
+    found = [src]
+    for name in re.findall(r'^\s*#\s*include\s+"([^"]+)"', src.read_text(),
+                           re.MULTILINE):
+        for path in _sources(src.parent / name):
+            if path not in found:
+                found.append(path)
+    return found
+
+
 def library_path(src: Path, flags: tuple[str, ...]) -> Path:
-    """Where the library of ``src`` built with ``flags`` lives."""
-    key = hashlib.sha256(src.read_bytes() + " ".join(flags).encode())
+    """Where the library of ``src`` (with the headers it includes) built
+    with ``flags`` lives."""
+    key = hashlib.sha256(b"".join(p.read_bytes() for p in _sources(src))
+                         + " ".join(flags).encode())
     return BUILD_DIR / f"lib{src.stem}-{key.hexdigest()[:16]}.so"
 
 

@@ -5,6 +5,13 @@ is ``csrc/ssd_scan.cu`` (its header says what bounds it and how the design
 answers that); ``kernels/build.py`` builds it with ``nvcc`` at first use and
 binds it through ``ctypes``.  Nothing is built or loaded at import.
 
+Two variants, chosen by dtype in ``kernel_plan``: bf16 runs three
+chunk-parallel phases on the tensor cores (``"wgmma"``: TMA loads, ``wgmma``
+for every product, f32 scratch between the phases); f32 runs one block per
+(head, batch) on the CUDA cores (``"cuda_cores"``: f32 FMAs, which its 2e-4
+tolerance needs).  There is no option that picks another: a bf16 CUDA
+tensor launches the tensor-core phases or raises.
+
 ``ssd_scan_cuda`` takes CUDA tensors only and returns a result outside the
 autograd graph; it refuses to run where autograd would need a gradient.
 ``SSDScan`` is the differentiable form: its forward launches the kernel, its
@@ -16,6 +23,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 from torch import Tensor
@@ -27,31 +35,135 @@ SRC = kbuild.CSRC / "ssd_scan.cu"
 NVCC_FLAGS = kbuild.BASE_FLAGS
 HEAD_DIMS = (16, 32, 64, 128)   # P and N the kernel takes
 MAX_CHUNK = 128                 # chunk: a multiple of 32 up to this
-MAX_GRID_Y = 65535              # batch (grid y)
+MAX_GRID_YZ = 65535             # heads (grid y) and batch (grid z)
+MAX_SMEM = 232_448              # dynamic shared memory a block may have
+PASS_THREADS = 256              # state pass: threads a block, 4 elements each
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the C entry point's codes besides cudaError_t
+_NO_ENCODER, _ENCODE_FAILED = 999, 1000
+PHASES = ("ssd_fwd_chunk_state", "ssd_fwd_state_pass", "ssd_fwd_chunk_scan")
+
+
+def _padded(w: int) -> int:
+    """Columns a bf16 tile keeps in shared memory: whole 64-column boxes."""
+    return 64 if w <= 64 else 128
+
+
+def geometry(dtype: torch.dtype, p: int, n: int,
+             rows: int) -> list[tuple[int, int]]:
+    """(threads, shared-memory bytes) of each phase of the kernel
+    instantiated for (dtype, p, n, tile rows), as ``csrc/ssd_scan.cu`` lays
+    it out (``chunk_state_smem``, ``chunk_scan_smem``, ``smem_floats``).
+    The C entry point takes only (dtype, p, n, rows) and launches with its
+    own numbers; these are what the plan reports without the library, and
+    ``chip_smoke.py`` holds them against ``kernel_geometry``."""
+    if dtype == torch.bfloat16:
+        pp, np_ = _padded(p) // 64, _padded(n) // 64    # 64-column boxes
+        box = rows * 128                                # bytes of a box
+        # 1 KB to align the swizzled boxes, the boxes (x, B; C, B, x and
+        # h_in's of padded-P rows), the mbarrier, per-row floats
+        state = 1024 + box * (pp + np_) + 8 + 3 * rows * 4
+        scan = 1024 + box * (2 * np_ + pp) + 64 * pp * 128 * np_ + 8 \
+            + 2 * rows * 4
+        return [(128, state), (PASS_THREADS, 0), (2 * rows, scan)]
+    # x, B (rows padded by a float), C panel, state, W panel, 3 per row
+    floats = rows * p + rows * (n + 1) + 32 * (n + 1) + p * (n + 1) \
+        + 32 * (rows + 1) + 3 * rows
+    return [(256, floats * 4)]
+
+
+def kernel_plan(b: int, s: int, h: int, p: int, g: int, n: int, chunk: int,
+                dtype: torch.dtype) -> dict:
+    """Launch plan of ``ssd_scan_cuda`` for x ``[b, s, h, p]`` and Bm/Cm
+    ``[b, s, g, n]`` in chunks of ``chunk``.
+
+    bf16 plans ``"wgmma"``: three phases, chunk state and chunk scan with
+    one block per (chunk, head, batch), the state pass with one thread per
+    4 elements of a head's ``[p, n]`` state; the chunk sits in a tile of
+    ``rows`` = the chunk rounded up to 64, one warpgroup per 64 rows in the
+    chunk scan; ``mma`` lists each phase's wgmma shapes (m, n, k), P and N
+    below 64 padded to 64.  ``scratch`` holds the shapes and dtypes the
+    wrapper allocates (cum, the chunks' own states, the states entering
+    them) and ``scratch_bytes`` their sum.  f32 plans ``"cuda_cores"``: one
+    block per (head, batch) looping over the chunks, no scratch.  Raises
+    ValueError on what no instantiation takes.
+    """
+    if p not in HEAD_DIMS:
+        raise ValueError(f"ssd_scan_cuda: head dim P={p} is not one of "
+                         f"{HEAD_DIMS}")
+    if n not in HEAD_DIMS:
+        raise ValueError(f"ssd_scan_cuda: state dim N={n} is not one of "
+                         f"{HEAD_DIMS}")
+    if chunk % 32 or not 0 < chunk <= MAX_CHUNK:
+        raise ValueError(f"ssd_scan_cuda: chunk {chunk} is not a multiple "
+                         f"of 32 up to {MAX_CHUNK}")
+    if h > MAX_GRID_YZ or b > MAX_GRID_YZ:
+        raise ValueError(f"ssd_scan_cuda: {h} heads or batch {b} exceed the "
+                         f"grid's {MAX_GRID_YZ}")
+    nc = -(-s // chunk)
+    if dtype == torch.bfloat16:
+        rows = 64 if chunk <= 64 else 128
+        pp, np_ = _padded(p), _padded(n)
+        grids = [(nc, h, b), (b * h, -(-p * n // (4 * PASS_THREADS)), 1),
+                 (nc, h, b)]
+        mma = [[(64, np_, 16)], [], [(64, rows, 16), (64, pp, 16)]]
+        scratch = {
+            "cum": ((b, h, nc * chunk), torch.float32),
+            "state": ((b, h, nc, p, n), torch.float32),
+            "h_in": ((b, h, nc, p, n), torch.bfloat16),
+        }
+        variant = "wgmma"
+    elif dtype == torch.float32:
+        rows, grids, mma, scratch = chunk, [(h, b, 1)], [[]], {}
+        variant = "cuda_cores"
+    else:
+        raise ValueError(f"ssd_scan_cuda: x is {dtype}, expected "
+                         "torch.float32 or torch.bfloat16")
+    names = PHASES if variant == "wgmma" else ("ssd_fwd_f32",)
+    phases = [{"name": name, "grid": grid, "threads": threads, "smem": smem,
+               "mma": shapes}
+              for name, grid, (threads, smem), shapes
+              in zip(names, grids, geometry(dtype, p, n, rows), mma)]
+    for ph in phases:
+        if ph["smem"] > MAX_SMEM:
+            raise ValueError(f"ssd_scan_cuda: {ph['smem']} bytes of shared "
+                             f"memory exceed a block's {MAX_SMEM}")
+    nbytes = sum(math.prod(shape) * dt.itemsize
+                 for shape, dt in scratch.values())
+    return {"variant": variant, "rows": rows, "phases": phases,
+            "scratch": scratch, "scratch_bytes": nbytes}
 
 
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = kbuild.load(SRC, NVCC_FLAGS)
     p, i, q = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    lib.ssd_scan_fwd.argtypes = [p] * 7 + [i] * 8 + [q] * 12 + [p]
+    lib.ssd_scan_fwd.argtypes = [p] * 10 + [i] * 9 + [q] * 12 + [p]
     lib.ssd_scan_fwd.restype = i
+    ip = ctypes.POINTER(i)
+    lib.ssd_scan_geometry.argtypes = [i, i, i, i, i, ip, ip]
+    lib.ssd_scan_geometry.restype = i
     return lib
 
 
-def _check(x, dt, A, Bm, Cm, D, chunk) -> None:
-    named = (("x", x), ("dt", dt), ("A", A), ("Bm", Bm), ("Cm", Cm), ("D", D))
-    for name, t in named:
-        if not t.is_cuda:
-            raise ValueError(f"ssd_scan_cuda: {name} is on {t.device}, not a "
-                             "CUDA device")
-        if t.device != x.device:
-            raise ValueError(f"ssd_scan_cuda: {name} is on {t.device}, x on "
-                             f"{x.device}")
-    if x.dtype not in _DTYPES:
-        raise ValueError(f"ssd_scan_cuda: x is {x.dtype}, expected "
-                         "torch.float32 or torch.bfloat16")
+def kernel_geometry(dtype: torch.dtype, p: int, n: int,
+                    rows: int) -> list[tuple[int, int]] | None:
+    """(threads, shared-memory bytes) of each phase of the built library's
+    instantiation for (dtype, p, n, rows), or None if it has none (builds
+    the library)."""
+    out = []
+    for phase in range(3 if dtype == torch.bfloat16 else 1):
+        threads, smem = ctypes.c_int(), ctypes.c_int()
+        if _library().ssd_scan_geometry(_DTYPES[dtype], p, n, rows, phase,
+                                        threads, smem):
+            return None
+        out.append((threads.value, smem.value))
+    return out
+
+
+def _check(x, dt, A, Bm, Cm, D, chunk) -> dict:
+    """Shapes and dtypes, then the plan, then devices and layout: what the
+    plan refuses is refused before any device is looked at."""
     for name, t in (("Bm", Bm), ("Cm", Cm)):
         if t.dtype != x.dtype:
             raise ValueError(f"ssd_scan_cuda: {name} is {t.dtype}, x is "
@@ -76,22 +188,30 @@ def _check(x, dt, A, Bm, Cm, D, chunk) -> None:
     if g == 0 or h % g:
         raise ValueError(f"ssd_scan_cuda: {h} heads are not a multiple of "
                          f"{g} groups")
-    if p not in HEAD_DIMS:
-        raise ValueError(f"ssd_scan_cuda: head dim P={p} is not one of "
-                         f"{HEAD_DIMS}")
-    if n not in HEAD_DIMS:
-        raise ValueError(f"ssd_scan_cuda: state dim N={n} is not one of "
-                         f"{HEAD_DIMS}")
-    if chunk % 32 or not 0 < chunk <= MAX_CHUNK:
-        raise ValueError(f"ssd_scan_cuda: chunk {chunk} is not a multiple "
-                         f"of 32 up to {MAX_CHUNK}")
-    if b > MAX_GRID_Y:
-        raise ValueError(f"ssd_scan_cuda: batch {b} exceeds the grid's "
-                         f"{MAX_GRID_Y}")
+    plan = kernel_plan(b, s, h, p, g, n, chunk, x.dtype)
+    named = (("x", x), ("dt", dt), ("A", A), ("Bm", Bm), ("Cm", Cm), ("D", D))
+    for name, t in named:
+        if not t.is_cuda:
+            raise ValueError(f"ssd_scan_cuda: {name} is on {t.device}, not a "
+                             "CUDA device")
+        if t.device != x.device:
+            raise ValueError(f"ssd_scan_cuda: {name} is on {t.device}, x on "
+                             f"{x.device}")
     for name, t in (("x", x), ("Bm", Bm), ("Cm", Cm)):
         if t.stride(-1) != 1:
             raise ValueError(f"ssd_scan_cuda: the last axis of {name} is not "
                              "contiguous")
+        if plan["variant"] != "wgmma":
+            continue
+        # TMA reads bf16 rows from 16-byte aligned addresses and strides
+        if t.data_ptr() % 16:
+            raise ValueError(f"ssd_scan_cuda: {name} is not 16-byte aligned")
+        for axis, stride in zip("bsh" if name == "x" else "bsg", t.stride()):
+            if stride * t.element_size() % 16:
+                raise ValueError(
+                    f"ssd_scan_cuda: {name}'s stride {stride} along axis "
+                    f"{axis} is not a multiple of 16 bytes, which TMA needs")
+    return plan
 
 
 def ssd_scan_cuda(x: Tensor, dt: Tensor, A: Tensor, Bm: Tensor, Cm: Tensor,
@@ -99,36 +219,51 @@ def ssd_scan_cuda(x: Tensor, dt: Tensor, A: Tensor, Bm: Tensor, Cm: Tensor,
     """The SSD scan on the card: x ``[B, S, H, P]``, dt ``[B, S, H]``, A and
     D ``[H]``, Bm/Cm ``[B, S, G, N]`` -> y ``[B, S, H, P]`` in x's dtype, the
     contract of ``ref.ssd_scan_ref`` (S need not be a multiple of
-    ``chunk``).  x, Bm, Cm are read through their strides.
+    ``chunk``).  x, Bm, Cm and dt are read through their strides (for bf16
+    x, Bm and Cm each a multiple of 16 bytes).
 
-    Launches on the current stream and does not synchronise.  Each call that
-    launches adds one to ``ssd_scan_cuda.launches``.
+    Launches on the current stream and does not synchronise: bf16 launches
+    the three phases of ``kernel_plan`` with the scratch it lists.  Each
+    call that launches adds one to ``ssd_scan_cuda.launches`` and leaves its
+    plan in ``ssd_scan_cuda.last_plan``.
     """
     kbuild.refuse_autograd("ssd_scan_cuda", x=x, dt=dt, A=A, Bm=Bm, Cm=Cm, D=D)
-    _check(x, dt, A, Bm, Cm, D, chunk)
+    plan = _check(x, dt, A, Bm, Cm, D, chunk)
     b, s, h, p = x.shape
     g, n = Bm.shape[2], Bm.shape[3]
     y = torch.empty((b, s, h, p), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
     A, D = A.contiguous(), D.contiguous()
+    scratch = [torch.empty(shape, dtype=dtype, device=x.device)
+               for shape, dtype in plan["scratch"].values()] or [None] * 3
     lib = _library()
     with torch.cuda.device(x.device):
         err = lib.ssd_scan_fwd(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-            Cm.data_ptr(), D.data_ptr(), y.data_ptr(), b, s, h, g, p, n,
-            chunk, _DTYPES[x.dtype], *x.stride()[:3], *dt.stride(),
-            *Bm.stride()[:3], *Cm.stride()[:3],
-            torch.cuda.current_stream().cuda_stream)
+            Cm.data_ptr(), D.data_ptr(), y.data_ptr(),
+            *(t.data_ptr() if t is not None else None for t in scratch),
+            b, s, h, g, p, n, chunk, _DTYPES[x.dtype], plan["rows"],
+            *x.stride()[:3], *dt.stride(), *Bm.stride()[:3],
+            *Cm.stride()[:3], torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"ssd_scan_cuda: launch failed with CUDA error "
-                           f"{err} (x {tuple(x.shape)}, Bm {tuple(Bm.shape)}, "
-                           f"{x.dtype}, chunk {chunk})")
+        if err == _NO_ENCODER:
+            what = "the driver has no cuTensorMapEncodeTiled"
+        elif err >= _ENCODE_FAILED:
+            what = (f"cuTensorMapEncodeTiled failed with CUresult "
+                    f"{err - _ENCODE_FAILED}")
+        else:
+            what = f"CUDA error {err}"
+        raise RuntimeError(f"ssd_scan_cuda: launch failed: {what} (x "
+                           f"{tuple(x.shape)}, Bm {tuple(Bm.shape)}, "
+                           f"{x.dtype}, chunk {chunk}, plan {plan})")
     ssd_scan_cuda.launches += 1
+    ssd_scan_cuda.last_plan = plan
     return y
 
 
 ssd_scan_cuda.launches = 0
+ssd_scan_cuda.last_plan = None
 
 
 class SSDScan(torch.autograd.Function):

@@ -202,3 +202,129 @@ def test_kernel_wrapper_refuses_cpu_tensors_and_autograd():
     args[3].requires_grad_(True)
     with pytest.raises(RuntimeError, match="gradient of Bm would be lost"):
         ssd.ssd_scan_cuda(*args)
+
+
+# Launch plans, worked out by hand from the layout of csrc/ssd_scan.cu.
+# bf16 chunk state: 1,024 bytes to align the swizzled boxes, the x and B
+# boxes (64 columns = 128 bytes a row, rows = the chunk rounded up to 64),
+# 8 for the mbarrier, 3 floats a row (dt, cum, w); chunk scan: 1,024, the
+# C, B and x boxes, h_in's boxes of P-padded-to-64 rows, 8, 2 floats a row.
+# f32: floats of x [Q, P], B [Q, N+1], a C panel [32, N+1], the state
+# [P, N+1], a W panel [32, Q+1] and 3 a row.
+def _phases(state, scan, rows_grid, pass_grid):
+    return [
+        {"name": "ssd_fwd_chunk_state", "grid": rows_grid, "threads": 128,
+         "smem": state[0], "mma": state[1]},
+        {"name": "ssd_fwd_state_pass", "grid": pass_grid, "threads": 256,
+         "smem": 0, "mma": []},
+        {"name": "ssd_fwd_chunk_scan", "grid": rows_grid,
+         "threads": scan[2], "smem": scan[0], "mma": scan[1]},
+    ]
+
+
+PLANS = [
+    # mamba2-130m's training shape: 16 chunks x 24 heads x 8; state pass
+    # 8 blocks of 1,024 state elements for each of 192 heads
+    ((8, 2048, 24, 64, 1, 128, 128, torch.bfloat16), {
+        "variant": "wgmma", "rows": 128,
+        "phases": _phases(
+            (1_024 + 16_384 * 3 + 8 + 1_536, [(64, 128, 16)]),     # 51,720
+            (1_024 + 16_384 * 5 + 8_192 * 2 + 8 + 1_024,           # 100,360
+             [(64, 128, 16), (64, 64, 16)], 256),
+            (16, 24, 8), (192, 8, 1)),
+        "scratch": {"cum": ((8, 24, 2048), torch.float32),
+                    "state": ((8, 24, 16, 64, 128), torch.float32),
+                    "h_in": ((8, 24, 16, 64, 128), torch.bfloat16)},
+        "scratch_bytes": 1_572_864 + 100_663_296 + 50_331_648}),
+    # jamba-shaped: N = 16 pads to one 64-column box
+    ((1, 4096, 128, 64, 1, 16, 128, torch.bfloat16), {
+        "variant": "wgmma", "rows": 128,
+        "phases": _phases(
+            (1_024 + 16_384 * 2 + 8 + 1_536, [(64, 64, 16)]),      # 35,336
+            (1_024 + 16_384 * 3 + 8_192 + 8 + 1_024,               # 59,400
+             [(64, 128, 16), (64, 64, 16)], 256),
+            (32, 128, 1), (128, 1, 1)),
+        "scratch": {"cum": ((1, 128, 4096), torch.float32),
+                    "state": ((1, 128, 32, 64, 16), torch.float32),
+                    "h_in": ((1, 128, 32, 64, 16), torch.bfloat16)},
+        "scratch_bytes": 2_097_152 + 16_777_216 + 8_388_608}),
+    # chunk 32 in 64-row tiles, one warpgroup in the chunk scan
+    ((1, 256, 4, 64, 1, 128, 32, torch.bfloat16), {
+        "variant": "wgmma", "rows": 64,
+        "phases": _phases(
+            (1_024 + 8_192 * 3 + 8 + 768, [(64, 128, 16)]),        # 26,376
+            (1_024 + 8_192 * 5 + 8_192 * 2 + 8 + 512,              # 58,888
+             [(64, 64, 16), (64, 64, 16)], 128),
+            (8, 4, 1), (4, 8, 1)),
+        "scratch": {"cum": ((1, 4, 256), torch.float32),
+                    "state": ((1, 4, 8, 64, 128), torch.float32),
+                    "h_in": ((1, 4, 8, 64, 128), torch.bfloat16)},
+        "scratch_bytes": 4_096 + 1_048_576 + 524_288}),
+    # f32 ragged: one block per (head, batch) on the CUDA cores
+    ((2, 300, 8, 32, 2, 64, 128, torch.float32), {
+        "variant": "cuda_cores", "rows": 128,
+        "phases": [{"name": "ssd_fwd_f32", "grid": (8, 2, 1),
+                    "threads": 256, "mma": [],
+                    "smem": 4 * (4_096 + 8_320 + 2_080 + 2_080 + 4_128
+                                 + 384)}],                         # 84,352
+        "scratch": {}, "scratch_bytes": 0}),
+]
+
+
+@pytest.mark.parametrize("shape,plan", PLANS, ids=lambda v: str(v)[:40])
+def test_kernel_plan_literal(shape, plan):
+    """Grids, threads, shared memory and scratch at the training shape, a
+    jamba-shaped one, 32-row chunks and f32."""
+    assert ssd.kernel_plan(*shape) == plan
+
+
+@pytest.mark.parametrize("p", ssd.HEAD_DIMS)
+def test_kernel_plan_variant_by_dtype(p):
+    """bf16 on the tensor cores, f32 on the CUDA cores: no other choice."""
+    for dtype, variant in ((torch.bfloat16, "wgmma"),
+                           (torch.float32, "cuda_cores")):
+        plan = ssd.kernel_plan(2, 512, 8, p, 1, 64, 128, dtype)
+        assert plan["variant"] == variant
+
+
+@pytest.mark.parametrize("n", ssd.HEAD_DIMS)
+@pytest.mark.parametrize("p", ssd.HEAD_DIMS)
+def test_kernel_plan_tiles_fit_wgmma_and_the_card(p, n):
+    """For every P and N and every chunk: bf16 tiles of 64 or 128 rows that
+    hold the chunk, every product m64 n{64, 128} k16 (the instantiated
+    wgmma shapes), a warpgroup per 64 rows in the chunk scan, and every
+    phase's shared memory within a block's 232,448 bytes."""
+    for chunk in (32, 64, 96, 128):
+        plan = ssd.kernel_plan(1, 1000, 6, p, 3, n, chunk, torch.bfloat16)
+        rows = plan["rows"]
+        assert rows in (64, 128) and chunk <= rows < chunk + 64
+        assert plan["phases"][2]["threads"] == 2 * rows
+        for ph in plan["phases"]:
+            assert ph["smem"] <= 232_448 and ph["threads"] <= 1024
+            for m, width, k in ph["mma"]:
+                assert (m, k) == (64, 16) and width in (64, 128)
+        f32 = ssd.kernel_plan(1, 1000, 6, p, 3, n, chunk, torch.float32)
+        assert f32["phases"][0]["smem"] <= 232_448
+
+
+@pytest.mark.parametrize("shape,dtype,match", [
+    ((1, 64, 2, 8, 1, 16, 32), torch.bfloat16, "head dim P=8"),
+    ((1, 64, 2, 16, 1, 24, 32), torch.float32, "state dim N=24"),
+    ((1, 64, 2, 16, 1, 16, 48), torch.bfloat16, "chunk 48"),
+    ((1, 64, 2, 16, 1, 16, 32), torch.float16, "float16"),
+    ((65536, 64, 2, 16, 1, 16, 32), torch.bfloat16, "exceed the grid"),
+])
+def test_kernel_wrapper_raises_on_what_the_plan_refuses(shape, dtype, match):
+    """The plan refuses before any device is looked at: meta tensors (no
+    memory) reach it here, and the wrapper raises its ValueError."""
+    b, s, h, p, g, n, chunk = shape
+    with pytest.raises(ValueError, match=match):
+        ssd.kernel_plan(b, s, h, p, g, n, chunk, dtype)
+    meta = dict(device="meta")
+    args = (torch.empty(b, s, h, p, dtype=dtype, **meta),
+            torch.empty(b, s, h, **meta), torch.empty(h, **meta),
+            torch.empty(b, s, g, n, dtype=dtype, **meta),
+            torch.empty(b, s, g, n, dtype=dtype, **meta),
+            torch.empty(h, **meta))
+    with pytest.raises(ValueError, match=match):
+        ssd.ssd_scan_cuda(*args, chunk=chunk)

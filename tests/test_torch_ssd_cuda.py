@@ -11,6 +11,15 @@ version); 2e-2 in bf16, where x, B, C and y round to 8 bits of mantissa.
 Gradients come from the plain version in both paths (``SSDScan``'s backward
 recomputes it), so they agree to f32 rounding of the forward's inputs:
 1e-4 of each leaf's largest value.
+
+bf16 runs the three tensor-core phases (plan variant ``"wgmma"``), f32 the
+CUDA-core kernel (``"cuda_cores"``); each case checks which one launched.
+The bf16 phases also round W, the scaled B rows and the carried state to
+bf16 before their products, so besides the elementwise 2e-2 each bf16 case
+holds the relative error of the whole output, ``|out - want|_F /
+|want|_F``, and of its worst ``(b, h)`` slice under ``REL_TOL`` and
+``SLICE_TOL``: ~1.8x the most the sound kernel gave on an H100 over these
+cases and chip_smoke.py's shapes.
 """
 import numpy as np
 import pytest
@@ -22,6 +31,17 @@ from repro_torch.kernels import ssd_scan as ssd
 pytestmark = [pytest.mark.tier1, pytest.mark.cuda]
 
 TOL = {"float32": 2e-4, "bfloat16": 2e-2}
+VARIANT = {"float32": "cuda_cores", "bfloat16": "wgmma"}
+REL_TOL, SLICE_TOL = 3.2e-3, 5e-3
+
+
+def relative_errors(out, want) -> tuple[float, float]:
+    """The relative error of the whole output and of its worst ``(b, h)``
+    slice ``[S, P]``."""
+    diff, want = out.float() - want.float(), want.float()
+    whole = float(diff.norm() / want.norm())
+    per = diff.norm(dim=(1, 3)) / want.norm(dim=(1, 3)).clamp_min(1e-30)
+    return whole, float(per.max())
 
 
 def _card(seed, b, s, h, p, g, n, dtype, dt_hi=0.1):
@@ -60,9 +80,89 @@ def test_cuda_kernel_matches_plain_version(b, s, h, p, g, n, chunk, dtype):
     want = ref.ssd_scan_ref(*args, chunk=chunk)
     torch.cuda.synchronize()
     assert ssd.ssd_scan_cuda.launches == launches + 1
+    assert ssd.ssd_scan_cuda.last_plan["variant"] == VARIANT[dtype]
     assert out.dtype == want.dtype and out.shape == want.shape
     torch.testing.assert_close(out.float(), want.float(), rtol=TOL[dtype],
                                atol=TOL[dtype])
+
+
+# the tensor-core phases' edge cases: every chunk, ragged S, groups of 2
+# and 3 heads, every P and N, B > 1, 64 chunks through the state pass
+BF16_CASES = [
+    # b, s, h, p, g, n, chunk
+    (1, 256, 4, 64, 1, 128, 32),        # chunk 32: 64-row tiles, half padding
+    (2, 300, 4, 64, 2, 64, 64),         # chunk 64, ragged, 2 heads a group
+    (1, 200, 6, 32, 2, 32, 96),         # chunk 96 in 128-row tiles, 3 a group
+    (3, 130, 6, 16, 3, 16, 128),        # P = N = 16, ragged, B = 3
+    (1, 512, 4, 128, 1, 64, 128),       # P = 128: two boxes, two M tiles
+    (2, 384, 8, 128, 4, 128, 64),       # P = N = 128 in 64-row tiles
+    (1, 1000, 8, 64, 1, 16, 128),       # jamba's state size, ragged
+    (2, 100, 4, 32, 1, 128, 32),        # ragged in 32-row chunks
+    (1, 64, 2, 16, 2, 64, 96),          # S below one chunk, 1 head a group
+    (1, 8192, 8, 64, 1, 128, 128),      # 64 chunks through the state pass
+]
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", BF16_CASES)
+def test_bf16_kernel_edge_cases(b, s, h, p, g, n, chunk):
+    args = _card(3 * s + p + n + chunk, b, s, h, p, g, n, "bfloat16")
+    _holds(args, chunk)
+
+
+def _holds(args, chunk):
+    """One counted launch of the tensor-core phases, within 2e-2 of the
+    plain version elementwise and within the relative-error limits."""
+    launches = ssd.ssd_scan_cuda.launches
+    with torch.no_grad():
+        out = ops.ssd_scan(*args, chunk=chunk)
+    want = ref.ssd_scan_ref(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd.ssd_scan_cuda.launches == launches + 1
+    assert ssd.ssd_scan_cuda.last_plan["variant"] == "wgmma"
+    assert out.dtype == torch.bfloat16 and bool(out.isfinite().all())
+    torch.testing.assert_close(out.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+    whole, worst = relative_errors(out, want)
+    assert whole < REL_TOL and worst < SLICE_TOL, (whole, worst)
+
+
+def test_bf16_kernel_where_the_decay_would_overflow():
+    """dt = 0.1 and |A| = 16 on one head: sum dt |A| over a chunk of 128
+    reaches ~205, and exp(cum_i - cum_j) above the diagonal would overflow
+    if it were formed; the kernel masks before the exponential."""
+    x, dt, A, Bm, Cm, D = _card(12, 1, 512, 2, 64, 1, 128, "bfloat16")
+    dt = torch.full_like(dt, 0.1)
+    A = torch.tensor([-16.0, -1.0], device="cuda")
+    _holds((x, dt, A, Bm, Cm, D), 128)
+
+
+def test_bf16_kernel_reads_strided_inputs():
+    """x, B and C as slices of wider bf16 tensors, every stride a multiple
+    of 16 bytes, as TMA needs; dt transposed in memory."""
+    x, dt, A, Bm, Cm, D = _card(13, 2, 300, 8, 64, 2, 64, "bfloat16")
+    wide = torch.cat([Bm, Cm], dim=2)              # [B, S, 2G, N]
+    xw = torch.cat([x, x], dim=3)[..., :64]        # row stride 2P
+    dtw = dt.transpose(0, 1).contiguous().transpose(0, 1)
+    launches = ssd.ssd_scan_cuda.launches
+    out = ssd.ssd_scan_cuda(xw, dtw, A, wide[:, :, :2], wide[:, :, 2:], D,
+                            chunk=64)
+    want = ref.ssd_scan_ref(x, dt, A, Bm, Cm, D, chunk=64)
+    assert ssd.ssd_scan_cuda.launches == launches + 1
+    assert ssd.ssd_scan_cuda.last_plan["variant"] == "wgmma"
+    torch.testing.assert_close(out.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+    whole, worst = relative_errors(out, want)
+    assert whole < REL_TOL and worst < SLICE_TOL, (whole, worst)
+
+
+def test_bf16_kernel_refuses_a_stride_tma_cannot_take():
+    x, dt, A, Bm, Cm, D = _card(14, 1, 64, 2, 64, 1, 16, "bfloat16")
+    odd = torch.cat([Bm, Bm[..., :4]], dim=3)[..., :16]   # rows of 20 bf16
+    with pytest.raises(ValueError, match="Bm's stride 20 along axis s"):
+        ssd.ssd_scan_cuda(x, dt, A, odd, Cm, D)
+    xo = torch.cat([x, x[..., :4]], dim=3)[..., :64]      # 68 bf16 a head
+    with pytest.raises(ValueError, match="x's stride 68 along axis h"):
+        ssd.ssd_scan_cuda(xo, dt, A, Bm, Cm, D)
 
 
 def test_cuda_kernel_matches_sequential_scan():
