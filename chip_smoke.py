@@ -41,7 +41,26 @@ training loop, and fails with a non-zero exit code if any phase fails:
              (integer fields exact, float fields rtol 1e-5)
 4. campaign  1024 Fig. 9/10 rows at 10,000 hosts as one batch-major run;
              rows 0 and 1 bitwise their solo runs
-5. proof     the advance-sweep kernel's launch count over phases 3-4
+4b. extensions  the event loop's extensions through ``simulate``,
+             ``simulate_instrumented`` and ``simulate_trace`` on the card:
+             (a) each extension constructor (evacuation and its
+             restart-from-zero control, consolidation and balance with and
+             without migration, Table 1 with live migration, autoscale on
+             and off, reliability from a torch seed and its MTBF = INF
+             control, generated poisson / diurnal / bursty, serving) against
+             the port's CPU run, with its anchor; (b) ``simulate_trace`` of
+             Fig. 9/10 at 10,000 hosts (50 samples; result bitwise the
+             untraced run, progress within rtol 1e-5 of the CPU trace) and
+             of phase 4's campaign (result bitwise the untraced campaign);
+             (c) 512 ``reliability_scenario`` rows at Fig. 9/10's scale
+             (10,000 hosts, 50 VMs, 500 cloudlets of 1,200 s), an MTBF x
+             policy grid over seeds, with launches per batch step, the
+             provisioning loop's share and the idle share from a profiled
+             window of batch steps; (d) 1024-row autoscale (burst rate x
+             threshold x seed) and consolidation (consolidate x balance
+             threshold) campaigns; in (c) and (d) two rows bitwise their
+             solo runs, which equal the port's CPU runs
+5. proof     the advance-sweep kernel's launch count over phases 3-4b
 6. serving   internlm2-1.8b at full width and depth (bf16, random weights from
              a seed) served by ``ServingEngine`` (4 slots of 1,024 tokens,
              re-planning by simulation every 8 steps) to 8 requests of 128-512
@@ -96,7 +115,9 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch import tree  # noqa: E402
 from repro_torch.convert import result_to_numpy  # noqa: E402
 from repro_torch.core import (  # noqa: E402
-    SPACE_SHARED, TIME_SHARED, scenarios, simulate, stack_scenarios, step)
+    INF, SPACE_SHARED, TIME_SHARED, Outages, broadcast_campaign, engine,
+    provision, scenario_row, scenarios, simulate, simulate_instrumented,
+    simulate_trace, stack_scenarios, step, workload)
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import build as kbuild  # noqa: E402
 from repro_torch.data import ShardedLoader  # noqa: E402
@@ -116,10 +137,25 @@ torch.backends.cudnn.allow_tf32 = False
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 FP32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
-KERNEL_SHAPES = [(1024, 500), (1, 500), (1, 131072), (1, 3 * 2**17),
-                 (8192, 4096)]
-MAIN_SHAPE = (1024, 500)    # the advance sweep of the Fig. 9/10 campaign
+KERNEL_SHAPES = [(1024, 500), (512, 500), (1024, 48), (1, 500),
+                 (1, 131072), (1, 3 * 2**17), (8192, 4096)]
+# the advance sweep of the Fig. 9/10 campaign ((512, 500): the reliability
+# campaign's; (1024, 48): the autoscale campaign's)
+MAIN_SHAPE = (1024, 500)
 CAMPAIGN_ROWS = 1024
+# the reliability campaign: Fig. 9/10's fleet, VMs and cloudlets over two
+# federated datacenters, an MTBF x (evacuation, checkpoint) grid over seeds
+RELIABILITY = dict(n_dc=2, hosts_per_dc=5_000, n_vms=50, cl_per_vm=10,
+                   task_mi=1_200_000.0)
+RELIABILITY_MTBFS = (3e5, 1e6, 1e7, INF)
+RELIABILITY_POLICIES = ((True, INF), (True, 600_000.0), (False, INF),
+                        (False, 600_000.0))   # (evacuation, ckpt MI = 600 s)
+# 512 rows, not 1024: 1024 rows took 69.6 s on an NVIDIA H100 80GB HBM3
+# (700 W), over the ~60 s this campaign may take; the per-step cost is the
+# host's, so fewer rows cut the provisioning steps, not the batch steps
+RELIABILITY_ROWS = 512
+PROFILED_FROM, PROFILED_STEPS = 200, 40   # batch steps profiled in (c)
+TRACE_SAMPLES = 50
 # flash attention: name, (B, Hq, Hk, Sq, Sk, D), dtype, masking
 FLASH_SHAPES = [
     ("serving prefill", (1, 16, 8, 512, 512, 128), torch.bfloat16,
@@ -663,7 +699,7 @@ def phase_anchors() -> tuple[dict, int]:
 
 
 # ------------------------------------------------------------ 4. campaign
-def phase_campaign(solo: dict) -> int:
+def phase_campaign(solo: dict) -> tuple[int, object, object]:
     rows = [solo[SPACE_SHARED][0], solo[TIME_SHARED][0]] * (CAMPAIGN_ROWS // 2)
     batch = stack_scenarios(rows)
     mib = sum(x.numel() * x.element_size() for x in batch.leaves()) / 2**20
@@ -687,7 +723,335 @@ def phase_campaign(solo: dict) -> int:
         f"{int(events.sum()) / secs!r} row events/s, "
         f"{syncs} host syncs = {syncs / batch_steps!r} per batch step; "
         "rows 0 and 1 bitwise their solo runs"))
-    return batch_steps
+    return batch_steps, batch, res
+
+
+# ---------------------------------------------------------- 4b. extensions
+def bitwise(a_res, b_res, what: str) -> None:
+    a, b = result_to_numpy(a_res), result_to_numpy(b_res)
+    for k in a:
+        check(a[k].shape == b[k].shape and (a[k] == b[k]).all(),
+              f"{what}: field {k} bitwise")
+
+
+def gen(seed: int) -> torch.Generator:
+    """The port's generators draw from a CPU generator: a scenario built
+    for the card equals the one built for the CPU from the same seed."""
+    return torch.Generator().manual_seed(seed)
+
+
+def ext_anchors() -> int:
+    """(a) Each extension constructor on the card against the port's CPU
+    run, with its anchor.  Returns the batch steps."""
+    steps = 0
+
+    def card(name, scn, instrumented=False):
+        nonlocal steps
+        t0 = time.perf_counter()
+        res, out = simulate_instrumented(scn)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        same_as_cpu(res, scn, name)
+        steps += int(res.n_events)
+        say("extensions", f"{name}: {int(res.n_finished)} of "
+            f"{scn.cloudlets.n_cloudlets} finished, {int(res.n_events)} "
+            f"events, {int(res.n_migrations)} migrations, "
+            f"{int(res.n_evacuations)} evacuations, {int(res.sla_violations)}"
+            f" SLA violations, downtime {float(res.downtime)!r} s, makespan "
+            f"{float(res.makespan)!r} s, energy "
+            f"{float(res.energy_j.sum())!r} J, outputs "
+            f"{ {k: {n: v.tolist() for n, v in o.items()} for k, o in out.items()} }, "
+            f"{secs!r} s")
+        return (res, out) if instrumented else res
+
+    evac = card("evacuation", scenarios.evacuation_scenario())
+    check(int(evac.sla_violations) == 0 and int(evac.n_evacuations) == 2,
+          "evacuation: 0 SLA violations, 2 evacuations")
+    ctrl = card("restart-from-zero control", scenarios.evacuation_scenario(
+        evacuation=False, ckpt_interval=INF))
+    check(int(ctrl.sla_violations) == 2 and float(ctrl.downtime) > 0,
+          "restart control: 2 SLA violations, downtime > 0")
+    on = card("consolidation", scenarios.consolidation_scenario())
+    off = card("consolidation, static control",
+               scenarios.consolidation_scenario(live_migration=False))
+    check(float(on.energy_j.sum()) < float(off.energy_j.sum()),
+          "consolidation: less energy with migration than without")
+    on = card("balance", scenarios.balance_scenario())
+    off = card("balance, static control",
+               scenarios.balance_scenario(live_migration=False))
+    check(float(on.makespan) < float(off.makespan),
+          "balance: makespan with migration under the static control's")
+    res = card("table1 with live migration",
+               scenarios.table1_scenario(True, live_migration=True))
+    check(int(res.n_finished) == 25, "table1 live migration finishes all")
+    (on, out_on), (off, out_off) = (
+        card(f"autoscale {flag} (torch seed 0)", scenarios.autoscale_scenario(
+            gen(0), autoscale=flag == "on"), instrumented=True)
+        for flag in ("on", "off"))
+    check(int(on.n_finished) == int(off.n_finished) == 48,
+          "autoscale on and off finish all 48 cloudlets")
+    check(int(out_off["autoscale"]["n_scale_up"]) == 0,
+          "autoscale off never scales")
+    rel = card("reliability (torch seed 0)", scenarios.reliability_scenario(
+        gen(0), mtbf_s=300.0))
+    check(int(rel.n_finished) == 8, "reliability finishes all 8 cloudlets")
+    never = scenarios.reliability_scenario(gen(0), mtbf_s=INF)
+    res = card("reliability, MTBF = INF control", never)
+    plain = simulate(never.replace(outages=None, instruments=()))
+    bitwise(res, plain, "MTBF = INF control vs the scenario without outages")
+    steps += int(plain.n_events)
+    for kind in ("poisson", "diurnal", "bursty"):
+        res = card(f"generated {kind} (torch seed 0)",
+                   scenarios.generated_scenario(gen(0), kind=kind))
+        check(int(res.n_finished) == 64, f"generated {kind} finishes all")
+    res = card("serving (torch seed 0)", scenarios.serving_scenario(gen(0)))
+    check(int(res.n_finished) == 64, "serving finishes all 64 requests")
+    return steps
+
+
+def ext_traces(solo: dict, campaign) -> int:
+    """(b) ``simulate_trace`` at Fig. 9/10's 10,000 hosts and over phase
+    4's campaign.  Returns the batch steps."""
+    scn, res = solo[SPACE_SHARED]
+    ts = torch.linspace(0.0, 7_000.0, TRACE_SAMPLES)
+    t0 = time.perf_counter()
+    res_t, prog = simulate_trace(scn, ts)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    bitwise(res_t, res, "fig9_10 traced vs untraced on the card")
+    steps = int(res_t.n_events)
+    _, prog_cpu = simulate_trace(scn, ts, device="cpu")
+    a, b = prog.cpu().numpy(), prog_cpu.numpy()
+    check(a.shape == (TRACE_SAMPLES, 500), f"trace shape {a.shape}")
+    check(bool((abs(a - b) <= 1e-5 * abs(b)).all()),
+          "fig9_10 trace progress within rtol 1e-5 of the CPU trace")
+    say("extensions", f"simulate_trace fig9_10 10000 hosts, {TRACE_SAMPLES} "
+        f"samples: result bitwise the untraced run, progress max |card - cpu|"
+        f" {float(abs(a - b).max())!r}, {secs!r} s")
+    batch, batch_res = campaign
+    t0 = time.perf_counter()
+    res_c, prog_c = simulate_trace(batch, ts)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    bitwise(res_c, batch_res, "traced campaign vs untraced campaign")
+    check(tuple(prog_c.shape) == (CAMPAIGN_ROWS, TRACE_SAMPLES, 500),
+          f"campaign trace shape {tuple(prog_c.shape)}")
+    steps += int(res_c.n_events.max())
+    say("extensions", f"simulate_trace of the {CAMPAIGN_ROWS}-row campaign: "
+        f"result bitwise the untraced campaign, progress "
+        f"{tuple(prog_c.shape)}, wall {secs!r} s, "
+        f"{int(res_c.n_events.max())} batch steps, "
+        f"{int(res_c.n_events.sum()) / secs!r} row events/s")
+    return steps
+
+
+def reliability_campaign(rows: int):
+    """``rows`` reliability rows on the card: row i is grid point i % 16
+    (MTBF x policy) with the outage draws of seed i // 16, so each MTBF
+    scales the same unit draws.  The template and the per-row schedules
+    and policies go through ``broadcast_campaign``; row i equals
+    ``reliability_scenario(gen(i // 16), mtbf_s=..., evacuation=...,
+    ckpt_interval=..., **RELIABILITY)``."""
+    grid = [(m, e, c) for m in RELIABILITY_MTBFS
+            for e, c in RELIABILITY_POLICIES]
+    template = scenarios.reliability_scenario(None, **RELIABILITY)
+    shape = tuple(template.outages.fail_t.shape)
+    draws = [workload.host_outages(gen(i // len(grid)), *shape,
+                                   grid[i % len(grid)][0], 400.0,
+                                   device="cpu") for i in range(rows)]
+    outages = Outages(
+        fail_t=torch.stack([o.fail_t for o in draws]).to("cuda"),
+        repair_t=torch.stack([o.repair_t for o in draws]).to("cuda"))
+    policy = template.policy.map(lambda x: x.expand(rows).clone()).replace(
+        evacuation=torch.tensor([grid[i % len(grid)][1] for i in range(rows)],
+                                device="cuda"),
+        ckpt_interval=torch.tensor([grid[i % len(grid)][2]
+                                    for i in range(rows)], device="cuda"))
+    batch = broadcast_campaign(template, rows, outages=outages, policy=policy)
+    mtbf, evac, ckpt = grid[1]
+    one = scenarios.reliability_scenario(
+        gen(0), mtbf_s=mtbf, evacuation=evac, ckpt_interval=ckpt,
+        **RELIABILITY)
+    check(all(torch.equal(a, b) for a, b in zip(
+        scenario_row(batch, 1).leaves(), one.leaves())),
+        "reliability campaign row 1 is reliability_scenario's")
+    return batch, grid
+
+
+def campaign_run(name: str, batch) -> tuple:
+    """A stacked campaign on the card through ``simulate_instrumented``.
+    Returns (result, batch steps)."""
+    mib = sum(x.numel() * x.element_size() for x in batch.leaves()) / 2**20
+    rows = batch.policy.horizon.shape[0]
+    syncs0 = step.host_any.syncs
+    t0 = time.perf_counter()
+    res, out = simulate_instrumented(batch)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    syncs = step.host_any.syncs - syncs0
+    steps = int(res.n_events.max())
+    events = int(res.n_events.sum())
+    summary = {k: {n: float(v.float().mean()) for n, v in o.items()}
+               for k, o in out.items()}
+    say("extensions", (
+        f"{name}: {rows} rows, scenario {mib:.1f} MiB on the card: wall "
+        f"{secs!r} s, {steps} batch steps, {events} row events, "
+        f"{events / secs!r} row events/s, {steps / secs!r} batch steps/s, "
+        f"{syncs} host syncs = {syncs / steps!r} per batch step, mean "
+        f"finished {float(res.n_finished.float().mean())!r}, mean outputs "
+        f"{summary}"))
+    return res, steps
+
+
+def solo_rows(name: str, batch, res, check_rows) -> int:
+    """Each of ``check_rows`` bitwise its solo run on the card, which
+    equals the port's CPU run.  Returns the solo runs' batch steps."""
+    steps = 0
+    for i in check_rows:
+        scn = scenario_row(batch, i)
+        t0 = time.perf_counter()
+        solo, _ = simulate_instrumented(scn)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        bitwise(res.map(lambda x: x[i]), solo,
+                f"{name} row {i} vs its solo run on the card")
+        t0 = time.perf_counter()
+        same_as_cpu(solo, scn, f"{name} row {i}")
+        steps += int(solo.n_events)
+        say("extensions", f"{name}: row {i} ({int(solo.n_events)} events) "
+            f"bitwise its solo run on the card ({card_s!r} s), which equals "
+            f"the CPU's ({time.perf_counter() - t0!r} s)")
+    return steps
+
+
+def profile_window(batch, first: int, count: int) -> dict:
+    """Batch steps ``first .. first + count`` of the campaign, stepped as
+    ``engine.simulate`` steps it, under ``torch.profiler``: kernel launches
+    per batch step, the device's idle share in the window, and the host
+    time inside ``provision.provision_due_vms`` (its share of the window's
+    wall)."""
+    ctx, aux = step.make_context(batch)
+    max_steps = step.resolve_max_steps(batch, ctx.instruments)
+    carry = (engine.init_state(batch), aux)
+    provisioning = [0.0, 0]
+    place = provision.provision_due_vms
+
+    def timed_place(scn, st):
+        t0 = time.perf_counter()
+        out = place(scn, st)
+        provisioning[0] += time.perf_counter() - t0
+        provisioning[1] += 1
+        return out
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    taken, prof, wall = 0, None, 0.0
+    while taken < first + count:
+        live = step.step_cond(batch, carry[0], max_steps)
+        if not step.host_any(live):
+            break
+        if taken == first:
+            torch.cuda.synchronize()
+            provision.provision_due_vms = timed_place
+            prof = torch.profiler.profile(activities=acts)
+            prof.start()
+            t0 = time.perf_counter()
+        carry, _, _ = step.batch_event_step(batch, carry, ctx, live)
+        taken += 1
+    torch.cuda.synchronize()
+    check(prof is not None and taken == first + count,
+          f"the profiled window reached batch step {first + count}")
+    wall = time.perf_counter() - t0
+    prof.stop()
+    provision.provision_due_vms = place
+    kernels = [a for a in prof.key_averages()
+               if a.device_type == torch.autograd.DeviceType.CUDA]
+    device_s = sum(a.self_device_time_total for a in kernels) / 1e6
+    launches = sum(a.count for a in kernels)
+    return {"steps": taken, "launches_per_step": launches / count,
+            "idle_share": 1.0 - device_s / wall, "wall_s": wall,
+            "device_s": device_s, "provision_s": provisioning[0],
+            "provision_calls": provisioning[1],
+            "provision_share": provisioning[0] / wall}
+
+
+def phase_extensions(solo: dict, campaign) -> int:
+    """Returns the batch steps (= advance-sweep launches) of the phase."""
+    took, t0 = {}, time.perf_counter()
+    steps = ext_anchors()
+    took["anchors"] = time.perf_counter() - t0
+    steps += ext_traces(solo, campaign)
+    took["traces"] = time.perf_counter() - t0 - sum(took.values())
+
+    # (c) reliability at Fig. 9/10's scale
+    batch, grid = reliability_campaign(RELIABILITY_ROWS)
+    name = (f"reliability campaign (MTBF 3e5/1e6/1e7/INF x evacuation x "
+            f"ckpt INF/600 s, {RELIABILITY_ROWS // len(grid)} seeds; 10000 "
+            "hosts, 50 VMs, 500 cloudlets)")
+    res, batch_steps = campaign_run(name, batch)
+    steps += batch_steps
+    point = torch.arange(RELIABILITY_ROWS, device="cuda") % len(grid)
+    for g, (mtbf, evac, ckpt) in enumerate(grid):
+        sel = point == g
+        say("extensions", (
+            f"reliability MTBF {mtbf:g} s, evacuation {evac}, ckpt "
+            f"{ckpt:g} MI: mean events {float(res.n_events[sel].float().mean())!r}, "
+            f"evacuations {float(res.n_evacuations[sel].float().mean())!r}, "
+            f"migrations {float(res.n_migrations[sel].float().mean())!r}, "
+            f"downtime {float(res.downtime[sel].mean())!r} s, SLA "
+            f"violations {float(res.sla_violations[sel].float().mean())!r}, "
+            f"makespan {float(res.makespan[sel].mean())!r} s"))
+    # two MTBF 1e6 rows that met a failure: one evacuated, one evicted and
+    # restarted (its makespan passed the 12,000 s of work)
+    mid = point // len(RELIABILITY_POLICIES) == 1
+    evacuated = mid & (res.n_evacuations > 0)
+    restarted = mid & ~batch.policy.evacuation & (res.makespan > 12_000.5)
+    check(bool(evacuated.any() and restarted.any()),
+          "the MTBF 1e6 rows met failures: evacuations and restarts")
+    steps += solo_rows(name, batch, res, (
+        int(evacuated.nonzero()[0]), int(restarted.nonzero()[0])))
+    win = profile_window(batch, PROFILED_FROM, PROFILED_STEPS)
+    steps += win["steps"]
+    say("extensions", (
+        f"reliability campaign, batch steps {PROFILED_FROM}-"
+        f"{PROFILED_FROM + PROFILED_STEPS} profiled: "
+        f"{win['launches_per_step']!r} kernel launches per batch step, idle "
+        f"share {win['idle_share']!r} (device {win['device_s']!r} s of "
+        f"{win['wall_s']!r} s), provisioning loop {win['provision_calls']} "
+        f"calls, {win['provision_s']!r} s of host time = share "
+        f"{win['provision_share']!r}"))
+    del batch
+    took["reliability campaign"] = time.perf_counter() - t0 - sum(took.values())
+
+    # (d) the repo's own campaign surfaces
+    rates, ups = np.linspace(0.05, 0.2, 8), np.linspace(0.3, 1.0, 8)
+    batch = stack_scenarios([scenarios.autoscale_scenario(
+        gen(i // 64), burst_rate=float(rates[i % 8]),
+        scale_up_thresh=float(ups[i // 8 % 8]), max_steps=800, device="cpu")
+        for i in range(CAMPAIGN_ROWS)]).to("cuda")
+    name = "autoscale campaign (burst rate x scale-up threshold x 16 seeds)"
+    res, batch_steps = campaign_run(name, batch)
+    check(bool((res.n_finished == 48).all()), "autoscale rows finish all")
+    steps += batch_steps + solo_rows(name, batch, res, (0, CAMPAIGN_ROWS - 1))
+    template = scenarios.consolidation_scenario()
+    cons, bals = np.linspace(0.0, 0.9, 32), np.linspace(0.5, 2.0, 32)
+    i = np.arange(CAMPAIGN_ROWS)
+    policy = template.policy.map(
+        lambda x: x.expand(CAMPAIGN_ROWS).clone()).replace(
+        migrate_consolidate_thresh=torch.tensor(
+            cons[i % 32], dtype=torch.float32, device="cuda"),
+        migrate_balance_thresh=torch.tensor(
+            bals[i // 32 % 32], dtype=torch.float32, device="cuda"))
+    batch = broadcast_campaign(template, CAMPAIGN_ROWS, policy=policy)
+    name = "consolidation campaign (consolidate x balance thresholds)"
+    res, batch_steps = campaign_run(name, batch)
+    check(bool((res.n_finished == 4).all()), "consolidation rows finish all")
+    steps += batch_steps + solo_rows(name, batch, res, (1, CAMPAIGN_ROWS - 2))
+    took["autoscale and consolidation campaigns"] = (
+        time.perf_counter() - t0 - sum(took.values()))
+    say("timing", "extensions: " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in took.items()))
+    return steps
 
 
 # ------------------------------------------------------------- 6. serving
@@ -1004,14 +1368,18 @@ def main() -> None:
 
     vm_update.advance_sweep_cuda.launches = 0
     solo, steps = phase_anchors()
-    steps += phase_campaign(solo)
+    campaign_steps, batch, batch_res = phase_campaign(solo)
+    steps += campaign_steps
     took["anchors and campaign"] = time.perf_counter() - t0 - sum(took.values())
+    steps += phase_extensions(solo, (batch, batch_res))
+    del batch, batch_res
+    took["extensions"] = time.perf_counter() - t0 - sum(took.values())
     launches = vm_update.advance_sweep_cuda.launches
     check(launches > 0, "the main path launched the advance-sweep kernel")
     check(launches == steps,
           f"one advance-sweep launch per batch step ({launches} vs {steps})")
     say("proof", f"advance_sweep kernel launched {launches} times over "
-        f"phases 3-4, one per batch step")
+        f"phases 3-4b, one per batch step")
 
     flash_launches = phase_serving()
     took["serving"] = time.perf_counter() - t0 - sum(took.values())

@@ -4,11 +4,12 @@ package, through numpy.
 ``scenario_from_arrays`` reads any object with the field names of
 ``repro.core.Scenario`` (a JAX ``Scenario`` included) leaf by leaf with
 ``np.asarray`` and builds the port's ``Scenario``.  It imports nothing of
-JAX: a JAX array converts itself.  Workloads drawn with ``jax.random`` (the
-reference's generated scenarios) come across as data; the port never redraws
-them.  A scenario carrying a piece outside the port (a topology, an outage
-schedule, extra instruments) raises ``NotImplementedError`` here, from the
-port's ``Scenario``.  ``params_from_arrays`` maps a parameter (or cache)
+JAX: a JAX array converts itself.  Workloads and outage schedules drawn with
+``jax.random`` (the reference's generated scenarios) come across as data;
+the port never redraws them.  Each of the scenario's extra instruments maps
+to the port's instrument of the same ``name``, its tensor fields copied; a
+name the port lacks raises ``NotImplementedError``, as does a topology (from
+the port's ``Scenario``).  ``params_from_arrays`` maps a parameter (or cache)
 tree of nested dicts leaf by leaf; ``opt_state_from_arrays`` carries an
 AdamW state of either package (``mu``, ``nu``, a 0-d int32 ``step``).
 """
@@ -19,9 +20,17 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.core import step
 from repro_torch.core.energy import PowerModel
 from repro_torch.core.entities import (
-    Cloudlets, Hosts, Market, Policy, Scenario, VMRequests, resolve_device)
+    Cloudlets, Hosts, Market, Outages, Policy, Scenario, VMRequests,
+    resolve_device)
+
+# the port's extra instruments, by the ``name`` the reference gives them
+_INSTRUMENTS = {cls.name: cls for cls in (
+    step.AutoscaleInstrument, step.MigrationInstrument,
+    step.ReliabilityInstrument, step.TraceInstrument,
+    step.UtilizationTimelineInstrument)}
 
 
 def _tree(cls, src, dev):
@@ -31,6 +40,16 @@ def _tree(cls, src, dev):
         kw[f.name] = (None if leaf is None else
                       torch.from_numpy(np.array(leaf)).to(dev))
     return cls(**kw)
+
+
+def _instrument(obj, dev) -> step.Instrument:
+    """The port's instrument of ``obj``'s name, holding its data fields."""
+    name = getattr(obj, "name", type(obj).__name__)
+    if name not in _INSTRUMENTS:
+        raise NotImplementedError(
+            f"instrument {name!r} ({type(obj).__name__}) has no counterpart "
+            f"in repro_torch; ported: {sorted(_INSTRUMENTS)}")
+    return _tree(_INSTRUMENTS[name], obj, dev)
 
 
 def scenario_from_arrays(obj, device=None) -> Scenario:
@@ -44,8 +63,10 @@ def scenario_from_arrays(obj, device=None) -> Scenario:
         policy=_tree(Policy, obj.policy, dev),
         power=None if obj.power is None else _tree(PowerModel, obj.power, dev),
         topology=obj.topology,
-        outages=obj.outages,
-        instruments=tuple(obj.instruments),
+        outages=(None if obj.outages is None
+                 else _tree(Outages, obj.outages, dev)),
+        instruments=tuple(_instrument(i, dev)
+                          for i in obj.instruments),
         max_steps=int(obj.max_steps),
     )
 

@@ -10,10 +10,12 @@ from repro_torch.core.entities import (
     Cloudlets,
     Hosts,
     Market,
+    Outages,
     Policy,
     Scenario,
     SimResult,
     SimState,
+    TensorTree,
     VMRequests,
     finished_mask,
     resolve_device,
@@ -27,8 +29,18 @@ from repro_torch.core.engine import (
     simulate,
     simulate_history,
     simulate_instrumented,
+    simulate_trace,
 )
-from repro_torch.core.step import Instrument, StepEvent, batch_event_step
+from repro_torch.core.step import (
+    AutoscaleInstrument,
+    Instrument,
+    MigrationInstrument,
+    ReliabilityInstrument,
+    StepEvent,
+    TraceInstrument,
+    UtilizationTimelineInstrument,
+    batch_event_step,
+)
 from repro_torch.core.campaign import broadcast_campaign, stack_scenarios
 from repro_torch.core import (
     energy,
@@ -38,16 +50,20 @@ from repro_torch.core import (
     scenarios,
     segments,
     step,
+    workload,
 )
 
 __all__ = [
     "INF", "SPACE_SHARED", "TIME_SHARED",
-    "Cloudlets", "Hosts", "Market", "Policy", "PowerModel",
-    "Scenario", "SimResult", "SimState", "VMRequests", "finished_mask",
-    "resolve_device", "History", "Instrument", "StepEvent",
+    "Cloudlets", "Hosts", "Market", "Outages", "Policy", "PowerModel",
+    "Scenario", "SimResult", "SimState", "TensorTree", "VMRequests",
+    "finished_mask", "resolve_device", "History",
+    "AutoscaleInstrument", "Instrument", "MigrationInstrument",
+    "ReliabilityInstrument", "StepEvent", "TraceInstrument",
+    "UtilizationTimelineInstrument",
     "batch_event_step", "init_state", "is_batched", "scenario_row",
-    "simulate", "simulate_history", "simulate_instrumented",
+    "simulate", "simulate_history", "simulate_instrumented", "simulate_trace",
     "broadcast_campaign", "stack_scenarios",
     "energy", "kvserve", "policies", "provision", "scenarios", "segments",
-    "step",
+    "step", "workload",
 ]

@@ -25,10 +25,21 @@ def _stack(items: list, path: str):
         return None
     if isinstance(first, Tensor):
         return torch.stack(items)
+    if isinstance(first, tuple):
+        kinds = [tuple(type(x) for x in t) for t in items]
+        if any(k != kinds[0] for k in kinds):
+            raise ValueError(
+                f"stack_scenarios: {path} differ across the campaign "
+                f"({kinds[0]} vs another row's); every row needs the same "
+                "instrument types in the same order")
+        return tuple(_stack([t[i] for t in items], f"{path}[{i}]")
+                     for i in range(len(first)))
+    if not isinstance(first, TensorTree):
+        return first    # an instrument without tensor fields
     return dataclasses.replace(first, **{
         f.name: _stack([getattr(x, f.name) for x in items], f"{path}.{f.name}")
         for f in dataclasses.fields(first)
-        if isinstance(getattr(first, f.name), (Tensor, TensorTree))
+        if isinstance(getattr(first, f.name), (Tensor, TensorTree, tuple))
         or getattr(first, f.name) is None
     })
 
@@ -37,7 +48,9 @@ def stack_scenarios(scenarios: list[Scenario]) -> Scenario:
     """Stack same-shape scenarios along a new leading campaign axis.
 
     ``max_steps`` is static and must agree; so must the structure (a power
-    model on every row or on none).
+    model or an outage schedule on every row or on none, and the same
+    instrument types in the same order).  Instrument tensor fields stack
+    like any other leaf, so a campaign may vary them per row.
     """
     if not scenarios:
         raise ValueError("empty campaign")

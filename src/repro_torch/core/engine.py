@@ -6,7 +6,9 @@ completion time and the clock jumps straight to it (DESIGN.md §2).  The
 reference's ``lax.while_loop`` becomes a Python loop over
 ``step.batch_event_step`` that ends when no row is live; its fixed-length
 ``lax.scan`` (``simulate_history``) becomes the same loop padded with the
-invalid rows the reference emits after the end.
+invalid rows the reference emits after the end.  ``simulate_trace`` is
+``simulate`` with a ``TraceInstrument`` attached, a pure observer: its
+``SimResult`` is bitwise the untraced run's.
 
 Every driver takes one scenario (``[D, H]`` hosts) or a stacked campaign
 (``[B, D, H]``, see ``campaign.stack_scenarios``) and a ``device``: ``None``
@@ -24,8 +26,8 @@ from repro_torch.core import energy, policies
 from repro_torch.core.entities import (
     INF, Scenario, SimResult, SimState, TensorTree, resolve_device)
 from repro_torch.core.step import (
-    batch_event_step, finalize_result, host_any, make_context, ready_times,
-    resolve_max_steps, step_cond)
+    TraceInstrument, batch_event_step, finalize_result, host_any,
+    make_context, ready_times, resolve_max_steps, step_cond)
 
 
 def init_state(scn: Scenario) -> SimState:
@@ -54,7 +56,9 @@ def init_state(scn: Scenario) -> SimState:
         vm_avail_t=full(INF, B, V),
         vm_released=zeros(B, V, dtype=torch.bool),
         vm_migrations=zeros(B, V, dtype=i32),
+        vm_mig_src=full(-1, B, V, dtype=i32),
         pool_active=zeros(B, V, dtype=torch.bool),
+        # a schedule that starts down flips this at the first event
         host_up=exists.clone(),
         free_ram=torch.where(exists, hosts.ram_mb, 0.0),
         free_storage=torch.where(exists, hosts.storage_mb, 0.0),
@@ -102,10 +106,10 @@ def _as_batch(scn: Scenario, device) -> tuple[Scenario, bool]:
     return scn.map(lambda x: x.unsqueeze(0)), True
 
 
-def _run(scn_b: Scenario, on_step=None):
+def _run(scn_b: Scenario, extra_instruments: tuple = (), on_step=None):
     """``while any(live)``: step every live row; returns the final carry,
     the context and the step budget."""
-    ctx, aux = make_context(scn_b)
+    ctx, aux = make_context(scn_b, extra_instruments)
     max_steps = resolve_max_steps(scn_b, ctx.instruments)
     carry = (init_state(scn_b), aux)
     while True:
@@ -119,14 +123,16 @@ def _run(scn_b: Scenario, on_step=None):
 
 def simulate_instrumented(scn: Scenario, extra_instruments: tuple = (),
                           device=None) -> tuple[SimResult, dict]:
-    """Run a simulation and collect instrument outputs by name.  Only the
-    default instruments are ported; extra ones raise."""
-    if tuple(extra_instruments):
-        names = [type(i).__name__ for i in extra_instruments]
-        raise NotImplementedError(
-            f"extra instruments {names} are not ported to repro_torch yet")
+    """Run a simulation and collect instrument outputs by name.
+
+    Instruments are the defaults, then ``Scenario.instruments``, then
+    ``extra_instruments`` (whose tensor fields must lie on ``device``; a
+    field without the batch axis is shared by every campaign row).  Outputs
+    are ``{name: {key: tensor}}``, with a leading campaign axis for a
+    stacked campaign.
+    """
     scn_b, single = _as_batch(scn, device)
-    (st, aux), ctx, _ = _run(scn_b)
+    (st, aux), ctx, _ = _run(scn_b, tuple(extra_instruments))
     res = finalize_result(scn_b, st)
     out = {}
     for ins, a in zip(ctx.instruments, aux):
@@ -141,6 +147,30 @@ def simulate(scn: Scenario, device=None) -> SimResult:
     results bitwise those of the solo runs, DESIGN.md §10)."""
     res, _ = simulate_instrumented(scn, device=device)
     return res
+
+
+def simulate_trace(scn: Scenario, sample_ts, device=None
+                   ) -> tuple[SimResult, Tensor]:
+    """Simulation plus the fraction of work done per cloudlet at each
+    sample time (``[S, C]``, or ``[B, S, C]`` for a campaign), rows in
+    ascending time order.  Mid-interval progress interpolates exactly
+    under piecewise-constant rates, so no clock stop is added and the
+    ``SimResult`` is bitwise ``simulate``'s."""
+    dev = resolve_device(device)
+    ts = torch.sort(torch.as_tensor(sample_ts, dtype=torch.float32)
+                    .to(dev).reshape(-1)).values
+    res, out = simulate_instrumented(scn, (TraceInstrument(sample_ts=ts),),
+                                     device=dev)
+    return res, out["trace"]["progress"]
+
+
+def entry_points() -> dict:
+    """The engine's public drivers, by stable name."""
+    return {
+        "simulate": simulate,
+        "simulate_trace": simulate_trace,
+        "simulate_history": simulate_history,
+    }
 
 
 @dataclass(frozen=True)
@@ -190,7 +220,7 @@ def simulate_history(scn: Scenario, device=None) -> tuple[SimResult, History]:
             energy_j=torch.where(row, st.energy_j, 0.0),
         ))
 
-    (st, _), _, max_steps = _run(scn_b, record)
+    (st, _), _, max_steps = _run(scn_b, on_step=record)
     zeros_bd = torch.zeros(B, D, device=dev)
     blank = History(
         t=torch.zeros(B, device=dev), dt=torch.zeros(B, device=dev),

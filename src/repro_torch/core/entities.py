@@ -12,7 +12,8 @@ constructors return one unbatched scenario; ``engine.simulate`` adds the axis
 on entry and removes it on exit.
 
 Each dataclass carries ``replace``, ``map`` and ``to(device)`` in place of the
-reference's pytree registration.
+reference's pytree registration; a tuple of trees (``Scenario.instruments``)
+is walked like a nested tree.
 """
 from __future__ import annotations
 
@@ -50,8 +51,8 @@ class TensorTree:
         return dataclasses.replace(self, **changes)
 
     def map(self, fn):
-        """Apply ``fn`` to every tensor leaf; nested trees recurse, and
-        ``None``, ints and tuples pass through."""
+        """Apply ``fn`` to every tensor leaf; nested trees (and tuples of
+        them) recurse, and ``None`` and ints pass through."""
         out = {}
         for f in dataclasses.fields(self):
             v = getattr(self, f.name)
@@ -59,6 +60,9 @@ class TensorTree:
                 out[f.name] = fn(v)
             elif isinstance(v, TensorTree):
                 out[f.name] = v.map(fn)
+            elif isinstance(v, tuple):
+                out[f.name] = tuple(
+                    x.map(fn) if isinstance(x, TensorTree) else x for x in v)
         return dataclasses.replace(self, **out)
 
     def to(self, device):
@@ -72,6 +76,10 @@ class TensorTree:
                 out.append(v)
             elif isinstance(v, TensorTree):
                 out.extend(v.leaves())
+            elif isinstance(v, tuple):
+                for x in v:
+                    if isinstance(x, TensorTree):
+                        out.extend(x.leaves())
         return out
 
 
@@ -142,6 +150,40 @@ class Cloudlets(TensorTree):
 
 
 @dataclass(frozen=True)
+class Outages(TensorTree):
+    """Per-host failure/repair schedule, ``[D, H, K]`` per field (``[B, D,
+    H, K]`` in the engine; K = max outages per host, DESIGN.md §9).
+
+    A host is down during ``[fail_t[k], repair_t[k])``; windows along K are
+    disjoint and sorted, and INF entries are padding ("no k-th outage"), so
+    an MTBF = INF control shares its shapes with failing rows.  ``t`` is a
+    scalar or the engine's ``[B]`` clock.
+    """
+
+    fail_t: Tensor    # [B,D,H,K] f32 outage starts (INF: padding)
+    repair_t: Tensor  # [B,D,H,K] f32 outage ends
+
+    def _clock(self, t) -> Tensor:
+        t = torch.as_tensor(t, dtype=torch.float32, device=self.fail_t.device)
+        return t.reshape(t.shape + (1, 1, 1))
+
+    def down_at(self, t) -> Tensor:
+        """[B, D, H] host inside an outage window at time ``t``."""
+        t = self._clock(t)
+        return ((self.fail_t <= t) & (t < self.repair_t)).any(-1)
+
+    def next_fail_after(self, t) -> Tensor:
+        """[B, D, H] earliest failure strictly after ``t`` (INF: none)."""
+        t = self._clock(t)
+        return torch.where(self.fail_t > t, self.fail_t, INF).amin(-1)
+
+    def next_repair_after(self, t) -> Tensor:
+        """[B, D, H] earliest repair strictly after ``t`` (INF: none)."""
+        t = self._clock(t)
+        return torch.where(self.repair_t > t, self.repair_t, INF).amin(-1)
+
+
+@dataclass(frozen=True)
 class Market(TensorTree):
     """Per-datacenter prices (paper §3.3), ``[D]`` per field."""
 
@@ -183,11 +225,14 @@ class Policy(TensorTree):
 class Scenario(TensorTree):
     """A complete experiment: infrastructure + workload + policy + prices.
 
-    ``power`` (an ``energy.PowerModel``) is optional, as in the reference.
-    ``topology``, ``outages`` and extra ``instruments`` belong to later slices
-    of the port: a scenario carrying one raises ``NotImplementedError``.
-    ``max_steps`` is a static Python int (0: derived bound).  The reference's
-    ``sweep_impl`` has no counterpart: the advance sweep is routed by device.
+    ``power`` (an ``energy.PowerModel``) and ``outages`` (an ``Outages``
+    schedule, usually from ``workload.host_outages``) are optional, as in the
+    reference.  ``instruments`` holds extra ``step.Instrument``s threaded
+    after the defaults; their tensor fields are campaign data (stacked with
+    the scenario).  ``topology`` belongs to a later slice of the port: a
+    scenario carrying one raises ``NotImplementedError``.  ``max_steps`` is a
+    static Python int (0: derived bound).  The reference's ``sweep_impl`` has
+    no counterpart: the advance sweep is routed by device.
     """
 
     hosts: Hosts
@@ -197,8 +242,8 @@ class Scenario(TensorTree):
     policy: Policy
     power: object = None        # energy.PowerModel | None
     topology: object = None     # not ported yet
-    outages: object = None      # not ported yet
-    instruments: tuple = ()     # not ported yet (defaults are always on)
+    outages: Outages | None = None
+    instruments: tuple = ()     # extra step.Instrument observables
     max_steps: int = 0
 
     def __post_init__(self):
@@ -207,17 +252,7 @@ class Scenario(TensorTree):
                 "Scenario.topology (energy.Topology and the inter-DC link "
                 "ledger, DESIGN.md §13) is not ported to repro_torch yet"
             )
-        if self.outages is not None:
-            raise NotImplementedError(
-                "Scenario.outages (host failures, DESIGN.md §9) is not "
-                "ported to repro_torch yet"
-            )
-        if tuple(self.instruments):
-            names = [type(i).__name__ for i in self.instruments]
-            raise NotImplementedError(
-                f"Scenario.instruments {names}: only the default Sensor, "
-                "Market and Energy instruments are ported to repro_torch yet"
-            )
+        object.__setattr__(self, "instruments", tuple(self.instruments))
 
 
 @dataclass(frozen=True)
@@ -225,8 +260,7 @@ class SimState(TensorTree):
     """Everything the event loop carries, batch-major (``[B, ...]``).
 
     The reference's transfer-ledger fields (``link_*``, ``vm_xfer_*``,
-    ``cl_xfer_*``) and ``vm_mig_src`` belong to the topology and live
-    migration slices and are not carried yet.
+    ``cl_xfer_*``) belong to the topology slice and are not carried yet.
     """
 
     t: Tensor             # [B] f32 simulation clock
@@ -239,6 +273,7 @@ class SimState(TensorTree):
     vm_avail_t: Tensor    # [B,V] f32 creation/migration completes
     vm_released: Tensor   # [B,V] bool resources returned
     vm_migrations: Tensor  # [B,V] i32
+    vm_mig_src: Tensor    # [B,V] i32 source DC of an in-flight live move (-1)
     pool_active: Tensor   # [B,V] bool pool row activated by the autoscaler
     host_up: Tensor       # [B,D,H] bool
     free_ram: Tensor      # [B,D,H] f32

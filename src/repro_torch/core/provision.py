@@ -1,9 +1,13 @@
-"""VM provisioning, federated placement and broker dispatch, batch-major.
+"""VM provisioning, federated placement, broker dispatch, host failures
+and live migration, batch-major.
 
-The port of the main-path part of ``repro.core.provision``: VMs are placed in
-request order on the first host (or best fit) whose RAM/storage/bandwidth
-(and, when core-reserving, cores) fit, in the origin datacenter first and,
-with federation on, in the least-loaded feasible peer (paper §4, Table 1).
+The port of ``repro.core.provision`` without its topology branches: VMs are
+placed in request order on the first host (or best fit) whose
+RAM/storage/bandwidth (and, when core-reserving, cores) fit, in the origin
+datacenter first and, with federation on, in the least-loaded feasible peer
+(paper §4, Table 1).  ``apply_outages`` commits host failure/repair edges
+(DESIGN.md §9), ``release_pool_vms`` the autoscaler's scale-down (§7) and
+``live_migrate`` one coordinator move per row (§8).
 
 ``provision_due_vms`` keeps the reference's sequential order over VM rows,
 which is semantic: it is a Python loop over ``v`` whose body is vectorised
@@ -57,12 +61,87 @@ def release_done_vms(scn: Scenario, state: SimState) -> SimState:
     return state.replace(vm_released=state.vm_released | newly)
 
 
+def release_pool_vms(scn: Scenario, state: SimState, rel: Tensor) -> SimState:
+    """Scale-down commit: the ``rel``-masked [B, V] pool VMs give their host
+    resources back and return to the inactive pool state (placement
+    cleared), so a later scale-up re-places the same row (DESIGN.md §7)."""
+    newly = rel & state.vm_placed & ~state.vm_released
+    state = _return_resources(scn, state, newly)
+    return state.replace(
+        pool_active=state.pool_active & ~newly,
+        vm_placed=state.vm_placed & ~newly,
+        vm_host=torch.where(newly, -1, state.vm_host),
+        vm_dc=torch.where(newly, scn.vms.dc, state.vm_dc),
+        vm_avail_t=torch.where(newly, INF, state.vm_avail_t),
+        vm_mig_src=torch.where(newly, -1, state.vm_mig_src),
+    )
+
+
 def apply_outages(scn: Scenario, state: SimState) -> SimState:
-    """Host failure/repair edges.  Only the no-outage path is ported:
-    ``Scenario`` refuses an outage schedule until the reliability slice."""
+    """Commit the host failure/repair edges due at the current clock (the
+    K_FAILURE / K_REPAIR clock stops land the loop on them, DESIGN.md §9).
+
+    **Failure**: every resident VM is evicted (placement cleared, the
+    transient ``vm_evicted`` set, never the terminal ``vm_failed``), its
+    in-flight cloudlets roll back to the last completed ``ckpt_interval``
+    (INF: restart from zero), evicted serving rows lose their KV blocks, and
+    the host's free ledger zeroes.  The row stays due, so the creation path
+    re-places it.  **Repair**: the host comes back empty, its ledger full.
+    ``vm_evicted`` clears once a VM is placed and available again.
+    """
     if scn.outages is None:
         return state
-    raise NotImplementedError("apply_outages is not ported to repro_torch yet")
+    hosts, vms, cls, pol = scn.hosts, scn.vms, scn.cloudlets, scn.policy
+    B, D, H = hosts.cores.shape
+    down = scn.outages.down_at(state.t) & hosts.exists
+    up_next = hosts.exists & ~down
+    newly_down = state.host_up & down
+    newly_up = ~state.host_up & up_next
+
+    t = state.t[:, None]
+    recovered = state.vm_evicted & state.vm_placed & (state.vm_avail_t <= t)
+    evict = (vms.exists & state.vm_placed & ~state.vm_released
+             & take(newly_down.reshape(B, D * H), _host_index(scn, state)))
+
+    # checkpoint rollback: executed work floors to the last completed
+    # ckpt_interval multiple; the difference is re-done work
+    cl_evict = (
+        cls.exists & (state.cl_vm >= 0)
+        & take(evict, state.cl_vm.clamp(0, vms.n_vms - 1))
+        & state.started & ~policies.cloudlet_finished(state)
+    )
+    executed = cls.length_mi - state.rem_mi
+    ckpt = pol.ckpt_interval.clamp_min(1e-6)[:, None]
+    kept = torch.where(
+        (pol.ckpt_interval < INF / 2)[:, None],
+        torch.minimum(torch.floor(executed / ckpt) * ckpt, executed),
+        0.0)
+    new_rem = torch.where(cl_evict, cls.length_mi - kept, state.rem_mi)
+
+    def ledger(free: Tensor, capacity: Tensor) -> Tensor:
+        return torch.where(newly_down, 0.0,
+                           torch.where(newly_up, capacity, free))
+
+    return state.replace(
+        host_up=up_next,
+        vm_placed=state.vm_placed & ~evict,
+        vm_host=torch.where(evict, -1, state.vm_host),
+        vm_dc=torch.where(evict, vms.dc, state.vm_dc),
+        vm_avail_t=torch.where(evict, INF, state.vm_avail_t),
+        vm_mig_src=torch.where(evict, -1, state.vm_mig_src),
+        vm_evicted=(state.vm_evicted & ~recovered) | evict,
+        rem_mi=new_rem,
+        cl_rollback_mi=state.cl_rollback_mi + (new_rem - state.rem_mi),
+        # a failure wipes the host's accelerator memory: evicted serving rows
+        # lose their KV blocks and re-admit once their VM is re-placed
+        cl_admitted=state.cl_admitted & ~cl_evict,
+        cl_kv=torch.where(cl_evict, 0.0, state.cl_kv),
+        free_ram=ledger(state.free_ram, hosts.ram_mb),
+        free_storage=ledger(state.free_storage, hosts.storage_mb),
+        free_bw=ledger(state.free_bw, hosts.bw_mbps),
+        free_cores=ledger(state.free_cores, hosts.cores.float()),
+        free_kv=ledger(state.free_kv, hosts.kv_blocks),
+    )
 
 
 def settle_transfers(scn: Scenario, state: SimState) -> SimState:
@@ -73,12 +152,21 @@ def settle_transfers(scn: Scenario, state: SimState) -> SimState:
         "settle_transfers is not ported to repro_torch yet")
 
 
-def resource_feasible(scn: Scenario, state: SimState, v: int) -> Tensor:
-    """[B, D, H] hosts meeting RAM/storage/bandwidth/KV for VM row ``v``."""
+def _vm_need(x: Tensor, v: int | Tensor) -> Tensor:
+    """[B, 1, 1] column ``v`` of a [B, V] VM field: one row index for the
+    whole batch (an int) or one per scenario row (a [B] tensor)."""
+    col = x[:, v] if isinstance(v, int) else take(x, v.unsqueeze(-1))[:, 0]
+    return col[:, None, None]
+
+
+def resource_feasible(scn: Scenario, state: SimState,
+                      v: int | Tensor) -> Tensor:
+    """[B, D, H] hosts meeting RAM/storage/bandwidth/KV for VM row ``v``
+    (an int, or a [B] tensor of one row per scenario)."""
     hosts, vms = scn.hosts, scn.vms
 
     def need(x: Tensor) -> Tensor:
-        return x[:, v, None, None]
+        return _vm_need(x, v)
 
     return (
         hosts.exists
@@ -90,10 +178,10 @@ def resource_feasible(scn: Scenario, state: SimState, v: int) -> Tensor:
     )
 
 
-def slot_feasible(scn: Scenario, state: SimState, v: int) -> Tensor:
+def slot_feasible(scn: Scenario, state: SimState, v: int | Tensor) -> Tensor:
     """[B, D, H] free VM slots (resources + unreserved cores) for row ``v``."""
     return resource_feasible(scn, state, v) & (
-        state.free_cores >= scn.vms.cores[:, v, None, None])
+        state.free_cores >= _vm_need(scn.vms.cores, v))
 
 
 def dc_capacity_mips(scn: Scenario) -> Tensor:
@@ -199,6 +287,74 @@ def provision_due_vms(scn: Scenario, state: SimState) -> tuple[SimState, Tensor]
             migrated.float() * vms.image_mb[:, v] * mkt.cost_per_bw_mb[rows, dsafe])
         n_placed += found.int()
     return st, n_placed
+
+
+def live_migrate(scn: Scenario, state: SimState, v: Tensor, dst_dc: Tensor,
+                 ok: Tensor, host_ok: Tensor | None = None
+                 ) -> tuple[SimState, Tensor]:
+    """Commit one runtime VM move per scenario row (DESIGN.md §8): VM
+    ``v[b]`` to datacenter ``dst_dc[b]`` where ``ok[b]``.
+
+    Stop-and-copy within one event: the source slot is released first, a
+    slot at the destination is taken at once (first fit, or best fit under
+    ``Policy.best_fit``; ``host_ok`` [B, D, H] narrows the landing hosts),
+    and the VM is unavailable until ``t + migration_fixed_s + image/bw``
+    through ``vm_avail_t``.  Its cloudlets keep their progress; the image is
+    billed on the destination's bandwidth meter.  Returns ``(state',
+    [B] moved)``.  (The reference's topology branch is not ported.)
+    """
+    hosts, vms, pol, mkt = scn.hosts, scn.vms, scn.policy, scn.market
+    B, D, H = hosts.cores.shape
+    V = vms.n_vms
+    dev = hosts.cores.device
+    rows = torch.arange(B, device=dev)
+
+    fits = slot_feasible(scn, state, v)[rows, dst_dc]                 # [B,H]
+    if host_ok is not None:
+        fits = fits & host_ok[rows, dst_dc]
+    ram_v = _vm_need(vms.ram_mb, v)[:, :, 0]                           # [B,1]
+    host_key = torch.where(pol.best_fit[:, None],
+                           state.free_ram[rows, dst_dc] - ram_v,
+                           torch.arange(H, device=dev).float())
+    h = torch.where(fits, host_key, torch.inf).argmin(-1)
+    found = ok & fits.any(-1)
+
+    col = torch.arange(V, device=dev) == v[:, None]                    # [B,V]
+    src_d = take(state.vm_dc, v[:, None])[:, 0].clamp(0, D - 1)
+    # source releases first: the departing slot is free for this step's
+    # creations
+    state = _return_resources(scn, state, col & found[:, None])
+
+    moving = col & found[:, None]
+    w = found.float()
+    dsafe = torch.where(found, dst_dc, 0)
+    hsafe = torch.where(found, h, 0)
+    image = take(vms.image_mb, v[:, None])[:, 0]
+    delay = pol.migration_fixed_s + image / pol.interdc_bw_mbps.clamp_min(1e-6)
+    at = (rows, dsafe, hsafe)
+
+    def occupy(free: Tensor, need: Tensor) -> Tensor:
+        free = free.clone()
+        free[at] += -w * take(need, v[:, None])[:, 0]
+        return free
+
+    bw_cost = state.bw_cost.clone()
+    bw_cost[rows, dsafe] += w * image * mkt.cost_per_bw_mb[rows, dsafe]
+    state = state.replace(
+        vm_dc=torch.where(moving, dst_dc[:, None].int(), state.vm_dc),
+        vm_host=torch.where(moving, h[:, None].int(), state.vm_host),
+        vm_avail_t=torch.where(moving, (state.t + delay)[:, None],
+                               state.vm_avail_t),
+        vm_migrations=state.vm_migrations + moving.int(),
+        vm_mig_src=torch.where(moving, src_d[:, None].int(), state.vm_mig_src),
+        free_ram=occupy(state.free_ram, vms.ram_mb),
+        free_storage=occupy(state.free_storage, vms.storage_mb),
+        free_bw=occupy(state.free_bw, vms.bw_mbps),
+        free_cores=occupy(state.free_cores, vms.cores),
+        free_kv=occupy(state.free_kv, vms.kv_blocks),
+        bw_cost=bw_cost,
+    )
+    return state, found
 
 
 def eligible_dispatch_vms(scn: Scenario, state: SimState) -> Tensor:

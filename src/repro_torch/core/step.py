@@ -4,14 +4,17 @@
 each; one scenario is the ``B = 1`` case.  Its phases are the reference's
 (DESIGN.md §10):
 
-    prologue   instrument ``pre`` hooks (Sensor tick), release drained VMs
+    prologue   host failure/repair edges, instrument ``pre`` hooks (Sensor
+               tick, autoscaler, migration and evacuation coordinators),
+               release of drained VMs
     provision  place due VM requests          } skipped when no live row
     dispatch   bind submitted service rows    } needs them: ``if x.any()``
     serving    KV-block ledger sweep          } (one host sync each)
     bound      per-cloudlet rates + next-event bound
     advance    the advance sweep on the whole [B, C] block: the CUDA kernel
                on the card, the plain version on the CPU
-    commit     clock, completions, instrument ``post`` hooks (market, energy)
+    commit     clock, completions, downtime, instrument ``post`` hooks
+               (market, energy, trace sampling)
 
 Rows whose ``step_cond`` is False are frozen: every write is row-gated by
 ``live``, so a row of a campaign is bitwise the scenario run alone.
@@ -19,20 +22,25 @@ Rows whose ``step_cond`` is False are frozen: every write is row-gated by
 Each phase skip reads one boolean on the host (``host_any``), as does the
 driver's loop test; ``host_any.syncs`` counts them.  ``jax.lax.cond`` with
 a scalar predicate becomes that read; ``vmap`` becomes the written-out batch
-axis.
+axis.  The instruments' per-row decisions (which pool VM to activate, which
+VM to move where) are masked tensor ops over ``[B, ...]``, with ties broken
+at the lowest index as the reference's ``argmin`` / ``argmax`` break them;
+none of them reads a value on the host.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass
 from typing import Callable
 
 import torch
 from torch import Tensor
 
-from repro_torch.core import kvserve, policies, provision
-from repro_torch.core.entities import INF, Scenario, SimResult, SimState
-from repro_torch.core.segments import min_where, row_sum, scatter_add_, take
+from repro_torch.core import energy, kvserve, policies, provision, segments
+from repro_torch.core.entities import (
+    INF, Scenario, SimResult, SimState, TensorTree)
+from repro_torch.core.segments import min_where, row_sum, take
 from repro_torch.kernels import ops
 
 # Event kinds recorded by ``StepEvent.kind`` / ``History.kind``.
@@ -62,8 +70,13 @@ host_any.syncs = 0
 
 def default_max_steps(scn: Scenario) -> int:
     """Safety bound on event batches: starts + finishes + VM lifecycle +
-    slack (no outage or topology terms: those scenarios are not ported)."""
-    return 4 * (scn.cloudlets.n_cloudlets + scn.vms.n_vms) + 260
+    slack, plus an outage schedule's fail/repair edges and per-edge
+    eviction/evacuation slack (no topology term: topology is not ported)."""
+    extra = 0
+    if scn.outages is not None:
+        n_out = math.prod(scn.outages.fail_t.shape[-3:])
+        extra = 4 * n_out + 2 * scn.vms.n_vms
+    return 4 * (scn.cloudlets.n_cloudlets + scn.vms.n_vms) + 260 + extra
 
 
 def resolve_max_steps(scn: Scenario, instruments: tuple = ()) -> int:
@@ -75,6 +88,11 @@ def resolve_max_steps(scn: Scenario, instruments: tuple = ()) -> int:
 def _eps_mi(length_mi: Tensor) -> Tensor:
     """Finish tolerance for float32 work counters (DESIGN.md §2)."""
     return 1e-5 * length_mi + 0.25
+
+
+def _at(x: Tensor, i: Tensor) -> Tensor:
+    """``x[b, i[b]]``: one entry per row of ``[B, N]`` at a ``[B]`` index."""
+    return take(x, i.unsqueeze(-1)).squeeze(-1)
 
 
 def _done_or_doomed(scn: Scenario, st: SimState) -> Tensor:
@@ -128,8 +146,14 @@ class StepEvent:
 
 class Instrument:
     """Base observable with the reference's five hooks, batch-major: every
-    hook sees the ``[B, ...]`` scenario and state.  Only the three default
-    instruments are ported; their aux states are empty."""
+    hook sees the ``[B, ...]`` scenario and state, and its aux state holds
+    ``[B, ...]`` tensors.  ``pre`` may rewrite the state before the policy
+    sweep, ``bound`` returns a ``[B]`` absolute clock stop, ``post``
+    observes the emitted ``StepEvent``, ``finalize`` turns the final aux
+    into ``{name: [B, ...]}`` outputs.  An instrument with tensor fields is
+    a frozen ``TensorTree`` dataclass, so a campaign stacks those fields
+    with the scenario; a field given without the batch axis (a driver's
+    extra instrument) is shared by every row."""
 
     name: str = "instrument"
     bound_kind: int = K_INSTRUMENT
@@ -177,29 +201,33 @@ class SensorInstrument(Instrument):
 
 class MarketInstrument(Instrument):
     """Per-interval market accrual (paper §3.3): CPU-seconds while
-    executing, bandwidth at cloudlet IO edges."""
+    executing, bandwidth at cloudlet IO edges.
+
+    Each event's charges are summed per DC first and then added to the
+    running totals, one add a DC an event.  Scattered one by one into the
+    totals (the reference's ``.at[dc].add``), each rounds against a growing
+    total, and the result hangs on the order of the additions, which the
+    card and the CPU do not share (``segments.py``): reversing that order
+    moves ``cpu_cost`` by 2.7e-5 over a 1,208-event reliability row at
+    10,000 hosts, past the rtol 1e-5 the card is held to against the CPU.
+    Summed per event first, the orders differ only in a step sum's last
+    bits."""
 
     name = "market"
 
     def post(self, scn, st, ev, aux):
         cls, mkt = scn.cloudlets, scn.market
-        B, D = st.cpu_cost.shape
-        dc_of_cl = take(st.vm_dc, st.cl_vm.clamp(0, scn.vms.n_vms - 1))
-        dc_seg = dc_of_cl.clamp(0, D - 1)
+        D = st.cpu_cost.shape[-1]
+        dc_seg = take(st.vm_dc, st.cl_vm.clamp(0, scn.vms.n_vms - 1)).clamp(
+            0, D - 1)
         run_cost = torch.where(
             ev.active, ev.dt[:, None] * take(mkt.cost_per_cpu_sec, dc_seg), 0.0)
         io_mb = (torch.where(ev.newly_started, cls.input_mb, 0.0)
                  + torch.where(ev.newly_finished, cls.output_mb, 0.0))
         io_cost = io_mb * take(mkt.cost_per_bw_mb, dc_seg)
-        # scatter-add into the running totals, in row order (segments.py)
-        at = (dc_seg + torch.arange(B, device=dc_seg.device)[:, None] * D).reshape(-1)
-
-        def accrue(total: Tensor, amount: Tensor) -> Tensor:
-            flat = total.reshape(-1).clone()
-            return scatter_add_(flat, at, amount.reshape(-1)).view(B, D)
-
-        return st.replace(cpu_cost=accrue(st.cpu_cost, run_cost),
-                          bw_cost=accrue(st.bw_cost, io_cost)), aux
+        return st.replace(
+            cpu_cost=st.cpu_cost + segments.segment_sum(run_cost, dc_seg, D),
+            bw_cost=st.bw_cost + segments.segment_sum(io_cost, dc_seg, D)), aux
 
 
 class EnergyInstrument(Instrument):
@@ -211,14 +239,348 @@ class EnergyInstrument(Instrument):
     def post(self, scn, st, ev, aux):
         if scn.power is None:
             return st, aux
-        from repro_torch.core import energy
-
         watts = energy.power_draw(scn, st, vm_mips=ev.vm_mips)
         return st.replace(energy_j=st.energy_j + watts * ev.dt[:, None]), aux
 
 
+def _batch(scn: Scenario) -> tuple[int, torch.device]:
+    return scn.policy.horizon.shape[0], scn.policy.horizon.device
+
+
+@dataclass(frozen=True)
+class AutoscaleInstrument(TensorTree, Instrument):
+    """Threshold-based horizontal scaling over the pre-declared VM pool
+    (DESIGN.md §7).  Every ``sensor_interval`` (a ``K_SCALE`` clock stop)
+    it reads per-DC demand utilization: demand above ``scale_up_thresh`` at
+    two consecutive ticks activates the lowest-index inactive pool VM of
+    that DC; demand below ``scale_down_thresh`` releases the lowest-index
+    idle booted pool VM of that DC.  ``Policy.autoscale`` gates it all."""
+
+    name = "autoscale"
+    bound_kind = K_SCALE
+
+    def init(self, scn):
+        B, dev = _batch(scn)
+        D = scn.hosts.n_dc
+        return (
+            torch.zeros(B, device=dev),                       # last evaluation
+            torch.zeros(B, D, dtype=torch.bool, device=dev),  # over last tick
+            torch.zeros(B, dtype=torch.int32, device=dev),    # activations
+            torch.zeros(B, dtype=torch.int32, device=dev),    # releases
+        )
+
+    def pre(self, scn, st, aux):
+        last_t, over_prev, n_up, n_down = aux
+        pol, vms = scn.policy, scn.vms
+        V, D = vms.n_vms, scn.hosts.n_dc
+        due = pol.autoscale & (st.t >= last_t + pol.sensor_interval)   # [B]
+        util = provision.demand_load(scn, st)                          # [B,D]
+        over = util > pol.scale_up_thresh[:, None]
+        under = util < pol.scale_down_thresh[:, None]
+        rows = torch.arange(V, device=util.device).expand(st.vm_dc.shape)
+
+        # scale up: sustained pressure activates one inactive pool row per DC
+        want_up = due[:, None] & over & over_prev                      # [B,D]
+        cand_up = (
+            vms.pool & vms.exists & ~st.pool_active & ~st.vm_placed
+            & ~st.vm_failed & take(want_up, vms.dc)
+        )
+        first_up = segments.segment_min(
+            torch.where(cand_up, rows, V), vms.dc, D, fill=V)
+        act = cand_up & (rows == take(first_up, vms.dc))
+
+        # scale down: one idle booted pool row per under-pressure DC
+        dc_now = st.vm_dc.clamp(0, D - 1)
+        seg = torch.where(scn.cloudlets.exists & (st.cl_vm >= 0), st.cl_vm, V)
+        busy = segments.segment_sum(
+            (~policies.cloudlet_finished(st)).float(), seg, V) > 0
+        cand_down = (
+            vms.pool & st.pool_active & st.vm_placed & ~st.vm_released
+            & (st.vm_avail_t <= st.t[:, None]) & ~busy
+            & take(due[:, None] & under, dc_now)
+        )
+        first_down = segments.segment_min(
+            torch.where(cand_down, rows, V), dc_now, D, fill=V)
+        rel = cand_down & (rows == take(first_down, dc_now))
+
+        st = provision.release_pool_vms(scn, st, rel)
+        st = st.replace(pool_active=st.pool_active | act)
+        aux = (
+            torch.where(due, st.t, last_t),
+            torch.where(due[:, None], over, over_prev),
+            n_up + act.sum(-1, dtype=torch.int32),
+            n_down + rel.sum(-1, dtype=torch.int32),
+        )
+        return st, aux
+
+    def bound(self, scn, st, aux):
+        pol = scn.policy
+        return torch.where(pol.autoscale, aux[0] + pol.sensor_interval, INF)
+
+    def finalize(self, scn, st, aux):
+        return {"n_scale_up": aux[2], "n_scale_down": aux[3]}
+
+
+@dataclass(frozen=True)
+class MigrationInstrument(TensorTree, Instrument):
+    """Runtime (live) VM migration across federated datacenters (DESIGN.md
+    §8).  At every sensor tick (a ``K_TICK`` clock stop) the coordinator
+    commits at most one move per row: load balancing sheds the busiest VM
+    of the most-loaded DC above ``migrate_balance_thresh`` to the
+    least-loaded feasible peer when that strictly shrinks the pair's spread
+    (no ping-pong); otherwise consolidation drains the idlest VM of the
+    least-loaded DC below ``migrate_consolidate_thresh`` toward the busiest
+    strictly busier feasible peer.  ``Policy.federation &
+    Policy.live_migration`` gate it all."""
+
+    name = "migration"
+    bound_kind = K_TICK
+
+    def init(self, scn):
+        B, dev = _batch(scn)
+        return (
+            torch.zeros(B, device=dev),                     # last evaluation
+            torch.zeros(B, dtype=torch.int32, device=dev),  # balance moves
+            torch.zeros(B, dtype=torch.int32, device=dev),  # consolidations
+        )
+
+    def pre(self, scn, st, aux):
+        last_t, n_bal, n_con = aux
+        pol, vms = scn.policy, scn.vms
+        D = scn.hosts.n_dc
+        enabled = pol.federation & pol.live_migration
+        due = enabled & (st.t >= last_t + pol.sensor_interval)
+
+        st = _clear_arrived_moves(st)
+
+        util = provision.demand_load(scn, st)                          # [B,D]
+        cap = provision.dc_capacity_mips(scn).clamp_min(1e-9)          # [B,D]
+        outstanding = policies.vm_outstanding_mi(scn, st)              # [B,V]
+        demand = policies.vm_demand_mips(scn, st)                      # [B,V]
+        movable = (
+            vms.exists & st.vm_placed & ~st.vm_failed & ~st.vm_released
+            & (st.vm_avail_t <= st.t[:, None])
+        )
+        dc_of = st.vm_dc.clamp(0, D - 1)
+        has_movable = segments.segment_sum(movable.float(), dc_of, D) > 0
+        dcs = torch.arange(D, device=util.device)
+
+        # --- load balancing: loaded source sheds its busiest VM ---
+        src_ok_b = has_movable & (util > pol.migrate_balance_thresh[:, None])
+        src_b = torch.where(src_ok_b, util, -torch.inf).argmax(-1)
+        v_b = torch.where(movable & (dc_of == src_b[:, None]), outstanding,
+                          -torch.inf).argmax(-1)
+        dst_ok_b = (provision.slot_feasible(scn, st, v_b).any(-1)
+                    & (dcs != src_b[:, None]))
+        dst_b = torch.where(dst_ok_b, util, torch.inf).argmin(-1)
+        # improvement rule: the move must strictly shrink the pair's spread
+        util_src = _at(util, src_b)
+        spread_after = torch.maximum(
+            util_src - _at(demand, v_b) / _at(cap, src_b),
+            _at(util, dst_b) + _at(demand, v_b) / _at(cap, dst_b),
+        )
+        bal_ok = (due & src_ok_b.any(-1) & dst_ok_b.any(-1)
+                  & (spread_after < util_src - 1e-6))
+
+        # --- consolidation: idle source drains toward a busier peer ---
+        src_ok_c = has_movable & (
+            util < pol.migrate_consolidate_thresh[:, None])
+        src_c = torch.where(src_ok_c, util, torch.inf).argmin(-1)
+        v_c = torch.where(movable & (dc_of == src_c[:, None]), outstanding,
+                          torch.inf).argmin(-1)
+        dst_ok_c = (
+            provision.slot_feasible(scn, st, v_c).any(-1)
+            & (dcs != src_c[:, None])
+            & (util > _at(util, src_c)[:, None] + 1e-6)  # strictly busier
+        )
+        dst_c = torch.where(dst_ok_c, util, -torch.inf).argmax(-1)
+        con_ok = due & src_ok_c.any(-1) & dst_ok_c.any(-1) & ~bal_ok
+
+        v = torch.where(bal_ok, v_b, v_c)
+        dst = torch.where(bal_ok, dst_b, dst_c)
+        st, moved = provision.live_migrate(scn, st, v, dst, bal_ok | con_ok)
+        aux = (
+            torch.where(due, st.t, last_t),
+            n_bal + (moved & bal_ok).int(),
+            n_con + (moved & con_ok).int(),
+        )
+        return st, aux
+
+    def bound(self, scn, st, aux):
+        pol = scn.policy
+        return torch.where(pol.federation & pol.live_migration,
+                           aux[0] + pol.sensor_interval, INF)
+
+    def finalize(self, scn, st, aux):
+        return {"n_balance": aux[1], "n_consolidate": aux[2]}
+
+
+def _clear_arrived_moves(st: SimState) -> SimState:
+    """Reset the pending-move marker of transfers that have landed (shared
+    by every instrument that commits ``provision.live_migrate`` moves)."""
+    arrived = (st.vm_mig_src >= 0) & (st.vm_avail_t <= st.t[:, None])
+    return st.replace(vm_mig_src=torch.where(arrived, -1, st.vm_mig_src))
+
+
+def _evac_candidate(scn: Scenario, st: SimState):
+    """``(v, dst_dc, safe, ok)`` per row: the usable VM with the most
+    outstanding work on a host scheduled to fail within ``evac_lead_s``,
+    bound for the least-loaded federation peer with a safe free slot
+    (``safe`` is the ``[B, D, H]`` landing mask).  Shared by
+    ``ReliabilityInstrument.pre`` (the commit) and ``.bound`` (the clock
+    stop that keeps the drain going), so they never disagree."""
+    pol, vms, hosts = scn.policy, scn.vms, scn.hosts
+    B, D, H = hosts.cores.shape
+    nf = scn.outages.next_fail_after(st.t)                          # [B,D,H]
+    doomed = (hosts.exists & st.host_up
+              & (nf <= (st.t + pol.evac_lead_s)[:, None, None]))
+    at = st.vm_dc.clamp(0, D - 1) * H + st.vm_host.clamp(0, H - 1)
+    cand = (
+        vms.exists & st.vm_placed & ~st.vm_released & ~st.vm_failed
+        & (st.vm_avail_t <= st.t[:, None]) & take(doomed.reshape(B, D * H), at)
+    )
+    outstanding = policies.vm_outstanding_mi(scn, st)
+    v = torch.where(cand, outstanding, -torch.inf).argmax(-1)
+    # a peer DC with a free slot on a host neither down nor itself doomed
+    safe = provision.slot_feasible(scn, st, v) & ~doomed
+    dcs = torch.arange(D, device=v.device)
+    dst_ok = safe.any(-1) & (dcs != _at(st.vm_dc, v).clamp(0, D - 1)[:, None])
+    util = provision.demand_load(scn, st)
+    dst = torch.where(dst_ok, util, torch.inf).argmin(-1)
+    ok = pol.federation & pol.evacuation & cand.any(-1) & dst_ok.any(-1)
+    return v, dst, safe, ok
+
+
+@dataclass(frozen=True)
+class ReliabilityInstrument(TensorTree, Instrument):
+    """Proactive evacuation ahead of scheduled host failures (DESIGN.md §9).
+
+    The failure semantics (edges, eviction, rollback, downtime) live in the
+    engine (``provision.apply_outages``).  This instrument's ``bound`` is an
+    alarm ``evac_lead_s`` before each host's next failure, and a zero-length
+    clock stop while a usable VM still sits on a doomed host with a safe
+    peer; ``pre`` commits one such move per event through
+    ``provision.live_migrate`` and counts it in ``n_evacuations``.
+    ``Policy.federation & Policy.evacuation`` gate it; without
+    ``Scenario.outages`` it does nothing."""
+
+    name = "reliability"
+
+    def pre(self, scn, st, aux):
+        if scn.outages is None:
+            return st, aux
+        st = _clear_arrived_moves(st)
+        v, dst, safe, ok = _evac_candidate(scn, st)
+        st, moved = provision.live_migrate(scn, st, v, dst, ok, host_ok=safe)
+        return st.replace(n_evacuations=st.n_evacuations + moved.int()), aux
+
+    def bound(self, scn, st, aux):
+        if scn.outages is None:
+            return torch.full_like(st.t, INF)
+        pol, hosts = scn.policy, scn.hosts
+        nf = torch.where(hosts.exists & st.host_up,
+                         scn.outages.next_fail_after(st.t), INF)
+        alarm = torch.where(nf < INF / 2, nf - pol.evac_lead_s[:, None, None],
+                            INF).flatten(1).amin(-1)
+        future = torch.where(alarm > st.t, alarm, INF)
+        # more to drain right now: stop the clock (dt = 0), one move an event
+        _, _, _, ok_now = _evac_candidate(scn, st)
+        return torch.where(pol.federation & pol.evacuation,
+                           torch.where(ok_now, st.t, future), INF)
+
+
+def _sample_times(ts: Tensor, B: int) -> Tensor:
+    """``[B, S]`` sample times from a shared ``[S]`` or per-row ``[B, S]``."""
+    return ts.expand(B, ts.shape[-1])
+
+
+@dataclass(frozen=True)
+class TraceInstrument(TensorTree, Instrument):
+    """Per-cloudlet progress fractions at ``sample_ts``, a pure observer.
+
+    Rates are constant over each event interval, so progress at a sample
+    time inside it interpolates exactly: rem(s) = rem(t0) - rate (s - t0).
+    No clock stop is added, so a traced run's ``SimResult`` is bitwise the
+    untraced run's.  Output rows follow ``sample_ts`` as given."""
+
+    name = "trace"
+
+    sample_ts: Tensor   # [S] (or [B, S]) f32 absolute sample times
+
+    def init(self, scn):
+        B, dev = _batch(scn)
+        S, C = self.sample_ts.shape[-1], scn.cloudlets.n_cloudlets
+        return (torch.zeros(B, S, C, device=dev),
+                torch.zeros(B, S, dtype=torch.bool, device=dev))
+
+    def post(self, scn, st, ev, aux):
+        prog, recorded = aux
+        ts = _sample_times(self.sample_ts, prog.shape[0])
+        length = scn.cloudlets.length_mi
+        dt_s = torch.minimum((ts - ev.t0[:, None]).clamp_min(0.0),
+                             ev.dt[:, None])                           # [B,S]
+        rem0 = ev.rem_before[:, None, :]
+        depleted = ev.rate[:, None, :] * dt_s[:, :, None]              # [B,S,C]
+        rem_s = torch.where(ev.active[:, None, :],
+                            (rem0 - depleted).clamp_min(0.0), rem0)
+        frac = 1.0 - rem_s / length.clamp_min(1e-9)[:, None, :]
+        hit = ~recorded & (ts <= ev.t1[:, None])
+        return st, (torch.where(hit[..., None], frac, prog), recorded | hit)
+
+    def finalize(self, scn, st, aux):
+        prog, recorded = aux
+        # samples past the last event see the frozen final state exactly
+        final = 1.0 - st.rem_mi / scn.cloudlets.length_mi.clamp_min(1e-9)
+        return {"progress": torch.where(recorded[..., None], prog,
+                                        final[:, None, :])}
+
+
+@dataclass(frozen=True)
+class UtilizationTimelineInstrument(TensorTree, Instrument):
+    """Per-DC utilization sampled at ``sample_ts`` (Figure 9/10-style)."""
+
+    name = "utilization"
+
+    sample_ts: Tensor   # [S] (or [B, S]) f32
+
+    def init(self, scn):
+        B, dev = _batch(scn)
+        S = self.sample_ts.shape[-1]
+        return (torch.zeros(B, S, scn.hosts.n_dc, device=dev),
+                torch.zeros(B, S, dtype=torch.bool, device=dev))
+
+    def post(self, scn, st, ev, aux):
+        util_tl, recorded = aux
+        util = energy.dc_utilization(scn, st, vm_mips=ev.vm_mips)     # [B,D]
+        ts = _sample_times(self.sample_ts, util.shape[0])
+        hit = ~recorded & (ts <= ev.t1[:, None])
+        util_tl = torch.where(hit[..., None], util[:, None, :], util_tl)
+        return st, (util_tl, recorded | hit)
+
+    def finalize(self, scn, st, aux):
+        util_tl, recorded = aux
+        final = energy.dc_utilization(scn, st)
+        return {"utilization": torch.where(recorded[..., None], util_tl,
+                                           final[:, None, :])}
+
+
 def default_instruments() -> tuple[Instrument, ...]:
     return (SensorInstrument(), MarketInstrument(), EnergyInstrument())
+
+
+def instruments_for(scn: Scenario, extra_instruments: tuple = ()
+                    ) -> tuple[Instrument, ...]:
+    """The instruments a driver threads through the loop, in accrual
+    order: the defaults, then ``Scenario.instruments``, then the driver's
+    extras."""
+    return (default_instruments() + tuple(scn.instruments)
+            + tuple(extra_instruments))
+
+
+def init_aux(scn: Scenario, extra_instruments: tuple = ()) -> tuple:
+    """Initial ``[B, ...]`` aux states of ``instruments_for``."""
+    return tuple(ins.init(scn)
+                 for ins in instruments_for(scn, extra_instruments))
 
 
 @dataclass(frozen=True)
@@ -234,13 +596,22 @@ class StepContext:
     serving: bool
 
 
-def make_context(scn: Scenario) -> tuple[StepContext, tuple]:
-    """Step context + initial instrument aux states for a batch driver."""
-    instruments = default_instruments()
+def make_context(scn: Scenario, extra_instruments: tuple = ()
+                 ) -> tuple[StepContext, tuple]:
+    """Step context + initial instrument aux states for a batch driver.
+    Outputs are keyed by instrument name, so two instruments of one name
+    raise ``ValueError``."""
+    instruments = instruments_for(scn, extra_instruments)
+    names = [ins.name for ins in instruments]
+    dupes = {n for n in names if names.count(n) > 1}
+    if dupes:
+        raise ValueError(
+            f"duplicate instrument name(s) {sorted(dupes)}: outputs are keyed "
+            "by name — give each instance a distinct `name` class attr")
     device = scn.hosts.cores.device
     ctx = StepContext(
         instruments=instruments,
-        cand_kinds=_cand_kinds(instruments, device),
+        cand_kinds=_cand_kinds(scn, instruments, device),
         advance=ops.resolve_advance(device),
         serving=host_any(kvserve.serving_needed(scn)),
     )
@@ -266,8 +637,9 @@ def _dispatch_needed(scn: Scenario, st: SimState) -> Tensor:
 
 def _phase_prologue(scn: Scenario, st: SimState, aux: tuple,
                     instruments: tuple) -> tuple[SimState, tuple]:
-    """Outage edges and transfer settling (no-ops on this slice), instrument
-    ``pre`` hooks, release of drained VMs."""
+    """Outage edges (before anything may observe or use a dead host),
+    transfer settling (a no-op without a topology), instrument ``pre``
+    hooks, release of drained VMs."""
     st = provision.apply_outages(scn, st)
     st = provision.settle_transfers(scn, st)
     aux = list(aux)
@@ -277,10 +649,12 @@ def _phase_prologue(scn: Scenario, st: SimState, aux: tuple,
     return st, tuple(aux)
 
 
-def _cand_kinds(instruments: tuple, device) -> Tensor:
+def _cand_kinds(scn: Scenario, instruments: tuple, device) -> Tensor:
     """Event kinds aligned with ``_phase_bound``'s candidate times (built
     once per driver: a host-to-device copy waits for the stream)."""
     kinds = [K_READY, K_READY, K_VM_REQUEST, K_MIGRATION, K_SERVING]
+    if scn.outages is not None:
+        kinds += [K_FAILURE, K_REPAIR]
     kinds += [ins.bound_kind for ins in instruments]
     kinds.append(K_HORIZON)
     return torch.tensor(kinds, dtype=torch.int32, device=device)
@@ -297,6 +671,8 @@ def _phase_bound(scn: Scenario, st: SimState, aux: tuple, instruments: tuple):
 
     unready = cls.exists & (st.cl_ready_t > t)
     undispatched = cls.exists & (st.cl_vm < 0) & (cls.submit_t > t)
+    # evicted rows' request_t is in the past: they retry at every event (and
+    # wake on K_REPAIR / completions), so they contribute no bound
     unplaced = (
         vms.exists & ~st.vm_placed & ~st.vm_failed & ~st.vm_evicted
         & (~vms.pool | st.pool_active)
@@ -309,6 +685,12 @@ def _phase_bound(scn: Scenario, st: SimState, aux: tuple, instruments: tuple):
         min_where(st.vm_avail_t, migrating),
         kvserve.serving_bound(scn, st, rate),
     ]
+    if scn.outages is not None:
+        ex = scn.hosts.exists
+        cand_t.append(torch.where(
+            ex, scn.outages.next_fail_after(st.t), INF).flatten(1).amin(-1))
+        cand_t.append(torch.where(
+            ex, scn.outages.next_repair_after(st.t), INF).flatten(1).amin(-1))
     for i, ins in enumerate(instruments):
         cand_t.append(ins.bound(scn, st, aux[i]))
     cand_t.append(pol.horizon)
@@ -344,6 +726,12 @@ def _phase_commit(scn: Scenario, st: SimState, aux: tuple, ctx: StepContext,
         finish_t=torch.where(newly_fin, t_next[:, None], st.finish_t),
         cpu_time=st.cpu_time + torch.where(active, dt[:, None], 0.0),
     )
+    if scn.outages is not None:
+        # downtime integral: a VM is down while evicted and not yet usable
+        vm_down = st.vm_evicted & ~(st.vm_placed
+                                    & (st.vm_avail_t <= ev.t0[:, None]))
+        st = st.replace(
+            vm_downtime=st.vm_downtime + torch.where(vm_down, dt[:, None], 0.0))
     aux = list(aux)
     for i, ins in enumerate(ctx.instruments):
         st, aux[i] = ins.post(scn, st, ev, aux[i])

@@ -25,12 +25,13 @@ from repro.core import Outages as JaxOutages
 from repro.core import SPACE_SHARED, TIME_SHARED
 from repro.core import scenarios as jscn
 from repro.core import simulate as jax_simulate
+from repro.core import simulate_instrumented as jax_simulate_instrumented
 from repro.core.energy import PowerModel as JaxPowerModel
 from repro.core.energy import Topology as JaxTopology
 from repro_torch.convert import result_to_numpy, scenario_from_arrays
 from repro_torch.core import (
-    broadcast_campaign, scenarios, simulate, simulate_instrumented,
-    stack_scenarios)
+    UtilizationTimelineInstrument, broadcast_campaign, scenarios, simulate,
+    simulate_instrumented, stack_scenarios)
 
 pytestmark = pytest.mark.tier1
 
@@ -84,6 +85,23 @@ def assert_bitwise(x, y):
     a, b = result_to_numpy(x), result_to_numpy(y)
     for k in a:
         np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+def assert_outputs_match(jax_out, torch_out):
+    """Instrument outputs ``{name: {key: array}}`` of the two engines:
+    integers exactly, floats within rtol 1e-5."""
+    assert jax_out.keys() == torch_out.keys()
+    for name in jax_out:
+        assert jax_out[name].keys() == torch_out[name].keys(), name
+        for key, want in jax_out[name].items():
+            want = np.asarray(want)
+            got = torch_out[name][key].cpu().numpy()
+            assert got.shape == want.shape, (name, key)
+            if want.dtype.kind in "biu":
+                np.testing.assert_array_equal(got, want, err_msg=key)
+            else:
+                np.testing.assert_allclose(got, want, rtol=1e-5, atol=0,
+                                           err_msg=f"{name}.{key}")
 
 
 @pytest.mark.parametrize("name", sorted(PARITY))
@@ -173,7 +191,8 @@ def test_stack_scenarios_refuses_mixed_static_fields():
 
 def test_port_never_imports_jax():
     """The port runs end to end without JAX or the JAX package loaded: a
-    simulation, a smoke prefill and a smoke train step."""
+    simulation, a trace, a reliability scenario drawn from a torch seed, a
+    smoke prefill and a smoke train step."""
     src = str(Path(__file__).resolve().parents[1] / "src")
     code = (
         "import sys\n"
@@ -184,6 +203,11 @@ def test_port_never_imports_jax():
         "scn = scn.replace(power=PowerModel.uniform(1, device='cpu'))\n"
         "simulate(scn, device='cpu'); simulate_history(scn, device='cpu')\n"
         "import torch, repro_torch.serving, repro_torch.launch.serve\n"
+        "from repro_torch.core import simulate_trace\n"
+        "simulate_trace(scn, [100.0, 900.0], device='cpu')\n"
+        "rel = scenarios.reliability_scenario(torch.Generator().manual_seed(0),"
+        " device='cpu')\n"
+        "assert int(simulate(rel, device='cpu').n_finished) == 8\n"
         "from repro_torch.configs import get_config\n"
         "from repro_torch.models import build_model\n"
         "model = build_model(get_config('internlm2-1.8b', smoke=True))\n"
@@ -236,13 +260,39 @@ def _with_outages():
         instruments=(AutoscaleInstrument(),)), "instruments"),
 ])
 def test_unported_pieces_raise(build, piece):
-    with pytest.raises(NotImplementedError, match=piece):
-        scenario_from_arrays(build(), "cpu")
+    """A topology is the one scenario piece the port still refuses; an
+    outage schedule and extra instruments carry across and run as the
+    reference runs them."""
+    jax_scn = build()
+    if piece == "topology":
+        with pytest.raises(NotImplementedError, match=piece):
+            scenario_from_arrays(jax_scn, "cpu")
+        return
+    jres, jout = jax.jit(jax_simulate_instrumented)(jax_scn)
+    res, out = simulate_instrumented(scenario_from_arrays(jax_scn, "cpu"),
+                                     device="cpu")
+    assert_results_match(jres, res)
+    assert_outputs_match(jout, out)
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="MigrationInstrument"):
-        scenarios.table1_scenario(True, live_migration=True, device="cpu")
+    """``table1_scenario(live_migration=True)`` builds the reference's
+    scenario and runs as it does; extra instruments run, and two of one
+    name raise, as in the reference."""
+    jax_scn = jscn.table1_scenario(True, live_migration=True)
+    port = scenarios.table1_scenario(True, live_migration=True, device="cpu")
+    jres, jout = jax.jit(jax_simulate_instrumented)(jax_scn)
+    res, out = simulate_instrumented(port, device="cpu")
+    assert_results_match(jres, res)
+    assert_outputs_match(jout, out)
     scn = scenarios.fig4_scenario(0, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="extra instruments"):
-        simulate_instrumented(scn, extra_instruments=(object(),), device="cpu")
+    ts = torch.arange(0.0, 2000.0, 250.0)
+    res, out = simulate_instrumented(
+        scn, extra_instruments=(UtilizationTimelineInstrument(sample_ts=ts),),
+        device="cpu")
+    assert out["utilization"]["utilization"].shape == (8, 1)
+    with pytest.raises(ValueError, match="duplicate instrument name"):
+        simulate_instrumented(
+            scn, extra_instruments=(UtilizationTimelineInstrument(sample_ts=ts),
+                                    UtilizationTimelineInstrument(sample_ts=ts)),
+            device="cpu")
