@@ -60,7 +60,27 @@ training loop, and fails with a non-zero exit code if any phase fails:
              threshold x seed) and consolidation (consolidate x balance
              threshold) campaigns; in (c) and (d) two rows bitwise their
              solo runs, which equal the port's CPU runs
-5. proof     the advance-sweep kernel's launch count over phases 3-4b
+4c. network and campaigns  the inter-DC topology and the streamed campaign
+             driver on the card: (a) ``staging_scenario`` with locality
+             dispatch off and on, Table 1 over ``Topology.from_coordinates``
+             and evacuation under a topology against the port's CPU runs;
+             Table 1 and Fig. 9/10 at 10,000 hosts under a neutral topology
+             bitwise their flat runs (Table 1 with 8 VMs, one migration,
+             as in the reference's lock); Table 1 and Fig. 9/10 at 10,000 hosts
+             with the federated-energy topology through ``simulate_trace``
+             against the CPU's traces; a ``K_STAGE`` event in
+             ``simulate_history``; (b) 1,024 ``staging_scenario`` rows (8 DCs
+             x 125 hosts, 128 VMs, 512 cloudlets in waves of 64) over an
+             input size x link rate x latency x locality grid, rows 0 and 1
+             bitwise their solo runs, which equal the CPU's, with a profiled
+             window of batch steps; (c) 8,192 Fig. 9/10 rows at 10,000 hosts
+             held on the host and streamed through ``run_campaign`` in
+             chunks of 1,024 and 2,048 with five reducers (integer folds,
+             ``ArgBest`` and ``Values`` bitwise across the two, means within
+             rtol 1e-5, one chunk's folds bitwise the fold of its
+             materialised result); (d) ``successive_halving`` over Table 1
+             (64 candidates, 3 rungs) equal to the CPU's on the same table
+5. proof     the advance-sweep kernel's launch count over phases 3-4c
 6. serving   internlm2-1.8b at full width and depth (bf16, random weights from
              a seed) served by ``ServingEngine`` (4 slots of 1,024 tokens,
              re-planning by simulation every 8 steps) to 8 requests of 128-512
@@ -115,9 +135,11 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch import tree  # noqa: E402
 from repro_torch.convert import result_to_numpy  # noqa: E402
 from repro_torch.core import (  # noqa: E402
-    INF, SPACE_SHARED, TIME_SHARED, Outages, broadcast_campaign, engine,
-    provision, scenario_row, scenarios, simulate, simulate_instrumented,
-    simulate_trace, stack_scenarios, step, workload)
+    INF, SPACE_SHARED, TIME_SHARED, ArgBestReducer, HistogramReducer,
+    MeanReducer, Outages, PowerModel, Scenario, SumReducer, Topology,
+    ValuesReducer, broadcast_campaign, engine, provision, run_campaign,
+    scenario_row, scenarios, search, simulate, simulate_history,
+    simulate_instrumented, simulate_trace, stack_scenarios, step, workload)
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import build as kbuild  # noqa: E402
 from repro_torch.data import ShardedLoader  # noqa: E402
@@ -156,6 +178,24 @@ RELIABILITY_POLICIES = ((True, INF), (True, 600_000.0), (False, INF),
 RELIABILITY_ROWS = 512
 PROFILED_FROM, PROFILED_STEPS = 200, 40   # batch steps profiled in (c)
 TRACE_SAMPLES = 50
+# phase 4c: the staging campaign's rows (input MB x link Mbps x latency s x
+# locality dispatch, 24 points, wave_dt spread over the rest), the streamed
+# Fig. 9/10 campaign and the successive-halving search over Table 1
+STAGING = dict(n_dc=8, hosts_per_dc=125, vms_per_dc=16, n_cloudlets=512,
+               wave=64)
+STAGING_GRID = [(mb, bw, lat, loc) for mb in (256.0, 1024.0, 4096.0)
+                for bw in (100.0, 1000.0) for lat in (0.05, 0.2)
+                for loc in (False, True)]
+STAGING_ROWS = 1024
+STAGING_PROFILED_FROM, STAGING_PROFILED_STEPS = 60, 40
+STREAM_ROWS, STREAM_CHUNKS = 8192, (1024, 2048)
+HALVING_SPACE = {"migration_fixed_s": [10.0, 30.0, 60.0, 120.0],
+                 "interdc_bw_mbps": [25.0, 50.0, 100.0, 400.0],
+                 "sensor_interval": [50.0, 100.0, 200.0, 400.0],
+                 "best_fit": [False, True]}
+HALVING = dict(n0=64, fidelities=(2500.0, 4000.0, 1e7),
+               metric="mean_turnaround")
+COORDS_KM = np.array([[0.0, 0.0], [1800.0, 0.0], [0.0, 3600.0]])
 # flash attention: name, (B, Hq, Hk, Sq, Sk, D), dtype, masking
 FLASH_SHAPES = [
     ("serving prefill", (1, 16, 8, 512, 512, 128), torch.bfloat16,
@@ -623,8 +663,12 @@ def phase_ssd_kernel() -> dict:
 # ------------------------------------------------------------- 3. anchors
 def same_as_cpu(gpu_res, scn, name: str) -> None:
     """The card's result against the port's own CPU run of the scenario."""
-    a = result_to_numpy(gpu_res)
-    b = result_to_numpy(simulate(scn, device="cpu"))
+    agree(gpu_res, simulate(scn, device="cpu"), name)
+
+
+def agree(gpu_res, cpu_res, name: str) -> None:
+    """Integer fields exact, float fields within rtol 1e-5."""
+    a, b = result_to_numpy(gpu_res), result_to_numpy(cpu_res)
     for k in a:
         if a[k].dtype.kind in "biu":
             same = (a[k] == b[k]).all()
@@ -878,7 +922,7 @@ def reliability_campaign(rows: int):
     return batch, grid
 
 
-def campaign_run(name: str, batch) -> tuple:
+def campaign_run(name: str, batch, phase: str = "extensions") -> tuple:
     """A stacked campaign on the card through ``simulate_instrumented``.
     Returns (result, batch steps)."""
     mib = sum(x.numel() * x.element_size() for x in batch.leaves()) / 2**20
@@ -893,7 +937,7 @@ def campaign_run(name: str, batch) -> tuple:
     events = int(res.n_events.sum())
     summary = {k: {n: float(v.float().mean()) for n, v in o.items()}
                for k, o in out.items()}
-    say("extensions", (
+    say(phase, (
         f"{name}: {rows} rows, scenario {mib:.1f} MiB on the card: wall "
         f"{secs!r} s, {steps} batch steps, {events} row events, "
         f"{events / secs!r} row events/s, {steps / secs!r} batch steps/s, "
@@ -903,7 +947,8 @@ def campaign_run(name: str, batch) -> tuple:
     return res, steps
 
 
-def solo_rows(name: str, batch, res, check_rows) -> int:
+def solo_rows(name: str, batch, res, check_rows,
+              phase: str = "extensions") -> int:
     """Each of ``check_rows`` bitwise its solo run on the card, which
     equals the port's CPU run.  Returns the solo runs' batch steps."""
     steps = 0
@@ -918,7 +963,7 @@ def solo_rows(name: str, batch, res, check_rows) -> int:
         t0 = time.perf_counter()
         same_as_cpu(solo, scn, f"{name} row {i}")
         steps += int(solo.n_events)
-        say("extensions", f"{name}: row {i} ({int(solo.n_events)} events) "
+        say(phase, f"{name}: row {i} ({int(solo.n_events)} events) "
             f"bitwise its solo run on the card ({card_s!r} s), which equals "
             f"the CPU's ({time.perf_counter() - t0!r} s)")
     return steps
@@ -1052,6 +1097,352 @@ def phase_extensions(solo: dict, campaign) -> int:
     say("timing", "extensions: " + ", ".join(
         f"{k} {v:.1f} s" for k, v in took.items()))
     return steps
+
+
+# -------------------------------------------------- 4c. network and campaigns
+class BatchSteps:
+    """Counts the engine's batch steps on the card: installed in place of
+    ``engine.batch_event_step``, which every driver (``simulate`` and its
+    kin, ``run_campaign``'s chunks, the search's rungs) calls once a step."""
+
+    def __init__(self):
+        self.n = 0
+        self.inner = engine.batch_event_step
+
+    def __call__(self, scn_b, carry, ctx, live):
+        if scn_b.hosts.cores.is_cuda:
+            self.n += 1
+        return self.inner(scn_b, carry, ctx, live)
+
+
+def timed(fn, *args, **kw):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def prebound_staging(device=None) -> Scenario:
+    """Two fixed-binding cloudlets staging 1,000 MB each from DC1 to DC0
+    over one 100 Mbps link, submitted at 0 and 2 s: the second opens at a
+    ``K_STAGE`` clock stop, and fair sharing starts them at 18 and 20 s."""
+    hosts = scenarios.uniform_hosts(2, 2, cores=1, mips=100.0, ram_mb=4096.0,
+                                    device=device)
+    vms = scenarios.uniform_vms(2, dc=0, cores=1, mips=100.0, ram_mb=256.0,
+                                device=device)
+    cls = scenarios.make_cloudlets(
+        np.arange(2), np.full(2, 100.0), np.array([0.0, 2.0]),
+        input_mb=1000.0, output_mb=0.0, input_dc=1, device=device)
+    return Scenario(hosts=hosts, vms=vms, cloudlets=cls,
+                    market=scenarios.uniform_market(2, device=device),
+                    policy=scenarios.make_policy(horizon=1e6, device=device),
+                    topology=Topology.uniform(2, latency_s=0.0, bw_mbps=100.0,
+                                              device=device))
+
+
+def net_anchors(solo: dict) -> None:
+    """(a) The topology on the card against the CPU and the flat runs."""
+    def card(name, scn):
+        res, secs = timed(simulate, scn)
+        same_as_cpu(res, scn, name)
+        say("network", f"{name}: {int(res.n_finished)} of "
+            f"{scn.cloudlets.n_cloudlets} finished, {int(res.n_events)} "
+            f"events, {int(res.n_migrations)} migrations, makespan "
+            f"{float(res.makespan)!r} s, mean turnaround "
+            f"{float(res.mean_turnaround)!r} s, equals the CPU's, {secs!r} s")
+        return res
+
+    for loc in (False, True):
+        res = card(f"staging_scenario, locality dispatch {loc}",
+                   scenarios.staging_scenario(locality_dispatch=loc))
+        check(int(res.n_finished) == 48, "staging finishes all 48")
+    # the reference's lock holds where no two transfers share a link:
+    # Table 1 with 8 VMs overflows one VM (its 25 VMs move 10 at once)
+    single = scenarios.table1_scenario(True, n_vms=8)
+    for name, scn, flat in (("table1, 8 VMs", single, simulate(single)),
+                            ("fig9_10 10000 hosts", solo[SPACE_SHARED][0],
+                             solo[SPACE_SHARED][1])):
+        topo = Topology.uniform(scn.hosts.n_dc, latency_s=0.0, bw_mbps=float(
+            scn.policy.interdc_bw_mbps))
+        res, secs = timed(simulate, scn.replace(topology=topo))
+        bitwise(res, flat, f"{name} under a neutral topology vs flat")
+        say("network", f"{name} under a neutral topology (uniform "
+            f"{float(scn.policy.interdc_bw_mbps)!r} Mbps, latency 0): "
+            f"bitwise the flat run on the card, {secs!r} s")
+    table1 = scenarios.table1_scenario(True)
+    res = card("table1 over Topology.from_coordinates", table1.replace(
+        topology=Topology.from_coordinates(COORDS_KM)))
+    check(int(res.n_finished) == 25 and int(res.n_migrations) == 10,
+          "table1 from coordinates: 25 finished, 10 migrations")
+    evac = scenarios.evacuation_scenario()
+    res = card("evacuation under Topology.uniform(2, 0.05 s, 100 Mbps)",
+               evac.replace(topology=Topology.uniform(2, latency_s=0.05,
+                                                      bw_mbps=100.0)))
+    flat = simulate(evac)
+    check(int(res.n_evacuations) == 2 and int(res.sla_violations) == 0,
+          "evacuation under a topology: 2 evacuations, no SLA violation")
+    check(bool((res.finish_t > flat.finish_t).all()),
+          "the two evacuations share their link: later than the flat run")
+    for name, scn, ts in (
+            ("table1 federated energy", table1.replace(
+                power=PowerModel.uniform(3), topology=Topology.uniform(
+                    3, latency_s=5.0, bw_mbps=50.0)),
+             torch.linspace(0.0, 9_000.0, TRACE_SAMPLES)),
+            ("fig9_10 10000 hosts federated energy", solo[SPACE_SHARED][0]
+             .replace(power=PowerModel.uniform(1), topology=Topology.uniform(
+                 1, latency_s=5.0, bw_mbps=50.0)),
+             torch.linspace(0.0, 7_000.0, TRACE_SAMPLES))):
+        (res, prog), secs = timed(simulate_trace, scn, ts)
+        res_cpu, prog_cpu = simulate_trace(scn, ts, device="cpu")
+        agree(res, res_cpu, f"{name} traced")
+        a, b = prog.cpu().numpy(), prog_cpu.numpy()
+        check(bool((abs(a - b) <= 1e-5 * abs(b)).all()),
+              f"{name}: progress within rtol 1e-5 of the CPU trace")
+        check(float(res.energy_j.sum()) > 0, f"{name}: energy accrued")
+        say("network", f"simulate_trace {name}, {TRACE_SAMPLES} samples: "
+            f"result and progress equal the CPU's (max |card - cpu| "
+            f"{float(abs(a - b).max())!r}), {int(res.n_events)} events, "
+            f"{secs!r} s")
+    scn = prebound_staging()
+    res, hist = simulate_history(scn)
+    same_as_cpu(res, scn, "pre-bound staging")
+    valid = hist.valid
+    kinds, t = hist.kind[valid], hist.t[valid]
+    _, hist_cpu = simulate_history(scn, device="cpu")
+    check(torch.equal(hist.kind.cpu(), hist_cpu.kind),
+          "pre-bound staging history kinds equal the CPU's")
+    check(int((kinds == step.K_STAGE).sum()) == 1
+          and float(t[kinds == step.K_STAGE][0]) == 2.0,
+          "one K_STAGE event, at t = 2 s")
+    check(res.start_t.tolist() == [18.0, 20.0],
+          f"fair-shared starts {res.start_t.tolist()} == [18, 20]")
+    say("network", f"simulate_history of a pre-bound staging pair: kinds "
+        f"{kinds.tolist()}, one K_STAGE at 2 s, starts 18 and 20 s")
+
+
+def staging_campaign(rows: int):
+    """``rows`` staging rows on the card: row i is grid point i % 24 with
+    the i // 24-th wave spacing.  The per-row cloudlet inputs and submit
+    times, link rates and locality flags go through ``broadcast_campaign``
+    over one template; row i equals ``staging_scenario(**STAGING,
+    input_mb=..., bw_mbps=..., latency_s=..., locality_dispatch=...,
+    wave_dt=...)``."""
+    dts = np.linspace(0.5, 60.0, -(-rows // len(STAGING_GRID)))
+    point = [STAGING_GRID[i % len(STAGING_GRID)] for i in range(rows)]
+    wave_dt = [float(dts[i // len(STAGING_GRID)]) for i in range(rows)]
+    mb, bw, lat, loc = (np.array(x) for x in zip(*point))
+    n_dc, n_cl = STAGING["n_dc"], STAGING["n_cloudlets"]
+    template = scenarios.staging_scenario(**STAGING)
+    # the constructor's float64 arithmetic, then float32, as it rounds it
+    waves = np.arange(n_cl) // STAGING["wave"]
+    submit = (waves[None, :] * np.array(wave_dt)[:, None]).astype(np.float32)
+
+    def on(x, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(x), dtype=dtype, device="cuda")
+
+    cls = template.cloudlets.map(lambda x: x.expand((rows,) + tuple(x.shape)))
+    cls = cls.replace(
+        input_mb=on(np.broadcast_to(mb[:, None], (rows, n_cl))),
+        submit_t=on(submit)).map(torch.clone)
+    policy = template.policy.map(lambda x: x.expand(rows).clone()).replace(
+        interdc_bw_mbps=on(bw), locality_dispatch=on(loc, torch.bool))
+    off_diag = on(1 - np.eye(n_dc))
+    topology = Topology(
+        latency_s=on(lat)[:, None, None] * off_diag,
+        bw_mbps=on(bw)[:, None, None].expand(rows, n_dc, n_dc).clone())
+    batch = broadcast_campaign(template, rows, cloudlets=cls, policy=policy,
+                               topology=topology)
+    mb1, bw1, lat1, loc1 = point[1]
+    one = scenarios.staging_scenario(
+        **STAGING, input_mb=mb1, bw_mbps=bw1, latency_s=lat1,
+        locality_dispatch=loc1, wave_dt=wave_dt[1])
+    check(all(torch.equal(a, b) for a, b in zip(
+        scenario_row(batch, 1).leaves(), one.leaves())),
+        "staging campaign row 1 is staging_scenario's")
+    return batch
+
+
+def stream_campaign(rows: int):
+    """``rows`` Fig. 9/10 rows at 10,000 hosts held on the host: a vm
+    policy (space / time shared) x seed grid, each seed drawing the row's
+    cloudlet length scale (0.8-1.2) and CPU price (2-4 per second)."""
+    template = scenarios.fig9_10_scenario(SPACE_SHARED, device="cpu")
+    g = gen(17)
+    scale = (0.8 + 0.4 * torch.rand(rows // 2, generator=g)).repeat_interleave(2)
+    price = (2.0 + 2.0 * torch.rand(rows // 2, generator=g)).repeat_interleave(2)
+    cls = template.cloudlets.map(lambda x: x.expand((rows,) + tuple(x.shape)))
+    cls = cls.replace(length_mi=cls.length_mi * scale[:, None])
+    mkt = template.market.map(lambda x: x.expand((rows,) + tuple(x.shape)))
+    mkt = mkt.replace(cost_per_cpu_sec=price[:, None].clone())
+    policy = template.policy.map(lambda x: x.expand(rows).clone()).replace(
+        vm_policy=torch.tensor([SPACE_SHARED, TIME_SHARED] * (rows // 2),
+                               dtype=torch.int32))
+    return broadcast_campaign(template, rows, cloudlets=cls.map(torch.clone),
+                              market=mkt.map(torch.clone), policy=policy)
+
+
+def stream_reducers(n: int) -> dict:
+    return {"events": SumReducer("n_events"),
+            "finished": SumReducer("n_finished"),
+            "turnaround": MeanReducer("mean_turnaround"),
+            "makespan": HistogramReducer("makespan", 0.0, 20_000.0, bins=64),
+            "best": ArgBestReducer("total_cost"),
+            "cost": ValuesReducer("total_cost", n_slots=n)}
+
+
+def summary_leaves(x) -> list:
+    if isinstance(x, dict):
+        return [t for k in sorted(x) for t in summary_leaves(x[k])]
+    if hasattr(x, "leaves"):
+        return x.leaves()
+    return [x]
+
+
+def mem_mark() -> int:
+    """Reset the card's peak-memory counter; returns the bytes allocated
+    now (what earlier phases still hold)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def peak_gib(base: int) -> float:
+    """GiB of the peak since ``mem_mark`` above what was allocated then."""
+    return (torch.cuda.max_memory_allocated() - base) / 2**30
+
+
+def phase_network(solo: dict) -> int:
+    """Returns the batch steps (= advance-sweep launches) of the phase."""
+    counter = BatchSteps()
+    engine.batch_event_step = counter
+    try:
+        took, t0 = {}, time.perf_counter()
+        net_anchors(solo)
+        took["anchors"] = time.perf_counter() - t0
+
+        # (b) the staging campaign
+        batch = staging_campaign(STAGING_ROWS)
+        name = (f"staging campaign (8 DCs x 125 hosts, 128 VMs, 512 "
+                f"cloudlets in waves of 64; input MB x Mbps x latency x "
+                f"locality, {-(-STAGING_ROWS // len(STAGING_GRID))} wave "
+                "spacings)")
+        base = mem_mark()
+        res, secs = timed(campaign_run, name, batch, "network")
+        res, batch_steps = res
+        over = " (over the 60 s budget: cut rows)" if secs > 60 else ""
+        check(bool((res.n_finished == STAGING["n_cloudlets"]).all()),
+              "staging rows finish all")
+        say("network", f"staging campaign: peak memory {peak_gib(base)!r} "
+            f"GiB above the {base / 2**30!r} GiB held before, "
+            f"wall {secs!r} s{over}, events per row min "
+            f"{int(res.n_events.min())} max {int(res.n_events.max())}")
+        solo_rows("staging campaign", batch, res, (0, 1), phase="network")
+        win = profile_window(batch, STAGING_PROFILED_FROM,
+                             STAGING_PROFILED_STEPS)
+        say("network", (
+            f"staging campaign, batch steps {STAGING_PROFILED_FROM}-"
+            f"{STAGING_PROFILED_FROM + STAGING_PROFILED_STEPS} profiled: "
+            f"{win['launches_per_step']!r} kernel launches per batch step, "
+            f"idle share {win['idle_share']!r} (device {win['device_s']!r} s "
+            f"of {win['wall_s']!r} s)"))
+        del batch, res
+        took["staging campaign"] = (time.perf_counter() - t0
+                                    - sum(took.values()))
+
+        # (c) the streamed Fig. 9/10 campaign, held on the host
+        batch = stream_campaign(STREAM_ROWS)
+        outs = {}
+        for chunk in STREAM_CHUNKS:
+            base = mem_mark()
+            steps0, syncs0 = counter.n, step.host_any.syncs
+            out, secs = timed(run_campaign, batch, chunk_size=chunk,
+                              reduce=stream_reducers(STREAM_ROWS))
+            steps = counter.n - steps0
+            events = int(out["events"])
+            outs[chunk] = out
+            check(int(out["finished"]) == 500 * STREAM_ROWS,
+                  f"streamed chunk {chunk}: every row finishes all")
+            say("network", (
+                f"streamed {STREAM_ROWS} x fig9_10 (10000 hosts) from the "
+                f"host, chunk {chunk}: wall {secs!r} s, {steps} batch steps, "
+                f"{events} row events, {events / secs!r} row events/s, "
+                f"{(step.host_any.syncs - syncs0) / steps!r} host syncs per "
+                f"batch step, peak memory {peak_gib(base)!r} GiB above the "
+                f"{base / 2**30!r} GiB held before; mean turnaround "
+                f"{float(out['turnaround']['mean'])!r} s, makespan q0.5 "
+                f"{float(out['makespan']['q0.5'])!r} s, best total cost "
+                f"{float(out['best']['value'])!r} at row "
+                f"{int(out['best']['index'])}"))
+        a, b = (outs[c] for c in STREAM_CHUNKS)
+        for key in ("events", "finished", "makespan", "best", "cost"):
+            for x, y in zip(summary_leaves(a[key]), summary_leaves(b[key])):
+                check(torch.equal(x, y), f"streamed {key} bitwise across "
+                      "chunk sizes")
+        for k in ("n", "mean", "std"):
+            x, y = float(a["turnaround"][k]), float(b["turnaround"][k])
+            check(abs(x - y) <= 1e-5 * abs(y),
+                  f"streamed mean turnaround {k} within rtol 1e-5")
+        first = batch.map(lambda x: x[:STREAM_CHUNKS[0]])
+        base = mem_mark()
+        res, secs = timed(simulate, first)
+        say("network", (
+            f"materialised {STREAM_CHUNKS[0]} x fig9_10 from the host: wall "
+            f"{secs!r} s, {int(res.n_events.max())} batch steps, "
+            f"{int(res.n_events.sum()) / secs!r} row events/s, peak memory "
+            f"{peak_gib(base)!r} GiB above the {base / 2**30!r} GiB held "
+            "before"))
+        first = first.to("cuda")
+        n = STREAM_CHUNKS[0]
+        index = torch.arange(n, dtype=torch.int32, device="cuda")
+        valid = torch.ones(n, dtype=torch.bool, device="cuda")
+        streamed = run_campaign(first, chunk_size=n,
+                                reduce=stream_reducers(STREAM_ROWS))
+        for key, r in stream_reducers(STREAM_ROWS).items():
+            folded = r.finalize(r.fold(r.init(first, res), first, res, index,
+                                       valid))
+            for x, y in zip(summary_leaves(folded),
+                            summary_leaves(streamed[key])):
+                check(torch.equal(x, y), f"chunk 0's {key} fold bitwise the "
+                      "fold of its materialised result")
+        say("network", f"streamed folds: integer sums, histogram, ArgBest "
+            f"and Values bitwise across chunks of {STREAM_CHUNKS[0]} and "
+            f"{STREAM_CHUNKS[1]}, means within rtol 1e-5; chunk 0's folds "
+            "bitwise the fold of its materialised result")
+        del batch, first, res
+        took["streamed campaign"] = (time.perf_counter() - t0
+                                     - sum(took.values()))
+
+        # (d) successive halving over Table 1, card against CPU
+        steps0 = counter.n
+        out, secs = timed(search.successive_halving,
+                          scenarios.table1_scenario(True), HALVING_SPACE,
+                          generator=gen(5), **HALVING)
+        cpu = search.successive_halving(
+            scenarios.table1_scenario(True, device="cpu"), HALVING_SPACE,
+            generator=gen(5), device="cpu", **HALVING)
+        for i, (r, c) in enumerate(zip(out["rungs"], cpu["rungs"])):
+            check(torch.equal(r["candidates"], c["candidates"]),
+                  f"rung {i} candidates equal the CPU's")
+            x, y = r["values"].cpu().numpy(), c["values"].numpy()
+            check(bool((abs(x - y) <= 1e-5 * abs(y)).all()),
+                  f"rung {i} values within rtol 1e-5 of the CPU's")
+        check(out["best_index"] == cpu["best_index"],
+              "successive halving's winner equals the CPU's")
+        say("network", (
+            f"successive_halving over table1, n0 {HALVING['n0']}, rungs "
+            f"{[int(r['candidates'].shape[0]) for r in out['rungs']]} at "
+            f"horizons {list(HALVING['fidelities'])}: winner "
+            f"{out['best_index']} ({ {k: v.item() for k, v in out['best_params'].items()} }), "
+            f"mean turnaround {float(out['best_value'])!r} s, equal to the "
+            f"CPU's; {counter.n - steps0} batch steps, wall {secs!r} s"))
+        took["successive halving"] = (time.perf_counter() - t0
+                                      - sum(took.values()))
+        say("timing", "network and campaigns: " + ", ".join(
+            f"{k} {v:.1f} s" for k, v in took.items()))
+        return counter.n + win["steps"]
+    finally:
+        engine.batch_event_step = counter.inner
 
 
 # ------------------------------------------------------------- 6. serving
@@ -1374,12 +1765,15 @@ def main() -> None:
     steps += phase_extensions(solo, (batch, batch_res))
     del batch, batch_res
     took["extensions"] = time.perf_counter() - t0 - sum(took.values())
+    steps += phase_network(solo)
+    took["network and campaigns"] = (time.perf_counter() - t0
+                                     - sum(took.values()))
     launches = vm_update.advance_sweep_cuda.launches
     check(launches > 0, "the main path launched the advance-sweep kernel")
     check(launches == steps,
           f"one advance-sweep launch per batch step ({launches} vs {steps})")
     say("proof", f"advance_sweep kernel launched {launches} times over "
-        f"phases 3-4b, one per batch step")
+        f"phases 3-4c, one per batch step")
 
     flash_launches = phase_serving()
     took["serving"] = time.perf_counter() - t0 - sum(took.values())

@@ -4,8 +4,8 @@ the CPU.
     PYTHONPATH=src python scripts/count_engine_ops.py
 
 Steps a two-row campaign of each engine path (Fig. 9/10; reliability at
-Fig. 9/10's VMs and cloudlets over a small fleet; autoscale; consolidation)
-through ``step.batch_event_step`` for up to 60 batch steps and counts the
+Fig. 9/10's VMs and cloudlets over a small fleet; autoscale; consolidation;
+staging over an 8-DC topology with locality dispatch) through ``step.batch_event_step`` for up to 60 batch steps and counts the
 aten operators each step dispatches (``TorchDispatchMode``): minimum,
 median and maximum.  A step that runs the provisioning loop dispatches the
 maximum.  These are counts, not times: on a card most operators are one
@@ -61,6 +61,10 @@ def main() -> None:
         "autoscale": scenarios.autoscale_scenario(
             torch.Generator().manual_seed(0), device="cpu"),
         "consolidation": scenarios.consolidation_scenario(device="cpu"),
+        "staging": scenarios.staging_scenario(
+            n_dc=8, hosts_per_dc=10, vms_per_dc=16, n_cloudlets=512, wave=64,
+            input_mb=4096.0, locality_dispatch=True, wave_dt=1.0,
+            device="cpu"),
     }
     for name, scn in runs.items():
         c = sorted(per_step(scn))

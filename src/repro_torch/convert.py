@@ -8,8 +8,7 @@ JAX: a JAX array converts itself.  Workloads and outage schedules drawn with
 ``jax.random`` (the reference's generated scenarios) come across as data;
 the port never redraws them.  Each of the scenario's extra instruments maps
 to the port's instrument of the same ``name``, its tensor fields copied; a
-name the port lacks raises ``NotImplementedError``, as does a topology (from
-the port's ``Scenario``).  ``params_from_arrays`` maps a parameter (or cache)
+name the port lacks raises ``NotImplementedError``.  ``params_from_arrays`` maps a parameter (or cache)
 tree of nested dicts leaf by leaf; ``opt_state_from_arrays`` carries an
 AdamW state of either package (``mu``, ``nu``, a 0-d int32 ``step``).
 """
@@ -21,7 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import step
-from repro_torch.core.energy import PowerModel
+from repro_torch.core.energy import PowerModel, Topology
 from repro_torch.core.entities import (
     Cloudlets, Hosts, Market, Outages, Policy, Scenario, VMRequests,
     resolve_device)
@@ -62,7 +61,8 @@ def scenario_from_arrays(obj, device=None) -> Scenario:
         market=_tree(Market, obj.market, dev),
         policy=_tree(Policy, obj.policy, dev),
         power=None if obj.power is None else _tree(PowerModel, obj.power, dev),
-        topology=obj.topology,
+        topology=(None if obj.topology is None
+                  else _tree(Topology, obj.topology, dev)),
         outages=(None if obj.outages is None
                  else _tree(Outages, obj.outages, dev)),
         instruments=tuple(_instrument(i, dev)

@@ -20,7 +20,7 @@ from repro_torch.core.entities import (
     finished_mask,
     resolve_device,
 )
-from repro_torch.core.energy import PowerModel
+from repro_torch.core.energy import PowerModel, Topology
 from repro_torch.core.engine import (
     History,
     init_state,
@@ -41,13 +41,27 @@ from repro_torch.core.step import (
     UtilizationTimelineInstrument,
     batch_event_step,
 )
-from repro_torch.core.campaign import broadcast_campaign, stack_scenarios
+from repro_torch.core.campaign import (
+    broadcast_campaign,
+    run_campaign,
+    stack_scenarios,
+)
+from repro_torch.core.reducers import (
+    ArgBestReducer,
+    CampaignReducer,
+    HistogramReducer,
+    MeanReducer,
+    SumReducer,
+    ValuesReducer,
+)
 from repro_torch.core import (
     energy,
     kvserve,
     policies,
     provision,
+    reducers,
     scenarios,
+    search,
     segments,
     step,
     workload,
@@ -56,14 +70,17 @@ from repro_torch.core import (
 __all__ = [
     "INF", "SPACE_SHARED", "TIME_SHARED",
     "Cloudlets", "Hosts", "Market", "Outages", "Policy", "PowerModel",
-    "Scenario", "SimResult", "SimState", "TensorTree", "VMRequests",
+    "Scenario", "SimResult", "SimState", "TensorTree", "Topology",
+    "VMRequests",
     "finished_mask", "resolve_device", "History",
     "AutoscaleInstrument", "Instrument", "MigrationInstrument",
     "ReliabilityInstrument", "StepEvent", "TraceInstrument",
     "UtilizationTimelineInstrument",
     "batch_event_step", "init_state", "is_batched", "scenario_row",
     "simulate", "simulate_history", "simulate_instrumented", "simulate_trace",
-    "broadcast_campaign", "stack_scenarios",
-    "energy", "kvserve", "policies", "provision", "scenarios", "segments",
-    "step", "workload",
+    "broadcast_campaign", "run_campaign", "stack_scenarios",
+    "ArgBestReducer", "CampaignReducer", "HistogramReducer", "MeanReducer",
+    "SumReducer", "ValuesReducer",
+    "energy", "kvserve", "policies", "provision", "reducers", "scenarios",
+    "search", "segments", "step", "workload",
 ]

@@ -1,9 +1,20 @@
-"""Campaigns: many scenarios as one batch-major run (DESIGN.md §5, §10).
+"""Campaigns: many scenarios as one batch-major run, streamed in chunks
+(the port of ``repro.core.campaign``, DESIGN.md §10, §12).
 
-The port of ``stack_scenarios`` and ``broadcast_campaign`` from
-``repro.core.campaign``.  ``engine.simulate`` runs a stacked campaign
-natively, each row bitwise its solo run.  Chunking, reducers and sharding
-belong to a later slice.
+``engine.simulate`` runs a stacked campaign natively, each row bitwise its
+solo run.  ``run_campaign(batched, chunk_size=...)`` slices the campaign
+axis into fixed-size chunks (the trailing chunk padded by repeating the
+last row, then trimmed), so working memory is one chunk's; with
+``reduce=`` each chunk's result folds into fixed-shape
+``reducers.CampaignReducer`` carries and is dropped, so the ``[N, ...]``
+result is never assembled and a sweep may outgrow the card's memory (keep
+the stacked campaign on the host: each chunk moves to ``device`` when it
+runs).  ``core/search.py`` drives it for policy search.
+
+The reference's ``mesh`` / ``axis`` sharding (and ``run_campaign_sharded``)
+waits for ``dist/``; ``lower_chunk`` reads XLA's HLO and ``donate`` hands
+buffers to XLA, neither of which has a counterpart here: a chunk's tensors
+are freed when the chunk goes out of scope.
 """
 from __future__ import annotations
 
@@ -12,7 +23,10 @@ import dataclasses
 import torch
 from torch import Tensor
 
-from repro_torch.core.entities import Scenario, TensorTree
+from repro_torch.core.engine import simulate
+from repro_torch.core.entities import (
+    Scenario, SimResult, TensorTree, resolve_device)
+from repro_torch.core.reducers import CampaignReducer
 
 
 def _stack(items: list, path: str):
@@ -78,3 +92,82 @@ def broadcast_campaign(template: Scenario, n: int, **overrides) -> Scenario:
                     f"shape {tuple(leaf.shape)}; every leaf needs leading "
                     f"dim {n}")
     return batched.replace(**overrides)
+
+
+def _campaign_len(batched: Scenario) -> int:
+    return batched.policy.horizon.shape[0]
+
+
+def _chunk(batched: Scenario, lo: int, size: int) -> Scenario:
+    """Rows ``lo .. lo + size`` of the campaign, padded to ``size`` rows by
+    repeating the last row."""
+    def cut(x: Tensor) -> Tensor:
+        c = x[lo:lo + size]
+        short = size - c.shape[0]
+        if short:
+            c = torch.cat([c, x[-1:].expand((short,) + tuple(x.shape[1:]))])
+        return c
+    return batched.map(cut)
+
+
+def _normalize_reduce(reduce):
+    """-> (keys | None, tuple of reducers, single)."""
+    if isinstance(reduce, CampaignReducer):
+        return None, (reduce,), True
+    if isinstance(reduce, dict):
+        for k, r in reduce.items():
+            if not isinstance(r, CampaignReducer):
+                raise TypeError(f"reduce[{k!r}] is not a CampaignReducer")
+        return tuple(reduce), tuple(reduce.values()), False
+    raise TypeError(
+        f"reduce must be a CampaignReducer or a dict of them, got {reduce!r}")
+
+
+def _run_reduced(batched: Scenario, chunk: int, reduce, dev):
+    keys, reducers, single = _normalize_reduce(reduce)
+    n = _campaign_len(batched)
+    carries = None
+    for lo in range(0, n, chunk):
+        scn = _chunk(batched, lo, chunk).to(dev)
+        res = simulate(scn, device=dev)
+        if carries is None:
+            carries = tuple(r.init(scn, res) for r in reducers)
+        index = lo + torch.arange(chunk, dtype=torch.int32, device=dev)
+        valid = index < n
+        carries = tuple(r.fold(c, scn, res, index, valid)
+                        for r, c in zip(reducers, carries))
+        del scn, res
+    outs = tuple(r.finalize(c) for r, c in zip(reducers, carries))
+    if keys is not None:
+        return dict(zip(keys, outs))
+    return outs[0] if single else outs
+
+
+def run_campaign(batched: Scenario, chunk_size: int | None = None,
+                 reduce=None, device=None):
+    """Run a stacked campaign; the front door for every sweep size.
+
+    ``chunk_size`` bounds working memory: the campaign axis runs in chunks
+    of that many rows (the trailing chunk padded by repeating the last row,
+    then trimmed), each on ``device`` (``None``: the GPU).  Every row is
+    bitwise its solo run whatever the chunking.  ``reduce`` (a
+    ``CampaignReducer`` or a dict of them) folds each chunk's result into
+    fixed-shape carries instead and returns only the finalized summary (a
+    dict mirroring ``reduce``); integer folds, ``ArgBestReducer`` and
+    ``ValuesReducer`` are the same for every chunk size.  The reference's
+    ``donate``, ``mesh`` and ``axis`` have no counterpart on one card (see
+    the module docstring).
+    """
+    if chunk_size is not None and chunk_size <= 0:
+        raise ValueError(f"chunk_size must be positive, got {chunk_size}")
+    dev = resolve_device(device)
+    n = _campaign_len(batched)
+    if reduce is not None:
+        return _run_reduced(batched, chunk_size or n, reduce, dev)
+    if chunk_size is None:
+        return simulate(batched, device=dev)
+    parts = [simulate(_chunk(batched, lo, chunk_size), device=dev)
+             for lo in range(0, n, chunk_size)]
+    return SimResult(**{
+        f.name: torch.cat([getattr(p, f.name) for p in parts])[:n]
+        for f in dataclasses.fields(SimResult)})

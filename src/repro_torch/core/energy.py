@@ -5,12 +5,16 @@ piecewise-constant event intervals by the default ``EnergyInstrument``:
 
     P(host) = P_idle + (P_peak - P_idle) * utilization
 
-``Topology`` and ``migration_delay_matrix`` belong to the network slice.
+``Topology`` is the inter-DC link model (DESIGN.md §13): a latency and
+bandwidth matrix per scenario, whose bandwidth every inter-DC byte draws
+from through the ``SimState.link_busy`` / ``link_share`` ledger;
+``migration_delay_matrix`` prices an uncontended move on it.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 from torch import Tensor
 
@@ -38,6 +42,48 @@ class PowerModel(TensorTree):
             watts_peak=torch.full((n_dc,), peak, dtype=torch.float32, device=dev),
             gate_idle=torch.full((n_dc,), gate_idle, dtype=torch.bool, device=dev),
         )
+
+
+@dataclass(frozen=True)
+class Topology(TensorTree):
+    """Inter-DC link parameters, ``[D, D]`` each (``[B, D, D]`` in the
+    engine; the diagonal is intra-DC)."""
+
+    latency_s: Tensor
+    bw_mbps: Tensor
+
+    def fair_share(self, busy: Tensor) -> Tensor:
+        """Mbps each active transfer of a link receives: ``bw / max(busy,
+        1)``, a true division, so a lone transfer gets exactly the link's
+        bandwidth and the ledger's change test (``!=``) rounds alike on
+        every device."""
+        return self.bw_mbps / busy.clamp_min(1).float()
+
+    @staticmethod
+    def uniform(n_dc: int, latency_s: float = 0.05, bw_mbps: float = 100.0,
+                device=None) -> "Topology":
+        dev = resolve_device(device)
+        lat = torch.full((n_dc, n_dc), latency_s, dtype=torch.float32,
+                         device=dev)
+        lat = lat * (1 - torch.eye(n_dc, device=dev))
+        bw = torch.full((n_dc, n_dc), bw_mbps, dtype=torch.float32, device=dev)
+        return Topology(latency_s=lat, bw_mbps=bw)
+
+    @staticmethod
+    def from_coordinates(coords_km: np.ndarray, bw_mbps: float = 100.0,
+                         device=None) -> "Topology":
+        """BRITE-flavoured: latency ~ distance / 0.6c, computed on the host
+        in numpy, then moved to ``device``."""
+        coords_km = np.asarray(coords_km)
+        d = np.linalg.norm(coords_km[:, None, :] - coords_km[None, :, :],
+                           axis=-1)
+        lat = (d * 1e3 / (0.6 * 3e8)).astype(np.float32)
+        n = coords_km.shape[0]
+        dev = resolve_device(device)
+        return Topology(
+            latency_s=torch.from_numpy(lat).to(dev),
+            bw_mbps=torch.full((n, n), bw_mbps, dtype=torch.float32,
+                               device=dev))
 
 
 def host_granted_mips(scn: Scenario, state: SimState,
@@ -97,3 +143,22 @@ def power_draw(scn: Scenario, state: SimState,
         0.0,
     )
     return row_sum(watts)
+
+
+def migration_delay_matrix(scn: Scenario, image_mb, policy=None) -> Tensor:
+    """``[D, D]`` (``[B, D, D]`` for a campaign) seconds to move a VM image
+    between DC pairs: ``migration_fixed_s + latency + image / bw``, the
+    uncontended delay the engine charges when a migration commits.
+    ``policy`` defaults to ``scn.policy``; ``image_mb`` is a scalar or one
+    value per campaign row."""
+    topo: Topology = scn.topology
+    pol = scn.policy if policy is None else policy
+    lat = topo.latency_s
+
+    def per_row(x) -> Tensor:
+        """A scalar or a ``[B]`` value, shaped to broadcast over ``lat``."""
+        x = torch.as_tensor(x, dtype=torch.float32, device=lat.device)
+        return x.reshape(x.shape + (1,) * (lat.dim() - x.dim()))
+
+    return (per_row(pol.migration_fixed_s) + lat
+            + per_row(image_mb) / topo.bw_mbps.clamp_min(1e-6))

@@ -45,6 +45,14 @@ def init_state(scn: Scenario) -> SimState:
         return torch.full(shape, value, dtype=dtype, device=dev)
 
     exists = hosts.exists
+    ready0 = torch.where(cls.vm >= 0, ready_times(scn), INF)
+    if scn.topology is not None:
+        # network stage-ins wait for the transfer phase to open them on the
+        # link ledger; an idle ledger grants each link its full bandwidth
+        ready0 = torch.where(cls.input_dc >= 0, INF, ready0)
+        link_share0 = scn.topology.bw_mbps.float().clone()
+    else:
+        link_share0 = zeros(B, D, D)
     return SimState(
         t=zeros(B),
         step=zeros(B, dtype=i32),
@@ -66,7 +74,7 @@ def init_state(scn: Scenario) -> SimState:
         free_cores=torch.where(exists, hosts.cores.float(), 0.0),
         free_kv=torch.where(exists, hosts.kv_blocks, 0.0),
         cl_vm=cls.vm.to(i32).clone(),
-        cl_ready_t=torch.where(cls.vm >= 0, ready_times(scn), INF),
+        cl_ready_t=ready0,
         cl_admitted=zeros(B, C, dtype=torch.bool),
         cl_kv=zeros(B, C),
         rem_mi=torch.where(cls.exists, cls.length_mi, 0.0),
@@ -84,6 +92,15 @@ def init_state(scn: Scenario) -> SimState:
         energy_j=zeros(B, D),
         vm_downtime=zeros(B, V),
         n_evacuations=zeros(B, dtype=i32),
+        link_busy=zeros(B, D, D, dtype=i32),
+        link_share=link_share0,
+        vm_xfer_src=full(-1, B, V, dtype=i32),
+        vm_xfer_dst=full(-1, B, V, dtype=i32),
+        vm_xfer_rem=zeros(B, V),
+        vm_xfer_share=zeros(B, V),
+        cl_xfer_dst=full(-1, B, C, dtype=i32),
+        cl_xfer_rem=zeros(B, C),
+        cl_xfer_share=zeros(B, C),
     )
 
 

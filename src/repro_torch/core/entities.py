@@ -225,14 +225,15 @@ class Policy(TensorTree):
 class Scenario(TensorTree):
     """A complete experiment: infrastructure + workload + policy + prices.
 
-    ``power`` (an ``energy.PowerModel``) and ``outages`` (an ``Outages``
-    schedule, usually from ``workload.host_outages``) are optional, as in the
-    reference.  ``instruments`` holds extra ``step.Instrument``s threaded
-    after the defaults; their tensor fields are campaign data (stacked with
-    the scenario).  ``topology`` belongs to a later slice of the port: a
-    scenario carrying one raises ``NotImplementedError``.  ``max_steps`` is a
-    static Python int (0: derived bound).  The reference's ``sweep_impl`` has
-    no counterpart: the advance sweep is routed by device.
+    ``power`` (an ``energy.PowerModel``), ``topology`` (an
+    ``energy.Topology``: inter-DC links with contended transfers, DESIGN.md
+    §13) and ``outages`` (an ``Outages`` schedule, usually from
+    ``workload.host_outages``) are optional, as in the reference.
+    ``instruments`` holds extra ``step.Instrument``s threaded after the
+    defaults; their tensor fields are campaign data (stacked with the
+    scenario).  ``max_steps`` is a static Python int (0: derived bound).
+    The reference's ``sweep_impl`` has no counterpart: the advance sweep is
+    routed by device.
     """
 
     hosts: Hosts
@@ -241,27 +242,18 @@ class Scenario(TensorTree):
     market: Market
     policy: Policy
     power: object = None        # energy.PowerModel | None
-    topology: object = None     # not ported yet
+    topology: object = None     # energy.Topology | None
     outages: Outages | None = None
     instruments: tuple = ()     # extra step.Instrument observables
     max_steps: int = 0
 
     def __post_init__(self):
-        if self.topology is not None:
-            raise NotImplementedError(
-                "Scenario.topology (energy.Topology and the inter-DC link "
-                "ledger, DESIGN.md §13) is not ported to repro_torch yet"
-            )
         object.__setattr__(self, "instruments", tuple(self.instruments))
 
 
 @dataclass(frozen=True)
 class SimState(TensorTree):
-    """Everything the event loop carries, batch-major (``[B, ...]``).
-
-    The reference's transfer-ledger fields (``link_*``, ``vm_xfer_*``,
-    ``cl_xfer_*``) belong to the topology slice and are not carried yet.
-    """
+    """Everything the event loop carries, batch-major (``[B, ...]``)."""
 
     t: Tensor             # [B] f32 simulation clock
     step: Tensor          # [B] i32 event-batch counter
@@ -300,6 +292,17 @@ class SimState(TensorTree):
     energy_j: Tensor      # [B,D] f32
     vm_downtime: Tensor   # [B,V] f32
     n_evacuations: Tensor  # [B] i32
+    # the transfer ledger (idle without Scenario.topology, DESIGN.md §13)
+    link_busy: Tensor     # [B,D,D] i32 active transfers per directed link
+    link_share: Tensor    # [B,D,D] f32 Mbps a transfer got at the last
+                          #   recompute (the occupancy-change detector)
+    vm_xfer_src: Tensor   # [B,V] i32 source DC of the image in flight (-1)
+    vm_xfer_dst: Tensor   # [B,V] i32 its destination DC (pinned at commit)
+    vm_xfer_rem: Tensor   # [B,V] f32 MB left as of the last recompute
+    vm_xfer_share: Tensor  # [B,V] f32 Mbps it receives
+    cl_xfer_dst: Tensor   # [B,C] i32 destination DC of the stage-in (-1)
+    cl_xfer_rem: Tensor   # [B,C] f32 MB left as of the last recompute
+    cl_xfer_share: Tensor  # [B,C] f32 Mbps it receives
 
 
 @dataclass(frozen=True)

@@ -1,13 +1,21 @@
-"""VM provisioning, federated placement, broker dispatch, host failures
-and live migration, batch-major.
+"""VM provisioning, federated placement, broker dispatch, host failures,
+live migration and inter-DC transfers, batch-major.
 
-The port of ``repro.core.provision`` without its topology branches: VMs are
-placed in request order on the first host (or best fit) whose
-RAM/storage/bandwidth (and, when core-reserving, cores) fit, in the origin
-datacenter first and, with federation on, in the least-loaded feasible peer
-(paper §4, Table 1).  ``apply_outages`` commits host failure/repair edges
-(DESIGN.md §9), ``release_pool_vms`` the autoscaler's scale-down (§7) and
-``live_migrate`` one coordinator move per row (§8).
+The port of ``repro.core.provision``: VMs are placed in request order on the
+first host (or best fit) whose RAM/storage/bandwidth (and, when
+core-reserving, cores) fit, in the origin datacenter first and, with
+federation on, in the least-loaded feasible peer (paper §4, Table 1).
+``apply_outages`` commits host failure/repair edges (DESIGN.md §9),
+``release_pool_vms`` the autoscaler's scale-down (§7) and ``live_migrate``
+one coordinator move per row (§8).
+
+Under a ``Scenario.topology`` (DESIGN.md §13) every inter-DC byte draws
+fair-share bandwidth from the link ledger (``SimState.link_busy`` /
+``link_share``): migrations open an image transfer on their link,
+network stage-ins open in ``transfer_phase``, which also re-times the
+transfers of links whose occupancy changed, and ``settle_transfers``
+closes them.  The ledger's counts are integer scatters into ``[B, D, D]``
+(exact in any order); no float of the ledger is built by a scatter.
 
 ``provision_due_vms`` keeps the reference's sequential order over VM rows,
 which is semantic: it is a Python loop over ``v`` whose body is vectorised
@@ -144,12 +152,61 @@ def apply_outages(scn: Scenario, state: SimState) -> SimState:
     )
 
 
+def _link(scn: Scenario, src: Tensor, dst: Tensor) -> Tensor:
+    """Flat ``[B, ...]`` index ``s * D + d`` of links into a row's
+    ``[D, D]`` ledger (``src``, ``dst`` already clipped into range)."""
+    return src.long() * scn.hosts.n_dc + dst.long()
+
+
+def _at_link(x: Tensor, link: Tensor) -> Tensor:
+    """``x[b, s, d]`` of a ``[B, D, D]`` tensor at ``[B, N]`` flat links."""
+    return take(x.flatten(1), link)
+
+
+def _add_links(busy: Tensor, link: Tensor, count: Tensor) -> Tensor:
+    """``busy`` [B, D, D] i32 plus ``count`` [B, N] added at ``link``
+    [B, N] (repeated links sum; an integer sum is exact in any order)."""
+    B, D, _ = busy.shape
+    rows = torch.arange(B, device=busy.device).unsqueeze(-1) * (D * D)
+    flat = busy.reshape(-1).clone()
+    segments.scatter_add_(flat, (link + rows).reshape(-1),
+                          count.to(busy.dtype).reshape(-1))
+    return flat.view(B, D, D)
+
+
 def settle_transfers(scn: Scenario, state: SimState) -> SimState:
-    """Close finished link transfers.  Only the no-topology path is ported."""
+    """Close finished or cancelled transfers and free their link slots.
+
+    Runs at the top of every event (topology only), before the instruments
+    and phases: a transfer closes when its completion time has come (``<=
+    t``) or was reset to INF in flight (the VM was evicted or released), so
+    the same VM may open a fresh transfer in this event.  Bitwise a no-op
+    when nothing closes.
+    """
     if scn.topology is None:
         return state
-    raise NotImplementedError(
-        "settle_transfers is not ported to repro_torch yet")
+    D = scn.hosts.n_dc
+    t = state.t[:, None]
+    vm_close = (state.vm_xfer_src >= 0) & (
+        (state.vm_avail_t <= t) | (state.vm_avail_t >= INF / 2))
+    cl_close = (state.cl_xfer_dst >= 0) & (
+        (state.cl_ready_t <= t) | (state.cl_ready_t >= INF / 2))
+    vm_link = _link(scn, state.vm_xfer_src.clamp(0, D - 1),
+                    state.vm_xfer_dst.clamp(0, D - 1))
+    cl_link = _link(scn, scn.cloudlets.input_dc.clamp(0, D - 1),
+                    state.cl_xfer_dst.clamp(0, D - 1))
+    busy = _add_links(state.link_busy, torch.cat([vm_link, cl_link], -1),
+                      -torch.cat([vm_close, cl_close], -1).int())
+    return state.replace(
+        link_busy=busy,
+        vm_xfer_src=torch.where(vm_close, -1, state.vm_xfer_src),
+        vm_xfer_dst=torch.where(vm_close, -1, state.vm_xfer_dst),
+        vm_xfer_rem=torch.where(vm_close, 0.0, state.vm_xfer_rem),
+        vm_xfer_share=torch.where(vm_close, 0.0, state.vm_xfer_share),
+        cl_xfer_dst=torch.where(cl_close, -1, state.cl_xfer_dst),
+        cl_xfer_rem=torch.where(cl_close, 0.0, state.cl_xfer_rem),
+        cl_xfer_share=torch.where(cl_close, 0.0, state.cl_xfer_share),
+    )
 
 
 def _vm_need(x: Tensor, v: int | Tensor) -> Tensor:
@@ -196,6 +253,10 @@ _PLACEMENT_FIELDS = (
     "vm_migrations", "free_ram", "free_storage", "free_bw", "free_cores",
     "free_kv", "ram_cost", "storage_cost", "bw_cost",
 )
+# ... and under a topology, the image transfers it opens on the ledger
+_LEDGER_FIELDS = (
+    "link_busy", "vm_xfer_src", "vm_xfer_dst", "vm_xfer_rem", "vm_xfer_share",
+)
 
 
 def provision_due_vms(scn: Scenario, state: SimState) -> tuple[SimState, Tensor]:
@@ -206,16 +267,24 @@ def provision_due_vms(scn: Scenario, state: SimState) -> tuple[SimState, Tensor]
     scenario row, then datacenter first (origin slot < peer slot by sensed
     load, federation only < origin stack) and host within it (first fit or
     best fit by leftover RAM; stacking is least-loaded under federation).
+
+    Under a topology, peers are also ranked by their latency from the
+    origin (normalised over the finite latencies: a disconnected peer gets
+    a flat penalty and stays a last resort), a migrated image takes the
+    fair share of its link with one more transfer on it, and the transfer
+    opens on the ledger.
     """
-    hosts, vms, pol, mkt = scn.hosts, scn.vms, scn.policy, scn.market
+    hosts, vms, pol, mkt, topo = (scn.hosts, scn.vms, scn.policy,
+                                  scn.market, scn.topology)
     B, D, H = hosts.cores.shape
     dev = hosts.cores.device
     rows = torch.arange(B, device=dev)
     dcs = torch.arange(D, device=dev)
     first_fit = torch.arange(H, device=dev).float()
     big = 1e9
+    written = _PLACEMENT_FIELDS + (() if topo is None else _LEDGER_FIELDS)
     st = state.replace(**{
-        name: getattr(state, name).clone() for name in _PLACEMENT_FIELDS})
+        name: getattr(state, name).clone() for name in written})
     n_placed = torch.zeros(B, dtype=torch.int32, device=dev)
 
     for v in range(vms.n_vms):
@@ -233,12 +302,20 @@ def provision_due_vms(scn: Scenario, state: SimState) -> tuple[SimState, Tensor]
         is_origin = dcs == origin[:, None]
         dc_slot = slot_ok.any(-1)
         dc_stack = stack_ok.any(-1)
+        peer_score = st.sensed_load
+        if topo is not None:
+            # INF/INF would poison the whole key row with NaN
+            lat = topo.latency_s[rows, origin.long()]                 # [B,D]
+            lat_ok = torch.isfinite(lat)
+            lat_max = torch.where(lat_ok, lat, 0.0).amax(-1, keepdim=True)
+            peer_score = peer_score + torch.where(
+                lat_ok, lat / lat_max.clamp_min(1e-9), 2.0)
         dc_key = torch.where(
             is_origin & dc_slot,
             0.0,
             torch.where(
                 dc_slot & pol.federation[:, None] & ~is_origin,
-                1.0 + st.sensed_load + dcs.float() * 1e-4,
+                1.0 + peer_score + dcs.float() * 1e-4,
                 torch.where(is_origin & dc_stack, 3.0, big),
             ),
         )
@@ -258,8 +335,16 @@ def provision_due_vms(scn: Scenario, state: SimState) -> tuple[SimState, Tensor]
         w = found.float()
         dsafe = torch.where(found, dsel, 0)
         hsafe = torch.where(found, hsel, 0)
-        delay = pol.migration_fixed_s + vms.image_mb[:, v] / (
-            pol.interdc_bw_mbps.clamp_min(1e-6))
+        if topo is not None:
+            # fair share of the (origin, dsafe) link with this image on it:
+            # an idle link's full bandwidth, bitwise the flat divisor
+            link = (rows, origin.long(), dsafe)
+            share0 = topo.bw_mbps[link] / (st.link_busy[link] + 1).float()
+            delay = (pol.migration_fixed_s + topo.latency_s[link]
+                     + vms.image_mb[:, v] / share0.clamp_min(1e-6))
+        else:
+            delay = pol.migration_fixed_s + vms.image_mb[:, v] / (
+                pol.interdc_bw_mbps.clamp_min(1e-6))
         boot = torch.where(vms.pool[:, v], pol.migration_fixed_s, 0.0)
 
         st.vm_host[:, v] = torch.where(found, hsel.int(), st.vm_host[:, v])
@@ -285,6 +370,17 @@ def provision_due_vms(scn: Scenario, state: SimState) -> tuple[SimState, Tensor]
             w * vms.storage_mb[:, v] * mkt.cost_per_storage_mb[rows, dsafe])
         st.bw_cost[rows, dsafe] += (
             migrated.float() * vms.image_mb[:, v] * mkt.cost_per_bw_mb[rows, dsafe])
+        if topo is not None:
+            # open the image transfer on the link ledger
+            st.link_busy[link] += migrated.int()
+            st.vm_xfer_src[:, v] = torch.where(migrated, origin,
+                                               st.vm_xfer_src[:, v])
+            st.vm_xfer_dst[:, v] = torch.where(migrated, dsafe.int(),
+                                               st.vm_xfer_dst[:, v])
+            st.vm_xfer_rem[:, v] = torch.where(migrated, vms.image_mb[:, v],
+                                               st.vm_xfer_rem[:, v])
+            st.vm_xfer_share[:, v] = torch.where(migrated, share0,
+                                                 st.vm_xfer_share[:, v])
         n_placed += found.int()
     return st, n_placed
 
@@ -300,8 +396,10 @@ def live_migrate(scn: Scenario, state: SimState, v: Tensor, dst_dc: Tensor,
     ``Policy.best_fit``; ``host_ok`` [B, D, H] narrows the landing hosts),
     and the VM is unavailable until ``t + migration_fixed_s + image/bw``
     through ``vm_avail_t``.  Its cloudlets keep their progress; the image is
-    billed on the destination's bandwidth meter.  Returns ``(state',
-    [B] moved)``.  (The reference's topology branch is not ported.)
+    billed on the destination's bandwidth meter.  Under a topology the
+    image takes the fair share of its ``(src, dst)`` link with one more
+    transfer on it, plus the link's latency, and opens on the ledger.
+    Returns ``(state', [B] moved)``.
     """
     hosts, vms, pol, mkt = scn.hosts, scn.vms, scn.policy, scn.market
     B, D, H = hosts.cores.shape
@@ -330,7 +428,28 @@ def live_migrate(scn: Scenario, state: SimState, v: Tensor, dst_dc: Tensor,
     dsafe = torch.where(found, dst_dc, 0)
     hsafe = torch.where(found, h, 0)
     image = take(vms.image_mb, v[:, None])[:, 0]
-    delay = pol.migration_fixed_s + image / pol.interdc_bw_mbps.clamp_min(1e-6)
+    ledger = {}
+    if scn.topology is not None:
+        topo = scn.topology
+        link = (rows, src_d.long(), dsafe)
+        share0 = topo.bw_mbps[link] / (state.link_busy[link] + 1).float()
+        delay = (pol.migration_fixed_s + topo.latency_s[link]
+                 + image / share0.clamp_min(1e-6))
+        busy = state.link_busy.clone()
+        busy[link] += found.int()
+        ledger = dict(
+            link_busy=busy,
+            vm_xfer_src=torch.where(moving, src_d[:, None].int(),
+                                    state.vm_xfer_src),
+            vm_xfer_dst=torch.where(moving, dsafe[:, None].int(),
+                                    state.vm_xfer_dst),
+            vm_xfer_rem=torch.where(moving, image[:, None], state.vm_xfer_rem),
+            vm_xfer_share=torch.where(moving, share0[:, None],
+                                      state.vm_xfer_share),
+        )
+    else:
+        delay = pol.migration_fixed_s + image / pol.interdc_bw_mbps.clamp_min(
+            1e-6)
     at = (rows, dsafe, hsafe)
 
     def occupy(free: Tensor, need: Tensor) -> Tensor:
@@ -353,6 +472,7 @@ def live_migrate(scn: Scenario, state: SimState, v: Tensor, dst_dc: Tensor,
         free_cores=occupy(state.free_cores, vms.cores),
         free_kv=occupy(state.free_kv, vms.kv_blocks),
         bw_cost=bw_cost,
+        **ledger,
     )
     return state, found
 
@@ -366,10 +486,49 @@ def eligible_dispatch_vms(scn: Scenario, state: SimState) -> Tensor:
     )
 
 
+def _locality_choice(scn: Scenario, state: SimState, eligible: Tensor,
+                     queue_s: Tensor) -> Tensor:
+    """[B, C] the VM of least ``queue seconds + estimated stage-in
+    seconds`` for each cloudlet (``Policy.locality_dispatch``), the
+    estimate taking the link's fair share with one more transfer on it.
+
+    The ``[B, C, V]`` score is built in place in two temporaries (256 MiB
+    each at 1,024 x 512 x 128): per-(source DC, VM) shares and latencies
+    ``[B, D, V]`` first, gathered along the cloudlet's source DC.
+    """
+    topo, cls, vms = scn.topology, scn.cloudlets, scn.vms
+    B, C = cls.input_dc.shape
+    V, D = vms.n_vms, scn.hosts.n_dc
+    vdc = state.vm_dc.clamp(0, D - 1).long()                          # [B,V]
+    at = vdc[:, None, :].expand(B, D, V)
+    share = (topo.bw_mbps.gather(2, at)
+             / (state.link_busy.gather(2, at) + 1).float())           # [B,D,V]
+    src = cls.input_dc.clamp(0, D - 1).long()[:, :, None].expand(B, C, V)
+    est = share.gather(1, src).clamp_min_(1e-6)                       # [B,C,V]
+    torch.div(cls.input_mb[:, :, None], est, out=est)
+    score = topo.latency_s.gather(2, at).gather(1, src)               # [B,C,V]
+    est.add_(score)
+    # VM-local stage-in for rows without an input DC, into the second buffer
+    torch.div(cls.input_mb[:, :, None],
+              vms.bw_mbps.clamp_min(1e-6)[:, None, :], out=score)
+    torch.where((cls.input_dc >= 0)[:, :, None], est, score, out=score)
+    del est
+    score.add_(queue_s[:, None, :])
+    score.masked_fill_(~eligible[:, None, :], INF)
+    return score.argmin(-1)
+
+
 def dispatch_cloudlets(scn: Scenario, state: SimState) -> SimState:
     """Broker dispatch of submitted service-routed rows (``vm == -1``): the
     k-th new arrival of an event takes the k-th least-loaded eligible VM
-    (mod the eligible count); with nothing eligible the rows wait."""
+    (mod the eligible count); with nothing eligible the rows wait.
+
+    Under a topology, ``Policy.locality_dispatch`` rows take the VM of
+    least queue plus estimated transfer time instead (data gravity against
+    queue depth), and network rows (``input_dc >= 0``) keep an INF ready
+    time: the transfer phase opens and prices their stage-in in this same
+    event.  Without a topology a remote input bills the flat
+    ``interdc_bw_mbps`` divisor."""
     cls, vms, pol = scn.cloudlets, scn.vms, scn.policy
     V, D = vms.n_vms, scn.hosts.n_dc
     t = state.t[:, None]
@@ -379,27 +538,137 @@ def dispatch_cloudlets(scn: Scenario, state: SimState) -> SimState:
 
     outstanding = policies.vm_outstanding_mi(scn, state)
     cap = (vms.cores.float() * vms.mips).clamp_min(1e-9)
-    load_key = torch.where(eligible, outstanding / cap, INF)
+    queue_s = outstanding / cap
+    load_key = torch.where(eligible, queue_s, INF)
     # stable, as jnp.argsort: ties keep VM row order (FCFS is semantic)
     vm_order = torch.argsort(load_key, dim=-1, stable=True)
 
     k = torch.cumsum(due.int(), -1, dtype=torch.int32) - 1
     pick = torch.where(n_elig > 0, k % n_elig.clamp_min(1), 0)
     chosen = take(vm_order, pick).clamp(0, V - 1)
+    if scn.topology is not None:
+        chosen = torch.where(pol.locality_dispatch[:, None],
+                             _locality_choice(scn, state, eligible, queue_s),
+                             chosen)
 
     ok = due & (n_elig > 0)
     bw = take(vms.bw_mbps, chosen).clamp_min(1e-6)
     stage_in = torch.where(cls.input_mb > 0, cls.input_mb / bw, 0.0)
     ready = t + stage_in
-    vdc_chosen = take(state.vm_dc, chosen).clamp(0, D - 1)
-    remote = (cls.input_dc >= 0) & (cls.input_dc != vdc_chosen)
-    ready = torch.where(
-        remote,
-        t + cls.input_mb / pol.interdc_bw_mbps.clamp_min(1e-6)[:, None],
-        ready)
+    if scn.topology is not None:
+        ready = torch.where(cls.input_dc >= 0, INF, ready)
+    else:
+        vdc_chosen = take(state.vm_dc, chosen).clamp(0, D - 1)
+        remote = (cls.input_dc >= 0) & (cls.input_dc != vdc_chosen)
+        ready = torch.where(
+            remote,
+            t + cls.input_mb / pol.interdc_bw_mbps.clamp_min(1e-6)[:, None],
+            ready)
     return state.replace(
         cl_vm=torch.where(ok, chosen.int(), state.cl_vm),
         cl_ready_t=torch.where(ok, ready, state.cl_ready_t),
+    )
+
+
+def _staging_due(scn: Scenario, state: SimState) -> Tensor:
+    """[B, C] network stage-ins ready to open now: submitted, bound to a
+    placed VM, neither in flight nor staged (topology only)."""
+    cls = scn.cloudlets
+    vmi = state.cl_vm.clamp(0, scn.vms.n_vms - 1)
+    return (
+        cls.exists
+        & (cls.input_dc >= 0)
+        & (state.cl_vm >= 0)
+        & (state.cl_xfer_dst < 0)
+        & (state.cl_ready_t >= INF / 2)
+        & (cls.submit_t <= state.t[:, None])
+        & take(state.vm_placed, vmi)
+    )
+
+
+def transfer_needed(scn: Scenario, state: SimState) -> Tensor:
+    """[B] the transfer phase has something to do in this row."""
+    return (_staging_due(scn, state).any(-1)
+            | (state.vm_xfer_src >= 0).any(-1)
+            | (state.cl_xfer_dst >= 0).any(-1))
+
+
+def _retime(t: Tensor, done_t: Tensor, rem: Tensor, own: Tensor):
+    """``(head, rem')`` of transfers whose share changes at clock ``t``:
+    the remaining window ``done_t - t`` is a head of latency not yet
+    elapsed followed by the byte tail ``rem / own``; ``rem'`` is the MB
+    still to move."""
+    own = own.clamp_min(1e-6)
+    w = done_t - t
+    tail = rem / own
+    wb = torch.minimum(w, tail)
+    head = w - wb
+    return head, torch.where(wb < tail, own * wb, rem)
+
+
+def transfer_phase(scn: Scenario, state: SimState) -> SimState:
+    """Open due stage-ins and re-time the in-flight transfers of links
+    whose occupancy changed (the fair-share recompute, DESIGN.md §13).
+
+    ``link_share`` holds the Mbps granted at the last recompute, so
+    ``fair_share(link_busy) != link_share`` finds exactly the links whose
+    population changed since: settles, migration commits and the opens
+    here.  Transfers on unchanged links stay bitwise as they are, which
+    keeps uncontended topology runs identical to the flat path.  The
+    re-timing is analytic: the new completion is ``t + head + rem' /
+    share_new``, so k equal transfers on one link finish after the head
+    plus k times the lone transfer's byte time.
+    """
+    topo, cls, vms = scn.topology, scn.cloudlets, scn.vms
+    D = scn.hosts.n_dc
+    t = state.t[:, None]
+
+    # --- open due stage-ins, priced at the share after the opens ---
+    opening = _staging_due(scn, state)
+    vmi = state.cl_vm.clamp(0, vms.n_vms - 1)
+    so = torch.where(opening, cls.input_dc.clamp(0, D - 1), 0)
+    do = torch.where(opening, take(state.vm_dc, vmi).clamp(0, D - 1), 0)
+    link_o = _link(scn, so, do)
+    busy = _add_links(state.link_busy, link_o, opening.int())
+    share_new = topo.fair_share(busy)                                 # [B,D,D]
+    shr_o = _at_link(share_new, link_o)
+    ready_o = (t + _at_link(topo.latency_s, link_o)
+               + cls.input_mb / shr_o.clamp_min(1e-6))
+    cl_ready_t = torch.where(opening, ready_o, state.cl_ready_t)
+    cl_xfer_dst = torch.where(opening, do, state.cl_xfer_dst)
+    cl_xfer_rem = torch.where(opening, cls.input_mb, state.cl_xfer_rem)
+    cl_xfer_share = torch.where(opening, shr_o, state.cl_xfer_share)
+
+    changed = share_new != state.link_share                           # [B,D,D]
+
+    # in-flight VM images on changed links
+    link_v = _link(scn, state.vm_xfer_src.clamp(0, D - 1),
+                   state.vm_xfer_dst.clamp(0, D - 1))
+    hit_v = (state.vm_xfer_src >= 0) & _at_link(changed, link_v)
+    snew_v = _at_link(share_new, link_v).clamp_min(1e-6)
+    head_v, rem_v = _retime(t, state.vm_avail_t, state.vm_xfer_rem,
+                            state.vm_xfer_share)
+    vm_avail_t = torch.where(hit_v, t + head_v + rem_v / snew_v,
+                             state.vm_avail_t)
+
+    # in-flight stage-ins on changed links (those just opened are priced)
+    link_c = _link(scn, cls.input_dc.clamp(0, D - 1),
+                   state.cl_xfer_dst.clamp(0, D - 1))
+    hit_c = (state.cl_xfer_dst >= 0) & ~opening & _at_link(changed, link_c)
+    snew_c = _at_link(share_new, link_c).clamp_min(1e-6)
+    head_c, rem_c = _retime(t, state.cl_ready_t, state.cl_xfer_rem,
+                            state.cl_xfer_share)
+
+    return state.replace(
+        link_busy=busy,
+        link_share=share_new,
+        vm_avail_t=vm_avail_t,
+        vm_xfer_rem=torch.where(hit_v, rem_v, state.vm_xfer_rem),
+        vm_xfer_share=torch.where(hit_v, snew_v, state.vm_xfer_share),
+        cl_ready_t=torch.where(hit_c, t + head_c + rem_c / snew_c, cl_ready_t),
+        cl_xfer_dst=cl_xfer_dst,
+        cl_xfer_rem=torch.where(hit_c, rem_c, cl_xfer_rem),
+        cl_xfer_share=torch.where(hit_c, snew_c, cl_xfer_share),
     )
 
 

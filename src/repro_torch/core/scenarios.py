@@ -20,6 +20,8 @@ unbatched ``Scenario``; ``campaign.stack_scenarios`` makes a campaign.
 * ``reliability_scenario`` / ``evacuation_scenario``: host failures under a
   seeded or fixed outage schedule, checkpoint rollback, SLA deadlines and
   proactive evacuation (DESIGN.md §9).
+* ``staging_scenario``: waves of service-routed cloudlets staging their
+  input over shared inter-DC links under a ``Topology`` (DESIGN.md §13).
 * ``serving_scenario``: an LLM-inference fleet under KV-bound continuous
   batching (DESIGN.md §14), optionally autoscaled.
 
@@ -34,7 +36,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import workload
-from repro_torch.core.energy import PowerModel
+from repro_torch.core.energy import PowerModel, Topology
 from repro_torch.core.entities import (
     SPACE_SHARED, TIME_SHARED, Cloudlets, Hosts, Market, Policy, Scenario,
     VMRequests, resolve_device)
@@ -569,6 +571,43 @@ def evacuation_scenario(*, evacuation: bool = True,
                                              device=dev),
                     outages=outages, instruments=(ReliabilityInstrument(),),
                     max_steps=max_steps)
+
+
+def staging_scenario(*, n_dc: int = 3, hosts_per_dc: int = 2,
+                     vms_per_dc: int = 2, n_cloudlets: int = 48,
+                     wave: int = 8, wave_dt: float = 2.0,
+                     input_mb: float = 256.0, task_mi: float = 20_000.0,
+                     bw_mbps: float = 100.0, latency_s: float = 0.05,
+                     locality_dispatch: bool = False,
+                     horizon: float = 1e6, device=None) -> Scenario:
+    """Data-staging-heavy demo of the contention-aware network layer
+    (DESIGN.md §13): service-routed cloudlets whose ``input_mb`` lives on
+    ``input_dc = row % n_dc`` arrive in waves of ``wave`` every ``wave_dt``
+    seconds, so their stage-ins overlap on the inter-DC links and fair
+    sharing sets every completion time.  ``locality_dispatch`` switches the
+    broker between least-loaded rank dispatch and the data-gravity score;
+    it is data, so a campaign sweeps it."""
+    dev = resolve_device(device)
+    n_vms = n_dc * vms_per_dc
+    hosts = uniform_hosts(n_dc, hosts_per_dc, cores=4, mips=1000.0,
+                          ram_mb=8192.0, storage_mb=2_000_000.0, device=dev)
+    vms = uniform_vms(n_vms, dc=np.arange(n_vms) % n_dc, cores=1,
+                      mips=1000.0, ram_mb=256.0, storage_mb=1024.0,
+                      image_mb=1024.0, device=dev)
+    submit = (np.arange(n_cloudlets) // wave) * wave_dt
+    cls = make_cloudlets(
+        np.full(n_cloudlets, -1), np.full(n_cloudlets, task_mi), submit,
+        input_mb=input_mb, output_mb=0.0,
+        input_dc=np.arange(n_cloudlets) % n_dc, device=dev)
+    pol = make_policy(horizon=horizon, interdc_bw_mbps=bw_mbps,
+                      locality_dispatch=locality_dispatch, device=dev)
+    return Scenario(
+        hosts=hosts, vms=vms, cloudlets=cls,
+        market=uniform_market(n_dc, device=dev), policy=pol,
+        topology=Topology.uniform(n_dc, latency_s=latency_s,
+                                  bw_mbps=bw_mbps, device=dev),
+        max_steps=6 * n_cloudlets + 4 * n_vms + 300,
+    )
 
 
 # ---------------------------------------------------------------------------

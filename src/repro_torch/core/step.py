@@ -4,12 +4,16 @@
 each; one scenario is the ``B = 1`` case.  Its phases are the reference's
 (DESIGN.md §10):
 
-    prologue   host failure/repair edges, instrument ``pre`` hooks (Sensor
-               tick, autoscaler, migration and evacuation coordinators),
-               release of drained VMs
+    prologue   host failure/repair edges, settling of finished link
+               transfers, instrument ``pre`` hooks (Sensor tick,
+               autoscaler, migration and evacuation coordinators), release
+               of drained VMs
     provision  place due VM requests          } skipped when no live row
     dispatch   bind submitted service rows    } needs them: ``if x.any()``
-    serving    KV-block ledger sweep          } (one host sync each)
+    transfer   open stage-ins, re-time shared } (one host sync each; the
+               links (topology only)          } transfer phase applies per
+                                              } row, see ``_transfer``)
+    serving    KV-block ledger sweep
     bound      per-cloudlet rates + next-event bound
     advance    the advance sweep on the whole [B, C] block: the CUDA kernel
                on the card, the plain version on the CPU
@@ -71,11 +75,15 @@ host_any.syncs = 0
 def default_max_steps(scn: Scenario) -> int:
     """Safety bound on event batches: starts + finishes + VM lifecycle +
     slack, plus an outage schedule's fail/repair edges and per-edge
-    eviction/evacuation slack (no topology term: topology is not ported)."""
+    eviction/evacuation slack, plus a K_STAGE open and a K_READY arrival
+    per cloudlet under a topology (fair-share recomputes may also split
+    coincident completions)."""
     extra = 0
     if scn.outages is not None:
         n_out = math.prod(scn.outages.fail_t.shape[-3:])
         extra = 4 * n_out + 2 * scn.vms.n_vms
+    if scn.topology is not None:
+        extra += 2 * scn.cloudlets.n_cloudlets
     return 4 * (scn.cloudlets.n_cloudlets + scn.vms.n_vms) + 260 + extra
 
 
@@ -113,17 +121,21 @@ def step_cond(scn: Scenario, st: SimState, max_steps: int) -> Tensor:
 
 
 def ready_times(scn: Scenario) -> Tensor:
-    """[B, C] submit + SAN stage-in of fixed-binding rows."""
+    """[B, C] submit + SAN stage-in of fixed-binding rows.  Remote inputs
+    bill the flat ``interdc_bw_mbps`` divisor; under a topology
+    ``engine.init_state`` sets them to INF instead and the transfer phase
+    prices the move on the link ledger."""
     cls, vms = scn.cloudlets, scn.vms
     vmi = cls.vm.clamp(0, vms.n_vms - 1)
     stage_in = torch.where(
         cls.input_mb > 0,
         cls.input_mb / take(vms.bw_mbps, vmi).clamp_min(1e-6), 0.0)
-    remote = (cls.input_dc >= 0) & (cls.input_dc != take(vms.dc, vmi))
-    stage_in = torch.where(
-        remote,
-        cls.input_mb / scn.policy.interdc_bw_mbps.clamp_min(1e-6)[:, None],
-        stage_in)
+    if scn.topology is None:
+        remote = (cls.input_dc >= 0) & (cls.input_dc != take(vms.dc, vmi))
+        stage_in = torch.where(
+            remote,
+            cls.input_mb / scn.policy.interdc_bw_mbps.clamp_min(1e-6)[:, None],
+            stage_in)
     return cls.submit_t + stage_in
 
 
@@ -638,8 +650,9 @@ def _dispatch_needed(scn: Scenario, st: SimState) -> Tensor:
 def _phase_prologue(scn: Scenario, st: SimState, aux: tuple,
                     instruments: tuple) -> tuple[SimState, tuple]:
     """Outage edges (before anything may observe or use a dead host),
-    transfer settling (a no-op without a topology), instrument ``pre``
-    hooks, release of drained VMs."""
+    settling of arrived or cancelled transfers (topology only: their link
+    slots free up before this event's migrations and stage-ins), instrument
+    ``pre`` hooks, release of drained VMs."""
     st = provision.apply_outages(scn, st)
     st = provision.settle_transfers(scn, st)
     aux = list(aux)
@@ -653,6 +666,8 @@ def _cand_kinds(scn: Scenario, instruments: tuple, device) -> Tensor:
     """Event kinds aligned with ``_phase_bound``'s candidate times (built
     once per driver: a host-to-device copy waits for the stream)."""
     kinds = [K_READY, K_READY, K_VM_REQUEST, K_MIGRATION, K_SERVING]
+    if scn.topology is not None:
+        kinds.append(K_STAGE)
     if scn.outages is not None:
         kinds += [K_FAILURE, K_REPAIR]
     kinds += [ins.bound_kind for ins in instruments]
@@ -685,6 +700,15 @@ def _phase_bound(scn: Scenario, st: SimState, aux: tuple, instruments: tuple):
         min_where(st.vm_avail_t, migrating),
         kvserve.serving_bound(scn, st, rate),
     ]
+    if scn.topology is not None:
+        # a bound network stage-in submitted in the future wakes the loop
+        # at its submit time, so the transfer phase can open it
+        staging = (
+            cls.exists & (cls.input_dc >= 0) & (st.cl_vm >= 0)
+            & (st.cl_xfer_dst < 0) & (st.cl_ready_t >= INF / 2)
+            & (cls.submit_t > t)
+        )
+        cand_t.append(min_where(cls.submit_t, staging))
     if scn.outages is not None:
         ex = scn.hosts.exists
         cand_t.append(torch.where(
@@ -740,7 +764,10 @@ def _phase_commit(scn: Scenario, st: SimState, aux: tuple, ctx: StepContext,
 
 def _freeze(live: Tensor, new, old):
     """Per-leaf row select: live rows take the stepped value, the others
-    stay bitwise at their old one."""
+    stay bitwise at their old one (a leaf the step left alone is kept as
+    it is)."""
+    if new is old:
+        return new
     if isinstance(new, Tensor):
         return torch.where(live.view((-1,) + (1,) * (new.dim() - 1)), new, old)
     if isinstance(new, tuple):
@@ -769,6 +796,8 @@ def batch_event_step(scn_b: Scenario, carry: tuple[SimState, tuple],
     st3 = st2
     if host_any(_dispatch_needed(scn_b, st2) & live):
         st3 = provision.dispatch_cloudlets(scn_b, st2)
+    if scn_b.topology is not None:
+        st3 = _transfer(scn_b, st3, live)
     if ctx.serving:
         st3 = kvserve.serving_phase(scn_b, st3)
 
@@ -781,6 +810,22 @@ def batch_event_step(scn_b: Scenario, carry: tuple[SimState, tuple],
     (st4, aux2), ev = _phase_commit(
         scn_b, st3, aux1, ctx, rate, vm_mips, active, cand_ts, dt, new_rem)
     return _freeze(live, (st4, aux2), (st_b, aux_b)), ev, live
+
+
+def _transfer(scn: Scenario, st: SimState, live: Tensor) -> SimState:
+    """The transfer phase, applied to the live rows that need it.
+
+    The reference's batch step runs ``transfer_phase`` on every row once
+    any live row needs it.  For a row that needs nothing that is not an
+    identity: it refreshes a stale ``link_share``, after which a later
+    migration on that link is re-timed (or not) differently, in the last
+    bit, from the row's solo run.  Gated per row, each row of a campaign
+    stays bitwise its solo run, which is the reference's solo semantics.
+    """
+    need = provision.transfer_needed(scn, st) & live
+    if not host_any(need):
+        return st
+    return _freeze(need, provision.transfer_phase(scn, st), st)
 
 
 def _masked_pct(x: Tensor, mask: Tensor, q: float) -> Tensor:

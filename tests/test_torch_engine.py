@@ -192,13 +192,14 @@ def test_stack_scenarios_refuses_mixed_static_fields():
 def test_port_never_imports_jax():
     """The port runs end to end without JAX or the JAX package loaded: a
     simulation, a trace, a reliability scenario drawn from a torch seed, a
-    smoke prefill and a smoke train step."""
+    streamed staging campaign with a reducer, a random search, a smoke
+    prefill and a smoke train step."""
     src = str(Path(__file__).resolve().parents[1] / "src")
     code = (
         "import sys\n"
         "import repro_torch, repro_torch.convert, repro_torch.kernels.ops\n"
         "from repro_torch.core import PowerModel, scenarios, simulate, "
-        "simulate_history\n"
+        "simulate_history, stack_scenarios\n"
         "scn = scenarios.fig4_scenario(1, 1, device='cpu')\n"
         "scn = scn.replace(power=PowerModel.uniform(1, device='cpu'))\n"
         "simulate(scn, device='cpu'); simulate_history(scn, device='cpu')\n"
@@ -208,6 +209,16 @@ def test_port_never_imports_jax():
         "rel = scenarios.reliability_scenario(torch.Generator().manual_seed(0),"
         " device='cpu')\n"
         "assert int(simulate(rel, device='cpu').n_finished) == 8\n"
+        "from repro_torch.core import reducers, run_campaign, search\n"
+        "stg = scenarios.staging_scenario(n_cloudlets=12, device='cpu')\n"
+        "out = run_campaign(stack_scenarios([stg, stg]), chunk_size=1,\n"
+        "                   reduce=reducers.SumReducer('n_finished'),\n"
+        "                   device='cpu')\n"
+        "assert int(out) == 24\n"
+        "best = search.random_search(scenarios.fig4_scenario(0, 0, "
+        "device='cpu'), {'vm_policy': [0, 1]}, generator=torch.Generator()"
+        ".manual_seed(0), n=2, device='cpu')\n"
+        "assert best['values'].shape == (2,)\n"
         "from repro_torch.configs import get_config\n"
         "from repro_torch.models import build_model\n"
         "model = build_model(get_config('internlm2-1.8b', smoke=True))\n"
@@ -260,14 +271,10 @@ def _with_outages():
         instruments=(AutoscaleInstrument(),)), "instruments"),
 ])
 def test_unported_pieces_raise(build, piece):
-    """A topology is the one scenario piece the port still refuses; an
-    outage schedule and extra instruments carry across and run as the
-    reference runs them."""
+    """No scenario piece is refused any more: a topology, an outage
+    schedule and extra instruments carry across and run as the reference
+    runs them (the topology's own families: tests/test_torch_network.py)."""
     jax_scn = build()
-    if piece == "topology":
-        with pytest.raises(NotImplementedError, match=piece):
-            scenario_from_arrays(jax_scn, "cpu")
-        return
     jres, jout = jax.jit(jax_simulate_instrumented)(jax_scn)
     res, out = simulate_instrumented(scenario_from_arrays(jax_scn, "cpu"),
                                      device="cpu")

@@ -8,9 +8,7 @@ traced by both engines (the reference jitted once per module, with the plain
 float fields and the progress matrix within rtol 1e-5.  Within the port the
 trace is a pure observer: a traced run's ``SimResult`` is bitwise the
 untraced run's and the history run's, and a traced campaign's rows are
-bitwise their solo traces.  (The reference's federated-energy case attaches
-a ``Topology``, which the port does not carry yet; here it runs with the
-power model only.)
+bitwise their solo traces.
 """
 from dataclasses import dataclass
 
@@ -28,6 +26,7 @@ from repro.core import simulate_history as jax_simulate_history
 from repro.core import simulate_instrumented as jax_simulate_instrumented
 from repro.core import simulate_trace as jax_simulate_trace
 from repro.core.energy import PowerModel as JaxPowerModel
+from repro.core.energy import Topology as JaxTopology
 from repro.core.pytree import pytree_dataclass
 from repro_torch.convert import scenario_from_arrays
 from repro_torch.core import (
@@ -77,7 +76,9 @@ TRACED = {
         v, n_hosts=60, n_vms=6, n_groups=3), _grid(4000.0, 250.0)))
        for v in (SPACE_SHARED, TIME_SHARED)},
     "federated_energy": lambda: (jscn.table1_scenario(True).replace(
-        power=JaxPowerModel.uniform(3)), _grid(9000.0, 500.0)),
+        power=JaxPowerModel.uniform(3),
+        topology=JaxTopology.uniform(3, latency_s=5.0, bw_mbps=50.0)),
+        _grid(9000.0, 500.0)),
     "live_migration": lambda: (jscn.consolidation_scenario(),
                                _grid(2500.0, 111.0)),
     "evacuation": lambda: (jscn.evacuation_scenario(), _grid(1200.0, 77.0)),
