@@ -3,8 +3,9 @@
     python3 chip_smoke.py
 
 Drives ``repro_torch`` (never JAX, never the JAX package ``repro``) through
-its three paths on the card, the event engine, the serving engine and the
-training loop, and fails with a non-zero exit code if any phase fails:
+its three paths on the card, the event engine, the serving engine (with
+every family of the model zoo) and the training loop, and fails with a
+non-zero exit code if any phase fails:
 
 1. build     compile every kernel of the three paths from
              ``src/repro_torch/csrc`` (one nvcc per source, started together)
@@ -20,10 +21,12 @@ training loop, and fails with a non-zero exit code if any phase fails:
              events for calls of many milliseconds), the plain version's,
              its time per call with the enqueue, and its bound.  Advance
              sweep: ``dt`` bitwise, ``rem'`` within rtol 1e-6 / atol 1e-5.
-             Flash attention: within 2e-5 (f32) / 2e-2 (bf16) at six shapes,
-             and by relative error of the whole output and of its worst row
-             within 1e-5 (f32) / 4e-3 and 8e-3 (bf16),
-             from the serving prefill to a gemma2-27b local layer, each with
+             Flash attention: within 2e-5 (f32) / 2e-2 (bf16) at eleven
+             shapes, and by relative error of the whole output and of its
+             worst row within 1e-5 (f32) / 4e-3 and 8e-3 (bf16), from the
+             serving prefill to a gemma2-27b local layer and phase 6b's
+             (granite-moe, jamba and qwen2-vl prefills, whisper's encoder
+             and its cross-attention at a decode step), each with
              its launch plan (bf16 on the tensor cores, f32 on the CUDA
              cores), with ``scaled_dot_product_attention`` timed as a
              yardstick where it computes the same function.  SSD scan: within 2e-2 (bf16) of
@@ -33,8 +36,13 @@ training loop, and fails with a non-zero exit code if any phase fails:
              its launch plan (bf16: three chunk-parallel phases on the tensor
              cores, whose device times a profiled call splits; f32: the
              CUDA-core kernel), within 2e-4 (f32) of the sequential scan at
-             a ragged one (no PyTorch call computes it); ``SSDScan``'s
-             gradients within 1e-4 of each leaf's largest value
+             a ragged one (no PyTorch call computes it); at each shape the
+             final state (``return_state``, the prefill's output) against
+             the chunked version's, within 2e-4 (f32) and by the relative
+             errors of the whole state and its worst (b, h) slice under y's
+             limits (bf16), y beside it bitwise y without it, and its time;
+             ``SSDScan``'s gradients within 1e-4 of each leaf's largest
+             value
 3. anchors   the paper's experiments through ``simulate`` on the card: Fig. 4
              (four policy pairs), Table 1, Fig. 9/10 at 10,000 hosts and
              Fig. 7/8 at 100,000 hosts, each against the port's own CPU run
@@ -91,9 +99,34 @@ training loop, and fails with a non-zero exit code if any phase fails:
              outside the counted run, one ``Model.prefill`` of a single
              8,192-token prompt: prefill tokens/s and flash's share of its
              device time
-7. parity    the same model at full width, 2 layers, f32: prefill logits and
+6b. model zoo  the other families through their entry points (bf16
+             compute, f32 weights from a seed): (a) granite-moe-1b-a400m at
+             full width and depth and (b) jamba-v0.1-52b at full width cut to
+             one period of 8 layers, each served by ``ServingEngine`` as
+             phase 6 serves (8 requests of 32 new tokens; 4 of 16): every
+             request done, flash launched once per attention layer per
+             prefill, the SSD kernel once per SSM layer per prefill and the
+             plain chunked SSD never on the card; (c) whisper-large-v3 at
+             full width and depth: ``Model.prefill`` of 2 x 1,500 frame
+             embeddings and a 64-token prompt, 16 greedy decode steps,
+             flash launched 32 + 32 + 32 times a prefill and 32 a step (the
+             cross-attention); (d) qwen2-vl-72b at full width cut to 2
+             layers: a prefill of 1,024 patch embeddings and 256 tokens
+             with M-RoPE positions, 8 decode steps.  Each: a profiled run's
+             device time by kind of kernel (flash, SSD, GEMMs, the MoE
+             dispatch's index and sort ops, the casts), the idle share;
+             wall, prefill and decode tokens/s, peak memory
+7. parity    internlm2-1.8b at full width, 2 layers, f32: prefill logits and
              8 greedy decode steps on the card against the port's CPU run
-             (logits within atol/rtol 1e-3, tokens identical)
+             (logits within atol/rtol 1e-3, tokens identical); the same for
+             granite-moe (2 layers; the chosen experts compared first, a
+             differing choice allowed only at a probability gap of at most
+             1e-5, and then reported as a tie), whisper (2 + 2 layers, also
+             the cross K/V caches) and qwen2-vl (1 layer, 16 patch
+             embeddings + 16 tokens with M-RoPE positions, 4 steps); one of
+             jamba's SSM layers: ``ssm_prefill`` of 300 tokens (the f32
+             kernel with its state) and 8 ``ssm_decode`` steps, y, the conv
+             tail and the state within 1e-3 of each one's largest value
 8. train     mamba2-130m at full width and depth (bf16 compute, f32 master
              weights and AdamW) trained by ``run_training`` for 20 steps of
              8 x 2,048 tokens on the Markov pipeline: losses and gradient
@@ -114,6 +147,7 @@ with an error before printing any result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import json
@@ -146,7 +180,7 @@ from repro_torch.data import ShardedLoader  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
     flash_attention, ops, ref, ssd_scan, vm_update)
 from repro_torch.launch.train import run_training  # noqa: E402
-from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models import build_model, moe, ssm  # noqa: E402
 from repro_torch.models.lm import lm_logits  # noqa: E402
 from repro_torch.serving import ServingEngine  # noqa: E402
 from repro_torch.train import OptConfig, adamw_init, make_train_step  # noqa: E402
@@ -209,6 +243,19 @@ FLASH_SHAPES = [
     ("f32 ragged", (2, 4, 2, 300, 300, 64), torch.float32, dict(causal=True)),
     ("offset rows", (1, 16, 8, 128, 1000, 128), torch.float32,
      dict(causal=True)),
+    # phase 6b's shapes: granite-moe (D 64, GQA 16/8) and jamba (GQA 32/8)
+    # prefills, whisper's encoder and its cross-attention at a decode step
+    # (one query row against the 1,500 frames), qwen2-vl's prefill
+    ("granite-moe prefill", (1, 16, 8, 512, 512, 64), torch.bfloat16,
+     dict(causal=True)),
+    ("jamba prefill", (1, 32, 8, 512, 512, 128), torch.bfloat16,
+     dict(causal=True)),
+    ("whisper encoder", (2, 20, 20, 1500, 1500, 64), torch.bfloat16,
+     dict(causal=False)),
+    ("whisper cross decode", (2, 20, 20, 1, 1500, 64), torch.bfloat16,
+     dict(causal=False)),
+    ("qwen2-vl prefill", (1, 64, 8, 1280, 1280, 128), torch.bfloat16,
+     dict(causal=True)),
 ]
 FLASH_MAIN = "serving prefill"
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -224,6 +271,28 @@ SERVE_ARCH = "internlm2-1.8b"
 SERVE = dict(n_slots=4, max_len=1024, replan_every=8)
 SERVE_REQUESTS, SERVE_NEW_TOKENS = 8, 32
 LONG_PROMPT = 8192          # one long prefill outside the counted serving run
+# phase 6b: (arch, depth cut or None, requests, new tokens) served as phase 6
+# serves internlm2; jamba is cut to one period of 8 layers (53 GB of f32
+# weights: its 4 periods would be ~212 GB)
+ZOO_SERVE = (("granite-moe-1b-a400m", None, 8, 32),
+             ("jamba-v0.1-52b", 8, 4, 16))
+WHISPER = dict(batch=2, prompt=64, steps=16)
+# qwen2-vl cut to 2 layers (its 80 would be ~290 GB of f32 weights): a
+# 32 x 32 grid of patch embeddings, then text
+VLM = dict(n_layers=2, patches=1024, grid=32, text=256, steps=8)
+# device time by kind of kernel: the first class whose key a kernel's name
+# holds (lower case)
+KERNEL_CLASSES = (
+    ("flash", ("flash_fwd",)), ("ssd", ("ssd_fwd",)),
+    ("advance sweep", ("advance_fused", "advance_tile")),
+    ("gemm", ("gemm", "gemv", "cutlass", "xmma", "nvjet", "cublas")),
+    ("index, scatter, gather", ("index", "scatter", "gather")),
+    ("sort", ("sort",)),
+    ("bf16 casts", ("bfloat16_copy",)),
+    ("other copies", ("copy",)),
+    ("reductions", ("reduce_kernel",)),
+    ("elementwise", ("elementwise",)),
+)
 # SSD scan: name, (B, S, H, P, G, N), dtype, chunk, the plain version held to
 SSD_SHAPES = [
     ("mamba2-130m training", (8, 2048, 24, 64, 1, 128), torch.bfloat16, 128,
@@ -482,7 +551,10 @@ def phase_flash_kernel() -> dict:
         ms, plain_ms = (sum(times[k]) / 2 for k in ("kernel", "plain"))
         per_call = call_ms(kernel, args, reps)
         library_ms = None
-        if sq == sk and kw.get("window") is None and not kw.get("softcap"):
+        # SDPA aligns a causal mask to the first key, the kernel to the
+        # last: the same function where Sq == Sk, or without the mask
+        if ((sq == sk or not kw["causal"]) and kw.get("window") is None
+                and not kw.get("softcap")):
             sdpa = functools.partial(F.scaled_dot_product_attention,
                                      is_causal=kw["causal"], enable_gqa=True)
             library_ms = timer(sdpa, args, reps)
@@ -558,12 +630,41 @@ def ssd_phase_ms(by_name: dict, calls: int) -> dict[str, float]:
     return phases
 
 
-def relative_errors(out, want) -> tuple[float, float]:
+def relative_errors(out, want, dims=(1, 3)) -> tuple[float, float]:
     """The relative error of the whole output and of its worst (b, h) slice
-    ``[S, P]``."""
+    (``[S, P]`` of y ``[B, S, H, P]``; ``dims=(2, 3)``: ``[P, N]`` of a state
+    ``[B, H, P, N]``)."""
     diff, want = out.float() - want.float(), want.float()
-    per = diff.norm(dim=(1, 3)) / want.norm(dim=(1, 3)).clamp_min(1e-30)
+    per = diff.norm(dim=dims) / want.norm(dim=dims).clamp_min(1e-30)
     return float(diff.norm() / want.norm()), float(per.max())
+
+
+def ssd_state_check(name, args, chunk, y, dtype) -> dict:
+    """The kernel's final state (``return_state``, the prefill's output)
+    against the plain chunked version's over the inputs padded with
+    ``dt = 0``: within SSD_TOL[f32] elementwise in f32; in bf16 by the
+    relative error of the whole state and of its worst (b, h) slice under
+    y's limits.  The y it returns beside the state must be ``y`` bitwise."""
+    y_s, state = ssd_scan.ssd_scan_cuda(*args, chunk=chunk, return_state=True)
+    _, want = ref.ssd_scan_ref(*args, chunk=chunk, return_state=True)
+    torch.cuda.synchronize()
+    check(torch.equal(y_s, y), f"ssd_scan {name}: y with the state output "
+          "bitwise y without it")
+    check(bool(state.isfinite().all()), f"ssd_scan {name}: state finite")
+    err = float((state - want).abs().max())
+    rel, worst = relative_errors(state, want, dims=(2, 3))
+    if dtype == torch.float32:
+        tol = SSD_TOL[dtype]
+        check(torch.allclose(state, want, rtol=tol, atol=tol),
+              f"ssd_scan {name}: final state within {tol} of the chunked "
+              f"version: max |err| {err}")
+    else:
+        check(rel < SSD_REL_TOL[dtype] and worst < SSD_SLICE_TOL[dtype],
+              f"ssd_scan {name}: final state relative error {rel} (limit "
+              f"{SSD_REL_TOL[dtype]}), worst (b, h) slice {worst} (limit "
+              f"{SSD_SLICE_TOL[dtype]})")
+    return {"state_max_abs_err": err, "state_rel_err": rel,
+            "state_worst_slice_err": worst}
 
 
 def phase_ssd_kernel() -> dict:
@@ -599,13 +700,16 @@ def phase_ssd_kernel() -> dict:
               f"ssd_scan {name}: relative error {rel} (limit "
               f"{SSD_REL_TOL[dtype]}), worst (b, h) slice {worst} (limit "
               f"{SSD_SLICE_TOL[dtype]})")
+        state = ssd_state_check(name, args, chunk, out, dtype)
         del out, want
         # calls of milliseconds: CUDA events around eager calls, in turns
-        times = {"plain": [], "kernel": []}
-        for which in ("plain", "kernel", "kernel", "plain"):
-            fn = plain if which == "plain" else kernel
+        with_state = functools.partial(kernel, return_state=True)
+        times = {"plain": [], "kernel": [], "state": []}
+        for which in ("plain", "kernel", "state", "state", "kernel", "plain"):
+            fn = {"plain": plain, "kernel": kernel, "state": with_state}[which]
             times[which].append(events_ms(fn, args, 5))
-        ms, plain_ms = (sum(times[k]) / 2 for k in ("kernel", "plain"))
+        ms, plain_ms, state_ms = (sum(times[k]) / 2
+                                  for k in ("kernel", "plain", "state"))
         per_call = call_ms(kernel, args, 5)
         with torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -625,14 +729,16 @@ def phase_ssd_kernel() -> dict:
             f"{against} version (tolerance {tol}); relative error {rel!r} "
             f"(limit {SSD_REL_TOL[dtype]}), worst (b, h) slice {worst!r} "
             f"(limit {SSD_SLICE_TOL[dtype]}); device time: kernel {ms!r} ms, "
-            f"plain {plain_ms!r} ms; profiled per call {phases}; kernel per "
+            f"plain {plain_ms!r} ms, kernel with the final state "
+            f"{state_ms!r} ms; final state against the chunked version "
+            f"{state}; profiled per call {phases}; kernel per "
             f"call with its enqueue {per_call!r} ms; {ops_} operations, "
             f"{nbytes} bytes, bound {bound_ms!r} ms ({bound_by}), "
             f"{bound_ms / ms:.4f} of bound, {ops_ / ms / 1e9!r} TFLOP/s"))
         if name == SSD_MAIN:
             record = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                       "bound_ms": bound_ms, "bound_by": bound_by,
-                      "library_ms": None}
+                      "library_ms": None, "state_ms": state_ms, **state}
         del args
     torch.cuda.empty_cache()
 
@@ -1446,10 +1552,11 @@ def phase_network(solo: dict) -> int:
 
 
 # ------------------------------------------------------------- 6. serving
-def serve_once(model, params, prompts) -> tuple[ServingEngine, float]:
+def serve_once(model, params, prompts,
+               new_tokens: int = SERVE_NEW_TOKENS) -> tuple[ServingEngine, float]:
     eng = ServingEngine(model, params, **SERVE)
     for p in prompts:
-        eng.submit(p, max_new_tokens=SERVE_NEW_TOKENS)
+        eng.submit(p, max_new_tokens=new_tokens)
     t0 = time.perf_counter()
     eng.run_until_drained()
     torch.cuda.synchronize()
@@ -1564,14 +1671,312 @@ def long_prefill(model, params, cfg) -> None:
         f"{torch.cuda.max_memory_allocated() / 2**30!r} GiB")
 
 
+# ----------------------------------------------------------- 6b. model zoo
+def kernel_classes(by_name: dict) -> dict[str, list]:
+    """Device ms and launches of a profile's kernels by what they do: the
+    port's kernels, the matrix products, the MoE dispatch (index and
+    scatter ops, sorts; the index class also holds embedding rows), the
+    bf16 casts of the f32 weights, other copies (cache writes, layouts),
+    reductions, other elementwise kernels, and the rest."""
+    out: dict[str, list] = {}
+    for name, (ms, n) in by_name.items():
+        low = name.lower()
+        cls = next((c for c, keys in KERNEL_CLASSES
+                    if any(k in low for k in keys)), "other")
+        acc = out.setdefault(cls, [0.0, 0])
+        acc[0] += ms
+        acc[1] += n
+    return out
+
+
+def profile_report(phase: str, prof, wall: float, top: int = 8) -> str:
+    """Prints the profile's kernels by class and the most expensive ones;
+    returns the idle share of ``wall``."""
+    by_name = device_time_by_name(prof)
+    busy_ms = sum(ms for ms, _ in by_name.values())
+    classes = {c: [round(ms, 3), n] for c, (ms, n) in sorted(
+        kernel_classes(by_name).items(), key=lambda kv: -kv[1][0])}
+    idle = (f"{1 - busy_ms / 1e3 / wall!r}" if busy_ms > 0
+            else "not measured")
+    say(phase, f"traced run: {sum(n for _, n in by_name.values())} device "
+        f"activities, {busy_ms!r} ms device time, idle share {idle} of the "
+        f"traced wall {wall!r} s; by class [ms, launches] {classes}; the "
+        "most:")
+    for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
+        print(f"    {ms:10.3f} ms  {n:6d} launches  {name[:100]}")
+    return idle
+
+
+class PlainSSDOnCard:
+    """Counts calls of the plain chunked SSD (``ref.ssd_chunked_ref``) on a
+    CUDA tensor while it is entered: the prefill must launch the kernel."""
+
+    def __enter__(self):
+        self.calls, self.inner = 0, ref.ssd_chunked_ref
+
+        def counting(x, *args, **kw):
+            self.calls += int(x.is_cuda)
+            return self.inner(x, *args, **kw)
+
+        ref.ssd_chunked_ref = counting
+        return self
+
+    def __exit__(self, *exc):
+        ref.ssd_chunked_ref = self.inner
+
+
+def zero_launches() -> None:
+    for fn in (flash_attention.flash_attention_cuda, ssd_scan.ssd_scan_cuda,
+               vm_update.advance_sweep_cuda):
+        fn.launches = 0
+
+
+def launches() -> dict[str, int]:
+    return {"flash": flash_attention.flash_attention_cuda.launches,
+            "ssd": ssd_scan.ssd_scan_cuda.launches,
+            "sweep": vm_update.advance_sweep_cuda.launches}
+
+
+def mixers(cfg, kind: str) -> int:
+    return cfg.n_periods * sum(cfg.mixer_kind(i) == kind
+                               for i in range(cfg.period))
+
+
+def zoo_model(arch: str, n_layers: int | None = None):
+    """(cfg, model, f32 parameters on the card from seed 0, init seconds),
+    from an emptied cache with the peak-memory count reset."""
+    cfg = get_config(arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    model = build_model(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    return cfg, model, params, time.perf_counter() - t0
+
+
+def zoo_serve(arch: str, n_layers: int | None, n_requests: int,
+              new_tokens: int) -> None:
+    """(a), (b): ``ServingEngine`` as phase 6 drives it, a profiled run
+    first, then the counted one."""
+    cfg, model, params, init_s = zoo_model(arch, n_layers)
+    n_params = sum(x.numel() for x in tree.leaves(params))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, size=int(n))
+               for n in rng.integers(128, 513, size=n_requests)]
+    label = "zoo " + arch
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        _, traced_wall = serve_once(model, params, prompts, new_tokens)
+    idle = profile_report(label, prof, traced_wall)
+    del prof
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    with PlainSSDOnCard() as plain:
+        eng, wall = serve_once(model, params, prompts, new_tokens)
+    count = launches()
+    st = eng.stats
+    check(all(r.done and r.generated == new_tokens for r in eng.requests),
+          f"{arch}: every request served its {new_tokens} tokens")
+    n_attn, n_ssm = mixers(cfg, "attn"), mixers(cfg, "ssm")
+    check(count["flash"] == n_attn * st["prefills"],
+          f"{arch}: flash launches {count['flash']} == {n_attn} attention "
+          f"layers x {st['prefills']} prefills")
+    check(count["ssd"] == n_ssm * st["prefills"],
+          f"{arch}: SSD launches {count['ssd']} == {n_ssm} SSM layers x "
+          f"{st['prefills']} prefills")
+    check(plain.calls == 0, f"{arch}: the plain chunked SSD ran "
+          f"{plain.calls} times on the card")
+    check(count["sweep"] > 0, f"{arch}: the re-plans launched the advance "
+          "sweep")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    cut = (f"depth cut to {cfg.n_layers} layers (one period)"
+           if n_layers is not None else "full width and depth")
+    say(label, (
+        f"{cut}: {cfg.n_layers} layers ({n_attn} attention, {n_ssm} SSM, "
+        f"{sum(cfg.mlp_kind(i) == 'moe' for i in range(cfg.period)) * cfg.n_periods}"
+        f" MoE), {n_params} parameters, f32 weights, bf16 compute, init "
+        f"{init_s!r} s: {len(prompts)} requests, prompts "
+        f"{[len(p) for p in prompts]}, {new_tokens} new tokens each, "
+        f"{SERVE}: wall {wall!r} s, {eng.steps} engine steps, "
+        f"{st['prefills']} prefills of {st['prefill_tokens']} tokens in "
+        f"{st['prefill_s']!r} s = {st['prefill_tokens'] / st['prefill_s']!r} "
+        f"prefill tokens/s, {st['decode_steps']} decode steps of "
+        f"{st['decode_tokens']} tokens in {st['decode_s']!r} s = "
+        f"{st['decode_tokens'] / st['decode_s']!r} decode tokens/s; "
+        f"launches {count}; plain chunked SSD on the card {plain.calls}; "
+        f"idle share of the traced run {idle}; peak memory {peak!r} GiB"))
+    del eng, params
+    torch.cuda.empty_cache()
+
+
+def greedy_run(model, params, batch: dict, max_len: int, steps: int,
+               start: int):
+    """``Model.prefill`` of ``batch`` then ``steps`` greedy decode steps
+    from position ``start``: (each step's logits, the caches, prefill
+    seconds, decode seconds, flash launches of the prefill, of the decode
+    steps)."""
+    flash = flash_attention.flash_attention_cuda
+    dev = batch["tokens"].device
+    before = flash.launches
+    t0 = time.perf_counter()
+    logits, caches = model.prefill(params, batch, max_len)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    prefill_s, mid = time.perf_counter() - t0, flash.launches
+    out = [logits]
+    tok = logits.argmax(-1)[:, None]
+    pos = torch.full((tok.shape[0],), start, device=dev)
+    t1 = time.perf_counter()
+    for _ in range(steps):
+        logits, caches = model.decode_step(params, caches, tok, pos)
+        out.append(logits)
+        tok, pos = logits.argmax(-1)[:, None], pos + 1
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return (out, caches, prefill_s, time.perf_counter() - t1,
+            mid - before, flash.launches - mid)
+
+
+def zoo_generate(label: str, cfg, model, params, batch: dict, max_len: int,
+                 steps: int, start: int, prefill_flash: int,
+                 step_flash: int) -> None:
+    """(c), (d): a profiled run, then a timed one with its flash launches
+    counted per prefill and per decode step; the peak memory is theirs,
+    not the initialisation's."""
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            greedy_run(model, params, batch, max_len, steps, start)
+            traced_wall = time.perf_counter() - t0
+        idle = profile_report(label, prof, traced_wall)
+        del prof
+        zero_launches()
+        out, _, prefill_s, decode_s, pre, dec = greedy_run(
+            model, params, batch, max_len, steps, start)
+    B = batch["tokens"].shape[0]
+    check(all(lg.shape == (B, cfg.vocab) and bool(lg.isfinite().all())
+              for lg in out), f"{label}: logits finite, [{B}, {cfg.vocab}]")
+    check(pre == prefill_flash, f"{label}: prefill flash launches {pre} == "
+          f"{prefill_flash}")
+    check(dec == step_flash * steps, f"{label}: decode flash launches {dec} "
+          f"== {step_flash} x {steps} steps")
+    check(launches()["ssd"] == 0, f"{label}: no SSD launch")
+    say(label, (
+        f"prefill {prefill_s!r} s ({pre} flash launches), {steps} greedy "
+        f"decode steps of {B} tokens in {decode_s!r} s = "
+        f"{B * steps / decode_s!r} decode tokens/s ({dec} flash launches, "
+        f"{dec // max(steps, 1)} a step); idle share of the traced run "
+        f"{idle}; peak memory {torch.cuda.max_memory_allocated() / 2**30!r} "
+        "GiB"))
+
+
+def mrope_positions(n_patch: int, grid: int, n_text: int, device=None):
+    """``[3, 1, n_patch + n_text]``: the patches at t = 0, h = i // grid,
+    w = i % grid; the text at ``n_patch // grid + j`` on all three."""
+    i = torch.arange(n_patch, device=device)
+    patch = torch.stack([torch.zeros_like(i), i // grid, i % grid])
+    text = (n_patch // grid + torch.arange(n_text, device=device)).expand(3, -1)
+    return torch.cat([patch, text], 1)[:, None]
+
+
+def phase_zoo() -> None:
+    """6b: the MoE, hybrid, encoder-decoder and vlm families on the card."""
+    took = {}
+    t0 = time.perf_counter()
+    for arch, n_layers, n_requests, new_tokens in ZOO_SERVE:
+        zoo_serve(arch, n_layers, n_requests, new_tokens)
+        took[arch] = time.perf_counter() - t0 - sum(took.values())
+
+    cfg, model, params, _ = zoo_model("whisper-large-v3")
+    B, P, steps = WHISPER["batch"], WHISPER["prompt"], WHISPER["steps"]
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    batch = {"frames": torch.randn(B, cfg.encoder.n_ctx, cfg.d_model,
+                                   device="cuda", generator=gen),
+             "tokens": torch.from_numpy(np.random.default_rng(1).integers(
+                 0, cfg.vocab, size=(B, P))).cuda()}
+    zoo_generate(
+        f"zoo whisper-large-v3 (full width and depth, {B} x "
+        f"{cfg.encoder.n_ctx} frames, {P}-token prompt)", cfg, model, params,
+        batch, P + steps, steps, P,
+        cfg.encoder.n_layers + 2 * cfg.n_layers, cfg.n_layers)
+    del params, batch
+    took["whisper-large-v3"] = time.perf_counter() - t0 - sum(took.values())
+
+    n_patch, n_text = VLM["patches"], VLM["text"]
+    cfg, model, params, _ = zoo_model("qwen2-vl-72b", VLM["n_layers"])
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    batch = {"frontend_embeds": torch.randn(1, n_patch, cfg.d_model,
+                                            device="cuda", generator=gen),
+             "tokens": torch.from_numpy(np.random.default_rng(2).integers(
+                 0, cfg.vocab, size=(1, n_text))).cuda(),
+             "positions": mrope_positions(n_patch, VLM["grid"], n_text,
+                                          "cuda")}
+    S = n_patch + n_text
+    zoo_generate(
+        f"zoo qwen2-vl-72b (full width, depth cut to {cfg.n_layers} layers, "
+        f"{n_patch} patch embeddings + {n_text} tokens, M-RoPE positions)",
+        cfg, model, params, batch, S + VLM["steps"], VLM["steps"], S,
+        mixers(cfg, "attn"), 0)
+    del params, batch
+    torch.cuda.empty_cache()
+    took["qwen2-vl-72b"] = time.perf_counter() - t0 - sum(took.values())
+    say("timing", "model zoo: " + ", ".join(f"{k} {v:.1f} s"
+                                            for k, v in took.items()))
+
+
 # -------------------------------------------------------------- 7. parity
+def host_copy(params):
+    return tree.map_tree(lambda t: t.cpu(), params)
+
+
+def hold_logits(label: str, runs: dict, upto: int | None = None):
+    """Each step's logits on the card within atol/rtol 1e-3 of the CPU's,
+    and the same greedy tokens, over the first ``upto`` steps (all by
+    default): (max |logit err|, [(CPU tokens, smallest top-1 margin)])."""
+    worst, tokens = 0.0, []
+    for i, (a, b) in enumerate(zip(runs["cuda"], runs["cpu"])):
+        if upto is not None and i >= upto:
+            break
+        check(torch.allclose(a, b, atol=1e-3, rtol=1e-3),
+              f"{label} parity step {i}: logits within 1e-3 (max |err| "
+              f"{float((a - b).abs().max())})")
+        check(torch.equal(a.argmax(-1), b.argmax(-1)),
+              f"{label} parity step {i}: greedy token")
+        worst = max(worst, float((a - b).abs().max()))
+        top2 = b.topk(2, -1).values
+        tokens.append((b.argmax(-1).tolist(),
+                       float((top2[:, 0] - top2[:, 1]).min())))
+    return worst, tokens
+
+
+def parity_runs(model, cpu, gpu, batch: dict, max_len: int, steps: int,
+                start: int, around=contextlib.nullcontext):
+    """``greedy_run`` on the CPU and on the card from the same parameters
+    and batch, each inside a fresh ``around()``: ({device: each step's
+    logits on the host}, {device: the caches}, {device: what ``around()``
+    entered as})."""
+    runs, caches, entered = {}, {}, {}
+    for dev, params in (("cpu", cpu), ("cuda", gpu)):
+        b = {k: v.to(dev) for k, v in batch.items()}
+        with torch.no_grad(), around() as entered[dev]:
+            out, caches[dev], *_ = greedy_run(model, params, b, max_len,
+                                              steps, start)
+        runs[dev] = [lg.cpu() for lg in out]
+    return runs, caches, entered
+
+
 def phase_parity() -> None:
-    """The card against the port's CPU run at full width, 2 layers, f32.
-    The kernel adds the keys of a row in another order than the plain
-    version (tiles of 64, FMAs), and cuBLAS the products of the matmuls:
-    differences of ~1e-6 relative per layer, far inside 1e-3 on logits of
-    order 1, and too small to swap the greedy token (its margin over the
-    runner-up is checked)."""
+    """The card against the port's CPU run at full width, f32, for
+    internlm2-1.8b (2 layers) and the phase 6b families.  The kernel adds
+    the keys of a row in another order than the plain version (tiles of
+    64, FMAs), and cuBLAS the products of the matmuls: differences of ~1e-6
+    relative per layer, far inside 1e-3 on logits of order 1, and too small
+    to swap the greedy token (its margin over the runner-up is printed)."""
     cfg = dataclasses.replace(get_config(SERVE_ARCH, dtype="float32"),
                               n_layers=2)
     model = build_model(cfg)
@@ -1579,32 +1984,192 @@ def phase_parity() -> None:
     gpu = tree.map_tree(lambda t: t.to("cuda"), cpu)
     prompt = torch.from_numpy(
         np.random.default_rng(1).integers(0, cfg.vocab, size=(1, 200)))
-    max_len = 256
-    worst, tokens = 0.0, []
-    runs = {}
-    for dev, params in (("cpu", cpu), ("cuda", gpu)):
-        logits, caches = model.prefill(params, {"tokens": prompt.to(dev)},
-                                       max_len)
-        steps = [logits.cpu()]
-        tok = logits.argmax(-1)[:, None]
-        pos = torch.full((1,), prompt.shape[1], device=dev)
-        for _ in range(8):
-            logits, caches = model.decode_step(params, caches, tok, pos)
-            steps.append(logits.cpu())
-            tok, pos = logits.argmax(-1)[:, None], pos + 1
-        runs[dev] = steps
-    for i, (a, b) in enumerate(zip(runs["cuda"], runs["cpu"])):
-        check(torch.allclose(a, b, atol=1e-3, rtol=1e-3),
-              f"parity step {i}: logits within 1e-3")
-        check(torch.equal(a.argmax(-1), b.argmax(-1)),
-              f"parity step {i}: greedy token")
-        worst = max(worst, float((a - b).abs().max()))
-        top2 = b.topk(2, -1).values
-        tokens.append((int(b.argmax()), float(top2[0, 0] - top2[0, 1])))
+    runs, _, _ = parity_runs(model, cpu, gpu, {"tokens": prompt}, 256, 8,
+                             200)
+    worst, tokens = hold_logits(SERVE_ARCH, runs)
     say("parity", (
         f"{SERVE_ARCH} full width, 2 layers, f32: prefill of 200 tokens and "
         f"8 greedy decode steps on the card equal the CPU run: max |logit "
         f"err| {worst!r}, tokens and CPU top-1 margins {tokens}"))
+    del cpu, gpu
+    parity_moe()
+    parity_whisper()
+    parity_vlm()
+    parity_jamba_ssm()
+    torch.cuda.empty_cache()
+
+
+class RouteLog:
+    """Records, while entered, each ``moe._route`` call's chosen experts and
+    its f32 router probabilities (recomputed beside the call)."""
+
+    def __enter__(self):
+        self.calls, self.inner = [], moe._route
+
+        def recording(xt, router, E, K):
+            out = self.inner(xt, router, E, K)
+            probs = torch.softmax(xt.float() @ router.float(), dim=-1)
+            self.calls.append((out[1].cpu(), probs.cpu()))
+            return out
+
+        moe._route = recording
+        return self
+
+    def __exit__(self, *exc):
+        moe._route = self.inner
+
+
+def parity_moe() -> None:
+    """granite-moe at full width, 2 layers, f32.  The routing is compared
+    first: where the card and the CPU choose another expert set for a
+    token, the gap between its K-th and (K+1)-th probability (on the CPU)
+    must be f32 noise (at most 1e-5); such a tie is printed, and the logits
+    are held only over the steps before it (the runs take other experts
+    from there on)."""
+    cfg = dataclasses.replace(
+        get_config("granite-moe-1b-a400m", dtype="float32"), n_layers=2)
+    model = build_model(cfg)
+    gpu = model.init(torch.Generator(device="cuda").manual_seed(5))
+    cpu = host_copy(gpu)
+    prompt = torch.from_numpy(
+        np.random.default_rng(5).integers(0, cfg.vocab, size=(1, 200)))
+    steps = 8
+    runs, _, logs = parity_runs(model, cpu, gpu, {"tokens": prompt}, 256,
+                                steps, 200, around=RouteLog)
+    calls = {dev: log.calls for dev, log in logs.items()}
+    n_moe, K = cfg.n_layers, cfg.moe.top_k
+    check(len(calls["cpu"]) == len(calls["cuda"]) == n_moe * (steps + 1),
+          f"granite parity: {len(calls['cuda'])} routing calls == {n_moe} "
+          f"MoE layers x {steps + 1} steps")
+    tie = None
+    for j, ((ids_c, probs), (ids_g, _)) in enumerate(zip(calls["cpu"],
+                                                          calls["cuda"])):
+        rows = (ids_c.sort(-1).values != ids_g.sort(-1).values).any(-1)
+        if not bool(rows.any()):
+            continue
+        top = probs[rows].sort(-1, descending=True).values
+        gap = float((top[:, K - 1] - top[:, K]).max())
+        check(gap <= 1e-5, f"granite parity: routing call {j} (step "
+              f"{j // n_moe}, layer {j % n_moe}) chose other experts for "
+              f"{int(rows.sum())} tokens at a probability gap of {gap}")
+        tie = (j // n_moe, j % n_moe, int(rows.sum()), gap)
+        break
+    held = steps + 1 if tie is None else tie[0]
+    worst, tokens = hold_logits("granite-moe", runs, held)
+    routing = ("the same experts in every call" if tie is None else
+               f"a tie at step {tie[0]}, layer {tie[1]}: {tie[2]} tokens "
+               f"at a probability gap of {tie[3]!r}")
+    logits = (f"no step's logits held (the tie is in the prefill)"
+              if held == 0 else
+              f"the logits of {held} of {steps + 1} steps (prefill of 200 "
+              f"tokens, then greedy decode) equal the CPU run: max |logit "
+              f"err| {worst!r}, tokens and CPU top-1 margins {tokens}")
+    say("parity", (
+        f"granite-moe-1b-a400m full width, 2 layers, f32, card against the "
+        f"CPU: routing {routing}; {logits}"))
+    del cpu, gpu
+
+
+def parity_whisper() -> None:
+    """whisper at full width, 2 encoder + 2 decoder layers, f32: the prefill
+    logits and its cross K/V caches, then 8 greedy decode steps."""
+    full = get_config("whisper-large-v3", dtype="float32")
+    cfg = dataclasses.replace(
+        full, n_layers=2, encoder=dataclasses.replace(full.encoder,
+                                                      n_layers=2))
+    model = build_model(cfg)
+    gpu = model.init(torch.Generator(device="cuda").manual_seed(6))
+    cpu = host_copy(gpu)
+    rng = np.random.default_rng(6)
+    batch = {"frames": torch.from_numpy(rng.standard_normal(
+                 (1, cfg.encoder.n_ctx, cfg.d_model)).astype(np.float32)),
+             "tokens": torch.from_numpy(rng.integers(0, cfg.vocab,
+                                                     size=(1, 32)))}
+    runs, caches, _ = parity_runs(model, cpu, gpu, batch, 48, 8, 32)
+    cross = {}
+    for name in ("ck", "cv"):
+        a, b = caches["cuda"][name].cpu(), caches["cpu"][name]
+        cross[name] = float((a - b).abs().max())
+        check(torch.allclose(a, b, atol=1e-3, rtol=1e-3),
+              f"whisper parity: {name} within 1e-3 ({cross[name]})")
+    worst, tokens = hold_logits("whisper", runs)
+    say("parity", (
+        f"whisper-large-v3 full width, 2 + 2 layers, f32, {cfg.encoder.n_ctx} "
+        f"frames and a 32-token prompt: the prefill, its cross K/V (max "
+        f"|err| {cross}) and 8 greedy decode steps on the card equal the CPU "
+        f"run: max |logit err| {worst!r}, tokens and CPU top-1 margins "
+        f"{tokens}"))
+    del cpu, gpu
+
+
+def parity_vlm() -> None:
+    """qwen2-vl at full width, 1 layer, f32: 16 patch embeddings (a 4 x 4
+    grid) and 16 tokens with M-RoPE positions, prefill and 4 decode
+    steps."""
+    cfg = dataclasses.replace(get_config("qwen2-vl-72b", dtype="float32"),
+                              n_layers=1)
+    model = build_model(cfg)
+    gpu = model.init(torch.Generator(device="cuda").manual_seed(7))
+    cpu = host_copy(gpu)
+    rng = np.random.default_rng(7)
+    batch = {"frontend_embeds": torch.from_numpy(rng.standard_normal(
+                 (1, 16, cfg.d_model)).astype(np.float32)),
+             "tokens": torch.from_numpy(rng.integers(0, cfg.vocab,
+                                                     size=(1, 16))),
+             "positions": mrope_positions(16, 4, 16)}
+    runs, _, _ = parity_runs(model, cpu, gpu, batch, 36, 4, 32)
+    worst, tokens = hold_logits("qwen2-vl", runs)
+    say("parity", (
+        f"qwen2-vl-72b full width, 1 layer, f32, 16 patch embeddings + 16 "
+        f"tokens with M-RoPE positions: prefill and 4 greedy decode steps on "
+        f"the card equal the CPU run: max |logit err| {worst!r}, tokens and "
+        f"CPU top-1 margins {tokens}"))
+    del cpu, gpu
+
+
+def parity_jamba_ssm() -> None:
+    """One of jamba's SSM layers at full width, f32 (a whole period is 53
+    GB of f32 weights on each side; the CPU tests hold the hybrid model):
+    ``ssm_prefill`` of 300 tokens (one launch of the f32 kernel with its
+    state output) against the CPU, y, the conv tail and the final state
+    within 1e-3 of each one's largest value, then 8 ``ssm_decode`` steps
+    seeded from them."""
+    cfg = get_config("jamba-v0.1-52b", dtype="float32")
+    gpu = ssm.init_ssm(torch.Generator(device="cuda").manual_seed(8), cfg)
+    cpu = host_copy(gpu)
+    rng = np.random.default_rng(8)
+    xs = [torch.from_numpy(rng.standard_normal((1, n, cfg.d_model)).astype(
+        np.float32)) for n in [300] + [1] * 8]
+    out = {}
+    for dev, params in (("cpu", cpu), ("cuda", gpu)):
+        zero_launches()
+        with torch.no_grad():
+            y, conv, state = ssm.ssm_prefill(params, cfg, xs[0].to(dev))
+            got = [y, conv, state]
+            for x in xs[1:]:
+                y, conv, state = ssm.ssm_decode(params, cfg, x.to(dev), conv,
+                                                state)
+                got.append(y)
+            got.append(state)
+        out[dev] = [t.cpu() for t in got]
+        if dev == "cuda":
+            check(launches()["ssd"] == 1
+                  and ssd_scan.ssd_scan_cuda.last_plan["variant"]
+                  == "cuda_cores", "jamba SSM parity: one launch of the f32 "
+                  "SSD kernel")
+    names = ["y", "conv tail", "state"] + [f"decode {i}" for i in
+                                           range(8)] + ["state after 8"]
+    errs = {}
+    for name, a, b in zip(names, out["cuda"], out["cpu"]):
+        scale = float(b.abs().max())
+        errs[name] = float((a - b).abs().max()) / scale
+        check(errs[name] <= 1e-3, f"jamba SSM parity {name}: |err| / "
+              f"largest {errs[name]}")
+    say("parity", (
+        f"jamba-v0.1-52b SSM layer at full width (H {cfg.ssm.n_ssm_heads(cfg.d_model)}, "
+        f"P {cfg.ssm.head_dim}, N {cfg.ssm.d_state}), f32: ssm_prefill of 300 "
+        f"tokens through the kernel with its state, then 8 ssm_decode "
+        f"steps, equal the CPU: max |err| / largest per output {errs}"))
 
 
 def device_time_by_name(prof) -> dict[str, list]:
@@ -1777,6 +2342,8 @@ def main() -> None:
 
     flash_launches = phase_serving()
     took["serving"] = time.perf_counter() - t0 - sum(took.values())
+    phase_zoo()
+    took["model zoo"] = time.perf_counter() - t0 - sum(took.values())
     phase_parity()
     took["parity"] = time.perf_counter() - t0 - sum(took.values())
     ssd_launches = phase_train()

@@ -13,7 +13,11 @@
 // where h is the [P, N] state carried from chunk to chunk (zero at the
 // start).  Rows past S load as zeros with dt = 0: identity steps, the same
 // as the Pallas path's padding, without padding anything in memory.  x, Bm,
-// Cm are f32 or bf16; dt, A, D are f32; y has x's type.
+// Cm are f32 or bf16; dt, A, D are f32; y has x's type.  On request the
+// state after the last chunk (the state at S: padded steps are identities)
+// is written as f32 [B, H, P, N], which seeds the recurrent decode after a
+// prefill; the Pallas kernel has no such output (the JAX package's prefill
+// runs its plain chunked version for it).
 //
 // What bounds it.  Per (b, h, chunk) the scan does Q(Q+1)/2 (N + P)
 // multiply-adds for the causal triangles of C.B^T and W x, and 2 Q P N for
@@ -41,7 +45,8 @@
 //      chunk's rows, f32 into a scratch [B, H, nc, P, N].
 //   2. ssd_fwd_state_pass, one thread per 4 state elements of a (b, h):
 //      h_in[c] = h; h = exp(seg_c) h + s_c over the chunks in order, h in
-//      f32 registers, h_in written as bf16 [B, H, nc, P, N] for phase 3.
+//      f32 registers, h_in written as bf16 [B, H, nc, P, N] for phase 3,
+//      and the final h as f32 where the caller asks for it.
 //   3. ssd_fwd_chunk_scan, one block per (chunk, h, b), a warpgroup per 64
 //      of the chunk's rows: S = C B^T and y = C h_in^T (both K-major, K =
 //      N) in one commit; y's rows scaled by exp(cum_i) in the accumulator
@@ -65,7 +70,8 @@
 // * f32: ssd_fwd_f32<P, N>, on the CUDA cores in f32 FMAs, which its 2e-4
 //   tolerance needs (no TF32, no bf16 operands).  One block per (h, b)
 //   loops over the chunks itself with the state in registers (each thread
-//   owns a micro-tile, mirrored into shared memory for C . h_in); x, B, C,
+//   owns a micro-tile, mirrored into shared memory for C . h_in, and
+//   written out after the last chunk where the caller asks); x, B, C,
 //   dt read through strides; W built in row panels of 32, all f32 in
 //   shared memory with odd row strides (163 KB at Q = 128, P = 64, N = 128,
 //   232,192 bytes at most), one block per SM; every product a register
@@ -237,12 +243,14 @@ ssd_fwd_chunk_state(const __grid_constant__ CUtensorMap tx, const __grid_constan
   }
 }
 
-// h_in[c] = h (as bf16); h = exp(seg_c) h + s_c, over the chunks in order.
+// h_in[c] = h (as bf16); h = exp(seg_c) h + s_c, over the chunks in order;
+// then the final h into final_state (f32 [B, H, P, N]) unless it is null.
 // Block (bh, tile): elements 4 (tile * 256 + thread) .. + 3 of the [P, N]
 // state of one (b, h).
 __global__ void __launch_bounds__(kPassThreads)
 ssd_fwd_state_pass(const float* __restrict__ cum, const float* __restrict__ state,
-                   __nv_bfloat16* __restrict__ h_in, int nc, int Q, int PN) {
+                   __nv_bfloat16* __restrict__ h_in, float* __restrict__ final_state, int nc,
+                   int Q, int PN) {
   const int e = (blockIdx.y * kPassThreads + threadIdx.x) * 4;
   if (e >= PN) return;
   const int64_t bh = blockIdx.x;
@@ -259,6 +267,7 @@ ssd_fwd_state_pass(const float* __restrict__ cum, const float* __restrict__ stat
     hs = make_float4(decay * hs.x + sc.x, decay * hs.y + sc.y, decay * hs.z + sc.z,
                      decay * hs.w + sc.w);
   }
+  if (final_state != nullptr) *reinterpret_cast<float4*>(final_state + bh * PN + e) = hs;
 }
 
 template <int Pp, int Np, int QT>
@@ -404,6 +413,7 @@ struct Args {
   void* y;
   float *cum, *state;
   __nv_bfloat16* h_in;
+  float* final_state;  // f32 [B, H, P, N], or null: not written
   int B, S, H, G, P, N, Q;
   Strides sx, sdt, sb, sc;
 };
@@ -457,7 +467,8 @@ int launch_wgmma(const Args& a, cudaStream_t stream) {
   if (const cudaError_t e = cudaGetLastError(); e != cudaSuccess) return static_cast<int>(e);
   const int PN = a.P * a.N;
   const dim3 pass_grid(a.B * a.H, (PN / 4 + kPassThreads - 1) / kPassThreads);
-  ssd_fwd_state_pass<<<pass_grid, kPassThreads, 0, stream>>>(a.cum, a.state, a.h_in, nc, a.Q, PN);
+  ssd_fwd_state_pass<<<pass_grid, kPassThreads, 0, stream>>>(a.cum, a.state, a.h_in,
+                                                              a.final_state, nc, a.Q, PN);
   if (const cudaError_t e = cudaGetLastError(); e != cudaSuccess) return static_cast<int>(e);
   ssd_fwd_chunk_scan<Pp, Np, QT><<<grid, 2 * QT, kSmem3, stream>>>(
       tx, tb, tc, th, a.dt, a.cum, a.D, static_cast<__nv_bfloat16*>(a.y), a.S, a.H, a.G, a.P,
@@ -543,7 +554,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 ssd_fwd_f32(const float* __restrict__ x, const float* __restrict__ dt,
             const float* __restrict__ A, const float* __restrict__ Bm,
             const float* __restrict__ Cm, const float* __restrict__ D, float* __restrict__ y,
-            int S, int H, int G, int Q, Strides sx, Strides sdt, Strides sb, Strides sc) {
+            float* __restrict__ final_state, int S, int H, int G, int Q, Strides sx,
+            Strides sdt, Strides sb, Strides sc) {
   // y micro-tile: columns p = lane % LP + LP * m (m < PM), rows
   // r = warp * RW + lane / LP + 8 * RW * k (k < RM) of a 32-row panel.
   constexpr int LP = P < 32 ? P : 32, RW = 32 / LP, PM = P / LP, RM = 4 / RW;
@@ -689,6 +701,12 @@ ssd_fwd_f32(const float* __restrict__ x, const float* __restrict__ dt,
       }
     __syncthreads();  // sS, sX, sB are rewritten by the next chunk
   }
+  if (final_state == nullptr) return;
+  float* fin = final_state + (static_cast<int64_t>(b) * H + h) * P * N;
+#pragma unroll
+  for (int k = 0; k < PK; ++k)
+#pragma unroll
+    for (int m = 0; m < NM; ++m) fin[(sp + 8 * RWn * k) * N + sn + LN * m] = hs[k][m];
 }
 
 template <int P, int N>
@@ -706,8 +724,8 @@ int launch_f32(const Args& a, cudaStream_t stream) {
   const dim3 grid(a.H, a.B);
   ssd_fwd_f32<P, N><<<grid, kThreads, smem_floats(a.Q, P, N) * 4, stream>>>(
       static_cast<const float*>(a.x), a.dt, a.A, static_cast<const float*>(a.Bm),
-      static_cast<const float*>(a.Cm), a.D, static_cast<float*>(a.y), a.S, a.H, a.G, a.Q, a.sx,
-      a.sdt, a.sb, a.sc);
+      static_cast<const float*>(a.Cm), a.D, static_cast<float*>(a.y), a.final_state, a.S, a.H,
+      a.G, a.Q, a.sx, a.sdt, a.sb, a.sc);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -778,13 +796,15 @@ extern "C" int ssd_scan_geometry(int dtype, int P, int N, int rows, int phase, i
 // dtype of x, Bm, Cm and y: 0 = float32 (the CUDA-core kernel), 1 =
 // bfloat16 (the three tensor-core phases, which take the scratch: cum f32
 // [B, H, nc * Q], state f32 and h_in bf16 [B, H, nc, P, N], nc = ceil(S /
-// Q)).  rows: the plan's tile rows.  Strides are in elements, for the batch,
+// Q)).  final_state: f32 [B, H, P, N], 16-byte aligned, for the state after
+// the last step, or null.  rows: the plan's tile rows.  Strides are in elements, for the batch,
 // sequence and head (group) axes; the last axis of x, Bm and Cm is
 // contiguous.  The wrapper checks the shapes, and for bf16 that x, Bm, Cm
 // are 16-byte aligned with strides of a multiple of 16 bytes.
 extern "C" int ssd_scan_fwd(const void* x, const void* dt, const void* A, const void* Bm,
                             const void* Cm, const void* D, void* y, void* cum, void* state,
-                            void* h_in, int B, int S, int H, int G, int P, int N, int Q,
+                            void* h_in, void* final_state, int B, int S, int H, int G, int P,
+                            int N, int Q,
                             int dtype, int rows, int64_t sxb, int64_t sxs, int64_t sxh,
                             int64_t sdb, int64_t sds, int64_t sdh, int64_t sbb, int64_t sbs,
                             int64_t sbg, int64_t scb, int64_t scs, int64_t scg, void* stream) {
@@ -794,7 +814,7 @@ extern "C" int ssd_scan_fwd(const void* x, const void* dt, const void* A, const 
                static_cast<const float*>(dt), static_cast<const float*>(A),
                static_cast<const float*>(D), y,
                static_cast<float*>(cum), static_cast<float*>(state),
-               static_cast<__nv_bfloat16*>(h_in),
+               static_cast<__nv_bfloat16*>(h_in), static_cast<float*>(final_state),
                B, S, H, G, P, N, Q,
                {sxb, sxs, sxh}, {sdb, sds, sdh}, {sbb, sbs, sbg}, {scb, scs, scg}};
   return launch(a, static_cast<cudaStream_t>(stream));

@@ -6,7 +6,9 @@ fallback from the kernel to the plain version, and no option that picks
 one: the reference's ``sweep_impl`` ("jnp" | "pallas") and ``attn_impl``
 ("xla" | "pallas") become the device the tensors lie on.  ``ssd_scan`` is
 differentiable on both devices: on the card through ``SSDScan`` (kernel
-forward, plain-version backward), on the CPU through the plain version.
+forward, plain-version backward), on the CPU through the plain version;
+with ``return_state`` (a prefill, which needs no gradient) it returns the
+final state too, from the kernel itself on the card.
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ from torch import Tensor
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import flash_attention_cuda
-from repro_torch.kernels.ssd_scan import SSDScan
+from repro_torch.kernels.ssd_scan import SSDScan, ssd_scan_cuda
 from repro_torch.kernels.vm_update import advance_sweep_cuda
 
 
@@ -54,13 +56,20 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
 
 
 def ssd_scan(x: Tensor, dt: Tensor, A: Tensor, Bm: Tensor, Cm: Tensor,
-             D: Tensor, *, chunk: int = 128) -> Tensor:
+             D: Tensor, *, chunk: int = 128, return_state: bool = False):
     """The Mamba2 SSD scan routed by the device ``x`` lies on: the CUDA
     kernel (through ``SSDScan``) for a CUDA tensor, ``ref.ssd_scan_ref`` for
-    a CPU tensor.  S need not be a multiple of ``chunk``."""
+    a CPU tensor.  S need not be a multiple of ``chunk``.  With
+    ``return_state``, ``(y, final state [B, H, P, N] f32)``: on the card the
+    kernel's own state output, outside autograd (``ssd_scan_cuda`` refuses
+    inputs that require a gradient)."""
     kind = x.device.type
     if kind == "cuda":
+        if return_state:
+            return ssd_scan_cuda(x, dt, A, Bm, Cm, D, chunk=chunk,
+                                 return_state=True)
         return SSDScan.apply(x, dt, A, Bm, Cm, D, chunk)
     if kind == "cpu":
-        return ref.ssd_scan_ref(x, dt, A, Bm, Cm, D, chunk=chunk)
+        return ref.ssd_scan_ref(x, dt, A, Bm, Cm, D, chunk=chunk,
+                                return_state=return_state)
     raise ValueError(f"no SSD scan for device type {kind!r}")

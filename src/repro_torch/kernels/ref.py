@@ -183,13 +183,19 @@ def ssd_chunked_ref(x: Tensor, dt: Tensor, A: Tensor, Bm: Tensor, Cm: Tensor,
 
 
 def ssd_scan_ref(x: Tensor, dt: Tensor, A: Tensor, Bm: Tensor, Cm: Tensor,
-                 D: Tensor, *, chunk: int = 128) -> Tensor:
+                 D: Tensor, *, chunk: int = 128, return_state: bool = False):
     """What the SSD kernel computes (and the JAX package's
     ``ssd_scan_pallas``): the chunked scan over S padded up to a multiple of
-    ``chunk`` with ``dt = 0`` (identity steps), cut back to S."""
+    ``chunk`` with ``dt = 0`` (identity steps), cut back to S.  With
+    ``return_state`` also the final ``[B, H, P, N]`` state, which the
+    padded steps leave as the state at S."""
     s = x.shape[1]
     pad = (-s) % chunk
     if pad:
         x, Bm, Cm = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (x, Bm, Cm))
         dt = F.pad(dt, (0, 0, 0, pad))
-    return ssd_chunked_ref(x, dt, A, Bm, Cm, D, chunk=chunk)[:, :s]
+    out = ssd_chunked_ref(x, dt, A, Bm, Cm, D, chunk=chunk,
+                          return_state=return_state)
+    if return_state:
+        return out[0][:, :s], out[1]
+    return out[:, :s]

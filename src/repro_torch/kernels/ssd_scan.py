@@ -14,6 +14,8 @@ tensor launches the tensor-core phases or raises.
 
 ``ssd_scan_cuda`` takes CUDA tensors only and returns a result outside the
 autograd graph; it refuses to run where autograd would need a gradient.
+With ``return_state`` it also returns the f32 ``[B, H, P, N]`` state after
+the last step, which a prefill hands to the recurrent decode.
 ``SSDScan`` is the differentiable form: its forward launches the kernel, its
 backward recomputes the plain version (``ref.ssd_scan_ref``) from the saved
 inputs under autograd and differentiates that.  The JAX package has no
@@ -138,7 +140,7 @@ def kernel_plan(b: int, s: int, h: int, p: int, g: int, n: int, chunk: int,
 def _library() -> ctypes.CDLL:
     lib = kbuild.load(SRC, NVCC_FLAGS)
     p, i, q = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    lib.ssd_scan_fwd.argtypes = [p] * 10 + [i] * 9 + [q] * 12 + [p]
+    lib.ssd_scan_fwd.argtypes = [p] * 11 + [i] * 9 + [q] * 12 + [p]
     lib.ssd_scan_fwd.restype = i
     ip = ctypes.POINTER(i)
     lib.ssd_scan_geometry.argtypes = [i, i, i, i, i, ip, ip]
@@ -215,12 +217,13 @@ def _check(x, dt, A, Bm, Cm, D, chunk) -> dict:
 
 
 def ssd_scan_cuda(x: Tensor, dt: Tensor, A: Tensor, Bm: Tensor, Cm: Tensor,
-                  D: Tensor, *, chunk: int = 128) -> Tensor:
+                  D: Tensor, *, chunk: int = 128, return_state: bool = False):
     """The SSD scan on the card: x ``[B, S, H, P]``, dt ``[B, S, H]``, A and
     D ``[H]``, Bm/Cm ``[B, S, G, N]`` -> y ``[B, S, H, P]`` in x's dtype, the
     contract of ``ref.ssd_scan_ref`` (S need not be a multiple of
-    ``chunk``).  x, Bm, Cm and dt are read through their strides (for bf16
-    x, Bm and Cm each a multiple of 16 bytes).
+    ``chunk``); with ``return_state``, ``(y, state)`` with the f32 state
+    ``[B, H, P, N]`` after step S.  x, Bm, Cm and dt are read through their
+    strides (for bf16 x, Bm and Cm each a multiple of 16 bytes).
 
     Launches on the current stream and does not synchronise: bf16 launches
     the three phases of ``kernel_plan`` with the scratch it lists.  Each
@@ -232,8 +235,10 @@ def ssd_scan_cuda(x: Tensor, dt: Tensor, A: Tensor, Bm: Tensor, Cm: Tensor,
     b, s, h, p = x.shape
     g, n = Bm.shape[2], Bm.shape[3]
     y = torch.empty((b, s, h, p), dtype=x.dtype, device=x.device)
+    state = (torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
+             if return_state else None)
     if y.numel() == 0:
-        return y
+        return (y, state.zero_()) if return_state else y
     A, D = A.contiguous(), D.contiguous()
     scratch = [torch.empty(shape, dtype=dtype, device=x.device)
                for shape, dtype in plan["scratch"].values()] or [None] * 3
@@ -243,6 +248,7 @@ def ssd_scan_cuda(x: Tensor, dt: Tensor, A: Tensor, Bm: Tensor, Cm: Tensor,
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
             Cm.data_ptr(), D.data_ptr(), y.data_ptr(),
             *(t.data_ptr() if t is not None else None for t in scratch),
+            state.data_ptr() if return_state else None,
             b, s, h, g, p, n, chunk, _DTYPES[x.dtype], plan["rows"],
             *x.stride()[:3], *dt.stride(), *Bm.stride()[:3],
             *Cm.stride()[:3], torch.cuda.current_stream().cuda_stream)
@@ -259,7 +265,7 @@ def ssd_scan_cuda(x: Tensor, dt: Tensor, A: Tensor, Bm: Tensor, Cm: Tensor,
                            f"{x.dtype}, chunk {chunk}, plan {plan})")
     ssd_scan_cuda.launches += 1
     ssd_scan_cuda.last_plan = plan
-    return y
+    return (y, state) if return_state else y
 
 
 ssd_scan_cuda.launches = 0

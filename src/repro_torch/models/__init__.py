@@ -1,5 +1,5 @@
-"""repro_torch.models — the model zoo of the port (dense and SSM families so
-far).
+"""repro_torch.models — the model zoo of the port: the dense, MoE, SSM,
+hybrid, encoder-decoder and vlm families.
 
 Shares the parameter-dict style and the ``Model`` API of ``repro.models``.
 """

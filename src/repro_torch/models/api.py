@@ -1,10 +1,12 @@
 """Unified model API: the port of ``repro.models.api``.
 
-``Model`` wraps init / train-loss / prefill / decode behind one interface.
-The port runs the dense family (phi3, qwen3, gemma2, internlm2) and the SSM
-family (mamba2); ``build_model`` raises ``NotImplementedError`` naming any
-other family.  ``param_specs`` and ``input_specs`` (the dry run) wait for a
-later slice.
+``Model`` wraps init / train-loss / prefill / decode behind one interface
+for every family of the model zoo, routing the encoder-decoder (whisper) to
+``models/encdec.py`` and the rest (dense, MoE, SSM, hybrid, vlm) to
+``models/lm.py``.  A batch is a dict: ``tokens``, and ``labels`` for the
+loss; ``frames`` (encdec); ``frontend_embeds`` and ``positions`` (vlm:
+``[3, B, S]`` M-RoPE positions).  ``param_specs`` and ``input_specs`` (the
+dry run) wait for ``launch/dryrun.py``.
 """
 from __future__ import annotations
 
@@ -13,15 +15,8 @@ from typing import Any
 
 import torch
 
-from repro_torch.models import lm
+from repro_torch.models import encdec, lm
 from repro_torch.models.config import ModelConfig
-
-_NOT_YET = {
-    "moe": "MoE layers (models/moe.py)",
-    "hybrid": "MoE layers (models/moe.py)",
-    "encdec": "the encoder-decoder (models/encdec.py)",
-    "vlm": "M-RoPE and frontend embeddings",
-}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,28 +25,41 @@ class Model:
 
     def init(self, generator: torch.Generator) -> dict:
         """Random f32 parameters on ``generator.device``."""
+        if self.cfg.family == "encdec":
+            return encdec.init_encdec(generator, self.cfg)
         return lm.init_lm(generator, self.cfg)
 
     def loss(self, params, batch: dict[str, Any]):
-        """Mean next-token loss of ``batch`` (``tokens``, ``labels`` with
-        -100 masked, optional ``positions``): a 0-d f32 tensor."""
-        return lm.lm_loss(params, self.cfg, batch["tokens"], batch["labels"],
-                          positions=batch.get("positions"))
+        """Mean next-token loss of ``batch`` (``labels`` with -100 masked):
+        a 0-d f32 tensor."""
+        cfg = self.cfg
+        if cfg.family == "encdec":
+            return encdec.encdec_loss(params, cfg, batch["frames"],
+                                      batch["tokens"], batch["labels"])
+        return lm.lm_loss(params, cfg, batch["tokens"], batch["labels"],
+                          positions=batch.get("positions"),
+                          frontend_embeds=batch.get("frontend_embeds"))
 
     def prefill(self, params, batch: dict[str, Any], max_len: int):
-        return lm.prefill(params, self.cfg, batch["tokens"], max_len,
-                          positions=batch.get("positions"))
+        cfg = self.cfg
+        if cfg.family == "encdec":
+            return encdec.encdec_prefill(params, cfg, batch["frames"],
+                                         batch["tokens"], max_len)
+        return lm.prefill(params, cfg, batch["tokens"], max_len,
+                          positions=batch.get("positions"),
+                          frontend_embeds=batch.get("frontend_embeds"))
 
     def decode_step(self, params, caches, token, pos):
+        if self.cfg.family == "encdec":
+            return encdec.encdec_decode_step(params, self.cfg, caches, token,
+                                             pos)
         return lm.decode_step(params, self.cfg, caches, token, pos)
 
     def init_caches(self, batch: int, max_len: int, device=None):
+        if self.cfg.family == "encdec":
+            return encdec.init_encdec_caches(self.cfg, batch, max_len, device)
         return lm.init_caches(self.cfg, batch, max_len, device)
 
 
 def build_model(cfg: ModelConfig) -> Model:
-    if cfg.family in _NOT_YET:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family needs {_NOT_YET[cfg.family]},"
-            " which the port does not run yet")
     return Model(cfg)

@@ -7,8 +7,10 @@ plain version (``ref.attention_ref``) for CPU tensors; the reference's
 tensor code, as in the reference: an einsum over the cache, no kernel.
 
 Supports GQA, causal masking, sliding windows, the attention-logit softcap,
-qk-norm and RoPE.  Not ported: M-RoPE (vlm), learned positions and
-cross-attention as encdec uses them, the reference's XLA ``flash_xla`` (the
+qk-norm, RoPE and M-RoPE (vlm: ``[3, B, S]`` positions), learned absolute
+positions (encdec: no rotation here; the positions are added to the
+embeddings) and cross-attention (``kv_x``: keys and values from the encoder
+states, no causal mask).  Not ported: the reference's XLA ``flash_xla`` (the
 port has no impl knob) and ``_decode_flash_lsharded`` (it needs a device
 mesh).
 """
@@ -38,54 +40,70 @@ def init_attention(generator: torch.Generator, cfg) -> dict:
     return p
 
 
-def _sdpa(q, k, v, *, causal, window, softcap, scale):
-    # the kernel takes contiguous [B, H, S, D]; the plain version any layout
+def sdpa(q, k, v, *, causal, window, softcap, scale):
+    """q ``[B, Hq, Sq, Dh]``, k/v ``[B, Hk, Sk, Dh]`` through
+    ``ops.flash_attention`` (the kernel takes them contiguous; the plain
+    version any layout)."""
     return ops.flash_attention(
         q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
         window=window, softcap=softcap, scale=scale)
 
 
-def _project_qkv(params, cfg, x):
-    """Project and head-split: q ``[B, S, Hq, Dh]``, k/v ``[B, S, Hk, Dh]``."""
-    dt = x.dtype
+def project_q(params, cfg, x):
+    """The query projection alone, head-split ``[B, S, Hq, Dh]`` (a decode
+    step's cross-attention reads its keys and values from the cache)."""
     B, S, _ = x.shape
-    q = (x @ params["wq"].to(dt)).reshape(B, S, cfg.n_heads, cfg.d_head)
-    k = (x @ params["wk"].to(dt)).reshape(B, S, cfg.n_kv_heads, cfg.d_head)
-    v = (x @ params["wv"].to(dt)).reshape(B, S, cfg.n_kv_heads, cfg.d_head)
+    q = (x @ params["wq"].to(x.dtype)).reshape(B, S, cfg.n_heads, cfg.d_head)
     if cfg.qk_norm:
         q = layers.rms_norm(q, params["q_norm"], cfg.norm_eps)
+    return q
+
+
+def project_qkv(params, cfg, x, kv_x=None):
+    """Project and head-split: q ``[B, S, Hq, Dh]`` from x, k/v ``[B, Skv,
+    Hk, Dh]`` from ``kv_x`` (the cross-attention source; default x)."""
+    dt = x.dtype
+    src = x if kv_x is None else kv_x
+    B, Skv, _ = src.shape
+    k = (src @ params["wk"].to(dt)).reshape(B, Skv, cfg.n_kv_heads, cfg.d_head)
+    v = (src @ params["wv"].to(dt)).reshape(B, Skv, cfg.n_kv_heads, cfg.d_head)
+    if cfg.qk_norm:
         k = layers.rms_norm(k, params["k_norm"], cfg.norm_eps)
-    return q, k, v
+    return project_q(params, cfg, x), k, v
 
 
 def _rope(cfg, q, k, positions):
+    """RoPE on q and k ``[B, S, H, Dh]``, by the reference's branches: none
+    for learned positions; M-RoPE for ``[3, B, S]`` positions with
+    ``mrope_sections`` set; plain RoPE otherwise (stream 0 of 3-D
+    positions); ``None`` means ``0 .. S-1``."""
     if cfg.pos_embed != "rope":
-        raise NotImplementedError(
-            f"{cfg.name}: pos_embed={cfg.pos_embed!r} (encdec) is not ported")
-    if cfg.mrope_sections is not None:
-        raise NotImplementedError(f"{cfg.name}: M-RoPE (vlm) is not ported")
+        return q, k
+    if positions is None:
+        B, S = q.shape[:2]
+        positions = torch.arange(S, device=q.device)[None].expand(B, S)
+    if cfg.mrope_sections is not None and positions.dim() == 3:
+        return tuple(layers.apply_mrope(t, positions, cfg.rope_theta,
+                                        cfg.mrope_sections) for t in (q, k))
     if positions.dim() == 3:
         positions = positions[0]
     return (layers.apply_rope(q, positions, cfg.rope_theta),
             layers.apply_rope(k, positions, cfg.rope_theta))
 
 
-def _default_positions(x: Tensor) -> Tensor:
-    B, S, _ = x.shape
-    return torch.arange(S, device=x.device)[None].expand(B, S)
-
-
 def attention(params: dict, cfg, x: Tensor, positions: Tensor | None = None,
-              *, causal: bool = True, window: int | None = None) -> Tensor:
-    """Self-attention over the whole sequence (the trunk of ``lm_logits``)."""
+              *, causal: bool = True, window: int | None = None,
+              kv_x: Tensor | None = None) -> Tensor:
+    """Attention over the whole sequence (the trunk of ``lm_logits`` and of
+    the encoder-decoder): self-attention, or cross-attention over ``kv_x``,
+    which takes no rotation and no causal mask."""
     B, S, _ = x.shape
-    q, k, v = _project_qkv(params, cfg, x)
-    if positions is None:
-        positions = _default_positions(x)
-    q, k = _rope(cfg, q, k, positions)
-    out = _sdpa(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                causal=causal, window=window, softcap=cfg.attn_softcap,
-                scale=cfg.d_head ** -0.5)
+    q, k, v = project_qkv(params, cfg, x, kv_x)
+    if kv_x is None:
+        q, k = _rope(cfg, q, k, positions)
+    out = sdpa(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+               causal=causal and kv_x is None, window=window,
+               softcap=cfg.attn_softcap, scale=cfg.d_head ** -0.5)
     out = out.transpose(1, 2).reshape(B, S, cfg.n_heads * cfg.d_head)
     return out @ params["wo"].to(x.dtype)
 
@@ -98,13 +116,11 @@ def attention_prefill(params, cfg, x, positions, *, window=None):
     """Prefill: attention over the prompt, and this layer's ``(k, v)``
     ``[B, Hk, S, Dh]`` for the cache."""
     B, S, _ = x.shape
-    q, k, v = _project_qkv(params, cfg, x)
-    if positions is None:
-        positions = _default_positions(x)
+    q, k, v = project_qkv(params, cfg, x)
     q, k = _rope(cfg, q, k, positions)
     kT, vT = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
-    out = _sdpa(q.transpose(1, 2), kT, vT, causal=True, window=window,
-                softcap=cfg.attn_softcap, scale=cfg.d_head ** -0.5)
+    out = sdpa(q.transpose(1, 2), kT, vT, causal=True, window=window,
+               softcap=cfg.attn_softcap, scale=cfg.d_head ** -0.5)
     out = out.transpose(1, 2).reshape(B, S, cfg.n_heads * cfg.d_head)
     return out @ params["wo"].to(x.dtype), (kT, vT)
 
@@ -123,8 +139,11 @@ def attention_decode(params: dict, cfg, x: Tensor, k_cache: Tensor,
     """
     B = x.shape[0]
     L = k_cache.shape[2]
-    q, k, v = _project_qkv(params, cfg, x)
-    q, k = _rope(cfg, q, k, pos[:, None])
+    q, k, v = project_qkv(params, cfg, x)
+    positions = pos[:, None]
+    if cfg.mrope_sections is not None:       # the same position, 3 streams
+        positions = positions[None].expand(3, B, 1)
+    q, k = _rope(cfg, q, k, positions)
     kT, vT = k.transpose(1, 2), v.transpose(1, 2)              # [B,Hk,1,Dh]
 
     rows = torch.arange(B, device=x.device)

@@ -1,4 +1,5 @@
-"""Shared model primitives: norms, rotary embeddings, SwiGLU, embeddings.
+"""Shared model primitives: norms, rotary embeddings (incl. M-RoPE), SwiGLU,
+embeddings.
 
 The port of ``repro.models.layers``, to the same math.  Parameters are plain
 nested dicts of tensors, kept in f32 and cast to the compute dtype at each
@@ -51,16 +52,40 @@ def rope_freqs(d_head: int, theta: float, device=None) -> Tensor:
     return 1.0 / (theta ** exps)
 
 
-def apply_rope(x: Tensor, positions: Tensor, theta: float) -> Tensor:
-    """x: ``[B, S, H, Dh]``; positions: ``[B, S]`` int.  Rotates the split
-    halves ``(x1, x2)`` of the head dim, not interleaved pairs."""
-    freqs = rope_freqs(x.shape[-1], theta, x.device)                # [Dh/2]
-    ang = positions[..., None].float() * freqs                       # [B,S,Dh/2]
+def _rotate(x: Tensor, ang: Tensor) -> Tensor:
+    """Rotates the split halves ``(x1, x2)`` of x's head dim (not
+    interleaved pairs) by the angles ``ang`` ``[B, S, Dh/2]``, in f32."""
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_rope(x: Tensor, positions: Tensor, theta: float) -> Tensor:
+    """x: ``[B, S, H, Dh]``; positions: ``[B, S]`` int."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)                # [Dh/2]
+    return _rotate(x, positions[..., None].float() * freqs)
+
+
+def apply_mrope(x: Tensor, positions3: Tensor, theta: float,
+                sections: tuple[int, ...]) -> Tensor:
+    """Multimodal RoPE (qwen2-vl): the rotary half-dims split into (t, h, w)
+    sections, each rotated by its own position stream.
+
+    x: ``[B, S, H, Dh]``; positions3: ``[3, B, S]`` (temporal, height,
+    width); sections: half-dims per stream, summing to ``Dh // 2``.  The
+    reference gathers a position per half-dim; the port multiplies each
+    stream by its slice of the frequencies, the same f32 products.
+    """
+    dh = x.shape[-1]
+    if sum(sections) != dh // 2:
+        raise ValueError(f"apply_mrope: sections {tuple(sections)} do not sum "
+                         f"to Dh/2 = {dh // 2}")
+    freqs = rope_freqs(dh, theta, x.device).split(list(sections))
+    pos = positions3.float()
+    ang = torch.cat([pos[i][..., None] * f for i, f in enumerate(freqs)], -1)
+    return _rotate(x, ang)
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,5 @@
-"""Decoder-only LM, dense and SSM families: the port of ``repro.models.lm``.
+"""Decoder-only LM covering the dense, MoE, SSM, hybrid and vlm families: the
+port of ``repro.models.lm``.
 
 The parameter tree is the reference's: nested dicts, with the layer stack
 under ``periods`` stacked on a leading ``n_periods`` axis, so that
@@ -9,8 +10,10 @@ in the reference.
 
 Ported: ``init_lm``, ``forward_hidden``, ``lm_loss``, ``lm_logits``,
 ``init_caches``, ``prefill`` and ``decode_step``, for attention and SSM
-mixers with dense MLPs (or none, as in mamba2).  An MoE MLP, the vlm and
-encdec families raise ``NotImplementedError``.
+mixers with dense or MoE MLPs (or none, as in mamba2), and the vlm's
+frontend embeddings, prepended to the token embeddings.  The MoE balance
+loss is summed over the layers into ``forward_hidden``'s second output;
+prefill and decode drop it, as the reference does.
 """
 from __future__ import annotations
 
@@ -19,21 +22,11 @@ from torch import Tensor
 
 from repro_torch.core import resolve_device
 from repro_torch.models import attention as attn
-from repro_torch.models import layers, ssm
+from repro_torch.models import layers, moe, ssm
 from repro_torch.models.config import ModelConfig
 
 AUX_LOSS_WEIGHT = 0.01
 LOSS_CHUNK = 512
-
-
-def _check_ported(cfg: ModelConfig) -> None:
-    for i in range(cfg.period):
-        if cfg.mlp_kind(i) == "moe":
-            raise NotImplementedError(
-                f"{cfg.name}: moe MLPs are not ported yet")
-    if cfg.family in ("vlm", "encdec") or cfg.n_frontend_tokens:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet")
 
 
 def _period(periods: dict, n: int) -> dict:
@@ -43,6 +36,13 @@ def _period(periods: dict, n: int) -> dict:
 
 
 def _stack(trees: list[dict]) -> dict:
+    """The trees' leaves stacked on a new leading axis.  A single tree's
+    leaves become views with that axis, not copies: one period of
+    jamba at full width is 53 GB of f32 weights, and a copy would not fit
+    the card beside it."""
+    if len(trees) == 1:
+        return {k: _stack([v]) if isinstance(v, dict) else v[None]
+                for k, v in trees[0].items()}
     return {k: _stack([t[k] for t in trees]) if isinstance(trees[0][k], dict)
             else torch.stack([t[k] for t in trees]) for k in trees[0]}
 
@@ -61,16 +61,17 @@ def _init_period(generator: torch.Generator, cfg: ModelConfig) -> dict:
         sub["mixer"] = (attn.init_attention(generator, cfg)
                         if cfg.mixer_kind(i) == "attn"
                         else ssm.init_ssm(generator, cfg))
-        if cfg.mlp_kind(i) != "none":
+        mk = cfg.mlp_kind(i)
+        if mk != "none":
             sub["norm2"] = layers.init_rms_norm(cfg.d_model, dev)
-            sub["mlp"] = layers.init_mlp(generator, cfg.d_model, cfg.d_ff)
+            sub["mlp"] = (moe.init_moe(generator, cfg) if mk == "moe" else
+                          layers.init_mlp(generator, cfg.d_model, cfg.d_ff))
         p[f"sub{i}"] = sub
     return p
 
 
 def init_lm(generator: torch.Generator, cfg: ModelConfig) -> dict:
     """Random parameters on ``generator.device``, drawn from it in order."""
-    _check_ported(cfg)
     params = {
         "embed": layers.init_embed(generator, cfg.vocab, cfg.d_model),
         "final_norm": layers.init_rms_norm(cfg.d_model, generator.device),
@@ -86,14 +87,22 @@ def init_lm(generator: torch.Generator, cfg: ModelConfig) -> dict:
 # forward (full-sequence trunk)
 # ---------------------------------------------------------------------------
 
-def _mlp_block(cfg: ModelConfig, i: int, sub: dict, x: Tensor) -> Tensor:
-    if cfg.mlp_kind(i) == "none":
-        return x
+def _mlp_block(cfg: ModelConfig, i: int, sub: dict, x: Tensor):
+    """x plus sub-layer i's MLP of its norm, and the MoE balance loss (None
+    for a dense MLP or none)."""
+    mk = cfg.mlp_kind(i)
+    if mk == "none":
+        return x, None
     h = layers.rms_norm(x, sub["norm2"], cfg.norm_eps)
-    return x + layers.mlp(sub["mlp"], h)
+    if mk == "moe":
+        h, aux = moe.moe_apply(sub["mlp"], cfg, h)
+        return x + h, aux
+    return x + layers.mlp(sub["mlp"], h), None
 
 
-def _apply_period(cfg: ModelConfig, pp: dict, x: Tensor, positions) -> Tensor:
+def _apply_period(cfg: ModelConfig, pp: dict, x: Tensor, positions):
+    """One period of the trunk: (x, the sum of its MoE balance losses)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.period):
         sub = pp[f"sub{i}"]
         h = layers.rms_norm(x, sub["norm1"], cfg.norm_eps)
@@ -102,20 +111,37 @@ def _apply_period(cfg: ModelConfig, pp: dict, x: Tensor, positions) -> Tensor:
                                window=cfg.layer_window(i))
         else:
             h = ssm.ssm_apply(sub["mixer"], cfg, h)
-        x = _mlp_block(cfg, i, sub, x + h)
+        x, a = _mlp_block(cfg, i, sub, x + h)
+        if a is not None:
+            aux = aux + a
+    return x, aux
+
+
+def _embed_inputs(params, cfg: ModelConfig, tokens: Tensor,
+                  frontend_embeds: Tensor | None) -> Tensor:
+    """Token embeddings, after the frontend's embeddings ``[B, F, D]`` where
+    the family has a frontend (vlm: the patch embeddings)."""
+    x = layers.embed(params["embed"], tokens, cfg.compute_dtype)
+    if cfg.family == "vlm" or cfg.n_frontend_tokens:
+        if frontend_embeds is None:
+            raise ValueError(f"{cfg.name} needs frontend embeddings")
+        x = torch.cat([frontend_embeds.to(cfg.compute_dtype), x], dim=1)
     return x
 
 
 def forward_hidden(params: dict, cfg: ModelConfig, tokens: Tensor,
-                   positions: Tensor | None = None) -> tuple[Tensor, Tensor]:
+                   positions: Tensor | None = None,
+                   frontend_embeds: Tensor | None = None
+                   ) -> tuple[Tensor, Tensor]:
     """Returns (final hidden ``[B, S, D]``, aux loss); the aux loss is the
-    MoE balance term, zero for the ported families."""
-    _check_ported(cfg)
-    x = layers.embed(params["embed"], tokens, cfg.compute_dtype)
+    sum of the MoE layers' balance terms (zero without MoE layers)."""
+    x = _embed_inputs(params, cfg, tokens, frontend_embeds)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for n in range(cfg.n_periods):
-        x = _apply_period(cfg, _period(params["periods"], n), x, positions)
+        x, a = _apply_period(cfg, _period(params["periods"], n), x, positions)
+        aux = aux + a
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return x, torch.zeros((), device=x.device)
+    return x, aux
 
 
 def _unembed_table(params, cfg):
@@ -123,13 +149,15 @@ def _unembed_table(params, cfg):
 
 
 def lm_loss(params: dict, cfg: ModelConfig, tokens: Tensor, labels: Tensor,
-            positions: Tensor | None = None) -> Tensor:
+            positions: Tensor | None = None,
+            frontend_embeds: Tensor | None = None) -> Tensor:
     """Mean next-token cross-entropy over the labels ``>= 0`` (-100 =
     masked), plus ``AUX_LOSS_WEIGHT`` times the aux loss.  The logits are
     made ``LOSS_CHUNK`` positions at a time, as in the reference, so the
     whole ``[B, S, V]`` tensor never exists at once in the forward; the
     reference pads the last chunk with masked labels, which adds nothing."""
-    hidden, aux = forward_hidden(params, cfg, tokens, positions)
+    hidden, aux = forward_hidden(params, cfg, tokens, positions,
+                                 frontend_embeds)
     table = _unembed_table(params, cfg)
     tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
     cnt = torch.zeros((), dtype=torch.int64, device=hidden.device)
@@ -145,9 +173,10 @@ def lm_loss(params: dict, cfg: ModelConfig, tokens: Tensor, labels: Tensor,
     return tot / cnt.clamp_min(1) + AUX_LOSS_WEIGHT * aux
 
 
-def lm_logits(params, cfg, tokens, positions=None):
+def lm_logits(params, cfg, tokens, positions=None, frontend_embeds=None):
     """Full logits ``[B, S, V]`` (small models and tests only)."""
-    hidden, _ = forward_hidden(params, cfg, tokens, positions)
+    hidden, _ = forward_hidden(params, cfg, tokens, positions,
+                               frontend_embeds)
     return layers.unembed(hidden, _unembed_table(params, cfg), cfg.final_softcap)
 
 
@@ -162,7 +191,6 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
     in the compute dtype; for an SSM sub-layer the conv window
     ``[n_periods, batch, W-1, conv_dim]`` in the compute dtype and the state
     ``[n_periods, batch, H, P, N]`` in f32."""
-    _check_ported(cfg)
     device = resolve_device(device)
     dt = cfg.compute_dtype
     caches = {}
@@ -183,7 +211,6 @@ def decode_step(params: dict, cfg: ModelConfig, caches: dict, token: Tensor,
     """One decode step: logits ``[B, V]``, and the caches with this token
     written in (in place: the returned dict is ``caches``): k/v at ``pos``,
     the SSM conv window and state advanced by one step."""
-    _check_ported(cfg)
     x = layers.embed(params["embed"], token, cfg.compute_dtype)  # [B,1,D]
     for n in range(cfg.n_periods):
         pp = _period(params["periods"], n)
@@ -200,7 +227,7 @@ def decode_step(params: dict, cfg: ModelConfig, caches: dict, token: Tensor,
                     sub["mixer"], cfg, h, cache["conv"], cache["state"])
                 cache["conv"].copy_(conv_s)
                 cache["state"].copy_(ssm_s)
-            x = _mlp_block(cfg, i, sub, x + h)
+            x, _ = _mlp_block(cfg, i, sub, x + h)
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = layers.unembed(x[:, 0], _unembed_table(params, cfg),
                             cfg.final_softcap)
@@ -208,15 +235,14 @@ def decode_step(params: dict, cfg: ModelConfig, caches: dict, token: Tensor,
 
 
 def prefill(params: dict, cfg: ModelConfig, tokens: Tensor, max_len: int,
-            positions: Tensor | None = None) -> tuple[Tensor, dict]:
-    """Process a prompt ``[B, S]``: last-position logits ``[B, V]`` and the
-    caches: k/v filled to ``S`` and zero-padded to ``max_len``, the SSM conv
-    tail and final state."""
-    _check_ported(cfg)
-    x = layers.embed(params["embed"], tokens, cfg.compute_dtype)
+            positions: Tensor | None = None,
+            frontend_embeds: Tensor | None = None) -> tuple[Tensor, dict]:
+    """Process a prompt ``[B, S]`` (after the frontend embeddings, where the
+    family has them): last-position logits ``[B, V]`` and the caches: k/v
+    filled to ``S`` and zero-padded to ``max_len``, the SSM conv tail and
+    final state."""
+    x = _embed_inputs(params, cfg, tokens, frontend_embeds)
     B, S, _ = x.shape
-    if positions is None:
-        positions = torch.arange(S, device=x.device)[None].expand(B, S)
     per_period = []
     for n in range(cfg.n_periods):
         pp = _period(params["periods"], n)
@@ -234,7 +260,7 @@ def prefill(params: dict, cfg: ModelConfig, tokens: Tensor, max_len: int,
             else:
                 h, conv_s, ssm_s = ssm.ssm_prefill(sub["mixer"], cfg, h)
                 cache_out[f"sub{i}"] = {"conv": conv_s, "state": ssm_s}
-            x = _mlp_block(cfg, i, sub, x + h)
+            x, _ = _mlp_block(cfg, i, sub, x + h)
         per_period.append(cache_out)
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = layers.unembed(x[:, -1], _unembed_table(params, cfg),

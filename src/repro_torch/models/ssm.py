@@ -1,10 +1,9 @@
 """Mamba2 block (state-space duality): the port of ``repro.models.ssm``.
 
-Train and full-sequence forward: the chunk-parallel SSD through
+Train, full-sequence forward and prefill: the chunk-parallel SSD through
 ``kernels.ops.ssd_scan``, which launches the hand-written CUDA kernel (with
-a gradient, ``SSDScan``) for CUDA tensors and runs the plain version for CPU
-tensors.  Prefill runs the plain chunked version, which also returns the
-final state, as the reference's ``ssm_prefill`` does.  Decode is the O(1)
+a gradient, ``SSDScan``; at prefill with its final-state output) for CUDA
+tensors and runs the plain version for CPU tensors.  Decode is the O(1)
 recurrent update carrying (conv window, SSM state) per layer.
 
 Layout per block (following Mamba2): separate projections D -> z (d_inner),
@@ -20,7 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import Tensor
 
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ops
 from repro_torch.models import layers
 
 
@@ -125,14 +124,15 @@ def ssm_apply(params: dict, cfg, x: Tensor) -> Tensor:
 
 def ssm_prefill(params: dict, cfg, x: Tensor):
     """Prefill: outputs, the conv tail window and the final SSM state to seed
-    decode.  Runs the plain chunked version, which returns the state (the
-    kernel does not), as the reference's ``ssm_prefill`` does."""
+    decode.  The reference runs its plain chunked version here; the port
+    routes through ``ops.ssd_scan`` with the state, so a CUDA tensor
+    launches the kernel.  The inputs are padded to whole chunks with
+    ``dt = 0``, which leaves the state at S."""
     s, di, _ = _dims(cfg)
     B, S, _ = x.shape
     z, raw, inputs = _ssd_inputs(params, cfg, x)
-    chunk = min(s.chunk, inputs[0].shape[1])
-    y, h_final = ref.ssd_chunked_ref(*inputs, params["D"], chunk=chunk,
-                                     return_state=True)
+    y, h_final = ops.ssd_scan(*inputs, params["D"], chunk=s.chunk,
+                              return_state=True)
     out = _gate_out(params, cfg, y[:, :S].reshape(B, S, di), z, x.dtype)
     # conv tail: the last W-1 *pre-activation* conv inputs (x|B|C)
     W = s.conv_width

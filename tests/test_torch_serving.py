@@ -42,11 +42,6 @@ from repro_torch.serving import (
 pytestmark = pytest.mark.tier1
 
 DENSE = ["internlm2-1.8b", "gemma2-27b", "qwen3-32b", "phi3-mini-3.8b"]
-NOT_PORTED = {
-    "qwen3-moe-235b-a22b": "moe", "granite-moe-1b-a400m": "moe",
-    "jamba-v0.1-52b": "hybrid", "whisper-large-v3": "encdec",
-    "qwen2-vl-72b": "vlm",
-}
 
 
 def _models(arch, seed=0):
@@ -93,12 +88,23 @@ def test_registry_matches_the_reference():
     assert get_config("internlm2-1.8b").compute_dtype == torch.bfloat16
 
 
-@pytest.mark.parametrize("arch,family", sorted(NOT_PORTED.items()))
-def test_build_model_raises_for_families_not_ported(arch, family):
-    cfg = get_config(arch, smoke=True)
-    assert cfg.family == family
-    with pytest.raises(NotImplementedError, match=family):
-        build_model(cfg)
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_build_model_builds_every_arch(arch):
+    """Every family of the registry builds, and its parameters and caches
+    have the reference's tree and shapes."""
+    jcfg = jax_get_config(arch, smoke=True)
+    jmodel = jax_build_model(jcfg)
+    model = build_model(get_config(arch, smoke=True))
+    params = model.init(torch.Generator().manual_seed(0))
+    shapes = jax.eval_shape(jmodel.init, jax.random.PRNGKey(0))
+    jcaches = jax.eval_shape(lambda: jmodel.init_caches(2, 16))
+    for mine, ref in ((params, shapes), (model.init_caches(2, 16, "cpu"),
+                                         jcaches)):
+        got = [(tree.key(p), tuple(v.shape))
+               for p, v in tree.leaves_with_path(mine)]
+        want = [("/".join(str(k.key) for k in p), tuple(v.shape))
+                for p, v in jax.tree_util.tree_leaves_with_path(ref)]
+        assert got == want, arch
 
 
 # ------------------------------------------------------------- models

@@ -107,6 +107,27 @@ def test_chunked_final_state_matches_jax():
                                rtol=TOL, atol=TOL)
 
 
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", SHAPES)
+def test_ops_final_state_matches_jax(b, s, h, p, g, n, chunk):
+    """``ops.ssd_scan(return_state=True)`` on the CPU (the prefill's route):
+    y as ``ssd_scan_ref``, and the state exactly the port's chunked
+    version's over the inputs padded with ``dt = 0`` and within 2e-4 of the
+    JAX package's (its ``ssm_prefill`` pads the same way)."""
+    arrays = _inputs(s + 11 * p, b, s, h, p, g, n)
+    y, state = ops.ssd_scan(*_port(arrays), chunk=chunk, return_state=True)
+    pad = (-s) % chunk
+    padded = [np.pad(a, [(0, 0), (0, pad)] + [(0, 0)] * (a.ndim - 2))
+              if a.ndim > 1 else a for a in arrays]
+    want_y, want = ref.ssd_chunked_ref(*_port(padded), chunk=chunk,
+                                       return_state=True)
+    assert torch.equal(y, want_y[:, :s]) and torch.equal(state, want)
+    assert torch.equal(y, ref.ssd_scan_ref(*_port(arrays), chunk=chunk))
+    jy, jstate = jref.ssd_chunked_ref(*_jax(padded), chunk=chunk,
+                                      return_state=True)
+    _close(y, jy[:, :s])
+    _close(state, jstate)
+
+
 def test_chunked_ref_refuses_a_ragged_sequence():
     with pytest.raises(ValueError, match="multiple of chunk"):
         ref.ssd_chunked_ref(*_port(_inputs(0, 1, 40, 2, 16, 1, 16)), chunk=32)

@@ -212,3 +212,79 @@ def test_cuda_kernel_refuses_what_it_does_not_take():
         ssd.ssd_scan_cuda(x, dt.bfloat16(), A, Bm, Cm, D)
     with pytest.raises(RuntimeError, match="no backward"):
         ssd.ssd_scan_cuda(x.requires_grad_(True), dt, A, Bm, Cm, D)
+
+
+STATE_CASES = [
+    # b, s, h, p, g, n, chunk, dtype
+    (2, 300, 8, 32, 2, 64, 128, "float32"),        # ragged S, two groups
+    (1, 300, 8, 64, 1, 16, 128, "float32"),        # jamba's P and N
+    (1, 1000, 8, 64, 1, 16, 128, "bfloat16"),      # jamba's P and N
+    (3, 130, 6, 32, 3, 128, 96, "bfloat16"),       # ragged, chunk of 96
+    (2, 512, 24, 64, 1, 128, 128, "bfloat16"),     # mamba2-130m's block
+]
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk,dtype", STATE_CASES)
+def test_cuda_final_state_matches_plain_version(b, s, h, p, g, n, chunk,
+                                                dtype):
+    """``return_state``: y as without it, and the f32 state after step S
+    against the plain chunked version's over the inputs padded with
+    ``dt = 0``; within 2e-4 in f32, and in bf16 by the relative error of the
+    whole state and of its worst ``(b, h)`` slice ``[P, N]``, under y's
+    limits (the bf16 phases round the scaled B rows to bf16 before the
+    products that make each chunk's state)."""
+    args = _card(s + p + n + 5, b, s, h, p, g, n, dtype)
+    launches = ssd.ssd_scan_cuda.launches
+    with torch.no_grad():
+        y, state = ops.ssd_scan(*args, chunk=chunk, return_state=True)
+    want_y, want = ref.ssd_scan_ref(*args, chunk=chunk, return_state=True)
+    torch.cuda.synchronize()
+    assert ssd.ssd_scan_cuda.launches == launches + 1
+    assert ssd.ssd_scan_cuda.last_plan["variant"] == VARIANT[dtype]
+    assert state.shape == (b, h, p, n) and state.dtype == torch.float32
+    assert bool(state.isfinite().all())
+    torch.testing.assert_close(y.float(), want_y.float(), rtol=TOL[dtype],
+                               atol=TOL[dtype])
+    if dtype == "float32":
+        torch.testing.assert_close(state, want, rtol=2e-4, atol=2e-4)
+        return
+    diff = state - want
+    whole = float(diff.norm() / want.norm())
+    worst = float((diff.norm(dim=(2, 3))
+                   / want.norm(dim=(2, 3)).clamp_min(1e-30)).max())
+    assert whole < REL_TOL and worst < SLICE_TOL, (whole, worst)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssm_prefill_launches_the_kernel(dtype, monkeypatch):
+    """``ssm_prefill`` on the card: one launch of the kernel with its state
+    output, no call of the plain chunked version; the outputs, the conv tail
+    and the state agree with the CPU's prefill of the same parameters."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (run with python3 chip_smoke.py)")
+    cfg = get_config("mamba2-130m", smoke=True, dtype=dtype)
+    params = ssm.init_ssm(torch.Generator().manual_seed(3), cfg)
+    x = torch.randn(2, 150, cfg.d_model,
+                    generator=torch.Generator().manual_seed(4)).to(
+                        cfg.compute_dtype)
+    want = ssm.ssm_prefill(params, cfg, x)
+    plain = ref.ssd_chunked_ref
+
+    def refuse_on_the_card(x, *args, **kw):
+        assert not x.is_cuda, "the plain chunked version ran on the card"
+        return plain(x, *args, **kw)
+
+    monkeypatch.setattr(ref, "ssd_chunked_ref", refuse_on_the_card)
+    launches = ssd.ssd_scan_cuda.launches
+    with torch.no_grad():
+        got = ssm.ssm_prefill({k: v.cuda() for k, v in params.items()}, cfg,
+                              x.cuda())
+    torch.cuda.synchronize()
+    assert ssd.ssd_scan_cuda.launches == launches + 1
+    tol = TOL[dtype]
+    for name, a, w in zip(("out", "conv tail", "state"), got, want):
+        scale = float(w.float().abs().max())
+        err = float((a.cpu().float() - w.float()).abs().max())
+        assert err <= tol * scale, (name, err, scale)
