@@ -11,11 +11,12 @@ non-zero exit code if any phase fails:
              ``src/repro_torch/csrc`` (one nvcc per source, started together)
              and print nvcc's register, shared-memory and spill lines; count
              the tensor-core instructions (``HGMMA``) in the flash and SSD
-             libraries' SASS (``cuobjdump -sass``), which must be more than
-             0 in each; hold the geometry (flash: key tile, threads, shared
-             memory; SSD: each phase's threads and shared memory) that the
-             ``kernel_plan`` functions report against the built library's,
-             for every instantiation
+             libraries' SASS (``cuobjdump -sass``) and ``HMMA`` (mma.sync)
+             in the flash backward's, which must be more than 0 in each;
+             hold the geometry (flash: key tile, threads, shared memory;
+             flash backward: rows, threads, shared memory; SSD: each phase's
+             threads and shared memory) that the ``kernel_plan`` functions
+             report against the built library's, for every instantiation
 2. kernels   each kernel against its plain PyTorch version on the card at the
              paths' shapes, with its device time (CUDA-graph replay, or CUDA
              events for calls of many milliseconds), the plain version's,
@@ -42,7 +43,18 @@ non-zero exit code if any phase fails:
              errors of the whole state and its worst (b, h) slice under y's
              limits (bf16), y beside it bitwise y without it, and its time;
              ``SSDScan``'s gradients within 1e-4 of each leaf's largest
-             value
+             value.  Flash backward: at phase 8b's training shapes, a
+             gemma2-27b local layer (window, softcap, logits scaled into the
+             cap's bend), phi3's head dim and rows offset or without keys,
+             the forward's lse against ``ref.attention_lse_ref`` (1e-4, +inf
+             exactly on rows without keys, the output bitwise the output
+             without lse), then dq, dk, dv from that output and lse against
+             ``ref.attention_bwd_ref``: f32 within 1e-4 of each tensor's
+             largest value, bf16 by relative error of the whole tensor and
+             of its worst row within 5e-3 and 1.05e-2; two calls bitwise
+             equal; exactly zero dq on rows without keys; the backward's,
+             the plain version's, the forward's with and without lse and
+             SDPA's backward time
 3. anchors   the paper's experiments through ``simulate`` on the card: Fig. 4
              (four policy pairs), Table 1, Fig. 9/10 at 10,000 hosts and
              Fig. 7/8 at 100,000 hosts, each against the port's own CPU run
@@ -88,7 +100,9 @@ non-zero exit code if any phase fails:
              rtol 1e-5, one chunk's folds bitwise the fold of its
              materialised result); (d) ``successive_halving`` over Table 1
              (64 candidates, 3 rungs) equal to the CPU's on the same table
-5. proof     the advance-sweep kernel's launch count over phases 3-4c
+5. proof     the advance-sweep kernel's launch count over phases 3-4c; after
+             phase 7, that serving launched no flash backward and made no
+             checkpoint; after phase 8b, the flash launches it counted
 6. serving   internlm2-1.8b at full width and depth (bf16, random weights from
              a seed) served by ``ServingEngine`` (4 slots of 1,024 tokens,
              re-planning by simulation every 8 steps) to 8 requests of 128-512
@@ -131,14 +145,31 @@ non-zero exit code if any phase fails:
              weights and AdamW) trained by ``run_training`` for 20 steps of
              8 x 2,048 tokens on the Markov pipeline: losses and gradient
              norms finite, the last 5 steps' mean loss below the first
-             step's, the SSD kernel launched once per layer per step;
+             step's, the SSD kernel launched twice per layer per step (the
+             checkpointed period runs its forward again);
              tokens/s, step time, the SSD kernel's share of device time over
              2 profiled steps (every ``ssd_fwd*`` kernel, each phase's time
              printed), the idle share, peak memory
-9. train parity  mamba2-130m at full width, 2 layers, f32: one
-             ``make_train_step`` and the gradients on the card against the
-             CPU (loss rtol 1e-4, each gradient leaf within 1e-3 of its
-             largest value), ``lm_logits`` within atol/rtol 1e-3
+8b. dense train  the attention models through the normal entry points
+             (bf16 compute, f32 weights and AdamW, remat on): internlm2-1.8b
+             at full width and depth for 12 steps of 8 x 2,048 tokens and
+             granite-moe-1b-a400m for 5 of 4 x 2,048 by ``run_training``,
+             whisper-large-v3 for 3 steps of 2 x 1,500 frames and 64 tokens
+             by ``make_train_step``: losses and gradient norms finite,
+             internlm2's last 5 steps' mean loss below its first, flash
+             forward launches = 2 x attention layers x steps and backward =
+             attention layers x steps; tokens/s, peak memory; 2 profiled
+             internlm2 steps with device time by kernel class (flash
+             forward, each backward kernel, GEMMs, casts, AdamW,
+             elementwise) and the idle share
+9. train parity  one train step and its gradients on the card against the
+             CPU (loss and gradient norm rtol 1e-4, each gradient leaf
+             within 1e-3 of its largest value), f32: mamba2-130m at full
+             width, 2 layers (and ``lm_logits`` within atol/rtol 1e-3),
+             internlm2-1.8b at full width, 2 layers, a narrow gemma2 (window
+             under the sequence, both softcaps) and a narrow whisper, the
+             attention models through the f32 flash forward and backward
+             kernels
 
 Every line of numbers carries the card's name and power limit.  The line
 before the last is the per-kernel JSON record; the last line is
@@ -150,6 +181,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import gc
 import json
 import re
 import subprocess
@@ -180,10 +212,11 @@ from repro_torch.data import ShardedLoader  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
     flash_attention, ops, ref, ssd_scan, vm_update)
 from repro_torch.launch.train import run_training  # noqa: E402
-from repro_torch.models import build_model, moe, ssm  # noqa: E402
+from repro_torch.models import build_model, lm, moe, ssm  # noqa: E402
 from repro_torch.models.lm import lm_logits  # noqa: E402
 from repro_torch.serving import ServingEngine  # noqa: E402
-from repro_torch.train import OptConfig, adamw_init, make_train_step  # noqa: E402
+from repro_torch.train import (  # noqa: E402
+    OptConfig, adamw_init, adamw_update, make_train_step)
 from repro_torch.train.step import value_and_grad  # noqa: E402
 
 # the plain versions and the parity phase compare in full f32 (no TF32)
@@ -267,6 +300,47 @@ FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # (scripts/flash_fault_reach.py).
 FLASH_REL_TOL = {torch.float32: 1e-5, torch.bfloat16: 4e-3}
 FLASH_ROW_TOL = {torch.float32: 1e-5, torch.bfloat16: 8e-3}
+# the backward: name, (B, Hq, Hk, Sq, Sk, D), dtype, masking; every
+# training shape of phase 8b (internlm2, granite-moe, whisper's encoder,
+# its cross-attention and its decoder's self-attention), gemma2-27b's local
+# layer, phi3's head dim, rows offset against a longer key axis and rows
+# that see no key
+FLASH_BWD_SHAPES = [
+    ("internlm2 training", (8, 16, 8, 2048, 2048, 128), torch.bfloat16,
+     dict(causal=True)),
+    ("gemma2-27b local layer", (1, 32, 16, 4096, 4096, 128), torch.bfloat16,
+     dict(causal=True, window=1024, softcap=50.0)),
+    ("phi3 head dim", (1, 32, 32, 1024, 1024, 96), torch.bfloat16,
+     dict(causal=True)),
+    ("granite-moe training", (4, 16, 8, 2048, 2048, 64), torch.bfloat16,
+     dict(causal=True)),
+    ("whisper encoder", (2, 20, 20, 1500, 1500, 64), torch.bfloat16,
+     dict(causal=False)),
+    ("whisper cross", (2, 20, 20, 64, 1500, 64), torch.bfloat16,
+     dict(causal=False)),
+    ("whisper decoder", (2, 20, 20, 64, 64, 64), torch.bfloat16,
+     dict(causal=True)),
+    ("f32 offset rows", (1, 16, 16, 128, 1000, 128), torch.float32,
+     dict(causal=True)),
+    ("f32 rows without keys", (1, 8, 8, 256, 128, 64), torch.float32,
+     dict(causal=True)),
+    ("bf16 rows without keys", (1, 8, 8, 256, 128, 64), torch.bfloat16,
+     dict(causal=True)),
+]
+FLASH_BWD_MAIN = "internlm2 training"
+# q scaled so that the logits (std ~6) reach the softcap's bend, as a
+# trained gemma2's do: with unit logits the cap of 50 moves dS by ~4e-4
+FLASH_BWD_Q_SCALE = {"gemma2-27b local layer": 6.0}
+# f32: each of dq, dk, dv elementwise within 1e-4 of its largest |value|
+# (the kernel adds in another order than the plain version); bf16: the
+# relative error of the whole tensor and of its worst row (a row's norm
+# floored at ROW_FLOOR of the largest row's: the first row under a causal
+# mask sees one key and has a zero dq), ~1.8x the most the sound kernel
+# gave on an H100 at these shapes (scripts/flash_bwd_fault_reach.py shows
+# what they catch); lse within LSE_TOL of the plain version's
+FLASH_BWD_TOL = 1e-4
+FLASH_BWD_REL_TOL, FLASH_BWD_ROW_TOL, ROW_FLOOR = 5e-3, 1.05e-2, 1e-2
+LSE_TOL = 1e-4
 SERVE_ARCH = "internlm2-1.8b"
 SERVE = dict(n_slots=4, max_len=1024, replan_every=8)
 SERVE_REQUESTS, SERVE_NEW_TOKENS = 8, 32
@@ -283,7 +357,9 @@ VLM = dict(n_layers=2, patches=1024, grid=32, text=256, steps=8)
 # device time by kind of kernel: the first class whose key a kernel's name
 # holds (lower case)
 KERNEL_CLASSES = (
-    ("flash", ("flash_fwd",)), ("ssd", ("ssd_fwd",)),
+    ("flash", ("flash_fwd",)), ("flash bwd dK/dV", ("bwd_dkdv",)),
+    ("flash bwd dQ", ("bwd_dq",)), ("flash bwd delta", ("bwd_delta",)),
+    ("ssd", ("ssd_fwd",)),
     ("advance sweep", ("advance_fused", "advance_tile")),
     ("gemm", ("gemm", "gemv", "cutlass", "xmma", "nvjet", "cublas")),
     ("index, scatter, gather", ("index", "scatter", "gather")),
@@ -312,6 +388,16 @@ SSD_SLICE_TOL = {torch.float32: 1e-5, torch.bfloat16: 5e-3}
 TRAIN_ARCH = "mamba2-130m"
 TRAIN = dict(steps=20, global_batch=8, seq_len=2048, lr=1e-3, log_every=5,
              seed=0)
+# phase 8b: attention models trained at full width and depth (bf16 compute,
+# f32 weights and AdamW, remat on), the same tokens a step as phase 8 for
+# internlm2, and whisper through make_train_step
+DENSE_TRAIN = (
+    ("internlm2-1.8b", dict(steps=12, global_batch=8, seq_len=2048, lr=1e-3,
+                            log_every=4, seed=0)),
+    ("granite-moe-1b-a400m", dict(steps=5, global_batch=4, seq_len=2048,
+                                  lr=1e-3, log_every=2, seed=0)),
+)
+WHISPER_TRAIN = dict(steps=3, batch=2, tokens=64, lr=1e-3)
 
 
 def card() -> str:
@@ -339,9 +425,10 @@ def check(ok: bool, what: str) -> None:
 def phase_build() -> None:
     built = kbuild.build((vm_update.SRC, vm_update.NVCC_FLAGS),
                          (flash_attention.SRC, flash_attention.NVCC_FLAGS),
-                         (ssd_scan.SRC, ssd_scan.NVCC_FLAGS))
-    for name, b in zip(("advance_sweep", "flash_attention", "ssd_scan"),
-                       built):
+                         (ssd_scan.SRC, ssd_scan.NVCC_FLAGS),
+                         (flash_attention.SRC_BWD, flash_attention.NVCC_FLAGS))
+    for name, b in zip(("advance_sweep", "flash_attention", "ssd_scan",
+                        "flash_attention_bwd"), built):
         took = ("reused an existing build" if b["seconds"] is None
                 else f"nvcc {b['seconds']:.3f} s")
         say("build", f"{name} {b['path'].name}: {took}")
@@ -355,6 +442,21 @@ def phase_build() -> None:
         hgmma = sum("HGMMA" in line for line in sass.splitlines())
         check(hgmma > 0, f"the {name} library's SASS has HGMMA instructions")
         say("build", f"{name} SASS: {hgmma} HGMMA (wgmma) instructions")
+    sass = subprocess.run(
+        [kbuild.cuda_tool("cuobjdump"), "-sass", str(built[3]["path"])],
+        capture_output=True, text=True, check=True, timeout=300).stdout
+    hmma = sum("HMMA" in line for line in sass.splitlines())
+    check(hmma > 0, "the flash_attention_bwd library's SASS has HMMA "
+          "(mma.sync) instructions")
+    say("build", f"flash_attention_bwd SASS: {hmma} HMMA (mma.sync) "
+        "instructions")
+    for dtype in (torch.bfloat16, torch.float32):
+        for d in flash_attention.HEAD_DIMS:
+            built_bwd = flash_attention.kernel_geometry_bwd(dtype, d)
+            mine = flash_attention.geometry_bwd(dtype, d)
+            check(built_bwd == mine, f"flash_attention_bwd {dtype} D {d}: the "
+                  f"library's rows, other rows, threads and shared memory "
+                  f"{built_bwd} == the plan's {mine}")
     for dtype, block_qs in ((torch.bfloat16, (64, 128)), (torch.float32, (64,))):
         for d in flash_attention.HEAD_DIMS:
             for block_q in block_qs:
@@ -512,6 +614,27 @@ def flash_bound_ms(shape, dtype, kw) -> tuple[float, str, int, int]:
     return by_bytes, "bytes", ops, nbytes
 
 
+def hold_flash_out(name: str, out: torch.Tensor, want: torch.Tensor,
+                   dtype) -> tuple[float, float, float]:
+    """The forward kernel's output against the plain version's: elementwise
+    within FLASH_TOL, and the relative error of the whole output and of its
+    worst row within FLASH_REL_TOL and FLASH_ROW_TOL.  Returns (max |err|,
+    relative error, worst row)."""
+    err = float((out.float() - want.float()).abs().max())
+    tol = FLASH_TOL[dtype]
+    check(torch.allclose(out.float(), want.float(), rtol=tol, atol=tol),
+          f"flash_attention {name} within {tol}: max |err| {err}")
+    diff, norm = out.float() - want.float(), want.float()
+    rel = float(diff.norm() / norm.norm())
+    row = float((diff.norm(dim=-1)
+                 / norm.norm(dim=-1).clamp_min(1e-30)).max())
+    check(rel < FLASH_REL_TOL[dtype] and row < FLASH_ROW_TOL[dtype],
+          f"flash_attention {name}: relative error {rel} (limit "
+          f"{FLASH_REL_TOL[dtype]}), worst row {row} (limit "
+          f"{FLASH_ROW_TOL[dtype]})")
+    return err, rel, row
+
+
 def phase_flash_kernel() -> dict:
     record = {}
     for i, (name, shape, dtype, kw) in enumerate(FLASH_SHAPES):
@@ -527,19 +650,9 @@ def phase_flash_kernel() -> dict:
         check(plan["variant"] == ("wgmma" if dtype == torch.bfloat16
                                   else "cuda_cores"),
               f"flash_attention {name}: {plan['variant']} for {dtype}")
-        err = float((out.float() - want.float()).abs().max())
+        err, rel, row = hold_flash_out(name, out, want, dtype)
         tol = FLASH_TOL[dtype]
-        check(torch.allclose(out.float(), want.float(), rtol=tol, atol=tol),
-              f"flash_attention {name} within {tol}: max |err| {err}")
-        diff, norm = out.float() - want.float(), want.float()
-        rel = float(diff.norm() / norm.norm())
-        row = float((diff.norm(dim=-1)
-                     / norm.norm(dim=-1).clamp_min(1e-30)).max())
-        check(rel < FLASH_REL_TOL[dtype] and row < FLASH_ROW_TOL[dtype],
-              f"flash_attention {name}: relative error {rel} (limit "
-              f"{FLASH_REL_TOL[dtype]}), worst row {row} (limit "
-              f"{FLASH_ROW_TOL[dtype]})")
-        del out, want, diff, norm
+        del out, want
         # the plain version holds [B, Hq, Sq, Sk] f32 scores: long calls are
         # timed eagerly with events, short ones by graph replay
         long_call = b * hq * sq * sk >= 2**27
@@ -580,6 +693,171 @@ def phase_flash_kernel() -> dict:
                       "library_ms": library_ms}
         del args
     torch.cuda.empty_cache()
+    return record
+
+
+def grad_errors(got: torch.Tensor, want: torch.Tensor
+                ) -> tuple[float, float, float]:
+    """(max |err| / largest |want|, relative error of the whole tensor,
+    worst row's relative error, a row's norm floored at ROW_FLOOR of the
+    largest row's)."""
+    diff, want = got.float() - want.float(), want.float()
+    rows = want.norm(dim=-1)
+    floor = rows.clamp_min(ROW_FLOOR * float(rows.max()))
+    return (float(diff.abs().max() / want.abs().max()),
+            float(diff.norm() / want.norm()),
+            float((diff.norm(dim=-1) / floor).max()))
+
+
+def flash_bwd_bound_ms(shape, dtype, kw) -> tuple[float, str, int, int]:
+    """Least time for the backward: five products of 2 * D operations per
+    valid (query, key) pair (S, dP, dV, dQ, dK) over the card's peak for the
+    dtype, or q, k, v, o, dO read once, lse read once and dq, dk, dv written
+    once over the memory rate, whichever is larger.  Returns (ms, what
+    bounds it, operations, bytes)."""
+    b, hq, hk, sq, sk, d = shape
+    mask = ref.attention_mask(sq, sk, kw.get("causal", True), kw.get("window"),
+                              "cuda")
+    ops = 10 * d * int(mask.sum()) * b * hq
+    nbytes = ((4 * b * hq * sq + 4 * b * hk * sk) * d * dtype.itemsize
+              + 4 * b * hq * sq)
+    peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S
+    by_ops, by_bytes = ops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    if by_ops >= by_bytes:
+        return by_ops, "operations", ops, nbytes
+    return by_bytes, "bytes", ops, nbytes
+
+
+def flash_bwd_inputs(name: str, shape, dtype, i: int):
+    """q, k, v and dO of backward shape ``i`` (q scaled by
+    FLASH_BWD_Q_SCALE)."""
+    b, hq, hk, sq, sk, d = shape
+    q, k, v = flash_inputs(shape, dtype, seed=300 + i)
+    do = flash_inputs((b, hq, hq, sq, sq, d), dtype, seed=400 + i)[0]
+    return (q * FLASH_BWD_Q_SCALE.get(name, 1.0)).to(dtype), k, v, do
+
+
+def phase_flash_bwd_kernel() -> dict:
+    """The backward kernel against ``ref.attention_bwd_ref`` on the card,
+    both from the forward kernel's own output and lse (held against
+    ``ref.attention_ref`` and ``ref.attention_lse_ref`` first), at phase
+    8b's training shapes and the masking edge cases; two calls bitwise
+    equal; a row that sees no key gets exactly zero dq.  Times: the backward, the plain version, the
+    forward with and without its lse output, SDPA's backward under
+    autograd (where SDPA computes the same function: no window, no
+    softcap, a causal mask only where Sq == Sk)."""
+    record = {}
+    fa = flash_attention
+    for i, (name, shape, dtype, kw) in enumerate(FLASH_BWD_SHAPES):
+        b, hq, hk, sq, sk, d = shape
+        q, k, v, do = flash_bwd_inputs(name, shape, dtype, i)
+        plan = fa.kernel_plan_bwd(b, hq, hk, sq, sk, d, dtype)
+        check(plan["variant"] == ("mma_sync" if dtype == torch.bfloat16
+                                  else "cuda_cores"),
+              f"flash_attention_bwd {name}: {plan['variant']} for {dtype}")
+        out, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+        plain_out = fa.flash_attention_cuda(q, k, v, **kw)
+        lse0 = ref.attention_lse_ref(q, k, **kw)
+        torch.cuda.synchronize()
+        check(torch.equal(out, plain_out), f"flash_attention {name}: the "
+              "output with lse bitwise the output without")
+        # the backward's delta and its plain version both read this output:
+        # it is held against the plain forward first
+        out_err = hold_flash_out(name, out, ref.attention_ref(q, k, v, **kw),
+                                 dtype)
+        none = torch.isinf(lse0)
+        check(torch.equal(torch.isposinf(lse), none),
+              f"flash_attention {name}: lse is +inf exactly on the rows that "
+              "see no key")
+        lse_err = float((lse[~none] - lse0[~none]).abs().max()) \
+            if bool((~none).any()) else 0.0
+        check(lse_err <= LSE_TOL, f"flash_attention {name}: lse within "
+              f"{LSE_TOL} of the plain version's ({lse_err})")
+        grads = fa.flash_attention_bwd_cuda(q, k, v, out, lse, do, **kw)
+        again = fa.flash_attention_bwd_cuda(q, k, v, out, lse, do, **kw)
+        want = ref.attention_bwd_ref(q, k, v, out, lse, do, **kw)
+        torch.cuda.synchronize()
+        check(fa.flash_attention_bwd_cuda.last_plan == plan,
+              f"flash_attention_bwd {name} launched its plan")
+        check(all(torch.equal(x, y) for x, y in zip(grads, again)),
+              f"flash_attention_bwd {name}: two calls bitwise equal")
+        hidden = sq - sk if kw.get("causal") and sq > sk else 0
+        if hidden:
+            check(torch.count_nonzero(grads[0][:, :, :hidden]) == 0,
+                  f"flash_attention_bwd {name}: dq exactly zero on the "
+                  f"{hidden} rows that see no key")
+        errs = {}
+        for gname, got, ref_g in zip(("dq", "dk", "dv"), grads, want):
+            check(got.dtype == dtype and got.shape == ref_g.shape
+                  and bool(got.isfinite().all()),
+                  f"flash_attention_bwd {name}: {gname} finite, {dtype}")
+            errs[gname] = e = grad_errors(got, ref_g)
+            if dtype == torch.float32:
+                check(e[0] <= FLASH_BWD_TOL, f"flash_attention_bwd {name}: "
+                      f"{gname} within {FLASH_BWD_TOL} of its largest |value|"
+                      f" ({e[0]})")
+            else:
+                check(e[1] < FLASH_BWD_REL_TOL and e[2] < FLASH_BWD_ROW_TOL,
+                      f"flash_attention_bwd {name}: {gname} relative error "
+                      f"{e[1]} (limit {FLASH_BWD_REL_TOL}), worst row {e[2]} "
+                      f"(limit {FLASH_BWD_ROW_TOL})")
+        max_abs = max(float((x.float() - y.float()).abs().max())
+                      for x, y in zip(grads, want))
+        del grads, again, want, plain_out, lse0
+        torch.cuda.empty_cache()
+        args = (q, k, v, out, lse, do)
+        kernel = functools.partial(fa.flash_attention_bwd_cuda, **kw)
+        plain = functools.partial(ref.attention_bwd_ref, **kw)
+        long_call = b * hq * sq * sk >= 2**27
+        timer, reps = (events_ms, 3) if long_call else (device_ms, 20)
+        times = {"plain": [], "kernel": []}
+        for which in ("plain", "kernel", "kernel", "plain"):
+            fn = plain if which == "plain" else kernel
+            times[which].append(timer(fn, args, reps))
+        ms, plain_ms = (sum(times[k]) / 2 for k in ("kernel", "plain"))
+        fwd = functools.partial(fa.flash_attention_cuda, **kw)
+        fwd_lse = functools.partial(fa.flash_attention_cuda, return_lse=True,
+                                    **kw)
+        fwd_ms, fwd_lse_ms = (timer(fn, (q, k, v), reps)
+                              for fn in (fwd, fwd_lse))
+        library_ms = None
+        if ((sq == sk or not kw["causal"]) and kw.get("window") is None
+                and not kw.get("softcap")):
+            with torch.enable_grad():
+                leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+                sdpa_out = F.scaled_dot_product_attention(
+                    *leaves, is_causal=kw["causal"], enable_gqa=True)
+
+                def sdpa_bwd():
+                    return torch.autograd.grad(sdpa_out, leaves, do,
+                                               retain_graph=True)
+
+                library_ms = events_ms(sdpa_bwd, (), max(reps, 3))
+            del leaves, sdpa_out
+        bound_ms, bound_by, ops, nbytes = flash_bwd_bound_ms(shape, dtype, kw)
+        say("kernels", (
+            f"flash_attention_bwd {name} q [{b}, {hq}, {sq}, {d}] k/v "
+            f"[{b}, {hk}, {sk}, {d}] {str(dtype).split('.')[1]} {kw}: plan "
+            f"{plan['variant']} ({plan['rows']}-row blocks, {plan['other']} "
+            f"rows an iteration, {plan['threads']} threads, {plan['smem']} "
+            f"bytes of shared memory, grids {plan['grids']}); forward "
+            f"output (max |err|, relative error, worst row) {out_err} "
+            f"(limits {FLASH_TOL[dtype]}, {FLASH_REL_TOL[dtype]}, "
+            f"{FLASH_ROW_TOL[dtype]}); lse max |err| "
+            f"{lse_err!r}, {int(none.sum())} rows without keys; two calls "
+            f"bitwise equal; (max |err| / largest, relative error, worst "
+            f"row) {errs}; device time: backward {ms!r} ms, plain "
+            f"{plain_ms!r} ms, scaled_dot_product_attention backward "
+            f"{library_ms!r} ms; forward {fwd_ms!r} ms, with lse "
+            f"{fwd_lse_ms!r} ms; {ops} operations, {nbytes} bytes, bound "
+            f"{bound_ms!r} ms ({bound_by}), {bound_ms / ms:.4f} of bound, "
+            f"{ops / ms / 1e9!r} TFLOP/s"))
+        if name == FLASH_BWD_MAIN:
+            record = {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": bound_ms, "bound_by": bound_by,
+                      "library_ms": library_ms}
+        del q, k, v, do, out, lse, args
+        torch.cuda.empty_cache()
     return record
 
 
@@ -1727,14 +2005,16 @@ class PlainSSDOnCard:
 
 def zero_launches() -> None:
     for fn in (flash_attention.flash_attention_cuda, ssd_scan.ssd_scan_cuda,
-               vm_update.advance_sweep_cuda):
+               vm_update.advance_sweep_cuda,
+               flash_attention.flash_attention_bwd_cuda):
         fn.launches = 0
 
 
 def launches() -> dict[str, int]:
     return {"flash": flash_attention.flash_attention_cuda.launches,
             "ssd": ssd_scan.ssd_scan_cuda.launches,
-            "sweep": vm_update.advance_sweep_cuda.launches}
+            "sweep": vm_update.advance_sweep_cuda.launches,
+            "flash_bwd": flash_attention.flash_attention_bwd_cuda.launches}
 
 
 def mixers(cfg, kind: str) -> int:
@@ -2207,9 +2487,13 @@ def phase_train() -> int:
     last5 = float(np.mean(losses[-5:]))
     check(last5 < losses[0], f"mean loss of the last 5 steps {last5} below "
           f"the first step's {losses[0]}")
-    check(ssd_launches == cfg.n_layers * steps == out["ssd_launches"],
+    # under remat (the config's, as in the reference) the checkpointed
+    # period runs its forward again in the backward
+    per_step = (2 if cfg.remat else 1) * cfg.n_layers
+    check(ssd_launches == per_step * steps == out["ssd_launches"],
           f"SSD launches {ssd_launches} (run_training counted "
-          f"{out['ssd_launches']}) == {cfg.n_layers} layers x {steps} steps")
+          f"{out['ssd_launches']}) == {per_step} a step (remat {cfg.remat}, "
+          f"{cfg.n_layers} layers) x {steps} steps")
     n_params = sum(x.numel() for x in tree.leaves(out["params"]))
     tokens = TRAIN["global_batch"] * TRAIN["seq_len"]
     first_step, after_first = out["step_seconds"][0], out["step_seconds"][1:]
@@ -2262,51 +2546,332 @@ def phase_train() -> int:
     return ssd_launches
 
 
+# ------------------------------------------------------- 8b. dense train
+def attn_layers(cfg) -> int:
+    """Attention calls of one forward: every attention sub-layer of an LM;
+    an encoder-decoder's encoder layers and both attentions of each decoder
+    layer."""
+    if cfg.family == "encdec":
+        return cfg.encoder.n_layers + 2 * cfg.n_layers
+    return mixers(cfg, "attn")
+
+
+def train_counts(cfg, steps: int, fwd: int, bwd: int, label: str) -> None:
+    """Under remat the forward runs twice per attention layer per step (the
+    checkpointed period again in the backward), the backward once."""
+    n = attn_layers(cfg)
+    check(fwd == 2 * n * steps and bwd == n * steps,
+          f"{label}: flash forward launches {fwd} == 2 x {n} attention layers "
+          f"x {steps} steps, backward {bwd} == {n} x {steps}")
+
+
+def profile_train_steps(label: str, model, state: list, batches,
+                        opt_cfg) -> None:
+    """Steps under the profiler, the gradient and the AdamW update in
+    windows of their own (a synchronisation between them): device time by
+    kernel class in the gradient's window, AdamW's as one class, and the
+    idle share of the two windows' wall.  ``state`` is ``[params,
+    opt_state]``, emptied here so that each step's old state can be freed
+    (two generations of f32 weights and moments would not fit)."""
+    params, opt_state = state
+    state.clear()
+    grad_by, opt_by, wall = {}, {}, 0.0
+    for batch in batches:
+        for part, into in (("grad", grad_by), ("adamw", opt_by)):
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                if part == "grad":
+                    loss, grads = value_and_grad(model, params, batch)
+                    float(loss)
+                else:
+                    params, opt_state, metrics = adamw_update(
+                        grads, opt_state, params, opt_cfg)
+                    float(metrics["grad_norm"])
+                    del grads
+                wall += time.perf_counter() - t0
+            for name, (ms, n) in device_time_by_name(prof).items():
+                acc = into.setdefault(name, [0.0, 0])
+                acc[0] += ms
+                acc[1] += n
+    busy = sum(ms for ms, _ in grad_by.values())
+    adamw = sum(ms for ms, _ in opt_by.values())
+    classes = {c: [round(ms, 3), n] for c, (ms, n) in sorted(
+        kernel_classes(grad_by).items(), key=lambda kv: -kv[1][0])}
+    classes["AdamW (its window)"] = [round(adamw, 3),
+                                     sum(n for _, n in opt_by.values())]
+    idle = (f"{1 - (busy + adamw) / 1e3 / wall!r}" if busy > 0
+            else "not measured")
+    say("dense train", (
+        f"{label}: {len(batches)} profiled steps, {busy + adamw!r} ms device "
+        f"time in a wall of {wall!r} s, idle share {idle}; device ms and "
+        f"launches by class {classes}; the most:"))
+    for name, (ms, n) in sorted(grad_by.items(), key=lambda kv: -kv[1][0])[:8]:
+        print(f"    {ms:10.3f} ms  {n:6d} launches  {name[:100]}")
+
+
+def flash_since(start: dict) -> tuple[int, int]:
+    """The flash forward and backward launches since ``launches()`` gave
+    ``start``."""
+    now = launches()
+    return now["flash"] - start["flash"], now["flash_bwd"] - start["flash_bwd"]
+
+
+def dense_run(arch: str, kw: dict) -> tuple[int, int]:
+    """``run_training`` of ``arch`` at full width and depth; the
+    internlm2 run is also profiled over 2 more steps.  Returns the flash
+    forward and backward launches, the profiled steps' included."""
+    cfg = get_config(arch)
+    start = launches()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = run_training(cfg, **kw)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    steps, losses, norms = kw["steps"], out["losses"], out["grad_norms"]
+    check(out["steps_run"] == steps, f"{arch}: ran {out['steps_run']} of "
+          f"{steps} steps")
+    check(all(np.isfinite(losses)) and all(np.isfinite(norms)),
+          f"{arch}: losses {losses} and grad norms {norms} finite")
+    fwd, bwd = out["flash_launches"], out["flash_bwd_launches"]
+    train_counts(cfg, steps, fwd, bwd, arch)
+    last5 = float(np.mean(losses[-5:]))
+    if arch == "internlm2-1.8b":
+        check(last5 < losses[0], f"{arch}: mean loss of the last 5 steps "
+              f"{last5} below the first step's {losses[0]}")
+    after_first = out["step_seconds"][1:]
+    n_params = sum(x.numel() for x in tree.leaves(out["params"]))
+    if arch != "internlm2-1.8b":
+        del out["params"]
+    say("dense train", (
+        f"{arch} full width and depth ({cfg.n_layers} layers, {n_params} "
+        f"parameters, f32 weights and AdamW, bf16 compute, remat "
+        f"{cfg.remat}): {steps} steps of {kw['global_batch']} x "
+        f"{kw['seq_len']} tokens, lr {kw['lr']}: wall {wall!r} s, first "
+        f"step {out['step_seconds'][0]!r} s, then "
+        f"{sum(after_first) / len(after_first)!r} s a step (min "
+        f"{min(after_first)!r}, max {max(after_first)!r}) = "
+        f"{out['tokens_per_sec']!r} tokens/s; losses "
+        f"{[round(x, 4) for x in losses]}, last 5 mean {last5!r}; grad "
+        f"norms {[round(x, 3) for x in norms]}; flash forward {fwd} and "
+        f"backward {bwd} launches; peak memory {peak!r} GiB"))
+    if arch == "internlm2-1.8b":
+        model = build_model(cfg)
+        opt_cfg = OptConfig(lr=kw["lr"])
+        params = out.pop("params")
+        del out
+        state = [params, adamw_init(params)]
+        del params
+        loader = ShardedLoader(cfg.vocab, kw["global_batch"], kw["seq_len"],
+                               seed=1)
+        batches = [{k: torch.from_numpy(v).cuda()
+                    for k, v in next(loader).items()} for _ in range(2)]
+        loader.close()
+        before = launches()
+        profile_train_steps(f"{arch} ({kw['global_batch']} x "
+                            f"{kw['seq_len']} tokens)", model, state,
+                            batches, opt_cfg)
+        train_counts(cfg, len(batches), *flash_since(before),
+                     f"{arch} profiled steps")
+        del batches
+    torch.cuda.empty_cache()
+    return flash_since(start)
+
+
+class GCPauses:
+    """Seconds the cyclic garbage collector held the host while entered."""
+
+    def __enter__(self):
+        self.seconds, self._t0 = 0.0, 0.0
+        gc.callbacks.append(self._callback)
+        return self
+
+    def _callback(self, phase: str, info: dict) -> None:
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        else:
+            self.seconds += time.perf_counter() - self._t0
+
+    def __exit__(self, *exc):
+        gc.callbacks.remove(self._callback)
+
+
+def whisper_train() -> tuple[int, int]:
+    """whisper-large-v3 at full width and depth through ``make_train_step``
+    on a batch of frame embeddings, tokens and next-token labels: the
+    non-causal encoder over 1,500 frames and cross-attention with Sq != Sk
+    under the backward.  Returns the flash forward and backward launches."""
+    w = WHISPER_TRAIN
+    cfg = get_config("whisper-large-v3")
+    model = build_model(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    opt_state = adamw_init(params)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    full = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab, size=(w["batch"], w["tokens"] + 1))).cuda()
+    batch = {"frames": torch.randn(w["batch"], cfg.encoder.n_ctx, cfg.d_model,
+                                   device="cuda", generator=gen),
+             "tokens": full[:, :-1], "labels": full[:, 1:].contiguous()}
+    step_fn = make_train_step(model, OptConfig(lr=w["lr"], warmup_steps=1,
+                                               total_steps=w["steps"]))
+    start = launches()
+    losses, norms, seconds, gc_seconds = [], [], [], []
+    for _ in range(w["steps"]):
+        with GCPauses() as pauses:
+            t0 = time.perf_counter()
+            params, opt_state, metrics = step_fn(params, opt_state, batch)
+            losses.append(float(metrics["loss"]))
+            norms.append(float(metrics["grad_norm"]))
+            seconds.append(time.perf_counter() - t0)
+        gc_seconds.append(pauses.seconds)
+    fwd, bwd = flash_since(start)
+    check(all(np.isfinite(losses)) and all(np.isfinite(norms)),
+          f"whisper: losses {losses} and grad norms {norms} finite")
+    train_counts(cfg, w["steps"], fwd, bwd, "whisper")
+    step_s = sum(seconds[1:]) / len(seconds[1:])
+    say("dense train", (
+        f"whisper-large-v3 full width and depth ({cfg.encoder.n_layers} + "
+        f"{cfg.n_layers} layers, f32 weights and AdamW, bf16 compute, remat "
+        f"{cfg.remat}) through make_train_step: {w['steps']} steps of "
+        f"{w['batch']} x {cfg.encoder.n_ctx} frames and {w['tokens']} "
+        f"tokens: step seconds {seconds} (of which the garbage collector "
+        f"{gc_seconds}), {w['batch'] * cfg.encoder.n_ctx / step_s!r}"
+        f" frames/s after the first; losses {losses}, grad norms {norms}; "
+        f"flash forward {fwd} and backward {bwd} launches; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30!r} GiB"))
+    del params, opt_state, batch
+    torch.cuda.empty_cache()
+    return fwd, bwd
+
+
+def phase_dense_train() -> tuple[int, int]:
+    """8b: the attention models train on the card.  Returns the flash
+    forward and backward launches of the three runs."""
+    fwd = bwd = 0
+    for arch, kw in DENSE_TRAIN:
+        f, b = dense_run(arch, kw)
+        fwd, bwd = fwd + f, bwd + b
+    f, b = whisper_train()
+    return fwd + f, bwd + b
+
+
 # ------------------------------------------------------- 9. train parity
 def phase_train_parity() -> None:
-    """One train step and the gradients at full width, 2 layers, f32, on
-    the card against the CPU.  cuBLAS and the kernel add in other orders
-    than the CPU: ~1e-6 relative per layer.  Parameters after the step are
-    not compared: at step 1 AdamW moves a weight by about lr times the sign
-    of its gradient, so a tiny gradient of opposite sign differs by 2 lr."""
+    """mamba2-130m at full width, 2 layers, f32: one train step against the
+    CPU, and ``lm_logits`` within atol/rtol 1e-3; then the attention
+    models' train steps."""
     cfg = dataclasses.replace(get_config(TRAIN_ARCH, dtype="float32"),
                               n_layers=2)
     model = build_model(cfg)
     cpu = model.init(torch.Generator().manual_seed(2))
-    gpu = tree.map_tree(lambda t: t.to("cuda"), cpu)
     full = np.random.default_rng(2).integers(0, cfg.vocab, size=(2, 513))
     batch = {"tokens": torch.from_numpy(full[:, :-1]),
              "labels": torch.from_numpy(full[:, 1:].copy())}
-    step_fn = make_train_step(model, OptConfig(lr=1e-3, warmup_steps=5,
-                                               total_steps=20))
-    runs = {}
-    for dev, params in (("cpu", cpu), ("cuda", gpu)):
+    train_step_parity(f"{TRAIN_ARCH} full width, 2 layers, f32, batch 2 x "
+                      "512", model, cpu, batch)
+    with torch.no_grad():
+        z0 = lm_logits(cpu, cfg, batch["tokens"])
+        z1 = lm_logits(tree.map_tree(lambda t: t.to("cuda"), cpu), cfg,
+                       batch["tokens"].cuda()).cpu()
+    err = float((z1 - z0).abs().max())
+    check(torch.allclose(z1, z0, atol=1e-3, rtol=1e-3),
+          f"train parity lm_logits within 1e-3 ({err})")
+    say("train parity", f"{TRAIN_ARCH}: lm_logits on the card equal the "
+        f"CPU's: max |logit err| {err!r}")
+    attention_train_parity()
+
+
+def train_step_parity(label: str, model, cpu_params, batch: dict) -> None:
+    """One train step (``value_and_grad``, then ``adamw_update``: the body
+    of ``make_train_step``) on the CPU and on the card from the same f32
+    parameters and batch: the loss within rtol 1e-4, the gradient norm
+    likewise, each gradient leaf within 1e-3 of its largest value.  On the
+    card attention runs the f32 forward and backward kernels (counted).
+    cuBLAS and the kernels add in other orders than the CPU: ~1e-6
+    relative per layer.  Parameters after the step are not compared: at
+    step 1 AdamW moves a weight by about lr times the sign of its gradient,
+    so a tiny gradient of opposite sign differs by 2 lr."""
+    opt_cfg = OptConfig(lr=1e-3, warmup_steps=5, total_steps=20)
+    gpu_params = tree.map_tree(lambda t: t.to("cuda"), cpu_params)
+    runs, counted = {}, {}
+    for dev, params in (("cpu", cpu_params), ("cuda", gpu_params)):
         b = {k: v.to(dev) for k, v in batch.items()}
-        _, _, metrics = step_fn(params, adamw_init(params), b)
-        _, grads = value_and_grad(model, params, b)
-        with torch.no_grad():
-            logits = lm_logits(params, cfg, b["tokens"])
-        runs[dev] = (float(metrics["loss"]), float(metrics["grad_norm"]),
+        start = launches()
+        loss, grads = value_and_grad(model, params, b)
+        _, _, metrics = adamw_update(grads, adamw_init(params), params,
+                                     opt_cfg)
+        counted[dev] = flash_since(start)
+        runs[dev] = (float(loss), float(metrics["grad_norm"]),
                      {tree.key(p): v.cpu()
-                      for p, v in tree.leaves_with_path(grads)},
-                     logits.cpu())
-    (l0, n0, g0, z0), (l1, n1, g1, z1) = runs["cpu"], runs["cuda"]
-    check(abs(l1 - l0) <= 1e-4 * abs(l0), f"train parity loss {l1} vs {l0}")
+                      for p, v in tree.leaves_with_path(grads)})
+        del grads, metrics
+    del gpu_params
+    n = attn_layers(model.cfg)
+    check(counted["cpu"] == (0, 0) and counted["cuda"] == (2 * n, n),
+          f"{label} train parity: the CPU launched no kernel, the card "
+          f"{counted['cuda']} flash forward and backward == (2 x {n}, {n})")
+    (l0, n0, g0), (l1, n1, g1) = runs["cpu"], runs["cuda"]
+    check(abs(l1 - l0) <= 1e-4 * abs(l0), f"{label} train parity loss {l1} "
+          f"vs {l0}")
+    check(abs(n1 - n0) <= 1e-4 * abs(n0), f"{label} train parity grad norm "
+          f"{n1} vs {n0}")
     worst = 0.0
     for k in g0:
         scale = float(g0[k].abs().max())
         err = float((g1[k] - g0[k]).abs().max())
-        check(err <= 1e-3 * scale, f"train parity gradient {k}: {err} vs "
-              f"largest {scale}")
+        check(err <= 1e-3 * scale, f"{label} train parity gradient {k}: "
+              f"{err} vs largest {scale}")
         worst = max(worst, err / scale if scale else 0.0)
-    check(torch.allclose(z1, z0, atol=1e-3, rtol=1e-3),
-          "train parity lm_logits within 1e-3")
     say("train parity", (
-        f"{TRAIN_ARCH} full width, 2 layers, f32, batch 2 x 512: one "
-        f"make_train_step on the card equals the CPU: loss {l1!r} vs {l0!r}, "
-        f"grad norm {n1!r} vs {n0!r}; {len(g0)} gradient leaves, worst |err| "
-        f"/ largest |grad| {worst!r}; max |logit err| "
-        f"{float((z1 - z0).abs().max())!r}"))
+        f"{label}: one train step on the card (flash forward and backward "
+        f"kernels, f32, {counted['cuda']} launches) equals the CPU: loss "
+        f"{l1!r} vs {l0!r}, grad norm {n1!r} vs {n0!r}; {len(g0)} gradient "
+        f"leaves, worst |err| / largest |grad| {worst!r}"))
+
+
+def attention_train_parity() -> None:
+    """internlm2-1.8b at full width, 2 layers, batch 2 x 512; gemma2 narrow
+    (2 layers, 4/2 heads of D 128, d_model 512, a 256-token window under a
+    512-token sequence, both softcaps, its vocabulary); whisper narrow
+    (2 + 2 layers, 4 heads of D 64, 300 frames, 64 tokens)."""
+    rng = np.random.default_rng(7)
+
+    def lm_batch(vocab: int, b: int, s: int) -> dict:
+        full = rng.integers(0, vocab, size=(b, s + 1))
+        return {"tokens": torch.from_numpy(full[:, :-1].copy()),
+                "labels": torch.from_numpy(full[:, 1:].copy())}
+
+    cfg = dataclasses.replace(get_config(SERVE_ARCH, dtype="float32"),
+                              n_layers=2)
+    model = build_model(cfg)
+    train_step_parity(f"{SERVE_ARCH} full width, 2 layers, batch 2 x 512",
+                      model, model.init(torch.Generator().manual_seed(8)),
+                      lm_batch(cfg.vocab, 2, 512))
+    cfg = dataclasses.replace(
+        get_config("gemma2-27b", dtype="float32"), n_layers=2, d_model=512,
+        n_heads=4, n_kv_heads=2, d_head=128, d_ff=2048, sliding_window=256)
+    model = build_model(cfg)
+    train_step_parity(
+        "gemma2-27b narrow (2 layers, d_model 512, 4/2 heads of D 128, "
+        "window 256 under 512 tokens, softcaps 50 / 30)", model,
+        model.init(torch.Generator().manual_seed(9)),
+        lm_batch(cfg.vocab, 2, 512))
+    full = get_config("whisper-large-v3", dtype="float32")
+    cfg = dataclasses.replace(
+        full, n_layers=2, d_model=256, n_heads=4, n_kv_heads=4, d_ff=1024,
+        encoder=dataclasses.replace(full.encoder, n_layers=2))
+    model = build_model(cfg)
+    batch = lm_batch(cfg.vocab, 2, 64)
+    batch["frames"] = torch.from_numpy(
+        rng.standard_normal((2, 300, cfg.d_model)).astype(np.float32))
+    train_step_parity(
+        "whisper-large-v3 narrow (2 + 2 layers, d_model 256, 4 heads of D "
+        "64, 300 frames, 64 tokens)", model,
+        model.init(torch.Generator().manual_seed(10)), batch)
+    torch.cuda.empty_cache()
 
 
 
@@ -2319,6 +2884,7 @@ def main() -> None:
     took["build"] = time.perf_counter() - t0
     sweep_record = phase_sweep_kernel()
     flash_record = phase_flash_kernel()
+    flash_bwd_record = phase_flash_bwd_kernel()
     ssd_record = phase_ssd_kernel()
     took["kernels"] = time.perf_counter() - t0 - sum(took.values())
 
@@ -2333,21 +2899,39 @@ def main() -> None:
     steps += phase_network(solo)
     took["network and campaigns"] = (time.perf_counter() - t0
                                      - sum(took.values()))
-    launches = vm_update.advance_sweep_cuda.launches
-    check(launches > 0, "the main path launched the advance-sweep kernel")
-    check(launches == steps,
-          f"one advance-sweep launch per batch step ({launches} vs {steps})")
-    say("proof", f"advance_sweep kernel launched {launches} times over "
+    sweeps = vm_update.advance_sweep_cuda.launches
+    check(sweeps > 0, "the main path launched the advance-sweep kernel")
+    check(sweeps == steps,
+          f"one advance-sweep launch per batch step ({sweeps} vs {steps})")
+    say("proof", f"advance_sweep kernel launched {sweeps} times over "
         f"phases 3-4c, one per batch step")
 
+    flash_attention.flash_attention_bwd_cuda.launches = 0
+    remat_calls = lm.remat_call.calls
     flash_launches = phase_serving()
     took["serving"] = time.perf_counter() - t0 - sum(took.values())
     phase_zoo()
     took["model zoo"] = time.perf_counter() - t0 - sum(took.values())
     phase_parity()
     took["parity"] = time.perf_counter() - t0 - sum(took.values())
+    check(flash_attention.flash_attention_bwd_cuda.launches == 0
+          and lm.remat_call.calls == remat_calls,
+          "serving (phases 6-7) launched no flash backward and checkpointed "
+          "nothing")
+    say("proof", "phases 6-7 (serving every family, parity) launched the "
+        "flash backward 0 times and made 0 checkpoints")
     ssd_launches = phase_train()
     took["train"] = time.perf_counter() - t0 - sum(took.values())
+    zero_launches()
+    dense_fwd, dense_bwd = phase_dense_train()
+    counted = launches()
+    check(counted["flash"] == dense_fwd > 0 and counted["flash_bwd"]
+          == dense_bwd > 0, f"phase 8b launched the flash forward "
+          f"{counted['flash']} and backward {counted['flash_bwd']} times, "
+          f"as its runs counted ({dense_fwd}, {dense_bwd})")
+    say("proof", f"phase 8b launched the flash forward {counted['flash']} "
+        f"and backward {counted['flash_bwd']} times")
+    took["dense train"] = time.perf_counter() - t0 - sum(took.values())
     phase_train_parity()
     took["train parity"] = time.perf_counter() - t0 - sum(took.values())
     say("timing", ", ".join(f"{k} {v:.1f} s" for k, v in took.items()))
@@ -2357,7 +2941,7 @@ def main() -> None:
         "route": "cuda",
         "source": "src/repro_torch/csrc/vm_update.cu",
         "replaces": "src/repro/kernels/vm_update.py:123",
-        "launches": launches,
+        "launches": sweeps,
         **sweep_record,
         "library_ms": None,
     }, {
@@ -2367,6 +2951,14 @@ def main() -> None:
         "replaces": "src/repro/kernels/flash_attention.py:99",
         "launches": flash_launches,
         **flash_record,
+    }, {
+        "name": "flash_attention_bwd",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/models/attention.py:40 flash_xla (gradient by "
+                    "jax.grad; no Pallas kernel)",
+        "launches": counted["flash_bwd"],
+        **flash_bwd_record,
     }, {
         "name": "ssd_scan",
         "route": "cuda",

@@ -1,0 +1,119 @@
+"""How far ``chip_smoke.py``'s checks of the bf16 flash backward reach, on
+one NVIDIA GPU.
+
+    python3 scripts/flash_bwd_fault_reach.py
+
+Builds three broken copies of ``src/repro_torch/csrc/flash_attention_bwd.cu``
+in a temporary directory, each with one fault the backward can have:
+
+* ``dropped_tile``: in the dQ kernel, rows that see more than 16 key tiles
+  skip their first;
+* ``wrong_head``: in the dK/dV kernel, the last query head of a GQA group
+  reads the group's first head instead of its own;
+* ``missed_softcap``: the dQ kernel leaves the softcap's factor
+  ``1 - (s / c)^2`` out of dS.
+
+Runs the sound kernel and each copy at ``chip_smoke.py``'s bf16 backward
+shapes, on the inputs chip_smoke gives them, and prints for each tensor the
+relative error of the whole tensor and of its worst row against chip_smoke's
+limits.  Exits non-zero if the sound kernel fails a check or a broken copy
+passes them all at a shape where its fault applies.  Every line carries the
+card's name and power limit.  Imports nothing of JAX or of the JAX package.
+"""
+from __future__ import annotations
+
+import sys
+import tempfile
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke as cs  # noqa: E402  (exits without a CUDA device)
+from repro_torch.kernels import build as kbuild  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import ref  # noqa: E402
+
+KEY_LOOP = ("  mask.key_tiles(q0, q_rows, kOther, &kt_lo, &kt_hi);\n"
+            "  for (int kt = kt_lo; kt < kt_hi; ++kt) {\n")
+HEAD = "    const int h = hk * group + hh;\n"
+DS_Q = "        dp[n][e] = p * (dp[n][e] - delta_r[e >> 1]) * factor;\n"
+FAULTS = {
+    "dropped_tile": (KEY_LOOP, KEY_LOOP.replace(
+        "  for (int kt", "  if (kt_hi - kt_lo > 16) ++kt_lo;\n  for (int kt")),
+    "wrong_head": (HEAD, "    const int h = hk * group + (hh == group - 1 "
+                   "? 0 : hh);\n"),
+    "missed_softcap": (DS_Q, DS_Q.replace(" * factor;", ";")),
+}
+
+
+def applies(name: str, shape, kw) -> bool:
+    b, hq, hk, sq, sk, d = shape
+    if name == "dropped_tile":
+        return -(-sk // 32) > 16
+    if name == "wrong_head":
+        return hq // hk > 1
+    if name == "missed_softcap":
+        return kw.get("softcap", 0.0) > 0.0
+    return True
+
+
+def readings(name: str) -> bool:
+    """Every bf16 backward shape through the library the wrapper has
+    loaded; True if chip_smoke's checks give the verdict this kernel should
+    get."""
+    right = True
+    for i, (label, shape, dtype, kw) in enumerate(cs.FLASH_BWD_SHAPES):
+        if dtype != torch.bfloat16:
+            continue
+        q, k, v, do = cs.flash_bwd_inputs(label, shape, dtype, i)
+        out, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+        grads = fa.flash_attention_bwd_cuda(q, k, v, out, lse, do, **kw)
+        want = ref.attention_bwd_ref(q, k, v, out, lse, do, **kw)
+        errs = {g: cs.grad_errors(x, y)[1:]
+                for g, x, y in zip(("dq", "dk", "dv"), grads, want)}
+        passes = all(rel < cs.FLASH_BWD_REL_TOL and row < cs.FLASH_BWD_ROW_TOL
+                     for rel, row in errs.values())
+        hit = applies(name, shape, kw)
+        if name == "sound":
+            right &= passes
+        elif hit:
+            right &= not passes
+        cs.say(name, f"{label} {list(shape)} {kw}: (relative error, worst "
+               f"row) {errs} (limits {cs.FLASH_BWD_REL_TOL}, "
+               f"{cs.FLASH_BWD_ROW_TOL}); "
+               f"{'passes' if passes else 'fails'} chip_smoke's checks"
+               f"{'' if hit else ' (the fault does not apply here)'}")
+        del q, k, v, do, out, lse, grads, want
+        torch.cuda.empty_cache()
+    return right
+
+
+def main() -> None:
+    right = readings("sound")
+    src = fa.SRC_BWD.read_text()
+    tmp = Path(tempfile.mkdtemp(prefix="flash_bwd_faults_"))
+    kbuild.BUILD_DIR = tmp / "lib"
+    load = fa._bwd_library.__wrapped__  # the uncached loader, to rebind SRC
+    paths = {}
+    for name, (old, new) in FAULTS.items():
+        if src.count(old) != 1:
+            sys.exit(f"flash_bwd_fault_reach: the source no longer has one "
+                     f"{old.strip()!r} to break")
+        paths[name] = tmp / f"flash_attention_bwd_{name}.cu"
+        paths[name].write_text(src.replace(old, new))
+    kbuild.build(*[(path, fa.NVCC_FLAGS) for path in paths.values()])
+    for name, path in paths.items():
+        fa.SRC_BWD = path
+        lib = load()
+        fa._bwd_library = lambda lib=lib: lib
+        right &= readings(name)
+    print(cs.CARD)
+    if not right:
+        sys.exit("flash_bwd_fault_reach: a check gave the wrong verdict")
+
+
+if __name__ == "__main__":
+    main()

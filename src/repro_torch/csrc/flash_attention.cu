@@ -13,7 +13,11 @@
 //   l    = exp(m - m') * l + sum p;  acc = exp(m - m') * acc + p . v
 //   o    = acc / max(l, 1e-30)      (a row whose keys are all masked gives 0)
 //
-// Output in the input type.
+// Output in the input type.  On request (a non-null lse) also the row's
+// log-sum-exp in natural-log units, f32 [B, Hq, Sq]: lse = m + log(l) over
+// the capped, masked logits, +inf for a row whose keys are all masked (so
+// exp(s - lse) is 0 there).  The backward (flash_attention_bwd.cu) reads it;
+// serving passes null and writes nothing more.
 //
 // What bounds it.  Attention does 4 * D operations per valid (query, key)
 // pair and moves q, k, v and o once: at the serving prefill (Sq = Sk = 512,
@@ -74,6 +78,8 @@
 // tensor maps (cuTensorMapEncodeTiled found with dlsym, so the library links
 // nothing beyond the runtime), are in hopper.cuh, shared with ssd_scan.cu.
 
+#include <math.h>
+
 #include "hopper.cuh"
 
 namespace {
@@ -109,8 +115,8 @@ __global__ void __launch_bounds__(128 * kWG, 1)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
                 const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tv,
-                __nv_bfloat16* __restrict__ o, int Hq, int Hk, int Sq, int Sk,
-                int causal, int window, float softcap, float scale) {
+                __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int Hq, int Hk,
+                int Sq, int Sk, int causal, int window, float softcap, float scale) {
   constexpr int kBq = 64 * kWG;
   constexpr int kDp = D <= 64 ? 64 : 128;  // columns in shared memory
   constexpr int kBoxes = kDp / 64;
@@ -289,13 +295,20 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
     if (lane == 0) mbar_arrive(empty + 8 * s);
   }
 
-  float inv[2];
+  float inv[2], l_row[2];
 #pragma unroll
-  for (int r = 0; r < 2; ++r) inv[r] = 1.f / fmaxf(quad_sum(l[r]), 1e-30f);
+  for (int r = 0; r < 2; ++r) {
+    l_row[r] = quad_sum(l[r]);
+    inv[r] = 1.f / fmaxf(l_row[r], 1e-30f);
+  }
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int rr = 64 * wg + 16 * warp + lane / 4 + 8 * r;
     if (rr < q_rows) {
+      // m and l are in log2 units: lse = (m + log2 l) / log2(e)
+      if (lse != nullptr && lane % 4 == 0)
+        lse[static_cast<size_t>(qh) * Sq + q0 + rr] =
+            l_row[r] > 0.f ? (m[r] + log2f(l_row[r])) / kLog2e : INFINITY;
       __nv_bfloat16* orow = o + (static_cast<size_t>(qh) * Sq + q0 + rr) * D + c_lane;
 #pragma unroll
       for (int j = 0; j < D / 8; ++j)
@@ -318,9 +331,9 @@ int encode(CUtensorMap* map, const void* ptr, int d, int rows, int heads, int bo
 }
 
 template <int D, int kWG>
-int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, int Hq, int Hk,
-                 int Sq, int Sk, int causal, int window, float softcap, float scale,
-                 cudaStream_t stream) {
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                 int Hq, int Hk, int Sq, int Sk, int causal, int window, float softcap,
+                 float scale, cudaStream_t stream) {
   constexpr int kSmem = wgmma_smem_bytes<D, kWG>();
   // once per instantiation, at its first launch (outside any graph capture)
   static bool configured = false;
@@ -337,8 +350,8 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, in
   if (err != 0) return err;
   const dim3 grid((Sq + 64 * kWG - 1) / (64 * kWG), Hq, B);
   flash_fwd_wgmma<D, kWG><<<grid, 128 * kWG, kSmem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), Hq, Hk, Sq, Sk, causal, window, softcap,
-      scale);
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, Hq, Hk, Sq, Sk, causal, window,
+      softcap, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -382,8 +395,9 @@ constexpr int f32_smem_bytes() {
 template <int D>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, float* __restrict__ o, int Hq, int Hk, int Sq,
-              int Sk, int causal, int window, float softcap, float scale) {
+              const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
+              int Hq, int Hk, int Sq, int Sk, int causal, int window, float softcap,
+              float scale) {
   constexpr int kLd = D + 4;
   constexpr int kGroups = D / 32;  // float2 column groups of O per thread
   extern __shared__ float4 smem4[];
@@ -524,9 +538,13 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const float li = fmaxf(half_warp_sum(l[i]), 1e-30f);
+    const float l_row = half_warp_sum(l[i]);
+    const float li = fmaxf(l_row, 1e-30f);
     const int r = 4 * ty + i;
     if (r < q_rows) {
+      if (lse != nullptr && tx == 0)
+        lse[(static_cast<size_t>(b) * Hq + h) * Sq + q0 + r] =
+            l_row > 0.f ? m[i] + logf(l_row) : INFINITY;
 #pragma unroll
       for (int g = 0; g < kGroups; ++g)
         *reinterpret_cast<float2*>(og + static_cast<size_t>(r) * D + 2 * tx + 32 * g) =
@@ -536,8 +554,8 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 template <int D>
-int launch_f32(const void* q, const void* k, const void* v, void* o, int B, int Hq, int Hk,
-               int Sq, int Sk, int causal, int window, float softcap, float scale,
+int launch_f32(const void* q, const void* k, const void* v, void* o, float* lse, int B, int Hq,
+               int Hk, int Sq, int Sk, int causal, int window, float softcap, float scale,
                cudaStream_t stream) {
   constexpr int kSmem = f32_smem_bytes<D>();
   // once per instantiation, at its first launch (outside any graph capture)
@@ -551,14 +569,14 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B, int 
   const dim3 grid((Sq + kBlockQ - 1) / kBlockQ, Hq, B);
   flash_fwd_f32<D><<<grid, kThreads, kSmem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), Hq, Hk, Sq, Sk, causal, window, softcap, scale);
+      static_cast<float*>(o), lse, Hq, Hk, Sq, Sk, causal, window, softcap, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 // ========================================================== entry point
 
-using Launch = int (*)(const void*, const void*, const void*, void*, int, int, int, int, int,
-                       int, int, float, float, cudaStream_t);
+using Launch = int (*)(const void*, const void*, const void*, void*, float*, int, int, int, int,
+                       int, int, int, float, float, cudaStream_t);
 
 struct Variant {
   int dtype, d, block_q, block_k, threads, smem;
@@ -601,15 +619,16 @@ extern "C" int flash_attention_geometry(int dtype, int D, int block_q, int* bloc
   return 0;
 }
 
-// window < 0: no sliding window.  (dtype, D, block_q) are the launch plan's;
+// window < 0: no sliding window.  lse: null, or f32 [B, Hq, Sq] for the
+// rows' log-sum-exp.  (dtype, D, block_q) are the launch plan's;
 // one no instantiation takes is refused with cudaErrorInvalidValue before
 // anything is launched.
-extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, int B,
-                                   int Hq, int Hk, int Sq, int Sk, int D, int dtype,
-                                   int causal, int window, float softcap, float scale,
-                                   int block_q, void* stream) {
+extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
+                                   float* lse, int B, int Hq, int Hk, int Sq, int Sk, int D,
+                                   int dtype, int causal, int window, float softcap,
+                                   float scale, int block_q, void* stream) {
   const Variant* x = find(dtype, D, block_q);
   if (x == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  return x->launch(q, k, v, o, B, Hq, Hk, Sq, Sk, causal, window, softcap, scale,
+  return x->launch(q, k, v, o, lse, B, Hq, Hk, Sq, Sk, causal, window, softcap, scale,
                    static_cast<cudaStream_t>(stream));
 }

@@ -1,10 +1,14 @@
-"""Flash attention as a hand-written CUDA kernel for Hopper.
+"""Flash attention as hand-written CUDA kernels for Hopper, forward and
+backward.
 
-Replaces ``repro/kernels/flash_attention.py::flash_attention_pallas``.  The
-kernel source is ``csrc/flash_attention.cu`` (its header says what bounds it
-and how the design answers that); ``kernels/build.py`` builds it with
-``nvcc`` at first use and binds it through ``ctypes``.  Nothing is built or
-loaded at import.
+The forward replaces ``repro/kernels/flash_attention.py::
+flash_attention_pallas``; its source is ``csrc/flash_attention.cu``.  The
+backward has no Pallas counterpart (the JAX package differentiates
+``repro/models/attention.py::flash_xla`` with ``jax.grad``); its source is
+``csrc/flash_attention_bwd.cu``.  Each header says what bounds the kernel
+and how the design answers that; ``kernels/build.py`` builds both with
+``nvcc`` at first use and binds them through ``ctypes``.  Nothing is built
+or loaded at import.
 
 Two variants, chosen by dtype in ``kernel_plan``: bf16 runs on the tensor
 cores (``"wgmma"``: TMA loads into a two-stage shared-memory ring, ``wgmma``
@@ -13,12 +17,18 @@ cores (``"cuda_cores"``: f32 FMAs, which its 2e-5 tolerance needs).  There
 is no option that picks another: a bf16 CUDA tensor launches the
 tensor-core kernel or raises.
 
-The wrapper takes CUDA tensors only.  On a CPU tensor the caller routes to
-``ref.attention_ref`` (``ops.flash_attention``); this function raises.  The
-kernel has no backward yet: under autograd, with q, k or v requiring a
-gradient, the wrapper raises rather than return a result cut off from the
-graph (serving runs without gradients; training a dense model on the card
-waits for a backward kernel).
+The backward (``flash_attention_bwd_cuda``, plan ``kernel_plan_bwd``) is
+three launches: delta = rowsum(dO o), dK/dV over key tiles (a block loops
+over the query heads of its GQA group, so nothing is added atomically and
+two runs are bitwise equal), dQ over query tiles.  bf16 runs its products
+on the tensor cores through ``mma.sync`` (``"mma_sync"``), f32 on the CUDA
+cores (``"cuda_cores"``).
+
+The wrappers take CUDA tensors only and raise under autograd (their outputs
+would have no ``grad_fn``).  ``FlashAttention`` is the differentiable form:
+the forward kernel with its row log-sum-exp, then the backward kernels, on
+CUDA tensors; ``ref.attention_ref`` and ``ref.attention_bwd_ref`` on CPU
+tensors.  ``ops.flash_attention`` routes to it when a gradient is wanted.
 """
 from __future__ import annotations
 
@@ -29,8 +39,10 @@ import torch
 from torch import Tensor
 
 from repro_torch.kernels import build as kbuild
+from repro_torch.kernels import ref
 
 SRC = kbuild.CSRC / "flash_attention.cu"
+SRC_BWD = kbuild.CSRC / "flash_attention_bwd.cu"
 NVCC_FLAGS = kbuild.BASE_FLAGS
 HEAD_DIMS = (64, 96, 128)       # the instantiations of the kernel templates
 N_SM = 132                      # H100 SXM streaming multiprocessors
@@ -99,8 +111,8 @@ def kernel_plan(b: int, hq: int, hk: int, sq: int, sk: int, d: int,
 def _library() -> ctypes.CDLL:
     lib = kbuild.load(SRC, NVCC_FLAGS)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.flash_attention_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i,
-                                        i, f, f, i, p]
+    lib.flash_attention_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i,
+                                        i, i, f, f, i, p]
     lib.flash_attention_fwd.restype = i
     ip = ctypes.POINTER(i)
     lib.flash_attention_geometry.argtypes = [i, i, i, ip, ip, ip]
@@ -164,11 +176,13 @@ def _check(q: Tensor, k: Tensor, v: Tensor, window) -> dict:
 
 def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor, *,
                          causal: bool = True, window: int | None = None,
-                         softcap: float = 0.0,
-                         scale: float | None = None) -> Tensor:
+                         softcap: float = 0.0, scale: float | None = None,
+                         return_lse: bool = False):
     """Attention on the card: q ``[B, Hq, Sq, D]``, k/v ``[B, Hk, Sk, D]``
     -> ``[B, Hq, Sq, D]`` in q's dtype, same contract as
-    ``ref.attention_ref``.
+    ``ref.attention_ref``.  With ``return_lse``, ``(out, lse)``: the rows'
+    log-sum-exp f32 ``[B, Hq, Sq]`` as ``ref.attention_lse_ref`` gives it,
+    written by the kernel itself (the backward's input).
 
     Launches on the current stream and does not synchronise.  Each call that
     launches adds one to ``flash_attention_cuda.launches`` and leaves its
@@ -180,12 +194,15 @@ def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor, *,
     hk, sk = k.shape[1], k.shape[2]
     scale = d ** -0.5 if scale is None else scale
     out = torch.empty_like(q)
+    lse = (torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     if out.numel() == 0:
-        return out
+        return (out, lse) if return_lse else out
     lib = _library()
     with torch.cuda.device(q.device):
         err = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr() if return_lse else None,
             b, hq, hk, sq, sk, d, _DTYPES[q.dtype], int(causal),
             -1 if window is None else int(window), float(softcap),
             float(scale), plan["block_q"],
@@ -203,8 +220,166 @@ def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor, *,
                            f"plan {plan})")
     flash_attention_cuda.launches += 1
     flash_attention_cuda.last_plan = plan
-    return out
+    return (out, lse) if return_lse else out
 
 
 flash_attention_cuda.launches = 0
 flash_attention_cuda.last_plan = None
+
+
+# ------------------------------------------------------------------ backward
+
+def geometry_bwd(dtype: torch.dtype, d: int) -> tuple[int, int, int, int]:
+    """The block's own rows, the other side's rows an iteration, threads and
+    shared-memory bytes of the backward's dK/dV and dQ kernels for (dtype,
+    d), as ``csrc/flash_attention_bwd.cu`` lays them out
+    (``mma_smem_bytes``, ``cc_smem_bytes``); ``chip_smoke.py`` holds them
+    against ``kernel_geometry_bwd``."""
+    if dtype == torch.bfloat16:
+        # K, V (or Q, dO) tiles of 64 rows and the other side's two of 32,
+        # bf16 rows padded by 8; lse and delta of 32 rows
+        return 64, 32, 128, (2 * 64 + 2 * 32) * (d + 8) * 2 + 2 * 32 * 4
+    # four f32 tiles of 32 rows padded by 1; P and dS 32 x 33; lse, delta
+    return 32, 32, 256, (4 * 32 * (d + 1) + 2 * 32 * 33 + 2 * 32) * 4
+
+
+def kernel_plan_bwd(b: int, hq: int, hk: int, sq: int, sk: int, d: int,
+                    dtype: torch.dtype) -> dict:
+    """Launch plan of ``flash_attention_bwd_cuda`` for q ``[b, hq, sq, d]``
+    and k/v ``[b, hk, sk, d]``: the variant (bf16 ``"mma_sync"``, f32
+    ``"cuda_cores"``), the tiles, threads and shared memory, and the grid
+    of each of the three launches (``delta``: 8 rows a block; ``dkdv``: key
+    tiles x kv heads x batch; ``dq``: query tiles x query heads x batch).
+    Raises ValueError on what no instantiation takes."""
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention_bwd_cuda: head dim {d} is not one "
+                         f"of {HEAD_DIMS}")
+    if dtype == torch.bfloat16:
+        variant = "mma_sync"
+    elif dtype == torch.float32:
+        variant = "cuda_cores"
+    else:
+        raise ValueError(f"flash_attention_bwd_cuda: dtype {dtype}, expected "
+                         "torch.float32 or torch.bfloat16")
+    if hq > MAX_GRID_YZ or b > MAX_GRID_YZ:
+        raise ValueError(f"flash_attention_bwd_cuda: {hq} heads or batch {b} "
+                         f"exceed the grid's {MAX_GRID_YZ}")
+    rows, other, threads, smem = geometry_bwd(dtype, d)
+    if smem > MAX_SMEM:
+        raise ValueError(f"flash_attention_bwd_cuda: {smem} bytes of shared "
+                         f"memory exceed a block's {MAX_SMEM}")
+    return {"variant": variant, "rows": rows, "other": other,
+            "threads": threads, "smem": smem,
+            "grids": {"delta": (-(-b * hq * sq // 8),),
+                      "dkdv": (-(-sk // rows), hk, b),
+                      "dq": (-(-sq // rows), hq, b)}}
+
+
+@functools.cache
+def _bwd_library() -> ctypes.CDLL:
+    lib = kbuild.load(SRC_BWD, NVCC_FLAGS)
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.flash_attention_bwd.argtypes = [p] * 10 + [i] * 9 + [f, f, p]
+    lib.flash_attention_bwd.restype = i
+    ip = ctypes.POINTER(i)
+    lib.flash_attention_bwd_geometry.argtypes = [i, i, ip, ip, ip, ip]
+    lib.flash_attention_bwd_geometry.restype = i
+    return lib
+
+
+def kernel_geometry_bwd(dtype: torch.dtype,
+                        d: int) -> tuple[int, int, int, int] | None:
+    """The built backward library's rows, other rows, threads and shared
+    memory for (dtype, d), or None if it has no instantiation (builds the
+    library)."""
+    out = [ctypes.c_int() for _ in range(4)]
+    if _bwd_library().flash_attention_bwd_geometry(_DTYPES[dtype], d, *out):
+        return None
+    return tuple(x.value for x in out)
+
+
+def flash_attention_bwd_cuda(q: Tensor, k: Tensor, v: Tensor, o: Tensor,
+                             lse: Tensor, do: Tensor, *, causal: bool = True,
+                             window: int | None = None, softcap: float = 0.0,
+                             scale: float | None = None
+                             ) -> tuple[Tensor, Tensor, Tensor]:
+    """The gradient of ``flash_attention_cuda`` on the card: dq, dk, dv in
+    the inputs' dtype from q, k, v, the forward's output ``o`` and its
+    ``lse`` (``return_lse=True``) and the output's gradient ``do``; the
+    contract of ``ref.attention_bwd_ref``.
+
+    Three launches on the current stream, no synchronisation.  Each call
+    that launches adds one to ``flash_attention_bwd_cuda.launches`` and
+    leaves its plan in ``flash_attention_bwd_cuda.last_plan``.
+    """
+    kbuild.refuse_autograd("flash_attention_bwd_cuda", q=q, k=k, v=v, o=o,
+                           do=do)
+    _check(q, k, v, window)
+    b, hq, sq, d = q.shape
+    hk, sk = k.shape[1], k.shape[2]
+    plan = kernel_plan_bwd(b, hq, hk, sq, sk, d, q.dtype)
+    for name, x in (("o", o), ("do", do)):
+        if x.shape != q.shape or x.dtype != q.dtype:
+            raise ValueError(f"flash_attention_bwd_cuda: {name} is "
+                             f"{tuple(x.shape)} {x.dtype}, q {tuple(q.shape)} "
+                             f"{q.dtype}")
+    if lse.shape != (b, hq, sq) or lse.dtype != torch.float32:
+        raise ValueError(f"flash_attention_bwd_cuda: lse is "
+                         f"{tuple(lse.shape)} {lse.dtype}, expected "
+                         f"{(b, hq, sq)} torch.float32")
+    for name, x in (("o", o), ("do", do), ("lse", lse)):
+        if x.device != q.device or not x.is_contiguous() or x.data_ptr() % 16:
+            raise ValueError(f"flash_attention_bwd_cuda: {name} is not a "
+                             f"contiguous, 16-byte aligned tensor on "
+                             f"{q.device}")
+    scale = d ** -0.5 if scale is None else scale
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    if q.numel() == 0 or k.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    lib = _bwd_library()
+    with torch.cuda.device(q.device):
+        err = lib.flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), b, hq, hk, sq, sk, d,
+            _DTYPES[q.dtype], int(causal), -1 if window is None else int(window),
+            float(softcap), float(scale),
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd_cuda: launch failed: CUDA "
+                           f"error {err} (q {tuple(q.shape)}, k "
+                           f"{tuple(k.shape)}, {q.dtype}, plan {plan})")
+    flash_attention_bwd_cuda.launches += 1
+    flash_attention_bwd_cuda.last_plan = plan
+    return dq, dk, dv
+
+
+flash_attention_bwd_cuda.launches = 0
+flash_attention_bwd_cuda.last_plan = None
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention with a gradient.  On CUDA tensors the forward kernel (with
+    its row log-sum-exp) and the backward kernels; on CPU tensors
+    ``ref.attention_ref`` / ``attention_lse_ref`` and
+    ``ref.attention_bwd_ref``.  Saves q, k, v, the output and lse."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window, softcap: float, scale):
+        kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
+        if q.is_cuda:
+            out, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+        else:
+            out = ref.attention_ref(q, k, v, **kw)
+            lse = ref.attention_lse_ref(q, k, **kw)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.kw = kw
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        bwd = flash_attention_bwd_cuda if q.is_cuda else ref.attention_bwd_ref
+        dq, dk, dv = bwd(q, k, v, out, lse, do.contiguous(), **ctx.kw)
+        return dq, dk, dv, None, None, None, None

@@ -4,7 +4,12 @@ A CPU tensor goes to the plain PyTorch version (``ref.py``); a CUDA tensor
 goes to the hand-written kernel, which launches or raises.  There is no
 fallback from the kernel to the plain version, and no option that picks
 one: the reference's ``sweep_impl`` ("jnp" | "pallas") and ``attn_impl``
-("xla" | "pallas") become the device the tensors lie on.  ``ssd_scan`` is
+("xla" | "pallas") become the device the tensors lie on.
+``flash_attention`` is differentiable on both devices through
+``FlashAttention`` (the forward and backward kernels on the card, the plain
+forward and ``ref.attention_bwd_ref`` on the CPU) when a gradient is
+wanted; otherwise it calls the kernel or the plain version directly, so
+serving launches the forward alone and saves nothing.  ``ssd_scan`` is
 differentiable on both devices: on the card through ``SSDScan`` (kernel
 forward, plain-version backward), on the CPU through the plain version;
 with ``return_state`` (a prefill, which needs no gradient) it returns the
@@ -18,7 +23,8 @@ import torch
 from torch import Tensor
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.flash_attention import (FlashAttention,
+                                                 flash_attention_cuda)
 from repro_torch.kernels.ssd_scan import SSDScan, ssd_scan_cuda
 from repro_torch.kernels.vm_update import advance_sweep_cuda
 
@@ -43,14 +49,15 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
                     window: int | None = None, softcap: float = 0.0,
                     scale: float | None = None) -> Tensor:
     """Attention routed by the device ``q`` lies on: the CUDA kernel for a
-    CUDA tensor, ``ref.attention_ref`` for a CPU tensor."""
+    CUDA tensor, ``ref.attention_ref`` for a CPU tensor; through
+    ``FlashAttention`` when grad is enabled and q, k or v requires one."""
     kind = q.device.type
-    if kind == "cuda":
-        fn = flash_attention_cuda
-    elif kind == "cpu":
-        fn = ref.attention_ref
-    else:
+    if kind not in ("cuda", "cpu"):
         raise ValueError(f"no flash attention for device type {kind!r}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, window, softcap, scale)
+    fn = flash_attention_cuda if kind == "cuda" else ref.attention_ref
     return fn(q, k, v, causal=causal, window=window, softcap=softcap,
               scale=scale)
 

@@ -95,6 +95,82 @@ def attention_ref(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
     return out.reshape(b, hq, sq, d).to(q.dtype)
 
 
+def _capped_logits(q: Tensor, k: Tensor, softcap: float, scale: float):
+    """``(s, t)``: the logits ``[B, Hk, G, Sq, Sk]`` f32 of query head
+    ``hk * G + g``, capped (``c * tanh(s / c)``) where ``softcap > 0``, and
+    ``t = tanh(s / c)`` (None without a softcap)."""
+    b, hq, sq, d = q.shape
+    hk = k.shape[1]
+    qg = q.reshape(b, hk, hq // hk, sq, d).float()
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float()) * scale
+    if softcap > 0.0:
+        t = torch.tanh(s / softcap)
+        return softcap * t, t
+    return s, None
+
+
+def attention_lse_ref(q: Tensor, k: Tensor, *, causal: bool = True,
+                      window: int | None = None, softcap: float = 0.0,
+                      scale: float | None = None) -> Tensor:
+    """The row log-sum-exp of ``attention_ref``'s capped, masked logits,
+    f32 ``[B, Hq, Sq]`` in natural-log units, as the flash kernel writes it
+    on request; ``+inf`` for a row whose keys are all masked, so that
+    ``exp(s - lse)`` is 0 there."""
+    b, hq, sq, d = q.shape
+    sk = k.shape[2]
+    scale = d ** -0.5 if scale is None else scale
+    s, _ = _capped_logits(q, k, softcap, scale)
+    mask = attention_mask(sq, sk, causal, window, q.device)
+    lse = s.masked_fill(~mask, -torch.inf).logsumexp(-1)
+    lse = lse.masked_fill(~mask.any(-1), torch.inf)
+    return lse.reshape(b, hq, sq)
+
+
+def attention_bwd_ref(q: Tensor, k: Tensor, v: Tensor, o: Tensor,
+                      lse: Tensor, do: Tensor, *, causal: bool = True,
+                      window: int | None = None, softcap: float = 0.0,
+                      scale: float | None = None
+                      ) -> tuple[Tensor, Tensor, Tensor]:
+    """The gradient of ``attention_ref`` (dq, dk, dv in the inputs' dtypes)
+    by the flash backward's arithmetic, in f32 (dP - delta in f64), from its
+    output ``o`` and
+    row log-sum-exp ``lse`` (``attention_lse_ref``)::
+
+        P  = mask ? exp(s - lse) : 0;   dV = P^T dO;   dP = dO V^T
+        dS = P (dP - rowsum(dO o)) (1 - (s / c)^2 under a softcap c)
+        dQ = scale dS K;   dK = scale dS^T Q
+
+    A row whose keys are all masked (``lse = +inf``) gets a zero dQ and
+    adds nothing to dK or dV.  GQA: dK and dV sum over the query heads of
+    their group."""
+    b, hq, sq, d = q.shape
+    hk, sk = k.shape[1], k.shape[2]
+    g = hq // hk
+    scale = d ** -0.5 if scale is None else scale
+    s, t = _capped_logits(q, k, softcap, scale)
+    mask = attention_mask(sq, sk, causal, window, q.device)
+    lse_g = lse.reshape(b, hk, g, sq, 1).float()
+    p = torch.exp(s.sub_(lse_g)).masked_fill_(~mask, 0.0)
+    del s
+    dog = do.reshape(b, hk, g, sq, d)
+    dv = torch.einsum("bhgqk,bhgqd->bhkd", p, dog.float())
+    # dP - delta cancels where a row's softmax is nearly one-hot (a row that
+    # sees one key has dS = 0 exactly): both are taken in f64, so that the
+    # plain version's dq there is 0 to f32 precision, as jax.grad's is
+    dog = dog.double()
+    delta = (dog * o.reshape(b, hk, g, sq, d).double()).sum(-1, keepdim=True)
+    ds = (torch.einsum("bhgqd,bhkd->bhgqk", dog, v.double()).sub_(delta)
+          .float().mul_(p))
+    del p
+    if t is not None:
+        ds.mul_(1.0 - t * t)
+    qg = q.reshape(b, hk, g, sq, d).float()
+    dq = torch.einsum("bhgqk,bhkd->bhgqd", ds, k.float()) * scale
+    dk = torch.einsum("bhgqk,bhgqd->bhkd", ds, qg) * scale
+    return (dq.reshape(b, hq, sq, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
 # ---------------------------------------------------------------------------
 # Mamba2 SSD (state-space duality)
 # ---------------------------------------------------------------------------

@@ -6,7 +6,10 @@ generator, the Markov-chain token pipeline, microbatched AdamW steps,
 periodic async checkpoints and resume from the latest one.  It runs on the
 GPU unless ``device="cpu"`` (``--device cpu``) is given; without a GPU it
 raises.  On the card a Mamba2 layer's SSD scan is the hand-written CUDA
-kernel (``kernels/ssd_scan.py``).
+kernel (``kernels/ssd_scan.py``), and attention runs the flash forward and
+backward kernels (``kernels/flash_attention.py``, through
+``FlashAttention``); with ``cfg.remat`` (every full config) each period is
+checkpointed, so the forward runs twice per attention layer per step.
 """
 from __future__ import annotations
 
@@ -20,6 +23,8 @@ from repro_torch.ckpt import AsyncSaver, latest_step, restore
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.core import resolve_device
 from repro_torch.data import ShardedLoader
+from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+                                                 flash_attention_cuda)
 from repro_torch.kernels.ssd_scan import ssd_scan_cuda
 from repro_torch.models import build_model
 from repro_torch.train import OptConfig, adamw_init, make_train_step
@@ -50,8 +55,9 @@ def run_training(
     ``grad_norms``, ``step_seconds`` (host clock per step, each ending when
     its loss is read), ``tokens_per_sec`` (over the steps after the first,
     which pays for building and loading kernels; over the first if it is
-    the only one) and ``ssd_launches`` (launches of the SSD kernel in the
-    run)."""
+    the only one), ``ssd_launches``, ``flash_launches`` and
+    ``flash_bwd_launches`` (calls of the SSD kernel and of the flash forward
+    and backward kernels in the run)."""
     dev = resolve_device(device)
     model = build_model(cfg)
     opt_cfg = OptConfig(lr=lr, warmup_steps=max(steps // 20, 5),
@@ -68,7 +74,8 @@ def run_training(
     step_fn = make_train_step(model, opt_cfg, microbatches)
     loader = ShardedLoader(cfg.vocab, global_batch, seq_len, seed=seed)
     saver = AsyncSaver()
-    launches0 = ssd_scan_cuda.launches
+    kernels = (ssd_scan_cuda, flash_attention_cuda, flash_attention_bwd_cuda)
+    launches0 = [fn.launches for fn in kernels]
 
     losses: list[float] = []
     grad_norms: list[float] = []
@@ -110,7 +117,9 @@ def run_training(
         "step_seconds": step_seconds,
         "tokens_per_sec": (global_batch * seq_len * len(timed) / sum(timed)
                            if timed else float("nan")),
-        "ssd_launches": ssd_scan_cuda.launches - launches0,
+        **{name: fn.launches - n0 for name, fn, n0 in zip(
+            ("ssd_launches", "flash_launches", "flash_bwd_launches"), kernels,
+            launches0)},
     }
 
 
@@ -140,7 +149,8 @@ def main() -> None:
           f"final loss {out['final_loss']:.4f} "
           f"(ln V = {np.log(cfg.vocab):.2f}), "
           f"{out['tokens_per_sec']:.0f} tokens/s, "
-          f"{out['ssd_launches']} SSD kernel launches")
+          f"{out['ssd_launches']} SSD, {out['flash_launches']} flash and "
+          f"{out['flash_bwd_launches']} flash backward kernel launches")
 
 
 if __name__ == "__main__":

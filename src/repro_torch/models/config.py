@@ -12,10 +12,13 @@ iterates (one period = one scan step, keeping HLO size O(period) instead of
 O(n_layers)).
 
 The port drops ``attn_impl``: attention routes by the device its tensors lie
-on (``kernels/ops.py``).  ``remat``, ``remat_policy`` and ``scan_layers``
-stay so that configurations read the same in both packages, but have no
-effect in eager PyTorch: the port loops over periods in Python and keeps no
-checkpointing.
+on (``kernels/ops.py``).  ``remat`` does what it does in the reference: while
+a gradient is taken, each period of the LM trunk, each encoder and decoder
+layer and each chunk of the loss is checkpointed (``lm.remat_call``, the
+reference's ``jax.checkpoint``).  ``remat_policy="save_named"`` is not
+ported (no configuration uses it) and raises when a checkpoint would apply.
+``scan_layers`` stays so that configurations read the same in both
+packages, but has no effect: the port loops over periods in Python.
 """
 from __future__ import annotations
 

@@ -13,7 +13,10 @@ carries it unchanged.  The reference scans over the stacks; the port loops
 over them in Python.  Every attention with more than one query row, and the
 cross-attention of a decode step (one query row against the encoder's
 frames, the reference's ``_sdpa`` there), goes through
-``ops.flash_attention``: the kernel on the card.
+``ops.flash_attention``: the kernel on the card.  With ``cfg.remat`` and
+grad enabled, each encoder layer, each decoder layer and each chunk of the
+loss is checkpointed (``lm.remat_call``), as the reference's
+``jax.checkpoint`` does.
 
 Decode: the self-attention KV cache (``k``, ``v``, ``[L, B, Hk, max_len,
 Dh]``) and the cross K/V (``ck``, ``cv``, ``[L, B, Hk, n_ctx, Dh]``),
@@ -29,7 +32,7 @@ from repro_torch.core import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.lm import LOSS_CHUNK, _period, _stack
+from repro_torch.models.lm import _stack, _unstack, chunked_loss, remat_call
 
 
 def _init_enc_layer(generator: torch.Generator, cfg) -> dict:
@@ -79,13 +82,16 @@ def encode(params: dict, cfg: ModelConfig, frames: Tensor) -> Tensor:
     layer's attention is non-causal over all frames."""
     dt = cfg.compute_dtype
     x = frames.to(dt) + params["enc_pos"][None, :frames.shape[1]].to(dt)
-    for n in range(cfg.encoder.n_layers):
-        lp = _period(params["enc_layers"], n)
-        h = layers.rms_norm(x, lp["norm1"], cfg.norm_eps)
-        x = x + attn.attention(lp["attn"], cfg, h, causal=False)
-        h = layers.rms_norm(x, lp["norm2"], cfg.norm_eps)
-        x = x + layers.mlp(lp["mlp"], h)
+    for lp in _unstack(params["enc_layers"], cfg.encoder.n_layers):
+        x = remat_call(cfg, _enc_layer, cfg, lp, x)
     return layers.rms_norm(x, params["enc_final_norm"], cfg.norm_eps)
+
+
+def _enc_layer(cfg, lp: dict, x: Tensor) -> Tensor:
+    h = layers.rms_norm(x, lp["norm1"], cfg.norm_eps)
+    x = x + attn.attention(lp["attn"], cfg, h, causal=False)
+    h = layers.rms_norm(x, lp["norm2"], cfg.norm_eps)
+    return x + layers.mlp(lp["mlp"], h)
 
 
 def _embed_tokens(params, cfg, tokens: Tensor, positions: Tensor) -> Tensor:
@@ -101,15 +107,18 @@ def _dec_trunk(params, cfg, tokens: Tensor, enc_out: Tensor) -> Tensor:
     S = tokens.shape[1]
     x = _embed_tokens(params, cfg, tokens,
                       torch.arange(S, device=tokens.device))
-    for n in range(cfg.n_layers):
-        lp = _period(params["dec_layers"], n)
-        h = layers.rms_norm(x, lp["norm1"], cfg.norm_eps)
-        x = x + attn.attention(lp["self_attn"], cfg, h, causal=True)
-        h = layers.rms_norm(x, lp["norm_x"], cfg.norm_eps)
-        x = x + attn.attention(lp["cross_attn"], cfg, h, kv_x=enc_out)
-        h = layers.rms_norm(x, lp["norm2"], cfg.norm_eps)
-        x = x + layers.mlp(lp["mlp"], h)
+    for lp in _unstack(params["dec_layers"], cfg.n_layers):
+        x = remat_call(cfg, _dec_layer, cfg, lp, x, enc_out)
     return layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
+
+
+def _dec_layer(cfg, lp: dict, x: Tensor, enc_out: Tensor) -> Tensor:
+    h = layers.rms_norm(x, lp["norm1"], cfg.norm_eps)
+    x = x + attn.attention(lp["self_attn"], cfg, h, causal=True)
+    h = layers.rms_norm(x, lp["norm_x"], cfg.norm_eps)
+    x = x + attn.attention(lp["cross_attn"], cfg, h, kv_x=enc_out)
+    h = layers.rms_norm(x, lp["norm2"], cfg.norm_eps)
+    return x + layers.mlp(lp["mlp"], h)
 
 
 def encdec_loss(params, cfg, frames: Tensor, tokens: Tensor,
@@ -118,18 +127,7 @@ def encdec_loss(params, cfg, frames: Tensor, tokens: Tensor,
     the logits made ``LOSS_CHUNK`` positions at a time, as in the
     reference; the tied embedding is the head and there is no softcap."""
     hidden = _dec_trunk(params, cfg, tokens, encode(params, cfg, frames))
-    table = params["embed"]
-    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
-    cnt = torch.zeros((), dtype=torch.int64, device=hidden.device)
-    for s0 in range(0, hidden.shape[1], LOSS_CHUNK):
-        logits = layers.unembed(hidden[:, s0:s0 + LOSS_CHUNK], table)
-        lab = labels[:, s0:s0 + LOSS_CHUNK]
-        mask = lab >= 0
-        gold = logits.gather(-1, lab.clamp_min(0).long()[..., None])[..., 0]
-        tot = tot + torch.where(mask, torch.logsumexp(logits, -1) - gold,
-                                0.0).sum()
-        cnt = cnt + mask.sum()
-    return tot / cnt.clamp_min(1)
+    return chunked_loss(cfg, hidden, params["embed"], labels)
 
 
 # ---------------------------------------------------------------------------
@@ -171,8 +169,7 @@ def encdec_prefill(params, cfg, frames: Tensor, tokens: Tensor,
     x = _embed_tokens(params, cfg, tokens,
                       torch.arange(S, device=tokens.device))
     per_layer = []
-    for n in range(cfg.n_layers):
-        lp = _period(params["dec_layers"], n)
+    for lp in _unstack(params["dec_layers"], cfg.n_layers):
         h = layers.rms_norm(x, lp["norm1"], cfg.norm_eps)
         h, (kT, vT) = attn.attention_prefill(lp["self_attn"], cfg, h, None)
         x = x + h
@@ -195,9 +192,8 @@ def encdec_decode_step(params, cfg, caches: dict, token: Tensor,
     ``[B, V]``, and the caches with k/v written at ``pos`` (in place: the
     returned dict is ``caches``)."""
     x = _embed_tokens(params, cfg, token, pos[:, None])
-    for n in range(cfg.n_layers):
-        lp = _period(params["dec_layers"], n)
-        cache = _period(caches, n)
+    for lp, cache in zip(_unstack(params["dec_layers"], cfg.n_layers),
+                         _unstack(caches, cfg.n_layers)):
         h = layers.rms_norm(x, lp["norm1"], cfg.norm_eps)
         h, _ = attn.attention_decode(lp["self_attn"], cfg, h, cache["k"],
                                      cache["v"], pos)

@@ -14,10 +14,17 @@ mixers with dense or MoE MLPs (or none, as in mamba2), and the vlm's
 frontend embeddings, prepended to the token embeddings.  The MoE balance
 loss is summed over the layers into ``forward_hidden``'s second output;
 prefill and decode drop it, as the reference does.
+
+Remat as the reference's ``jax.checkpoint``: with ``cfg.remat`` and grad
+enabled, each period of ``forward_hidden`` and each chunk of ``lm_loss``
+runs under ``torch.utils.checkpoint`` (``remat_call``), which keeps only
+its inputs and recomputes the rest in the backward.  Prefill and decode
+never checkpoint.
 """
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 from torch import Tensor
 
 from repro_torch.core import resolve_device
@@ -29,10 +36,15 @@ AUX_LOSS_WEIGHT = 0.01
 LOSS_CHUNK = 512
 
 
-def _period(periods: dict, n: int) -> dict:
-    """Period ``n``'s parameters (or caches): views into the stacked leaves."""
-    return {k: _period(v, n) if isinstance(v, dict) else v[n]
-            for k, v in periods.items()}
+def _unstack(periods: dict, n: int) -> list[dict]:
+    """The ``n`` periods' parameters (or caches), as views, from one
+    ``unbind`` of each stacked leaf.  Under autograd the backward of an
+    unbind stacks the periods' gradients in one op, where a select per
+    period scatters each into zeros of the whole stack, which autograd then
+    adds up (n full-size fills and adds per leaf)."""
+    parts = {k: _unstack(v, n) if isinstance(v, dict) else v.unbind(0)
+             for k, v in periods.items()}
+    return [{k: p[i] for k, p in parts.items()} for i in range(n)]
 
 
 def _stack(trees: list[dict]) -> dict:
@@ -87,6 +99,28 @@ def init_lm(generator: torch.Generator, cfg: ModelConfig) -> dict:
 # forward (full-sequence trunk)
 # ---------------------------------------------------------------------------
 
+def remat_call(cfg: ModelConfig, fn, *args):
+    """``fn(*args)``, checkpointed when ``cfg.remat`` is on and grad is
+    enabled: the forward keeps ``args`` alone and the backward runs ``fn``
+    again (non-reentrant; the models draw no random numbers, so no RNG state
+    is kept).  Each checkpointed call adds one to ``remat_call.calls``.
+    ``remat_policy="save_named"`` (keep the values the reference tags
+    ``remat_ckpt`` out of the replay; no configuration uses it) is not
+    ported and raises."""
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return fn(*args)
+    if cfg.remat_policy != "none":
+        raise NotImplementedError(
+            f"{cfg.name}: remat_policy={cfg.remat_policy!r} is not ported "
+            "(ROADMAP.md, Queue A); use remat_policy='none'")
+    remat_call.calls += 1
+    return torch.utils.checkpoint.checkpoint(
+        fn, *args, use_reentrant=False, preserve_rng_state=False)
+
+
+remat_call.calls = 0
+
+
 def _mlp_block(cfg: ModelConfig, i: int, sub: dict, x: Tensor):
     """x plus sub-layer i's MLP of its norm, and the MoE balance loss (None
     for a dense MLP or none)."""
@@ -137,8 +171,8 @@ def forward_hidden(params: dict, cfg: ModelConfig, tokens: Tensor,
     sum of the MoE layers' balance terms (zero without MoE layers)."""
     x = _embed_inputs(params, cfg, tokens, frontend_embeds)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for n in range(cfg.n_periods):
-        x, a = _apply_period(cfg, _period(params["periods"], n), x, positions)
+    for pp in _unstack(params["periods"], cfg.n_periods):
+        x, a = remat_call(cfg, _apply_period, cfg, pp, x, positions)
         aux = aux + a
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x, aux
@@ -146,6 +180,31 @@ def forward_hidden(params: dict, cfg: ModelConfig, tokens: Tensor,
 
 def _unembed_table(params, cfg):
     return params["embed"] if cfg.tie_embeddings else params["head"]
+
+
+def chunk_nll(hidden: Tensor, table: Tensor, labels: Tensor,
+              softcap: float = 0.0) -> tuple[Tensor, Tensor]:
+    """(sum of the cross-entropy over the labels ``>= 0``, their count) of
+    one chunk of positions: the f32 logits ``[B, C, V]`` live only here."""
+    logits = layers.unembed(hidden, table, softcap)
+    mask = labels >= 0
+    gold = logits.gather(-1, labels.clamp_min(0).long()[..., None])[..., 0]
+    nll = torch.where(mask, torch.logsumexp(logits, -1) - gold, 0.0)
+    return nll.sum(), mask.sum()
+
+
+def chunked_loss(cfg: ModelConfig, hidden: Tensor, table: Tensor,
+                 labels: Tensor, softcap: float = 0.0) -> Tensor:
+    """Mean cross-entropy over the labels ``>= 0``, ``LOSS_CHUNK``
+    positions at a time, each chunk through ``remat_call``."""
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.int64, device=hidden.device)
+    for s0 in range(0, hidden.shape[1], LOSS_CHUNK):
+        t, c = remat_call(cfg, chunk_nll, hidden[:, s0:s0 + LOSS_CHUNK],
+                          table, labels[:, s0:s0 + LOSS_CHUNK], softcap)
+        tot = tot + t
+        cnt = cnt + c
+    return tot / cnt.clamp_min(1)
 
 
 def lm_loss(params: dict, cfg: ModelConfig, tokens: Tensor, labels: Tensor,
@@ -158,19 +217,9 @@ def lm_loss(params: dict, cfg: ModelConfig, tokens: Tensor, labels: Tensor,
     reference pads the last chunk with masked labels, which adds nothing."""
     hidden, aux = forward_hidden(params, cfg, tokens, positions,
                                  frontend_embeds)
-    table = _unembed_table(params, cfg)
-    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
-    cnt = torch.zeros((), dtype=torch.int64, device=hidden.device)
-    for s0 in range(0, hidden.shape[1], LOSS_CHUNK):
-        logits = layers.unembed(hidden[:, s0:s0 + LOSS_CHUNK], table,
-                                cfg.final_softcap)               # f32 [B,C,V]
-        lab = labels[:, s0:s0 + LOSS_CHUNK]
-        mask = lab >= 0
-        gold = logits.gather(-1, lab.clamp_min(0).long()[..., None])[..., 0]
-        nll = torch.where(mask, torch.logsumexp(logits, -1) - gold, 0.0)
-        tot = tot + nll.sum()
-        cnt = cnt + mask.sum()
-    return tot / cnt.clamp_min(1) + AUX_LOSS_WEIGHT * aux
+    return (chunked_loss(cfg, hidden, _unembed_table(params, cfg), labels,
+                         cfg.final_softcap)
+            + AUX_LOSS_WEIGHT * aux)
 
 
 def lm_logits(params, cfg, tokens, positions=None, frontend_embeds=None):
@@ -212,9 +261,8 @@ def decode_step(params: dict, cfg: ModelConfig, caches: dict, token: Tensor,
     written in (in place: the returned dict is ``caches``): k/v at ``pos``,
     the SSM conv window and state advanced by one step."""
     x = layers.embed(params["embed"], token, cfg.compute_dtype)  # [B,1,D]
-    for n in range(cfg.n_periods):
-        pp = _period(params["periods"], n)
-        cache_p = _period(caches, n)
+    for pp, cache_p in zip(_unstack(params["periods"], cfg.n_periods),
+                           _unstack(caches, cfg.n_periods)):
         for i in range(cfg.period):
             sub, cache = pp[f"sub{i}"], cache_p[f"sub{i}"]
             h = layers.rms_norm(x, sub["norm1"], cfg.norm_eps)
@@ -244,8 +292,7 @@ def prefill(params: dict, cfg: ModelConfig, tokens: Tensor, max_len: int,
     x = _embed_inputs(params, cfg, tokens, frontend_embeds)
     B, S, _ = x.shape
     per_period = []
-    for n in range(cfg.n_periods):
-        pp = _period(params["periods"], n)
+    for pp in _unstack(params["periods"], cfg.n_periods):
         cache_out = {}
         for i in range(cfg.period):
             sub = pp[f"sub{i}"]

@@ -9,7 +9,9 @@ the prompts come from numpy seeds.  ``encode`` within 1e-5,
 self-attention cache ``k``, ``v`` and the cross K/V ``ck``, ``cv`` within
 1e-5) and 4 greedy ``decode_step``s (logits within 1e-4, tokens equal).
 The JAX side runs attention through the Pallas kernel in interpret mode and
-through XLA, as the dense models' tests do.
+through XLA, as the dense models' tests do.  The loss's gradients against
+``jax.grad`` through XLA (the Pallas kernel has no VJP) within rtol 1e-4 /
+atol 1e-6, with and without remat; with it, bitwise the run without.
 """
 import dataclasses
 
@@ -19,10 +21,13 @@ import numpy as np
 import pytest
 import torch
 from test_torch_serving import _models, _np, _same_tree
+from test_torch_train import _same_tree as _same_grads
 
 from repro.models import build_model as jax_build_model
 from repro.models import encdec as jax_encdec
-from repro_torch.models import encdec
+from repro_torch import tree
+from repro_torch.models import build_model, encdec, lm
+from repro_torch.train.step import value_and_grad
 
 pytestmark = pytest.mark.tier1
 
@@ -75,6 +80,32 @@ def test_encdec_loss_matches(impl):
                               "tokens": torch.from_numpy(tokens),
                               "labels": torch.from_numpy(labels)})
     np.testing.assert_allclose(float(got), float(want), rtol=1e-5, atol=1e-5)
+
+
+def test_encdec_gradients_match():
+    """A frames batch through ``Model.loss``: the non-causal encoder over
+    the frames and cross-attention with Sq != Sk in the gradient."""
+    jcfg, jparams, model, params, frames = _setup("xla", 34)
+    full = np.random.default_rng(35).integers(0, jcfg.vocab, size=(2, 25))
+    tokens, labels = full[:, :-1].astype(np.int32), full[:, 1:].astype(np.int32)
+    labels[1, :4] = -100
+    batch = {"frames": frames, "tokens": tokens, "labels": labels}
+    runs = {}
+    for remat in (False, True):
+        jmodel = jax_build_model(dataclasses.replace(jcfg, remat=remat))
+        jloss, jgrads = jax.value_and_grad(jmodel.loss)(
+            jparams, {k: jnp.asarray(v) for k, v in batch.items()})
+        m = build_model(dataclasses.replace(model.cfg, remat=remat))
+        calls = lm.remat_call.calls
+        loss, grads = value_and_grad(m, params, {
+            k: torch.from_numpy(v) for k, v in batch.items()})
+        enc, dec = jcfg.encoder.n_layers, jcfg.n_layers
+        assert lm.remat_call.calls - calls == (enc + dec + 1 if remat else 0)
+        np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
+        _same_grads(grads, jgrads, rtol=1e-4, atol=1e-6)
+        runs[remat] = loss, tree.leaves(grads)
+    assert torch.equal(runs[False][0], runs[True][0])
+    assert all(torch.equal(a, b) for a, b in zip(runs[False][1], runs[True][1]))
 
 
 @pytest.mark.parametrize("impl", ["pallas", "xla"])

@@ -109,9 +109,10 @@ def test_kernel_wrapper_refuses_cpu_tensors():
 
 
 def test_kernel_wrapper_refuses_autograd():
-    """The kernel has no backward: under autograd, with an input that needs
-    a gradient, the wrapper raises rather than return a result cut off from
-    the graph.  Without a gradient to lose it goes on to its other checks."""
+    """The ctypes wrapper's output has no ``grad_fn``: under autograd, with
+    an input that needs a gradient, it raises rather than return a result
+    cut off from the graph (``FlashAttention`` is the differentiable form).
+    Without a gradient to lose it goes on to its other checks."""
     q, k, v = _port(_qkv(6, 1, 2, 2, 8, 8, 64), "float32")
     q.requires_grad_(True)
     v.requires_grad_(True)

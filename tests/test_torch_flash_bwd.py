@@ -1,0 +1,238 @@
+"""The flash-attention backward's math against the JAX package's gradient,
+on the CPU.
+
+The JAX package has no backward kernel: it trains through ``flash_xla``
+(``repro/models/attention.py``), differentiated by ``jax.vjp``.  The port's
+backward kernel computes ``ref.attention_bwd_ref``'s arithmetic from the
+forward's output and its row log-sum-exp (``ref.attention_lse_ref``); on
+the CPU, ``FlashAttention`` runs exactly these plain versions.  Both are
+held against ``jax.vjp(flash_xla)`` on the same numpy inputs and a random
+dO, in f32 at the gradient tolerance of ``test_torch_train.py`` (rtol 1e-4,
+atol 1e-6: the two add in other orders).  The lse is held against
+``jax.nn.logsumexp`` of the masked logits.  The kernel itself runs only on
+a card: ``test_torch_flash_bwd_cuda.py``.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.models.attention import flash_xla
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ops, ref
+
+pytestmark = pytest.mark.tier1
+
+RTOL, ATOL = 1e-4, 1e-6
+
+CASES = [
+    # b, hq, hk, sq, sk, d, kwargs
+    (1, 4, 2, 48, 48, 64, dict(causal=True)),                     # GQA 4/2
+    (1, 4, 2, 40, 72, 64, dict(causal=True)),                     # Sq < Sk
+    (1, 4, 2, 72, 40, 64, dict(causal=True)),   # Sq > Sk: 32 rows see no key
+    (1, 2, 2, 64, 64, 128, dict(causal=True, window=16)),
+    (1, 4, 2, 48, 48, 96, dict(causal=True, softcap=50.0)),       # phi3's D
+    (1, 4, 2, 64, 64, 128, dict(causal=True, window=24, softcap=5.0)),
+    (2, 2, 2, 37, 53, 64, dict(causal=False)),                    # ragged
+    (1, 2, 1, 1, 45, 64, dict(causal=False)),   # one query row (cross decode)
+]
+IDS = [f"{c[0]}x{c[1]}/{c[2]}x{c[3]}x{c[4]}xD{c[5]}-" +
+       "-".join(f"{k}{v}" for k, v in c[6].items()) for c in CASES]
+
+
+def _inputs(seed, b, hq, hk, sq, sk, d):
+    """q, k, v and dO, standard normal (logits of about unit size: the
+    softcap of 5 bends them by a few per cent)."""
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (rng.standard_normal(s).astype(np.float32)
+                   for s in ((b, hq, sq, d), (b, hk, sk, d), (b, hk, sk, d),
+                             (b, hq, sq, d)))
+    return q, k, v, do
+
+
+def _jax_vjp(q, k, v, do, kw):
+    """(out, (dq, dk, dv)) of the reference's flash_xla by jax.vjp."""
+    kw = {"window": None, "softcap": 0.0, **kw}
+    scale = q.shape[-1] ** -0.5
+    out, vjp = jax.vjp(lambda q_, k_, v_: flash_xla(q_, k_, v_, scale=scale,
+                                                    **kw),
+                       *map(jnp.asarray, (q, k, v)))
+    return np.asarray(out), [np.asarray(g) for g in vjp(jnp.asarray(do))]
+
+
+def _masked_logits(q, k, kw):
+    """The capped logits ``[B, Hq, Sq, Sk]`` with -inf where masked, in
+    numpy, from the reference's conventions."""
+    b, hq, sq, d = q.shape
+    hk, sk = k.shape[1], k.shape[2]
+    kk = np.repeat(k, hq // hk, axis=1)
+    s = np.einsum("bhqd,bhkd->bhqk", q, kk) * d ** -0.5
+    if kw.get("softcap"):
+        s = kw["softcap"] * np.tanh(s / kw["softcap"])
+    row = np.arange(sq)[:, None] + (sk - sq)
+    col = np.arange(sk)[None, :]
+    valid = np.ones((sq, sk), bool)
+    if kw["causal"]:
+        valid &= col <= row
+    if kw.get("window") is not None:
+        valid &= col > row - kw["window"]
+    return np.where(valid, s, -np.inf)
+
+
+def _close(got, want, what):
+    np.testing.assert_allclose(got.detach().numpy(), want, rtol=RTOL,
+                               atol=ATOL, err_msg=what)
+
+
+@pytest.mark.parametrize("path", ["attention_bwd_ref", "FlashAttention"])
+@pytest.mark.parametrize("b,hq,hk,sq,sk,d,kw", CASES, ids=IDS)
+def test_backward_matches_jax_vjp(b, hq, hk, sq, sk, d, kw, path):
+    q, k, v, do = _inputs(sq * 7 + sk, b, hq, hk, sq, sk, d)
+    jout, jgrads = _jax_vjp(q, k, v, do, kw)
+    tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
+    if path == "attention_bwd_ref":
+        out = ref.attention_ref(tq, tk, tv, **kw)
+        lse = ref.attention_lse_ref(tq, tk, **kw)
+        grads = ref.attention_bwd_ref(tq, tk, tv, out, lse, tdo, **kw)
+    else:
+        leaves = [x.clone().requires_grad_(True) for x in (tq, tk, tv)]
+        out = fa.FlashAttention.apply(*leaves, kw["causal"], kw.get("window"),
+                                      kw.get("softcap", 0.0), None)
+        grads = torch.autograd.grad(out, leaves, tdo)
+    _close(out, jout, "out")
+    for name, got, want in zip(("dq", "dk", "dv"), grads, jgrads):
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        _close(got, want, name)
+
+
+@pytest.mark.parametrize("b,hq,hk,sq,sk,d,kw", CASES, ids=IDS)
+def test_lse_matches_jax_logsumexp(b, hq, hk, sq, sk, d, kw):
+    """lse is the natural-log log-sum-exp of the capped, masked logits;
+    +inf (the backward's marker) where JAX gives -inf (no key)."""
+    q, k, _, _ = _inputs(sq * 7 + sk, b, hq, hk, sq, sk, d)
+    want = np.asarray(jax.nn.logsumexp(jnp.asarray(_masked_logits(q, k, kw)),
+                                       axis=-1))
+    got = ref.attention_lse_ref(torch.from_numpy(q), torch.from_numpy(k),
+                                **kw).numpy()
+    assert got.shape == (b, hq, sq) and got.dtype == np.float32
+    none = np.isneginf(want)
+    assert np.array_equal(np.isposinf(got), none)
+    np.testing.assert_allclose(got[~none], want[~none], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("path", ["attention_bwd_ref", "FlashAttention"])
+def test_fully_masked_rows_get_zero_dq(path):
+    """Sq > Sk under a causal mask: the first Sq - Sk rows see no key, give
+    a zero output and exactly zero dq, and their dO reaches no dk or dv."""
+    b, hq, hk, sq, sk, d = 1, 4, 2, 72, 40, 64
+    q, k, v, do = map(torch.from_numpy, _inputs(5, b, hq, hk, sq, sk, d))
+    hidden = sq - sk
+
+    def grads(do):
+        if path == "attention_bwd_ref":
+            out = ref.attention_ref(q, k, v)
+            lse = ref.attention_lse_ref(q, k)
+            assert torch.isposinf(lse[:, :, :hidden]).all()
+            return out, ref.attention_bwd_ref(q, k, v, out, lse, do)
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        out = fa.FlashAttention.apply(*leaves, True, None, 0.0, None)
+        return out, torch.autograd.grad(out, leaves, do)
+
+    out, (dq, dk, dv) = grads(do)
+    assert torch.equal(out[:, :, :hidden], torch.zeros_like(out[:, :, :hidden]))
+    assert torch.equal(dq[:, :, :hidden], torch.zeros_like(dq[:, :, :hidden]))
+    assert dq[:, :, hidden:].abs().min() >= 0 and dq[:, :, hidden:].abs().max() > 0
+    noisy = do.clone()
+    noisy[:, :, :hidden] = 1e3           # dO of the hidden rows changes nothing
+    _, again = grads(noisy)
+    for x, y in zip((dq, dk, dv), again):
+        assert torch.equal(x, y)
+
+
+def test_ops_routes_gradients_through_flash_attention():
+    """With grad enabled and an input that requires one, ops.flash_attention
+    is ``FlashAttention`` (the same output as the plain version); otherwise
+    the plain version, with no graph.  The CPU never launches a kernel."""
+    q, k, v, _ = map(torch.from_numpy, _inputs(9, 1, 4, 2, 24, 24, 64))
+    launches = (fa.flash_attention_cuda.launches,
+                fa.flash_attention_bwd_cuda.launches)
+    want = ref.attention_ref(q, k, v, causal=True)
+    plain = ops.flash_attention(q, k, v)
+    assert torch.equal(plain, want) and plain.grad_fn is None
+    qg = q.clone().requires_grad_(True)
+    out = ops.flash_attention(qg, k, v)
+    assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
+    assert torch.equal(out.detach(), want)
+    out.sum().backward()
+    assert qg.grad is not None and qg.grad.shape == q.shape
+    with torch.no_grad():
+        assert ops.flash_attention(qg, k, v).grad_fn is None
+    assert (fa.flash_attention_cuda.launches,
+            fa.flash_attention_bwd_cuda.launches) == launches
+
+
+def test_backward_wrapper_refuses_cpu_tensors_and_autograd():
+    """No fallback: the CUDA wrapper raises rather than compute on the CPU,
+    and under autograd with an input that requires a gradient."""
+    q, k, v, do = map(torch.from_numpy, _inputs(3, 1, 2, 2, 8, 8, 64))
+    o, lse = ref.attention_ref(q, k, v), ref.attention_lse_ref(q, k)
+    with pytest.raises(ValueError, match="not a CUDA device"):
+        fa.flash_attention_bwd_cuda(q, k, v, o, lse, do)
+    with pytest.raises(RuntimeError, match="gradient of q would be lost"):
+        fa.flash_attention_bwd_cuda(q.requires_grad_(True), k, v, o, lse, do)
+
+
+# --------------------------------------------------------- the launch plan
+# Rows of the block, the other side's rows an iteration, threads and
+# shared-memory bytes, written out from csrc/flash_attention_bwd.cu's
+# layout: bf16 (mma_smem_bytes) two 64-row and two 32-row tiles of D + 8
+# bf16 columns and 32 f32 lse and delta; f32 (cc_smem_bytes) four 32-row
+# tiles of D + 1 floats, P and dS at 32 x 33, lse and delta.
+GEOMETRY_BWD = {
+    (torch.bfloat16, 64): (64, 32, 128, 192 * 72 * 2 + 256),
+    (torch.bfloat16, 96): (64, 32, 128, 192 * 104 * 2 + 256),
+    (torch.bfloat16, 128): (64, 32, 128, 192 * 136 * 2 + 256),
+    (torch.float32, 64): (32, 32, 256, (128 * 65 + 2112 + 64) * 4),
+    (torch.float32, 96): (32, 32, 256, (128 * 97 + 2112 + 64) * 4),
+    (torch.float32, 128): (32, 32, 256, (128 * 129 + 2112 + 64) * 4),
+}
+
+
+@pytest.mark.parametrize("key", list(GEOMETRY_BWD), ids=str)
+def test_backward_geometry_fits_the_card(key):
+    rows, other, threads, smem = fa.geometry_bwd(*key)
+    assert (rows, other, threads, smem) == GEOMETRY_BWD[key]
+    assert smem <= fa.MAX_SMEM and threads <= 1024
+    if key[0] == torch.bfloat16:        # 16 rows a warp; k-steps of 16
+        assert rows == 16 * threads // 32 and key[1] % 16 == 0
+
+
+@pytest.mark.parametrize("dtype,variant", [(torch.bfloat16, "mma_sync"),
+                                           (torch.float32, "cuda_cores")])
+@pytest.mark.parametrize("b,hq,hk,sq,sk,d", [
+    (8, 16, 8, 2048, 2048, 128),        # internlm2 training
+    (2, 20, 20, 64, 1500, 64),          # whisper cross-attention
+    (1, 32, 32, 1024, 1024, 96),        # phi3
+    (1, 8, 8, 256, 128, 64),            # rows that see no key
+])
+def test_kernel_plan_bwd(b, hq, hk, sq, sk, d, dtype, variant):
+    plan = fa.kernel_plan_bwd(b, hq, hk, sq, sk, d, dtype)
+    rows, other, threads, smem = fa.geometry_bwd(dtype, d)
+    assert plan == {
+        "variant": variant, "rows": rows, "other": other, "threads": threads,
+        "smem": smem, "grids": {"delta": (-(-b * hq * sq // 8),),
+                                "dkdv": (-(-sk // rows), hk, b),
+                                "dq": (-(-sq // rows), hq, b)}}
+
+
+@pytest.mark.parametrize("args,match", [
+    ((1, 2, 2, 64, 64, 32, torch.bfloat16), "head dim 32"),
+    ((1, 2, 2, 64, 64, 16, torch.float32), "head dim 16"),
+    ((1, 2, 2, 64, 64, 64, torch.float16), "dtype torch.float16"),
+    ((1, 70000, 70000, 64, 64, 64, torch.bfloat16), "exceed the grid"),
+    ((70000, 2, 2, 64, 64, 64, torch.float32), "exceed the grid"),
+])
+def test_kernel_plan_bwd_refuses(args, match):
+    with pytest.raises(ValueError, match=match):
+        fa.kernel_plan_bwd(*args)

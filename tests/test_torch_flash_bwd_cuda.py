@@ -1,0 +1,131 @@
+"""The port's CUDA flash-attention backward against its plain version, on a
+card.
+
+Every test here is marked ``cuda`` and skips without an NVIDIA GPU.  The file
+imports neither JAX nor the JAX package, so it runs where the card is:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_flash_bwd_cuda.py
+
+The backward kernel (``flash_attention_bwd_cuda``) and ``FlashAttention``
+(its forward kernel with the row log-sum-exp, then the backward) against
+``ref.attention_bwd_ref`` fed the same output and lse.  f32 (the CUDA-core
+kernels): each of dq, dk, dv within 1e-4 of its largest |value|, the
+kernel adding in another order than the plain version.  bf16 (``mma.sync``:
+P and dS rounded to bf16 before their products): the relative error of the
+whole tensor and of its worst row (a row's norm floored at 1% of the
+largest row's) within chip_smoke.py's limits.  Two calls give bitwise the
+same gradients (no atomics), and a row that sees no key gets exactly zero
+dq.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ops, ref
+
+pytestmark = [pytest.mark.tier1, pytest.mark.cuda]
+
+TOL = 1e-4
+REL_TOL, ROW_TOL, ROW_FLOOR = 5e-3, 1.05e-2, 1e-2
+VARIANT = {"float32": "cuda_cores", "bfloat16": "mma_sync"}
+
+
+def _card(seed, b, hq, hk, sq, sk, d, dtype):
+    """q, k, v, dO on the card, standard normal from a numpy seed."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (run with python3 chip_smoke.py)")
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+            .to("cuda", getattr(torch, dtype))
+            for s in ((b, hq, sq, d), (b, hk, sk, d), (b, hk, sk, d),
+                      (b, hq, sq, d))]
+
+
+def _hold(got, want, dtype):
+    for name, x, y in zip(("dq", "dk", "dv"), got, want):
+        assert x.dtype == y.dtype and x.shape == y.shape, name
+        assert bool(x.isfinite().all()), name
+        diff, y = x.float() - y.float(), y.float()
+        if dtype == "float32":
+            assert float(diff.abs().max()) <= TOL * float(y.abs().max()), name
+            continue
+        rows = y.norm(dim=-1)
+        floor = rows.clamp_min(ROW_FLOOR * float(rows.max()))
+        assert float(diff.norm() / y.norm()) < REL_TOL, name
+        assert float((diff.norm(dim=-1) / floor).max()) < ROW_TOL, name
+
+
+CASES = [
+    # b, hq, hk, sq, sk, d, dtype, kwargs
+    (2, 16, 8, 512, 512, 128, "bfloat16", dict(causal=True)),
+    (1, 8, 4, 1000, 1000, 128, "bfloat16", dict(causal=True, window=300,
+                                                 softcap=50.0)),
+    (2, 8, 8, 256, 256, 96, "bfloat16", dict(causal=True)),
+    (2, 4, 2, 300, 333, 64, "bfloat16", dict(causal=False)),
+    (2, 4, 4, 20, 300, 64, "bfloat16", dict(causal=False)),      # cross
+    (1, 16, 2, 256, 256, 128, "bfloat16", dict(causal=True)),    # group 8
+    (1, 4, 2, 200, 130, 128, "bfloat16", dict(causal=True)),     # no keys
+    (2, 4, 2, 300, 300, 64, "float32", dict(causal=True)),
+    (1, 4, 2, 128, 1000, 128, "float32", dict(causal=True)),     # offset
+    (1, 4, 2, 200, 130, 64, "float32", dict(causal=True)),       # no keys
+    (2, 4, 2, 70, 190, 96, "float32", dict(causal=False, window=50,
+                                           softcap=20.0)),
+]
+
+
+@pytest.mark.parametrize("b,hq,hk,sq,sk,d,dtype,kw", CASES)
+def test_backward_kernel_matches_plain_version(b, hq, hk, sq, sk, d, dtype,
+                                               kw):
+    q, k, v, do = _card(sq + 3 * sk + d, b, hq, hk, sq, sk, d, dtype)
+    out, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    launches = fa.flash_attention_bwd_cuda.launches
+    grads = fa.flash_attention_bwd_cuda(q, k, v, out, lse, do, **kw)
+    again = fa.flash_attention_bwd_cuda(q, k, v, out, lse, do, **kw)
+    want = ref.attention_bwd_ref(q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_bwd_cuda.launches == launches + 2
+    assert fa.flash_attention_bwd_cuda.last_plan["variant"] == VARIANT[dtype]
+    assert all(torch.equal(x, y) for x, y in zip(grads, again))
+    _hold(grads, want, dtype)
+    lse0 = ref.attention_lse_ref(q, k, **kw)
+    none = torch.isinf(lse0)
+    assert torch.equal(torch.isposinf(lse), none)
+    torch.testing.assert_close(lse[~none], lse0[~none], rtol=0, atol=1e-4)
+    if kw.get("causal") and sq > sk:
+        assert torch.count_nonzero(grads[0][:, :, :sq - sk]) == 0
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_flash_attention_function_on_the_card(dtype):
+    """ops.flash_attention under autograd is ``FlashAttention``: one forward
+    launch (with lse) and one backward call, the gradients those of the
+    kernel fed its own output and lse."""
+    q, k, v, do = _card(11, 1, 8, 4, 384, 384, 128, dtype)
+    kw = dict(causal=True, window=200, softcap=30.0)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    f0, b0 = fa.flash_attention_cuda.launches, fa.flash_attention_bwd_cuda.launches
+    out = ops.flash_attention(*leaves, **kw)
+    grads = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention_cuda.launches - f0,
+            fa.flash_attention_bwd_cuda.launches - b0) == (1, 1)
+    o, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    assert torch.equal(out.detach(), o)
+    want = ref.attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    _hold(grads, want, dtype)
+
+
+def test_backward_kernel_refuses_what_it_does_not_take():
+    q, k, v, do = _card(1, 1, 4, 2, 64, 64, 64, "float32")
+    o, lse = fa.flash_attention_cuda(q, k, v, return_lse=True)
+    with pytest.raises(ValueError, match="head dim 16"):
+        fa.flash_attention_bwd_cuda(q[..., :16].contiguous(),
+                                    k[..., :16].contiguous(),
+                                    v[..., :16].contiguous(), o, lse, do)
+    with pytest.raises(ValueError, match="lse"):
+        fa.flash_attention_bwd_cuda(q, k, v, o, lse[:, :, :10], do)
+    with pytest.raises(ValueError, match="do is not a contiguous"):
+        fa.flash_attention_bwd_cuda(q, k, v, o, lse,
+                                    do.transpose(2, 3).contiguous()
+                                    .transpose(2, 3))

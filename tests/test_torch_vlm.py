@@ -7,9 +7,11 @@ across (``convert.params_from_arrays``), with frontend (patch) embeddings
 from a numpy seed prepended to the tokens: ``Model.prefill`` with ``[3, B,
 S]`` M-RoPE positions (logits within 1e-4, caches within 1e-5), 4 greedy
 ``decode_step``s (the decode rotates by the cache position on all three
-streams, as the reference does), ``Model.loss`` within 1e-5, and the
-reference's other branch, plain RoPE from 2-D positions.  The JAX side runs
-attention through the Pallas kernel in interpret mode and through XLA.
+streams, as the reference does), ``Model.loss`` within 1e-5 and its
+gradients within rtol 1e-4 / atol 1e-6 of ``jax.grad`` (through XLA: the
+Pallas kernel has no VJP), and the reference's other branch, plain RoPE
+from 2-D positions.  The JAX side runs attention through the Pallas kernel
+in interpret mode and through XLA.
 """
 import dataclasses
 
@@ -19,11 +21,13 @@ import numpy as np
 import pytest
 import torch
 from test_torch_serving import _models, _np, _same_tree
+from test_torch_train import _same_tree as _same_grads
 
 from repro.models import build_model as jax_build_model
 from repro.models import layers as jax_layers
 from repro.models import lm as jax_lm
 from repro_torch.models import layers, lm
+from repro_torch.train.step import value_and_grad
 
 pytestmark = pytest.mark.tier1
 
@@ -138,6 +142,24 @@ def test_vlm_loss_matches(impl):
         "positions": torch.from_numpy(pos),
         "frontend_embeds": torch.from_numpy(fe)})
     np.testing.assert_allclose(float(got), float(want), rtol=1e-5, atol=1e-5)
+
+
+def test_vlm_gradients_match():
+    """M-RoPE positions and the frontend embeddings through ``Model.loss``
+    and its gradient."""
+    jcfg, jmodel, jparams, model, params = _models(ARCH, seed=47)
+    fe, tokens, pos = _vlm_inputs(jcfg, 48)
+    S = fe.shape[1] + tokens.shape[1]
+    labels = np.random.default_rng(49).integers(0, jcfg.vocab, size=(2, S))
+    labels[:, :jcfg.n_frontend_tokens] = -100
+    batch = {"tokens": tokens, "labels": labels.astype(np.int32),
+             "positions": pos, "frontend_embeds": fe}
+    jloss, jgrads = jax.value_and_grad(jmodel.loss)(
+        jparams, {k: jnp.asarray(v) for k, v in batch.items()})
+    loss, grads = value_and_grad(model, params, {
+        k: torch.from_numpy(v) for k, v in batch.items()})
+    np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
+    _same_grads(grads, jgrads, rtol=1e-4, atol=1e-6)
 
 
 def test_vlm_needs_frontend_embeddings():
