@@ -10,13 +10,15 @@ non-zero exit code if any phase fails:
 1. build     compile every kernel of the three paths from
              ``src/repro_torch/csrc`` (one nvcc per source, started together)
              and print nvcc's register, shared-memory and spill lines; count
-             the tensor-core instructions (``HGMMA``) in the flash and SSD
-             libraries' SASS (``cuobjdump -sass``) and ``HMMA`` (mma.sync)
-             in the flash backward's, which must be more than 0 in each;
-             hold the geometry (flash: key tile, threads, shared memory;
-             flash backward: rows, threads, shared memory; SSD: each phase's
-             threads and shared memory) that the ``kernel_plan`` functions
-             report against the built library's, for every instantiation
+             the tensor-core instructions (``HGMMA``) in the flash, flash
+             backward and SSD libraries' SASS (``cuobjdump -sass``), which
+             must be more than 0 in each; print each flash backward
+             kernel's registers and spills, which must be 0 for its bf16
+             kernels; hold the geometry (flash: key tile, threads, shared
+             memory; flash backward: other side's tile, threads, shared
+             memory of each kernel; SSD: each phase's threads and shared
+             memory) that the ``kernel_plan`` functions report against the
+             built library's, for every instantiation
 2. kernels   each kernel against its plain PyTorch version on the card at the
              paths' shapes, with its device time (CUDA-graph replay, or CUDA
              events for calls of many milliseconds), the plain version's,
@@ -422,6 +424,38 @@ def check(ok: bool, what: str) -> None:
 
 
 # --------------------------------------------------------------- 1. build
+def ptxas_kernels(log: str) -> list[tuple[str, int, int]]:
+    """(kernel, registers, spill bytes stored and loaded) of each entry
+    function in an ``nvcc -Xptxas -v`` log; the kernel named from its
+    mangled name with its template's integers (``bwd_dq_wgmma<128, 2>``)
+    and element type."""
+    out, name, spills = [], None, 0
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(_ZN?)(\w+)'", line)
+        if entry:
+            # the mangled name's length-prefixed identifiers (a namespace,
+            # then the kernel), then its template arguments
+            rest, base = entry.group(2), entry.group(1) + entry.group(2)
+            while (size := re.match(r"\d+", rest)):
+                base = rest[size.end():size.end() + int(size.group())]
+                rest = rest[size.end() + int(size.group()):]
+            args = rest[1:rest.find("EE")] if rest.startswith("I") else ""
+            kind = (["bf16"] if "bfloat16" in args
+                    else ["f32"] if args.startswith("f") else [])
+            ints = re.findall(r"Li(\d+)E", args + "E")
+            name = f"{base}<{', '.join(kind + ints)}>"
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+        if spill and name:
+            spills = int(spill.group(1)) + int(spill.group(2))
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs and name:
+            out.append((name, int(regs.group(1)), spills))
+            name, spills = None, 0
+    return out
+
+
 def phase_build() -> None:
     built = kbuild.build((vm_update.SRC, vm_update.NVCC_FLAGS),
                          (flash_attention.SRC, flash_attention.NVCC_FLAGS),
@@ -435,28 +469,32 @@ def phase_build() -> None:
         for line in b["log"].splitlines():
             if any(w in line for w in ("registers", "spill", "smem")):
                 print(f"    {line.strip()}")
-    for name, lib in (("flash_attention", built[1]), ("ssd_scan", built[2])):
+    for name, lib in (("flash_attention", built[1]), ("ssd_scan", built[2]),
+                      ("flash_attention_bwd", built[3])):
         sass = subprocess.run(
             [kbuild.cuda_tool("cuobjdump"), "-sass", str(lib["path"])],
             capture_output=True, text=True, check=True, timeout=300).stdout
         hgmma = sum("HGMMA" in line for line in sass.splitlines())
         check(hgmma > 0, f"the {name} library's SASS has HGMMA instructions")
         say("build", f"{name} SASS: {hgmma} HGMMA (wgmma) instructions")
-    sass = subprocess.run(
-        [kbuild.cuda_tool("cuobjdump"), "-sass", str(built[3]["path"])],
-        capture_output=True, text=True, check=True, timeout=300).stdout
-    hmma = sum("HMMA" in line for line in sass.splitlines())
-    check(hmma > 0, "the flash_attention_bwd library's SASS has HMMA "
-          "(mma.sync) instructions")
-    say("build", f"flash_attention_bwd SASS: {hmma} HMMA (mma.sync) "
-        "instructions")
-    for dtype in (torch.bfloat16, torch.float32):
+    if built[3]["log"]:         # empty when an existing build was reused
+        for kernel, regs, spills in ptxas_kernels(built[3]["log"]):
+            say("build", f"flash_attention_bwd {kernel}: {regs} registers, "
+                f"{spills} bytes of spill stores and loads")
+            check(spills == 0 or "wgmma" not in kernel,
+                  f"ptxas spills nothing in the bf16 backward {kernel}")
+        for line in built[3]["log"].splitlines():
+            if "wgmma.mma_async" in line:   # ptxas's advisories (serialised)
+                print(f"    {line.strip()}")
+    for dtype, rows_ in ((torch.bfloat16, (64, 128)), (torch.float32, (32,))):
         for d in flash_attention.HEAD_DIMS:
-            built_bwd = flash_attention.kernel_geometry_bwd(dtype, d)
-            mine = flash_attention.geometry_bwd(dtype, d)
-            check(built_bwd == mine, f"flash_attention_bwd {dtype} D {d}: the "
-                  f"library's rows, other rows, threads and shared memory "
-                  f"{built_bwd} == the plan's {mine}")
+            for rows in rows_:
+                built_bwd = flash_attention.kernel_geometry_bwd(dtype, d, rows)
+                mine = flash_attention.geometry_bwd(dtype, d, rows)
+                check(built_bwd == mine, f"flash_attention_bwd {dtype} D {d} "
+                      f"{rows} rows: the library's other rows, threads and "
+                      f"dK/dV and dQ shared memory {built_bwd} == the plan's "
+                      f"{mine}")
     for dtype, block_qs in ((torch.bfloat16, (64, 128)), (torch.float32, (64,))):
         for d in flash_attention.HEAD_DIMS:
             for block_q in block_qs:
@@ -751,10 +789,14 @@ def phase_flash_bwd_kernel() -> dict:
     for i, (name, shape, dtype, kw) in enumerate(FLASH_BWD_SHAPES):
         b, hq, hk, sq, sk, d = shape
         q, k, v, do = flash_bwd_inputs(name, shape, dtype, i)
-        plan = fa.kernel_plan_bwd(b, hq, hk, sq, sk, d, dtype)
-        check(plan["variant"] == ("mma_sync" if dtype == torch.bfloat16
+        plan = fa.kernel_plan_bwd(b, hq, hk, sq, sk, d, dtype, N_SM)
+        check(plan["variant"] == ("wgmma" if dtype == torch.bfloat16
                                   else "cuda_cores"),
               f"flash_attention_bwd {name}: {plan['variant']} for {dtype}")
+        blocks = fa.kernel_block_rows_bwd(b, hq, hk, sq, sk, dtype, N_SM)
+        check(blocks == (plan["dkdv"]["rows"], plan["dq"]["rows"]),
+              f"flash_attention_bwd {name}: the library's dK/dV and dQ block "
+              f"rows {blocks} == the plan's")
         out, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
         plain_out = fa.flash_attention_cuda(q, k, v, **kw)
         lse0 = ref.attention_lse_ref(q, k, **kw)
@@ -838,9 +880,8 @@ def phase_flash_bwd_kernel() -> dict:
         say("kernels", (
             f"flash_attention_bwd {name} q [{b}, {hq}, {sq}, {d}] k/v "
             f"[{b}, {hk}, {sk}, {d}] {str(dtype).split('.')[1]} {kw}: plan "
-            f"{plan['variant']} ({plan['rows']}-row blocks, {plan['other']} "
-            f"rows an iteration, {plan['threads']} threads, {plan['smem']} "
-            f"bytes of shared memory, grids {plan['grids']}); forward "
+            f"{plan['variant']} (dK/dV {plan['dkdv']}, dQ {plan['dq']}, grids "
+            f"{plan['grids']}); forward "
             f"output (max |err|, relative error, worst row) {out_err} "
             f"(limits {FLASH_TOL[dtype]}, {FLASH_REL_TOL[dtype]}, "
             f"{FLASH_ROW_TOL[dtype]}); lse max |err| "

@@ -4,10 +4,11 @@ one NVIDIA GPU.
     python3 scripts/flash_bwd_fault_reach.py
 
 Builds three broken copies of ``src/repro_torch/csrc/flash_attention_bwd.cu``
-in a temporary directory, each with one fault the backward can have:
+in a temporary directory (beside a copy of the headers it includes), each
+with one fault the bf16 backward can have:
 
-* ``dropped_tile``: in the dQ kernel, rows that see more than 16 key tiles
-  skip their first;
+* ``dropped_tile``: in the dQ kernel, blocks whose rows see more than 16
+  key tiles (of 64 keys) skip their first;
 * ``wrong_head``: in the dK/dV kernel, the last query head of a GQA group
   reads the group's first head instead of its own;
 * ``missed_softcap``: the dQ kernel leaves the softcap's factor
@@ -36,23 +37,23 @@ from repro_torch.kernels import build as kbuild  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 
-KEY_LOOP = ("  mask.key_tiles(q0, q_rows, kOther, &kt_lo, &kt_hi);\n"
-            "  for (int kt = kt_lo; kt < kt_hi; ++kt) {\n")
-HEAD = "    const int h = hk * group + hh;\n"
-DS_Q = "        dp[n][e] = p * (dp[n][e] - delta_r[e >> 1]) * factor;\n"
+KEY_TILES = "  mask.key_tiles(q0, q_rows, kTile, &kt_lo, &kt_hi);\n"
+HEAD = ("  auto tile_head = [&](int i) { return b * Hq + hk * group + i / nq; "
+        "};\n")
+CAP_Q = "    sc[e] = p * fac;\n"
 FAULTS = {
-    "dropped_tile": (KEY_LOOP, KEY_LOOP.replace(
-        "  for (int kt", "  if (kt_hi - kt_lo > 16) ++kt_lo;\n  for (int kt")),
-    "wrong_head": (HEAD, "    const int h = hk * group + (hh == group - 1 "
-                   "? 0 : hh);\n"),
-    "missed_softcap": (DS_Q, DS_Q.replace(" * factor;", ";")),
+    "dropped_tile": (KEY_TILES,
+                     KEY_TILES + "  if (kt_hi - kt_lo > 16) ++kt_lo;\n"),
+    "wrong_head": (HEAD, HEAD.replace(
+        "i / nq; };", "(i / nq == group - 1 ? 0 : i / nq); };")),
+    "missed_softcap": (CAP_Q, CAP_Q.replace(" * fac;", ";")),
 }
 
 
 def applies(name: str, shape, kw) -> bool:
     b, hq, hk, sq, sk, d = shape
     if name == "dropped_tile":
-        return -(-sk // 32) > 16
+        return -(-sk // 64) > 16
     if name == "wrong_head":
         return hq // hk > 1
     if name == "missed_softcap":
@@ -96,6 +97,8 @@ def main() -> None:
     src = fa.SRC_BWD.read_text()
     tmp = Path(tempfile.mkdtemp(prefix="flash_bwd_faults_"))
     kbuild.BUILD_DIR = tmp / "lib"
+    for header in kbuild.CSRC.glob("*.cuh"):      # what the copies include
+        (tmp / header.name).write_text(header.read_text())
     load = fa._bwd_library.__wrapped__  # the uncached loader, to rebind SRC
     paths = {}
     for name, (old, new) in FAULTS.items():

@@ -18,10 +18,11 @@ is no option that picks another: a bf16 CUDA tensor launches the
 tensor-core kernel or raises.
 
 The backward (``flash_attention_bwd_cuda``, plan ``kernel_plan_bwd``) is
-three launches: delta = rowsum(dO o), dK/dV over key tiles (a block loops
+three launches: delta = rowsum(dO o), dK/dV over key blocks (a block loops
 over the query heads of its GQA group, so nothing is added atomically and
-two runs are bitwise equal), dQ over query tiles.  bf16 runs its products
-on the tensor cores through ``mma.sync`` (``"mma_sync"``), f32 on the CUDA
+two runs are bitwise equal), dQ over query blocks.  bf16 runs its products
+on the tensor cores (``"wgmma"``: TMA into a two-stage shared-memory ring,
+``wgmma`` for every product, P and dS from registers), f32 on the CUDA
 cores (``"cuda_cores"``).
 
 The wrappers take CUDA tensors only and raise under autograd (their outputs
@@ -174,6 +175,16 @@ def _check(q: Tensor, k: Tensor, v: Tensor, window) -> dict:
     return plan
 
 
+def _launch_error(err: int) -> str:
+    """What a non-zero return of the C entry points means."""
+    if err == _NO_ENCODER:
+        return "the driver has no cuTensorMapEncodeTiled"
+    if err >= _ENCODE_FAILED:
+        return (f"cuTensorMapEncodeTiled failed with CUresult "
+                f"{err - _ENCODE_FAILED}")
+    return f"CUDA error {err}"
+
+
 def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor, *,
                          causal: bool = True, window: int | None = None,
                          softcap: float = 0.0, scale: float | None = None,
@@ -208,16 +219,9 @@ def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor, *,
             float(scale), plan["block_q"],
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        if err == _NO_ENCODER:
-            what = "the driver has no cuTensorMapEncodeTiled"
-        elif err >= _ENCODE_FAILED:
-            what = (f"cuTensorMapEncodeTiled failed with CUresult "
-                    f"{err - _ENCODE_FAILED}")
-        else:
-            what = f"CUDA error {err}"
-        raise RuntimeError(f"flash_attention_cuda: launch failed: {what} (q "
-                           f"{tuple(q.shape)}, k {tuple(k.shape)}, {q.dtype}, "
-                           f"plan {plan})")
+        raise RuntimeError(f"flash_attention_cuda: launch failed: "
+                           f"{_launch_error(err)} (q {tuple(q.shape)}, k "
+                           f"{tuple(k.shape)}, {q.dtype}, plan {plan})")
     flash_attention_cuda.launches += 1
     flash_attention_cuda.last_plan = plan
     return (out, lse) if return_lse else out
@@ -229,50 +233,66 @@ flash_attention_cuda.last_plan = None
 
 # ------------------------------------------------------------------ backward
 
-def geometry_bwd(dtype: torch.dtype, d: int) -> tuple[int, int, int, int]:
-    """The block's own rows, the other side's rows an iteration, threads and
-    shared-memory bytes of the backward's dK/dV and dQ kernels for (dtype,
-    d), as ``csrc/flash_attention_bwd.cu`` lays them out
-    (``mma_smem_bytes``, ``cc_smem_bytes``); ``chip_smoke.py`` holds them
-    against ``kernel_geometry_bwd``."""
+def geometry_bwd(dtype: torch.dtype, d: int,
+                 rows: int) -> tuple[int, int, int, int]:
+    """The other side's rows a tile, threads and the shared-memory bytes of
+    the dK/dV and of the dQ kernel whose blocks own ``rows`` rows (keys,
+    queries), for (dtype, d), as ``csrc/flash_attention_bwd.cu`` lays them
+    out (``dkdv_smem_bytes``, ``dq_smem_bytes``, ``cc_smem_bytes``);
+    ``chip_smoke.py`` holds them against ``kernel_geometry_bwd``."""
     if dtype == torch.bfloat16:
-        # K, V (or Q, dO) tiles of 64 rows and the other side's two of 32,
-        # bf16 rows padded by 8; lse and delta of 32 rows
-        return 64, 32, 128, (2 * 64 + 2 * 32) * (d + 8) * 2 + 2 * 32 * 4
+        cols = 64 if d <= 64 else 128
+        # 1 KB to align the swizzled tiles, the block's two tiles and two
+        # stages of the other side's two 64-row tiles of bf16, the
+        # mbarriers; dK/dV also each warpgroup's two stages of 64 lse and
+        # 64 delta
+        tiles = 1024 + (2 * rows + 4 * 64) * cols * 2 + 64
+        return 64, 2 * rows, tiles + rows // 64 * 1024, tiles
     # four f32 tiles of 32 rows padded by 1; P and dS 32 x 33; lse, delta
-    return 32, 32, 256, (4 * 32 * (d + 1) + 2 * 32 * 33 + 2 * 32) * 4
+    smem = (4 * 32 * (d + 1) + 2 * 32 * 33 + 2 * 32) * 4
+    return 32, 256, smem, smem
 
 
 def kernel_plan_bwd(b: int, hq: int, hk: int, sq: int, sk: int, d: int,
-                    dtype: torch.dtype) -> dict:
+                    dtype: torch.dtype, n_sm: int = N_SM) -> dict:
     """Launch plan of ``flash_attention_bwd_cuda`` for q ``[b, hq, sq, d]``
-    and k/v ``[b, hk, sk, d]``: the variant (bf16 ``"mma_sync"``, f32
-    ``"cuda_cores"``), the tiles, threads and shared memory, and the grid
-    of each of the three launches (``delta``: 8 rows a block; ``dkdv``: key
-    tiles x kv heads x batch; ``dq``: query tiles x query heads x batch).
-    Raises ValueError on what no instantiation takes."""
+    and k/v ``[b, hk, sk, d]`` on a card of ``n_sm`` SMs: the variant (bf16
+    ``"wgmma"``, f32 ``"cuda_cores"``), the rows, other side's tile,
+    threads and shared memory (``geometry_bwd``) of the ``dkdv`` and ``dq``
+    kernels, and the grid of each of the three launches (``delta``: 8 rows
+    a block; ``dkdv``: key blocks x kv heads x batch; ``dq``: query blocks
+    x query heads x batch).  A bf16 block owns 128 rows (two warpgroups)
+    unless that leaves fewer blocks than SMs, then 64; an f32 block 32.
+    The C entry point applies the same rule to its card's SM count
+    (``flash_attention_bwd_blocks`` reports it).  Raises ValueError on what
+    no instantiation takes."""
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention_bwd_cuda: head dim {d} is not one "
                          f"of {HEAD_DIMS}")
     if dtype == torch.bfloat16:
-        variant = "mma_sync"
+        variant = "wgmma"
+        block_rows = (64 if b * hk * -(-sk // 128) < n_sm else 128,
+                      64 if b * hq * -(-sq // 128) < n_sm else 128)
     elif dtype == torch.float32:
-        variant = "cuda_cores"
+        variant, block_rows = "cuda_cores", (32, 32)
     else:
         raise ValueError(f"flash_attention_bwd_cuda: dtype {dtype}, expected "
                          "torch.float32 or torch.bfloat16")
     if hq > MAX_GRID_YZ or b > MAX_GRID_YZ:
         raise ValueError(f"flash_attention_bwd_cuda: {hq} heads or batch {b} "
                          f"exceed the grid's {MAX_GRID_YZ}")
-    rows, other, threads, smem = geometry_bwd(dtype, d)
-    if smem > MAX_SMEM:
-        raise ValueError(f"flash_attention_bwd_cuda: {smem} bytes of shared "
-                         f"memory exceed a block's {MAX_SMEM}")
-    return {"variant": variant, "rows": rows, "other": other,
-            "threads": threads, "smem": smem,
-            "grids": {"delta": (-(-b * hq * sq // 8),),
-                      "dkdv": (-(-sk // rows), hk, b),
-                      "dq": (-(-sq // rows), hq, b)}}
+    plan = {"variant": variant}
+    for i, (kernel, rows) in enumerate(zip(("dkdv", "dq"), block_rows)):
+        other, threads, *smem = geometry_bwd(dtype, d, rows)
+        if smem[i] > MAX_SMEM:
+            raise ValueError(f"flash_attention_bwd_cuda: {smem[i]} bytes of "
+                             f"shared memory exceed a block's {MAX_SMEM}")
+        plan[kernel] = {"rows": rows, "other": other, "threads": threads,
+                        "smem": smem[i]}
+    plan["grids"] = {"delta": (-(-b * hq * sq // 8),),
+                     "dkdv": (-(-sk // plan["dkdv"]["rows"]), hk, b),
+                     "dq": (-(-sq // plan["dq"]["rows"]), hq, b)}
+    return plan
 
 
 @functools.cache
@@ -282,19 +302,33 @@ def _bwd_library() -> ctypes.CDLL:
     lib.flash_attention_bwd.argtypes = [p] * 10 + [i] * 9 + [f, f, p]
     lib.flash_attention_bwd.restype = i
     ip = ctypes.POINTER(i)
-    lib.flash_attention_bwd_geometry.argtypes = [i, i, ip, ip, ip, ip]
+    lib.flash_attention_bwd_geometry.argtypes = [i, i, i, ip, ip, ip, ip]
     lib.flash_attention_bwd_geometry.restype = i
+    lib.flash_attention_bwd_blocks.argtypes = [i] * 7 + [ip, ip]
+    lib.flash_attention_bwd_blocks.restype = i
     return lib
 
 
-def kernel_geometry_bwd(dtype: torch.dtype,
-                        d: int) -> tuple[int, int, int, int] | None:
-    """The built backward library's rows, other rows, threads and shared
-    memory for (dtype, d), or None if it has no instantiation (builds the
-    library)."""
+def kernel_geometry_bwd(dtype: torch.dtype, d: int,
+                        rows: int) -> tuple[int, int, int, int] | None:
+    """The built backward library's other rows, threads and dK/dV and dQ
+    shared memory for (dtype, d, rows), or None if it has no instantiation
+    (builds the library)."""
     out = [ctypes.c_int() for _ in range(4)]
-    if _bwd_library().flash_attention_bwd_geometry(_DTYPES[dtype], d, *out):
+    if _bwd_library().flash_attention_bwd_geometry(_DTYPES[dtype], d, rows,
+                                                   *out):
         return None
+    return tuple(x.value for x in out)
+
+
+def kernel_block_rows_bwd(b: int, hq: int, hk: int, sq: int, sk: int,
+                          dtype: torch.dtype, n_sm: int) -> tuple[int, int]:
+    """The rows of the dK/dV and dQ blocks the built library launches for
+    these shapes on a card of ``n_sm`` SMs (builds the library)."""
+    out = [ctypes.c_int() for _ in range(2)]
+    if _bwd_library().flash_attention_bwd_blocks(b, hq, hk, sq, sk,
+                                                 _DTYPES[dtype], n_sm, *out):
+        raise ValueError(f"flash_attention_bwd_blocks refused {dtype}")
     return tuple(x.value for x in out)
 
 
@@ -317,7 +351,8 @@ def flash_attention_bwd_cuda(q: Tensor, k: Tensor, v: Tensor, o: Tensor,
     _check(q, k, v, window)
     b, hq, sq, d = q.shape
     hk, sk = k.shape[1], k.shape[2]
-    plan = kernel_plan_bwd(b, hq, hk, sq, sk, d, q.dtype)
+    plan = kernel_plan_bwd(b, hq, hk, sq, sk, d, q.dtype,
+                           _sm_count(q.device))
     for name, x in (("o", o), ("do", do)):
         if x.shape != q.shape or x.dtype != q.dtype:
             raise ValueError(f"flash_attention_bwd_cuda: {name} is "
@@ -347,8 +382,8 @@ def flash_attention_bwd_cuda(q: Tensor, k: Tensor, v: Tensor, o: Tensor,
             float(softcap), float(scale),
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention_bwd_cuda: launch failed: CUDA "
-                           f"error {err} (q {tuple(q.shape)}, k "
+        raise RuntimeError(f"flash_attention_bwd_cuda: launch failed: "
+                           f"{_launch_error(err)} (q {tuple(q.shape)}, k "
                            f"{tuple(k.shape)}, {q.dtype}, plan {plan})")
     flash_attention_bwd_cuda.launches += 1
     flash_attention_bwd_cuda.last_plan = plan

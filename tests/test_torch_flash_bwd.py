@@ -184,46 +184,76 @@ def test_backward_wrapper_refuses_cpu_tensors_and_autograd():
 
 
 # --------------------------------------------------------- the launch plan
-# Rows of the block, the other side's rows an iteration, threads and
-# shared-memory bytes, written out from csrc/flash_attention_bwd.cu's
-# layout: bf16 (mma_smem_bytes) two 64-row and two 32-row tiles of D + 8
-# bf16 columns and 32 f32 lse and delta; f32 (cc_smem_bytes) four 32-row
-# tiles of D + 1 floats, P and dS at 32 x 33, lse and delta.
+# The other side's rows a tile, threads and the dK/dV and dQ kernels'
+# shared-memory bytes for blocks of `rows` own rows, written out from
+# csrc/flash_attention_bwd.cu's layout: bf16 (dkdv_smem_bytes,
+# dq_smem_bytes) 1 KB of alignment, the block's two tiles and two stages of
+# the other side's two 64-row tiles of 64 or 128 bf16 columns, 64 bytes of
+# mbarriers, and in dK/dV 1 KB of lse and delta a warpgroup; f32
+# (cc_smem_bytes) four 32-row tiles of D + 1 floats, P and dS at 32 x 33,
+# lse and delta.
 GEOMETRY_BWD = {
-    (torch.bfloat16, 64): (64, 32, 128, 192 * 72 * 2 + 256),
-    (torch.bfloat16, 96): (64, 32, 128, 192 * 104 * 2 + 256),
-    (torch.bfloat16, 128): (64, 32, 128, 192 * 136 * 2 + 256),
-    (torch.float32, 64): (32, 32, 256, (128 * 65 + 2112 + 64) * 4),
-    (torch.float32, 96): (32, 32, 256, (128 * 97 + 2112 + 64) * 4),
-    (torch.float32, 128): (32, 32, 256, (128 * 129 + 2112 + 64) * 4),
+    (torch.bfloat16, 64, 64): (64, 128, 1024 + 384 * 64 * 2 + 64 + 1024,
+                               1024 + 384 * 64 * 2 + 64),
+    (torch.bfloat16, 64, 128): (64, 256, 1024 + 512 * 64 * 2 + 64 + 2048,
+                                1024 + 512 * 64 * 2 + 64),
+    (torch.bfloat16, 96, 64): (64, 128, 1024 + 384 * 128 * 2 + 64 + 1024,
+                               1024 + 384 * 128 * 2 + 64),
+    (torch.bfloat16, 96, 128): (64, 256, 1024 + 512 * 128 * 2 + 64 + 2048,
+                                1024 + 512 * 128 * 2 + 64),
+    (torch.bfloat16, 128, 64): (64, 128, 1024 + 384 * 128 * 2 + 64 + 1024,
+                                1024 + 384 * 128 * 2 + 64),
+    (torch.bfloat16, 128, 128): (64, 256, 1024 + 512 * 128 * 2 + 64 + 2048,
+                                 1024 + 512 * 128 * 2 + 64),
+    (torch.float32, 64, 32): (32, 256, (128 * 65 + 2112 + 64) * 4,
+                              (128 * 65 + 2112 + 64) * 4),
+    (torch.float32, 96, 32): (32, 256, (128 * 97 + 2112 + 64) * 4,
+                              (128 * 97 + 2112 + 64) * 4),
+    (torch.float32, 128, 32): (32, 256, (128 * 129 + 2112 + 64) * 4,
+                               (128 * 129 + 2112 + 64) * 4),
 }
 
 
 @pytest.mark.parametrize("key", list(GEOMETRY_BWD), ids=str)
 def test_backward_geometry_fits_the_card(key):
-    rows, other, threads, smem = fa.geometry_bwd(*key)
-    assert (rows, other, threads, smem) == GEOMETRY_BWD[key]
-    assert smem <= fa.MAX_SMEM and threads <= 1024
-    if key[0] == torch.bfloat16:        # 16 rows a warp; k-steps of 16
-        assert rows == 16 * threads // 32 and key[1] % 16 == 0
+    dtype, d, rows = key
+    other, threads, smem_dkdv, smem_dq = fa.geometry_bwd(dtype, d, rows)
+    assert (other, threads, smem_dkdv, smem_dq) == GEOMETRY_BWD[key]
+    assert max(smem_dkdv, smem_dq) <= fa.MAX_SMEM and threads <= 1024
+    if dtype == torch.bfloat16:         # a warpgroup a 64 rows; k-steps of 16
+        assert rows == 64 * threads // 128 and other % 16 == 0
 
 
-@pytest.mark.parametrize("dtype,variant", [(torch.bfloat16, "mma_sync"),
+@pytest.mark.parametrize("dtype,variant", [(torch.bfloat16, "wgmma"),
                                            (torch.float32, "cuda_cores")])
-@pytest.mark.parametrize("b,hq,hk,sq,sk,d", [
-    (8, 16, 8, 2048, 2048, 128),        # internlm2 training
-    (2, 20, 20, 64, 1500, 64),          # whisper cross-attention
-    (1, 32, 32, 1024, 1024, 96),        # phi3
-    (1, 8, 8, 256, 128, 64),            # rows that see no key
+@pytest.mark.parametrize("b,hq,hk,sq,sk,d,bf16_rows", [
+    (8, 16, 8, 2048, 2048, 128, (128, 128)),    # internlm2 training
+    (2, 20, 20, 64, 1500, 64, (128, 64)),       # whisper cross-attention
+    (1, 32, 32, 1024, 1024, 96, (128, 128)),    # phi3
+    (1, 8, 8, 256, 128, 64, (64, 64)),          # rows that see no key
+    (2, 20, 20, 64, 64, 64, (64, 64)),          # whisper decoder
 ])
-def test_kernel_plan_bwd(b, hq, hk, sq, sk, d, dtype, variant):
+def test_kernel_plan_bwd(b, hq, hk, sq, sk, d, bf16_rows, dtype, variant):
+    """bf16 blocks own 128 rows (two warpgroups) unless that leaves fewer
+    blocks than the card's 132 SMs (whisper's decoder: 2 x 20 heads x one
+    128-key block), then 64; dK/dV counts kv heads and keys, dQ query heads
+    and queries.  f32 blocks own 32 rows."""
     plan = fa.kernel_plan_bwd(b, hq, hk, sq, sk, d, dtype)
-    rows, other, threads, smem = fa.geometry_bwd(dtype, d)
+    rows = bf16_rows if dtype == torch.bfloat16 else (32, 32)
+    kernels = {}
+    for i, (kernel, r) in enumerate(zip(("dkdv", "dq"), rows)):
+        other, threads, *smem = fa.geometry_bwd(dtype, d, r)
+        kernels[kernel] = {"rows": r, "other": other, "threads": threads,
+                           "smem": smem[i]}
     assert plan == {
-        "variant": variant, "rows": rows, "other": other, "threads": threads,
-        "smem": smem, "grids": {"delta": (-(-b * hq * sq // 8),),
-                                "dkdv": (-(-sk // rows), hk, b),
-                                "dq": (-(-sq // rows), hq, b)}}
+        "variant": variant, **kernels,
+        "grids": {"delta": (-(-b * hq * sq // 8),),
+                  "dkdv": (-(-sk // rows[0]), hk, b),
+                  "dq": (-(-sq // rows[1]), hq, b)}}
+    # a card with fewer SMs keeps two warpgroups where a 132-SM card drops
+    # to one
+    assert fa.kernel_plan_bwd(b, hq, hk, sq, sk, d, dtype, n_sm=8)["dq"][
+        "rows"] == (128 if dtype == torch.bfloat16 else 32)
 
 
 @pytest.mark.parametrize("args,match", [

@@ -10,10 +10,10 @@ The backward kernel (``flash_attention_bwd_cuda``) and ``FlashAttention``
 (its forward kernel with the row log-sum-exp, then the backward) against
 ``ref.attention_bwd_ref`` fed the same output and lse.  f32 (the CUDA-core
 kernels): each of dq, dk, dv within 1e-4 of its largest |value|, the
-kernel adding in another order than the plain version.  bf16 (``mma.sync``:
-P and dS rounded to bf16 before their products): the relative error of the
-whole tensor and of its worst row (a row's norm floored at 1% of the
-largest row's) within chip_smoke.py's limits.  Two calls give bitwise the
+kernel adding in another order than the plain version.  bf16 (TMA and
+``wgmma``: P and dS rounded to bf16 before their products): the relative
+error of the whole tensor and of its worst row (a row's norm floored at 1%
+of the largest row's) within chip_smoke.py's limits.  Two calls give bitwise the
 same gradients (no atomics), and a row that sees no key gets exactly zero
 dq.
 """
@@ -28,7 +28,7 @@ pytestmark = [pytest.mark.tier1, pytest.mark.cuda]
 
 TOL = 1e-4
 REL_TOL, ROW_TOL, ROW_FLOOR = 5e-3, 1.05e-2, 1e-2
-VARIANT = {"float32": "cuda_cores", "bfloat16": "mma_sync"}
+VARIANT = {"float32": "cuda_cores", "bfloat16": "wgmma"}
 
 
 def _card(seed, b, hq, hk, sq, sk, d, dtype):
@@ -66,6 +66,10 @@ CASES = [
     (2, 4, 4, 20, 300, 64, "bfloat16", dict(causal=False)),      # cross
     (1, 16, 2, 256, 256, 128, "bfloat16", dict(causal=True)),    # group 8
     (1, 4, 2, 200, 130, 128, "bfloat16", dict(causal=True)),     # no keys
+    # group 8 over 10 query tiles a head: 80 tiles through the two stages
+    (2, 16, 2, 640, 640, 64, "bfloat16", dict(causal=False)),
+    # Sk not a multiple of 128, Sq > Sk: 110 rows see no key
+    (1, 4, 2, 300, 190, 96, "bfloat16", dict(causal=True)),
     (2, 4, 2, 300, 300, 64, "float32", dict(causal=True)),
     (1, 4, 2, 128, 1000, 128, "float32", dict(causal=True)),     # offset
     (1, 4, 2, 200, 130, 64, "float32", dict(causal=True)),       # no keys
