@@ -3,9 +3,9 @@
     python3 chip_smoke.py
 
 Drives ``repro_torch`` (never JAX, never the JAX package ``repro``) through
-its three paths on the card, the event engine, the serving engine (with
-every family of the model zoo) and the training loop, and fails with a
-non-zero exit code if any phase fails:
+its paths on the card, the event engine, the serving engine (with every
+family of the model zoo), the training loop, the elastic trainer and the
+mesh layer, and fails with a non-zero exit code if any phase fails:
 
 1. build     compile every kernel of the three paths from
              ``src/repro_torch/csrc`` (one nvcc per source, started together)
@@ -104,7 +104,9 @@ non-zero exit code if any phase fails:
              (64 candidates, 3 rungs) equal to the CPU's on the same table
 5. proof     the advance-sweep kernel's launch count over phases 3-4c; after
              phase 7, that serving launched no flash backward and made no
-             checkpoint; after phase 8b, the flash launches it counted
+             checkpoint; after phase 8b, the flash launches it counted;
+             after phase 10, each kernel's launches there, as its runs
+             counted them
 6. serving   internlm2-1.8b at full width and depth (bf16, random weights from
              a seed) served by ``ServingEngine`` (4 slots of 1,024 tokens,
              re-planning by simulation every 8 steps) to 8 requests of 128-512
@@ -172,6 +174,28 @@ non-zero exit code if any phase fails:
              under the sequence, both softcaps) and a narrow whisper, the
              attention models through the f32 flash forward and backward
              kernels
+10. elastic and mesh  (a) ``ElasticRunner`` on mamba2-130m at full width
+             and depth (bf16 compute, remat on), 24 steps of 8 x 2,048
+             tokens, checkpoints every 6 steps into a temporary directory,
+             failures injected at steps 10 and 17: events failure, failure,
+             finished, resumed from steps 6 and 12, a finite final loss,
+             the SSD kernel launched twice per layer for each of the 33
+             steps run, and the advance sweep once per batch step of the
+             two restart plans' four simulations; (b) internlm2-1.8b at
+             full width and depth under ``remat_policy="save_named"`` for 4
+             steps of phase 8b's tokens: losses equal phase 8b's first 4
+             (``"none"``; reported whether bitwise), the flash forward twice
+             and the backward once per layer per step, one tag copy per
+             tagged value per forward, step time and peak memory beside
+             phase 8b's, then one gradient's peak memory under each
+             policy (the run's peak is AdamW's); (c) the mesh layer on one card, NCCL at world size
+             1 on a ``(1, 1)`` ``("data", "model")`` mesh: granite-moe's MoE
+             layer at full width, f32, through the expert-parallel path at
+             both schedules against the local path (within 2e-4, aux 1e-4),
+             phase 4's 1,024-row campaign through ``run_campaign(mesh=)``
+             bitwise phase 4's result, and internlm2's parameters through
+             ``named`` + ``distribute_tensor`` (``full_tensor()`` bitwise
+             each leaf); the process group is destroyed at the end
 
 Every line of numbers carries the card's name and power limit.  The line
 before the last is the per-kernel JSON record; the last line is
@@ -188,11 +212,13 @@ import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 if not torch.cuda.is_available():
@@ -213,8 +239,13 @@ from repro_torch.kernels import build as kbuild  # noqa: E402
 from repro_torch.data import ShardedLoader  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
     flash_attention, ops, ref, ssd_scan, vm_update)
+from repro_torch.dist import (  # noqa: E402
+    activation_shardings, distribute, named, param_pspec_tree)
+from repro_torch.launch.elastic import (  # noqa: E402
+    ElasticRunner, restart_scenario)
+from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
 from repro_torch.launch.train import run_training  # noqa: E402
-from repro_torch.models import build_model, lm, moe, ssm  # noqa: E402
+from repro_torch.models import build_model, layers, lm, moe, ssm  # noqa: E402
 from repro_torch.models.lm import lm_logits  # noqa: E402
 from repro_torch.serving import ServingEngine  # noqa: E402
 from repro_torch.train import (  # noqa: E402
@@ -400,6 +431,17 @@ DENSE_TRAIN = (
                                   lr=1e-3, log_every=2, seed=0)),
 )
 WHISPER_TRAIN = dict(steps=3, batch=2, tokens=64, lr=1e-3)
+DENSE_RUNS: dict = {}    # phase 8b's losses, step seconds and peak, by arch
+
+# phase 10: the reference test's elastic schedule on phase 8's model and
+# tokens; the save_named run's steps (all in the warmup, where phase 8b's
+# 12-step schedule gives the same learning rates); the MoE layer's token
+# counts (granite-moe at full width: 4,096 tokens run the token-gather
+# schedule, 16,384 the weight-gather one)
+ELASTIC = dict(steps=24, global_batch=8, seq_len=2048, ckpt_every=6,
+               n_workers=4, fail_at=[10, 17])
+SAVE_NAMED_STEPS = 4
+MESH_MOE = (("token_gather", 4, 1024), ("weight_gather", 8, 2048))
 
 
 def card() -> str:
@@ -2682,6 +2724,8 @@ def dense_run(arch: str, kw: dict) -> tuple[int, int]:
         check(last5 < losses[0], f"{arch}: mean loss of the last 5 steps "
               f"{last5} below the first step's {losses[0]}")
     after_first = out["step_seconds"][1:]
+    DENSE_RUNS[arch] = {"losses": list(losses), "peak": peak,
+                        "step_s": sum(after_first) / len(after_first)}
     n_params = sum(x.numel() for x in tree.leaves(out["params"]))
     if arch != "internlm2-1.8b":
         del out["params"]
@@ -2916,6 +2960,249 @@ def attention_train_parity() -> None:
 
 
 
+# ------------------------------------------------- 10. elastic and mesh
+def elastic_run() -> tuple[int, int]:
+    """(a) ``ElasticRunner`` on mamba2-130m at full width and depth.
+    Returns the SSD and advance-sweep launches of the run."""
+    e = ELASTIC
+    cfg = get_config(TRAIN_ARCH)
+    start = launches()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as where:
+        runner = ElasticRunner(
+            cfg, where, steps=e["steps"], global_batch=e["global_batch"],
+            seq_len=e["seq_len"], ckpt_every=e["ckpt_every"],
+            n_workers=e["n_workers"])
+        t0 = time.perf_counter()
+        out = runner.run(fail_at_steps=list(e["fail_at"]))
+        wall = time.perf_counter() - t0
+        disk = sum(f.stat().st_size for f in Path(where).rglob("*")
+                   if f.is_file())
+    now = launches()
+    ssd, sweeps = now["ssd"] - start["ssd"], now["sweep"] - start["sweep"]
+    events = out["events"]
+    check([ev["kind"] for ev in events] == ["failure", "failure", "finished"]
+          and out["restarts"] == 2, f"elastic events {events}")
+    check([ev["resume_step"] for ev in events[:2]] == [6, 12],
+          f"elastic resume steps {[ev['resume_step'] for ev in events[:2]]}")
+    final = out["result"]["final_loss"]
+    check(bool(np.isfinite(final)), f"elastic final loss {final} finite")
+    # each run trains from its resume step to its failure (or the end)
+    ran = sum(stop - begin for begin, stop in zip(
+        [0, 6, 12], e["fail_at"] + [e["steps"]]))
+    per_step = (2 if cfg.remat else 1) * cfg.n_layers
+    check(ssd == per_step * ran, f"elastic: SSD launches {ssd} == "
+          f"{per_step} a step x {ran} steps run")
+    # each plan simulates two one-DC scenarios: one launch per batch step
+    planned = 0
+    for ev in events[:2]:
+        left = e["steps"] - ev["resume_step"]
+        for n, delay in ((ev["survivors"], 0.0), (e["n_workers"], 600.0)):
+            planned += int(simulate(restart_scenario(
+                left * 1000.0, e["n_workers"], n, delay, device="cpu"),
+                device="cpu").n_events)
+    check(sweeps == planned > 0, f"elastic: advance-sweep launches {sweeps} "
+          f"== the plans' batch steps {planned}")
+    say("elastic", (
+        f"{TRAIN_ARCH} full width and depth ({cfg.n_layers} layers, bf16 "
+        f"compute, remat {cfg.remat}), {e['steps']} steps of "
+        f"{e['global_batch']} x {e['seq_len']} tokens, checkpoints every "
+        f"{e['ckpt_every']}, failures at {e['fail_at']}: events "
+        f"{[(ev['kind'], ev.get('resume_step'), ev.get('survivors'), ev.get('plan', {}).get('choice')) for ev in events]}; "
+        f"{ran} steps run, final loss {final!r}; wall {wall!r} s; "
+        f"checkpoints {disk / 2**30!r} GiB on disk; SSD {ssd} launches, "
+        f"advance sweep {sweeps} (the two plans); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30!r} GiB"))
+    del out, runner
+    torch.cuda.empty_cache()
+    return ssd, sweeps
+
+
+def save_named_run() -> tuple[int, int]:
+    """(b) internlm2-1.8b at full width and depth under
+    ``remat_policy="save_named"``, against phase 8b's ``"none"`` run, then
+    one gradient's peak memory under each policy.  Returns the flash
+    forward and backward launches."""
+    arch, kw = DENSE_TRAIN[0]
+    cfg = dataclasses.replace(get_config(arch), remat_policy="save_named")
+    kw = dict(kw, steps=SAVE_NAMED_STEPS)
+    none = DENSE_RUNS[arch]
+    start, copies = launches(), layers.remat_ckpt.copies
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out = run_training(cfg, **kw)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    fwd, bwd = flash_since(start)
+    copies = layers.remat_ckpt.copies - copies
+    steps = kw["steps"]
+    train_counts(cfg, steps, fwd, bwd, f"{arch} save_named")
+    tags = 2 * cfg.n_layers * steps      # the mixer's and the MLP's outputs
+    check(copies == tags, f"save_named: {copies} tag copies == {tags} (one "
+          "per tag per forward; the replay takes the saved copy)")
+    losses, want = out["losses"], none["losses"][:steps]
+    bitwise = losses == want
+    check(all(abs(a - b) <= 1e-5 * abs(b) for a, b in zip(losses, want)),
+          f"save_named losses {losses} equal 'none''s {want}")
+    step_s = sum(out["step_seconds"][1:]) / (steps - 1)
+    grad_peak = save_named_grad_peaks(cfg, out.pop("params"), kw)
+    total = flash_since(start)
+    n = attn_layers(cfg)
+    check(total == (fwd + 2 * 2 * n, bwd + 2 * n), f"save_named: flash "
+          f"launches {total} == the run's ({fwd}, {bwd}) and two gradients'")
+    say("save_named", (
+        f"{arch} full width and depth, remat_policy save_named: {steps} steps "
+        f"of {kw['global_batch']} x {kw['seq_len']} tokens: losses {losses} "
+        f"vs phase 8b's 'none' {want} (bitwise {bitwise}); flash forward "
+        f"{fwd / steps} and backward {bwd / steps} launches a step; "
+        f"{copies / steps} tag copies a step; {step_s!r} s a step after the "
+        f"first (none: {none['step_s']!r}, ratio "
+        f"{step_s / none['step_s']!r}); peak memory {peak!r} GiB (none: "
+        f"{none['peak']!r}, +{peak - none['peak']!r}: the peak is AdamW's); "
+        f"one gradient's peak above the held weights {grad_peak}"))
+    del out
+    torch.cuda.empty_cache()
+    return total
+
+
+def save_named_grad_peaks(cfg, params, kw) -> dict[str, float]:
+    """GiB one ``value_and_grad`` adds to the held weights at its peak, under
+    each policy, on one batch of ``kw``'s shape: the training run's peak
+    is AdamW's, which hides the saved tags.  Frees ``params``."""
+    loader = ShardedLoader(cfg.vocab, kw["global_batch"], kw["seq_len"],
+                           seed=1)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in next(loader).items()}
+    loader.close()
+    peaks = {}
+    for policy in ("none", "save_named"):
+        model = build_model(dataclasses.replace(cfg, remat_policy=policy))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        loss, grads = value_and_grad(model, params, batch)
+        float(loss)
+        peaks[policy] = (torch.cuda.max_memory_allocated() - base) / 2**30
+        del loss, grads
+    peaks["save_named - none"] = peaks["save_named"] - peaks["none"]
+    del params, batch
+    torch.cuda.empty_cache()
+    return peaks
+
+
+def mesh_moe(mesh) -> None:
+    """granite-moe's MoE layer at full width, f32: the expert-parallel path
+    on the mesh against the local path, at both schedules."""
+    cfg = get_config("granite-moe-1b-a400m", dtype="float32")
+    params = moe.init_moe(torch.Generator(device="cuda").manual_seed(3), cfg)
+    for schedule, b, s in MESH_MOE:
+        x = torch.randn(b, s, cfg.d_model, device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(b))
+        y0, aux0 = moe._moe_local(params, cfg, x)
+        with activation_shardings(mesh):
+            y1, aux1 = moe.moe_apply(params, cfg, x)
+        ran = moe._moe_shard_map.schedule
+        err, aerr = float((y1 - y0).abs().max()), float((aux1 - aux0).abs())
+        check(ran == schedule and err <= 2e-4 and aerr <= 1e-4,
+              f"mesh MoE {b} x {s}: schedule {ran} (want {schedule}), "
+              f"max |err| {err} <= 2e-4, aux {aerr} <= 1e-4")
+        say("mesh", (
+            f"granite-moe-1b-a400m MoE layer (E {cfg.moe.n_experts}, top "
+            f"{cfg.moe.top_k}, D {cfg.d_model}, F {cfg.moe.d_ff}, f32), "
+            f"{b} x {s} tokens: the expert-parallel path ({ran}) on the "
+            f"(1, 1) mesh against the local path: max |err| {err!r}, aux "
+            f"{aerr!r} (bitwise {torch.equal(y0, y1) and torch.equal(aux0, aux1)})"))
+        del x, y0, y1
+
+
+def mesh_campaign(mesh, phase4: dict) -> int:
+    """Phase 4's campaign through ``run_campaign(mesh=)``.  Returns its
+    batch steps (= advance-sweep launches)."""
+    rows = [scenarios.fig9_10_scenario(vp) for vp in (SPACE_SHARED,
+                                                      TIME_SHARED)]
+    batch = stack_scenarios(rows * (CAMPAIGN_ROWS // 2))
+    t0 = time.perf_counter()
+    res = run_campaign(batch, mesh=mesh)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = result_to_numpy(res)
+    same = all(got[k].shape == phase4[k].shape and (got[k] == phase4[k]).all()
+               for k in phase4)
+    check(same, "the mesh campaign is bitwise phase 4's")
+    steps = int(res.n_events.max())
+    say("mesh", f"{CAMPAIGN_ROWS} x fig9_10 through run_campaign(mesh=) on "
+        f"the (1, 1) mesh: bitwise phase 4's result, {steps} batch steps, "
+        f"{secs!r} s")
+    return steps
+
+
+def mesh_params(mesh) -> None:
+    """internlm2-1.8b's parameters through ``named`` and
+    ``distribute_tensor`` (``dist.distribute``): ``full_tensor()`` bitwise
+    each leaf."""
+    model = build_model(get_config(SERVE_ARCH))
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    specs = param_pspec_tree(params, mesh)
+    placed = named(mesh, specs)
+    shards = distribute(mesh, params, specs)
+    n = 0
+    for (path, x), d in zip(tree.leaves_with_path(params),
+                            tree.leaves(shards)):
+        pl = placed
+        for k in path:
+            pl = pl[k]
+        check(tuple(d.placements) == pl and torch.equal(d.full_tensor(), x),
+              f"{tree.key(path)} through distribute_tensor: placements "
+              f"{d.placements} == named's {pl}, full_tensor() bitwise")
+        n += 1
+    say("mesh", f"{SERVE_ARCH} at full width and depth: {n} parameter leaves "
+        f"through named() + distribute_tensor on the (1, 1) mesh, "
+        f"full_tensor() bitwise each")
+    del params, shards
+    torch.cuda.empty_cache()
+
+
+def phase_mesh(phase4: dict) -> int:
+    """(c) the mesh layer on one card: NCCL at world size 1, a ``(1, 1)``
+    ``("data", "model")`` mesh.  Returns the advance-sweep launches."""
+    with tempfile.TemporaryDirectory() as where:
+        dist.init_process_group("nccl", store=dist.FileStore(
+            str(Path(where) / "store"), 1), rank=0, world_size=1)
+        try:
+            mesh = make_host_mesh((1, 1), ("data", "model"))
+            probe = torch.ones(4, device="cuda")
+            dist.all_reduce(probe)
+            torch.cuda.synchronize()
+            check(bool((probe == 1).all()), "an NCCL all-reduce at world "
+                  "size 1")
+            mesh_moe(mesh)
+            steps = mesh_campaign(mesh, phase4)
+            mesh_params(mesh)
+        finally:
+            dist.destroy_process_group()
+    return steps
+
+
+def phase_elastic_mesh(phase4: dict) -> dict[str, int]:
+    """10: the elastic trainer, the save_named policy and the mesh layer.
+    Returns each kernel's launches in the phase."""
+    zero_launches()
+    t0 = time.perf_counter()
+    ssd, sweeps = elastic_run()
+    took = {"elastic": time.perf_counter() - t0}
+    fwd, bwd = save_named_run()
+    took["save_named"] = time.perf_counter() - t0 - sum(took.values())
+    sweeps += phase_mesh(phase4)
+    took["mesh"] = time.perf_counter() - t0 - sum(took.values())
+    counted = launches()
+    check(counted == {"flash": fwd, "ssd": ssd, "sweep": sweeps,
+                      "flash_bwd": bwd},
+          f"phase 10 launches {counted} == its runs' ({fwd}, {ssd}, "
+          f"{sweeps}, {bwd})")
+    say("timing", "elastic and mesh: " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in took.items()))
+    return counted
+
+
 def main() -> None:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}")
@@ -2935,6 +3222,7 @@ def main() -> None:
     steps += campaign_steps
     took["anchors and campaign"] = time.perf_counter() - t0 - sum(took.values())
     steps += phase_extensions(solo, (batch, batch_res))
+    phase4 = result_to_numpy(batch_res)
     del batch, batch_res
     took["extensions"] = time.perf_counter() - t0 - sum(took.values())
     steps += phase_network(solo)
@@ -2975,6 +3263,11 @@ def main() -> None:
     took["dense train"] = time.perf_counter() - t0 - sum(took.values())
     phase_train_parity()
     took["train parity"] = time.perf_counter() - t0 - sum(took.values())
+    tenth = phase_elastic_mesh(phase4)
+    took["elastic and mesh"] = time.perf_counter() - t0 - sum(took.values())
+    say("proof", f"phase 10 launched the SSD kernel {tenth['ssd']}, the "
+        f"advance sweep {tenth['sweep']}, the flash forward "
+        f"{tenth['flash']} and backward {tenth['flash_bwd']} times")
     say("timing", ", ".join(f"{k} {v:.1f} s" for k, v in took.items()))
 
     kernels = [{
@@ -2982,7 +3275,7 @@ def main() -> None:
         "route": "cuda",
         "source": "src/repro_torch/csrc/vm_update.cu",
         "replaces": "src/repro/kernels/vm_update.py:123",
-        "launches": sweeps,
+        "launches": sweeps + tenth["sweep"],
         **sweep_record,
         "library_ms": None,
     }, {
@@ -2990,7 +3283,7 @@ def main() -> None:
         "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:99",
-        "launches": flash_launches,
+        "launches": flash_launches + tenth["flash"],
         **flash_record,
     }, {
         "name": "flash_attention_bwd",
@@ -2998,14 +3291,14 @@ def main() -> None:
         "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
         "replaces": "src/repro/models/attention.py:40 flash_xla (gradient by "
                     "jax.grad; no Pallas kernel)",
-        "launches": counted["flash_bwd"],
+        "launches": counted["flash_bwd"] + tenth["flash_bwd"],
         **flash_bwd_record,
     }, {
         "name": "ssd_scan",
         "route": "cuda",
         "source": "src/repro_torch/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:81",
-        "launches": ssd_launches,
+        "launches": ssd_launches + tenth["ssd"],
         **ssd_record,
     }]
     print(CARD)

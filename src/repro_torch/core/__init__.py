@@ -44,6 +44,7 @@ from repro_torch.core.step import (
 from repro_torch.core.campaign import (
     broadcast_campaign,
     run_campaign,
+    run_campaign_sharded,
     stack_scenarios,
 )
 from repro_torch.core.reducers import (
@@ -78,7 +79,8 @@ __all__ = [
     "UtilizationTimelineInstrument",
     "batch_event_step", "init_state", "is_batched", "scenario_row",
     "simulate", "simulate_history", "simulate_instrumented", "simulate_trace",
-    "broadcast_campaign", "run_campaign", "stack_scenarios",
+    "broadcast_campaign", "run_campaign", "run_campaign_sharded",
+    "stack_scenarios",
     "ArgBestReducer", "CampaignReducer", "HistogramReducer", "MeanReducer",
     "SumReducer", "ValuesReducer",
     "energy", "kvserve", "policies", "provision", "reducers", "scenarios",

@@ -11,10 +11,15 @@ result is never assembled and a sweep may outgrow the card's memory (keep
 the stacked campaign on the host: each chunk moves to ``device`` when it
 runs).  ``core/search.py`` drives it for policy search.
 
-The reference's ``mesh`` / ``axis`` sharding (and ``run_campaign_sharded``)
-waits for ``dist/``; ``lower_chunk`` reads XLA's HLO and ``donate`` hands
-buffers to XLA, neither of which has a counterpart here: a chunk's tensors
-are freed when the chunk goes out of scope.
+``run_campaign(..., mesh=, axis=)`` (and ``run_campaign_sharded``) shards
+each chunk's rows over ``mesh[axis]`` of a ``DeviceMesh``, one process per
+rank: each rank moves only its rows to its device and simulates them, and
+the chunk's result is all-gathered over the axis, so every rank holds it
+(and folds it, with ``reduce=``).  Shards never communicate inside a
+simulation, and every row stays bitwise its solo run.  ``lower_chunk``
+reads XLA's HLO and ``donate`` hands buffers to XLA; neither has a
+counterpart here: a chunk's tensors are freed when the chunk goes out of
+scope.
 """
 from __future__ import annotations
 
@@ -27,6 +32,9 @@ from repro_torch.core.engine import simulate
 from repro_torch.core.entities import (
     Scenario, SimResult, TensorTree, resolve_device)
 from repro_torch.core.reducers import CampaignReducer
+from repro_torch.dist import spmd
+from repro_torch.dist.sharding import (
+    axis_sizes, campaign_pspec_tree, spec_leaves)
 
 
 def _stack(items: list, path: str):
@@ -110,6 +118,37 @@ def _chunk(batched: Scenario, lo: int, size: int) -> Scenario:
     return batched.map(cut)
 
 
+def _check_mesh(mesh, axis: str, rows: int) -> None:
+    """The reference's checks: the axis exists and divides the rows each
+    run shards."""
+    sizes = axis_sizes(mesh)
+    if axis not in sizes:
+        raise ValueError(f"mesh has no axis {axis!r}; axes: "
+                         f"{tuple(mesh.mesh_dim_names)}")
+    if rows % sizes[axis]:
+        raise ValueError(f"chunk of {rows} rows is not divisible by mesh "
+                         f"axis {axis!r} (size {sizes[axis]})")
+
+
+def _simulate(chunk: Scenario, dev, mesh, axis: str) -> SimResult:
+    """``simulate`` of a chunk on ``dev``; with a mesh, of this rank's rows
+    (its block of ``mesh[axis]``), the result all-gathered over the axis."""
+    if mesh is None:
+        return simulate(chunk, device=dev)
+    if any(s and s[0] is None
+           for s in spec_leaves(campaign_pspec_tree(chunk, mesh, axis))):
+        raise ValueError(
+            f"campaign axis of {_campaign_len(chunk)} rows is not divisible "
+            f"by mesh axis {axis!r} (size {axis_sizes(mesh)[axis]}); pick a "
+            "chunk_size that divides")
+    n, k = axis_sizes(mesh)[axis], _campaign_len(chunk)
+    lo = spmd.axis_index(mesh, axis) * (k // n)
+    mine = simulate(chunk.map(lambda x: x[lo:lo + k // n]).to(dev),
+                    device=dev)
+    group = spmd.axis_group(mesh, axis)
+    return mine.map(lambda x: spmd._gather(x, group, n, 0))
+
+
 def _normalize_reduce(reduce):
     """-> (keys | None, tuple of reducers, single)."""
     if isinstance(reduce, CampaignReducer):
@@ -123,13 +162,17 @@ def _normalize_reduce(reduce):
         f"reduce must be a CampaignReducer or a dict of them, got {reduce!r}")
 
 
-def _run_reduced(batched: Scenario, chunk: int, reduce, dev):
+def _run_reduced(batched: Scenario, chunk: int, reduce, dev, mesh,
+                 axis: str):
     keys, reducers, single = _normalize_reduce(reduce)
     n = _campaign_len(batched)
     carries = None
     for lo in range(0, n, chunk):
-        scn = _chunk(batched, lo, chunk).to(dev)
-        res = simulate(scn, device=dev)
+        scn = _chunk(batched, lo, chunk)
+        if mesh is None:
+            scn = scn.to(dev)
+        res = _simulate(scn, dev, mesh, axis)
+        scn = scn.to(dev)
         if carries is None:
             carries = tuple(r.init(scn, res) for r in reducers)
         index = lo + torch.arange(chunk, dtype=torch.int32, device=dev)
@@ -144,7 +187,7 @@ def _run_reduced(batched: Scenario, chunk: int, reduce, dev):
 
 
 def run_campaign(batched: Scenario, chunk_size: int | None = None,
-                 reduce=None, device=None):
+                 reduce=None, device=None, mesh=None, axis: str = "data"):
     """Run a stacked campaign; the front door for every sweep size.
 
     ``chunk_size`` bounds working memory: the campaign axis runs in chunks
@@ -154,20 +197,34 @@ def run_campaign(batched: Scenario, chunk_size: int | None = None,
     ``CampaignReducer`` or a dict of them) folds each chunk's result into
     fixed-shape carries instead and returns only the finalized summary (a
     dict mirroring ``reduce``); integer folds, ``ArgBestReducer`` and
-    ``ValuesReducer`` are the same for every chunk size.  The reference's
-    ``donate``, ``mesh`` and ``axis`` have no counterpart on one card (see
-    the module docstring).
+    ``ValuesReducer`` are the same for every chunk size.
+
+    ``mesh`` (a ``DeviceMesh``; call on every rank) shards each chunk's rows
+    over ``mesh[axis]``, which must exist and divide the chunk (or the
+    whole campaign when unchunked); every rank returns the whole result.
+    The reference's ``donate`` has no counterpart (see the module
+    docstring).
     """
     if chunk_size is not None and chunk_size <= 0:
         raise ValueError(f"chunk_size must be positive, got {chunk_size}")
     dev = resolve_device(device)
     n = _campaign_len(batched)
+    if mesh is not None:
+        _check_mesh(mesh, axis, chunk_size or n)
     if reduce is not None:
-        return _run_reduced(batched, chunk_size or n, reduce, dev)
+        return _run_reduced(batched, chunk_size or n, reduce, dev, mesh, axis)
     if chunk_size is None:
-        return simulate(batched, device=dev)
-    parts = [simulate(_chunk(batched, lo, chunk_size), device=dev)
+        return _simulate(batched, dev, mesh, axis)
+    parts = [_simulate(_chunk(batched, lo, chunk_size), dev, mesh, axis)
              for lo in range(0, n, chunk_size)]
     return SimResult(**{
         f.name: torch.cat([getattr(p, f.name) for p in parts])[:n]
         for f in dataclasses.fields(SimResult)})
+
+
+def run_campaign_sharded(batched: Scenario, mesh, axis: str = "data",
+                         device=None) -> SimResult:
+    """The one-argument spelling of ``run_campaign(batched, mesh=mesh,
+    axis=axis)``: each rank simulates its rows, with no communication
+    inside a simulation."""
+    return run_campaign(batched, mesh=mesh, axis=axis, device=device)

@@ -30,6 +30,13 @@ from repro_torch.models import build_model
 from repro_torch.train import OptConfig, adamw_init, make_train_step
 
 
+class InjectedFailure(RuntimeError):
+    """The failure ``run_training(fail_at_step=...)`` raises: the one error
+    ``launch.elastic.ElasticRunner`` treats as a lost node.  A CUDA launch
+    fault or an out-of-memory error is a ``RuntimeError`` too, and must
+    not be retried as one."""
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -47,7 +54,7 @@ def run_training(
     ckpt_every: int = 100,
     log_every: int = 10,
     seed: int = 0,
-    fail_at_step: int | None = None,   # fault-injection hook
+    fail_at_step: int | None = None,   # fault-injection hook (elastic)
     device=None,
 ) -> dict:
     """Train ``cfg`` for ``steps`` steps.  Returns the reference's
@@ -83,7 +90,7 @@ def run_training(
     try:
         for step, batch in zip(range(start_step, steps), loader):
             if fail_at_step is not None and step == fail_at_step:
-                raise RuntimeError(f"injected failure at step {step}")
+                raise InjectedFailure(f"injected failure at step {step}")
             t0 = time.perf_counter()
             tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
             params, opt_state, metrics = step_fn(params, opt_state, tb)

@@ -10,15 +10,19 @@ Supports GQA, causal masking, sliding windows, the attention-logit softcap,
 qk-norm, RoPE and M-RoPE (vlm: ``[3, B, S]`` positions), learned absolute
 positions (encdec: no rotation here; the positions are added to the
 embeddings) and cross-attention (``kv_x``: keys and values from the encoder
-states, no causal mask).  Not ported: the reference's XLA ``flash_xla`` (the
-port has no impl knob) and ``_decode_flash_lsharded`` (it needs a device
-mesh).
+states, no causal mask).  Inside an ``activation_shardings`` context whose
+tensor-parallel axis does not divide the kv heads but divides the cache
+length, a decode step runs ``_decode_flash_lsharded`` over the mesh (one
+process per rank).  Not ported: the reference's XLA ``flash_xla`` (the port
+has no impl knob).
 """
 from __future__ import annotations
 
 import torch
 from torch import Tensor
 
+from repro_torch.dist import act_sharding, spmd
+from repro_torch.dist.sharding import P
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import NEG
 from repro_torch.models import layers
@@ -125,6 +129,14 @@ def attention_prefill(params, cfg, x, positions, *, window=None):
     return out @ params["wo"].to(x.dtype), (kT, vT)
 
 
+def _write_rows(cache: Tensor, new: Tensor, at: Tensor, fits: Tensor) -> None:
+    """``cache[b, :, at[b]] = new[b, :, 0]`` where ``fits[b]``, in place."""
+    rows = torch.arange(cache.shape[0], device=cache.device)
+    old = cache[rows, :, at]                                   # [B,Hk,Dh]
+    cache[rows, :, at] = torch.where(fits[:, None, None],
+                                     new[:, :, 0].to(cache.dtype), old)
+
+
 def attention_decode(params: dict, cfg, x: Tensor, k_cache: Tensor,
                      v_cache: Tensor, pos: Tensor, *,
                      window: int | None = None):
@@ -146,13 +158,19 @@ def attention_decode(params: dict, cfg, x: Tensor, k_cache: Tensor,
     q, k = _rope(cfg, q, k, positions)
     kT, vT = k.transpose(1, 2), v.transpose(1, 2)              # [B,Hk,1,Dh]
 
-    rows = torch.arange(B, device=x.device)
-    fits = (pos < L)[:, None, None]
-    at = pos.clamp(max=L - 1)
-    for cache, new in ((k_cache, kT), (v_cache, vT)):
-        old = cache[rows, :, at]                               # [B,Hk,Dh]
-        cache[rows, :, at] = torch.where(fits, new[:, :, 0].to(cache.dtype),
-                                         old)
+    state = act_sharding.current_state()
+    if state is not None and state[1].tp is not None:
+        mesh, rules, _ = state
+        ntp = spmd.axis_size(mesh, rules.tp)
+        if cfg.n_kv_heads % ntp != 0 and L % ntp == 0:
+            out = _decode_flash_lsharded(cfg, mesh, rules, q.transpose(1, 2),
+                                         kT, vT, k_cache, v_cache, pos,
+                                         window)
+            return out @ params["wo"].to(x.dtype), (k_cache, v_cache)
+
+    at, fits = pos.clamp(max=L - 1), pos < L
+    _write_rows(k_cache, kT, at, fits)
+    _write_rows(v_cache, vT, at, fits)
 
     Hk = cfg.n_kv_heads
     g = cfg.n_heads // Hk
@@ -172,3 +190,77 @@ def attention_decode(params: dict, cfg, x: Tensor, k_cache: Tensor,
     out = out.reshape(B, Hk * g, 1, cfg.d_head).to(x.dtype)
     out = out.transpose(1, 2).reshape(B, 1, cfg.n_heads * cfg.d_head)
     return out @ params["wo"].to(x.dtype), (k_cache, v_cache)
+
+
+# ---------------------------------------------------------------------------
+# flash decoding over a length-sharded KV cache
+# ---------------------------------------------------------------------------
+
+def _decode_flash_lsharded(cfg, mesh, rules, q, kT, vT, k_cache, v_cache,
+                           pos, window):
+    """Decode attention with the cache split on its length over ``tp``
+    (the reference's ``_decode_flash_lsharded``).  Each rank writes the new
+    row where ``pos`` falls in its shard and computes an unnormalised
+    softmax over its shard; the ranks' (max, sum, weighted values) are
+    gathered and merged by a log-sum-exp, so the bytes a layer moves are
+    O(Hq x Dh x ranks), not the cache's.  f32, as in the reference.
+
+    q ``[B, Hq, 1, Dh]``; kT / vT ``[B, Hk, 1, Dh]``; the caches ``[B, Hk,
+    L, Dh]`` are updated in place.  Returns ``[B, 1, Hq * Dh]``."""
+    tp = rules.tp
+    B = q.shape[0]
+    Hk = k_cache.shape[1]
+    g = cfg.n_heads // Hk
+    scale = cfg.d_head ** -0.5
+    softcap = cfg.attn_softcap
+    sizes = dict(zip(mesh.mesh_dim_names, tuple(mesh.shape)))
+    baxes, prod = [], 1                   # the batch axes that divide B
+    for a in rules.batch:
+        if a in sizes and B % (prod * sizes[a]) == 0:
+            baxes.append(a)
+            prod *= sizes[a]
+    bspec = tuple(baxes) if len(baxes) > 1 else (baxes[0] if baxes else None)
+
+    def local(q, kT, vT, kc, vc, pos):
+        b_loc, l_loc = q.shape[0], kc.shape[2]
+        col0 = spmd.axis_index(mesh, tp) * l_loc
+        idx = pos - col0
+        mine = (idx >= 0) & (idx < l_loc)
+        at = idx.clamp(0, l_loc - 1)
+        _write_rows(kc, kT, at, mine)
+        _write_rows(vc, vT, at, mine)
+
+        qg = q.reshape(b_loc, Hk, g, 1, cfg.d_head).float()
+        s = torch.einsum("bhgqd,bhkd->bhgqk", qg, kc.float()) * scale
+        if softcap > 0.0:
+            s = softcap * torch.tanh(s / softcap)
+        col = col0 + torch.arange(l_loc, device=q.device)[None, :]
+        valid = col <= pos[:, None]
+        if window is not None:
+            valid &= col > pos[:, None] - window
+        s = torch.where(valid[:, None, None, None], s, NEG)
+        m_loc = s.amax(-1, keepdim=True)                       # [B,Hk,g,1,1]
+        p = torch.where(s > NEG / 2, torch.exp(s - m_loc), 0.0)
+        l_sum = p.sum(-1, keepdim=True)
+        acc = torch.einsum("bhgqk,bhkd->bhgqd", p, vc.float())
+
+        # merge the shards: a small exchange of statistics
+        m_all, l_all, a_all = (spmd.all_gather(t[None], mesh, tp, 0)
+                               for t in (m_loc, l_sum, acc))
+        m_g = m_all.amax(0)
+        w = torch.exp(m_all - m_g[None])
+        out = (a_all * w).sum(0) / (l_all * w).sum(0).clamp_min(1e-30)
+        return (out.reshape(b_loc, Hk * g, 1, cfg.d_head).to(kT.dtype),
+                kc, vc)
+
+    out, kc, vc = spmd.shard_map(
+        local, mesh,
+        in_specs=(P(bspec, None, None, None), P(bspec, None, None, None),
+                  P(bspec, None, None, None), P(bspec, None, tp, None),
+                  P(bspec, None, tp, None), P(bspec)),
+        out_specs=(P(bspec, None, None, None), P(bspec, None, tp, None),
+                   P(bspec, None, tp, None)),
+    )(q, kT, vT, k_cache, v_cache, pos)
+    k_cache.copy_(kc)
+    v_cache.copy_(vc)
+    return out.transpose(1, 2).reshape(B, 1, cfg.n_heads * cfg.d_head)

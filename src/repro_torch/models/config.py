@@ -15,8 +15,9 @@ The port drops ``attn_impl``: attention routes by the device its tensors lie
 on (``kernels/ops.py``).  ``remat`` does what it does in the reference: while
 a gradient is taken, each period of the LM trunk, each encoder and decoder
 layer and each chunk of the loss is checkpointed (``lm.remat_call``, the
-reference's ``jax.checkpoint``).  ``remat_policy="save_named"`` is not
-ported (no configuration uses it) and raises when a checkpoint would apply.
+reference's ``jax.checkpoint``).  ``remat_policy="save_named"`` keeps, in
+each checkpointed period, the values the reference tags ``remat_ckpt``
+(a selective checkpoint, ``lm.remat_call``); no configuration uses it.
 ``scan_layers`` stays so that configurations read the same in both
 packages, but has no effect: the port loops over periods in Python.
 """

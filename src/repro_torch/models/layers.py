@@ -7,13 +7,15 @@ use, as in the reference.  Initialisation draws from an explicit
 ``torch.Generator`` on the device the parameters are made on; its numbers
 differ from ``jax.random``'s, so parity tests carry the reference's
 parameters across (``convert.params_from_arrays``).  The reference's
-``shard_act`` constraints have no counterpart on one card.
+``shard_act`` constraints are not placed yet: ``dist.shard_act`` exists,
+and its call sites come with the sharded train step.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 from torch import Tensor
+from torch._subclasses.fake_tensor import FakeTensor
 
 
 def trunc_normal(generator: torch.Generator, shape, scale: float | None = None,
@@ -27,7 +29,9 @@ def trunc_normal(generator: torch.Generator, shape, scale: float | None = None,
             fan_in *= d
     std = scale if scale is not None else fan_in ** -0.5
     x = torch.empty(shape, dtype=dtype, device=generator.device)
-    torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    if not isinstance(x, FakeTensor):    # Model.param_specs draws nothing
+        torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0,
+                                    generator=generator)
     return x.mul_(std)
 
 
@@ -131,3 +135,50 @@ def unembed(x: Tensor, table_or_head: Tensor, softcap: float = 0.0) -> Tensor:
     if softcap > 0.0:
         logits = softcap * torch.tanh(logits / softcap)
     return logits
+
+
+# ---------------------------------------------------------------------------
+# remat tags (the reference's checkpoint_name(x, "remat_ckpt"))
+# ---------------------------------------------------------------------------
+
+@torch.library.custom_op("repro_torch::remat_ckpt", mutates_args=())
+def _remat_ckpt(x: Tensor) -> Tensor:
+    """A copy of ``x``: the one operation a ``save_named`` checkpoint keeps
+    (selective checkpointing refuses an output that aliases its input).
+    Each run adds one to ``remat_ckpt.copies``; a replay that takes the
+    saved copy adds nothing."""
+    remat_ckpt.copies += 1
+    return x.clone()
+
+
+@_remat_ckpt.register_fake
+def _(x: Tensor) -> Tensor:
+    return torch.empty_like(x)
+
+
+_remat_ckpt.register_autograd(lambda ctx, g: g)
+
+
+class _Tagging:
+    depth = 0
+
+
+def tagging(fn):
+    """``fn`` with ``remat_ckpt`` active while it runs: the forward of a
+    ``save_named`` checkpoint and its replay in the backward."""
+    def run(*args):
+        _Tagging.depth += 1
+        try:
+            return fn(*args)
+        finally:
+            _Tagging.depth -= 1
+    return run
+
+
+def remat_ckpt(x: Tensor) -> Tensor:
+    """Tag ``x`` as a value a ``save_named`` checkpoint keeps; ``x`` itself
+    outside one."""
+    return torch.ops.repro_torch.remat_ckpt(x) if _Tagging.depth else x
+
+
+remat_ckpt.copies = 0

@@ -18,10 +18,14 @@ prefill and decode drop it, as the reference does.
 Remat as the reference's ``jax.checkpoint``: with ``cfg.remat`` and grad
 enabled, each period of ``forward_hidden`` and each chunk of ``lm_loss``
 runs under ``torch.utils.checkpoint`` (``remat_call``), which keeps only
-its inputs and recomputes the rest in the backward.  Prefill and decode
-never checkpoint.
+its inputs and recomputes the rest in the backward; under
+``remat_policy="save_named"`` a period also keeps the values tagged
+``layers.remat_ckpt``, as in the reference.  Prefill and decode never
+checkpoint.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.utils.checkpoint
@@ -99,21 +103,43 @@ def init_lm(generator: torch.Generator, cfg: ModelConfig) -> dict:
 # forward (full-sequence trunk)
 # ---------------------------------------------------------------------------
 
-def remat_call(cfg: ModelConfig, fn, *args):
+def _save_named_policy(ctx, op, *args, **kwargs):
+    """Keep the outputs of ``layers.remat_ckpt`` (the reference's
+    ``save_only_these_names("remat_ckpt")``); recompute everything else."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    if op is torch.ops.repro_torch.remat_ckpt.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_call(cfg: ModelConfig, fn, *args, save_named: bool = False):
     """``fn(*args)``, checkpointed when ``cfg.remat`` is on and grad is
     enabled: the forward keeps ``args`` alone and the backward runs ``fn``
     again (non-reentrant; the models draw no random numbers, so no RNG state
     is kept).  Each checkpointed call adds one to ``remat_call.calls``.
-    ``remat_policy="save_named"`` (keep the values the reference tags
-    ``remat_ckpt`` out of the replay; no configuration uses it) is not
-    ported and raises."""
+
+    With ``save_named`` (the LM trunk's periods) and ``cfg.remat_policy ==
+    "save_named"``, the checkpoint also keeps the values ``fn`` tags with
+    ``layers.remat_ckpt``, as the reference's ``jax.checkpoint`` with
+    ``save_only_these_names("remat_ckpt")`` does: the mixer's output, the
+    dense MLP's and the expert-parallel MoE's combine.  It is a selective
+    checkpoint (``create_selective_checkpoint_contexts``) whose policy
+    saves the tag op's outputs; each tag is a copy, and the replay takes
+    the saved copy instead of running the op again.  Everything else is
+    recomputed, so the gradients are bitwise those of ``"none"``."""
     if not (cfg.remat and torch.is_grad_enabled()):
         return fn(*args)
-    if cfg.remat_policy != "none":
-        raise NotImplementedError(
-            f"{cfg.name}: remat_policy={cfg.remat_policy!r} is not ported "
-            "(ROADMAP.md, Queue A); use remat_policy='none'")
+    if cfg.remat_policy not in ("none", "save_named"):
+        raise ValueError(f"{cfg.name}: remat_policy={cfg.remat_policy!r}: "
+                         "'none' | 'save_named'")
     remat_call.calls += 1
+    if save_named and cfg.remat_policy == "save_named":
+        from torch.utils.checkpoint import create_selective_checkpoint_contexts
+        return torch.utils.checkpoint.checkpoint(
+            layers.tagging(fn), *args, use_reentrant=False,
+            preserve_rng_state=False, context_fn=functools.partial(
+                create_selective_checkpoint_contexts, _save_named_policy))
     return torch.utils.checkpoint.checkpoint(
         fn, *args, use_reentrant=False, preserve_rng_state=False)
 
@@ -131,7 +157,7 @@ def _mlp_block(cfg: ModelConfig, i: int, sub: dict, x: Tensor):
     if mk == "moe":
         h, aux = moe.moe_apply(sub["mlp"], cfg, h)
         return x + h, aux
-    return x + layers.mlp(sub["mlp"], h), None
+    return x + layers.remat_ckpt(layers.mlp(sub["mlp"], h)), None
 
 
 def _apply_period(cfg: ModelConfig, pp: dict, x: Tensor, positions):
@@ -145,7 +171,7 @@ def _apply_period(cfg: ModelConfig, pp: dict, x: Tensor, positions):
                                window=cfg.layer_window(i))
         else:
             h = ssm.ssm_apply(sub["mixer"], cfg, h)
-        x, a = _mlp_block(cfg, i, sub, x + h)
+        x, a = _mlp_block(cfg, i, sub, x + layers.remat_ckpt(h))
         if a is not None:
             aux = aux + a
     return x, aux
@@ -172,7 +198,8 @@ def forward_hidden(params: dict, cfg: ModelConfig, tokens: Tensor,
     x = _embed_inputs(params, cfg, tokens, frontend_embeds)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for pp in _unstack(params["periods"], cfg.n_periods):
-        x, a = remat_call(cfg, _apply_period, cfg, pp, x, positions)
+        x, a = remat_call(cfg, _apply_period, cfg, pp, x, positions,
+                          save_named=True)
         aux = aux + a
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x, aux

@@ -1,12 +1,12 @@
 """Mixture-of-Experts with top-k routing and a capacity bound: the port of
-``repro.models.moe``'s local path.
+``repro.models.moe``.
 
 One device: sort-based dispatch into an ``[E, capacity, D]`` buffer, the
 expert SwiGLU as three batched products (``torch.bmm``), and a combine back
 to the tokens.  The JAX package computes all of this with ``jnp``, outside
-any Pallas kernel, so the port keeps it as PyTorch operations.  The
-reference's ``_moe_shard_map`` (expert parallelism over a device mesh)
-waits for ``dist/``.
+any Pallas kernel, so the port keeps it as PyTorch operations.  Inside an
+``activation_shardings`` context, ``_moe_shard_map`` runs expert
+parallelism over the mesh, one process per rank (``dist.spmd``).
 
 Three choices keep the card's results repeatable and the reference's:
 
@@ -27,6 +27,8 @@ import torch
 import torch.nn.functional as F
 from torch import Tensor
 
+from repro_torch.dist import act_sharding, spmd
+from repro_torch.dist.sharding import P
 from repro_torch.models import layers
 
 
@@ -79,43 +81,42 @@ def _dispatch_slots(expert_ids_flat: Tensor, n_segments: int, cap: int):
     return order, e_sorted, slot, keep
 
 
-def _expert_ffn(params: dict, xe: Tensor) -> Tensor:
+def _expert_ffn(xe: Tensor, w_gate: Tensor, w_up: Tensor,
+                w_down: Tensor) -> Tensor:
     """The SwiGLU of every expert over its slots: xe ``[E, C, D]``."""
     dt = xe.dtype
-    g = torch.bmm(xe, params["w_gate"].to(dt))
-    u = torch.bmm(xe, params["w_up"].to(dt))
-    return torch.bmm(F.silu(g) * u, params["w_down"].to(dt))
+    g = torch.bmm(xe, w_gate.to(dt))
+    u = torch.bmm(xe, w_up.to(dt))
+    return torch.bmm(F.silu(g) * u, w_down.to(dt))
 
 
-def moe_apply(params: dict, cfg, x: Tensor) -> tuple[Tensor, Tensor]:
-    """x ``[B, S, D]`` -> (out ``[B, S, D]``, the balance loss, a 0-d f32
-    tensor).  The capacity comes from this call's ``T = B * S`` tokens."""
-    m = cfg.moe
-    B, S, D = x.shape
-    T, E, K = B * S, m.n_experts, m.top_k
-    xt = x.reshape(T, D)
-    dt = x.dtype
-
-    gate_vals, expert_ids, me, ce = _route(xt, params["router"], E, K)
-    aux = E * (me * ce).sum()
-    cap = _capacity(T, E, K, m.capacity_factor)
+def _dispatch_combine(xt: Tensor, gate_vals: Tensor, expert_ids: Tensor,
+                      first: int, n_experts: int, cap: int, ffn) -> Tensor:
+    """Tokens ``xt [T, D]`` through experts ``first .. first + n_experts``
+    (choices of other experts are dropped): dispatch into ``[n, cap, D]``,
+    ``ffn`` of that buffer, and the combine ``[T, D]``."""
+    T, D = xt.shape
+    K = expert_ids.shape[1]
+    dt = xt.dtype
     # each token's choices in ascending expert order: the slots are the
     # same (one entry per token and expert, sorted by token), and the
     # combine below then adds in the reference's order
     expert_ids, perm = expert_ids.sort(dim=-1)
     gate_vals = gate_vals.gather(-1, perm)
-    flat_e = expert_ids.reshape(T * K)
-    order, e_sorted, slot, keep = _dispatch_slots(flat_e, E, cap)
+    flat_e = expert_ids.reshape(T * K) - first
+    flat_e = torch.where((flat_e >= 0) & (flat_e < n_experts), flat_e,
+                         n_experts)
+    order, e_sorted, slot, keep = _dispatch_slots(flat_e, n_experts, cap)
     t_sorted = torch.div(order, K, rounding_mode="floor")
     g_sorted = gate_vals.reshape(T * K)[order]
     slot_c = torch.where(keep, slot, 0)
-    e_safe = e_sorted.clamp(0, E - 1)
+    e_safe = e_sorted.clamp(0, n_experts - 1)
 
-    xe = torch.zeros((E, cap, D), dtype=dt, device=x.device)
+    xe = torch.zeros((n_experts, cap, D), dtype=dt, device=xt.device)
     xe.index_put_((e_safe, slot_c),
                   torch.where(keep[:, None], xt[t_sorted], 0).to(dt),
                   accumulate=True)
-    ye = _expert_ffn(params, xe)
+    ye = ffn(xe)
     contrib = ye[e_safe, slot_c] * (g_sorted * keep)[:, None].to(dt)
     # back to token-major [T, K, D] (order is a permutation: no collisions)
     per_token = torch.empty_like(contrib).index_copy_(0, order, contrib)
@@ -123,4 +124,109 @@ def moe_apply(params: dict, cfg, x: Tensor) -> tuple[Tensor, Tensor]:
     out = per_token[:, 0]
     for k in range(1, K):
         out = out + per_token[:, k]
+    return out
+
+
+def _moe_local(params: dict, cfg, x: Tensor) -> tuple[Tensor, Tensor]:
+    """One device: every expert over every token of this call."""
+    m = cfg.moe
+    B, S, D = x.shape
+    T, E, K = B * S, m.n_experts, m.top_k
+    xt = x.reshape(T, D)
+    gate_vals, expert_ids, me, ce = _route(xt, params["router"], E, K)
+    aux = E * (me * ce).sum()
+    out = _dispatch_combine(
+        xt, gate_vals, expert_ids, 0, E,
+        _capacity(T, E, K, m.capacity_factor),
+        lambda xe: _expert_ffn(xe, params["w_gate"], params["w_up"],
+                               params["w_down"]))
     return out.reshape(B, S, D), aux
+
+
+def _moe_shard_map(params: dict, cfg, x: Tensor, state
+                   ) -> tuple[Tensor, Tensor]:
+    """Expert parallelism over the active mesh (the reference's
+    ``_moe_shard_map``): tokens sharded over the batch axes and replicated
+    over ``model``, experts sharded E over ``model`` and F over ``data``.
+    Each rank routes its tokens, dispatches those bound for its experts,
+    runs them by one of two schedules, and the expert columns are summed
+    over ``model`` (or reduce-scattered onto the sequence under sequence
+    parallelism).
+
+    * **weight-gather** (many tokens, training): all-gather the F blocks of
+      the rank's experts over ``data``; tokens stay on their rank.
+    * **token-gather** (few tokens, serving): all-gather the dispatch
+      buffers over ``data``, run them against the rank's F block, and
+      reduce-scatter the partial outputs back to their owners.
+
+    The schedule with the smaller payload runs, by the reference's byte
+    counts.  The collectives over F run on ``data``, the axis the weights'
+    F is split over, which is the reference's batch axes on a 2-D mesh.
+    Without a tensor-parallel axis, or with E not divisible by it or B by
+    the batch axes, the local path runs, as in the reference."""
+    mesh, rules, seq_par = state
+    _moe_shard_map.schedule = "local"
+    if rules.tp is None:                   # fsdp strategy: no EP columns
+        return _moe_local(params, cfg, x)
+    m = cfg.moe
+    tp, batch_axes = rules.tp, rules.batch
+    ntp = spmd.axis_size(mesh, tp)
+    ndp = spmd.axis_size(mesh, batch_axes)
+    B, S, D = x.shape
+    E, K = m.n_experts, m.top_k
+    if E % ntp != 0 or B % ndp != 0:
+        return _moe_local(params, cfg, x)
+    E_loc = E // ntp
+    T_loc = (B // ndp) * S
+    C_d = _capacity(T_loc, E, K, m.capacity_factor)
+    bspec = batch_axes if len(batch_axes) > 1 else batch_axes[0]
+    # under sequence parallelism the residual stream is split on S over
+    # tp: the combine reduce-scatters straight into that layout
+    sp_out = bool(seq_par) and S % ntp == 0
+    weight_gather = (3 * E_loc * D * (m.d_ff // ndp) * ndp
+                     < E_loc * C_d * ndp * D)
+    _moe_shard_map.schedule = ("weight_gather" if weight_gather
+                               else "token_gather")
+
+    def local_fn(x_loc, router, wg, wu, wd):
+        xt = x_loc.reshape(-1, D)
+        gate_vals, expert_ids, me, ce = _route(xt, router, E, K)
+        me = spmd.pmean(me, mesh, batch_axes)
+        ce = spmd.pmean(ce, mesh, batch_axes)
+        aux = E * (me * ce).sum()
+        first = spmd.axis_index(mesh, tp) * E_loc
+
+        def ffn(xe):
+            if weight_gather:
+                return _expert_ffn(xe, spmd.all_gather(wg, mesh, "data", 2),
+                                   spmd.all_gather(wu, mesh, "data", 2),
+                                   spmd.all_gather(wd, mesh, "data", 1))
+            y = _expert_ffn(spmd.all_gather(xe, mesh, "data", 1), wg, wu, wd)
+            return spmd.psum_scatter(y, mesh, "data", 1)
+
+        out = _dispatch_combine(xt, gate_vals, expert_ids, first, E_loc,
+                                C_d, ffn).reshape(x_loc.shape)
+        out = (spmd.psum_scatter(out, mesh, tp, 1) if sp_out
+               else spmd.psum(out, mesh, tp))
+        return layers.remat_ckpt(out), aux
+
+    return spmd.shard_map(
+        local_fn, mesh,
+        in_specs=(P(bspec, None, None), P(None, None), P(tp, None, "data"),
+                  P(tp, None, "data"), P(tp, "data", None)),
+        out_specs=(P(bspec, tp if sp_out else None, None), P()),
+    )(x, params["router"], params["w_gate"], params["w_up"], params["w_down"])
+
+
+_moe_shard_map.schedule = None    # the last call's: its schedule or "local"
+
+
+def moe_apply(params: dict, cfg, x: Tensor) -> tuple[Tensor, Tensor]:
+    """x ``[B, S, D]`` -> (out ``[B, S, D]``, the balance loss, a 0-d f32
+    tensor).  The capacity comes from this call's ``T = B * S`` tokens (per
+    batch shard under expert parallelism).  Inside an
+    ``activation_shardings`` context the expert-parallel path runs."""
+    state = act_sharding.current_state()
+    if state is not None:
+        return _moe_shard_map(params, cfg, x, state)
+    return _moe_local(params, cfg, x)

@@ -123,13 +123,17 @@ def test_remat_changes_no_bit(arch):
 
 
 def test_remat_policy_save_named_is_refused():
-    """The reference's ``save_named`` policy is not ported: asking for it
-    raises where a checkpoint would apply, and nowhere else."""
+    """``save_named`` is ported (``tests/test_torch_remat.py`` holds it to
+    the reference); a policy that neither package knows is refused where a
+    checkpoint would apply, and nowhere else."""
     _, _, model, params = _models("internlm2-1.8b")
     _, batch = _batch(model.cfg.vocab)
     m = build_model(dataclasses.replace(model.cfg, remat=True,
                                         remat_policy="save_named"))
-    with pytest.raises(NotImplementedError, match="save_named"):
+    assert torch.isfinite(value_and_grad(m, params, batch)[0])
+    m = build_model(dataclasses.replace(model.cfg, remat=True,
+                                        remat_policy="save_everything"))
+    with pytest.raises(ValueError, match="save_everything"):
         value_and_grad(m, params, batch)
     with torch.no_grad():
         assert torch.isfinite(m.loss(params, batch))
