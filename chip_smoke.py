@@ -196,6 +196,26 @@ mesh layer, and fails with a non-zero exit code if any phase fails:
              bitwise phase 4's result, and internlm2's parameters through
              ``named`` + ``distribute_tensor`` (``full_tensor()`` bitwise
              each leaf); the process group is destroyed at the end
+11. sharded step and dry-run  (a) the sharded train step on the card: NCCL
+             at world size 1 on a ``(1, 1)`` mesh, ``DTensor`` parameters
+             from ``distribute`` of the plain run's init by
+             ``param_pspec_tree``, AdamW moments from ``adamw_init``, the
+             batch from ``input_pspec_tree``, ``param_shardings`` from
+             ``named``, the step inside ``activation_shardings``:
+             internlm2-1.8b at full width and depth for 3 of phase 8b's
+             steps (losses within 1e-6 relative of phase 8b's, the gap
+             printed; the flash forward 48 and backward 24 times a step,
+             each forward call through ``local_map``; the third step's time
+             and the peak memory beside phase 8b's) and mamba2-130m for 2 of
+             phase 8's steps (losses within 1e-6 relative, 48 SSD launches
+             a step through ``local_map``); (b) the dry-run's ``lower_cell``
+             of (a)'s internlm2 cell on a ``(1, 1)`` mesh over a fake
+             process group, on fake meta tensors: the roofline's
+             ``step_time_bound_s`` and bottleneck and
+             ``analysis.memory.estimate``'s residency beside (a)'s measured
+             step time and peak memory; (c) one full-size cell,
+             ``run_cell("internlm2-1.8b", TRAIN_4K, "single")`` over a fake
+             group of 256 ranks: its per-device residency and bottleneck
 
 Every line of numbers carries the card's name and power limit.  The line
 before the last is the per-kernel JSON record; the last line is
@@ -227,6 +247,7 @@ if not torch.cuda.is_available():
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import tree  # noqa: E402
+from repro_torch.analysis import memory as memest, roofline  # noqa: E402
 from repro_torch.convert import result_to_numpy  # noqa: E402
 from repro_torch.core import (  # noqa: E402
     INF, SPACE_SHARED, TIME_SHARED, ArgBestReducer, HistogramReducer,
@@ -240,12 +261,16 @@ from repro_torch.data import ShardedLoader  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
     flash_attention, ops, ref, ssd_scan, vm_update)
 from repro_torch.dist import (  # noqa: E402
-    activation_shardings, distribute, named, param_pspec_tree)
+    activation_shardings, distribute, input_pspec_tree, named,
+    param_pspec_tree)
 from repro_torch.launch.elastic import (  # noqa: E402
     ElasticRunner, restart_scenario)
+from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
 from repro_torch.launch.train import run_training  # noqa: E402
-from repro_torch.models import build_model, layers, lm, moe, ssm  # noqa: E402
+from repro_torch.models import (  # noqa: E402
+    TRAIN_4K, build_model, layers, lm, moe, ssm)
+from repro_torch.models.config import ShapeSpec  # noqa: E402
 from repro_torch.models.lm import lm_logits  # noqa: E402
 from repro_torch.serving import ServingEngine  # noqa: E402
 from repro_torch.train import (  # noqa: E402
@@ -256,9 +281,10 @@ from repro_torch.train.step import value_and_grad  # noqa: E402
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
-FP32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
-BF16_OPS_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
+# the H100 SXM's peak figures, one copy for the bounds and the dry-run
+HBM_BYTES_PER_S = roofline.HBM_BW        # device memory
+FP32_OPS_PER_S = roofline.FP32_FLOPS     # float32 outside the tensor cores
+BF16_OPS_PER_S = roofline.PEAK_FLOPS     # bf16 tensor cores, dense
 KERNEL_SHAPES = [(1024, 500), (512, 500), (1024, 48), (1, 500),
                  (1, 131072), (1, 3 * 2**17), (8192, 4096)]
 # the advance sweep of the Fig. 9/10 campaign ((512, 500): the reliability
@@ -432,6 +458,7 @@ DENSE_TRAIN = (
 )
 WHISPER_TRAIN = dict(steps=3, batch=2, tokens=64, lr=1e-3)
 DENSE_RUNS: dict = {}    # phase 8b's losses, step seconds and peak, by arch
+TRAIN_RUN: dict = {}     # phase 8's losses, step seconds and peak
 
 # phase 10: the reference test's elastic schedule on phase 8's model and
 # tokens; the save_named run's steps (all in the warmup, where phase 8b's
@@ -441,6 +468,12 @@ DENSE_RUNS: dict = {}    # phase 8b's losses, step seconds and peak, by arch
 ELASTIC = dict(steps=24, global_batch=8, seq_len=2048, ckpt_every=6,
                n_workers=4, fail_at=[10, 17])
 SAVE_NAMED_STEPS = 4
+# phase 11: the sharded step's steps of phase 8b's internlm2 run and of
+# phase 8's mamba2 run (their losses are held against those runs' within
+# SHARDED_LOSS_TOL relative: at world size 1 the same arithmetic)
+SHARDED_STEPS = {"internlm2-1.8b": 3, "mamba2-130m": 2}
+SHARDED_LOSS_TOL = 1e-6
+SHARDED_RUNS: dict = {}  # phase 11's sharded runs, by arch
 MESH_MOE = (("token_gather", 4, 1024), ("weight_gather", 8, 2048))
 
 
@@ -680,13 +713,13 @@ def flash_inputs(shape, dtype, seed: int):
 def flash_bound_ms(shape, dtype, kw) -> tuple[float, str, int, int]:
     """Least time for attention: 4 * D operations per valid (query, key)
     pair over the card's peak for the dtype, or q, k, v read once and o
-    written once over the memory rate, whichever is larger.  Returns
+    written once over the memory rate, whichever is larger (the count of
+    ``flash_attention.flash_work``, which the dry-run reads too).  Returns
     (ms, what bounds it, operations, bytes)."""
     b, hq, hk, sq, sk, d = shape
-    mask = ref.attention_mask(sq, sk, kw.get("causal", True), kw.get("window"),
-                              "cuda")
-    ops = 4 * d * int(mask.sum()) * b * hq
-    nbytes = (2 * b * hq * sq + 2 * b * hk * sk) * d * dtype.itemsize
+    ops, nbytes = flash_attention.flash_work(
+        (b, hq, sq, d), (b, hk, sk, d), dtype.itemsize,
+        kw.get("causal", True), kw.get("window"))
     peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S
     by_ops, by_bytes = ops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     if by_ops >= by_bytes:
@@ -793,14 +826,13 @@ def flash_bwd_bound_ms(shape, dtype, kw) -> tuple[float, str, int, int]:
     """Least time for the backward: five products of 2 * D operations per
     valid (query, key) pair (S, dP, dV, dQ, dK) over the card's peak for the
     dtype, or q, k, v, o, dO read once, lse read once and dq, dk, dv written
-    once over the memory rate, whichever is larger.  Returns (ms, what
-    bounds it, operations, bytes)."""
+    once over the memory rate, whichever is larger (the count of
+    ``flash_attention.flash_bwd_work``).  Returns (ms, what bounds it,
+    operations, bytes)."""
     b, hq, hk, sq, sk, d = shape
-    mask = ref.attention_mask(sq, sk, kw.get("causal", True), kw.get("window"),
-                              "cuda")
-    ops = 10 * d * int(mask.sum()) * b * hq
-    nbytes = ((4 * b * hq * sq + 4 * b * hk * sk) * d * dtype.itemsize
-              + 4 * b * hq * sq)
+    ops, nbytes = flash_attention.flash_bwd_work(
+        (b, hq, sq, d), (b, hk, sk, d), dtype.itemsize,
+        kw.get("causal", True), kw.get("window"))
     peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S
     by_ops, by_bytes = ops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     if by_ops >= by_bytes:
@@ -965,13 +997,11 @@ def ssd_bound_ms(shape, dtype, chunk) -> tuple[float, str, int, int]:
     and W x, as flash's bound counts the causal half, and 2 q P N for
     C h_in and the state update, over the card's peak for the dtype; or x,
     dt, B, C read once and y written once over the memory rate, whichever
-    is larger.  Returns (ms, what bounds it, operations, bytes)."""
+    is larger (the count of ``ssd_scan.ssd_work``).  Returns (ms, what
+    bounds it, operations, bytes)."""
     b, s, h, p, g, n = shape
-    rows = [min(chunk, s - t) for t in range(0, s, chunk)]
-    macs = sum(q * (q + 1) // 2 * (n + p) + 2 * q * p * n for q in rows)
-    ops_ = 2 * b * h * macs
-    nbytes = (2 * b * s * h * p + 2 * b * s * g * n) * dtype.itemsize \
-        + b * s * h * 4 + 2 * h * 4
+    ops_, nbytes = ssd_scan.ssd_work((b, s, h, p), g, n, chunk,
+                                     dtype.itemsize)
     peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S
     by_ops, by_bytes = ops_ / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     if by_ops >= by_bytes:
@@ -2581,6 +2611,7 @@ def phase_train() -> int:
     tokens = TRAIN["global_batch"] * TRAIN["seq_len"]
     first_step, after_first = out["step_seconds"][0], out["step_seconds"][1:]
     mean_step = sum(after_first) / len(after_first)
+    TRAIN_RUN.update(losses=list(losses), step_s=mean_step, peak=peak)
 
     # two more steps under the profiler: where the device time goes
     model = build_model(cfg)
@@ -3203,6 +3234,204 @@ def phase_elastic_mesh(phase4: dict) -> dict[str, int]:
     return counted
 
 
+# ------------------------------------------- 11. sharded step and dry-run
+def sharded_run(mesh, arch: str, kw: dict, steps: int, want: dict,
+                kernel: str) -> dict:
+    """(a) ``steps`` of ``run_training``'s steps for ``arch`` (its
+    parameters, schedule and tokens) through the sharded step: ``DTensor``
+    parameters from ``distribute`` of its init by ``param_pspec_tree``,
+    AdamW moments from ``adamw_init`` of them, each batch placed by
+    ``input_pspec_tree``, ``param_shardings`` the parameters' placements,
+    inside ``activation_shardings``.  ``want`` is the unsharded run's
+    record; ``kernel`` the kernel whose ``local_map`` blocks are counted.
+    Returns the run's record."""
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    opt_cfg = OptConfig(lr=kw["lr"], warmup_steps=max(kw["steps"] // 20, 5),
+                        total_steps=kw["steps"])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(torch.Generator("cuda").manual_seed(kw["seed"]))
+    specs = param_pspec_tree(params, mesh)
+    placed = distribute(mesh, params, specs)
+    del params
+    state = adamw_init(placed)
+    step_fn = make_train_step(model, opt_cfg,
+                              param_shardings=named(mesh, specs))
+    loader = ShardedLoader(cfg.vocab, kw["global_batch"], kw["seq_len"],
+                           seed=kw["seed"])
+    before, blocks = launches(), dict(ops.local_map_blocks)
+    losses, seconds = [], []
+    try:
+        for _, batch in zip(range(steps), loader):
+            tb = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+            tb = distribute(mesh, tb, input_pspec_tree({"batch": tb},
+                                                       mesh)["batch"])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with activation_shardings(mesh):
+                placed, state, metrics = step_fn(placed, state, tb)
+            losses.append(float(metrics["loss"].full_tensor()))
+            seconds.append(time.perf_counter() - t0)
+    finally:
+        loader.close()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    now = launches()
+    counts = {k: now[k] - before[k] for k in now}
+    through = ops.local_map_blocks[kernel] - blocks[kernel]
+    placed_ok = all(tuple(a.placements) == tuple(b.placements)
+                    for a, b in zip(tree.leaves(placed),
+                                    tree.leaves(state["mu"])))
+    del placed, state, tb
+    torch.cuda.empty_cache()
+    ref = want["losses"][:steps]
+    gap = max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
+    check(gap <= SHARDED_LOSS_TOL,
+          f"sharded {arch}: losses {losses} equal the unsharded run's {ref} "
+          f"within {SHARDED_LOSS_TOL} relative (worst {gap!r})")
+    check(placed_ok, f"sharded {arch}: updated parameters keep the moments' "
+          "placements")
+    # the first step fills DTensor's sharding caches; the last is timed
+    return {"losses": losses, "want": ref, "gap": gap, "step_s": seconds[-1],
+            "seconds": seconds, "peak": peak, "launches": counts,
+            "blocks": through}
+
+
+def sharded_steps() -> dict[str, int]:
+    """(a) NCCL at world size 1, a (1, 1) mesh: internlm2 and mamba2
+    through the sharded step.  Returns the kernels' launches."""
+    arch, kw = DENSE_TRAIN[0]
+    cfg = get_config(arch)
+    n = attn_layers(cfg)
+    steps, m_steps = SHARDED_STEPS[arch], SHARDED_STEPS[TRAIN_ARCH]
+    with tempfile.TemporaryDirectory() as where:
+        dist.init_process_group("nccl", store=dist.FileStore(
+            str(Path(where) / "store"), 1), rank=0, world_size=1)
+        try:
+            mesh = make_host_mesh((1, 1), ("data", "model"))
+            dense = sharded_run(mesh, arch, kw, steps, DENSE_RUNS[arch],
+                                "flash_attention")
+            ssm_run = sharded_run(mesh, TRAIN_ARCH, TRAIN, m_steps,
+                                  TRAIN_RUN, "ssd_scan")
+        finally:
+            dist.destroy_process_group()
+    c = dense["launches"]
+    check(c["flash"] == 2 * n * steps and c["flash_bwd"] == n * steps
+          and dense["blocks"] == c["flash"],
+          f"sharded {arch}: flash forward {c['flash']} == 2 x {n} x {steps}, "
+          f"backward {c['flash_bwd']} == {n} x {steps}, each forward through "
+          f"local_map ({dense['blocks']} blocks)")
+    m = ssm_run["launches"]
+    n_ssm = get_config(TRAIN_ARCH).n_layers
+    check(m["ssd"] == 2 * n_ssm * m_steps and ssm_run["blocks"] == m["ssd"],
+          f"sharded {TRAIN_ARCH}: SSD launches {m['ssd']} == 2 x {n_ssm} x "
+          f"{m_steps}, each through local_map ({ssm_run['blocks']} blocks)")
+    want = DENSE_RUNS[arch]
+    say("sharded step", (
+        f"{arch} full width and depth through the sharded step (DTensor "
+        f"parameters and moments on the (1, 1) mesh, NCCL world size 1, "
+        f"flash under local_map), {steps} of phase 8b's steps of "
+        f"{kw['global_batch']} x {kw['seq_len']} tokens: losses "
+        f"{dense['losses']} vs the plain step's {dense['want']}, worst "
+        f"relative gap {dense['gap']!r} (bitwise "
+        f"{dense['losses'] == dense['want']}); flash forward "
+        f"{c['flash'] / steps} and backward {c['flash_bwd'] / steps} "
+        f"launches a step; step {steps} took {dense['step_s']!r} s (the "
+        f"plain step: {want['step_s']!r} s, ratio "
+        f"{dense['step_s'] / want['step_s']!r}; every step "
+        f"{dense['seconds']}); peak memory {dense['peak']!r} GiB (the plain "
+        f"step: {want['peak']!r})"))
+    say("sharded step", (
+        f"{TRAIN_ARCH} full width and depth through the sharded step, "
+        f"{m_steps} of phase 8's steps: losses {ssm_run['losses']} vs the "
+        f"plain step's {ssm_run['want']}, worst relative gap "
+        f"{ssm_run['gap']!r}; SSD {m['ssd'] / m_steps} launches a step; step "
+        f"{m_steps} took {ssm_run['step_s']!r} s (the plain step: "
+        f"{TRAIN_RUN['step_s']!r} s; every step {ssm_run['seconds']}); peak "
+        f"memory {ssm_run['peak']!r} GiB (the plain step: "
+        f"{TRAIN_RUN['peak']!r})"))
+    SHARDED_RUNS[arch] = dense
+    return {k: c[k] + m[k] for k in c}
+
+
+def dryrun_card_cell() -> None:
+    """(b) the dry-run's ``lower_cell`` of (a)'s internlm2 cell on a (1, 1)
+    mesh over a fake process group, beside (a)'s measurements."""
+    arch, kw = DENSE_TRAIN[0]
+    shape = ShapeSpec("phase 8b", kw["seq_len"], kw["global_batch"], "train")
+    with dryrun.fake_world(1):
+        mesh = make_host_mesh((1, 1), ("data", "model"))
+        t0 = time.perf_counter()
+        trace, meta = dryrun.lower_cell(arch, shape, mesh, microbatches=1)
+        took = time.perf_counter() - t0
+        est = memest.estimate(meta["model"], meta["cfg"], shape, mesh,
+                              microbatches=1)
+    six_nd = roofline.model_flops_for(meta["cfg"], shape)
+    rl = roofline.analyze_walk(trace, est, 1, six_nd)
+    run = SHARDED_RUNS[arch]
+    gib = 2**30
+    n = attn_layers(meta["cfg"])
+    check(trace.kernel_calls == {"flash_attention_fwd": 2 * n,
+                                 "flash_attention_bwd": n},
+          f"the traced step calls the flash ops {trace.kernel_calls}: 2 x {n} "
+          f"forward, {n} backward")
+    check(trace.dot_flops >= six_nd and est.residency_bytes > 0,
+          f"traced FLOPs {trace.dot_flops!r} >= 6ND {six_nd!r}")
+    say("dry-run", (
+        f"{arch} at (1, 1), {kw['global_batch']} x {kw['seq_len']} tokens, "
+        f"one microbatch, lower_cell on fake meta tensors in {took!r} s "
+        f"(kernel ops {trace.kernel_calls}): roofline step_time_bound_s "
+        f"{rl.step_time_s!r} (compute {rl.compute_s!r}, memory "
+        f"{rl.memory_s!r}, collective {rl.collective_s!r}), bottleneck "
+        f"{rl.bottleneck}, against the measured step {run['step_s']!r} s "
+        f"(ratio {rl.step_time_s / run['step_s']!r}); traced FLOPs "
+        f"{trace.dot_flops!r} = {trace.dot_flops / six_nd!r} x 6ND "
+        f"({six_nd!r}); analysis.memory.estimate residency "
+        f"{est.residency_bytes / gib!r} GiB against the measured peak "
+        f"{run['peak']!r} GiB (ratio {est.residency_bytes / gib / run['peak']!r}"
+        f"); MemTracker's traced peak {trace.peak_bytes / gib!r} GiB"))
+
+
+def dryrun_pod_cell() -> None:
+    """(c) one full-size cell over a fake group of 256 ranks."""
+    t0 = time.perf_counter()
+    out = dryrun.run_cell("internlm2-1.8b", TRAIN_4K, "single")
+    took = time.perf_counter() - t0
+    r = out["roofline"]
+    check(r["flops_per_device"] > 0 and out["n_chips"] == 256,
+          "the pod cell traced a step over 256 ranks")
+    say("dry-run", (
+        f"internlm2-1.8b x train_4k x single on the (16, 16) mesh, "
+        f"{out['n_chips']} fake ranks, 4 microbatches, traced in {took!r} s: "
+        f"per-device residency "
+        f"{out['memory_model']['residency_bytes'] / 2**30!r} GiB (traced "
+        f"peak {out['memory']['peak_bytes_est'] / 2**30!r} GiB); bottleneck "
+        f"{r['bottleneck']} (compute {r['compute_s']!r} s, memory "
+        f"{r['memory_s']!r} s, collective {r['collective_s']!r} s); "
+        f"collectives {r['collective_counts']}, effective bytes by kind "
+        f"{out['trace_raw']['coll_eff_by_kind']}"))
+
+
+def phase_sharded() -> dict[str, int]:
+    """11: the sharded step on the card and the dry-run chain.  Returns
+    each kernel's launches in the phase."""
+    zero_launches()
+    t0 = time.perf_counter()
+    counted = sharded_steps()
+    took = {"sharded step": time.perf_counter() - t0}
+    check(launches() == counted, f"phase 11 launches {launches()} == its "
+          f"runs' {counted}")
+    dryrun_card_cell()
+    took["dry-run (1, 1)"] = time.perf_counter() - t0 - sum(took.values())
+    dryrun_pod_cell()
+    took["dry-run pod"] = time.perf_counter() - t0 - sum(took.values())
+    check(launches() == counted, "the dry-runs launched nothing")
+    say("timing", "sharded step and dry-run: " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in took.items()) + f"; phase 11 "
+        f"{sum(took.values()):.1f} s")
+    return counted
+
+
 def main() -> None:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}")
@@ -3268,6 +3497,12 @@ def main() -> None:
     say("proof", f"phase 10 launched the SSD kernel {tenth['ssd']}, the "
         f"advance sweep {tenth['sweep']}, the flash forward "
         f"{tenth['flash']} and backward {tenth['flash_bwd']} times")
+    eleventh = phase_sharded()
+    took["sharded step and dry-run"] = (time.perf_counter() - t0
+                                        - sum(took.values()))
+    say("proof", f"phase 11 launched the SSD kernel {eleventh['ssd']}, the "
+        f"flash forward {eleventh['flash']} and backward "
+        f"{eleventh['flash_bwd']} times, every forward through local_map")
     say("timing", ", ".join(f"{k} {v:.1f} s" for k, v in took.items()))
 
     kernels = [{
@@ -3275,7 +3510,7 @@ def main() -> None:
         "route": "cuda",
         "source": "src/repro_torch/csrc/vm_update.cu",
         "replaces": "src/repro/kernels/vm_update.py:123",
-        "launches": sweeps + tenth["sweep"],
+        "launches": sweeps + tenth["sweep"] + eleventh["sweep"],
         **sweep_record,
         "library_ms": None,
     }, {
@@ -3283,7 +3518,7 @@ def main() -> None:
         "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:99",
-        "launches": flash_launches + tenth["flash"],
+        "launches": flash_launches + tenth["flash"] + eleventh["flash"],
         **flash_record,
     }, {
         "name": "flash_attention_bwd",
@@ -3291,14 +3526,15 @@ def main() -> None:
         "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
         "replaces": "src/repro/models/attention.py:40 flash_xla (gradient by "
                     "jax.grad; no Pallas kernel)",
-        "launches": counted["flash_bwd"] + tenth["flash_bwd"],
+        "launches": (counted["flash_bwd"] + tenth["flash_bwd"]
+                     + eleventh["flash_bwd"]),
         **flash_bwd_record,
     }, {
         "name": "ssd_scan",
         "route": "cuda",
         "source": "src/repro_torch/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:81",
-        "launches": ssd_launches + tenth["ssd"],
+        "launches": ssd_launches + tenth["ssd"] + eleventh["ssd"],
         **ssd_record,
     }]
     print(CARD)

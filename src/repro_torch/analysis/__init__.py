@@ -1,0 +1,16 @@
+"""repro_torch.analysis — the dry-run's analysis: the analytic memory model
+(``memory``), the roofline terms with the H100's constants (``roofline``),
+the counts of one rank's work in a traced step (``trace``: torch's
+``FlopCounterMode``, ``CommDebugMode`` and ``MemTracker``, in the roles of
+the reference's HLO walk and ``memory_analysis()``) and the tables of the
+JSON cache (``report``).
+
+The reference's ``hlo_walk`` parses XLA's HLO, which torch does not have:
+``trace`` takes its role.  Its ``simlint`` (structural invariants of the
+engine's jaxprs) is not ported yet.
+"""
+from repro_torch.analysis import memory, roofline, trace
+
+# report is a script too (python -m repro_torch.analysis.report): importing
+# it here would load it twice under -m
+__all__ = ["memory", "report", "roofline", "trace"]

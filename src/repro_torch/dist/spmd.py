@@ -17,6 +17,14 @@ is the sum over all ranks of their blocks' gradients, so every rank ends
 with the whole gradient.  ``torch.distributed.nn.functional`` has the same
 transposes, but its ``all_gather`` backward scatters by global rank and
 fails on a sub-group of a gloo world, so the port keeps its own four.
+
+On ``DTensor`` inputs (the sharded train step) ``shard_map`` runs ``fn``
+under ``local_map`` instead: each input is redistributed to its spec's
+placements and ``fn`` sees the rank's blocks.  The gradients keep the
+semantics above: an input's gradient is partial over the mesh axes its
+spec does not name (the sum over ranks of their blocks' gradients), and an
+output's cotangent reaches ``fn`` divided by the ranks that hold the same
+block.
 """
 from __future__ import annotations
 
@@ -157,6 +165,49 @@ def psum_scatter(x: Tensor, mesh, axes, dim: int) -> Tensor:
                               axis_size(mesh, axes), dim)
 
 
+def is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+class _GradHook(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, fn):
+        ctx.fn = fn
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.fn(g), None
+
+
+def grad_hook(x: Tensor, fn) -> Tensor:
+    """The identity on ``x``, whose backward passes the cotangent through
+    ``fn`` (a scale, a redistribution, a dense copy)."""
+    return _GradHook.apply(x, fn)
+
+
+class _SumOver(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        from torch.distributed import _functional_collectives as funcol
+
+        return funcol.wait_tensor(funcol.all_reduce(x, "sum", group))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def sum_over(x: Tensor, group) -> Tensor:
+    """The sum of ``x`` over a process group, of a value every rank then
+    uses alike: the cotangent passes through unchanged, each rank's term
+    taking the whole of it (Megatron's vocabulary-parallel embedding and
+    loss).  A functional collective, so that a fake group traces it."""
+    return _SumOver.apply(x, group)
+
+
 # ---------------------------------------------------------------------------
 # global tensors <-> rank blocks
 # ---------------------------------------------------------------------------
@@ -225,6 +276,8 @@ def shard_map(fn, mesh, in_specs, out_specs):
     single = isinstance(out_specs, P)
 
     def run(*args):
+        if any(is_dtensor(a) for a in args):
+            return _local_map(fn, mesh, in_specs, out_specs, single, args)
         blocks = [_Cut.apply(a, mesh, P(*s)) for a, s in zip(args, in_specs)]
         outs = fn(*blocks)
         if single:
@@ -233,3 +286,39 @@ def shard_map(fn, mesh, in_specs, out_specs):
                      for o, s in zip(outs, out_specs))
 
     return run
+
+
+def _named_axes(spec: P) -> list[str]:
+    return [a for e in spec if e is not None for a in _axes(e)]
+
+
+def _local_map(fn, mesh, in_specs, out_specs, single: bool, args):
+    """``shard_map``'s ``run`` on DTensor arguments (a plain tensor among
+    them is a global value, replicated on every rank)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.dist.sharding import placements
+
+    whole = (Replicate(),) * mesh.ndim
+    args = [a if is_dtensor(a) else
+            DTensor.from_local(a, mesh, whole, run_check=False) for a in args]
+    in_pl = [placements(mesh, P(*s)) for s in in_specs]
+    in_grad = [tuple(Partial() if pl.is_replicate() else pl for pl in pls)
+               for pls in in_pl]
+    outs = [out_specs] if single else [P(*s) for s in out_specs]
+    copies = [mesh.size() // axis_size(mesh, _named_axes(s)) for s in outs]
+
+    def body(*blocks):
+        res = fn(*blocks)
+        res = [res] if single else list(res)
+        res = [grad_hook(r, lambda g, c=c: g / c) if c > 1 else r
+               for r, c in zip(res, copies)]
+        return res[0] if single else tuple(res)
+
+    out_pl = [placements(mesh, s) for s in outs]
+    return local_map(body, out_placements=(list(out_pl[0]) if single
+                                           else tuple(out_pl)),
+                     in_placements=tuple(in_pl),
+                     in_grad_placements=tuple(in_grad), device_mesh=mesh,
+                     redistribute_inputs=True)(*args)

@@ -26,6 +26,7 @@ import time
 from pathlib import Path
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -119,3 +120,11 @@ def refuse_autograd(name: str, **tensors: torch.Tensor) -> None:
             f"{name} has no backward: the gradient of {', '.join(need)} "
             "would be lost.  Call it under torch.no_grad(), or through a "
             "differentiable form")
+
+
+def traced(t: torch.Tensor) -> bool:
+    """Whether ``t`` is a ``FakeTensor``: a shape and no data.  A kernel's
+    wrapper checks the shapes of such a tensor and calls its op, whose
+    fake implementation gives the outputs' shapes; nothing is launched or
+    counted."""
+    return isinstance(t, FakeTensor)

@@ -25,6 +25,14 @@ on the tensor cores (``"wgmma"``: TMA into a two-stage shared-memory ring,
 ``wgmma`` for every product, P and dS from registers), f32 on the CUDA
 cores (``"cuda_cores"``).
 
+Each kernel is a ``torch.library`` custom op
+(``repro_torch::flash_attention_fwd``, ``repro_torch::flash_attention_bwd``)
+whose CUDA implementation launches it and whose fake implementation gives
+the outputs' shapes alone, so a meta or fake tensor traces the card's
+program without data (``launch/dryrun.py``); a FLOP formula registered for
+each (``flash_flops``, ``flash_bwd_flops``: the count chip_smoke.py's bounds
+use) lets a counting mode read the kernel's work.
+
 The wrappers take CUDA tensors only and raise under autograd (their outputs
 would have no ``grad_fn``).  ``FlashAttention`` is the differentiable form:
 the forward kernel with its row log-sum-exp, then the backward kernels, on
@@ -38,6 +46,7 @@ import functools
 
 import torch
 from torch import Tensor
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build as kbuild
 from repro_torch.kernels import ref
@@ -53,6 +62,44 @@ WGMMA_BLOCK_K = 128             # keys per tile of the tensor-core kernel
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the C entry point's codes besides cudaError_t
 _NO_ENCODER, _ENCODE_FAILED = 999, 1000
+
+
+@functools.cache
+def attention_pairs(sq: int, sk: int, causal: bool,
+                    window: int | None) -> int:
+    """The (query, key) pairs ``ref.attention_mask(sq, sk, causal,
+    window)`` lets through, counted from the shapes: row i sees keys up to
+    ``i + sk - sq`` (causal) and above ``i + sk - sq - window``."""
+    total = 0
+    for i in range(sq):
+        row = i + sk - sq
+        hi = min(sk - 1, row) if causal else sk - 1
+        lo = max(0, row - window + 1) if window is not None else 0
+        total += max(0, hi - lo + 1)
+    return total
+
+
+def flash_work(q_shape, k_shape, dtype_bytes: int, causal: bool = True,
+               window: int | None = None) -> tuple[int, int]:
+    """(operations, bytes) of one forward: 4 * D operations per valid
+    (query, key) pair and head (q.k and p.v), q, k, v read once and o
+    written once."""
+    b, hq, sq, d = q_shape
+    hk, sk = k_shape[1], k_shape[2]
+    ops = 4 * d * attention_pairs(sq, sk, causal, window) * b * hq
+    return ops, (2 * b * hq * sq + 2 * b * hk * sk) * d * dtype_bytes
+
+
+def flash_bwd_work(q_shape, k_shape, dtype_bytes: int, causal: bool = True,
+                   window: int | None = None) -> tuple[int, int]:
+    """(operations, bytes) of one backward: five products of 2 * D
+    operations per valid pair (S, dP, dV, dQ, dK); q, k, v, o, dO and lse
+    read once, dq, dk, dv written once."""
+    b, hq, sq, d = q_shape
+    hk, sk = k_shape[1], k_shape[2]
+    ops = 10 * d * attention_pairs(sq, sk, causal, window) * b * hq
+    return ops, ((4 * b * hq * sq + 4 * b * hk * sk) * d * dtype_bytes
+                 + 4 * b * hq * sq)
 
 
 def geometry(dtype: torch.dtype, d: int, block_q: int) -> tuple[int, int, int]:
@@ -158,8 +205,11 @@ def _check(q: Tensor, k: Tensor, v: Tensor, window) -> dict:
                          f"multiple of {hk} kv heads")
     if window is not None and window < 0:
         raise ValueError(f"flash_attention_cuda: window {window} < 0")
-    n_sm = _sm_count(q.device) if q.is_cuda else N_SM
+    traced = kbuild.traced(q)
+    n_sm = _sm_count(q.device) if q.is_cuda and not traced else N_SM
     plan = kernel_plan(b, hq, hk, sq, sk, d, q.dtype, n_sm)
+    if traced:
+        return plan
     for name, x in (("q", q), ("k", k), ("v", v)):
         if not x.is_cuda:
             raise ValueError(f"flash_attention_cuda: {name} is on {x.device}, "
@@ -201,30 +251,56 @@ def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor, *,
     """
     kbuild.refuse_autograd("flash_attention_cuda", q=q, k=k, v=v)
     plan = _check(q, k, v, window)
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    out, lse = torch.ops.repro_torch.flash_attention_fwd(
+        q, k, v, bool(causal), None if window is None else int(window),
+        float(softcap), float(scale), plan["block_q"], bool(return_lse))
+    if not kbuild.traced(q):
+        flash_attention_cuda.last_plan = plan
+    return (out, lse) if return_lse else out
+
+
+@torch.library.custom_op("repro_torch::flash_attention_fwd", mutates_args=(),
+                         device_types="cuda")
+def _flash_fwd_op(q: Tensor, k: Tensor, v: Tensor, causal: bool,
+                  window: int | None, softcap: float, scale: float,
+                  block_q: int, return_lse: bool) -> tuple[Tensor, Tensor]:
+    """The forward kernel's launch (``flash_attention_cuda`` checks first);
+    lse is ``[0]`` unless asked for."""
     b, hq, sq, d = q.shape
     hk, sk = k.shape[1], k.shape[2]
-    scale = d ** -0.5 if scale is None else scale
     out = torch.empty_like(q)
-    lse = (torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
-           if return_lse else None)
+    lse = torch.empty((b, hq, sq) if return_lse else (0,),
+                      dtype=torch.float32, device=q.device)
     if out.numel() == 0:
-        return (out, lse) if return_lse else out
+        return out, lse
     lib = _library()
     with torch.cuda.device(q.device):
         err = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr() if return_lse else None,
             b, hq, hk, sq, sk, d, _DTYPES[q.dtype], int(causal),
-            -1 if window is None else int(window), float(softcap),
-            float(scale), plan["block_q"],
+            -1 if window is None else window, softcap, scale, block_q,
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_cuda: launch failed: "
                            f"{_launch_error(err)} (q {tuple(q.shape)}, k "
-                           f"{tuple(k.shape)}, {q.dtype}, plan {plan})")
+                           f"{tuple(k.shape)}, {q.dtype}, block_q {block_q})")
     flash_attention_cuda.launches += 1
-    flash_attention_cuda.last_plan = plan
-    return (out, lse) if return_lse else out
+    return out, lse
+
+
+@_flash_fwd_op.register_fake
+def _(q, k, v, causal, window, softcap, scale, block_q, return_lse):
+    b, hq, sq, _ = q.shape
+    return torch.empty_like(q), q.new_empty(
+        (b, hq, sq) if return_lse else (0,), dtype=torch.float32)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_fwd)
+def _flash_fwd_flops(q_shape, k_shape, v_shape, causal, window, *args,
+                     out_shape=None, **kwargs) -> int:
+    return flash_work(q_shape, k_shape, 2, causal, window)[0]
 
 
 flash_attention_cuda.launches = 0
@@ -351,8 +427,9 @@ def flash_attention_bwd_cuda(q: Tensor, k: Tensor, v: Tensor, o: Tensor,
     _check(q, k, v, window)
     b, hq, sq, d = q.shape
     hk, sk = k.shape[1], k.shape[2]
+    traced = kbuild.traced(q)
     plan = kernel_plan_bwd(b, hq, hk, sq, sk, d, q.dtype,
-                           _sm_count(q.device))
+                           N_SM if traced else _sm_count(q.device))
     for name, x in (("o", o), ("do", do)):
         if x.shape != q.shape or x.dtype != q.dtype:
             raise ValueError(f"flash_attention_bwd_cuda: {name} is "
@@ -363,11 +440,31 @@ def flash_attention_bwd_cuda(q: Tensor, k: Tensor, v: Tensor, o: Tensor,
                          f"{tuple(lse.shape)} {lse.dtype}, expected "
                          f"{(b, hq, sq)} torch.float32")
     for name, x in (("o", o), ("do", do), ("lse", lse)):
+        if traced:
+            break
         if x.device != q.device or not x.is_contiguous() or x.data_ptr() % 16:
             raise ValueError(f"flash_attention_bwd_cuda: {name} is not a "
                              f"contiguous, 16-byte aligned tensor on "
                              f"{q.device}")
     scale = d ** -0.5 if scale is None else scale
+    dq, dk, dv = torch.ops.repro_torch.flash_attention_bwd(
+        q, k, v, o, lse, do, bool(causal),
+        None if window is None else int(window), float(softcap), float(scale))
+    if not traced:
+        flash_attention_bwd_cuda.last_plan = plan
+    return dq, dk, dv
+
+
+@torch.library.custom_op("repro_torch::flash_attention_bwd", mutates_args=(),
+                         device_types="cuda")
+def _flash_bwd_op(q: Tensor, k: Tensor, v: Tensor, o: Tensor, lse: Tensor,
+                  do: Tensor, causal: bool, window: int | None,
+                  softcap: float, scale: float
+                  ) -> tuple[Tensor, Tensor, Tensor]:
+    """The backward's three launches (``flash_attention_bwd_cuda`` checks
+    first)."""
+    b, hq, sq, d = q.shape
+    hk, sk = k.shape[1], k.shape[2]
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
     if q.numel() == 0 or k.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
@@ -378,16 +475,25 @@ def flash_attention_bwd_cuda(q: Tensor, k: Tensor, v: Tensor, o: Tensor,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), b, hq, hk, sq, sk, d,
-            _DTYPES[q.dtype], int(causal), -1 if window is None else int(window),
-            float(softcap), float(scale),
-            torch.cuda.current_stream().cuda_stream)
+            _DTYPES[q.dtype], int(causal), -1 if window is None else window,
+            softcap, scale, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_bwd_cuda: launch failed: "
                            f"{_launch_error(err)} (q {tuple(q.shape)}, k "
-                           f"{tuple(k.shape)}, {q.dtype}, plan {plan})")
+                           f"{tuple(k.shape)}, {q.dtype})")
     flash_attention_bwd_cuda.launches += 1
-    flash_attention_bwd_cuda.last_plan = plan
     return dq, dk, dv
+
+
+@_flash_bwd_op.register_fake
+def _(q, k, v, o, lse, do, causal, window, softcap, scale):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_bwd)
+def _flash_bwd_flops(q_shape, k_shape, v_shape, o_shape, lse_shape, do_shape,
+                     causal, window, *args, out_shape=None, **kwargs) -> int:
+    return flash_bwd_work(q_shape, k_shape, 2, causal, window)[0]
 
 
 flash_attention_bwd_cuda.launches = 0
@@ -403,7 +509,7 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window, softcap: float, scale):
         kw = dict(causal=causal, window=window, softcap=softcap, scale=scale)
-        if q.is_cuda:
+        if q.device.type != "cpu":
             out, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
         else:
             out = ref.attention_ref(q, k, v, **kw)
@@ -415,6 +521,7 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
-        bwd = flash_attention_bwd_cuda if q.is_cuda else ref.attention_bwd_ref
+        bwd = (ref.attention_bwd_ref if q.device.type == "cpu"
+               else flash_attention_bwd_cuda)
         dq, dk, dv = bwd(q, k, v, out, lse, do.contiguous(), **ctx.kw)
         return dq, dk, dv, None, None, None, None

@@ -16,6 +16,11 @@ tensor launches the tensor-core phases or raises.
 autograd graph; it refuses to run where autograd would need a gradient.
 With ``return_state`` it also returns the f32 ``[B, H, P, N]`` state after
 the last step, which a prefill hands to the recurrent decode.
+The kernel is a ``torch.library`` custom op (``repro_torch::ssd_scan_fwd``)
+whose CUDA implementation launches the phases and whose fake
+implementation gives the outputs' shapes alone, so a meta or fake tensor
+traces the card's program without data; its FLOP formula (``ssd_work``,
+the count chip_smoke.py's bound uses) lets a counting mode read its work.
 ``SSDScan`` is the differentiable form: its forward launches the kernel, its
 backward recomputes the plain version (``ref.ssd_scan_ref``) from the saved
 inputs under autograd and differentiates that.  The JAX package has no
@@ -29,6 +34,7 @@ import math
 
 import torch
 from torch import Tensor
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build as kbuild
 from repro_torch.kernels import ref
@@ -44,6 +50,21 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the C entry point's codes besides cudaError_t
 _NO_ENCODER, _ENCODE_FAILED = 999, 1000
 PHASES = ("ssd_fwd_chunk_state", "ssd_fwd_state_pass", "ssd_fwd_chunk_scan")
+
+
+def ssd_work(x_shape, g: int, n: int, chunk: int,
+             dtype_bytes: int) -> tuple[int, int]:
+    """(operations, bytes) of one scan of x ``[b, s, h, p]`` with B/C of
+    ``g`` groups of ``n``: per (b, h) and chunk of q rows (a ragged last
+    chunk counts its own), q (q + 1) / 2 (N + P) multiply-adds for the
+    causal triangles of C.B^T and W x and 2 q P N for C h_in and the state
+    update; x, dt, B, C read once and y written once."""
+    b, s, h, p = x_shape
+    rows = [min(chunk, s - t) for t in range(0, s, chunk)]
+    macs = sum(q * (q + 1) // 2 * (n + p) + 2 * q * p * n for q in rows)
+    nbytes = (2 * b * s * h * p + 2 * b * s * g * n) * dtype_bytes \
+        + b * s * h * 4 + 2 * h * 4
+    return 2 * b * h * macs, nbytes
 
 
 def _padded(w: int) -> int:
@@ -191,6 +212,8 @@ def _check(x, dt, A, Bm, Cm, D, chunk) -> dict:
         raise ValueError(f"ssd_scan_cuda: {h} heads are not a multiple of "
                          f"{g} groups")
     plan = kernel_plan(b, s, h, p, g, n, chunk, x.dtype)
+    if kbuild.traced(x):
+        return plan
     named = (("x", x), ("dt", dt), ("A", A), ("Bm", Bm), ("Cm", Cm), ("D", D))
     for name, t in named:
         if not t.is_cuda:
@@ -232,14 +255,29 @@ def ssd_scan_cuda(x: Tensor, dt: Tensor, A: Tensor, Bm: Tensor, Cm: Tensor,
     """
     kbuild.refuse_autograd("ssd_scan_cuda", x=x, dt=dt, A=A, Bm=Bm, Cm=Cm, D=D)
     plan = _check(x, dt, A, Bm, Cm, D, chunk)
+    y, state = torch.ops.repro_torch.ssd_scan_fwd(
+        x, dt, A, Bm, Cm, D, int(chunk), plan["rows"], bool(return_state))
+    if not kbuild.traced(x):
+        ssd_scan_cuda.last_plan = plan
+    return (y, state) if return_state else y
+
+
+@torch.library.custom_op("repro_torch::ssd_scan_fwd", mutates_args=(),
+                         device_types="cuda")
+def _ssd_fwd_op(x: Tensor, dt: Tensor, A: Tensor, Bm: Tensor, Cm: Tensor,
+                D: Tensor, chunk: int, rows: int,
+                return_state: bool) -> tuple[Tensor, Tensor]:
+    """The scan's launch (``ssd_scan_cuda`` checks first); the state is
+    ``[0]`` unless asked for."""
     b, s, h, p = x.shape
     g, n = Bm.shape[2], Bm.shape[3]
     y = torch.empty((b, s, h, p), dtype=x.dtype, device=x.device)
-    state = (torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
-             if return_state else None)
+    state = torch.empty((b, h, p, n) if return_state else (0,),
+                        dtype=torch.float32, device=x.device)
     if y.numel() == 0:
-        return (y, state.zero_()) if return_state else y
+        return y, state.zero_()
     A, D = A.contiguous(), D.contiguous()
+    plan = kernel_plan(b, s, h, p, g, n, chunk, x.dtype)
     scratch = [torch.empty(shape, dtype=dtype, device=x.device)
                for shape, dtype in plan["scratch"].values()] or [None] * 3
     lib = _library()
@@ -249,7 +287,7 @@ def ssd_scan_cuda(x: Tensor, dt: Tensor, A: Tensor, Bm: Tensor, Cm: Tensor,
             Cm.data_ptr(), D.data_ptr(), y.data_ptr(),
             *(t.data_ptr() if t is not None else None for t in scratch),
             state.data_ptr() if return_state else None,
-            b, s, h, g, p, n, chunk, _DTYPES[x.dtype], plan["rows"],
+            b, s, h, g, p, n, chunk, _DTYPES[x.dtype], rows,
             *x.stride()[:3], *dt.stride(), *Bm.stride()[:3],
             *Cm.stride()[:3], torch.cuda.current_stream().cuda_stream)
     if err != 0:
@@ -264,8 +302,22 @@ def ssd_scan_cuda(x: Tensor, dt: Tensor, A: Tensor, Bm: Tensor, Cm: Tensor,
                            f"{tuple(x.shape)}, Bm {tuple(Bm.shape)}, "
                            f"{x.dtype}, chunk {chunk}, plan {plan})")
     ssd_scan_cuda.launches += 1
-    ssd_scan_cuda.last_plan = plan
-    return (y, state) if return_state else y
+    return y, state
+
+
+@_ssd_fwd_op.register_fake
+def _(x, dt, A, Bm, Cm, D, chunk, rows, return_state):
+    b, _, h, p = x.shape
+    n = Bm.shape[3]
+    return torch.empty_like(x, memory_format=torch.contiguous_format), \
+        x.new_empty((b, h, p, n) if return_state else (0,),
+                    dtype=torch.float32)
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_scan_fwd)
+def _ssd_fwd_flops(x_shape, dt_shape, A_shape, Bm_shape, Cm_shape, D_shape,
+                   chunk, *args, out_shape=None, **kwargs) -> int:
+    return ssd_work(x_shape, Bm_shape[2], Bm_shape[3], chunk, 2)[0]
 
 
 ssd_scan_cuda.launches = 0

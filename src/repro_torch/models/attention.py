@@ -18,10 +18,13 @@ has no impl knob).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import Tensor
 
 from repro_torch.dist import act_sharding, spmd
+from repro_torch.dist.act_sharding import merge_last, shard_act, split_last
 from repro_torch.dist.sharding import P
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import NEG
@@ -56,8 +59,8 @@ def sdpa(q, k, v, *, causal, window, softcap, scale):
 def project_q(params, cfg, x):
     """The query projection alone, head-split ``[B, S, Hq, Dh]`` (a decode
     step's cross-attention reads its keys and values from the cache)."""
-    B, S, _ = x.shape
-    q = (x @ params["wq"].to(x.dtype)).reshape(B, S, cfg.n_heads, cfg.d_head)
+    q = split_last(x @ layers.weight(params["wq"], x.dtype), cfg.n_heads,
+                   cfg.d_head)
     if cfg.qk_norm:
         q = layers.rms_norm(q, params["q_norm"], cfg.norm_eps)
     return q
@@ -68,12 +71,13 @@ def project_qkv(params, cfg, x, kv_x=None):
     Hk, Dh]`` from ``kv_x`` (the cross-attention source; default x)."""
     dt = x.dtype
     src = x if kv_x is None else kv_x
-    B, Skv, _ = src.shape
-    k = (src @ params["wk"].to(dt)).reshape(B, Skv, cfg.n_kv_heads, cfg.d_head)
-    v = (src @ params["wv"].to(dt)).reshape(B, Skv, cfg.n_kv_heads, cfg.d_head)
+    k, v = (split_last(src @ layers.weight(params[w], dt), cfg.n_kv_heads,
+                       cfg.d_head) for w in ("wk", "wv"))
     if cfg.qk_norm:
         k = layers.rms_norm(k, params["k_norm"], cfg.norm_eps)
-    return project_q(params, cfg, x), k, v
+    heads = ("batch", None, "model", None)
+    return (shard_act(project_q(params, cfg, x), heads), shard_act(k, heads),
+            shard_act(v, heads))
 
 
 def _rope(cfg, q, k, positions):
@@ -101,15 +105,14 @@ def attention(params: dict, cfg, x: Tensor, positions: Tensor | None = None,
     """Attention over the whole sequence (the trunk of ``lm_logits`` and of
     the encoder-decoder): self-attention, or cross-attention over ``kv_x``,
     which takes no rotation and no causal mask."""
-    B, S, _ = x.shape
     q, k, v = project_qkv(params, cfg, x, kv_x)
     if kv_x is None:
         q, k = _rope(cfg, q, k, positions)
     out = sdpa(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                causal=causal and kv_x is None, window=window,
                softcap=cfg.attn_softcap, scale=cfg.d_head ** -0.5)
-    out = out.transpose(1, 2).reshape(B, S, cfg.n_heads * cfg.d_head)
-    return out @ params["wo"].to(x.dtype)
+    out = merge_last(out.transpose(1, 2))
+    return out @ layers.weight(params["wo"], x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -119,18 +122,36 @@ def attention(params: dict, cfg, x: Tensor, positions: Tensor | None = None,
 def attention_prefill(params, cfg, x, positions, *, window=None):
     """Prefill: attention over the prompt, and this layer's ``(k, v)``
     ``[B, Hk, S, Dh]`` for the cache."""
-    B, S, _ = x.shape
     q, k, v = project_qkv(params, cfg, x)
     q, k = _rope(cfg, q, k, positions)
     kT, vT = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
     out = sdpa(q.transpose(1, 2), kT, vT, causal=True, window=window,
                softcap=cfg.attn_softcap, scale=cfg.d_head ** -0.5)
-    out = out.transpose(1, 2).reshape(B, S, cfg.n_heads * cfg.d_head)
-    return out @ params["wo"].to(x.dtype), (kT, vT)
+    out = merge_last(out.transpose(1, 2))
+    return out @ layers.weight(params["wo"], x.dtype), (kT, vT)
 
 
 def _write_rows(cache: Tensor, new: Tensor, at: Tensor, fits: Tensor) -> None:
-    """``cache[b, :, at[b]] = new[b, :, 0]`` where ``fits[b]``, in place."""
+    """``cache[b, :, at[b]] = new[b, :, 0]`` where ``fits[b]``, in place;
+    a ``DTensor`` cache (split over its batch and heads) on each rank's
+    block."""
+    if act_sharding.is_dtensor(cache):
+        from torch.distributed.tensor import Replicate, Shard
+        from torch.distributed.tensor.experimental import local_map
+
+        rows = tuple(Shard(0) if pl.is_shard(0) else Replicate()
+                     for pl in cache.placements)
+
+        def block(c, n, a, f):
+            _write_rows(c, n, a, f)
+            return c
+
+        local_map(block, out_placements=list(cache.placements),
+                  in_placements=(cache.placements, cache.placements, rows,
+                                 rows),
+                  device_mesh=cache.device_mesh,
+                  redistribute_inputs=True)(cache, new, at, fits)
+        return
     rows = torch.arange(cache.shape[0], device=cache.device)
     old = cache[rows, :, at]                                   # [B,Hk,Dh]
     cache[rows, :, at] = torch.where(fits[:, None, None],
@@ -166,20 +187,39 @@ def attention_decode(params: dict, cfg, x: Tensor, k_cache: Tensor,
             out = _decode_flash_lsharded(cfg, mesh, rules, q.transpose(1, 2),
                                          kT, vT, k_cache, v_cache, pos,
                                          window)
-            return out @ params["wo"].to(x.dtype), (k_cache, v_cache)
+            return (out @ layers.weight(params["wo"], x.dtype),
+                    (k_cache, v_cache))
 
     at, fits = pos.clamp(max=L - 1), pos < L
     _write_rows(k_cache, kT, at, fits)
     _write_rows(v_cache, vT, at, fits)
 
-    Hk = cfg.n_kv_heads
-    g = cfg.n_heads // Hk
-    qg = q.transpose(1, 2).reshape(B, Hk, g, 1, cfg.d_head).float()
-    s = torch.einsum("bhgqd,bhkd->bhgqk", qg, k_cache.float())
+    qT = q.transpose(1, 2)                                     # [B,Hq,1,Dh]
+    attend = functools.partial(_decode_attend, cfg, window=window)
+    if act_sharding.is_dtensor(qT):
+        out = ops.heads_local_map("attention_decode", attend, qT, k_cache,
+                                  v_cache, pos)
+    else:
+        out = attend(qT, k_cache, v_cache, pos)
+    out = merge_last(out.transpose(1, 2))
+    return out @ layers.weight(params["wo"], x.dtype), (k_cache, v_cache)
+
+
+def _decode_attend(cfg, q, k_cache, v_cache, pos, *, window=None):
+    """q ``[B, Hq, 1, Dh]`` over the caches' valid prefix (keys up to
+    ``pos[b]``) -> ``[B, Hq, 1, Dh]`` in q's dtype, in f32 inside.  On a
+    mesh it runs on each rank's block of whole batch rows and heads."""
+    B, L = q.shape[0], k_cache.shape[2]
+    Hk = k_cache.shape[1]
+    g = q.shape[1] // Hk
+    qg = q.reshape(B, Hk, g, 1, cfg.d_head).float()
+    # the reference's constraint; a rank's block already is that layout
+    s = shard_act(torch.einsum("bhgqd,bhkd->bhgqk", qg, k_cache.float()),
+                  ("batch", "model", None, None, None))
     s = s * (cfg.d_head ** -0.5)
     if cfg.attn_softcap > 0.0:
         s = cfg.attn_softcap * torch.tanh(s / cfg.attn_softcap)
-    col = torch.arange(L, device=x.device)[None, :]
+    col = torch.arange(L, device=q.device)[None, :]
     posb = pos[:, None]
     valid = col <= posb                                        # [B,L]
     if window is not None:
@@ -187,9 +227,7 @@ def attention_decode(params: dict, cfg, x: Tensor, k_cache: Tensor,
     s = s.masked_fill(~valid[:, None, None, None], NEG)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgqk,bhkd->bhgqd", p, v_cache.float())
-    out = out.reshape(B, Hk * g, 1, cfg.d_head).to(x.dtype)
-    out = out.transpose(1, 2).reshape(B, 1, cfg.n_heads * cfg.d_head)
-    return out @ params["wo"].to(x.dtype), (k_cache, v_cache)
+    return out.reshape(B, Hk * g, 1, cfg.d_head).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -263,4 +301,4 @@ def _decode_flash_lsharded(cfg, mesh, rules, q, kT, vT, k_cache, v_cache,
     )(q, kT, vT, k_cache, v_cache, pos)
     k_cache.copy_(kc)
     v_cache.copy_(vc)
-    return out.transpose(1, 2).reshape(B, 1, cfg.n_heads * cfg.d_head)
+    return merge_last(out.transpose(1, 2))

@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from torch import Tensor
 
 from repro_torch.core import resolve_device
+from repro_torch.dist.act_sharding import is_dtensor, merge_last, shard_act
 from repro_torch.models import attention as attn
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
@@ -81,17 +82,22 @@ def encode(params: dict, cfg: ModelConfig, frames: Tensor) -> Tensor:
     """frames ``[B, n_ctx, D]`` (stub embeddings) -> encoder states: each
     layer's attention is non-causal over all frames."""
     dt = cfg.compute_dtype
-    x = frames.to(dt) + params["enc_pos"][None, :frames.shape[1]].to(dt)
+    pos, n = params["enc_pos"], frames.shape[1]
+    rows = (layers.weight(pos, dt)[None, :n] if is_dtensor(pos)
+            else pos[None, :n].to(dt))
+    x = frames.to(dt) + rows
     for lp in _unstack(params["enc_layers"], cfg.encoder.n_layers):
         x = remat_call(cfg, _enc_layer, cfg, lp, x)
     return layers.rms_norm(x, params["enc_final_norm"], cfg.norm_eps)
 
 
 def _enc_layer(cfg, lp: dict, x: Tensor) -> Tensor:
+    x = shard_act(x, ("batch", "seq", None))
     h = layers.rms_norm(x, lp["norm1"], cfg.norm_eps)
-    x = x + attn.attention(lp["attn"], cfg, h, causal=False)
+    x = shard_act(x + attn.attention(lp["attn"], cfg, h, causal=False),
+                  ("batch", "seq", None))
     h = layers.rms_norm(x, lp["norm2"], cfg.norm_eps)
-    return x + layers.mlp(lp["mlp"], h)
+    return shard_act(x + layers.mlp(lp["mlp"], h), ("batch", "seq", None))
 
 
 def _embed_tokens(params, cfg, tokens: Tensor, positions: Tensor) -> Tensor:
@@ -99,7 +105,7 @@ def _embed_tokens(params, cfg, tokens: Tensor, positions: Tensor) -> Tensor:
     (prefill, shared by the batch) or ``[B, 1]`` (decode)."""
     dt = cfg.compute_dtype
     x = layers.embed(params["embed"], tokens, dt)
-    return x + params["dec_pos"][positions].to(dt)
+    return x + layers.embed(params["dec_pos"], positions, dt)
 
 
 def _dec_trunk(params, cfg, tokens: Tensor, enc_out: Tensor) -> Tensor:
@@ -113,12 +119,15 @@ def _dec_trunk(params, cfg, tokens: Tensor, enc_out: Tensor) -> Tensor:
 
 
 def _dec_layer(cfg, lp: dict, x: Tensor, enc_out: Tensor) -> Tensor:
+    x = shard_act(x, ("batch", "seq", None))
     h = layers.rms_norm(x, lp["norm1"], cfg.norm_eps)
-    x = x + attn.attention(lp["self_attn"], cfg, h, causal=True)
+    x = shard_act(x + attn.attention(lp["self_attn"], cfg, h, causal=True),
+                  ("batch", "seq", None))
     h = layers.rms_norm(x, lp["norm_x"], cfg.norm_eps)
-    x = x + attn.attention(lp["cross_attn"], cfg, h, kv_x=enc_out)
+    x = shard_act(x + attn.attention(lp["cross_attn"], cfg, h, kv_x=enc_out),
+                  ("batch", "seq", None))
     h = layers.rms_norm(x, lp["norm2"], cfg.norm_eps)
-    return x + layers.mlp(lp["mlp"], h)
+    return shard_act(x + layers.mlp(lp["mlp"], h), ("batch", "seq", None))
 
 
 def encdec_loss(params, cfg, frames: Tensor, tokens: Tensor,
@@ -152,11 +161,10 @@ def _cross(lp, cfg, q: Tensor, ckT: Tensor, cvT: Tensor) -> Tensor:
     """Cross-attention of the queries q ``[B, S, Hq, Dh]`` over the
     encoder's keys and values ``[B, Hk, n_ctx, Dh]``, through its output
     projection."""
-    B, S = q.shape[:2]
     o = attn.sdpa(q.transpose(1, 2), ckT, cvT, causal=False, window=None,
                   softcap=0.0, scale=cfg.d_head ** -0.5)
-    o = o.transpose(1, 2).reshape(B, S, cfg.n_heads * cfg.d_head)
-    return o @ lp["cross_attn"]["wo"].to(q.dtype)
+    o = merge_last(o.transpose(1, 2))
+    return o @ layers.weight(lp["cross_attn"]["wo"], q.dtype)
 
 
 def encdec_prefill(params, cfg, frames: Tensor, tokens: Tensor,

@@ -7,8 +7,9 @@ use, as in the reference.  Initialisation draws from an explicit
 ``torch.Generator`` on the device the parameters are made on; its numbers
 differ from ``jax.random``'s, so parity tests carry the reference's
 parameters across (``convert.params_from_arrays``).  The reference's
-``shard_act`` constraints are not placed yet: ``dist.shard_act`` exists,
-and its call sites come with the sharded train step.
+``shard_act`` constraints stand at their counterparts, and every weight is
+cast at its use through ``weight``, which also gathers an FSDP-sharded
+``DTensor`` over its data axes; outside a mesh both add no operation.
 """
 from __future__ import annotations
 
@@ -16,6 +17,9 @@ import torch
 import torch.nn.functional as F
 from torch import Tensor
 from torch._subclasses.fake_tensor import FakeTensor
+
+from repro_torch.dist import act_sharding
+from repro_torch.dist.act_sharding import shard_act
 
 
 def trunc_normal(generator: torch.Generator, shape, scale: float | None = None,
@@ -33,6 +37,12 @@ def trunc_normal(generator: torch.Generator, shape, scale: float | None = None,
         torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0,
                                     generator=generator)
     return x.mul_(std)
+
+
+def weight(p: Tensor, dt) -> Tensor:
+    """Parameter ``p`` in the compute dtype ``dt`` for one use: the cast,
+    then (a ``DTensor`` sharded over the FSDP axes) the gather over them."""
+    return act_sharding.gather_fsdp(p.to(dt))
 
 
 def rms_norm(x: Tensor, scale: Tensor, eps: float = 1e-6) -> Tensor:
@@ -106,9 +116,9 @@ def init_mlp(generator: torch.Generator, d_model: int, d_ff: int) -> dict:
 
 def mlp(params: dict, x: Tensor) -> Tensor:
     dt = x.dtype
-    g = x @ params["w_gate"].to(dt)
-    u = x @ params["w_up"].to(dt)
-    return (F.silu(g) * u) @ params["w_down"].to(dt)
+    g = shard_act(x @ weight(params["w_gate"], dt), ("batch", None, "model"))
+    u = shard_act(x @ weight(params["w_up"], dt), ("batch", None, "model"))
+    return (F.silu(g) * u) @ weight(params["w_down"], dt)
 
 
 # ---------------------------------------------------------------------------
@@ -122,7 +132,64 @@ def init_embed(generator: torch.Generator, vocab: int, d_model: int) -> Tensor:
 def embed(table: Tensor, tokens: Tensor, dtype) -> Tensor:
     # rows first, then the cast: the same values as the reference's
     # cast-then-gather, without casting the whole table
+    if act_sharding.is_dtensor(table):
+        return _embed_sharded(table, tokens, dtype)
     return table[tokens].to(dtype)
+
+
+def _embed_sharded(table, tokens, dtype):
+    """The lookup on a ``DTensor`` table, vocabulary-parallel (Megatron's):
+    the table keeps its rows split over the mesh dims that split the
+    vocabulary and is gathered over the others.  Where that gather moves
+    data it moves the table cast to the compute dtype, as the reference's
+    cast-then-gather does (and the gradient of a repeated token then adds
+    up in that dtype, as in the reference); where it moves nothing (a mesh
+    dim of one rank) the rows are cast after the lookup, as on one device.
+    Under ``local_map`` each rank takes the rows of its tokens that fall in
+    its slice, zeros for the others, and the rows are summed over the
+    vocabulary's ranks (one term is non-zero, so the sum is exact).  The
+    table's gradient stays on each rank's slice, partial over the mesh
+    dims that split the tokens."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.dist import spmd
+
+    mesh = table.device_mesh
+    if not act_sharding.is_dtensor(tokens):
+        tokens = DTensor.from_local(tokens, mesh, (Replicate(),) * mesh.ndim,
+                                    run_check=False)
+    vocab = [i for i, pl in enumerate(table.placements)
+             if pl.is_shard(0) and mesh.size(i) > 1]
+    wp = tuple(Shard(0) if i in vocab else Replicate()
+               for i in range(mesh.ndim))
+    tp = tuple(Replicate() if i in vocab else pl
+               for i, pl in enumerate(tokens.placements))
+    wg = tuple(Shard(0) if i in vocab else
+               (Partial() if pl.is_shard() else Replicate())
+               for i, pl in enumerate(tp))
+    if any(pl.is_shard() and i not in vocab and mesh.size(i) > 1
+           for i, pl in enumerate(table.placements)):
+        table = table.to(dtype)
+    table = table.redistribute(mesh, wp)
+    tokens = tokens.redistribute(mesh, tp)
+    names = tuple(mesh.mesh_dim_names[i] for i in vocab)
+    group = spmd.axis_group(mesh, names) if vocab else None
+    rows = table.shape[0] // spmd.axis_size(mesh, names)
+    first = spmd.axis_index(mesh, names) * rows if vocab else 0
+
+    def block(w, t):
+        if group is None:
+            return w[t].to(dtype)
+        at = t.long() - first
+        mine = (at >= 0) & (at < rows)
+        x = w[at.clamp(0, rows - 1)].to(dtype)
+        return spmd.sum_over(torch.where(mine[..., None], x, 0.0), group)
+
+    return local_map(block, out_placements=list(tp),
+                     in_placements=(wp, tp), in_grad_placements=(wg, tp),
+                     device_mesh=mesh, redistribute_inputs=False)(table,
+                                                                  tokens)
 
 
 def unembed(x: Tensor, table_or_head: Tensor, softcap: float = 0.0) -> Tensor:
@@ -131,7 +198,7 @@ def unembed(x: Tensor, table_or_head: Tensor, softcap: float = 0.0) -> Tensor:
     w = table_or_head
     if w.shape[0] != x.shape[-1]:
         w = w.T                                                      # tied [V,D]
-    logits = (x @ w.to(x.dtype)).float()
+    logits = (x @ weight(w, x.dtype)).float()
     if softcap > 0.0:
         logits = softcap * torch.tanh(logits / softcap)
     return logits

@@ -32,6 +32,7 @@ import torch.utils.checkpoint
 from torch import Tensor
 
 from repro_torch.core import resolve_device
+from repro_torch.dist.act_sharding import is_dtensor, shard_act
 from repro_torch.models import attention as attn
 from repro_torch.models import layers, moe, ssm
 from repro_torch.models.config import ModelConfig
@@ -163,6 +164,7 @@ def _mlp_block(cfg: ModelConfig, i: int, sub: dict, x: Tensor):
 def _apply_period(cfg: ModelConfig, pp: dict, x: Tensor, positions):
     """One period of the trunk: (x, the sum of its MoE balance losses)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    x = shard_act(x, ("batch", "seq", None))
     for i in range(cfg.period):
         sub = pp[f"sub{i}"]
         h = layers.rms_norm(x, sub["norm1"], cfg.norm_eps)
@@ -171,9 +173,14 @@ def _apply_period(cfg: ModelConfig, pp: dict, x: Tensor, positions):
                                window=cfg.layer_window(i))
         else:
             h = ssm.ssm_apply(sub["mixer"], cfg, h)
-        x, a = _mlp_block(cfg, i, sub, x + layers.remat_ckpt(h))
+        # the mixer's output is a partial sum over "model" (its output
+        # projection splits the contraction): reduced here, before the
+        # MLP's norm, which would otherwise run on the partial sums
+        x = shard_act(x + layers.remat_ckpt(h), ("batch", "seq", None))
+        x, a = _mlp_block(cfg, i, sub, x)
         if a is not None:
             aux = aux + a
+        x = shard_act(x, ("batch", "seq", None))
     return x, aux
 
 
@@ -195,7 +202,8 @@ def forward_hidden(params: dict, cfg: ModelConfig, tokens: Tensor,
                    ) -> tuple[Tensor, Tensor]:
     """Returns (final hidden ``[B, S, D]``, aux loss); the aux loss is the
     sum of the MoE layers' balance terms (zero without MoE layers)."""
-    x = _embed_inputs(params, cfg, tokens, frontend_embeds)
+    x = shard_act(_embed_inputs(params, cfg, tokens, frontend_embeds),
+                  ("batch", "seq", None))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for pp in _unstack(params["periods"], cfg.n_periods):
         x, a = remat_call(cfg, _apply_period, cfg, pp, x, positions,
@@ -212,25 +220,89 @@ def _unembed_table(params, cfg):
 def chunk_nll(hidden: Tensor, table: Tensor, labels: Tensor,
               softcap: float = 0.0) -> tuple[Tensor, Tensor]:
     """(sum of the cross-entropy over the labels ``>= 0``, their count) of
-    one chunk of positions: the f32 logits ``[B, C, V]`` live only here."""
-    logits = layers.unembed(hidden, table, softcap)
+    one chunk of positions: the f32 logits ``[B, C, V]`` live only here,
+    laid out over the batch and, on a mesh, the vocabulary over
+    ``"model"``."""
+    hidden = shard_act(hidden, ("batch", None, None))
+    logits = shard_act(layers.unembed(hidden, table, softcap),
+                       ("batch", None, "model"))
+    if is_dtensor(logits):
+        return _chunk_nll_sharded(logits, labels)
+    return _nll_sum(logits, labels)
+
+
+def _nll_sum(logits: Tensor, labels: Tensor) -> tuple[Tensor, Tensor]:
+    """(sum of the cross-entropy over the labels ``>= 0``, their count)
+    of whole rows of logits.  The sharded chunk runs these same operations
+    in this order where its rows hold the whole vocabulary: the order in
+    which the two uses of the logits are recorded decides the order in
+    which autograd adds their gradients."""
     mask = labels >= 0
     gold = logits.gather(-1, labels.clamp_min(0).long()[..., None])[..., 0]
     nll = torch.where(mask, torch.logsumexp(logits, -1) - gold, 0.0)
     return nll.sum(), mask.sum()
 
 
+def _chunk_nll_sharded(logits, labels):
+    """``chunk_nll`` of a ``DTensor`` chunk under ``local_map``: each rank
+    holds its batch rows and its slice of the vocabulary; the row maximum,
+    the sum of exponentials and the gold logit are reduced over the ranks
+    that split the vocabulary.  Returns the sum and the count, partial over
+    the mesh dims that split the rows."""
+    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.dist import spmd
+
+    mesh = logits.device_mesh
+    names = tuple(mesh.mesh_dim_names)
+    lp = tuple(logits.placements)
+    for i, pl in enumerate(lp):
+        if pl.is_partial() or (pl.is_shard() and pl.dim == 1):
+            raise ValueError(f"the loss chunk's logits are {lp}: a partial "
+                             "sum or split positions cannot run locally")
+    vocab = [names[i] for i, pl in enumerate(lp)
+             if pl.is_shard(2) and mesh.size(i) > 1]
+    rows = tuple(Shard(0) if pl.is_shard(0) else Replicate() for pl in lp)
+    out = tuple(Partial() if pl.is_shard(0) else Replicate() for pl in lp)
+    group = spmd.axis_group(mesh, tuple(vocab)) if vocab else None
+    split = spmd.axis_size(mesh, tuple(vocab)) if vocab else 1
+    first = (spmd.axis_index(mesh, tuple(vocab)) * (logits.shape[-1] // split)
+             if vocab else 0)
+
+    def block(lg, lab):
+        if group is None:
+            return _nll_sum(lg, lab)
+        mask = lab >= 0
+        m = funcol.wait_tensor(funcol.all_reduce(
+            lg.detach().amax(-1), "max", group))
+        logz = spmd.sum_over(
+            (lg - m[..., None]).exp().sum(-1), group).log() + m
+        at = lab.long() - first
+        mine = (at >= 0) & (at < lg.shape[-1])
+        g = lg.gather(-1, at.clamp(0, lg.shape[-1] - 1)[..., None])[..., 0]
+        gold = spmd.sum_over(torch.where(mine, g, 0.0), group)
+        nll = torch.where(mask, logz - gold, 0.0)
+        return nll.sum(), mask.sum()
+
+    return local_map(block, out_placements=(out, out),
+                     in_placements=(lp, rows), in_grad_placements=(lp, rows),
+                     device_mesh=mesh, redistribute_inputs=True)(logits,
+                                                                 labels)
+
+
 def chunked_loss(cfg: ModelConfig, hidden: Tensor, table: Tensor,
                  labels: Tensor, softcap: float = 0.0) -> Tensor:
     """Mean cross-entropy over the labels ``>= 0``, ``LOSS_CHUNK``
     positions at a time, each chunk through ``remat_call``."""
-    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
-    cnt = torch.zeros((), dtype=torch.int64, device=hidden.device)
+    tot = cnt = None
     for s0 in range(0, hidden.shape[1], LOSS_CHUNK):
         t, c = remat_call(cfg, chunk_nll, hidden[:, s0:s0 + LOSS_CHUNK],
                           table, labels[:, s0:s0 + LOSS_CHUNK], softcap)
-        tot = tot + t
-        cnt = cnt + c
+        tot, cnt = (t, c) if tot is None else (tot + t, cnt + c)
+    if tot is None:
+        return torch.zeros((), dtype=torch.float32, device=hidden.device)
     return tot / cnt.clamp_min(1)
 
 
@@ -302,7 +374,10 @@ def decode_step(params: dict, cfg: ModelConfig, caches: dict, token: Tensor,
                     sub["mixer"], cfg, h, cache["conv"], cache["state"])
                 cache["conv"].copy_(conv_s)
                 cache["state"].copy_(ssm_s)
-            x, _ = _mlp_block(cfg, i, sub, x + h)
+            # as in _apply_period: the residual laid out over the batch
+            x = shard_act(x + h, ("batch", "seq", None))
+            x, _ = _mlp_block(cfg, i, sub, x)
+            x = shard_act(x, ("batch", "seq", None))
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = layers.unembed(x[:, 0], _unembed_table(params, cfg),
                             cfg.final_softcap)
@@ -334,7 +409,10 @@ def prefill(params: dict, cfg: ModelConfig, tokens: Tensor, max_len: int,
             else:
                 h, conv_s, ssm_s = ssm.ssm_prefill(sub["mixer"], cfg, h)
                 cache_out[f"sub{i}"] = {"conv": conv_s, "state": ssm_s}
-            x, _ = _mlp_block(cfg, i, sub, x + h)
+            # as in _apply_period: the residual laid out over the batch
+            x = shard_act(x + h, ("batch", "seq", None))
+            x, _ = _mlp_block(cfg, i, sub, x)
+            x = shard_act(x, ("batch", "seq", None))
         per_period.append(cache_out)
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = layers.unembed(x[:, -1], _unembed_table(params, cfg),

@@ -167,7 +167,7 @@ def _moe_shard_map(params: dict, cfg, x: Tensor, state
     mesh, rules, seq_par = state
     _moe_shard_map.schedule = "local"
     if rules.tp is None:                   # fsdp strategy: no EP columns
-        return _moe_local(params, cfg, x)
+        return _moe_whole(params, cfg, x, mesh)
     m = cfg.moe
     tp, batch_axes = rules.tp, rules.batch
     ntp = spmd.axis_size(mesh, tp)
@@ -175,7 +175,7 @@ def _moe_shard_map(params: dict, cfg, x: Tensor, state
     B, S, D = x.shape
     E, K = m.n_experts, m.top_k
     if E % ntp != 0 or B % ndp != 0:
-        return _moe_local(params, cfg, x)
+        return _moe_whole(params, cfg, x, mesh)
     E_loc = E // ntp
     T_loc = (B // ndp) * S
     C_d = _capacity(T_loc, E, K, m.capacity_factor)
@@ -219,6 +219,24 @@ def _moe_shard_map(params: dict, cfg, x: Tensor, state
 
 
 _moe_shard_map.schedule = None    # the last call's: its schedule or "local"
+
+
+def _moe_whole(params: dict, cfg, x: Tensor, mesh) -> tuple[Tensor, Tensor]:
+    """The local path where expert parallelism does not apply: on
+    ``DTensor``s (the sharded train step) each rank runs every expert over
+    every token, from replicated inputs, through ``spmd.shard_map``."""
+    if not act_sharding.is_dtensor(x):
+        return _moe_local(params, cfg, x)
+    keys = ("router", "w_gate", "w_up", "w_down")
+
+    def whole(x_, *weights):
+        return _moe_local(dict(zip(keys, weights)), cfg, x_)
+
+    return spmd.shard_map(
+        whole, mesh, in_specs=(P(None, None, None), P(None, None),
+                               *(P(None, None, None),) * 3),
+        out_specs=(P(None, None, None), P()),
+    )(x, *(params[k] for k in keys))
 
 
 def moe_apply(params: dict, cfg, x: Tensor) -> tuple[Tensor, Tensor]:

@@ -19,6 +19,8 @@ import torch
 import torch.nn.functional as F
 from torch import Tensor
 
+from repro_torch.dist.act_sharding import (
+    is_dtensor, merge_last, shard_act, split_last)
 from repro_torch.kernels import ops
 from repro_torch.models import layers
 
@@ -54,10 +56,13 @@ def init_ssm(generator: torch.Generator, cfg) -> dict:
 
 
 def _project(params: dict, x: Tensor):
-    """Separate projections -> (z, x, B, C, dt_raw)."""
+    """Separate projections -> (z, x, B, C, dt_raw); all but dt_raw laid
+    out with their channels over ``"model"``."""
     dt_ = x.dtype
-    return tuple(x @ params[k].to(dt_)
-                 for k in ("w_z", "w_x", "w_B", "w_C", "w_dt"))
+    z, xs, bs, cs, dt_raw = (x @ layers.weight(params[k], dt_)
+                             for k in ("w_z", "w_x", "w_B", "w_C", "w_dt"))
+    return (*(shard_act(t, ("batch", None, "model")) for t in (z, xs, bs, cs)),
+            dt_raw)
 
 
 def _causal_conv(xbc: Tensor, w: Tensor, b: Tensor) -> Tensor:
@@ -88,23 +93,22 @@ def _ssd_inputs(params, cfg, x):
     (z, raw (x, B, C), (xh, dt, A, Bh, Ch))."""
     s, di, H = _dims(cfg)
     G, N, P = s.n_groups, s.d_state, s.head_dim
-    B, S, _ = x.shape
+    S = x.shape[1]
     z, xs_raw, bs_raw, cs_raw, dt_raw = _project(params, x)
     xs, bs, cs = _causal_conv_parts(cfg, params, xs_raw, bs_raw, cs_raw)
     dt = F.softplus(dt_raw.float() + params["dt_bias"][None, None])  # [B,S,H]
-    A = -torch.exp(params["A_log"])                                  # [H] < 0
+    A = -torch.exp(params["A_log"].float())                          # [H] < 0
     pad = (-S) % s.chunk
     if pad:                                   # dt = 0: identity steps
         xs, bs, cs, dt = (F.pad(t, (0, 0, 0, pad)) for t in (xs, bs, cs, dt))
-    Sp = S + pad
-    inputs = (xs.reshape(B, Sp, H, P), dt, A, bs.reshape(B, Sp, G, N),
-              cs.reshape(B, Sp, G, N))
+    inputs = (split_last(xs, H, P), dt, A, split_last(bs, G, N),
+              split_last(cs, G, N))
     return z, (xs_raw, bs_raw, cs_raw), inputs
 
 
 def _gate_out(params, cfg, y, z, dt_):
     y = layers.rms_norm(y * F.silu(z), params["norm"], cfg.norm_eps)
-    return y @ params["out_proj"].to(dt_)
+    return y @ layers.weight(params["out_proj"], dt_)
 
 
 def ssm_apply(params: dict, cfg, x: Tensor) -> Tensor:
@@ -115,11 +119,10 @@ def ssm_apply(params: dict, cfg, x: Tensor) -> Tensor:
     ``chunk = min(chunk, S)`` instead and refuses a ragged S.  The results
     agree: padded steps are identities.
     """
-    _, di, _ = _dims(cfg)
-    B, S, _ = x.shape
+    S = x.shape[1]
     z, _, inputs = _ssd_inputs(params, cfg, x)
-    y = ops.ssd_scan(*inputs, params["D"], chunk=cfg.ssm.chunk)
-    return _gate_out(params, cfg, y[:, :S].reshape(B, S, di), z, x.dtype)
+    y = ops.ssd_scan(*inputs, params["D"].float(), chunk=cfg.ssm.chunk)
+    return _gate_out(params, cfg, merge_last(y[:, :S]), z, x.dtype)
 
 
 def ssm_prefill(params: dict, cfg, x: Tensor):
@@ -128,12 +131,12 @@ def ssm_prefill(params: dict, cfg, x: Tensor):
     routes through ``ops.ssd_scan`` with the state, so a CUDA tensor
     launches the kernel.  The inputs are padded to whole chunks with
     ``dt = 0``, which leaves the state at S."""
-    s, di, _ = _dims(cfg)
-    B, S, _ = x.shape
+    s = cfg.ssm
+    S = x.shape[1]
     z, raw, inputs = _ssd_inputs(params, cfg, x)
-    y, h_final = ops.ssd_scan(*inputs, params["D"], chunk=s.chunk,
+    y, h_final = ops.ssd_scan(*inputs, params["D"].float(), chunk=s.chunk,
                               return_state=True)
-    out = _gate_out(params, cfg, y[:, :S].reshape(B, S, di), z, x.dtype)
+    out = _gate_out(params, cfg, merge_last(y[:, :S]), z, x.dtype)
     # conv tail: the last W-1 *pre-activation* conv inputs (x|B|C)
     W = s.conv_width
     xbc_raw = torch.cat(raw, dim=-1)
@@ -183,11 +186,48 @@ def ssm_decode(params: dict, cfg, x: Tensor, conv_state: Tensor,
     bh = bs.reshape(B, G, N).repeat_interleave(H // G, dim=1).float()
     ch = cs.reshape(B, G, N).repeat_interleave(H // G, dim=1).float()
 
-    decay = torch.exp(dt * A)[..., None, None]                # [B,H,1,1]
-    upd = (dt[..., None, None] * xh[..., None]) * bh[:, :, None, :]
-    new_ssm = decay * ssm_state + upd                         # [B,H,P,N]
-    y = torch.einsum("bhpn,bhn->bhp", new_ssm, ch)
+    args = (xh, bh, ch, dt, A, ssm_state)
+    if is_dtensor(ssm_state):
+        y, new_ssm = _recur_local_map(*args)
+    else:
+        y, new_ssm = _recur(*args)
     y = y + params["D"][None, :, None] * xh
     y = y.reshape(B, 1, di).to(dt_)
     return _gate_out(params, cfg, y, z[:, None], dt_), new_conv_state, new_ssm
+
+
+def _recur(xh, bh, ch, dt, A, state):
+    """The recurrence of one token: the state ``[B, H, P, N]`` decayed and
+    updated, and what ``y [B, H, P]`` reads of it."""
+    decay = torch.exp(dt * A)[..., None, None]                # [B,H,1,1]
+    upd = (dt[..., None, None] * xh[..., None]) * bh[:, :, None, :]
+    new_ssm = decay * state + upd                             # [B,H,P,N]
+    return torch.einsum("bhpn,bhn->bhp", new_ssm, ch), new_ssm
+
+
+def _recur_local_map(xh, bh, ch, dt, A, state):
+    """``_recur`` on each rank's block of a ``DTensor`` state, laid out as
+    its cache placement (any of its four dims split); the other inputs are
+    redistributed to that layout (they are one token's rows).  Where the
+    state splits N, each rank's read is a partial sum over those ranks."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    sp = tuple(state.placements)
+    if any(pl.is_partial() for pl in sp):
+        raise ValueError(f"ssm_decode: the state is a partial sum {sp}")
+
+    def like(dims: tuple) -> tuple:
+        """The state's layout on a tensor whose dims are ``dims`` of it."""
+        return tuple(Shard(dims.index(pl.dim)) if pl.is_shard()
+                     and pl.dim in dims else Replicate() for pl in sp)
+
+    xp, bp, rows, heads = like((0, 1, 2)), like((0, 1, 3)), like((0, 1)), \
+        like((1,))
+    yp = tuple(Partial() if pl.is_shard(3) else p for pl, p in zip(sp, xp))
+    return local_map(
+        _recur, out_placements=(yp, sp),
+        in_placements=(xp, bp, bp, rows, heads, sp),
+        device_mesh=state.device_mesh, redistribute_inputs=True)(
+            xh, bh, ch, dt, A, state)
 

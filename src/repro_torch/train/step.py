@@ -12,22 +12,32 @@ update per step.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any
 
 import torch
 from torch import Tensor
 
 from repro_torch import tree
+from repro_torch.dist.act_sharding import is_dtensor
 from repro_torch.train.optimizer import OptConfig, adamw_init, adamw_update
 
 
 def _split_mb(batch: dict, m: int) -> list[dict]:
-    """``m`` slices of the batch axis (``positions [3, B, S]``: axis 1)."""
+    """``m`` slices of the batch axis (``positions [3, B, S]``: axis 1); a
+    ``DTensor``'s slices keep its placements."""
     def split(k, x):
         axis = 1 if k == "positions" and x.dim() == 3 else 0
-        b = x.shape[axis]
-        if b % m:
-            raise ValueError(f"batch {b} not divisible by microbatches {m}")
+        if x.shape[axis] % m:
+            raise ValueError(f"batch {x.shape[axis]} not divisible by "
+                             f"microbatches {m}")
+        if is_dtensor(x):
+            from torch.distributed.tensor import Replicate
+
+            mesh = x.device_mesh
+            whole = x.redistribute(mesh, (Replicate(),) * mesh.ndim)
+            return [part.redistribute(mesh, x.placements)
+                    for part in whole.chunk(m, dim=axis)]
         return x.chunk(m, dim=axis)
 
     parts = {k: split(k, v) for k, v in batch.items()}
@@ -48,28 +58,64 @@ def value_and_grad(model, params: Any, batch: dict) -> tuple[Tensor, Any]:
     return loss.detach(), tree.map_with_path(lambda p, _: by_path[p], params)
 
 
-def make_train_step(model, opt_cfg: OptConfig, microbatches: int = 1):
+def make_train_step(model, opt_cfg: OptConfig, microbatches: int = 1,
+                    param_shardings: Any = None):
+    """The step.  ``param_shardings`` is the tree of ``DTensor`` placement
+    tuples of the parameters (``dist.named(mesh, param_pspec_tree(...))``):
+    each microbatch's gradients and the f32 accumulator are redistributed
+    to it, the reference's ``with_sharding_constraint``, so AdamW reads
+    gradients laid out as their parameters.  None constrains nothing, as
+    in the reference."""
+    def constrain(grads):
+        if param_shardings is None:
+            return grads
+        return tree.map_tree(_place, grads, param_shardings)
+
     def train_step(params, opt_state, batch: dict[str, Any]):
-        if microbatches == 1:
-            loss, grads = value_and_grad(model, params, batch)
-        else:
-            device = tree.leaves(params)[0].device
-            loss = torch.zeros((), dtype=torch.float32, device=device)
-            grads = tree.map_tree(
-                lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                      device=p.device), params)
-            for mb in _split_mb(batch, microbatches):
-                l, g = value_and_grad(model, params, mb)
-                loss = loss + l
-                grads = tree.map_tree(torch.add, grads, g)
-            loss = loss / microbatches
-            grads = tree.map_tree(lambda g: g / microbatches, grads)
-        params, opt_state, metrics = adamw_update(grads, opt_state, params,
-                                                  opt_cfg)
+        sharded = is_dtensor(tree.leaves(params)[0])
+        if param_shardings is not None and not sharded:
+            raise ValueError("param_shardings needs DTensor parameters")
+        with _replicating(sharded):
+            if microbatches == 1:
+                loss, grads = value_and_grad(model, params, batch)
+                grads = constrain(grads)
+            else:
+                device = tree.leaves(params)[0].device
+                loss = torch.zeros((), dtype=torch.float32, device=device)
+                grads = constrain(tree.map_tree(
+                    lambda p: torch.zeros_like(p, dtype=torch.float32),
+                    params))
+                for mb in _split_mb(batch, microbatches):
+                    l, g = value_and_grad(model, params, mb)
+                    loss = loss + l
+                    grads = constrain(tree.map_tree(torch.add, grads,
+                                                    constrain(g)))
+                loss = loss / microbatches
+                grads = tree.map_tree(lambda g: g / microbatches, grads)
+            params, opt_state, metrics = adamw_update(grads, opt_state,
+                                                      params, opt_cfg)
         metrics["loss"] = loss
         return params, opt_state, metrics
 
     return train_step
+
+
+def _place(x, placements):
+    """``x`` redistributed to ``placements`` (a plain tensor unchanged)."""
+    if not is_dtensor(x) or tuple(x.placements) == tuple(placements):
+        return x
+    return x.redistribute(x.device_mesh, tuple(placements))
+
+
+def _replicating(sharded: bool):
+    """Plain tensors among ``DTensor``s (scalars of the schedule, position
+    tables built from shapes) taken as replicated values while a sharded
+    step runs; nothing otherwise."""
+    if not sharded:
+        return contextlib.nullcontext()
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    return implicit_replication()
 
 
 def init_train_state(model, generator: torch.Generator, opt_cfg: OptConfig):

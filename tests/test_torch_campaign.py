@@ -20,6 +20,7 @@ from repro_torch.core import (
     SumReducer, run_campaign, scenarios, simulate, stack_scenarios)
 from repro_torch.core.campaign import _chunk
 from test_torch_engine import assert_bitwise, assert_results_match
+from torch_ref_guard import revive_reference_inf  # noqa: F401
 
 pytestmark = pytest.mark.tier1
 

@@ -34,6 +34,7 @@ from repro_torch.dist import (
 from repro_torch.dist.sharding import spec_leaves
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models import DECODE_32K, TRAIN_4K, build_model
+from torch_ref_guard import revive_reference_inf  # noqa: F401
 
 pytestmark = pytest.mark.tier1
 

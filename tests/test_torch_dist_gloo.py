@@ -39,6 +39,7 @@ from repro.core import stack_scenarios as jax_stack_scenarios
 from repro.dist import sharding as jax_sharding
 from repro.models import build_model as jax_build_model
 from repro.models import moe as jax_moe
+from torch_ref_guard import revive_reference_inf  # noqa: F401
 
 pytestmark = pytest.mark.tier1
 

@@ -25,6 +25,7 @@ from repro_torch.configs import get_config
 from repro_torch.launch import elastic
 from repro_torch.launch.elastic import ElasticRunner, plan_restart
 from repro_torch.launch.train import InjectedFailure
+from torch_ref_guard import revive_reference_inf  # noqa: F401
 
 pytestmark = pytest.mark.tier1
 

@@ -28,6 +28,7 @@ from repro.models import encdec as jax_encdec
 from repro_torch import tree
 from repro_torch.models import build_model, encdec, lm
 from repro_torch.train.step import value_and_grad
+from torch_ref_guard import revive_reference_inf  # noqa: F401
 
 pytestmark = pytest.mark.tier1
 

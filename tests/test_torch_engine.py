@@ -32,6 +32,7 @@ from repro_torch.convert import result_to_numpy, scenario_from_arrays
 from repro_torch.core import (
     UtilizationTimelineInstrument, broadcast_campaign, scenarios, simulate,
     simulate_instrumented, stack_scenarios)
+from torch_ref_guard import revive_reference_inf  # noqa: F401
 
 pytestmark = pytest.mark.tier1
 
@@ -193,7 +194,7 @@ def test_port_never_imports_jax():
     """The port runs end to end without JAX or the JAX package loaded: a
     simulation, a trace, a reliability scenario drawn from a torch seed, a
     streamed staging campaign with a reducer, a random search, a smoke
-    prefill and a smoke train step."""
+    prefill and a smoke train step; the dry-run's modules import too."""
     src = str(Path(__file__).resolve().parents[1] / "src")
     code = (
         "import sys\n"
@@ -232,6 +233,7 @@ def test_port_never_imports_jax():
         "    get_config('mamba2-130m', smoke=True), steps=1, global_batch=2,\n"
         "    seq_len=16, log_every=0, device='cpu')\n"
         "assert out['steps_run'] == 1 and out['losses'][0] == out['losses'][0]\n"
+        "import repro_torch.analysis, repro_torch.launch.dryrun\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"

@@ -17,6 +17,7 @@ from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention_pallas
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops, ref
+from torch_ref_guard import revive_reference_inf  # noqa: F401
 
 pytestmark = pytest.mark.tier1
 

@@ -21,6 +21,7 @@ import torch
 from repro.models.attention import flash_xla
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops, ref
+from torch_ref_guard import revive_reference_inf  # noqa: F401
 
 pytestmark = pytest.mark.tier1
 

@@ -18,6 +18,7 @@ from repro.core import simulate_history as jax_simulate_history
 from repro_torch.convert import result_to_numpy, scenario_from_arrays
 from repro_torch.core import simulate, simulate_history, stack_scenarios
 from test_torch_engine import PARITY
+from torch_ref_guard import revive_reference_inf  # noqa: F401
 
 pytestmark = pytest.mark.tier1
 

@@ -25,6 +25,7 @@ from repro.core import SPACE_SHARED
 from repro.models import build_model as jax_build_model
 from repro.serving import ServingEngine as JaxServingEngine
 from repro_torch.serving import ServingEngine
+from torch_ref_guard import revive_reference_inf  # noqa: F401
 
 pytestmark = pytest.mark.tier1
 

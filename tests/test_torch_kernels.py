@@ -15,6 +15,7 @@ import torch
 from repro.kernels import ref as jref
 from repro.kernels.vm_update import advance_sweep_pallas
 from repro_torch.kernels import ops, ref, vm_update
+from torch_ref_guard import revive_reference_inf  # noqa: F401
 
 pytestmark = pytest.mark.tier1
 

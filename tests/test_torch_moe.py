@@ -35,6 +35,7 @@ from repro_torch.configs import get_config
 from repro_torch.convert import params_from_arrays
 from repro_torch.models import lm, moe
 from repro_torch.serving import ServingEngine
+from torch_ref_guard import revive_reference_inf  # noqa: F401
 
 pytestmark = pytest.mark.tier1
 

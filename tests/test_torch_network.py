@@ -31,6 +31,7 @@ from repro_torch.core import (
     Topology, energy, scenarios, simulate, simulate_history, simulate_trace,
     stack_scenarios, step)
 from test_torch_engine import assert_bitwise, assert_results_match
+from torch_ref_guard import revive_reference_inf  # noqa: F401
 
 pytestmark = pytest.mark.tier1
 

@@ -27,6 +27,7 @@ from repro.core import stack_scenarios as jax_stack
 from repro_torch.convert import scenario_from_arrays
 from repro_torch.core import reducers as pred
 from repro_torch.core import run_campaign, stack_scenarios
+from torch_ref_guard import revive_reference_inf  # noqa: F401
 
 pytestmark = pytest.mark.tier1
 

@@ -35,6 +35,7 @@ from repro_torch.convert import scenario_from_arrays
 from repro_torch.core import (
     broadcast_campaign, scenarios, simulate, stack_scenarios, workload)
 from test_torch_engine import assert_bitwise, assert_results_match
+from torch_ref_guard import revive_reference_inf  # noqa: F401
 
 pytestmark = pytest.mark.tier1
 

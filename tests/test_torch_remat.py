@@ -23,6 +23,7 @@ from repro.models import build_model as jax_build_model
 from repro_torch import tree
 from repro_torch.models import build_model, layers, lm
 from repro_torch.train.step import value_and_grad
+from torch_ref_guard import revive_reference_inf  # noqa: F401
 
 pytestmark = pytest.mark.tier1
 

@@ -22,6 +22,7 @@ from repro.core import simulate as jax_simulate
 from repro_torch.convert import scenario_from_arrays
 from repro_torch.core import run_campaign, search
 from test_torch_engine import assert_bitwise
+from torch_ref_guard import revive_reference_inf  # noqa: F401
 
 pytestmark = pytest.mark.tier1
 

@@ -12,6 +12,7 @@ import torch
 
 from repro.core import segments as jseg
 from repro_torch.core import segments
+from torch_ref_guard import revive_reference_inf  # noqa: F401
 
 pytestmark = pytest.mark.tier1
 

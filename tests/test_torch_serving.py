@@ -38,6 +38,7 @@ from repro_torch.convert import params_from_arrays, scenario_from_arrays
 from repro_torch.models import build_model, lm
 from repro_torch.serving import (
     Request, ServingEngine, capacity, choose_policy, queue_scenario)
+from torch_ref_guard import revive_reference_inf  # noqa: F401
 
 pytestmark = pytest.mark.tier1
 

@@ -19,6 +19,7 @@ from repro.kernels import ref as jref
 from repro.kernels.ssd_scan import ssd_scan_pallas
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import ssd_scan as ssd
+from torch_ref_guard import revive_reference_inf  # noqa: F401
 
 pytestmark = pytest.mark.tier1
 

@@ -34,6 +34,7 @@ from repro_torch.core import (
     simulate_trace, stack_scenarios, step)
 from test_torch_engine import (
     assert_bitwise, assert_outputs_match, assert_results_match)
+from torch_ref_guard import revive_reference_inf  # noqa: F401
 
 pytestmark = pytest.mark.tier1
 

@@ -36,6 +36,7 @@ from repro_torch.models import build_model, lm
 from repro_torch.train import OptConfig, adamw_init, adamw_update
 from repro_torch.train import make_train_step
 from repro_torch.train.step import value_and_grad
+from torch_ref_guard import revive_reference_inf  # noqa: F401
 
 pytestmark = pytest.mark.tier1
 

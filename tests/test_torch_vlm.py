@@ -28,6 +28,7 @@ from repro.models import layers as jax_layers
 from repro.models import lm as jax_lm
 from repro_torch.models import layers, lm
 from repro_torch.train.step import value_and_grad
+from torch_ref_guard import revive_reference_inf  # noqa: F401
 
 pytestmark = pytest.mark.tier1
 

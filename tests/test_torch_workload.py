@@ -21,6 +21,7 @@ from repro_torch.convert import scenario_from_arrays
 from repro_torch.core import INF, scenarios, simulate, stack_scenarios
 from repro_torch.core import workload
 from test_torch_engine import assert_bitwise, assert_results_match
+from torch_ref_guard import revive_reference_inf  # noqa: F401
 
 pytestmark = pytest.mark.tier1
 
