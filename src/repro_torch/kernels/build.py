@@ -26,7 +26,6 @@ import time
 from pathlib import Path
 
 import torch
-from torch._subclasses.fake_tensor import FakeTensor
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -122,9 +121,16 @@ def refuse_autograd(name: str, **tensors: torch.Tensor) -> None:
             "differentiable form")
 
 
-def traced(t: torch.Tensor) -> bool:
-    """Whether ``t`` is a ``FakeTensor``: a shape and no data.  A kernel's
-    wrapper checks the shapes of such a tensor and calls its op, whose
-    fake implementation gives the outputs' shapes; nothing is launched or
-    counted."""
-    return isinstance(t, FakeTensor)
+# the kernels' ops (``repro_torch::*``), defined by the kernel modules
+_OPS = torch.library.Library("repro_torch", "FRAGMENT")
+
+
+def define_op(schema: str, body) -> None:
+    """The op ``repro_torch::<schema>`` with ``body`` as its CPU and CUDA
+    kernel: ``torch.library``'s ``define`` and ``impl``, one dispatcher hop
+    a call, without ``custom_op``'s Python wrapper around it (a few times
+    the hop's cost).  A meta or fake tensor reaches the fake implementation
+    the module registers (``torch.library.register_fake``) instead."""
+    _OPS.define(schema)
+    for key in ("CPU", "CUDA"):
+        _OPS.impl(schema.split("(", 1)[0], body, key)

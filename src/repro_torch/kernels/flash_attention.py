@@ -25,18 +25,20 @@ on the tensor cores (``"wgmma"``: TMA into a two-stage shared-memory ring,
 ``wgmma`` for every product, P and dS from registers), f32 on the CUDA
 cores (``"cuda_cores"``).
 
-Each kernel is a ``torch.library`` custom op
+Each kernel is a ``torch.library`` op
 (``repro_torch::flash_attention_fwd``, ``repro_torch::flash_attention_bwd``)
-whose CUDA implementation launches it and whose fake implementation gives
-the outputs' shapes alone, so a meta or fake tensor traces the card's
-program without data (``launch/dryrun.py``); a FLOP formula registered for
-each (``flash_flops``, ``flash_bwd_flops``: the count chip_smoke.py's bounds
-use) lets a counting mode read the kernel's work.
+whose body plans, checks devices and layout, and launches it; its fake
+implementation plans (refusing what the card would) and gives the outputs'
+shapes alone, so a meta tensor traces the card's program without data
+(``launch/dryrun.py``).  A FLOP formula registered for each
+(``flash_work``, ``flash_bwd_work``: the count chip_smoke.py's bounds use)
+lets a counting mode read the kernel's work.
 
-The wrappers take CUDA tensors only and raise under autograd (their outputs
-would have no ``grad_fn``).  ``FlashAttention`` is the differentiable form:
-the forward kernel with its row log-sum-exp, then the backward kernels, on
-CUDA tensors; ``ref.attention_ref`` and ``ref.attention_bwd_ref`` on CPU
+The wrappers check shapes, then call the op; they take CUDA (or meta)
+tensors only and raise under autograd (their outputs would have no
+``grad_fn``).  ``FlashAttention`` is the differentiable form: the forward
+kernel with its row log-sum-exp, then the backward kernels, on any tensor
+but a CPU one; ``ref.attention_ref`` and ``ref.attention_bwd_ref`` on CPU
 tensors.  ``ops.flash_attention`` routes to it when a gradient is wanted.
 """
 from __future__ import annotations
@@ -184,9 +186,10 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _check(q: Tensor, k: Tensor, v: Tensor, window) -> dict:
-    """Shapes and dtypes, then the plan, then devices and layout: what the
-    plan refuses is refused before any device is looked at."""
+def _check(q: Tensor, k: Tensor, v: Tensor, window) -> None:
+    """Shapes and dtypes: the wrappers' own checks, on any tensor.  The plan
+    (``kernel_plan``) and the devices and layout are the ops' (their fake
+    implementations plan too, so a trace refuses what the card would)."""
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.dtype != q.dtype:
             raise ValueError(f"flash_attention_cuda: {name} is {x.dtype}, "
@@ -199,30 +202,29 @@ def _check(q: Tensor, k: Tensor, v: Tensor, window) -> dict:
         raise ValueError(
             f"flash_attention_cuda: q {tuple(q.shape)}, k {tuple(k.shape)}, "
             f"v {tuple(v.shape)} do not fit [B, Hq, Sq, D] / [B, Hk, Sk, D]")
-    hk, sk = k.shape[1], k.shape[2]
+    hk = k.shape[1]
     if hk == 0 or hq % hk:
         raise ValueError(f"flash_attention_cuda: {hq} query heads are not a "
                          f"multiple of {hk} kv heads")
     if window is not None and window < 0:
         raise ValueError(f"flash_attention_cuda: window {window} < 0")
-    traced = kbuild.traced(q)
-    n_sm = _sm_count(q.device) if q.is_cuda and not traced else N_SM
-    plan = kernel_plan(b, hq, hk, sq, sk, d, q.dtype, n_sm)
-    if traced:
-        return plan
-    for name, x in (("q", q), ("k", k), ("v", v)):
+
+
+def _check_placed(fn: str, lead: Tensor, *named: tuple[str, Tensor]) -> None:
+    """Devices and layout, in an op's body after its plan (so what the plan
+    refuses is refused before any device is looked at): every tensor on
+    ``lead``'s CUDA device, contiguous and 16-byte aligned."""
+    for name, x in named:
         if not x.is_cuda:
-            raise ValueError(f"flash_attention_cuda: {name} is on {x.device}, "
-                             "not a CUDA device")
-        if x.device != q.device:
-            raise ValueError(f"flash_attention_cuda: {name} is on {x.device}, "
-                             f"q on {q.device}")
+            raise ValueError(f"{fn}: {name} is on {x.device}, not a CUDA "
+                             "device")
+        if x.device != lead.device:
+            raise ValueError(f"{fn}: {name} is on {x.device}, "
+                             f"{named[0][0]} on {lead.device}")
         if not x.is_contiguous():
-            raise ValueError(f"flash_attention_cuda: {name} is not contiguous")
+            raise ValueError(f"{fn}: {name} is not contiguous")
         if x.data_ptr() % 16:
-            raise ValueError(f"flash_attention_cuda: {name} is not 16-byte "
-                             "aligned")
-    return plan
+            raise ValueError(f"{fn}: {name} is not 16-byte aligned")
 
 
 def _launch_error(err: int) -> str:
@@ -250,23 +252,27 @@ def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor, *,
     plan in ``flash_attention_cuda.last_plan``.
     """
     kbuild.refuse_autograd("flash_attention_cuda", q=q, k=k, v=v)
-    plan = _check(q, k, v, window)
+    _check(q, k, v, window)
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     out, lse = torch.ops.repro_torch.flash_attention_fwd(
         q, k, v, bool(causal), None if window is None else int(window),
-        float(softcap), float(scale), plan["block_q"], bool(return_lse))
-    if not kbuild.traced(q):
-        flash_attention_cuda.last_plan = plan
+        float(softcap), float(scale), bool(return_lse))
     return (out, lse) if return_lse else out
 
 
-@torch.library.custom_op("repro_torch::flash_attention_fwd", mutates_args=(),
-                         device_types="cuda")
+def _plan_fwd(q: Tensor, k: Tensor) -> dict:
+    b, hq, sq, d = q.shape
+    n_sm = _sm_count(q.device) if q.is_cuda else N_SM
+    return kernel_plan(b, hq, k.shape[1], sq, k.shape[2], d, q.dtype, n_sm)
+
+
 def _flash_fwd_op(q: Tensor, k: Tensor, v: Tensor, causal: bool,
                   window: int | None, softcap: float, scale: float,
-                  block_q: int, return_lse: bool) -> tuple[Tensor, Tensor]:
-    """The forward kernel's launch (``flash_attention_cuda`` checks first);
-    lse is ``[0]`` unless asked for."""
+                  return_lse: bool) -> tuple[Tensor, Tensor]:
+    """The forward kernel's plan, checks and launch (``flash_attention_cuda``
+    checks the shapes first); lse is ``[0]`` unless asked for."""
+    plan = _plan_fwd(q, k)
+    _check_placed("flash_attention_cuda", q, ("q", q), ("k", k), ("v", v))
     b, hq, sq, d = q.shape
     hk, sk = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
@@ -280,18 +286,25 @@ def _flash_fwd_op(q: Tensor, k: Tensor, v: Tensor, causal: bool,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr() if return_lse else None,
             b, hq, hk, sq, sk, d, _DTYPES[q.dtype], int(causal),
-            -1 if window is None else window, softcap, scale, block_q,
-            torch.cuda.current_stream().cuda_stream)
+            -1 if window is None else window, softcap, scale,
+            plan["block_q"], torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_cuda: launch failed: "
                            f"{_launch_error(err)} (q {tuple(q.shape)}, k "
-                           f"{tuple(k.shape)}, {q.dtype}, block_q {block_q})")
+                           f"{tuple(k.shape)}, {q.dtype}, plan {plan})")
     flash_attention_cuda.launches += 1
+    flash_attention_cuda.last_plan = plan
     return out, lse
 
 
-@_flash_fwd_op.register_fake
-def _(q, k, v, causal, window, softcap, scale, block_q, return_lse):
+kbuild.define_op("flash_attention_fwd(Tensor q, Tensor k, Tensor v, "
+                 "bool causal, int? window, float softcap, float scale, "
+                 "bool return_lse) -> (Tensor, Tensor)", _flash_fwd_op)
+
+
+@torch.library.register_fake("repro_torch::flash_attention_fwd")
+def _(q, k, v, causal, window, softcap, scale, return_lse):
+    _plan_fwd(q, k)
     b, hq, sq, _ = q.shape
     return torch.empty_like(q), q.new_empty(
         (b, hq, sq) if return_lse else (0,), dtype=torch.float32)
@@ -425,11 +438,20 @@ def flash_attention_bwd_cuda(q: Tensor, k: Tensor, v: Tensor, o: Tensor,
     kbuild.refuse_autograd("flash_attention_bwd_cuda", q=q, k=k, v=v, o=o,
                            do=do)
     _check(q, k, v, window)
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    return torch.ops.repro_torch.flash_attention_bwd(
+        q, k, v, o, lse, do, bool(causal),
+        None if window is None else int(window), float(softcap), float(scale))
+
+
+def _plan_bwd(q: Tensor, k: Tensor, o: Tensor, lse: Tensor,
+              do: Tensor) -> dict:
+    """The backward's plan, then the shapes of the forward's outputs and
+    the output's gradient beside q."""
     b, hq, sq, d = q.shape
-    hk, sk = k.shape[1], k.shape[2]
-    traced = kbuild.traced(q)
-    plan = kernel_plan_bwd(b, hq, hk, sq, sk, d, q.dtype,
-                           N_SM if traced else _sm_count(q.device))
+    n_sm = _sm_count(q.device) if q.is_cuda else N_SM
+    plan = kernel_plan_bwd(b, hq, k.shape[1], sq, k.shape[2], d, q.dtype,
+                           n_sm)
     for name, x in (("o", o), ("do", do)):
         if x.shape != q.shape or x.dtype != q.dtype:
             raise ValueError(f"flash_attention_bwd_cuda: {name} is "
@@ -439,30 +461,23 @@ def flash_attention_bwd_cuda(q: Tensor, k: Tensor, v: Tensor, o: Tensor,
         raise ValueError(f"flash_attention_bwd_cuda: lse is "
                          f"{tuple(lse.shape)} {lse.dtype}, expected "
                          f"{(b, hq, sq)} torch.float32")
-    for name, x in (("o", o), ("do", do), ("lse", lse)):
-        if traced:
-            break
-        if x.device != q.device or not x.is_contiguous() or x.data_ptr() % 16:
-            raise ValueError(f"flash_attention_bwd_cuda: {name} is not a "
-                             f"contiguous, 16-byte aligned tensor on "
-                             f"{q.device}")
-    scale = d ** -0.5 if scale is None else scale
-    dq, dk, dv = torch.ops.repro_torch.flash_attention_bwd(
-        q, k, v, o, lse, do, bool(causal),
-        None if window is None else int(window), float(softcap), float(scale))
-    if not traced:
-        flash_attention_bwd_cuda.last_plan = plan
-    return dq, dk, dv
+    return plan
 
 
-@torch.library.custom_op("repro_torch::flash_attention_bwd", mutates_args=(),
-                         device_types="cuda")
 def _flash_bwd_op(q: Tensor, k: Tensor, v: Tensor, o: Tensor, lse: Tensor,
                   do: Tensor, causal: bool, window: int | None,
                   softcap: float, scale: float
                   ) -> tuple[Tensor, Tensor, Tensor]:
-    """The backward's three launches (``flash_attention_bwd_cuda`` checks
-    first)."""
+    """The backward's plan, checks and three launches
+    (``flash_attention_bwd_cuda`` checks the shapes first)."""
+    plan = _plan_bwd(q, k, o, lse, do)
+    _check_placed("flash_attention_bwd_cuda", q, ("q", q), ("k", k),
+                  ("v", v))
+    for name, x in (("o", o), ("do", do), ("lse", lse)):
+        if x.device != q.device or not x.is_contiguous() or x.data_ptr() % 16:
+            raise ValueError(f"flash_attention_bwd_cuda: {name} is not a "
+                             f"contiguous, 16-byte aligned tensor on "
+                             f"{q.device}")
     b, hq, sq, d = q.shape
     hk, sk = k.shape[1], k.shape[2]
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
@@ -480,13 +495,21 @@ def _flash_bwd_op(q: Tensor, k: Tensor, v: Tensor, o: Tensor, lse: Tensor,
     if err != 0:
         raise RuntimeError(f"flash_attention_bwd_cuda: launch failed: "
                            f"{_launch_error(err)} (q {tuple(q.shape)}, k "
-                           f"{tuple(k.shape)}, {q.dtype})")
+                           f"{tuple(k.shape)}, {q.dtype}, plan {plan})")
     flash_attention_bwd_cuda.launches += 1
+    flash_attention_bwd_cuda.last_plan = plan
     return dq, dk, dv
 
 
-@_flash_bwd_op.register_fake
+kbuild.define_op("flash_attention_bwd(Tensor q, Tensor k, Tensor v, "
+                 "Tensor o, Tensor lse, Tensor do, bool causal, int? window, "
+                 "float softcap, float scale) -> (Tensor, Tensor, Tensor)",
+                 _flash_bwd_op)
+
+
+@torch.library.register_fake("repro_torch::flash_attention_bwd")
 def _(q, k, v, o, lse, do, causal, window, softcap, scale):
+    _plan_bwd(q, k, o, lse, do)
     return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
 
 

@@ -15,10 +15,10 @@ forward, plain-version backward), on the CPU through the plain version;
 with ``return_state`` (a prefill, which needs no gradient) it returns the
 final state too, from the kernel itself on the card.
 
-A ``FakeTensor`` (``FakeTensorMode``, on the meta device in the dry-run)
-routes as a CUDA tensor does: the kernels' ops give its outputs' shapes
-through their fake implementations, so the trace is the card's program
-without data (``launch/dryrun.py``); nothing is launched or counted.
+A meta tensor (the dry-run's, under ``FakeTensorMode``) routes as a CUDA
+tensor does: the kernels' ops give its outputs' shapes through their fake
+implementations, so the trace is the card's program without data
+(``launch/dryrun.py``); nothing is launched or counted.
 
 On ``DTensor`` inputs (the sharded train step) ``flash_attention`` and
 ``ssd_scan`` run the same routed function under
@@ -45,7 +45,6 @@ import torch
 from torch import Tensor
 
 from repro_torch.dist.spmd import grad_hook, is_dtensor
-from repro_torch.kernels import build as kbuild
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import (FlashAttention,
                                                  flash_attention_cuda)
@@ -82,9 +81,8 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
 
 
 def _on_card(t: Tensor) -> bool:
-    """A CUDA tensor, or a fake meta tensor: the card's program traced."""
-    return t.device.type == "cuda" or (t.device.type == "meta"
-                                       and kbuild.traced(t))
+    """A CUDA tensor, or a meta tensor: the card's program traced."""
+    return t.device.type in ("cuda", "meta")
 
 
 def _flash_routed(q: Tensor, k: Tensor, v: Tensor, kw: dict) -> Tensor:

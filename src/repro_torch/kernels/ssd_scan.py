@@ -16,11 +16,12 @@ tensor launches the tensor-core phases or raises.
 autograd graph; it refuses to run where autograd would need a gradient.
 With ``return_state`` it also returns the f32 ``[B, H, P, N]`` state after
 the last step, which a prefill hands to the recurrent decode.
-The kernel is a ``torch.library`` custom op (``repro_torch::ssd_scan_fwd``)
-whose CUDA implementation launches the phases and whose fake
-implementation gives the outputs' shapes alone, so a meta or fake tensor
-traces the card's program without data; its FLOP formula (``ssd_work``,
-the count chip_smoke.py's bound uses) lets a counting mode read its work.
+The kernel is a ``torch.library`` op (``repro_torch::ssd_scan_fwd``)
+whose body plans, checks devices and layout, and launches the phases; its
+fake implementation plans (refusing what the card would) and gives the
+outputs' shapes alone, so a meta tensor traces the card's program without
+data.  Its FLOP formula (``ssd_work``, the count chip_smoke.py's bound
+uses) lets a counting mode read its work.
 ``SSDScan`` is the differentiable form: its forward launches the kernel, its
 backward recomputes the plain version (``ref.ssd_scan_ref``) from the saved
 inputs under autograd and differentiates that.  The JAX package has no
@@ -184,9 +185,10 @@ def kernel_geometry(dtype: torch.dtype, p: int, n: int,
     return out
 
 
-def _check(x, dt, A, Bm, Cm, D, chunk) -> dict:
-    """Shapes and dtypes, then the plan, then devices and layout: what the
-    plan refuses is refused before any device is looked at."""
+def _check(x, dt, A, Bm, Cm, D) -> None:
+    """Shapes and dtypes: the wrapper's own checks, on any tensor.  The plan
+    (``kernel_plan``) and the devices and layout are the op's (its fake
+    implementation plans too, so a trace refuses what the card would)."""
     for name, t in (("Bm", Bm), ("Cm", Cm)):
         if t.dtype != x.dtype:
             raise ValueError(f"ssd_scan_cuda: {name} is {t.dtype}, x is "
@@ -211,9 +213,11 @@ def _check(x, dt, A, Bm, Cm, D, chunk) -> dict:
     if g == 0 or h % g:
         raise ValueError(f"ssd_scan_cuda: {h} heads are not a multiple of "
                          f"{g} groups")
-    plan = kernel_plan(b, s, h, p, g, n, chunk, x.dtype)
-    if kbuild.traced(x):
-        return plan
+
+
+def _check_placed(plan, x, dt, A, Bm, Cm, D) -> None:
+    """Devices and layout, in the op's body after its plan (so what the
+    plan refuses is refused before any device is looked at)."""
     named = (("x", x), ("dt", dt), ("A", A), ("Bm", Bm), ("Cm", Cm), ("D", D))
     for name, t in named:
         if not t.is_cuda:
@@ -236,7 +240,6 @@ def _check(x, dt, A, Bm, Cm, D, chunk) -> dict:
                 raise ValueError(
                     f"ssd_scan_cuda: {name}'s stride {stride} along axis "
                     f"{axis} is not a multiple of 16 bytes, which TMA needs")
-    return plan
 
 
 def ssd_scan_cuda(x: Tensor, dt: Tensor, A: Tensor, Bm: Tensor, Cm: Tensor,
@@ -254,21 +257,24 @@ def ssd_scan_cuda(x: Tensor, dt: Tensor, A: Tensor, Bm: Tensor, Cm: Tensor,
     plan in ``ssd_scan_cuda.last_plan``.
     """
     kbuild.refuse_autograd("ssd_scan_cuda", x=x, dt=dt, A=A, Bm=Bm, Cm=Cm, D=D)
-    plan = _check(x, dt, A, Bm, Cm, D, chunk)
+    _check(x, dt, A, Bm, Cm, D)
     y, state = torch.ops.repro_torch.ssd_scan_fwd(
-        x, dt, A, Bm, Cm, D, int(chunk), plan["rows"], bool(return_state))
-    if not kbuild.traced(x):
-        ssd_scan_cuda.last_plan = plan
+        x, dt, A, Bm, Cm, D, int(chunk), bool(return_state))
     return (y, state) if return_state else y
 
 
-@torch.library.custom_op("repro_torch::ssd_scan_fwd", mutates_args=(),
-                         device_types="cuda")
+def _plan(x: Tensor, Bm: Tensor, chunk: int) -> dict:
+    b, s, h, p = x.shape
+    return kernel_plan(b, s, h, p, Bm.shape[2], Bm.shape[3], chunk, x.dtype)
+
+
 def _ssd_fwd_op(x: Tensor, dt: Tensor, A: Tensor, Bm: Tensor, Cm: Tensor,
-                D: Tensor, chunk: int, rows: int,
+                D: Tensor, chunk: int,
                 return_state: bool) -> tuple[Tensor, Tensor]:
-    """The scan's launch (``ssd_scan_cuda`` checks first); the state is
-    ``[0]`` unless asked for."""
+    """The scan's plan, checks and launch (``ssd_scan_cuda`` checks the
+    shapes first); the state is ``[0]`` unless asked for."""
+    plan = _plan(x, Bm, chunk)
+    _check_placed(plan, x, dt, A, Bm, Cm, D)
     b, s, h, p = x.shape
     g, n = Bm.shape[2], Bm.shape[3]
     y = torch.empty((b, s, h, p), dtype=x.dtype, device=x.device)
@@ -277,7 +283,6 @@ def _ssd_fwd_op(x: Tensor, dt: Tensor, A: Tensor, Bm: Tensor, Cm: Tensor,
     if y.numel() == 0:
         return y, state.zero_()
     A, D = A.contiguous(), D.contiguous()
-    plan = kernel_plan(b, s, h, p, g, n, chunk, x.dtype)
     scratch = [torch.empty(shape, dtype=dtype, device=x.device)
                for shape, dtype in plan["scratch"].values()] or [None] * 3
     lib = _library()
@@ -287,7 +292,7 @@ def _ssd_fwd_op(x: Tensor, dt: Tensor, A: Tensor, Bm: Tensor, Cm: Tensor,
             Cm.data_ptr(), D.data_ptr(), y.data_ptr(),
             *(t.data_ptr() if t is not None else None for t in scratch),
             state.data_ptr() if return_state else None,
-            b, s, h, g, p, n, chunk, _DTYPES[x.dtype], rows,
+            b, s, h, g, p, n, chunk, _DTYPES[x.dtype], plan["rows"],
             *x.stride()[:3], *dt.stride(), *Bm.stride()[:3],
             *Cm.stride()[:3], torch.cuda.current_stream().cuda_stream)
     if err != 0:
@@ -302,11 +307,18 @@ def _ssd_fwd_op(x: Tensor, dt: Tensor, A: Tensor, Bm: Tensor, Cm: Tensor,
                            f"{tuple(x.shape)}, Bm {tuple(Bm.shape)}, "
                            f"{x.dtype}, chunk {chunk}, plan {plan})")
     ssd_scan_cuda.launches += 1
+    ssd_scan_cuda.last_plan = plan
     return y, state
 
 
-@_ssd_fwd_op.register_fake
-def _(x, dt, A, Bm, Cm, D, chunk, rows, return_state):
+kbuild.define_op("ssd_scan_fwd(Tensor x, Tensor dt, Tensor A, Tensor Bm, "
+                 "Tensor Cm, Tensor D, int chunk, bool return_state) -> "
+                 "(Tensor, Tensor)", _ssd_fwd_op)
+
+
+@torch.library.register_fake("repro_torch::ssd_scan_fwd")
+def _(x, dt, A, Bm, Cm, D, chunk, return_state):
+    _plan(x, Bm, chunk)
     b, _, h, p = x.shape
     n = Bm.shape[3]
     return torch.empty_like(x, memory_format=torch.contiguous_format), \

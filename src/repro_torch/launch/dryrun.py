@@ -20,10 +20,12 @@ backward with the remat replay, AdamW); prefill and decode trace
 Without a process group it starts a ``"fake"`` one of 256 (or 512) ranks,
 whose collectives move nothing, and destroys it at the end; it needs no
 card, as the reference's needs no TPU (it lowers on 512 fake host
-devices).  ``device=None`` traces the card's program: fake meta tensors,
+devices).  ``lower_cell`` traces the card's program on fake meta tensors,
 which ``kernels.ops`` routes to the kernels' ops and their fake
 implementations (a CPU-only torch cannot run autograd on fake CUDA
-tensors).  ``device="cpu"`` traces the plain versions on fake CPU tensors.
+tensors); its ``device="cpu"`` traces the plain versions on fake CPU
+tensors instead, which the FLOP comparison with the reference's HLO walk
+reads.
 Results are cached as JSON under ``results/dryrun_torch/`` (git-ignored),
 with the reference's fields; ``compile_s`` holds the trace's wall time.
 """
@@ -47,8 +49,10 @@ from repro_torch.analysis import memory as memest, roofline
 from repro_torch.analysis.trace import StepTrace
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.dist import activation_shardings
+from repro_torch.dist import spmd
 from repro_torch.dist.sharding import (
-    axis_sizes, input_pspec_tree, named, param_pspec_tree, placements)
+    axis_sizes, input_pspec_tree, named, param_pspec_tree, placements,
+    spec_leaves)
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models import ALL_SHAPES, build_model, shape_applicable
 from repro_torch.models.config import ShapeSpec
@@ -142,6 +146,14 @@ def lower_cell(arch: str, shape: ShapeSpec, mesh, *, microbatches: int = 4,
                else None)
     specs = model.input_specs(shape)
     in_specs = input_pspec_tree(specs, mesh, strategy)
+    # a group over several mesh dims (the batch's ("pod", "data"), which
+    # the microbatch split's all-to-all runs over) is a flattened mesh,
+    # built from real rank tensors: made here, before the fake mode, and
+    # kept by the mesh
+    for spec in spec_leaves(in_specs):
+        for entry in spec:
+            if isinstance(entry, tuple) and len(entry) > 1:
+                spmd.axis_group(mesh, entry)
     trace = StepTrace()
     t0 = time.perf_counter()
     with FakeTensorMode(allow_non_fake_inputs=True):
@@ -182,7 +194,7 @@ def _local_bytes(t) -> int:
 
 
 def run_cell(arch: str, shape: ShapeSpec, mesh_kind: str,
-             microbatches: int = 4, tag: str = "", device=None,
+             microbatches: int = 4, tag: str = "",
              sequence_parallel: bool = False, master_bf16: bool = False,
              moments_bf16: bool = False, strategy: str = "2d") -> dict:
     """One cell's record on the production mesh (``"single"``: (16, 16),
@@ -198,7 +210,7 @@ def run_cell(arch: str, shape: ShapeSpec, mesh_kind: str,
         mesh = make_production_mesh(multi_pod=(mesh_kind == "multi"))
         n_chips = math.prod(tuple(mesh.shape))
         walk, meta = lower_cell(
-            arch, shape, mesh, microbatches=microbatches, device=device,
+            arch, shape, mesh, microbatches=microbatches,
             master_bf16=master_bf16, sequence_parallel=sequence_parallel,
             strategy=strategy)
         est = memest.estimate(
@@ -214,7 +226,6 @@ def run_cell(arch: str, shape: ShapeSpec, mesh_kind: str,
         "mesh": mesh_kind,
         "n_chips": int(n_chips),
         "compile_s": meta["trace_s"],
-        "device": "cpu" if device == "cpu" else "meta",
         "microbatches": microbatches if shape.kind == "train" else None,
         "tag": tag,
         "memory": {

@@ -149,7 +149,14 @@ def _embed_sharded(table, tokens, dtype):
     its slice, zeros for the others, and the rows are summed over the
     vocabulary's ranks (one term is non-zero, so the sum is exact).  The
     table's gradient stays on each rank's slice, partial over the mesh
-    dims that split the tokens."""
+    dims that split the tokens.
+
+    DTensor's own vocabulary-parallel lookup (``F.embedding`` on a table
+    split on dim 0, a ``MaskPartial`` output) cannot stand in: with the
+    tokens split over ``"data"`` beside the vocabulary over ``"model"``
+    its reduction fails in torch 2.13 (the mask of one rank's tokens,
+    ``[1, 32]``, against partial rows ``[2, 32, 32]``;
+    tests/test_torch_train_sharded.py, gloo, (2, 2))."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
 

@@ -248,7 +248,13 @@ def _chunk_nll_sharded(logits, labels):
     holds its batch rows and its slice of the vocabulary; the row maximum,
     the sum of exponentials and the gold logit are reduced over the ranks
     that split the vocabulary.  Returns the sum and the count, partial over
-    the mesh dims that split the rows."""
+    the mesh dims that split the rows.
+
+    DTensor's ``loss_parallel`` cannot stand in: torch 2.11 (the H100
+    host's) takes only a one-dimensional mesh there, and the logits lie on
+    the two- or three-dimensional production mesh (batch and vocabulary);
+    torch 2.13 takes such a mesh and held tests/test_torch_train_sharded.py
+    (gloo, (2, 2)), but chip_smoke.py's dry-run at 256 ranks raised."""
     from torch.distributed import _functional_collectives as funcol
     from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map

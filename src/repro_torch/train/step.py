@@ -25,23 +25,60 @@ from repro_torch.train.optimizer import OptConfig, adamw_init, adamw_update
 
 def _split_mb(batch: dict, m: int) -> list[dict]:
     """``m`` slices of the batch axis (``positions [3, B, S]``: axis 1); a
-    ``DTensor``'s slices keep its placements."""
+    ``DTensor``'s slices keep its placements (``_split_rows``)."""
     def split(k, x):
         axis = 1 if k == "positions" and x.dim() == 3 else 0
         if x.shape[axis] % m:
             raise ValueError(f"batch {x.shape[axis]} not divisible by "
                              f"microbatches {m}")
         if is_dtensor(x):
-            from torch.distributed.tensor import Replicate
-
-            mesh = x.device_mesh
-            whole = x.redistribute(mesh, (Replicate(),) * mesh.ndim)
-            return [part.redistribute(mesh, x.placements)
-                    for part in whole.chunk(m, dim=axis)]
+            return _split_rows(x, axis, m)
         return x.chunk(m, dim=axis)
 
     parts = {k: split(k, v) for k, v in batch.items()}
     return [{k: v[i] for k, v in parts.items()} for i in range(m)]
+
+
+def _split_rows(x, axis: int, m: int) -> list:
+    """The ``m`` microbatches of a ``DTensor`` batch, each placed as ``x``:
+    microbatch i is rows [i M, (i + 1) M) of ``axis`` (M = rows / m), as on
+    one device, and the rank that holds block r of ``x``'s rows holds block
+    r of each microbatch.  One all-to-all over the ranks that split the rows
+    sends each row once, to the rank whose block holds it; nothing is
+    gathered whole."""
+    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.dist import spmd
+
+    mesh = x.device_mesh
+    names = tuple(mesh.mesh_dim_names[i] for i, pl in enumerate(x.placements)
+                  if pl.is_shard(axis))
+    n, mb = spmd.axis_size(mesh, names), x.shape[axis] // m
+    if mb % n:
+        raise ValueError(f"a microbatch of {mb} rows does not divide over "
+                         f"the {n} ranks that split the batch")
+    local = x.to_local()
+    if n > 1:
+        held, k = x.shape[axis] // n, mb // n
+        r = spmd.axis_index(mesh, names)
+
+        def to(g):             # the rank whose microbatch block holds row g
+            return g % mb // k
+
+        dest = [to(g) for g in range(r * held, (r + 1) * held)]
+        order = sorted(range(held), key=dest.__getitem__)
+        send = [dest.count(j) for j in range(n)]
+        recv = [sum(to(g) == r for g in range(j * held, (j + 1) * held))
+                for j in range(n)]
+        rows = local.index_select(
+            axis, torch.tensor(order, device=local.device))
+        # rows arrive by sender, so in global order: microbatch-major
+        local = funcol.wait_tensor(funcol.all_to_all_single(
+            rows.movedim(axis, 0).contiguous(), recv, send,
+            spmd.axis_group(mesh, names))).movedim(0, axis)
+    return [DTensor.from_local(part, mesh, x.placements, run_check=False)
+            for part in local.chunk(m, dim=axis)]
 
 
 def value_and_grad(model, params: Any, batch: dict) -> tuple[Tensor, Any]:

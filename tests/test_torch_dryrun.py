@@ -504,9 +504,10 @@ def test_traced_all_gathers_match_the_hlo_walk(hlo_walks, port_walks, arch,
     (3) the embedding: the port gathers its vocabulary shard over
         ``"data"`` once per microbatch (the vocabulary-parallel lookup);
         XLA's lookup gathers no table;
-    (4) tokens: with microbatches, the port gathers the tokens and the
-        labels over ``"data"`` once to cut them (``_split_mb``), while
-        XLA gathers each microbatch's labels in its loss.
+    (4) labels: XLA gathers each microbatch's labels in its loss; the
+        port gathers none (with microbatches, ``_split_mb`` sends each
+        microbatch's rows of the tokens and labels to their ranks by an
+        all-to-all, which is not an all-gather).
 
     mamba2 is left out: its mixer's activations are laid out otherwise
     (XLA permutes the convolution's halo and gathers heads, the port
@@ -520,12 +521,11 @@ def test_traced_all_gathers_match_the_hlo_walk(hlo_walks, port_walks, arch,
     dense = _gather_bytes(cfg, specs, lambda p: p[0] == "periods" and not (
         cfg.moe is not None and p[-2] == "mlp"))
     table = cfg.vocab * cfg.d_model // (dp * tp) * item
-    tokens = (2, 2 * B // dp * S * 4) if mb > 1 else (0, 0)
     labels = (mb, B // dp // mb * S * 4)
     want_n = (walk.coll_counts["all-gather"] + mb * dense[0] - mb
-              - tokens[0] + labels[0] + (2 - mb))
+              + labels[0] + (2 - mb))
     want_b = (walk.coll_raw["all-gather"] + mb * dense[1] - mb * table
-              - tokens[1] + labels[0] * labels[1] + (2 - mb) * table)
+              + labels[0] * labels[1] + (2 - mb) * table)
     assert ref["counts"]["all-gather"] == want_n
     assert ref["raw"]["all-gather"] == want_b
     # every gather runs over 2 ranks: the ring moves the operand once

@@ -99,8 +99,11 @@ def test_cpu_tensors_route_to_the_plain_version():
     out = ops.flash_attention(*args, causal=True, scale=0.1)
     assert torch.equal(out, ref.attention_ref(*args, causal=True, scale=0.1))
     assert fa.flash_attention_cuda.launches == launches
-    with pytest.raises(ValueError, match="device type 'meta'"):
-        ops.flash_attention(*[x.to("meta") for x in args])
+    # a meta tensor traces the card's program: the kernel's op gives the
+    # output's shape and nothing is launched
+    out = ops.flash_attention(*[x.to("meta") for x in args])
+    assert out.device.type == "meta" and out.shape == args[0].shape
+    assert fa.flash_attention_cuda.launches == launches
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():
