@@ -216,6 +216,20 @@ mesh layer, and fails with a non-zero exit code if any phase fails:
              step time and peak memory; (c) one full-size cell,
              ``run_cell("internlm2-1.8b", TRAIN_4K, "single")`` over a fake
              group of 256 ranks: its per-device residency and bottleneck
+12. lint and examples  (a) ``simlint.run_lint(device="cuda")``, every rule
+             over every entry: zero error findings; each rule's status, the
+             operators a batch step enqueues and ``host_any``'s syncs a step
+             (R6 holds the four kernels' plans against their loaded
+             libraries; R3 runs every instrument hook under
+             ``set_sync_debug_mode("error")``); (b) the six twins of
+             ``examples/`` in ``examples_torch/``, each a subprocess on the
+             card at its default size and one on the CPU (``train_100m``
+             for its first 5 steps), with a timeout each: every one exits
+             0, and Fig. 4's analytic 1,500 / 1,800 / 2,400 s, the Table 1
+             cuts, the search's rungs, frontier and winner, the served
+             requests, the elastic run's restarts, resume steps and plans,
+             and ``train_100m``'s first 5 losses (rtol 1e-4, as phase 9)
+             equal the CPU run's
 
 Every line of numbers carries the card's name and power limit.  The line
 before the last is the per-kernel JSON record; the last line is
@@ -229,6 +243,7 @@ import dataclasses
 import functools
 import gc
 import json
+import os
 import re
 import subprocess
 import sys
@@ -244,10 +259,12 @@ import torch.nn.functional as F
 if not torch.cuda.is_available():
     sys.exit("chip_smoke: no CUDA device is available")
 
-sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch import tree  # noqa: E402
 from repro_torch.analysis import memory as memest, roofline  # noqa: E402
+from repro_torch.analysis import simlint  # noqa: E402
 from repro_torch.convert import result_to_numpy  # noqa: E402
 from repro_torch.core import (  # noqa: E402
     INF, SPACE_SHARED, TIME_SHARED, ArgBestReducer, HistogramReducer,
@@ -474,6 +491,15 @@ SAVE_NAMED_STEPS = 4
 SHARDED_STEPS = {"internlm2-1.8b": 3, "mamba2-130m": 2}
 SHARDED_LOSS_TOL = 1e-6
 SHARDED_RUNS: dict = {}  # phase 11's sharded runs, by arch
+# phase 12: the twins of examples/, each run on the card at its default
+# size and on the CPU; train_100m's CPU run takes the first 5 of its 60
+# steps (the warmup: the same learning rates as the card's run)
+EXAMPLES = ("quickstart", "federated_cloud", "campaign_search",
+            "serve_model", "elastic_restart", "train_100m")
+EXAMPLE_CPU_ARGS = {"train_100m": ["--steps", "5"]}
+EXAMPLE_TIMEOUT = 240    # seconds a twin may take, on either device
+EXAMPLE_RTOL = 1e-5      # engine floats, as phase 3 holds them to the CPU
+EXAMPLE_LOSS_RTOL = 1e-4  # losses, as phase 9 holds them to the CPU
 MESH_MOE = (("token_gather", 4, 1024), ("weight_gather", 8, 2048))
 
 
@@ -3432,6 +3458,212 @@ def phase_sharded() -> dict[str, int]:
     return counted
 
 
+# ------------------------------------------------ 12. lint and examples
+def phase_lint() -> dict[str, int]:
+    """(a) every rule of simlint over every entry on the card.  Returns
+    each kernel's launches in it."""
+    zero_launches()
+    t0 = time.perf_counter()
+    with simlint.LintContext(device="cuda") as ctx:
+        findings = simlint.run_lint(ctx=ctx)
+        stats = simlint.step_stats(ctx)
+        peaks = ctx.get("r2_peaks")
+    took = time.perf_counter() - t0
+    counted = launches()
+    for line in simlint.format_report(findings).splitlines():
+        print(f"    {line}")
+    for rid, spec in sorted(simlint.RULES.items()):
+        hits = [f.severity for f in findings if f.rule == rid]
+        say("lint", f"{rid} {spec.name}: "
+            f"{'FAIL' if 'error' in hits else 'ok'} ({hits.count('error')} "
+            f"error(s), {hits.count('warning')} warning(s), "
+            f"{hits.count('info')} info)")
+    for entry, st in stats.items():
+        say("lint", (
+            f"{entry}: {st['steps']} batch steps of Fig. 4 (1-DC topology), "
+            f"{st['ops_min']}-{st['ops_max']} operators a batch step (mean "
+            f"{st['ops_mean']!r}), {st['syncs_per_step']!r} host_any syncs "
+            f"a step, {st['driver_syncs']} in the driver's loop tests"))
+    say("lint", f"R2: peak memory above the held baseline of chunks of "
+        f"{simlint.R2_CHUNK['cuda']} Fig. 9/10 rows at 300 hosts, by chunk "
+        f"count: {peaks} bytes")
+    check(not any(f.severity == "error" for f in findings),
+          "simlint reports no error finding on the card")
+    check(counted["sweep"] > 0, "the lint's runs launched the advance sweep")
+    say("lint", f"every rule over every entry in {took:.1f} s; launches "
+        f"{counted}")
+    return counted
+
+
+def start_twin(name: str, device: str, where: Path) -> tuple:
+    """A twin of examples/ as a subprocess: (process, start time, JSON
+    path, log path)."""
+    out = where / f"{name}.{device}.json"
+    log = open(where / f"{name}.{device}.log", "w")
+    args = [sys.executable, str(ROOT / "examples_torch" / f"{name}.py"),
+            "--device", device, "--json", str(out)]
+    if device == "cpu":
+        args += EXAMPLE_CPU_ARGS.get(name, [])
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="2")
+    proc = subprocess.Popen(args, stdout=log, stderr=subprocess.STDOUT,
+                            env=env, cwd=str(ROOT))
+    log.close()
+    return proc, time.perf_counter(), out, where / f"{name}.{device}.log"
+
+
+def finish_twins(runs: dict) -> dict:
+    """Wait for every twin, each within its timeout; {(name, device):
+    (JSON, seconds from its start to its exit)}.  A twin that fails or
+    outlives its time fails the phase."""
+    ended: dict = {}
+    while len(ended) < len(runs):
+        for key, (proc, t0, _, _) in runs.items():
+            if key in ended:
+                continue
+            if proc.poll() is not None:
+                ended[key] = (proc.returncode, time.perf_counter() - t0)
+            elif time.perf_counter() - t0 > EXAMPLE_TIMEOUT:
+                proc.kill()
+                proc.wait()
+                ended[key] = (None, time.perf_counter() - t0)
+        time.sleep(0.1)
+    done = {}
+    for key, (_, _, out, log) in runs.items():
+        rc, secs = ended[key]
+        if rc != 0:
+            print(log.read_text()[-4000:])
+        check(rc == 0, f"twin {key[0]} on {key[1]} exited 0 within "
+              f"{EXAMPLE_TIMEOUT} s (exit {rc}, {secs:.1f} s)")
+        done[key] = (json.loads(out.read_text()), secs)
+    return done
+
+
+def close_to(a, b, rtol: float) -> bool:
+    return np.allclose(np.asarray(a, np.float64), np.asarray(b, np.float64),
+                       rtol=rtol, atol=0.0)
+
+
+def hold_twin(name: str, gpu: dict, cpu: dict) -> str:
+    """The card's numbers against the CPU run's; returns what was held."""
+    tol = EXAMPLE_RTOL
+    if name == "quickstart":
+        combos = [r[2] for r in gpu["combos"]]
+        check([r[:2] for r in gpu["combos"]] == [r[:2] for r in cpu["combos"]]
+              and close_to([r[2:] for r in gpu["combos"]],
+                           [r[2:] for r in cpu["combos"]], tol)
+              and close_to(gpu["campaign_makespans"],
+                           cpu["campaign_makespans"], tol),
+              "quickstart: the card's turnarounds, makespans and costs equal "
+              "the CPU's")
+        check([round(x) for x in combos] == [1500, 1800, 1500, 1800]
+              and all(abs(r[3] - 2400) < 0.01 for r in gpu["combos"]),
+              f"quickstart: Fig. 4's analytic 1,500 / 1,800 s turnaround and "
+              f"2,400 s makespan ({combos})")
+        return f"turnarounds {combos}, campaign makespans " \
+               f"{gpu['campaign_makespans']}"
+    if name == "federated_cloud":
+        ints = [r[:2] for r in gpu["rows"]]
+        check(ints == [r[:2] for r in cpu["rows"]]
+              and close_to([r[2:] for r in gpu["rows"]],
+                           [r[2:] for r in cpu["rows"]], tol)
+              and close_to(gpu["no_federation"], cpu["no_federation"], tol),
+              "federated_cloud: migrations, turnarounds, makespans and cuts "
+              "equal the CPU's")
+        return "Table 1 (peer_bg, migrations, TAT, makespan, TAT cut %, MK " \
+               f"cut %): {gpu['rows']}"
+    if name == "campaign_search":
+        w, cw = gpu["winner"], cpu["winner"]
+        check([r[:2] for r in gpu["rungs"]] == [r[:2] for r in cpu["rungs"]]
+              and close_to([r[2] for r in gpu["rungs"]],
+                           [r[2] for r in cpu["rungs"]], tol)
+              and [r[:4] for r in gpu["frontier"]]
+              == [r[:4] for r in cpu["frontier"]]
+              and close_to([r[4] for r in gpu["frontier"]],
+                           [r[4] for r in cpu["frontier"]], tol)
+              and {k: v for k, v in w.items() if k != "total_cost"}
+              == {k: v for k, v in cw.items() if k != "total_cost"}
+              and close_to(w["total_cost"], cw["total_cost"], tol),
+              "campaign_search: rungs, frontier and winner equal the CPU's")
+        return f"rungs {gpu['rungs']}, winner {w}"
+    if name == "serve_model":
+        check(gpu["finished"] == cpu["finished"] and gpu["served"]
+              == cpu["served"] == 6 and gpu["makespan"] == cpu["makespan"]
+              and gpu["mean_turnaround"] == cpu["mean_turnaround"],
+              "serve_model: every request served at the CPU run's steps under "
+              "the same policies")
+        check(gpu["launches"]["flash"] > 0 and gpu["launches"]["sweep"] > 0,
+              f"serve_model launched flash and the sweep ({gpu['launches']})")
+        return f"{gpu['served']} requests, finishes {gpu['finished']}, " \
+               f"makespan {gpu['makespan']} steps"
+    if name == "elastic_restart":
+        fails = [f[:3] for f in gpu["failures"]]
+        check(gpu["restarts"] == cpu["restarts"] == 2
+              and fails == [f[:3] for f in cpu["failures"]]
+              and [f[:2] for f in fails] == [[6, 3], [18, 2]]
+              and close_to([f[3:] for f in gpu["failures"]],
+                           [f[3:] for f in cpu["failures"]], tol)
+              and np.isfinite(gpu["final_loss"]),
+              "elastic_restart: restarts, resume steps, survivors and plans "
+              "equal the CPU's")
+        gap = abs(gpu["final_loss"] - cpu["final_loss"]) / abs(
+            cpu["final_loss"])
+        return f"restarts {gpu['restarts']}, failures {gpu['failures']}, " \
+               f"final loss {gpu['final_loss']!r} (CPU {cpu['final_loss']!r}" \
+               f", relative gap {gap!r})"
+    # train_100m
+    n = len(cpu["losses"])
+    gap = max(abs(a - b) / abs(b) for a, b in zip(gpu["losses"][:n],
+                                                  cpu["losses"]))
+    layers = 12
+    check(gpu["n_params"] == cpu["n_params"] and gap <= EXAMPLE_LOSS_RTOL,
+          f"train_100m: the first {n} losses {gpu['losses'][:n]} equal the "
+          f"CPU's {cpu['losses']} within {EXAMPLE_LOSS_RTOL} (worst "
+          f"{gap!r})")
+    check(gpu["launches"] == {"flash": layers * gpu["steps_run"],
+                              "flash_bwd": layers * gpu["steps_run"]},
+          f"train_100m launched flash forward and backward once per layer "
+          f"per step ({gpu['launches']})")
+    return f"{gpu['n_params']} parameters, loss {gpu['losses'][0]!r} -> " \
+           f"{gpu['final_loss']!r} over {gpu['steps_run']} steps, first " \
+           f"{n} within {gap!r} of the CPU's"
+
+
+def phase_lint_examples() -> dict[str, int]:
+    """12: simlint (a) and the six twins of examples/ (b), on the CPU
+    (started first) and on the card.  Returns each kernel's launches in
+    the phase: the lint's and the card's twins' own counts."""
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        where = Path(tmp)
+        runs = {}
+        try:
+            for name in EXAMPLES:
+                runs[(name, "cpu")] = start_twin(name, "cpu", where)
+            lint = phase_lint()
+            for name in EXAMPLES:
+                runs[(name, "cuda")] = start_twin(name, "cuda", where)
+            done = finish_twins(runs)
+        finally:
+            for proc, *_ in runs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+    counted = dict(lint)
+    for name in EXAMPLES:
+        (gpu, g_s), (cpu, c_s) = done[(name, "cuda")], done[(name, "cpu")]
+        held = hold_twin(name, gpu, cpu)
+        for k, v in gpu.get("launches", {}).items():
+            counted[k] += v
+        say("examples", f"{name}: card {g_s:.1f} s, CPU {c_s:.1f} s "
+            f"(subprocesses, start-up included); {held}; launches "
+            f"{gpu.get('launches', {})}")
+    say("timing", f"lint and examples: phase 12 {time.perf_counter() - t0:.1f}"
+        " s")
+    return counted
+
+
 def main() -> None:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}")
@@ -3503,6 +3735,12 @@ def main() -> None:
     say("proof", f"phase 11 launched the SSD kernel {eleventh['ssd']}, the "
         f"flash forward {eleventh['flash']} and backward "
         f"{eleventh['flash_bwd']} times, every forward through local_map")
+    twelfth = phase_lint_examples()
+    took["lint and examples"] = time.perf_counter() - t0 - sum(took.values())
+    say("proof", f"phase 12 (the lint and the twins on the card) launched "
+        f"the advance sweep {twelfth['sweep']}, the flash forward "
+        f"{twelfth['flash']} and backward {twelfth['flash_bwd']} and the SSD "
+        f"kernel {twelfth['ssd']} times")
     say("timing", ", ".join(f"{k} {v:.1f} s" for k, v in took.items()))
 
     kernels = [{
@@ -3510,7 +3748,8 @@ def main() -> None:
         "route": "cuda",
         "source": "src/repro_torch/csrc/vm_update.cu",
         "replaces": "src/repro/kernels/vm_update.py:123",
-        "launches": sweeps + tenth["sweep"] + eleventh["sweep"],
+        "launches": (sweeps + tenth["sweep"] + eleventh["sweep"]
+                     + twelfth["sweep"]),
         **sweep_record,
         "library_ms": None,
     }, {
@@ -3518,7 +3757,8 @@ def main() -> None:
         "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:99",
-        "launches": flash_launches + tenth["flash"] + eleventh["flash"],
+        "launches": (flash_launches + tenth["flash"] + eleventh["flash"]
+                     + twelfth["flash"]),
         **flash_record,
     }, {
         "name": "flash_attention_bwd",
@@ -3527,14 +3767,15 @@ def main() -> None:
         "replaces": "src/repro/models/attention.py:40 flash_xla (gradient by "
                     "jax.grad; no Pallas kernel)",
         "launches": (counted["flash_bwd"] + tenth["flash_bwd"]
-                     + eleventh["flash_bwd"]),
+                     + eleventh["flash_bwd"] + twelfth["flash_bwd"]),
         **flash_bwd_record,
     }, {
         "name": "ssd_scan",
         "route": "cuda",
         "source": "src/repro_torch/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:81",
-        "launches": ssd_launches + tenth["ssd"] + eleventh["ssd"],
+        "launches": (ssd_launches + tenth["ssd"] + eleventh["ssd"]
+                     + twelfth["ssd"]),
         **ssd_record,
     }]
     print(CARD)
