@@ -18,7 +18,9 @@ mesh layer, and fails with a non-zero exit code if any phase fails:
              memory; flash backward: other side's tile, threads, shared
              memory of each kernel; SSD: each phase's threads and shared
              memory) that the ``kernel_plan`` functions report against the
-             built library's, for every instantiation
+             built library's, for every instantiation and every flash head
+             width (8 to 128 in steps of 8); the flash libraries' nvcc
+             seconds beside those of the sources before the narrow widths
 2. kernels   each kernel against its plain PyTorch version on the card at the
              paths' shapes, with its device time (CUDA-graph replay, or CUDA
              events for calls of many milliseconds), the plain version's,
@@ -32,7 +34,11 @@ mesh layer, and fails with a non-zero exit code if any phase fails:
              and its cross-attention at a decode step), each with
              its launch plan (bf16 on the tensor cores, f32 on the CUDA
              cores), with ``scaled_dot_product_attention`` timed as a
-             yardstick where it computes the same function.  SSD scan: within 2e-2 (bf16) of
+             yardstick where it computes the same function; and, in bf16 and
+             f32, every case of the Pallas kernel's test widths 16 and 32
+             (``tests/test_torch_flash.py`` CASES), a smoke model's serving
+             prefill (D 16) and a width between instantiations (D 80), under
+             the same limits.  SSD scan: within 2e-2 (bf16) of
              the plain chunked version at mamba2-130m's training shape and
              a jamba-shaped one, and by relative error of the whole output
              and of its worst (b, h) slice within 3.2e-3 and 5e-3, each with
@@ -47,8 +53,9 @@ mesh layer, and fails with a non-zero exit code if any phase fails:
              ``SSDScan``'s gradients within 1e-4 of each leaf's largest
              value.  Flash backward: at phase 8b's training shapes, a
              gemma2-27b local layer (window, softcap, logits scaled into the
-             cap's bend), phi3's head dim and rows offset or without keys,
-             the forward's lse against ``ref.attention_lse_ref`` (1e-4, +inf
+             cap's bend), phi3's head dim, rows offset or without keys and
+             the narrow and padded widths of the forward, the forward's lse
+             against ``ref.attention_lse_ref`` (1e-4, +inf
              exactly on rows without keys, the output bitwise the output
              without lse), then dq, dk, dv from that output and lse against
              ``ref.attention_bwd_ref``: f32 within 1e-4 of each tensor's
@@ -229,7 +236,20 @@ mesh layer, and fails with a non-zero exit code if any phase fails:
              cuts, the search's rungs, frontier and winner, the served
              requests, the elastic run's restarts, resume steps and plans,
              and ``train_100m``'s first 5 losses (rtol 1e-4, as phase 9)
-             equal the CPU run's
+             equal the CPU run's; the serving and elastic twins run the
+             reference's smoke internlm2 (heads 16 wide)
+13. smoke zoo  ``get_config(arch, smoke=True)`` of every arch of the
+             registry (heads 16 wide), in f32 and bf16, from one CPU draw of
+             the weights: served (``ServingEngine``; ``Model.prefill`` and
+             ``decode_step`` for whisper and qwen2-vl) and trained for 3
+             steps (``run_training`` from a step-0 checkpoint of those
+             weights; ``make_train_step`` for whisper and qwen2-vl) on the
+             card and on the CPU.  f32: every call's logits within 1e-3 and
+             the same greedy tokens, losses and gradient norms within 1e-4
+             relative; bf16: logits of a prefill and 6 decode steps fed the
+             CPU's greedy tokens, and losses, within 2e-2 relative (the
+             kernels' bf16 tolerance).  Every attention arch launches the
+             flash forward and backward, every SSM arch the SSD kernel
 
 Every line of numbers carries the card's name and power limit.  The line
 before the last is the per-kernel JSON record; the last line is
@@ -272,7 +292,8 @@ from repro_torch.core import (  # noqa: E402
     ValuesReducer, broadcast_campaign, engine, provision, run_campaign,
     scenario_row, scenarios, search, simulate, simulate_history,
     simulate_instrumented, simulate_trace, stack_scenarios, step, workload)
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.ckpt import save as ckpt_save  # noqa: E402
+from repro_torch.configs import ARCH_IDS, get_config  # noqa: E402
 from repro_torch.kernels import build as kbuild  # noqa: E402
 from repro_torch.data import ShardedLoader  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
@@ -366,6 +387,30 @@ FLASH_SHAPES = [
     ("qwen2-vl prefill", (1, 64, 8, 1280, 1280, 128), torch.bfloat16,
      dict(causal=True)),
 ]
+# the Pallas kernel's narrow heads: every case of its tests' widths 16 and
+# 32 (tests/test_torch_flash.py CASES), the smoke internlm2's prefill of
+# examples/serve_model.py's longest prompt (4 query heads over 2 of D 16),
+# and a width between instantiations (D 80 runs the 128-column one), each
+# in bf16 and f32, forward (phase 1) and backward (phase 2)
+NARROW_SHAPES = [
+    ("pallas MHA", (1, 2, 2, 64, 64, 32), dict(causal=True)),
+    ("pallas GQA", (2, 4, 2, 128, 128, 16), dict(causal=True)),
+    ("pallas ragged", (2, 4, 2, 100, 100, 16), dict(causal=False)),
+    ("pallas MQA", (1, 4, 1, 96, 224, 32), dict(causal=True)),
+    ("pallas window", (2, 4, 2, 160, 160, 32), dict(causal=True, window=32)),
+    ("pallas softcap", (2, 4, 2, 160, 160, 32), dict(causal=True,
+                                                    softcap=20.0)),
+    ("pallas window softcap", (1, 4, 2, 150, 150, 16),
+     dict(causal=True, window=48, softcap=50.0)),
+    ("pallas window only", (1, 2, 2, 70, 200, 16), dict(causal=False,
+                                                        window=64)),
+    ("smoke serving prefill", (1, 4, 2, 16, 16, 16), dict(causal=True)),
+    ("padded width 80", (2, 16, 8, 512, 512, 80), dict(causal=True)),
+]
+NARROW = [(f"{name} D {shape[-1]} {str(dtype).split('.')[1]}", shape, dtype,
+           kw) for name, shape, kw in NARROW_SHAPES
+          for dtype in (torch.bfloat16, torch.float32)]
+FLASH_SHAPES += NARROW
 FLASH_MAIN = "serving prefill"
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # relative error of the whole output (Frobenius) and of its worst row: an
@@ -403,6 +448,7 @@ FLASH_BWD_SHAPES = [
     ("bf16 rows without keys", (1, 8, 8, 256, 128, 64), torch.bfloat16,
      dict(causal=True)),
 ]
+FLASH_BWD_SHAPES += NARROW
 FLASH_BWD_MAIN = "internlm2 training"
 # q scaled so that the logits (std ~6) reach the softcap's bend, as a
 # trained gemma2's do: with unit logits the cap of 50 moves dS by ~4e-4
@@ -501,6 +547,17 @@ EXAMPLE_TIMEOUT = 240    # seconds a twin may take, on either device
 EXAMPLE_RTOL = 1e-5      # engine floats, as phase 3 holds them to the CPU
 EXAMPLE_LOSS_RTOL = 1e-4  # losses, as phase 9 holds them to the CPU
 MESH_MOE = (("token_gather", 4, 1024), ("weight_gather", 8, 2048))
+# phase 13: the JAX package's own smoke model of every family
+# (get_config(arch, smoke=True): heads 16 wide), f32 as the configs give it
+# and bf16, served (ServingEngine; Model.prefill / decode_step for encdec and
+# vlm) and trained (run_training; make_train_step for encdec and vlm) on the
+# card and on the CPU from the same CPU-drawn weights
+SMOKE_ENGINE = dict(n_slots=2, max_len=64, prompts=(12, 20, 9, 16),
+                    new_tokens=6)
+SMOKE_GENERATE = dict(batch=2, prompt=16, steps=6, patches=8, grid=4)
+SMOKE_TRAIN = dict(steps=3, global_batch=4, seq_len=32, lr=1e-3)
+SMOKE_F32_TRAIN_RTOL = 1e-4  # loss and gradient norm, as phase 9
+SMOKE_BF16_RTOL = 2e-2      # bf16 logits and losses: the kernels' bf16 tolerance
 
 
 def card() -> str:
@@ -525,11 +582,17 @@ def check(ok: bool, what: str) -> None:
 
 
 # --------------------------------------------------------------- 1. build
+# nvcc seconds of the flash libraries before their narrow and in-between
+# widths (9 and 24 kernels), each built alone: scripts/build_times.py on
+# an H100 host, PERF.md section 6
+PREVIOUS_BUILD_S = {"flash_attention": 11.09, "flash_attention_bwd": 24.02}
+
+
 def ptxas_kernels(log: str) -> list[tuple[str, int, int]]:
     """(kernel, registers, spill bytes stored and loaded) of each entry
     function in an ``nvcc -Xptxas -v`` log; the kernel named from its
-    mangled name with its template's integers (``bwd_dq_wgmma<128, 2>``)
-    and element type."""
+    mangled name with its template's integers and booleans
+    (``bwd_dq_wgmma<128, 2, false>``) and element type."""
     out, name, spills = [], None, 0
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(_ZN?)(\w+)'", line)
@@ -543,7 +606,8 @@ def ptxas_kernels(log: str) -> list[tuple[str, int, int]]:
             args = rest[1:rest.find("EE")] if rest.startswith("I") else ""
             kind = (["bf16"] if "bfloat16" in args
                     else ["f32"] if args.startswith("f") else [])
-            ints = re.findall(r"Li(\d+)E", args + "E")
+            ints = [v if t == "i" else ("true" if v == "1" else "false")
+                    for t, v in re.findall(r"L([ib])(\d+)E", args + "E")]
             name = f"{base}<{', '.join(kind + ints)}>"
             continue
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
@@ -566,6 +630,9 @@ def phase_build() -> None:
                         "flash_attention_bwd"), built):
         took = ("reused an existing build" if b["seconds"] is None
                 else f"nvcc {b['seconds']:.3f} s")
+        if name in PREVIOUS_BUILD_S:
+            took += (f" (before the narrow widths, built alone: "
+                     f"{PREVIOUS_BUILD_S[name]} s)")
         say("build", f"{name} {b['path'].name}: {took}")
         for line in b["log"].splitlines():
             if any(w in line for w in ("registers", "spill", "smem")):
@@ -2232,11 +2299,12 @@ def zoo_serve(arch: str, n_layers: int | None, n_requests: int,
 
 
 def greedy_run(model, params, batch: dict, max_len: int, steps: int,
-               start: int):
+               start: int, tokens: list | None = None):
     """``Model.prefill`` of ``batch`` then ``steps`` greedy decode steps
-    from position ``start``: (each step's logits, the caches, prefill
-    seconds, decode seconds, flash launches of the prefill, of the decode
-    steps)."""
+    from position ``start`` (fed ``tokens[i]``, ``[B, 1]``, instead of its
+    own pick at step i where given): (each step's logits, the caches,
+    prefill seconds, decode seconds, flash launches of the prefill, of the
+    decode steps)."""
     flash = flash_attention.flash_attention_cuda
     dev = batch["tokens"].device
     before = flash.launches
@@ -2246,13 +2314,19 @@ def greedy_run(model, params, batch: dict, max_len: int, steps: int,
         torch.cuda.synchronize()
     prefill_s, mid = time.perf_counter() - t0, flash.launches
     out = [logits]
-    tok = logits.argmax(-1)[:, None]
+
+    def pick(i: int, lg):
+        return lg.argmax(-1)[:, None] if tokens is None else tokens[i].to(dev)
+
+    tok = pick(0, logits)
     pos = torch.full((tok.shape[0],), start, device=dev)
     t1 = time.perf_counter()
-    for _ in range(steps):
+    for i in range(steps):
         logits, caches = model.decode_step(params, caches, tok, pos)
         out.append(logits)
-        tok, pos = logits.argmax(-1)[:, None], pos + 1
+        if i + 1 < steps:
+            tok = pick(i + 1, logits)
+        pos = pos + 1
     if dev.type == "cuda":
         torch.cuda.synchronize()
     return (out, caches, prefill_s, time.perf_counter() - t1,
@@ -3585,6 +3659,10 @@ def hold_twin(name: str, gpu: dict, cpu: dict) -> str:
               and close_to(w["total_cost"], cw["total_cost"], tol),
               "campaign_search: rungs, frontier and winner equal the CPU's")
         return f"rungs {gpu['rungs']}, winner {w}"
+    if name in ("serve_model", "elastic_restart"):
+        check(gpu["d_head"] == cpu["d_head"] == 16,
+              f"{name}: the reference's smoke model, heads 16 wide "
+              f"({gpu['d_head']})")
     if name == "serve_model":
         check(gpu["finished"] == cpu["finished"] and gpu["served"]
               == cpu["served"] == 6 and gpu["makespan"] == cpu["makespan"]
@@ -3605,6 +3683,9 @@ def hold_twin(name: str, gpu: dict, cpu: dict) -> str:
               and np.isfinite(gpu["final_loss"]),
               "elastic_restart: restarts, resume steps, survivors and plans "
               "equal the CPU's")
+        check(gpu["launches"]["flash"] > 0 and gpu["launches"]["flash_bwd"]
+              > 0, f"elastic_restart launched the flash forward and "
+              f"backward ({gpu['launches']})")
         gap = abs(gpu["final_loss"] - cpu["final_loss"]) / abs(
             cpu["final_loss"])
         return f"restarts {gpu['restarts']}, failures {gpu['failures']}, " \
@@ -3662,6 +3743,229 @@ def phase_lint_examples() -> dict[str, int]:
     say("timing", f"lint and examples: phase 12 {time.perf_counter() - t0:.1f}"
         " s")
     return counted
+
+
+# ------------------------------------------- 13. every family's smoke model
+class Recording:
+    """A model whose ``prefill`` and ``decode_step`` keep each call's logits
+    (f32, on the host): what ``ServingEngine`` computed, call by call."""
+
+    def __init__(self, model):
+        self.model, self.logits = model, []
+
+    def __getattr__(self, name):
+        return getattr(self.model, name)
+
+    def prefill(self, params, batch, max_len):
+        logits, caches = self.model.prefill(params, batch, max_len)
+        self.logits.append(logits.float().cpu())
+        return logits, caches
+
+    def decode_step(self, params, caches, token, pos):
+        logits, caches = self.model.decode_step(params, caches, token, pos)
+        self.logits.append(logits.float().cpu())
+        return logits, caches
+
+
+def smoke_engine(model, params, device: str) -> tuple[list, list]:
+    """``ServingEngine`` over SMOKE_ENGINE's requests: (each model call's
+    logits, each request's (finish step, tokens generated))."""
+    e = SMOKE_ENGINE
+    rec = Recording(model)
+    eng = ServingEngine(rec, params, n_slots=e["n_slots"],
+                        max_len=e["max_len"], device=device)
+    rng = np.random.default_rng(13)
+    for n in e["prompts"]:
+        eng.submit(rng.integers(0, model.cfg.vocab, size=n),
+                   max_new_tokens=e["new_tokens"])
+    eng.run_until_drained()
+    check(all(r.done and r.generated == e["new_tokens"]
+              for r in eng.requests), f"{model.cfg.name} on {device}: every "
+          f"request served its {e['new_tokens']} tokens")
+    return rec.logits, [(r.finish_time, r.generated) for r in eng.requests]
+
+
+def smoke_batch(cfg) -> tuple[dict, int]:
+    """The prefill batch of SMOKE_GENERATE for ``cfg``'s family (frames for
+    encdec; patch embeddings and M-RoPE positions for vlm) and the position
+    of the first decode step."""
+    g = SMOKE_GENERATE
+    rng = np.random.default_rng(14)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab, size=(g["batch"], g["prompt"])))}
+    start = g["prompt"]
+    if cfg.family == "encdec":
+        batch["frames"] = torch.from_numpy(rng.standard_normal(
+            (g["batch"], cfg.encoder.n_ctx, cfg.d_model)).astype(np.float32))
+    if cfg.family == "vlm":
+        n = g["patches"]
+        batch["frontend_embeds"] = torch.from_numpy(rng.standard_normal(
+            (g["batch"], n, cfg.d_model)).astype(np.float32))
+        batch["positions"] = mrope_positions(n, g["grid"], g["prompt"]).expand(
+            3, g["batch"], -1).contiguous()
+        start += n
+    return batch, start
+
+
+def smoke_serve(cfg, model, cpu, gpu) -> str:
+    """f32: the engine on both devices (engine families) or greedy
+    ``Model.prefill`` / ``decode_step`` (encdec, vlm), every call's logits
+    within 1e-3 and the same tokens (``hold_logits``, as phase 7); bf16: the engine on the card
+    (engine families), then prefill and decode steps fed the CPU's greedy
+    tokens on both devices, every call's logits within SMOKE_BF16_RTOL
+    relative.  Returns what was held."""
+    label = f"{cfg.name} {cfg.dtype}"
+    engine_family = cfg.family not in ("encdec", "vlm")
+    said = []
+    if engine_family:
+        card, card_done = smoke_engine(model, gpu, "cuda")
+        check(all(bool(x.isfinite().all()) for x in card),
+              f"{label}: the card engine's logits finite")
+        said.append(f"engine on the card: {len(card)} calls, finishes "
+                    f"{card_done}")
+    if cfg.dtype == "float32":
+        if engine_family:
+            host, host_done = smoke_engine(model, cpu, "cpu")
+            check(host_done == card_done and len(host) == len(card),
+                  f"{label}: the card engine's finishes {card_done} == the "
+                  f"CPU's {host_done}")
+            worst, tokens = hold_logits(label, {"cuda": card, "cpu": host})
+        else:
+            batch, start = smoke_batch(cfg)
+            g = SMOKE_GENERATE
+            runs, _, _ = parity_runs(model, cpu, gpu, batch,
+                                     start + g["steps"] + 1, g["steps"],
+                                     start)
+            worst, tokens = hold_logits(label, runs)
+        said.append(f"every call's logits within 1e-3 of the "
+                    f"CPU's (max |err| {worst!r}) and the same greedy tokens "
+                    f"({len(tokens)} calls)")
+        return "; ".join(said)
+    batch, start = smoke_batch(cfg)
+    g = SMOKE_GENERATE
+    max_len = start + g["steps"] + 1
+    with torch.no_grad():
+        host = greedy_run(model, cpu, batch, max_len, g["steps"], start)[0]
+        tokens = [x.argmax(-1)[:, None] for x in host[:-1]]
+        card = greedy_run(model, gpu, {k: v.cuda() for k, v in batch.items()},
+                          max_len, g["steps"], start, tokens)[0]
+    gaps = [float((a.float().cpu() - b.float()).norm() / b.float().norm())
+            for a, b in zip(card, host)]
+    check(len(card) == len(host) and max(gaps) < SMOKE_BF16_RTOL,
+          f"{label}: every call's logits within {SMOKE_BF16_RTOL} relative "
+          f"of the CPU's ({gaps})")
+    said.append(f"prefill and {g['steps']} decode steps fed the CPU's greedy "
+                f"tokens: logits within {max(gaps)!r} relative of the CPU's "
+                f"(limit {SMOKE_BF16_RTOL})")
+    return "; ".join(said)
+
+
+def smoke_train_runs(cfg, model, cpu) -> dict:
+    """{device: (losses, gradient norms)} of SMOKE_TRAIN's steps from the
+    CPU-drawn weights: ``run_training`` resuming the step-0 checkpoint of
+    those weights (the Markov pipeline's tokens, identical on both
+    devices), or for encdec and vlm ``make_train_step`` on one batch."""
+    t = SMOKE_TRAIN
+    runs = {}
+    if cfg.family in ("encdec", "vlm"):
+        batch, _ = smoke_batch(cfg)
+        rng = np.random.default_rng(15)
+        S = batch["tokens"].shape[1] + (
+            batch["frontend_embeds"].shape[1] if cfg.family == "vlm" else 0)
+        labels = rng.integers(0, cfg.vocab, size=(batch["tokens"].shape[0], S))
+        if cfg.family == "vlm":
+            labels[:, :batch["frontend_embeds"].shape[1]] = -100
+        batch["labels"] = torch.from_numpy(labels)
+        for dev in ("cpu", "cuda"):
+            params = tree.map_tree(lambda x: x.to(dev), cpu)
+            opt_state = adamw_init(params)
+            step_fn = make_train_step(model, OptConfig(
+                lr=t["lr"], warmup_steps=5, total_steps=t["steps"]))
+            b = {k: v.to(dev) for k, v in batch.items()}
+            losses, norms = [], []
+            for _ in range(t["steps"]):
+                params, opt_state, metrics = step_fn(params, opt_state, b)
+                losses.append(float(metrics["loss"]))
+                norms.append(float(metrics["grad_norm"]))
+            runs[dev] = (losses, norms)
+        return runs
+    for dev in ("cpu", "cuda"):
+        with tempfile.TemporaryDirectory() as d:
+            ckpt_save(d, 0, (cpu, adamw_init(cpu)))
+            out = run_training(cfg, steps=t["steps"],
+                               global_batch=t["global_batch"],
+                               seq_len=t["seq_len"], lr=t["lr"], ckpt_dir=d,
+                               ckpt_every=0, log_every=0, device=dev)
+        runs[dev] = (out["losses"], out["grad_norms"])
+    return runs
+
+
+def smoke_train(cfg, model, cpu) -> str:
+    """Losses (and in f32 gradient norms) on the card against the CPU's:
+    f32 within SMOKE_F32_TRAIN_RTOL, bf16 losses within SMOKE_BF16_RTOL."""
+    label = f"{cfg.name} {cfg.dtype}"
+    runs = smoke_train_runs(cfg, model, cpu)
+    (l0, n0), (l1, n1) = runs["cpu"], runs["cuda"]
+    check(all(np.isfinite(l1)) and all(np.isfinite(n1)),
+          f"{label}: the card's losses {l1} and gradient norms {n1} finite")
+    if cfg.dtype == "float32":
+        check(close_to(l1, l0, SMOKE_F32_TRAIN_RTOL)
+              and close_to(n1, n0, SMOKE_F32_TRAIN_RTOL),
+              f"{label}: losses {l1} and gradient norms {n1} within "
+              f"{SMOKE_F32_TRAIN_RTOL} of the CPU's {l0}, {n0}")
+        limit = SMOKE_F32_TRAIN_RTOL
+    else:
+        check(close_to(l1, l0, SMOKE_BF16_RTOL),
+              f"{label}: losses {l1} within {SMOKE_BF16_RTOL} of the CPU's "
+              f"{l0}")
+        limit = SMOKE_BF16_RTOL
+    gap = max(abs(a - b) / abs(b) for a, b in zip(l1, l0))
+    how = ("make_train_step" if cfg.family in ("encdec", "vlm")
+           else "run_training")
+    return (f"{how}, {len(l1)} steps: losses {l1} (CPU {l0}, worst relative "
+            f"gap {gap!r}, limit {limit}), gradient norms {n1} (CPU {n0})")
+
+
+def phase_smoke_zoo() -> dict[str, int]:
+    """13: ``get_config(arch, smoke=True)`` of every arch of the registry,
+    in f32 and bf16, served and trained on the card and held to the same
+    config's CPU run.  Every attention arch must launch the flash forward
+    and backward, the SSM archs the SSD kernel.  Returns each kernel's
+    launches in the phase."""
+    t0 = time.perf_counter()
+    total = {k: 0 for k in launches()}
+    for arch in ARCH_IDS:
+        before = launches()
+        for dtype in ("float32", "bfloat16"):
+            cfg = get_config(arch, smoke=True, dtype=dtype)
+            model = build_model(cfg)
+            cpu = model.init(torch.Generator().manual_seed(0))
+            gpu = tree.map_tree(lambda x: x.to("cuda"), cpu)
+            start = launches()
+            served = smoke_serve(cfg, model, cpu, gpu)
+            trained = smoke_train(cfg, model, cpu)
+            count = {k: v - start[k] for k, v in launches().items()}
+            say("smoke zoo", (
+                f"{arch} smoke ({cfg.family}, {cfg.n_layers} layers, "
+                f"d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads "
+                f"of D {cfg.d_head}) {dtype}: served: {served}; trained: "
+                f"{trained}; launches {count}"))
+            del gpu
+        count = {k: v - before[k] for k, v in launches().items()}
+        for k, v in count.items():
+            total[k] += v
+        attn = (cfg.family == "encdec" or mixers(cfg, "attn") > 0)
+        ssm_layers = 0 if cfg.family == "encdec" else mixers(cfg, "ssm")
+        check((count["flash"] > 0 and count["flash_bwd"] > 0) == attn,
+              f"{arch} smoke: flash forward {count['flash']} and backward "
+              f"{count['flash_bwd']} launches, {'some' if attn else 'none'} "
+              "wanted")
+        check((count["ssd"] > 0) == (ssm_layers > 0),
+              f"{arch} smoke: {count['ssd']} SSD launches for {ssm_layers} "
+              "SSM layers")
+    torch.cuda.empty_cache()
+    say("timing", f"smoke zoo: phase 13 {time.perf_counter() - t0:.1f} s")
+    return total
 
 
 def main() -> None:
@@ -3741,6 +4045,15 @@ def main() -> None:
         f"the advance sweep {twelfth['sweep']}, the flash forward "
         f"{twelfth['flash']} and backward {twelfth['flash_bwd']} and the SSD "
         f"kernel {twelfth['ssd']} times")
+    zero_launches()
+    thirteenth = phase_smoke_zoo()
+    check(launches() == thirteenth, f"phase 13 launches {launches()} == its "
+          f"runs' {thirteenth}")
+    took["smoke zoo"] = time.perf_counter() - t0 - sum(took.values())
+    say("proof", f"phase 13 (every family's smoke model, 16-wide heads) "
+        f"launched the flash forward {thirteenth['flash']} and backward "
+        f"{thirteenth['flash_bwd']} and the SSD kernel {thirteenth['ssd']} "
+        "times")
     say("timing", ", ".join(f"{k} {v:.1f} s" for k, v in took.items()))
 
     kernels = [{
@@ -3749,7 +4062,7 @@ def main() -> None:
         "source": "src/repro_torch/csrc/vm_update.cu",
         "replaces": "src/repro/kernels/vm_update.py:123",
         "launches": (sweeps + tenth["sweep"] + eleventh["sweep"]
-                     + twelfth["sweep"]),
+                     + twelfth["sweep"] + thirteenth["sweep"]),
         **sweep_record,
         "library_ms": None,
     }, {
@@ -3758,7 +4071,7 @@ def main() -> None:
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:99",
         "launches": (flash_launches + tenth["flash"] + eleventh["flash"]
-                     + twelfth["flash"]),
+                     + twelfth["flash"] + thirteenth["flash"]),
         **flash_record,
     }, {
         "name": "flash_attention_bwd",
@@ -3767,7 +4080,8 @@ def main() -> None:
         "replaces": "src/repro/models/attention.py:40 flash_xla (gradient by "
                     "jax.grad; no Pallas kernel)",
         "launches": (counted["flash_bwd"] + tenth["flash_bwd"]
-                     + eleventh["flash_bwd"] + twelfth["flash_bwd"]),
+                     + eleventh["flash_bwd"] + twelfth["flash_bwd"]
+                     + thirteenth["flash_bwd"]),
         **flash_bwd_record,
     }, {
         "name": "ssd_scan",
@@ -3775,7 +4089,7 @@ def main() -> None:
         "source": "src/repro_torch/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:81",
         "launches": (ssd_launches + tenth["ssd"] + eleventh["ssd"]
-                     + twelfth["ssd"]),
+                     + twelfth["ssd"] + thirteenth["ssd"]),
         **ssd_record,
     }]
     print(CARD)

@@ -5,16 +5,15 @@ and finishes the job — the PyTorch port's twin of
 
     python examples_torch/elastic_restart.py [--device cpu]
 
-The smoke internlm2 model, with heads 64 wide instead of 16 (the
-narrowest the flash kernels take), trains for 30 steps with checkpoints
-every 6; failures are injected at steps 9 and 20, each restart resumes
-from the latest checkpoint and plans with two ``simulate`` runs.  The weights come
-from a seeded ``torch.Generator``, so the losses are the port's own.
+The smoke internlm2 model, the reference's own (16-wide heads), trains
+for 30 steps with checkpoints every 6; failures are injected at steps 9
+and 20, each restart resumes from the latest checkpoint and plans with two
+``simulate`` runs.  The weights come from a seeded ``torch.Generator``, so
+the losses are the port's own.
 ``--device`` defaults to the GPU; without one, pass ``--device cpu``.
 ``--json PATH`` also writes the printed numbers.
 """
 import argparse
-import dataclasses
 import json
 import sys
 import tempfile
@@ -35,13 +34,12 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
 
-    cfg = dataclasses.replace(get_config("internlm2-1.8b", smoke=True),
-                              d_head=64)
+    cfg = get_config("internlm2-1.8b", smoke=True)
     with tempfile.TemporaryDirectory() as d:
         runner = ElasticRunner(cfg, d, steps=30, global_batch=4, seq_len=32,
                                ckpt_every=6, n_workers=4, device=dev)
         out = runner.run(fail_at_steps=[9, 20])
-    rec = {"restarts": out["restarts"], "failures": [],
+    rec = {"restarts": out["restarts"], "failures": [], "d_head": cfg.d_head,
            "final_loss": out["result"]["final_loss"],
            "losses": out["result"]["losses"],
            "launches": {

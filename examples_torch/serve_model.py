@@ -4,9 +4,8 @@ port's twin of ``examples/serve_model.py``.
 
     python examples_torch/serve_model.py [--device cpu]
 
-The smoke internlm2 model, with heads 64 wide instead of 16 (the
-narrowest the flash kernel takes), gets random weights from a seeded
-``torch.Generator`` (not the reference's ``jax.random`` draw, so the
+The smoke internlm2 model, the reference's own (16-wide heads), gets
+random weights from a seeded ``torch.Generator`` (not the reference's ``jax.random`` draw, so the
 generated tokens are the port's own; the finishes depend only on the
 requests' lengths).  On the card every prefill runs the hand-written flash
 kernel and every re-plan simulates the queue with the advance-sweep kernel.
@@ -14,7 +13,6 @@ kernel and every re-plan simulates the queue with the advance-sweep kernel.
 ``--json PATH`` also writes the printed numbers.
 """
 import argparse
-import dataclasses
 import json
 import sys
 from pathlib import Path
@@ -38,8 +36,7 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
 
-    cfg = dataclasses.replace(get_config("internlm2-1.8b", smoke=True),
-                              d_head=64)
+    cfg = get_config("internlm2-1.8b", smoke=True)
     model = build_model(cfg)
     params = model.init(torch.Generator(dev).manual_seed(0))
 
@@ -50,7 +47,7 @@ def main(argv=None) -> dict:
         eng.submit(rng.integers(0, cfg.vocab, size=8 + 4 * (i % 3)),
                    max_new_tokens=6 + 2 * (i % 2))
 
-    out = {"finished": []}
+    out = {"finished": [], "d_head": cfg.d_head}
     while any(not r.done for r in eng.requests):
         info = eng.step()
         if info["finished"]:

@@ -43,6 +43,16 @@
 //     read from the next head.  A box is 64 columns (128 bytes, the most the
 //     128-byte swizzle takes), so D = 128 loads as two boxes and D = 96 as
 //     two with columns 96-127 zero-filled.
+//   - Narrow and in-between widths: every D with D % 8 == 0 up to 128 runs.
+//     64, 96 and 128 have instantiations of their own; any other D runs the
+//     instantiation of its class (kAny: 64 columns for D < 64, 128 for
+//     64 < D < 128) with D read at run time.  The tensor maps have D
+//     columns, so TMA zero-fills the box's columns past D (a box wider than
+//     the tensor, as the SSD kernel's P and N of 16 load); S = Q K^T stops
+//     at the first 16-column slice past D, P V runs on the class's columns
+//     (zeros past D), and the store writes D columns of each row and no
+//     more, so the next row of a contiguous [B, H, S, D] output is never
+//     touched.  The scale is the caller's (D^-0.5 of the real D).
 //   - S = Q K^T: wgmma m64n128k16, Q and K both K-major from shared memory.
 //   - The online softmax in the S accumulator registers: a row's 128
 //     columns spread over the 4 threads of a quad, reduced with two
@@ -69,7 +79,9 @@
 //   2tx + 32g (+0, +1), so the rescale of a row never leaves the thread;
 //   row max and sum reduce over a half-warp with shuffles.  Q, one K/V
 //   tile and P in shared memory as f32 (83 KB at D = 128), row strides
-//   padded by 4 floats against bank conflicts; synchronous loads.
+//   padded by 4 floats against bank conflicts; synchronous loads.  Other
+//   widths than 64, 96 and 128 run flash_fwd_f32<64 or 128, kAny>: the
+//   tiles are loaded zero past D, and the store writes D columns.
 //
 // The C entry point launches on the caller's stream, does not synchronise,
 // and returns cudaGetLastError() (or the error of cudaFuncSetAttribute, or
@@ -109,14 +121,17 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// The accumulator layout of wgmma m64nN is in hopper.cuh.
-template <int D, int kWG>
+// The accumulator layout of wgmma m64nN is in hopper.cuh.  kAny: the head
+// width is d_run (d_run % 8 == 0, d_run <= D), else D.
+template <int D, int kWG, bool kAny>
 __global__ void __launch_bounds__(128 * kWG, 1)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
                 const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tv,
                 __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int Hq, int Hk,
-                int Sq, int Sk, int causal, int window, float softcap, float scale) {
+                int Sq, int Sk, int d_run, int causal, int window, float softcap,
+                float scale) {
+  const int d = kAny ? d_run : D;
   constexpr int kBq = 64 * kWG;
   constexpr int kDp = D <= 64 ? 64 : 128;  // columns in shared memory
   constexpr int kBoxes = kDp / 64;
@@ -214,6 +229,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
+      if (kAny && 16 * kk >= d) break;     // the slices past d are zeros
       const uint32_t col = (kk % 4) * 32;  // bytes into a 128-byte row
       wgmma_ss_n128(acc_s,
                     gmma_desc(q_wg + (kk / 4) * kQBox + col, 16),
@@ -309,11 +325,13 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
       if (lse != nullptr && lane % 4 == 0)
         lse[static_cast<size_t>(qh) * Sq + q0 + rr] =
             l_row[r] > 0.f ? (m[r] + log2f(l_row[r])) / kLog2e : INFINITY;
-      __nv_bfloat16* orow = o + (static_cast<size_t>(qh) * Sq + q0 + rr) * D + c_lane;
+      __nv_bfloat16* orow = o + (static_cast<size_t>(qh) * Sq + q0 + rr) * d + c_lane;
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j)
+      for (int j = 0; j < D / 8; ++j) {
+        if (kAny && 8 * j >= d) break;  // the row's own d columns only
         *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
             __floats2bfloat162_rn(acc_o[4 * j + 2 * r] * inv[r], acc_o[4 * j + 2 * r + 1] * inv[r]);
+      }
     }
   }
 }
@@ -330,27 +348,27 @@ int encode(CUtensorMap* map, const void* ptr, int d, int rows, int heads, int bo
   return encode_bf16(map, ptr, 3, dims, strides, box);
 }
 
-template <int D, int kWG>
+template <int D, int kWG, bool kAny>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o, float* lse, int B,
-                 int Hq, int Hk, int Sq, int Sk, int causal, int window, float softcap,
-                 float scale, cudaStream_t stream) {
+                 int Hq, int Hk, int Sq, int Sk, int d, int causal, int window,
+                 float softcap, float scale, cudaStream_t stream) {
   constexpr int kSmem = wgmma_smem_bytes<D, kWG>();
   // once per instantiation, at its first launch (outside any graph capture)
   static bool configured = false;
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_wgmma<D, kWG>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+        flash_fwd_wgmma<D, kWG, kAny>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
   CUtensorMap tq, tk, tv;
-  int err = encode(&tq, q, D, Sq, B * Hq, 64 * kWG);
-  if (err == 0) err = encode(&tk, k, D, Sk, B * Hk, kBk);
-  if (err == 0) err = encode(&tv, v, D, Sk, B * Hk, kBk);
+  int err = encode(&tq, q, d, Sq, B * Hq, 64 * kWG);
+  if (err == 0) err = encode(&tk, k, d, Sk, B * Hk, kBk);
+  if (err == 0) err = encode(&tv, v, d, Sk, B * Hk, kBk);
   if (err != 0) return err;
   const dim3 grid((Sq + 64 * kWG - 1) / (64 * kWG), Hq, B);
-  flash_fwd_wgmma<D, kWG><<<grid, 128 * kWG, kSmem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, Hq, Hk, Sq, Sk, causal, window,
+  flash_fwd_wgmma<D, kWG, kAny><<<grid, 128 * kWG, kSmem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, Hq, Hk, Sq, Sk, d, causal, window,
       softcap, scale);
   return static_cast<int>(cudaGetLastError());
 }
@@ -362,16 +380,17 @@ constexpr int kBlockK = 64;
 constexpr int kThreads = 256;
 constexpr int kLdP = kBlockK + 4;
 
-// A [64, D] tile of rows [0, rows) into shared memory with row stride
+// A [64, d] tile of rows [0, rows) into shared memory with row stride
 // D + 4; rows past the edge are zeros (V rows must be: 0 * garbage could
-// be NaN).
-template <int D>
-__device__ __forceinline__ void load_tile(float* dst, const float* src, int rows) {
+// be NaN), and so are the columns past d (kAny; else d = D).
+template <int D, bool kAny>
+__device__ __forceinline__ void load_tile(float* dst, const float* src, int rows, int d) {
   constexpr int kVecs = D / 4;
   for (int idx = threadIdx.x; idx < kBlockQ * kVecs; idx += kThreads) {
     const int r = idx / kVecs, c = (idx % kVecs) * 4;
-    const float4 x = r < rows ? *reinterpret_cast<const float4*>(src + static_cast<size_t>(r) * D + c)
-                              : make_float4(0.f, 0.f, 0.f, 0.f);
+    const bool in = r < rows && (!kAny || c < d);
+    const float4 x = in ? *reinterpret_cast<const float4*>(src + static_cast<size_t>(r) * d + c)
+                        : make_float4(0.f, 0.f, 0.f, 0.f);
     *reinterpret_cast<float4*>(dst + r * (D + 4) + c) = x;
   }
 }
@@ -392,12 +411,15 @@ constexpr int f32_smem_bytes() {
   return (2 * kBlockQ * (D + 4) + kBlockQ * kLdP) * static_cast<int>(sizeof(float));
 }
 
-template <int D>
+// kAny: the head width is d_run (d_run % 8 == 0, d_run <= D), else D; the
+// tiles keep D columns (zeros past d_run) and the store writes d_run.
+template <int D, bool kAny>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
-              int Hq, int Hk, int Sq, int Sk, int causal, int window, float softcap,
-              float scale) {
+              int Hq, int Hk, int Sq, int Sk, int d_run, int causal, int window,
+              float softcap, float scale) {
+  const int dw = kAny ? d_run : D;
   constexpr int kLd = D + 4;
   constexpr int kGroups = D / 32;  // float2 column groups of O per thread
   extern __shared__ float4 smem4[];
@@ -411,10 +433,10 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   const int q0 = qt * kBlockQ;
   const int q_rows = min(kBlockQ, Sq - q0);
   const int offset = Sk - Sq;
-  const float* qg = q + (static_cast<size_t>(b) * Hq + h) * Sq * D + static_cast<size_t>(q0) * D;
-  const float* kg = k + (static_cast<size_t>(b) * Hk + hk) * Sk * D;
-  const float* vg = v + (static_cast<size_t>(b) * Hk + hk) * Sk * D;
-  float* og = o + (static_cast<size_t>(b) * Hq + h) * Sq * D + static_cast<size_t>(q0) * D;
+  const float* qg = q + (static_cast<size_t>(b) * Hq + h) * Sq * dw + static_cast<size_t>(q0) * dw;
+  const float* kg = k + (static_cast<size_t>(b) * Hk + hk) * Sk * dw;
+  const float* vg = v + (static_cast<size_t>(b) * Hk + hk) * Sk * dw;
+  float* og = o + (static_cast<size_t>(b) * Hq + h) * Sq * dw + static_cast<size_t>(q0) * dw;
 
   const int lane = threadIdx.x & 31;
   const int tx = lane & 15;
@@ -443,13 +465,13 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     for (int c = 0; c < 2 * kGroups; ++c) acc[i][c] = 0.f;
   }
 
-  load_tile<D>(qs, qg, q_rows);
+  load_tile<D, kAny>(qs, qg, q_rows, dw);
 
   for (int kt = kt_lo; kt < kt_hi; ++kt) {
     const int k0 = kt * kBlockK;
     const int k_rows = min(kBlockK, Sk - k0);
     __syncthreads();  // the previous tile's P . V is done with kvs and ps
-    load_tile<D>(kvs, kg + static_cast<size_t>(k0) * D, k_rows);
+    load_tile<D, kAny>(kvs, kg + static_cast<size_t>(k0) * dw, k_rows, dw);
     __syncthreads();
 
     // S = Q K^T for rows 4ty + i, columns tx + 16j
@@ -460,6 +482,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
       for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
 #pragma unroll 4
     for (int d = 0; d < D; d += 4) {
+      if (kAny && d >= dw) break;  // the columns past dw are zeros
       float4 qa[4], kb[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) qa[i] = *reinterpret_cast<const float4*>(qs + (4 * ty + i) * kLd + d);
@@ -511,7 +534,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
       for (int j = 0; j < 4; ++j) ps[(4 * ty + i) * kLdP + tx + 16 * j] = s[i][j];
     }
     __syncthreads();  // S is done with K; P is complete
-    load_tile<D>(kvs, vg + static_cast<size_t>(k0) * D, k_rows);
+    load_tile<D, kAny>(kvs, vg + static_cast<size_t>(k0) * dw, k_rows, dw);
     __syncthreads();
 
     // acc += P V for rows 4ty + i, columns 2tx + 32g (+0, +1)
@@ -547,60 +570,71 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
             l_row > 0.f ? m[i] + logf(l_row) : INFINITY;
 #pragma unroll
       for (int g = 0; g < kGroups; ++g)
-        *reinterpret_cast<float2*>(og + static_cast<size_t>(r) * D + 2 * tx + 32 * g) =
-            make_float2(acc[i][2 * g] / li, acc[i][2 * g + 1] / li);
+        if (!kAny || 2 * tx + 32 * g < dw)  // the row's own dw columns only
+          *reinterpret_cast<float2*>(og + static_cast<size_t>(r) * dw + 2 * tx + 32 * g) =
+              make_float2(acc[i][2 * g] / li, acc[i][2 * g + 1] / li);
     }
   }
 }
 
-template <int D>
+template <int D, bool kAny>
 int launch_f32(const void* q, const void* k, const void* v, void* o, float* lse, int B, int Hq,
-               int Hk, int Sq, int Sk, int causal, int window, float softcap, float scale,
-               cudaStream_t stream) {
+               int Hk, int Sq, int Sk, int d, int causal, int window, float softcap,
+               float scale, cudaStream_t stream) {
   constexpr int kSmem = f32_smem_bytes<D>();
   // once per instantiation, at its first launch (outside any graph capture)
   static bool configured = false;
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+        flash_fwd_f32<D, kAny>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
   const dim3 grid((Sq + kBlockQ - 1) / kBlockQ, Hq, B);
-  flash_fwd_f32<D><<<grid, kThreads, kSmem, stream>>>(
+  flash_fwd_f32<D, kAny><<<grid, kThreads, kSmem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), lse, Hq, Hk, Sq, Sk, causal, window, softcap, scale);
+      static_cast<float*>(o), lse, Hq, Hk, Sq, Sk, d, causal, window, softcap, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 // ========================================================== entry point
 
 using Launch = int (*)(const void*, const void*, const void*, void*, float*, int, int, int, int,
-                       int, int, int, float, float, cudaStream_t);
+                       int, int, int, int, float, float, cudaStream_t);
 
 struct Variant {
   int dtype, d, block_q, block_k, threads, smem;
+  bool any;  // takes every width up to d with d % 8 == 0, not d alone
   Launch launch;
 };
 
 // Every instantiation, found by (dtype, D, block_q): the launch plan
 // (kernels/flash_attention.py kernel_plan) picks those three; the key tile,
-// threads and shared memory are the instantiation's own.
+// threads and shared memory are the instantiation's own.  D = 64, 96 and
+// 128 have their own; every other D with D % 8 == 0 up to 128 takes the
+// first `any` row whose width holds it (kernel_width in the plan).
 constexpr Variant kVariants[] = {
-    {1, 64, 64, kBk, 128, wgmma_smem_bytes<64, 1>(), launch_wgmma<64, 1>},
-    {1, 64, 128, kBk, 256, wgmma_smem_bytes<64, 2>(), launch_wgmma<64, 2>},
-    {1, 96, 64, kBk, 128, wgmma_smem_bytes<96, 1>(), launch_wgmma<96, 1>},
-    {1, 96, 128, kBk, 256, wgmma_smem_bytes<96, 2>(), launch_wgmma<96, 2>},
-    {1, 128, 64, kBk, 128, wgmma_smem_bytes<128, 1>(), launch_wgmma<128, 1>},
-    {1, 128, 128, kBk, 256, wgmma_smem_bytes<128, 2>(), launch_wgmma<128, 2>},
-    {0, 64, kBlockQ, kBlockK, kThreads, f32_smem_bytes<64>(), launch_f32<64>},
-    {0, 96, kBlockQ, kBlockK, kThreads, f32_smem_bytes<96>(), launch_f32<96>},
-    {0, 128, kBlockQ, kBlockK, kThreads, f32_smem_bytes<128>(), launch_f32<128>},
+    {1, 64, 64, kBk, 128, wgmma_smem_bytes<64, 1>(), false, launch_wgmma<64, 1, false>},
+    {1, 64, 128, kBk, 256, wgmma_smem_bytes<64, 2>(), false, launch_wgmma<64, 2, false>},
+    {1, 96, 64, kBk, 128, wgmma_smem_bytes<96, 1>(), false, launch_wgmma<96, 1, false>},
+    {1, 96, 128, kBk, 256, wgmma_smem_bytes<96, 2>(), false, launch_wgmma<96, 2, false>},
+    {1, 128, 64, kBk, 128, wgmma_smem_bytes<128, 1>(), false, launch_wgmma<128, 1, false>},
+    {1, 128, 128, kBk, 256, wgmma_smem_bytes<128, 2>(), false, launch_wgmma<128, 2, false>},
+    {0, 64, kBlockQ, kBlockK, kThreads, f32_smem_bytes<64>(), false, launch_f32<64, false>},
+    {0, 96, kBlockQ, kBlockK, kThreads, f32_smem_bytes<96>(), false, launch_f32<96, false>},
+    {0, 128, kBlockQ, kBlockK, kThreads, f32_smem_bytes<128>(), false, launch_f32<128, false>},
+    {1, 64, 64, kBk, 128, wgmma_smem_bytes<64, 1>(), true, launch_wgmma<64, 1, true>},
+    {1, 64, 128, kBk, 256, wgmma_smem_bytes<64, 2>(), true, launch_wgmma<64, 2, true>},
+    {1, 128, 64, kBk, 128, wgmma_smem_bytes<128, 1>(), true, launch_wgmma<128, 1, true>},
+    {1, 128, 128, kBk, 256, wgmma_smem_bytes<128, 2>(), true, launch_wgmma<128, 2, true>},
+    {0, 64, kBlockQ, kBlockK, kThreads, f32_smem_bytes<64>(), true, launch_f32<64, true>},
+    {0, 128, kBlockQ, kBlockK, kThreads, f32_smem_bytes<128>(), true, launch_f32<128, true>},
 };
 
 const Variant* find(int dtype, int D, int block_q) {
+  if (D < 8 || D > 128 || D % 8 != 0) return nullptr;
   for (const Variant& x : kVariants)
-    if (x.dtype == dtype && x.d == D && x.block_q == block_q) return &x;
+    if (x.dtype == dtype && x.block_q == block_q && (x.any ? D <= x.d : D == x.d)) return &x;
   return nullptr;
 }
 
@@ -629,6 +663,6 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
                                    float scale, int block_q, void* stream) {
   const Variant* x = find(dtype, D, block_q);
   if (x == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  return x->launch(q, k, v, o, lse, B, Hq, Hk, Sq, Sk, causal, window, softcap, scale,
+  return x->launch(q, k, v, o, lse, B, Hq, Hk, Sq, Sk, D, causal, window, softcap, scale,
                    static_cast<cudaStream_t>(stream));
 }

@@ -63,6 +63,13 @@
 //     swizzle: rows past S (the ragged edges) are zero-filled, never read
 //     from the next head; D = 128 loads as two boxes and D = 96 as two with
 //     columns 96-127 zero-filled.
+//   - Other widths: every D with D % 8 == 0 up to 128 runs.  64, 96 and
+//     128 have instantiations of their own; any other D runs the
+//     instantiation of its class (kAny: 64 columns for D < 64, 128 for
+//     64 < D < 128) with D read at run time, as the forward does: the maps
+//     have D columns, so TMA zero-fills the boxes past D; the products over
+//     D stop at the first 16-column slice past it; dK, dV and dQ are stored
+//     in D columns a row and no more.
 //   - (b): S^T = K Q^T and dP^T = V dO^T on wgmma m64n64k16, both operands
 //     K-major, as the forward's S = Q K^T, committed as two groups.  P goes
 //     to bf16 in registers while dP^T runs (the accumulator's layout is the
@@ -93,7 +100,9 @@
 // * f32: bwd_dkdv_cc<D>, bwd_dq_cc<D>, on the CUDA cores in f32 FMAs
 //   (which its 1e-4 tolerance needs).  32 x 32 tiles, 256 threads; the
 //   tiles as f32 in shared memory with rows padded by one float; S, dP
-//   and dS through shared memory.
+//   and dS through shared memory.  Other widths than 64, 96 and 128 run
+//   the kAny instantiation of their class, as the bf16 kernels do: tiles
+//   loaded zero past D, dot products over D, D columns stored.
 //
 // The C entry point launches on the caller's stream, does not synchronise,
 // and returns the first cudaGetLastError() that is not 0 (checked after
@@ -159,16 +168,19 @@ __device__ __forceinline__ float cap(float x, float softcap, float* factor) {
 
 // ============================================== (a) delta = rowsum(dO o o)
 
-template <typename T, int D>
+// In every kernel below, kAny: the head width is d_run (d_run % 8 == 0,
+// d_run <= D), else D.
+template <typename T, int D, bool kAny>
 __global__ void __launch_bounds__(256)
 bwd_delta(const T* __restrict__ o, const T* __restrict__ dout, float* __restrict__ delta,
-          int rows) {
+          int rows, int d_run) {
+  const int d = kAny ? d_run : D;
   const int row = blockIdx.x * 8 + threadIdx.x / 32, lane = threadIdx.x % 32;
   if (row >= rows) return;
-  const T* orow = o + static_cast<size_t>(row) * D;
-  const T* drow = dout + static_cast<size_t>(row) * D;
+  const T* orow = o + static_cast<size_t>(row) * d;
+  const T* drow = dout + static_cast<size_t>(row) * d;
   float acc = 0.f;
-  for (int c = lane; c < D; c += 32) acc = fmaf(to_f32(orow[c]), to_f32(drow[c]), acc);
+  for (int c = lane; c < d; c += 32) acc = fmaf(to_f32(orow[c]), to_f32(drow[c]), acc);
 #pragma unroll
   for (int x = 16; x > 0; x >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, x);
   if (lane == 0) delta[row] = acc;
@@ -233,14 +245,16 @@ __device__ __forceinline__ uint64_t mn_major(uint32_t tile, uint32_t box, int kk
   return gmma_desc(tile + kk * 16 * 128, box);
 }
 
-// acc (64 x 64) = A B^T over D, A the 64 rows at a, B the 64 rows at b, both
-// K-major.
-template <int D>
+// acc (64 x 64) = A B^T over d columns (D unless kAny), A the 64 rows at a,
+// B the 64 rows at b, both K-major; the 16-column slices past d are zeros.
+template <int D, bool kAny>
 __device__ __forceinline__ void product_abt(float (&acc)[32], uint32_t a, uint32_t a_box,
-                                            uint32_t b, uint32_t b_box) {
+                                            uint32_t b, uint32_t b_box, int d) {
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
+  for (int kk = 0; kk < D / 16; ++kk) {
+    if (kAny && 16 * kk >= d) break;
     wgmma_ss_n64(acc, k_major(a, a_box, kk), k_major(b, b_box, kk), kk > 0);
+  }
 }
 
 // acc (64 x padded D) += X B, X (64 x 64) as bf16 A fragments, B the 64 rows
@@ -340,13 +354,14 @@ __device__ __forceinline__ void dq_probs(float (&sc)[32], const float (&lse_r)[2
 
 // (b) dK, dV: the block owns keys [k0, k0 + 64 * kWG) of kv head (b, hk),
 // warpgroup wg the 64 from k0 + 64 wg.
-template <int D, int kWG>
+template <int D, int kWG, bool kAny>
 __global__ void __launch_bounds__(128 * kWG, 1)
 bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
                const float* __restrict__ lse, const float* __restrict__ delta,
                __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int Hq, int Hk,
-               Mask mask, float softcap, float scale) {
+               int d_run, Mask mask, float softcap, float scale) {
+  const int d = kAny ? d_run : D;
   constexpr int kBk = 64 * kWG;
   constexpr int kDp = padded_cols<D>();
   constexpr int kBoxes = kDp / 64;
@@ -451,9 +466,9 @@ bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
     __syncwarp();
     const uint32_t q_t = opaque(q_s + s * kQTile), do_t = opaque(do_s + s * kQTile);
     wgmma_fence();
-    product_abt<D>(st, opaque(k_wg), kKVBox, q_t, kQBox);
+    product_abt<D, kAny>(st, opaque(k_wg), kKVBox, q_t, kQBox, d);
     wgmma_commit();
-    product_abt<D>(dpt, opaque(v_wg), kKVBox, do_t, kQBox);
+    product_abt<D, kAny>(dpt, opaque(v_wg), kKVBox, do_t, kQBox, d);
     wgmma_commit();
 
     // P from S^T while dP^T runs, then dV += P^T dO while dS is formed, then
@@ -495,9 +510,10 @@ bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
   for (int r = 0; r < 2; ++r) {
     const int key = key0 + 8 * r;
     if (key >= mask.Sk) continue;
-    const size_t row = (static_cast<size_t>(kvh) * mask.Sk + key) * D + c_lane;
+    const size_t row = (static_cast<size_t>(kvh) * mask.Sk + key) * d + c_lane;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
+      if (kAny && 8 * j >= d) break;  // the row's own d columns only
       *reinterpret_cast<__nv_bfloat162*>(dk + row + 8 * j) =
           __floats2bfloat162_rn(acc_dk[4 * j + 2 * r] * scale, acc_dk[4 * j + 2 * r + 1] * scale);
       *reinterpret_cast<__nv_bfloat162*>(dv + row + 8 * j) =
@@ -508,13 +524,14 @@ bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
 
 // (c) dQ: the block owns query rows [q0, q0 + 64 * kWG) of head (b, h),
 // warpgroup wg the 64 from q0 + 64 wg.
-template <int D, int kWG>
+template <int D, int kWG, bool kAny>
 __global__ void __launch_bounds__(128 * kWG, 1)
 bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
              const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
              const float* __restrict__ lse, const float* __restrict__ delta,
-             __nv_bfloat16* __restrict__ dq, int Hq, int Hk, Mask mask, float softcap,
-             float scale) {
+             __nv_bfloat16* __restrict__ dq, int Hq, int Hk, int d_run, Mask mask,
+             float softcap, float scale) {
+  const int d = kAny ? d_run : D;
   constexpr int kBq = 64 * kWG;
   constexpr int kDp = padded_cols<D>();
   constexpr int kBoxes = kDp / 64;
@@ -605,9 +622,9 @@ bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUt
     __syncwarp();
     const uint32_t k_t = opaque(k_s + s * kKTile);
     wgmma_fence();
-    product_abt<D>(sc, opaque(q_wg), kQBox, k_t, kKBox);
+    product_abt<D, kAny>(sc, opaque(q_wg), kQBox, k_t, kKBox, d);
     wgmma_commit();
-    product_abt<D>(dp, opaque(do_wg), kQBox, opaque(v_s + s * kKTile), kKBox);
+    product_abt<D, kAny>(dp, opaque(do_wg), kQBox, opaque(v_s + s * kKTile), kKBox, d);
     wgmma_commit();
 
     // P from S while dP runs, then dS
@@ -646,11 +663,13 @@ bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUt
   for (int r = 0; r < 2; ++r) {
     const int qi = row0 + 8 * r;
     if (qi >= mask.Sq) continue;
-    __nv_bfloat16* out = dq + (static_cast<size_t>(qh) * mask.Sq + qi) * D + c_lane;
+    __nv_bfloat16* out = dq + (static_cast<size_t>(qh) * mask.Sq + qi) * d + c_lane;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < D / 8; ++j) {
+      if (kAny && 8 * j >= d) break;  // the row's own d columns only
       *reinterpret_cast<__nv_bfloat162*>(out + 8 * j) =
           __floats2bfloat162_rn(acc_dq[4 * j + 2 * r] * scale, acc_dq[4 * j + 2 * r + 1] * scale);
+    }
   }
 }
 
@@ -664,13 +683,13 @@ constexpr int cc_smem_bytes() {
   return (4 * kT * (D + 1) + 2 * kT * (kT + 1) + 2 * kT) * 4;
 }
 
-// rows [0, kT) of a [rows, D] matrix into shared memory of stride D + 1,
-// zeros from row `valid` on.
+// rows [0, kT) of a [rows, d] matrix into shared memory of stride D + 1,
+// zeros from row `valid` on and in the columns past d.
 template <int D>
-__device__ __forceinline__ void load_tile_f32(float* dst, const float* src, int valid) {
+__device__ __forceinline__ void load_tile_f32(float* dst, const float* src, int valid, int d) {
   for (int idx = threadIdx.x; idx < kT * D; idx += kCcThreads) {
     const int r = idx / D, c = idx % D;
-    dst[r * (D + 1) + c] = r < valid ? src[static_cast<size_t>(r) * D + c] : 0.f;
+    dst[r * (D + 1) + c] = r < valid && c < d ? src[static_cast<size_t>(r) * d + c] : 0.f;
   }
 }
 
@@ -683,13 +702,14 @@ __device__ __forceinline__ float dot_rows(const float* a, const float* b, int d)
 // (b) dK, dV: the block owns keys [k0, k0 + 32) of kv head (b, hk).
 // Thread x: in the scores, key x / 8 against queries x % 8 + 8c; in the
 // accumulators, key x / 8, columns x % 8 + 8c.
-template <int D>
+template <int D, bool kAny>
 __global__ void __launch_bounds__(kCcThreads)
 bwd_dkdv_cc(const float* __restrict__ q, const float* __restrict__ k,
             const float* __restrict__ v, const float* __restrict__ dout,
             const float* __restrict__ lse, const float* __restrict__ delta,
-            float* __restrict__ dk, float* __restrict__ dv, int Hq, int Hk, Mask mask,
-            float softcap, float scale) {
+            float* __restrict__ dk, float* __restrict__ dv, int Hq, int Hk, int d_run,
+            Mask mask, float softcap, float scale) {
+  const int d = kAny ? d_run : D;
   constexpr int ld = D + 1, lp = kT + 1;
   extern __shared__ float smem_cc[];
   float* ks = smem_cc;
@@ -703,11 +723,11 @@ bwd_dkdv_cc(const float* __restrict__ q, const float* __restrict__ k,
 
   const int hk = blockIdx.y, b = blockIdx.z, group = Hq / Hk;
   const int k0 = blockIdx.x * kT, k_rows = min(kT, mask.Sk - k0);
-  const size_t kv_off = (static_cast<size_t>(b) * Hk + hk) * mask.Sk * D;
+  const size_t kv_off = (static_cast<size_t>(b) * Hk + hk) * mask.Sk * d;
   const int jl = threadIdx.x / 8, c0 = threadIdx.x % 8;
 
-  load_tile_f32<D>(ks, k + kv_off + static_cast<size_t>(k0) * D, k_rows);
-  load_tile_f32<D>(vs, v + kv_off + static_cast<size_t>(k0) * D, k_rows);
+  load_tile_f32<D>(ks, k + kv_off + static_cast<size_t>(k0) * d, k_rows, d);
+  load_tile_f32<D>(vs, v + kv_off + static_cast<size_t>(k0) * d, k_rows, d);
   float acc_dk[D / 8], acc_dv[D / 8];
 #pragma unroll
   for (int c = 0; c < D / 8; ++c) acc_dk[c] = acc_dv[c] = 0.f;
@@ -719,8 +739,8 @@ bwd_dkdv_cc(const float* __restrict__ q, const float* __restrict__ k,
     for (int qt = qt_lo; qt < qt_hi; ++qt) {
       const int q0 = qt * kT, q_rows = min(kT, mask.Sq - q0);
       __syncthreads();
-      load_tile_f32<D>(qs, q + (q_off + q0) * D, q_rows);
-      load_tile_f32<D>(dos, dout + (q_off + q0) * D, q_rows);
+      load_tile_f32<D>(qs, q + (q_off + q0) * d, q_rows, d);
+      load_tile_f32<D>(dos, dout + (q_off + q0) * d, q_rows, d);
       if (threadIdx.x < kT) {
         const bool in = threadIdx.x < q_rows;
         lse_s[threadIdx.x] = in ? lse[q_off + q0 + threadIdx.x] : INFINITY;
@@ -731,9 +751,9 @@ bwd_dkdv_cc(const float* __restrict__ q, const float* __restrict__ k,
       for (int c = 0; c < 4; ++c) {
         const int il = c0 + 8 * c;
         float factor;
-        const float s = cap(dot_rows(ks + jl * ld, qs + il * ld, D) * scale, softcap, &factor);
+        const float s = cap(dot_rows(ks + jl * ld, qs + il * ld, d) * scale, softcap, &factor);
         const float p = mask.ok(q0 + il, k0 + jl) ? expf(s - lse_s[il]) : 0.f;
-        const float dp = dot_rows(vs + jl * ld, dos + il * ld, D);
+        const float dp = dot_rows(vs + jl * ld, dos + il * ld, d);
         ps[jl * lp + il] = p;
         dss[jl * lp + il] = p * (dp - delta_s[il]) * factor;
       }
@@ -749,9 +769,10 @@ bwd_dkdv_cc(const float* __restrict__ q, const float* __restrict__ k,
     }
   }
   if (jl < k_rows) {
-    const size_t row = kv_off + static_cast<size_t>(k0 + jl) * D;
+    const size_t row = kv_off + static_cast<size_t>(k0 + jl) * d;
 #pragma unroll
     for (int c = 0; c < D / 8; ++c) {
+      if (kAny && 8 * c >= d) break;  // the row's own d columns only
       dk[row + c0 + 8 * c] = acc_dk[c] * scale;
       dv[row + c0 + 8 * c] = acc_dv[c];
     }
@@ -760,12 +781,14 @@ bwd_dkdv_cc(const float* __restrict__ q, const float* __restrict__ k,
 
 // (c) dQ: the block owns query rows [q0, q0 + 32) of head (b, h).  Thread
 // x: query x / 8 against keys x % 8 + 8c; of dQ, columns x % 8 + 8c.
-template <int D>
+template <int D, bool kAny>
 __global__ void __launch_bounds__(kCcThreads)
 bwd_dq_cc(const float* __restrict__ q, const float* __restrict__ k,
           const float* __restrict__ v, const float* __restrict__ dout,
           const float* __restrict__ lse, const float* __restrict__ delta,
-          float* __restrict__ dq, int Hq, int Hk, Mask mask, float softcap, float scale) {
+          float* __restrict__ dq, int Hq, int Hk, int d_run, Mask mask, float softcap,
+          float scale) {
+  const int d = kAny ? d_run : D;
   constexpr int ld = D + 1, lp = kT + 1;
   extern __shared__ float smem_cc[];
   float* qs = smem_cc;
@@ -777,11 +800,11 @@ bwd_dq_cc(const float* __restrict__ q, const float* __restrict__ k,
   const int h = blockIdx.y, b = blockIdx.z;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kT, q_rows = min(kT, mask.Sq - q0);
   const size_t q_off = (static_cast<size_t>(b) * Hq + h) * mask.Sq + q0;
-  const size_t kv_off = (static_cast<size_t>(b) * Hk + h / (Hq / Hk)) * mask.Sk * D;
+  const size_t kv_off = (static_cast<size_t>(b) * Hk + h / (Hq / Hk)) * mask.Sk * d;
   const int il = threadIdx.x / 8, c0 = threadIdx.x % 8;
 
-  load_tile_f32<D>(qs, q + q_off * D, q_rows);
-  load_tile_f32<D>(dos, dout + q_off * D, q_rows);
+  load_tile_f32<D>(qs, q + q_off * d, q_rows, d);
+  load_tile_f32<D>(dos, dout + q_off * d, q_rows, d);
   const float lse_i = il < q_rows ? lse[q_off + il] : INFINITY;
   const float delta_i = il < q_rows ? delta[q_off + il] : 0.f;
   float acc_dq[D / 8];
@@ -793,16 +816,16 @@ bwd_dq_cc(const float* __restrict__ q, const float* __restrict__ k,
   for (int kt = kt_lo; kt < kt_hi; ++kt) {
     const int j0 = kt * kT, j_rows = min(kT, mask.Sk - j0);
     __syncthreads();
-    load_tile_f32<D>(ks, k + kv_off + static_cast<size_t>(j0) * D, j_rows);
-    load_tile_f32<D>(vs, v + kv_off + static_cast<size_t>(j0) * D, j_rows);
+    load_tile_f32<D>(ks, k + kv_off + static_cast<size_t>(j0) * d, j_rows, d);
+    load_tile_f32<D>(vs, v + kv_off + static_cast<size_t>(j0) * d, j_rows, d);
     __syncthreads();
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       const int jl = c0 + 8 * c;
       float factor;
-      const float s = cap(dot_rows(qs + il * ld, ks + jl * ld, D) * scale, softcap, &factor);
+      const float s = cap(dot_rows(qs + il * ld, ks + jl * ld, d) * scale, softcap, &factor);
       const float p = mask.ok(q0 + il, j0 + jl) ? expf(s - lse_i) : 0.f;
-      const float dp = dot_rows(dos + il * ld, vs + jl * ld, D);
+      const float dp = dot_rows(dos + il * ld, vs + jl * ld, d);
       dss[il * lp + jl] = p * (dp - delta_i) * factor;
     }
     __syncthreads();
@@ -814,8 +837,10 @@ bwd_dq_cc(const float* __restrict__ q, const float* __restrict__ k,
   }
   if (il < q_rows) {
 #pragma unroll
-    for (int c = 0; c < D / 8; ++c)
-      dq[(q_off + il) * D + c0 + 8 * c] = acc_dq[c] * scale;
+    for (int c = 0; c < D / 8; ++c) {
+      if (kAny && 8 * c >= d) break;  // the row's own d columns only
+      dq[(q_off + il) * d + c0 + 8 * c] = acc_dq[c] * scale;
+    }
   }
 }
 
@@ -826,7 +851,7 @@ struct Args {
   const float* lse;
   float* delta;
   void *dq, *dk, *dv;
-  int B, Hq, Hk;
+  int B, Hq, Hk, d;
   Mask mask;
   float softcap, scale;
   cudaStream_t stream;
@@ -843,11 +868,11 @@ int allow_smem(Kernel kernel, int bytes, bool* configured) {
   return 0;
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kAny>
 int launch_delta(const Args& a) {
   const int rows = a.B * a.Hq * a.mask.Sq;
-  bwd_delta<T, D><<<(rows + 7) / 8, 256, 0, a.stream>>>(
-      static_cast<const T*>(a.o), static_cast<const T*>(a.dout), a.delta, rows);
+  bwd_delta<T, D, kAny><<<(rows + 7) / 8, 256, 0, a.stream>>>(
+      static_cast<const T*>(a.o), static_cast<const T*>(a.dout), a.delta, rows, a.d);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -876,47 +901,48 @@ int encode(CUtensorMap* map, const void* ptr, int d, int rows, int heads, int bo
   return encode_bf16(map, ptr, 3, dims, strides, box);
 }
 
-// Maps of q and dO with box_q rows, of k and v with box_k rows.
-int encode_all(const Args& a, int D, int box_q, int box_k, CUtensorMap* tq, CUtensorMap* tk,
+// Maps of q and dO with box_q rows, of k and v with box_k rows, all of the
+// head width's a.d columns.
+int encode_all(const Args& a, int box_q, int box_k, CUtensorMap* tq, CUtensorMap* tk,
                CUtensorMap* tv, CUtensorMap* tdo) {
-  int err = encode(tq, a.q, D, a.mask.Sq, a.B * a.Hq, box_q);
-  if (err == 0) err = encode(tdo, a.dout, D, a.mask.Sq, a.B * a.Hq, box_q);
-  if (err == 0) err = encode(tk, a.k, D, a.mask.Sk, a.B * a.Hk, box_k);
-  if (err == 0) err = encode(tv, a.v, D, a.mask.Sk, a.B * a.Hk, box_k);
+  int err = encode(tq, a.q, a.d, a.mask.Sq, a.B * a.Hq, box_q);
+  if (err == 0) err = encode(tdo, a.dout, a.d, a.mask.Sq, a.B * a.Hq, box_q);
+  if (err == 0) err = encode(tk, a.k, a.d, a.mask.Sk, a.B * a.Hk, box_k);
+  if (err == 0) err = encode(tv, a.v, a.d, a.mask.Sk, a.B * a.Hk, box_k);
   return err;
 }
 
-template <int D, int kWG>
+template <int D, int kWG, bool kAny>
 int launch_dkdv(const Args& a) {
   constexpr int kSmem = dkdv_smem_bytes<D, kWG>();
   static bool configured = false;
-  int err = allow_smem(bwd_dkdv_wgmma<D, kWG>, kSmem, &configured);
+  int err = allow_smem(bwd_dkdv_wgmma<D, kWG, kAny>, kSmem, &configured);
   CUtensorMap tq, tk, tv, tdo;
-  if (err == 0) err = encode_all(a, D, kTile, 64 * kWG, &tq, &tk, &tv, &tdo);
+  if (err == 0) err = encode_all(a, kTile, 64 * kWG, &tq, &tk, &tv, &tdo);
   if (err != 0) return err;
-  bwd_dkdv_wgmma<D, kWG><<<dim3((a.mask.Sk + 64 * kWG - 1) / (64 * kWG), a.Hk, a.B),
-                           128 * kWG, kSmem, a.stream>>>(
+  bwd_dkdv_wgmma<D, kWG, kAny><<<dim3((a.mask.Sk + 64 * kWG - 1) / (64 * kWG), a.Hk, a.B),
+                                 128 * kWG, kSmem, a.stream>>>(
       tq, tk, tv, tdo, a.lse, a.delta, static_cast<__nv_bfloat16*>(a.dk),
-      static_cast<__nv_bfloat16*>(a.dv), a.Hq, a.Hk, a.mask, a.softcap, a.scale);
+      static_cast<__nv_bfloat16*>(a.dv), a.Hq, a.Hk, a.d, a.mask, a.softcap, a.scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D, int kWG>
+template <int D, int kWG, bool kAny>
 int launch_dq(const Args& a) {
   constexpr int kSmem = dq_smem_bytes<D, kWG>();
   static bool configured = false;
-  int err = allow_smem(bwd_dq_wgmma<D, kWG>, kSmem, &configured);
+  int err = allow_smem(bwd_dq_wgmma<D, kWG, kAny>, kSmem, &configured);
   CUtensorMap tq, tk, tv, tdo;
-  if (err == 0) err = encode_all(a, D, 64 * kWG, kTile, &tq, &tk, &tv, &tdo);
+  if (err == 0) err = encode_all(a, 64 * kWG, kTile, &tq, &tk, &tv, &tdo);
   if (err != 0) return err;
-  bwd_dq_wgmma<D, kWG><<<dim3((a.mask.Sq + 64 * kWG - 1) / (64 * kWG), a.Hq, a.B), 128 * kWG,
-                         kSmem, a.stream>>>(tq, tk, tv, tdo, a.lse, a.delta,
-                                            static_cast<__nv_bfloat16*>(a.dq), a.Hq, a.Hk,
-                                            a.mask, a.softcap, a.scale);
+  bwd_dq_wgmma<D, kWG, kAny><<<dim3((a.mask.Sq + 64 * kWG - 1) / (64 * kWG), a.Hq, a.B),
+                               128 * kWG, kSmem, a.stream>>>(
+      tq, tk, tv, tdo, a.lse, a.delta, static_cast<__nv_bfloat16*>(a.dq), a.Hq, a.Hk, a.d,
+      a.mask, a.softcap, a.scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
+template <int D, bool kAny>
 int launch_wgmma(const Args& a) {
   int dev = 0, n_sm = 0;
   int err = static_cast<int>(cudaGetDevice(&dev));
@@ -925,59 +951,71 @@ int launch_wgmma(const Args& a) {
   if (err != 0) return err;
   int dkdv_rows, dq_rows;
   block_rows(1, a.B, a.Hq, a.Hk, a.mask.Sq, a.mask.Sk, n_sm, &dkdv_rows, &dq_rows);
-  err = launch_delta<__nv_bfloat16, D>(a);
-  if (err == 0) err = dkdv_rows == 64 ? launch_dkdv<D, 1>(a) : launch_dkdv<D, 2>(a);
-  if (err == 0) err = dq_rows == 64 ? launch_dq<D, 1>(a) : launch_dq<D, 2>(a);
+  err = launch_delta<__nv_bfloat16, D, kAny>(a);
+  if (err == 0)
+    err = dkdv_rows == 64 ? launch_dkdv<D, 1, kAny>(a) : launch_dkdv<D, 2, kAny>(a);
+  if (err == 0) err = dq_rows == 64 ? launch_dq<D, 1, kAny>(a) : launch_dq<D, 2, kAny>(a);
   return err;
 }
 
-template <int D>
+template <int D, bool kAny>
 int launch_cc(const Args& a) {
   using T = float;
   constexpr int kSmem = cc_smem_bytes<D>();
   static bool dkdv_ok = false, dq_ok = false;
-  int err = launch_delta<T, D>(a);
-  if (err == 0) err = allow_smem(bwd_dkdv_cc<D>, kSmem, &dkdv_ok);
-  if (err == 0) err = allow_smem(bwd_dq_cc<D>, kSmem, &dq_ok);
+  int err = launch_delta<T, D, kAny>(a);
+  if (err == 0) err = allow_smem(bwd_dkdv_cc<D, kAny>, kSmem, &dkdv_ok);
+  if (err == 0) err = allow_smem(bwd_dq_cc<D, kAny>, kSmem, &dq_ok);
   if (err != 0) return err;
   const T *q = static_cast<const T*>(a.q), *k = static_cast<const T*>(a.k),
           *v = static_cast<const T*>(a.v), *dout = static_cast<const T*>(a.dout);
-  bwd_dkdv_cc<D><<<dim3((a.mask.Sk + kT - 1) / kT, a.Hk, a.B), kCcThreads, kSmem,
-                   a.stream>>>(q, k, v, dout, a.lse, a.delta, static_cast<T*>(a.dk),
-                               static_cast<T*>(a.dv), a.Hq, a.Hk, a.mask, a.softcap,
-                               a.scale);
+  bwd_dkdv_cc<D, kAny><<<dim3((a.mask.Sk + kT - 1) / kT, a.Hk, a.B), kCcThreads, kSmem,
+                         a.stream>>>(q, k, v, dout, a.lse, a.delta, static_cast<T*>(a.dk),
+                                     static_cast<T*>(a.dv), a.Hq, a.Hk, a.d, a.mask,
+                                     a.softcap, a.scale);
   err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
-  bwd_dq_cc<D><<<dim3((a.mask.Sq + kT - 1) / kT, a.Hq, a.B), kCcThreads, kSmem,
-                 a.stream>>>(q, k, v, dout, a.lse, a.delta, static_cast<T*>(a.dq), a.Hq,
-                             a.Hk, a.mask, a.softcap, a.scale);
+  bwd_dq_cc<D, kAny><<<dim3((a.mask.Sq + kT - 1) / kT, a.Hq, a.B), kCcThreads, kSmem,
+                       a.stream>>>(q, k, v, dout, a.lse, a.delta, static_cast<T*>(a.dq),
+                                   a.Hq, a.Hk, a.d, a.mask, a.softcap, a.scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 struct Variant {
   int dtype, d, rows, other, threads, smem_dkdv, smem_dq;
+  bool any;  // takes every width up to d with d % 8 == 0, not d alone
   int (*launch)(const Args&);
 };
 
 // Every instantiation, found by (dtype, D, rows): the launch plan
 // (kernels/flash_attention.py kernel_plan_bwd) picks (dtype, D) and, by the
 // rule of block_rows, the rows of each kernel's blocks; the other side's
-// tile, threads and shared memory are the instantiation's own.
+// tile, threads and shared memory are the instantiation's own.  D = 64, 96
+// and 128 have their own; every other D with D % 8 == 0 up to 128 takes the
+// first `any` row whose width holds it (kernel_width in the plan).
 constexpr Variant kVariants[] = {
-    {1, 64, 64, kTile, 128, dkdv_smem_bytes<64, 1>(), dq_smem_bytes<64, 1>(), launch_wgmma<64>},
-    {1, 64, 128, kTile, 256, dkdv_smem_bytes<64, 2>(), dq_smem_bytes<64, 2>(), launch_wgmma<64>},
-    {1, 96, 64, kTile, 128, dkdv_smem_bytes<96, 1>(), dq_smem_bytes<96, 1>(), launch_wgmma<96>},
-    {1, 96, 128, kTile, 256, dkdv_smem_bytes<96, 2>(), dq_smem_bytes<96, 2>(), launch_wgmma<96>},
-    {1, 128, 64, kTile, 128, dkdv_smem_bytes<128, 1>(), dq_smem_bytes<128, 1>(), launch_wgmma<128>},
-    {1, 128, 128, kTile, 256, dkdv_smem_bytes<128, 2>(), dq_smem_bytes<128, 2>(), launch_wgmma<128>},
-    {0, 64, kT, kT, kCcThreads, cc_smem_bytes<64>(), cc_smem_bytes<64>(), launch_cc<64>},
-    {0, 96, kT, kT, kCcThreads, cc_smem_bytes<96>(), cc_smem_bytes<96>(), launch_cc<96>},
-    {0, 128, kT, kT, kCcThreads, cc_smem_bytes<128>(), cc_smem_bytes<128>(), launch_cc<128>},
+    {1, 64, 64, kTile, 128, dkdv_smem_bytes<64, 1>(), dq_smem_bytes<64, 1>(), false, launch_wgmma<64, false>},
+    {1, 64, 128, kTile, 256, dkdv_smem_bytes<64, 2>(), dq_smem_bytes<64, 2>(), false, launch_wgmma<64, false>},
+    {1, 96, 64, kTile, 128, dkdv_smem_bytes<96, 1>(), dq_smem_bytes<96, 1>(), false, launch_wgmma<96, false>},
+    {1, 96, 128, kTile, 256, dkdv_smem_bytes<96, 2>(), dq_smem_bytes<96, 2>(), false, launch_wgmma<96, false>},
+    {1, 128, 64, kTile, 128, dkdv_smem_bytes<128, 1>(), dq_smem_bytes<128, 1>(), false, launch_wgmma<128, false>},
+    {1, 128, 128, kTile, 256, dkdv_smem_bytes<128, 2>(), dq_smem_bytes<128, 2>(), false, launch_wgmma<128, false>},
+    {0, 64, kT, kT, kCcThreads, cc_smem_bytes<64>(), cc_smem_bytes<64>(), false, launch_cc<64, false>},
+    {0, 96, kT, kT, kCcThreads, cc_smem_bytes<96>(), cc_smem_bytes<96>(), false, launch_cc<96, false>},
+    {0, 128, kT, kT, kCcThreads, cc_smem_bytes<128>(), cc_smem_bytes<128>(), false, launch_cc<128, false>},
+    {1, 64, 64, kTile, 128, dkdv_smem_bytes<64, 1>(), dq_smem_bytes<64, 1>(), true, launch_wgmma<64, true>},
+    {1, 64, 128, kTile, 256, dkdv_smem_bytes<64, 2>(), dq_smem_bytes<64, 2>(), true, launch_wgmma<64, true>},
+    {1, 128, 64, kTile, 128, dkdv_smem_bytes<128, 1>(), dq_smem_bytes<128, 1>(), true, launch_wgmma<128, true>},
+    {1, 128, 128, kTile, 256, dkdv_smem_bytes<128, 2>(), dq_smem_bytes<128, 2>(), true, launch_wgmma<128, true>},
+    {0, 64, kT, kT, kCcThreads, cc_smem_bytes<64>(), cc_smem_bytes<64>(), true, launch_cc<64, true>},
+    {0, 128, kT, kT, kCcThreads, cc_smem_bytes<128>(), cc_smem_bytes<128>(), true, launch_cc<128, true>},
 };
 
 const Variant* find(int dtype, int D, int rows) {
+  if (D < 8 || D > 128 || D % 8 != 0) return nullptr;
   for (const Variant& x : kVariants)
-    if (x.dtype == dtype && x.d == D && (rows < 0 || x.rows == rows)) return &x;
+    if (x.dtype == dtype && (x.any ? D <= x.d : D == x.d) && (rows < 0 || x.rows == rows))
+      return &x;
   return nullptr;
 }
 
@@ -1015,7 +1053,7 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
                                    float scale, void* stream) {
   const Variant* x = find(dtype, D, -1);
   if (x == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{q, k, v, o, dout, lse, delta, dq, dk, dv, B, Hq, Hk,
+  const Args a{q, k, v, o, dout, lse, delta, dq, dk, dv, B, Hq, Hk, D,
                Mask{Sq, Sk, causal, window}, softcap, scale,
                static_cast<cudaStream_t>(stream)};
   return x->launch(a);

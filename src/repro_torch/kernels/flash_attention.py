@@ -15,7 +15,10 @@ cores (``"wgmma"``: TMA loads into a two-stage shared-memory ring, ``wgmma``
 for both products, the online softmax in registers); f32 runs on the CUDA
 cores (``"cuda_cores"``: f32 FMAs, which its 2e-5 tolerance needs).  There
 is no option that picks another: a bf16 CUDA tensor launches the
-tensor-core kernel or raises.
+tensor-core kernel or raises.  Both variants, forward and backward, take
+every head width in ``HEAD_DIMS`` (a multiple of 8 up to 128, as the Pallas
+kernel's tests' 16 and 32): 64, 96 and 128 have instantiations of their
+own, any other width the one of ``kernel_width(d)``.
 
 The backward (``flash_attention_bwd_cuda``, plan ``kernel_plan_bwd``) is
 three launches: delta = rowsum(dO o), dK/dV over key blocks (a block loops
@@ -56,7 +59,10 @@ from repro_torch.kernels import ref
 SRC = kbuild.CSRC / "flash_attention.cu"
 SRC_BWD = kbuild.CSRC / "flash_attention_bwd.cu"
 NVCC_FLAGS = kbuild.BASE_FLAGS
-HEAD_DIMS = (64, 96, 128)       # the instantiations of the kernel templates
+# the head widths both kernels take: every multiple of 8 up to 128, the
+# Pallas kernel's 16 and 32 among them
+HEAD_DIMS = tuple(range(8, 129, 8))
+NATIVE_DIMS = (64, 96, 128)     # widths with instantiations of their own
 N_SM = 132                      # H100 SXM streaming multiprocessors
 MAX_SMEM = 232_448              # dynamic shared memory a block may have
 MAX_GRID_YZ = 65535             # heads (grid y) and batch (grid z)
@@ -104,13 +110,25 @@ def flash_bwd_work(q_shape, k_shape, dtype_bytes: int, causal: bool = True,
                  + 4 * b * hq * sq)
 
 
+def kernel_width(d: int) -> int:
+    """The width of the instantiation that runs head width ``d`` (in
+    ``HEAD_DIMS``): ``d`` itself for 64, 96 and 128; else 64 for ``d`` below
+    64 and 128 above, whose ``kAny`` instantiations read ``d`` at run time
+    and leave the columns past it zero (``csrc/flash_attention.cu``'s and
+    ``csrc/flash_attention_bwd.cu``'s ``find``)."""
+    if d in NATIVE_DIMS:
+        return d
+    return 64 if d <= 64 else 128
+
+
 def geometry(dtype: torch.dtype, d: int, block_q: int) -> tuple[int, int, int]:
-    """Key tile, threads and shared-memory bytes of the kernel instantiated
-    for (dtype, d, block_q), as ``csrc/flash_attention.cu`` lays it out
-    (``wgmma_smem_bytes``, ``f32_smem_bytes``).  The C entry point takes
-    only (dtype, d, block_q) and launches with its own numbers; these are
-    what the plan reports without the library, and ``chip_smoke.py`` holds
-    them against ``kernel_geometry``."""
+    """Key tile, threads and shared-memory bytes of the kernel that runs
+    (dtype, d, block_q), as ``csrc/flash_attention.cu`` lays it out
+    (``wgmma_smem_bytes``, ``f32_smem_bytes`` of ``kernel_width(d)``).  The
+    C entry point takes only (dtype, d, block_q) and launches with its own
+    numbers; these are what the plan reports without the library, and
+    ``chip_smoke.py`` holds them against ``kernel_geometry``."""
+    d = kernel_width(d)
     if dtype == torch.bfloat16:
         cols = 64 if d <= 64 else 128
         # 1 KB to align the swizzled tiles, Q, two K and two V stages of
@@ -128,15 +146,15 @@ def kernel_plan(b: int, hq: int, hk: int, sq: int, sk: int, d: int,
     the card's own count; 132 is the H100 SXM's).
 
     bf16 plans ``"wgmma"``: one warpgroup (128 threads) per 64 query rows,
-    key tiles of 128, a shared-memory row of 64 or 128 columns (D = 96 pads
-    to 128).  A block takes 128 rows (two warpgroups) unless that leaves
-    fewer blocks than SMs (``b * hq * ceil(sq / 128) < n_sm``); then 64.
-    f32 plans ``"cuda_cores"``: 64 x 64 tiles, 256 threads.  Raises
-    ValueError on what no instantiation takes.
+    key tiles of 128, a shared-memory row of 64 or 128 columns (D below 64
+    pads to 64, D above it to 128).  A block takes 128 rows (two
+    warpgroups) unless that leaves fewer blocks than SMs
+    (``b * hq * ceil(sq / 128) < n_sm``); then 64.  f32 plans
+    ``"cuda_cores"``: 64 x 64 tiles, 256 threads.  Raises ValueError on what
+    no instantiation takes (a head width outside ``HEAD_DIMS``, another
+    dtype, a grid or shared memory past the card's limits).
     """
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention_cuda: head dim {d} is not one of "
-                         f"{HEAD_DIMS}")
+    _check_width("flash_attention_cuda", d)
     if dtype == torch.bfloat16:
         block_q = 64 if b * hq * -(-sq // 128) < n_sm else 128
         variant = "wgmma"
@@ -155,6 +173,12 @@ def kernel_plan(b: int, hq: int, hk: int, sq: int, sk: int, d: int,
                          f"memory exceed a block's {MAX_SMEM}")
     return {"variant": variant, "block_q": block_q, "block_k": block_k,
             "threads": threads, "smem": smem, "grid": grid}
+
+
+def _check_width(fn: str, d: int) -> None:
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{fn}: head dim {d} is not a multiple of 8 from 8 "
+                         "to 128")
 
 
 @functools.cache
@@ -328,7 +352,9 @@ def geometry_bwd(dtype: torch.dtype, d: int,
     the dK/dV and of the dQ kernel whose blocks own ``rows`` rows (keys,
     queries), for (dtype, d), as ``csrc/flash_attention_bwd.cu`` lays them
     out (``dkdv_smem_bytes``, ``dq_smem_bytes``, ``cc_smem_bytes``);
-    ``chip_smoke.py`` holds them against ``kernel_geometry_bwd``."""
+    ``chip_smoke.py`` holds them against ``kernel_geometry_bwd``.  Other
+    widths than 64, 96 and 128 run ``kernel_width(d)``'s instantiation."""
+    d = kernel_width(d)
     if dtype == torch.bfloat16:
         cols = 64 if d <= 64 else 128
         # 1 KB to align the swizzled tiles, the block's two tiles and two
@@ -355,9 +381,7 @@ def kernel_plan_bwd(b: int, hq: int, hk: int, sq: int, sk: int, d: int,
     The C entry point applies the same rule to its card's SM count
     (``flash_attention_bwd_blocks`` reports it).  Raises ValueError on what
     no instantiation takes."""
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention_bwd_cuda: head dim {d} is not one "
-                         f"of {HEAD_DIMS}")
+    _check_width("flash_attention_bwd_cuda", d)
     if dtype == torch.bfloat16:
         variant = "wgmma"
         block_rows = (64 if b * hk * -(-sk // 128) < n_sm else 128,

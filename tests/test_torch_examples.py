@@ -180,6 +180,7 @@ def test_serve_model_matches_reference():
 
     out = _twin("serve_model").main(["--device", "cpu"])
     cfg = jget_config("internlm2-1.8b", smoke=True)
+    assert out["d_head"] == cfg.d_head == 16      # the reference's own model
     model = jbuild_model(cfg)
     eng = JaxEngine(model, model.init(jax.random.PRNGKey(0)), n_slots=2,
                     max_len=96, replan_every=4)
@@ -204,7 +205,10 @@ def test_serve_model_matches_reference():
 def test_elastic_restart_matches_reference():
     """Failures at steps 9 and 20 resume from the checkpoints of steps 6
     and 18 on 3 and 2 workers; each restart plan is the reference's."""
+    from repro.configs import get_config as jget_config
+
     out = _twin("elastic_restart").main(["--device", "cpu"])
+    assert out["d_head"] == jget_config("internlm2-1.8b", smoke=True).d_head
     assert out["restarts"] == 2
     assert [f[:2] for f in out["failures"]] == [[6, 3], [18, 2]]
     grid = [(30 - 6, 4, 3, 600.0), (30 - 18, 4, 2, 600.0)]

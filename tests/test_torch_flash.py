@@ -55,6 +55,10 @@ CASES = [
     (1, 4, 2, 150, 150, 16, dict(causal=True, window=48, softcap=50.0)),
     (1, 2, 2, 70, 200, 16, dict(causal=False, window=64)),
     (1, 4, 4, 1, 256, 64, dict(causal=True)),                    # decode-like
+    # widths the card runs on an instantiation of a wider class
+    (1, 2, 2, 64, 64, 8, dict(causal=True)),
+    (1, 4, 2, 100, 100, 24, dict(causal=False)),                 # ragged
+    (1, 4, 2, 96, 96, 80, dict(causal=True, window=32)),
 ]
 
 
@@ -128,7 +132,8 @@ def test_kernel_wrapper_refuses_autograd():
 
 # --------------------------------------------------------- the launch plan
 # Key tile, threads and shared-memory bytes of each instantiation, by
-# (dtype, D, query rows), written out from csrc/flash_attention.cu's layout:
+# (dtype, D, query rows), written out from csrc/flash_attention.cu's layout
+# (every other width runs the instantiation of ``fa.kernel_width``):
 # bf16 (wgmma_smem_bytes) is 1 KB of alignment, Q and two K and two V
 # stages of 128-key tiles at 64 or 128 bf16 columns, and 64 bytes of
 # mbarriers; f32 (f32_smem_bytes) is Q and one K/V tile of 64 rows at
@@ -182,7 +187,7 @@ def test_kernel_plan_fits_the_card(b, hq, hk, sq, sk, rows, gx_bf16, gx_f32,
     and a grid of (query tiles, heads, batch)."""
     plan = fa.kernel_plan(b, hq, hk, sq, sk, d, dtype)
     block_q, gx = (rows, gx_bf16) if dtype == torch.bfloat16 else (64, gx_f32)
-    block_k, threads, smem = GEOMETRY[(dtype, d, block_q)]
+    block_k, threads, smem = GEOMETRY[(dtype, fa.kernel_width(d), block_q)]
     assert plan == {
         "variant": "wgmma" if dtype == torch.bfloat16 else "cuda_cores",
         "block_q": block_q, "block_k": block_k, "threads": threads,
@@ -225,7 +230,7 @@ def test_kernel_plan_variant_by_dtype(d):
 
 
 @pytest.mark.parametrize("shape,dtype,match", [
-    ((1, 4, 64, 16), torch.bfloat16, "head dim 16"),
+    ((1, 4, 64, 12), torch.bfloat16, "head dim 12"),
     ((1, 4, 64, 256), torch.float32, "head dim 256"),
     ((1, 4, 64, 64), torch.float16, "float16"),
     ((65536, 1, 8, 64), torch.bfloat16, "exceed the grid"),
@@ -241,3 +246,36 @@ def test_kernel_wrapper_raises_on_what_the_plan_refuses(shape, dtype, match):
         fa.kernel_plan(*shape[:2], 1, shape[2], shape[2], shape[3], dtype)
     with pytest.raises(ValueError, match=match):
         fa.flash_attention_cuda(q, kv, kv)
+
+
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+def test_kernel_width_of_each_head_width(d):
+    """64, 96 and 128 run their own instantiations; any other width the
+    narrowest class that holds it, 64 or 128 columns."""
+    want = d if d in (64, 96, 128) else 64 if d < 64 else 128
+    assert fa.kernel_width(d) == want
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [0, 4, 12, 20, 100, 136, 256])
+def test_both_plans_refuse_widths_outside_the_domain(d, dtype):
+    """Not a multiple of 8, or above 128: no instantiation takes it."""
+    for plan in (fa.kernel_plan, fa.kernel_plan_bwd):
+        with pytest.raises(ValueError, match=f"head dim {d} "):
+            plan(1, 2, 2, 64, 64, d, dtype)
+
+
+def _registry_heads() -> list:
+    from repro_torch.configs import ARCH_IDS, get_config
+    return [(arch, smoke, get_config(arch, smoke=smoke).d_head)
+            for arch in ARCH_IDS for smoke in (True, False)]
+
+
+@pytest.mark.parametrize("arch,smoke,d", _registry_heads())
+def test_every_registry_head_width_is_in_both_plans_domain(arch, smoke, d):
+    """Every config of the registry, smoke and full, has heads both flash
+    plans take in f32 and in bf16: the smoke models run on the card."""
+    assert d in fa.HEAD_DIMS
+    for dtype in (torch.float32, torch.bfloat16):
+        fa.kernel_plan(2, 4, 2, 128, 128, d, dtype)
+        fa.kernel_plan_bwd(2, 4, 2, 128, 128, d, dtype)

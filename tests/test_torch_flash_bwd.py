@@ -37,6 +37,13 @@ CASES = [
     (1, 4, 2, 64, 64, 128, dict(causal=True, window=24, softcap=5.0)),
     (2, 2, 2, 37, 53, 64, dict(causal=False)),                    # ragged
     (1, 2, 1, 1, 45, 64, dict(causal=False)),   # one query row (cross decode)
+    # the Pallas kernel's narrow heads, which the smoke configs use
+    (1, 4, 2, 48, 48, 16, dict(causal=True, window=16, softcap=50.0)),
+    (1, 4, 1, 40, 72, 32, dict(causal=True)),                     # Sq < Sk
+    # widths the card runs on an instantiation of a wider class
+    (1, 2, 2, 56, 40, 8, dict(causal=True)),    # Sq > Sk: 16 rows see no key
+    (2, 2, 2, 37, 53, 24, dict(causal=False)),                    # ragged
+    (1, 4, 2, 48, 48, 80, dict(causal=True, window=16)),
 ]
 IDS = [f"{c[0]}x{c[1]}/{c[2]}x{c[3]}x{c[4]}xD{c[5]}-" +
        "-".join(f"{k}{v}" for k, v in c[6].items()) for c in CASES]
@@ -258,8 +265,8 @@ def test_kernel_plan_bwd(b, hq, hk, sq, sk, d, bf16_rows, dtype, variant):
 
 
 @pytest.mark.parametrize("args,match", [
-    ((1, 2, 2, 64, 64, 32, torch.bfloat16), "head dim 32"),
-    ((1, 2, 2, 64, 64, 16, torch.float32), "head dim 16"),
+    ((1, 2, 2, 64, 64, 136, torch.bfloat16), "head dim 136"),
+    ((1, 2, 2, 64, 64, 12, torch.float32), "head dim 12"),
     ((1, 2, 2, 64, 64, 64, torch.float16), "dtype torch.float16"),
     ((1, 70000, 70000, 64, 64, 64, torch.bfloat16), "exceed the grid"),
     ((70000, 2, 2, 64, 64, 64, torch.float32), "exceed the grid"),
@@ -267,3 +274,21 @@ def test_kernel_plan_bwd(b, hq, hk, sq, sk, d, bf16_rows, dtype, variant):
 def test_kernel_plan_bwd_refuses(args, match):
     with pytest.raises(ValueError, match=match):
         fa.kernel_plan_bwd(*args)
+
+
+@pytest.mark.parametrize("dtype,variant", [(torch.bfloat16, "wgmma"),
+                                           (torch.float32, "cuda_cores")])
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+def test_kernel_plan_bwd_takes_every_width(d, dtype, variant):
+    """Every width of the domain: the variant by dtype, and the dK/dV and
+    dQ kernels' shared memory and threads those of the width's class
+    (``fa.kernel_width``), within a block's limits."""
+    plan = fa.kernel_plan_bwd(2, 16, 8, 512, 512, d, dtype)
+    assert plan["variant"] == variant
+    for i, kernel in enumerate(("dkdv", "dq")):
+        k = plan[kernel]
+        other, threads, *smem = GEOMETRY_BWD[(dtype, fa.kernel_width(d),
+                                              k["rows"])]
+        assert (k["other"], k["threads"], k["smem"]) == (other, threads,
+                                                         smem[i])
+        assert k["smem"] <= fa.MAX_SMEM and k["threads"] <= 1024

@@ -75,6 +75,23 @@ CASES = [
     (1, 4, 2, 200, 130, 64, "float32", dict(causal=True)),       # no keys
     (2, 4, 2, 70, 190, 96, "float32", dict(causal=False, window=50,
                                            softcap=20.0)),
+    # the Pallas kernel's narrow heads (16, 32) and widths between
+    # instantiations (24: a 16-column slice half past D; 80: padded to 128)
+    (2, 4, 2, 128, 128, 16, "bfloat16", dict(causal=True)),
+    (2, 4, 2, 160, 160, 32, "bfloat16", dict(causal=True, window=32)),
+    (1, 4, 2, 150, 150, 16, "bfloat16", dict(causal=True, window=48,
+                                            softcap=50.0)),
+    (1, 4, 1, 96, 224, 32, "bfloat16", dict(causal=True)),     # Sq < Sk
+    (1, 4, 2, 200, 130, 16, "bfloat16", dict(causal=True)),    # no keys
+    (2, 16, 8, 1024, 1024, 32, "bfloat16", dict(causal=True)),  # 128 rows
+    (1, 4, 2, 333, 333, 24, "bfloat16", dict(causal=False)),
+    (2, 8, 4, 300, 300, 80, "bfloat16", dict(causal=True)),
+    (2, 4, 2, 128, 128, 16, "float32", dict(causal=True)),
+    (2, 4, 2, 160, 160, 32, "float32", dict(causal=True, window=32,
+                                           softcap=20.0)),
+    (1, 4, 2, 200, 130, 16, "float32", dict(causal=True)),     # no keys
+    (1, 4, 1, 96, 224, 24, "float32", dict(causal=True)),      # Sq < Sk
+    (2, 4, 2, 70, 190, 80, "float32", dict(causal=False, window=50)),
 ]
 
 
@@ -123,10 +140,10 @@ def test_flash_attention_function_on_the_card(dtype):
 def test_backward_kernel_refuses_what_it_does_not_take():
     q, k, v, do = _card(1, 1, 4, 2, 64, 64, 64, "float32")
     o, lse = fa.flash_attention_cuda(q, k, v, return_lse=True)
-    with pytest.raises(ValueError, match="head dim 16"):
-        fa.flash_attention_bwd_cuda(q[..., :16].contiguous(),
-                                    k[..., :16].contiguous(),
-                                    v[..., :16].contiguous(), o, lse, do)
+    with pytest.raises(ValueError, match="head dim 12"):
+        fa.flash_attention_bwd_cuda(q[..., :12].contiguous(),
+                                    k[..., :12].contiguous(),
+                                    v[..., :12].contiguous(), o, lse, do)
     with pytest.raises(ValueError, match="lse"):
         fa.flash_attention_bwd_cuda(q, k, v, o, lse[:, :, :10], do)
     with pytest.raises(ValueError, match="do is not a contiguous"):

@@ -59,6 +59,16 @@ CUDA_CASES = [
     (1, 4, 2, 128, 1000, 128, "float32", dict(causal=True)),
     (1, 4, 2, 200, 130, 64, "float32", dict(causal=True)),     # masked rows
     (2, 4, 2, 70, 190, 96, "float32", dict(causal=False, window=50)),
+    # the Pallas kernel's narrow heads (its tests' 16 and 32) and widths
+    # between instantiations (24: a 16-column slice half past D; 80: padded
+    # to 128), on the f32 kernel's kAny instantiations
+    (2, 4, 2, 128, 128, 16, "float32", dict(causal=True)),
+    (2, 4, 2, 160, 160, 32, "float32", dict(causal=True, window=32)),
+    (1, 4, 2, 150, 150, 16, "float32", dict(causal=True, window=48,
+                                           softcap=50.0)),
+    (1, 4, 2, 200, 130, 32, "float32", dict(causal=True)),     # masked rows
+    (2, 4, 2, 70, 190, 80, "float32", dict(causal=False, window=50)),
+    (1, 4, 1, 96, 224, 24, "float32", dict(causal=True)),      # MQA, sq < sk
 ]
 
 
@@ -103,6 +113,23 @@ BF16_CASES = [
     (1, 16, 8, 4096, 4096, 128, dict(causal=True)),             # 128 rows
     (1, 4, 2, 3000, 5000, 96, dict(causal=True, window=1500, softcap=50.0)),
     (2, 8, 2, 2500, 2500, 64, dict(causal=False)),              # 128 rows
+    # the Pallas kernel's narrow heads: every case of its tests' widths
+    # (tests/test_torch_flash.py CASES), then widths between instantiations
+    (1, 2, 2, 64, 64, 32, dict(causal=True)),                   # MHA
+    (2, 4, 2, 128, 128, 16, dict(causal=True)),                 # GQA
+    (2, 4, 2, 100, 100, 16, dict(causal=False)),                # ragged
+    (1, 4, 1, 96, 224, 32, dict(causal=True)),                  # MQA, sq < sk
+    (2, 4, 2, 160, 160, 32, dict(causal=True, window=32)),
+    (2, 4, 2, 160, 160, 32, dict(causal=True, softcap=20.0)),
+    (1, 4, 2, 150, 150, 16, dict(causal=True, window=48, softcap=50.0)),
+    (1, 2, 2, 70, 200, 16, dict(causal=False, window=64)),
+    (1, 4, 2, 200, 130, 16, dict(causal=True)),                 # sq > sk
+    (1, 16, 8, 2048, 2048, 16, dict(causal=True)),              # 128 rows
+    (2, 4, 2, 257, 257, 8, dict(causal=True)),                  # D 8
+    (1, 4, 2, 333, 333, 24, dict(causal=True)),                 # D 24
+    (1, 4, 2, 300, 300, 80, dict(causal=True)),                 # D 80 -> 128
+    (2, 32, 16, 640, 640, 80, dict(causal=True, window=200, softcap=50.0)),
+    (1, 4, 2, 300, 300, 120, dict(causal=False, window=100)),   # D 120
 ]
 
 
@@ -128,8 +155,11 @@ def test_bf16_kernel_edge_cases(b, hq, hk, sq, sk, d, kw):
 
 
 def test_cuda_kernel_refuses_what_it_does_not_take():
-    q, k, v = _card(1, 1, 4, 2, 64, 64, 16, "float32")
-    with pytest.raises(ValueError, match="head dim 16"):
+    q, k, v = _card(1, 1, 4, 2, 64, 64, 12, "float32")
+    with pytest.raises(ValueError, match="head dim 12"):
+        fa.flash_attention_cuda(q, k, v)
+    q, k, v = _card(1, 1, 4, 2, 64, 64, 136, "bfloat16")
+    with pytest.raises(ValueError, match="head dim 136"):
         fa.flash_attention_cuda(q, k, v)
     q, k, v = _card(1, 1, 4, 2, 64, 64, 64, "float32")
     with pytest.raises(ValueError, match="not contiguous"):
