@@ -12,12 +12,13 @@ mesh layer, and fails with a non-zero exit code if any phase fails:
              and print nvcc's register, shared-memory and spill lines; count
              the tensor-core instructions (``HGMMA``) in the flash, flash
              backward and SSD libraries' SASS (``cuobjdump -sass``), which
-             must be more than 0 in each; print each flash backward
-             kernel's registers and spills, which must be 0 for its bf16
-             kernels; hold the geometry (flash: key tile, threads, shared
-             memory; flash backward: other side's tile, threads, shared
-             memory of each kernel; SSD: each phase's threads and shared
-             memory) that the ``kernel_plan`` functions report against the
+             must be more than 0 in each; print each flash and flash
+             backward kernel's registers and spills, which must be 0 for
+             every one of them (bf16 and f32); hold the geometry (flash:
+             key tile, threads, shared memory; flash backward: other
+             side's tile, threads, shared memory of each kernel; SSD: each
+             phase's threads and shared memory) that the ``kernel_plan``
+             functions report against the
              built library's, for every instantiation and every flash head
              width (8 to 128 in steps of 8); the flash libraries' nvcc
              seconds beside those of the sources before the narrow widths
@@ -33,12 +34,15 @@ mesh layer, and fails with a non-zero exit code if any phase fails:
              (granite-moe, jamba and qwen2-vl prefills, whisper's encoder
              and its cross-attention at a decode step), each with
              its launch plan (bf16 on the tensor cores, f32 on the CUDA
-             cores), with ``scaled_dot_product_attention`` timed as a
-             yardstick where it computes the same function; and, in bf16 and
-             f32, every case of the Pallas kernel's test widths 16 and 32
-             (``tests/test_torch_flash.py`` CASES), a smoke model's serving
-             prefill (D 16) and a width between instantiations (D 80), under
-             the same limits.  SSD scan: within 2e-2 (bf16) of
+             cores; f32 query tiles that leave SMs idle split their keys),
+             with ``scaled_dot_product_attention`` timed as a yardstick
+             where it computes the same function (``sdpa_kwargs``: where
+             Sq < Sk under the causal mask, through ``causal_lower_right``,
+             whose output is first held to the plain version's); and, in
+             bf16 and f32, every case of the Pallas kernel's test widths 16
+             and 32 (``tests/test_torch_flash.py`` CASES), a smoke model's
+             serving prefill (D 16) and a width between instantiations (D
+             80), under the same limits.  SSD scan: within 2e-2 (bf16) of
              the plain chunked version at mamba2-130m's training shape and
              a jamba-shaped one, and by relative error of the whole output
              and of its worst (b, h) slice within 3.2e-3 and 5e-3, each with
@@ -275,6 +279,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
+from torch.nn.attention.bias import causal_lower_right
 
 if not torch.cuda.is_available():
     sys.exit("chip_smoke: no CUDA device is available")
@@ -645,16 +650,18 @@ def phase_build() -> None:
         hgmma = sum("HGMMA" in line for line in sass.splitlines())
         check(hgmma > 0, f"the {name} library's SASS has HGMMA instructions")
         say("build", f"{name} SASS: {hgmma} HGMMA (wgmma) instructions")
-    if built[3]["log"]:         # empty when an existing build was reused
-        for kernel, regs, spills in ptxas_kernels(built[3]["log"]):
-            say("build", f"flash_attention_bwd {kernel}: {regs} registers, "
-                f"{spills} bytes of spill stores and loads")
-            check(spills == 0 or "wgmma" not in kernel,
-                  f"ptxas spills nothing in the bf16 backward {kernel}")
+    for lib, b in (("flash_attention", built[1]),
+                   ("flash_attention_bwd", built[3])):
+        # the log is empty when an existing build was reused
+        for kernel, regs, spills in ptxas_kernels(b["log"]):
+            say("build", f"{lib} {kernel}: {regs} registers, {spills} bytes "
+                "of spill stores and loads")
+            check(spills == 0, f"ptxas spills nothing in {lib} {kernel}")
+    if built[3]["log"]:
         for line in built[3]["log"].splitlines():
             if "wgmma.mma_async" in line:   # ptxas's advisories (serialised)
                 print(f"    {line.strip()}")
-    for dtype, rows_ in ((torch.bfloat16, (64, 128)), (torch.float32, (32,))):
+    for dtype, rows_ in ((torch.bfloat16, (64, 128)), (torch.float32, (64,))):
         for d in flash_attention.HEAD_DIMS:
             for rows in rows_:
                 built_bwd = flash_attention.kernel_geometry_bwd(dtype, d, rows)
@@ -841,6 +848,22 @@ def hold_flash_out(name: str, out: torch.Tensor, want: torch.Tensor,
     return err, rel, row
 
 
+def sdpa_kwargs(sq: int, sk: int, kw: dict) -> dict | None:
+    """The arguments under which ``scaled_dot_product_attention`` computes
+    the kernels' function, or None where it computes another: a window or a
+    softcap it does not take, and rows that see no key (Sq > Sk under the
+    causal mask: SDPA gives NaN there, the kernels 0).  The kernels align a
+    causal mask to the last key; ``causal_lower_right`` does too, and
+    ``is_causal`` (the first key) is the same where Sq == Sk."""
+    if kw.get("window") is not None or kw.get("softcap"):
+        return None
+    if not kw.get("causal", True) or sq == sk:
+        return {"is_causal": bool(kw.get("causal", True)), "enable_gqa": True}
+    if sq < sk:
+        return {"attn_mask": causal_lower_right(sq, sk), "enable_gqa": True}
+    return None
+
+
 def phase_flash_kernel() -> dict:
     record = {}
     for i, (name, shape, dtype, kw) in enumerate(FLASH_SHAPES):
@@ -858,6 +881,16 @@ def phase_flash_kernel() -> dict:
               f"flash_attention {name}: {plan['variant']} for {dtype}")
         err, rel, row = hold_flash_out(name, out, want, dtype)
         tol = FLASH_TOL[dtype]
+        library = sdpa_kwargs(sq, sk, kw)
+        if library is not None and "attn_mask" in library:
+            # the lower-right mask is the kernels': SDPA's output agrees
+            lib_out = F.scaled_dot_product_attention(*args, **library)
+            check(torch.allclose(lib_out.float(), want.float(), rtol=tol,
+                                 atol=tol),
+                  f"flash_attention {name}: scaled_dot_product_attention "
+                  f"with causal_lower_right within {tol} of the plain "
+                  "version")
+            del lib_out
         del out, want
         # the plain version holds [B, Hq, Sq, Sk] f32 scores: long calls are
         # timed eagerly with events, short ones by graph replay
@@ -870,12 +903,9 @@ def phase_flash_kernel() -> dict:
         ms, plain_ms = (sum(times[k]) / 2 for k in ("kernel", "plain"))
         per_call = call_ms(kernel, args, reps)
         library_ms = None
-        # SDPA aligns a causal mask to the first key, the kernel to the
-        # last: the same function where Sq == Sk, or without the mask
-        if ((sq == sk or not kw["causal"]) and kw.get("window") is None
-                and not kw.get("softcap")):
+        if library is not None:
             sdpa = functools.partial(F.scaled_dot_product_attention,
-                                     is_causal=kw["causal"], enable_gqa=True)
+                                     **library)
             library_ms = timer(sdpa, args, reps)
         bound_ms, bound_by, ops, nbytes = flash_bound_ms(shape, dtype, kw)
         say("kernels", (
@@ -884,7 +914,8 @@ def phase_flash_kernel() -> dict:
             f"plan {plan['variant']} (tiles {plan['block_q']} x "
             f"{plan['block_k']}, {plan['threads']} threads, "
             f"{plan['grid'][0] * hq * b} blocks, {plan['smem']} bytes of "
-            f"shared memory); "
+            f"shared memory, key split {plan['split']}, scratch "
+            f"{plan['scratch']} bytes); "
             f"max |err| {err!r} (tolerance {tol}); relative error {rel!r} "
             f"(limit {FLASH_REL_TOL[dtype]}), worst row {row!r} (limit "
             f"{FLASH_ROW_TOL[dtype]}); device time: kernel "
@@ -949,8 +980,9 @@ def phase_flash_bwd_kernel() -> dict:
     8b's training shapes and the masking edge cases; two calls bitwise
     equal; a row that sees no key gets exactly zero dq.  Times: the backward, the plain version, the
     forward with and without its lse output, SDPA's backward under
-    autograd (where SDPA computes the same function: no window, no
-    softcap, a causal mask only where Sq == Sk)."""
+    autograd (where SDPA computes the same function, ``sdpa_kwargs``: no
+    window, no softcap, a causal mask through ``causal_lower_right`` where
+    Sq < Sk)."""
     record = {}
     fa = flash_attention
     for i, (name, shape, dtype, kw) in enumerate(FLASH_BWD_SHAPES):
@@ -1030,12 +1062,11 @@ def phase_flash_bwd_kernel() -> dict:
         fwd_ms, fwd_lse_ms = (timer(fn, (q, k, v), reps)
                               for fn in (fwd, fwd_lse))
         library_ms = None
-        if ((sq == sk or not kw["causal"]) and kw.get("window") is None
-                and not kw.get("softcap")):
+        library = sdpa_kwargs(sq, sk, kw)
+        if library is not None:
             with torch.enable_grad():
                 leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
-                sdpa_out = F.scaled_dot_product_attention(
-                    *leaves, is_causal=kw["causal"], enable_gqa=True)
+                sdpa_out = F.scaled_dot_product_attention(*leaves, **library)
 
                 def sdpa_bwd():
                     return torch.autograd.grad(sdpa_out, leaves, do,

@@ -1,0 +1,123 @@
+"""Where the f32 flash forward's time goes, on one NVIDIA GPU.
+
+    python3 scripts/flash_f32_cuts.py [--json PATH]
+
+Builds copies of ``csrc/flash_attention.cu`` (beside copies of the headers,
+in a temporary directory) with one phase of ``flash_fwd_f32`` switched off,
+loads each in place of the wrapper's library, and times the forward at
+chip_smoke.py's f32 shapes "padded width 80", "offset rows" and "f32
+ragged" with chip_smoke.py's ``device_ms`` (CUDA-graph replay), twice in
+turns.  A cut kernel computes wrong outputs; only its time is read.  The
+cuts:
+
+* ``no P V``: the accumulating product O += P V is skipped;
+* ``no S``: the score product S = Q K^T is skipped (scores of 0);
+* ``no S, no P V``: both; what is left is the softmax, the loads, the
+  barriers, the prologue and epilogue of each block, and the launch;
+* ``no loads``: the next key tile's cp.async loads are not issued;
+* ``no barrier``: the one ``__syncthreads`` a tile is dropped.
+
+Then the sound kernel with the key split's minimum of 4 key tiles instead
+of ``flash_attention.SPLIT_MIN_TILES`` (2), at the ragged shape and the
+Pallas MQA shape.  Prints one line per variant and shape, then the card's
+name and power limit.  Needs a CUDA device; imports nothing of JAX.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import functools
+import json
+import shutil
+import sys
+import tempfile
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke as cs  # noqa: E402  (exits without a CUDA device)
+from repro_torch.kernels import build as kbuild  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+
+PV = "    acc_quads<D, kAny, 4, kLdP>(acc, ps"
+S = "    float sc[4][4];\n    dot_4x4<D, 4, 8>("
+NO_PV = (PV, "    if (n_split < 0) " + PV.lstrip())
+NO_S = (S, "    float sc[4][4] = {};\n"
+             "    if (n_split < 0) dot_4x4<D, 4, 8>(")
+NO_LOADS = ("    if (i + 1 < n_tiles) load_kv(i + 1, s ^ 1);",
+            "    if (n_split < 0) load_kv(i + 1, s ^ 1);")
+NO_BARRIER = ("    __syncthreads();  // tile i is in; every thread is done "
+              "with tile i - 1", "")
+CUTS = {"sound": [], "no P V": [NO_PV], "no S": [NO_S],
+        "no S, no P V": [NO_PV, NO_S], "no loads": [NO_LOADS],
+        "no barrier": [NO_BARRIER]}
+CUT_SHAPES = ("padded width 80 D 80 float32", "offset rows", "f32 ragged")
+SPLIT_SHAPES = ("f32 ragged", "pallas MQA D 32 float32")
+
+
+def load(path: Path) -> ctypes.CDLL:
+    """A built copy of the forward library, bound as the wrapper binds it."""
+    lib = ctypes.CDLL(str(path))
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.flash_attention_fwd.argtypes = [p] * 6 + [i] * 9 + [f, f, i, i, p]
+    lib.flash_attention_fwd.restype = i
+    return lib
+
+
+def time_shapes(names, reps: int = 20) -> dict[str, float]:
+    """Device ms per forward call at chip_smoke.py's shapes ``names``."""
+    out = {}
+    for name, shape, dtype, kw in cs.FLASH_SHAPES:
+        if name in names:
+            args = cs.flash_inputs(shape, dtype, seed=1)
+            out[name] = cs.device_ms(
+                functools.partial(fa.flash_attention_cuda, **kw), args, reps)
+    return out
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--json", help="also write the readings here")
+    args = ap.parse_args()
+    src = fa.SRC.read_text()
+    with tempfile.TemporaryDirectory() as tmp:
+        pairs = []
+        for name, cuts in CUTS.items():
+            d = Path(tmp) / name.replace(" ", "_").replace(",", "")
+            d.mkdir()
+            for header in kbuild.CSRC.glob("*.cuh"):  # what the copies include
+                shutil.copy(header, d)
+            text = src
+            for old, new in cuts:
+                if text.count(old) != 1:
+                    sys.exit(f"{name}: the source no longer holds {old!r}")
+                text = text.replace(old, new)
+            (d / fa.SRC.name).write_text(text)
+            pairs.append((d / fa.SRC.name, fa.NVCC_FLAGS))
+        libs = {name: load(b["path"])
+                for name, b in zip(CUTS, kbuild.build(*pairs))}
+        readings: dict = {}
+        for _ in range(2):                       # two rounds, in turns
+            for name, lib in libs.items():
+                fa._library = lambda lib=lib: lib
+                for shape, ms in time_shapes(CUT_SHAPES).items():
+                    readings.setdefault(name, {}).setdefault(
+                        shape, []).append(ms)
+        fa._library = lambda: libs["sound"]
+        for min_tiles in (fa.SPLIT_MIN_TILES, 4):
+            fa.SPLIT_MIN_TILES = min_tiles
+            for shape, ms in time_shapes(SPLIT_SHAPES).items():
+                readings.setdefault(f"split of {min_tiles}+ key tiles", {})[
+                    shape] = [ms]
+    for name, by_shape in readings.items():
+        for shape, ms in by_shape.items():
+            print(f"{name}: {shape}: {', '.join(f'{x!r}' for x in ms)} ms")
+    print(cs.CARD)
+    if args.json:
+        Path(args.json).write_text(
+            json.dumps({"card": cs.CARD, "readings": readings}, indent=1))
+
+
+if __name__ == "__main__":
+    main()

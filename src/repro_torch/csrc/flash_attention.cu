@@ -24,7 +24,11 @@
 // D = 128) that is ~128 operations per byte, and at 8192 tokens ~2,000, so
 // the H100 is bound by arithmetic, not by its 3.35 TB/s, at every shape the
 // serving path gives it.  For bf16 that arithmetic belongs on the tensor
-// cores (989 TFLOP/s); the CUDA cores give 67 TFLOP/s in f32.
+// cores (989 TFLOP/s); the CUDA cores give 67 TFLOP/s in f32, fed from
+// shared memory at 128 bytes a clock an SM against 128 FMAs: each operand
+// read from shared memory has to feed several FMAs from registers, and the
+// short prompts of the f32 paths (a few query tiles a head) have to be cut
+// finer than query tiles to fill 132 SMs.
 //
 // Two kernels; the launch plan (kernels/flash_attention.py kernel_plan)
 // picks one by dtype, and its query tile; the entry point finds the
@@ -74,14 +78,41 @@
 //
 // * f32: flash_fwd_f32<D>, on the CUDA cores in f32 FMAs, which its 2e-5
 //   tolerance needs (no TF32).  One block of 256 threads per 64-row query
-//   tile loops over key tiles of 64; thread (ty, tx) owns rows
-//   4ty..4ty+3 and, of S, the columns tx + 16j (j < 4), of O the columns
-//   2tx + 32g (+0, +1), so the rescale of a row never leaves the thread;
-//   row max and sum reduce over a half-warp with shuffles.  Q, one K/V
-//   tile and P in shared memory as f32 (83 KB at D = 128), row strides
-//   padded by 4 floats against bank conflicts; synchronous loads.  Other
-//   widths than 64, 96 and 128 run flash_fwd_f32<64 or 128, kAny>: the
-//   tiles are loaded zero past D, and the store writes D columns.
+//   tile loops over key tiles of 64; the building blocks are
+//   cuda_cores.cuh's.
+//   - Loads: 16-byte cp.async, K and V in two stages each, so key tile
+//     j + 1 lands while tile j is computed; one __syncthreads a tile (tile
+//     in, the last one done), and a __syncwarp between softmax and P V: a
+//     warp reads only the rows of P it wrote.  Rows past Sq and Sk and the
+//     columns past D are zero-filled.
+//   - Register blocks: warp w owns 16 rows of the tile (w % 4) and one half
+//     of every key tile (w / 4, 32 keys), with an online softmax and an O
+//     of its own; the two halves of each row are put together once, after
+//     the loop, half 0's first.  A lane owns 4 rows x 4 keys of S (a row's
+//     max and sum reduce over 8 lanes with shuffles) and 4 rows x D / 8
+//     columns of O.  For each 16-byte chunk of depth, S = Q K^T reads 4 Q
+//     and 4 K chunks, one bank wavefront each (a warp touches 4 Q and 8 K
+//     rows, consecutive), for 64 FMAs; O += P V one chunk of 4 P rows and
+//     D / 32 V chunks a key (one wavefront each) for 16 D / 8 FMAs.  P is
+//     the warp's own (rows and keys), so only the warp waits between
+//     softmax and P V.  Row strides are padded by 4 floats (P by 8) against
+//     bank conflicts, and each step's loads go out a step ahead of its FMAs.
+//   - exp2 with scale * log2(e) folded in; element masks only on the tiles
+//     that need them; the loop's bounds skip whole tiles.
+//   - Filling the card: blocks are handed out heaviest query tiles first
+//     across all heads.  When B * Hq * ceil(Sq / 64) blocks would leave SMs
+//     idle, the plan (kernel_plan's split) gives each query tile's keys to
+//     up to 16 blocks, at least 2 key tiles each, within one wave; each
+//     writes its rows' unnormalised O, m and l into the caller's f32
+//     scratch (split x B x Hq x Sq x (D + 2) floats, ~4.3 MB at most as
+//     blocks x split <= 132), and fwd_combine puts the splits together in
+//     order (split 0 first), so two runs are bitwise equal.
+//   - Shared memory: Q, two K and two V stages and P, 183 KB at D = 128 (one
+//     block an SM), 103 KB at D = 64.  Other widths than 64, 96 and 128 run
+//     flash_fwd_f32<64 or 128, kAny>: the tiles are loaded zero past D, S
+//     stops at D, P V at the first multiple of 16 columns at or past it (a
+//     16-column tail group, 2 columns a lane, after the full 32-column
+//     ones), and the store writes D columns.
 //
 // The C entry point launches on the caller's stream, does not synchronise,
 // and returns cudaGetLastError() (or the error of cudaFuncSetAttribute, or
@@ -92,6 +123,7 @@
 
 #include <math.h>
 
+#include "cuda_cores.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -349,9 +381,10 @@ int encode(CUtensorMap* map, const void* ptr, int d, int rows, int heads, int bo
 }
 
 template <int D, int kWG, bool kAny>
-int launch_wgmma(const void* q, const void* k, const void* v, void* o, float* lse, int B,
-                 int Hq, int Hk, int Sq, int Sk, int d, int causal, int window,
-                 float softcap, float scale, cudaStream_t stream) {
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, float* lse,
+                 float* /*part: f32 only*/, int B, int Hq, int Hk, int Sq, int Sk, int d,
+                 int causal, int window, float softcap, float scale, int /*n_split: 1*/,
+                 cudaStream_t stream) {
   constexpr int kSmem = wgmma_smem_bytes<D, kWG>();
   // once per instantiation, at its first launch (outside any graph capture)
   static bool configured = false;
@@ -374,214 +407,312 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, float* ls
 }
 
 // ======================================================= f32: CUDA cores
+// (the tile loads and products are cuda_cores.cuh's)
 
-constexpr int kBlockQ = 64;
-constexpr int kBlockK = 64;
-constexpr int kThreads = 256;
-constexpr int kLdP = kBlockK + 4;
+// Row stride of the forward's P (floats): the 4 rows a warp reads or
+// writes at once fall on 4 different groups of 8 banks.
+constexpr int kLdP = kCcRows + 8;
 
-// A [64, d] tile of rows [0, rows) into shared memory with row stride
-// D + 4; rows past the edge are zeros (V rows must be: 0 * garbage could
-// be NaN), and so are the columns past d (kAny; else d = D).
-template <int D, bool kAny>
-__device__ __forceinline__ void load_tile(float* dst, const float* src, int rows, int d) {
-  constexpr int kVecs = D / 4;
-  for (int idx = threadIdx.x; idx < kBlockQ * kVecs; idx += kThreads) {
-    const int r = idx / kVecs, c = (idx % kVecs) * 4;
-    const bool in = r < rows && (!kAny || c < d);
-    const float4 x = in ? *reinterpret_cast<const float4*>(src + static_cast<size_t>(r) * d + c)
-                        : make_float4(0.f, 0.f, 0.f, 0.f);
-    *reinterpret_cast<float4*>(dst + r * (D + 4) + c) = x;
-  }
-}
-
-__device__ __forceinline__ float half_warp_max(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-__device__ __forceinline__ float half_warp_sum(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
+// Dynamic shared memory of flash_fwd_f32<D>: Q, two K and two V stages of
+// 64 rows, and P.
 template <int D>
 constexpr int f32_smem_bytes() {
-  return (2 * kBlockQ * (D + 4) + kBlockQ * kLdP) * static_cast<int>(sizeof(float));
+  return (5 * cc_tile<D>() + kCcRows * kLdP) * static_cast<int>(sizeof(float));
+}
+
+__device__ __forceinline__ float group8_max(float x) {
+#pragma unroll
+  for (int o = 4; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+__device__ __forceinline__ float group8_sum(float x) {
+#pragma unroll
+  for (int o = 4; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// Scores in log2 units (scale, then the softcap with kCap), and kNeg where
+// the mask hides the pair (kMask: the tile needs element masks): rows
+// row + 4r, keys col + 8j.  Both are template arguments, so that a tile
+// without a softcap or a mask runs no tanh and no comparison.
+template <bool kCap, bool kMask>
+__device__ __forceinline__ void fwd_scores(float (&sc)[4][4], int row, int col, int Sk,
+                                           int causal, int window, float scale_l2, float cap_l2,
+                                           float scale_cap) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float x = kCap ? cap_l2 * tanhf(sc[r][j] * scale_cap) : sc[r][j] * scale_l2;
+      if constexpr (kMask) {
+        const int c = col + 8 * j, rw = row + 4 * r;
+        const bool ok = c < Sk && (!causal || c <= rw) && (window < 0 || c > rw - window);
+        x = ok ? x : kNeg;
+      }
+      sc[r][j] = x;
+    }
 }
 
 // kAny: the head width is d_run (d_run % 8 == 0, d_run <= D), else D; the
 // tiles keep D columns (zeros past d_run) and the store writes d_run.
+// n_split > 1: the block takes one key split of one query tile and writes
+// its O unnormalised, and its rows' m (log2 units) and l, into part for
+// fwd_combine; else O (and lse) directly.
+//
+// Warp w owns rows 16 (w % 4).. of the query tile and half w / 4 of every
+// key tile (32 keys), with an online softmax and an O of its own for them;
+// the two halves of each row are put together at the end.  Lane (ly, lx) =
+// (lane / 8, lane % 8) owns rows 16 (w % 4) + ly + 4i (i < 4), of S the
+// keys 32 (w / 4) + lx + 8j (j < 4), of O the columns 4lx + 32g (+0..3).
 template <int D, bool kAny>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kCcThreads, 1)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
-              int Hq, int Hk, int Sq, int Sk, int d_run, int causal, int window,
-              float softcap, float scale) {
+              float* __restrict__ part, int Hq, int Hk, int Sq, int Sk, int d_run, int causal,
+              int window, float softcap, float scale, int n_split) {
   const int dw = kAny ? d_run : D;
+  const int width = (dw + 15) / 16 * 16;  // the columns acc_quads reads
+  const int used_groups = quad_groups(dw) + (quad_tail(dw) ? 1 : 0);
   constexpr int kLd = D + 4;
-  constexpr int kGroups = D / 32;  // float2 column groups of O per thread
+  constexpr int kTile = cc_tile<D>();
+  constexpr int kQuads = D / 8;  // accumulator floats of a row a thread
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);
-  float* kvs = qs + kBlockQ * kLd;
-  float* ps = kvs + kBlockK * kLd;
+  float* ks = qs + kTile;      // stage s at ks + s * kTile
+  float* vs = ks + 2 * kTile;  // stage s at vs + s * kTile
+  float* ps = vs + 2 * kTile;
 
-  const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest query tiles first
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (Hq / Hk);
-  const int q0 = qt * kBlockQ;
-  const int q_rows = min(kBlockQ, Sq - q0);
+  int rest;
+  const int xi = heavy_first(&rest);  // the last query tiles are the heaviest
+  const int qt = gridDim.x / n_split - 1 - xi / n_split, sp = xi % n_split;
+  const int h = rest % Hq, b = rest / Hq;
+  const int qh = b * Hq + h;
+  const int q0 = qt * kCcRows;
+  const int q_rows = min(kCcRows, Sq - q0);
   const int offset = Sk - Sq;
-  const float* qg = q + (static_cast<size_t>(b) * Hq + h) * Sq * dw + static_cast<size_t>(q0) * dw;
-  const float* kg = k + (static_cast<size_t>(b) * Hk + hk) * Sk * dw;
-  const float* vg = v + (static_cast<size_t>(b) * Hk + hk) * Sk * dw;
-  float* og = o + (static_cast<size_t>(b) * Hq + h) * Sq * dw + static_cast<size_t>(q0) * dw;
+  const size_t kv_off = (static_cast<size_t>(b) * Hk + h / (Hq / Hk)) * Sk * dw;
 
-  const int lane = threadIdx.x & 31;
-  const int tx = lane & 15;
-  const int ty = (threadIdx.x >> 5) * 2 + (lane >> 4);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int half = warp >> 2;                              // key half of a tile
+  const int row0 = 16 * (warp & 3) + (lane >> 3);          // rows row0 + 4i
+  const int key0 = 32 * half + (lane & 7);                 // keys key0 + 8j
+  const int col0 = 4 * (lane & 7);                         // columns col0 + 32g
 
-  // Key tiles this query tile can see: the loop's bounds are the TPU
-  // kernel's whole-tile skip.
+  // Key tiles this query tile can see (the loop's bounds are the TPU
+  // kernel's whole-tile skip), cut to split sp's share of the key axis.
   const int row_lo = q0 + offset;
   const int row_hi = q0 + q_rows - 1 + offset;
-  const int nk = (Sk + kBlockK - 1) / kBlockK;
+  const int nk = (Sk + kCcRows - 1) / kCcRows;
   int kt_hi = nk;
-  if (causal) kt_hi = row_hi < 0 ? 0 : min(nk, row_hi / kBlockK + 1);
+  if (causal) kt_hi = row_hi < 0 ? 0 : min(nk, row_hi / kCcRows + 1);
   int kt_lo = 0;
   if (window >= 0) {
     const int first_col = row_lo - window + 1;
-    kt_lo = first_col <= 0 ? 0 : first_col / kBlockK;
+    kt_lo = first_col <= 0 ? 0 : first_col / kCcRows;
   }
+  const int per = (nk + n_split - 1) / n_split;
+  kt_lo = max(kt_lo, sp * per);
+  kt_hi = min(kt_hi, (sp + 1) * per);
+  const int n_tiles = max(0, kt_hi - kt_lo);
 
-  float acc[4][2 * kGroups];
+  // key tile i of the loop (K and V) into stage s
+  auto load_kv = [&](int i, int s) {
+    const int k0 = (kt_lo + i) * kCcRows, rows = min(kCcRows, Sk - k0);
+    const size_t at = kv_off + static_cast<size_t>(k0) * dw;
+    load_tile_async<D, kAny>(ks + s * kTile, k + at, rows, dw, width);
+    load_tile_async<D, kAny>(vs + s * kTile, v + at, rows, dw, width);
+  };
+  if (n_tiles > 0) {
+    load_tile_async<D, kAny>(qs, q + (static_cast<size_t>(qh) * Sq + q0) * dw, q_rows, dw, width);
+    load_kv(0, 0);
+  }
+  cp_async_commit();
+
+  float acc[4][kQuads];
   float m[4], l[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     m[i] = kNeg;
     l[i] = 0.f;
 #pragma unroll
-    for (int c = 0; c < 2 * kGroups; ++c) acc[i][c] = 0.f;
+    for (int c = 0; c < kQuads; ++c) acc[i][c] = 0.f;
   }
+  const float scale_l2 = scale * kLog2e;
+  const float cap_l2 = softcap * kLog2e, scale_cap = scale / softcap;
 
-  load_tile<D, kAny>(qs, qg, q_rows, dw);
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i & 1, k0 = (kt_lo + i) * kCcRows;
+    cp_async_wait_all();
+    __syncthreads();  // tile i is in; every thread is done with tile i - 1
+    if (i + 1 < n_tiles) load_kv(i + 1, s ^ 1);  // lands while tile i is computed
+    cp_async_commit();
 
-  for (int kt = kt_lo; kt < kt_hi; ++kt) {
-    const int k0 = kt * kBlockK;
-    const int k_rows = min(kBlockK, Sk - k0);
-    __syncthreads();  // the previous tile's P . V is done with kvs and ps
-    load_tile<D, kAny>(kvs, kg + static_cast<size_t>(k0) * dw, k_rows, dw);
-    __syncthreads();
+    // S = Q K^T for rows row0 + 4r, keys k0 + key0 + 8j
+    float sc[4][4];
+    dot_4x4<D, 4, 8>(sc, qs + row0 * kLd, ks + s * kTile + key0 * kLd, dw);
 
-    // S = Q K^T for rows 4ty + i, columns tx + 16j
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
-      if (kAny && d >= dw) break;  // the columns past dw are zeros
-      float4 qa[4], kb[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qa[i] = *reinterpret_cast<const float4*>(qs + (4 * ty + i) * kLd + d);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kb[j] = *reinterpret_cast<const float4*>(kvs + (tx + 16 * j) * kLd + d);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(qa[i].x, kb[j].x, s[i][j]);
-          s[i][j] = fmaf(qa[i].y, kb[j].y, s[i][j]);
-          s[i][j] = fmaf(qa[i].z, kb[j].z, s[i][j]);
-          s[i][j] = fmaf(qa[i].w, kb[j].w, s[i][j]);
-        }
+    // scale (log2 units), softcap, mask, then this half's online softmax
+    const bool need_mask = k0 + kCcRows > Sk || (causal && k0 + kCcRows - 1 > row_lo) ||
+                           (window >= 0 && k0 <= row_hi - window);
+    const int row = q0 + row0 + offset, col = k0 + key0;
+    if (softcap > 0.f) {
+      if (need_mask)
+        fwd_scores<true, true>(sc, row, col, Sk, causal, window, scale_l2, cap_l2, scale_cap);
+      else
+        fwd_scores<true, false>(sc, row, col, Sk, causal, window, scale_l2, cap_l2, scale_cap);
+    } else {
+      if (need_mask)
+        fwd_scores<false, true>(sc, row, col, Sk, causal, window, scale_l2, cap_l2, scale_cap);
+      else
+        fwd_scores<false, false>(sc, row, col, Sk, causal, window, scale_l2, cap_l2, scale_cap);
     }
-
-    // scale, softcap, mask, then the online softmax of each row
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + 4 * ty + i + offset;
-      float mx = kNeg;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + tx + 16 * j;
-        float x = s[i][j] * scale;
-        if (softcap > 0.f) x = softcap * tanhf(x / softcap);
-        bool ok = col < Sk;
-        if (causal) ok = ok && col <= row;
-        if (window >= 0) ok = ok && col > row - window;
-        s[i][j] = ok ? x : kNeg;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], half_warp_max(mx));
-      const float alpha = expf(m[i] - m_new);
+    for (int r = 0; r < 4; ++r) {
+      const float mx = fmaxf(fmaxf(sc[r][0], sc[r][1]), fmaxf(sc[r][2], sc[r][3]));
+      const float m_new = fmaxf(m[r], group8_max(mx));
+      const float alpha = fast_exp2(m[r] - m_new);
       float psum = 0.f;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const float p = s[i][j] > 0.5f * kNeg ? expf(s[i][j] - m_new) : 0.f;
-        s[i][j] = p;
+        const float p = sc[r][j] > 0.5f * kNeg ? fast_exp2(sc[r][j] - m_new) : 0.f;
         psum += p;
+        ps[(row0 + 4 * r) * kLdP + key0 + 8 * j] = p;
       }
-      // each thread keeps its own columns' part of l; alpha is the same
-      // on the 16 lanes of a row, so the parts add up at the end
-      l[i] = alpha * l[i] + psum;
+      // each thread keeps its own keys' part of l; alpha is the same on the
+      // 8 lanes of a row, so the parts add up at the end
+      l[r] = alpha * l[r] + psum;
+      // only the column groups acc_quads fills (all of them but for kAny)
 #pragma unroll
-      for (int c = 0; c < 2 * kGroups; ++c) acc[i][c] *= alpha;
-      m[i] = m_new;
+      for (int g = 0; g < D / 32; ++g)
+        if (!kAny || g < used_groups)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) ps[(4 * ty + i) * kLdP + tx + 16 * j] = s[i][j];
+          for (int c = 4 * g; c < 4 * g + 4; ++c) acc[r][c] *= alpha;
+      m[r] = m_new;
     }
-    __syncthreads();  // S is done with K; P is complete
-    load_tile<D, kAny>(kvs, vg + static_cast<size_t>(k0) * dw, k_rows, dw);
-    __syncthreads();
+    // P's rows and keys here are this warp's own, in S and in P V: the warp
+    // waits for itself only (V came in with K at the top)
+    __syncwarp();
 
-    // acc += P V for rows 4ty + i, columns 2tx + 32g (+0, +1)
-#pragma unroll 2
-    for (int c = 0; c < kBlockK; c += 4) {
-      float4 pa[4];
+    // O += P V over this half's keys, for rows row0 + 4r, columns col0 + 32g
+    acc_quads<D, kAny, 4, kLdP>(acc, ps + row0 * kLdP + 32 * half,
+                                vs + s * kTile + 32 * half * kLd + col0, dw,
+                                half_end(Sk - k0 - 32 * half));
+  }
+
+  // The two halves of each row put together, half 0's first: the warps of
+  // half 1 leave m, l and O in the K stages, those of half 0 take them.
 #pragma unroll
-      for (int i = 0; i < 4; ++i) pa[i] = *reinterpret_cast<const float4*>(ps + (4 * ty + i) * kLdP + c);
+  for (int r = 0; r < 4; ++r) l[r] = group8_sum(l[r]);
+  __syncthreads();  // every warp is done with the tiles
+  float* o1 = ks;          // [64, kLd]: half 1's O
+  float* ml1 = ks + kTile;  // [64, 2]: half 1's m and l
+  if (half == 1) {
 #pragma unroll
-      for (int cc = 0; cc < 4; ++cc) {
+    for (int r = 0; r < 4; ++r) {
 #pragma unroll
-        for (int g = 0; g < kGroups; ++g) {
-          const float2 vb = *reinterpret_cast<const float2*>(kvs + (c + cc) * kLd + 2 * tx + 32 * g);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float p = cc == 0 ? pa[i].x : cc == 1 ? pa[i].y : cc == 2 ? pa[i].z : pa[i].w;
-            acc[i][2 * g] = fmaf(p, vb.x, acc[i][2 * g]);
-            acc[i][2 * g + 1] = fmaf(p, vb.y, acc[i][2 * g + 1]);
-          }
-        }
+      for (int g = 0; g < D / 32; ++g)
+        *reinterpret_cast<float4*>(o1 + (row0 + 4 * r) * kLd + col0 + 32 * g) =
+            make_float4(acc[r][4 * g], acc[r][4 * g + 1], acc[r][4 * g + 2], acc[r][4 * g + 3]);
+      if ((lane & 7) == 0) {
+        ml1[2 * (row0 + 4 * r)] = m[r];
+        ml1[2 * (row0 + 4 * r) + 1] = l[r];
       }
     }
   }
+  __syncthreads();
+  if (half == 1) return;
 
+  const size_t rows_all = static_cast<size_t>(gridDim.z) * Hq * Sq;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float l_row = half_warp_sum(l[i]);
-    const float li = fmaxf(l_row, 1e-30f);
-    const int r = 4 * ty + i;
-    if (r < q_rows) {
-      if (lse != nullptr && tx == 0)
-        lse[(static_cast<size_t>(b) * Hq + h) * Sq + q0 + r] =
-            l_row > 0.f ? m[i] + logf(l_row) : INFINITY;
+  for (int r = 0; r < 4; ++r) {
+    const int rr = row0 + 4 * r;
+    if (rr >= q_rows) continue;
+    const float m1 = ml1[2 * rr], l1 = ml1[2 * rr + 1];
+    const float mm = fmaxf(m[r], m1);
+    const float a0 = fast_exp2(m[r] - mm), a1 = fast_exp2(m1 - mm);
+    const float l_row = fmaf(a1, l1, a0 * l[r]);
+    const size_t row = static_cast<size_t>(qh) * Sq + q0 + rr;
+    float* out;
+    float f;
+    if (part == nullptr) {
+      // m and l are in log2 units: lse = (m + log2 l) / log2(e)
+      if (lse != nullptr && (lane & 7) == 0)
+        lse[row] = l_row > 0.f ? (mm + log2f(l_row)) / kLog2e : INFINITY;
+      out = o + row * dw;
+      f = 1.f / fmaxf(l_row, 1e-30f);
+    } else {
+      const size_t at = static_cast<size_t>(sp) * rows_all + row;
+      if ((lane & 7) == 0) {
+        float* ml = part + static_cast<size_t>(n_split) * rows_all * dw;
+        ml[2 * at] = mm;
+        ml[2 * at + 1] = l_row;
+      }
+      out = part + at * dw;
+      f = 1.f;
+    }
+    // acc's layout (acc_quads): full groups at columns col0 + 32g, then,
+    // for a kAny width, a 16-column tail at 32g + 2 (lane % 8)
+    const int groups = kAny ? quad_groups(dw) : D / 32;
+    const bool tail = kAny && quad_tail(dw);
 #pragma unroll
-      for (int g = 0; g < kGroups; ++g)
-        if (!kAny || 2 * tx + 32 * g < dw)  // the row's own dw columns only
-          *reinterpret_cast<float2*>(og + static_cast<size_t>(r) * dw + 2 * tx + 32 * g) =
-              make_float2(acc[i][2 * g] / li, acc[i][2 * g + 1] / li);
+    for (int g = 0; g < D / 32; ++g) {
+      const float4 x1 = *reinterpret_cast<const float4*>(o1 + rr * kLd + col0 + 32 * g);
+      const float4 y = make_float4(fmaf(a1, x1.x, a0 * acc[r][4 * g]) * f,
+                                   fmaf(a1, x1.y, a0 * acc[r][4 * g + 1]) * f,
+                                   fmaf(a1, x1.z, a0 * acc[r][4 * g + 2]) * f,
+                                   fmaf(a1, x1.w, a0 * acc[r][4 * g + 3]) * f);
+      // the row's own dw columns only
+      if (g < groups && (!kAny || col0 + 32 * g < dw))
+        *reinterpret_cast<float4*>(out + col0 + 32 * g) = y;
+      else if (tail && g == groups && 32 * g + 2 * (lane & 7) < dw)
+        *reinterpret_cast<float2*>(out + 32 * g + 2 * (lane & 7)) = make_float2(y.x, y.y);
     }
   }
 }
 
+// The key splits of flash_fwd_f32 put together in a fixed order (split 0
+// first), so two runs are bitwise equal: one warp a row, a lane 4 columns.
+// part holds [n_split, rows, dw] unnormalised O, then [n_split, rows, 2]
+// (m in log2 units, l); a split that saw no key of a row has m = kNeg and
+// l = 0, and a row no split saw gives 0 and lse +inf.
+__global__ void __launch_bounds__(256)
+fwd_combine(const float* __restrict__ part, float* __restrict__ o, float* __restrict__ lse,
+            int rows, int dw, int n_split) {
+  const int row = blockIdx.x * 8 + threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (row >= rows) return;
+  const float* ml = part + static_cast<size_t>(n_split) * rows * dw;
+  float mx = kNeg;
+  for (int s = 0; s < n_split; ++s)
+    mx = fmaxf(mx, ml[2 * (static_cast<size_t>(s) * rows + row)]);
+  const bool mine = 4 * lane < dw;
+  float l = 0.f;
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int s = 0; s < n_split; ++s) {
+    const size_t at = static_cast<size_t>(s) * rows + row;
+    const float w = exp2f(ml[2 * at] - mx);
+    l = fmaf(w, ml[2 * at + 1], l);
+    if (mine) {
+      const float4 x = *reinterpret_cast<const float4*>(part + at * dw + 4 * lane);
+      acc.x = fmaf(w, x.x, acc.x);
+      acc.y = fmaf(w, x.y, acc.y);
+      acc.z = fmaf(w, x.z, acc.z);
+      acc.w = fmaf(w, x.w, acc.w);
+    }
+  }
+  const float inv = 1.f / fmaxf(l, 1e-30f);
+  if (mine)
+    *reinterpret_cast<float4*>(o + static_cast<size_t>(row) * dw + 4 * lane) =
+        make_float4(acc.x * inv, acc.y * inv, acc.z * inv, acc.w * inv);
+  if (lse != nullptr && lane == 0) lse[row] = l > 0.f ? (mx + log2f(l)) / kLog2e : INFINITY;
+}
+
 template <int D, bool kAny>
-int launch_f32(const void* q, const void* k, const void* v, void* o, float* lse, int B, int Hq,
-               int Hk, int Sq, int Sk, int d, int causal, int window, float softcap,
-               float scale, cudaStream_t stream) {
+int launch_f32(const void* q, const void* k, const void* v, void* o, float* lse, float* part,
+               int B, int Hq, int Hk, int Sq, int Sk, int d, int causal, int window,
+               float softcap, float scale, int n_split, cudaStream_t stream) {
   constexpr int kSmem = f32_smem_bytes<D>();
+  if (n_split < 1 || n_split > kMaxSplit || (n_split > 1 && part == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   // once per instantiation, at its first launch (outside any graph capture)
   static bool configured = false;
   if (!configured) {
@@ -590,17 +721,23 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, float* lse,
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
-  const dim3 grid((Sq + kBlockQ - 1) / kBlockQ, Hq, B);
-  flash_fwd_f32<D, kAny><<<grid, kThreads, kSmem, stream>>>(
+  const dim3 grid((Sq + kCcRows - 1) / kCcRows * n_split, Hq, B);
+  flash_fwd_f32<D, kAny><<<grid, kCcThreads, kSmem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), lse, Hq, Hk, Sq, Sk, d, causal, window, softcap, scale);
+      static_cast<float*>(o), lse, n_split > 1 ? part : nullptr, Hq, Hk, Sq, Sk, d, causal,
+      window, softcap, scale, n_split);
+  int err = static_cast<int>(cudaGetLastError());
+  if (err != 0 || n_split == 1) return err;
+  const int rows = B * Hq * Sq;
+  fwd_combine<<<(rows + 7) / 8, 256, 0, stream>>>(part, static_cast<float*>(o), lse, rows, d,
+                                                  n_split);
   return static_cast<int>(cudaGetLastError());
 }
 
 // ========================================================== entry point
 
-using Launch = int (*)(const void*, const void*, const void*, void*, float*, int, int, int, int,
-                       int, int, int, int, float, float, cudaStream_t);
+using Launch = int (*)(const void*, const void*, const void*, void*, float*, float*, int, int,
+                       int, int, int, int, int, int, float, float, int, cudaStream_t);
 
 struct Variant {
   int dtype, d, block_q, block_k, threads, smem;
@@ -620,15 +757,15 @@ constexpr Variant kVariants[] = {
     {1, 96, 128, kBk, 256, wgmma_smem_bytes<96, 2>(), false, launch_wgmma<96, 2, false>},
     {1, 128, 64, kBk, 128, wgmma_smem_bytes<128, 1>(), false, launch_wgmma<128, 1, false>},
     {1, 128, 128, kBk, 256, wgmma_smem_bytes<128, 2>(), false, launch_wgmma<128, 2, false>},
-    {0, 64, kBlockQ, kBlockK, kThreads, f32_smem_bytes<64>(), false, launch_f32<64, false>},
-    {0, 96, kBlockQ, kBlockK, kThreads, f32_smem_bytes<96>(), false, launch_f32<96, false>},
-    {0, 128, kBlockQ, kBlockK, kThreads, f32_smem_bytes<128>(), false, launch_f32<128, false>},
+    {0, 64, kCcRows, kCcRows, kCcThreads, f32_smem_bytes<64>(), false, launch_f32<64, false>},
+    {0, 96, kCcRows, kCcRows, kCcThreads, f32_smem_bytes<96>(), false, launch_f32<96, false>},
+    {0, 128, kCcRows, kCcRows, kCcThreads, f32_smem_bytes<128>(), false, launch_f32<128, false>},
     {1, 64, 64, kBk, 128, wgmma_smem_bytes<64, 1>(), true, launch_wgmma<64, 1, true>},
     {1, 64, 128, kBk, 256, wgmma_smem_bytes<64, 2>(), true, launch_wgmma<64, 2, true>},
     {1, 128, 64, kBk, 128, wgmma_smem_bytes<128, 1>(), true, launch_wgmma<128, 1, true>},
     {1, 128, 128, kBk, 256, wgmma_smem_bytes<128, 2>(), true, launch_wgmma<128, 2, true>},
-    {0, 64, kBlockQ, kBlockK, kThreads, f32_smem_bytes<64>(), true, launch_f32<64, true>},
-    {0, 128, kBlockQ, kBlockK, kThreads, f32_smem_bytes<128>(), true, launch_f32<128, true>},
+    {0, 64, kCcRows, kCcRows, kCcThreads, f32_smem_bytes<64>(), true, launch_f32<64, true>},
+    {0, 128, kCcRows, kCcRows, kCcThreads, f32_smem_bytes<128>(), true, launch_f32<128, true>},
 };
 
 const Variant* find(int dtype, int D, int block_q) {
@@ -654,15 +791,19 @@ extern "C" int flash_attention_geometry(int dtype, int D, int block_q, int* bloc
 }
 
 // window < 0: no sliding window.  lse: null, or f32 [B, Hq, Sq] for the
-// rows' log-sum-exp.  (dtype, D, block_q) are the launch plan's;
-// one no instantiation takes is refused with cudaErrorInvalidValue before
-// anything is launched.
+// rows' log-sum-exp.  (dtype, D, block_q, n_split) are the launch plan's;
+// n_split > 1 (f32 only) splits each query tile's keys over n_split blocks
+// and puts them together in a second launch, through part: f32 scratch of
+// n_split * B * Hq * Sq * (D + 2) floats.  What no instantiation takes is
+// refused with cudaErrorInvalidValue before anything is launched.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                   float* lse, int B, int Hq, int Hk, int Sq, int Sk, int D,
-                                   int dtype, int causal, int window, float softcap,
-                                   float scale, int block_q, void* stream) {
+                                   float* lse, float* part, int B, int Hq, int Hk, int Sq,
+                                   int Sk, int D, int dtype, int causal, int window,
+                                   float softcap, float scale, int block_q, int n_split,
+                                   void* stream) {
   const Variant* x = find(dtype, D, block_q);
-  if (x == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  return x->launch(q, k, v, o, lse, B, Hq, Hk, Sq, Sk, D, causal, window, softcap, scale,
-                   static_cast<cudaStream_t>(stream));
+  if (x == nullptr || (dtype != 0 && n_split != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return x->launch(q, k, v, o, lse, part, B, Hq, Hk, Sq, Sk, D, causal, window, softcap, scale,
+                   n_split, static_cast<cudaStream_t>(stream));
 }

@@ -25,8 +25,9 @@
 // spends its issue slots on loads, with the elementwise work (exp2, the
 // masks, the softcap) kept to what each tile needs.
 //
-// Three launches, no atomics, so two runs give bitwise the same gradients
-// (the recompute of a checkpointed period relies on it):
+// Three launches (four for an f32 dQ whose keys are split, below), no
+// atomics, so two runs give bitwise the same gradients (the recompute of a
+// checkpointed period relies on it):
 //
 // (a) bwd_delta: delta = rowsum(dO o o) in f32, one warp a row.
 // (b) dK, dV over key blocks: grid (key blocks, Hk, B).  A block holds its K
@@ -98,11 +99,39 @@
 //   warp with setmaxnreg; a tile's last product is waited for before the
 //   next tile's first is issued.
 // * f32: bwd_dkdv_cc<D>, bwd_dq_cc<D>, on the CUDA cores in f32 FMAs
-//   (which its 1e-4 tolerance needs).  32 x 32 tiles, 256 threads; the
-//   tiles as f32 in shared memory with rows padded by one float; S, dP
-//   and dS through shared memory.  Other widths than 64, 96 and 128 run
-//   the kAny instantiation of their class, as the bf16 kernels do: tiles
-//   loaded zero past D, dot products over D, D columns stored.
+//   (which its 1e-4 tolerance needs; no TF32).  Blocks of 256 threads own
+//   64 rows and loop over 64-row tiles of the other side; the building
+//   blocks are the forward's (cuda_cores.cuh): cp.async, the other side's
+//   tiles two stages deep (tile i + 1 lands while tile i is computed),
+//   register-blocked products with each step's loads a step ahead, row
+//   strides padded by 4 floats.  What bounds it is the CUDA cores' FMAs
+//   (67 TFLOP/s) fed from shared memory, and the grid at short Sq.
+//   - (b): S^T and dP^T as 4 x 4 register blocks a thread (keys 4ty..4ty+3,
+//     queries tx + 16j); P^T goes through one 64 x 64 shared tile into
+//     dV += P^T dO, then dS^T through the same tile into dK += dS^T Q; dK
+//     and dV stay in registers (4 keys x D / 16 columns each) over the whole
+//     loop.  One __syncthreads a tile (tile in, the last one done); a warp
+//     reads only the rows of P^T and dS^T it wrote, so between the products
+//     it waits for itself (__syncwarp).  lse and delta of the tile's queries
+//     come from device memory into registers while the tile lands.
+//   - (c): S and dP as 4 x 4 blocks (queries 4ty.., keys tx + 16j), dS
+//     through the shared tile (the warp's own rows) into dQ += dS K, dQ in
+//     registers.  When the query blocks would leave SMs idle, the plan
+//     (kernel_plan_bwd's dq split) gives each block's keys to up to 16
+//     blocks, at least 2 key tiles each, within one wave: each writes its
+//     unscaled dQ rows into
+//     the caller's f32 scratch (split x B x Hq x Sq x D floats, ~4.3 MB at
+//     most as blocks x split <= 132) and a fourth launch, dq_combine, adds
+//     them in order (split 0 first) and scales.
+//   - The softcap and the element masks are template arguments of the
+//     element-wise step (cc_grads), picked per tile by uniform branches.
+//   - Blocks are handed out heaviest first across all heads (key block 0
+//     in (b), the last query block in (c)).
+//   - Shared memory: six 64-row tiles and the 64 x 64 score tile, 215 KB at
+//     D = 128 (one block an SM).  Other widths than 64, 96 and 128 run the
+//     kAny instantiation of their class, as the bf16 kernels do: tiles
+//     loaded zero past D, products to D (S, dP) or to the last 32-column
+//     group holding D columns (dK, dV, dQ), D columns stored.
 //
 // The C entry point launches on the caller's stream, does not synchronise,
 // and returns the first cudaGetLastError() that is not 0 (checked after
@@ -112,6 +141,7 @@
 
 #include <math.h>
 
+#include "cuda_cores.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -153,18 +183,6 @@ struct Mask {
     return (causal && k0 + 63 > row_lo) || (window >= 0 && k0 <= row_lo + 63 - window);
   }
 };
-
-// s (the raw product times scale) -> the capped logit, and the softcap's
-// factor on dS (1 without a softcap).
-__device__ __forceinline__ float cap(float x, float softcap, float* factor) {
-  if (softcap > 0.f) {
-    const float th = tanhf(x / softcap);
-    *factor = 1.f - th * th;
-    return softcap * th;
-  }
-  *factor = 1.f;
-  return x;
-}
 
 // ============================================== (a) delta = rowsum(dO o o)
 
@@ -674,174 +692,323 @@ bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUt
 }
 
 // ===================================================== f32: CUDA cores
+// (the tile loads and products are cuda_cores.cuh's)
 
-constexpr int kT = 32;         // rows of either side a tile
-constexpr int kCcThreads = 256;
-
+// Dynamic shared memory of bwd_dkdv_cc<D> and bwd_dq_cc<D>: six 64-row
+// tiles (dK/dV: K, V and two stages of Q and dO; dQ: Q, dO and two stages of
+// K and V) and one 64 x 64 score tile (dK/dV: P^T, then dS^T; dQ: dS).
 template <int D>
 constexpr int cc_smem_bytes() {
-  return (4 * kT * (D + 1) + 2 * kT * (kT + 1) + 2 * kT) * 4;
+  return (6 * cc_tile<D>() + kCcRows * kLdS) * static_cast<int>(sizeof(float));
 }
 
-// rows [0, kT) of a [rows, d] matrix into shared memory of stride D + 1,
-// zeros from row `valid` on and in the columns past d.
-template <int D>
-__device__ __forceinline__ void load_tile_f32(float* dst, const float* src, int valid, int d) {
-  for (int idx = threadIdx.x; idx < kT * D; idx += kCcThreads) {
-    const int r = idx / D, c = idx % D;
-    dst[r * (D + 1) + c] = r < valid && c < d ? src[static_cast<size_t>(r) * d + c] : 0.f;
+// dS (without the scale) into dp, from a 4 x 4 block's raw products s and
+// dp: P = exp2(the capped, scaled s - lse), 0 where the mask hides the
+// pair, and dS = P * (the softcap's factor) * (dp - delta), lse in log2
+// units.  Element (r, j) pairs query q + q_step * (kT ? j : r) with key
+// key + key_step * (kT ? r : j): kT, the block is transposed (rows are
+// keys), so lse and delta go by column.  P itself goes to
+// p_out[r * kLdS + 16j] unless p_out is null.  kCap and kMask are template
+// arguments, so that a tile without a softcap or a mask runs no tanh and no
+// comparison.
+template <bool kCap, bool kMask, bool kT>
+__device__ __forceinline__ void cc_grads(float (&s)[4][4], float (&dp)[4][4],
+                                         const float (&lse_l2)[4], const float (&dlt)[4],
+                                         const Mask& mask, int q, int q_step, int key,
+                                         int key_step, float scale_l2, float scale_cap,
+                                         float cap_l2, float* p_out) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int e = kT ? j : r;  // the query's index into lse and delta
+      float x, fac = 1.f;
+      if constexpr (kCap) {
+        const float th = tanhf(s[r][j] * scale_cap);
+        x = cap_l2 * th;
+        fac = 1.f - th * th;
+      } else {
+        x = s[r][j] * scale_l2;
+      }
+      float p = fast_exp2(x - lse_l2[e]);
+      if constexpr (kMask) {
+        const int qi = q + q_step * (kT ? j : r), kj = key + key_step * (kT ? r : j);
+        p = mask.ok(qi, kj) ? p : 0.f;
+      }
+      if (p_out != nullptr) p_out[r * kLdS + 16 * j] = p;
+      dp[r][j] = p * fac * (dp[r][j] - dlt[e]);
+    }
+}
+
+// cc_grads with kCap and kMask picked by two uniform branches.
+template <bool kT>
+__device__ __forceinline__ void cc_grads_any(bool cap, bool masked, float (&s)[4][4],
+                                             float (&dp)[4][4], const float (&lse_l2)[4],
+                                             const float (&dlt)[4], const Mask& mask, int q,
+                                             int q_step, int key, int key_step, float scale_l2,
+                                             float scale_cap, float cap_l2, float* p_out) {
+  if (cap) {
+    if (masked)
+      cc_grads<true, true, kT>(s, dp, lse_l2, dlt, mask, q, q_step, key, key_step, scale_l2,
+                               scale_cap, cap_l2, p_out);
+    else
+      cc_grads<true, false, kT>(s, dp, lse_l2, dlt, mask, q, q_step, key, key_step, scale_l2,
+                                scale_cap, cap_l2, p_out);
+  } else {
+    if (masked)
+      cc_grads<false, true, kT>(s, dp, lse_l2, dlt, mask, q, q_step, key, key_step, scale_l2,
+                                scale_cap, cap_l2, p_out);
+    else
+      cc_grads<false, false, kT>(s, dp, lse_l2, dlt, mask, q, q_step, key, key_step, scale_l2,
+                                 scale_cap, cap_l2, p_out);
   }
 }
 
-__device__ __forceinline__ float dot_rows(const float* a, const float* b, int d) {
-  float acc = 0.f;
-  for (int c = 0; c < d; ++c) acc = fmaf(a[c], b[c], acc);
-  return acc;
-}
-
-// (b) dK, dV: the block owns keys [k0, k0 + 32) of kv head (b, hk).
-// Thread x: in the scores, key x / 8 against queries x % 8 + 8c; in the
-// accumulators, key x / 8, columns x % 8 + 8c.
+// (b) dK, dV: the block owns keys [k0, k0 + 64) of kv head (b, hk) and
+// loops over the 64-row query tiles of its group's heads that see them, Q
+// and dO two stages deep.  Thread (ty, tx): keys 4ty..4ty+3 of S^T and dP^T
+// (queries tx + 16j) and of the dK and dV accumulators.
 template <int D, bool kAny>
-__global__ void __launch_bounds__(kCcThreads)
+__global__ void __launch_bounds__(kCcThreads, 1)
 bwd_dkdv_cc(const float* __restrict__ q, const float* __restrict__ k,
             const float* __restrict__ v, const float* __restrict__ dout,
             const float* __restrict__ lse, const float* __restrict__ delta,
             float* __restrict__ dk, float* __restrict__ dv, int Hq, int Hk, int d_run,
             Mask mask, float softcap, float scale) {
   const int d = kAny ? d_run : D;
-  constexpr int ld = D + 1, lp = kT + 1;
-  extern __shared__ float smem_cc[];
-  float* ks = smem_cc;
-  float* vs = ks + kT * ld;
-  float* qs = vs + kT * ld;
-  float* dos = qs + kT * ld;
-  float* ps = dos + kT * ld;  // [key][query]
-  float* dss = ps + kT * lp;
-  float* lse_s = dss + kT * lp;
-  float* delta_s = lse_s + kT;
+  const int width = (d + 31) / 32 * 32;  // the columns acc_rows reads
+  constexpr int kTile = cc_tile<D>();
+  constexpr int kPairs = D / 16;
+  extern __shared__ float4 smem_cc[];
+  float* ks = reinterpret_cast<float*>(smem_cc);
+  float* vs = ks + kTile;
+  float* qs = vs + kTile;        // stage s at qs + s * kTile
+  float* dos = qs + 2 * kTile;   // stage s at dos + s * kTile
+  float* xs = dos + 2 * kTile;   // P^T, then dS^T: [key][query]
 
-  const int hk = blockIdx.y, b = blockIdx.z, group = Hq / Hk;
-  const int k0 = blockIdx.x * kT, k_rows = min(kT, mask.Sk - k0);
+  int rest;
+  const int k0 = heavy_first(&rest) * kCcRows;  // causal: the first key blocks are the heaviest
+  const int hk = rest % Hk, b = rest / Hk, group = Hq / Hk;
+  const int k_rows = min(kCcRows, mask.Sk - k0);
   const size_t kv_off = (static_cast<size_t>(b) * Hk + hk) * mask.Sk * d;
-  const int jl = threadIdx.x / 8, c0 = threadIdx.x % 8;
-
-  load_tile_f32<D>(ks, k + kv_off + static_cast<size_t>(k0) * d, k_rows, d);
-  load_tile_f32<D>(vs, v + kv_off + static_cast<size_t>(k0) * d, k_rows, d);
-  float acc_dk[D / 8], acc_dv[D / 8];
-#pragma unroll
-  for (int c = 0; c < D / 8; ++c) acc_dk[c] = acc_dv[c] = 0.f;
-
   int qt_lo, qt_hi;
-  mask.query_tiles(k0, kT, kT, &qt_lo, &qt_hi);
-  for (int hh = 0; hh < group; ++hh) {
-    const size_t q_off = (static_cast<size_t>(b) * Hq + hk * group + hh) * mask.Sq;
-    for (int qt = qt_lo; qt < qt_hi; ++qt) {
-      const int q0 = qt * kT, q_rows = min(kT, mask.Sq - q0);
-      __syncthreads();
-      load_tile_f32<D>(qs, q + (q_off + q0) * d, q_rows, d);
-      load_tile_f32<D>(dos, dout + (q_off + q0) * d, q_rows, d);
-      if (threadIdx.x < kT) {
-        const bool in = threadIdx.x < q_rows;
-        lse_s[threadIdx.x] = in ? lse[q_off + q0 + threadIdx.x] : INFINITY;
-        delta_s[threadIdx.x] = in ? delta[q_off + q0 + threadIdx.x] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int il = c0 + 8 * c;
-        float factor;
-        const float s = cap(dot_rows(ks + jl * ld, qs + il * ld, d) * scale, softcap, &factor);
-        const float p = mask.ok(q0 + il, k0 + jl) ? expf(s - lse_s[il]) : 0.f;
-        const float dp = dot_rows(vs + jl * ld, dos + il * ld, d);
-        ps[jl * lp + il] = p;
-        dss[jl * lp + il] = p * (dp - delta_s[il]) * factor;
-      }
-      __syncthreads();
-      for (int il = 0; il < kT; ++il) {
-        const float p = ps[jl * lp + il], ds = dss[jl * lp + il];
-#pragma unroll
-        for (int c = 0; c < D / 8; ++c) {
-          acc_dv[c] = fmaf(p, dos[il * ld + c0 + 8 * c], acc_dv[c]);
-          acc_dk[c] = fmaf(ds, qs[il * ld + c0 + 8 * c], acc_dk[c]);
-        }
-      }
-    }
+  mask.query_tiles(k0, kCcRows, kCcRows, &qt_lo, &qt_hi);
+  const int nq = qt_hi - qt_lo, n_tiles = group * nq;
+  // tile i of the loop: query tile qt_lo + i % nq of the group's head i / nq,
+  // whose rows start at row q_row(i) of the [B * Hq * Sq] rows
+  auto q_first = [&](int i) { return (qt_lo + i % nq) * kCcRows; };
+  auto q_row = [&](int i) {
+    return (static_cast<size_t>(b) * Hq + hk * group + i / nq) * mask.Sq + q_first(i);
+  };
+
+  const int lane = threadIdx.x & 31, tx = lane & 15;
+  const int ty = (threadIdx.x >> 5) * 2 + (lane >> 4);
+
+  auto load_q = [&](int i, int s) {
+    const int rows = min(kCcRows, mask.Sq - q_first(i));
+    load_tile_async<D, kAny>(qs + s * kTile, q + q_row(i) * d, rows, d, width);
+    load_tile_async<D, kAny>(dos + s * kTile, dout + q_row(i) * d, rows, d, width);
+  };
+  if (n_tiles > 0) {
+    load_tile_async<D, kAny>(ks, k + kv_off + static_cast<size_t>(k0) * d, k_rows, d, width);
+    load_tile_async<D, kAny>(vs, v + kv_off + static_cast<size_t>(k0) * d, k_rows, d, width);
+    load_q(0, 0);
   }
-  if (jl < k_rows) {
-    const size_t row = kv_off + static_cast<size_t>(k0 + jl) * d;
+  cp_async_commit();
+
+  float acc_dk[4][kPairs], acc_dv[4][kPairs];
 #pragma unroll
-    for (int c = 0; c < D / 8; ++c) {
-      if (kAny && 8 * c >= d) break;  // the row's own d columns only
-      dk[row + c0 + 8 * c] = acc_dk[c] * scale;
-      dv[row + c0 + 8 * c] = acc_dv[c];
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < kPairs; ++c) acc_dk[r][c] = acc_dv[r][c] = 0.f;
+  const float scale_l2 = scale * kLog2e;
+  const float cap_l2 = softcap * kLog2e, scale_cap = scale / softcap;
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i & 1, q0 = q_first(i);
+    // the lse (log2 units) and delta of this thread's queries q0 + tx + 16j:
+    // +inf and 0 past Sq, so P is 0 there
+    float lse_c[4], dlt_c[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const bool in = q0 + tx + 16 * j < mask.Sq;
+      const size_t at = q_row(i) + tx + 16 * j;
+      lse_c[j] = in ? lse[at] * kLog2e : INFINITY;
+      dlt_c[j] = in ? delta[at] : 0.f;
     }
+    cp_async_wait_all();
+    __syncthreads();  // tile i is in; every thread is done with tile i - 1 and xs
+    if (i + 1 < n_tiles) load_q(i + 1, s ^ 1);  // lands while tile i is computed
+    cp_async_commit();
+    const float* q_t = qs + s * kTile;
+    const float* do_t = dos + s * kTile;
+
+    // S^T = K Q^T and dP^T = V dO^T: keys are rows, the tile's queries columns
+    float st[4][4], dpt[4][4];
+    dot_rows<D>(st, ks, q_t, ty, tx, d);
+    dot_rows<D>(dpt, vs, do_t, ty, tx, d);
+    // P^T into xs, dS^T (without the scale) into dpt: rows are keys
+    // k0 + 4ty + r, columns queries q0 + tx + 16j
+    cc_grads_any<true>(softcap > 0.f, mask.cuts(q0, k0), st, dpt, lse_c, dlt_c, mask,
+                       q0 + tx, 16, k0 + 4 * ty, 1, scale_l2, scale_cap, cap_l2,
+                       xs + 4 * ty * kLdS + tx);
+    // P^T's and dS^T's rows (keys 4ty..4ty+3) are this warp's own where
+    // they are written and where they are read: the warp waits for itself
+    __syncwarp();
+    const int q_end = rows_end(mask.Sq - q0);
+    acc_rows<D, kAny>(acc_dv, xs, do_t, ty, tx, d, q_end);  // dV += P^T dO
+    __syncwarp();  // the warp is done with P^T
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) xs[(4 * ty + r) * kLdS + tx + 16 * j] = dpt[r][j];
+    __syncwarp();  // dS^T is complete
+    acc_rows<D, kAny>(acc_dk, xs, q_t, ty, tx, d, q_end);   // dK += dS^T Q
+  }
+
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    if (4 * ty + r >= k_rows) continue;
+    const size_t row = kv_off + static_cast<size_t>(k0 + 4 * ty + r) * d;
+#pragma unroll
+    for (int g = 0; g < D / 32; ++g)
+      if (!kAny || 2 * tx + 32 * g < d) {  // the row's own d columns only
+        *reinterpret_cast<float2*>(dk + row + 2 * tx + 32 * g) =
+            make_float2(acc_dk[r][2 * g] * scale, acc_dk[r][2 * g + 1] * scale);
+        *reinterpret_cast<float2*>(dv + row + 2 * tx + 32 * g) =
+            make_float2(acc_dv[r][2 * g], acc_dv[r][2 * g + 1]);
+      }
   }
 }
 
-// (c) dQ: the block owns query rows [q0, q0 + 32) of head (b, h).  Thread
-// x: query x / 8 against keys x % 8 + 8c; of dQ, columns x % 8 + 8c.
+// (c) dQ: the block owns query rows [q0, q0 + 64) of head (b, h) and loops
+// over split sp's share of the 64-key tiles they see, K and V two stages
+// deep.  Thread (ty, tx): queries 4ty..4ty+3 of S and dP (keys tx + 16j) and
+// of the dQ accumulator.  n_split > 1: the block's sum, without the scale,
+// goes to part[sp] and dq_combine adds the splits up in order.
 template <int D, bool kAny>
-__global__ void __launch_bounds__(kCcThreads)
+__global__ void __launch_bounds__(kCcThreads, 1)
 bwd_dq_cc(const float* __restrict__ q, const float* __restrict__ k,
           const float* __restrict__ v, const float* __restrict__ dout,
           const float* __restrict__ lse, const float* __restrict__ delta,
-          float* __restrict__ dq, int Hq, int Hk, int d_run, Mask mask, float softcap,
-          float scale) {
+          float* __restrict__ dq, float* __restrict__ part, int Hq, int Hk, int d_run,
+          Mask mask, float softcap, float scale, int n_split) {
   const int d = kAny ? d_run : D;
-  constexpr int ld = D + 1, lp = kT + 1;
-  extern __shared__ float smem_cc[];
-  float* qs = smem_cc;
-  float* dos = qs + kT * ld;
-  float* ks = dos + kT * ld;
-  float* vs = ks + kT * ld;
-  float* dss = vs + kT * ld;  // [query][key]
+  const int width = (d + 31) / 32 * 32;  // the columns acc_rows reads
+  constexpr int kTile = cc_tile<D>();
+  constexpr int kPairs = D / 16;
+  extern __shared__ float4 smem_cc[];
+  float* qs = reinterpret_cast<float*>(smem_cc);
+  float* dos = qs + kTile;
+  float* ks = dos + kTile;      // stage s at ks + s * kTile
+  float* vs = ks + 2 * kTile;   // stage s at vs + s * kTile
+  float* xs = vs + 2 * kTile;   // dS: [query][key]
 
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kT, q_rows = min(kT, mask.Sq - q0);
-  const size_t q_off = (static_cast<size_t>(b) * Hq + h) * mask.Sq + q0;
+  int rest;
+  const int xi = heavy_first(&rest);  // the last query blocks are the heaviest
+  const int q0 = (gridDim.x / n_split - 1 - xi / n_split) * kCcRows, sp = xi % n_split;
+  const int h = rest % Hq, b = rest / Hq;
+  const int q_rows = min(kCcRows, mask.Sq - q0);
+  const size_t q_at = (static_cast<size_t>(b) * Hq + h) * mask.Sq + q0;
   const size_t kv_off = (static_cast<size_t>(b) * Hk + h / (Hq / Hk)) * mask.Sk * d;
-  const int il = threadIdx.x / 8, c0 = threadIdx.x % 8;
+  int lo, hi;
+  mask.key_tiles(q0, q_rows, kCcRows, &lo, &hi);
+  const int nk = (mask.Sk + kCcRows - 1) / kCcRows, per = (nk + n_split - 1) / n_split;
+  lo = max(lo, sp * per);
+  hi = min(hi, (sp + 1) * per);
+  const int n_tiles = max(0, hi - lo);
 
-  load_tile_f32<D>(qs, q + q_off * d, q_rows, d);
-  load_tile_f32<D>(dos, dout + q_off * d, q_rows, d);
-  const float lse_i = il < q_rows ? lse[q_off + il] : INFINITY;
-  const float delta_i = il < q_rows ? delta[q_off + il] : 0.f;
-  float acc_dq[D / 8];
+  const int lane = threadIdx.x & 31, tx = lane & 15;
+  const int ty = (threadIdx.x >> 5) * 2 + (lane >> 4);
+  float lse_r[4], delta_r[4];
 #pragma unroll
-  for (int c = 0; c < D / 8; ++c) acc_dq[c] = 0.f;
+  for (int r = 0; r < 4; ++r) {
+    const bool in = 4 * ty + r < q_rows;
+    lse_r[r] = in ? lse[q_at + 4 * ty + r] * kLog2e : INFINITY;
+    delta_r[r] = in ? delta[q_at + 4 * ty + r] : 0.f;
+  }
 
-  int kt_lo, kt_hi;
-  mask.key_tiles(q0, q_rows, kT, &kt_lo, &kt_hi);
-  for (int kt = kt_lo; kt < kt_hi; ++kt) {
-    const int j0 = kt * kT, j_rows = min(kT, mask.Sk - j0);
-    __syncthreads();
-    load_tile_f32<D>(ks, k + kv_off + static_cast<size_t>(j0) * d, j_rows, d);
-    load_tile_f32<D>(vs, v + kv_off + static_cast<size_t>(j0) * d, j_rows, d);
-    __syncthreads();
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int jl = c0 + 8 * c;
-      float factor;
-      const float s = cap(dot_rows(qs + il * ld, ks + jl * ld, d) * scale, softcap, &factor);
-      const float p = mask.ok(q0 + il, j0 + jl) ? expf(s - lse_i) : 0.f;
-      const float dp = dot_rows(dos + il * ld, vs + jl * ld, d);
-      dss[il * lp + jl] = p * (dp - delta_i) * factor;
-    }
-    __syncthreads();
-    for (int jl = 0; jl < kT; ++jl) {
-      const float ds = dss[il * lp + jl];
-#pragma unroll
-      for (int c = 0; c < D / 8; ++c) acc_dq[c] = fmaf(ds, ks[jl * ld + c0 + 8 * c], acc_dq[c]);
-    }
+  auto load_kv = [&](int i, int s) {
+    const int j0 = (lo + i) * kCcRows, rows = min(kCcRows, mask.Sk - j0);
+    const size_t at = kv_off + static_cast<size_t>(j0) * d;
+    load_tile_async<D, kAny>(ks + s * kTile, k + at, rows, d, width);
+    load_tile_async<D, kAny>(vs + s * kTile, v + at, rows, d, width);
+  };
+  if (n_tiles > 0) {
+    load_tile_async<D, kAny>(qs, q + q_at * d, q_rows, d, width);
+    load_tile_async<D, kAny>(dos, dout + q_at * d, q_rows, d, width);
+    load_kv(0, 0);
   }
-  if (il < q_rows) {
+  cp_async_commit();
+
+  float acc[4][kPairs];
 #pragma unroll
-    for (int c = 0; c < D / 8; ++c) {
-      if (kAny && 8 * c >= d) break;  // the row's own d columns only
-      dq[(q_off + il) * d + c0 + 8 * c] = acc_dq[c] * scale;
-    }
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < kPairs; ++c) acc[r][c] = 0.f;
+  const float scale_l2 = scale * kLog2e;
+  const float cap_l2 = softcap * kLog2e, scale_cap = scale / softcap;
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i & 1, j0 = (lo + i) * kCcRows;
+    cp_async_wait_all();
+    __syncthreads();  // tile i is in; every thread is done with tile i - 1 and xs
+    if (i + 1 < n_tiles) load_kv(i + 1, s ^ 1);  // lands while tile i is computed
+    cp_async_commit();
+    const float* k_t = ks + s * kTile;
+
+    // S = Q K^T and dP = dO V^T: the block's queries are rows, the tile's
+    // keys columns
+    float sc[4][4], dp[4][4];
+    dot_rows<D>(sc, qs, k_t, ty, tx, d);
+    dot_rows<D>(dp, dos, vs + s * kTile, ty, tx, d);
+    // dS (without the scale) into xs: rows are queries q0 + 4ty + r, columns
+    // keys j0 + tx + 16j
+    cc_grads_any<false>(softcap > 0.f, j0 + kCcRows > mask.Sk || mask.cuts(q0, j0), sc, dp,
+                        lse_r, delta_r, mask, q0 + 4 * ty, 1, j0 + tx, 16, scale_l2, scale_cap,
+                        cap_l2, nullptr);
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) xs[(4 * ty + r) * kLdS + tx + 16 * j] = dp[r][j];
+    __syncwarp();  // dS's rows 4ty..4ty+3 are this warp's own, written and read
+    acc_rows<D, kAny>(acc, xs, k_t, ty, tx, d, rows_end(mask.Sk - j0));  // dQ += dS K
   }
+
+  const size_t rows_all = static_cast<size_t>(gridDim.z) * Hq * mask.Sq;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    if (4 * ty + r >= q_rows) continue;
+    const size_t row = q_at + 4 * ty + r;
+    float* out = part == nullptr ? dq + row * d
+                                 : part + (static_cast<size_t>(sp) * rows_all + row) * d;
+    const float f = part == nullptr ? scale : 1.f;
+#pragma unroll
+    for (int g = 0; g < D / 32; ++g)
+      if (!kAny || 2 * tx + 32 * g < d)  // the row's own d columns only
+        *reinterpret_cast<float2*>(out + 2 * tx + 32 * g) =
+            make_float2(acc[r][2 * g] * f, acc[r][2 * g + 1] * f);
+  }
+}
+
+// dQ from bwd_dq_cc's key splits: scale * (part[0] + part[1] + ...), added
+// in that order so that two runs are bitwise equal; n4 float4s a split.
+__global__ void __launch_bounds__(256)
+dq_combine(const float* __restrict__ part, float* __restrict__ dq, size_t n4, int n_split,
+           float scale) {
+  const size_t i = static_cast<size_t>(blockIdx.x) * 256 + threadIdx.x;
+  if (i >= n4) return;
+  const float4* in = reinterpret_cast<const float4*>(part);
+  float4 acc = in[i];
+  for (int s = 1; s < n_split; ++s) {
+    const float4 x = in[static_cast<size_t>(s) * n4 + i];
+    acc.x += x.x;
+    acc.y += x.y;
+    acc.z += x.z;
+    acc.w += x.w;
+  }
+  reinterpret_cast<float4*>(dq)[i] =
+      make_float4(acc.x * scale, acc.y * scale, acc.z * scale, acc.w * scale);
 }
 
 // =========================================================== launching
@@ -854,6 +1021,8 @@ struct Args {
   int B, Hq, Hk, d;
   Mask mask;
   float softcap, scale;
+  float* scratch;  // f32 dQ key splits: dq_split * B * Hq * Sq * d floats
+  int dq_split;
   cudaStream_t stream;
 };
 
@@ -878,11 +1047,11 @@ int launch_delta(const Args& a) {
 
 // The own rows of a (b) and a (c) block: bf16 takes 128 (two warpgroups)
 // unless that leaves fewer blocks than the card's n_sm SMs, then 64; f32
-// takes kT.
+// takes kCcRows.
 void block_rows(int dtype, int B, int Hq, int Hk, int Sq, int Sk, int n_sm, int* dkdv,
                 int* dq) {
   if (dtype == 0) {
-    *dkdv = *dq = kT;
+    *dkdv = *dq = kCcRows;
     return;
   }
   *dkdv = B * Hk * ((Sk + 127) / 128) < n_sm ? 64 : 128;
@@ -963,21 +1132,30 @@ int launch_cc(const Args& a) {
   using T = float;
   constexpr int kSmem = cc_smem_bytes<D>();
   static bool dkdv_ok = false, dq_ok = false;
+  const int split = a.dq_split;
+  if (split < 1 || split > kMaxSplit || (split > 1 && a.scratch == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   int err = launch_delta<T, D, kAny>(a);
   if (err == 0) err = allow_smem(bwd_dkdv_cc<D, kAny>, kSmem, &dkdv_ok);
   if (err == 0) err = allow_smem(bwd_dq_cc<D, kAny>, kSmem, &dq_ok);
   if (err != 0) return err;
   const T *q = static_cast<const T*>(a.q), *k = static_cast<const T*>(a.k),
           *v = static_cast<const T*>(a.v), *dout = static_cast<const T*>(a.dout);
-  bwd_dkdv_cc<D, kAny><<<dim3((a.mask.Sk + kT - 1) / kT, a.Hk, a.B), kCcThreads, kSmem,
-                         a.stream>>>(q, k, v, dout, a.lse, a.delta, static_cast<T*>(a.dk),
-                                     static_cast<T*>(a.dv), a.Hq, a.Hk, a.d, a.mask,
-                                     a.softcap, a.scale);
+  bwd_dkdv_cc<D, kAny><<<dim3((a.mask.Sk + kCcRows - 1) / kCcRows, a.Hk, a.B), kCcThreads,
+                         kSmem, a.stream>>>(q, k, v, dout, a.lse, a.delta,
+                                            static_cast<T*>(a.dk), static_cast<T*>(a.dv),
+                                            a.Hq, a.Hk, a.d, a.mask, a.softcap, a.scale);
   err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
-  bwd_dq_cc<D, kAny><<<dim3((a.mask.Sq + kT - 1) / kT, a.Hq, a.B), kCcThreads, kSmem,
-                       a.stream>>>(q, k, v, dout, a.lse, a.delta, static_cast<T*>(a.dq),
-                                   a.Hq, a.Hk, a.d, a.mask, a.softcap, a.scale);
+  bwd_dq_cc<D, kAny><<<dim3((a.mask.Sq + kCcRows - 1) / kCcRows * split, a.Hq, a.B),
+                       kCcThreads, kSmem, a.stream>>>(
+      q, k, v, dout, a.lse, a.delta, static_cast<T*>(a.dq), split > 1 ? a.scratch : nullptr,
+      a.Hq, a.Hk, a.d, a.mask, a.softcap, a.scale, split);
+  err = static_cast<int>(cudaGetLastError());
+  if (err != 0 || split == 1) return err;
+  const size_t n4 = static_cast<size_t>(a.B) * a.Hq * a.mask.Sq * a.d / 4;
+  dq_combine<<<static_cast<unsigned>((n4 + 255) / 256), 256, 0, a.stream>>>(
+      a.scratch, static_cast<T*>(a.dq), n4, split, a.scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1000,15 +1178,20 @@ constexpr Variant kVariants[] = {
     {1, 96, 128, kTile, 256, dkdv_smem_bytes<96, 2>(), dq_smem_bytes<96, 2>(), false, launch_wgmma<96, false>},
     {1, 128, 64, kTile, 128, dkdv_smem_bytes<128, 1>(), dq_smem_bytes<128, 1>(), false, launch_wgmma<128, false>},
     {1, 128, 128, kTile, 256, dkdv_smem_bytes<128, 2>(), dq_smem_bytes<128, 2>(), false, launch_wgmma<128, false>},
-    {0, 64, kT, kT, kCcThreads, cc_smem_bytes<64>(), cc_smem_bytes<64>(), false, launch_cc<64, false>},
-    {0, 96, kT, kT, kCcThreads, cc_smem_bytes<96>(), cc_smem_bytes<96>(), false, launch_cc<96, false>},
-    {0, 128, kT, kT, kCcThreads, cc_smem_bytes<128>(), cc_smem_bytes<128>(), false, launch_cc<128, false>},
+    {0, 64, kCcRows, kCcRows, kCcThreads, cc_smem_bytes<64>(), cc_smem_bytes<64>(), false,
+     launch_cc<64, false>},
+    {0, 96, kCcRows, kCcRows, kCcThreads, cc_smem_bytes<96>(), cc_smem_bytes<96>(), false,
+     launch_cc<96, false>},
+    {0, 128, kCcRows, kCcRows, kCcThreads, cc_smem_bytes<128>(), cc_smem_bytes<128>(), false,
+     launch_cc<128, false>},
     {1, 64, 64, kTile, 128, dkdv_smem_bytes<64, 1>(), dq_smem_bytes<64, 1>(), true, launch_wgmma<64, true>},
     {1, 64, 128, kTile, 256, dkdv_smem_bytes<64, 2>(), dq_smem_bytes<64, 2>(), true, launch_wgmma<64, true>},
     {1, 128, 64, kTile, 128, dkdv_smem_bytes<128, 1>(), dq_smem_bytes<128, 1>(), true, launch_wgmma<128, true>},
     {1, 128, 128, kTile, 256, dkdv_smem_bytes<128, 2>(), dq_smem_bytes<128, 2>(), true, launch_wgmma<128, true>},
-    {0, 64, kT, kT, kCcThreads, cc_smem_bytes<64>(), cc_smem_bytes<64>(), true, launch_cc<64, true>},
-    {0, 128, kT, kT, kCcThreads, cc_smem_bytes<128>(), cc_smem_bytes<128>(), true, launch_cc<128, true>},
+    {0, 64, kCcRows, kCcRows, kCcThreads, cc_smem_bytes<64>(), cc_smem_bytes<64>(), true,
+     launch_cc<64, true>},
+    {0, 128, kCcRows, kCcRows, kCcThreads, cc_smem_bytes<128>(), cc_smem_bytes<128>(), true,
+     launch_cc<128, true>},
 };
 
 const Variant* find(int dtype, int D, int rows) {
@@ -1045,16 +1228,20 @@ extern "C" int flash_attention_bwd_blocks(int B, int Hq, int Hk, int Sq, int Sk,
 }
 
 // q, o, dout, dq [B, Hq, Sq, D]; k, v, dk, dv [B, Hk, Sk, D]; lse and the
-// scratch delta [B, Hq, Sq] f32.  window < 0: no sliding window.
+// scratch delta [B, Hq, Sq] f32.  window < 0: no sliding window.  dq_split
+// (the launch plan's; 1 for bf16): f32 dQ blocks split each query block's
+// keys dq_split ways and a fourth launch adds the splits up, through
+// scratch: f32, dq_split * B * Hq * Sq * D floats (null when dq_split is 1).
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                                    const void* dout, const float* lse, float* delta, void* dq,
-                                   void* dk, void* dv, int B, int Hq, int Hk, int Sq, int Sk,
-                                   int D, int dtype, int causal, int window, float softcap,
-                                   float scale, void* stream) {
+                                   void* dk, void* dv, float* scratch, int B, int Hq, int Hk,
+                                   int Sq, int Sk, int D, int dtype, int causal, int window,
+                                   float softcap, float scale, int dq_split, void* stream) {
   const Variant* x = find(dtype, D, -1);
-  if (x == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (x == nullptr || (dtype != 0 && dq_split != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
   const Args a{q, k, v, o, dout, lse, delta, dq, dk, dv, B, Hq, Hk, D,
-               Mask{Sq, Sk, causal, window}, softcap, scale,
+               Mask{Sq, Sk, causal, window}, softcap, scale, scratch, dq_split,
                static_cast<cudaStream_t>(stream)};
   return x->launch(a);
 }

@@ -13,7 +13,11 @@ or loaded at import.
 Two variants, chosen by dtype in ``kernel_plan``: bf16 runs on the tensor
 cores (``"wgmma"``: TMA loads into a two-stage shared-memory ring, ``wgmma``
 for both products, the online softmax in registers); f32 runs on the CUDA
-cores (``"cuda_cores"``: f32 FMAs, which its 2e-5 tolerance needs).  There
+cores (``"cuda_cores"``: f32 FMAs, which its 2e-5 tolerance needs; 64 x 64
+tiles, K and V brought by ``cp.async`` two stages deep, register-blocked
+products from ``csrc/cuda_cores.cuh``, and, when the query tiles would
+leave SMs idle, each tile's keys split over ``key_split`` blocks whose
+partial rows a second launch puts together in a fixed order).  There
 is no option that picks another: a bf16 CUDA tensor launches the
 tensor-core kernel or raises.  Both variants, forward and backward, take
 every head width in ``HEAD_DIMS`` (a multiple of 8 up to 128, as the Pallas
@@ -26,7 +30,10 @@ over the query heads of its GQA group, so nothing is added atomically and
 two runs are bitwise equal), dQ over query blocks.  bf16 runs its products
 on the tensor cores (``"wgmma"``: TMA into a two-stage shared-memory ring,
 ``wgmma`` for every product, P and dS from registers), f32 on the CUDA
-cores (``"cuda_cores"``).
+cores (``"cuda_cores"``: 64-row blocks, the other side's tiles two stages
+deep, dK and dV in registers over a key block; dQ blocks that would leave
+SMs idle split their keys, and a fourth launch adds the splits up in a
+fixed order).
 
 Each kernel is a ``torch.library`` op
 (``repro_torch::flash_attention_fwd``, ``repro_torch::flash_attention_bwd``)
@@ -67,6 +74,12 @@ N_SM = 132                      # H100 SXM streaming multiprocessors
 MAX_SMEM = 232_448              # dynamic shared memory a block may have
 MAX_GRID_YZ = 65535             # heads (grid y) and batch (grid z)
 WGMMA_BLOCK_K = 128             # keys per tile of the tensor-core kernel
+CC_ROWS = 64                    # rows (queries, keys) of an f32 tile
+CC_THREADS = 256
+# f32 key splits: a block's keys split when the grid leaves SMs idle, each
+# split at least SPLIT_MIN_TILES key tiles, at most MAX_SPLIT splits
+# (csrc/cuda_cores.cuh kMaxSplit)
+SPLIT_MIN_TILES, MAX_SPLIT = 2, 16
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the C entry point's codes besides cudaError_t
 _NO_ENCODER, _ENCODE_FAILED = 999, 1000
@@ -135,8 +148,24 @@ def geometry(dtype: torch.dtype, d: int, block_q: int) -> tuple[int, int, int]:
         # bf16, the mbarriers
         smem = 1024 + (block_q + 4 * WGMMA_BLOCK_K) * cols * 2 + 64
         return WGMMA_BLOCK_K, 2 * block_q, smem
-    # Q and one K/V tile with rows padded by 4 floats, and P
-    return 64, 256, (2 * 64 * (d + 4) + 64 * (64 + 4)) * 4
+    # Q, two K and two V stages of 64 rows padded by 4 floats, and P at 72
+    # floats a row
+    smem = (5 * CC_ROWS * (d + 4) + CC_ROWS * (CC_ROWS + 8)) * 4
+    return CC_ROWS, CC_THREADS, smem
+
+
+def key_split(blocks: int, sk: int, n_sm: int = N_SM) -> int:
+    """How many blocks share the keys of one f32 block's rows (the forward's
+    query tile, the backward's dQ block) when the grid has ``blocks`` such
+    blocks on a card of ``n_sm`` SMs: 1 when the grid fills the card, else
+    as many as keep it within one wave (``blocks * split <= n_sm``), each
+    split at least ``SPLIT_MIN_TILES`` 64-key tiles of the ``sk`` keys, at
+    most ``MAX_SPLIT``.  A second launch adds the splits up in a fixed
+    order."""
+    if blocks >= n_sm:
+        return 1
+    return max(1, min(n_sm // blocks, -(-sk // CC_ROWS) // SPLIT_MIN_TILES,
+                      MAX_SPLIT))
 
 
 def kernel_plan(b: int, hq: int, hk: int, sq: int, sk: int, d: int,
@@ -150,29 +179,38 @@ def kernel_plan(b: int, hq: int, hk: int, sq: int, sk: int, d: int,
     pads to 64, D above it to 128).  A block takes 128 rows (two
     warpgroups) unless that leaves fewer blocks than SMs
     (``b * hq * ceil(sq / 128) < n_sm``); then 64.  f32 plans
-    ``"cuda_cores"``: 64 x 64 tiles, 256 threads.  Raises ValueError on what
-    no instantiation takes (a head width outside ``HEAD_DIMS``, another
-    dtype, a grid or shared memory past the card's limits).
+    ``"cuda_cores"``: 64 x 64 tiles, 256 threads, K and V two stages deep;
+    when the query tiles leave SMs idle, ``split`` blocks share a tile's
+    keys (``key_split``) and write their partial rows into ``scratch``
+    bytes of f32 (``split * b * hq * sq * (d + 2)`` floats: O, m and l of
+    each split), which a second launch puts together in a fixed order.
+    bf16 never splits.  Raises ValueError on what no instantiation takes (a
+    head width outside ``HEAD_DIMS``, another dtype, a grid or shared memory
+    past the card's limits).
     """
     _check_width("flash_attention_cuda", d)
     if dtype == torch.bfloat16:
         block_q = 64 if b * hq * -(-sq // 128) < n_sm else 128
         variant = "wgmma"
     elif dtype == torch.float32:
-        block_q, variant = 64, "cuda_cores"
+        block_q, variant = CC_ROWS, "cuda_cores"
     else:
         raise ValueError(f"flash_attention_cuda: dtype {dtype}, expected "
                          "torch.float32 or torch.bfloat16")
     block_k, threads, smem = geometry(dtype, d, block_q)
-    grid = (-(-sq // block_q), hq, b)
+    split = (key_split(b * hq * -(-sq // block_q), sk, n_sm)
+             if dtype == torch.float32 else 1)
+    grid = (-(-sq // block_q) * split, hq, b)
     if hq > MAX_GRID_YZ or b > MAX_GRID_YZ:
         raise ValueError(f"flash_attention_cuda: {hq} heads or batch {b} "
                          f"exceed the grid's {MAX_GRID_YZ}")
     if smem > MAX_SMEM:
         raise ValueError(f"flash_attention_cuda: {smem} bytes of shared "
                          f"memory exceed a block's {MAX_SMEM}")
+    scratch = split * b * hq * sq * (d + 2) * 4 if split > 1 else 0
     return {"variant": variant, "block_q": block_q, "block_k": block_k,
-            "threads": threads, "smem": smem, "grid": grid}
+            "threads": threads, "smem": smem, "grid": grid, "split": split,
+            "scratch": scratch}
 
 
 def _check_width(fn: str, d: int) -> None:
@@ -185,8 +223,8 @@ def _check_width(fn: str, d: int) -> None:
 def _library() -> ctypes.CDLL:
     lib = kbuild.load(SRC, NVCC_FLAGS)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.flash_attention_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i,
-                                        i, i, f, f, i, p]
+    lib.flash_attention_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i,
+                                        i, i, i, f, f, i, i, p]
     lib.flash_attention_fwd.restype = i
     ip = ctypes.POINTER(i)
     lib.flash_attention_geometry.argtypes = [i, i, i, ip, ip, ip]
@@ -304,14 +342,18 @@ def _flash_fwd_op(q: Tensor, k: Tensor, v: Tensor, causal: bool,
                       dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out, lse
+    part = (torch.empty(plan["scratch"] // 4, dtype=torch.float32,
+                        device=q.device) if plan["split"] > 1 else None)
     lib = _library()
     with torch.cuda.device(q.device):
         err = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr() if return_lse else None,
+            None if part is None else part.data_ptr(),
             b, hq, hk, sq, sk, d, _DTYPES[q.dtype], int(causal),
             -1 if window is None else window, softcap, scale,
-            plan["block_q"], torch.cuda.current_stream().cuda_stream)
+            plan["block_q"], plan["split"],
+            torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_cuda: launch failed: "
                            f"{_launch_error(err)} (q {tuple(q.shape)}, k "
@@ -363,9 +405,10 @@ def geometry_bwd(dtype: torch.dtype, d: int,
         # 64 delta
         tiles = 1024 + (2 * rows + 4 * 64) * cols * 2 + 64
         return 64, 2 * rows, tiles + rows // 64 * 1024, tiles
-    # four f32 tiles of 32 rows padded by 1; P and dS 32 x 33; lse, delta
-    smem = (4 * 32 * (d + 1) + 2 * 32 * 33 + 2 * 32) * 4
-    return 32, 256, smem, smem
+    # six f32 tiles of 64 rows padded by 4 floats (dK/dV: K, V, two stages
+    # of Q and dO; dQ: Q, dO, two stages of K and V) and a 64 x 68 score tile
+    smem = (6 * CC_ROWS * (d + 4) + CC_ROWS * (CC_ROWS + 4)) * 4
+    return CC_ROWS, CC_THREADS, smem, smem
 
 
 def kernel_plan_bwd(b: int, hq: int, hk: int, sq: int, sk: int, d: int,
@@ -376,18 +419,21 @@ def kernel_plan_bwd(b: int, hq: int, hk: int, sq: int, sk: int, d: int,
     threads and shared memory (``geometry_bwd``) of the ``dkdv`` and ``dq``
     kernels, and the grid of each of the three launches (``delta``: 8 rows
     a block; ``dkdv``: key blocks x kv heads x batch; ``dq``: query blocks
-    x query heads x batch).  A bf16 block owns 128 rows (two warpgroups)
-    unless that leaves fewer blocks than SMs, then 64; an f32 block 32.
-    The C entry point applies the same rule to its card's SM count
-    (``flash_attention_bwd_blocks`` reports it).  Raises ValueError on what
-    no instantiation takes."""
+    x query heads x batch, times the dQ key split).  A bf16 block owns 128
+    rows (two warpgroups) unless that leaves fewer blocks than SMs, then
+    64; an f32 block 64.  The C entry point applies the same rule to its
+    card's SM count (``flash_attention_bwd_blocks`` reports it).  f32 dQ
+    blocks that leave SMs idle split their keys ``dq["split"]`` ways
+    (``key_split``) into ``scratch`` bytes of f32 (``split * b * hq * sq *
+    d`` floats), added up in a fourth launch in a fixed order; bf16 never
+    splits.  Raises ValueError on what no instantiation takes."""
     _check_width("flash_attention_bwd_cuda", d)
     if dtype == torch.bfloat16:
         variant = "wgmma"
         block_rows = (64 if b * hk * -(-sk // 128) < n_sm else 128,
                       64 if b * hq * -(-sq // 128) < n_sm else 128)
     elif dtype == torch.float32:
-        variant, block_rows = "cuda_cores", (32, 32)
+        variant, block_rows = "cuda_cores", (CC_ROWS, CC_ROWS)
     else:
         raise ValueError(f"flash_attention_bwd_cuda: dtype {dtype}, expected "
                          "torch.float32 or torch.bfloat16")
@@ -402,9 +448,14 @@ def kernel_plan_bwd(b: int, hq: int, hk: int, sq: int, sk: int, d: int,
                              f"shared memory exceed a block's {MAX_SMEM}")
         plan[kernel] = {"rows": rows, "other": other, "threads": threads,
                         "smem": smem[i]}
+    q_blocks = -(-sq // plan["dq"]["rows"])
+    split = (key_split(b * hq * q_blocks, sk, n_sm)
+             if dtype == torch.float32 else 1)
+    plan["dq"]["split"] = split
+    plan["scratch"] = split * b * hq * sq * d * 4 if split > 1 else 0
     plan["grids"] = {"delta": (-(-b * hq * sq // 8),),
                      "dkdv": (-(-sk // plan["dkdv"]["rows"]), hk, b),
-                     "dq": (-(-sq // plan["dq"]["rows"]), hq, b)}
+                     "dq": (q_blocks * split, hq, b)}
     return plan
 
 
@@ -412,7 +463,7 @@ def kernel_plan_bwd(b: int, hq: int, hk: int, sq: int, sk: int, d: int,
 def _bwd_library() -> ctypes.CDLL:
     lib = kbuild.load(SRC_BWD, NVCC_FLAGS)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.flash_attention_bwd.argtypes = [p] * 10 + [i] * 9 + [f, f, p]
+    lib.flash_attention_bwd.argtypes = [p] * 11 + [i] * 9 + [f, f, i, p]
     lib.flash_attention_bwd.restype = i
     ip = ctypes.POINTER(i)
     lib.flash_attention_bwd_geometry.argtypes = [i, i, i, ip, ip, ip, ip]
@@ -508,14 +559,18 @@ def _flash_bwd_op(q: Tensor, k: Tensor, v: Tensor, o: Tensor, lse: Tensor,
     if q.numel() == 0 or k.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
     delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    split = plan["dq"]["split"]
+    part = (torch.empty(plan["scratch"] // 4, dtype=torch.float32,
+                        device=q.device) if split > 1 else None)
     lib = _bwd_library()
     with torch.cuda.device(q.device):
         err = lib.flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), b, hq, hk, sq, sk, d,
+            dk.data_ptr(), dv.data_ptr(),
+            None if part is None else part.data_ptr(), b, hq, hk, sq, sk, d,
             _DTYPES[q.dtype], int(causal), -1 if window is None else window,
-            softcap, scale, torch.cuda.current_stream().cuda_stream)
+            softcap, scale, split, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_bwd_cuda: launch failed: "
                            f"{_launch_error(err)} (q {tuple(q.shape)}, k "

@@ -136,8 +136,8 @@ def test_kernel_wrapper_refuses_autograd():
 # (every other width runs the instantiation of ``fa.kernel_width``):
 # bf16 (wgmma_smem_bytes) is 1 KB of alignment, Q and two K and two V
 # stages of 128-key tiles at 64 or 128 bf16 columns, and 64 bytes of
-# mbarriers; f32 (f32_smem_bytes) is Q and one K/V tile of 64 rows at
-# D + 4 floats, and P at 68 floats.
+# mbarriers; f32 (f32_smem_bytes) is Q, two K and two V stages of 64 rows
+# at D + 4 floats, and P at 72 floats.
 GEOMETRY = {
     (torch.bfloat16, 64, 64): (128, 128, 74_816),
     (torch.bfloat16, 64, 128): (128, 256, 83_008),
@@ -145,23 +145,25 @@ GEOMETRY = {
     (torch.bfloat16, 96, 128): (128, 256, 164_928),
     (torch.bfloat16, 128, 64): (128, 128, 148_544),
     (torch.bfloat16, 128, 128): (128, 256, 164_928),
-    (torch.float32, 64, 64): (64, 256, 52_224),
-    (torch.float32, 96, 64): (64, 256, 68_608),
-    (torch.float32, 128, 64): (64, 256, 84_992),
+    (torch.float32, 64, 64): (64, 256, 105_472),
+    (torch.float32, 96, 64): (64, 256, 146_432),
+    (torch.float32, 128, 64): (64, 256, 187_392),
 }
 
 PLAN_SHAPES = [
     # b, hq, hk, sq, sk, then the bf16 plan's query rows and blocks along
-    # the query axis, and the f32 plan's blocks (64 rows): the serving
-    # prefill, 8192 tokens, a gemma2-27b local layer, phi3's batch,
-    # decode-like and ragged shapes
-    (1, 16, 8, 512, 512, 64, 8, 8),
-    (1, 16, 8, 8192, 8192, 128, 64, 128),
-    (1, 32, 16, 8192, 8192, 128, 64, 128),
-    (2, 32, 32, 1024, 1024, 128, 8, 16),
-    (1, 4, 4, 1, 256, 64, 1, 1),
-    (2, 4, 2, 300, 300, 64, 5, 5),
-    (1, 16, 8, 128, 1000, 64, 2, 2),
+    # the query axis, and the f32 plan's query tiles (64 rows) and key
+    # split: the serving prefill, 8192 tokens, a gemma2-27b local layer,
+    # phi3's batch, decode-like and ragged shapes (4 and 40 tiles: 4 and 5
+    # key tiles split 2 ways), and offset rows (32 tiles on 132 SMs: their
+    # 16 key tiles split 4 ways)
+    (1, 16, 8, 512, 512, 64, 8, 8, 1),
+    (1, 16, 8, 8192, 8192, 128, 64, 128, 1),
+    (1, 32, 16, 8192, 8192, 128, 64, 128, 1),
+    (2, 32, 32, 1024, 1024, 128, 8, 16, 1),
+    (1, 4, 4, 1, 256, 64, 1, 1, 2),
+    (2, 4, 2, 300, 300, 64, 5, 5, 2),
+    (1, 16, 8, 128, 1000, 64, 2, 2, 4),
 ]
 
 
@@ -180,18 +182,63 @@ def test_kernel_geometry_fits_the_card_and_wgmma(key):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("d", fa.HEAD_DIMS)
-@pytest.mark.parametrize("b,hq,hk,sq,sk,rows,gx_bf16,gx_f32", PLAN_SHAPES)
+@pytest.mark.parametrize("b,hq,hk,sq,sk,rows,gx_bf16,gx_f32,split",
+                         PLAN_SHAPES)
 def test_kernel_plan_fits_the_card(b, hq, hk, sq, sk, rows, gx_bf16, gx_f32,
-                                   d, dtype):
-    """The plan at each shape: its query rows, the instantiation's geometry
-    and a grid of (query tiles, heads, batch)."""
+                                   split, d, dtype):
+    """The plan at each shape: its query rows, the instantiation's geometry,
+    a grid of (query tiles x key splits, heads, batch) and the splits'
+    scratch (bf16 never splits)."""
     plan = fa.kernel_plan(b, hq, hk, sq, sk, d, dtype)
-    block_q, gx = (rows, gx_bf16) if dtype == torch.bfloat16 else (64, gx_f32)
+    if dtype == torch.bfloat16:
+        block_q, gx, split = rows, gx_bf16, 1
+    else:
+        block_q, gx = 64, gx_f32
     block_k, threads, smem = GEOMETRY[(dtype, fa.kernel_width(d), block_q)]
     assert plan == {
         "variant": "wgmma" if dtype == torch.bfloat16 else "cuda_cores",
         "block_q": block_q, "block_k": block_k, "threads": threads,
-        "smem": smem, "grid": (gx, hq, b)}
+        "smem": smem, "grid": (gx * split, hq, b), "split": split,
+        "scratch": split * b * hq * sq * (d + 2) * 4 if split > 1 else 0}
+
+
+SPLIT_PLANS = [
+    # b, hq, sq, sk, the card's SMs, the f32 plan's key split
+    (1, 16, 128, 1000, 132, 4),     # offset rows: 32 tiles, 4 x 32 = 128
+    (1, 16, 128, 1000, 114, 3),     # an H100 PCIe's 114 SMs: 3 x 32 = 96
+    (1, 4, 64, 4096, 132, 16),      # 4 tiles of 64 key tiles: at most 16
+    (1, 4, 64, 2048, 132, 16),      # 32 key tiles: 16 splits of 2
+    (2, 8, 64, 512, 132, 4),        # 16 tiles, 8 key tiles: 4 splits of 2
+    (2, 20, 64, 1500, 132, 3),      # 40 tiles: 3 x 40 = 120
+    (1, 66, 64, 1024, 132, 2),      # 66 tiles: 2 x 66 = 132
+    (1, 67, 64, 1024, 132, 1),      # 67 tiles: 2 x 67 > 132
+    (1, 132, 64, 4096, 132, 1),     # the grid fills the card
+    (1, 16, 128, 255, 132, 2),      # 4 key tiles: 2 splits of 2
+    (1, 16, 128, 100, 132, 1),      # 2 key tiles: one split's worth
+    (1, 2, 64, 64, 132, 1),         # the Pallas MHA shape: one key tile
+]
+
+
+def test_f32_plan_splits_keys_when_the_grid_leaves_sms_idle():
+    """f32 query tiles that leave SMs idle share their keys among ``split``
+    blocks (at least 2 key tiles each, at most 16, within one wave); the
+    grid's x counts tiles x splits, and the scratch holds each split's O, m
+    and l of every row.  bf16 on the same shapes does not split.  (One test
+    over SPLIT_PLANS: the collection's size decides xdist's first chunks,
+    ROADMAP Queue C.)"""
+    for b, hq, sq, sk, n_sm, split in SPLIT_PLANS:
+        tiles = -(-sq // 64)
+        for d in (16, 64, 80, 128):
+            plan = fa.kernel_plan(b, hq, hq, sq, sk, d, torch.float32, n_sm)
+            what = (b, hq, sq, sk, n_sm, d)
+            assert plan["split"] == split, what
+            assert plan["grid"] == (tiles * split, hq, b), what
+            assert tiles * split * hq * b <= max(n_sm, tiles * hq * b), what
+            assert plan["scratch"] == (split * b * hq * sq * (d + 2) * 4
+                                       if split > 1 else 0), what
+            bf16 = fa.kernel_plan(b, hq, hq, sq, sk, d, torch.bfloat16, n_sm)
+            assert (bf16["split"], bf16["scratch"]) == (1, 0), what
+        assert fa.key_split(tiles * hq * b, sk, n_sm) == split
 
 
 @pytest.mark.parametrize("b,hq,sq,rows", [

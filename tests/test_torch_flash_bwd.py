@@ -198,8 +198,9 @@ def test_backward_wrapper_refuses_cpu_tensors_and_autograd():
 # dq_smem_bytes) 1 KB of alignment, the block's two tiles and two stages of
 # the other side's two 64-row tiles of 64 or 128 bf16 columns, 64 bytes of
 # mbarriers, and in dK/dV 1 KB of lse and delta a warpgroup; f32
-# (cc_smem_bytes) four 32-row tiles of D + 1 floats, P and dS at 32 x 33,
-# lse and delta.
+# (cc_smem_bytes) six 64-row tiles of D + 4 floats (dK/dV: K, V and two
+# stages of Q and dO; dQ: Q, dO and two stages of K and V) and a 64 x 68
+# score tile.
 GEOMETRY_BWD = {
     (torch.bfloat16, 64, 64): (64, 128, 1024 + 384 * 64 * 2 + 64 + 1024,
                                1024 + 384 * 64 * 2 + 64),
@@ -213,12 +214,9 @@ GEOMETRY_BWD = {
                                 1024 + 384 * 128 * 2 + 64),
     (torch.bfloat16, 128, 128): (64, 256, 1024 + 512 * 128 * 2 + 64 + 2048,
                                  1024 + 512 * 128 * 2 + 64),
-    (torch.float32, 64, 32): (32, 256, (128 * 65 + 2112 + 64) * 4,
-                              (128 * 65 + 2112 + 64) * 4),
-    (torch.float32, 96, 32): (32, 256, (128 * 97 + 2112 + 64) * 4,
-                              (128 * 97 + 2112 + 64) * 4),
-    (torch.float32, 128, 32): (32, 256, (128 * 129 + 2112 + 64) * 4,
-                               (128 * 129 + 2112 + 64) * 4),
+    (torch.float32, 64, 64): (64, 256, 121_856, 121_856),
+    (torch.float32, 96, 64): (64, 256, 171_008, 171_008),
+    (torch.float32, 128, 64): (64, 256, 220_160, 220_160),
 }
 
 
@@ -234,34 +232,71 @@ def test_backward_geometry_fits_the_card(key):
 
 @pytest.mark.parametrize("dtype,variant", [(torch.bfloat16, "wgmma"),
                                            (torch.float32, "cuda_cores")])
-@pytest.mark.parametrize("b,hq,hk,sq,sk,d,bf16_rows", [
-    (8, 16, 8, 2048, 2048, 128, (128, 128)),    # internlm2 training
-    (2, 20, 20, 64, 1500, 64, (128, 64)),       # whisper cross-attention
-    (1, 32, 32, 1024, 1024, 96, (128, 128)),    # phi3
-    (1, 8, 8, 256, 128, 64, (64, 64)),          # rows that see no key
-    (2, 20, 20, 64, 64, 64, (64, 64)),          # whisper decoder
+@pytest.mark.parametrize("b,hq,hk,sq,sk,d,bf16_rows,f32_split", [
+    (8, 16, 8, 2048, 2048, 128, (128, 128), 1),    # internlm2 training
+    (2, 20, 20, 64, 1500, 64, (128, 64), 3),       # whisper cross-attention
+    (1, 32, 32, 1024, 1024, 96, (128, 128), 1),    # phi3
+    (1, 8, 8, 256, 128, 64, (64, 64), 1),          # rows that see no key
+    (2, 20, 20, 64, 64, 64, (64, 64), 1),          # whisper decoder
 ])
-def test_kernel_plan_bwd(b, hq, hk, sq, sk, d, bf16_rows, dtype, variant):
+def test_kernel_plan_bwd(b, hq, hk, sq, sk, d, bf16_rows, f32_split, dtype,
+                         variant):
     """bf16 blocks own 128 rows (two warpgroups) unless that leaves fewer
     blocks than the card's 132 SMs (whisper's decoder: 2 x 20 heads x one
     128-key block), then 64; dK/dV counts kv heads and keys, dQ query heads
-    and queries.  f32 blocks own 32 rows."""
+    and queries.  f32 blocks own 64 rows, and f32 dQ blocks that leave SMs
+    idle split their keys (whisper's cross-attention: 40 blocks, 24 key
+    tiles, 3 splits); bf16 never splits."""
     plan = fa.kernel_plan_bwd(b, hq, hk, sq, sk, d, dtype)
-    rows = bf16_rows if dtype == torch.bfloat16 else (32, 32)
+    rows = bf16_rows if dtype == torch.bfloat16 else (64, 64)
+    split = f32_split if dtype == torch.float32 else 1
     kernels = {}
     for i, (kernel, r) in enumerate(zip(("dkdv", "dq"), rows)):
         other, threads, *smem = fa.geometry_bwd(dtype, d, r)
         kernels[kernel] = {"rows": r, "other": other, "threads": threads,
                            "smem": smem[i]}
+    kernels["dq"]["split"] = split
     assert plan == {
         "variant": variant, **kernels,
+        "scratch": split * b * hq * sq * d * 4 if split > 1 else 0,
         "grids": {"delta": (-(-b * hq * sq // 8),),
                   "dkdv": (-(-sk // rows[0]), hk, b),
-                  "dq": (-(-sq // rows[1]), hq, b)}}
+                  "dq": (-(-sq // rows[1]) * split, hq, b)}}
     # a card with fewer SMs keeps two warpgroups where a 132-SM card drops
     # to one
     assert fa.kernel_plan_bwd(b, hq, hk, sq, sk, d, dtype, n_sm=8)["dq"][
-        "rows"] == (128 if dtype == torch.bfloat16 else 32)
+        "rows"] == (128 if dtype == torch.bfloat16 else 64)
+
+
+DQ_SPLITS = [
+    # b, hq, hk, sq, sk, the card's SMs, the f32 dQ key split
+    (1, 16, 16, 128, 1000, 132, 4),     # f32 offset rows: 32 dQ blocks
+    (1, 16, 16, 128, 1000, 114, 3),     # on 114 SMs
+    (1, 4, 1, 96, 224, 132, 2),         # the Pallas MQA shape: 4 key tiles
+    (2, 8, 8, 256, 128, 132, 1),        # rows without keys: 2 key tiles
+    (2, 16, 8, 512, 512, 132, 1),       # padded width 80: 256 dQ blocks
+    (1, 4, 2, 64, 8192, 132, 16),       # 4 blocks of 128 key tiles
+    (1, 33, 33, 128, 2048, 132, 2),     # 66 blocks: 2 x 66 = 132
+]
+
+
+def test_f32_dq_splits_keys_when_the_grid_leaves_sms_idle():
+    """The f32 dQ blocks share their keys among ``split`` blocks when they
+    leave SMs idle (the forward's rule, ``fa.key_split``); dK/dV never
+    splits, and the scratch holds each split's dQ rows.  (One test over
+    DQ_SPLITS: the collection's size decides xdist's first chunks, ROADMAP
+    Queue C.)"""
+    for b, hq, hk, sq, sk, n_sm, split in DQ_SPLITS:
+        blocks = -(-sq // 64)
+        for d in (16, 64, 80, 128):
+            plan = fa.kernel_plan_bwd(b, hq, hk, sq, sk, d, torch.float32,
+                                      n_sm)
+            what = (b, hq, hk, sq, sk, n_sm, d)
+            assert plan["dq"]["split"] == split, what
+            assert plan["grids"]["dq"] == (blocks * split, hq, b), what
+            assert plan["grids"]["dkdv"] == (-(-sk // 64), hk, b), what
+            assert plan["scratch"] == (split * b * hq * sq * d * 4
+                                       if split > 1 else 0), what
 
 
 @pytest.mark.parametrize("args,match", [

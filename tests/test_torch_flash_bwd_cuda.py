@@ -93,11 +93,23 @@ CASES = [
     (1, 4, 1, 96, 224, 24, "float32", dict(causal=True)),      # Sq < Sk
     (2, 4, 2, 70, 190, 80, "float32", dict(causal=False, window=50)),
 ]
+# the f32 kernels' 64-row tiles: Sq and Sk one past a tile, D 8, 24, 40 and
+# 120, GQA groups of 4, rows without keys, window with softcap, and dQ
+# blocks whose keys split (16 and 8 ways)
+F32_EDGES = [
+    (1, 4, 2, 65, 65, 64, dict(causal=True)),
+    (1, 8, 2, 129, 129, 8, dict(causal=True)),
+    (2, 8, 2, 100, 193, 24, dict(causal=False)),
+    (1, 4, 1, 130, 130, 40, dict(causal=True, window=40, softcap=30.0)),
+    (1, 4, 2, 200, 65, 120, dict(causal=True)),                 # no keys
+    (1, 4, 4, 64, 2048, 64, dict(causal=True)),                 # split 16
+    (1, 8, 2, 100, 1500, 120, dict(causal=True, window=700, softcap=50.0)),
+]
 
 
-@pytest.mark.parametrize("b,hq,hk,sq,sk,d,dtype,kw", CASES)
-def test_backward_kernel_matches_plain_version(b, hq, hk, sq, sk, d, dtype,
-                                               kw):
+def _check_backward(b, hq, hk, sq, sk, d, dtype, kw):
+    """One case of the backward against its plain version (see the module
+    docstring), its plan's dQ split, two calls bitwise equal."""
     q, k, v, do = _card(sq + 3 * sk + d, b, hq, hk, sq, sk, d, dtype)
     out, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
     launches = fa.flash_attention_bwd_cuda.launches
@@ -106,7 +118,12 @@ def test_backward_kernel_matches_plain_version(b, hq, hk, sq, sk, d, dtype,
     want = ref.attention_bwd_ref(q, k, v, out, lse, do, **kw)
     torch.cuda.synchronize()
     assert fa.flash_attention_bwd_cuda.launches == launches + 2
-    assert fa.flash_attention_bwd_cuda.last_plan["variant"] == VARIANT[dtype]
+    plan = fa.flash_attention_bwd_cuda.last_plan
+    assert plan["variant"] == VARIANT[dtype]
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    assert plan["dq"]["split"] == (
+        fa.key_split(b * hq * -(-sq // 64), sk, n_sm)
+        if dtype == "float32" else 1)
     assert all(torch.equal(x, y) for x, y in zip(grads, again))
     _hold(grads, want, dtype)
     lse0 = ref.attention_lse_ref(q, k, **kw)
@@ -115,6 +132,20 @@ def test_backward_kernel_matches_plain_version(b, hq, hk, sq, sk, d, dtype,
     torch.testing.assert_close(lse[~none], lse0[~none], rtol=0, atol=1e-4)
     if kw.get("causal") and sq > sk:
         assert torch.count_nonzero(grads[0][:, :, :sq - sk]) == 0
+
+
+@pytest.mark.parametrize("b,hq,hk,sq,sk,d,dtype,kw", CASES)
+def test_backward_kernel_matches_plain_version(b, hq, hk, sq, sk, d, dtype,
+                                               kw):
+    _check_backward(b, hq, hk, sq, sk, d, dtype, kw)
+
+
+def test_f32_tile_edges_and_dq_splits_match_plain_version():
+    """Every case of F32_EDGES as test_backward_kernel_matches_plain_version
+    holds its cases.  (One test over the list: the collection's size decides
+    xdist's first chunks, ROADMAP Queue C.)"""
+    for b, hq, hk, sq, sk, d, kw in F32_EDGES:
+        _check_backward(b, hq, hk, sq, sk, d, "float32", kw)
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])

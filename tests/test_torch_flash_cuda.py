@@ -154,6 +154,67 @@ def test_bf16_kernel_edge_cases(b, hq, hk, sq, sk, d, kw):
         assert torch.count_nonzero(out[:, :, :sq - sk]) == 0
 
 
+# the f32 kernel's 64 x 64 tiles: Sq and Sk one past a tile, D 8, 24, 40,
+# 56, 88, 104 and 120, GQA groups of 4, rows without keys, window with
+# softcap
+# (b, hq, hk, sq, sk, d, kwargs); then (with the plan's split) f32 query
+# tiles that leave SMs idle, whose keys split over several blocks: a window
+# that leaves some splits no key tile, rows that see no key in any split
+F32_EDGES = [
+    (1, 4, 2, 65, 65, 64, dict(causal=True)),
+    (2, 4, 2, 129, 193, 128, dict(causal=True)),
+    (1, 8, 2, 200, 200, 8, dict(causal=True)),
+    (1, 8, 2, 150, 257, 24, dict(causal=False)),
+    (1, 4, 1, 130, 130, 40, dict(causal=True, window=40, softcap=30.0)),
+    (2, 4, 2, 100, 65, 120, dict(causal=True)),                 # masked rows
+    # every layout of the forward's P V columns (full 32-column groups, and
+    # a 16-column tail): 88 (3 groups), 104 (3 and a tail), 56 (2)
+    (1, 4, 2, 100, 100, 88, dict(causal=True)),
+    (1, 4, 2, 90, 130, 104, dict(causal=True, window=60, softcap=30.0)),
+    (1, 4, 2, 70, 70, 56, dict(causal=False)),
+]
+SPLIT_CASES = [
+    (1, 4, 4, 64, 2048, 64, dict(causal=True), 16),
+    (1, 8, 2, 100, 1500, 120, dict(causal=True, window=700, softcap=50.0), 8),
+    (2, 4, 2, 300, 300, 64, dict(causal=True), 2),             # f32 ragged
+    (1, 2, 2, 1200, 1100, 64, dict(causal=True), 3),
+    (1, 16, 8, 128, 1000, 128, dict(causal=True), 4),           # offset rows
+]
+
+
+def test_f32_tile_edges_and_key_splits_match_plain_version():
+    """At the f32 tiles' edges (F32_EDGES) and where the keys split
+    (SPLIT_CASES, each with the plan's split): the plain version's output
+    and lse (+inf exactly on rows without keys), bitwise the same in two
+    calls, the output with lse bitwise the output without, and zeros on
+    rows without keys.  (One test over both lists: the collection's size
+    decides xdist's first chunks, ROADMAP Queue C.)"""
+    n_sm = None
+    for case in [(*c, None) for c in F32_EDGES] + SPLIT_CASES:
+        b, hq, hk, sq, sk, d, kw, split = case
+        q, k, v = _card(sq + 5 * sk + d, b, hq, hk, sq, sk, d, "float32")
+        n_sm = n_sm or torch.cuda.get_device_properties(0).multi_processor_count
+        out, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+        plan = fa.flash_attention_cuda.last_plan
+        assert plan["variant"] == "cuda_cores", case
+        assert plan["split"] == (fa.key_split(b * hq * -(-sq // 64), sk, n_sm)
+                                 if split is None else split), case
+        again = fa.flash_attention_cuda(q, k, v, **kw)
+        want = ref.attention_ref(q, k, v, **kw)
+        lse0 = ref.attention_lse_ref(q, k, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(out, again), case
+        torch.testing.assert_close(out, want, rtol=TOL["float32"],
+                                   atol=TOL["float32"], msg=str(case))
+        assert worst_row_error(out, want) < ROW_TOL["float32"], case
+        none = torch.isinf(lse0)
+        assert torch.equal(torch.isposinf(lse), none), case
+        torch.testing.assert_close(lse[~none], lse0[~none], rtol=0,
+                                   atol=1e-4, msg=str(case))
+        if kw.get("causal") and sq > sk:
+            assert torch.count_nonzero(out[:, :, :sq - sk]) == 0, case
+
+
 def test_cuda_kernel_refuses_what_it_does_not_take():
     q, k, v = _card(1, 1, 4, 2, 64, 64, 12, "float32")
     with pytest.raises(ValueError, match="head dim 12"):
