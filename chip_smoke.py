@@ -12,13 +12,15 @@ mesh layer, and fails with a non-zero exit code if any phase fails:
              and print nvcc's register, shared-memory and spill lines; count
              the tensor-core instructions (``HGMMA``) in the flash, flash
              backward and SSD libraries' SASS (``cuobjdump -sass``), which
-             must be more than 0 in each; print each flash and flash
-             backward kernel's registers and spills, which must be 0 for
-             every one of them (bf16 and f32); hold the geometry (flash:
+             must be more than 0 in each, and the mma.sync instructions
+             (``HMMA``) in the SSD backward library's; print each flash and
+             flash backward kernel's registers and spills, which must be 0
+             for every one of them (bf16 and f32), and each SSD backward
+             kernel's; hold the geometry (flash:
              key tile, threads, shared memory; flash backward: other
-             side's tile, threads, shared memory of each kernel; SSD: each
-             phase's threads and shared memory) that the ``kernel_plan``
-             functions report against the
+             side's tile, threads, shared memory of each kernel; SSD and
+             its backward: each launch's threads and shared memory) that
+             the ``kernel_plan`` functions report against the
              built library's, for every instantiation and every flash head
              width (8 to 128 in steps of 8); the flash libraries' nvcc
              seconds beside those of the sources before the narrow widths
@@ -54,8 +56,19 @@ mesh layer, and fails with a non-zero exit code if any phase fails:
              the chunked version's, within 2e-4 (f32) and by the relative
              errors of the whole state and its worst (b, h) slice under y's
              limits (bf16), y beside it bitwise y without it, and its time;
-             ``SSDScan``'s gradients within 1e-4 of each leaf's largest
-             value.  Flash backward: at phase 8b's training shapes, a
+             ``SSDScan``'s gradients (both kernels) within 1e-4 of each
+             leaf's largest value.  SSD backward, at the SSD shapes, from an
+             output gradient: dx, ddt, dA, dBm, dCm, dD against
+             ``ref.ssd_scan_bwd_ref``, f32 each within 1e-4 of its largest
+             value, bf16 by the relative error of each whole gradient and
+             of its worst (b, h) slice (``SSD_BWD_REL_TOL``,
+             ``SSD_BWD_SLICE_TOL``); two calls bitwise equal; its plan
+             (bf16 on the tensor cores by mma.sync, f32 on the CUDA cores),
+             the six launches' device times from a profiled call, its
+             registers and spills, its time beside the plain backward's
+             (autograd through ``ref.ssd_scan_ref``, what the card ran
+             before the kernel) and the explicit plain version's.  Flash
+             backward: at phase 8b's training shapes, a
              gemma2-27b local layer (window, softcap, logits scaled into the
              cap's bend), phi3's head dim, rows offset or without keys and
              the narrow and padded widths of the forward, the forward's lse
@@ -161,10 +174,11 @@ mesh layer, and fails with a non-zero exit code if any phase fails:
              8 x 2,048 tokens on the Markov pipeline: losses and gradient
              norms finite, the last 5 steps' mean loss below the first
              step's, the SSD kernel launched twice per layer per step (the
-             checkpointed period runs its forward again);
-             tokens/s, step time, the SSD kernel's share of device time over
-             2 profiled steps (every ``ssd_fwd*`` kernel, each phase's time
-             printed), the idle share, peak memory
+             checkpointed period runs its forward again) and its backward
+             once, the SSD's plain versions never on the card;
+             tokens/s, step time, the SSD kernels' share of device time over
+             2 profiled steps (every ``ssd_fwd*`` and ``ssd_bwd*`` kernel,
+             each one's time printed), the idle share, peak memory
 8b. dense train  the attention models through the normal entry points
              (bf16 compute, f32 weights and AdamW, remat on): internlm2-1.8b
              at full width and depth for 12 steps of 8 x 2,048 tokens and
@@ -184,7 +198,8 @@ mesh layer, and fails with a non-zero exit code if any phase fails:
              internlm2-1.8b at full width, 2 layers, a narrow gemma2 (window
              under the sequence, both softcaps) and a narrow whisper, the
              attention models through the f32 flash forward and backward
-             kernels
+             kernels, mamba2 through the f32 SSD forward and backward
+             kernels (launches counted)
 10. elastic and mesh  (a) ``ElasticRunner`` on mamba2-130m at full width
              and depth (bf16 compute, remat on), 24 steps of 8 x 2,048
              tokens, checkpoints every 6 steps into a temporary directory,
@@ -253,7 +268,8 @@ mesh layer, and fails with a non-zero exit code if any phase fails:
              relative; bf16: logits of a prefill and 6 decode steps fed the
              CPU's greedy tokens, and losses, within 2e-2 relative (the
              kernels' bf16 tolerance).  Every attention arch launches the
-             flash forward and backward, every SSM arch the SSD kernel
+             flash forward and backward, every SSM arch the SSD kernel and
+             its backward
 
 Every line of numbers carries the card's name and power limit.  The line
 before the last is the per-kernel JSON record; the last line is
@@ -486,7 +502,7 @@ VLM = dict(n_layers=2, patches=1024, grid=32, text=256, steps=8)
 KERNEL_CLASSES = (
     ("flash", ("flash_fwd",)), ("flash bwd dK/dV", ("bwd_dkdv",)),
     ("flash bwd dQ", ("bwd_dq",)), ("flash bwd delta", ("bwd_delta",)),
-    ("ssd", ("ssd_fwd",)),
+    ("ssd", ("ssd_fwd",)), ("ssd bwd", ("ssd_bwd",)),
     ("advance sweep", ("advance_fused", "advance_tile")),
     ("gemm", ("gemm", "gemv", "cutlass", "xmma", "nvjet", "cublas")),
     ("index, scatter, gather", ("index", "scatter", "gather")),
@@ -512,6 +528,19 @@ SSD_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
 # (1.8e-3, 2.8e-3 over the card tests' shapes).
 SSD_REL_TOL = {torch.float32: 1e-5, torch.bfloat16: 3.2e-3}
 SSD_SLICE_TOL = {torch.float32: 1e-5, torch.bfloat16: 5e-3}
+# the backward (csrc/ssd_scan_bwd.cu) at SSD_SHAPES against
+# ref.ssd_scan_bwd_ref: f32 each gradient within SSD_BWD_TOL of its largest
+# |value| (the kernel adds in another order); bf16 by the relative error of
+# the whole gradient and of its worst (b, h) slice ((b, g) of dBm and dCm;
+# dA and dD whole), ~2x the most the sound kernel gave on an H100 over
+# these shapes and tests/test_torch_ssd_bwd_cuda.py's
+# (scripts/ssd_fault_reach.py shows what they catch)
+SSD_BWD_NAMES = ("dx", "ddt", "dA", "dBm", "dCm", "dD")
+SSD_BWD_SLICE_DIMS = ((1, 3), (1,), None, (1, 3), (1, 3), None)
+SSD_BWD_TOL = 1e-4
+SSD_BWD_REL_TOL = {"dx": 3e-3, "ddt": 2e-3, "dA": 1.1e-2, "dBm": 5.5e-3,
+                   "dCm": 5.5e-3, "dD": 1e-6}
+SSD_BWD_SLICE_TOL = {"dx": 6e-3, "ddt": 2.7e-3, "dBm": 6e-3, "dCm": 6e-3}
 TRAIN_ARCH = "mamba2-130m"
 TRAIN = dict(steps=20, global_batch=8, seq_len=2048, lr=1e-3, log_every=5,
              seed=0)
@@ -626,13 +655,17 @@ def ptxas_kernels(log: str) -> list[tuple[str, int, int]]:
     return out
 
 
+SSD_BWD_PTXAS: list = []   # (kernel, registers, spill bytes) of ssd_scan_bwd
+
+
 def phase_build() -> None:
     built = kbuild.build((vm_update.SRC, vm_update.NVCC_FLAGS),
                          (flash_attention.SRC, flash_attention.NVCC_FLAGS),
                          (ssd_scan.SRC, ssd_scan.NVCC_FLAGS),
-                         (flash_attention.SRC_BWD, flash_attention.NVCC_FLAGS))
+                         (flash_attention.SRC_BWD, flash_attention.NVCC_FLAGS),
+                         (ssd_scan.SRC_BWD, ssd_scan.NVCC_FLAGS))
     for name, b in zip(("advance_sweep", "flash_attention", "ssd_scan",
-                        "flash_attention_bwd"), built):
+                        "flash_attention_bwd", "ssd_scan_bwd"), built):
         took = ("reused an existing build" if b["seconds"] is None
                 else f"nvcc {b['seconds']:.3f} s")
         if name in PREVIOUS_BUILD_S:
@@ -650,6 +683,17 @@ def phase_build() -> None:
         hgmma = sum("HGMMA" in line for line in sass.splitlines())
         check(hgmma > 0, f"the {name} library's SASS has HGMMA instructions")
         say("build", f"{name} SASS: {hgmma} HGMMA (wgmma) instructions")
+    sass = subprocess.run(
+        [kbuild.cuda_tool("cuobjdump"), "-sass", str(built[4]["path"])],
+        capture_output=True, text=True, check=True, timeout=300).stdout
+    hmma = sum("HMMA" in line for line in sass.splitlines())
+    check(hmma > 0, "the ssd_scan_bwd library's SASS has HMMA (mma.sync) "
+          "instructions")
+    say("build", f"ssd_scan_bwd SASS: {hmma} HMMA (mma.sync) instructions")
+    SSD_BWD_PTXAS[:] = ptxas_kernels(built[4]["log"])
+    for kernel, regs, spills in SSD_BWD_PTXAS:
+        say("build", f"ssd_scan_bwd {kernel}: {regs} registers, {spills} "
+            "bytes of spill stores and loads")
     for lib, b in (("flash_attention", built[1]),
                    ("flash_attention_bwd", built[3])):
         # the log is empty when an existing build was reused
@@ -688,6 +732,14 @@ def phase_build() -> None:
                     check(built == mine, f"ssd_scan {dtype} P {p} N {n} "
                           f"{rows} rows: the library's threads and shared "
                           f"memory per phase {built} == the plan's {mine}")
+    for dtype in (torch.bfloat16, torch.float32):
+        for p in ssd_scan.HEAD_DIMS:
+            for n in ssd_scan.HEAD_DIMS:
+                built = ssd_scan.kernel_geometry_bwd(dtype, p, n)
+                mine = ssd_scan.geometry_bwd(dtype, p, n)
+                check(built == mine, f"ssd_scan_bwd {dtype} P {p} N {n}: the "
+                      f"library's threads and shared memory per launch "
+                      f"{built} == the plan's {mine}")
 
 
 # ------------------------------------------------------------- 2. kernels
@@ -1134,11 +1186,12 @@ def ssd_bound_ms(shape, dtype, chunk) -> tuple[float, str, int, int]:
 
 
 def ssd_phase_ms(by_name: dict, calls: int) -> dict[str, float]:
-    """Device ms per call of each ``ssd_fwd*`` kernel (a phase of the bf16
-    scan, or the f32 kernel) in a profile of ``calls`` calls."""
+    """Device ms per call of each ``ssd_fwd*`` and ``ssd_bwd*`` kernel (a
+    phase of the bf16 scan, the f32 kernel, a launch of the backward) in a
+    profile of ``calls`` calls."""
     phases: dict[str, float] = {}
     for name, (ms, _) in by_name.items():
-        found = re.search(r"ssd_fwd\w*", name)
+        found = re.search(r"ssd_(?:fwd|bwd)\w*", name)
         if found:
             key = found.group(0)
             phases[key] = phases.get(key, 0.0) + ms / calls
@@ -1257,15 +1310,19 @@ def phase_ssd_kernel() -> dict:
         del args
     torch.cuda.empty_cache()
 
-    # gradients: SSDScan (kernel forward, plain backward) against autograd
-    # through the plain version, f32 at a block of mamba2-130m's widths
+    # gradients: SSDScan (the forward and backward kernels) against
+    # autograd through the plain version, f32 at a block of mamba2-130m's
+    # widths
     shape = (2, 512, 24, 64, 1, 128)
     args = ssd_inputs(shape, torch.float32, seed=300)
     mine = [a.clone().requires_grad_(True) for a in args]
     theirs = [a.clone().requires_grad_(True) for a in args]
     gy = torch.randn(shape[:4], device="cuda",
                      generator=torch.Generator("cuda").manual_seed(301))
+    bwd = ssd_scan.ssd_scan_bwd_cuda.launches
     got = torch.autograd.grad(ops.ssd_scan(*mine, chunk=128), mine, gy)
+    check(ssd_scan.ssd_scan_bwd_cuda.launches == bwd + 1,
+          "SSDScan's backward launched the backward kernel once")
     want = torch.autograd.grad(ref.ssd_scan_ref(*theirs, chunk=128), theirs,
                                gy)
     worst = {}
@@ -1275,9 +1332,162 @@ def phase_ssd_kernel() -> dict:
         check(bool(a.isfinite().all()) and worst[leaf] <= 1e-4,
               f"SSDScan gradient of {leaf} within 1e-4 of its largest value "
               f"({worst[leaf]!r})")
-    say("kernels", f"SSDScan gradients at x {list(shape[:4])} f32 against "
-        f"the plain version's autograd, max |err| / max |grad| per leaf: "
-        f"{worst}")
+    say("kernels", f"SSDScan gradients (forward and backward kernels) at x "
+        f"{list(shape[:4])} f32 against the plain version's autograd, max "
+        f"|err| / max |grad| per leaf: {worst}")
+    return record
+
+
+def ssd_bwd_inputs(shape, dtype, seed: int):
+    """``ssd_inputs`` and an output gradient of y's shape."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1000)
+    dy = torch.randn(shape[:4], device="cuda", generator=gen).to(dtype)
+    return (*ssd_inputs(shape, dtype, seed), dy)
+
+
+def ssd_bwd_bound_ms(shape, dtype, chunk) -> tuple[float, str, int, int]:
+    """Least time for the backward: per (b, h) and chunk of q rows,
+    q (q + 1) / 2 (3 N + 2 P) multiply-adds for the causal triangles of
+    C B^T, dy x^T, M^T dy, dS B and dS^T C and 5 q P N for the chunk's state
+    and state gradient, B G^T, x G and dy h, over the card's peak for the
+    dtype; or x, dy, dt, B, C read once and dx, ddt, dB, dC written once
+    over the memory rate, whichever is larger (``ssd_scan.ssd_bwd_work``).
+    Returns (ms, what bounds it, operations, bytes)."""
+    b, s, h, p, g, n = shape
+    ops_, nbytes = ssd_scan.ssd_bwd_work((b, s, h, p), g, n, chunk,
+                                         dtype.itemsize)
+    peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S
+    by_ops, by_bytes = ops_ / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    if by_ops >= by_bytes:
+        return by_ops, "operations", ops_, nbytes
+    return by_bytes, "bytes", ops_, nbytes
+
+
+def ssd_bwd_errors(got, want) -> dict[str, tuple]:
+    """Per gradient: (max |err| / largest |want|, relative error of the
+    whole tensor, of its worst slice or None)."""
+    out = {}
+    for name, a, w, dims in zip(SSD_BWD_NAMES, got, want,
+                                SSD_BWD_SLICE_DIMS):
+        diff, w = a.float() - w.float(), w.float()
+        worst = None
+        if dims is not None:
+            worst = float((diff.norm(dim=dims)
+                           / w.norm(dim=dims).clamp_min(1e-30)).max())
+        out[name] = (float(diff.abs().max() / w.abs().max()),
+                     float(diff.norm() / w.norm()), worst)
+    return out
+
+
+def ssd_bwd_failures(errs: dict, dtype) -> list[str]:
+    """The limits the gradients break: f32 each within SSD_BWD_TOL of its
+    largest value; bf16 each whole and worst slice under its limits."""
+    bad = []
+    for name, (rel_max, whole, worst) in errs.items():
+        if dtype == torch.float32:
+            if not rel_max <= SSD_BWD_TOL:
+                bad.append(f"{name} max |err| / largest {rel_max} (limit "
+                           f"{SSD_BWD_TOL})")
+            continue
+        if not whole < SSD_BWD_REL_TOL[name]:
+            bad.append(f"{name} relative error {whole} (limit "
+                       f"{SSD_BWD_REL_TOL[name]})")
+        if worst is not None and not worst < SSD_BWD_SLICE_TOL[name]:
+            bad.append(f"{name} worst slice {worst} (limit "
+                       f"{SSD_BWD_SLICE_TOL[name]})")
+    return bad
+
+
+def ssd_plain_autograd(chunk: int):
+    """The backward the card ran before the kernel: autograd through
+    ``ref.ssd_scan_ref`` recomputed from the inputs (the plain version the
+    kernel is timed against)."""
+    def grads(x, dt, A, Bm, Cm, D, dy):
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(True)
+                      for t in (x, dt, A, Bm, Cm, D)]
+            y = ref.ssd_scan_ref(*leaves, chunk=chunk)
+            return torch.autograd.grad(y, leaves, dy)
+    return grads
+
+
+def phase_ssd_bwd_kernel() -> dict:
+    """The backward kernel against ``ref.ssd_scan_bwd_ref`` at SSD_SHAPES:
+    its plan, bitwise equal on a second call, finite, within the limits;
+    its device time beside the plain autograd recompute's, the explicit
+    plain backward's and the bound, each launch's share from a profiled
+    call, the instantiation's registers and spills."""
+    record = {}
+    for i, (name, shape, dtype, chunk, _) in enumerate(SSD_SHAPES):
+        b, s, h, p, g, n = shape
+        args = ssd_bwd_inputs(shape, dtype, seed=500 + i)
+        plan = ssd_scan.kernel_plan_bwd(b, s, h, p, g, n, chunk, dtype)
+        kernel = functools.partial(ssd_scan.ssd_scan_bwd_cuda, chunk=chunk)
+        got = kernel(*args)
+        again = kernel(*args)
+        want = ref.ssd_scan_bwd_ref(*args, chunk=chunk)
+        torch.cuda.synchronize()
+        check(ssd_scan.ssd_scan_bwd_cuda.last_plan == plan,
+              f"ssd_scan_bwd {name} launched its plan")
+        check(plan["variant"] == ("mma_sync" if dtype == torch.bfloat16
+                                  else "cuda_cores"),
+              f"ssd_scan_bwd {name}: {plan['variant']} for {dtype}")
+        check(all(torch.equal(x, y) for x, y in zip(got, again)),
+              f"ssd_scan_bwd {name}: two calls bitwise equal")
+        for gname, a, w in zip(SSD_BWD_NAMES, got, want):
+            check(a.dtype == w.dtype and a.shape == w.shape
+                  and bool(a.isfinite().all()),
+                  f"ssd_scan_bwd {name}: {gname} finite, {w.dtype} "
+                  f"{tuple(w.shape)}")
+        errs = ssd_bwd_errors(got, want)
+        bad = ssd_bwd_failures(errs, dtype)
+        check(not bad, f"ssd_scan_bwd {name}: {bad}")
+        max_abs = max(float((x.float() - y.float()).abs().max())
+                      for x, y in zip(got, want))
+        del got, again, want
+        torch.cuda.empty_cache()
+        plain = ssd_plain_autograd(chunk)
+        explicit = functools.partial(ref.ssd_scan_bwd_ref, chunk=chunk)
+        times = {"plain": [], "kernel": []}
+        for which in ("plain", "kernel", "kernel", "plain"):
+            fn = plain if which == "plain" else kernel
+            times[which].append(events_ms(fn, args, 3))
+        ms, plain_ms = (sum(times[k]) / 2 for k in ("kernel", "plain"))
+        explicit_ms = events_ms(explicit, args, 3)
+        per_call = call_ms(kernel, args, 5)
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                kernel(*args)
+            torch.cuda.synchronize()
+        launches_ms = ssd_phase_ms(device_time_by_name(prof), 3)
+        bound_ms, bound_by, ops_, nbytes = ssd_bwd_bound_ms(shape, dtype,
+                                                            chunk)
+        kind = "bf16" if dtype == torch.bfloat16 else "f32"
+        regs = [(k, r, sp) for k, r, sp in SSD_BWD_PTXAS
+                if k.endswith((f"<{kind}, {p}, {n}>", "<>", f"<{kind}>"))]
+        steps = ", ".join(f"{ph['name']} grid {ph['grid']} x "
+                          f"{ph['threads']} threads, {ph['smem']} B"
+                          for ph in plan["phases"])
+        say("kernels", (
+            f"ssd_scan_bwd {name} x [{b}, {s}, {h}, {p}] B/C [{b}, {s}, {g}, "
+            f"{n}] {str(dtype).split('.')[1]} chunk {chunk}: plan "
+            f"{plan['variant']} ({steps}; scratch {plan['scratch_bytes']} "
+            f"B); two calls bitwise equal; (max |err| / largest, relative "
+            f"error, worst slice) {errs}; device time: backward {ms!r} ms, "
+            f"plain (autograd through ssd_scan_ref) {plain_ms!r} ms, "
+            f"explicit plain backward {explicit_ms!r} ms; backward per call "
+            f"with its enqueue {per_call!r} ms; profiled per call "
+            f"{launches_ms}; registers and spill bytes {regs}; {ops_} "
+            f"operations, {nbytes} bytes, bound {bound_ms!r} ms "
+            f"({bound_by}), {bound_ms / ms:.4f} of bound, "
+            f"{ops_ / ms / 1e9!r} TFLOP/s"))
+        if name == SSD_MAIN:
+            record = {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": bound_ms, "bound_by": bound_by,
+                      "library_ms": None, "explicit_plain_ms": explicit_ms}
+        del args
+        torch.cuda.empty_cache()
     return record
 
 
@@ -2223,27 +2433,37 @@ def profile_report(phase: str, prof, wall: float, top: int = 8) -> str:
 
 
 class PlainSSDOnCard:
-    """Counts calls of the plain chunked SSD (``ref.ssd_chunked_ref``) on a
-    CUDA tensor while it is entered: the prefill must launch the kernel."""
+    """Counts calls of the SSD's plain versions (the chunked scan
+    ``ref.ssd_chunked_ref``, which ``ssd_scan_ref`` runs, and the plain
+    backward ``ref.ssd_scan_bwd_ref``) on a CUDA tensor while it is
+    entered: a prefill and a training step must launch the kernels."""
+
+    NAMES = ("ssd_chunked_ref", "ssd_scan_bwd_ref")
 
     def __enter__(self):
-        self.calls, self.inner = 0, ref.ssd_chunked_ref
+        self.calls = 0
+        self.inner = {name: getattr(ref, name) for name in self.NAMES}
 
-        def counting(x, *args, **kw):
-            self.calls += int(x.is_cuda)
-            return self.inner(x, *args, **kw)
+        def counting(inner):
+            def call(x, *args, **kw):
+                self.calls += int(x.is_cuda)
+                return inner(x, *args, **kw)
+            return call
 
-        ref.ssd_chunked_ref = counting
+        for name, inner in self.inner.items():
+            setattr(ref, name, counting(inner))
         return self
 
     def __exit__(self, *exc):
-        ref.ssd_chunked_ref = self.inner
+        for name, inner in self.inner.items():
+            setattr(ref, name, inner)
 
 
 def zero_launches() -> None:
     for fn in (flash_attention.flash_attention_cuda, ssd_scan.ssd_scan_cuda,
                vm_update.advance_sweep_cuda,
-               flash_attention.flash_attention_bwd_cuda):
+               flash_attention.flash_attention_bwd_cuda,
+               ssd_scan.ssd_scan_bwd_cuda):
         fn.launches = 0
 
 
@@ -2251,7 +2471,8 @@ def launches() -> dict[str, int]:
     return {"flash": flash_attention.flash_attention_cuda.launches,
             "ssd": ssd_scan.ssd_scan_cuda.launches,
             "sweep": vm_update.advance_sweep_cuda.launches,
-            "flash_bwd": flash_attention.flash_attention_bwd_cuda.launches}
+            "flash_bwd": flash_attention.flash_attention_bwd_cuda.launches,
+            "ssd_bwd": ssd_scan.ssd_scan_bwd_cuda.launches}
 
 
 def mixers(cfg, kind: str) -> int:
@@ -2709,17 +2930,18 @@ def device_time_by_name(prof) -> dict[str, list]:
 
 
 # --------------------------------------------------------------- 8. train
-def phase_train() -> int:
-    """Returns the SSD kernel's launches over the counted run."""
+def phase_train() -> tuple[int, int]:
+    """Returns the SSD forward and backward kernels' launches over the
+    counted run."""
     cfg = get_config(TRAIN_ARCH)
     torch.cuda.reset_peak_memory_stats()
-    ssd_scan.ssd_scan_cuda.launches = 0
-    flash_attention.flash_attention_cuda.launches = 0
-    vm_update.advance_sweep_cuda.launches = 0
+    zero_launches()
     t0 = time.perf_counter()
-    out = run_training(cfg, **TRAIN)
+    with PlainSSDOnCard() as plain:
+        out = run_training(cfg, **TRAIN)
     wall = time.perf_counter() - t0
     ssd_launches = ssd_scan.ssd_scan_cuda.launches
+    bwd_launches = ssd_scan.ssd_scan_bwd_cuda.launches
     others = (flash_attention.flash_attention_cuda.launches,
               vm_update.advance_sweep_cuda.launches)
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -2738,6 +2960,12 @@ def phase_train() -> int:
           f"SSD launches {ssd_launches} (run_training counted "
           f"{out['ssd_launches']}) == {per_step} a step (remat {cfg.remat}, "
           f"{cfg.n_layers} layers) x {steps} steps")
+    check(bwd_launches == cfg.n_layers * steps == out["ssd_bwd_launches"],
+          f"SSD backward launches {bwd_launches} (run_training counted "
+          f"{out['ssd_bwd_launches']}) == {cfg.n_layers} layers x {steps} "
+          "steps")
+    check(plain.calls == 0, f"the SSD's plain versions ran {plain.calls} "
+          "times on the card during training")
     n_params = sum(x.numel() for x in tree.leaves(out["params"]))
     tokens = TRAIN["global_batch"] * TRAIN["seq_len"]
     first_step, after_first = out["step_seconds"][0], out["step_seconds"][1:]
@@ -2766,8 +2994,10 @@ def phase_train() -> int:
     busy_ms = sum(ms for ms, _ in by_name.values())
     ssd_phases = ssd_phase_ms(by_name, 1)
     ssd_ms = sum(ssd_phases.values())
+    bwd_ms = sum(v for k, v in ssd_phases.items() if "bwd" in k)
     share = (f"{ssd_ms / busy_ms!r} ({ssd_ms!r} ms of {busy_ms!r} ms device "
-             f"time, by kernel {ssd_phases}; idle share "
+             f"time, of which the backward kernel {bwd_ms!r} ms, "
+             f"{bwd_ms / busy_ms!r}; by kernel {ssd_phases}; idle share "
              f"{1 - busy_ms / 1e3 / traced_wall!r} of the traced wall "
              f"{traced_wall!r} s)" if busy_ms > 0 else "not measured")
     say("train", f"2 traced steps: {sum(n for _, n in by_name.values())} "
@@ -2784,11 +3014,13 @@ def phase_train() -> int:
         f"{tokens / mean_step!r} tokens/s; losses "
         f"{[round(x, 4) for x in losses]}; grad norms "
         f"{[round(x, 3) for x in norms]}; SSD kernel {ssd_launches} "
-        f"launches (flash {others[0]}, advance sweep {others[1]}); SSD share "
-        f"of device time {share}; peak memory {peak!r} GiB"))
+        f"launches, backward {bwd_launches} (flash {others[0]}, advance sweep "
+        f"{others[1]}); the SSD's plain versions on the card {plain.calls} "
+        f"times; SSD share of device time {share}; peak memory {peak!r} "
+        "GiB"))
     del params, opt_state, batches, prof
     torch.cuda.empty_cache()
-    return ssd_launches
+    return ssd_launches, bwd_launches
 
 
 # ------------------------------------------------------- 8b. dense train
@@ -2860,6 +3092,13 @@ def flash_since(start: dict) -> tuple[int, int]:
     ``start``."""
     now = launches()
     return now["flash"] - start["flash"], now["flash_bwd"] - start["flash_bwd"]
+
+
+def ssd_since(start: dict) -> tuple[int, int]:
+    """The SSD forward and backward launches since ``launches()`` gave
+    ``start``."""
+    now = launches()
+    return now["ssd"] - start["ssd"], now["ssd_bwd"] - start["ssd_bwd"]
 
 
 def dense_run(arch: str, kw: dict) -> tuple[int, int]:
@@ -3036,14 +3275,15 @@ def train_step_parity(label: str, model, cpu_params, batch: dict) -> None:
     of ``make_train_step``) on the CPU and on the card from the same f32
     parameters and batch: the loss within rtol 1e-4, the gradient norm
     likewise, each gradient leaf within 1e-3 of its largest value.  On the
-    card attention runs the f32 forward and backward kernels (counted).
+    card attention runs the f32 flash forward and backward kernels, an SSM
+    layer the f32 SSD forward and backward kernels (all counted).
     cuBLAS and the kernels add in other orders than the CPU: ~1e-6
     relative per layer.  Parameters after the step are not compared: at
     step 1 AdamW moves a weight by about lr times the sign of its gradient,
     so a tiny gradient of opposite sign differs by 2 lr."""
     opt_cfg = OptConfig(lr=1e-3, warmup_steps=5, total_steps=20)
     gpu_params = tree.map_tree(lambda t: t.to("cuda"), cpu_params)
-    runs, counted = {}, {}
+    runs, counted, ssd_counted = {}, {}, {}
     for dev, params in (("cpu", cpu_params), ("cuda", gpu_params)):
         b = {k: v.to(dev) for k, v in batch.items()}
         start = launches()
@@ -3051,6 +3291,7 @@ def train_step_parity(label: str, model, cpu_params, batch: dict) -> None:
         _, _, metrics = adamw_update(grads, adamw_init(params), params,
                                      opt_cfg)
         counted[dev] = flash_since(start)
+        ssd_counted[dev] = ssd_since(start)
         runs[dev] = (float(loss), float(metrics["grad_norm"]),
                      {tree.key(p): v.cpu()
                       for p, v in tree.leaves_with_path(grads)})
@@ -3060,6 +3301,13 @@ def train_step_parity(label: str, model, cpu_params, batch: dict) -> None:
     check(counted["cpu"] == (0, 0) and counted["cuda"] == (2 * n, n),
           f"{label} train parity: the CPU launched no kernel, the card "
           f"{counted['cuda']} flash forward and backward == (2 x {n}, {n})")
+    cfg = model.cfg
+    m = 0 if cfg.family == "encdec" else mixers(cfg, "ssm")
+    want_ssd = ((2 if cfg.remat else 1) * m, m)
+    check(ssd_counted["cpu"] == (0, 0) and ssd_counted["cuda"] == want_ssd,
+          f"{label} train parity: the CPU launched no SSD kernel, the card "
+          f"{ssd_counted['cuda']} SSD forward and backward == {want_ssd} "
+          f"({m} SSM layers, remat {cfg.remat})")
     (l0, n0, g0), (l1, n1, g1) = runs["cpu"], runs["cuda"]
     check(abs(l1 - l0) <= 1e-4 * abs(l0), f"{label} train parity loss {l1} "
           f"vs {l0}")
@@ -3074,7 +3322,8 @@ def train_step_parity(label: str, model, cpu_params, batch: dict) -> None:
         worst = max(worst, err / scale if scale else 0.0)
     say("train parity", (
         f"{label}: one train step on the card (flash forward and backward "
-        f"kernels, f32, {counted['cuda']} launches) equals the CPU: loss "
+        f"kernels, f32, {counted['cuda']} launches; SSD forward and backward "
+        f"{ssd_counted['cuda']}) equals the CPU: loss "
         f"{l1!r} vs {l0!r}, grad norm {n1!r} vs {n0!r}; {len(g0)} gradient "
         f"leaves, worst |err| / largest |grad| {worst!r}"))
 
@@ -3123,9 +3372,10 @@ def attention_train_parity() -> None:
 
 
 # ------------------------------------------------- 10. elastic and mesh
-def elastic_run() -> tuple[int, int]:
+def elastic_run() -> tuple[int, int, int]:
     """(a) ``ElasticRunner`` on mamba2-130m at full width and depth.
-    Returns the SSD and advance-sweep launches of the run."""
+    Returns the SSD forward, SSD backward and advance-sweep launches of the
+    run."""
     e = ELASTIC
     cfg = get_config(TRAIN_ARCH)
     start = launches()
@@ -3143,6 +3393,7 @@ def elastic_run() -> tuple[int, int]:
                    if f.is_file())
     now = launches()
     ssd, sweeps = now["ssd"] - start["ssd"], now["sweep"] - start["sweep"]
+    ssd_bwd = now["ssd_bwd"] - start["ssd_bwd"]
     events = out["events"]
     check([ev["kind"] for ev in events] == ["failure", "failure", "finished"]
           and out["restarts"] == 2, f"elastic events {events}")
@@ -3156,6 +3407,8 @@ def elastic_run() -> tuple[int, int]:
     per_step = (2 if cfg.remat else 1) * cfg.n_layers
     check(ssd == per_step * ran, f"elastic: SSD launches {ssd} == "
           f"{per_step} a step x {ran} steps run")
+    check(ssd_bwd == cfg.n_layers * ran, f"elastic: SSD backward launches "
+          f"{ssd_bwd} == {cfg.n_layers} a step x {ran} steps run")
     # each plan simulates two one-DC scenarios: one launch per batch step
     planned = 0
     for ev in events[:2]:
@@ -3173,12 +3426,13 @@ def elastic_run() -> tuple[int, int]:
         f"{e['ckpt_every']}, failures at {e['fail_at']}: events "
         f"{[(ev['kind'], ev.get('resume_step'), ev.get('survivors'), ev.get('plan', {}).get('choice')) for ev in events]}; "
         f"{ran} steps run, final loss {final!r}; wall {wall!r} s; "
-        f"checkpoints {disk / 2**30!r} GiB on disk; SSD {ssd} launches, "
-        f"advance sweep {sweeps} (the two plans); peak memory "
+        f"checkpoints {disk / 2**30!r} GiB on disk; SSD {ssd} launches "
+        f"(backward {ssd_bwd}), advance sweep {sweeps} (the two plans); peak "
+        f"memory "
         f"{torch.cuda.max_memory_allocated() / 2**30!r} GiB"))
     del out, runner
     torch.cuda.empty_cache()
-    return ssd, sweeps
+    return ssd, ssd_bwd, sweeps
 
 
 def save_named_run() -> tuple[int, int]:
@@ -3349,7 +3603,7 @@ def phase_elastic_mesh(phase4: dict) -> dict[str, int]:
     Returns each kernel's launches in the phase."""
     zero_launches()
     t0 = time.perf_counter()
-    ssd, sweeps = elastic_run()
+    ssd, ssd_bwd, sweeps = elastic_run()
     took = {"elastic": time.perf_counter() - t0}
     fwd, bwd = save_named_run()
     took["save_named"] = time.perf_counter() - t0 - sum(took.values())
@@ -3357,9 +3611,9 @@ def phase_elastic_mesh(phase4: dict) -> dict[str, int]:
     took["mesh"] = time.perf_counter() - t0 - sum(took.values())
     counted = launches()
     check(counted == {"flash": fwd, "ssd": ssd, "sweep": sweeps,
-                      "flash_bwd": bwd},
+                      "flash_bwd": bwd, "ssd_bwd": ssd_bwd},
           f"phase 10 launches {counted} == its runs' ({fwd}, {ssd}, "
-          f"{sweeps}, {bwd})")
+          f"{sweeps}, {bwd}, {ssd_bwd})")
     say("timing", "elastic and mesh: " + ", ".join(
         f"{k} {v:.1f} s" for k, v in took.items()))
     return counted
@@ -3457,6 +3711,8 @@ def sharded_steps() -> dict[str, int]:
     check(m["ssd"] == 2 * n_ssm * m_steps and ssm_run["blocks"] == m["ssd"],
           f"sharded {TRAIN_ARCH}: SSD launches {m['ssd']} == 2 x {n_ssm} x "
           f"{m_steps}, each through local_map ({ssm_run['blocks']} blocks)")
+    check(m["ssd_bwd"] == n_ssm * m_steps, f"sharded {TRAIN_ARCH}: SSD "
+          f"backward launches {m['ssd_bwd']} == {n_ssm} x {m_steps}")
     want = DENSE_RUNS[arch]
     say("sharded step", (
         f"{arch} full width and depth through the sharded step (DTensor "
@@ -3476,7 +3732,8 @@ def sharded_steps() -> dict[str, int]:
         f"{TRAIN_ARCH} full width and depth through the sharded step, "
         f"{m_steps} of phase 8's steps: losses {ssm_run['losses']} vs the "
         f"plain step's {ssm_run['want']}, worst relative gap "
-        f"{ssm_run['gap']!r}; SSD {m['ssd'] / m_steps} launches a step; step "
+        f"{ssm_run['gap']!r}; SSD {m['ssd'] / m_steps} launches a step "
+        f"(backward {m['ssd_bwd'] / m_steps}); step "
         f"{m_steps} took {ssm_run['step_s']!r} s (the plain step: "
         f"{TRAIN_RUN['step_s']!r} s; every step {ssm_run['seconds']}); peak "
         f"memory {ssm_run['peak']!r} GiB (the plain step: "
@@ -3991,9 +4248,9 @@ def phase_smoke_zoo() -> dict[str, int]:
               f"{arch} smoke: flash forward {count['flash']} and backward "
               f"{count['flash_bwd']} launches, {'some' if attn else 'none'} "
               "wanted")
-        check((count["ssd"] > 0) == (ssm_layers > 0),
-              f"{arch} smoke: {count['ssd']} SSD launches for {ssm_layers} "
-              "SSM layers")
+        check((count["ssd"] > 0) == (count["ssd_bwd"] > 0) == (ssm_layers > 0),
+              f"{arch} smoke: {count['ssd']} SSD launches and "
+              f"{count['ssd_bwd']} backward for {ssm_layers} SSM layers")
     torch.cuda.empty_cache()
     say("timing", f"smoke zoo: phase 13 {time.perf_counter() - t0:.1f} s")
     return total
@@ -4010,6 +4267,7 @@ def main() -> None:
     flash_record = phase_flash_kernel()
     flash_bwd_record = phase_flash_bwd_kernel()
     ssd_record = phase_ssd_kernel()
+    ssd_bwd_record = phase_ssd_bwd_kernel()
     took["kernels"] = time.perf_counter() - t0 - sum(took.values())
 
     vm_update.advance_sweep_cuda.launches = 0
@@ -4032,6 +4290,7 @@ def main() -> None:
         f"phases 3-4c, one per batch step")
 
     flash_attention.flash_attention_bwd_cuda.launches = 0
+    ssd_scan.ssd_scan_bwd_cuda.launches = 0
     remat_calls = lm.remat_call.calls
     flash_launches = phase_serving()
     took["serving"] = time.perf_counter() - t0 - sum(took.values())
@@ -4040,12 +4299,13 @@ def main() -> None:
     phase_parity()
     took["parity"] = time.perf_counter() - t0 - sum(took.values())
     check(flash_attention.flash_attention_bwd_cuda.launches == 0
+          and ssd_scan.ssd_scan_bwd_cuda.launches == 0
           and lm.remat_call.calls == remat_calls,
-          "serving (phases 6-7) launched no flash backward and checkpointed "
-          "nothing")
+          "serving (phases 6-7) launched no flash or SSD backward and "
+          "checkpointed nothing")
     say("proof", "phases 6-7 (serving every family, parity) launched the "
-        "flash backward 0 times and made 0 checkpoints")
-    ssd_launches = phase_train()
+        "flash and SSD backward 0 times and made 0 checkpoints")
+    ssd_launches, ssd_bwd_launches = phase_train()
     took["train"] = time.perf_counter() - t0 - sum(took.values())
     zero_launches()
     dense_fwd, dense_bwd = phase_dense_train()
@@ -4061,13 +4321,15 @@ def main() -> None:
     took["train parity"] = time.perf_counter() - t0 - sum(took.values())
     tenth = phase_elastic_mesh(phase4)
     took["elastic and mesh"] = time.perf_counter() - t0 - sum(took.values())
-    say("proof", f"phase 10 launched the SSD kernel {tenth['ssd']}, the "
+    say("proof", f"phase 10 launched the SSD kernel {tenth['ssd']} (its "
+        f"backward {tenth['ssd_bwd']}), the "
         f"advance sweep {tenth['sweep']}, the flash forward "
         f"{tenth['flash']} and backward {tenth['flash_bwd']} times")
     eleventh = phase_sharded()
     took["sharded step and dry-run"] = (time.perf_counter() - t0
                                         - sum(took.values()))
-    say("proof", f"phase 11 launched the SSD kernel {eleventh['ssd']}, the "
+    say("proof", f"phase 11 launched the SSD kernel {eleventh['ssd']} "
+        f"(its backward {eleventh['ssd_bwd']}), the "
         f"flash forward {eleventh['flash']} and backward "
         f"{eleventh['flash_bwd']} times, every forward through local_map")
     twelfth = phase_lint_examples()
@@ -4084,7 +4346,7 @@ def main() -> None:
     say("proof", f"phase 13 (every family's smoke model, 16-wide heads) "
         f"launched the flash forward {thirteenth['flash']} and backward "
         f"{thirteenth['flash_bwd']} and the SSD kernel {thirteenth['ssd']} "
-        "times")
+        f"(its backward {thirteenth['ssd_bwd']}) times")
     say("timing", ", ".join(f"{k} {v:.1f} s" for k, v in took.items()))
 
     kernels = [{
@@ -4122,6 +4384,16 @@ def main() -> None:
         "launches": (ssd_launches + tenth["ssd"] + eleventh["ssd"]
                      + twelfth["ssd"] + thirteenth["ssd"]),
         **ssd_record,
+    }, {
+        "name": "ssd_scan_bwd",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/ssd_scan_bwd.cu",
+        "replaces": "src/repro/models/ssm.py:124 ssd_chunked_ref (gradient "
+                    "by jax.grad; no Pallas kernel)",
+        "launches": (ssd_bwd_launches + tenth["ssd_bwd"]
+                     + eleventh["ssd_bwd"] + twelfth["ssd_bwd"]
+                     + thirteenth["ssd_bwd"]),
+        **ssd_bwd_record,
     }]
     print(CARD)
     print(json.dumps({"kernels": kernels}))

@@ -1,11 +1,12 @@
-"""How far ``chip_smoke.py``'s checks of the bf16 SSD scan reach, on one
-NVIDIA GPU.
+"""How far ``chip_smoke.py``'s checks of the bf16 SSD scan and its backward
+reach, on one NVIDIA GPU.
 
     python3 scripts/ssd_fault_reach.py
 
-Builds four broken copies of ``src/repro_torch/csrc/ssd_scan.cu`` in a
-temporary directory (beside a copy of the headers it includes), one nvcc
-each, started together, each with one fault a chunk-parallel scan can have:
+Builds broken copies of ``src/repro_torch/csrc/ssd_scan.cu`` and
+``ssd_scan_bwd.cu`` in a temporary directory (beside copies of the headers
+they include), one nvcc each, all started together, each with one fault a
+chunk-parallel scan or its gradient can have.  The forward's four:
 
 * ``stale_state``: chunks past the ninth read the state entering the chunk
   before them (phase 3 loads the wrong ``h_in``);
@@ -17,13 +18,24 @@ each, started together, each with one fault a chunk-parallel scan can have:
 * ``off_diagonal``: ``W`` is masked to ``j < i``, dropping each row's own
   input.
 
-Runs the sound kernel and each copy at ``chip_smoke.py``'s bf16 shapes and
-prints, for each, the largest elementwise error and whether the elementwise
-2e-2 check passes, and the relative error of the whole output and of its
-worst (b, h) slice against chip_smoke's limits.  Exits non-zero if the sound
-kernel fails a check or a broken copy passes them all.  Every line carries
-the card's name and power limit.  Imports nothing of JAX or of the JAX
-package.
+The backward's three:
+
+* ``grad_missed_decay``: the state gradient ``G`` is carried back from
+  chunks past the ninth without its decay ``exp(seg)``;
+* ``no_reverse_cumsum``: ``ddt`` and ``dA`` take ``dcum`` itself for its
+  reverse cumsum ``da`` within the chunk;
+* ``skipped_head``: ``dBm`` and ``dCm`` sum all but the last head of their
+  group.
+
+Runs the sound kernels and each copy at ``chip_smoke.py``'s bf16 SSD
+shapes and prints, for each: the forward's largest elementwise error and
+whether the elementwise 2e-2 check passes, and the relative error of the
+whole output and of its worst (b, h) slice against chip_smoke's limits; the
+backward's errors per gradient (max |err| / largest, relative error of the
+whole tensor and of its worst slice) and the limits they break.  Exits
+non-zero if a sound kernel fails a check or a broken copy passes them all
+at a shape.  Every line carries the card's name and power limit.  Imports
+nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
@@ -51,15 +63,28 @@ FAULTS = {
     "dropped_keys": (KEYS, "if (kk >= 4 * (wg + 1) - wg) break;"),
     "off_diagonal": (MASK, "acc_s[e] = j < i && i < Q"),
 }
+KEEP = "const float keep = expf(seg[c * Q]);"
+DA = "const float da = in ? sDa[i] : 0.f;"
+HEADS = "for (int k = 0; k < hpg; ++k) {"
+BWD_FAULTS = {
+    "grad_missed_decay": (KEEP, "const float keep = c > 8 ? 1.f : "
+                                "expf(seg[c * Q]);"),
+    "no_reverse_cumsum": (DA, "const float da = in ? sDc[i] : 0.f;"),
+    "skipped_head": (HEADS, "for (int k = 0; k < hpg - (hpg > 1); ++k) {"),
+}
+
+
+def bf16_shapes():
+    return [(i, label, shape, dtype, chunk)
+            for i, (label, shape, dtype, chunk, _) in enumerate(cs.SSD_SHAPES)
+            if dtype == torch.bfloat16]
 
 
 def readings(name: str) -> bool:
-    """Every bf16 shape through the kernel the wrapper has loaded; True if
-    chip_smoke's checks give the verdict this kernel should get."""
+    """Every bf16 shape through the forward kernel the wrapper has loaded;
+    True if chip_smoke's checks give the verdict this kernel should get."""
     right = True
-    for i, (label, shape, dtype, chunk, _) in enumerate(cs.SSD_SHAPES):
-        if dtype != torch.bfloat16:
-            continue
+    for i, label, shape, dtype, chunk in bf16_shapes():
         args = cs.ssd_inputs(shape, dtype, seed=200 + i)
         out = ssd.ssd_scan_cuda(*args, chunk=chunk).float()
         want = ref.ssd_scan_ref(*args, chunk=chunk).float()
@@ -81,27 +106,63 @@ def readings(name: str) -> bool:
     return right
 
 
+def bwd_readings(name: str) -> bool:
+    """Every bf16 shape through the backward kernel the wrapper has loaded,
+    against ``ref.ssd_scan_bwd_ref`` with chip_smoke's phase-2 inputs and
+    limits; True if the checks give the verdict this kernel should get."""
+    right = True
+    for i, label, shape, dtype, chunk in bf16_shapes():
+        args = cs.ssd_bwd_inputs(shape, dtype, seed=500 + i)
+        got = ssd.ssd_scan_bwd_cuda(*args, chunk=chunk)
+        want = ref.ssd_scan_bwd_ref(*args, chunk=chunk)
+        finite = all(bool(g.isfinite().all()) for g in got)
+        errs = cs.ssd_bwd_errors(got, want)
+        bad = cs.ssd_bwd_failures(errs, dtype)
+        passes = finite and not bad
+        right &= passes if name == "sound" else not passes
+        cs.say(name, f"backward {label} {list(shape)} chunk {chunk}: "
+               f"finite {finite}; (max |err| / largest, relative error, "
+               f"worst slice) {errs}; breaks {bad or 'no limit'}; "
+               f"{'passes' if passes else 'fails'} chip_smoke's checks")
+        del args, got, want
+        torch.cuda.empty_cache()
+    return right
+
+
+def broken_copies(tmp: Path, src: Path, faults: dict) -> dict[str, Path]:
+    text = src.read_text()
+    paths = {}
+    for name, (old, new) in faults.items():
+        if text.count(old) != 1:
+            sys.exit(f"ssd_fault_reach: {src.name} no longer has one "
+                     f"{old!r} to break")
+        paths[name] = tmp / f"{src.stem}_{name}.cu"
+        paths[name].write_text(text.replace(old, new))
+    return paths
+
+
 def main() -> None:
-    right = readings("sound")
-    src = ssd.SRC.read_text()
+    right = readings("sound") & bwd_readings("sound")
     tmp = Path(tempfile.mkdtemp(prefix="ssd_faults_"))
     kbuild.BUILD_DIR = tmp / "lib"
     for header in kbuild.CSRC.glob("*.cuh"):      # what the copies include
         (tmp / header.name).write_text(header.read_text())
-    paths = {}
-    for name, (old, new) in FAULTS.items():
-        if src.count(old) != 1:
-            sys.exit(f"ssd_fault_reach: the source no longer has one "
-                     f"{old!r} to break")
-        paths[name] = tmp / f"ssd_scan_{name}.cu"
-        paths[name].write_text(src.replace(old, new))
-    kbuild.build(*((path, ssd.NVCC_FLAGS) for path in paths.values()))
-    load = ssd._library.__wrapped__  # the uncached loader, to rebind SRC
-    for name, path in paths.items():
+    fwd = broken_copies(tmp, ssd.SRC, FAULTS)
+    bwd = broken_copies(tmp, ssd.SRC_BWD, BWD_FAULTS)
+    kbuild.build(*((path, ssd.NVCC_FLAGS)
+                   for path in [*fwd.values(), *bwd.values()]))
+    load = ssd._library.__wrapped__  # the uncached loaders, to rebind SRC
+    load_bwd = ssd._bwd_library.__wrapped__
+    for name, path in fwd.items():
         ssd.SRC = path
         lib = load()
         ssd._library = lambda lib=lib: lib
         right &= readings(name)
+    for name, path in bwd.items():
+        ssd.SRC_BWD = path
+        lib = load_bwd()
+        ssd._bwd_library = lambda lib=lib: lib
+        right &= bwd_readings(name)
     print(cs.CARD)
     if not right:
         sys.exit("ssd_fault_reach: a check gave the wrong verdict")

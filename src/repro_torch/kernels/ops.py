@@ -10,8 +10,8 @@ one: the reference's ``sweep_impl`` ("jnp" | "pallas") and ``attn_impl``
 forward and ``ref.attention_bwd_ref`` on the CPU) when a gradient is
 wanted; otherwise it calls the kernel or the plain version directly, so
 serving launches the forward alone and saves nothing.  ``ssd_scan`` is
-differentiable on both devices: on the card through ``SSDScan`` (kernel
-forward, plain-version backward), on the CPU through the plain version;
+differentiable on both devices: on the card through ``SSDScan`` (the
+forward and backward kernels), on the CPU through the plain version;
 with ``return_state`` (a prefill, which needs no gradient) it returns the
 final state too, from the kernel itself on the card.
 

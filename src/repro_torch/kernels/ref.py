@@ -275,3 +275,107 @@ def ssd_scan_ref(x: Tensor, dt: Tensor, A: Tensor, Bm: Tensor, Cm: Tensor,
     if return_state:
         return out[0][:, :s], out[1]
     return out[:, :s]
+
+
+def ssd_scan_bwd_ref(x: Tensor, dt: Tensor, A: Tensor, Bm: Tensor,
+                     Cm: Tensor, D: Tensor, dy: Tensor, *, chunk: int = 128
+                     ) -> tuple[Tensor, ...]:
+    """The gradient of ``ssd_scan_ref`` for the output's gradient ``dy``,
+    by the SSD backward kernel's chunked formulas written out in f32:
+    ``(dx, ddt, dA, dBm, dCm, dD)``, dx, dBm and dCm in their inputs'
+    dtypes, ddt, dA and dD in f32.  S is padded to a multiple of ``chunk``
+    with ``dt = 0`` and zero rows, as the forward pads it, and the
+    gradients are cut back to S.
+
+    Per (b, h) and chunk, with ``cum`` the within-chunk cumsum of
+    ``dt A``, ``seg = cum[Q-1]``, ``L_ij = exp(cum_i - cum_j)`` for
+    i >= j (masked before the exponential, as ``ssd_chunked_ref`` masks),
+    ``S_ij = C_i . B_j``, ``R_ij = dy_i . x_j``, ``M = S L dt_j``,
+    ``dS = R L dt_j``, ``w_j = exp(seg - cum_j) dt_j``, ``h`` the state
+    entering the chunk and ``G`` the gradient of the state leaving it
+    (``G = sum_i exp(cum_i) dy_i^T C_i + exp(seg) G_next`` over the chunks
+    in reverse, zero after the last)::
+
+        dx  = D dy + M^T dy + w (B G^T)
+        dC  = dS B + exp(cum) (dy h)
+        dB  = dS^T C + w (x G)
+        dcum_i = sum_j M_ij R_ij - sum_j M_ji R_ji
+                 + exp(cum_i) dy_i . (C_i h^T) - dw_i w_i
+                 (+ exp(seg) <G, h> + sum_j dw_j w_j at i = Q-1)
+        ddt = sum_i S_ij L_ij R_ij + dw_j exp(seg - cum_j) + A da_j
+
+    with ``dw_j = x_j . (G B_j)`` and ``da`` the reverse cumsum of
+    ``dcum`` within the chunk; ``dA = sum dt da``, ``dD = sum dy x``.
+    dBm and dCm sum the heads of their group.
+    """
+    b, s, h, p = x.shape
+    g, n = Bm.shape[2], Bm.shape[3]
+    pad = (-s) % chunk
+    if pad:
+        x, Bm, Cm, dy = (F.pad(t, (0, 0, 0, 0, 0, pad))
+                         for t in (x, Bm, Cm, dy))
+        dt = F.pad(dt, (0, 0, 0, pad))
+    nc = (s + pad) // chunk
+    shape = (b, nc, chunk, h)
+    xc = x.float().reshape(*shape, p)
+    dyc = dy.float().reshape(*shape, p)
+    dtc = dt.float().reshape(shape)
+    Bc = _heads(Bm, h).reshape(*shape, n)
+    Cc = _heads(Cm, h).reshape(*shape, n)
+    Af = A.float()
+
+    cum = torch.cumsum(dtc * Af, dim=2)                       # [B,nc,Q,H]
+    seg = cum[:, :, -1, :]                                    # [B,nc,H]
+    tri = torch.ones(chunk, chunk, dtype=torch.bool, device=x.device).tril()
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]      # [B,nc,Q,K,H]
+    L = diff.masked_fill(~tri[None, None, :, :, None], -torch.inf).exp()
+    L = L.movedim(-1, 2)                                      # [B,nc,H,Q,K]
+    Ldt = L * dtc.movedim(-1, 2)[:, :, :, None, :]
+    S = torch.einsum("bcqhn,bckhn->bchqk", Cc, Bc)
+    R = torch.einsum("bcqhp,bckhp->bchqk", dyc, xc)
+    M, dS = S * Ldt, R * Ldt
+
+    # the states entering each chunk, and the gradients leaving each chunk
+    w = torch.exp(seg[:, :, None, :] - cum) * dtc             # [B,nc,Q,H]
+    ecum = cum.exp()
+    s_c = torch.einsum("bcqhp,bcqh,bcqhn->bchpn", xc, w, Bc)
+    u_c = torch.einsum("bcqhp,bcqh,bcqhn->bchpn", dyc, ecum, Cc)
+    decay = torch.exp(seg)[..., None, None]                   # [B,nc,H,1,1]
+    state = x.new_zeros((b, h, p, n), dtype=torch.float32)
+    grad = torch.zeros_like(state)
+    h_in, g_out = [], [None] * nc
+    for c in range(nc):
+        h_in.append(state)
+        state = decay[:, c] * state + s_c[:, c]
+    for c in reversed(range(nc)):
+        g_out[c] = grad
+        grad = u_c[:, c] + decay[:, c] * grad
+    hc, Gc = torch.stack(h_in, 1), torch.stack(g_out, 1)      # [B,nc,H,P,N]
+
+    GB = torch.einsum("bchpn,bckhn->bckhp", Gc, Bc)           # G B_j
+    xG = torch.einsum("bckhp,bchpn->bckhn", xc, Gc)           # x_j G
+    dyh = torch.einsum("bcqhp,bchpn->bcqhn", dyc, hc)         # dy_i h
+    dx = (D.float()[:, None] * dyc
+          + torch.einsum("bchqk,bcqhp->bckhp", M, dyc) + w[..., None] * GB)
+    dC = torch.einsum("bchqk,bckhn->bcqhn", dS, Bc) + ecum[..., None] * dyh
+    dB = torch.einsum("bchqk,bcqhn->bckhn", dS, Cc) + w[..., None] * xG
+
+    Z = M * R                                                 # [B,nc,H,Q,K]
+    dw = (xc * GB).sum(-1)                                    # [B,nc,Q,H]
+    dcum = ((Z.sum(-1) - Z.sum(-2)).movedim(2, -1)
+            + ecum * (Cc * dyh).sum(-1) - dw * w)
+    dseg = decay[..., 0, 0] * (Gc * hc).sum((-2, -1)) + (dw * w).sum(2)
+    dcum[:, :, -1] += dseg
+    da = dcum.flip(2).cumsum(2).flip(2)
+    ddt = ((S * L * R).sum(-2).movedim(2, -1)
+           + dw * torch.exp(seg[:, :, None, :] - cum) + Af * da)
+    dA = (dtc * da).sum((0, 1, 2))
+    dD = (dyc * xc).sum((0, 1, 2, 4))
+
+    def cut(t: Tensor, width: int) -> Tensor:
+        return t.reshape(b, nc * chunk, -1, width)[:, :s]
+
+    dBm = cut(dB, n).reshape(b, s, g, h // g, n).sum(3)
+    dCm = cut(dC, n).reshape(b, s, g, h // g, n).sum(3)
+    return (cut(dx, p).to(x.dtype), ddt.reshape(b, nc * chunk, h)[:, :s],
+            dA, dBm.to(Bm.dtype), dCm.to(Cm.dtype), dD)

@@ -23,9 +23,14 @@ outputs' shapes alone, so a meta tensor traces the card's program without
 data.  Its FLOP formula (``ssd_work``, the count chip_smoke.py's bound
 uses) lets a counting mode read its work.
 ``SSDScan`` is the differentiable form: its forward launches the kernel, its
-backward recomputes the plain version (``ref.ssd_scan_ref``) from the saved
-inputs under autograd and differentiates that.  The JAX package has no
-backward kernel either: it trains through ``ref.ssd_chunked_ref``.
+backward the backward kernel (``csrc/ssd_scan_bwd.cu``, ``ssd_scan_bwd_cuda``,
+op ``repro_torch::ssd_scan_bwd``): six chunk-parallel launches with f32
+scratch, ``mma.sync`` on the tensor cores for bf16 and f32 FMAs on the CUDA
+cores for f32 (``kernel_plan_bwd``), no atomics, so the same inputs give
+bitwise the same gradients.  Its plain version is
+``ref.ssd_scan_bwd_ref``; nothing on the card falls back to it.  The JAX
+package has no backward kernel to port: it trains through ``jax.grad`` of
+``ref.ssd_chunked_ref``.
 """
 from __future__ import annotations
 
@@ -38,9 +43,9 @@ from torch import Tensor
 from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build as kbuild
-from repro_torch.kernels import ref
 
 SRC = kbuild.CSRC / "ssd_scan.cu"
+SRC_BWD = kbuild.CSRC / "ssd_scan_bwd.cu"
 NVCC_FLAGS = kbuild.BASE_FLAGS
 HEAD_DIMS = (16, 32, 64, 128)   # P and N the kernel takes
 MAX_CHUNK = 128                 # chunk: a multiple of 32 up to this
@@ -51,6 +56,11 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the C entry point's codes besides cudaError_t
 _NO_ENCODER, _ENCODE_FAILED = 999, 1000
 PHASES = ("ssd_fwd_chunk_state", "ssd_fwd_state_pass", "ssd_fwd_chunk_scan")
+BWD_PHASES = ("ssd_bwd_chunk_states", "ssd_bwd_state_pass", "ssd_bwd_dx_db",
+              "ssd_bwd_dc", "ssd_bwd_dcum", "ssd_bwd_reduce")
+PANEL = 32              # backward: rows of a panel
+BWD_THREADS = 128       # backward: threads of a chunk-parallel block
+BWD_RED = 512           # backward: floats of a block's reduction scratch
 
 
 def ssd_work(x_shape, g: int, n: int, chunk: int,
@@ -65,6 +75,22 @@ def ssd_work(x_shape, g: int, n: int, chunk: int,
     macs = sum(q * (q + 1) // 2 * (n + p) + 2 * q * p * n for q in rows)
     nbytes = (2 * b * s * h * p + 2 * b * s * g * n) * dtype_bytes \
         + b * s * h * 4 + 2 * h * 4
+    return 2 * b * h * macs, nbytes
+
+
+def ssd_bwd_work(x_shape, g: int, n: int, chunk: int,
+                 dtype_bytes: int) -> tuple[int, int]:
+    """(operations, bytes) of one backward of the scan: per (b, h) and
+    chunk of q rows, q (q + 1) / 2 (3 N + 2 P) multiply-adds for the causal
+    triangles of S = C B^T, R = dy x^T, M^T dy, dS B and dS^T C, and 5 q P N
+    for the chunk's state and state gradient, B G^T, x G and dy h; x, dy,
+    dt, B, C read once, dx, ddt, dB, dC written once."""
+    b, s, h, p = x_shape
+    rows = [min(chunk, s - t) for t in range(0, s, chunk)]
+    macs = sum(q * (q + 1) // 2 * (3 * n + 2 * p) + 5 * q * p * n
+               for q in rows)
+    nbytes = (3 * b * s * h * p + 4 * b * s * g * n) * dtype_bytes \
+        + 2 * b * s * h * 4 + 4 * h * 4
     return 2 * b * h * macs, nbytes
 
 
@@ -96,6 +122,22 @@ def geometry(dtype: torch.dtype, p: int, n: int,
     return [(256, floats * 4)]
 
 
+def _refuse(name: str, b: int, h: int, p: int, n: int, chunk: int) -> None:
+    """The domain both directions take: P and N in HEAD_DIMS, a chunk that
+    is a multiple of 32 up to 128, heads and batch within the grid."""
+    if p not in HEAD_DIMS:
+        raise ValueError(f"{name}: head dim P={p} is not one of {HEAD_DIMS}")
+    if n not in HEAD_DIMS:
+        raise ValueError(f"{name}: state dim N={n} is not one of "
+                         f"{HEAD_DIMS}")
+    if chunk % 32 or not 0 < chunk <= MAX_CHUNK:
+        raise ValueError(f"{name}: chunk {chunk} is not a multiple of 32 up "
+                         f"to {MAX_CHUNK}")
+    if h > MAX_GRID_YZ or b > MAX_GRID_YZ:
+        raise ValueError(f"{name}: {h} heads or batch {b} exceed the grid's "
+                         f"{MAX_GRID_YZ}")
+
+
 def kernel_plan(b: int, s: int, h: int, p: int, g: int, n: int, chunk: int,
                 dtype: torch.dtype) -> dict:
     """Launch plan of ``ssd_scan_cuda`` for x ``[b, s, h, p]`` and Bm/Cm
@@ -112,18 +154,7 @@ def kernel_plan(b: int, s: int, h: int, p: int, g: int, n: int, chunk: int,
     block per (head, batch) looping over the chunks, no scratch.  Raises
     ValueError on what no instantiation takes.
     """
-    if p not in HEAD_DIMS:
-        raise ValueError(f"ssd_scan_cuda: head dim P={p} is not one of "
-                         f"{HEAD_DIMS}")
-    if n not in HEAD_DIMS:
-        raise ValueError(f"ssd_scan_cuda: state dim N={n} is not one of "
-                         f"{HEAD_DIMS}")
-    if chunk % 32 or not 0 < chunk <= MAX_CHUNK:
-        raise ValueError(f"ssd_scan_cuda: chunk {chunk} is not a multiple "
-                         f"of 32 up to {MAX_CHUNK}")
-    if h > MAX_GRID_YZ or b > MAX_GRID_YZ:
-        raise ValueError(f"ssd_scan_cuda: {h} heads or batch {b} exceed the "
-                         f"grid's {MAX_GRID_YZ}")
+    _refuse("ssd_scan_cuda", b, h, p, n, chunk)
     nc = -(-s // chunk)
     if dtype == torch.bfloat16:
         rows = 64 if chunk <= 64 else 128
@@ -185,6 +216,89 @@ def kernel_geometry(dtype: torch.dtype, p: int, n: int,
     return out
 
 
+def geometry_bwd(dtype: torch.dtype, p: int,
+                 n: int) -> list[tuple[int, int]]:
+    """(threads, dynamic shared-memory bytes) of each launch of the
+    backward for (dtype, p, n), as ``csrc/ssd_scan_bwd.cu`` lays it out
+    (``states_smem``, ``dxdb_smem``, ``dc_smem``): tiles of T whose rows are
+    16 bytes longer than their width, then floats (dt, cum and two vectors
+    of a chunk's rows in the chunk-state phase; dt, cum, two vectors of a
+    panel's rows and the reduction scratch in the dx/dB and dC phases).
+    ``chip_smoke.py`` holds them against ``kernel_geometry_bwd``."""
+    size = dtype.itemsize
+
+    def ld(w: int) -> int:
+        return w + 16 // size
+
+    tail = (2 * MAX_CHUNK + 2 * PANEL + BWD_RED) * 4
+    states = PANEL * (ld(p) + ld(n)) * size + 4 * MAX_CHUNK * 4
+    pairs = 2 * PANEL * (ld(p) + ld(n)) + p * ld(n)
+    dxdb = (pairs + 2 * PANEL * ld(32)) * size + tail
+    dc = (pairs + PANEL * ld(32)) * size + tail
+    return [(BWD_THREADS, states), (PASS_THREADS, 0), (BWD_THREADS, dxdb),
+            (BWD_THREADS, dc), (BWD_THREADS, 0), (PASS_THREADS, 0)]
+
+
+def kernel_plan_bwd(b: int, s: int, h: int, p: int, g: int, n: int,
+                    chunk: int, dtype: torch.dtype) -> dict:
+    """Launch plan of ``ssd_scan_bwd_cuda`` for x ``[b, s, h, p]`` and
+    Bm/Cm ``[b, s, g, n]`` in chunks of ``chunk``: the forward's domain.
+
+    Six launches: chunk states and dcum one block per (chunk, head, batch),
+    dx/dB and dC one block per (32-row panel, chunk, head, batch), the
+    state pass as the forward's (one thread per 4 elements of a head's
+    ``[p, n]`` state), the reduction one thread per 4 elements of
+    ``[b, s, g, n]`` (grid y 0) and per head (grid y 1).  bf16 plans
+    ``"mma_sync"`` (every product ``mma.sync`` m16n8k16, listed in
+    ``mma``), f32 ``"cuda_cores"`` (the same fragments in f32 FMAs).
+    ``scratch`` holds the f32 tensors the wrapper allocates, in the C entry
+    point's order, and ``scratch_bytes`` their sum.  Raises ValueError on
+    what the kernel does not take.
+    """
+    name = "ssd_scan_bwd_cuda"
+    _refuse(name, b, h, p, n, chunk)
+    if dtype == torch.bfloat16:
+        variant, mma = "mma_sync", [(16, 8, 16)]
+    elif dtype == torch.float32:
+        variant, mma = "cuda_cores", []
+    else:
+        raise ValueError(f"{name}: x is {dtype}, expected torch.float32 or "
+                         "torch.bfloat16")
+    nc, nq = -(-s // chunk), chunk // PANEL
+    tiles = -(-p * n // (4 * PASS_THREADS))
+    reduce_x = max(-(-b * s * g * n // (4 * PASS_THREADS)),
+                   -(-h // PASS_THREADS))
+    grids = [(nc, h, b), (b * h, tiles, 1), (nc * nq, h, b),
+             (nc * nq, h, b), (nc, h, b), (reduce_x, 2, 1)]
+    products = [mma, [], mma, mma, [], []]
+    phases = [{"name": ph, "grid": grid, "threads": threads, "smem": smem,
+               "mma": shapes}
+              for ph, grid, (threads, smem), shapes
+              in zip(BWD_PHASES, grids, geometry_bwd(dtype, p, n), products)]
+    for ph in phases:
+        if ph["smem"] > MAX_SMEM:
+            raise ValueError(f"{name}: {ph['smem']} bytes of shared memory "
+                             f"exceed a block's {MAX_SMEM}")
+    f32 = torch.float32
+    rows = (b, h, nc * chunk)
+    scratch = {
+        "cum": (rows, f32),
+        "state": ((b, h, nc, p, n), f32),
+        "state_grad": ((b, h, nc, p, n), f32),
+        "dB_heads": ((b, s, h, n), f32),
+        "dC_heads": ((b, s, h, n), f32),
+        "dcum_rows": (rows, f32),
+        "colsum": (rows, f32),
+        "dw": (rows, f32),
+        "dots": ((b, h, nc, tiles * PASS_THREADS // 32), f32),
+        "dA_part": ((b, h, nc), f32),
+        "dD_part": ((b, h, nc * nq), f32),
+    }
+    nbytes = sum(math.prod(shape) * 4 for shape, _ in scratch.values())
+    return {"variant": variant, "phases": phases, "scratch": scratch,
+            "scratch_bytes": nbytes}
+
+
 def _check(x, dt, A, Bm, Cm, D) -> None:
     """Shapes and dtypes: the wrapper's own checks, on any tensor.  The plan
     (``kernel_plan``) and the devices and layout are the op's (its fake
@@ -215,17 +329,23 @@ def _check(x, dt, A, Bm, Cm, D) -> None:
                          f"{g} groups")
 
 
+def _on_card(fn: str, named) -> None:
+    """Every tensor of ``named`` on the CUDA device the first lies on."""
+    first = named[0][1].device
+    for name, t in named:
+        if not t.is_cuda:
+            raise ValueError(f"{fn}: {name} is on {t.device}, not a CUDA "
+                             "device")
+        if t.device != first:
+            raise ValueError(f"{fn}: {name} is on {t.device}, "
+                             f"{named[0][0]} on {first}")
+
+
 def _check_placed(plan, x, dt, A, Bm, Cm, D) -> None:
     """Devices and layout, in the op's body after its plan (so what the
     plan refuses is refused before any device is looked at)."""
-    named = (("x", x), ("dt", dt), ("A", A), ("Bm", Bm), ("Cm", Cm), ("D", D))
-    for name, t in named:
-        if not t.is_cuda:
-            raise ValueError(f"ssd_scan_cuda: {name} is on {t.device}, not a "
-                             "CUDA device")
-        if t.device != x.device:
-            raise ValueError(f"ssd_scan_cuda: {name} is on {t.device}, x on "
-                             f"{x.device}")
+    _on_card("ssd_scan_cuda", (("x", x), ("dt", dt), ("A", A), ("Bm", Bm),
+                               ("Cm", Cm), ("D", D)))
     for name, t in (("x", x), ("Bm", Bm), ("Cm", Cm)):
         if t.stride(-1) != 1:
             raise ValueError(f"ssd_scan_cuda: the last axis of {name} is not "
@@ -336,9 +456,132 @@ ssd_scan_cuda.launches = 0
 ssd_scan_cuda.last_plan = None
 
 
+@functools.cache
+def _bwd_library() -> ctypes.CDLL:
+    lib = kbuild.load(SRC_BWD, NVCC_FLAGS)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.ssd_scan_bwd.argtypes = [p] * 24 + [i] * 8 + [p]
+    lib.ssd_scan_bwd.restype = i
+    ip = ctypes.POINTER(i)
+    lib.ssd_scan_bwd_geometry.argtypes = [i, i, i, i, ip, ip]
+    lib.ssd_scan_bwd_geometry.restype = i
+    return lib
+
+
+def kernel_geometry_bwd(dtype: torch.dtype, p: int,
+                        n: int) -> list[tuple[int, int]] | None:
+    """(threads, dynamic shared-memory bytes) of each launch of the built
+    backward library's instantiation for (dtype, p, n), or None if it has
+    none (builds the library)."""
+    out = []
+    for phase in range(len(BWD_PHASES)):
+        threads, smem = ctypes.c_int(), ctypes.c_int()
+        if _bwd_library().ssd_scan_bwd_geometry(_DTYPES[dtype], p, n, phase,
+                                                threads, smem):
+            return None
+        out.append((threads.value, smem.value))
+    return out
+
+
+def ssd_scan_bwd_cuda(x: Tensor, dt: Tensor, A: Tensor, Bm: Tensor,
+                      Cm: Tensor, D: Tensor, dy: Tensor, *,
+                      chunk: int = 128) -> tuple[Tensor, ...]:
+    """The gradient of ``ssd_scan_cuda`` on the card for the output's
+    gradient ``dy`` (x's shape and dtype): ``(dx, ddt, dA, dBm, dCm, dD)``,
+    dx, dBm and dCm in x's dtype and contiguous, ddt, dA and dD in f32; the
+    contract of ``ref.ssd_scan_bwd_ref``.
+
+    Six launches on the current stream (``kernel_plan_bwd``), no
+    synchronisation; the inputs are read contiguous and 16-byte aligned (a
+    copy is made of one that is not).  Each call that launches adds one to
+    ``ssd_scan_bwd_cuda.launches`` and leaves its plan in
+    ``ssd_scan_bwd_cuda.last_plan``.
+    """
+    kbuild.refuse_autograd("ssd_scan_bwd_cuda", x=x, dt=dt, A=A, Bm=Bm,
+                           Cm=Cm, D=D, dy=dy)
+    _check(x, dt, A, Bm, Cm, D)
+    if dy.shape != x.shape or dy.dtype != x.dtype:
+        raise ValueError(f"ssd_scan_bwd_cuda: dy is {tuple(dy.shape)} "
+                         f"{dy.dtype}, x {tuple(x.shape)} {x.dtype}")
+    return torch.ops.repro_torch.ssd_scan_bwd(x, dt, A, Bm, Cm, D, dy,
+                                              int(chunk))
+
+
+def _dense(t: Tensor) -> Tensor:
+    """``t`` contiguous and 16-byte aligned, copied only if it is not."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _ssd_bwd_op(x: Tensor, dt: Tensor, A: Tensor, Bm: Tensor, Cm: Tensor,
+                D: Tensor, dy: Tensor, chunk: int) -> tuple[Tensor, ...]:
+    """The backward's plan, checks and six launches
+    (``ssd_scan_bwd_cuda`` checks the shapes first)."""
+    b, s, h, p = x.shape
+    g, n = Bm.shape[2], Bm.shape[3]
+    plan = kernel_plan_bwd(b, s, h, p, g, n, chunk, x.dtype)
+    _on_card("ssd_scan_bwd_cuda", (("x", x), ("dt", dt), ("A", A),
+                                   ("Bm", Bm), ("Cm", Cm), ("D", D),
+                                   ("dy", dy)))
+    x, dt, A, Bm, Cm, D, dy = (_dense(t) for t in (x, dt, A, Bm, Cm, D, dy))
+    dx = torch.empty_like(x)
+    ddt = torch.empty((b, s, h), dtype=torch.float32, device=x.device)
+    dA, dD = (torch.empty(h, dtype=torch.float32, device=x.device)
+              for _ in range(2))
+    dBm, dCm = torch.empty_like(Bm), torch.empty_like(Cm)
+    out = (dx, ddt, dA, dBm, dCm, dD)
+    if x.numel() == 0:
+        return tuple(t.zero_() for t in out)
+    scratch = [torch.empty(shape, dtype=dtype, device=x.device)
+               for shape, dtype in plan["scratch"].values()]
+    lib = _bwd_library()
+    with torch.cuda.device(x.device):
+        err = lib.ssd_scan_bwd(
+            *(t.data_ptr() for t in (x, dt, A, Bm, Cm, D, dy) + out[:1]),
+            *(t.data_ptr() for t in out[1:]),
+            *(t.data_ptr() for t in scratch),
+            b, s, h, g, p, n, chunk, _DTYPES[x.dtype],
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ssd_scan_bwd_cuda: launch failed: CUDA error "
+                           f"{err} (x {tuple(x.shape)}, Bm {tuple(Bm.shape)}, "
+                           f"{x.dtype}, chunk {chunk}, plan {plan})")
+    ssd_scan_bwd_cuda.launches += 1
+    ssd_scan_bwd_cuda.last_plan = plan
+    return out
+
+
+kbuild.define_op("ssd_scan_bwd(Tensor x, Tensor dt, Tensor A, Tensor Bm, "
+                 "Tensor Cm, Tensor D, Tensor dy, int chunk) -> (Tensor, "
+                 "Tensor, Tensor, Tensor, Tensor, Tensor)", _ssd_bwd_op)
+
+
+@torch.library.register_fake("repro_torch::ssd_scan_bwd")
+def _(x, dt, A, Bm, Cm, D, dy, chunk):
+    b, s, h, p = x.shape
+    kernel_plan_bwd(b, s, h, p, Bm.shape[2], Bm.shape[3], chunk, x.dtype)
+    dense = torch.contiguous_format
+    return (torch.empty_like(x, memory_format=dense),
+            x.new_empty((b, s, h), dtype=torch.float32),
+            x.new_empty((h,), dtype=torch.float32),
+            torch.empty_like(Bm, memory_format=dense),
+            torch.empty_like(Cm, memory_format=dense),
+            x.new_empty((h,), dtype=torch.float32))
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_scan_bwd)
+def _ssd_bwd_flops(x_shape, dt_shape, A_shape, Bm_shape, Cm_shape, D_shape,
+                   dy_shape, chunk, *args, out_shape=None, **kwargs) -> int:
+    return ssd_bwd_work(x_shape, Bm_shape[2], Bm_shape[3], chunk, 2)[0]
+
+
+ssd_scan_bwd_cuda.launches = 0
+ssd_scan_bwd_cuda.last_plan = None
+
+
 class SSDScan(torch.autograd.Function):
-    """The SSD scan with a gradient: the kernel forward, the plain version's
-    gradient backward (recomputed from the saved inputs)."""
+    """The SSD scan with a gradient on the card: the kernel forward, the
+    backward kernel (``ssd_scan_bwd_cuda``) from the saved inputs."""
 
     @staticmethod
     def forward(ctx, x, dt, A, Bm, Cm, D, chunk: int):
@@ -348,11 +591,6 @@ class SSDScan(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gy):
-        needs = ctx.needs_input_grad[:6]
-        with torch.enable_grad():
-            leaves = [t.detach().requires_grad_(need)
-                      for t, need in zip(ctx.saved_tensors, needs)]
-            y = ref.ssd_scan_ref(*leaves, chunk=ctx.chunk)
-            grads = iter(torch.autograd.grad(
-                y, [t for t in leaves if t.requires_grad], gy))
-        return (*(next(grads) if need else None for need in needs), None)
+        grads = ssd_scan_bwd_cuda(*ctx.saved_tensors, gy, chunk=ctx.chunk)
+        return (*(g if need else None
+                  for g, need in zip(grads, ctx.needs_input_grad[:6])), None)

@@ -25,7 +25,7 @@ from repro_torch.core import resolve_device
 from repro_torch.data import ShardedLoader
 from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
                                                  flash_attention_cuda)
-from repro_torch.kernels.ssd_scan import ssd_scan_cuda
+from repro_torch.kernels.ssd_scan import ssd_scan_bwd_cuda, ssd_scan_cuda
 from repro_torch.models import build_model
 from repro_torch.train import OptConfig, adamw_init, make_train_step
 
@@ -62,9 +62,10 @@ def run_training(
     ``grad_norms``, ``step_seconds`` (host clock per step, each ending when
     its loss is read), ``tokens_per_sec`` (over the steps after the first,
     which pays for building and loading kernels; over the first if it is
-    the only one), ``ssd_launches``, ``flash_launches`` and
-    ``flash_bwd_launches`` (calls of the SSD kernel and of the flash forward
-    and backward kernels in the run)."""
+    the only one), ``ssd_launches``, ``ssd_bwd_launches``,
+    ``flash_launches`` and ``flash_bwd_launches`` (calls of the SSD forward
+    and backward kernels and of the flash forward and backward kernels in
+    the run)."""
     dev = resolve_device(device)
     model = build_model(cfg)
     opt_cfg = OptConfig(lr=lr, warmup_steps=max(steps // 20, 5),
@@ -81,7 +82,8 @@ def run_training(
     step_fn = make_train_step(model, opt_cfg, microbatches)
     loader = ShardedLoader(cfg.vocab, global_batch, seq_len, seed=seed)
     saver = AsyncSaver()
-    kernels = (ssd_scan_cuda, flash_attention_cuda, flash_attention_bwd_cuda)
+    kernels = (ssd_scan_cuda, ssd_scan_bwd_cuda, flash_attention_cuda,
+               flash_attention_bwd_cuda)
     launches0 = [fn.launches for fn in kernels]
 
     losses: list[float] = []
@@ -125,8 +127,8 @@ def run_training(
         "tokens_per_sec": (global_batch * seq_len * len(timed) / sum(timed)
                            if timed else float("nan")),
         **{name: fn.launches - n0 for name, fn, n0 in zip(
-            ("ssd_launches", "flash_launches", "flash_bwd_launches"), kernels,
-            launches0)},
+            ("ssd_launches", "ssd_bwd_launches", "flash_launches",
+             "flash_bwd_launches"), kernels, launches0)},
     }
 
 
@@ -156,7 +158,8 @@ def main() -> None:
           f"final loss {out['final_loss']:.4f} "
           f"(ln V = {np.log(cfg.vocab):.2f}), "
           f"{out['tokens_per_sec']:.0f} tokens/s, "
-          f"{out['ssd_launches']} SSD, {out['flash_launches']} flash and "
+          f"{out['ssd_launches']} SSD, {out['ssd_bwd_launches']} SSD "
+          f"backward, {out['flash_launches']} flash and "
           f"{out['flash_bwd_launches']} flash backward kernel launches")
 
 

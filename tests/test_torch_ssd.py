@@ -174,17 +174,23 @@ def test_ops_gradient_on_the_cpu_matches_jax():
 
 
 def test_ssdscan_backward_matches_jax(monkeypatch):
-    """``SSDScan`` (the card's route) run on the CPU, with the kernel
-    replaced by its plain version: its backward, which recomputes the plain
-    version under autograd, against jax.grad.  Its forward runs with
-    autograd off, as the kernel's wrapper requires."""
+    """``SSDScan`` (the card's route) run on the CPU, with the forward and
+    the backward kernel replaced by their plain versions
+    (``ref.ssd_scan_ref``, ``ref.ssd_scan_bwd_ref``): its gradients against
+    jax.grad.  Both kernels run with autograd off, as their wrappers
+    require."""
     grad_mode = []
 
     def kernel_stand_in(*args, chunk):
         grad_mode.append(torch.is_grad_enabled())
         return ref.ssd_scan_ref(*args, chunk=chunk)
 
+    def bwd_stand_in(*args, chunk):
+        grad_mode.append(torch.is_grad_enabled())
+        return ref.ssd_scan_bwd_ref(*args, chunk=chunk)
+
     monkeypatch.setattr(ssd, "ssd_scan_cuda", kernel_stand_in)
+    monkeypatch.setattr(ssd, "ssd_scan_bwd_cuda", bwd_stand_in)
     arrays = _inputs(8, 1, 96, 4, 16, 1, 32)
     gy = np.random.default_rng(9).standard_normal((1, 96, 4, 16)).astype(
         np.float32)
@@ -192,6 +198,7 @@ def test_ssdscan_backward_matches_jax(monkeypatch):
     y = ssd.SSDScan.apply(*leaves, 64)      # S = 96: ragged for chunk 64
     assert grad_mode == [False] and y.grad_fn is not None
     got = torch.autograd.grad(y, leaves, torch.from_numpy(gy))
+    assert grad_mode == [False, False]
     padded = [np.pad(a, [(0, 0), (0, 32)] + [(0, 0)] * (a.ndim - 2))
               if a.ndim > 1 else a for a in arrays]
     want = _jax_grads(padded, np.pad(gy, [(0, 0), (0, 32), (0, 0), (0, 0)]),

@@ -8,9 +8,10 @@ imports neither JAX nor the JAX package, so it runs where the card is:
 Tolerances: 2e-4 in f32, the reference's kernel tolerance
 (``tests/test_kernels.py``: the kernel adds in another order than the plain
 version); 2e-2 in bf16, where x, B, C and y round to 8 bits of mantissa.
-Gradients come from the plain version in both paths (``SSDScan``'s backward
-recomputes it), so they agree to f32 rounding of the forward's inputs:
-1e-4 of each leaf's largest value.
+Gradients through ``SSDScan`` come from the f32 backward kernel
+(``csrc/ssd_scan_bwd.cu``; its own tests are in
+``test_torch_ssd_bwd_cuda.py``), held to autograd through the plain
+version within 1e-4 of each leaf's largest value.
 
 bf16 runs the three tensor-core phases (plan variant ``"wgmma"``), f32 the
 CUDA-core kernel (``"cuda_cores"``); each case checks which one launched.
@@ -189,9 +190,11 @@ def test_cuda_gradients_match_plain_version():
     gy = torch.randn(2, 256, 8, 64, device="cuda",
                      generator=torch.Generator("cuda").manual_seed(0))
     launches = ssd.ssd_scan_cuda.launches
+    bwd = ssd.ssd_scan_bwd_cuda.launches
     got = torch.autograd.grad(ops.ssd_scan(*leaves, chunk=128), leaves, gy)
     want = torch.autograd.grad(ref.ssd_scan_ref(*plain, chunk=128), plain, gy)
     assert ssd.ssd_scan_cuda.launches == launches + 1
+    assert ssd.ssd_scan_bwd_cuda.launches == bwd + 1
     for name, a, w in zip(("x", "dt", "A", "Bm", "Cm", "D"), got, want):
         scale = float(w.abs().max())
         assert float((a - w).abs().max()) <= 1e-4 * scale, name

@@ -301,7 +301,8 @@ def test_run_training_on_the_cpu(tmp_path):
     assert out["steps_run"] == 12 and len(out["grad_norms"]) == 12
     assert np.isfinite(losses).all() and np.isfinite(out["grad_norms"]).all()
     assert np.mean(losses[-3:]) < losses[0]
-    assert out["ssd_launches"] == 0 and out["tokens_per_sec"] > 0
+    assert out["ssd_launches"] == out["ssd_bwd_launches"] == 0
+    assert out["tokens_per_sec"] > 0
     assert ckpt.latest_step(str(tmp_path)) == 12
     # resuming from the last checkpoint runs no further step
     again = run_training(cfg, steps=12, global_batch=4, seq_len=32,
