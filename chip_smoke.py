@@ -11,15 +11,15 @@ mesh layer, and fails with a non-zero exit code if any phase fails:
              ``src/repro_torch/csrc`` (one nvcc per source, started together)
              and print nvcc's register, shared-memory and spill lines; count
              the tensor-core instructions (``HGMMA``) in the flash, flash
-             backward and SSD libraries' SASS (``cuobjdump -sass``), which
-             must be more than 0 in each, and the mma.sync instructions
-             (``HMMA``) in the SSD backward library's; print each flash and
+             backward, SSD and SSD backward libraries' SASS (``cuobjdump
+             -sass``), which must be more than 0 in each; print each flash and
              flash backward kernel's registers and spills, which must be 0
              for every one of them (bf16 and f32), and each SSD backward
              kernel's; hold the geometry (flash:
              key tile, threads, shared memory; flash backward: other
              side's tile, threads, shared memory of each kernel; SSD and
-             its backward: each launch's threads and shared memory) that
+             its backward: each launch's threads and shared memory, for
+             each tile of rows) that
              the ``kernel_plan`` functions report against the
              built library's, for every instantiation and every flash head
              width (8 to 128 in steps of 8); the flash libraries' nvcc
@@ -63,8 +63,9 @@ mesh layer, and fails with a non-zero exit code if any phase fails:
              value, bf16 by the relative error of each whole gradient and
              of its worst (b, h) slice (``SSD_BWD_REL_TOL``,
              ``SSD_BWD_SLICE_TOL``); two calls bitwise equal; its plan
-             (bf16 on the tensor cores by mma.sync, f32 on the CUDA cores),
-             the six launches' device times from a profiled call, its
+             (bf16 ``"wgmma"``: TMA and wgmma, a group's heads walked in
+             runs; f32 on the CUDA cores), the six launches' device times
+             from a profiled call, each beside the whole call's bound, its
              registers and spills, its time beside the plain backward's
              (autograd through ``ref.ssd_scan_ref``, what the card ran
              before the kernel) and the explicit plain version's.  Flash
@@ -676,20 +677,14 @@ def phase_build() -> None:
             if any(w in line for w in ("registers", "spill", "smem")):
                 print(f"    {line.strip()}")
     for name, lib in (("flash_attention", built[1]), ("ssd_scan", built[2]),
-                      ("flash_attention_bwd", built[3])):
+                      ("flash_attention_bwd", built[3]),
+                      ("ssd_scan_bwd", built[4])):
         sass = subprocess.run(
             [kbuild.cuda_tool("cuobjdump"), "-sass", str(lib["path"])],
             capture_output=True, text=True, check=True, timeout=300).stdout
         hgmma = sum("HGMMA" in line for line in sass.splitlines())
         check(hgmma > 0, f"the {name} library's SASS has HGMMA instructions")
         say("build", f"{name} SASS: {hgmma} HGMMA (wgmma) instructions")
-    sass = subprocess.run(
-        [kbuild.cuda_tool("cuobjdump"), "-sass", str(built[4]["path"])],
-        capture_output=True, text=True, check=True, timeout=300).stdout
-    hmma = sum("HMMA" in line for line in sass.splitlines())
-    check(hmma > 0, "the ssd_scan_bwd library's SASS has HMMA (mma.sync) "
-          "instructions")
-    say("build", f"ssd_scan_bwd SASS: {hmma} HMMA (mma.sync) instructions")
     SSD_BWD_PTXAS[:] = ptxas_kernels(built[4]["log"])
     for kernel, regs, spills in SSD_BWD_PTXAS:
         say("build", f"ssd_scan_bwd {kernel}: {regs} registers, {spills} "
@@ -732,14 +727,15 @@ def phase_build() -> None:
                     check(built == mine, f"ssd_scan {dtype} P {p} N {n} "
                           f"{rows} rows: the library's threads and shared "
                           f"memory per phase {built} == the plan's {mine}")
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype, rows_ in ((torch.bfloat16, (64, 128)), (torch.float32, (128,))):
         for p in ssd_scan.HEAD_DIMS:
             for n in ssd_scan.HEAD_DIMS:
-                built = ssd_scan.kernel_geometry_bwd(dtype, p, n)
-                mine = ssd_scan.geometry_bwd(dtype, p, n)
-                check(built == mine, f"ssd_scan_bwd {dtype} P {p} N {n}: the "
-                      f"library's threads and shared memory per launch "
-                      f"{built} == the plan's {mine}")
+                for rows in rows_:
+                    built = ssd_scan.kernel_geometry_bwd(dtype, p, n, rows)
+                    mine = ssd_scan.geometry_bwd(dtype, p, n, rows)
+                    check(built == mine, f"ssd_scan_bwd {dtype} P {p} N {n} "
+                          f"{rows} rows: the library's threads and shared "
+                          f"memory per launch {built} == the plan's {mine}")
 
 
 # ------------------------------------------------------------- 2. kernels
@@ -1347,11 +1343,13 @@ def ssd_bwd_inputs(shape, dtype, seed: int):
 
 def ssd_bwd_bound_ms(shape, dtype, chunk) -> tuple[float, str, int, int]:
     """Least time for the backward: per (b, h) and chunk of q rows,
-    q (q + 1) / 2 (3 N + 2 P) multiply-adds for the causal triangles of
-    C B^T, dy x^T, M^T dy, dS B and dS^T C and 5 q P N for the chunk's state
-    and state gradient, B G^T, x G and dy h, over the card's peak for the
-    dtype; or x, dy, dt, B, C read once and dx, ddt, dB, dC written once
-    over the memory rate, whichever is larger (``ssd_scan.ssd_bwd_work``).
+    q (q + 1) / 2 2 P multiply-adds for the causal triangles of dy x^T and
+    M^T dy and 5 q P N for the chunk's state and state gradient, B G^T, x G
+    and dy h; per (b, g) and chunk q (q + 1) / 2 3 N for those of C B^T,
+    dS B and dS^T C (dS summed over the group's heads first); over the
+    card's peak for the dtype; or x, dy, dt, B, C read once and dx, ddt,
+    dB, dC written once over the memory rate, whichever is larger
+    (``ssd_scan.ssd_bwd_work``).
     Returns (ms, what bounds it, operations, bytes)."""
     b, s, h, p, g, n = shape
     ops_, nbytes = ssd_scan.ssd_bwd_work((b, s, h, p), g, n, chunk,
@@ -1429,7 +1427,7 @@ def phase_ssd_bwd_kernel() -> dict:
         torch.cuda.synchronize()
         check(ssd_scan.ssd_scan_bwd_cuda.last_plan == plan,
               f"ssd_scan_bwd {name} launched its plan")
-        check(plan["variant"] == ("mma_sync" if dtype == torch.bfloat16
+        check(plan["variant"] == ("wgmma" if dtype == torch.bfloat16
                                   else "cuda_cores"),
               f"ssd_scan_bwd {name}: {plan['variant']} for {dtype}")
         check(all(torch.equal(x, y) for x, y in zip(got, again)),
@@ -1463,9 +1461,20 @@ def phase_ssd_bwd_kernel() -> dict:
         launches_ms = ssd_phase_ms(device_time_by_name(prof), 3)
         bound_ms, bound_by, ops_, nbytes = ssd_bwd_bound_ms(shape, dtype,
                                                             chunk)
-        kind = "bf16" if dtype == torch.bfloat16 else "f32"
-        regs = [(k, r, sp) for k, r, sp in SSD_BWD_PTXAS
-                if k.endswith((f"<{kind}, {p}, {n}>", "<>", f"<{kind}>"))]
+        for launch, launch_ms in launches_ms.items():
+            say("kernels", f"ssd_scan_bwd {name} launch {launch}: "
+                f"{launch_ms!r} ms a call (profiled); the whole backward "
+                f"{ms!r} ms, bound {bound_ms!r} ms, plain {plain_ms!r} ms, "
+                f"explicit plain {explicit_ms!r} ms")
+        if dtype == torch.bfloat16:
+            pp, np_ = (64 if w <= 64 else 128 for w in (p, n))
+            rows = plan["rows"]
+            wgs = plan["phases"][2]["threads"] // 128
+            ends = (f"<{pp}, {np_}, {rows}>", f"<{pp}, {np_}, {rows}, {wgs}>",
+                    "<bf16>", "<>")
+        else:
+            ends = (f"<{p}, {n}>", "<>", "<f32>")
+        regs = [(k, r, sp) for k, r, sp in SSD_BWD_PTXAS if k.endswith(ends)]
         steps = ", ".join(f"{ph['name']} grid {ph['grid']} x "
                           f"{ph['threads']} threads, {ph['smem']} B"
                           for ph in plan["phases"])

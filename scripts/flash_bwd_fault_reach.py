@@ -94,24 +94,12 @@ def readings(name: str) -> bool:
 
 def main() -> None:
     right = readings("sound")
-    src = fa.SRC_BWD.read_text()
-    tmp = Path(tempfile.mkdtemp(prefix="flash_bwd_faults_"))
-    kbuild.BUILD_DIR = tmp / "lib"
-    for header in kbuild.CSRC.glob("*.cuh"):      # what the copies include
-        (tmp / header.name).write_text(header.read_text())
-    load = fa._bwd_library.__wrapped__  # the uncached loader, to rebind SRC
-    paths = {}
-    for name, (old, new) in FAULTS.items():
-        if src.count(old) != 1:
-            sys.exit(f"flash_bwd_fault_reach: the source no longer has one "
-                     f"{old.strip()!r} to break")
-        paths[name] = tmp / f"flash_attention_bwd_{name}.cu"
-        paths[name].write_text(src.replace(old, new))
-    kbuild.build(*[(path, fa.NVCC_FLAGS) for path in paths.values()])
+    paths = kbuild.edited_copies(
+        fa.SRC_BWD, {k: [fault] for k, fault in FAULTS.items()},
+        Path(tempfile.mkdtemp(prefix="flash_bwd_faults_")))
+    kbuild.build(*((path, fa.NVCC_FLAGS) for path in paths.values()))
     for name, path in paths.items():
-        fa.SRC_BWD = path
-        lib = load()
-        fa._bwd_library = lambda lib=lib: lib
+        kbuild.use_copy(fa, path, "SRC_BWD", "_bwd_library")
         right &= readings(name)
     print(cs.CARD)
     if not right:

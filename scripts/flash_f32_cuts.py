@@ -25,10 +25,8 @@ name and power limit.  Needs a CUDA device; imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import functools
 import json
-import shutil
 import sys
 import tempfile
 from pathlib import Path
@@ -56,15 +54,6 @@ CUT_SHAPES = ("padded width 80 D 80 float32", "offset rows", "f32 ragged")
 SPLIT_SHAPES = ("f32 ragged", "pallas MQA D 32 float32")
 
 
-def load(path: Path) -> ctypes.CDLL:
-    """A built copy of the forward library, bound as the wrapper binds it."""
-    lib = ctypes.CDLL(str(path))
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.flash_attention_fwd.argtypes = [p] * 6 + [i] * 9 + [f, f, i, i, p]
-    lib.flash_attention_fwd.restype = i
-    return lib
-
-
 def time_shapes(names, reps: int = 20) -> dict[str, float]:
     """Device ms per forward call at chip_smoke.py's shapes ``names``."""
     out = {}
@@ -80,31 +69,17 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--json", help="also write the readings here")
     args = ap.parse_args()
-    src = fa.SRC.read_text()
     with tempfile.TemporaryDirectory() as tmp:
-        pairs = []
-        for name, cuts in CUTS.items():
-            d = Path(tmp) / name.replace(" ", "_").replace(",", "")
-            d.mkdir()
-            for header in kbuild.CSRC.glob("*.cuh"):  # what the copies include
-                shutil.copy(header, d)
-            text = src
-            for old, new in cuts:
-                if text.count(old) != 1:
-                    sys.exit(f"{name}: the source no longer holds {old!r}")
-                text = text.replace(old, new)
-            (d / fa.SRC.name).write_text(text)
-            pairs.append((d / fa.SRC.name, fa.NVCC_FLAGS))
-        libs = {name: load(b["path"])
-                for name, b in zip(CUTS, kbuild.build(*pairs))}
+        paths = kbuild.edited_copies(fa.SRC, CUTS, Path(tmp))
+        kbuild.build(*((path, fa.NVCC_FLAGS) for path in paths.values()))
         readings: dict = {}
         for _ in range(2):                       # two rounds, in turns
-            for name, lib in libs.items():
-                fa._library = lambda lib=lib: lib
+            for name, path in paths.items():
+                kbuild.use_copy(fa, path)
                 for shape, ms in time_shapes(CUT_SHAPES).items():
                     readings.setdefault(name, {}).setdefault(
                         shape, []).append(ms)
-        fa._library = lambda: libs["sound"]
+        kbuild.use_copy(fa, paths["sound"])
         for min_tiles in (fa.SPLIT_MIN_TILES, 4):
             fa.SPLIT_MIN_TILES = min_tiles
             for shape, ms in time_shapes(SPLIT_SHAPES).items():

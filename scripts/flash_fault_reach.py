@@ -88,21 +88,12 @@ def readings(name: str) -> bool:
 
 def main() -> None:
     right = readings("sound")
-    src = fa.SRC.read_text()
-    tmp = Path(tempfile.mkdtemp(prefix="flash_faults_"))
-    kbuild.BUILD_DIR = tmp / "lib"
-    for header in kbuild.CSRC.glob("*.cuh"):      # what the copies include
-        (tmp / header.name).write_text(header.read_text())
-    load = fa._library.__wrapped__  # the uncached loader, to rebind SRC
-    for name, (old, new) in FAULTS.items():
-        if src.count(old) != 1:
-            sys.exit(f"flash_fault_reach: the source no longer has one "
-                     f"{old.strip()!r} to break")
-        path = tmp / f"flash_attention_{name}.cu"
-        path.write_text(src.replace(old, new))
-        fa.SRC = path
-        lib = load()
-        fa._library = lambda lib=lib: lib
+    paths = kbuild.edited_copies(
+        fa.SRC, {k: [fault] for k, fault in FAULTS.items()},
+        Path(tempfile.mkdtemp(prefix="flash_faults_")))
+    kbuild.build(*((path, fa.NVCC_FLAGS) for path in paths.values()))
+    for name, path in paths.items():
+        kbuild.use_copy(fa, path)
         right &= readings(name)
     print(cs.CARD)
     if not right:

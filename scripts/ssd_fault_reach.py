@@ -18,14 +18,17 @@ chunk-parallel scan or its gradient can have.  The forward's four:
 * ``off_diagonal``: ``W`` is masked to ``j < i``, dropping each row's own
   input.
 
-The backward's three:
+The bf16 backward's four:
 
-* ``grad_missed_decay``: the state gradient ``G`` is carried back from
-  chunks past the ninth without its decay ``exp(seg)``;
+* ``grad_missed_decay``: the state chain carries the gradient ``G`` back
+  from chunks past the ninth without its decay ``exp(seg)``;
 * ``no_reverse_cumsum``: ``ddt`` and ``dA`` take ``dcum`` itself for its
   reverse cumsum ``da`` within the chunk;
-* ``skipped_head``: ``dBm`` and ``dCm`` sum all but the last head of their
-  group.
+* ``skipped_head``: the dB / dC launch stacks the state terms of all but
+  the last head of each run;
+* ``run_sum_drops_head``: the dx / dS launch's sum of dS over a run of
+  heads (the one product with C and B a run) leaves out the run's first
+  head.
 
 Runs the sound kernels and each copy at ``chip_smoke.py``'s bf16 SSD
 shapes and prints, for each: the forward's largest elementwise error and
@@ -63,14 +66,16 @@ FAULTS = {
     "dropped_keys": (KEYS, "if (kk >= 4 * (wg + 1) - wg) break;"),
     "off_diagonal": (MASK, "acc_s[e] = j < i && i < Q"),
 }
-KEEP = "const float keep = expf(seg[c * Q]);"
+KEEP = "const float keep_c = dec[u];"
 DA = "const float da = in ? sDa[i] : 0.f;"
-HEADS = "for (int k = 0; k < hpg; ++k) {"
+STACK = "      mma_ss<Np, 0, 1>(acc, gmma_desc(xs + "
+DS_SUM = "dsum[ih][e] += r_[e] * L * dtj;"
 BWD_FAULTS = {
-    "grad_missed_decay": (KEEP, "const float keep = c > 8 ? 1.f : "
-                                "expf(seg[c * Q]);"),
+    "grad_missed_decay": (KEEP, "const float keep_c = c > 8 ? 1.f : dec[u];"),
     "no_reverse_cumsum": (DA, "const float da = in ? sDc[i] : 0.f;"),
-    "skipped_head": (HEADS, "for (int k = 0; k < hpg - (hpg > 1); ++k) {"),
+    "skipped_head": (STACK, "      if (k + 1 < nh) mma_ss<Np, 0, 1>(acc, "
+                            "gmma_desc(xs + "),
+    "run_sum_drops_head": (DS_SUM, "if (k > 0) " + DS_SUM),
 }
 
 
@@ -129,39 +134,20 @@ def bwd_readings(name: str) -> bool:
     return right
 
 
-def broken_copies(tmp: Path, src: Path, faults: dict) -> dict[str, Path]:
-    text = src.read_text()
-    paths = {}
-    for name, (old, new) in faults.items():
-        if text.count(old) != 1:
-            sys.exit(f"ssd_fault_reach: {src.name} no longer has one "
-                     f"{old!r} to break")
-        paths[name] = tmp / f"{src.stem}_{name}.cu"
-        paths[name].write_text(text.replace(old, new))
-    return paths
-
-
 def main() -> None:
     right = readings("sound") & bwd_readings("sound")
     tmp = Path(tempfile.mkdtemp(prefix="ssd_faults_"))
-    kbuild.BUILD_DIR = tmp / "lib"
-    for header in kbuild.CSRC.glob("*.cuh"):      # what the copies include
-        (tmp / header.name).write_text(header.read_text())
-    fwd = broken_copies(tmp, ssd.SRC, FAULTS)
-    bwd = broken_copies(tmp, ssd.SRC_BWD, BWD_FAULTS)
+    fwd = kbuild.edited_copies(
+        ssd.SRC, {k: [fault] for k, fault in FAULTS.items()}, tmp)
+    bwd = kbuild.edited_copies(
+        ssd.SRC_BWD, {k: [fault] for k, fault in BWD_FAULTS.items()}, tmp)
     kbuild.build(*((path, ssd.NVCC_FLAGS)
                    for path in [*fwd.values(), *bwd.values()]))
-    load = ssd._library.__wrapped__  # the uncached loaders, to rebind SRC
-    load_bwd = ssd._bwd_library.__wrapped__
     for name, path in fwd.items():
-        ssd.SRC = path
-        lib = load()
-        ssd._library = lambda lib=lib: lib
+        kbuild.use_copy(ssd, path)
         right &= readings(name)
     for name, path in bwd.items():
-        ssd.SRC_BWD = path
-        lib = load_bwd()
-        ssd._bwd_library = lambda lib=lib: lib
+        kbuild.use_copy(ssd, path, "SRC_BWD", "_bwd_library")
         right &= bwd_readings(name)
     print(cs.CARD)
     if not right:

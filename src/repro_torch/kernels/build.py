@@ -107,6 +107,52 @@ def load(src: Path, flags: tuple[str, ...]) -> ctypes.CDLL:
     return ctypes.CDLL(str(build((src, flags))[0]["path"]))
 
 
+def edited_copies(src: Path, edits: dict[str, list[tuple[str, str]]],
+                  into: Path) -> dict[str, Path]:
+    """Copies of the source ``src`` in the directory ``into``, one for each
+    name of ``edits`` with each of its ``(old, new)`` replacements made,
+    beside copies of the ``csrc/`` headers they include; from here on
+    ``build`` writes its libraries to ``into / "lib"``.  For the scripts
+    that time a kernel with a piece cut, or check that a broken kernel
+    fails its checks.  Raises ValueError where an ``old`` is not in the
+    source exactly once."""
+    global BUILD_DIR
+    BUILD_DIR = into / "lib"
+    for header in CSRC.glob("*.cuh"):
+        shutil.copy(header, into)
+    text = src.read_text()
+    paths = {}
+    for name, pairs in edits.items():
+        out = text
+        for old, new in pairs:
+            if out.count(old) != 1:
+                raise ValueError(f"{src.name} no longer has one {old!r} to "
+                                 f"edit for {name!r}")
+            out = out.replace(old, new)
+        slug = re.sub(r"\W+", "_", name).strip("_")
+        paths[name] = into / f"{src.stem}_{slug}.cu"
+        paths[name].write_text(out)
+    return paths
+
+
+def use_copy(module, path: Path, src: str = "SRC",
+             loader: str = "_library") -> ctypes.CDLL:
+    """Point the kernel module's source ``module.<src>`` at ``path`` and its
+    cached loader ``module.<loader>`` at the library built from it, bound
+    by the module's own loader; returns that library."""
+    current = getattr(module, loader)
+    load = getattr(current, "__wrapped__", current)
+    setattr(module, src, path)
+    lib = load()
+
+    def cached() -> ctypes.CDLL:
+        return lib
+
+    cached.__wrapped__ = load
+    setattr(module, loader, cached)
+    return lib
+
+
 def refuse_autograd(name: str, **tensors: torch.Tensor) -> None:
     """Raise where autograd would record a kernel's output: the ctypes call
     writes into a fresh tensor that has no ``grad_fn``, so the gradient of

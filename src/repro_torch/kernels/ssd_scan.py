@@ -24,10 +24,13 @@ data.  Its FLOP formula (``ssd_work``, the count chip_smoke.py's bound
 uses) lets a counting mode read its work.
 ``SSDScan`` is the differentiable form: its forward launches the kernel, its
 backward the backward kernel (``csrc/ssd_scan_bwd.cu``, ``ssd_scan_bwd_cuda``,
-op ``repro_torch::ssd_scan_bwd``): six chunk-parallel launches with f32
-scratch, ``mma.sync`` on the tensor cores for bf16 and f32 FMAs on the CUDA
-cores for f32 (``kernel_plan_bwd``), no atomics, so the same inputs give
-bitwise the same gradients.  Its plain version is
+op ``repro_torch::ssd_scan_bwd``): six launches with scratch the wrapper
+allocates; bf16 (``"wgmma"``) loads its tiles by TMA, runs every product
+on ``wgmma`` and walks a run of a group's heads a block, so dS is summed
+over the heads before its products with C and B and no per-head partial
+reaches device memory; f32 (``"cuda_cores"``) runs f32 FMAs on the CUDA
+cores (``kernel_plan_bwd``).  No atomics, so the same inputs give bitwise
+the same gradients.  Its plain version is
 ``ref.ssd_scan_bwd_ref``; nothing on the card falls back to it.  The JAX
 package has no backward kernel to port: it trains through ``jax.grad`` of
 ``ref.ssd_chunked_ref``.
@@ -43,6 +46,7 @@ from torch import Tensor
 from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build as kbuild
+from repro_torch.kernels.flash_attention import N_SM
 
 SRC = kbuild.CSRC / "ssd_scan.cu"
 SRC_BWD = kbuild.CSRC / "ssd_scan_bwd.cu"
@@ -51,16 +55,23 @@ HEAD_DIMS = (16, 32, 64, 128)   # P and N the kernel takes
 MAX_CHUNK = 128                 # chunk: a multiple of 32 up to this
 MAX_GRID_YZ = 65535             # heads (grid y) and batch (grid z)
 MAX_SMEM = 232_448              # dynamic shared memory a block may have
-PASS_THREADS = 256              # state pass: threads a block, 4 elements each
+PASS_THREADS = 256              # forward state pass (4 elements a thread),
+                                # backward reductions: threads a block
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the C entry point's codes besides cudaError_t
 _NO_ENCODER, _ENCODE_FAILED = 999, 1000
 PHASES = ("ssd_fwd_chunk_state", "ssd_fwd_state_pass", "ssd_fwd_chunk_scan")
-BWD_PHASES = ("ssd_bwd_chunk_states", "ssd_bwd_state_pass", "ssd_bwd_dx_db",
-              "ssd_bwd_dc", "ssd_bwd_dcum", "ssd_bwd_reduce")
-PANEL = 32              # backward: rows of a panel
-BWD_THREADS = 128       # backward: threads of a chunk-parallel block
-BWD_RED = 512           # backward: floats of a block's reduction scratch
+BWD_PHASES = {                  # the backward's launches, by plan variant
+    "wgmma": ("ssd_bwd_states_wgmma", "ssd_bwd_chain", "ssd_bwd_dx_ds_wgmma",
+              "ssd_bwd_db_dc_wgmma", "ssd_bwd_dcum", "ssd_bwd_reduce_runs"),
+    "cuda_cores": ("ssd_bwd_chunk_states", "ssd_bwd_chain",
+                   "ssd_bwd_dx_db", "ssd_bwd_dc", "ssd_bwd_dcum",
+                   "ssd_bwd_reduce"),
+}
+PANEL = 32              # backward, f32: rows of a panel
+BWD_THREADS = 128       # backward, f32: threads of a chunk-parallel block
+BWD_RED = 512           # backward, f32: floats of a block's reduction scratch
+CHAIN_THREADS = 256     # state chain: threads a block, 4 elements each
 
 
 def ssd_work(x_shape, g: int, n: int, chunk: int,
@@ -80,18 +91,20 @@ def ssd_work(x_shape, g: int, n: int, chunk: int,
 
 def ssd_bwd_work(x_shape, g: int, n: int, chunk: int,
                  dtype_bytes: int) -> tuple[int, int]:
-    """(operations, bytes) of one backward of the scan: per (b, h) and
-    chunk of q rows, q (q + 1) / 2 (3 N + 2 P) multiply-adds for the causal
-    triangles of S = C B^T, R = dy x^T, M^T dy, dS B and dS^T C, and 5 q P N
-    for the chunk's state and state gradient, B G^T, x G and dy h; x, dy,
-    dt, B, C read once, dx, ddt, dB, dC written once."""
+    """(operations, bytes) of one backward of the scan. Per (b, h) and
+    chunk of q rows: q (q + 1) / 2 2 P multiply-adds for the causal
+    triangles of R = dy x^T and M^T dy, and 5 q P N for the chunk's state
+    and state gradient, B G^T, x G and dy h. Per (b, g) and chunk, since
+    B and C belong to the group: q (q + 1) / 2 3 N for the triangles of
+    S = C B^T, dS B and dS^T C, with dS summed over the group's heads
+    first. x, dy, dt, B, C read once, dx, ddt, dB, dC written once."""
     b, s, h, p = x_shape
     rows = [min(chunk, s - t) for t in range(0, s, chunk)]
-    macs = sum(q * (q + 1) // 2 * (3 * n + 2 * p) + 5 * q * p * n
-               for q in rows)
+    tri = sum(q * (q + 1) // 2 for q in rows)
+    macs = h * (tri * 2 * p + 5 * s * p * n) + g * tri * 3 * n
     nbytes = (3 * b * s * h * p + 4 * b * s * g * n) * dtype_bytes \
         + 2 * b * s * h * 4 + 4 * h * 4
-    return 2 * b * h * macs, nbytes
+    return 2 * b * macs, nbytes
 
 
 def _padded(w: int) -> int:
@@ -216,27 +229,72 @@ def kernel_geometry(dtype: torch.dtype, p: int, n: int,
     return out
 
 
-def geometry_bwd(dtype: torch.dtype, p: int,
-                 n: int) -> list[tuple[int, int]]:
+def _dxds_smem(pp: int, np_: int, rows: int, wgs: int) -> int:
+    """Shared memory of the bf16 dx / dS launch with ``wgs`` warpgroups
+    (``dxds_smem``): 1 KB of alignment, B's key rows and C, two stages of
+    x (key rows), dy and G, three mbarriers, then dt, cum and w, each warp's
+    column sums, the block sum's 8 floats."""
+    kr = 64 * wgs
+    tiles = (np_ * kr + np_ * rows + 2 * (pp * kr + pp * rows + np_ * pp)) * 2
+    return 1024 + tiles + 24 + (3 * rows + 4 * wgs * rows + 8) * 4
+
+
+def dxds_warpgroups(p: int, n: int, rows: int) -> int:
+    """Warpgroups of a bf16 dx / dS block: one per 64 key rows of the tile,
+    or one (two blocks over the key rows) where that would not fit."""
+    pp, np_ = _padded(p), _padded(n)
+    return rows // 64 if _dxds_smem(pp, np_, rows, rows // 64) <= MAX_SMEM \
+        else 1
+
+
+def geometry_bwd(dtype: torch.dtype, p: int, n: int,
+                 rows: int = 128) -> list[tuple[int, int]]:
     """(threads, dynamic shared-memory bytes) of each launch of the
-    backward for (dtype, p, n), as ``csrc/ssd_scan_bwd.cu`` lays it out
-    (``states_smem``, ``dxdb_smem``, ``dc_smem``): tiles of T whose rows are
-    16 bytes longer than their width, then floats (dt, cum and two vectors
-    of a chunk's rows in the chunk-state phase; dt, cum, two vectors of a
-    panel's rows and the reduction scratch in the dx/dB and dC phases).
-    ``chip_smoke.py`` holds them against ``kernel_geometry_bwd``."""
-    size = dtype.itemsize
+    backward for (dtype, p, n), as ``csrc/ssd_scan_bwd.cu`` lays it out.
 
-    def ld(w: int) -> int:
-        return w + 16 // size
-
-    tail = (2 * MAX_CHUNK + 2 * PANEL + BWD_RED) * 4
-    states = PANEL * (ld(p) + ld(n)) * size + 4 * MAX_CHUNK * 4
-    pairs = 2 * PANEL * (ld(p) + ld(n)) + p * ld(n)
-    dxdb = (pairs + 2 * PANEL * ld(32)) * size + tail
-    dc = (pairs + PANEL * ld(32)) * size + tail
-    return [(BWD_THREADS, states), (PASS_THREADS, 0), (BWD_THREADS, dxdb),
+    bf16 (tile ``rows``, the chunk rounded up to 64; P and N padded to 64
+    or 128 columns of bf16, 128 bytes a row of a 64-column box): chunk
+    states, 256 threads, 1 KB of alignment, B and C, two stages of x and
+    dy, three mbarriers, 4 floats a row (``states_wg_smem``); the chain's
+    256; dx / dS (``dxds_smem``); dB / dC, a warpgroup per 64 rows, C and
+    the room of two stages of x or dy and G or h (or of dS and B, if
+    larger), four mbarriers, a float a row (``dbdc_smem``); dcum 128;
+    the reduction 256.  f32 (``states_smem``, ``dxdb_smem``, ``dc_smem``;
+    ``rows`` unused): the chain's 256 threads as bf16's; tiles of f32 whose rows are 16 bytes longer than
+    their width, then floats (dt, cum and two vectors of a chunk's rows in
+    the chunk-state phase; dt, cum, two vectors of a panel's rows and the
+    reduction scratch in the dx/dB and dC phases).  ``chip_smoke.py``
+    holds them against ``kernel_geometry_bwd``."""
+    if dtype == torch.bfloat16:
+        pp, np_ = _padded(p), _padded(n)
+        wgs = dxds_warpgroups(p, n, rows)
+        states = 1024 + (2 * np_ + 4 * pp) * rows * 2 + 24 + 4 * rows * 4
+        stages = 2 * (pp * rows + np_ * pp) * 2
+        room = max(stages, (rows * rows + np_ * rows) * 2)
+        dbdc = 1024 + np_ * rows * 2 + room + 32 + rows * 4
+        return [(256, states), (CHAIN_THREADS, 0),
+                (128 * wgs, _dxds_smem(pp, np_, rows, wgs)), (2 * rows, dbdc),
+                (BWD_THREADS, 0), (PASS_THREADS, 0)]
+    lp, ln, l32 = p + 4, n + 4, 32 + 4      # f32 rows, 16 bytes longer
+    tail = 2 * MAX_CHUNK + 2 * PANEL + BWD_RED
+    states = (PANEL * (lp + ln) + 4 * MAX_CHUNK) * 4
+    pairs = 2 * PANEL * (lp + ln) + p * ln
+    dxdb = (pairs + 2 * PANEL * l32 + tail) * 4
+    dc = (pairs + PANEL * l32 + tail) * 4
+    return [(BWD_THREADS, states), (CHAIN_THREADS, 0), (BWD_THREADS, dxdb),
             (BWD_THREADS, dc), (BWD_THREADS, 0), (PASS_THREADS, 0)]
+
+
+def head_runs(b: int, s: int, h: int, g: int, chunk: int) -> tuple[int, int]:
+    """(runs, heads a run) of the bf16 backward: a block walks a run of a
+    group's heads; the heads of a group are split into as many runs as
+    keep b x chunks x groups x runs blocks within the card's N_SM (at least
+    one run, at most one a head), the last run the shorter."""
+    hpg = h // g
+    per = b * -(-s // chunk) * g
+    want = max(1, min(hpg, N_SM // per))
+    run_len = -(-hpg // want)
+    return -(-hpg // run_len), run_len
 
 
 def kernel_plan_bwd(b: int, s: int, h: int, p: int, g: int, n: int,
@@ -244,59 +302,94 @@ def kernel_plan_bwd(b: int, s: int, h: int, p: int, g: int, n: int,
     """Launch plan of ``ssd_scan_bwd_cuda`` for x ``[b, s, h, p]`` and
     Bm/Cm ``[b, s, g, n]`` in chunks of ``chunk``: the forward's domain.
 
-    Six launches: chunk states and dcum one block per (chunk, head, batch),
-    dx/dB and dC one block per (32-row panel, chunk, head, batch), the
-    state pass as the forward's (one thread per 4 elements of a head's
-    ``[p, n]`` state), the reduction one thread per 4 elements of
-    ``[b, s, g, n]`` (grid y 0) and per head (grid y 1).  bf16 plans
-    ``"mma_sync"`` (every product ``mma.sync`` m16n8k16, listed in
-    ``mma``), f32 ``"cuda_cores"`` (the same fragments in f32 FMAs).
-    ``scratch`` holds the f32 tensors the wrapper allocates, in the C entry
-    point's order, and ``scratch_bytes`` their sum.  Raises ValueError on
-    what the kernel does not take.
+    bf16 plans ``"wgmma"``: six launches (``BWD_PHASES["wgmma"]``).  The
+    chunk states, dx / dS and dB / dC walk a run of a group's heads
+    (``runs`` a group of ``run_len`` heads, ``head_runs``): grids
+    (chunks, groups x runs, batch), dx / dS with ``key_blocks`` blocks over
+    a tile's key rows and dB / dC with two blocks (dB, dC) a chunk; the
+    chain one block per (b h, 1,024 state elements); dcum one per (chunk,
+    head, batch); the reduction a warp a head (grid y 0) and, with more
+    than one run, over ``[b, s, g, n]`` (grid y 1).  ``rows`` is the tile, the
+    chunk rounded up to 64; ``mma`` lists each launch's wgmma shapes (P and
+    N padded to 64 or 128).  f32 plans ``"cuda_cores"``: six launches
+    (``BWD_PHASES["cuda_cores"]``), 32-row panels on the CUDA cores and the
+    chain of bf16, handing h and G on in f32.  ``scratch`` holds the tensors
+    the wrapper allocates, in the C entry point's order, and ``scratch_bytes`` their sum.  Raises
+    ValueError on what the kernel does not take.
     """
     name = "ssd_scan_bwd_cuda"
     _refuse(name, b, h, p, n, chunk)
-    if dtype == torch.bfloat16:
-        variant, mma = "mma_sync", [(16, 8, 16)]
-    elif dtype == torch.float32:
-        variant, mma = "cuda_cores", []
-    else:
+    if dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"{name}: x is {dtype}, expected torch.float32 or "
                          "torch.bfloat16")
-    nc, nq = -(-s // chunk), chunk // PANEL
-    tiles = -(-p * n // (4 * PASS_THREADS))
-    reduce_x = max(-(-b * s * g * n // (4 * PASS_THREADS)),
-                   -(-h // PASS_THREADS))
-    grids = [(nc, h, b), (b * h, tiles, 1), (nc * nq, h, b),
-             (nc * nq, h, b), (nc, h, b), (reduce_x, 2, 1)]
-    products = [mma, [], mma, mma, [], []]
+    f32, nc = torch.float32, -(-s // chunk)
+    rows_ = (b, h, nc * chunk)
+    if dtype == torch.bfloat16:
+        variant, rows = "wgmma", 64 if chunk <= 64 else 128
+        pp, np_ = _padded(p), _padded(n)
+        runs, run_len = head_runs(b, s, h, g, chunk)
+        jbs = rows // (64 * dxds_warpgroups(p, n, rows))
+        tiles = -(-p * n // (4 * CHAIN_THREADS))
+        reduce_x = max(-(-h // (PASS_THREADS // 32)),
+                       -(-b * s * g * n // (4 * PASS_THREADS))
+                       if runs > 1 else 0)
+        grids = [(nc, g * runs, b), (b * h, tiles, 1), (nc * jbs, g * runs, b),
+                 (2 * nc, g * runs, b), (nc, h, b),
+                 (reduce_x, 2 if runs > 1 else 1, 1)]
+        products = [[(64, np_, 16)], [], [(64, pp, 16), (64, 64, 16)],
+                    [(64, np_, 16)], [], []]
+        scratch = {
+            "cum": (rows_, f32),
+            "state": ((b, h, nc, p, n), f32),
+            "state_grad": ((b, h, nc, p, n), f32),
+            "dots": ((b, h, nc, tiles), f32),
+            "colsum": (rows_, f32),
+            "dw": (rows_, f32),
+            "dcum_rows": ((jbs,) + rows_, f32),
+            "state_rows": (rows_, f32),
+            "dS": ((runs, b, nc, g, rows, rows), torch.bfloat16),
+            "dA_part": ((b, h, nc), f32),
+            "dD_part": ((b, h, nc, jbs), f32),
+        }
+        if runs > 1:
+            scratch["dBC_runs"] = ((2, runs, b, s, g, n), f32)
+        extra = {"rows": rows, "runs": runs, "run_len": run_len,
+                 "key_blocks": jbs}
+    else:
+        variant, rows, extra = "cuda_cores", 128, {}
+        nq = chunk // PANEL
+        tiles = -(-p * n // (4 * CHAIN_THREADS))
+        reduce_x = max(-(-b * s * g * n // (4 * PASS_THREADS)),
+                       -(-h // PASS_THREADS))
+        grids = [(nc, h, b), (b * h, tiles, 1), (nc * nq, h, b),
+                 (nc * nq, h, b), (nc, h, b), (reduce_x, 2, 1)]
+        products = [[]] * 6
+        scratch = {
+            "cum": (rows_, f32),
+            "state": ((b, h, nc, p, n), f32),
+            "state_grad": ((b, h, nc, p, n), f32),
+            "dB_heads": ((b, s, h, n), f32),
+            "dC_heads": ((b, s, h, n), f32),
+            "dcum_rows": (rows_, f32),
+            "colsum": (rows_, f32),
+            "dw": (rows_, f32),
+            "dots": ((b, h, nc, tiles), f32),
+            "dA_part": ((b, h, nc), f32),
+            "dD_part": ((b, h, nc * nq), f32),
+        }
     phases = [{"name": ph, "grid": grid, "threads": threads, "smem": smem,
                "mma": shapes}
               for ph, grid, (threads, smem), shapes
-              in zip(BWD_PHASES, grids, geometry_bwd(dtype, p, n), products)]
+              in zip(BWD_PHASES[variant], grids,
+                     geometry_bwd(dtype, p, n, rows), products)]
     for ph in phases:
         if ph["smem"] > MAX_SMEM:
             raise ValueError(f"{name}: {ph['smem']} bytes of shared memory "
                              f"exceed a block's {MAX_SMEM}")
-    f32 = torch.float32
-    rows = (b, h, nc * chunk)
-    scratch = {
-        "cum": (rows, f32),
-        "state": ((b, h, nc, p, n), f32),
-        "state_grad": ((b, h, nc, p, n), f32),
-        "dB_heads": ((b, s, h, n), f32),
-        "dC_heads": ((b, s, h, n), f32),
-        "dcum_rows": (rows, f32),
-        "colsum": (rows, f32),
-        "dw": (rows, f32),
-        "dots": ((b, h, nc, tiles * PASS_THREADS // 32), f32),
-        "dA_part": ((b, h, nc), f32),
-        "dD_part": ((b, h, nc * nq), f32),
-    }
-    nbytes = sum(math.prod(shape) * 4 for shape, _ in scratch.values())
-    return {"variant": variant, "phases": phases, "scratch": scratch,
-            "scratch_bytes": nbytes}
+    nbytes = sum(math.prod(shape) * dt.itemsize
+                 for shape, dt in scratch.values())
+    return {"variant": variant, **extra, "phases": phases,
+            "scratch": scratch, "scratch_bytes": nbytes}
 
 
 def _check(x, dt, A, Bm, Cm, D) -> None:
@@ -362,6 +455,22 @@ def _check_placed(plan, x, dt, A, Bm, Cm, D) -> None:
                     f"{axis} is not a multiple of 16 bytes, which TMA needs")
 
 
+def _launch_failed(fn: str, err: int, x: Tensor, Bm: Tensor, chunk: int,
+                   plan: dict) -> None:
+    """Raise for a C entry point's non-zero return: a cudaError_t, or the
+    tensor-map codes of ``csrc/hopper.cuh``."""
+    if err == _NO_ENCODER:
+        what = "the driver has no cuTensorMapEncodeTiled"
+    elif err >= _ENCODE_FAILED:
+        what = (f"cuTensorMapEncodeTiled failed with CUresult "
+                f"{err - _ENCODE_FAILED}")
+    else:
+        what = f"CUDA error {err}"
+    raise RuntimeError(f"{fn}: launch failed: {what} (x {tuple(x.shape)}, "
+                       f"Bm {tuple(Bm.shape)}, {x.dtype}, chunk {chunk}, "
+                       f"plan {plan})")
+
+
 def ssd_scan_cuda(x: Tensor, dt: Tensor, A: Tensor, Bm: Tensor, Cm: Tensor,
                   D: Tensor, *, chunk: int = 128, return_state: bool = False):
     """The SSD scan on the card: x ``[B, S, H, P]``, dt ``[B, S, H]``, A and
@@ -416,16 +525,7 @@ def _ssd_fwd_op(x: Tensor, dt: Tensor, A: Tensor, Bm: Tensor, Cm: Tensor,
             *x.stride()[:3], *dt.stride(), *Bm.stride()[:3],
             *Cm.stride()[:3], torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        if err == _NO_ENCODER:
-            what = "the driver has no cuTensorMapEncodeTiled"
-        elif err >= _ENCODE_FAILED:
-            what = (f"cuTensorMapEncodeTiled failed with CUresult "
-                    f"{err - _ENCODE_FAILED}")
-        else:
-            what = f"CUDA error {err}"
-        raise RuntimeError(f"ssd_scan_cuda: launch failed: {what} (x "
-                           f"{tuple(x.shape)}, Bm {tuple(Bm.shape)}, "
-                           f"{x.dtype}, chunk {chunk}, plan {plan})")
+        _launch_failed("ssd_scan_cuda", err, x, Bm, chunk, plan)
     ssd_scan_cuda.launches += 1
     ssd_scan_cuda.last_plan = plan
     return y, state
@@ -460,24 +560,26 @@ ssd_scan_cuda.last_plan = None
 def _bwd_library() -> ctypes.CDLL:
     lib = kbuild.load(SRC_BWD, NVCC_FLAGS)
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.ssd_scan_bwd.argtypes = [p] * 24 + [i] * 8 + [p]
+    lib.ssd_scan_bwd.argtypes = [p] * 13 + [ctypes.POINTER(p)] + [i] * 10 \
+        + [p]
     lib.ssd_scan_bwd.restype = i
     ip = ctypes.POINTER(i)
-    lib.ssd_scan_bwd_geometry.argtypes = [i, i, i, i, ip, ip]
+    lib.ssd_scan_bwd_geometry.argtypes = [i, i, i, i, i, ip, ip]
     lib.ssd_scan_bwd_geometry.restype = i
     return lib
 
 
-def kernel_geometry_bwd(dtype: torch.dtype, p: int,
-                        n: int) -> list[tuple[int, int]] | None:
+def kernel_geometry_bwd(dtype: torch.dtype, p: int, n: int,
+                        rows: int = 128) -> list[tuple[int, int]] | None:
     """(threads, dynamic shared-memory bytes) of each launch of the built
-    backward library's instantiation for (dtype, p, n), or None if it has
-    none (builds the library)."""
+    backward library's instantiation for (dtype, p, n, tile rows), or None
+    if it has none (builds the library)."""
     out = []
-    for phase in range(len(BWD_PHASES)):
+    variant = "wgmma" if dtype == torch.bfloat16 else "cuda_cores"
+    for phase in range(len(BWD_PHASES[variant])):
         threads, smem = ctypes.c_int(), ctypes.c_int()
-        if _bwd_library().ssd_scan_bwd_geometry(_DTYPES[dtype], p, n, phase,
-                                                threads, smem):
+        if _bwd_library().ssd_scan_bwd_geometry(_DTYPES[dtype], p, n, rows,
+                                                phase, threads, smem):
             return None
         out.append((threads.value, smem.value))
     return out
@@ -493,7 +595,7 @@ def ssd_scan_bwd_cuda(x: Tensor, dt: Tensor, A: Tensor, Bm: Tensor,
 
     Six launches on the current stream (``kernel_plan_bwd``), no
     synchronisation; the inputs are read contiguous and 16-byte aligned (a
-    copy is made of one that is not).  Each call that launches adds one to
+    copy is made of one that is not; bf16 reads them by TMA).  Each call that launches adds one to
     ``ssd_scan_bwd_cuda.launches`` and leaves its plan in
     ``ssd_scan_bwd_cuda.last_plan``.
     """
@@ -534,18 +636,15 @@ def _ssd_bwd_op(x: Tensor, dt: Tensor, A: Tensor, Bm: Tensor, Cm: Tensor,
         return tuple(t.zero_() for t in out)
     scratch = [torch.empty(shape, dtype=dtype, device=x.device)
                for shape, dtype in plan["scratch"].values()]
+    ptrs = (ctypes.c_void_p * len(scratch))(*(t.data_ptr() for t in scratch))
     lib = _bwd_library()
     with torch.cuda.device(x.device):
         err = lib.ssd_scan_bwd(
-            *(t.data_ptr() for t in (x, dt, A, Bm, Cm, D, dy) + out[:1]),
-            *(t.data_ptr() for t in out[1:]),
-            *(t.data_ptr() for t in scratch),
-            b, s, h, g, p, n, chunk, _DTYPES[x.dtype],
-            torch.cuda.current_stream().cuda_stream)
+            *(t.data_ptr() for t in (x, dt, A, Bm, Cm, D, dy) + out),
+            ptrs, len(scratch), b, s, h, g, p, n, chunk, _DTYPES[x.dtype],
+            plan.get("runs", 1), torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"ssd_scan_bwd_cuda: launch failed: CUDA error "
-                           f"{err} (x {tuple(x.shape)}, Bm {tuple(Bm.shape)}, "
-                           f"{x.dtype}, chunk {chunk}, plan {plan})")
+        _launch_failed("ssd_scan_bwd_cuda", err, x, Bm, chunk, plan)
     ssd_scan_bwd_cuda.launches += 1
     ssd_scan_bwd_cuda.last_plan = plan
     return out

@@ -172,63 +172,114 @@ def test_meta_tensors_trace_the_backward_op():
     assert ssd.ssd_scan_bwd_cuda.launches == launches
 
 
-def _bwd_phases(grids, smem, mma):
-    names = ssd.BWD_PHASES
-    threads = (128, 256, 128, 128, 128, 256)
-    return [{"name": name, "grid": grid, "threads": t, "smem": m,
-             "mma": mma if i in (0, 2, 3) else []}
-            for i, (name, grid, t, m)
-            in enumerate(zip(names, grids, threads, smem))]
+def _bwd_phases(variant, grids, threads, smem, mma):
+    return [{"name": name, "grid": grid, "threads": t, "smem": m, "mma": k}
+            for name, grid, t, m, k
+            in zip(ssd.BWD_PHASES[variant], grids, threads, smem, mma)]
 
 
 def _rows(b, h, s):
     return ((b, h, s), torch.float32)
 
 
-# Launch plans worked out by hand from csrc/ssd_scan_bwd.cu's layout: tiles
-# of T whose rows are 16 bytes longer than their width (bf16: +8 columns,
-# f32: +4); chunk states: a 32-row panel of x and one of B, then 4 floats a
+F32_THREADS = (128, 256, 128, 128, 128, 256)
+
+# Launch plans worked out by hand from csrc/ssd_scan_bwd.cu's layout.
+# bf16 (tiles of 64-column boxes of bf16, 128 bytes a row; P and N padded
+# to 64 or 128): chunk states, 1 KB of alignment + B and C (2 x Np x rows)
+# + two stages of x and dy (4 x Pp x rows), all x 2 bytes, 3 mbarriers
+# (24 bytes), 4 floats a row; dx / dS with a warpgroup per 64 key rows
+# (kr of them), 1 KB + (B's kr rows + C's rows) x Np + two stages of x (kr
+# rows), dy (rows) and G (Pp x Np), all x 2 bytes, 24, then (3 rows + 4
+# warps a warpgroup x rows + 8) floats; dB / dC, 1 KB + C (Np x rows x 2)
+# + the larger of two stages (Pp x rows + Np x Pp) x 2 x 2 and dS + B
+# (rows x rows + Np x rows) x 2, 32 bytes of mbarriers, a float a row.
+# f32: tiles of f32 whose rows are 16 bytes longer than their width (+4
+# columns); chunk states: a 32-row panel of x and one of B, then 4 floats a
 # row of the longest chunk (512); dx/dB: the key panel's B and x, a query
-# panel's C and dy, G [P][N + pad], M and dS [32][32 + pad]; dC the same
-# with one [32][32 + pad]; both then 2 x 128 + 2 x 32 + 512 floats (3,328
-# bytes).
+# panel's C and dy, G [P][N + 4], M and dS [32][36]; dC the same with one
+# [32][36]; both then 2 x 128 + 2 x 32 + 512 floats (3,328 bytes).
 PLANS_BWD = [
-    # mamba2-130m's training shape: 16 chunks of 4 panels, 24 heads, batch
-    # 8; a state pass of 8 blocks of 1,024 elements for each of 192 heads;
-    # 524,288 quads of dB/dC in blocks of 256
+    # mamba2-130m's training shape: 16 chunks of 128 rows, 24 heads of one
+    # group, batch 8: 128 (chunk, group, b) blocks fill the 132 SMs, so
+    # one run of 24 heads; two warpgroups over the key rows fit (one key
+    # block); the chain: 8 blocks of 1,024 elements for each of 192 heads
     ((8, 2048, 24, 64, 1, 128, 128, torch.bfloat16), {
-        "variant": "mma_sync",
+        "variant": "wgmma", "rows": 128, "runs": 1, "run_len": 24,
+        "key_blocks": 1,
         "phases": _bwd_phases(
-            [(16, 24, 8), (192, 8, 1), (64, 24, 8), (64, 24, 8),
-             (16, 24, 8), (2048, 2, 1)],
-            [32 * (72 + 136) * 2 + 512 * 4,                        # 15,360
-             0,
-             (2 * 32 * (72 + 136) + 64 * 136 + 2 * 32 * 40) * 2
-             + 3_328,                                              # 52,480
-             (2 * 32 * (72 + 136) + 64 * 136 + 32 * 40) * 2
-             + 3_328,                                              # 49,920
+            "wgmma",
+            [(16, 1, 8), (192, 8, 1), (16, 1, 8), (32, 1, 8), (16, 24, 8),
+             (3, 1, 1)],
+            (256, 256, 256, 256, 128, 256),
+            [1024 + (2 * 128 + 4 * 64) * 128 * 2 + 24 + 4 * 128 * 4,
+             0,                                                   # 134,168
+             1024 + (128 * 128 + 128 * 128
+                     + 2 * (64 * 128 + 64 * 128 + 128 * 64)) * 2
+             + 24 + (3 * 128 + 4 * 2 * 128 + 8) * 4,              # 170,552
+             1024 + 128 * 128 * 2 + 2 * (64 * 128 + 128 * 64) * 2
+             + 32 + 128 * 4,                                      # 99,872
              0, 0],
-            [(16, 8, 16)]),
+            [[(64, 128, 16)], [], [(64, 64, 16), (64, 64, 16)],
+             [(64, 128, 16)], [], []]),
         "scratch": {"cum": _rows(8, 24, 2048),
                     "state": ((8, 24, 16, 64, 128), torch.float32),
                     "state_grad": ((8, 24, 16, 64, 128), torch.float32),
-                    "dB_heads": ((8, 2048, 24, 128), torch.float32),
-                    "dC_heads": ((8, 2048, 24, 128), torch.float32),
-                    "dcum_rows": _rows(8, 24, 2048),
+                    "dots": ((8, 24, 16, 8), torch.float32),
                     "colsum": _rows(8, 24, 2048),
                     "dw": _rows(8, 24, 2048),
-                    "dots": ((8, 24, 16, 64), torch.float32),
+                    "dcum_rows": ((1, 8, 24, 2048), torch.float32),
+                    "state_rows": _rows(8, 24, 2048),
+                    "dS": ((1, 8, 16, 1, 128, 128), torch.bfloat16),
                     "dA_part": ((8, 24, 16), torch.float32),
-                    "dD_part": ((8, 24, 64), torch.float32)},
-        "scratch_bytes": 4 * (4 * 393_216 + 2 * 25_165_824
-                              + 2 * 50_331_648 + 196_608 + 3_072
-                              + 12_288)}),                 # 611,119,104
+                    "dD_part": ((8, 24, 16, 1), torch.float32)},
+        "scratch_bytes": 4 * (5 * 393_216 + 2 * 25_165_824 + 24_576
+                              + 2 * 3_072)
+        + 2 * 2_097_152}),                                  # 213,508,096
+    # jamba's state size and heads, one layer: 32 chunks of one group fill
+    # 32 blocks, so its 128 heads go in 4 runs of 32 (128 blocks) whose dB
+    # and dC parts the reduction adds up (grid y 1, 65,536 / 1,024 blocks)
+    ((1, 4096, 128, 64, 1, 16, 128, torch.bfloat16), {
+        "variant": "wgmma", "rows": 128, "runs": 4, "run_len": 32,
+        "key_blocks": 1,
+        "phases": _bwd_phases(
+            "wgmma",
+            [(32, 4, 1), (128, 1, 1), (32, 4, 1), (64, 4, 1), (32, 128, 1),
+             (64, 2, 1)],
+            (256, 256, 256, 256, 128, 256),
+            [1024 + (2 * 64 + 4 * 64) * 128 * 2 + 24 + 4 * 128 * 4,
+             0,                                                   # 101,400
+             1024 + (64 * 128 + 64 * 128
+                     + 2 * (64 * 128 + 64 * 128 + 64 * 64)) * 2
+             + 24 + (3 * 128 + 4 * 2 * 128 + 8) * 4,              # 121,400
+             1024 + 64 * 128 * 2 + (128 * 128 + 64 * 128) * 2
+             + 32 + 128 * 4,                                      # 67,104
+             0, 0],
+            [[(64, 64, 16)], [], [(64, 64, 16), (64, 64, 16)],
+             [(64, 64, 16)], [], []]),
+        "scratch": {"cum": _rows(1, 128, 4096),
+                    "state": ((1, 128, 32, 64, 16), torch.float32),
+                    "state_grad": ((1, 128, 32, 64, 16), torch.float32),
+                    "dots": ((1, 128, 32, 1), torch.float32),
+                    "colsum": _rows(1, 128, 4096),
+                    "dw": _rows(1, 128, 4096),
+                    "dcum_rows": ((1, 1, 128, 4096), torch.float32),
+                    "state_rows": _rows(1, 128, 4096),
+                    "dS": ((4, 1, 32, 1, 128, 128), torch.bfloat16),
+                    "dA_part": ((1, 128, 32), torch.float32),
+                    "dD_part": ((1, 128, 32, 1), torch.float32),
+                    "dBC_runs": ((2, 4, 1, 4096, 1, 16), torch.float32)},
+        "scratch_bytes": 4 * (5 * 524_288 + 2 * 4_194_304 + 3 * 4_096
+                              + 524_288)
+        + 2 * 2_097_152}),                                  # 50,380,800
     # f32, ragged, two groups, chunk 96: 3 panels a chunk, 4 chunks
     ((2, 300, 8, 32, 2, 64, 96, torch.float32), {
         "variant": "cuda_cores",
         "phases": _bwd_phases(
+            "cuda_cores",
             [(4, 8, 2), (16, 2, 1), (12, 8, 2), (12, 8, 2), (4, 8, 2),
              (75, 2, 1)],
+            F32_THREADS,
             [32 * (36 + 68) * 4 + 512 * 4,                         # 15,360
              0,
              (2 * 32 * (36 + 68) + 32 * 68 + 2 * 32 * 36) * 4
@@ -236,7 +287,7 @@ PLANS_BWD = [
              (2 * 32 * (36 + 68) + 32 * 68 + 32 * 36) * 4
              + 3_328,                                              # 43,264
              0, 0],
-            []),
+            [[]] * 6),
         "scratch": {"cum": _rows(2, 8, 384),
                     "state": ((2, 8, 4, 32, 64), torch.float32),
                     "state_grad": ((2, 8, 4, 32, 64), torch.float32),
@@ -245,38 +296,82 @@ PLANS_BWD = [
                     "dcum_rows": _rows(2, 8, 384),
                     "colsum": _rows(2, 8, 384),
                     "dw": _rows(2, 8, 384),
-                    "dots": ((2, 8, 4, 16), torch.float32),
+                    "dots": ((2, 8, 4, 2), torch.float32),
                     "dA_part": ((2, 8, 4), torch.float32),
                     "dD_part": ((2, 8, 12), torch.float32)},
         "scratch_bytes": 4 * (4 * 6_144 + 2 * 131_072 + 2 * 307_200
-                              + 1_024 + 64 + 192)}),       # 3,609,600
+                              + 128 + 64 + 192)}),         # 3,606,016
 ]
 
 
-@pytest.mark.parametrize("shape,plan", PLANS_BWD, ids=("mamba2", "f32"))
+@pytest.mark.parametrize("shape,plan", PLANS_BWD,
+                         ids=("mamba2", "jamba", "f32"))
 def test_kernel_plan_bwd_literal(shape, plan):
-    """Grids, threads, shared memory and scratch of the backward at the
-    training shape and at a ragged f32 shape with two groups."""
+    """Grids, threads, shared memory, head runs and scratch of the
+    backward at the training shape, at jamba's (heads split into runs) and
+    at a ragged f32 shape with two groups."""
     assert ssd.kernel_plan_bwd(*shape) == plan
 
 
 @pytest.mark.parametrize("n", ssd.HEAD_DIMS)
 @pytest.mark.parametrize("p", ssd.HEAD_DIMS)
 def test_kernel_plan_bwd_variant_and_fit(p, n):
-    """bf16 on the tensor cores (mma.sync m16n8k16), f32 on the CUDA cores;
-    for every P, N and chunk, every launch within a block's shared memory
-    and the panels tiling the chunk."""
+    """bf16 on the tensor cores (wgmma m64 n{64, 128} k16 on P and N
+    padded to 64 or 128), f32 on the CUDA cores; for every P, N and chunk,
+    every launch within a block's shared memory, the key blocks of dx / dS
+    covering the tile's rows, the f32 panels tiling the chunk."""
     for chunk in (32, 64, 96, 128):
-        for dtype, variant in ((torch.bfloat16, "mma_sync"),
-                               (torch.float32, "cuda_cores")):
-            plan = ssd.kernel_plan_bwd(1, 1000, 6, p, 3, n, chunk, dtype)
-            assert plan["variant"] == variant
-            nc = -(-1000 // chunk)
-            assert plan["phases"][2]["grid"] == (nc * chunk // 32, 6, 1)
-            for i, ph in enumerate(plan["phases"]):
-                assert ph["smem"] <= 232_448 and ph["threads"] <= 1024
-                tensor_cores = dtype == torch.bfloat16 and i in (0, 2, 3)
-                assert ph["mma"] == ([(16, 8, 16)] if tensor_cores else [])
+        nc = -(-1000 // chunk)
+        plan = ssd.kernel_plan_bwd(1, 1000, 6, p, 3, n, chunk,
+                                   torch.bfloat16)
+        pp, np_ = (64 if w <= 64 else 128 for w in (p, n))
+        rows = 64 if chunk <= 64 else 128
+        assert plan["variant"] == "wgmma" and plan["rows"] == rows
+        blocks = plan["key_blocks"]
+        assert plan["phases"][2]["threads"] * blocks == 2 * rows
+        assert plan["phases"][2]["grid"] == (nc * blocks,
+                                             3 * plan["runs"], 1)
+        assert [ph["mma"] for ph in plan["phases"]] == [
+            [(64, np_, 16)], [], [(64, pp, 16), (64, 64, 16)],
+            [(64, np_, 16)], [], []]
+        f32 = ssd.kernel_plan_bwd(1, 1000, 6, p, 3, n, chunk, torch.float32)
+        assert f32["variant"] == "cuda_cores"
+        assert f32["phases"][2]["grid"] == (nc * chunk // 32, 6, 1)
+        assert all(ph["mma"] == [] for ph in f32["phases"])
+        for ph in plan["phases"] + f32["phases"]:
+            assert ph["smem"] <= 232_448 and ph["threads"] <= 1024
+
+
+@pytest.mark.parametrize("b,s,h,g,chunk,runs,run_len", [
+    (8, 2048, 24, 1, 128, 1, 24),    # 128 blocks: one run
+    (1, 4096, 128, 1, 128, 4, 32),   # 32 blocks: 4 runs
+    (2, 1024, 10, 2, 128, 3, 2),     # 5 heads a group in runs of 2, 2, 1
+    (4, 1024, 10, 1, 128, 4, 3),     # 10 heads in runs of 3, 3, 3, 1
+    (1, 100, 3, 3, 32, 1, 1),        # a head a group
+    (1, 64, 8, 1, 64, 8, 1),         # one block: a run a head
+])
+def test_head_runs(b, s, h, g, chunk, runs, run_len):
+    """A group's heads split into as many runs as keep the blocks within
+    the card's 132 SMs, every run non-empty, the last the shorter."""
+    assert ssd.head_runs(b, s, h, g, chunk) == (runs, run_len)
+    assert (runs - 1) * run_len < h // g <= runs * run_len
+
+
+@pytest.mark.parametrize("shape", [
+    (8, 2048, 24, 64, 1, 128, 128),     # mamba2-130m's training shape
+    (1, 4096, 128, 64, 1, 16, 128),     # jamba's
+    (2, 384, 8, 128, 4, 128, 128),      # P = N = 128: two key blocks
+])
+def test_kernel_plan_bwd_bf16_keeps_no_head_partials(shape):
+    """The bf16 scratch holds no ``[B, S, H, N]`` tensor (the heads of a
+    group are summed in registers, not in device memory), and at the
+    training shape it is at most 250 MB."""
+    b, s, h, p, g, n, chunk = shape
+    plan = ssd.kernel_plan_bwd(*shape, torch.bfloat16)
+    assert all(shape_ != (b, s, h, n)
+               for shape_, _ in plan["scratch"].values())
+    if shape[0] == 8:
+        assert plan["scratch_bytes"] <= 250_000_000
 
 
 @pytest.mark.parametrize("shape,dtype,match", [

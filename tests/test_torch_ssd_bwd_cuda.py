@@ -8,14 +8,15 @@ imports neither JAX nor the JAX package, so it runs where the card is:
 The kernel (``ssd_scan_bwd_cuda``) is held against ``ref.ssd_scan_bwd_ref``
 on the same inputs.  f32 (plan variant ``"cuda_cores"``): each gradient
 within 1e-4 of its largest value (the kernel adds in another order than the
-plain version).  bf16 (``"mma_sync"``): the kernel rounds M, dS, the carried
-state, its gradient and the scaled rows of B and C to bf16 before their
-products, so each gradient is held by the relative error of the whole
-tensor, ``|got - want|_F / |want|_F``, under ``REL_TOL``, and dx, ddt,
-dBm and dCm also by their worst ``(b, h)`` (or ``(b, g)``) slice under
-``SLICE_TOL``: ~2x the most the sound kernel gave on an H100 over these
-cases and chip_smoke.py's shapes.  Two calls give bitwise the same
-gradients.
+plain version).  bf16 (``"wgmma"``): the kernel rounds M, dS summed over a
+run of heads, the carried state, its gradient and the scaled rows of x and
+dy to bf16 before their products, so each gradient is held by the relative
+error of the whole tensor, ``|got - want|_F / |want|_F``, under
+``REL_TOL``, and dx, ddt, dBm and dCm also by their worst ``(b, h)`` (or
+``(b, g)``) slice under ``SLICE_TOL``: ~2x the most the first bf16 kernel
+(``mma.sync``) gave on an H100 over these cases and chip_smoke.py's shapes.
+Two calls give bitwise the same gradients, and the bf16 plan's scratch
+holds no ``[B, S, H, N]`` tensor.
 """
 import numpy as np
 import pytest
@@ -26,7 +27,7 @@ from repro_torch.kernels import ssd_scan as ssd
 
 pytestmark = [pytest.mark.tier1, pytest.mark.cuda]
 
-VARIANT = {"float32": "cuda_cores", "bfloat16": "mma_sync"}
+VARIANT = {"float32": "cuda_cores", "bfloat16": "wgmma"}
 NAMES = ("dx", "ddt", "dA", "dBm", "dCm", "dD")
 # the slices of each gradient: (b, h) of dx [B, S, H, P] and ddt [B, S, H],
 # (b, g) of dBm, dCm [B, S, G, N]; dA and dD [H] are held whole
@@ -75,7 +76,12 @@ def _holds(args, chunk, dtype):
     launches = ssd.ssd_scan_bwd_cuda.launches
     got = ssd.ssd_scan_bwd_cuda(*args, chunk=chunk)
     assert ssd.ssd_scan_bwd_cuda.launches == launches + 1
-    assert ssd.ssd_scan_bwd_cuda.last_plan["variant"] == VARIANT[dtype]
+    plan = ssd.ssd_scan_bwd_cuda.last_plan
+    assert plan["variant"] == VARIANT[dtype]
+    b, s, h, _ = args[0].shape
+    if dtype == "bfloat16":
+        assert (b, s, h, args[3].shape[3]) not in [
+            shape for shape, _ in plan["scratch"].values()]
     again = ssd.ssd_scan_bwd_cuda(*args, chunk=chunk)
     want = ref.ssd_scan_bwd_ref(*args, chunk=chunk)
     torch.cuda.synchronize()
@@ -107,6 +113,9 @@ CUDA_CASES = [
     (2, 384, 8, 128, 4, 128, 64, "bfloat16"),      # P = N = 128
     (1, 64, 2, 16, 2, 64, 96, "bfloat16"),         # S below one chunk
     (1, 200, 6, 128, 2, 16, 96, "float32"),        # P 128, N 16, chunk 96
+    (2, 1024, 10, 32, 2, 64, 128, "bfloat16"),     # runs of 2, 2, 1 heads
+    (1, 1024, 128, 64, 1, 16, 128, "bfloat16"),    # jamba's, S cut: 16 runs
+    (2, 384, 8, 128, 4, 128, 128, "bfloat16"),     # two key blocks a tile
 ]
 
 
