@@ -48,10 +48,13 @@ mesh layer, and fails with a non-zero exit code if any phase fails:
              the plain chunked version at mamba2-130m's training shape and
              a jamba-shaped one, and by relative error of the whole output
              and of its worst (b, h) slice within 3.2e-3 and 5e-3, each with
-             its launch plan (bf16: three chunk-parallel phases on the tensor
-             cores, whose device times a profiled call splits; f32: the
-             CUDA-core kernel), within 2e-4 (f32) of the sequential scan at
-             a ragged one (no PyTorch call computes it); at each shape the
+             its launch plan (three phases, all but the state pass
+             chunk-parallel, whose device times a profiled call splits: bf16
+             on the tensor cores, f32 on the CUDA cores, a block walking a
+             run of a group's heads), in f32 within 2e-4 and 1e-5 of the
+             sequential scan at a ragged shape and jamba's layer and of the
+             chunked version at mamba2-130m's training shape (no PyTorch
+             call computes it); at each shape the
              final state (``return_state``, the prefill's output) against
              the chunked version's, within 2e-4 (f32) and by the relative
              errors of the whole state and its worst (b, h) slice under y's
@@ -63,8 +66,8 @@ mesh layer, and fails with a non-zero exit code if any phase fails:
              value, bf16 by the relative error of each whole gradient and
              of its worst (b, h) slice (``SSD_BWD_REL_TOL``,
              ``SSD_BWD_SLICE_TOL``); two calls bitwise equal; its plan
-             (bf16 ``"wgmma"``: TMA and wgmma, a group's heads walked in
-             runs; f32 on the CUDA cores), the six launches' device times
+             (a group's heads walked in runs; bf16 ``"wgmma"``: TMA and
+             wgmma; f32 on the CUDA cores), the six launches' device times
              from a profiled call, each beside the whole call's bound, its
              registers and spills, its time beside the plain backward's
              (autograd through ``ref.ssd_scan_ref``, what the card ran
@@ -474,7 +477,10 @@ FLASH_BWD_SHAPES += NARROW
 FLASH_BWD_MAIN = "internlm2 training"
 # q scaled so that the logits (std ~6) reach the softcap's bend, as a
 # trained gemma2's do: with unit logits the cap of 50 moves dS by ~4e-4
-FLASH_BWD_Q_SCALE = {"gemma2-27b local layer": 6.0}
+# (at D 16 a dQ without the cap's factor stayed within the limits)
+FLASH_BWD_Q_SCALE = {"gemma2-27b local layer": 6.0,
+                     "pallas window softcap D 16 bfloat16": 6.0,
+                     "pallas window softcap D 16 float32": 6.0}
 # f32: each of dq, dk, dv elementwise within 1e-4 of its largest |value|
 # (the kernel adds in another order than the plain version); bf16: the
 # relative error of the whole tensor and of its worst row (a row's norm
@@ -520,6 +526,11 @@ SSD_SHAPES = [
     ("f32 ragged", (2, 300, 8, 32, 2, 64), torch.float32, 128, "sequential"),
     ("jamba-shaped", (1, 4096, 128, 64, 1, 16), torch.bfloat16, 128,
      "chunked"),
+    # mamba2-130m trained at dtype="float32", and phase 7's jamba layer
+    ("mamba2-130m f32 training", (8, 2048, 24, 64, 1, 128), torch.float32,
+     128, "chunked"),
+    ("jamba f32 prefill", (1, 300, 128, 64, 1, 16), torch.float32, 128,
+     "sequential"),
 ]
 SSD_MAIN = "mamba2-130m training"
 SSD_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
@@ -617,10 +628,16 @@ def check(ok: bool, what: str) -> None:
 
 
 # --------------------------------------------------------------- 1. build
-# nvcc seconds of the flash libraries before their narrow and in-between
-# widths (9 and 24 kernels), each built alone: scripts/build_times.py on
-# an H100 host, PERF.md section 6
-PREVIOUS_BUILD_S = {"flash_attention": 11.09, "flash_attention_bwd": 24.02}
+# nvcc seconds of earlier versions of the libraries, each built alone
+# (scripts/build_times.py on an H100 host, PERF.md section 6): the flash
+# libraries before their narrow and in-between widths (9 and 24 kernels),
+# the SSD libraries before their f32 kernels' chunk-parallel redesign
+PREVIOUS_BUILD_S = {
+    "flash_attention": (11.09, "before the narrow widths"),
+    "flash_attention_bwd": (24.02, "before the narrow widths"),
+    "ssd_scan": (27.94, "before the f32 redesign"),
+    "ssd_scan_bwd": (57.03, "before the f32 redesign"),
+}
 
 
 def ptxas_kernels(log: str) -> list[tuple[str, int, int]]:
@@ -670,8 +687,8 @@ def phase_build() -> None:
         took = ("reused an existing build" if b["seconds"] is None
                 else f"nvcc {b['seconds']:.3f} s")
         if name in PREVIOUS_BUILD_S:
-            took += (f" (before the narrow widths, built alone: "
-                     f"{PREVIOUS_BUILD_S[name]} s)")
+            seconds, when = PREVIOUS_BUILD_S[name]
+            took += f" ({when}, built alone: {seconds} s)"
         say("build", f"{name} {b['path'].name}: {took}")
         for line in b["log"].splitlines():
             if any(w in line for w in ("registers", "spill", "smem")):
@@ -689,6 +706,15 @@ def phase_build() -> None:
     for kernel, regs, spills in SSD_BWD_PTXAS:
         say("build", f"ssd_scan_bwd {kernel}: {regs} registers, {spills} "
             "bytes of spill stores and loads")
+    for lib, b in (("ssd_scan", built[2]), ("ssd_scan_bwd", built[4])):
+        # the f32 CUDA-core kernels spill nothing up to P 64 (P 128: printed)
+        for kernel, regs, spills in ptxas_kernels(b["log"]):
+            if lib == "ssd_scan":
+                say("build", f"ssd_scan {kernel}: {regs} registers, "
+                    f"{spills} bytes of spill stores and loads")
+            width = re.match(r"ssd_\w+_cc<(\d+), \d+>", kernel)
+            if width and int(width.group(1)) <= 64:
+                check(spills == 0, f"ptxas spills nothing in {lib} {kernel}")
     for lib, b in (("flash_attention", built[1]),
                    ("flash_attention_bwd", built[3])):
         # the log is empty when an existing build was reused
@@ -717,20 +743,19 @@ def phase_build() -> None:
                 check(built == mine, f"flash_attention {dtype} D {d} "
                       f"{block_q} rows: the library's key tile, threads and "
                       f"shared memory {built} == the plan's {mine}")
-    for dtype, rows_ in ((torch.bfloat16, (64, 128)),
-                         (torch.float32, (32, 64, 96, 128))):
+    for dtype in (torch.bfloat16, torch.float32):
         for p in ssd_scan.HEAD_DIMS:
             for n in ssd_scan.HEAD_DIMS:
-                for rows in rows_:
+                for rows in (64, 128):
                     built = ssd_scan.kernel_geometry(dtype, p, n, rows)
                     mine = ssd_scan.geometry(dtype, p, n, rows)
                     check(built == mine, f"ssd_scan {dtype} P {p} N {n} "
                           f"{rows} rows: the library's threads and shared "
                           f"memory per phase {built} == the plan's {mine}")
-    for dtype, rows_ in ((torch.bfloat16, (64, 128)), (torch.float32, (128,))):
+    for dtype in (torch.bfloat16, torch.float32):
         for p in ssd_scan.HEAD_DIMS:
             for n in ssd_scan.HEAD_DIMS:
-                for rows in rows_:
+                for rows in (64, 128):
                     built = ssd_scan.kernel_geometry_bwd(dtype, p, n, rows)
                     mine = ssd_scan.geometry_bwd(dtype, p, n, rows)
                     check(built == mine, f"ssd_scan_bwd {dtype} P {p} N {n} "
@@ -1248,11 +1273,17 @@ def phase_ssd_kernel() -> dict:
         check(plan["variant"] == ("wgmma" if dtype == torch.bfloat16
                                   else "cuda_cores"),
               f"ssd_scan {name}: {plan['variant']} for {dtype}")
+        nc = -(-s // chunk)
         if plan["variant"] == "wgmma":
-            nc = -(-s // chunk)
             for ph in (plan["phases"][0], plan["phases"][2]):
                 check(ph["grid"] == (nc, h, b), f"ssd_scan {name}: "
                       f"{ph['name']} launches S/Q x H x B blocks")
+        else:   # chunk-parallel: a block a (chunk, run of a group's heads, b)
+            tiles = plan["rows"] // 64 * (p // min(p, 64))
+            runs = (g * plan["runs"], b)
+            check(plan["phases"][0]["grid"] == (nc, *runs)
+                  and plan["phases"][2]["grid"] == (nc * tiles, *runs),
+                  f"ssd_scan {name}: the f32 phases have a chunk axis")
         check(bool(out.float().isfinite().all()), f"ssd_scan {name} finite")
         err = float((out.float() - want.float()).abs().max())
         tol = SSD_TOL[dtype]

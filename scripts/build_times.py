@@ -1,11 +1,12 @@
 """Seconds ``nvcc`` takes to build the port's kernel libraries, one at a time,
 on the machine with the CUDA toolkit.
 
-    python3 scripts/build_times.py [CSRC_DIR ...]
+    python3 scripts/build_times.py [CSRC_DIR_OR_SOURCE ...]
 
-Builds every ``*.cu`` of each directory given (default: the package's own
-``src/repro_torch/csrc``) with ``kernels/build.py``'s flags, one ``nvcc``
-after the other so that no build shares the host's cores with another, into
+Builds every ``*.cu`` of each directory given, or each source given
+(default: the package's own ``src/repro_torch/csrc``), with
+``kernels/build.py``'s flags, one ``nvcc`` after the other so that no build
+shares the host's cores with another, into
 a temporary directory, and prints one line a library: its directory, name,
 seconds, and the number of kernels ``ptxas`` compiled.  Give a second
 directory (say an unpacked older tree's ``csrc``) to set two versions of the
@@ -30,9 +31,9 @@ def main(argv: list[str]) -> None:
     dirs = [Path(a) for a in argv] or [kbuild.CSRC]
     nvcc = kbuild.cuda_tool("nvcc")
     with tempfile.TemporaryDirectory() as tmp:
-        for d in dirs:
-            for src in sorted(d.glob("*.cu")):
-                out = Path(tmp) / f"{d.name}-{src.stem}.so"
+        for i, d in enumerate(dirs):
+            for src in [d] if d.is_file() else sorted(d.glob("*.cu")):
+                out = Path(tmp) / f"{i}-{src.stem}.so"
                 t0 = time.perf_counter()
                 proc = subprocess.run([nvcc, *kbuild.BASE_FLAGS, "-o", str(out),
                                        str(src)], capture_output=True,
@@ -43,8 +44,8 @@ def main(argv: list[str]) -> None:
                                      f"{proc.stdout}{proc.stderr}")
                 kernels = sum("Compiling entry function" in line for line in
                               (proc.stdout + proc.stderr).splitlines())
-                print(f"{d}: {src.name} built in {seconds:.2f} s, {kernels} "
-                      "kernels", flush=True)
+                print(f"{src}: built in {seconds:.2f} s, {kernels} kernels",
+                      flush=True)
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
-"""Where the bf16 SSD backward's time goes, on one NVIDIA GPU.
+"""Where the SSD backward's time goes, on one NVIDIA GPU.
 
-    python3 scripts/ssd_bwd_cuts.py [--json PATH]
+    python3 scripts/ssd_bwd_cuts.py [--f32] [--json PATH]
 
 Builds copies of ``csrc/ssd_scan_bwd.cu`` (beside copies of the headers,
 in a temporary directory, one nvcc each, all started together) with one
@@ -21,6 +21,17 @@ time is read.  The cuts, of the dx / dS launch unless named:
 * ``states: no scaling``: it scales no rows of x and dy;
 * ``dB/dC: no scaling``: the dB / dC launch scales no rows;
 * ``dB/dC: no rise``: it forms no exp(cum) C . (dy h).
+
+With ``--f32`` the cuts are of the f32 launches, at chip_smoke.py's f32
+SSD shapes, of dx / dS unless named:
+
+* ``no S^T``, ``no R^T``, ``no B G^T``, ``no M^T dy``: that product is
+  skipped;
+* ``no exp``: the decay is 1;
+* ``no column sums``: the column sums of M R are not formed;
+* ``no dS^T stores``: the run's dS^T is not written;
+* ``no block sum``: dD's block sum is one barrier;
+* ``dB/dC: no closing product``: dB / dC skips + dS^T C and + dS B.
 
 Prints one line per variant and shape, then the card's name and power
 limit.  Needs a CUDA device; imports nothing of JAX.
@@ -69,6 +80,26 @@ CUTS = {
 }
 
 
+F32_CUTS = {
+    "sound": [],
+    "no S^T": [("mm_dots(sT, ", NEVER + "mm_dots(sT, ")],
+    "no R^T": [("mm_dots(r, ", NEVER + "mm_dots(r, ")],
+    "no B G^T": [("    mm_dots(acc, sB, LN, sG, LN, N);",
+                  "    " + NEVER + "mm_dots(acc, sB, LN, sG, LN, N);")],
+    "no M^T dy": [("mm_rows(acc, sM, ", NEVER + "mm_rows(acc, sM, ")],
+    "no exp": [("expf(sCum[ir] - cj)", "1.f")],
+    "no column sums": [("colp[j] += m * rv;", "")],
+    "no dS^T stores": [("out[(j0 + 4 * ty + i) * QT + j0 + tx + 16 * j] = ",
+                        NEVER + "out[(j0 + 4 * ty + i) * QT + j0 + tx + 16 * j]"
+                        " = ")],
+    "no block sum": [("dd = block_sum(dd, red2, kCcThreads, warp, lane, "
+                      "tid);", "__syncthreads();")],
+    "dB/dC: no closing product": [
+        ("    mm_rows(acc, room, ", "    " + NEVER + "mm_rows(acc, room, "),
+        ("    mm_cols(acc, room, ", "    " + NEVER + "mm_cols(acc, room, ")],
+}
+
+
 def launches_ms(shape, chunk, args) -> dict[str, float]:
     """Device ms a call of each launch, and their sum, over 5 profiled
     calls after 2 warm-up calls."""
@@ -87,18 +118,22 @@ def launches_ms(shape, chunk, args) -> dict[str, float]:
 
 def main() -> None:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--f32", action="store_true",
+                    help="cut the f32 launches, at the f32 shapes")
     ap.add_argument("--json", type=Path)
     opts = ap.parse_args()
+    cuts = F32_CUTS if opts.f32 else CUTS
+    dtype_cut = torch.float32 if opts.f32 else torch.bfloat16
     paths = kbuild.edited_copies(
-        ssd.SRC_BWD, CUTS, Path(tempfile.mkdtemp(prefix="ssd_bwd_cuts_")))
+        ssd.SRC_BWD, cuts, Path(tempfile.mkdtemp(prefix="ssd_bwd_cuts_")))
     kbuild.build(*((path, ssd.NVCC_FLAGS) for path in paths.values()))
     shapes = [(i, label, shape, dtype, chunk)
               for i, (label, shape, dtype, chunk, _) in enumerate(cs.SSD_SHAPES)
-              if dtype == torch.bfloat16]
+              if dtype == dtype_cut]
     inputs = {label: cs.ssd_bwd_inputs(shape, dtype, seed=500 + i)
               for i, label, shape, dtype, chunk in shapes}
     record = []
-    for name in [*CUTS, "sound"]:
+    for name in [*cuts, "sound"]:
         kbuild.use_copy(ssd, paths[name], "SRC_BWD", "_bwd_library")
         for _, label, shape, dtype, chunk in shapes:
             per = launches_ms(shape, chunk, inputs[label])

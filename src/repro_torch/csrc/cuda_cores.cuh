@@ -1,7 +1,9 @@
-// f32 building blocks of the flash kernels' CUDA-core variants
-// (flash_attention.cu's flash_fwd_f32, flash_attention_bwd.cu's bwd_dkdv_cc
-// and bwd_dq_cc): cp.async tile loads into shared memory, and the
-// register-blocked products of 64-row tiles, all in f32 FMAs (no TF32).
+// f32 building blocks of the CUDA-core kernels: the flash kernels' f32
+// variants (flash_attention.cu's flash_fwd_f32, flash_attention_bwd.cu's
+// bwd_dkdv_cc and bwd_dq_cc) and the SSD scan's f32 kernels (ssd_scan.cu,
+// ssd_scan_bwd.cu, through ssd_cuda_cores.cuh): cp.async tile loads into
+// shared memory, and the register-blocked products of 64-row tiles, all in
+// f32 FMAs (no TF32).
 //
 // A tile is 64 rows of an f32 [rows, d] matrix in shared memory with a row
 // stride of D + 4 floats (D the instantiation's width, d <= D the head
@@ -282,6 +284,128 @@ __device__ __forceinline__ void acc_quads(float (&acc)[4][D / 8], const float* a
 __device__ __forceinline__ int rows_end(int valid) { return (min(valid, kCcRows) + 3) & ~3; }
 // The same for the 32 rows of half a tile.
 __device__ __forceinline__ int half_end(int valid) { return (max(0, min(valid, 32)) + 3) & ~3; }
+
+// Wait until at most kPending of the cp.async groups this thread committed
+// are still in flight (a __syncthreads after it makes every thread's copies
+// visible to the block).
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(kPending) : "memory");
+}
+
+// Rows [0, rows) of an f32 matrix of width w (a multiple of 4; row r at
+// src + r * stride floats, 16-byte aligned) into dst (row stride ld floats):
+// cp.async of 16 bytes, the rows from `valid` on zero-filled without a
+// read.  The caller commits.
+__device__ __forceinline__ void load_rows_async(float* dst, int ld, const float* src,
+                                                int64_t stride, int rows, int valid, int w) {
+  const int per = w / 4;
+  for (int e = threadIdx.x; e < rows * per; e += kCcThreads) {
+    const int r = e / per, c = (e - r * per) * 4;
+    const bool in = r < valid;
+    cp_async16(dst + r * ld + c, in ? src + r * stride + c : src, in ? 16 : 0);
+  }
+}
+
+// ---- the SSD kernels' products (ssd_scan.cu, ssd_scan_bwd.cu, f32)
+// A block of kCcThreads threads computes a 64 x 16J output tile: thread
+// (ty, tx) = (tid / 16, tid % 16) holds rows 4ty + i (i < 4) and columns
+// tx + 16j (j < J) in acc[i][j], so warp w holds rows 8w .. 8w + 7.  The
+// operands are f32 tiles in shared memory with rows 16 bytes longer than
+// their width (a multiple of 4), so a warp's float4 loads from consecutive
+// rows fall on distinct banks and its loads of one row's 16 consecutive
+// columns are one wavefront.  k ranges are multiples of 4.
+
+template <int J>
+__device__ __forceinline__ void zero_tile(float (&acc)[4][J]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < J; ++j) acc[i][j] = 0.f;
+}
+
+// acc[i][j] += sum over k in [k0, k1) of a[4ty + i][k] b[k][tx + 16j]:
+// a's rows along k (one float4 a row per 4 k), b's rows along the columns.
+template <int J>
+__device__ __forceinline__ void mm_rows(float (&acc)[4][J], const float* a, int lda,
+                                        const float* b, int ldb, int k0, int k1) {
+  const float* ar = a + 4 * (threadIdx.x / 16) * lda;
+  const float* bc = b + threadIdx.x % 16;
+#pragma unroll 2
+  for (int k = k0; k < k1; k += 4) {
+    float4 x[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) x[i] = *reinterpret_cast<const float4*>(ar + i * lda + k);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      float y[J];
+#pragma unroll
+      for (int j = 0; j < J; ++j) y[j] = bc[(k + kk) * ldb + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float p = kk == 0 ? x[i].x : kk == 1 ? x[i].y : kk == 2 ? x[i].z : x[i].w;
+#pragma unroll
+        for (int j = 0; j < J; ++j) acc[i][j] = fmaf(p, y[j], acc[i][j]);
+      }
+    }
+  }
+}
+
+// acc[i][j] += sum over k in [k0, k1) of at[k][4ty + i] b[k][tx + 16j]: a
+// stored transposed, a thread's 4 rows one float4 a k.
+template <int J>
+__device__ __forceinline__ void mm_cols(float (&acc)[4][J], const float* at, int ldt,
+                                        const float* b, int ldb, int k0, int k1) {
+  const float* ac = at + 4 * (threadIdx.x / 16);
+  const float* bc = b + threadIdx.x % 16;
+#pragma unroll 4
+  for (int k = k0; k < k1; ++k) {
+    const float4 x = *reinterpret_cast<const float4*>(ac + k * ldt);
+    float y[J];
+#pragma unroll
+    for (int j = 0; j < J; ++j) y[j] = bc[k * ldb + 16 * j];
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      acc[0][j] = fmaf(x.x, y[j], acc[0][j]);
+      acc[1][j] = fmaf(x.y, y[j], acc[1][j]);
+      acc[2][j] = fmaf(x.z, y[j], acc[2][j]);
+      acc[3][j] = fmaf(x.w, y[j], acc[3][j]);
+    }
+  }
+}
+
+// acc[i][j] += sum over k < K of a[4ty + i][k] b[tx + 16j][k]: dot
+// products of rows, both along k (float4 loads).
+template <int J>
+__device__ __forceinline__ void mm_dots(float (&acc)[4][J], const float* a, int lda,
+                                        const float* b, int ldb, int K) {
+  const float* ar = a + 4 * (threadIdx.x / 16) * lda;
+  const float* br = b + (threadIdx.x % 16) * ldb;
+#pragma unroll 2
+  for (int k = 0; k < K; k += 4) {
+    float4 x[4], y[J];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) x[i] = *reinterpret_cast<const float4*>(ar + i * lda + k);
+#pragma unroll
+    for (int j = 0; j < J; ++j) y[j] = *reinterpret_cast<const float4*>(br + 16 * j * ldb + k);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        acc[i][j] = fmaf(x[i].x, y[j].x, acc[i][j]);
+        acc[i][j] = fmaf(x[i].y, y[j].y, acc[i][j]);
+        acc[i][j] = fmaf(x[i].z, y[j].z, acc[i][j]);
+        acc[i][j] = fmaf(x[i].w, y[j].w, acc[i][j]);
+      }
+  }
+}
+
+// The sum of v over the 16 lanes of a tile row (the lanes of one ty).
+__device__ __forceinline__ float row_sum16(float v) {
+#pragma unroll
+  for (int off = 1; off < 16; off <<= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
 
 // The block's place in a grid whose heaviest work has the lowest index
 // along x: blocks are numbered x fastest, so the x index goes slowest here

@@ -19,19 +19,22 @@
 // prefill; the Pallas kernel has no such output (the JAX package's prefill
 // runs its plain chunked version for it).
 //
-// What bounds it.  Per (b, h, chunk) the scan does Q(Q+1)/2 (N + P)
-// multiply-adds for the causal triangles of C.B^T and W x, and 2 Q P N for
-// C h_in and the state update, on Q (P + 2N) bf16 inputs: at mamba2-130m's
-// training shape (x [8, 2048, 24, 64], N = 128, Q = 128) that is 22.6
-// GFLOP, 22.9 us at the tensor cores' 989 TFLOP/s, against 110.6 MB of x,
-// dt, B, C and y, 33.0 us at 3.35 TB/s: the H100 is bound by bytes.  The
-// state is a chain across chunks, and the TPU grid walks the chunk axis in
-// order; on 132 SMs a chain per (b, h) leaves most of the card idle and
-// puts the products on the CUDA cores.
+// What bounds it.  Per (b, h, chunk) the scan does Q(Q+1)/2 P
+// multiply-adds for the causal triangle of W x and 2 Q P N for C h_in and
+// the state update, and per (b, g, chunk) Q(Q+1)/2 N for that of S = C B^T
+// (B and C belong to the group), on Q (P + 2N) inputs: at mamba2-130m's
+// training shape (x [8, 2048, 24, 64], N = 128, Q = 128) that is 16.4
+// GFLOP, 16.6 us at the tensor cores' 989 TFLOP/s or 0.245 ms at the CUDA
+// cores' 67 TFLOP/s, against 110.6 MB of bf16 x, dt, B, C and y, 33.0 us
+// at 3.35 TB/s (221 MB in f32, 66 us): bf16 is bound by bytes, f32 by
+// operations.  The state is a chain across chunks, and the TPU grid walks
+// the chunk axis in order; on 132 SMs a chain per (b, h) leaves most of
+// the card idle, so every phase but the state pass is chunk-parallel.
 //
-// Two kernels, picked by dtype in the launch plan (kernels/ssd_scan.py
-// kernel_plan), which passes the instantiation's tile rows;
-// ssd_scan_geometry reports each phase's threads and shared memory.
+// Two variants, picked by dtype in the launch plan (kernels/ssd_scan.py
+// kernel_plan), which passes the instantiation's tile rows (the chunk
+// rounded up to 64); ssd_scan_geometry reports each phase's threads and
+// shared memory.
 //
 // * bf16: three phases on the caller's stream, each chunk-parallel, the
 //   products on the tensor cores (wgmma), the tiles loaded by TMA:
@@ -67,53 +70,39 @@
 //   the three phases write once and read once, ~300 MB of traffic beside
 //   the 110.6 MB the scan must move.
 //
-// * f32: ssd_fwd_f32<P, N>, on the CUDA cores in f32 FMAs, which its 2e-4
-//   tolerance needs (no TF32, no bf16 operands).  One block per (h, b)
-//   loops over the chunks itself with the state in registers (each thread
-//   owns a micro-tile, mirrored into shared memory for C . h_in, and
-//   written out after the last chunk where the caller asks); x, B, C,
-//   dt read through strides; W built in row panels of 32, all f32 in
-//   shared memory with odd row strides (163 KB at Q = 128, P = 64, N = 128,
-//   232,192 bytes at most), one block per SM; every product a register
-//   micro-tile per thread, templated on P and N so every tile is exact.
+// * f32: the same three phases on the CUDA cores in f32 FMAs, which its
+//   2e-4 tolerance needs (no TF32, no bf16 operands), 256 threads a block,
+//   tiles of f32 rows 16 bytes longer than their width loaded by cp.async
+//   (16 bytes a copy; x, Bm, Cm rows 16-byte aligned, dt read through its
+//   strides), every product a 64-row tile of 4 x (width / 16) register
+//   blocks (cuda_cores.cuh).  A group's heads are split into runs
+//   (kernel_plan's "runs", head_runs' rule: as many as fill the card's 132
+//   SMs), and a block walks its run's heads in order:
+//   1. ssd_fwd_chunk_state_cc, a block per (chunk, run, b): B's rows once;
+//      per head cum (written to the scratch) and s_c = (w x)^T B, x's rows
+//      scaled in place, the next head's x in flight (ssd_cuda_cores.cuh).
+//   2. ssd_fwd_state_pass<float>: as for bf16, h_in handed on in f32 over
+//      the chunk's own state, in place.
+//   3. ssd_fwd_chunk_scan_cc, a block per (chunk and 64-row query half, 64
+//      columns of y where P = 128, run, b): S = C B^T once, into registers;
+//      per head y = exp(cum_i) (C h_in^T) + W x + D x, W masked before the
+//      exponential and handed through shared memory; x two stages deep, the
+//      next head's h_in loaded as soon as C h_in^T has read it.
+//   Scratch: cum and the f32 states (100.7 MB at mamba2-130m's training
+//   shape), no h_in of its own.
 //
 // The C entry point launches on the caller's stream, does not synchronise,
 // and returns cudaGetLastError() (or the error of cudaFuncSetAttribute, or
 // the codes kNoEncoder / kEncodeFailed of hopper.cuh) so the Python wrapper
 // can raise.
 
-#include "hopper.cuh"
+#include "ssd_cuda_cores.cuh"
 
 namespace {
 
 struct Strides {
   int64_t b, s, h;
 };
-
-// Inclusive cumsum of dt * A over rows [0, 128) of a chunk (rows past the
-// chunk hold dt = 0), by one warp, with rounded products and no FMA: lane
-// l sums elements 4l..4l+3 in order, then a scan over the lanes' sums.
-__device__ __forceinline__ void chunk_cumsum(const float* sDt, float* sCum, float a, int rows,
-                                             int lane) {
-  float part[4], run = 0.f;
-#pragma unroll
-  for (int u = 0; u < 4; ++u) {
-    const int i = 4 * lane + u;
-    run = __fadd_rn(run, i < rows ? __fmul_rn(sDt[i], a) : 0.f);
-    part[u] = run;
-  }
-  float incl = run;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const float o = __shfl_up_sync(0xffffffffu, incl, off);
-    if (lane >= off) incl = __fadd_rn(incl, o);
-  }
-  float base = __shfl_up_sync(0xffffffffu, incl, 1);  // exclusive
-  if (lane == 0) base = 0.f;
-#pragma unroll
-  for (int u = 0; u < 4; ++u)
-    if (4 * lane + u < rows) sCum[4 * lane + u] = __fadd_rn(base, part[u]);
-}
 
 // ====================================================== bf16: tensor cores
 
@@ -243,29 +232,66 @@ ssd_fwd_chunk_state(const __grid_constant__ CUtensorMap tx, const __grid_constan
   }
 }
 
-// h_in[c] = h (as bf16); h = exp(seg_c) h + s_c, over the chunks in order;
-// then the final h into final_state (f32 [B, H, P, N]) unless it is null.
-// Block (bh, tile): elements 4 (tile * 256 + thread) .. + 3 of the [P, N]
-// state of one (b, h).
+// h and the state handed on as Out: bf16 into h_in, or f32 in place.
+__device__ __forceinline__ void put4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
+__device__ __forceinline__ void put4(__nv_bfloat16* p, float4 v) {
+  *reinterpret_cast<uint2*>(p) = make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
+}
+
+constexpr int kPassWin = 4;  // state pass: chunks a thread has in registers at a time
+
+// h_in[c] = h; h = exp(seg_c) h + s_c, over the chunks in order; then the
+// final h into final_state (f32 [B, H, P, N]) unless it is null.  h_in as
+// Out: bf16 for the tensor-core chunk scan, or f32 over the chunk's own
+// state s_c (h_in == state, in place).  Block (bh, tile): elements
+// 4 (tile * 256 + thread) .. + 3 of the [P, N] state of one (b, h).  A
+// thread holds kPassWin chunks' s_c and reads the next kPassWin before it
+// writes the current ones' slots: a window's loads are in flight while the
+// one before is carried, and the in-place form reads each s_c before its
+// slot is overwritten.  The bf16 form, whose state nothing writes, reads it
+// through the read-only path.
+template <class Out>
 __global__ void __launch_bounds__(kPassThreads)
-ssd_fwd_state_pass(const float* __restrict__ cum, const float* __restrict__ state,
-                   __nv_bfloat16* __restrict__ h_in, float* __restrict__ final_state, int nc,
-                   int Q, int PN) {
+ssd_fwd_state_pass(const float* __restrict__ cum, const float* state, Out* h_in,
+                   float* __restrict__ final_state, int nc, int Q, int PN) {
   const int e = (blockIdx.y * kPassThreads + threadIdx.x) * 4;
   if (e >= PN) return;
   const int64_t bh = blockIdx.x;
   const float* seg = cum + bh * nc * Q + Q - 1;
   const float4* s = reinterpret_cast<const float4*>(state + bh * nc * PN + e);
-  uint2* out = reinterpret_cast<uint2*>(h_in + bh * nc * PN + e);
-  const int step = PN / 4;  // float4s (and 4-bf16 groups) a chunk
-  float4 hs = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll 4
-  for (int c = 0; c < nc; ++c) {
-    const float decay = expf(seg[c * Q]);
-    const float4 sc = s[c * step];
-    out[c * step] = make_uint2(pack_bf16(hs.x, hs.y), pack_bf16(hs.z, hs.w));
-    hs = make_float4(decay * hs.x + sc.x, decay * hs.y + sc.y, decay * hs.z + sc.z,
-                     decay * hs.w + sc.w);
+  Out* out = h_in + bh * nc * PN + e;
+  const int step = PN / 4;  // float4s a chunk
+  auto load = [&](int c0, float4 (&sc)[kPassWin], float (&dec)[kPassWin]) {
+#pragma unroll
+    for (int u = 0; u < kPassWin; ++u) {
+      const int c = c0 + u < nc ? c0 + u : nc - 1;
+      if constexpr (sizeof(Out) == sizeof(float))
+        sc[u] = s[c * step];
+      else
+        sc[u] = __ldg(s + c * step);
+      dec[u] = expf(seg[c * Q]);
+    }
+  };
+  float4 hs = make_float4(0.f, 0.f, 0.f, 0.f), sc[kPassWin], nsc[kPassWin];
+  float dec[kPassWin], ndec[kPassWin];
+  load(0, sc, dec);
+  for (int c0 = 0; c0 < nc; c0 += kPassWin) {
+    if (c0 + kPassWin < nc) load(c0 + kPassWin, nsc, ndec);
+#pragma unroll
+    for (int u = 0; u < kPassWin; ++u) {
+      if (c0 + u >= nc) break;
+      put4(out + static_cast<int64_t>(c0 + u) * PN, hs);
+      const float decay = dec[u];
+      hs = make_float4(decay * hs.x + sc[u].x, decay * hs.y + sc[u].y, decay * hs.z + sc[u].z,
+                       decay * hs.w + sc[u].w);
+    }
+    if (c0 + kPassWin < nc) {
+#pragma unroll
+      for (int u = 0; u < kPassWin; ++u) {
+        sc[u] = nsc[u];
+        dec[u] = ndec[u];
+      }
+    }
   }
   if (final_state != nullptr) *reinterpret_cast<float4*>(final_state + bh * PN + e) = hs;
 }
@@ -416,6 +442,7 @@ struct Args {
   float* final_state;  // f32 [B, H, P, N], or null: not written
   int B, S, H, G, P, N, Q;
   Strides sx, sdt, sb, sc;
+  int runs, run_len;  // f32: runs of a group's heads, heads a run
 };
 
 // A 4-D map over x [B, S, H, P] or Bm / Cm [B, S, G, N] (strides in
@@ -467,8 +494,8 @@ int launch_wgmma(const Args& a, cudaStream_t stream) {
   if (const cudaError_t e = cudaGetLastError(); e != cudaSuccess) return static_cast<int>(e);
   const int PN = a.P * a.N;
   const dim3 pass_grid(a.B * a.H, (PN / 4 + kPassThreads - 1) / kPassThreads);
-  ssd_fwd_state_pass<<<pass_grid, kPassThreads, 0, stream>>>(a.cum, a.state, a.h_in,
-                                                              a.final_state, nc, a.Q, PN);
+  ssd_fwd_state_pass<__nv_bfloat16><<<pass_grid, kPassThreads, 0, stream>>>(
+      a.cum, a.state, a.h_in, a.final_state, nc, a.Q, PN);
   if (const cudaError_t e = cudaGetLastError(); e != cudaSuccess) return static_cast<int>(e);
   ssd_fwd_chunk_scan<Pp, Np, QT><<<grid, 2 * QT, kSmem3, stream>>>(
       tx, tb, tc, th, a.dt, a.cum, a.D, static_cast<__nv_bfloat16*>(a.y), a.S, a.H, a.G, a.P,
@@ -478,254 +505,197 @@ int launch_wgmma(const Args& a, cudaStream_t stream) {
 
 // ========================================================= f32: CUDA cores
 
-constexpr int kThreads = 256;   // 8 warps
-constexpr int kPanel = 32;      // rows of W built at a time
-constexpr int kMaxQ = 128;
-constexpr int kLoadBatch = 8;   // tile loads in flight per thread
-
-// Shared-memory floats for one block, in the order they are laid out.
-__host__ __device__ constexpr int smem_floats(int Q, int P, int N) {
-  return Q * P               // x tile            [Q][P]
-         + Q * (N + 1)       // B tile            [Q][N + 1]
-         + kPanel * (N + 1)  // C panel           [32][N + 1]
-         + P * (N + 1)       // state h_in        [P][N + 1]
-         + kPanel * (Q + 1)  // W panel           [32][Q + 1]
-         + 3 * Q;            // dt, cum, exp(seg - cum) * dt
+// y's columns a chunk-scan block computes: P, or 64 of P = 128.
+__host__ __device__ constexpr int pt_of(int P) { return P < 64 ? P : 64; }
+// The chunk scan's shared memory past C, h_in and x's first stage: B's key
+// rows until S is formed, then W's 64 rows and x's second stage.
+__host__ __device__ constexpr int scan_cc_late(int PT, int N, int QT) {
+  return QT * (N + 4) > 64 * (QT + 4) + QT * (PT + 4) ? QT * (N + 4)
+                                                      : 64 * (QT + 4) + QT * (PT + 4);
+}
+// Floats of the chunk scan's shared memory at tile rows QT: C's 64 query
+// rows, h_in's PT rows, x's first stage (QT key rows), the late room, dt
+// and cum.  Rows of every tile 16 bytes longer than their width.
+__host__ __device__ constexpr int scan_cc_floats(int P, int N, int QT) {
+  return 64 * (N + 4) + pt_of(P) * (N + 4) + QT * (pt_of(P) + 4) + scan_cc_late(pt_of(P), N, QT) +
+         2 * QT;
 }
 
-// Rows [row0, row0 + rows) of a [*, cols] tile (row stride `stride`) into
-// shared memory with leading dimension ld; rows past S load as zeros.  Each
-// thread starts kLoadBatch loads before it stores any.
-__device__ __forceinline__ void load_tile(float* dst, int ld, const float* src, int64_t stride,
-                                          int rows, int cols, int row0, int S, int tid) {
-  const int total = rows * cols;
-  for (int e0 = tid; e0 < total; e0 += kLoadBatch * kThreads) {
-    float v[kLoadBatch];
-#pragma unroll
-    for (int u = 0; u < kLoadBatch; ++u) {
-      const int e = e0 + u * kThreads, i = e / cols, c = e - i * cols;
-      v[u] = e < total && row0 + i < S ? src[(row0 + i) * stride + c] : 0.f;
+// 1. The chunk states s_c = (w x)^T B of a run of a group's heads, and cum,
+// one block per (chunk, run, b) (ssd_cuda_cores.cuh's chunk_states_run).
+template <int P, int N>
+__global__ void __launch_bounds__(kCcThreads, 1)
+ssd_fwd_chunk_state_cc(const Args a) {
+  extern __shared__ __align__(16) float smem_f[];
+  const int c = blockIdx.x, run = blockIdx.y % a.runs, g = blockIdx.y / a.runs, b = blockIdx.z;
+  const int hpg = a.H / a.G, h0 = g * hpg + run * a.run_len;
+  const int nh = min(a.run_len, hpg - run * a.run_len);
+  const int nc = gridDim.x, t0 = c * a.Q, QT = a.Q <= 64 ? 64 : 128;
+  const int64_t PN = static_cast<int64_t>(P) * N, bh0 = static_cast<int64_t>(b) * a.H;
+  const Rows x{static_cast<const float*>(a.x) + b * a.sx.b + t0 * a.sx.s, a.sx.s, a.sx.h};
+  const Rows m{static_cast<const float*>(a.Bm) + b * a.sb.b + t0 * a.sb.s + g * a.sb.h, a.sb.s, 0};
+  const Rows dt{a.dt + b * a.sdt.b + t0 * a.sdt.s, a.sdt.s, a.sdt.h};
+  chunk_states_run<P, N, true>(smem_f, x, m, dt, a.A, a.cum + bh0 * nc * a.Q + t0,
+                               static_cast<int64_t>(nc) * a.Q, a.state + (bh0 * nc + c) * PN,
+                               nc * PN, h0, nh, min(a.Q, a.S - t0), a.Q, QT);
+}
+
+// 3. One 64-row query tile (rows i0 .. i0 + 63 of chunk c, KT = i0 + 64 key
+// rows) of y's columns [64 ph, 64 ph + PT), over a run of a group's heads.
+// S = C B^T is formed once, into registers (the thread's rows and key
+// columns), kept over the run; per head:
+//   y = exp(cum_i) (C h_in^T) + W x + D x,
+//   W = S exp(cum_i - cum_j) dt_j, masked to j <= i before the exponential,
+// W through shared memory (rows i, key columns j).  x by cp.async into two
+// stages, the next head's in flight while one is computed; h_in into one
+// buffer, the next head's loaded as soon as C h_in^T has read it.
+template <int P, int N, int KT>
+__device__ __forceinline__ void chunk_scan_cc(const Args& a, float* smem, int c, int i0, int ph,
+                                              int g, int h0, int nh, int b) {
+  constexpr int PT = pt_of(P), LP = PT + 4, LN = N + 4, LW = KT + 4, JS = KT / 16, JY = PT / 16;
+  const int Q = a.Q, S = a.S, QT = Q <= 64 ? 64 : 128, nc = (S + Q - 1) / Q, t0 = c * Q;
+  const int rows = min(Q, S - t0);  // the chunk's rows with data
+  if (i0 >= rows) return;           // a tile past S: no row of y to write
+  const int kv = min(KT, rows);     // key rows with data
+  float* sC = smem;
+  float* sH = sC + 64 * LN;
+  float* sX0 = sH + PT * LN;
+  float* late = sX0 + QT * LP;
+  float* sB = late;                 // until S is formed
+  float* sW = late;                 // then W and x's second stage
+  float* sX1 = late + 64 * (QT + 4);
+  float* sDt = late + scan_cc_late(PT, N, QT);
+  float* sCum = sDt + QT;
+  const int tid = threadIdx.x, warp = tid / 32, ty = tid / 16, tx = tid % 16;
+  const int64_t bh0 = static_cast<int64_t>(b) * a.H, PN = static_cast<int64_t>(P) * N;
+  const float* x = static_cast<const float*>(a.x) + b * a.sx.b + t0 * a.sx.s + 64 * ph;
+  const float* dtb = a.dt + b * a.sdt.b + t0 * a.sdt.s;
+  auto h_rows = [&](int h) {  // rows [64 ph, 64 ph + PT) of h_in entering chunk c
+    const int64_t slot = (bh0 + h) * nc + c;
+    return a.state + slot * PN + 64 * ph * N;
+  };
+  load_rows_async(sC, LN,
+                  static_cast<const float*>(a.Cm) + b * a.sc.b + (t0 + i0) * a.sc.s + g * a.sc.h,
+                  a.sc.s, 64, min(64, rows - i0), N);
+  load_rows_async(sB, LN, static_cast<const float*>(a.Bm) + b * a.sb.b + t0 * a.sb.s + g * a.sb.h,
+                  a.sb.s, KT, kv, N);
+  cp_async_commit();
+  load_rows_async(sX0, LP, x + h0 * a.sx.h, a.sx.s, KT, kv, PT);
+  load_rows_async(sH, LN, h_rows(h0), N, PT, PT, N);
+  cp_async_commit();
+  auto dt_of = [&](int h) { return tid < kv ? dtb[tid * a.sdt.s + h * a.sdt.h] : 0.f; };
+  auto cum_of = [&](int h) {
+    return tid < KT && tid < Q ? a.cum[(bh0 + h) * nc * Q + t0 + tid] : 0.f;
+  };
+  float pdt = dt_of(h0), pcum = cum_of(h0);
+  cp_async_wait<1>();  // C and B are in
+  __syncthreads();
+  float sreg[4][JS];   // S [i0 + 4ty + i][tx + 16j]: the group's, kept over the run
+  zero_tile(sreg);
+  mm_dots(sreg, sC, LN, sB, LN, N);
+  __syncthreads();     // B is read: its room takes W and x's second stage
+  if (nh > 1) load_rows_async(sX1, LP, x + (h0 + 1) * a.sx.h, a.sx.s, KT, kv, PT);
+  cp_async_commit();
+
+  for (int k = 0; k < nh; ++k) {
+    const int h = h0 + k;
+    float* sx = (k & 1) ? sX1 : sX0;
+    if (tid < KT) {
+      sDt[tid] = pdt;
+      sCum[tid] = pcum;
     }
-#pragma unroll
-    for (int u = 0; u < kLoadBatch; ++u) {
-      const int e = e0 + u * kThreads, i = e / cols, c = e - i * cols;
-      if (e < total) dst[i * ld + c] = v[u];
+    if (k + 1 < nh) {
+      pdt = dt_of(h + 1);
+      pcum = cum_of(h + 1);
     }
+    cp_async_wait<1>();  // this head's x and h_in are in
+    __syncthreads();
+    float acc[4][JY];    // y [i0 + 4ty + i][64 ph + tx + 16j]
+    zero_tile(acc);
+    mm_dots(acc, sC, LN, sH, LN, N);
+    __syncthreads();     // h_in is read: the next head's goes in
+    if (k + 1 < nh) load_rows_async(sH, LN, h_rows(h + 1), N, PT, PT, N);
+    cp_async_commit();
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = 4 * ty + i, ri = i0 + r;
+      const float ci = sCum[ri];
+#pragma unroll
+      for (int j = 0; j < JS; ++j) {
+        const int cj = tx + 16 * j;
+        sW[r * LW + cj] = cj <= ri && ri < rows ? sreg[i][j] * expf(ci - sCum[cj]) * sDt[cj] : 0.f;
+      }
+      const float e = expf(ci);
+#pragma unroll
+      for (int j = 0; j < JY; ++j) acc[i][j] *= e;
+    }
+    __syncthreads();     // W is in
+    // y += W x over the key rows this warp's rows see
+    mm_rows(acc, sW, LW, sx, LP, 0, min(KT, i0 + 8 * warp + 8));
+    const float dskip = a.D[h];
+    float* yb = static_cast<float*>(a.y) + ((static_cast<int64_t>(b) * S + t0) * a.H + h) * P +
+                64 * ph;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = i0 + 4 * ty + i;
+      if (r >= rows) continue;
+#pragma unroll
+      for (int j = 0; j < JY; ++j) {
+        const int p = tx + 16 * j;
+        yb[static_cast<int64_t>(r) * a.H * P + p] = acc[i][j] + dskip * sx[r * LP + p];
+      }
+    }
+    __syncthreads();     // x's stage and W are read
+    if (k + 2 < nh) load_rows_async(sx, LP, x + (h + 2) * a.sx.h, a.sx.s, KT, kv, PT);
+    cp_async_commit();
   }
 }
 
-// One panel of W: rows warp + 8k (k < 4) of the panel starting at row i0,
-// columns lane + 32m for the NC column groups the panel's rows can see.
-template <int N, int NC>
-__device__ __forceinline__ void w_panel(const float* sC, const float* sB, float* sW,
-                                        const float* sCum, const float* sDt, int LDW, int i0,
-                                        int warp, int lane) {
-  constexpr int LDB = N + 1;
-  float acc[4][NC];
-#pragma unroll
-  for (int k = 0; k < 4; ++k)
-#pragma unroll
-    for (int m = 0; m < NC; ++m) acc[k][m] = 0.f;
-#pragma unroll 4
-  for (int n = 0; n < N; ++n) {
-    float cr[4], bj[NC];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) cr[k] = sC[(warp + 8 * k) * LDB + n];
-#pragma unroll
-    for (int m = 0; m < NC; ++m) bj[m] = sB[(lane + 32 * m) * LDB + n];
-#pragma unroll
-    for (int k = 0; k < 4; ++k)
-#pragma unroll
-      for (int m = 0; m < NC; ++m) acc[k][m] = fmaf(cr[k], bj[m], acc[k][m]);
-  }
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const int r = warp + 8 * k, i = i0 + r;
-#pragma unroll
-    for (int m = 0; m < NC; ++m) {
-      const int j = lane + 32 * m;
-      sW[r * LDW + j] = i >= j ? acc[k][m] * expf(sCum[i] - sCum[j]) * sDt[j] : 0.f;
-    }
-  }
+// 3. A block per (chunk, 64-row query half, 64 columns of y where P = 128;
+// run of a group's heads; b).
+template <int P, int N>
+__global__ void __launch_bounds__(kCcThreads, 1)
+ssd_fwd_chunk_scan_cc(const Args a) {
+  extern __shared__ __align__(16) float smem_f[];
+  const int halves = a.Q <= 64 ? 1 : 2, ps = P / pt_of(P);
+  const int c = blockIdx.x / (halves * ps), rest = blockIdx.x % (halves * ps);
+  const int ih = rest / ps, ph = rest % ps;
+  const int run = blockIdx.y % a.runs, g = blockIdx.y / a.runs, b = blockIdx.z;
+  const int hpg = a.H / a.G, h0 = g * hpg + run * a.run_len;
+  const int nh = min(a.run_len, hpg - run * a.run_len);
+  if (ih == 0)
+    chunk_scan_cc<P, N, 64>(a, smem_f, c, 0, ph, g, h0, nh, b);
+  else
+    chunk_scan_cc<P, N, 128>(a, smem_f, c, 64, ph, g, h0, nh, b);
 }
 
 template <int P, int N>
-__global__ void __launch_bounds__(kThreads, 1)
-ssd_fwd_f32(const float* __restrict__ x, const float* __restrict__ dt,
-            const float* __restrict__ A, const float* __restrict__ Bm,
-            const float* __restrict__ Cm, const float* __restrict__ D, float* __restrict__ y,
-            float* __restrict__ final_state, int S, int H, int G, int Q, Strides sx,
-            Strides sdt, Strides sb, Strides sc) {
-  // y micro-tile: columns p = lane % LP + LP * m (m < PM), rows
-  // r = warp * RW + lane / LP + 8 * RW * k (k < RM) of a 32-row panel.
-  constexpr int LP = P < 32 ? P : 32, RW = 32 / LP, PM = P / LP, RM = 4 / RW;
-  // state micro-tile: columns n = lane % LN + LN * m (m < NM), rows
-  // p = warp * RWn + lane / LN + 8 * RWn * k (k < PK).
-  constexpr int LN = N < 32 ? N : 32, RWn = 32 / LN, NM = N / LN, PK = P / (8 * RWn);
-  constexpr int LDB = N + 1, LDS = N + 1;
-
-  extern __shared__ float smem_f[];
-  const int LDW = Q + 1;
-  float* sX = smem_f;
-  float* sB = sX + Q * P;
-  float* sC = sB + Q * LDB;
-  float* sS = sC + kPanel * LDB;
-  float* sW = sS + P * LDS;
-  float* sDt = sW + kPanel * LDW;
-  float* sCum = sDt + Q;
-  float* sWj = sCum + Q;
-
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int g = h / (H / G);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const float a = A[h], dskip = D[h];
-
-  const float* xb = x + b * sx.b + h * sx.h;
-  const float* dtb = dt + b * sdt.b + h * sdt.h;
-  const float* Bb = Bm + b * sb.b + g * sb.h;
-  const float* Cb = Cm + b * sc.b + g * sc.h;
-  float* yb = y + (static_cast<int64_t>(b) * S * H + h) * P;
-  const int64_t sy = static_cast<int64_t>(H) * P;
-  const int yp = lane % LP, yr = warp * RW + lane / LP;
-  const int sn = lane % LN, sp = warp * RWn + lane / LN;
-
-  float hs[PK][NM];  // this thread's part of the state, across chunks
-#pragma unroll
-  for (int k = 0; k < PK; ++k)
-#pragma unroll
-    for (int m = 0; m < NM; ++m) hs[k][m] = 0.f;
-  for (int e = tid; e < P * LDS; e += kThreads) sS[e] = 0.f;
-
-  const int n_chunks = (S + Q - 1) / Q;
-  for (int c = 0; c < n_chunks; ++c) {
-    const int t0 = c * Q;
-    // ---- load the chunk's x, B and dt (rows past S: zeros, dt = 0)
-    load_tile(sX, P, xb, sx.s, Q, P, t0, S, tid);
-    load_tile(sB, LDB, Bb, sb.s, Q, N, t0, S, tid);
-    for (int i = tid; i < Q; i += kThreads) {
-      const int t = t0 + i;
-      sDt[i] = t < S ? dtb[t * sdt.s] : 0.f;
-    }
-    __syncthreads();
-    if (warp == 0) chunk_cumsum(sDt, sCum, a, Q, lane);
-    __syncthreads();
-    const float seg = sCum[Q - 1];
-    for (int i = tid; i < Q; i += kThreads) sWj[i] = expf(seg - sCum[i]) * sDt[i];
-
-    // ---- row panels of W and y
-    for (int i0 = 0; i0 < Q; i0 += kPanel) {
-      load_tile(sC, LDB, Cb, sc.s, kPanel, N, t0 + i0, S, tid);
-      __syncthreads();
-
-      switch (i0 / kPanel) {  // the column groups the panel's rows can see
-        case 0: w_panel<N, 1>(sC, sB, sW, sCum, sDt, LDW, i0, warp, lane); break;
-        case 1: w_panel<N, 2>(sC, sB, sW, sCum, sDt, LDW, i0, warp, lane); break;
-        case 2: w_panel<N, 3>(sC, sB, sW, sCum, sDt, LDW, i0, warp, lane); break;
-        default: w_panel<N, 4>(sC, sB, sW, sCum, sDt, LDW, i0, warp, lane); break;
-      }
-      __syncthreads();
-
-      // y rows of the panel: intra-chunk W x, inter-chunk (C h_in) exp(cum)
-      float intra[RM][PM], inter[RM][PM];
-#pragma unroll
-      for (int k = 0; k < RM; ++k)
-#pragma unroll
-        for (int m = 0; m < PM; ++m) intra[k][m] = inter[k][m] = 0.f;
-#pragma unroll 4
-      for (int n = 0; n < N; ++n) {
-        float cr[RM], hv[PM];
-#pragma unroll
-        for (int k = 0; k < RM; ++k) cr[k] = sC[(yr + 8 * RW * k) * LDB + n];
-#pragma unroll
-        for (int m = 0; m < PM; ++m) hv[m] = sS[(yp + LP * m) * LDS + n];
-#pragma unroll
-        for (int k = 0; k < RM; ++k)
-#pragma unroll
-          for (int m = 0; m < PM; ++m) inter[k][m] = fmaf(cr[k], hv[m], inter[k][m]);
-      }
-      const int jend = i0 + kPanel;  // W is 0 above the diagonal
-#pragma unroll 4
-      for (int j = 0; j < jend; ++j) {
-        float wr[RM], xv[PM];
-#pragma unroll
-        for (int k = 0; k < RM; ++k) wr[k] = sW[(yr + 8 * RW * k) * LDW + j];
-#pragma unroll
-        for (int m = 0; m < PM; ++m) xv[m] = sX[j * P + yp + LP * m];
-#pragma unroll
-        for (int k = 0; k < RM; ++k)
-#pragma unroll
-          for (int m = 0; m < PM; ++m) intra[k][m] = fmaf(wr[k], xv[m], intra[k][m]);
-      }
-#pragma unroll
-      for (int k = 0; k < RM; ++k) {
-        const int i = i0 + yr + 8 * RW * k, t = t0 + i;
-        if (t >= S) continue;
-        const float ecum = expf(sCum[i]);
-#pragma unroll
-        for (int m = 0; m < PM; ++m) {
-          const int p = yp + LP * m;
-          const float v = intra[k][m] + inter[k][m] * ecum;
-          yb[t * sy + p] = v + dskip * sX[i * P + p];
-        }
-      }
-      __syncthreads();  // the next panel rewrites sC and sW; the state
-                        // update below rewrites sS (h_in)
-    }
-
-    // ---- state update: h = exp(seg) h + sum_j x_j^T (wj_j B_j)
-    float acc[PK][NM];
-#pragma unroll
-    for (int k = 0; k < PK; ++k)
-#pragma unroll
-      for (int m = 0; m < NM; ++m) acc[k][m] = 0.f;
-#pragma unroll 4
-    for (int j = 0; j < Q; ++j) {
-      const float wj = sWj[j];
-      float bw[NM], xv[PK];
-#pragma unroll
-      for (int m = 0; m < NM; ++m) bw[m] = sB[j * LDB + sn + LN * m] * wj;
-#pragma unroll
-      for (int k = 0; k < PK; ++k) xv[k] = sX[j * P + sp + 8 * RWn * k];
-#pragma unroll
-      for (int k = 0; k < PK; ++k)
-#pragma unroll
-        for (int m = 0; m < NM; ++m) acc[k][m] = fmaf(xv[k], bw[m], acc[k][m]);
-    }
-    const float decay = expf(seg);
-#pragma unroll
-    for (int k = 0; k < PK; ++k)
-#pragma unroll
-      for (int m = 0; m < NM; ++m) {
-        hs[k][m] = decay * hs[k][m] + acc[k][m];
-        sS[(sp + 8 * RWn * k) * LDS + sn + LN * m] = hs[k][m];
-      }
-    __syncthreads();  // sS, sX, sB are rewritten by the next chunk
-  }
-  if (final_state == nullptr) return;
-  float* fin = final_state + (static_cast<int64_t>(b) * H + h) * P * N;
-#pragma unroll
-  for (int k = 0; k < PK; ++k)
-#pragma unroll
-    for (int m = 0; m < NM; ++m) fin[(sp + 8 * RWn * k) * N + sn + LN * m] = hs[k][m];
-}
-
-template <int P, int N>
-int launch_f32(const Args& a, cudaStream_t stream) {
-  constexpr int kMaxSmem = smem_floats(kMaxQ, P, N) * 4;
-  static_assert(kMaxSmem <= 232448, "shared memory over the 227 KB a block may have");
+int launch_cc(const Args& a, cudaStream_t stream) {
+  constexpr int kMax1 = states_cc_floats(P, N, 128) * 4, kMax3 = scan_cc_floats(P, N, 128) * 4;
+  static_assert(kMax1 <= 232448 && kMax3 <= 232448,
+                "shared memory over the 227 KB a block may have");
   // once per instantiation, at its first launch (outside any graph capture)
   static bool configured = false;
   if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        ssd_fwd_f32<P, N>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    cudaError_t err = cudaFuncSetAttribute(ssd_fwd_chunk_state_cc<P, N>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, kMax1);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(ssd_fwd_chunk_scan_cc<P, N>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, kMax3);
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
-  const dim3 grid(a.H, a.B);
-  ssd_fwd_f32<P, N><<<grid, kThreads, smem_floats(a.Q, P, N) * 4, stream>>>(
-      static_cast<const float*>(a.x), a.dt, a.A, static_cast<const float*>(a.Bm),
-      static_cast<const float*>(a.Cm), a.D, static_cast<float*>(a.y), a.final_state, a.S, a.H,
-      a.G, a.Q, a.sx, a.sdt, a.sb, a.sc);
+  const int nc = (a.S + a.Q - 1) / a.Q, QT = a.Q <= 64 ? 64 : 128, PN = P * N;
+  ssd_fwd_chunk_state_cc<P, N><<<dim3(nc, a.G * a.runs, a.B), kCcThreads,
+                                  states_cc_floats(P, N, QT) * 4, stream>>>(a);
+  if (const cudaError_t e = cudaGetLastError(); e != cudaSuccess) return static_cast<int>(e);
+  const dim3 pass_grid(a.B * a.H, (PN / 4 + kPassThreads - 1) / kPassThreads);
+  ssd_fwd_state_pass<float><<<pass_grid, kPassThreads, 0, stream>>>(a.cum, a.state, a.state,
+                                                                    a.final_state, nc, a.Q, PN);
+  if (const cudaError_t e = cudaGetLastError(); e != cudaSuccess) return static_cast<int>(e);
+  const int tiles = (QT / 64) * (P / pt_of(P));
+  ssd_fwd_chunk_scan_cc<P, N><<<dim3(nc * tiles, a.G * a.runs, a.B), kCcThreads,
+                                 scan_cc_floats(P, N, QT) * 4, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -738,10 +708,10 @@ bool head_dim(int d) { return d == 16 || d == 32 || d == 64 || d == 128; }
 template <int P>
 Launch f32_for(int N) {
   switch (N) {
-    case 16: return launch_f32<P, 16>;
-    case 32: return launch_f32<P, 32>;
-    case 64: return launch_f32<P, 64>;
-    case 128: return launch_f32<P, 128>;
+    case 16: return launch_cc<P, 16>;
+    case 32: return launch_cc<P, 32>;
+    case 64: return launch_cc<P, 64>;
+    case 128: return launch_cc<P, 128>;
     default: return nullptr;
   }
 }
@@ -751,12 +721,12 @@ Launch wgmma_for(int rows) {
   return rows == 64 ? launch_wgmma<Pp, Np, 64> : rows == 128 ? launch_wgmma<Pp, Np, 128> : nullptr;
 }
 
-// The instantiation for (dtype, P, N, tile rows), or nullptr.  Tile rows:
-// the chunk rounded up to 64 for bf16; the chunk itself for f32.
+// The instantiation for (dtype, P, N, tile rows: the chunk rounded up to
+// 64), or nullptr.
 Launch find(int dtype, int P, int N, int rows) {
   if (!head_dim(P) || !head_dim(N)) return nullptr;
   if (dtype == 0) {
-    if (rows % 32 || rows < 32 || rows > kMaxQ) return nullptr;
+    if (rows != 64 && rows != 128) return nullptr;
     switch (P) {
       case 16: return f32_for<16>(N);
       case 32: return f32_for<32>(N);
@@ -772,50 +742,59 @@ Launch find(int dtype, int P, int N, int rows) {
 
 }  // namespace
 
-// Threads and dynamic shared memory of phase `phase` of the instantiation
-// for (dtype, P, N, tile rows): bf16 (dtype 1) has phases 0 chunk state,
-// 1 state pass, 2 chunk scan; f32 (dtype 0) one.  cudaErrorInvalidValue if
-// there is no such instantiation or phase.
+// Threads and dynamic shared memory of phase `phase` (0 chunk state, 1
+// state pass, 2 chunk scan) of the instantiation for (dtype, P, N, tile
+// rows).  cudaErrorInvalidValue if there is no such instantiation or phase.
 extern "C" int ssd_scan_geometry(int dtype, int P, int N, int rows, int phase, int* threads,
                                  int* smem) {
-  if (find(dtype, P, N, rows) == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 0 && phase == 0) {
-    *threads = kThreads;
-    *smem = smem_floats(rows, P, N) * 4;
+  if (find(dtype, P, N, rows) == nullptr || phase < 0 || phase > 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (phase == 1) {
+    *threads = kPassThreads;
+    *smem = 0;
+    return 0;
+  }
+  if (dtype == 0) {
+    *threads = kCcThreads;
+    *smem = (phase == 0 ? states_cc_floats(P, N, rows) : scan_cc_floats(P, N, rows)) * 4;
     return 0;
   }
   const int Pp = padded(P), Np = padded(N);
-  switch (dtype == 1 ? phase : -1) {
-    case 0: *threads = 128; *smem = chunk_state_smem(Pp, Np, rows); return 0;
-    case 1: *threads = kPassThreads; *smem = 0; return 0;
-    case 2: *threads = 2 * rows; *smem = chunk_scan_smem(Pp, Np, rows); return 0;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  *threads = phase == 0 ? 128 : 2 * rows;
+  *smem = phase == 0 ? chunk_state_smem(Pp, Np, rows) : chunk_scan_smem(Pp, Np, rows);
+  return 0;
 }
 
-// dtype of x, Bm, Cm and y: 0 = float32 (the CUDA-core kernel), 1 =
-// bfloat16 (the three tensor-core phases, which take the scratch: cum f32
-// [B, H, nc * Q], state f32 and h_in bf16 [B, H, nc, P, N], nc = ceil(S /
-// Q)).  final_state: f32 [B, H, P, N], 16-byte aligned, for the state after
-// the last step, or null.  rows: the plan's tile rows.  Strides are in elements, for the batch,
-// sequence and head (group) axes; the last axis of x, Bm and Cm is
-// contiguous.  The wrapper checks the shapes, and for bf16 that x, Bm, Cm
-// are 16-byte aligned with strides of a multiple of 16 bytes.
+// dtype of x, Bm, Cm and y: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor
+// cores).  Scratch: cum f32 [B, H, nc * Q] and state f32 [B, H, nc, P, N]
+// (nc = ceil(S / Q)) for both; h_in bf16 [B, H, nc, P, N] for bf16 (f32
+// hands h_in on over the state, in place; h_in is null).  final_state: f32
+// [B, H, P, N], 16-byte aligned, for the state after the last step, or
+// null.  rows: the plan's tile rows; runs: f32's runs of a group's heads
+// (kernel_plan's "runs"; bf16 ignores it).  Strides are in elements, for
+// the batch, sequence and head (group) axes; the last axis of x, Bm and Cm
+// is contiguous.  The wrapper checks the shapes, that x, Bm, Cm are 16-byte
+// aligned, and that their strides are multiples of 16 bytes.
 extern "C" int ssd_scan_fwd(const void* x, const void* dt, const void* A, const void* Bm,
                             const void* Cm, const void* D, void* y, void* cum, void* state,
                             void* h_in, void* final_state, int B, int S, int H, int G, int P,
-                            int N, int Q,
-                            int dtype, int rows, int64_t sxb, int64_t sxs, int64_t sxh,
-                            int64_t sdb, int64_t sds, int64_t sdh, int64_t sbb, int64_t sbs,
-                            int64_t sbg, int64_t scb, int64_t scs, int64_t scg, void* stream) {
+                            int N, int Q, int dtype, int rows, int runs, int64_t sxb,
+                            int64_t sxs, int64_t sxh, int64_t sdb, int64_t sds, int64_t sdh,
+                            int64_t sbb, int64_t sbs, int64_t sbg, int64_t scb, int64_t scs,
+                            int64_t scg, void* stream) {
   const Launch launch = find(dtype, P, N, rows);
-  if (launch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (launch == nullptr || G <= 0 || H % G) return static_cast<int>(cudaErrorInvalidValue);
+  const int hpg = H / G;
+  if (dtype == 0 && (runs < 1 || runs > hpg)) return static_cast<int>(cudaErrorInvalidValue);
+  const int run_len = dtype == 0 ? (hpg + runs - 1) / runs : hpg;
+  if (dtype == 0 && (runs - 1) * run_len >= hpg) return static_cast<int>(cudaErrorInvalidValue);
   const Args a{x, Bm, Cm,
                static_cast<const float*>(dt), static_cast<const float*>(A),
                static_cast<const float*>(D), y,
                static_cast<float*>(cum), static_cast<float*>(state),
                static_cast<__nv_bfloat16*>(h_in), static_cast<float*>(final_state),
                B, S, H, G, P, N, Q,
-               {sxb, sxs, sxh}, {sdb, sds, sdh}, {sbb, sbs, sbg}, {scb, scs, scg}};
+               {sxb, sxs, sxh}, {sdb, sds, sdh}, {sbb, sbs, sbg}, {scb, scs, scg},
+               runs, run_len};
   return launch(a, static_cast<cudaStream_t>(stream));
 }

@@ -37,8 +37,8 @@
 // G); everything else is chunk-parallel.  The state terms of a group's
 // heads are one product with the heads stacked along K, so neither they
 // nor dS^T C and dS B need per-head partials in device memory.  S itself
-// is head-free, but the dx / dS launch below forms S^T again for every
-// head of a run.
+// is head-free: the f32 dx / dS launch forms S^T once a run; the bf16 one
+// forms it again for every head of a run.
 //
 // * bf16 (variant "wgmma"): six launches on the caller's stream, products
 //   on the tensor cores (wgmma m64 n{64, 128} k16, f32 accumulators), x,
@@ -78,20 +78,33 @@
 //   dS^T (QT / 2 floats a thread) beside dx's accumulator and one 64-column
 //   half of S^T and R^T at a time, so a warpgroup holds a 64 x 64 tile of
 //   each, not 64 x QT.
-// * f32 (variant "cuda_cores"): six launches of 4 warps, the products on
-//   the CUDA cores in f32 FMAs (no TF32), 32-row panels:
-//   1. ssd_bwd_chunk_states, a block per (chunk, h, b): cum, the chunk's
-//      own state and state gradient.
-//   2. ssd_bwd_chain<float>: the bf16 chain with h and G handed on in f32,
-//      in place.
-//   3. ssd_bwd_dx_db, a block per (key panel, chunk, h, b): dx and the
-//      head's dB, the column sums of S L R and dw.
-//   4. ssd_bwd_dc, a block per (query panel, chunk, h, b): the head's dC,
-//      the row sums of M R and exp(cum) C . (dy h).
-//   5. ssd_bwd_dcum (both variants), a block per (chunk, h, b): dcum, its
-//      reverse cumsum by one warp, ddt, and the chunk's part of dA.
-//   6. ssd_bwd_reduce: dBm and dCm sum their group's heads in order; dA
-//      and dD sum their parts over batch and chunks in order.
+// * f32 (variant "cuda_cores"): the same structure on the CUDA cores in
+//   f32 FMAs (no TF32), 256-thread blocks of 64-row f32 tiles loaded by
+//   cp.async (rows 16 bytes longer than their width), every product a
+//   64-row tile of 4 x (width / 16) register blocks (cuda_cores.cuh); the
+//   same head runs as bf16, each block walking its run in order with the
+//   next head's tiles in flight (two stages where they fit at 128-row
+//   tiles, else one):
+//   1. ssd_bwd_states_cc, two blocks per (chunk, run, b): cum and each
+//      head's own state, or its state gradient (ssd_cuda_cores.cuh).
+//   2. ssd_bwd_chain<float>: h and G handed on in f32, in place.
+//   3. ssd_bwd_dx_ds_cc, a block per (chunk, 64-row key block, run, b):
+//      S^T = B C^T once, kept in registers over the run; per head R^T,
+//      B G^T (dw), M^T through shared memory for dx's product, dS^T summed
+//      over the run's heads in f32 registers (written once, f32), the row
+//      and column sums dcum needs, dx, dD's part.
+//   4. ssd_bwd_db_dc_cc, a block per (chunk, dB or dC, 64-row block, run,
+//      b): the state terms stacked along K in one accumulator, then
+//      + dS^T C or + dS B; exp(cum_i) C_i . (dy_i h) of each head.
+//   5. ssd_bwd_dcum, 6. ssd_bwd_reduce_runs<float>: as below.
+//   Scratch: as bf16's, dS in f32; 219.3 MB at the training shape, no
+//   [B, S, H, N] tensor.
+// Both variants end with
+//   5. ssd_bwd_dcum, a block per (chunk, h, b): dcum, its reverse cumsum
+//      by one warp, ddt, and the chunk's part of dA;
+//   6. ssd_bwd_reduce_runs<Out>: dA and dD sum their parts
+//      over batch and chunks in order; where the heads are split into runs,
+//      dBm and dCm sum the runs' parts in order.
 // No atomics: every sum runs in a fixed order, so the same inputs give
 // bitwise the same gradients.  Rows past S load as zeros with dt = 0
 // (identity steps, as the forward pads) and get no gradient written.
@@ -100,182 +113,18 @@
 // error of cudaFuncSetAttribute, or hopper.cuh's kNoEncoder /
 // kEncodeFailed), so the Python wrapper can raise.
 
-#include "hopper.cuh"
+#include "ssd_cuda_cores.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kThreads = 128;      // 4 warps: every chunk-parallel kernel
+constexpr int kThreads = 128;      // dcum: threads a block
 constexpr int kPassThreads = 256;  // reductions
 constexpr int kChain = 256;        // state chain: threads a block, 4 elements each
 constexpr int kWin = 8;            // state chain: chunks a thread loads before it computes
-constexpr int kPanel = 32;         // rows of a panel
 constexpr int kMaxQ = 128;         // the longest chunk
-constexpr int kRed = 512;          // floats of a block's reduction scratch
-constexpr int kRow = 0, kCol = 1;  // operand layouts in shared memory
-
-// Leading dimension of a shared f32 tile of w columns: rows 16 bytes apart
-// beyond their width, so 8 rows of a fragment fall in 8 banks.
-__host__ __device__ constexpr int ld_of(int w) { return w + 4; }
-// Floats after the tiles of phases 3 and 4: dt and cum of the chunk, two
-// vectors of a panel's rows, the reduction scratch.
-constexpr int kTail = 2 * kMaxQ + 2 * kPanel + kRed;
-
-__host__ __device__ constexpr int states_smem(int P, int N) {
-  return kPanel * (ld_of(P) + ld_of(N)) * 4 + 4 * kMaxQ * 4;
-}
-__host__ __device__ constexpr int dxdb_smem(int P, int N) {
-  return (2 * kPanel * (ld_of(P) + ld_of(N)) + P * ld_of(N) + 2 * kPanel * ld_of(32) + kTail) * 4;
-}
-__host__ __device__ constexpr int dc_smem(int P, int N) {
-  return (2 * kPanel * (ld_of(P) + ld_of(N)) + P * ld_of(N) + kPanel * ld_of(32) + kTail) * 4;
-}
-
-// ------------------------------------------------------------- fragments
-// A block's [MR x NC] output tile over its 4 warps: WM x WN warps, each
-// MT 16-row by NT 8-column fragments; warps past WM * WN hold nothing.
-template <int MR, int NC>
-struct Grid {
-  static constexpr int WM = MR / 16 < 4 ? MR / 16 : 4;
-  static constexpr int WN = NC / 8 < 4 / WM ? NC / 8 : 4 / WM;
-  static constexpr int MT = MR / 16 / WM;
-  static constexpr int NT = NC / 8 / WN;
-};
-
-// acc[mt][nt][e] holds row m0 + 16 mt + lane / 4 + 8 (e / 2), column
-// n0 + 8 nt + 2 (lane % 4) + e % 2 (the m16n8 accumulator of mma.sync).
-// warp_mma adds A (16 MT x K) times B (K x 8 NT) from shared memory, K a
-// multiple of 16: A(m, k) = a[m lda + k] (kRow) or a[k lda + m] (kCol),
-// B(k, n) = b[k ldb + n] (kRow) or b[n ldb + k] (kCol), m and n counted
-// from the warp's origin (m0, n0).
-template <int AL, int BL, int MT, int NT>
-__device__ __forceinline__ void warp_mma(float (&acc)[MT][NT][4], const float* a, int lda, int m0,
-                                         const float* b, int ldb, int n0, int K, int lane) {
-  const float* ao = AL == kRow ? a + m0 * lda : a + m0;
-  const float* bo = BL == kRow ? b + n0 : b + n0 * ldb;
-  const int r = lane / 4, c = 2 * (lane % 4);
-#pragma unroll 2
-  for (int k = 0; k < K; ++k) {
-    float av[MT][2], bv[NT][2];
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const int m = 16 * mt + r + 8 * u;
-        av[mt][u] = AL == kRow ? ao[m * lda + k] : ao[k * lda + m];
-      }
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const int n = 8 * nt + c + u;
-        bv[nt][u] = BL == kRow ? bo[k * ldb + n] : bo[n * ldb + k];
-      }
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          acc[mt][nt][e] = fmaf(av[mt][e >> 1], bv[nt][e & 1], acc[mt][nt][e]);
-  }
-}
-
-// The block's [MR x NC] tile += A B over K, each warp its fragments.
-template <int MR, int NC, int AL, int BL>
-__device__ __forceinline__ void block_mma(float (&acc)[Grid<MR, NC>::MT][Grid<MR, NC>::NT][4],
-                                          const float* a, int lda, const float* b, int ldb, int K,
-                                          int warp, int lane) {
-  using Gd = Grid<MR, NC>;
-  if (warp >= Gd::WM * Gd::WN) return;
-  warp_mma<AL, BL>(acc, a, lda, (warp % Gd::WM) * Gd::MT * 16, b, ldb,
-                   (warp / Gd::WM) * Gd::NT * 8, K, lane);
-}
-
-template <int MR, int NC>
-__device__ __forceinline__ void zero(float (&acc)[Grid<MR, NC>::MT][Grid<MR, NC>::NT][4]) {
-#pragma unroll
-  for (int mt = 0; mt < Grid<MR, NC>::MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < Grid<MR, NC>::NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
-}
-
-// f(value, row, column, mt, nt, e) for each element this thread holds.
-template <int MR, int NC, class F>
-__device__ __forceinline__ void for_each(float (&acc)[Grid<MR, NC>::MT][Grid<MR, NC>::NT][4],
-                                         int warp, int lane, F f) {
-  using Gd = Grid<MR, NC>;
-  if (warp >= Gd::WM * Gd::WN) return;
-  const int m0 = (warp % Gd::WM) * Gd::MT * 16 + lane / 4;
-  const int n0 = (warp / Gd::WM) * Gd::NT * 8 + 2 * (lane % 4);
-#pragma unroll
-  for (int mt = 0; mt < Gd::MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < Gd::NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        f(acc[mt][nt][e], m0 + 16 * mt + 8 * (e >> 1), n0 + 8 * nt + (e & 1), mt, nt, e);
-}
-
-// out[row] = the sum over the block of each thread's part[mt][u] of row
-// m0 + 16 mt + lane / 4 + 8 u: the 4 lanes of a row, then the WN warps of
-// its columns, in order.  Every thread of the block calls it.
-template <int MR, int NC>
-__device__ void reduce_rows(float (&part)[Grid<MR, NC>::MT][2], float* red, float* out, int warp,
-                            int lane, int tid) {
-  using Gd = Grid<MR, NC>;
-  if (warp < Gd::WM * Gd::WN) {
-    const int m0 = (warp % Gd::WM) * Gd::MT * 16 + lane / 4;
-#pragma unroll
-    for (int mt = 0; mt < Gd::MT; ++mt)
-#pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        float v = part[mt][u];
-        v += __shfl_xor_sync(0xffffffffu, v, 1);
-        v += __shfl_xor_sync(0xffffffffu, v, 2);
-        if (lane % 4 == 0) red[(warp / Gd::WM) * MR + m0 + 16 * mt + 8 * u] = v;
-      }
-  }
-  __syncthreads();
-  for (int i = tid; i < MR; i += kThreads) {
-    float s = 0.f;
-    for (int wn = 0; wn < Gd::WN; ++wn) s += red[wn * MR + i];
-    out[i] = s;
-  }
-  __syncthreads();
-}
-
-// out[col] = the sum over the block of each thread's part[nt][u] of column
-// n0 + 8 nt + 2 (lane % 4) + u: the 8 lanes of a column, then the WM warps
-// of its rows, in order.
-template <int MR, int NC>
-__device__ void reduce_cols(float (&part)[Grid<MR, NC>::NT][2], float* red, float* out, int warp,
-                            int lane, int tid) {
-  using Gd = Grid<MR, NC>;
-  if (warp < Gd::WM * Gd::WN) {
-    const int n0 = (warp / Gd::WM) * Gd::NT * 8 + 2 * (lane % 4);
-#pragma unroll
-    for (int nt = 0; nt < Gd::NT; ++nt)
-#pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        float v = part[nt][u];
-        v += __shfl_xor_sync(0xffffffffu, v, 4);
-        v += __shfl_xor_sync(0xffffffffu, v, 8);
-        v += __shfl_xor_sync(0xffffffffu, v, 16);
-        if (lane < 4) red[(warp % Gd::WM) * NC + n0 + 8 * nt + u] = v;
-      }
-  }
-  __syncthreads();
-  for (int i = tid; i < NC; i += kThreads) {
-    float s = 0.f;
-    for (int wm = 0; wm < Gd::WM; ++wm) s += red[wm * NC + i];
-    out[i] = s;
-  }
-  __syncthreads();
-}
+constexpr int kSmemMax = 232448;   // dynamic shared memory a block may have
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -293,32 +142,6 @@ __device__ float block_sum(float v, float* red, int threads, int warp, int lane,
   for (int w = 0; w < threads / 32; ++w) s += red[w];
   __syncthreads();
   return s;
-}
-
-// Inclusive cumsum of dt * a over rows [0, rows) of a chunk (rows <= 128),
-// by one warp, with rounded products and no FMA, as ssd_scan.cu's forward
-// sums them: lane l sums elements 4l..4l+3 in order, then a scan over the
-// lanes' sums.
-__device__ __forceinline__ void chunk_cumsum(const float* sDt, float* sCum, float a, int rows,
-                                             int lane) {
-  float part[4], run = 0.f;
-#pragma unroll
-  for (int u = 0; u < 4; ++u) {
-    const int i = 4 * lane + u;
-    run = __fadd_rn(run, i < rows ? __fmul_rn(sDt[i], a) : 0.f);
-    part[u] = run;
-  }
-  float incl = run;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const float o = __shfl_up_sync(0xffffffffu, incl, off);
-    if (lane >= off) incl = __fadd_rn(incl, o);
-  }
-  float base = __shfl_up_sync(0xffffffffu, incl, 1);  // exclusive
-  if (lane == 0) base = 0.f;
-#pragma unroll
-  for (int u = 0; u < 4; ++u)
-    if (4 * lane + u < rows) sCum[4 * lane + u] = __fadd_rn(base, part[u]);
 }
 
 // out[i] = sum of in[k] for i <= k < n (n <= 128), by one warp, in the
@@ -342,126 +165,6 @@ __device__ __forceinline__ void reverse_cumsum(const float* in, float* out, int 
 #pragma unroll
   for (int u = 0; u < 4; ++u)
     if (4 * lane + u < n) out[n - 1 - (4 * lane + u)] = base + part[u];
-}
-
-// ------------------------------------------------------------ tile loads
-// Rows [0, 32) of a panel of W columns (row i at src + i * stride
-// elements, 16-byte aligned) into dst[i * ld + c]; rows i >= valid load as
-// zeros.  With `scale`, row i is multiplied by scale[i].
-template <int W>
-__device__ __forceinline__ void load_panel(float* dst, int ld, const float* src, int64_t stride,
-                                           int valid, const float* scale, int tid) {
-  constexpr int V = 4, PR = W / V;  // elements a piece, pieces a row
-  for (int e = tid; e < kPanel * PR; e += kThreads) {
-    const int i = e / PR, q = e - i * PR;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (i < valid) {
-      v = *reinterpret_cast<const uint4*>(src + i * stride + q * V);
-      if (scale != nullptr) {
-        float* t = reinterpret_cast<float*>(&v);
-        const float s = scale[i];
-#pragma unroll
-        for (int u = 0; u < V; ++u) t[u] *= s;
-      }
-    }
-    *reinterpret_cast<uint4*>(dst + i * ld + q * V) = v;
-  }
-}
-
-// An f32 [P, N] state into shared memory [P][ld].
-template <int P, int N>
-__device__ __forceinline__ void load_state(float* dst, int ld, const float* src, int tid) {
-  for (int e = tid; e < P * N / 4; e += kThreads) {
-    const int r = (4 * e) / N, c = 4 * e - r * N;
-    const float4 v = reinterpret_cast<const float4*>(src)[e];
-    dst[r * ld + c] = v.x;
-    dst[r * ld + c + 1] = v.y;
-    dst[r * ld + c + 2] = v.z;
-    dst[r * ld + c + 3] = v.w;
-  }
-}
-
-struct Args {
-  const void *x, *Bm, *Cm, *dy;  // f32, contiguous, 16-byte aligned
-  const float *dt, *A, *D;       // dt [B, S, H] contiguous
-  void *dx, *dBm, *dCm;          // f32, contiguous
-  float *ddt, *dA, *dD;
-  // f32 scratch: cum, the chunks' dcum row parts, column sums, dw
-  // [B, H, nc Q]; state, state gradient [B, H, nc, P, N]; the heads' dB and
-  // dC [B, S, H, N]; <G, h> parts [B, H, nc, tiles]; dA parts [B, H, nc];
-  // dD parts [B, H, nc Q / 32]
-  float *cum, *state, *grad, *dbh, *dch, *rowp, *colt, *dw, *dots, *dap, *ddp;
-  int B, S, H, G, P, N, Q;
-};
-
-// dt and cum of chunk c into shared memory (rows past S: dt = 0).
-__device__ __forceinline__ void load_chunk_dt_cum(const Args& a, float* sDt, float* sCum,
-                                                  int64_t bh, int b, int h, int c, int nc,
-                                                  int tid) {
-  const int t0 = c * a.Q;
-  for (int i = tid; i < kMaxQ; i += kThreads) {
-    const int t = t0 + i;
-    sDt[i] = i < a.Q && t < a.S ? a.dt[(static_cast<int64_t>(b) * a.S + t) * a.H + h] : 0.f;
-    sCum[i] = i < a.Q ? a.cum[bh * nc * a.Q + t0 + i] : 0.f;
-  }
-}
-
-// ============================================================== kernels
-
-// 1. cum; the chunk's own state sum_j w_j x_j^T B_j and state gradient
-// sum_i exp(cum_i) dy_i^T C_i, each [P, N] f32 into state / grad.
-template <int P, int N>
-__global__ void __launch_bounds__(kThreads)
-ssd_bwd_chunk_states(Args a) {
-  constexpr int LP = ld_of(P), LN = ld_of(N);
-  extern __shared__ __align__(16) uint8_t smem[];
-  float* sX = reinterpret_cast<float*>(smem);  // x or dy panel [32][LP]
-  float* sB = sX + kPanel * LP;        // B or C panel [32][LN], scaled
-  float* sDt = reinterpret_cast<float*>(sB + kPanel * LN);
-  float* sCum = sDt + kMaxQ;
-  float* sW = sCum + kMaxQ;
-  float* sE = sW + kMaxQ;
-
-  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int nc = gridDim.x, g = h / (a.H / a.G), Q = a.Q, t0 = c * Q, S = a.S;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int64_t bh = static_cast<int64_t>(b) * a.H + h;
-  for (int i = tid; i < kMaxQ; i += kThreads) {
-    const int t = t0 + i;
-    sDt[i] = i < Q && t < S ? a.dt[(static_cast<int64_t>(b) * S + t) * a.H + h] : 0.f;
-  }
-  __syncthreads();
-  if (warp == 0) chunk_cumsum(sDt, sCum, a.A[h], Q, lane);
-  __syncthreads();
-  const float seg = sCum[Q - 1];
-  for (int i = tid; i < Q; i += kThreads) {
-    sW[i] = expf(seg - sCum[i]) * sDt[i];
-    sE[i] = expf(sCum[i]);
-    a.cum[bh * nc * Q + t0 + i] = sCum[i];
-  }
-  __syncthreads();
-
-  float acc[Grid<P, N>::MT][Grid<P, N>::NT][4];
-  for (int pass = 0; pass < 2; ++pass) {
-    const float* xs = static_cast<const float*>(pass == 0 ? a.x : a.dy);
-    const float* bs = static_cast<const float*>(pass == 0 ? a.Bm : a.Cm);
-    const float* scale = pass == 0 ? sW : sE;
-    zero<P, N>(acc);
-    for (int j0 = 0; j0 < Q; j0 += kPanel) {
-      const int t = t0 + j0;
-      load_panel<P>(sX, LP, xs + ((static_cast<int64_t>(b) * S + t) * a.H + h) * P,
-                    static_cast<int64_t>(a.H) * P, S - t, nullptr, tid);
-      load_panel<N>(sB, LN, bs + ((static_cast<int64_t>(b) * S + t) * a.G + g) * N,
-                    static_cast<int64_t>(a.G) * N, S - t, scale + j0, tid);
-      __syncthreads();
-      // [P, N] += x^T (w B): A(p, j) = x[j][p] (K-major), B(j, n) row-major
-      block_mma<P, N, kCol, kRow>(acc, sX, LP, sB, LN, kPanel, warp, lane);
-      __syncthreads();
-    }
-    float* out = (pass == 0 ? a.state : a.grad) + (bh * nc + c) * P * N;
-    for_each<P, N>(acc, warp, lane,
-                   [&](float v, int r, int col, int, int, int) { out[r * N + col] = v; });
-  }
 }
 
 // h and G handed on in the chain's output type: f32 in place, or bf16 over
@@ -568,218 +271,6 @@ ssd_bwd_chain(float* __restrict__ state, float* __restrict__ grad, const float* 
   }
 }
 
-// 3. Key panel jp of chunk c: dx = D dy + M^T dy + w (B G^T) and the
-// head's dB = dS^T C + w (x G) for its 32 rows, over the query panels
-// ip >= jp; the column sums of S L R and dw = x . (G B).
-template <int P, int N>
-__global__ void __launch_bounds__(kThreads)
-ssd_bwd_dx_db(Args a) {
-  constexpr int LP = ld_of(P), LN = ld_of(N), L32 = ld_of(32);
-  extern __shared__ __align__(16) uint8_t smem[];
-  float* sB = reinterpret_cast<float*>(smem);  // the key panel's B, x
-  float* sX = sB + kPanel * LN;
-  float* sC = sX + kPanel * LP;        // a query panel's C, dy
-  float* sDY = sC + kPanel * LN;
-  float* sG = sDY + kPanel * LP;       // G [P][LN]
-  float* sM = sG + P * LN;             // M, dS of the panel pair [32][L32]
-  float* sDS = sM + kPanel * L32;
-  float* sDt = reinterpret_cast<float*>(sDS + kPanel * L32);
-  float* sCum = sDt + kMaxQ;
-  float* sWj = sCum + kMaxQ;           // w_j of the key panel
-  float* sV = sWj + kPanel;            // dw, then the column sums
-  float* red = sV + kPanel;
-
-  const int nq = a.Q / kPanel;
-  const int c = blockIdx.x / nq, jp = blockIdx.x % nq, h = blockIdx.y, b = blockIdx.z;
-  const int nc = gridDim.x / nq, g = h / (a.H / a.G), Q = a.Q, S = a.S;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int64_t bh = static_cast<int64_t>(b) * a.H + h;
-  const int t0 = c * Q, tj = t0 + kPanel * jp;
-  const float* x = static_cast<const float*>(a.x);
-  const float* dy = static_cast<const float*>(a.dy);
-  const float* Bm = static_cast<const float*>(a.Bm);
-  const float* Cm = static_cast<const float*>(a.Cm);
-  const int64_t sx = static_cast<int64_t>(a.H) * P, sb = static_cast<int64_t>(a.G) * N;
-  const int64_t xrow = static_cast<int64_t>(b) * S * a.H + h;  // (b, t = 0, h)
-  const int64_t brow = static_cast<int64_t>(b) * S * a.G + g;
-
-  load_chunk_dt_cum(a, sDt, sCum, bh, b, h, c, nc, tid);
-  load_panel<N>(sB, LN, Bm + (brow + static_cast<int64_t>(tj) * a.G) * N, sb, S - tj, nullptr, tid);
-  load_panel<P>(sX, LP, x + (xrow + static_cast<int64_t>(tj) * a.H) * P, sx, S - tj, nullptr, tid);
-  load_state<P, N>(sG, LN, a.grad + (bh * nc + c) * P * N, tid);
-  __syncthreads();
-  const float seg = sCum[Q - 1];
-  if (tid < kPanel) {
-    const int j = kPanel * jp + tid;
-    sWj[tid] = expf(seg - sCum[j]) * sDt[j];
-  }
-
-  using GX = Grid<kPanel, P>;
-  using GB = Grid<kPanel, N>;
-  using GS = Grid<kPanel, kPanel>;
-  float ax[GX::MT][GX::NT][4], ab[GB::MT][GB::NT][4];
-  zero<kPanel, P>(ax);
-  zero<kPanel, N>(ab);
-  // (B G^T)[j, p]: B(n, p) = G[p][n] (K-major); (x G)[j, n]: G row-major
-  block_mma<kPanel, P, kRow, kCol>(ax, sB, LN, sG, LN, N, warp, lane);
-  block_mma<kPanel, N, kRow, kRow>(ab, sX, LP, sG, LN, P, warp, lane);
-  float part[GB::MT][2] = {};
-  for_each<kPanel, N>(ab, warp, lane, [&](float v, int r, int col, int mt, int, int e) {
-    part[mt][e >> 1] += sB[r * LN + col] * v;
-  });
-  reduce_rows<kPanel, N>(part, red, sV, warp, lane, tid);  // dw; syncs (sWj)
-  if (tid < kPanel) a.dw[bh * nc * Q + tj + tid] = sV[tid];
-  for_each<kPanel, P>(ax, warp, lane, [&](float& v, int r, int, int, int, int) { v *= sWj[r]; });
-  for_each<kPanel, N>(ab, warp, lane, [&](float& v, int r, int, int, int, int) { v *= sWj[r]; });
-
-  float colp[GS::NT][2] = {};
-  for (int ip = jp; ip < nq; ++ip) {
-    const int ti = t0 + kPanel * ip;
-    load_panel<N>(sC, LN, Cm + (brow + static_cast<int64_t>(ti) * a.G) * N, sb, S - ti, nullptr,
-                  tid);
-    load_panel<P>(sDY, LP, dy + (xrow + static_cast<int64_t>(ti) * a.H) * P, sx, S - ti, nullptr,
-                  tid);
-    __syncthreads();
-    float s_[GS::MT][GS::NT][4], r_[GS::MT][GS::NT][4];
-    zero<kPanel, kPanel>(s_);
-    zero<kPanel, kPanel>(r_);
-    // S = C B^T and R = dy x^T over the panel pair (B and x K-major)
-    block_mma<kPanel, kPanel, kRow, kCol>(s_, sC, LN, sB, LN, N, warp, lane);
-    block_mma<kPanel, kPanel, kRow, kCol>(r_, sDY, LP, sX, LP, P, warp, lane);
-    for_each<kPanel, kPanel>(s_, warp, lane, [&](float sv, int ii, int jj, int mt, int nt, int e) {
-      const int i = kPanel * ip + ii, j = kPanel * jp + jj;
-      float m = 0.f, ds = 0.f;
-      if (i >= j) {
-        const float L = expf(sCum[i] - sCum[j]), rv = r_[mt][nt][e];
-        m = sv * L * sDt[j];
-        ds = rv * L * sDt[j];
-        colp[nt][e & 1] += sv * L * rv;
-      }
-      sM[ii * L32 + jj] = m;
-      sDS[ii * L32 + jj] = ds;
-    });
-    __syncthreads();
-    // dx += M^T dy, dB += dS^T C: A(j, i) = M[i][j] (K-major), B row-major
-    block_mma<kPanel, P, kCol, kRow>(ax, sM, L32, sDY, LP, kPanel, warp, lane);
-    block_mma<kPanel, N, kCol, kRow>(ab, sDS, L32, sC, LN, kPanel, warp, lane);
-    __syncthreads();
-  }
-  reduce_cols<kPanel, kPanel>(colp, red, sV, warp, lane, tid);
-  if (tid < kPanel) a.colt[bh * nc * Q + tj + tid] = sV[tid];
-
-  // dx = that + D dy; dD's part of the panel
-  const float dskip = a.D[h];
-  float dd = 0.f;
-  float* dx = static_cast<float*>(a.dx);
-  for_each<kPanel, P>(ax, warp, lane, [&](float v, int r, int col, int, int, int) {
-    const int t = tj + r;
-    if (t >= S) return;
-    const int64_t idx = (xrow + static_cast<int64_t>(t) * a.H) * P + col;
-    const float dyv = dy[idx];
-    dx[idx] = v + dskip * dyv;
-    dd += dyv * x[idx];
-  });
-  dd = block_sum(dd, red, kThreads, warp, lane, tid);
-  if (tid == 0) a.ddp[(bh * nc + c) * nq + jp] = dd;
-  for_each<kPanel, N>(ab, warp, lane, [&](float v, int r, int col, int, int, int) {
-    const int t = tj + r;
-    if (t < S) a.dbh[((static_cast<int64_t>(b) * S + t) * a.H + h) * N + col] = v;
-  });
-}
-
-// 4. Query panel ip of chunk c: the head's dC = dS B + exp(cum) (dy h)
-// for its 32 rows over the key panels jp <= ip; the row parts of dcum:
-// sum_j M_ij R_ij + exp(cum_i) C_i . (dy_i h).
-template <int P, int N>
-__global__ void __launch_bounds__(kThreads)
-ssd_bwd_dc(Args a) {
-  constexpr int LP = ld_of(P), LN = ld_of(N), L32 = ld_of(32);
-  extern __shared__ __align__(16) uint8_t smem[];
-  float* sC = reinterpret_cast<float*>(smem);  // the query panel's C, dy
-  float* sDY = sC + kPanel * LN;
-  float* sB = sDY + kPanel * LP;       // a key panel's B, x
-  float* sX = sB + kPanel * LN;
-  float* sH = sX + kPanel * LP;        // h [P][LN]
-  float* sDS = sH + P * LN;            // dS of the panel pair [32][L32]
-  float* sDt = reinterpret_cast<float*>(sDS + kPanel * L32);
-  float* sCum = sDt + kMaxQ;
-  float* sRp = sCum + kMaxQ;           // C . (dy h), then the row sums of M R
-  float* sRz = sRp + kPanel;
-  float* red = sRz + kPanel;
-
-  const int nq = a.Q / kPanel;
-  const int c = blockIdx.x / nq, ip = blockIdx.x % nq, h = blockIdx.y, b = blockIdx.z;
-  const int nc = gridDim.x / nq, g = h / (a.H / a.G), Q = a.Q, S = a.S;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int64_t bh = static_cast<int64_t>(b) * a.H + h;
-  const int t0 = c * Q, ti = t0 + kPanel * ip;
-  const float* x = static_cast<const float*>(a.x);
-  const float* dy = static_cast<const float*>(a.dy);
-  const float* Bm = static_cast<const float*>(a.Bm);
-  const float* Cm = static_cast<const float*>(a.Cm);
-  const int64_t sx = static_cast<int64_t>(a.H) * P, sb = static_cast<int64_t>(a.G) * N;
-  const int64_t xrow = static_cast<int64_t>(b) * S * a.H + h;
-  const int64_t brow = static_cast<int64_t>(b) * S * a.G + g;
-
-  load_chunk_dt_cum(a, sDt, sCum, bh, b, h, c, nc, tid);
-  load_panel<N>(sC, LN, Cm + (brow + static_cast<int64_t>(ti) * a.G) * N, sb, S - ti, nullptr, tid);
-  load_panel<P>(sDY, LP, dy + (xrow + static_cast<int64_t>(ti) * a.H) * P, sx, S - ti, nullptr,
-                tid);
-  load_state<P, N>(sH, LN, a.state + (bh * nc + c) * P * N, tid);
-  __syncthreads();
-
-  using GC = Grid<kPanel, N>;
-  using GS = Grid<kPanel, kPanel>;
-  float ac[GC::MT][GC::NT][4];
-  zero<kPanel, N>(ac);
-  // (dy h)[i, n] = sum_p dy[i][p] h[p][n]
-  block_mma<kPanel, N, kRow, kRow>(ac, sDY, LP, sH, LN, P, warp, lane);
-  float part[GC::MT][2] = {};
-  for_each<kPanel, N>(ac, warp, lane, [&](float v, int r, int col, int mt, int, int e) {
-    part[mt][e >> 1] += sC[r * LN + col] * v;
-  });
-  reduce_rows<kPanel, N>(part, red, sRp, warp, lane, tid);
-  for_each<kPanel, N>(ac, warp, lane, [&](float& v, int r, int, int, int, int) {
-    v *= expf(sCum[kPanel * ip + r]);
-  });
-
-  float rowz[GS::MT][2] = {};
-  for (int jp = 0; jp <= ip; ++jp) {
-    const int tj = t0 + kPanel * jp;
-    load_panel<N>(sB, LN, Bm + (brow + static_cast<int64_t>(tj) * a.G) * N, sb, S - tj, nullptr,
-                  tid);
-    load_panel<P>(sX, LP, x + (xrow + static_cast<int64_t>(tj) * a.H) * P, sx, S - tj, nullptr,
-                  tid);
-    __syncthreads();
-    float s_[GS::MT][GS::NT][4], r_[GS::MT][GS::NT][4];
-    zero<kPanel, kPanel>(s_);
-    zero<kPanel, kPanel>(r_);
-    block_mma<kPanel, kPanel, kRow, kCol>(s_, sC, LN, sB, LN, N, warp, lane);
-    block_mma<kPanel, kPanel, kRow, kCol>(r_, sDY, LP, sX, LP, P, warp, lane);
-    for_each<kPanel, kPanel>(s_, warp, lane, [&](float sv, int ii, int jj, int mt, int nt, int e) {
-      const int i = kPanel * ip + ii, j = kPanel * jp + jj;
-      float ds = 0.f;
-      if (i >= j) {
-        const float L = expf(sCum[i] - sCum[j]), rv = r_[mt][nt][e];
-        ds = rv * L * sDt[j];
-        rowz[mt][e >> 1] += sv * L * rv * sDt[j];
-      }
-      sDS[ii * L32 + jj] = ds;
-    });
-    __syncthreads();
-    // dC += dS B: dS row-major, B row-major
-    block_mma<kPanel, N, kRow, kRow>(ac, sDS, L32, sB, LN, kPanel, warp, lane);
-    __syncthreads();
-  }
-  reduce_rows<kPanel, kPanel>(rowz, red, sRz, warp, lane, tid);
-  if (tid < kPanel)
-    a.rowp[bh * nc * Q + ti + tid] = sRz[tid] + expf(sCum[kPanel * ip + tid]) * sRp[tid];
-  for_each<kPanel, N>(ac, warp, lane, [&](float v, int r, int col, int, int, int) {
-    const int t = ti + r;
-    if (t < S) a.dch[((static_cast<int64_t>(b) * S + t) * a.H + h) * N + col] = v;
-  });
-}
-
 // What the dcum launch reads and writes: per (b, h) [B, H, nc Q] rows of
 // cum, the column sums of S L R (colt) and dw; the row sums of M R, as
 // row_parts arrays row_stride apart, plus erow where the wgmma path gives
@@ -827,92 +318,9 @@ ssd_bwd_dcum(Dcum a) {
   if (tid == 0) a.dap[bh * nc + c] = part;
 }
 
-// 6. blockIdx.y 0: dBm and dCm, 4 elements a thread, each the sum of its
-// group's heads in order; blockIdx.y 1: dA and dD of head h, their parts
-// summed over batch and chunks in order.
-__global__ void __launch_bounds__(kPassThreads)
-ssd_bwd_reduce(Args a, int nc) {
-  const int64_t e = static_cast<int64_t>(blockIdx.x) * kPassThreads + threadIdx.x;
-  if (blockIdx.y == 1) {
-    if (e >= a.H) return;
-    const int nq = a.Q / kPanel;
-    float sa = 0.f, sd = 0.f;
-    for (int b = 0; b < a.B; ++b) {
-      const int64_t bh = static_cast<int64_t>(b) * a.H + e;
-      for (int c = 0; c < nc; ++c) sa += a.dap[bh * nc + c];
-      for (int k = 0; k < nc * nq; ++k) sd += a.ddp[bh * nc * nq + k];
-    }
-    a.dA[e] = sa;
-    a.dD[e] = sd;
-    return;
-  }
-  const int64_t quads = static_cast<int64_t>(a.B) * a.S * a.G * a.N / 4;
-  if (e >= quads) return;
-  const int64_t idx = 4 * e;
-  const int n = static_cast<int>(idx % a.N);
-  const int64_t rest = idx / a.N;
-  const int g = static_cast<int>(rest % a.G);
-  const int64_t bs = rest / a.G;  // b * S + s
-  const int hpg = a.H / a.G;
-  float4 sb = make_float4(0.f, 0.f, 0.f, 0.f), sc = sb;
-  for (int k = 0; k < hpg; ++k) {
-    const int64_t off = (bs * a.H + g * hpg + k) * a.N + n;
-    const float4 vb = *reinterpret_cast<const float4*>(a.dbh + off);
-    const float4 vc = *reinterpret_cast<const float4*>(a.dch + off);
-    sb = make_float4(sb.x + vb.x, sb.y + vb.y, sb.z + vb.z, sb.w + vb.w);
-    sc = make_float4(sc.x + vc.x, sc.y + vc.y, sc.z + vc.z, sc.w + vc.w);
-  }
-  static_cast<float4*>(a.dBm)[e] = sb;
-  static_cast<float4*>(a.dCm)[e] = sc;
-}
-
-template <int P, int N>
-int launch(const Args& a, cudaStream_t stream) {
-  constexpr int kS1 = states_smem(P, N), kS3 = dxdb_smem(P, N), kS4 = dc_smem(P, N);
-  static_assert(kS3 <= 232448 && kS4 <= 232448, "shared memory over the 227 KB a block may have");
-  // once per instantiation, at its first launch (outside any graph capture)
-  static bool configured = false;
-  if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(ssd_bwd_chunk_states<P, N>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, kS1);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(ssd_bwd_dx_db<P, N>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize, kS3);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(ssd_bwd_dc<P, N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 kS4);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    configured = true;
-  }
-  const int nc = (a.S + a.Q - 1) / a.Q, nq = a.Q / kPanel, PN = P * N;
-  const dim3 chunks(nc, a.H, a.B), panels(nc * nq, a.H, a.B);
-  ssd_bwd_chunk_states<P, N><<<chunks, kThreads, kS1, stream>>>(a);
-  if (const cudaError_t e = cudaGetLastError(); e != cudaSuccess) return static_cast<int>(e);
-  const int tiles = (PN + 4 * kChain - 1) / (4 * kChain);
-  ssd_bwd_chain<float><<<dim3(a.B * a.H, tiles), kChain, 0, stream>>>(a.state, a.grad, a.cum,
-                                                                      a.dots, nc, a.Q, P, N);
-  if (const cudaError_t e = cudaGetLastError(); e != cudaSuccess) return static_cast<int>(e);
-  ssd_bwd_dx_db<P, N><<<panels, kThreads, kS3, stream>>>(a);
-  if (const cudaError_t e = cudaGetLastError(); e != cudaSuccess) return static_cast<int>(e);
-  ssd_bwd_dc<P, N><<<panels, kThreads, kS4, stream>>>(a);
-  if (const cudaError_t e = cudaGetLastError(); e != cudaSuccess) return static_cast<int>(e);
-  const Dcum d{a.dt, a.A, a.cum, a.colt, a.dw, a.rowp, nullptr, a.dots, a.ddt, a.dap,
-               0, 1, tiles, a.S, a.H, a.Q};
-  ssd_bwd_dcum<<<chunks, kThreads, 0, stream>>>(d);
-  if (const cudaError_t e = cudaGetLastError(); e != cudaSuccess) return static_cast<int>(e);
-  const int64_t quads = static_cast<int64_t>(a.B) * a.S * a.G * a.N / 4;
-  const int64_t blocks = (quads + kPassThreads - 1) / kPassThreads;
-  const int64_t head_blocks = (a.H + kPassThreads - 1) / kPassThreads;
-  ssd_bwd_reduce<<<dim3(static_cast<unsigned>(blocks > head_blocks ? blocks : head_blocks), 2),
-                 kPassThreads, 0, stream>>>(a, nc);
-  return static_cast<int>(cudaGetLastError());
-}
-
-
 // ====================================================== bf16: wgmma and TMA
 
 constexpr int kRowsBox = 32;       // rows of a TMA box of x, dy, Bm, Cm
-constexpr int kSmemMax = 232448;   // dynamic shared memory a block may have
 constexpr float kLog2e = 1.4426950408889634f;
 
 // Columns a tile keeps in shared memory for a width of 16..128: whole
@@ -1610,17 +1018,27 @@ ssd_bwd_db_dc_wgmma(const __grid_constant__ CUtensorMap tx, const __grid_constan
   }
 }
 
+// What the last launch reads and writes (both variants).
+struct Reduce {
+  const float *dap, *ddp;  // dA parts [B, H, nc]; dD parts [B, H, nc, dd_parts]
+  const float* bc_runs;    // dB, dC of each run [2, runs, B, S, G, N]
+  void *dBm, *dCm;         // Out [B, S, G, N]
+  float *dA, *dD;
+  int B, S, H, G, N, nc, runs, dd_parts;
+};
+
 // 6. blockIdx.y 0: dA and dD, a warp a head, their parts over batch and
 // chunks summed by each lane over a fixed stride, then over the lanes in a
-// fixed tree; blockIdx.y 1 (heads split into runs): dBm and dCm, 4
+// fixed tree; blockIdx.y 1 (heads split into runs): dBm and dCm as Out, 4
 // elements a thread, each the sum of the runs' parts in order.
+template <class Out>
 __global__ void __launch_bounds__(kPassThreads)
-ssd_bwd_reduce_runs(WArgs a, int dd_parts) {
+ssd_bwd_reduce_runs(const Reduce a) {
   const int64_t e = static_cast<int64_t>(blockIdx.x) * kPassThreads + threadIdx.x;
   if (blockIdx.y == 0) {
     const int head = static_cast<int>(e / 32), lane = threadIdx.x % 32;
     if (head >= a.H) return;
-    const int nd = a.nc * dd_parts;
+    const int nd = a.nc * a.dd_parts;
     float sa = 0.f, sd = 0.f;
     for (int k = lane; k < a.B * a.nc; k += 32)
       sa += a.dap[(static_cast<int64_t>(k / a.nc) * a.H + head) * a.nc + k % a.nc];
@@ -1643,8 +1061,21 @@ ssd_bwd_reduce_runs(WArgs a, int dd_parts) {
     sb = make_float4(sb.x + vb.x, sb.y + vb.y, sb.z + vb.z, sb.w + vb.w);
     sc = make_float4(sc.x + vc.x, sc.y + vc.y, sc.z + vc.z, sc.w + vc.w);
   }
-  reinterpret_cast<uint2*>(a.dBm)[e] = make_uint2(pack_bf16(sb.x, sb.y), pack_bf16(sb.z, sb.w));
-  reinterpret_cast<uint2*>(a.dCm)[e] = make_uint2(pack_bf16(sc.x, sc.y), pack_bf16(sc.z, sc.w));
+  put4(static_cast<Out*>(a.dBm) + 4 * e, sb);
+  put4(static_cast<Out*>(a.dCm) + 4 * e, sc);
+}
+
+// The reduction's launch: a warp a head, and with more than one run a
+// thread per 4 elements of [B, S, G, N].
+template <class Out>
+int launch_reduce(const Reduce& r, cudaStream_t stream) {
+  const int64_t quads = r.runs > 1 ? static_cast<int64_t>(r.B) * r.S * r.G * r.N / 4 : 0;
+  const int64_t run_blocks = (quads + kPassThreads - 1) / kPassThreads;
+  const int64_t head_blocks = (r.H + kPassThreads / 32 - 1) / (kPassThreads / 32);
+  const int64_t blocks = run_blocks > head_blocks ? run_blocks : head_blocks;
+  ssd_bwd_reduce_runs<Out><<<dim3(static_cast<unsigned>(blocks), r.runs > 1 ? 2 : 1),
+                             kPassThreads, 0, stream>>>(r);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // A 4-D map over x / dy [B, S, H, P] or Bm / Cm [B, S, G, N], dense: boxes
@@ -1723,41 +1154,501 @@ int launch_wgmma(const WArgs& a, const void* x, const void* dy, const void* Bm, 
                rows, jbs, tiles, a.S, a.H, a.Q};
   ssd_bwd_dcum<<<dim3(a.nc, a.H, a.B), kThreads, 0, stream>>>(d);
   if (const cudaError_t e = cudaGetLastError(); e != cudaSuccess) return static_cast<int>(e);
-  const int64_t quads = a.runs > 1 ? static_cast<int64_t>(a.B) * a.S * a.G * a.N / 4 : 0;
-  const int64_t run_blocks = (quads + kPassThreads - 1) / kPassThreads;
-  const int64_t head_blocks = (a.H + kPassThreads / 32 - 1) / (kPassThreads / 32);
-  const int64_t blocks = run_blocks > head_blocks ? run_blocks : head_blocks;
-  ssd_bwd_reduce_runs<<<dim3(static_cast<unsigned>(blocks), a.runs > 1 ? 2 : 1), kPassThreads, 0,
-                        stream>>>(a, jbs);
-  return static_cast<int>(cudaGetLastError());
+  const Reduce r{a.dap, a.ddp, a.bc_runs, a.dBm, a.dCm, a.dA, a.dD,
+                 a.B, a.S, a.H, a.G, a.N, a.nc, a.runs, jbs};
+  return launch_reduce<bf16>(r, stream);
+}
+
+// ========================================================= f32: CUDA cores
+
+// What the f32 launches share.  Every tensor dense; the scratch as the
+// wrapper lists it (kernel_plan_bwd), allocated with torch.empty, in the
+// bf16 variant's order but for dS, here f32.
+struct CArgs {
+  const float *x, *dy, *Bm, *Cm;  // [B, S, H, P], [B, S, G, N]
+  const float *dt, *A, *D;        // dt [B, S, H]
+  float *dx, *dBm, *dCm, *ddt, *dA, *dD;
+  float* cum;                     // [B, H, nc Q]
+  float *state, *grad;            // [B, H, nc, P, N]: the chunks' own states and
+                                  // state gradients, then h and G in place
+  float* dots;                    // <G, h> [B, H, nc, tiles]
+  float *colt, *dw, *erow;        // [B, H, nc Q]
+  float* rowmr;                   // column sums of M R [key blocks, B, H, nc Q]
+  float* ds;                      // dS^T summed over a run's heads [runs, B, nc, G, QT, QT]
+  float *dap, *ddp;               // dA parts [B, H, nc]; dD parts [B, H, nc, key blocks]
+  float* bc_runs;                 // dB, dC of each run [2, runs, B, S, G, N], or null
+  int B, S, H, G, P, N, Q, nc, runs, run_len;
+};
+
+__host__ __device__ constexpr int imax(int a, int b) { return a > b ? a : b; }
+
+// dx / dS: a stage holds x's 64 key rows and dy's query rows (up to QT).
+__host__ __device__ constexpr int dxds_cc_stage(int P, int QT) { return (64 + QT) * (P + 4); }
+// The room after B's key rows and the first stage: C's query rows until
+// S^T is formed, then M^T, G (in M^T's own room where kGinM) and, with two
+// stages, the second.
+__host__ __device__ constexpr int dxds_cc_late(int P, int N, int QT, int stages, bool g_in_m) {
+  return imax(QT * (N + 4), (g_in_m ? imax(64 * (QT + 4), P * (N + 4))
+                                    : 64 * (QT + 4) + P * (N + 4)) +
+                                (stages - 1) * dxds_cc_stage(P, QT));
+}
+// Floats of dx / dS's shared memory: B's key rows, the first stage, the
+// late room, then dt and cum of the tile's rows, w of the key rows, each
+// warp's column sums and the block sum's 8 floats.
+__host__ __device__ constexpr int dxds_cc_floats(int P, int N, int QT, int stages, bool g_in_m) {
+  return 64 * (N + 4) + dxds_cc_stage(P, QT) + dxds_cc_late(P, N, QT, stages, g_in_m) + 2 * QT +
+         64 + 8 * QT + 8;
+}
+// Two stages and G apart where they fit at 128-row tiles, else one stage,
+// else G in M^T's room too (P = N = 128).
+__host__ __device__ constexpr int dxds_cc_stages(int P, int N) {
+  return dxds_cc_floats(P, N, 128, 2, false) * 4 <= kSmemMax ? 2 : 1;
+}
+__host__ __device__ constexpr bool dxds_cc_g_in_m(int P, int N) {
+  return dxds_cc_floats(P, N, 128, 1, false) * 4 > kSmemMax;
+}
+// dB / dC: a stage holds x's or dy's 64 rows and G or h; after the heads
+// the stages' room takes the closing product's tiles, the run's dS^T and
+// C's or B's rows.
+__host__ __device__ constexpr int dbdc_cc_room(int P, int N, int QT, int stages) {
+  return imax(stages * (64 * (P + 4) + P * (N + 4)), QT * 68 + QT * (N + 4));
+}
+// Floats of dB / dC's shared memory: C's 64 rows (dC's erow), the room,
+// the row scale.
+__host__ __device__ constexpr int dbdc_cc_floats(int P, int N, int QT, int stages) {
+  return 64 * (N + 4) + dbdc_cc_room(P, N, QT, stages) + 64;
+}
+__host__ __device__ constexpr int dbdc_cc_stages(int P, int N) {
+  return dbdc_cc_floats(P, N, 128, 2) * 4 <= kSmemMax ? 2 : 1;
+}
+
+// 1. A block per (chunk, side, run, b): cum and each head's own state
+// s = (w x)^T B (side 0) or state gradient u = (exp(cum) dy)^T C (side 1),
+// f32 [P, N] (ssd_cuda_cores.cuh's chunk_states_run).
+template <int P, int N>
+__global__ void __launch_bounds__(kCcThreads, 1)
+ssd_bwd_states_cc(const CArgs a) {
+  extern __shared__ __align__(16) float smem_f[];
+  const int c = blockIdx.x >> 1, side = blockIdx.x & 1;
+  const int run = blockIdx.y % a.runs, g = blockIdx.y / a.runs, b = blockIdx.z;
+  const int hpg = a.H / a.G, h0 = g * hpg + run * a.run_len;
+  const int nh = min(a.run_len, hpg - run * a.run_len);
+  const int Q = a.Q, nc = a.nc, t0 = c * Q, QT = Q <= 64 ? 64 : 128;
+  const int64_t PN = static_cast<int64_t>(P) * N, bh0 = static_cast<int64_t>(b) * a.H;
+  const int64_t row0 = static_cast<int64_t>(b) * a.S + t0;  // (b, t0)
+  const Rows av{(side ? a.dy : a.x) + row0 * a.H * P, static_cast<int64_t>(a.H) * P, P};
+  const Rows m{(side ? a.Cm : a.Bm) + (row0 * a.G + g) * N, static_cast<int64_t>(a.G) * N, 0};
+  const Rows dt{a.dt + row0 * a.H, a.H, 1};
+  const int rows = min(Q, a.S - t0);
+  if (side == 0)
+    chunk_states_run<P, N, true>(smem_f, av, m, dt, a.A, a.cum + bh0 * nc * Q + t0,
+                                 static_cast<int64_t>(nc) * Q, a.state + (bh0 * nc + c) * PN,
+                                 nc * PN, h0, nh, rows, Q, QT);
+  else
+    chunk_states_run<P, N, false>(smem_f, av, m, dt, a.A, nullptr, 0,
+                                  a.grad + (bh0 * nc + c) * PN, nc * PN, h0, nh, rows, Q, QT);
+}
+
+// 3. dx and dS^T of one 64-row key block (key rows j0 .. j0 + 63 of chunk
+// c, query rows i from j0 on: NI of them) over a run of a group's heads,
+// in the transposed orientation (rows j, columns i).  S^T = B C^T once,
+// into registers (the thread's rows and columns), kept over the run; per
+// head:
+//   R^T = x dy^T; B G^T, its rows dotted with x (dw), times w_j;
+//   masked before the exponential, L = exp(cum_i - cum_j):
+//   M^T = S^T L dt_j through shared memory, dS^T = R^T L dt_j added into
+//   the run's sum in registers, the row sums of S L R (colt) and the
+//   column sums of M R (this key block's part of them);
+//   dx = w (B G^T) + M^T dy + D dy; dD's part.
+// x and dy two stages deep where they fit, G in a buffer of its own (or in
+// M^T's room) loaded for the next head as soon as it is read.  After the
+// run its dS^T goes out as f32 [QT, QT] (rows j of the block, columns
+// before j0 zero) for the dB / dC launch.
+template <int P, int N, int NI>
+__device__ __forceinline__ void dx_ds_cc(const CArgs& a, float* smem, int c, int jb, int run, int g,
+                                         int h0, int nh, int b) {
+  constexpr int kSt = dxds_cc_stages(P, N);
+  constexpr bool kGinM = dxds_cc_g_in_m(P, N);
+  constexpr int LP = P + 4, LN = N + 4, LM = NI + 4, JI = NI / 16, JP = P / 16;
+  const int Q = a.Q, S = a.S, nc = a.nc, QT = Q <= 64 ? 64 : 128, t0 = c * Q, j0 = 64 * jb;
+  const int rows = min(Q, S - t0);
+  const int jv = max(0, min(64, rows - j0)), iv = max(0, min(NI, rows - j0));
+  const int jbs = QT / 64;
+  float* sB = smem;
+  float* st0 = sB + 64 * LN;
+  float* late = st0 + dxds_cc_stage(P, QT);
+  float* sC = late;
+  float* sM = late;
+  float* sG = kGinM ? late : late + 64 * (QT + 4);
+  float* st1 = late + (kGinM ? imax(64 * (QT + 4), P * LN) : 64 * (QT + 4) + P * LN);
+  float* sDt = late + dxds_cc_late(P, N, QT, kSt, kGinM);
+  float* sCum = sDt + QT;
+  float* sW = sCum + QT;
+  float* red = sW + 64;
+  float* red2 = red + 8 * QT;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, ty = tid / 16, tx = tid % 16;
+  const int64_t bh0 = static_cast<int64_t>(b) * a.H, PN = static_cast<int64_t>(P) * N;
+  const int64_t row0 = static_cast<int64_t>(b) * S + t0 + j0;  // (b, t0 + j0)
+  const int64_t srow = static_cast<int64_t>(a.H) * P, grow = static_cast<int64_t>(a.G) * N;
+  const float* xb = a.x + row0 * srow;
+  const float* dyb = a.dy + row0 * srow;
+  auto load_head = [&](int h, float* st) {
+    load_rows_async(st, LP, xb + h * P, srow, 64, jv, P);
+    load_rows_async(st + 64 * LP, LP, dyb + h * P, srow, NI, iv, P);
+  };
+  auto load_g = [&](int h) {
+    load_rows_async(sG, LN, a.grad + ((bh0 + h) * nc + c) * PN, N, P, P, N);
+  };
+  load_rows_async(sB, LN, a.Bm + (row0 * a.G + g) * N, grow, 64, jv, N);
+  load_rows_async(sC, LN, a.Cm + (row0 * a.G + g) * N, grow, NI, iv, N);
+  cp_async_commit();
+  load_head(h0, st0);
+  cp_async_commit();
+  auto dt_of = [&](int h) {
+    return tid < rows ? a.dt[(static_cast<int64_t>(b) * S + t0 + tid) * a.H + h] : 0.f;
+  };
+  auto cum_of = [&](int h) { return tid < Q ? a.cum[(bh0 + h) * nc * Q + t0 + tid] : 0.f; };
+  float pdt = dt_of(h0), pcum = cum_of(h0);
+  cp_async_wait<1>();  // B and C are in
+  __syncthreads();
+  float sT[4][JI];     // S^T [j0 + 4ty + i][j0 + tx + 16j]: the group's, kept over the run
+  zero_tile(sT);
+  mm_dots(sT, sB, LN, sC, LN, N);
+  __syncthreads();     // C is read: its room takes M^T, G and the second stage
+  load_g(h0);
+  cp_async_commit();
+  if (kSt == 2 && nh > 1) load_head(h0 + 1, st1);
+  cp_async_commit();
+  float dsum[4][JI];   // the run's dS^T
+  zero_tile(dsum);
+
+  for (int k = 0; k < nh; ++k) {
+    const int h = h0 + k;
+    float* sx = kSt == 2 && (k & 1) ? st1 : st0;
+    float* sdy = sx + 64 * LP;
+    if (tid < QT) {
+      sDt[tid] = pdt;
+      sCum[tid] = pcum;
+    }
+    if (k + 1 < nh) {
+      pdt = dt_of(h + 1);
+      pcum = cum_of(h + 1);
+    }
+    __syncthreads();
+    const float seg = sCum[Q - 1];
+    if (tid < 64) sW[tid] = expf(seg - sCum[j0 + tid]) * sDt[j0 + tid];
+    cp_async_wait<kSt - 1>();  // this head's x, dy and G are in
+    __syncthreads();
+    float r[4][JI];      // R^T [j][i]
+    zero_tile(r);
+    mm_dots(r, sx, LP, sdy, LP, P);
+    float acc[4][JP];    // B G^T [j][p], then dx
+    zero_tile(acc);
+    mm_dots(acc, sB, LN, sG, LN, N);
+    __syncthreads();     // G is read
+    if (!kGinM) {
+      if (k + 1 < nh) load_g(h + 1);
+      cp_async_commit();
+    }
+    const int64_t rows0 = (bh0 + h) * nc * Q + t0;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {  // dw_j = x_j . (G B_j), then w_j (B G^T)_j
+      const int jl = 4 * ty + i;
+      float part = 0.f;
+#pragma unroll
+      for (int j = 0; j < JP; ++j) part += acc[i][j] * sx[jl * LP + tx + 16 * j];
+      part = row_sum16(part);
+      if (tx == 0 && j0 + jl < Q) a.dw[rows0 + j0 + jl] = part;
+      const float w = sW[jl];
+#pragma unroll
+      for (int j = 0; j < JP; ++j) acc[i][j] *= w;
+    }
+    float colp[JI];
+#pragma unroll
+    for (int j = 0; j < JI; ++j) colp[j] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int jr = j0 + 4 * ty + i;
+      const float cj = sCum[jr], dtj = sDt[jr];
+      float ct = 0.f;
+#pragma unroll
+      for (int j = 0; j < JI; ++j) {
+        const int ir = j0 + tx + 16 * j;
+        float m = 0.f;
+        if (jr <= ir && ir < Q) {  // masked before the exponential
+          const float L = expf(sCum[ir] - cj), sl = sT[i][j] * L, rv = r[i][j];
+          m = sl * dtj;
+          dsum[i][j] += rv * L * dtj;
+          ct += sl * rv;
+          colp[j] += m * rv;
+        }
+        sM[(4 * ty + i) * LM + tx + 16 * j] = m;
+      }
+      ct = row_sum16(ct);
+      if (tx == 0 && jr < Q) a.colt[rows0 + jr] = ct;
+    }
+#pragma unroll
+    for (int j = 0; j < JI; ++j) {
+      const float v = colp[j] + __shfl_xor_sync(0xffffffffu, colp[j], 16);
+      if (lane < 16) red[warp * QT + tx + 16 * j] = v;
+    }
+    __syncthreads();     // M^T and the column sums are in
+    if (tid < QT) {      // this key block's part of the column sums, zero before j0
+      float v = 0.f;
+      if (tid >= j0)
+        for (int w = 0; w < 8; ++w) v += red[w * QT + tid - j0];
+      if (tid < Q) a.rowmr[static_cast<int64_t>(jb) * a.B * a.H * nc * Q + rows0 + tid] = v;
+    }
+    // dx += M^T dy over the query rows this warp's key rows see
+    mm_rows(acc, sM, LM, sdy, LP, 8 * warp, NI);
+    if (kGinM) {
+      __syncthreads();   // M^T is read: G's room takes the next head's
+      if (k + 1 < nh) load_g(h + 1);
+      cp_async_commit();
+    }
+    const float dskip = a.D[h];
+    float dd = 0.f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int jl = 4 * ty + i, t = t0 + j0 + jl;
+      if (j0 + jl >= Q || t >= S) continue;
+      float* dxr = a.dx + (static_cast<int64_t>(b) * S + t) * srow + static_cast<int64_t>(h) * P;
+#pragma unroll
+      for (int j = 0; j < JP; ++j) {
+        const int p = tx + 16 * j;
+        const float dyv = sdy[jl * LP + p];
+        dxr[p] = acc[i][j] + dskip * dyv;
+        dd += dyv * sx[jl * LP + p];
+      }
+    }
+    dd = block_sum(dd, red2, kCcThreads, warp, lane, tid);  // syncs: the stage is free
+    if (tid == 0) a.ddp[((bh0 + h) * nc + c) * jbs + jb] = dd;
+    if (k + kSt < nh) load_head(h + kSt, sx);
+    cp_async_commit();
+  }
+
+  float* out = a.ds + (((static_cast<int64_t>(run) * a.B + b) * nc + c) * a.G + g) * QT * QT;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < JI; ++j) out[(j0 + 4 * ty + i) * QT + j0 + tx + 16 * j] = dsum[i][j];
+  for (int e = tid; e < 64 * j0; e += kCcThreads) out[(j0 + e / j0) * QT + e % j0] = 0.f;
+}
+
+// 3. A block per (chunk and its 64-row key block, run, b).
+template <int P, int N>
+__global__ void __launch_bounds__(kCcThreads, 1)
+ssd_bwd_dx_ds_cc(const CArgs a) {
+  extern __shared__ __align__(16) float smem_f[];
+  const int jbs = a.Q <= 64 ? 1 : 2, c = blockIdx.x / jbs, jb = blockIdx.x % jbs;
+  const int run = blockIdx.y % a.runs, g = blockIdx.y / a.runs, b = blockIdx.z;
+  const int hpg = a.H / a.G, h0 = g * hpg + run * a.run_len;
+  const int nh = min(a.run_len, hpg - run * a.run_len);
+  if (jbs == 2 && jb == 0)
+    dx_ds_cc<P, N, 128>(a, smem_f, c, jb, run, g, h0, nh, b);
+  else
+    dx_ds_cc<P, N, 64>(a, smem_f, c, jb, run, g, h0, nh, b);
+}
+
+// 4. dB (side 0) or dC (side 1) of 64 rows (r0 .. r0 + 63 of chunk c) over
+// a run of a group's heads, one accumulator kept over the run: the state
+// terms stacked along K, sum_h (w_h x_h) G_h for dB and
+// sum_h (exp(cum_h) dy_h) h_h for dC, the rows of x or dy scaled in place;
+// dC's rows also give exp(cum_i) C_i . (dy_i h) of each head (erow, for
+// dcum) from the head's own product before it joins the sum.  Then
+// + dS^T C (dB: the run's dS^T rows j, columns i >= r0) or + dS B (dC: its
+// columns i of the block, rows j up to them), both from the scratch dx / dS
+// wrote; stored, or as the run's part where the heads are split into runs.
+template <int P, int N>
+__global__ void __launch_bounds__(kCcThreads, 1)
+ssd_bwd_db_dc_cc(const CArgs a) {
+  constexpr int kSt = dbdc_cc_stages(P, N), LP = P + 4, LN = N + 4, JN = N / 16;
+  extern __shared__ __align__(16) float smem_f[];
+  const int Q = a.Q, S = a.S, nc = a.nc, QT = Q <= 64 ? 64 : 128, rbs = QT / 64;
+  const int c = blockIdx.x / (2 * rbs), side = (blockIdx.x / rbs) & 1, rb = blockIdx.x % rbs;
+  const int run = blockIdx.y % a.runs, g = blockIdx.y / a.runs, b = blockIdx.z;
+  const int hpg = a.H / a.G, h0 = g * hpg + run * a.run_len;
+  const int nh = min(a.run_len, hpg - run * a.run_len);
+  const int t0 = c * Q, r0 = 64 * rb, rows = min(Q, S - t0), rv = max(0, min(64, rows - r0));
+  const int tid = threadIdx.x, warp = tid / 32, ty = tid / 16, tx = tid % 16;
+  const int stage = 64 * LP + P * LN;
+  float* sCi = smem_f;
+  float* room = sCi + 64 * LN;
+  float* sScale = room + dbdc_cc_room(P, N, QT, kSt);
+  const int64_t bh0 = static_cast<int64_t>(b) * a.H, PN = static_cast<int64_t>(P) * N;
+  const int64_t srow = static_cast<int64_t>(a.H) * P, grow = static_cast<int64_t>(a.G) * N;
+  const int64_t row0 = static_cast<int64_t>(b) * S + t0;  // (b, t0)
+  const float* ab = (side ? a.dy : a.x) + (row0 + r0) * srow;
+  const float* hg = side ? a.state : a.grad;  // h entering the chunk, or G leaving it
+  auto load_head = [&](int h, float* st) {
+    load_rows_async(st, LP, ab + h * P, srow, 64, rv, P);
+    load_rows_async(st + 64 * LP, LN, hg + ((bh0 + h) * nc + c) * PN, N, P, P, N);
+  };
+  if (side) load_rows_async(sCi, LN, a.Cm + ((row0 + r0) * a.G + g) * N, grow, 64, rv, N);
+  load_head(h0, room);
+  cp_async_commit();
+  if (kSt == 2 && nh > 1) load_head(h0 + 1, room + stage);
+  cp_async_commit();
+  auto scale_of = [&](int h) {  // w_j (dB) or exp(cum_i) (dC) of row r0 + tid
+    const int r = r0 + tid;
+    if (tid >= 64 || r >= Q) return 0.f;
+    const float* cm = a.cum + (bh0 + h) * nc * Q + t0;
+    if (side) return expf(cm[r]);
+    const float dt = r < rows ? a.dt[(row0 + r) * a.H + h] : 0.f;
+    return expf(cm[Q - 1] - cm[r]) * dt;
+  };
+  float pv = scale_of(h0);
+  float acc[4][JN];
+  zero_tile(acc);
+
+  for (int k = 0; k < nh; ++k) {
+    const int h = h0 + k;
+    float* st = room + (kSt == 2 && (k & 1) ? stage : 0);
+    if (tid < 64) sScale[tid] = pv;
+    if (k + 1 < nh) pv = scale_of(h + 1);
+    cp_async_wait<kSt - 1>();  // this head's rows and state are in
+    __syncthreads();
+    for (int e = tid; e < 16 * P; e += kCcThreads) {  // 64 rows of P / 4 float4s
+      const int r = e / (P / 4), c4 = (e - r * (P / 4)) * 4;
+      float4* v = reinterpret_cast<float4*>(st + r * LP + c4);
+      const float f = sScale[r];
+      *v = make_float4(v->x * f, v->y * f, v->z * f, v->w * f);
+    }
+    __syncthreads();
+    if (side == 0) {
+      mm_rows(acc, st, LP, st + 64 * LP, LN, 0, P);
+    } else {
+      float hacc[4][JN];
+      zero_tile(hacc);
+      mm_rows(hacc, st, LP, st + 64 * LP, LN, 0, P);
+      const int64_t rows0 = (bh0 + h) * nc * Q + t0;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float v = 0.f;
+#pragma unroll
+        for (int j = 0; j < JN; ++j) {
+          v += hacc[i][j] * sCi[(4 * ty + i) * LN + tx + 16 * j];
+          acc[i][j] += hacc[i][j];
+        }
+        v = row_sum16(v);
+        const int r = r0 + 4 * ty + i;
+        if (tx == 0 && r < Q) a.erow[rows0 + r] = v;
+      }
+    }
+    __syncthreads();  // the stage is free
+    if (k + kSt < nh) load_head(h + kSt, st);
+    cp_async_commit();
+  }
+
+  // the run's dS^T and the group's rows into the stages' room
+  const float* ds = a.ds + (((static_cast<int64_t>(run) * a.B + b) * nc + c) * a.G + g) * QT * QT;
+  cp_async_wait<0>();
+  if (side == 0) {  // + dS^T C: rows j, columns i >= r0
+    const int ni = QT - r0;
+    load_rows_async(room, ni + 4, ds + r0 * QT + r0, QT, 64, 64, ni);
+    load_rows_async(room + 64 * (QT + 4), LN, a.Cm + ((row0 + r0) * a.G + g) * N, grow, ni,
+                    max(0, min(ni, rows - r0)), N);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    mm_rows(acc, room, ni + 4, room + 64 * (QT + 4), LN, 8 * warp, ni);
+  } else {          // + dS B: rows i of the block, key rows j < r0 + 64
+    const int kend = r0 + 64;
+    load_rows_async(room, 68, ds + r0, QT, kend, kend, 64);
+    load_rows_async(room + QT * 68, LN, a.Bm + (row0 * a.G + g) * N, grow, kend,
+                    max(0, min(kend, rows)), N);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    mm_cols(acc, room, 68, room + QT * 68, LN, 0, min(kend, r0 + 8 * warp + 8));
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = r0 + 4 * ty + i, t = t0 + r;
+    if (r >= Q || t >= S) continue;
+    const int64_t row = ((static_cast<int64_t>(b) * S + t) * a.G + g) * N;
+    float* o = a.bc_runs == nullptr
+                   ? (side ? a.dCm : a.dBm) + row
+                   : a.bc_runs + (static_cast<int64_t>(side) * a.runs + run) * a.B * S * grow + row;
+#pragma unroll
+    for (int j = 0; j < JN; ++j) o[tx + 16 * j] = acc[i][j];
+  }
+}
+
+template <int P, int N>
+int launch_cc(const CArgs& a, cudaStream_t stream) {
+  constexpr int kSt3 = dxds_cc_stages(P, N), kSt4 = dbdc_cc_stages(P, N);
+  constexpr bool kGinM = dxds_cc_g_in_m(P, N);
+  constexpr int kS1 = states_cc_floats(P, N, 128) * 4;
+  constexpr int kS3 = dxds_cc_floats(P, N, 128, kSt3, kGinM) * 4;
+  constexpr int kS4 = dbdc_cc_floats(P, N, 128, kSt4) * 4;
+  static_assert(kS1 <= kSmemMax && kS3 <= kSmemMax && kS4 <= kSmemMax,
+                "shared memory over the 227 KB a block may have");
+  // once per instantiation, at its first launch (outside any graph capture)
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(ssd_bwd_states_cc<P, N>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, kS1);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(ssd_bwd_dx_ds_cc<P, N>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, kS3);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(ssd_bwd_db_dc_cc<P, N>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, kS4);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
+  }
+  const int QT = a.Q <= 64 ? 64 : 128, jbs = QT / 64;
+  const int tiles = (P * N + 4 * kChain - 1) / (4 * kChain);
+  const dim3 runs(a.G * a.runs, a.B);
+  ssd_bwd_states_cc<P, N><<<dim3(2 * a.nc, runs.x, runs.y), kCcThreads,
+                             states_cc_floats(P, N, QT) * 4, stream>>>(a);
+  if (const cudaError_t e = cudaGetLastError(); e != cudaSuccess) return static_cast<int>(e);
+  ssd_bwd_chain<float><<<dim3(a.B * a.H, tiles), kChain, 0, stream>>>(a.state, a.grad, a.cum,
+                                                                      a.dots, a.nc, a.Q, P, N);
+  if (const cudaError_t e = cudaGetLastError(); e != cudaSuccess) return static_cast<int>(e);
+  ssd_bwd_dx_ds_cc<P, N><<<dim3(a.nc * jbs, runs.x, runs.y), kCcThreads,
+                            dxds_cc_floats(P, N, QT, kSt3, kGinM) * 4, stream>>>(a);
+  if (const cudaError_t e = cudaGetLastError(); e != cudaSuccess) return static_cast<int>(e);
+  ssd_bwd_db_dc_cc<P, N><<<dim3(2 * jbs * a.nc, runs.x, runs.y), kCcThreads,
+                            dbdc_cc_floats(P, N, QT, kSt4) * 4, stream>>>(a);
+  if (const cudaError_t e = cudaGetLastError(); e != cudaSuccess) return static_cast<int>(e);
+  const int64_t rows = static_cast<int64_t>(a.B) * a.H * a.nc * a.Q;
+  const Dcum d{a.dt, a.A, a.cum, a.colt, a.dw, a.rowmr, a.erow, a.dots, a.ddt, a.dap,
+               rows, jbs, tiles, a.S, a.H, a.Q};
+  ssd_bwd_dcum<<<dim3(a.nc, a.H, a.B), kThreads, 0, stream>>>(d);
+  if (const cudaError_t e = cudaGetLastError(); e != cudaSuccess) return static_cast<int>(e);
+  const Reduce r{a.dap, a.ddp, a.bc_runs, a.dBm, a.dCm, a.dA, a.dD,
+                 a.B, a.S, a.H, a.G, a.N, a.nc, a.runs, jbs};
+  return launch_reduce<float>(r, stream);
 }
 
 // ========================================================== entry points
 
-using Launch = int (*)(const Args&, cudaStream_t);
+using CLaunch = int (*)(const CArgs&, cudaStream_t);
 using WLaunch = int (*)(const WArgs&, const void*, const void*, const void*, const void*,
                         cudaStream_t);
 
 bool head_dim(int d) { return d == 16 || d == 32 || d == 64 || d == 128; }
 
 template <int P>
-Launch f32_for(int N) {
+CLaunch cc_for(int N) {
   switch (N) {
-    case 16: return launch<P, 16>;
-    case 32: return launch<P, 32>;
-    case 64: return launch<P, 64>;
-    case 128: return launch<P, 128>;
+    case 16: return launch_cc<P, 16>;
+    case 32: return launch_cc<P, 32>;
+    case 64: return launch_cc<P, 64>;
+    case 128: return launch_cc<P, 128>;
     default: return nullptr;
   }
 }
 
-Launch find_f32(int P, int N) {
+CLaunch find_cc(int P, int N) {
   if (!head_dim(P) || !head_dim(N)) return nullptr;
   switch (P) {
-    case 16: return f32_for<16>(N);
-    case 32: return f32_for<32>(N);
-    case 64: return f32_for<64>(N);
-    default: return f32_for<128>(N);
+    case 16: return cc_for<16>(N);
+    case 32: return cc_for<32>(N);
+    case 64: return cc_for<64>(N);
+    default: return cc_for<128>(N);
   }
 }
 
@@ -1774,26 +1665,41 @@ WLaunch find_wgmma(int P, int N, int rows) {
   return padded(N) == 64 ? wgmma_for<128, 64>(rows) : wgmma_for<128, 128>(rows);
 }
 
-int f32_smem(int phase, int P, int N) {
-  return phase == 0 ? states_smem(P, N)
-         : phase == 2 ? dxdb_smem(P, N)
-         : phase == 3 ? dc_smem(P, N)
-                      : 0;
+// Shared memory of the f32 launches at tile rows QT (0 for those with none).
+template <int P, int N>
+int cc_smem(int phase, int QT) {
+  switch (phase) {
+    case 0: return states_cc_floats(P, N, QT) * 4;
+    case 2: return dxds_cc_floats(P, N, QT, dxds_cc_stages(P, N), dxds_cc_g_in_m(P, N)) * 4;
+    case 3: return dbdc_cc_floats(P, N, QT, dbdc_cc_stages(P, N)) * 4;
+    default: return 0;
+  }
+}
+template <int P>
+int cc_smem_n(int N, int phase, int QT) {
+  return N == 16 ? cc_smem<P, 16>(phase, QT)
+         : N == 32 ? cc_smem<P, 32>(phase, QT)
+         : N == 64 ? cc_smem<P, 64>(phase, QT)
+                   : cc_smem<P, 128>(phase, QT);
 }
 
 }  // namespace
 
 // Threads and dynamic shared memory of launch `phase` (0..5, in the order
-// of the header's lists) of the instantiation for (dtype, P, N, tile rows);
-// rows is the chunk rounded up to 64 for bf16 and unused for f32.
-// cudaErrorInvalidValue if there is none.
+// of the header's lists) of the instantiation for (dtype, P, N, tile rows:
+// the chunk rounded up to 64).  cudaErrorInvalidValue if there is none.
 extern "C" int ssd_scan_bwd_geometry(int dtype, int P, int N, int rows, int phase, int* threads,
                                      int* smem) {
-  if (phase < 0 || phase > 5) return static_cast<int>(cudaErrorInvalidValue);
+  if (phase < 0 || phase > 5 || (rows != 64 && rows != 128))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0) {
-    if (find_f32(P, N) == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-    *threads = phase == 1 ? kChain : phase == 5 ? kPassThreads : kThreads;
-    *smem = f32_smem(phase, P, N);
+    if (find_cc(P, N) == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    const int t[6] = {kCcThreads, kChain, kCcThreads, kCcThreads, kThreads, kPassThreads};
+    *threads = t[phase];
+    *smem = P == 16 ? cc_smem_n<16>(N, phase, rows)
+            : P == 32 ? cc_smem_n<32>(N, phase, rows)
+            : P == 64 ? cc_smem_n<64>(N, phase, rows)
+                      : cc_smem_n<128>(N, phase, rows);
     return 0;
   }
   if (dtype != 1 || find_wgmma(P, N, rows) == nullptr)
@@ -1809,36 +1715,58 @@ extern "C" int ssd_scan_bwd_geometry(int dtype, int P, int N, int rows, int phas
 
 // dtype of x, Bm, Cm, dy, dx, dBm, dCm: 0 = float32 (CUDA cores), 1 =
 // bfloat16 (wgmma).  Every tensor contiguous and 16-byte aligned.  scratch:
-// n_scratch pointers in the order of kernel_plan_bwd's "scratch" (f32: 11;
-// bf16: 11, and the runs' dB / dC parts where runs > 1).  runs: the bf16
-// plan's head runs a group (ignored for f32).  Q: a multiple of 32 up to
-// 128.
+// n_scratch pointers in the order of kernel_plan_bwd's "scratch" (11, and
+// the runs' dB / dC parts where runs > 1).  runs: the plan's head runs a
+// group.  Q: a multiple of 32 up to 128.
 extern "C" int ssd_scan_bwd(const void* x, const void* dt, const void* A, const void* Bm,
                             const void* Cm, const void* D, const void* dy, void* dx, void* ddt,
                             void* dA, void* dBm, void* dCm, void* dD, void* const* scratch,
                             int n_scratch, int B, int S, int H, int G, int P, int N, int Q,
                             int dtype, int runs, void* stream) {
-  if (Q % kPanel || Q < kPanel || Q > kMaxQ || G <= 0 || H % G)
+  if (Q % 32 || Q < 32 || Q > kMaxQ || G <= 0 || H % G)
     return static_cast<int>(cudaErrorInvalidValue);
-  const auto f = [&](int k) { return static_cast<float*>(scratch[k]); };
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    const Launch fn = find_f32(P, N);
-    if (fn == nullptr || n_scratch != 11) return static_cast<int>(cudaErrorInvalidValue);
-    const Args a{x, Bm, Cm, dy,
-                 static_cast<const float*>(dt), static_cast<const float*>(A),
-                 static_cast<const float*>(D), dx, dBm, dCm,
-                 static_cast<float*>(ddt), static_cast<float*>(dA), static_cast<float*>(dD),
-                 f(0), f(1), f(2), f(3), f(4), f(5), f(6), f(7), f(8), f(9), f(10),
-                 B, S, H, G, P, N, Q};
-    return fn(a, st);
-  }
   const int hpg = H / G;
-  const WLaunch fn = dtype == 1 ? find_wgmma(P, N, Q <= 64 ? 64 : 128) : nullptr;
-  if (fn == nullptr || runs < 1 || runs > hpg || n_scratch != (runs > 1 ? 12 : 11))
+  if (runs < 1 || runs > hpg || n_scratch != (runs > 1 ? 12 : 11))
     return static_cast<int>(cudaErrorInvalidValue);
   const int run_len = (hpg + runs - 1) / runs;
   if ((runs - 1) * run_len >= hpg) return static_cast<int>(cudaErrorInvalidValue);
+  const auto f = [&](int k) { return static_cast<float*>(scratch[k]); };
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    const CLaunch fn = find_cc(P, N);
+    if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    CArgs a{};
+    a.x = static_cast<const float*>(x);
+    a.dy = static_cast<const float*>(dy);
+    a.Bm = static_cast<const float*>(Bm);
+    a.Cm = static_cast<const float*>(Cm);
+    a.dt = static_cast<const float*>(dt);
+    a.A = static_cast<const float*>(A);
+    a.D = static_cast<const float*>(D);
+    a.dx = static_cast<float*>(dx);
+    a.dBm = static_cast<float*>(dBm);
+    a.dCm = static_cast<float*>(dCm);
+    a.ddt = static_cast<float*>(ddt);
+    a.dA = static_cast<float*>(dA);
+    a.dD = static_cast<float*>(dD);
+    a.cum = f(0);
+    a.state = f(1);
+    a.grad = f(2);
+    a.dots = f(3);
+    a.colt = f(4);
+    a.dw = f(5);
+    a.rowmr = f(6);
+    a.erow = f(7);
+    a.ds = f(8);
+    a.dap = f(9);
+    a.ddp = f(10);
+    a.bc_runs = runs > 1 ? f(11) : nullptr;
+    a.B = B, a.S = S, a.H = H, a.G = G, a.P = P, a.N = N, a.Q = Q;
+    a.nc = (S + Q - 1) / Q, a.runs = runs, a.run_len = run_len;
+    return fn(a, st);
+  }
+  const WLaunch fn = dtype == 1 ? find_wgmma(P, N, Q <= 64 ? 64 : 128) : nullptr;
+  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   WArgs a{};
   a.dt = static_cast<const float*>(dt);
   a.A = static_cast<const float*>(A);

@@ -5,12 +5,13 @@ is ``csrc/ssd_scan.cu`` (its header says what bounds it and how the design
 answers that); ``kernels/build.py`` builds it with ``nvcc`` at first use and
 binds it through ``ctypes``.  Nothing is built or loaded at import.
 
-Two variants, chosen by dtype in ``kernel_plan``: bf16 runs three
-chunk-parallel phases on the tensor cores (``"wgmma"``: TMA loads, ``wgmma``
-for every product, f32 scratch between the phases); f32 runs one block per
-(head, batch) on the CUDA cores (``"cuda_cores"``: f32 FMAs, which its 2e-4
-tolerance needs).  There is no option that picks another: a bf16 CUDA
-tensor launches the tensor-core phases or raises.
+Two variants, chosen by dtype in ``kernel_plan``, each three phases of
+which all but the state pass are chunk-parallel, with f32 scratch between
+them: bf16 on the tensor cores (``"wgmma"``: TMA loads, ``wgmma`` for every
+product); f32 on the CUDA cores (``"cuda_cores"``: f32 FMAs, which its 2e-4
+tolerance needs, ``cp.async`` tiles, blocks walking a run of a group's
+heads with S = C B^T formed once a block).  There is no option that picks
+another: a CUDA tensor launches its dtype's phases or raises.
 
 ``ssd_scan_cuda`` takes CUDA tensors only and returns a result outside the
 autograd graph; it refuses to run where autograd would need a gradient.
@@ -28,9 +29,9 @@ op ``repro_torch::ssd_scan_bwd``): six launches with scratch the wrapper
 allocates; bf16 (``"wgmma"``) loads its tiles by TMA, runs every product
 on ``wgmma`` and walks a run of a group's heads a block, so dS is summed
 over the heads before its products with C and B and no per-head partial
-reaches device memory; f32 (``"cuda_cores"``) runs f32 FMAs on the CUDA
-cores (``kernel_plan_bwd``).  No atomics, so the same inputs give bitwise
-the same gradients.  Its plain version is
+reaches device memory; f32 (``"cuda_cores"``) has the same structure in
+f32 FMAs on the CUDA cores (``kernel_plan_bwd``).  No atomics, so the
+same inputs give bitwise the same gradients.  Its plain version is
 ``ref.ssd_scan_bwd_ref``; nothing on the card falls back to it.  The JAX
 package has no backward kernel to port: it trains through ``jax.grad`` of
 ``ref.ssd_chunked_ref``.
@@ -60,33 +61,38 @@ PASS_THREADS = 256              # forward state pass (4 elements a thread),
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the C entry point's codes besides cudaError_t
 _NO_ENCODER, _ENCODE_FAILED = 999, 1000
-PHASES = ("ssd_fwd_chunk_state", "ssd_fwd_state_pass", "ssd_fwd_chunk_scan")
+PHASES = {                      # the forward's launches, by plan variant
+    "wgmma": ("ssd_fwd_chunk_state", "ssd_fwd_state_pass",
+              "ssd_fwd_chunk_scan"),
+    "cuda_cores": ("ssd_fwd_chunk_state_cc", "ssd_fwd_state_pass",
+                   "ssd_fwd_chunk_scan_cc"),
+}
 BWD_PHASES = {                  # the backward's launches, by plan variant
     "wgmma": ("ssd_bwd_states_wgmma", "ssd_bwd_chain", "ssd_bwd_dx_ds_wgmma",
               "ssd_bwd_db_dc_wgmma", "ssd_bwd_dcum", "ssd_bwd_reduce_runs"),
-    "cuda_cores": ("ssd_bwd_chunk_states", "ssd_bwd_chain",
-                   "ssd_bwd_dx_db", "ssd_bwd_dc", "ssd_bwd_dcum",
-                   "ssd_bwd_reduce"),
+    "cuda_cores": ("ssd_bwd_states_cc", "ssd_bwd_chain", "ssd_bwd_dx_ds_cc",
+                   "ssd_bwd_db_dc_cc", "ssd_bwd_dcum", "ssd_bwd_reduce_runs"),
 }
-PANEL = 32              # backward, f32: rows of a panel
-BWD_THREADS = 128       # backward, f32: threads of a chunk-parallel block
-BWD_RED = 512           # backward, f32: floats of a block's reduction scratch
+CC_THREADS = 256        # f32: threads of a CUDA-core block (64-row tiles)
+DCUM_THREADS = 128      # backward: threads of the dcum launch
 CHAIN_THREADS = 256     # state chain: threads a block, 4 elements each
 
 
 def ssd_work(x_shape, g: int, n: int, chunk: int,
              dtype_bytes: int) -> tuple[int, int]:
     """(operations, bytes) of one scan of x ``[b, s, h, p]`` with B/C of
-    ``g`` groups of ``n``: per (b, h) and chunk of q rows (a ragged last
-    chunk counts its own), q (q + 1) / 2 (N + P) multiply-adds for the
-    causal triangles of C.B^T and W x and 2 q P N for C h_in and the state
-    update; x, dt, B, C read once and y written once."""
+    ``g`` groups of ``n``.  Per (b, h) and chunk of q rows (a ragged last
+    chunk counts its own): q (q + 1) / 2 P multiply-adds for the causal
+    triangle of W x and 2 q P N for C h_in and the state update; per (b, g)
+    and chunk, since B and C belong to the group: q (q + 1) / 2 N for that
+    of S = C B^T.  x, dt, B, C read once and y written once."""
     b, s, h, p = x_shape
     rows = [min(chunk, s - t) for t in range(0, s, chunk)]
-    macs = sum(q * (q + 1) // 2 * (n + p) + 2 * q * p * n for q in rows)
+    tri = sum(q * (q + 1) // 2 for q in rows)
+    macs = h * (tri * p + 2 * s * p * n) + g * tri * n
     nbytes = (2 * b * s * h * p + 2 * b * s * g * n) * dtype_bytes \
         + b * s * h * 4 + 2 * h * 4
-    return 2 * b * h * macs, nbytes
+    return 2 * b * macs, nbytes
 
 
 def ssd_bwd_work(x_shape, g: int, n: int, chunk: int,
@@ -112,14 +118,22 @@ def _padded(w: int) -> int:
     return 64 if w <= 64 else 128
 
 
+def _states_cc(p: int, n: int, rows: int) -> int:
+    """Floats of an f32 chunk-states block (``states_cc_floats``): the
+    group's rows, two stages of a head's rows, dt, cum and the row scale;
+    every f32 row 16 bytes longer than its width."""
+    return rows * (n + 4) + 2 * rows * (p + 4) + 3 * rows
+
+
 def geometry(dtype: torch.dtype, p: int, n: int,
              rows: int) -> list[tuple[int, int]]:
     """(threads, shared-memory bytes) of each phase of the kernel
     instantiated for (dtype, p, n, tile rows), as ``csrc/ssd_scan.cu`` lays
-    it out (``chunk_state_smem``, ``chunk_scan_smem``, ``smem_floats``).
-    The C entry point takes only (dtype, p, n, rows) and launches with its
-    own numbers; these are what the plan reports without the library, and
-    ``chip_smoke.py`` holds them against ``kernel_geometry``."""
+    it out (``chunk_state_smem``, ``chunk_scan_smem``; ``states_cc_floats``,
+    ``scan_cc_floats``).  The C entry point takes only (dtype, p, n, rows)
+    and launches with its own numbers; these are what the plan reports
+    without the library, and ``chip_smoke.py`` holds them against
+    ``kernel_geometry``."""
     if dtype == torch.bfloat16:
         pp, np_ = _padded(p) // 64, _padded(n) // 64    # 64-column boxes
         box = rows * 128                                # bytes of a box
@@ -129,10 +143,14 @@ def geometry(dtype: torch.dtype, p: int, n: int,
         scan = 1024 + box * (2 * np_ + pp) + 64 * pp * 128 * np_ + 8 \
             + 2 * rows * 4
         return [(128, state), (PASS_THREADS, 0), (2 * rows, scan)]
-    # x, B (rows padded by a float), C panel, state, W panel, 3 per row
-    floats = rows * p + rows * (n + 1) + 32 * (n + 1) + p * (n + 1) \
-        + 32 * (rows + 1) + 3 * rows
-    return [(256, floats * 4)]
+    # the scan: C's 64 query rows, h_in's rows of y's pt columns, x's first
+    # stage, then B's key rows, or W's 64 rows and x's second stage, then
+    # dt and cum
+    pt = min(p, 64)
+    late = max(rows * (n + 4), 64 * (rows + 4) + rows * (pt + 4))
+    scan = 64 * (n + 4) + pt * (n + 4) + rows * (pt + 4) + late + 2 * rows
+    return [(CC_THREADS, _states_cc(p, n, rows) * 4), (PASS_THREADS, 0),
+            (CC_THREADS, scan * 4)]
 
 
 def _refuse(name: str, b: int, h: int, p: int, n: int, chunk: int) -> None:
@@ -163,17 +181,23 @@ def kernel_plan(b: int, s: int, h: int, p: int, g: int, n: int, chunk: int,
     chunk scan; ``mma`` lists each phase's wgmma shapes (m, n, k), P and N
     below 64 padded to 64.  ``scratch`` holds the shapes and dtypes the
     wrapper allocates (cum, the chunks' own states, the states entering
-    them) and ``scratch_bytes`` their sum.  f32 plans ``"cuda_cores"``: one
-    block per (head, batch) looping over the chunks, no scratch.  Raises
+    them) and ``scratch_bytes`` their sum.  f32 plans ``"cuda_cores"``: the
+    same three phases on the CUDA cores, a group's heads split into
+    ``runs`` runs of ``run_len`` (``head_runs``) that a block walks in
+    order; the chunk state one block per (chunk, run, batch), the chunk
+    scan one per (chunk, 64-row query half, 64 columns of y where P = 128,
+    run, batch), S = C B^T formed once a block; the states entering the
+    chunks go over the chunks' own states in place (no ``h_in``).  Raises
     ValueError on what no instantiation takes.
     """
     _refuse("ssd_scan_cuda", b, h, p, n, chunk)
     nc = -(-s // chunk)
+    rows = 64 if chunk <= 64 else 128
+    pass_grid = (b * h, -(-p * n // (4 * PASS_THREADS)), 1)
+    extra = {}
     if dtype == torch.bfloat16:
-        rows = 64 if chunk <= 64 else 128
         pp, np_ = _padded(p), _padded(n)
-        grids = [(nc, h, b), (b * h, -(-p * n // (4 * PASS_THREADS)), 1),
-                 (nc, h, b)]
+        grids = [(nc, h, b), pass_grid, (nc, h, b)]
         mma = [[(64, np_, 16)], [], [(64, rows, 16), (64, pp, 16)]]
         scratch = {
             "cum": ((b, h, nc * chunk), torch.float32),
@@ -182,23 +206,31 @@ def kernel_plan(b: int, s: int, h: int, p: int, g: int, n: int, chunk: int,
         }
         variant = "wgmma"
     elif dtype == torch.float32:
-        rows, grids, mma, scratch = chunk, [(h, b, 1)], [[]], {}
+        runs, run_len = head_runs(b, s, h, g, chunk)
+        tiles = rows // 64 * (p // min(p, 64))   # query halves x y's columns
+        grids = [(nc, g * runs, b), pass_grid, (nc * tiles, g * runs, b)]
+        mma = [[], [], []]
+        scratch = {
+            "cum": ((b, h, nc * chunk), torch.float32),
+            "state": ((b, h, nc, p, n), torch.float32),
+        }
         variant = "cuda_cores"
+        extra = {"runs": runs, "run_len": run_len}
     else:
         raise ValueError(f"ssd_scan_cuda: x is {dtype}, expected "
                          "torch.float32 or torch.bfloat16")
-    names = PHASES if variant == "wgmma" else ("ssd_fwd_f32",)
     phases = [{"name": name, "grid": grid, "threads": threads, "smem": smem,
                "mma": shapes}
               for name, grid, (threads, smem), shapes
-              in zip(names, grids, geometry(dtype, p, n, rows), mma)]
+              in zip(PHASES[variant], grids, geometry(dtype, p, n, rows),
+                     mma)]
     for ph in phases:
         if ph["smem"] > MAX_SMEM:
             raise ValueError(f"ssd_scan_cuda: {ph['smem']} bytes of shared "
                              f"memory exceed a block's {MAX_SMEM}")
     nbytes = sum(math.prod(shape) * dt.itemsize
                  for shape, dt in scratch.values())
-    return {"variant": variant, "rows": rows, "phases": phases,
+    return {"variant": variant, "rows": rows, **extra, "phases": phases,
             "scratch": scratch, "scratch_bytes": nbytes}
 
 
@@ -206,7 +238,7 @@ def kernel_plan(b: int, s: int, h: int, p: int, g: int, n: int, chunk: int,
 def _library() -> ctypes.CDLL:
     lib = kbuild.load(SRC, NVCC_FLAGS)
     p, i, q = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    lib.ssd_scan_fwd.argtypes = [p] * 11 + [i] * 9 + [q] * 12 + [p]
+    lib.ssd_scan_fwd.argtypes = [p] * 11 + [i] * 10 + [q] * 12 + [p]
     lib.ssd_scan_fwd.restype = i
     ip = ctypes.POINTER(i)
     lib.ssd_scan_geometry.argtypes = [i, i, i, i, i, ip, ip]
@@ -220,7 +252,7 @@ def kernel_geometry(dtype: torch.dtype, p: int, n: int,
     instantiation for (dtype, p, n, rows), or None if it has none (builds
     the library)."""
     out = []
-    for phase in range(3 if dtype == torch.bfloat16 else 1):
+    for phase in range(3):
         threads, smem = ctypes.c_int(), ctypes.c_int()
         if _library().ssd_scan_geometry(_DTYPES[dtype], p, n, rows, phase,
                                         threads, smem):
@@ -259,12 +291,11 @@ def geometry_bwd(dtype: torch.dtype, p: int, n: int,
     256; dx / dS (``dxds_smem``); dB / dC, a warpgroup per 64 rows, C and
     the room of two stages of x or dy and G or h (or of dS and B, if
     larger), four mbarriers, a float a row (``dbdc_smem``); dcum 128;
-    the reduction 256.  f32 (``states_smem``, ``dxdb_smem``, ``dc_smem``;
-    ``rows`` unused): the chain's 256 threads as bf16's; tiles of f32 whose rows are 16 bytes longer than
-    their width, then floats (dt, cum and two vectors of a chunk's rows in
-    the chunk-state phase; dt, cum, two vectors of a panel's rows and the
-    reduction scratch in the dx/dB and dC phases).  ``chip_smoke.py``
-    holds them against ``kernel_geometry_bwd``."""
+    the reduction 256.  f32 (tile ``rows`` as bf16's; ``states_cc_floats``,
+    ``dxds_cc_floats``, ``dbdc_cc_floats``): 256 threads in the three
+    CUDA-core launches, tiles of f32 rows 16 bytes longer than their width;
+    the chain, dcum and the reduction as bf16's.  ``chip_smoke.py`` holds
+    them against ``kernel_geometry_bwd``."""
     if dtype == torch.bfloat16:
         pp, np_ = _padded(p), _padded(n)
         wgs = dxds_warpgroups(p, n, rows)
@@ -274,15 +305,50 @@ def geometry_bwd(dtype: torch.dtype, p: int, n: int,
         dbdc = 1024 + np_ * rows * 2 + room + 32 + rows * 4
         return [(256, states), (CHAIN_THREADS, 0),
                 (128 * wgs, _dxds_smem(pp, np_, rows, wgs)), (2 * rows, dbdc),
-                (BWD_THREADS, 0), (PASS_THREADS, 0)]
-    lp, ln, l32 = p + 4, n + 4, 32 + 4      # f32 rows, 16 bytes longer
-    tail = 2 * MAX_CHUNK + 2 * PANEL + BWD_RED
-    states = (PANEL * (lp + ln) + 4 * MAX_CHUNK) * 4
-    pairs = 2 * PANEL * (lp + ln) + p * ln
-    dxdb = (pairs + 2 * PANEL * l32 + tail) * 4
-    dc = (pairs + PANEL * l32 + tail) * 4
-    return [(BWD_THREADS, states), (CHAIN_THREADS, 0), (BWD_THREADS, dxdb),
-            (BWD_THREADS, dc), (BWD_THREADS, 0), (PASS_THREADS, 0)]
+                (DCUM_THREADS, 0), (PASS_THREADS, 0)]
+    st3, g_in_m = dxds_cc_mode(p, n)
+    return [(CC_THREADS, _states_cc(p, n, rows) * 4), (CHAIN_THREADS, 0),
+            (CC_THREADS, _dxds_cc(p, n, rows, st3, g_in_m) * 4),
+            (CC_THREADS, _dbdc_cc(p, n, rows, dbdc_cc_stages(p, n)) * 4),
+            (DCUM_THREADS, 0), (PASS_THREADS, 0)]
+
+
+def _dxds_cc(p: int, n: int, rows: int, stages: int, g_in_m: bool) -> int:
+    """Floats of the f32 dx / dS block (``dxds_cc_floats``): B's 64 key
+    rows; a stage of x's key rows and dy's query rows; the room that holds
+    C's query rows until S^T is formed and then G, M^T (G in M^T's own room
+    where ``g_in_m``) and a second stage; dt and cum of the tile's rows, w
+    of the key rows, each warp's column sums, the block sum's 8 floats."""
+    stage = (64 + rows) * (p + 4)
+    rest = (max(64 * (rows + 4), p * (n + 4)) if g_in_m
+            else 64 * (rows + 4) + p * (n + 4)) + (stages - 1) * stage
+    return 64 * (n + 4) + stage + max(rows * (n + 4), rest) + 2 * rows \
+        + 64 + 8 * rows + 8
+
+
+def dxds_cc_mode(p: int, n: int) -> tuple[int, bool]:
+    """(stages, G in M^T's room) of the f32 dx / dS block: two stages and G
+    apart where they fit at 128-row tiles, else one stage, else G in M^T's
+    room too (``dxds_cc_stages``, ``dxds_cc_g_in_m``)."""
+    if _dxds_cc(p, n, 128, 2, False) * 4 <= MAX_SMEM:
+        return 2, False
+    return 1, _dxds_cc(p, n, 128, 1, False) * 4 > MAX_SMEM
+
+
+def _dbdc_cc(p: int, n: int, rows: int, stages: int) -> int:
+    """Floats of the f32 dB / dC block (``dbdc_cc_floats``): C's 64 rows;
+    the room of the stages (64 rows of x or dy and G or h), which the
+    closing product's tiles (the run's dS^T, the rows of C or B) take after
+    the heads; the row scale."""
+    room = max(stages * (64 * (p + 4) + p * (n + 4)),
+               rows * 68 + rows * (n + 4))
+    return 64 * (n + 4) + room + 64
+
+
+def dbdc_cc_stages(p: int, n: int) -> int:
+    """Stages of the f32 dB / dC block: two where they fit at 128-row
+    tiles (``dbdc_cc_stages``)."""
+    return 2 if _dbdc_cc(p, n, 128, 2) * 4 <= MAX_SMEM else 1
 
 
 def head_runs(b: int, s: int, h: int, g: int, chunk: int) -> tuple[int, int]:
@@ -312,10 +378,14 @@ def kernel_plan_bwd(b: int, s: int, h: int, p: int, g: int, n: int,
     than one run, over ``[b, s, g, n]`` (grid y 1).  ``rows`` is the tile, the
     chunk rounded up to 64; ``mma`` lists each launch's wgmma shapes (P and
     N padded to 64 or 128).  f32 plans ``"cuda_cores"``: six launches
-    (``BWD_PHASES["cuda_cores"]``), 32-row panels on the CUDA cores and the
-    chain of bf16, handing h and G on in f32.  ``scratch`` holds the tensors
-    the wrapper allocates, in the C entry point's order, and ``scratch_bytes`` their sum.  Raises
-    ValueError on what the kernel does not take.
+    (``BWD_PHASES["cuda_cores"]``) in the same structure on the CUDA cores:
+    the chunk states two blocks (state, state gradient) a (chunk, run),
+    dx / dS one a 64-row key block (``key_blocks``), dB / dC two (dB, dC)
+    a 64-row block, the chain handing h and G on in f32, dS kept in f32.
+    ``scratch`` holds the tensors the wrapper allocates, in the C entry
+    point's order (no ``[b, s, h, n]`` tensor in either variant), and
+    ``scratch_bytes`` their sum.  Raises ValueError on what the kernel does
+    not take.
     """
     name = "ssd_scan_bwd_cuda"
     _refuse(name, b, h, p, n, chunk)
@@ -324,59 +394,45 @@ def kernel_plan_bwd(b: int, s: int, h: int, p: int, g: int, n: int,
                          "torch.bfloat16")
     f32, nc = torch.float32, -(-s // chunk)
     rows_ = (b, h, nc * chunk)
+    rows = 64 if chunk <= 64 else 128
+    runs, run_len = head_runs(b, s, h, g, chunk)
+    tiles = -(-p * n // (4 * CHAIN_THREADS))
+    reduce_x = max(-(-h // (PASS_THREADS // 32)),
+                   -(-b * s * g * n // (4 * PASS_THREADS)) if runs > 1 else 0)
     if dtype == torch.bfloat16:
-        variant, rows = "wgmma", 64 if chunk <= 64 else 128
+        variant = "wgmma"
         pp, np_ = _padded(p), _padded(n)
-        runs, run_len = head_runs(b, s, h, g, chunk)
         jbs = rows // (64 * dxds_warpgroups(p, n, rows))
-        tiles = -(-p * n // (4 * CHAIN_THREADS))
-        reduce_x = max(-(-h // (PASS_THREADS // 32)),
-                       -(-b * s * g * n // (4 * PASS_THREADS))
-                       if runs > 1 else 0)
         grids = [(nc, g * runs, b), (b * h, tiles, 1), (nc * jbs, g * runs, b),
                  (2 * nc, g * runs, b), (nc, h, b),
                  (reduce_x, 2 if runs > 1 else 1, 1)]
         products = [[(64, np_, 16)], [], [(64, pp, 16), (64, 64, 16)],
                     [(64, np_, 16)], [], []]
-        scratch = {
-            "cum": (rows_, f32),
-            "state": ((b, h, nc, p, n), f32),
-            "state_grad": ((b, h, nc, p, n), f32),
-            "dots": ((b, h, nc, tiles), f32),
-            "colsum": (rows_, f32),
-            "dw": (rows_, f32),
-            "dcum_rows": ((jbs,) + rows_, f32),
-            "state_rows": (rows_, f32),
-            "dS": ((runs, b, nc, g, rows, rows), torch.bfloat16),
-            "dA_part": ((b, h, nc), f32),
-            "dD_part": ((b, h, nc, jbs), f32),
-        }
-        if runs > 1:
-            scratch["dBC_runs"] = ((2, runs, b, s, g, n), f32)
-        extra = {"rows": rows, "runs": runs, "run_len": run_len,
-                 "key_blocks": jbs}
+        ds = torch.bfloat16
     else:
-        variant, rows, extra = "cuda_cores", 128, {}
-        nq = chunk // PANEL
-        tiles = -(-p * n // (4 * CHAIN_THREADS))
-        reduce_x = max(-(-b * s * g * n // (4 * PASS_THREADS)),
-                       -(-h // PASS_THREADS))
-        grids = [(nc, h, b), (b * h, tiles, 1), (nc * nq, h, b),
-                 (nc * nq, h, b), (nc, h, b), (reduce_x, 2, 1)]
+        variant, jbs = "cuda_cores", rows // 64
+        grids = [(2 * nc, g * runs, b), (b * h, tiles, 1),
+                 (nc * jbs, g * runs, b), (2 * jbs * nc, g * runs, b),
+                 (nc, h, b), (reduce_x, 2 if runs > 1 else 1, 1)]
         products = [[]] * 6
-        scratch = {
-            "cum": (rows_, f32),
-            "state": ((b, h, nc, p, n), f32),
-            "state_grad": ((b, h, nc, p, n), f32),
-            "dB_heads": ((b, s, h, n), f32),
-            "dC_heads": ((b, s, h, n), f32),
-            "dcum_rows": (rows_, f32),
-            "colsum": (rows_, f32),
-            "dw": (rows_, f32),
-            "dots": ((b, h, nc, tiles), f32),
-            "dA_part": ((b, h, nc), f32),
-            "dD_part": ((b, h, nc * nq), f32),
-        }
+        ds = f32
+    scratch = {
+        "cum": (rows_, f32),
+        "state": ((b, h, nc, p, n), f32),
+        "state_grad": ((b, h, nc, p, n), f32),
+        "dots": ((b, h, nc, tiles), f32),
+        "colsum": (rows_, f32),
+        "dw": (rows_, f32),
+        "dcum_rows": ((jbs,) + rows_, f32),
+        "state_rows": (rows_, f32),
+        "dS": ((runs, b, nc, g, rows, rows), ds),
+        "dA_part": ((b, h, nc), f32),
+        "dD_part": ((b, h, nc, jbs), f32),
+    }
+    if runs > 1:
+        scratch["dBC_runs"] = ((2, runs, b, s, g, n), f32)
+    extra = {"rows": rows, "runs": runs, "run_len": run_len,
+             "key_blocks": jbs}
     phases = [{"name": ph, "grid": grid, "threads": threads, "smem": smem,
                "mma": shapes}
               for ph, grid, (threads, smem), shapes
@@ -444,7 +500,7 @@ def _check_placed(plan, x, dt, A, Bm, Cm, D) -> None:
             raise ValueError(f"ssd_scan_cuda: the last axis of {name} is not "
                              "contiguous")
         if plan["variant"] != "wgmma":
-            continue
+            continue    # f32: a row that cp.async cannot read is copied
         # TMA reads bf16 rows from 16-byte aligned addresses and strides
         if t.data_ptr() % 16:
             raise ValueError(f"ssd_scan_cuda: {name} is not 16-byte aligned")
@@ -478,10 +534,11 @@ def ssd_scan_cuda(x: Tensor, dt: Tensor, A: Tensor, Bm: Tensor, Cm: Tensor,
     contract of ``ref.ssd_scan_ref`` (S need not be a multiple of
     ``chunk``); with ``return_state``, ``(y, state)`` with the f32 state
     ``[B, H, P, N]`` after step S.  x, Bm, Cm and dt are read through their
-    strides (for bf16 x, Bm and Cm each a multiple of 16 bytes).
+    strides (for bf16 x, Bm and Cm each a multiple of 16 bytes; f32 copies
+    one whose rows are not 16-byte aligned).
 
-    Launches on the current stream and does not synchronise: bf16 launches
-    the three phases of ``kernel_plan`` with the scratch it lists.  Each
+    Launches on the current stream and does not synchronise: the three
+    phases of ``kernel_plan`` with the scratch it lists.  Each
     call that launches adds one to ``ssd_scan_cuda.launches`` and leaves its
     plan in ``ssd_scan_cuda.last_plan``.
     """
@@ -512,8 +569,14 @@ def _ssd_fwd_op(x: Tensor, dt: Tensor, A: Tensor, Bm: Tensor, Cm: Tensor,
     if y.numel() == 0:
         return y, state.zero_()
     A, D = A.contiguous(), D.contiguous()
+    if plan["variant"] == "cuda_cores":
+        # cp.async reads 16-byte pieces of x, Bm and Cm rows
+        x, Bm, Cm = (t if t.data_ptr() % 16 == 0
+                     and all(st % 4 == 0 for st in t.stride()[:3])
+                     else _dense(t) for t in (x, Bm, Cm))
     scratch = [torch.empty(shape, dtype=dtype, device=x.device)
-               for shape, dtype in plan["scratch"].values()] or [None] * 3
+               for shape, dtype in plan["scratch"].values()]
+    scratch += [None] * (3 - len(scratch))    # f32 has no h_in of its own
     lib = _library()
     with torch.cuda.device(x.device):
         err = lib.ssd_scan_fwd(
@@ -522,7 +585,8 @@ def _ssd_fwd_op(x: Tensor, dt: Tensor, A: Tensor, Bm: Tensor, Cm: Tensor,
             *(t.data_ptr() if t is not None else None for t in scratch),
             state.data_ptr() if return_state else None,
             b, s, h, g, p, n, chunk, _DTYPES[x.dtype], plan["rows"],
-            *x.stride()[:3], *dt.stride(), *Bm.stride()[:3],
+            plan.get("runs", 1), *x.stride()[:3], *dt.stride(),
+            *Bm.stride()[:3],
             *Cm.stride()[:3], torch.cuda.current_stream().cuda_stream)
     if err != 0:
         _launch_failed("ssd_scan_cuda", err, x, Bm, chunk, plan)
@@ -595,7 +659,8 @@ def ssd_scan_bwd_cuda(x: Tensor, dt: Tensor, A: Tensor, Bm: Tensor,
 
     Six launches on the current stream (``kernel_plan_bwd``), no
     synchronisation; the inputs are read contiguous and 16-byte aligned (a
-    copy is made of one that is not; bf16 reads them by TMA).  Each call that launches adds one to
+    copy is made of one that is not: bf16 reads them by TMA, f32 by
+    cp.async).  Each call that launches adds one to
     ``ssd_scan_bwd_cuda.launches`` and leaves its plan in
     ``ssd_scan_bwd_cuda.last_plan``.
     """

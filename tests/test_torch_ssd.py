@@ -241,8 +241,12 @@ def test_kernel_wrapper_refuses_cpu_tensors_and_autograd():
 # boxes (64 columns = 128 bytes a row, rows = the chunk rounded up to 64),
 # 8 for the mbarrier, 3 floats a row (dt, cum, w); chunk scan: 1,024, the
 # C, B and x boxes, h_in's boxes of P-padded-to-64 rows, 8, 2 floats a row.
-# f32: floats of x [Q, P], B [Q, N+1], a C panel [32, N+1], the state
-# [P, N+1], a W panel [32, Q+1] and 3 a row.
+# f32 (tiles of f32 rows 16 bytes longer than their width, "rows" the chunk
+# rounded up to 64): chunk state, B's rows [rows, N + 4], two stages of x
+# [rows, P + 4], 3 floats a row; chunk scan, with pt = min(P, 64) columns
+# of y a block, C's 64 rows [64, N + 4], h_in's [pt, N + 4], x's first
+# stage [rows, pt + 4], then the larger of B's rows [rows, N + 4] and W
+# [64, rows + 4] with x's second stage, then 2 floats a row.
 def _phases(state, scan, rows_grid, pass_grid):
     return [
         {"name": "ssd_fwd_chunk_state", "grid": rows_grid, "threads": 128,
@@ -252,6 +256,14 @@ def _phases(state, scan, rows_grid, pass_grid):
         {"name": "ssd_fwd_chunk_scan", "grid": rows_grid,
          "threads": scan[2], "smem": scan[0], "mma": scan[1]},
     ]
+
+
+def _f32_phases(grids, state, scan):
+    return [{"name": name, "grid": grid, "threads": 256, "smem": 4 * smem,
+             "mma": []}
+            for name, grid, smem in zip(
+                ("ssd_fwd_chunk_state_cc", "ssd_fwd_state_pass",
+                 "ssd_fwd_chunk_scan_cc"), grids, (state, 0, scan))]
 
 
 PLANS = [
@@ -292,21 +304,64 @@ PLANS = [
                     "state": ((1, 4, 8, 64, 128), torch.float32),
                     "h_in": ((1, 4, 8, 64, 128), torch.bfloat16)},
         "scratch_bytes": 4_096 + 1_048_576 + 524_288}),
-    # f32 ragged: one block per (head, batch) on the CUDA cores
+    # f32 ragged, two groups: 3 chunks x 2 groups x 2 = 12 blocks, so each
+    # group's 4 heads go in 4 runs of one (48 blocks; 96 in the scan, its
+    # two 64-row halves a chunk)
     ((2, 300, 8, 32, 2, 64, 128, torch.float32), {
-        "variant": "cuda_cores", "rows": 128,
-        "phases": [{"name": "ssd_fwd_f32", "grid": (8, 2, 1),
-                    "threads": 256, "mma": [],
-                    "smem": 4 * (4_096 + 8_320 + 2_080 + 2_080 + 4_128
-                                 + 384)}],                         # 84,352
-        "scratch": {}, "scratch_bytes": 0}),
+        "variant": "cuda_cores", "rows": 128, "runs": 4, "run_len": 1,
+        "phases": _f32_phases(
+            [(3, 8, 2), (16, 2, 1), (6, 8, 2)],
+            128 * 68 + 2 * 128 * 36 + 384,                         # 18,304
+            64 * 68 + 32 * 68 + 128 * 36 + 64 * 132 + 128 * 36
+            + 256),                                                # 24,448
+        "scratch": {"cum": ((2, 8, 384), torch.float32),
+                    "state": ((2, 8, 3, 32, 64), torch.float32)},
+        "scratch_bytes": 4 * (6_144 + 98_304)}),
+    # mamba2-130m trained in f32: 128 (chunk, b) blocks fill the card, so
+    # one run of all 24 heads; the scan's late room is W [64, 132] and x's
+    # second stage [128, 68] (B's [128, 132] is smaller)
+    ((8, 2048, 24, 64, 1, 128, 128, torch.float32), {
+        "variant": "cuda_cores", "rows": 128, "runs": 1, "run_len": 24,
+        "phases": _f32_phases(
+            [(16, 1, 8), (192, 8, 1), (32, 1, 8)],
+            128 * 132 + 2 * 128 * 68 + 384,                        # 34,688
+            64 * 132 + 64 * 132 + 128 * 68 + 64 * 132 + 128 * 68
+            + 256),                                                # 43,008
+        "scratch": {"cum": ((8, 24, 2048), torch.float32),
+                    "state": ((8, 24, 16, 64, 128), torch.float32)},
+        "scratch_bytes": 4 * (393_216 + 25_165_824)}),
+    # jamba's layer in f32 (phase 7): 3 chunks, so 128 heads in 43 runs of
+    # 3 (the last of 2): 129 blocks, 258 in the scan
+    ((1, 300, 128, 64, 1, 16, 128, torch.float32), {
+        "variant": "cuda_cores", "rows": 128, "runs": 43, "run_len": 3,
+        "phases": _f32_phases(
+            [(3, 43, 1), (128, 1, 1), (6, 43, 1)],
+            128 * 20 + 2 * 128 * 68 + 384,                         # 20,352
+            64 * 20 + 64 * 20 + 128 * 68 + 64 * 132 + 128 * 68
+            + 256),                                                # 28,672
+        "scratch": {"cum": ((1, 128, 384), torch.float32),
+                    "state": ((1, 128, 3, 64, 16), torch.float32)},
+        "scratch_bytes": 4 * (49_152 + 393_216)}),
+    # f32, two groups of 6 heads in 3 runs of 2, chunk 64 (64-row tiles),
+    # P = 128: y's two 64-column halves are two blocks of the scan
+    ((2, 512, 12, 128, 2, 32, 64, torch.float32), {
+        "variant": "cuda_cores", "rows": 64, "runs": 3, "run_len": 2,
+        "phases": _f32_phases(
+            [(8, 6, 2), (24, 4, 1), (16, 6, 2)],
+            64 * 36 + 2 * 64 * 132 + 192,                          # 19,392
+            64 * 36 + 64 * 36 + 64 * 68 + 64 * 68 + 64 * 68
+            + 128),                                                # 17,792
+        "scratch": {"cum": ((2, 12, 512), torch.float32),
+                    "state": ((2, 12, 8, 128, 32), torch.float32)},
+        "scratch_bytes": 4 * (12_288 + 786_432)}),
 ]
 
 
 @pytest.mark.parametrize("shape,plan", PLANS, ids=lambda v: str(v)[:40])
 def test_kernel_plan_literal(shape, plan):
-    """Grids, threads, shared memory and scratch at the training shape, a
-    jamba-shaped one, 32-row chunks and f32."""
+    """Grids, threads, shared memory, head runs and scratch at the training
+    shape, a jamba-shaped one and 32-row chunks in bf16; in f32 at the
+    ragged shape, mamba2's and jamba's, and two groups in runs of 2."""
     assert ssd.kernel_plan(*shape) == plan
 
 

@@ -182,7 +182,7 @@ def _rows(b, h, s):
     return ((b, h, s), torch.float32)
 
 
-F32_THREADS = (128, 256, 128, 128, 128, 256)
+F32_THREADS = (256, 256, 256, 256, 128, 256)
 
 # Launch plans worked out by hand from csrc/ssd_scan_bwd.cu's layout.
 # bf16 (tiles of 64-column boxes of bf16, 128 bytes a row; P and N padded
@@ -195,10 +195,13 @@ F32_THREADS = (128, 256, 128, 128, 128, 256)
 # + the larger of two stages (Pp x rows + Np x Pp) x 2 x 2 and dS + B
 # (rows x rows + Np x rows) x 2, 32 bytes of mbarriers, a float a row.
 # f32: tiles of f32 whose rows are 16 bytes longer than their width (+4
-# columns); chunk states: a 32-row panel of x and one of B, then 4 floats a
-# row of the longest chunk (512); dx/dB: the key panel's B and x, a query
-# panel's C and dy, G [P][N + 4], M and dS [32][36]; dC the same with one
-# [32][36]; both then 2 x 128 + 2 x 32 + 512 floats (3,328 bytes).
+# columns), "rows" the chunk rounded up to 64; chunk states: B's (or C's)
+# rows and two stages of x's (or dy's), 3 floats a row; dx / dS: B's 64
+# key rows, a stage of x's 64 key rows and dy's query rows (up to 128),
+# then the larger of C's rows and G [P, N + 4] with M^T [64, rows + 4] and
+# the second stage, then 2 floats a row, 64, 8 a row and 8; dB / dC: C's 64
+# rows, the larger of the stages (64 rows of x or dy and G or h) and the
+# closing tiles (the run's dS^T [rows, 68] and B's rows [rows, N + 4]), 64.
 PLANS_BWD = [
     # mamba2-130m's training shape: 16 chunks of 128 rows, 24 heads of one
     # group, batch 8: 128 (chunk, group, b) blocks fill the 132 SMs, so
@@ -272,44 +275,78 @@ PLANS_BWD = [
         "scratch_bytes": 4 * (5 * 524_288 + 2 * 4_194_304 + 3 * 4_096
                               + 524_288)
         + 2 * 2_097_152}),                                  # 50,380,800
-    # f32, ragged, two groups, chunk 96: 3 panels a chunk, 4 chunks
+    # f32, ragged, two groups, chunk 96 (128-row tiles: two 64-row key
+    # blocks in dx / dS, two 64-row blocks of dB and of dC a chunk): 4
+    # chunks x 2 groups x 2 = 16 blocks, so each group's 4 heads go in 4
+    # runs of one, whose dB and dC parts the reduction adds up
     ((2, 300, 8, 32, 2, 64, 96, torch.float32), {
-        "variant": "cuda_cores",
+        "variant": "cuda_cores", "rows": 128, "runs": 4, "run_len": 1,
+        "key_blocks": 2,
         "phases": _bwd_phases(
             "cuda_cores",
-            [(4, 8, 2), (16, 2, 1), (12, 8, 2), (12, 8, 2), (4, 8, 2),
+            [(8, 8, 2), (16, 2, 1), (8, 8, 2), (16, 8, 2), (4, 8, 2),
              (75, 2, 1)],
             F32_THREADS,
-            [32 * (36 + 68) * 4 + 512 * 4,                         # 15,360
+            [4 * (128 * 68 + 2 * 128 * 36 + 384),                 # 73,216
              0,
-             (2 * 32 * (36 + 68) + 32 * 68 + 2 * 32 * 36) * 4
-             + 3_328,                                              # 47,872
-             (2 * 32 * (36 + 68) + 32 * 68 + 32 * 36) * 4
-             + 3_328,                                              # 43,264
+             4 * (64 * 68 + 192 * 36 + 32 * 68 + 64 * 132 + 192 * 36
+                  + 2 * 128 + 64 + 8 * 128 + 8),                  # 120,608
+             4 * (64 * 68 + 128 * 68 + 128 * 68 + 64),            # 87,296
              0, 0],
             [[]] * 6),
         "scratch": {"cum": _rows(2, 8, 384),
                     "state": ((2, 8, 4, 32, 64), torch.float32),
                     "state_grad": ((2, 8, 4, 32, 64), torch.float32),
-                    "dB_heads": ((2, 300, 8, 64), torch.float32),
-                    "dC_heads": ((2, 300, 8, 64), torch.float32),
-                    "dcum_rows": _rows(2, 8, 384),
+                    "dots": ((2, 8, 4, 2), torch.float32),
                     "colsum": _rows(2, 8, 384),
                     "dw": _rows(2, 8, 384),
-                    "dots": ((2, 8, 4, 2), torch.float32),
+                    "dcum_rows": ((2, 2, 8, 384), torch.float32),
+                    "state_rows": _rows(2, 8, 384),
+                    "dS": ((4, 2, 4, 2, 128, 128), torch.float32),
                     "dA_part": ((2, 8, 4), torch.float32),
-                    "dD_part": ((2, 8, 12), torch.float32)},
-        "scratch_bytes": 4 * (4 * 6_144 + 2 * 131_072 + 2 * 307_200
-                              + 128 + 64 + 192)}),         # 3,606,016
+                    "dD_part": ((2, 8, 4, 2), torch.float32),
+                    "dBC_runs": ((2, 4, 2, 300, 2, 64), torch.float32)},
+        "scratch_bytes": 4 * (6 * 6_144 + 2 * 131_072 + 128 + 64 + 128
+                              + 1_048_576 + 614_400)}),   # 7,849,216
+    # mamba2-130m trained in f32: one run of 24 heads, as bf16's; dx / dS
+    # two stages of x [64, 68] and dy [128, 68] with G [64, 132] apart
+    ((8, 2048, 24, 64, 1, 128, 128, torch.float32), {
+        "variant": "cuda_cores", "rows": 128, "runs": 1, "run_len": 24,
+        "key_blocks": 2,
+        "phases": _bwd_phases(
+            "cuda_cores",
+            [(32, 1, 8), (192, 8, 1), (32, 1, 8), (64, 1, 8), (16, 24, 8),
+             (3, 1, 1)],
+            F32_THREADS,
+            [4 * (128 * 132 + 2 * 128 * 68 + 384),                # 138,752
+             0,
+             4 * (64 * 132 + 192 * 68 + 64 * 132 + 64 * 132 + 192 * 68
+                  + 2 * 128 + 64 + 8 * 128 + 8),                  # 211,232
+             4 * (64 * 132 + 2 * (64 * 68 + 64 * 132) + 64),      # 136,448
+             0, 0],
+            [[]] * 6),
+        "scratch": {"cum": _rows(8, 24, 2048),
+                    "state": ((8, 24, 16, 64, 128), torch.float32),
+                    "state_grad": ((8, 24, 16, 64, 128), torch.float32),
+                    "dots": ((8, 24, 16, 8), torch.float32),
+                    "colsum": _rows(8, 24, 2048),
+                    "dw": _rows(8, 24, 2048),
+                    "dcum_rows": ((2, 8, 24, 2048), torch.float32),
+                    "state_rows": _rows(8, 24, 2048),
+                    "dS": ((1, 8, 16, 1, 128, 128), torch.float32),
+                    "dA_part": ((8, 24, 16), torch.float32),
+                    "dD_part": ((8, 24, 16, 2), torch.float32)},
+        "scratch_bytes": 4 * (6 * 393_216 + 2 * 25_165_824 + 24_576
+                              + 3_072 + 6_144 + 2_097_152)}),
 ]
 
 
 @pytest.mark.parametrize("shape,plan", PLANS_BWD,
-                         ids=("mamba2", "jamba", "f32"))
+                         ids=("mamba2", "jamba", "f32", "mamba2-f32"))
 def test_kernel_plan_bwd_literal(shape, plan):
     """Grids, threads, shared memory, head runs and scratch of the
-    backward at the training shape, at jamba's (heads split into runs) and
-    at a ragged f32 shape with two groups."""
+    backward at the training shape, at jamba's (heads split into runs), at
+    a ragged f32 shape with two groups and at the training shape in f32."""
     assert ssd.kernel_plan_bwd(*shape) == plan
 
 
@@ -319,7 +356,8 @@ def test_kernel_plan_bwd_variant_and_fit(p, n):
     """bf16 on the tensor cores (wgmma m64 n{64, 128} k16 on P and N
     padded to 64 or 128), f32 on the CUDA cores; for every P, N and chunk,
     every launch within a block's shared memory, the key blocks of dx / dS
-    covering the tile's rows, the f32 panels tiling the chunk."""
+    covering the tile's rows (f32: 64-row key blocks, and dB / dC two
+    64-row blocks of each a tile), both walking the same head runs."""
     for chunk in (32, 64, 96, 128):
         nc = -(-1000 // chunk)
         plan = ssd.kernel_plan_bwd(1, 1000, 6, p, 3, n, chunk,
@@ -335,8 +373,14 @@ def test_kernel_plan_bwd_variant_and_fit(p, n):
             [(64, np_, 16)], [], [(64, pp, 16), (64, 64, 16)],
             [(64, np_, 16)], [], []]
         f32 = ssd.kernel_plan_bwd(1, 1000, 6, p, 3, n, chunk, torch.float32)
-        assert f32["variant"] == "cuda_cores"
-        assert f32["phases"][2]["grid"] == (nc * chunk // 32, 6, 1)
+        assert f32["variant"] == "cuda_cores" and f32["rows"] == rows
+        assert (f32["runs"], f32["run_len"]) == (plan["runs"],
+                                                 plan["run_len"])
+        assert f32["key_blocks"] == rows // 64
+        assert f32["phases"][2]["grid"] == (nc * rows // 64,
+                                            3 * f32["runs"], 1)
+        assert f32["phases"][3]["grid"] == (2 * nc * rows // 64,
+                                            3 * f32["runs"], 1)
         assert all(ph["mma"] == [] for ph in f32["phases"])
         for ph in plan["phases"] + f32["phases"]:
             assert ph["smem"] <= 232_448 and ph["threads"] <= 1024
@@ -357,17 +401,19 @@ def test_head_runs(b, s, h, g, chunk, runs, run_len):
     assert (runs - 1) * run_len < h // g <= runs * run_len
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("shape", [
     (8, 2048, 24, 64, 1, 128, 128),     # mamba2-130m's training shape
     (1, 4096, 128, 64, 1, 16, 128),     # jamba's
     (2, 384, 8, 128, 4, 128, 128),      # P = N = 128: two key blocks
 ])
-def test_kernel_plan_bwd_bf16_keeps_no_head_partials(shape):
-    """The bf16 scratch holds no ``[B, S, H, N]`` tensor (the heads of a
-    group are summed in registers, not in device memory), and at the
-    training shape it is at most 250 MB."""
+def test_kernel_plan_bwd_bf16_keeps_no_head_partials(shape, dtype):
+    """Neither variant's scratch holds a ``[B, S, H, N]`` tensor (the heads
+    of a group are summed in registers, not in device memory), and at the
+    training shape it is at most 250 MB (f32: 403 MB less than the head
+    partials of the kernel before)."""
     b, s, h, p, g, n, chunk = shape
-    plan = ssd.kernel_plan_bwd(*shape, torch.bfloat16)
+    plan = ssd.kernel_plan_bwd(*shape, dtype)
     assert all(shape_ != (b, s, h, n)
                for shape_, _ in plan["scratch"].values())
     if shape[0] == 8:

@@ -6,17 +6,17 @@ imports neither JAX nor the JAX package, so it runs where the card is:
     python -m pytest -q -m cuda tests/test_torch_ssd_bwd_cuda.py
 
 The kernel (``ssd_scan_bwd_cuda``) is held against ``ref.ssd_scan_bwd_ref``
-on the same inputs.  f32 (plan variant ``"cuda_cores"``): each gradient
-within 1e-4 of its largest value (the kernel adds in another order than the
-plain version).  bf16 (``"wgmma"``): the kernel rounds M, dS summed over a
+on the same inputs.  f32 (plan variant ``"cuda_cores"``, f32 FMAs, dS summed
+over a run of heads in f32): each gradient within 1e-4 of its largest value
+(the kernel adds in another order than the plain version).  bf16 (``"wgmma"``): the kernel rounds M, dS summed over a
 run of heads, the carried state, its gradient and the scaled rows of x and
 dy to bf16 before their products, so each gradient is held by the relative
 error of the whole tensor, ``|got - want|_F / |want|_F``, under
 ``REL_TOL``, and dx, ddt, dBm and dCm also by their worst ``(b, h)`` (or
 ``(b, g)``) slice under ``SLICE_TOL``: ~2x the most the first bf16 kernel
 (``mma.sync``) gave on an H100 over these cases and chip_smoke.py's shapes.
-Two calls give bitwise the same gradients, and the bf16 plan's scratch
-holds no ``[B, S, H, N]`` tensor.
+Two calls give bitwise the same gradients, and neither plan's scratch
+holds a ``[B, S, H, N]`` tensor.
 """
 import numpy as np
 import pytest
@@ -79,9 +79,8 @@ def _holds(args, chunk, dtype):
     plan = ssd.ssd_scan_bwd_cuda.last_plan
     assert plan["variant"] == VARIANT[dtype]
     b, s, h, _ = args[0].shape
-    if dtype == "bfloat16":
-        assert (b, s, h, args[3].shape[3]) not in [
-            shape for shape, _ in plan["scratch"].values()]
+    assert (b, s, h, args[3].shape[3]) not in [
+        shape for shape, _ in plan["scratch"].values()]
     again = ssd.ssd_scan_bwd_cuda(*args, chunk=chunk)
     want = ref.ssd_scan_bwd_ref(*args, chunk=chunk)
     torch.cuda.synchronize()
@@ -116,6 +115,15 @@ CUDA_CASES = [
     (2, 1024, 10, 32, 2, 64, 128, "bfloat16"),     # runs of 2, 2, 1 heads
     (1, 1024, 128, 64, 1, 16, 128, "bfloat16"),    # jamba's, S cut: 16 runs
     (2, 384, 8, 128, 4, 128, 128, "bfloat16"),     # two key blocks a tile
+    # the CUDA-core launches' edge cases
+    (1, 200, 4, 16, 2, 128, 32, "float32"),        # P 16, N 128, chunk 32
+    (2, 300, 6, 128, 3, 16, 96, "float32"),        # P 128, N 16, chunk 96
+    (1, 256, 8, 128, 1, 128, 64, "float32"),       # P = N = 128: one stage
+    (2, 100, 6, 16, 2, 16, 96, "float32"),         # S below one tile
+    (2, 1024, 10, 32, 2, 64, 128, "float32"),      # runs of 2, 2, 1 heads
+    (1, 1024, 24, 64, 1, 128, 128, "float32"),     # 8 runs of 3 heads
+    (8, 512, 24, 64, 1, 128, 128, "float32"),      # one run of 24 heads
+    (1, 300, 128, 64, 1, 16, 128, "float32"),      # jamba's layer
 ]
 
 
@@ -135,10 +143,11 @@ def test_cuda_backward_where_the_decay_would_overflow(dtype):
     _holds(args, 128, dtype)
 
 
-def test_cuda_backward_reads_strided_inputs():
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_cuda_backward_reads_strided_inputs(dtype):
     """x, Bm, Cm and dy as slices of wider tensors: the wrapper reads them
     contiguous, with the same gradients as from dense copies."""
-    x, dt, A, Bm, Cm, D, dy = _card(13, 2, 300, 8, 64, 2, 64, "bfloat16")
+    x, dt, A, Bm, Cm, D, dy = _card(13, 2, 300, 8, 64, 2, 64, dtype)
     wide = torch.cat([Bm, Cm], dim=2)
     xw = torch.cat([x, x], dim=3)[..., :64]
     dyw = torch.cat([dy, dy], dim=3)[..., 64:]

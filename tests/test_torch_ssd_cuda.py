@@ -14,7 +14,8 @@ Gradients through ``SSDScan`` come from the f32 backward kernel
 version within 1e-4 of each leaf's largest value.
 
 bf16 runs the three tensor-core phases (plan variant ``"wgmma"``), f32 the
-CUDA-core kernel (``"cuda_cores"``); each case checks which one launched.
+three CUDA-core phases (``"cuda_cores"``); each case checks which one
+launched.
 The bf16 phases also round W, the scaled B rows and the carried state to
 bf16 before their products, so besides the elementwise 2e-2 each bf16 case
 holds the relative error of the whole output, ``|out - want|_F /
@@ -166,20 +167,61 @@ def test_bf16_kernel_refuses_a_stride_tma_cannot_take():
         ssd.ssd_scan_cuda(xo, dt, A, Bm, Cm, D)
 
 
+# the CUDA-core phases' edge cases: P and N of 16 and 128, chunks of 32
+# and 96 in 64- and 128-row tiles, ragged S, G > 1, a run of one head and
+# runs of several, y's two 64-column halves at P = 128
+F32_CASES = [
+    # b, s, h, p, g, n, chunk
+    (1, 200, 4, 16, 2, 128, 32),        # P 16, N 128, chunk 32, 2 groups
+    (2, 300, 6, 128, 3, 16, 96),        # P 128, N 16, chunk 96, 3 groups
+    (1, 256, 8, 128, 1, 128, 128),      # P = N = 128
+    (2, 100, 6, 16, 2, 16, 96),         # P = N = 16, S below one tile
+    (1, 1000, 12, 64, 2, 64, 64),       # 2 groups in runs of 6 heads
+    (8, 512, 24, 64, 1, 128, 128),      # one run of 24 heads
+    (1, 300, 128, 64, 1, 16, 128),      # jamba's layer: runs of 3 heads
+]
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", F32_CASES)
+def test_f32_kernel_edge_cases(b, s, h, p, g, n, chunk):
+    """One counted launch of the CUDA-core phases with the plan's head
+    runs, within 2e-4 of the plain version."""
+    args = _card(5 * s + p + n + chunk, b, s, h, p, g, n, "float32")
+    launches = ssd.ssd_scan_cuda.launches
+    with torch.no_grad():
+        out = ops.ssd_scan(*args, chunk=chunk)
+    want = ref.ssd_scan_ref(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd.ssd_scan_cuda.launches == launches + 1
+    plan = ssd.ssd_scan_cuda.last_plan
+    assert plan == ssd.kernel_plan(b, s, h, p, g, n, chunk, torch.float32)
+    assert plan["variant"] == "cuda_cores" and bool(out.isfinite().all())
+    torch.testing.assert_close(out, want, rtol=2e-4, atol=2e-4)
+
+
 def test_cuda_kernel_matches_sequential_scan():
     args = _card(7, 2, 300, 8, 32, 2, 64, "float32")
     out = ssd.ssd_scan_cuda(*args, chunk=128)
     torch.testing.assert_close(out, ref.ssd_ref(*args), rtol=2e-4, atol=2e-4)
 
 
-def test_cuda_kernel_reads_strided_inputs():
-    """x, B and C as slices of wider tensors (their last axis contiguous)."""
+@pytest.mark.parametrize("offset", [0, 1])
+def test_cuda_kernel_reads_strided_inputs(offset):
+    """x, B and C as slices of wider tensors (their last axis contiguous):
+    read through their strides, or, where a row does not start on 16 bytes
+    (``offset`` 1), copied first; the same y as from dense inputs."""
     x, dt, A, Bm, Cm, D = _card(8, 2, 256, 8, 64, 1, 64, "float32")
-    wide = torch.cat([Bm, Cm], dim=2)            # [B, S, 2G, N]
-    xw = torch.cat([x, x], dim=3)[..., :64]      # row stride 2P
-    out = ssd.ssd_scan_cuda(xw, dt.transpose(0, 1).contiguous().transpose(0, 1),
-                            A, wide[:, :, :1], wide[:, :, 1:], D, chunk=128)
-    want = ref.ssd_scan_ref(x, dt, A, Bm, Cm, D, chunk=128)
+    wide = torch.cat([Bm, Cm, Bm], dim=2)        # [B, S, 3G, N]
+    xw = torch.cat([x, x], dim=3)                # row stride 2P
+    n = Bm.shape[3]
+    bw = wide.flatten(2)[..., offset:offset + n].unflatten(2, (1, n))
+    cw = wide.flatten(2)[..., n + offset:2 * n + offset].unflatten(2, (1, n))
+    want = ref.ssd_scan_ref(xw[..., offset:offset + 64], dt, A, bw, cw, D,
+                            chunk=128)
+    out = ssd.ssd_scan_cuda(xw[..., offset:offset + 64],
+                            dt.transpose(0, 1).contiguous().transpose(0, 1),
+                            A, bw, cw, D, chunk=128)
+    assert ssd.ssd_scan_cuda.last_plan["variant"] == "cuda_cores"
     torch.testing.assert_close(out, want, rtol=2e-4, atol=2e-4)
 
 
@@ -221,6 +263,8 @@ STATE_CASES = [
     # b, s, h, p, g, n, chunk, dtype
     (2, 300, 8, 32, 2, 64, 128, "float32"),        # ragged S, two groups
     (1, 300, 8, 64, 1, 16, 128, "float32"),        # jamba's P and N
+    (1, 200, 4, 16, 2, 128, 32, "float32"),        # chunk 32, P 16, N 128
+    (2, 300, 6, 128, 3, 16, 96, "float32"),        # chunk 96, P 128, N 16
     (1, 1000, 8, 64, 1, 16, 128, "bfloat16"),      # jamba's P and N
     (3, 130, 6, 32, 3, 128, 96, "bfloat16"),       # ragged, chunk of 96
     (2, 512, 24, 64, 1, 128, 128, "bfloat16"),     # mamba2-130m's block
