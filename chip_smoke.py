@@ -22,13 +22,16 @@ mesh layer, and fails with a non-zero exit code if any phase fails:
              each tile of rows) that
              the ``kernel_plan`` functions report against the
              built library's, for every instantiation and every flash head
-             width (8 to 128 in steps of 8); the flash libraries' nvcc
-             seconds beside those of the sources before the narrow widths
+             width (8 to 128 in steps of 8, and 4, 20, 100 padded and 136,
+             192, 256, 512, 520 on the wide kernels); the flash libraries'
+             nvcc seconds beside those of the sources before the narrow
+             widths
 2. kernels   each kernel against its plain PyTorch version on the card at the
              paths' shapes, with its device time (CUDA-graph replay, or CUDA
              events for calls of many milliseconds), the plain version's,
              its time per call with the enqueue, and its bound.  Advance
-             sweep: ``dt`` bitwise, ``rem'`` within rtol 1e-6 / atol 1e-5.
+             sweep: ``dt`` bitwise, ``rem'`` within rtol 1e-6 / atol 1e-5,
+             also at ``[70000, 8193]`` (rows past the split grid's 65,535).
              Flash attention: within 2e-5 (f32) / 2e-2 (bf16) at eleven
              shapes, and by relative error of the whole output and of its
              worst row within 1e-5 (f32) / 4e-3 and 8e-3 (bf16), from the
@@ -44,7 +47,16 @@ mesh layer, and fails with a non-zero exit code if any phase fails:
              bf16 and f32, every case of the Pallas kernel's test widths 16
              and 32 (``tests/test_torch_flash.py`` CASES), a smoke model's
              serving prefill (D 16) and a width between instantiations (D
-             80), under the same limits.  SSD scan: within 2e-2 (bf16) of
+             80), under the same limits; the widths past the narrow
+             domain (PR 30, ``WIDE_SHAPES``): the attention of
+             Qwen3-Next-80B-A3B ``[1, 16/2, 4096, 256]`` and of
+             DeepSeek-V4-Flash ``[1, 64/1, 4096, 512]`` (window 128) in
+             bf16, f32 ``[2, 4/2, 300, 300, D]`` at D 4, 20, 136, 192,
+             256, 520, and a batch of 66,000 in both dtypes (the folded
+             grid), each with its plan's width and column slices (the
+             times S is formed), the op's padding copies timed apart, and
+             SDPA's time and backend (the longest kernel of a profiled
+             call; a window through its mask).  SSD scan: within 2e-2 (bf16) of
              the plain chunked version at mamba2-130m's training shape and
              a jamba-shaped one, and by relative error of the whole output
              and of its worst (b, h) slice within 3.2e-3 and 5e-3, each with
@@ -274,6 +286,11 @@ mesh layer, and fails with a non-zero exit code if any phase fails:
              kernels' bf16 tolerance).  Every attention arch launches the
              flash forward and backward, every SSM arch the SSD kernel and
              its backward
+14. wide heads  gemma2's and internlm2's smoke models with ``d_head``
+             widened to 256 (the wide kernels) and 20 (padded to 24), f32
+             and bf16, served and trained for 3 steps on the card and the
+             CPU as phase 13 does: every flash launch wide (or padded),
+             the flash kernels' plain versions 0 times on the card
 
 Every line of numbers carries the card's name and power limit.  The line
 before the last is the per-kernel JSON record; the last line is
@@ -349,7 +366,9 @@ HBM_BYTES_PER_S = roofline.HBM_BW        # device memory
 FP32_OPS_PER_S = roofline.FP32_FLOPS     # float32 outside the tensor cores
 BF16_OPS_PER_S = roofline.PEAK_FLOPS     # bf16 tensor cores, dense
 KERNEL_SHAPES = [(1024, 500), (512, 500), (1024, 48), (1, 500),
-                 (1, 131072), (1, 3 * 2**17), (8192, 4096)]
+                 (1, 131072), (1, 3 * 2**17), (8192, 4096), (70000, 8193)]
+# (70000, 8193): rows past the split grid's 65,535 (7.5 GB a pass), whose
+# blocks step through the rows
 # the advance sweep of the Fig. 9/10 campaign ((512, 500): the reliability
 # campaign's; (1024, 48): the autoscale campaign's)
 MAIN_SHAPE = (1024, 500)
@@ -475,6 +494,35 @@ FLASH_BWD_SHAPES = [
 ]
 FLASH_BWD_SHAPES += NARROW
 FLASH_BWD_MAIN = "internlm2 training"
+# every head width the Pallas kernel takes (PR 30): the attention of two
+# public configs at 4,096 tokens (shapes, not weights: Qwen3-Next-80B-A3B,
+# 16 query / 2 KV heads of 256, config.json of
+# huggingface.co/Qwen/Qwen3-Next-80B-A3B-Instruct; DeepSeek-V4-Flash, 64 / 1
+# heads of 512, a sliding window of 128), f32 at each new width (padded: 4,
+# 20; column slices: 136, 192, 256, 520), and a batch past the grid's
+# 65,535 in both dtypes; forward (phase 1) and backward (phase 2)
+WIDE_SHAPES = [
+    ("qwen3-next-80b-a3b layer", (1, 16, 2, 4096, 4096, 256), torch.bfloat16,
+     dict(causal=True)),
+    ("deepseek-v4-flash layer", (1, 64, 1, 4096, 4096, 512), torch.bfloat16,
+     dict(causal=True, window=128)),
+] + [(f"f32 D {d}", (2, 4, 2, 300, 300, d), torch.float32, dict(causal=True))
+     for d in (4, 20, 136, 192, 256, 520)] + [
+    (f"batch past the grid {str(dtype).split('.')[1]}",
+     (66000, 2, 1, 8, 8, 16), dtype, dict(causal=True))
+    for dtype in (torch.bfloat16, torch.float32)]
+# SDPA's backend is named (a profiled call) at the two public configs and
+# the batches past the grid
+PUBLIC_WIDE = ("qwen3-next-80b-a3b layer", "deepseek-v4-flash layer")
+WIDE_MAIN = PUBLIC_WIDE[0]
+NAMED_BACKEND = PUBLIC_WIDE + tuple(
+    name for name, *_ in WIDE_SHAPES if name.startswith("batch past"))
+FLASH_SHAPES += WIDE_SHAPES
+FLASH_BWD_SHAPES += WIDE_SHAPES
+# phase 14: the smoke models of two attention families with heads widened
+# past the narrow domain (column slices at 256, padding at 20)
+WIDE_HEAD_ARCHS = ("gemma2-27b", "internlm2-1.8b")
+WIDE_HEAD_DIMS = (256, 20)
 # q scaled so that the logits (std ~6) reach the softcap's bend, as a
 # trained gemma2's do: with unit logits the cap of 50 moves dS by ~4e-4
 # (at D 16 a dQ without the cap's factor stayed within the limits)
@@ -726,9 +774,12 @@ def phase_build() -> None:
         for line in built[3]["log"].splitlines():
             if "wgmma.mma_async" in line:   # ptxas's advisories (serialised)
                 print(f"    {line.strip()}")
+    # every narrow width and the widths past the narrow domain (padded: 4,
+    # 20, 100; column slices past 128, 64-row blocks only)
+    wider = (4, 20, 100, 136, 192, 256, 512, 520)
     for dtype, rows_ in ((torch.bfloat16, (64, 128)), (torch.float32, (64,))):
-        for d in flash_attention.HEAD_DIMS:
-            for rows in rows_:
+        for d in flash_attention.HEAD_DIMS + wider:
+            for rows in (rows_ if flash_attention.slices(d) == 1 else (64,)):
                 built_bwd = flash_attention.kernel_geometry_bwd(dtype, d, rows)
                 mine = flash_attention.geometry_bwd(dtype, d, rows)
                 check(built_bwd == mine, f"flash_attention_bwd {dtype} D {d} "
@@ -736,8 +787,9 @@ def phase_build() -> None:
                       f"dK/dV and dQ shared memory {built_bwd} == the plan's "
                       f"{mine}")
     for dtype, block_qs in ((torch.bfloat16, (64, 128)), (torch.float32, (64,))):
-        for d in flash_attention.HEAD_DIMS:
-            for block_q in block_qs:
+        for d in flash_attention.HEAD_DIMS + wider:
+            for block_q in (block_qs if flash_attention.slices(d) == 1
+                            else (64,)):
                 built = flash_attention.kernel_geometry(dtype, d, block_q)
                 mine = flash_attention.geometry(dtype, d, block_q)
                 check(built == mine, f"flash_attention {dtype} D {d} "
@@ -849,12 +901,16 @@ def phase_sweep_kernel() -> dict:
         check(torch.allclose(new_rem, rem0, rtol=1e-6, atol=1e-5),
               f"advance_sweep rem' within rtol 1e-6/atol 1e-5 at {(b, c)}")
         err = float((new_rem - rem0).abs().max())
-        reps = 200 if b * c <= 2**22 else 10
+        del dt, new_rem, dt0, rem0
+        # a graph of the plain version's calls would hold each call's
+        # temporaries: shapes of gigabytes are timed eagerly with events
+        timer = events_ms if b * c >= 2**28 else device_ms
+        reps = 200 if b * c <= 2**22 else 10 if b * c < 2**28 else 3
         # in turns: plain, kernel, kernel, plain
         times = {"plain": [], "kernel": []}
         for name in ("plain", "kernel", "kernel", "plain"):
             fn = ref.advance_sweep_ref if name == "plain" else vm_update.advance_sweep_cuda
-            times[name].append(device_ms(fn, args, reps))
+            times[name].append(timer(fn, args, reps))
         ms, plain_ms = (sum(times[k]) / 2 for k in ("kernel", "plain"))
         per_call = call_ms(vm_update.advance_sweep_cuda, args, reps)
         bound_ms, bound_by = sweep_bound_ms(b, c)
@@ -870,6 +926,8 @@ def phase_sweep_kernel() -> dict:
         if (b, c) == MAIN_SHAPE:
             record = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                       "bound_ms": bound_ms, "bound_by": bound_by}
+        del args
+        torch.cuda.empty_cache()
     return record
 
 
@@ -923,13 +981,20 @@ def hold_flash_out(name: str, out: torch.Tensor, want: torch.Tensor,
 
 def sdpa_kwargs(sq: int, sk: int, kw: dict) -> dict | None:
     """The arguments under which ``scaled_dot_product_attention`` computes
-    the kernels' function, or None where it computes another: a window or a
-    softcap it does not take, and rows that see no key (Sq > Sk under the
-    causal mask: SDPA gives NaN there, the kernels 0).  The kernels align a
-    causal mask to the last key; ``causal_lower_right`` does too, and
-    ``is_causal`` (the first key) is the same where Sq == Sk."""
-    if kw.get("window") is not None or kw.get("softcap"):
+    the kernels' function, or None where it computes another: a softcap it
+    does not take, and rows that see no key (Sq > Sk under the causal mask:
+    SDPA gives NaN there, the kernels 0).  The kernels align a causal mask
+    to the last key; ``causal_lower_right`` does too, and ``is_causal`` (the
+    first key) is the same where Sq == Sk.  A sliding window goes in as the
+    plain version's boolean mask (``ref.attention_mask``)."""
+    if kw.get("softcap"):
         return None
+    if kw.get("window") is not None:
+        mask = ref.attention_mask(sq, sk, kw.get("causal", True),
+                                  kw["window"], "cuda")
+        if not bool(mask.any(-1).all()):
+            return None
+        return {"attn_mask": mask, "enable_gqa": True}
     if not kw.get("causal", True) or sq == sk:
         return {"is_causal": bool(kw.get("causal", True)), "enable_gqa": True}
     if sq < sk:
@@ -937,8 +1002,61 @@ def sdpa_kwargs(sq: int, sk: int, kw: dict) -> dict | None:
     return None
 
 
-def phase_flash_kernel() -> dict:
-    record = {}
+def library_time(time, backend, named: bool) -> tuple[float | None, str]:
+    """SDPA's time by ``time()`` and, where ``named``, the backend it picked
+    (``backend()``), as ``(ms, " (backend)")``; where SDPA raises, ``(None,
+    " (raised: its error)")``, after a synchronisation that fails the run
+    if the error left the card unusable."""
+    try:
+        ms = time()
+        return ms, f" ({backend()})" if named else ""
+    except RuntimeError as e:
+        torch.cuda.synchronize()
+        return None, f" (raised: {str(e).splitlines()[0][:160]})"
+
+
+def sdpa_backend(fn, args) -> str:
+    """The name of the kernel that takes most of one call's device time
+    (``torch.profiler``): which of its backends SDPA picked."""
+    fn(*args)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn(*args)
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0) + e.device_time_total
+    return max(by_name, key=by_name.get)[:90] if by_name else "not measured"
+
+
+def padding_ms(shape, dtype, timer, reps: int,
+               backward: bool = False) -> float | None:
+    """Device time of the op's layout copies at a width off the multiple of
+    8, or None where the width needs none: the forward pads q, k and v with
+    zero columns and slices the output back; the backward pads q, k, v, o
+    and dO and slices dq, dk and dv back."""
+    b, hq, hk, sq, sk, d = shape
+    width = flash_attention.padded_width(d)
+    if width == d:
+        return None
+    q, k, v = flash_inputs(shape, dtype, seed=0)
+    ins = (q, k, v, q, q) if backward else (q, k, v)
+    outs = [torch.empty(*x.shape[:3], width, dtype=dtype, device="cuda")
+            for x in ((q, k, v) if backward else (q,))]
+
+    def copies(*_):
+        return (flash_attention._pad(width, *ins),
+                flash_attention._unpad(d, *outs))
+
+    return timer(copies, (), reps)
+
+
+def phase_flash_kernel() -> tuple[dict, dict]:
+    """Phase 1's flash shapes; returns the records of FLASH_MAIN and of
+    WIDE_MAIN (the wide kernels)."""
+    record, wide_record = {}, {}
     for i, (name, shape, dtype, kw) in enumerate(FLASH_SHAPES):
         b, hq, hk, sq, sk, d = shape
         args = flash_inputs(shape, dtype, seed=100 + i)
@@ -956,13 +1074,13 @@ def phase_flash_kernel() -> dict:
         tol = FLASH_TOL[dtype]
         library = sdpa_kwargs(sq, sk, kw)
         if library is not None and "attn_mask" in library:
-            # the lower-right mask is the kernels': SDPA's output agrees
+            # the lower-right or window mask is the kernels': SDPA's output
+            # agrees
             lib_out = F.scaled_dot_product_attention(*args, **library)
             check(torch.allclose(lib_out.float(), want.float(), rtol=tol,
                                  atol=tol),
                   f"flash_attention {name}: scaled_dot_product_attention "
-                  f"with causal_lower_right within {tol} of the plain "
-                  "version")
+                  f"with its mask within {tol} of the plain version")
             del lib_out
         del out, want
         # the plain version holds [B, Hq, Sq, Sk] f32 scores: long calls are
@@ -975,35 +1093,41 @@ def phase_flash_kernel() -> dict:
             times[which].append(timer(fn, args, reps))
         ms, plain_ms = (sum(times[k]) / 2 for k in ("kernel", "plain"))
         per_call = call_ms(kernel, args, reps)
-        library_ms = None
+        library_ms, backend = None, ""
         if library is not None:
             sdpa = functools.partial(F.scaled_dot_product_attention,
                                      **library)
-            library_ms = timer(sdpa, args, reps)
+            library_ms, backend = library_time(
+                lambda: timer(sdpa, args, reps),
+                lambda: sdpa_backend(sdpa, args), name in NAMED_BACKEND)
+        pad_ms = padding_ms(shape, dtype, timer, reps)
         bound_ms, bound_by, ops, nbytes = flash_bound_ms(shape, dtype, kw)
         say("kernels", (
             f"flash_attention {name} q [{b}, {hq}, {sq}, {d}] k/v "
             f"[{b}, {hk}, {sk}, {d}] {str(dtype).split('.')[1]} {kw}: "
             f"plan {plan['variant']} (tiles {plan['block_q']} x "
             f"{plan['block_k']}, {plan['threads']} threads, "
-            f"{plan['grid'][0] * hq * b} blocks, {plan['smem']} bytes of "
-            f"shared memory, key split {plan['split']}, scratch "
-            f"{plan['scratch']} bytes); "
+            f"{plan['grid'][0] * hq * b} blocks on grid {plan['grid']}, "
+            f"{plan['smem']} bytes of shared memory, key split "
+            f"{plan['split']}, scratch {plan['scratch']} bytes, width "
+            f"{plan['width']}, {plan['slices']} column slices: S formed "
+            f"{plan['slices']} times); padding copies {pad_ms!r} ms; "
             f"max |err| {err!r} (tolerance {tol}); relative error {rel!r} "
             f"(limit {FLASH_REL_TOL[dtype]}), worst row {row!r} (limit "
             f"{FLASH_ROW_TOL[dtype]}); device time: kernel "
             f"{ms!r} ms, plain {plain_ms!r} ms, "
-            f"scaled_dot_product_attention {library_ms!r} ms; kernel per "
+            f"scaled_dot_product_attention {library_ms!r} ms{backend}; "
+            f"kernel per "
             f"call with its enqueue {per_call!r} ms; {ops} operations, "
             f"{nbytes} bytes, bound {bound_ms!r} ms ({bound_by}), "
             f"{bound_ms / ms:.4f} of bound, {ops / ms / 1e9!r} TFLOP/s"))
-        if name == FLASH_MAIN:
-            record = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                      "bound_ms": bound_ms, "bound_by": bound_by,
-                      "library_ms": library_ms}
+        if name in (FLASH_MAIN, WIDE_MAIN):
+            (record if name == FLASH_MAIN else wide_record).update(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms)
         del args
-    torch.cuda.empty_cache()
-    return record
+        torch.cuda.empty_cache()
+    return record, wide_record
 
 
 def grad_errors(got: torch.Tensor, want: torch.Tensor
@@ -1046,7 +1170,7 @@ def flash_bwd_inputs(name: str, shape, dtype, i: int):
     return (q * FLASH_BWD_Q_SCALE.get(name, 1.0)).to(dtype), k, v, do
 
 
-def phase_flash_bwd_kernel() -> dict:
+def phase_flash_bwd_kernel() -> tuple[dict, dict]:
     """The backward kernel against ``ref.attention_bwd_ref`` on the card,
     both from the forward kernel's own output and lse (held against
     ``ref.attention_ref`` and ``ref.attention_lse_ref`` first), at phase
@@ -1055,8 +1179,9 @@ def phase_flash_bwd_kernel() -> dict:
     forward with and without its lse output, SDPA's backward under
     autograd (where SDPA computes the same function, ``sdpa_kwargs``: no
     window, no softcap, a causal mask through ``causal_lower_right`` where
-    Sq < Sk)."""
-    record = {}
+    Sq < Sk; a window through its mask).  Returns the records of
+    FLASH_BWD_MAIN and of WIDE_MAIN (the wide kernels)."""
+    record, wide_record = {}, {}
     fa = flash_attention
     for i, (name, shape, dtype, kw) in enumerate(FLASH_BWD_SHAPES):
         b, hq, hk, sq, sk, d = shape
@@ -1065,7 +1190,7 @@ def phase_flash_bwd_kernel() -> dict:
         check(plan["variant"] == ("wgmma" if dtype == torch.bfloat16
                                   else "cuda_cores"),
               f"flash_attention_bwd {name}: {plan['variant']} for {dtype}")
-        blocks = fa.kernel_block_rows_bwd(b, hq, hk, sq, sk, dtype, N_SM)
+        blocks = fa.kernel_block_rows_bwd(b, hq, hk, sq, sk, d, dtype, N_SM)
         check(blocks == (plan["dkdv"]["rows"], plan["dq"]["rows"]),
               f"flash_attention_bwd {name}: the library's dK/dV and dQ block "
               f"rows {blocks} == the plan's")
@@ -1134,25 +1259,35 @@ def phase_flash_bwd_kernel() -> dict:
                                     **kw)
         fwd_ms, fwd_lse_ms = (timer(fn, (q, k, v), reps)
                               for fn in (fwd, fwd_lse))
-        library_ms = None
+        library_ms, backend = None, ""
         library = sdpa_kwargs(sq, sk, kw)
         if library is not None:
             with torch.enable_grad():
                 leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
-                sdpa_out = F.scaled_dot_product_attention(*leaves, **library)
+                graph = {}
 
                 def sdpa_bwd():
-                    return torch.autograd.grad(sdpa_out, leaves, do,
+                    return torch.autograd.grad(graph["out"], leaves, do,
                                                retain_graph=True)
 
-                library_ms = events_ms(sdpa_bwd, (), max(reps, 3))
-            del leaves, sdpa_out
+                def time_bwd():  # the backward alone, of one forward
+                    graph["out"] = F.scaled_dot_product_attention(*leaves,
+                                                                  **library)
+                    return events_ms(sdpa_bwd, (), max(reps, 3))
+
+                library_ms, backend = library_time(
+                    time_bwd, lambda: sdpa_backend(sdpa_bwd, ()),
+                    name in NAMED_BACKEND)
+            del leaves, graph
+        pad_ms = padding_ms(shape, dtype, timer, reps, backward=True)
         bound_ms, bound_by, ops, nbytes = flash_bwd_bound_ms(shape, dtype, kw)
         say("kernels", (
             f"flash_attention_bwd {name} q [{b}, {hq}, {sq}, {d}] k/v "
             f"[{b}, {hk}, {sk}, {d}] {str(dtype).split('.')[1]} {kw}: plan "
             f"{plan['variant']} (dK/dV {plan['dkdv']}, dQ {plan['dq']}, grids "
-            f"{plan['grids']}); forward "
+            f"{plan['grids']}, width {plan['width']}, {plan['slices']} column "
+            f"slices: S and dP formed {plan['slices']} times); padding "
+            f"copies {pad_ms!r} ms; forward "
             f"output (max |err|, relative error, worst row) {out_err} "
             f"(limits {FLASH_TOL[dtype]}, {FLASH_REL_TOL[dtype]}, "
             f"{FLASH_ROW_TOL[dtype]}); lse max |err| "
@@ -1160,17 +1295,17 @@ def phase_flash_bwd_kernel() -> dict:
             f"bitwise equal; (max |err| / largest, relative error, worst "
             f"row) {errs}; device time: backward {ms!r} ms, plain "
             f"{plain_ms!r} ms, scaled_dot_product_attention backward "
-            f"{library_ms!r} ms; forward {fwd_ms!r} ms, with lse "
+            f"{library_ms!r} ms{backend}; forward {fwd_ms!r} ms, with lse "
             f"{fwd_lse_ms!r} ms; {ops} operations, {nbytes} bytes, bound "
             f"{bound_ms!r} ms ({bound_by}), {bound_ms / ms:.4f} of bound, "
             f"{ops / ms / 1e9!r} TFLOP/s"))
-        if name == FLASH_BWD_MAIN:
-            record = {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
-                      "bound_ms": bound_ms, "bound_by": bound_by,
-                      "library_ms": library_ms}
+        if name in (FLASH_BWD_MAIN, WIDE_MAIN):
+            (record if name == FLASH_BWD_MAIN else wide_record).update(
+                max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
         del q, k, v, do, out, lse, args
         torch.cuda.empty_cache()
-    return record
+    return record, wide_record
 
 
 def ssd_inputs(shape, dtype, seed: int):
@@ -2499,12 +2634,21 @@ class PlainSSDOnCard:
             setattr(ref, name, inner)
 
 
+class PlainAttentionOnCard(PlainSSDOnCard):
+    """The same count for the flash kernels' plain versions."""
+
+    NAMES = ("attention_ref", "attention_lse_ref", "attention_bwd_ref")
+
+
 def zero_launches() -> None:
     for fn in (flash_attention.flash_attention_cuda, ssd_scan.ssd_scan_cuda,
                vm_update.advance_sweep_cuda,
                flash_attention.flash_attention_bwd_cuda,
                ssd_scan.ssd_scan_bwd_cuda):
         fn.launches = 0
+    for fn in (flash_attention.flash_attention_cuda,
+               flash_attention.flash_attention_bwd_cuda):
+        fn.wide_launches = fn.padded_launches = 0
 
 
 def launches() -> dict[str, int]:
@@ -4296,6 +4440,59 @@ def phase_smoke_zoo() -> dict[str, int]:
     return total
 
 
+def wide_launches() -> dict[str, int]:
+    fwd = flash_attention.flash_attention_cuda
+    bwd = flash_attention.flash_attention_bwd_cuda
+    return {"wide": fwd.wide_launches, "padded": fwd.padded_launches,
+            "wide_bwd": bwd.wide_launches, "padded_bwd": bwd.padded_launches}
+
+
+def phase_wide_heads() -> dict[str, int]:
+    """14: the smoke models of WIDE_HEAD_ARCHS with their heads widened by
+    ``dataclasses.replace`` to each of WIDE_HEAD_DIMS (256: the wide
+    kernels' column slices; 20: padded to 24), in f32 and bf16, from one CPU
+    draw of the weights: served and trained for 3 steps on the card and on
+    the CPU, and held to the CPU's runs as phase 13 holds the smoke zoo.
+    The flash forward and backward launch (wide at 256, padded at 20) and
+    their plain versions run 0 times on the card.  Returns the flash
+    launches, wide and padded among them."""
+    t0 = time.perf_counter()
+    start = {**launches(), **wide_launches()}
+    with PlainAttentionOnCard() as plain:
+        for arch in WIDE_HEAD_ARCHS:
+            for d_head in WIDE_HEAD_DIMS:
+                for dtype in ("float32", "bfloat16"):
+                    cfg = dataclasses.replace(
+                        get_config(arch, smoke=True, dtype=dtype),
+                        d_head=d_head)
+                    model = build_model(cfg)
+                    cpu = model.init(torch.Generator().manual_seed(0))
+                    gpu = tree.map_tree(lambda x: x.to("cuda"), cpu)
+                    before = {**launches(), **wide_launches()}
+                    served = smoke_serve(cfg, model, cpu, gpu)
+                    trained = smoke_train(cfg, model, cpu)
+                    count = {k: v - before[k] for k, v in
+                             {**launches(), **wide_launches()}.items()}
+                    kind = "wide" if d_head > 128 else "padded"
+                    check(count[kind] == count["flash"] > 0
+                          and count[f"{kind}_bwd"] == count["flash_bwd"] > 0,
+                          f"{arch} smoke, D {d_head}, {dtype}: every flash "
+                          f"launch {kind} ({count})")
+                    say("wide heads", (
+                        f"{arch} smoke ({cfg.n_layers} layers, d_model "
+                        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads "
+                        f"of D {cfg.d_head}) {dtype}: served: {served}; "
+                        f"trained: {trained}; launches {count}"))
+                    del gpu
+    check(plain.calls == 0, f"phase 14: the flash kernels' plain versions "
+          f"ran {plain.calls} times on the card")
+    count = {k: v - start[k] for k, v in
+             {**launches(), **wide_launches()}.items()}
+    torch.cuda.empty_cache()
+    say("timing", f"wide heads: phase 14 {time.perf_counter() - t0:.1f} s")
+    return count
+
+
 def main() -> None:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}")
@@ -4304,8 +4501,8 @@ def main() -> None:
     phase_build()
     took["build"] = time.perf_counter() - t0
     sweep_record = phase_sweep_kernel()
-    flash_record = phase_flash_kernel()
-    flash_bwd_record = phase_flash_bwd_kernel()
+    flash_record, wide_record = phase_flash_kernel()
+    flash_bwd_record, wide_bwd_record = phase_flash_bwd_kernel()
     ssd_record = phase_ssd_kernel()
     ssd_bwd_record = phase_ssd_bwd_kernel()
     took["kernels"] = time.perf_counter() - t0 - sum(took.values())
@@ -4387,6 +4584,19 @@ def main() -> None:
         f"launched the flash forward {thirteenth['flash']} and backward "
         f"{thirteenth['flash_bwd']} and the SSD kernel {thirteenth['ssd']} "
         f"(its backward {thirteenth['ssd_bwd']}) times")
+    zero_launches()
+    fourteenth = phase_wide_heads()
+    check({k: v for k, v in {**launches(), **wide_launches()}.items()
+           if k in fourteenth} == fourteenth,
+          f"phase 14 launches {launches()} {wide_launches()} == its runs' "
+          f"{fourteenth}")
+    took["wide heads"] = time.perf_counter() - t0 - sum(took.values())
+    say("proof", f"phase 14 (smoke models with heads of 256 and 20) "
+        f"launched the flash forward {fourteenth['flash']} ({fourteenth['wide']} "
+        f"wide, {fourteenth['padded']} padded) and backward "
+        f"{fourteenth['flash_bwd']} ({fourteenth['wide_bwd']} wide, "
+        f"{fourteenth['padded_bwd']} padded) times, their plain versions 0 "
+        f"times on the card")
     say("timing", ", ".join(f"{k} {v:.1f} s" for k, v in took.items()))
 
     kernels = [{
@@ -4404,8 +4614,17 @@ def main() -> None:
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:99",
         "launches": (flash_launches + tenth["flash"] + eleventh["flash"]
-                     + twelfth["flash"] + thirteenth["flash"]),
+                     + twelfth["flash"] + thirteenth["flash"]
+                     + fourteenth["flash"]),
         **flash_record,
+    }, {
+        "name": "flash_attention_wide",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:99 (head widths "
+                    "past 128)",
+        "launches": fourteenth["wide"],
+        **wide_record,
     }, {
         "name": "flash_attention_bwd",
         "route": "cuda",
@@ -4414,8 +4633,16 @@ def main() -> None:
                     "jax.grad; no Pallas kernel)",
         "launches": (counted["flash_bwd"] + tenth["flash_bwd"]
                      + eleventh["flash_bwd"] + twelfth["flash_bwd"]
-                     + thirteenth["flash_bwd"]),
+                     + thirteenth["flash_bwd"] + fourteenth["flash_bwd"]),
         **flash_bwd_record,
+    }, {
+        "name": "flash_attention_bwd_wide",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/models/attention.py:40 flash_xla (gradient by "
+                    "jax.grad; head widths past 128)",
+        "launches": fourteenth["wide_bwd"],
+        **wide_bwd_record,
     }, {
         "name": "ssd_scan",
         "route": "cuda",

@@ -3,7 +3,7 @@ one NVIDIA GPU.
 
     python3 scripts/flash_bwd_fault_reach.py
 
-Builds three broken copies of ``src/repro_torch/csrc/flash_attention_bwd.cu``
+Builds four broken copies of ``src/repro_torch/csrc/flash_attention_bwd.cu``
 in a temporary directory (beside a copy of the headers it includes), each
 with one fault the bf16 backward can have:
 
@@ -12,7 +12,14 @@ with one fault the bf16 backward can have:
 * ``wrong_head``: in the dK/dV kernel, the last query head of a GQA group
   reads the group's first head instead of its own;
 * ``missed_softcap``: the dQ kernel leaves the softcap's factor
-  ``1 - (s / c)^2`` out of dS.
+  ``1 - (s / c)^2`` out of dS;
+* ``slice_only_s`` (the wide kernels past 128 columns): the dQ kernel
+  forms S over its block's own slice of columns only, not the whole head
+  width.
+
+The first two are faults of the narrow kernels, the softcap's of both
+(``dq_probs`` is shared), the last of the wide dQ kernel: each applies only
+at the shapes its kernel runs.
 
 Runs the sound kernel and each copy at ``chip_smoke.py``'s bf16 backward
 shapes, on the inputs chip_smoke gives them, and prints for each tensor the
@@ -41,21 +48,29 @@ KEY_TILES = "  mask.key_tiles(q0, q_rows, kTile, &kt_lo, &kt_hi);\n"
 HEAD = ("  auto tile_head = [&](int i) { return b * Hq + hk * group + i / nq; "
         "};\n")
 CAP_Q = "    sc[e] = p * fac;\n"
+WIDE_S = ("        piece_item(sc, ring, i, min(kSlice, d - p * kSlice), "
+          "p == 0);\n")
 FAULTS = {
     "dropped_tile": (KEY_TILES,
                      KEY_TILES + "  if (kt_hi - kt_lo > 16) ++kt_lo;\n"),
     "wrong_head": (HEAD, HEAD.replace(
         "i / nq; };", "(i / nq == group - 1 ? 0 : i / nq); };")),
     "missed_softcap": (CAP_Q, CAP_Q.replace(" * fac;", ";")),
+    "slice_only_s": (WIDE_S, "        piece_item(sc, ring, i, p * kSlice == "
+                     "c0 ? min(kSlice, d - p * kSlice) : 0, p * kSlice == c0);"
+                     "\n"),
 }
 
 
 def applies(name: str, shape, kw) -> bool:
     b, hq, hk, sq, sk, d = shape
+    wide = fa.slices(d) > 1
+    if name == "slice_only_s":
+        return wide
     if name == "dropped_tile":
-        return -(-sk // 64) > 16
+        return not wide and -(-sk // 64) > 16
     if name == "wrong_head":
-        return hq // hk > 1
+        return not wide and hq // hk > 1
     if name == "missed_softcap":
         return kw.get("softcap", 0.0) > 0.0
     return True

@@ -3,14 +3,19 @@ NVIDIA GPU.
 
     python3 scripts/flash_fault_reach.py
 
-Builds three broken copies of ``src/repro_torch/csrc/flash_attention.cu`` in
+Builds four broken copies of ``src/repro_torch/csrc/flash_attention.cu`` in
 a temporary directory (beside a copy of the headers it includes), each with
 one fault a pipelined kernel can have:
 
 * ``dropped_tile``: rows that see more than 16 key tiles skip their first;
 * ``stale_stage``: the last key tile of a row of more than 9 tiles takes V
   from the other stage of the shared-memory ring;
-* ``missed_rescale``: every fourth key tile leaves O unrescaled.
+* ``missed_rescale``: every fourth key tile leaves O unrescaled;
+* ``slice_only_s`` (the wide kernel past 128 columns): a block forms S
+  over its own slice's columns only, not the whole head width.
+
+The first three are faults of the narrow kernel, the last of the wide one:
+each applies only at the shapes its kernel runs.
 
 Runs the sound kernel and each copy at ``chip_smoke.py``'s bf16 shapes and
 prints, for each, the largest elementwise error and whether the elementwise
@@ -39,15 +44,31 @@ from repro_torch.kernels import ref  # noqa: E402
 ANCHOR = "    kt_lo = first_col <= 0 ? 0 : first_col / kBk;\n  }\n"
 RESCALE = "    for (int e = 0; e < kNo; ++e) acc_o[e] *= alpha[(e / 2) & 1];"
 V_STAGE = "gmma_desc(v_s + s * kKVTile + kk * 16 * 128, kKVBox)"
+WIDE_S = ("      piece_item(acc_s, ring, i, min(kSlice, d - p * kSlice), "
+          "p == 0);  // S (+)= Q K^T\n")
 FAULTS = {
     "dropped_tile": (ANCHOR, ANCHOR + "  if (kt_hi - kt_lo > 16) ++kt_lo;\n"),
     "stale_stage": (V_STAGE, "gmma_desc(v_s + ((i == n_tiles - 1 && i > 8) "
                     "? s ^ 1 : s) * kKVTile + kk * 16 * 128, kKVBox)"),
     "missed_rescale": (RESCALE, "    if (i % 4 != 3)\n" + RESCALE),
+    "slice_only_s": (WIDE_S, "      piece_item(acc_s, ring, i, p * kSlice == "
+                     "c0 ? min(kSlice, d - p * kSlice) : 0, p * kSlice == c0);"
+                     "\n"),
 }
 # key tiles a row needs before the fault applies
 MIN_TILES = {"sound": 0, "dropped_tile": 17, "stale_stage": 10,
-             "missed_rescale": 4}
+             "missed_rescale": 4, "slice_only_s": 0}
+
+
+def applies(name: str, shape) -> bool:
+    """Whether the fault is in the kernel that runs ``shape`` and the rows
+    are long enough for it."""
+    wide = fa.slices(shape[5]) > 1
+    if name == "sound":
+        return True
+    if name == "slice_only_s":
+        return wide
+    return not wide and -(-shape[4] // fa.WGMMA_BLOCK_K) >= MIN_TILES[name]
 
 
 def readings(name: str) -> bool:
@@ -69,10 +90,10 @@ def readings(name: str) -> bool:
                      / want.norm(dim=-1).clamp_min(1e-30)).max())
         passes = (close and rel < cs.FLASH_REL_TOL[dtype]
                   and row < cs.FLASH_ROW_TOL[dtype])
-        applies = -(-shape[4] // fa.WGMMA_BLOCK_K) >= MIN_TILES[name]
+        hit = applies(name, shape)
         if name == "sound":
             right &= passes
-        elif applies:
+        elif hit:
             right &= not passes
         cs.say(name, f"{label} {list(shape)} {kw}: max "
                f"|err| {err!r} (elementwise {cs.FLASH_TOL[dtype]}: "
@@ -80,7 +101,7 @@ def readings(name: str) -> bool:
                f"(limit {cs.FLASH_REL_TOL[dtype]}), worst row {row!r} "
                f"(limit {cs.FLASH_ROW_TOL[dtype]}); "
                f"{'passes' if passes else 'fails'} chip_smoke's checks"
-               f"{'' if applies else ' (the fault needs longer rows)'}")
+               f"{'' if hit else ' (the fault does not apply here)'}")
         del args, out, want, diff
         torch.cuda.empty_cache()
     return right

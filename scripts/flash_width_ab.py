@@ -8,9 +8,12 @@ again, each in a process of its own that builds both flash libraries of its
 checkout, then times the forward (``flash_attention_cuda``) and the
 backward (``flash_attention_bwd_cuda``) at every shape of its
 chip_smoke.py's phases 1-2 (``FLASH_SHAPES``, ``FLASH_BWD_SHAPES``: bf16
-and f32, the narrow and padded widths among them) with chip_smoke.py's own
-timers (``device_ms``: CUDA-graph replay; ``events_ms`` for calls of many
-milliseconds).  Each process drives its own checkout's wrappers, so the C
+and f32, the narrow, padded and wide widths among them) with chip_smoke.py's
+``device_ms`` (CUDA-graph replay: eager calls of many milliseconds, timed
+with events, spread by ~10% between runs at some shapes; 5 replays of
+those, 200 of calls under 2^22 (query, key) pairs, whose ~10 us a graph of
+20 left within ~5% of each other).  Each process drives its own checkout's
+wrappers, so the C
 entry points may differ between the two.  Prints one JSON line per
 checkout and run, then, per kernel and shape both checkouts have, the two
 runs of each and the change's mean over the other's, then the card's name
@@ -38,7 +41,8 @@ build.build((fa.SRC, fa.NVCC_FLAGS), (fa.SRC_BWD, fa.NVCC_FLAGS))
 
 def timer(shape):
     b, hq, hk, sq, sk, d = shape
-    return (cs.events_ms, 3) if b * hq * sq * sk >= 2**27 else (cs.device_ms, 20)
+    pairs = b * hq * sq * sk
+    return cs.device_ms, 5 if pairs >= 2**27 else 20 if pairs >= 2**22 else 200
 
 
 out = {"forward": {}, "backward": {}}

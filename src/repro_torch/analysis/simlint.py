@@ -862,8 +862,10 @@ def check_sweep_plan(plan: dict, b: int, c: int, entry: str,
         out.append(_finding(rule_id, "error", entry,
                             f"{what}: the plan covers {covered} of {c} "
                             "elements of a row"))
+    # the split grid's y holds at most MAX_GRID_YZ rows; its blocks step
+    # through the rest
     rows = plan["grid"][0] if fused else plan["grid"][1]
-    if rows != b:
+    if rows != (b if fused else min(b, MAX_GRID_YZ)):
         out.append(_finding(rule_id, "error", entry,
                             f"{what}: the grid holds {rows} rows, not {b}"))
     return out
@@ -872,13 +874,16 @@ def check_sweep_plan(plan: dict, b: int, c: int, entry: str,
 def check_flash_plan(plan: dict, shape: tuple, entry: str,
                      rule_id: str = "R6") -> list[Finding]:
     """A flash forward plan for ``(b, hq, hk, sq, sk, d)``: its block inside
-    Hopper's limits and its grid covering every query row of every head."""
+    Hopper's limits and its grid covering every query row of every column
+    slice (x) of every (batch, head) pair (y and z, folded past
+    MAX_GRID_YZ, times the plan's ``pair_chunks`` launches)."""
     b, hq, _, sq, _, _ = shape
     what = f"flash forward {shape} {plan['variant']}"
     out = _check_block(what, plan["threads"], plan["smem"], plan["grid"],
                        plan["variant"] == "wgmma", entry, rule_id)
     gx, gy, gz = plan["grid"]
-    if gx * plan["block_q"] < sq or (gy, gz) != (hq, b):
+    if (gx * plan["block_q"] < sq * plan["slices"]
+            or gy * gz * plan["pair_chunks"] < hq * b):
         out.append(_finding(rule_id, "error", entry,
                             f"{what}: grid {plan['grid']} does not cover "
                             f"{sq} rows x {hq} heads x {b}"))
@@ -888,7 +893,7 @@ def check_flash_plan(plan: dict, shape: tuple, entry: str,
 def check_flash_bwd_plan(plan: dict, shape: tuple, entry: str,
                          rule_id: str = "R6") -> list[Finding]:
     """A flash backward plan: the dK/dV and dQ blocks inside Hopper's
-    limits, and the grids of its three launches."""
+    limits, and the grids of its three launches (times ``pair_chunks``)."""
     b, hq, hk, sq, sk, _ = shape
     wgmma = plan["variant"] == "wgmma"
     out = []
@@ -898,7 +903,8 @@ def check_flash_bwd_plan(plan: dict, shape: tuple, entry: str,
         what = f"flash backward {kernel} {shape} {plan['variant']}"
         out += _check_block(what, k["threads"], k["smem"], grid, wgmma,
                             entry, rule_id)
-        if grid[0] * k["rows"] < rows or tuple(grid[1:]) != (heads, b):
+        if (grid[0] * k["rows"] < rows * plan["slices"]
+                or grid[1] * grid[2] * plan["pair_chunks"] < heads * b):
             out.append(_finding(rule_id, "error", entry,
                                 f"{what}: grid {grid} does not cover {rows} "
                                 f"rows x {heads} heads x {b}"))
@@ -1335,20 +1341,29 @@ def _sweep_cases(n_sm: int, fused_cap: int, split_tile: int) -> list:
     the long-row split."""
     cs = (1, 31, 32, 33, fused_cap, fused_cap + 1, 4 * split_tile,
           4 * split_tile + 1, 1 << 20)
-    bs = (1, n_sm - 1, n_sm, MAX_GRID_YZ)
+    bs = (1, n_sm - 1, n_sm, MAX_GRID_YZ, 70_000)
     return list(_SWEEP_SHAPES) + [(b, c) for b in bs for c in cs]
+
+
+# head widths past the narrow instantiations' (``fa.HEAD_DIMS``): off the
+# multiple of 8 (padded) and past 128 (column slices)
+WIDE_HEADS = (1, 4, 20, 100, 136, 192, 256, 512, 520)
 
 
 def _attention_cases(heads: tuple, n_sm: int) -> list:
     """Edges of the flash plans: every head dim, the SM-count boundary of
-    the 128-row blocks, the grid's y and z limits, a grid.x of 2^20 tiles
-    of 64 rows."""
+    the 128-row blocks, the grid's y and z limits and (batch, head) counts
+    past them and past one launch's pairs, a grid.x of 2^20 tiles of 64
+    rows."""
     out = []
     for d in heads:
         out += [(1, 1, 1, 128 * (n_sm - 1), 128 * (n_sm - 1), d),
                 (1, 1, 1, 128 * n_sm, 128 * n_sm, d),
                 (1, MAX_GRID_YZ, MAX_GRID_YZ, 64, 64, d),
                 (MAX_GRID_YZ, 1, 1, 64, 64, d),
+                (1, 70_000, 70_000, 64, 64, d),
+                (70_000, 2, 1, 64, 64, d),
+                (65_536, 32_768, 1, 1, 1, d),
                 (1, 1, 1, 64 << 20, 64, d)]
     return out
 
@@ -1362,7 +1377,8 @@ def _plans(ctx: LintContext) -> dict:
     for b, c in _sweep_cases(vm_update.N_SM, vm_update.FUSED_CAP,
                              vm_update.SPLIT_TILE):
         out["sweep"].append(((b, c), f32, vm_update.kernel_plan(b, c)))
-    shapes = list(_FLASH_SHAPES) + _attention_cases(fa.HEAD_DIMS, fa.N_SM)
+    shapes = list(_FLASH_SHAPES) + _attention_cases(
+        fa.HEAD_DIMS + WIDE_HEADS, fa.N_SM)
     for shape in shapes:
         for dtype in (bf16, f32):
             out["flash"].append((shape, dtype,
@@ -1401,7 +1417,8 @@ def probe_geometry(plans: dict, n_sm: int) -> list:
         b, hq, hk, sq, sk, d = shape
         rows = (plan["dkdv"]["rows"], plan["dq"]["rows"])
         out.append((f"flash backward {dtype} {shape} block rows", rows,
-                    fa.kernel_block_rows_bwd(b, hq, hk, sq, sk, dtype, n_sm)))
+                    fa.kernel_block_rows_bwd(b, hq, hk, sq, sk, d, dtype,
+                                             n_sm)))
         for i, kernel in enumerate(("dkdv", "dq")):
             k = plan[kernel]
             key = ("bwd", dtype, d, kernel, k["rows"])

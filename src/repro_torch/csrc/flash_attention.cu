@@ -114,6 +114,32 @@
 //     16-column tail group, 2 columns a lane, after the full 32-column
 //     ones), and the store writes D columns.
 //
+// * Widths past 128 columns (flash_fwd_wgmma_wide, flash_fwd_f32_wide; the
+//   column slices and the item ring are flash_wide.cuh's).  A native
+//   instantiation at 256 would need O's 256 columns in registers (128 f32
+//   a thread at 64 rows, beside S), and f32 tiles of 64 x 256 are 66 KB
+//   each, so two K/V stages would pass 227 KB.  Instead a block owns 64
+//   query rows and one slice of w = 128 output columns: w is the widest
+//   slice whose accumulators the narrow kernels already hold without a
+//   spill (O 64 f32 a thread in bf16, 4 x 16 in f32), and the slices go on
+//   the grid's x beside the query tiles.  S is formed over the whole width
+//   by ceil(D / 128) pieces of 128 columns (more wgmma k-steps in bf16,
+//   more FMA passes in f32), so it is formed ceil(D / 128) times in all,
+//   once a slice: the plan's "slices", its recompute factor.  Key tiles of
+//   64 in bf16, so that S (32 f32 a thread) and O fit beside each other.
+//   bf16 items come through a ring of three stages of two 64 x 128 tiles
+//   (97 KB, two blocks an SM), f32 items by cp.async two stages deep
+//   (150 KB with P).  A simple first design: a stage is waited for before
+//   its products, and the piece loads of Q repeat for every key tile (from
+//   L2).
+// * Head widths off the multiple of 8: the wrapper pads q, k and v with
+//   zero columns to the next multiple of 8 and slices the output back
+//   (kernels/flash_attention.py), since TMA and cp.async need 16-byte row
+//   strides; zero columns add exact zeros to q.k.  The scale is the
+//   caller's (D^-0.5 of the real D).
+// * The grid: every kernel's (batch, head) pair comes from the grid's y and
+//   z, folded where B or Hq passes 65,535 (flash_wide.cuh head_grid).
+//
 // The C entry point launches on the caller's stream, does not synchronise,
 // and returns cudaGetLastError() (or the error of cudaFuncSetAttribute, or
 // the codes kNoEncoder / kEncodeFailed of hopper.cuh) so the Python wrapper
@@ -124,6 +150,7 @@
 #include <math.h>
 
 #include "cuda_cores.cuh"
+#include "flash_wide.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -160,9 +187,9 @@ __global__ void __launch_bounds__(128 * kWG, 1)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
                 const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tv,
-                __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int Hq, int Hk,
-                int Sq, int Sk, int d_run, int causal, int window, float softcap,
-                float scale) {
+                __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int n_heads,
+                int Hq, int Hk, int Sq, int Sk, int d_run, int causal, int window,
+                float softcap, float scale) {
   const int d = kAny ? d_run : D;
   constexpr int kBq = 64 * kWG;
   constexpr int kDp = D <= 64 ? 64 : 128;  // columns in shared memory
@@ -179,8 +206,10 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
   const uint32_t k_full = q_full + 8, v_full = q_full + 24, empty = q_full + 40;
 
   const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest query tiles first
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int qh = b * Hq + h, kh = b * Hk + h / (Hq / Hk);
+  const int qh = head_pair();  // b * Hq + h
+  if (qh >= n_heads) return;
+  const int h = qh % Hq, b = qh / Hq;
+  const int kh = b * Hk + h / (Hq / Hk);
   const int q0 = qt * kBq;
   const int q_rows = min(kBq, Sq - q0);
   const int offset = Sk - Sq;
@@ -399,10 +428,10 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, float* ls
   if (err == 0) err = encode(&tk, k, d, Sk, B * Hk, kBk);
   if (err == 0) err = encode(&tv, v, d, Sk, B * Hk, kBk);
   if (err != 0) return err;
-  const dim3 grid((Sq + 64 * kWG - 1) / (64 * kWG), Hq, B);
+  const dim3 grid = head_grid((Sq + 64 * kWG - 1) / (64 * kWG), Hq, B);
   flash_fwd_wgmma<D, kWG, kAny><<<grid, 128 * kWG, kSmem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, Hq, Hk, Sq, Sk, d, causal, window,
-      softcap, scale);
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, B * Hq, Hq, Hk, Sq, Sk, d, causal,
+      window, softcap, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -468,8 +497,8 @@ template <int D, bool kAny>
 __global__ void __launch_bounds__(kCcThreads, 1)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
-              float* __restrict__ part, int Hq, int Hk, int Sq, int Sk, int d_run, int causal,
-              int window, float softcap, float scale, int n_split) {
+              float* __restrict__ part, int n_heads, int Hq, int Hk, int Sq, int Sk, int d_run,
+              int causal, int window, float softcap, float scale, int n_split) {
   const int dw = kAny ? d_run : D;
   const int width = (dw + 15) / 16 * 16;  // the columns acc_quads reads
   const int used_groups = quad_groups(dw) + (quad_tail(dw) ? 1 : 0);
@@ -484,9 +513,10 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 
   int rest;
   const int xi = heavy_first(&rest);  // the last query tiles are the heaviest
+  if (rest >= n_heads) return;        // rest: the pair b * Hq + h
   const int qt = gridDim.x / n_split - 1 - xi / n_split, sp = xi % n_split;
   const int h = rest % Hq, b = rest / Hq;
-  const int qh = b * Hq + h;
+  const int qh = rest;
   const int q0 = qt * kCcRows;
   const int q_rows = min(kCcRows, Sq - q0);
   const int offset = Sk - Sq;
@@ -622,7 +652,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   __syncthreads();
   if (half == 1) return;
 
-  const size_t rows_all = static_cast<size_t>(gridDim.z) * Hq * Sq;
+  const size_t rows_all = static_cast<size_t>(n_heads) * Sq;
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     const int rr = row0 + 4 * r;
@@ -670,11 +700,12 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// The key splits of flash_fwd_f32 put together in a fixed order (split 0
-// first), so two runs are bitwise equal: one warp a row, a lane 4 columns.
-// part holds [n_split, rows, dw] unnormalised O, then [n_split, rows, 2]
-// (m in log2 units, l); a split that saw no key of a row has m = kNeg and
-// l = 0, and a row no split saw gives 0 and lse +inf.
+// The key splits of flash_fwd_f32 (and flash_fwd_f32_wide) put together in
+// a fixed order (split 0 first), so two runs are bitwise equal: one warp a
+// row, a lane 4 columns of each 128.  part holds [n_split, rows, dw]
+// unnormalised O, then [n_split, rows, 2] (m in log2 units, l); a split
+// that saw no key of a row has m = kNeg and l = 0, and a row no split saw
+// gives 0 and lse +inf.
 __global__ void __launch_bounds__(256)
 fwd_combine(const float* __restrict__ part, float* __restrict__ o, float* __restrict__ lse,
             int rows, int dw, int n_split) {
@@ -684,25 +715,26 @@ fwd_combine(const float* __restrict__ part, float* __restrict__ o, float* __rest
   float mx = kNeg;
   for (int s = 0; s < n_split; ++s)
     mx = fmaxf(mx, ml[2 * (static_cast<size_t>(s) * rows + row)]);
-  const bool mine = 4 * lane < dw;
   float l = 0.f;
-  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
   for (int s = 0; s < n_split; ++s) {
     const size_t at = static_cast<size_t>(s) * rows + row;
-    const float w = exp2f(ml[2 * at] - mx);
-    l = fmaf(w, ml[2 * at + 1], l);
-    if (mine) {
-      const float4 x = *reinterpret_cast<const float4*>(part + at * dw + 4 * lane);
+    l = fmaf(exp2f(ml[2 * at] - mx), ml[2 * at + 1], l);
+  }
+  const float inv = 1.f / fmaxf(l, 1e-30f);
+  for (int c = 4 * lane; c < dw; c += 128) {
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int s = 0; s < n_split; ++s) {
+      const size_t at = static_cast<size_t>(s) * rows + row;
+      const float w = exp2f(ml[2 * at] - mx);
+      const float4 x = *reinterpret_cast<const float4*>(part + at * dw + c);
       acc.x = fmaf(w, x.x, acc.x);
       acc.y = fmaf(w, x.y, acc.y);
       acc.z = fmaf(w, x.z, acc.z);
       acc.w = fmaf(w, x.w, acc.w);
     }
-  }
-  const float inv = 1.f / fmaxf(l, 1e-30f);
-  if (mine)
-    *reinterpret_cast<float4*>(o + static_cast<size_t>(row) * dw + 4 * lane) =
+    *reinterpret_cast<float4*>(o + static_cast<size_t>(row) * dw + c) =
         make_float4(acc.x * inv, acc.y * inv, acc.z * inv, acc.w * inv);
+  }
   if (lse != nullptr && lane == 0) lse[row] = l > 0.f ? (mx + log2f(l)) / kLog2e : INFINITY;
 }
 
@@ -721,11 +753,423 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, float* lse,
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
-  const dim3 grid((Sq + kCcRows - 1) / kCcRows * n_split, Hq, B);
+  const dim3 grid = head_grid((Sq + kCcRows - 1) / kCcRows * n_split, Hq, B);
   flash_fwd_f32<D, kAny><<<grid, kCcThreads, kSmem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), lse, n_split > 1 ? part : nullptr, Hq, Hk, Sq, Sk, d, causal,
-      window, softcap, scale, n_split);
+      static_cast<float*>(o), lse, n_split > 1 ? part : nullptr, B * Hq, Hq, Hk, Sq, Sk, d,
+      causal, window, softcap, scale, n_split);
+  int err = static_cast<int>(cudaGetLastError());
+  if (err != 0 || n_split == 1) return err;
+  const int rows = B * Hq * Sq;
+  fwd_combine<<<(rows + 7) / 8, 256, 0, stream>>>(part, static_cast<float*>(o), lse, rows, d,
+                                                  n_split);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ================================================ widths past 128 columns
+// (column slices and the item ring: flash_wide.cuh)
+
+// bf16: one warpgroup owns 64 query rows and one slice of 128 output
+// columns; key tiles of 64.  A key tile is n_pieces items (Q and K, 128
+// columns each: S = Q K^T on wgmma m64n64k16 over the whole width) and one
+// item of V's slice (O += P V on the register form, m64n128k16).  The
+// online softmax and the masks are the narrow kernel's on a 64-key tile.
+__global__ void __launch_bounds__(128, 1)
+flash_fwd_wgmma_wide(const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
+                     float* __restrict__ lse, int n_heads, int Hq, int Hk, int Sq, int Sk,
+                     int d, int causal, int window, float softcap, float scale) {
+  constexpr int kB = 64;  // query rows of a block, keys of a tile
+  extern __shared__ uint8_t smem[];
+  const uint32_t base = (smem_u32(smem) + 1023u) & ~1023u;
+  const WideRing ring{base, base + kWideStages * kWideStage};
+
+  const int qh = head_pair();  // b * Hq + h
+  if (qh >= n_heads) return;
+  const int h = qh % Hq, b = qh / Hq;
+  const int kh = b * Hk + h / (Hq / Hk);
+  const int n_slices = (d + kSlice - 1) / kSlice;  // also the pieces of S
+  const int qt = gridDim.x / n_slices - 1 - static_cast<int>(blockIdx.x) / n_slices;
+  const int c0 = static_cast<int>(blockIdx.x) % n_slices * kSlice;  // this block's columns
+  const int q0 = qt * kB;
+  const int q_rows = min(kB, Sq - q0);
+  const int offset = Sk - Sq;
+
+  const int row_lo = q0 + offset;
+  const int row_hi = q0 + q_rows - 1 + offset;
+  const int nk = (Sk + kB - 1) / kB;
+  int kt_hi = nk;
+  if (causal) kt_hi = row_hi < 0 ? 0 : min(nk, row_hi / kB + 1);
+  int kt_lo = 0;
+  if (window >= 0) {
+    const int first_col = row_lo - window + 1;
+    kt_lo = first_col <= 0 ? 0 : first_col / kB;
+  }
+  const int per_tile = n_slices + 1;
+  const int n_items = (kt_hi - kt_lo) * per_tile;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  if (tid == 0) ring.init(4);
+  __syncthreads();
+
+  // item j: piece p < n_slices of Q and K, or (p == n_slices) V's slice
+  auto load = [&](int j) {
+    const int p = j % per_tile, k0 = (kt_lo + j / per_tile) * kB;
+    if (p < n_slices) {
+      const int nb = boxes(d, p * kSlice);
+      mbar_expect_tx(ring.full(j), 2 * nb * kWideBox);
+      tma_tile(ring.a(j), &tq, ring.full(j), nb, p * kSlice, q0, qh);
+      tma_tile(ring.b(j), &tk, ring.full(j), nb, p * kSlice, k0, kh);
+    } else {
+      const int nb = boxes(d, c0);
+      mbar_expect_tx(ring.full(j), nb * kWideBox);
+      tma_tile(ring.b(j), &tv, ring.full(j), nb, c0, k0, kh);
+    }
+  };
+  if (tid == 0) ring.refill(-1, n_items, load);
+
+  float acc_o[kSlice / 2];
+#pragma unroll
+  for (int i = 0; i < kSlice / 2; ++i) acc_o[i] = 0.f;
+  float acc_s[2 * kB / 4];
+  float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
+  const float scale_l2 = scale * kLog2e;
+  const float cap_l2 = softcap * kLog2e, scale_cap = scale / softcap;
+  const int c_lane = 2 * (lane % 4);
+  const int row0 = q0 + 16 * warp + lane / 4 + offset;  // and row0 + 8
+
+  for (int i = 0; i < n_items; ++i) {
+    if (tid == 0) ring.refill(i, n_items, load);
+    __syncwarp();
+    const int p = i % per_tile, k0 = (kt_lo + i / per_tile) * kB;
+    mbar_wait(ring.full(i), ring.parity(i));
+    __syncwarp();
+    if (p < n_slices) {
+      piece_item(acc_s, ring, i, min(kSlice, d - p * kSlice), p == 0);  // S (+)= Q K^T
+    } else {
+      // scale (log2 units), softcap, mask, online softmax, O += P V
+      if (softcap > 0.f) {
+#pragma unroll
+        for (int e = 0; e < 2 * kB / 4; ++e) acc_s[e] = cap_l2 * tanhf(acc_s[e] * scale_cap);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 2 * kB / 4; ++e) acc_s[e] *= scale_l2;
+      }
+      const bool need_mask = k0 + kB > Sk || (causal && k0 + kB - 1 > row_lo) ||
+                             (window >= 0 && k0 <= row_hi - window);
+      if (need_mask) {
+#pragma unroll
+        for (int e = 0; e < 2 * kB / 4; ++e) {
+          const int col = k0 + 8 * (e / 4) + c_lane + (e & 1);
+          const int row = row0 + 8 * ((e / 2) & 1);
+          const bool ok = col < Sk && (!causal || col <= row) && (window < 0 || col > row - window);
+          acc_s[e] = ok ? acc_s[e] : kNeg;
+        }
+      }
+      float mx[2] = {kNeg, kNeg};
+#pragma unroll
+      for (int e = 0; e < 2 * kB / 4; ++e) mx[(e / 2) & 1] = fmaxf(mx[(e / 2) & 1], acc_s[e]);
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float m_new = fmaxf(m[r], quad_max(mx[r]));
+        alpha[r] = exp2f(m[r] - m_new);
+        m[r] = m_new;
+        l[r] *= alpha[r];
+      }
+      uint32_t pa[kB / 4];
+#pragma unroll
+      for (int e = 0; e < 2 * kB / 4; e += 2) {
+        const int r = (e / 2) & 1;
+        const float p0 = acc_s[e] > 0.5f * kNeg ? exp2f(acc_s[e] - m[r]) : 0.f;
+        const float p1 = acc_s[e + 1] > 0.5f * kNeg ? exp2f(acc_s[e + 1] - m[r]) : 0.f;
+        l[r] += p0 + p1;
+        pa[e / 2] = pack_bf16(p0, p1);
+      }
+#pragma unroll
+      for (int e = 0; e < kSlice / 2; ++e) acc_o[e] *= alpha[(e / 2) & 1];
+      wgmma_fence();
+      piece_xb(acc_o, pa, ring.b(i));
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(acc_o);
+    }
+    ring.release(i);
+  }
+
+  float inv[2], l_row[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_row[r] = quad_sum(l[r]);
+    inv[r] = 1.f / fmaxf(l_row[r], 1e-30f);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int rr = 16 * warp + lane / 4 + 8 * r;
+    if (rr >= q_rows) continue;
+    if (c0 == 0 && lse != nullptr && lane % 4 == 0)
+      lse[static_cast<size_t>(qh) * Sq + q0 + rr] =
+          l_row[r] > 0.f ? (m[r] + log2f(l_row[r])) / kLog2e : INFINITY;
+    __nv_bfloat16* orow = o + (static_cast<size_t>(qh) * Sq + q0 + rr) * d + c0 + c_lane;
+#pragma unroll
+    for (int j = 0; j < kSlice / 8; ++j) {
+      if (c0 + 8 * j >= d) break;  // the row's own d columns only
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
+          __floats2bfloat162_rn(acc_o[4 * j + 2 * r] * inv[r], acc_o[4 * j + 2 * r + 1] * inv[r]);
+    }
+  }
+}
+
+int launch_wgmma_wide(const void* q, const void* k, const void* v, void* o, float* lse,
+                      float* /*part: f32 only*/, int B, int Hq, int Hk, int Sq, int Sk, int d,
+                      int causal, int window, float softcap, float scale, int /*n_split: 1*/,
+                      cudaStream_t stream) {
+  constexpr int kSmem = wide_smem_bytes(0);
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_fwd_wgmma_wide, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
+  }
+  CUtensorMap tq, tk, tv;
+  int err = encode(&tq, q, d, Sq, B * Hq, 64);
+  if (err == 0) err = encode(&tk, k, d, Sk, B * Hk, 64);
+  if (err == 0) err = encode(&tv, v, d, Sk, B * Hk, 64);
+  if (err != 0) return err;
+  const dim3 grid = head_grid((Sq + 63) / 64 * ((d + kSlice - 1) / kSlice), Hq, B);
+  flash_fwd_wgmma_wide<<<grid, 128, kSmem, stream>>>(tq, tk, tv, static_cast<__nv_bfloat16*>(o),
+                                                     lse, B * Hq, Hq, Hk, Sq, Sk, d, causal,
+                                                     window, softcap, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// f32: the narrow kernel's layout (warp w: 16 rows, half w / 4 of each
+// 64-key tile) on one slice of 128 output columns.  A key tile is n_pieces
+// items (Q and K, 128 columns each, summed into S a piece at a time) and
+// one item of V's slice, each by cp.async into two stages of two 64 x 128
+// tiles; P as in the narrow kernel.  Key splits as the narrow kernel's,
+// fwd_combine putting them together.
+constexpr int f32_wide_smem_bytes() {
+  return (4 * kWideTileF + kCcRows * kLdP) * static_cast<int>(sizeof(float));
+}
+
+__global__ void __launch_bounds__(kCcThreads, 1)
+flash_fwd_f32_wide(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
+                   float* __restrict__ part, int n_heads, int Hq, int Hk, int Sq, int Sk, int d,
+                   int causal, int window, float softcap, float scale, int n_split) {
+  extern __shared__ float4 smem4[];
+  float* stages = reinterpret_cast<float*>(smem4);  // stage s: tiles at 2s, 2s + 1
+  float* ps = stages + 4 * kWideTileF;
+
+  int rest;
+  const int xi = heavy_first(&rest);  // the last query tiles are the heaviest
+  if (rest >= n_heads) return;        // rest: the pair b * Hq + h
+  const int n_slices = (d + kSlice - 1) / kSlice, per = n_slices * n_split;
+  const int qt = gridDim.x / per - 1 - xi / per;
+  const int c0 = xi % per / n_split * kSlice, sp = xi % n_split;
+  const int h = rest % Hq, b = rest / Hq, qh = rest;
+  const int q0 = qt * kCcRows;
+  const int q_rows = min(kCcRows, Sq - q0);
+  const int offset = Sk - Sq;
+  const size_t kv_off = (static_cast<size_t>(b) * Hk + h / (Hq / Hk)) * Sk * d;
+  const float* q_tile = q + (static_cast<size_t>(qh) * Sq + q0) * d;
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int half = warp >> 2;
+  const int row0 = 16 * (warp & 3) + (lane >> 3);
+  const int key0 = 32 * half + (lane & 7);
+  const int col0 = 4 * (lane & 7);
+
+  const int row_lo = q0 + offset;
+  const int row_hi = q0 + q_rows - 1 + offset;
+  const int nk = (Sk + kCcRows - 1) / kCcRows;
+  int kt_hi = nk;
+  if (causal) kt_hi = row_hi < 0 ? 0 : min(nk, row_hi / kCcRows + 1);
+  int kt_lo = 0;
+  if (window >= 0) {
+    const int first_col = row_lo - window + 1;
+    kt_lo = first_col <= 0 ? 0 : first_col / kCcRows;
+  }
+  const int per_split = (nk + n_split - 1) / n_split;
+  kt_lo = max(kt_lo, sp * per_split);
+  kt_hi = min(kt_hi, (sp + 1) * per_split);
+  const int per_tile = n_slices + 1;
+  const int n_items = max(0, kt_hi - kt_lo) * per_tile;
+
+  // item j into stage s: piece p < n_slices of Q and K, or V's slice
+  auto load = [&](int j, int s) {
+    const int p = j % per_tile, k0 = (kt_lo + j / per_tile) * kCcRows;
+    const int rows = min(kCcRows, Sk - k0);
+    float* a = stages + 2 * s * kWideTileF;
+    if (p < n_slices) {
+      const int w = min(kSlice, d - p * kSlice);
+      load_piece_async(a, q_tile + p * kSlice, d, q_rows, w);
+      load_piece_async(a + kWideTileF, k + kv_off + static_cast<size_t>(k0) * d + p * kSlice, d,
+                       rows, w);
+    } else {
+      load_piece_async(a + kWideTileF, v + kv_off + static_cast<size_t>(k0) * d + c0, d, rows,
+                       min(kSlice, d - c0));
+    }
+  };
+  if (n_items > 0) load(0, 0);
+  cp_async_commit();
+
+  float acc[4][kSlice / 8];
+  float m[4], l[4], sc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = kNeg;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < kSlice / 8; ++c) acc[i][c] = 0.f;
+  }
+  const float scale_l2 = scale * kLog2e;
+  const float cap_l2 = softcap * kLog2e, scale_cap = scale / softcap;
+
+  for (int i = 0; i < n_items; ++i) {
+    const int s = i & 1, p = i % per_tile, k0 = (kt_lo + i / per_tile) * kCcRows;
+    cp_async_wait_all();
+    __syncthreads();  // item i is in; every thread is done with item i - 1
+    if (i + 1 < n_items) load(i + 1, s ^ 1);
+    cp_async_commit();
+    const float* a = stages + 2 * s * kWideTileF;
+    const float* bt = a + kWideTileF;
+    if (p < n_slices) {
+      // S (+)= Q K^T over this piece's columns, rows row0 + 4r, keys key0 + 8j
+      float sp_[4][4];
+      dot_4x4<kSlice, 4, 8>(sp_, a + row0 * kLdWide, bt + key0 * kLdWide,
+                            min(kSlice, d - p * kSlice));
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) sc[r][j] = p == 0 ? sp_[r][j] : sc[r][j] + sp_[r][j];
+      continue;
+    }
+    const bool need_mask = k0 + kCcRows > Sk || (causal && k0 + kCcRows - 1 > row_lo) ||
+                           (window >= 0 && k0 <= row_hi - window);
+    const int row = q0 + row0 + offset, col = k0 + key0;
+    if (softcap > 0.f) {
+      if (need_mask)
+        fwd_scores<true, true>(sc, row, col, Sk, causal, window, scale_l2, cap_l2, scale_cap);
+      else
+        fwd_scores<true, false>(sc, row, col, Sk, causal, window, scale_l2, cap_l2, scale_cap);
+    } else {
+      if (need_mask)
+        fwd_scores<false, true>(sc, row, col, Sk, causal, window, scale_l2, cap_l2, scale_cap);
+      else
+        fwd_scores<false, false>(sc, row, col, Sk, causal, window, scale_l2, cap_l2, scale_cap);
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float mx = fmaxf(fmaxf(sc[r][0], sc[r][1]), fmaxf(sc[r][2], sc[r][3]));
+      const float m_new = fmaxf(m[r], group8_max(mx));
+      const float alpha = fast_exp2(m[r] - m_new);
+      float psum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float pr = sc[r][j] > 0.5f * kNeg ? fast_exp2(sc[r][j] - m_new) : 0.f;
+        psum += pr;
+        ps[(row0 + 4 * r) * kLdP + key0 + 8 * j] = pr;
+      }
+      l[r] = alpha * l[r] + psum;
+#pragma unroll
+      for (int c = 0; c < kSlice / 8; ++c) acc[r][c] *= alpha;
+      m[r] = m_new;
+    }
+    __syncwarp();  // P's rows and keys are this warp's own
+    // O += P V over this half's keys, for rows row0 + 4r, columns col0 + 32g
+    // (V's columns past the slice's are zeros)
+    acc_quads_g<kSlice, kSlice / 32, false, 4, kLdP>(acc, ps + row0 * kLdP + 32 * half,
+                                                     bt + 32 * half * kLdWide + col0,
+                                                     half_end(Sk - k0 - 32 * half));
+  }
+
+  // the two halves of each row put together, half 0's first (as the narrow
+  // kernel: half 1 leaves m, l and O in stage 0)
+#pragma unroll
+  for (int r = 0; r < 4; ++r) l[r] = group8_sum(l[r]);
+  __syncthreads();
+  float* o1 = stages;
+  float* ml1 = stages + kWideTileF;
+  if (half == 1) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+#pragma unroll
+      for (int g = 0; g < kSlice / 32; ++g)
+        *reinterpret_cast<float4*>(o1 + (row0 + 4 * r) * kLdWide + col0 + 32 * g) =
+            make_float4(acc[r][4 * g], acc[r][4 * g + 1], acc[r][4 * g + 2], acc[r][4 * g + 3]);
+      if ((lane & 7) == 0) {
+        ml1[2 * (row0 + 4 * r)] = m[r];
+        ml1[2 * (row0 + 4 * r) + 1] = l[r];
+      }
+    }
+  }
+  __syncthreads();
+  if (half == 1) return;
+
+  const size_t rows_all = static_cast<size_t>(n_heads) * Sq;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int rr = row0 + 4 * r;
+    if (rr >= q_rows) continue;
+    const float m1 = ml1[2 * rr], l1 = ml1[2 * rr + 1];
+    const float mm = fmaxf(m[r], m1);
+    const float a0 = fast_exp2(m[r] - mm), a1 = fast_exp2(m1 - mm);
+    const float l_row = fmaf(a1, l1, a0 * l[r]);
+    const size_t row = static_cast<size_t>(qh) * Sq + q0 + rr;
+    float* out;
+    float f;
+    if (part == nullptr) {
+      if (c0 == 0 && lse != nullptr && (lane & 7) == 0)
+        lse[row] = l_row > 0.f ? (mm + log2f(l_row)) / kLog2e : INFINITY;
+      out = o + row * d;
+      f = 1.f / fmaxf(l_row, 1e-30f);
+    } else {
+      const size_t at = static_cast<size_t>(sp) * rows_all + row;
+      if (c0 == 0 && (lane & 7) == 0) {
+        float* ml = part + static_cast<size_t>(n_split) * rows_all * d;
+        ml[2 * at] = mm;
+        ml[2 * at + 1] = l_row;
+      }
+      out = part + at * d;
+      f = 1.f;
+    }
+#pragma unroll
+    for (int g = 0; g < kSlice / 32; ++g) {
+      const int c = c0 + col0 + 32 * g;
+      if (c >= d) continue;  // the row's own d columns only
+      const float4 x1 = *reinterpret_cast<const float4*>(o1 + rr * kLdWide + col0 + 32 * g);
+      *reinterpret_cast<float4*>(out + c) =
+          make_float4(fmaf(a1, x1.x, a0 * acc[r][4 * g]) * f,
+                      fmaf(a1, x1.y, a0 * acc[r][4 * g + 1]) * f,
+                      fmaf(a1, x1.z, a0 * acc[r][4 * g + 2]) * f,
+                      fmaf(a1, x1.w, a0 * acc[r][4 * g + 3]) * f);
+    }
+  }
+}
+
+int launch_f32_wide(const void* q, const void* k, const void* v, void* o, float* lse, float* part,
+                    int B, int Hq, int Hk, int Sq, int Sk, int d, int causal, int window,
+                    float softcap, float scale, int n_split, cudaStream_t stream) {
+  constexpr int kSmem = f32_wide_smem_bytes();
+  if (n_split < 1 || n_split > kMaxSplit || (n_split > 1 && part == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_fwd_f32_wide, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
+  }
+  const int n_slices = (d + kSlice - 1) / kSlice;
+  const dim3 grid = head_grid((Sq + kCcRows - 1) / kCcRows * n_slices * n_split, Hq, B);
+  flash_fwd_f32_wide<<<grid, kCcThreads, kSmem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), lse, n_split > 1 ? part : nullptr, B * Hq, Hq, Hk, Sq, Sk, d,
+      causal, window, softcap, scale, n_split);
   int err = static_cast<int>(cudaGetLastError());
   if (err != 0 || n_split == 1) return err;
   const int rows = B * Hq * Sq;
@@ -741,7 +1185,7 @@ using Launch = int (*)(const void*, const void*, const void*, void*, float*, flo
 
 struct Variant {
   int dtype, d, block_q, block_k, threads, smem;
-  bool any;  // takes every width up to d with d % 8 == 0, not d alone
+  bool any;  // takes every width up to d with d % 8 == 0 (d = 0: past 128), not d alone
   Launch launch;
 };
 
@@ -749,7 +1193,8 @@ struct Variant {
 // (kernels/flash_attention.py kernel_plan) picks those three; the key tile,
 // threads and shared memory are the instantiation's own.  D = 64, 96 and
 // 128 have their own; every other D with D % 8 == 0 up to 128 takes the
-// first `any` row whose width holds it (kernel_width in the plan).
+// first `any` row whose width holds it (kernel_width in the plan), and
+// every D % 8 == 0 past 128 the wide row of its dtype (d = 0).
 constexpr Variant kVariants[] = {
     {1, 64, 64, kBk, 128, wgmma_smem_bytes<64, 1>(), false, launch_wgmma<64, 1, false>},
     {1, 64, 128, kBk, 256, wgmma_smem_bytes<64, 2>(), false, launch_wgmma<64, 2, false>},
@@ -766,12 +1211,16 @@ constexpr Variant kVariants[] = {
     {1, 128, 128, kBk, 256, wgmma_smem_bytes<128, 2>(), true, launch_wgmma<128, 2, true>},
     {0, 64, kCcRows, kCcRows, kCcThreads, f32_smem_bytes<64>(), true, launch_f32<64, true>},
     {0, 128, kCcRows, kCcRows, kCcThreads, f32_smem_bytes<128>(), true, launch_f32<128, true>},
+    {1, 0, 64, 64, 128, wide_smem_bytes(0), true, launch_wgmma_wide},
+    {0, 0, kCcRows, kCcRows, kCcThreads, f32_wide_smem_bytes(), true, launch_f32_wide},
 };
 
 const Variant* find(int dtype, int D, int block_q) {
-  if (D < 8 || D > 128 || D % 8 != 0) return nullptr;
+  if (D < 8 || D % 8 != 0) return nullptr;
   for (const Variant& x : kVariants)
-    if (x.dtype == dtype && x.block_q == block_q && (x.any ? D <= x.d : D == x.d)) return &x;
+    if (x.dtype == dtype && x.block_q == block_q &&
+        (D > 128 ? x.d == 0 : x.any ? D <= x.d : D == x.d))
+      return &x;
   return nullptr;
 }
 
@@ -794,8 +1243,10 @@ extern "C" int flash_attention_geometry(int dtype, int D, int block_q, int* bloc
 // rows' log-sum-exp.  (dtype, D, block_q, n_split) are the launch plan's;
 // n_split > 1 (f32 only) splits each query tile's keys over n_split blocks
 // and puts them together in a second launch, through part: f32 scratch of
-// n_split * B * Hq * Sq * (D + 2) floats.  What no instantiation takes is
-// refused with cudaErrorInvalidValue before anything is launched.
+// n_split * B * Hq * Sq * (D + 2) floats.  D past 128 runs the wide kernels
+// (block_q 64).  What no instantiation takes (D % 8 != 0: the wrapper pads
+// the head axis) is refused with cudaErrorInvalidValue before anything is
+// launched.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    float* lse, float* part, int B, int Hq, int Hk, int Sq,
                                    int Sk, int D, int dtype, int causal, int window,

@@ -133,6 +133,38 @@
 //     loaded zero past D, products to D (S, dP) or to the last 32-column
 //     group holding D columns (dK, dV, dQ), D columns stored.
 //
+// * Widths past 128 columns: bwd_dkdv_wgmma_wide, bwd_dq_wgmma_wide,
+//   bwd_dkdv_cc_wide, bwd_dq_cc_wide (column slices and the item ring:
+//   flash_wide.cuh).  At D = 128 the bf16 dK/dV kernel already holds its
+//   two 64 x 128 f32 accumulators, S^T, dP^T and P in 246 registers, so dK
+//   and dV of 256 columns cannot live in one warpgroup's registers.  A
+//   block owns 64 rows (keys in (b), queries in (c)) and one slice of w =
+//   128 columns of dK and dV, or of dQ: the narrow kernels' accumulators,
+//   which fit without a spill; the slices go on the grids' x.  S and dP are
+//   formed over the whole width in pieces of 128 columns (items of two 64 x
+//   128 tiles: K and Q, then V and dO, in (b); Q and K, then dO and V, in
+//   (c)), then one item brings the slice's own columns (dO and Q in (b), K
+//   in (c)) for the products that give the slice.  So S and dP are formed
+//   ceil(D / 128) times each (the plan's "slices"), and the bound stays the
+//   function's own count (flash_bwd_work), which shows the recompute as a
+//   lower share of it.  bf16 items by TMA through a ring of three stages
+//   (97 KB; dK/dV 1 KB more of lse and delta), f32 by cp.async two stages
+//   deep (149 KB with the score tile).  The f32 dQ splits its keys and
+//   dq_combine adds the splits as the narrow kernel does; bwd_delta reads
+//   the width at run time.
+//   - A (b) block walks every query head of its GQA group, so under a long
+//     causal mask key block 0 walks all of its group's query tiles while
+//     the last key blocks finish at once (at Qwen3-Next's [1, 16/2, 4096,
+//     256] the wide grid is 256 blocks, one wave, led by a block 2x the
+//     average).  Issuing the pieces of S and dP back to back without
+//     waiting for each (releasing a stage once the next piece was in
+//     flight) ran slower: the ring's next load then went out an item later.
+// * Widths off the multiple of 8 run padded (the wrapper pads q, k, v, o
+//   and dO with zero columns and slices dq, dk and dv back: zero columns of
+//   v and dO give zero columns of dq, dk and dv, and add zeros to dP).
+// * Every kernel reads its (batch, head) pair from the grid's y and z,
+//   folded where a count passes 65,535 (flash_wide.cuh head_grid).
+//
 // The C entry point launches on the caller's stream, does not synchronise,
 // and returns the first cudaGetLastError() that is not 0 (checked after
 // each launch), the error of cudaFuncSetAttribute, or the codes kNoEncoder
@@ -142,6 +174,7 @@
 #include <math.h>
 
 #include "cuda_cores.cuh"
+#include "flash_wide.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -250,17 +283,6 @@ __device__ __forceinline__ void wgmma_wait() {
 __device__ __forceinline__ uint32_t opaque(uint32_t addr) {
   asm volatile("" : "+r"(addr));
   return addr;
-}
-
-// wgmma descriptors into a tile stored as 64-column boxes of `box` bytes
-// each (rows x 128 bytes, as TMA writes them).  K-major (the contraction
-// runs along a row): columns 16kk..16kk+15 of every row.  MN-major (the
-// contraction runs down the rows): rows 16kk..16kk+15 of every box.
-__device__ __forceinline__ uint64_t k_major(uint32_t tile, uint32_t box, int kk) {
-  return gmma_desc(tile + (kk / 4) * box + (kk % 4) * 32, 16);
-}
-__device__ __forceinline__ uint64_t mn_major(uint32_t tile, uint32_t box, int kk) {
-  return gmma_desc(tile + kk * 16 * 128, box);
 }
 
 // acc (64 x 64) = A B^T over d columns (D unless kAny), A the 64 rows at a,
@@ -377,8 +399,8 @@ __global__ void __launch_bounds__(128 * kWG, 1)
 bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
                const float* __restrict__ lse, const float* __restrict__ delta,
-               __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int Hq, int Hk,
-               int d_run, Mask mask, float softcap, float scale) {
+               __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int n_heads,
+               int Hq, int Hk, int d_run, Mask mask, float softcap, float scale) {
   const int d = kAny ? d_run : D;
   constexpr int kBk = 64 * kWG;
   constexpr int kDp = padded_cols<D>();
@@ -397,9 +419,10 @@ bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
   const uint32_t full = kv_full + 8, empty = kv_full + 24;  // [2] each
   float* stats = reinterpret_cast<float*>(smem + (stats_s - base));
 
-  const int hk = blockIdx.y, b = blockIdx.z, group = Hq / Hk;
+  const int kvh = head_pair();  // b * Hk + hk
+  if (kvh >= n_heads) return;
+  const int hk = kvh % Hk, b = kvh / Hk, group = Hq / Hk;
   const int k0 = blockIdx.x * kBk;  // causal: the first key blocks are the heaviest
-  const int kvh = b * Hk + hk;
   int qt_lo, qt_hi;
   mask.query_tiles(k0, kBk, kTile, &qt_lo, &qt_hi);
   const int nq = qt_hi - qt_lo, n_tiles = group * nq;
@@ -547,8 +570,8 @@ __global__ void __launch_bounds__(128 * kWG, 1)
 bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
              const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
              const float* __restrict__ lse, const float* __restrict__ delta,
-             __nv_bfloat16* __restrict__ dq, int Hq, int Hk, int d_run, Mask mask,
-             float softcap, float scale) {
+             __nv_bfloat16* __restrict__ dq, int n_heads, int Hq, int Hk, int d_run,
+             Mask mask, float softcap, float scale) {
   const int d = kAny ? d_run : D;
   constexpr int kBq = 64 * kWG;
   constexpr int kDp = padded_cols<D>();
@@ -564,10 +587,12 @@ bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUt
   const uint32_t qd_full = v_s + 2 * kKTile;
   const uint32_t full = qd_full + 8, empty = qd_full + 24;  // [2] each
 
-  const int h = blockIdx.y, b = blockIdx.z;
+  const int qh = head_pair();  // b * Hq + h
+  if (qh >= n_heads) return;
+  const int h = qh % Hq, b = qh / Hq;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kBq;  // heaviest query blocks first
   const int q_rows = min(kBq, mask.Sq - q0);
-  const int qh = b * Hq + h, kvh = b * Hk + h / (Hq / Hk);
+  const int kvh = b * Hk + h / (Hq / Hk);
   int kt_lo, kt_hi;
   mask.key_tiles(q0, q_rows, kTile, &kt_lo, &kt_hi);
   const int n_tiles = kt_hi - kt_lo;
@@ -773,8 +798,8 @@ __global__ void __launch_bounds__(kCcThreads, 1)
 bwd_dkdv_cc(const float* __restrict__ q, const float* __restrict__ k,
             const float* __restrict__ v, const float* __restrict__ dout,
             const float* __restrict__ lse, const float* __restrict__ delta,
-            float* __restrict__ dk, float* __restrict__ dv, int Hq, int Hk, int d_run,
-            Mask mask, float softcap, float scale) {
+            float* __restrict__ dk, float* __restrict__ dv, int n_heads, int Hq, int Hk,
+            int d_run, Mask mask, float softcap, float scale) {
   const int d = kAny ? d_run : D;
   const int width = (d + 31) / 32 * 32;  // the columns acc_rows reads
   constexpr int kTile = cc_tile<D>();
@@ -788,6 +813,7 @@ bwd_dkdv_cc(const float* __restrict__ q, const float* __restrict__ k,
 
   int rest;
   const int k0 = heavy_first(&rest) * kCcRows;  // causal: the first key blocks are the heaviest
+  if (rest >= n_heads) return;                  // rest: the pair b * Hk + hk
   const int hk = rest % Hk, b = rest / Hk, group = Hq / Hk;
   const int k_rows = min(kCcRows, mask.Sk - k0);
   const size_t kv_off = (static_cast<size_t>(b) * Hk + hk) * mask.Sk * d;
@@ -891,8 +917,8 @@ __global__ void __launch_bounds__(kCcThreads, 1)
 bwd_dq_cc(const float* __restrict__ q, const float* __restrict__ k,
           const float* __restrict__ v, const float* __restrict__ dout,
           const float* __restrict__ lse, const float* __restrict__ delta,
-          float* __restrict__ dq, float* __restrict__ part, int Hq, int Hk, int d_run,
-          Mask mask, float softcap, float scale, int n_split) {
+          float* __restrict__ dq, float* __restrict__ part, int n_heads, int Hq, int Hk,
+          int d_run, Mask mask, float softcap, float scale, int n_split) {
   const int d = kAny ? d_run : D;
   const int width = (d + 31) / 32 * 32;  // the columns acc_rows reads
   constexpr int kTile = cc_tile<D>();
@@ -906,6 +932,7 @@ bwd_dq_cc(const float* __restrict__ q, const float* __restrict__ k,
 
   int rest;
   const int xi = heavy_first(&rest);  // the last query blocks are the heaviest
+  if (rest >= n_heads) return;        // rest: the pair b * Hq + h
   const int q0 = (gridDim.x / n_split - 1 - xi / n_split) * kCcRows, sp = xi % n_split;
   const int h = rest % Hq, b = rest / Hq;
   const int q_rows = min(kCcRows, mask.Sq - q0);
@@ -975,7 +1002,7 @@ bwd_dq_cc(const float* __restrict__ q, const float* __restrict__ k,
     acc_rows<D, kAny>(acc, xs, k_t, ty, tx, d, rows_end(mask.Sk - j0));  // dQ += dS K
   }
 
-  const size_t rows_all = static_cast<size_t>(gridDim.z) * Hq * mask.Sq;
+  const size_t rows_all = static_cast<size_t>(n_heads) * mask.Sq;
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     if (4 * ty + r >= q_rows) continue;
@@ -1009,6 +1036,506 @@ dq_combine(const float* __restrict__ part, float* __restrict__ dq, size_t n4, in
   }
   reinterpret_cast<float4*>(dq)[i] =
       make_float4(acc.x * scale, acc.y * scale, acc.z * scale, acc.w * scale);
+}
+
+// ================================================ widths past 128 columns
+// (column slices and the item ring: flash_wide.cuh)
+
+// (b) bf16: one warpgroup owns 64 keys [k0, k0 + 64) of kv head (b, hk) and
+// one slice [c0, c0 + 128) of their dK and dV columns, and loops over the
+// 64-row query tiles of its group's heads that see them.  A tile is
+// n_pieces items of K and Q (S^T = K Q^T over the whole width, wgmma
+// m64n64k16), n_pieces of V and dO (dP^T = V dO^T), and one of the slice's
+// columns of dO and Q (dV += P^T dO and dK += dS^T Q, m64n128k16 on the
+// register form); P and dS are formed in registers before the last item's
+// products, as in the narrow kernel.
+__global__ void __launch_bounds__(128, 1)
+bwd_dkdv_wgmma_wide(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv,
+                    const __grid_constant__ CUtensorMap tdo, const float* __restrict__ lse,
+                    const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
+                    __nv_bfloat16* __restrict__ dv, int n_heads, int Hq, int Hk, int d,
+                    Mask mask, float softcap, float scale) {
+  extern __shared__ uint8_t smem[];
+  const uint32_t base = (smem_u32(smem) + 1023u) & ~1023u;
+  const WideRing ring{base, base + kWideStages * kWideStage};
+  // two stages of 64 lse then 64 delta, after the barriers
+  float* stats = reinterpret_cast<float*>(smem + (ring.bars + 64 - smem_u32(smem)));
+
+  const int kvh = head_pair();  // b * Hk + hk
+  if (kvh >= n_heads) return;
+  const int hk = kvh % Hk, b = kvh / Hk, group = Hq / Hk;
+  const int n = (d + kSlice - 1) / kSlice, x = blockIdx.x;
+  // x = key block * n + slice; causal: the first key blocks are the heaviest
+  const int k0 = x / n * 64, c0 = x % n * kSlice;
+  int qt_lo, qt_hi;
+  mask.query_tiles(k0, 64, kTile, &qt_lo, &qt_hi);
+  const int nq = qt_hi - qt_lo, n_tiles = group * nq;
+  const int per_tile = 2 * n + 1, n_items = n_tiles * per_tile;
+  // tile t of the loop: query tile qt_lo + t % nq of the group's head t / nq
+  auto tile_head = [&](int t) { return b * Hq + hk * group + t / nq; };
+  auto tile_q0 = [&](int t) { return (qt_lo + t % nq) * kTile; };
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  if (tid == 0) ring.init(4);
+  __syncthreads();
+
+  // item j: piece p % n of K and Q (p < n), of V and dO (p < 2n), or the
+  // slice's dO and Q
+  auto load = [&](int j) {
+    const int t = j / per_tile, p = j % per_tile, qh = tile_head(t), q0 = tile_q0(t);
+    const int c = p < 2 * n ? p % n * kSlice : c0, nb = boxes(d, c);
+    mbar_expect_tx(ring.full(j), 2 * nb * kWideBox);
+    if (p < 2 * n) {
+      tma_tile(ring.a(j), p < n ? &tk : &tv, ring.full(j), nb, c, k0, kvh);
+      tma_tile(ring.b(j), p < n ? &tq : &tdo, ring.full(j), nb, c, q0, qh);
+    } else {
+      tma_tile(ring.a(j), &tdo, ring.full(j), nb, c, q0, qh);
+      tma_tile(ring.b(j), &tq, ring.full(j), nb, c, q0, qh);
+    }
+  };
+  if (tid == 0) ring.refill(-1, n_items, load);
+
+  // thread tid carries tile t's lse (tid < 64) or delta (tid >= 64) of query
+  // row tid % 64: +inf and 0 past Sq, so P is 0 on those columns
+  const float* stat_src = tid < 64 ? lse : delta;
+  auto stat = [&](int t) {
+    const int qi = tile_q0(t) + tid % 64;
+    return qi < mask.Sq ? stat_src[static_cast<size_t>(tile_head(t)) * mask.Sq + qi]
+                        : (tid < 64 ? INFINITY : 0.f);
+  };
+  float next = n_tiles > 0 ? stat(0) : 0.f;
+
+  float acc_dk[kSlice / 2], acc_dv[kSlice / 2];
+#pragma unroll
+  for (int e = 0; e < kSlice / 2; ++e) acc_dk[e] = acc_dv[e] = 0.f;
+  float st[32], dpt[32];
+  const float scale_l2 = scale * kLog2e;
+  const float cap_l2 = softcap * kLog2e, scale_cap = scale / softcap;
+  const int c_lane = 2 * (lane % 4);
+  const int key0 = k0 + 16 * warp + lane / 4;  // this thread's rows: key0, key0 + 8
+
+  for (int i = 0; i < n_items; ++i) {
+    const int t = i / per_tile, p = i % per_tile;
+    if (tid == 0) ring.refill(i, n_items, load);
+    __syncwarp();
+    float* tile_stats = stats + (t & 1) * 128;
+    if (p == 0) {
+      // this tile's lse (log2 units) and delta into stage t % 2 (read two
+      // tiles ago), the next tile's on their way from memory
+      tile_stats[tid] = tid < 64 ? next * kLog2e : next;
+      if (t + 1 < n_tiles) next = stat(t + 1);
+      __syncthreads();
+    }
+    mbar_wait(ring.full(i), ring.parity(i));
+    __syncwarp();
+    if (p < 2 * n) {
+      // S^T (+)= K Q^T, then dP^T (+)= V dO^T, a piece at a time (two
+      // branches: an accumulator picked at run time would go to local memory)
+      if (p < n)
+        piece_item(st, ring, i, min(kSlice, d - p * kSlice), p == 0);
+      else
+        piece_item(dpt, ring, i, min(kSlice, d - (p - n) * kSlice), p == n);
+    } else {
+      const int q0 = tile_q0(t);
+      uint32_t pa[16];
+      const bool masked = mask.cuts(q0, k0);
+      if (softcap > 0.f) {
+        if (masked)
+          dkdv_probs<true, true>(st, pa, tile_stats, mask, q0, key0, c_lane, scale_l2, scale_cap, cap_l2);
+        else
+          dkdv_probs<true, false>(st, pa, tile_stats, mask, q0, key0, c_lane, scale_l2, scale_cap, cap_l2);
+      } else {
+        if (masked)
+          dkdv_probs<false, true>(st, pa, tile_stats, mask, q0, key0, c_lane, scale_l2, scale_cap, cap_l2);
+        else
+          dkdv_probs<false, false>(st, pa, tile_stats, mask, q0, key0, c_lane, scale_l2, scale_cap, cap_l2);
+      }
+      wgmma_fence();
+      piece_xb(acc_dv, pa, ring.a(i));  // dV += P^T dO
+      wgmma_commit();
+      dkdv_grads(st, dpt, tile_stats, c_lane);
+      uint32_t dsa[16];
+      to_fragments(dsa, dpt);
+      wgmma_fence();
+      piece_xb(acc_dk, dsa, ring.b(i));  // dK += dS^T Q
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(acc_dv);
+      fence_regs(acc_dk);
+    }
+    ring.release(i);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = key0 + 8 * r;
+    if (key >= mask.Sk) continue;
+    const size_t row = (static_cast<size_t>(kvh) * mask.Sk + key) * d + c0 + c_lane;
+#pragma unroll
+    for (int j = 0; j < kSlice / 8; ++j) {
+      if (c0 + 8 * j >= d) break;  // the row's own d columns only
+      *reinterpret_cast<__nv_bfloat162*>(dk + row + 8 * j) = __floats2bfloat162_rn(
+          acc_dk[4 * j + 2 * r] * scale, acc_dk[4 * j + 2 * r + 1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(dv + row + 8 * j) =
+          __floats2bfloat162_rn(acc_dv[4 * j + 2 * r], acc_dv[4 * j + 2 * r + 1]);
+    }
+  }
+}
+
+// (c) bf16: one warpgroup owns 64 query rows of head (b, h) and one slice of
+// 128 dQ columns, and loops over the 64-key tiles they see: n_pieces items
+// of Q and K (S), n_pieces of dO and V (dP), and one of the slice's columns
+// of K (dQ += dS K).
+__global__ void __launch_bounds__(128, 1)
+bwd_dq_wgmma_wide(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                  const __grid_constant__ CUtensorMap tv,
+                  const __grid_constant__ CUtensorMap tdo, const float* __restrict__ lse,
+                  const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq, int n_heads,
+                  int Hq, int Hk, int d, Mask mask, float softcap, float scale) {
+  extern __shared__ uint8_t smem[];
+  const uint32_t base = (smem_u32(smem) + 1023u) & ~1023u;
+  const WideRing ring{base, base + kWideStages * kWideStage};
+
+  const int qh = head_pair();  // b * Hq + h
+  if (qh >= n_heads) return;
+  const int h = qh % Hq, b = qh / Hq;
+  const int kvh = b * Hk + h / (Hq / Hk);
+  const int n = (d + kSlice - 1) / kSlice;
+  const int q0 = (gridDim.x / n - 1 - static_cast<int>(blockIdx.x) / n) * 64;  // heaviest first
+  const int c0 = static_cast<int>(blockIdx.x) % n * kSlice;
+  const int q_rows = min(64, mask.Sq - q0);
+  int kt_lo, kt_hi;
+  mask.key_tiles(q0, q_rows, kTile, &kt_lo, &kt_hi);  // 64-key tiles
+  const int per_tile = 2 * n + 1, n_items = (kt_hi - kt_lo) * per_tile;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  if (tid == 0) ring.init(4);
+  __syncthreads();
+
+  // item j: piece p % n of Q and K (p < n), of dO and V (p < 2n), or the
+  // slice's columns of K
+  auto load = [&](int j) {
+    const int p = j % per_tile, j0 = (kt_lo + j / per_tile) * kTile;
+    const int c = p < 2 * n ? p % n * kSlice : c0, nb = boxes(d, c);
+    if (p < 2 * n) {
+      mbar_expect_tx(ring.full(j), 2 * nb * kWideBox);
+      tma_tile(ring.a(j), p < n ? &tq : &tdo, ring.full(j), nb, c, q0, qh);
+      tma_tile(ring.b(j), p < n ? &tk : &tv, ring.full(j), nb, c, j0, kvh);
+    } else {
+      mbar_expect_tx(ring.full(j), nb * kWideBox);
+      tma_tile(ring.b(j), &tk, ring.full(j), nb, c, j0, kvh);
+    }
+  };
+  if (tid == 0) ring.refill(-1, n_items, load);
+
+  const int row0 = q0 + 16 * warp + lane / 4;  // this thread's rows: row0, row0 + 8
+  float lse_r[2], delta_r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = row0 + 8 * r;
+    const size_t at = static_cast<size_t>(qh) * mask.Sq + qi;
+    lse_r[r] = qi < mask.Sq ? lse[at] * kLog2e : INFINITY;
+    delta_r[r] = qi < mask.Sq ? delta[at] : 0.f;
+  }
+  float acc_dq[kSlice / 2];
+#pragma unroll
+  for (int e = 0; e < kSlice / 2; ++e) acc_dq[e] = 0.f;
+  float sc[32], dp[32];
+  const float scale_l2 = scale * kLog2e;
+  const float cap_l2 = softcap * kLog2e, scale_cap = scale / softcap;
+  const int c_lane = 2 * (lane % 4);
+
+  for (int i = 0; i < n_items; ++i) {
+    const int p = i % per_tile, j0 = (kt_lo + i / per_tile) * kTile;
+    if (tid == 0) ring.refill(i, n_items, load);
+    __syncwarp();
+    mbar_wait(ring.full(i), ring.parity(i));
+    __syncwarp();
+    if (p < 2 * n) {
+      // S (+)= Q K^T, then dP (+)= dO V^T, a piece at a time
+      if (p < n)
+        piece_item(sc, ring, i, min(kSlice, d - p * kSlice), p == 0);
+      else
+        piece_item(dp, ring, i, min(kSlice, d - (p - n) * kSlice), p == n);
+    } else {
+      const bool masked = j0 + kTile > mask.Sk || mask.cuts(q0, j0);
+      if (softcap > 0.f) {
+        if (masked)
+          dq_probs<true, true>(sc, lse_r, mask, row0, j0 + c_lane, scale_l2, scale_cap, cap_l2);
+        else
+          dq_probs<true, false>(sc, lse_r, mask, row0, j0 + c_lane, scale_l2, scale_cap, cap_l2);
+      } else {
+        if (masked)
+          dq_probs<false, true>(sc, lse_r, mask, row0, j0 + c_lane, scale_l2, scale_cap, cap_l2);
+        else
+          dq_probs<false, false>(sc, lse_r, mask, row0, j0 + c_lane, scale_l2, scale_cap, cap_l2);
+      }
+#pragma unroll
+      for (int e = 0; e < 32; ++e) dp[e] = sc[e] * (dp[e] - delta_r[(e >> 1) & 1]);
+      uint32_t dsa[16];
+      to_fragments(dsa, dp);
+      wgmma_fence();
+      piece_xb(acc_dq, dsa, ring.b(i));  // dQ += dS K
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(acc_dq);
+    }
+    ring.release(i);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = row0 + 8 * r;
+    if (qi >= mask.Sq) continue;
+    __nv_bfloat16* out = dq + (static_cast<size_t>(qh) * mask.Sq + qi) * d + c0 + c_lane;
+#pragma unroll
+    for (int j = 0; j < kSlice / 8; ++j) {
+      if (c0 + 8 * j >= d) break;  // the row's own d columns only
+      *reinterpret_cast<__nv_bfloat162*>(out + 8 * j) =
+          __floats2bfloat162_rn(acc_dq[4 * j + 2 * r] * scale, acc_dq[4 * j + 2 * r + 1] * scale);
+    }
+  }
+}
+
+// f32: the narrow kernels' layouts (thread (ty, tx): rows 4ty.., columns
+// tx + 16j of the 64 x 64 products; dK, dV or dQ column pairs 2tx + 32g of
+// the slice) over items of two 64 x 128 tiles by cp.async, two stages deep,
+// as the bf16 wide kernels' items; the 64 x 64 score tile as the narrow
+// kernels'.  The f32 dQ splits keys as the narrow kernel does.
+constexpr int cc_wide_smem_bytes() {
+  return (4 * kWideTileF + kCcRows * kLdS) * static_cast<int>(sizeof(float));
+}
+
+// s (+)= the 4 x 4 block of A B^T over the first w columns of two tiles.
+__device__ __forceinline__ void piece_rows(float (&s)[4][4], const float* a, const float* b,
+                                           int ty, int tx, int w, bool first) {
+  float x[4][4];
+  dot_rows<kSlice>(x, a, b, ty, tx, w);
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[r][j] = first ? x[r][j] : s[r][j] + x[r][j];
+}
+
+// (b) f32: 64 keys of kv head (b, hk), one slice of their dK and dV
+// columns, over the query tiles of the group's heads that see them.
+__global__ void __launch_bounds__(kCcThreads, 1)
+bwd_dkdv_cc_wide(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const float* __restrict__ dout,
+                 const float* __restrict__ lse, const float* __restrict__ delta,
+                 float* __restrict__ dk, float* __restrict__ dv, int n_heads, int Hq, int Hk,
+                 int d, Mask mask, float softcap, float scale) {
+  extern __shared__ float4 smem_cc[];
+  float* stages = reinterpret_cast<float*>(smem_cc);  // stage s: tiles 2s, 2s + 1
+  float* xs = stages + 4 * kWideTileF;               // P^T, then dS^T: [key][query]
+
+  int rest;
+  const int xi = heavy_first(&rest);  // causal: the first key blocks are the heaviest
+  if (rest >= n_heads) return;        // rest: the pair b * Hk + hk
+  const int n = (d + kSlice - 1) / kSlice;
+  const int k0 = xi / n * kCcRows, c0 = xi % n * kSlice;  // xi = key block * n + slice
+  const int hk = rest % Hk, b = rest / Hk, group = Hq / Hk;
+  const int k_rows = min(kCcRows, mask.Sk - k0);
+  const size_t kv_off = static_cast<size_t>(rest) * mask.Sk * d;
+  int qt_lo, qt_hi;
+  mask.query_tiles(k0, kCcRows, kCcRows, &qt_lo, &qt_hi);
+  const int nq = qt_hi - qt_lo, n_tiles = group * nq;
+  const int per_tile = 2 * n + 1, n_items = n_tiles * per_tile;
+  auto q_first = [&](int t) { return (qt_lo + t % nq) * kCcRows; };
+  auto q_row = [&](int t) {
+    return (static_cast<size_t>(b) * Hq + hk * group + t / nq) * mask.Sq + q_first(t);
+  };
+
+  const int lane = threadIdx.x & 31, tx = lane & 15;
+  const int ty = (threadIdx.x >> 5) * 2 + (lane >> 4);
+
+  auto load = [&](int j, int s) {
+    const int t = j / per_tile, p = j % per_tile;
+    const int c = p < 2 * n ? p % n * kSlice : c0, w = min(kSlice, d - c);
+    const int q_rows = min(kCcRows, mask.Sq - q_first(t));
+    float* a = stages + 2 * s * kWideTileF;
+    const size_t at_q = q_row(t) * d + c, at_k = kv_off + static_cast<size_t>(k0) * d + c;
+    if (p < 2 * n) {
+      load_piece_async(a, (p < n ? k : v) + at_k, d, k_rows, w);
+      load_piece_async(a + kWideTileF, (p < n ? q : dout) + at_q, d, q_rows, w);
+    } else {
+      load_piece_async(a, dout + at_q, d, q_rows, w);
+      load_piece_async(a + kWideTileF, q + at_q, d, q_rows, w);
+    }
+  };
+  if (n_items > 0) load(0, 0);
+  cp_async_commit();
+
+  float acc_dk[4][kSlice / 16], acc_dv[4][kSlice / 16], st[4][4], dpt[4][4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < kSlice / 16; ++c) acc_dk[r][c] = acc_dv[r][c] = 0.f;
+  const float scale_l2 = scale * kLog2e;
+  const float cap_l2 = softcap * kLog2e, scale_cap = scale / softcap;
+
+  for (int i = 0; i < n_items; ++i) {
+    const int s = i & 1, t = i / per_tile, p = i % per_tile;
+    cp_async_wait_all();
+    __syncthreads();  // item i is in; every thread is done with item i - 1
+    if (i + 1 < n_items) load(i + 1, s ^ 1);
+    cp_async_commit();
+    const float* a = stages + 2 * s * kWideTileF;
+    const float* bt = a + kWideTileF;
+    if (p < 2 * n) {
+      // S^T (+)= K Q^T, then dP^T (+)= V dO^T: keys are rows
+      if (p < n)
+        piece_rows(st, a, bt, ty, tx, min(kSlice, d - p * kSlice), p == 0);
+      else
+        piece_rows(dpt, a, bt, ty, tx, min(kSlice, d - (p - n) * kSlice), p == n);
+      continue;
+    }
+    const int q0 = q_first(t);
+    float lse_c[4], dlt_c[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const bool in = q0 + tx + 16 * j < mask.Sq;
+      const size_t at = q_row(t) + tx + 16 * j;
+      lse_c[j] = in ? lse[at] * kLog2e : INFINITY;
+      dlt_c[j] = in ? delta[at] : 0.f;
+    }
+    cc_grads_any<true>(softcap > 0.f, mask.cuts(q0, k0), st, dpt, lse_c, dlt_c, mask, q0 + tx,
+                       16, k0 + 4 * ty, 1, scale_l2, scale_cap, cap_l2, xs + 4 * ty * kLdS + tx);
+    __syncwarp();  // P^T's rows are this warp's own
+    const int q_end = rows_end(mask.Sq - q0);
+    acc_rows_g<kSlice, kSlice / 32>(acc_dv, xs, a, ty, tx, q_end);  // dV += P^T dO
+    __syncwarp();
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) xs[(4 * ty + r) * kLdS + tx + 16 * j] = dpt[r][j];
+    __syncwarp();
+    acc_rows_g<kSlice, kSlice / 32>(acc_dk, xs, bt, ty, tx, q_end);  // dK += dS^T Q
+  }
+
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    if (4 * ty + r >= k_rows) continue;
+    const size_t row = kv_off + static_cast<size_t>(k0 + 4 * ty + r) * d;
+#pragma unroll
+    for (int g = 0; g < kSlice / 32; ++g) {
+      const int c = c0 + 2 * tx + 32 * g;
+      if (c >= d) continue;  // the row's own d columns only
+      *reinterpret_cast<float2*>(dk + row + c) =
+          make_float2(acc_dk[r][2 * g] * scale, acc_dk[r][2 * g + 1] * scale);
+      *reinterpret_cast<float2*>(dv + row + c) =
+          make_float2(acc_dv[r][2 * g], acc_dv[r][2 * g + 1]);
+    }
+  }
+}
+
+// (c) f32: 64 query rows of head (b, h), one slice of their dQ columns, key
+// split sp of n_split (the narrow kernel's part and dq_combine).
+__global__ void __launch_bounds__(kCcThreads, 1)
+bwd_dq_cc_wide(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, const float* __restrict__ dout,
+               const float* __restrict__ lse, const float* __restrict__ delta,
+               float* __restrict__ dq, float* __restrict__ part, int n_heads, int Hq, int Hk,
+               int d, Mask mask, float softcap, float scale, int n_split) {
+  extern __shared__ float4 smem_cc[];
+  float* stages = reinterpret_cast<float*>(smem_cc);
+  float* xs = stages + 4 * kWideTileF;  // dS: [query][key]
+
+  int rest;
+  const int xi = heavy_first(&rest);  // the last query blocks are the heaviest
+  if (rest >= n_heads) return;        // rest: the pair b * Hq + h
+  const int n = (d + kSlice - 1) / kSlice, per = n * n_split;
+  const int q0 = (gridDim.x / per - 1 - xi / per) * kCcRows;
+  const int c0 = xi % per / n_split * kSlice, sp = xi % n_split;
+  const int h = rest % Hq, b = rest / Hq;
+  const int q_rows = min(kCcRows, mask.Sq - q0);
+  const size_t q_at = static_cast<size_t>(rest) * mask.Sq + q0;
+  const size_t kv_off = (static_cast<size_t>(b) * Hk + h / (Hq / Hk)) * mask.Sk * d;
+  int lo, hi;
+  mask.key_tiles(q0, q_rows, kCcRows, &lo, &hi);
+  const int nk = (mask.Sk + kCcRows - 1) / kCcRows, per_split = (nk + n_split - 1) / n_split;
+  lo = max(lo, sp * per_split);
+  hi = min(hi, (sp + 1) * per_split);
+  const int per_tile = 2 * n + 1, n_items = max(0, hi - lo) * per_tile;
+
+  const int lane = threadIdx.x & 31, tx = lane & 15;
+  const int ty = (threadIdx.x >> 5) * 2 + (lane >> 4);
+  float lse_r[4], delta_r[4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const bool in = 4 * ty + r < q_rows;
+    lse_r[r] = in ? lse[q_at + 4 * ty + r] * kLog2e : INFINITY;
+    delta_r[r] = in ? delta[q_at + 4 * ty + r] : 0.f;
+  }
+
+  auto load = [&](int j, int s) {
+    const int p = j % per_tile, j0 = (lo + j / per_tile) * kCcRows;
+    const int c = p < 2 * n ? p % n * kSlice : c0, w = min(kSlice, d - c);
+    const int k_rows = min(kCcRows, mask.Sk - j0);
+    float* a = stages + 2 * s * kWideTileF;
+    const size_t at_k = kv_off + static_cast<size_t>(j0) * d + c;
+    if (p < 2 * n) {
+      load_piece_async(a, (p < n ? q : dout) + q_at * d + c, d, q_rows, w);
+      load_piece_async(a + kWideTileF, (p < n ? k : v) + at_k, d, k_rows, w);
+    } else {
+      load_piece_async(a + kWideTileF, k + at_k, d, k_rows, w);
+    }
+  };
+  if (n_items > 0) load(0, 0);
+  cp_async_commit();
+
+  float acc[4][kSlice / 16], sc[4][4], dp[4][4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < kSlice / 16; ++c) acc[r][c] = 0.f;
+  const float scale_l2 = scale * kLog2e;
+  const float cap_l2 = softcap * kLog2e, scale_cap = scale / softcap;
+
+  for (int i = 0; i < n_items; ++i) {
+    const int s = i & 1, p = i % per_tile, j0 = (lo + i / per_tile) * kCcRows;
+    cp_async_wait_all();
+    __syncthreads();  // item i is in; every thread is done with item i - 1
+    if (i + 1 < n_items) load(i + 1, s ^ 1);
+    cp_async_commit();
+    const float* a = stages + 2 * s * kWideTileF;
+    const float* bt = a + kWideTileF;
+    if (p < 2 * n) {
+      // S (+)= Q K^T, then dP (+)= dO V^T: queries are rows
+      if (p < n)
+        piece_rows(sc, a, bt, ty, tx, min(kSlice, d - p * kSlice), p == 0);
+      else
+        piece_rows(dp, a, bt, ty, tx, min(kSlice, d - (p - n) * kSlice), p == n);
+      continue;
+    }
+    cc_grads_any<false>(softcap > 0.f, j0 + kCcRows > mask.Sk || mask.cuts(q0, j0), sc, dp,
+                        lse_r, delta_r, mask, q0 + 4 * ty, 1, j0 + tx, 16, scale_l2, scale_cap,
+                        cap_l2, nullptr);
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) xs[(4 * ty + r) * kLdS + tx + 16 * j] = dp[r][j];
+    __syncwarp();  // dS's rows 4ty..4ty+3 are this warp's own
+    acc_rows_g<kSlice, kSlice / 32>(acc, xs, bt, ty, tx, rows_end(mask.Sk - j0));  // dQ += dS K
+  }
+
+  const size_t rows_all = static_cast<size_t>(n_heads) * mask.Sq;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    if (4 * ty + r >= q_rows) continue;
+    const size_t row = q_at + 4 * ty + r;
+    float* out = part == nullptr ? dq + row * d
+                                 : part + (static_cast<size_t>(sp) * rows_all + row) * d;
+    const float f = part == nullptr ? scale : 1.f;
+#pragma unroll
+    for (int g = 0; g < kSlice / 32; ++g) {
+      const int c = c0 + 2 * tx + 32 * g;
+      if (c < d)  // the row's own d columns only
+        *reinterpret_cast<float2*>(out + c) = make_float2(acc[r][2 * g] * f, acc[r][2 * g + 1] * f);
+    }
+  }
 }
 
 // =========================================================== launching
@@ -1046,16 +1573,16 @@ int launch_delta(const Args& a) {
 }
 
 // The own rows of a (b) and a (c) block: bf16 takes 128 (two warpgroups)
-// unless that leaves fewer blocks than the card's n_sm SMs, then 64; f32
-// takes kCcRows.
-void block_rows(int dtype, int B, int Hq, int Hk, int Sq, int Sk, int n_sm, int* dkdv,
+// unless that leaves fewer blocks than the card's n_sm SMs, then 64; f32,
+// and bf16 past 128 columns (the wide kernels), take 64.
+void block_rows(int dtype, int B, int Hq, int Hk, int Sq, int Sk, int D, int n_sm, int* dkdv,
                 int* dq) {
-  if (dtype == 0) {
+  if (dtype == 0 || D > 128) {
     *dkdv = *dq = kCcRows;
     return;
   }
-  *dkdv = B * Hk * ((Sk + 127) / 128) < n_sm ? 64 : 128;
-  *dq = B * Hq * ((Sq + 127) / 128) < n_sm ? 64 : 128;
+  *dkdv = 1LL * B * Hk * ((Sk + 127) / 128) < n_sm ? 64 : 128;
+  *dq = 1LL * B * Hq * ((Sq + 127) / 128) < n_sm ? 64 : 128;
 }
 
 // A 3-D map over bf16 [heads, rows, d] (innermost first: d, rows, heads)
@@ -1089,10 +1616,11 @@ int launch_dkdv(const Args& a) {
   CUtensorMap tq, tk, tv, tdo;
   if (err == 0) err = encode_all(a, kTile, 64 * kWG, &tq, &tk, &tv, &tdo);
   if (err != 0) return err;
-  bwd_dkdv_wgmma<D, kWG, kAny><<<dim3((a.mask.Sk + 64 * kWG - 1) / (64 * kWG), a.Hk, a.B),
+  bwd_dkdv_wgmma<D, kWG, kAny><<<head_grid((a.mask.Sk + 64 * kWG - 1) / (64 * kWG), a.Hk, a.B),
                                  128 * kWG, kSmem, a.stream>>>(
       tq, tk, tv, tdo, a.lse, a.delta, static_cast<__nv_bfloat16*>(a.dk),
-      static_cast<__nv_bfloat16*>(a.dv), a.Hq, a.Hk, a.d, a.mask, a.softcap, a.scale);
+      static_cast<__nv_bfloat16*>(a.dv), a.B * a.Hk, a.Hq, a.Hk, a.d, a.mask, a.softcap,
+      a.scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1104,10 +1632,10 @@ int launch_dq(const Args& a) {
   CUtensorMap tq, tk, tv, tdo;
   if (err == 0) err = encode_all(a, 64 * kWG, kTile, &tq, &tk, &tv, &tdo);
   if (err != 0) return err;
-  bwd_dq_wgmma<D, kWG, kAny><<<dim3((a.mask.Sq + 64 * kWG - 1) / (64 * kWG), a.Hq, a.B),
+  bwd_dq_wgmma<D, kWG, kAny><<<head_grid((a.mask.Sq + 64 * kWG - 1) / (64 * kWG), a.Hq, a.B),
                                128 * kWG, kSmem, a.stream>>>(
-      tq, tk, tv, tdo, a.lse, a.delta, static_cast<__nv_bfloat16*>(a.dq), a.Hq, a.Hk, a.d,
-      a.mask, a.softcap, a.scale);
+      tq, tk, tv, tdo, a.lse, a.delta, static_cast<__nv_bfloat16*>(a.dq), a.B * a.Hq, a.Hq,
+      a.Hk, a.d, a.mask, a.softcap, a.scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1119,7 +1647,7 @@ int launch_wgmma(const Args& a) {
     err = static_cast<int>(cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev));
   if (err != 0) return err;
   int dkdv_rows, dq_rows;
-  block_rows(1, a.B, a.Hq, a.Hk, a.mask.Sq, a.mask.Sk, n_sm, &dkdv_rows, &dq_rows);
+  block_rows(1, a.B, a.Hq, a.Hk, a.mask.Sq, a.mask.Sk, a.d, n_sm, &dkdv_rows, &dq_rows);
   err = launch_delta<__nv_bfloat16, D, kAny>(a);
   if (err == 0)
     err = dkdv_rows == 64 ? launch_dkdv<D, 1, kAny>(a) : launch_dkdv<D, 2, kAny>(a);
@@ -1141,16 +1669,72 @@ int launch_cc(const Args& a) {
   if (err != 0) return err;
   const T *q = static_cast<const T*>(a.q), *k = static_cast<const T*>(a.k),
           *v = static_cast<const T*>(a.v), *dout = static_cast<const T*>(a.dout);
-  bwd_dkdv_cc<D, kAny><<<dim3((a.mask.Sk + kCcRows - 1) / kCcRows, a.Hk, a.B), kCcThreads,
+  bwd_dkdv_cc<D, kAny><<<head_grid((a.mask.Sk + kCcRows - 1) / kCcRows, a.Hk, a.B), kCcThreads,
                          kSmem, a.stream>>>(q, k, v, dout, a.lse, a.delta,
                                             static_cast<T*>(a.dk), static_cast<T*>(a.dv),
-                                            a.Hq, a.Hk, a.d, a.mask, a.softcap, a.scale);
+                                            a.B * a.Hk, a.Hq, a.Hk, a.d, a.mask, a.softcap,
+                                            a.scale);
   err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
-  bwd_dq_cc<D, kAny><<<dim3((a.mask.Sq + kCcRows - 1) / kCcRows * split, a.Hq, a.B),
+  bwd_dq_cc<D, kAny><<<head_grid((a.mask.Sq + kCcRows - 1) / kCcRows * split, a.Hq, a.B),
                        kCcThreads, kSmem, a.stream>>>(
       q, k, v, dout, a.lse, a.delta, static_cast<T*>(a.dq), split > 1 ? a.scratch : nullptr,
-      a.Hq, a.Hk, a.d, a.mask, a.softcap, a.scale, split);
+      a.B * a.Hq, a.Hq, a.Hk, a.d, a.mask, a.softcap, a.scale, split);
+  err = static_cast<int>(cudaGetLastError());
+  if (err != 0 || split == 1) return err;
+  const size_t n4 = static_cast<size_t>(a.B) * a.Hq * a.mask.Sq * a.d / 4;
+  dq_combine<<<static_cast<unsigned>((n4 + 255) / 256), 256, 0, a.stream>>>(
+      a.scratch, static_cast<T*>(a.dq), n4, split, a.scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Past 128 columns: the wide kernels, 64-row blocks, one slice of 128
+// columns a block (the grids' x counts slices).
+int launch_wide_wgmma(const Args& a) {
+  constexpr int kDkdv = wide_smem_bytes(1024), kDq = wide_smem_bytes(0);
+  static bool dkdv_ok = false, dq_ok = false;
+  int err = launch_delta<__nv_bfloat16, 128, true>(a);
+  if (err == 0) err = allow_smem(bwd_dkdv_wgmma_wide, kDkdv, &dkdv_ok);
+  if (err == 0) err = allow_smem(bwd_dq_wgmma_wide, kDq, &dq_ok);
+  CUtensorMap tq, tk, tv, tdo;
+  if (err == 0) err = encode_all(a, 64, 64, &tq, &tk, &tv, &tdo);
+  if (err != 0) return err;
+  const int n = (a.d + kSlice - 1) / kSlice;
+  bwd_dkdv_wgmma_wide<<<head_grid((a.mask.Sk + 63) / 64 * n, a.Hk, a.B), 128, kDkdv, a.stream>>>(
+      tq, tk, tv, tdo, a.lse, a.delta, static_cast<__nv_bfloat16*>(a.dk),
+      static_cast<__nv_bfloat16*>(a.dv), a.B * a.Hk, a.Hq, a.Hk, a.d, a.mask, a.softcap, a.scale);
+  err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  bwd_dq_wgmma_wide<<<head_grid((a.mask.Sq + 63) / 64 * n, a.Hq, a.B), 128, kDq, a.stream>>>(
+      tq, tk, tv, tdo, a.lse, a.delta, static_cast<__nv_bfloat16*>(a.dq), a.B * a.Hq, a.Hq, a.Hk,
+      a.d, a.mask, a.softcap, a.scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_wide_cc(const Args& a) {
+  using T = float;
+  constexpr int kSmem = cc_wide_smem_bytes();
+  static bool dkdv_ok = false, dq_ok = false;
+  const int split = a.dq_split;
+  if (split < 1 || split > kMaxSplit || (split > 1 && a.scratch == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int err = launch_delta<T, 128, true>(a);
+  if (err == 0) err = allow_smem(bwd_dkdv_cc_wide, kSmem, &dkdv_ok);
+  if (err == 0) err = allow_smem(bwd_dq_cc_wide, kSmem, &dq_ok);
+  if (err != 0) return err;
+  const T *q = static_cast<const T*>(a.q), *k = static_cast<const T*>(a.k),
+          *v = static_cast<const T*>(a.v), *dout = static_cast<const T*>(a.dout);
+  const int n = (a.d + kSlice - 1) / kSlice;
+  bwd_dkdv_cc_wide<<<head_grid((a.mask.Sk + kCcRows - 1) / kCcRows * n, a.Hk, a.B), kCcThreads,
+                     kSmem, a.stream>>>(q, k, v, dout, a.lse, a.delta, static_cast<T*>(a.dk),
+                                        static_cast<T*>(a.dv), a.B * a.Hk, a.Hq, a.Hk, a.d,
+                                        a.mask, a.softcap, a.scale);
+  err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  bwd_dq_cc_wide<<<head_grid((a.mask.Sq + kCcRows - 1) / kCcRows * n * split, a.Hq, a.B),
+                   kCcThreads, kSmem, a.stream>>>(
+      q, k, v, dout, a.lse, a.delta, static_cast<T*>(a.dq), split > 1 ? a.scratch : nullptr,
+      a.B * a.Hq, a.Hq, a.Hk, a.d, a.mask, a.softcap, a.scale, split);
   err = static_cast<int>(cudaGetLastError());
   if (err != 0 || split == 1) return err;
   const size_t n4 = static_cast<size_t>(a.B) * a.Hq * a.mask.Sq * a.d / 4;
@@ -1161,7 +1745,7 @@ int launch_cc(const Args& a) {
 
 struct Variant {
   int dtype, d, rows, other, threads, smem_dkdv, smem_dq;
-  bool any;  // takes every width up to d with d % 8 == 0, not d alone
+  bool any;  // takes every width up to d with d % 8 == 0 (d = 0: past 128), not d alone
   int (*launch)(const Args&);
 };
 
@@ -1170,7 +1754,8 @@ struct Variant {
 // rule of block_rows, the rows of each kernel's blocks; the other side's
 // tile, threads and shared memory are the instantiation's own.  D = 64, 96
 // and 128 have their own; every other D with D % 8 == 0 up to 128 takes the
-// first `any` row whose width holds it (kernel_width in the plan).
+// first `any` row whose width holds it (kernel_width in the plan), and every
+// D % 8 == 0 past 128 the wide row of its dtype (d = 0).
 constexpr Variant kVariants[] = {
     {1, 64, 64, kTile, 128, dkdv_smem_bytes<64, 1>(), dq_smem_bytes<64, 1>(), false, launch_wgmma<64, false>},
     {1, 64, 128, kTile, 256, dkdv_smem_bytes<64, 2>(), dq_smem_bytes<64, 2>(), false, launch_wgmma<64, false>},
@@ -1192,12 +1777,16 @@ constexpr Variant kVariants[] = {
      launch_cc<64, true>},
     {0, 128, kCcRows, kCcRows, kCcThreads, cc_smem_bytes<128>(), cc_smem_bytes<128>(), true,
      launch_cc<128, true>},
+    {1, 0, 64, kTile, 128, wide_smem_bytes(1024), wide_smem_bytes(0), true, launch_wide_wgmma},
+    {0, 0, kCcRows, kCcRows, kCcThreads, cc_wide_smem_bytes(), cc_wide_smem_bytes(), true,
+     launch_wide_cc},
 };
 
 const Variant* find(int dtype, int D, int rows) {
-  if (D < 8 || D > 128 || D % 8 != 0) return nullptr;
+  if (D < 8 || D % 8 != 0) return nullptr;
   for (const Variant& x : kVariants)
-    if (x.dtype == dtype && (x.any ? D <= x.d : D == x.d) && (rows < 0 || x.rows == rows))
+    if (x.dtype == dtype && (D > 128 ? x.d == 0 : x.any ? D <= x.d : D == x.d) &&
+        (rows < 0 || x.rows == rows))
       return &x;
   return nullptr;
 }
@@ -1219,11 +1808,12 @@ extern "C" int flash_attention_bwd_geometry(int dtype, int D, int rows, int* oth
 }
 
 // The own rows of the (b) and (c) blocks flash_attention_bwd launches for
-// these shapes on a card of n_sm SMs (the launch reads its card's count).
-extern "C" int flash_attention_bwd_blocks(int B, int Hq, int Hk, int Sq, int Sk, int dtype,
-                                          int n_sm, int* dkdv_rows, int* dq_rows) {
+// these shapes (D the head width it is given) on a card of n_sm SMs (the
+// launch reads its card's count).
+extern "C" int flash_attention_bwd_blocks(int B, int Hq, int Hk, int Sq, int Sk, int D,
+                                          int dtype, int n_sm, int* dkdv_rows, int* dq_rows) {
   if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
-  block_rows(dtype, B, Hq, Hk, Sq, Sk, n_sm, dkdv_rows, dq_rows);
+  block_rows(dtype, B, Hq, Hk, Sq, Sk, D, n_sm, dkdv_rows, dq_rows);
   return 0;
 }
 
@@ -1238,8 +1828,7 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
                                    int Sq, int Sk, int D, int dtype, int causal, int window,
                                    float softcap, float scale, int dq_split, void* stream) {
   const Variant* x = find(dtype, D, -1);
-  if (x == nullptr || (dtype != 0 && dq_split != 1))
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (x == nullptr || (dtype != 0 && dq_split != 1)) return static_cast<int>(cudaErrorInvalidValue);
   const Args a{q, k, v, o, dout, lse, delta, dq, dk, dv, B, Hq, Hk, D,
                Mask{Sq, Sk, causal, window}, softcap, scale, scratch, dq_split,
                static_cast<cudaStream_t>(stream)};

@@ -26,9 +26,11 @@
 //   2^17-element VMEM tile has no counterpart: a block's registers and
 //   227 KB of shared memory hold far less than 2 MB.
 // * Split variant, for rows longer than the cap or too few rows to fill the
-//   132 SMs: a (nb, B) grid of 1024-element tiles in two launches.  The first
-//   writes each tile's minimum to a [B, nb] scratch; the second reduces the
-//   row's nb minima (a few hundred floats, from L2) and depletes its tile.
+//   132 SMs: a (nb, min(B, 65535)) grid of 1024-element tiles in two
+//   launches, a block taking rows y, y + 65535, ... (the grid's y holds
+//   65,535).  The first writes each tile's minimum to a [B, nb] scratch; the
+//   second reduces the row's nb minima (a few hundred floats, from L2) and
+//   depletes its tile.
 //   Blocks run in no order on Hopper, so the TPU kernel's sequential
 //   scratch carry becomes the launch boundary.  The second pass reads the
 //   row again, mostly from the 50 MB L2 cache.
@@ -109,20 +111,23 @@ __global__ void __launch_bounds__(512) advance_fused(
 template <int ITEMS>
 __global__ void __launch_bounds__(512) advance_tile_min(
     const float* __restrict__ rem, const float* __restrict__ rate,
-    const uint8_t* __restrict__ active, float* __restrict__ scratch, int64_t c) {
+    const uint8_t* __restrict__ active, float* __restrict__ scratch, int b, int64_t c) {
   __shared__ float warp_min[32];
-  const int64_t row = blockIdx.y, nb = gridDim.x;
-  const int64_t base = row * c;
+  const int64_t nb = gridDim.x;
   const int64_t start = static_cast<int64_t>(blockIdx.x) * blockDim.x * ITEMS;
-  float m = kInf;
+  for (int64_t row = blockIdx.y; row < b; row += gridDim.y) {
+    const int64_t base = row * c;
+    float m = kInf;
 #pragma unroll
-  for (int k = 0; k < ITEMS; ++k) {
-    const int64_t i = start + threadIdx.x + static_cast<int64_t>(k) * blockDim.x;
-    if (i < c)
-      m = fminf(m, time_to_finish(rem[base + i], rate[base + i], active[base + i] != 0));
+    for (int k = 0; k < ITEMS; ++k) {
+      const int64_t i = start + threadIdx.x + static_cast<int64_t>(k) * blockDim.x;
+      if (i < c)
+        m = fminf(m, time_to_finish(rem[base + i], rate[base + i], active[base + i] != 0));
+    }
+    m = block_min(m, warp_min);
+    if (threadIdx.x == 0) scratch[row * nb + blockIdx.x] = m;
+    __syncthreads();  // every thread has read warp_min[0] before the next row writes it
   }
-  m = block_min(m, warp_min);
-  if (threadIdx.x == 0) scratch[row * nb + blockIdx.x] = m;
 }
 
 template <int ITEMS>
@@ -130,20 +135,23 @@ __global__ void __launch_bounds__(512) advance_tile_apply(
     const float* __restrict__ rem, const float* __restrict__ rate,
     const uint8_t* __restrict__ active, const float* __restrict__ bound,
     const float* __restrict__ scratch, float* __restrict__ dt_out,
-    float* __restrict__ out, int64_t c) {
+    float* __restrict__ out, int b, int64_t c) {
   __shared__ float warp_min[32];
-  const int64_t row = blockIdx.y, nb = gridDim.x;
-  const int64_t base = row * c;
-  float m = kInf;
-  for (int64_t j = threadIdx.x; j < nb; j += blockDim.x) m = fminf(m, scratch[row * nb + j]);
-  const float dt = fminf(block_min(m, warp_min), bound[row]);
+  const int64_t nb = gridDim.x;
   const int64_t start = static_cast<int64_t>(blockIdx.x) * blockDim.x * ITEMS;
+  for (int64_t row = blockIdx.y; row < b; row += gridDim.y) {
+    const int64_t base = row * c;
+    float m = kInf;
+    for (int64_t j = threadIdx.x; j < nb; j += blockDim.x) m = fminf(m, scratch[row * nb + j]);
+    const float dt = fminf(block_min(m, warp_min), bound[row]);
 #pragma unroll
-  for (int k = 0; k < ITEMS; ++k) {
-    const int64_t i = start + threadIdx.x + static_cast<int64_t>(k) * blockDim.x;
-    if (i < c) out[base + i] = deplete(rem[base + i], rate[base + i], active[base + i] != 0, dt);
+    for (int k = 0; k < ITEMS; ++k) {
+      const int64_t i = start + threadIdx.x + static_cast<int64_t>(k) * blockDim.x;
+      if (i < c) out[base + i] = deplete(rem[base + i], rate[base + i], active[base + i] != 0, dt);
+    }
+    if (blockIdx.x == 0 && threadIdx.x == 0) dt_out[row] = dt;
+    __syncthreads();  // every thread has read warp_min[0] before the next row writes it
   }
-  if (blockIdx.x == 0 && threadIdx.x == 0) dt_out[row] = dt;
 }
 
 template <template <int> class Launch, typename... Args>
@@ -173,9 +181,10 @@ struct Split {
   static void run(const float* rem, const float* rate, const uint8_t* active,
                   const float* bound, float* scratch, float* dt, float* out,
                   int b, int64_t c, int threads, int nb, cudaStream_t s) {
-    const dim3 grid(nb, b);
-    advance_tile_min<ITEMS><<<grid, threads, 0, s>>>(rem, rate, active, scratch, c);
-    advance_tile_apply<ITEMS><<<grid, threads, 0, s>>>(rem, rate, active, bound, scratch, dt, out, c);
+    const dim3 grid(nb, b < 65535 ? b : 65535);
+    advance_tile_min<ITEMS><<<grid, threads, 0, s>>>(rem, rate, active, scratch, b, c);
+    advance_tile_apply<ITEMS><<<grid, threads, 0, s>>>(rem, rate, active, bound, scratch, dt, out,
+                                                       b, c);
   }
 };
 

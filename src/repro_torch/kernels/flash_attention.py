@@ -20,9 +20,25 @@ leave SMs idle, each tile's keys split over ``key_split`` blocks whose
 partial rows a second launch puts together in a fixed order).  There
 is no option that picks another: a bf16 CUDA tensor launches the
 tensor-core kernel or raises.  Both variants, forward and backward, take
-every head width in ``HEAD_DIMS`` (a multiple of 8 up to 128, as the Pallas
-kernel's tests' 16 and 32): 64, 96 and 128 have instantiations of their
-own, any other width the one of ``kernel_width(d)``.
+every head width ``D >= 1``, every batch and every head count, as the
+Pallas kernel does:
+
+* a multiple of 8 up to 128 (``HEAD_DIMS``, the Pallas kernel's tests' 16
+  and 32 among them): 64, 96 and 128 have instantiations of their own, any
+  other width the one of ``kernel_width(d)``;
+* past 128: the wide kernels (``csrc/flash_wide.cuh``), in which a block
+  owns one slice of ``SLICE`` output columns and forms S (and dP) over the
+  whole width, a piece at a time: S is formed ``slices`` times (the plans'
+  recompute factor);
+* off the multiple of 8: the op pads the head axis of its inputs with zeros
+  to ``padded_width(d)`` (TMA and ``cp.async`` need 16-byte row strides) and
+  slices its outputs back, which is exact (zero columns add zeros to q.k
+  and give zero columns of o, dq, dk and dv); the scale stays the real
+  width's;
+* the (batch, head) pairs go on the grid's y and z as (H, B) while both fit
+  65,535, else folded (``head_grid``); past ``MAX_PAIRS`` the op launches
+  once for each of ``pair_chunks``'s ranges of pairs (the kernels' pair
+  index and TMA's coordinates are 32-bit).
 
 The backward (``flash_attention_bwd_cuda``, plan ``kernel_plan_bwd``) is
 three launches: delta = rowsum(dO o), dK/dV over key blocks (a block loops
@@ -66,16 +82,21 @@ from repro_torch.kernels import ref
 SRC = kbuild.CSRC / "flash_attention.cu"
 SRC_BWD = kbuild.CSRC / "flash_attention_bwd.cu"
 NVCC_FLAGS = kbuild.BASE_FLAGS
-# the head widths both kernels take: every multiple of 8 up to 128, the
-# Pallas kernel's 16 and 32 among them
+# the head widths the narrow instantiations take: every multiple of 8 up to
+# 128, the Pallas kernel's 16 and 32 among them (every other width pads to a
+# multiple of 8; past 128 the wide kernels run)
 HEAD_DIMS = tuple(range(8, 129, 8))
 NATIVE_DIMS = (64, 96, 128)     # widths with instantiations of their own
 N_SM = 132                      # H100 SXM streaming multiprocessors
 MAX_SMEM = 232_448              # dynamic shared memory a block may have
-MAX_GRID_YZ = 65535             # heads (grid y) and batch (grid z)
+MAX_GRID_YZ = 65535             # the grid's y and z: (batch, head) pairs
+MAX_PAIRS = 2**31 - 1           # (batch, head) pairs of one launch
 WGMMA_BLOCK_K = 128             # keys per tile of the tensor-core kernel
 CC_ROWS = 64                    # rows (queries, keys) of an f32 tile
 CC_THREADS = 256
+# past 128 columns (csrc/flash_wide.cuh): a block's output columns and the
+# columns of a piece of S; bf16 ring stages of two 64 x 128 tiles
+SLICE, WIDE_STAGES = 128, 3
 # f32 key splits: a block's keys split when the grid leaves SMs idle, each
 # split at least SPLIT_MIN_TILES key tiles, at most MAX_SPLIT splits
 # (csrc/cuda_cores.cuh kMaxSplit)
@@ -123,12 +144,74 @@ def flash_bwd_work(q_shape, k_shape, dtype_bytes: int, causal: bool = True,
                  + 4 * b * hq * sq)
 
 
+def padded_width(d: int) -> int:
+    """The head width the kernels run for a head width ``d``: ``d`` rounded
+    up to a multiple of 8 (the op pads with zero columns)."""
+    return -(-d // 8) * 8
+
+
+def slices(d: int) -> int:
+    """The column slices of a head width ``d``: 1 up to 128 columns (after
+    padding), else ``ceil(padded / SLICE)``, each a block of its own that
+    forms S (and dP) over the whole width: the recompute factor."""
+    w = padded_width(d)
+    return 1 if w <= 128 else -(-w // SLICE)
+
+
+def head_grid(h: int, b: int) -> tuple[int, int]:
+    """The grid's y and z for ``b`` x ``h`` (batch, head) pairs, at most
+    ``MAX_PAIRS`` (one launch's): ``(h, b)`` while both fit
+    ``MAX_GRID_YZ``, else the pair index ``b * h + head`` folded as ``y + Y
+    * z`` (``csrc/flash_wide.cuh`` ``head_grid``)."""
+    if h <= MAX_GRID_YZ and b <= MAX_GRID_YZ:
+        return h, b
+    y = min(h * b, MAX_GRID_YZ)
+    return y, -(-h * b // y)
+
+
+def pair_chunks(b: int, hq: int, hk: int, limit: int | None = None
+                ) -> list[tuple[tuple[int, int], tuple[int, int]]]:
+    """The launches that cover ``b`` x ``hq`` (batch, head) pairs, at most
+    ``limit`` pairs each (``MAX_PAIRS`` unless given): none while one
+    launch takes them all, else the row and head ranges ``((r0, r1), (h0,
+    h1))`` of each over the ``[b * hk, hq // hk]`` view of the query heads
+    (k and v ``[b * hk, 1]``): a launch is a problem of its own of ``r1 -
+    r0`` batch rows of ``h1 - h0`` query heads over one kv head.  A group
+    of more than ``limit`` heads is cut into runs of heads, whose dK and dV
+    parts the backward adds up."""
+    limit = MAX_PAIRS if limit is None else limit
+    if b * hq <= limit:
+        return []
+    rows, group = b * hk, hq // hk
+    if group <= limit:
+        per = limit // group
+        return [((r, min(r + per, rows)), (0, group))
+                for r in range(0, rows, per)]
+    return [((r, r + 1), (h, min(h + limit, group)))
+            for r in range(rows) for h in range(0, group, limit)]
+
+
+def _by_pairs(chunks: list, group: int, qside: list, kside: list):
+    """The q-side (q, o, lse, ...) and kv-side (k, v, ...) views of each
+    launch of ``chunks`` (``pair_chunks``), or the tensors themselves once
+    where there are none, each with whether its run of query heads is its
+    kv heads' first."""
+    if not chunks:
+        yield qside, kside, True
+        return
+    for (r0, r1), (h0, h1) in chunks:
+        yield ([x.view(-1, group, *x.shape[2:])[r0:r1, h0:h1] for x in qside],
+               [x.view(-1, 1, *x.shape[2:])[r0:r1] for x in kside], h0 == 0)
+
+
 def kernel_width(d: int) -> int:
-    """The width of the instantiation that runs head width ``d`` (in
-    ``HEAD_DIMS``): ``d`` itself for 64, 96 and 128; else 64 for ``d`` below
-    64 and 128 above, whose ``kAny`` instantiations read ``d`` at run time
+    """The width of the instantiation that runs head width ``d``
+    (``padded_width(d)`` first): 64, 96 and 128 themselves; 64 below 64 and
+    128 up to 128, whose ``kAny`` instantiations read the width at run time
     and leave the columns past it zero (``csrc/flash_attention.cu``'s and
-    ``csrc/flash_attention_bwd.cu``'s ``find``)."""
+    ``csrc/flash_attention_bwd.cu``'s ``find``); past 128, ``SLICE``, the
+    wide kernels' slice."""
+    d = padded_width(d)
     if d in NATIVE_DIMS:
         return d
     return 64 if d <= 64 else 128
@@ -137,10 +220,18 @@ def kernel_width(d: int) -> int:
 def geometry(dtype: torch.dtype, d: int, block_q: int) -> tuple[int, int, int]:
     """Key tile, threads and shared-memory bytes of the kernel that runs
     (dtype, d, block_q), as ``csrc/flash_attention.cu`` lays it out
-    (``wgmma_smem_bytes``, ``f32_smem_bytes`` of ``kernel_width(d)``).  The
-    C entry point takes only (dtype, d, block_q) and launches with its own
-    numbers; these are what the plan reports without the library, and
+    (``wgmma_smem_bytes``, ``f32_smem_bytes`` of ``kernel_width(d)``; past
+    128 columns ``wide_smem_bytes``, ``f32_wide_smem_bytes``).  The C entry
+    point takes only (dtype, d, block_q) and launches with its own numbers;
+    these are what the plan reports without the library, and
     ``chip_smoke.py`` holds them against ``kernel_geometry``."""
+    if slices(d) > 1:
+        if dtype == torch.bfloat16:
+            # 1 KB of alignment, the ring, its mbarriers
+            return 64, 128, 1024 + WIDE_STAGES * 2 * 64 * 128 * 2 + 64
+        # two stages of two 64 x 128 tiles at 132 floats a row, P at 72
+        return CC_ROWS, CC_THREADS, (4 * CC_ROWS * (SLICE + 4)
+                                     + CC_ROWS * (CC_ROWS + 8)) * 4
     d = kernel_width(d)
     if dtype == torch.bfloat16:
         cols = 64 if d <= 64 else 128
@@ -182,41 +273,54 @@ def kernel_plan(b: int, hq: int, hk: int, sq: int, sk: int, d: int,
     ``"cuda_cores"``: 64 x 64 tiles, 256 threads, K and V two stages deep;
     when the query tiles leave SMs idle, ``split`` blocks share a tile's
     keys (``key_split``) and write their partial rows into ``scratch``
-    bytes of f32 (``split * b * hq * sq * (d + 2)`` floats: O, m and l of
-    each split), which a second launch puts together in a fixed order.
-    bf16 never splits.  Raises ValueError on what no instantiation takes (a
-    head width outside ``HEAD_DIMS``, another dtype, a grid or shared memory
-    past the card's limits).
+    bytes of f32 (``split * b * hq * sq * (width + 2)`` floats: O, m and l
+    of each split), which a second launch puts together in a fixed order.
+    bf16 never splits.
+
+    ``width`` is the head width the kernels run (``padded_width(d)``: the
+    op pads q, k and v to it), ``slices`` the column slices of the wide
+    kernels past 128 columns (1 below): 64-row blocks in both dtypes (bf16
+    key tiles of 64), each owning ``SLICE`` output columns, so the grid's x
+    counts query tiles x slices x key splits and S is formed ``slices``
+    times.  The grid's y and z are ``head_grid(hq, b)``.  Past
+    ``MAX_PAIRS`` pairs the plan is that of the first of ``pair_chunks``'s
+    launches, and ``pair_chunks`` their count (1 below).  Raises ValueError
+    on what no kernel takes (a head width below 1, another dtype).
     """
     _check_width("flash_attention_cuda", d)
+    chunks = pair_chunks(b, hq, hk)
+    if chunks:
+        (r0, r1), (h0, h1) = chunks[0]
+        return {**kernel_plan(r1 - r0, h1 - h0, 1, sq, sk, d, dtype, n_sm),
+                "pair_chunks": len(chunks)}
+    width, n_slices = padded_width(d), slices(d)
     if dtype == torch.bfloat16:
-        block_q = 64 if b * hq * -(-sq // 128) < n_sm else 128
+        block_q = (64 if n_slices > 1 or b * hq * -(-sq // 128) < n_sm
+                   else 128)
         variant = "wgmma"
     elif dtype == torch.float32:
         block_q, variant = CC_ROWS, "cuda_cores"
     else:
         raise ValueError(f"flash_attention_cuda: dtype {dtype}, expected "
                          "torch.float32 or torch.bfloat16")
-    block_k, threads, smem = geometry(dtype, d, block_q)
-    split = (key_split(b * hq * -(-sq // block_q), sk, n_sm)
+    block_k, threads, smem = geometry(dtype, width, block_q)
+    tiles = -(-sq // block_q) * n_slices
+    split = (key_split(b * hq * tiles, sk, n_sm)
              if dtype == torch.float32 else 1)
-    grid = (-(-sq // block_q) * split, hq, b)
-    if hq > MAX_GRID_YZ or b > MAX_GRID_YZ:
-        raise ValueError(f"flash_attention_cuda: {hq} heads or batch {b} "
-                         f"exceed the grid's {MAX_GRID_YZ}")
+    grid = (tiles * split, *head_grid(hq, b))
     if smem > MAX_SMEM:
         raise ValueError(f"flash_attention_cuda: {smem} bytes of shared "
                          f"memory exceed a block's {MAX_SMEM}")
-    scratch = split * b * hq * sq * (d + 2) * 4 if split > 1 else 0
+    scratch = split * b * hq * sq * (width + 2) * 4 if split > 1 else 0
     return {"variant": variant, "block_q": block_q, "block_k": block_k,
             "threads": threads, "smem": smem, "grid": grid, "split": split,
-            "scratch": scratch}
+            "scratch": scratch, "width": width, "slices": n_slices,
+            "pair_chunks": 1}
 
 
 def _check_width(fn: str, d: int) -> None:
-    if d not in HEAD_DIMS:
-        raise ValueError(f"{fn}: head dim {d} is not a multiple of 8 from 8 "
-                         "to 128")
+    if d < 1:
+        raise ValueError(f"{fn}: head dim {d} is below 1")
 
 
 @functools.cache
@@ -235,10 +339,11 @@ def _library() -> ctypes.CDLL:
 def kernel_geometry(dtype: torch.dtype, d: int,
                     block_q: int) -> tuple[int, int, int] | None:
     """Key tile, threads and shared-memory bytes of the built library's
-    instantiation for (dtype, d, block_q), or None if it has none (builds
-    the library)."""
+    instantiation for (dtype, d, block_q) (d padded as the op pads it), or
+    None if it has none (builds the library)."""
     out = [ctypes.c_int() for _ in range(3)]
-    if _library().flash_attention_geometry(_DTYPES[dtype], d, block_q, *out):
+    if _library().flash_attention_geometry(_DTYPES[dtype], padded_width(d),
+                                           block_q, *out):
         return None
     return tuple(x.value for x in out)
 
@@ -264,6 +369,7 @@ def _check(q: Tensor, k: Tensor, v: Tensor, window) -> None:
         raise ValueError(
             f"flash_attention_cuda: q {tuple(q.shape)}, k {tuple(k.shape)}, "
             f"v {tuple(v.shape)} do not fit [B, Hq, Sq, D] / [B, Hk, Sk, D]")
+    _check_width("flash_attention_cuda", d)
     hk = k.shape[1]
     if hk == 0 or hq % hk:
         raise ValueError(f"flash_attention_cuda: {hq} query heads are not a "
@@ -310,8 +416,10 @@ def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor, *,
     written by the kernel itself (the backward's input).
 
     Launches on the current stream and does not synchronise.  Each call that
-    launches adds one to ``flash_attention_cuda.launches`` and leaves its
-    plan in ``flash_attention_cuda.last_plan``.
+    launches adds one to ``flash_attention_cuda.launches`` (and to
+    ``.wide_launches`` where the wide kernels run, ``.padded_launches``
+    where the head axis was padded) and leaves its plan in
+    ``flash_attention_cuda.last_plan``.
     """
     kbuild.refuse_autograd("flash_attention_cuda", q=q, k=k, v=v)
     _check(q, k, v, window)
@@ -336,21 +444,43 @@ def _flash_fwd_op(q: Tensor, k: Tensor, v: Tensor, causal: bool,
     plan = _plan_fwd(q, k)
     _check_placed("flash_attention_cuda", q, ("q", q), ("k", k), ("v", v))
     b, hq, sq, d = q.shape
-    hk, sk = k.shape[1], k.shape[2]
-    out = torch.empty_like(q)
+    hk = k.shape[1]
     lse = torch.empty((b, hq, sq) if return_lse else (0,),
                       dtype=torch.float32, device=q.device)
-    if out.numel() == 0:
-        return out, lse
+    if q.numel() == 0:
+        return torch.empty_like(q), lse
+    width = plan["width"]
+    q, k, v = _pad(width, q, k, v)
+    out = torch.empty_like(q)
+    chunks = pair_chunks(b, hq, hk)
+    for (qc, oc, *lc), (kc, vc), _ in _by_pairs(
+            chunks, hq // hk, [q, out] + ([lse] if return_lse else []),
+            [k, v]):
+        _launch_fwd(qc, kc, vc, oc, lc[0] if lc else None,
+                    _plan_fwd(qc, kc) if chunks else plan, causal, window,
+                    softcap, scale)
+    flash_attention_cuda.launches += 1
+    flash_attention_cuda.wide_launches += plan["slices"] > 1
+    flash_attention_cuda.padded_launches += width != d
+    flash_attention_cuda.last_plan = plan
+    return _unpad(d, out)[0], lse
+
+
+def _launch_fwd(q: Tensor, k: Tensor, v: Tensor, out: Tensor,
+                lse: Tensor | None, plan: dict, causal: bool,
+                window: int | None, softcap: float, scale: float) -> None:
+    """One launch of the forward library for q ``[b, hq, sq, width]`` (a
+    tensor or one of ``pair_chunks``'s views) under its own plan."""
+    b, hq, sq, width = q.shape
+    hk, sk = k.shape[1], k.shape[2]
     part = (torch.empty(plan["scratch"] // 4, dtype=torch.float32,
                         device=q.device) if plan["split"] > 1 else None)
-    lib = _library()
     with torch.cuda.device(q.device):
-        err = lib.flash_attention_fwd(
+        err = _library().flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr() if return_lse else None,
+            None if lse is None else lse.data_ptr(),
             None if part is None else part.data_ptr(),
-            b, hq, hk, sq, sk, d, _DTYPES[q.dtype], int(causal),
+            b, hq, hk, sq, sk, width, _DTYPES[q.dtype], int(causal),
             -1 if window is None else window, softcap, scale,
             plan["block_q"], plan["split"],
             torch.cuda.current_stream().cuda_stream)
@@ -358,9 +488,21 @@ def _flash_fwd_op(q: Tensor, k: Tensor, v: Tensor, causal: bool,
         raise RuntimeError(f"flash_attention_cuda: launch failed: "
                            f"{_launch_error(err)} (q {tuple(q.shape)}, k "
                            f"{tuple(k.shape)}, {q.dtype}, plan {plan})")
-    flash_attention_cuda.launches += 1
-    flash_attention_cuda.last_plan = plan
-    return out, lse
+
+
+def _pad(width: int, *xs: Tensor) -> list[Tensor]:
+    """The tensors with their head axis padded by zero columns to
+    ``width`` (a layout copy; as they are where it is their own)."""
+    if xs[0].shape[-1] == width:
+        return list(xs)
+    return [torch.nn.functional.pad(x, (0, width - x.shape[-1])) for x in xs]
+
+
+def _unpad(d: int, *xs: Tensor) -> list[Tensor]:
+    """The first ``d`` columns of each tensor's head axis, contiguous."""
+    if xs[0].shape[-1] == d:
+        return list(xs)
+    return [x[..., :d].contiguous() for x in xs]
 
 
 kbuild.define_op("flash_attention_fwd(Tensor q, Tensor k, Tensor v, "
@@ -383,6 +525,8 @@ def _flash_fwd_flops(q_shape, k_shape, v_shape, causal, window, *args,
 
 
 flash_attention_cuda.launches = 0
+flash_attention_cuda.wide_launches = 0
+flash_attention_cuda.padded_launches = 0
 flash_attention_cuda.last_plan = None
 
 
@@ -395,7 +539,19 @@ def geometry_bwd(dtype: torch.dtype, d: int,
     queries), for (dtype, d), as ``csrc/flash_attention_bwd.cu`` lays them
     out (``dkdv_smem_bytes``, ``dq_smem_bytes``, ``cc_smem_bytes``);
     ``chip_smoke.py`` holds them against ``kernel_geometry_bwd``.  Other
-    widths than 64, 96 and 128 run ``kernel_width(d)``'s instantiation."""
+    widths than 64, 96 and 128 run ``kernel_width(d)``'s instantiation,
+    and widths past 128 the wide kernels (64 rows, one slice of ``SLICE``
+    columns: ``wide_smem_bytes``, ``cc_wide_smem_bytes``)."""
+    if slices(d) > 1:
+        if dtype == torch.bfloat16:
+            # 1 KB of alignment, the ring, its mbarriers; dK/dV also two
+            # stages of 64 lse and 64 delta
+            smem = 1024 + WIDE_STAGES * 2 * 64 * 128 * 2 + 64
+            return 64, 128, smem + 1024, smem
+        # two stages of two 64 x 128 tiles at 132 floats a row, a 64 x 68
+        # score tile
+        smem = (4 * CC_ROWS * (SLICE + 4) + CC_ROWS * (CC_ROWS + 4)) * 4
+        return CC_ROWS, CC_THREADS, smem, smem
     d = kernel_width(d)
     if dtype == torch.bfloat16:
         cols = 64 if d <= 64 else 128
@@ -425,37 +581,49 @@ def kernel_plan_bwd(b: int, hq: int, hk: int, sq: int, sk: int, d: int,
     card's SM count (``flash_attention_bwd_blocks`` reports it).  f32 dQ
     blocks that leave SMs idle split their keys ``dq["split"]`` ways
     (``key_split``) into ``scratch`` bytes of f32 (``split * b * hq * sq *
-    d`` floats), added up in a fourth launch in a fixed order; bf16 never
-    splits.  Raises ValueError on what no instantiation takes."""
+    width`` floats), added up in a fourth launch in a fixed order; bf16
+    never splits.  ``width`` and ``slices`` as in ``kernel_plan``: past 128
+    columns both kernels' blocks own 64 rows and one slice of ``SLICE``
+    columns (the grids' x counts slices).  The grids' y and z are
+    ``head_grid``'s; past ``MAX_PAIRS`` pairs the plan is the first launch's
+    and ``pair_chunks`` their count, as in ``kernel_plan``.  Raises
+    ValueError on what no kernel takes."""
     _check_width("flash_attention_bwd_cuda", d)
+    chunks = pair_chunks(b, hq, hk)
+    if chunks:
+        (r0, r1), (h0, h1) = chunks[0]
+        return {**kernel_plan_bwd(r1 - r0, h1 - h0, 1, sq, sk, d, dtype, n_sm),
+                "pair_chunks": len(chunks)}
+    width, n_slices = padded_width(d), slices(d)
     if dtype == torch.bfloat16:
         variant = "wgmma"
-        block_rows = (64 if b * hk * -(-sk // 128) < n_sm else 128,
-                      64 if b * hq * -(-sq // 128) < n_sm else 128)
+        block_rows = (64 if n_slices > 1 or b * hk * -(-sk // 128) < n_sm
+                      else 128,
+                      64 if n_slices > 1 or b * hq * -(-sq // 128) < n_sm
+                      else 128)
     elif dtype == torch.float32:
         variant, block_rows = "cuda_cores", (CC_ROWS, CC_ROWS)
     else:
         raise ValueError(f"flash_attention_bwd_cuda: dtype {dtype}, expected "
                          "torch.float32 or torch.bfloat16")
-    if hq > MAX_GRID_YZ or b > MAX_GRID_YZ:
-        raise ValueError(f"flash_attention_bwd_cuda: {hq} heads or batch {b} "
-                         f"exceed the grid's {MAX_GRID_YZ}")
     plan = {"variant": variant}
     for i, (kernel, rows) in enumerate(zip(("dkdv", "dq"), block_rows)):
-        other, threads, *smem = geometry_bwd(dtype, d, rows)
+        other, threads, *smem = geometry_bwd(dtype, width, rows)
         if smem[i] > MAX_SMEM:
             raise ValueError(f"flash_attention_bwd_cuda: {smem[i]} bytes of "
                              f"shared memory exceed a block's {MAX_SMEM}")
         plan[kernel] = {"rows": rows, "other": other, "threads": threads,
                         "smem": smem[i]}
-    q_blocks = -(-sq // plan["dq"]["rows"])
+    q_blocks = -(-sq // plan["dq"]["rows"]) * n_slices
     split = (key_split(b * hq * q_blocks, sk, n_sm)
              if dtype == torch.float32 else 1)
+    k_blocks = -(-sk // plan["dkdv"]["rows"]) * n_slices
     plan["dq"]["split"] = split
-    plan["scratch"] = split * b * hq * sq * d * 4 if split > 1 else 0
+    plan["scratch"] = split * b * hq * sq * width * 4 if split > 1 else 0
     plan["grids"] = {"delta": (-(-b * hq * sq // 8),),
-                     "dkdv": (-(-sk // plan["dkdv"]["rows"]), hk, b),
-                     "dq": (q_blocks * split, hq, b)}
+                     "dkdv": (k_blocks, *head_grid(hk, b)),
+                     "dq": (q_blocks * split, *head_grid(hq, b))}
+    plan["width"], plan["slices"], plan["pair_chunks"] = width, n_slices, 1
     return plan
 
 
@@ -468,7 +636,7 @@ def _bwd_library() -> ctypes.CDLL:
     ip = ctypes.POINTER(i)
     lib.flash_attention_bwd_geometry.argtypes = [i, i, i, ip, ip, ip, ip]
     lib.flash_attention_bwd_geometry.restype = i
-    lib.flash_attention_bwd_blocks.argtypes = [i] * 7 + [ip, ip]
+    lib.flash_attention_bwd_blocks.argtypes = [i] * 8 + [ip, ip]
     lib.flash_attention_bwd_blocks.restype = i
     return lib
 
@@ -476,21 +644,24 @@ def _bwd_library() -> ctypes.CDLL:
 def kernel_geometry_bwd(dtype: torch.dtype, d: int,
                         rows: int) -> tuple[int, int, int, int] | None:
     """The built backward library's other rows, threads and dK/dV and dQ
-    shared memory for (dtype, d, rows), or None if it has no instantiation
-    (builds the library)."""
+    shared memory for (dtype, d, rows) (d padded as the op pads it), or
+    None if it has no instantiation (builds the library)."""
     out = [ctypes.c_int() for _ in range(4)]
-    if _bwd_library().flash_attention_bwd_geometry(_DTYPES[dtype], d, rows,
+    if _bwd_library().flash_attention_bwd_geometry(_DTYPES[dtype],
+                                                   padded_width(d), rows,
                                                    *out):
         return None
     return tuple(x.value for x in out)
 
 
-def kernel_block_rows_bwd(b: int, hq: int, hk: int, sq: int, sk: int,
+def kernel_block_rows_bwd(b: int, hq: int, hk: int, sq: int, sk: int, d: int,
                           dtype: torch.dtype, n_sm: int) -> tuple[int, int]:
     """The rows of the dK/dV and dQ blocks the built library launches for
-    these shapes on a card of ``n_sm`` SMs (builds the library)."""
+    these shapes (head width ``d``, padded as the op pads it) on a card of
+    ``n_sm`` SMs (builds the library)."""
     out = [ctypes.c_int() for _ in range(2)]
     if _bwd_library().flash_attention_bwd_blocks(b, hq, hk, sq, sk,
+                                                 padded_width(d),
                                                  _DTYPES[dtype], n_sm, *out):
         raise ValueError(f"flash_attention_bwd_blocks refused {dtype}")
     return tuple(x.value for x in out)
@@ -507,7 +678,8 @@ def flash_attention_bwd_cuda(q: Tensor, k: Tensor, v: Tensor, o: Tensor,
     contract of ``ref.attention_bwd_ref``.
 
     Three launches on the current stream, no synchronisation.  Each call
-    that launches adds one to ``flash_attention_bwd_cuda.launches`` and
+    that launches adds one to ``flash_attention_bwd_cuda.launches`` (and to
+    ``.wide_launches`` and ``.padded_launches`` as the forward does) and
     leaves its plan in ``flash_attention_bwd_cuda.last_plan``.
     """
     kbuild.refuse_autograd("flash_attention_bwd_cuda", q=q, k=k, v=v, o=o,
@@ -525,8 +697,7 @@ def _plan_bwd(q: Tensor, k: Tensor, o: Tensor, lse: Tensor,
     the output's gradient beside q."""
     b, hq, sq, d = q.shape
     n_sm = _sm_count(q.device) if q.is_cuda else N_SM
-    plan = kernel_plan_bwd(b, hq, k.shape[1], sq, k.shape[2], d, q.dtype,
-                           n_sm)
+    plan = kernel_plan_bwd(b, hq, k.shape[1], sq, k.shape[2], d, q.dtype, n_sm)
     for name, x in (("o", o), ("do", do)):
         if x.shape != q.shape or x.dtype != q.dtype:
             raise ValueError(f"flash_attention_bwd_cuda: {name} is "
@@ -555,29 +726,56 @@ def _flash_bwd_op(q: Tensor, k: Tensor, v: Tensor, o: Tensor, lse: Tensor,
                              f"{q.device}")
     b, hq, sq, d = q.shape
     hk, sk = k.shape[1], k.shape[2]
-    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
     if q.numel() == 0 or k.numel() == 0:
-        return dq.zero_(), dk.zero_(), dv.zero_()
+        return tuple(torch.zeros_like(x) for x in (q, k, v))
+    width = plan["width"]
+    q, k, v, o, do = _pad(width, q, k, v, o, do)
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
     delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    chunks = pair_chunks(b, hq, hk)
+    for (qc, oc, doc, lc, dc, dqc), (kc, vc, dkc, dvc), first in _by_pairs(
+            chunks, hq // hk, [q, o, do, lse, delta, dq], [k, v, dk, dv]):
+        cplan = _plan_bwd(qc, kc, oc, lc, doc) if chunks else plan
+        if first:
+            _launch_bwd(qc, kc, vc, oc, doc, lc, dc, dqc, dkc, dvc, cplan,
+                        causal, window, softcap, scale)
+        else:  # a later run of a kv head's query heads adds its dK and dV
+            parts = [torch.empty_like(x) for x in (dkc, dvc)]
+            _launch_bwd(qc, kc, vc, oc, doc, lc, dc, dqc, *parts, cplan,
+                        causal, window, softcap, scale)
+            dkc.add_(parts[0])
+            dvc.add_(parts[1])
+    flash_attention_bwd_cuda.launches += 1
+    flash_attention_bwd_cuda.wide_launches += plan["slices"] > 1
+    flash_attention_bwd_cuda.padded_launches += width != d
+    flash_attention_bwd_cuda.last_plan = plan
+    return tuple(_unpad(d, dq, dk, dv))
+
+
+def _launch_bwd(q: Tensor, k: Tensor, v: Tensor, o: Tensor, do: Tensor,
+                lse: Tensor, delta: Tensor, dq: Tensor, dk: Tensor,
+                dv: Tensor, plan: dict, causal: bool, window: int | None,
+                softcap: float, scale: float) -> None:
+    """The backward library's three (or four) launches for q ``[b, hq, sq,
+    width]`` (a tensor or one of ``pair_chunks``'s views) under its own
+    plan."""
+    b, hq, sq, width = q.shape
+    hk, sk = k.shape[1], k.shape[2]
     split = plan["dq"]["split"]
     part = (torch.empty(plan["scratch"] // 4, dtype=torch.float32,
                         device=q.device) if split > 1 else None)
-    lib = _bwd_library()
     with torch.cuda.device(q.device):
-        err = lib.flash_attention_bwd(
+        err = _bwd_library().flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(),
-            None if part is None else part.data_ptr(), b, hq, hk, sq, sk, d,
+            None if split == 1 else part.data_ptr(), b, hq, hk, sq, sk, width,
             _DTYPES[q.dtype], int(causal), -1 if window is None else window,
             softcap, scale, split, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_bwd_cuda: launch failed: "
                            f"{_launch_error(err)} (q {tuple(q.shape)}, k "
                            f"{tuple(k.shape)}, {q.dtype}, plan {plan})")
-    flash_attention_bwd_cuda.launches += 1
-    flash_attention_bwd_cuda.last_plan = plan
-    return dq, dk, dv
 
 
 kbuild.define_op("flash_attention_bwd(Tensor q, Tensor k, Tensor v, "
@@ -599,6 +797,8 @@ def _flash_bwd_flops(q_shape, k_shape, v_shape, o_shape, lse_shape, do_shape,
 
 
 flash_attention_bwd_cuda.launches = 0
+flash_attention_bwd_cuda.wide_launches = 0
+flash_attention_bwd_cuda.padded_launches = 0
 flash_attention_bwd_cuda.last_plan = None
 
 

@@ -32,7 +32,7 @@ FUSED_CAP = FUSED_THREADS * ITEMS_MAX
 SPLIT_THREADS = 256
 SPLIT_ITEMS = 4
 SPLIT_TILE = SPLIT_THREADS * SPLIT_ITEMS
-MAX_GRID_Y = 65535          # rows of the split grid
+MAX_GRID_Y = 65535          # the split grid's y; a block takes every 65,535th row
 
 
 def _next_pow2(n: int) -> int:
@@ -45,12 +45,14 @@ def kernel_plan(b: int, c: int) -> dict:
 
     Fused (one block per row, the row in registers) while the row fits the
     cap; split into ``SPLIT_TILE`` tiles when it does not, or when fewer rows
-    than SMs would leave the card mostly idle on a long row.
+    than SMs would leave the card mostly idle on a long row.  The split
+    grid's y holds at most ``MAX_GRID_Y`` rows; past that a block takes rows
+    y, y + MAX_GRID_Y, ...
     """
     if c > FUSED_CAP or (b < N_SM and c > 4 * SPLIT_TILE):
         nb = -(-c // SPLIT_TILE)
         return {"variant": "split", "threads": SPLIT_THREADS,
-                "items": SPLIT_ITEMS, "nb": nb, "grid": (nb, b)}
+                "items": SPLIT_ITEMS, "nb": nb, "grid": (nb, min(b, MAX_GRID_Y))}
     threads = min(FUSED_THREADS, max(32, _next_pow2(-(-c // 4))))
     items = _next_pow2(-(-c // threads))
     return {"variant": "fused", "threads": threads, "items": items,
@@ -123,10 +125,6 @@ def advance_sweep_cuda(rem: Tensor, rate: Tensor, active: Tensor,
                     bound_dt.data_ptr(), dt.data_ptr(), out.data_ptr(), b, c,
                     plan["threads"], plan["items"], stream)
             else:
-                if b > MAX_GRID_Y:
-                    raise ValueError(
-                        f"advance_sweep_cuda: {b} rows exceed the split "
-                        f"grid's {MAX_GRID_Y}")
                 scratch = torch.empty((b, plan["nb"]), dtype=torch.float32,
                                       device=rem.device)
                 err = lib.advance_sweep_split(

@@ -369,6 +369,44 @@ def test_kernels_fake_ops_give_shapes_and_formula_flops():
             ssd.ssd_scan_cuda.launches) == launches
 
 
+def test_flash_fake_ops_trace_every_width_and_batch():
+    """The flash ops' fake implementations plan head widths off the
+    multiple of 8 (padded on the card), past 128 (column slices) and
+    batches past the grid's 65,535 (folded) and pairs past one launch's
+    (several launches), so the dry-run traces them on meta tensors: the
+    unpadded shapes, the formula's FLOPs of the real width, nothing
+    launched."""
+    for b, hq, hk, d in ((2, 4, 2, 20), (2, 16, 2, 256), (1, 64, 1, 520),
+                         (70_000, 2, 1, 16), (65_536, 32_768, 1, 8)):
+        _fake_flash_traces(b, hq, hk, d)
+
+
+def _fake_flash_traces(b, hq, hk, d):
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    launches = (fa.flash_attention_cuda.launches,
+                fa.flash_attention_bwd_cuda.launches)
+    s = 128
+    with FakeTensorMode():
+        q = torch.empty(b, hq, s, d, dtype=torch.bfloat16, device="meta",
+                        requires_grad=True)
+        k, v = (torch.empty(b, hk, s, d, dtype=torch.bfloat16,
+                            device="meta", requires_grad=True)
+                for _ in range(2))
+        with StepTrace() as walk:
+            out = ops.flash_attention(q, k, v, causal=True, window=100)
+            out.backward(torch.empty_like(out))
+        assert out.shape == q.shape and k.grad.shape == k.shape
+        assert q.grad.shape == q.shape
+    assert walk.kernel_calls == {"flash_attention_fwd": 1,
+                                 "flash_attention_bwd": 1}
+    assert walk.dot_flops == (fa.flash_work(q.shape, k.shape, 2, True, 100)[0]
+                              + fa.flash_bwd_work(q.shape, k.shape, 2, True,
+                                                  100)[0])
+    assert (fa.flash_attention_cuda.launches,
+            fa.flash_attention_bwd_cuda.launches) == launches
+
+
 # ----------------------------------------- against the reference's HLO
 SMOKE = [("internlm2-1.8b", 2), ("granite-moe-1b-a400m", 2),
          ("mamba2-130m", 2), ("qwen3-32b", 1)]

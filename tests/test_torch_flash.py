@@ -60,17 +60,41 @@ CASES = [
     (1, 4, 2, 100, 100, 24, dict(causal=False)),                 # ragged
     (1, 4, 2, 96, 96, 80, dict(causal=True, window=32)),
 ]
+# widths off the multiple of 8 (the card pads them) and past 128 (the wide
+# kernels' column slices; 136's second slice has 8 columns)
+WIDE_CASES = [
+    (1, 4, 2, 64, 64, 4, dict(causal=True)),
+    (1, 4, 2, 100, 100, 20, dict(causal=True, window=32, softcap=20.0)),
+    (1, 4, 2, 96, 96, 136, dict(causal=True)),
+    (1, 4, 1, 64, 128, 192, dict(causal=True, window=48)),       # sq < sk
+    (1, 4, 2, 80, 80, 256, dict(causal=True, softcap=30.0)),
+    (1, 2, 1, 64, 64, 520, dict(causal=False)),
+]
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("b,hq,hk,sq,sk,d,kw", CASES)
-def test_plain_version_matches_pallas(b, hq, hk, sq, sk, d, kw, dtype):
+def _matches_pallas(b, hq, hk, sq, sk, d, kw, dtype):
     arrays = _qkv(sq * 7 + sk, b, hq, hk, sq, sk, d)
     out = ops.flash_attention(*_port(arrays, dtype), **kw)
     want = flash_attention_pallas(*_jax(arrays, dtype), bq=64, bk=64,
                                   interpret=True, **kw)
     assert out.dtype == getattr(torch, dtype) and out.shape == want.shape
     _close(out, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,hq,hk,sq,sk,d,kw", CASES)
+def test_plain_version_matches_pallas(b, hq, hk, sq, sk, d, kw, dtype):
+    _matches_pallas(b, hq, hk, sq, sk, d, kw, dtype)
+
+
+def test_plain_version_matches_pallas_at_every_width():
+    """Every case of WIDE_CASES, in f32 and bf16, as
+    test_plain_version_matches_pallas holds its cases.  (One test over the
+    list: the collection's size decides xdist's first chunks, ROADMAP
+    Queue C.)"""
+    for case in WIDE_CASES:
+        for dtype in ("float32", "bfloat16"):
+            _matches_pallas(*case, dtype)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -149,6 +173,11 @@ GEOMETRY = {
     (torch.float32, 96, 64): (64, 256, 146_432),
     (torch.float32, 128, 64): (64, 256, 187_392),
 }
+# past 128 columns (any width), 64 query rows: bf16 is 1 KB of alignment, a
+# ring of three stages of two 64 x 128 tiles and 64 bytes of mbarriers; f32
+# two stages of two 64 x 128 tiles at 132 floats and P at 72
+WIDE_GEOMETRY = {torch.bfloat16: (64, 128, 1024 + 3 * 2 * 64 * 128 * 2 + 64),
+                 torch.float32: (64, 256, (4 * 64 * 132 + 64 * 72) * 4)}
 
 PLAN_SHAPES = [
     # b, hq, hk, sq, sk, then the bf16 plan's query rows and blocks along
@@ -199,7 +228,8 @@ def test_kernel_plan_fits_the_card(b, hq, hk, sq, sk, rows, gx_bf16, gx_f32,
         "variant": "wgmma" if dtype == torch.bfloat16 else "cuda_cores",
         "block_q": block_q, "block_k": block_k, "threads": threads,
         "smem": smem, "grid": (gx * split, hq, b), "split": split,
-        "scratch": split * b * hq * sq * (d + 2) * 4 if split > 1 else 0}
+        "scratch": split * b * hq * sq * (d + 2) * 4 if split > 1 else 0,
+        "width": d, "slices": 1, "pair_chunks": 1}
 
 
 SPLIT_PLANS = [
@@ -277,11 +307,11 @@ def test_kernel_plan_variant_by_dtype(d):
 
 
 @pytest.mark.parametrize("shape,dtype,match", [
-    ((1, 4, 64, 12), torch.bfloat16, "head dim 12"),
-    ((1, 4, 64, 256), torch.float32, "head dim 256"),
+    ((1, 4, 64, 0), torch.bfloat16, "head dim 0 is below 1"),
+    ((1, 4, 64, 0), torch.float32, "head dim 0 is below 1"),
     ((1, 4, 64, 64), torch.float16, "float16"),
-    ((65536, 1, 8, 64), torch.bfloat16, "exceed the grid"),
-    ((1, 65536, 8, 64), torch.float32, "exceed the grid"),
+    ((65536, 1, 8, 256), torch.float64, "float64"),
+    ((1, 65536, 8, 20), torch.float16, "float16"),
 ])
 def test_kernel_wrapper_raises_on_what_the_plan_refuses(shape, dtype, match):
     """The plan refuses before any device is looked at: meta tensors (no
@@ -304,12 +334,179 @@ def test_kernel_width_of_each_head_width(d):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("d", [0, 4, 12, 20, 100, 136, 256])
+@pytest.mark.parametrize("d", [0])
 def test_both_plans_refuse_widths_outside_the_domain(d, dtype):
-    """Not a multiple of 8, or above 128: no instantiation takes it."""
-    for plan in (fa.kernel_plan, fa.kernel_plan_bwd):
-        with pytest.raises(ValueError, match=f"head dim {d} "):
-            plan(1, 2, 2, 64, 64, d, dtype)
+    """A head width below 1 (0 here, -8 too): no kernel takes it (every
+    other width runs, padded or in column slices)."""
+    for width in (d, -8):
+        for plan in (fa.kernel_plan, fa.kernel_plan_bwd):
+            with pytest.raises(ValueError, match=f"head dim {width} "):
+                plan(1, 2, 2, 64, 64, width, dtype)
+
+
+# d, the kernels' width (padded), the column slices
+WIDTHS = [(1, 8, 1), (4, 8, 1), (12, 16, 1), (20, 24, 1), (100, 104, 1),
+          (128, 128, 1), (129, 136, 2), (136, 136, 2), (192, 192, 2),
+          (256, 256, 2), (257, 264, 3), (512, 512, 4), (520, 520, 5),
+          (1000, 1000, 8)]
+
+
+def test_both_plans_take_every_width():
+    """Every head width >= 1 (WIDTHS, f32 and bf16): the kernels' width is
+    d padded to a multiple of 8 (zero columns), and past 128 columns the
+    wide kernels cut the output into ``slices`` slices of 128 columns, each
+    forming S over the whole width (the recompute factor): 64-row blocks in
+    both plans, the grids' x counting query (key) blocks x slices, and
+    shared memory that does not grow with the width.  (One test over the widths: the collection's size decides
+    xdist's first chunks, ROADMAP Queue C.)"""
+    b, hq, hk, sq, sk = 2, 4, 2, 300, 300
+    for d, width, slices in WIDTHS:
+        for dtype in (torch.bfloat16, torch.float32):
+            what = (d, dtype)
+            fwd = fa.kernel_plan(b, hq, hk, sq, sk, d, dtype)
+            bwd = fa.kernel_plan_bwd(b, hq, hk, sq, sk, d, dtype)
+            assert (fa.padded_width(d), fa.slices(d)) == (width, slices), what
+            assert (fwd["width"], fwd["slices"]) == (width, slices), what
+            assert (bwd["width"], bwd["slices"]) == (width, slices), what
+            assert fwd["smem"] <= fa.MAX_SMEM, what
+            assert max(bwd["dkdv"]["smem"], bwd["dq"]["smem"]) <= \
+                fa.MAX_SMEM, what
+            if slices == 1:
+                assert fwd["smem"] == GEOMETRY[(
+                    dtype, fa.kernel_width(d), fwd["block_q"])][2], what
+                continue
+            assert (fwd["block_q"], fwd["block_k"], fwd["threads"],
+                    fwd["smem"]) == (64, *WIDE_GEOMETRY[dtype]), what
+            assert fwd["grid"] == (5 * slices * fwd["split"], hq, b), what
+            assert fwd["scratch"] == (
+                fwd["split"] * b * hq * sq * (width + 2) * 4
+                if fwd["split"] > 1 else 0), what
+            assert bwd["dkdv"]["rows"] == bwd["dq"]["rows"] == 64, what
+            assert bwd["grids"]["dkdv"] == (5 * slices, hk, b), what
+            assert bwd["grids"]["dq"] == (5 * slices * bwd["dq"]["split"],
+                                          hq, b), what
+            # the split rule sees the slices' blocks
+            assert fwd["split"] == (fa.key_split(b * hq * 5 * slices, sk)
+                                    if dtype == torch.float32 else 1), what
+
+
+# (b, h), then the grid's (y, z)
+HEAD_GRIDS = [
+    (1, 1, (1, 1)), (65535, 65535, (65535, 65535)),
+    (65536, 1, (65535, 2)), (1, 65536, (65535, 2)),
+    (70000, 2, (65535, 3)), (3, 100000, (65535, 5)),
+    (2**31 - 1, 1, (65535, 32769)),
+]
+
+
+def test_head_grid_folds_pairs_past_the_grid():
+    """(h, b) on the grid's y and z while both fit 65,535; else the b * h
+    pairs (at most one launch's ``MAX_PAIRS``) folded onto y (65,535) and
+    z, covering every pair.  Both plans fold batches and head counts past
+    65,535 in both dtypes (the Pallas kernel's grid takes them), and past
+    one launch's pairs in several (``_pairs_past_one_launch_go_in_several``).
+    (One test over HEAD_GRIDS: the collection's size decides xdist's first
+    chunks, ROADMAP Queue C.)"""
+    for b, h, grid in HEAD_GRIDS:
+        y, z = fa.head_grid(h, b)
+        assert (y, z) == grid, (b, h)
+        assert y <= fa.MAX_GRID_YZ and z <= fa.MAX_GRID_YZ
+        assert y * z >= h * b and y * (z - 1) < h * b
+    for dtype in (torch.bfloat16, torch.float32):
+        for b, hq, hk in ((70000, 2, 1), (1, 70000, 70000), (2, 65536, 8)):
+            fwd = fa.kernel_plan(b, hq, hk, 8, 8, 16, dtype)
+            bwd = fa.kernel_plan_bwd(b, hq, hk, 8, 8, 16, dtype)
+            assert fwd["grid"][1:] == fa.head_grid(hq, b)
+            assert bwd["grids"]["dq"][1:] == fa.head_grid(hq, b)
+            assert bwd["grids"]["dkdv"][1:] == fa.head_grid(hk, b)
+            for grid in (fwd["grid"], bwd["grids"]["dq"],
+                         bwd["grids"]["dkdv"]):
+                assert max(grid[1:]) <= fa.MAX_GRID_YZ
+    _pairs_past_one_launch_go_in_several()
+
+
+# b, hq, hk, the pairs a launch may take, then pair_chunks's launches
+PAIR_CHUNKS = [
+    (3, 4, 2, 12, []),
+    (3, 4, 2, 6, [((0, 3), (0, 2)), ((3, 6), (0, 2))]),
+    (3, 4, 2, 5, [((0, 2), (0, 2)), ((2, 4), (0, 2)), ((4, 6), (0, 2))]),
+    (2, 6, 1, 4, [((0, 1), (0, 4)), ((0, 1), (4, 6)), ((1, 2), (0, 4)),
+                  ((1, 2), (4, 6))]),
+]
+
+
+def _pairs_past_one_launch_go_in_several():
+    """Past ``MAX_PAIRS`` (batch, head) pairs (the kernels' pair index and
+    TMA's coordinates are 32-bit) the ops launch once for each of
+    ``pair_chunks``'s ranges over the [b * hk, group] view of the query
+    heads: every pair in exactly one launch, none over the limit, a group
+    cut into runs of heads only where it alone passes the limit.  Both
+    plans then give the first launch's plan and their count: 2^31 pairs
+    (bf16, 8 columns, one query row: 69 GB of q and o, which a card holds)
+    take two launches, 2^32 three, and no grid is refused."""
+    for b, hq, hk, limit, want in PAIR_CHUNKS:
+        chunks = fa.pair_chunks(b, hq, hk, limit)
+        assert chunks == want, (b, hq, hk, limit)
+        group, seen = hq // hk, []
+        for (r0, r1), (h0, h1) in chunks or [((0, b * hk), (0, group))]:
+            assert (r1 - r0) * (h1 - h0) <= limit or not chunks
+            seen += [(r, h) for r in range(r0, r1) for h in range(h0, h1)]
+        assert sorted(seen) == [(r, h) for r in range(b * hk)
+                                for h in range(group)], (b, hq, hk, limit)
+    assert fa.pair_chunks(65535, 32768, 1) == []
+    for dtype in (torch.bfloat16, torch.float32):
+        for (b, hq, hk), n, first in (((65536, 32768, 1), 2, (65535, 32768)),
+                                      ((65536, 65536, 1), 3, (32767, 65536)),
+                                      ((2, 2**31, 2), 4, (1, 2**30)),
+                                      ((1, 2**32, 1), 3, (1, 2**31 - 1))):
+            chunks = fa.pair_chunks(b, hq, hk)
+            assert len(chunks) == n, (b, hq, hk)
+            (r0, r1), (h0, h1) = chunks[0]
+            assert (r1 - r0, h1 - h0) == first, (b, hq, hk)
+            fwd = fa.kernel_plan(b, hq, hk, 1, 1, 8, dtype)
+            bwd = fa.kernel_plan_bwd(b, hq, hk, 1, 1, 8, dtype)
+            assert fwd["pair_chunks"] == bwd["pair_chunks"] == n
+            assert fwd["grid"][1:] == fa.head_grid(*first[::-1])
+            assert bwd["grids"]["dq"][1:] == fa.head_grid(*first[::-1])
+            assert bwd["grids"]["dkdv"][1:] == fa.head_grid(1, first[0])
+
+
+def test_padding_the_head_axis_is_exact():
+    """The op's padding: zero columns to a multiple of 8, the scale of the
+    real width, the output sliced back, equals the unpadded function (zero
+    columns add exact zeros to q.k and give zero columns of o), at D 4, 20
+    and 136."""
+    for d in (4, 20, 136):
+        q, k, v = _port(_qkv(d, 1, 4, 2, 70, 70, d), "float32")
+        kw = dict(causal=True, window=40, softcap=20.0, scale=d ** -0.5)
+        want = ref.attention_ref(q, k, v, **kw)
+        width = fa.padded_width(d)
+        padded = fa._pad(width, q, k, v)
+        assert all(x.shape[-1] == width and x.is_contiguous() for x in padded)
+        assert all(torch.count_nonzero(x[..., d:]) == 0 for x in padded)
+        out = fa._unpad(d, ref.attention_ref(*padded, **kw))[0]
+        assert out.shape == want.shape and out.is_contiguous()
+        torch.testing.assert_close(out, want, rtol=1e-6, atol=1e-6)
+        lse = ref.attention_lse_ref(*padded[:2], **kw)
+        torch.testing.assert_close(lse, ref.attention_lse_ref(q, k, **kw),
+                                   rtol=1e-6, atol=1e-6)
+
+
+def test_ops_trace_every_width_on_meta_tensors():
+    """The kernels' ops plan any width (D 4, 20, 136, 520) on meta tensors
+    (the dry-run's program) and give the unpadded shapes, launching
+    nothing."""
+    launches = fa.flash_attention_cuda.launches
+    for d in (4, 20, 136, 520):
+        q = torch.empty(2, 4, 64, d, dtype=torch.bfloat16, device="meta")
+        k = torch.empty(2, 2, 64, d, dtype=torch.bfloat16, device="meta")
+        out, lse = torch.ops.repro_torch.flash_attention_fwd(
+            q, k, k, True, None, 0.0, d ** -0.5, True)
+        assert out.shape == q.shape and lse.shape == (2, 4, 64)
+        grads = torch.ops.repro_torch.flash_attention_bwd(
+            q, k, k, out, lse, out, True, None, 0.0, d ** -0.5)
+        assert [g.shape for g in grads] == [q.shape, k.shape, k.shape]
+    assert fa.flash_attention_cuda.launches == launches
 
 
 def _registry_heads() -> list:

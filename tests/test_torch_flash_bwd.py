@@ -45,6 +45,16 @@ CASES = [
     (2, 2, 2, 37, 53, 24, dict(causal=False)),                    # ragged
     (1, 4, 2, 48, 48, 80, dict(causal=True, window=16)),
 ]
+# widths off the multiple of 8 (padded on the card) and past 128 (the wide
+# kernels' column slices)
+WIDE_CASES = [
+    (1, 4, 2, 48, 48, 4, dict(causal=True)),
+    (1, 4, 2, 40, 72, 20, dict(causal=True, window=16, softcap=50.0)),
+    (1, 4, 2, 48, 48, 136, dict(causal=True)),
+    (1, 4, 2, 48, 48, 192, dict(causal=True, window=16)),
+    (1, 2, 2, 56, 40, 256, dict(causal=True, softcap=5.0)),   # Sq > Sk
+    (1, 2, 1, 37, 53, 520, dict(causal=False)),               # ragged
+]
 IDS = [f"{c[0]}x{c[1]}/{c[2]}x{c[3]}x{c[4]}xD{c[5]}-" +
        "-".join(f"{k}{v}" for k, v in c[6].items()) for c in CASES]
 
@@ -93,9 +103,7 @@ def _close(got, want, what):
                                atol=ATOL, err_msg=what)
 
 
-@pytest.mark.parametrize("path", ["attention_bwd_ref", "FlashAttention"])
-@pytest.mark.parametrize("b,hq,hk,sq,sk,d,kw", CASES, ids=IDS)
-def test_backward_matches_jax_vjp(b, hq, hk, sq, sk, d, kw, path):
+def _matches_jax_vjp(b, hq, hk, sq, sk, d, kw, path):
     q, k, v, do = _inputs(sq * 7 + sk, b, hq, hk, sq, sk, d)
     jout, jgrads = _jax_vjp(q, k, v, do, kw)
     tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
@@ -114,10 +122,13 @@ def test_backward_matches_jax_vjp(b, hq, hk, sq, sk, d, kw, path):
         _close(got, want, name)
 
 
+@pytest.mark.parametrize("path", ["attention_bwd_ref", "FlashAttention"])
 @pytest.mark.parametrize("b,hq,hk,sq,sk,d,kw", CASES, ids=IDS)
-def test_lse_matches_jax_logsumexp(b, hq, hk, sq, sk, d, kw):
-    """lse is the natural-log log-sum-exp of the capped, masked logits;
-    +inf (the backward's marker) where JAX gives -inf (no key)."""
+def test_backward_matches_jax_vjp(b, hq, hk, sq, sk, d, kw, path):
+    _matches_jax_vjp(b, hq, hk, sq, sk, d, kw, path)
+
+
+def _lse_matches(b, hq, hk, sq, sk, d, kw):
     q, k, _, _ = _inputs(sq * 7 + sk, b, hq, hk, sq, sk, d)
     want = np.asarray(jax.nn.logsumexp(jnp.asarray(_masked_logits(q, k, kw)),
                                        axis=-1))
@@ -127,6 +138,24 @@ def test_lse_matches_jax_logsumexp(b, hq, hk, sq, sk, d, kw):
     none = np.isneginf(want)
     assert np.array_equal(np.isposinf(got), none)
     np.testing.assert_allclose(got[~none], want[~none], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("b,hq,hk,sq,sk,d,kw", CASES, ids=IDS)
+def test_lse_matches_jax_logsumexp(b, hq, hk, sq, sk, d, kw):
+    """lse is the natural-log log-sum-exp of the capped, masked logits;
+    +inf (the backward's marker) where JAX gives -inf (no key)."""
+    _lse_matches(b, hq, hk, sq, sk, d, kw)
+
+
+def test_backward_and_lse_match_jax_at_every_width():
+    """Every case of WIDE_CASES as test_backward_matches_jax_vjp (both
+    paths) and test_lse_matches_jax_logsumexp hold theirs.  (One test over
+    the list: the collection's size decides xdist's first chunks, ROADMAP
+    Queue C.)"""
+    for case in WIDE_CASES:
+        for path in ("attention_bwd_ref", "FlashAttention"):
+            _matches_jax_vjp(*case, path)
+        _lse_matches(*case)
 
 
 @pytest.mark.parametrize("path", ["attention_bwd_ref", "FlashAttention"])
@@ -261,7 +290,8 @@ def test_kernel_plan_bwd(b, hq, hk, sq, sk, d, bf16_rows, f32_split, dtype,
         "scratch": split * b * hq * sq * d * 4 if split > 1 else 0,
         "grids": {"delta": (-(-b * hq * sq // 8),),
                   "dkdv": (-(-sk // rows[0]), hk, b),
-                  "dq": (-(-sq // rows[1]) * split, hq, b)}}
+                  "dq": (-(-sq // rows[1]) * split, hq, b)},
+        "width": d, "slices": 1, "pair_chunks": 1}
     # a card with fewer SMs keeps two warpgroups where a 132-SM card drops
     # to one
     assert fa.kernel_plan_bwd(b, hq, hk, sq, sk, d, dtype, n_sm=8)["dq"][
@@ -300,11 +330,11 @@ def test_f32_dq_splits_keys_when_the_grid_leaves_sms_idle():
 
 
 @pytest.mark.parametrize("args,match", [
-    ((1, 2, 2, 64, 64, 136, torch.bfloat16), "head dim 136"),
-    ((1, 2, 2, 64, 64, 12, torch.float32), "head dim 12"),
+    ((1, 2, 2, 64, 64, 0, torch.bfloat16), "head dim 0 is below 1"),
+    ((1, 2, 2, 64, 64, -8, torch.float32), "head dim -8 is below 1"),
     ((1, 2, 2, 64, 64, 64, torch.float16), "dtype torch.float16"),
-    ((1, 70000, 70000, 64, 64, 64, torch.bfloat16), "exceed the grid"),
-    ((70000, 2, 2, 64, 64, 64, torch.float32), "exceed the grid"),
+    ((1, 70000, 70000, 64, 64, 136, torch.float64), "dtype torch.float64"),
+    ((65536, 65536, 1, 64, 64, 0, torch.float32), "head dim 0 is below 1"),
 ])
 def test_kernel_plan_bwd_refuses(args, match):
     with pytest.raises(ValueError, match=match):
@@ -327,3 +357,72 @@ def test_kernel_plan_bwd_takes_every_width(d, dtype, variant):
         assert (k["other"], k["threads"], k["smem"]) == (other, threads,
                                                          smem[i])
         assert k["smem"] <= fa.MAX_SMEM and k["threads"] <= 1024
+
+
+# past 128 columns: 64-row blocks owning one slice of 128 columns, 1 KB of
+# alignment, a ring of three stages of two 64 x 128 bf16 tiles, 64 bytes of
+# mbarriers (dK/dV 1 KB more of lse and delta); f32 two stages of two 64 x
+# 128 tiles at 132 floats and the 64 x 68 score tile
+WIDE_BWD = {torch.bfloat16: (64, 128, 1024 + 3 * 32_768 + 64 + 1024,
+                             1024 + 3 * 32_768 + 64),
+            torch.float32: (64, 256, (4 * 64 * 132 + 64 * 68) * 4,
+                            (4 * 64 * 132 + 64 * 68) * 4)}
+
+
+def _wide_plans_bwd_slice_columns_and_split_keys():
+    """Past 128 columns both backward kernels take 64-row blocks, one slice
+    of 128 columns each (the grids' x counts blocks x slices), the wide
+    geometry; the f32 dQ split sees the slices' blocks, its scratch at the
+    padded width, and a dK/dV block walks every query head of its GQA
+    group.  (One test over the widths and shapes: the collection's size
+    decides xdist's first chunks, ROADMAP Queue C.)"""
+    for dtype in (torch.bfloat16, torch.float32):
+        for d, width, n in ((136, 136, 2), (192, 192, 2), (256, 256, 2),
+                            (300, 304, 3), (512, 512, 4), (520, 520, 5)):
+            assert fa.geometry_bwd(dtype, d, 64) == WIDE_BWD[dtype]
+            for b, hq, hk, sq, sk in ((2, 4, 2, 300, 300), (1, 16, 2, 4096,
+                                                            4096),
+                                      (1, 4, 1, 64, 8192)):
+                plan = fa.kernel_plan_bwd(b, hq, hk, sq, sk, d, dtype)
+                what = (dtype, d, b, hq, hk, sq, sk)
+                assert (plan["width"], plan["slices"]) == (width, n), what
+                assert plan["dkdv"]["rows"] == plan["dq"]["rows"] == 64, what
+                other, threads, s_dkdv, s_dq = WIDE_BWD[dtype]
+                assert (plan["dkdv"]["smem"], plan["dq"]["smem"]) == \
+                    (s_dkdv, s_dq), what
+                blocks = -(-sq // 64) * n
+                split = (fa.key_split(b * hq * blocks, sk)
+                         if dtype == torch.float32 else 1)
+                assert plan["dq"]["split"] == split, what
+                assert "split" not in plan["dkdv"], what
+                assert plan["grids"]["dq"] == (blocks * split, hq, b), what
+                assert plan["grids"]["dkdv"] == (-(-sk // 64) * n, hk, b), \
+                    what
+                assert plan["scratch"] == (
+                    split * b * hq * sq * width * 4 if split > 1 else 0), what
+
+
+def test_padding_the_backward_is_exact():
+    """The op's padding of q, k, v, o and dO with zero columns, the scale of
+    the real width, and dq, dk, dv sliced back, equals the unpadded
+    gradient, at D 4, 20 and 136."""
+    for d in (4, 20, 136):
+        q, k, v, do = map(torch.from_numpy, _inputs(d, 1, 4, 2, 40, 56, d))
+        kw = dict(causal=True, window=24, softcap=5.0, scale=d ** -0.5)
+        out = ref.attention_ref(q, k, v, **kw)
+        lse = ref.attention_lse_ref(q, k, **kw)
+        want = ref.attention_bwd_ref(q, k, v, out, lse, do, **kw)
+        width = fa.padded_width(d)
+        padded = fa._pad(width, q, k, v, out, do)
+        got = fa._unpad(d, *ref.attention_bwd_ref(*padded[:4], lse,
+                                                  padded[4], **kw))
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            assert g.shape == w.shape and g.is_contiguous(), (d, name)
+            torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-6,
+                                       msg=f"D {d} {name}")
+
+
+def test_wide_plans_bwd_slice_columns_and_split_keys():
+    """The wide backward plans' slices, geometry, splits and scratch
+    (``_wide_plans_bwd_slice_columns_and_split_keys``)."""
+    _wide_plans_bwd_slice_columns_and_split_keys()

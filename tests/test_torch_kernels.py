@@ -106,6 +106,7 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     (1024, 500, "fused"), (1, 500, "fused"), (8192, 4096, "fused"),
     (1, 131072, "split"), (1, 3 * 2**17, "split"), (1, 8192, "split"),
     (200, 8192, "fused"), (200, 8193, "split"), (7, 0, "fused"),
+    (70000, 8193, "split"),     # rows past the split grid's y: folded
 ])
 def test_kernel_plan(b, c, variant):
     plan = vm_update.kernel_plan(b, c)
@@ -117,13 +118,14 @@ def test_kernel_plan(b, c, variant):
     if variant == "fused":
         assert plan["grid"] == (b,)
     else:
-        assert plan["grid"] == (plan["nb"], b)
+        assert plan["grid"] == (plan["nb"], min(b, vm_update.MAX_GRID_Y))
         assert (plan["nb"] - 1) * plan["threads"] * plan["items"] < c
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,c", [(1024, 500), (1, 500), (1, 131072),
-                                 (1, 3 * 2**17), (8192, 4096), (3, 7)])
+                                 (1, 3 * 2**17), (8192, 4096), (3, 7),
+                                 (70000, 8193)])
 def test_cuda_kernel_matches_plain_version(b, c):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (run with python3 chip_smoke.py)")

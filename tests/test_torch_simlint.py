@@ -373,9 +373,13 @@ def test_r6_sweep_doctored_plans_trip():
     split = dict(plan, variant="split", nb=1, grid=(1, 1024))
     assert any("fits FUSED_CAP" in e.message
                for e in _sweep_errs(split, 1024, 500))
+    # past 65,535 rows the split grid's blocks step through the rows: an
+    # unfolded grid trips
     big = vm_update.kernel_plan(70_000, 1 << 20)
+    assert _sweep_errs(big, 70_000, 1 << 20) == []
+    unfolded = dict(big, grid=(big["nb"], 70_000))
     assert any("grid.y 70000" in e.message
-               for e in _sweep_errs(big, 70_000, 1 << 20))
+               for e in _sweep_errs(unfolded, 70_000, 1 << 20))
     short = dict(plan, items=1)
     assert any("covers" in e.message for e in _sweep_errs(short, 1024, 500))
 
@@ -407,12 +411,42 @@ def test_r6_flash_bwd_and_ssd_doctored_plans_trip():
     bad = dict(plan, grids=dict(plan["grids"], delta=(0,)))
     assert any("delta" in e.message
                for e in simlint.check_flash_bwd_plan(bad, shape, "t"))
+    _wide_and_folded_flash_plans_pass_and_trip()
     sshape = (8, 2048, 24, 64, 1, 128)
     splan = ssd_scan.kernel_plan(*sshape, 128, torch.bfloat16)
     assert simlint.check_ssd_plan(splan, sshape, "t") == []
     phases = [dict(splan["phases"][0], threads=100)] + splan["phases"][1:]
     errs = simlint.check_ssd_plan(dict(splan, phases=phases), sshape, "t")
     assert any("whole warps" in e.message for e in errs)
+
+
+def _wide_and_folded_flash_plans_pass_and_trip():
+    """Wide heads (column slices on x) and (batch, head) pairs past the
+    grid's y and z (folded) or past one launch's (several launches) pass
+    R6; a grid without the slices, an unfolded one, or one launch for 2^31
+    pairs, trips."""
+    for shape in ((1, 16, 2, 4096, 4096, 256), (2, 4, 2, 300, 300, 520),
+                  (70_000, 2, 1, 64, 64, 20), (1, 70_000, 70_000, 64, 64, 16),
+                  (65_536, 32_768, 1, 1, 1, 8)):
+        for dtype in (torch.bfloat16, torch.float32):
+            plan = flash_attention.kernel_plan(*shape, dtype)
+            bwd = flash_attention.kernel_plan_bwd(*shape, dtype)
+            assert simlint.check_flash_plan(plan, shape, "t") == [], shape
+            assert simlint.check_flash_bwd_plan(bwd, shape, "t") == [], shape
+    shape = (1, 16, 2, 4096, 4096, 256)
+    plan = flash_attention.kernel_plan(*shape, torch.bfloat16)
+    no_slices = dict(plan, grid=(64, 16, 1))
+    assert any("does not cover" in e.message for e in _errors(
+        simlint.check_flash_plan(no_slices, shape, "t")))
+    shape = (70_000, 2, 1, 64, 64, 20)
+    plan = flash_attention.kernel_plan(*shape, torch.float32)
+    unfolded = dict(plan, grid=(plan["grid"][0], 2, 70_000))
+    assert any("grid.z 70000" in e.message for e in _errors(
+        simlint.check_flash_plan(unfolded, shape, "t")))
+    shape = (65_536, 32_768, 1, 1, 1, 8)
+    plan = flash_attention.kernel_plan(*shape, torch.bfloat16)
+    assert any("does not cover" in e.message for e in _errors(
+        simlint.check_flash_plan(dict(plan, pair_chunks=1), shape, "t")))
 
 
 def test_r6_geometry_mismatch_trips():
