@@ -22,10 +22,10 @@ mesh layer, and fails with a non-zero exit code if any phase fails:
              each tile of rows) that
              the ``kernel_plan`` functions report against the
              built library's, for every instantiation and every flash head
-             width (8 to 128 in steps of 8, and 4, 20, 100 padded and 136,
-             192, 256, 512, 520 on the wide kernels); the flash libraries'
-             nvcc seconds beside those of the sources before the narrow
-             widths
+             width (8 to 128 in steps of 8, and 4, 20, 100 padded, 136,
+             192, 256 on the native bf16 kernels and 512, 520 (and f32 past
+             128) on the wide ones); the flash libraries' nvcc seconds
+             beside those of the sources before the narrow widths
 2. kernels   each kernel against its plain PyTorch version on the card at the
              paths' shapes, with its device time (CUDA-graph replay, or CUDA
              events for calls of many milliseconds), the plain version's,
@@ -52,11 +52,13 @@ mesh layer, and fails with a non-zero exit code if any phase fails:
              Qwen3-Next-80B-A3B ``[1, 16/2, 4096, 256]`` and of
              DeepSeek-V4-Flash ``[1, 64/1, 4096, 512]`` (window 128) in
              bf16, f32 ``[2, 4/2, 300, 300, D]`` at D 4, 20, 136, 192,
-             256, 520, and a batch of 66,000 in both dtypes (the folded
-             grid), each with its plan's width and column slices (the
-             times S is formed), the op's padding copies timed apart, and
-             SDPA's time and backend (the longest kernel of a profiled
-             call; a window through its mask).  SSD scan: within 2e-2 (bf16) of
+             256, 520, bf16 at D 136 (MQA, window, Sq < Sk) and 192 (GQA,
+             softcap), and a batch of 66,000 in both dtypes (the folded
+             grid), each with its plan's variant (bf16 136-256 the native
+             kernels), width and column slices (the times S is
+             formed), the op's padding copies timed apart, and SDPA's time
+             and backend (the longest kernel of a profiled call; a window
+             through its mask).  SSD scan: within 2e-2 (bf16) of
              the plain chunked version at mamba2-130m's training shape and
              a jamba-shaped one, and by relative error of the whole output
              and of its worst (b, h) slice within 3.2e-3 and 5e-3, each with
@@ -66,7 +68,10 @@ mesh layer, and fails with a non-zero exit code if any phase fails:
              run of a group's heads), in f32 within 2e-4 and 1e-5 of the
              sequential scan at a ragged shape and jamba's layer and of the
              chunked version at mamba2-130m's training shape (no PyTorch
-             call computes it); at each shape the
+             call computes it); and at the corners of the Pallas kernel's
+             domain (chunks 256, 160, 100, 48 and 8, P and N padded
+             and past 128, a batch of 66,000), through the decomposition,
+             against the plain version at the asked chunk; at each shape the
              final state (``return_state``, the prefill's output) against
              the chunked version's, within 2e-4 (f32) and by the relative
              errors of the whole state and its worst (b, h) slice under y's
@@ -287,10 +292,11 @@ mesh layer, and fails with a non-zero exit code if any phase fails:
              flash forward and backward, every SSM arch the SSD kernel and
              its backward
 14. wide heads  gemma2's and internlm2's smoke models with ``d_head``
-             widened to 256 (the wide kernels) and 20 (padded to 24), f32
-             and bf16, served and trained for 3 steps on the card and the
-             CPU as phase 13 does: every flash launch wide (or padded),
-             the flash kernels' plain versions 0 times on the card
+             widened to 256 (the native kernels in bf16, the wide ones in
+             f32) and 20 (padded to 24), f32 and bf16, served and trained
+             for 3 steps on the card and the CPU as phase 13 does: every
+             flash launch native, wide or padded, the flash kernels' plain
+             versions 0 times on the card
 
 Every line of numbers carries the card's name and power limit.  The line
 before the last is the per-kernel JSON record; the last line is
@@ -337,6 +343,7 @@ from repro_torch.core import (  # noqa: E402
 from repro_torch.ckpt import save as ckpt_save  # noqa: E402
 from repro_torch.configs import ARCH_IDS, get_config  # noqa: E402
 from repro_torch.kernels import build as kbuild  # noqa: E402
+from repro_torch.kernels.build import head_grid  # noqa: E402
 from repro_torch.data import ShardedLoader  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
     flash_attention, ops, ref, ssd_scan, vm_update)
@@ -508,19 +515,29 @@ WIDE_SHAPES = [
      dict(causal=True, window=128)),
 ] + [(f"f32 D {d}", (2, 4, 2, 300, 300, d), torch.float32, dict(causal=True))
      for d in (4, 20, 136, 192, 256, 520)] + [
+    # the native bf16 kernels below 256: MQA with a window over offset rows,
+    # GQA with a softcap
+    ("bf16 D 136 MQA window", (2, 4, 1, 300, 500, 136), torch.bfloat16,
+     dict(causal=True, window=100)),
+    ("bf16 D 192 GQA softcap", (1, 8, 2, 600, 600, 192), torch.bfloat16,
+     dict(causal=True, softcap=30.0)),
+] + [
     (f"batch past the grid {str(dtype).split('.')[1]}",
      (66000, 2, 1, 8, 8, 16), dtype, dict(causal=True))
     for dtype in (torch.bfloat16, torch.float32)]
 # SDPA's backend is named (a profiled call) at the two public configs and
-# the batches past the grid
+# the batches past the grid.  Qwen3-Next's D 256 runs the native bf16
+# kernels (NATIVE_MAIN), DeepSeek-V4-Flash's 512 the column slices
+# (WIDE_MAIN).
 PUBLIC_WIDE = ("qwen3-next-80b-a3b layer", "deepseek-v4-flash layer")
-WIDE_MAIN = PUBLIC_WIDE[0]
+NATIVE_MAIN, WIDE_MAIN = PUBLIC_WIDE
 NAMED_BACKEND = PUBLIC_WIDE + tuple(
     name for name, *_ in WIDE_SHAPES if name.startswith("batch past"))
 FLASH_SHAPES += WIDE_SHAPES
 FLASH_BWD_SHAPES += WIDE_SHAPES
 # phase 14: the smoke models of two attention families with heads widened
-# past the narrow domain (column slices at 256, padding at 20)
+# past the narrow domain (256: the native kernels in bf16, column slices in
+# f32; padding at 20)
 WIDE_HEAD_ARCHS = ("gemma2-27b", "internlm2-1.8b")
 WIDE_HEAD_DIMS = (256, 20)
 # q scaled so that the logits (std ~6) reach the softcap's bend, as a
@@ -579,7 +596,28 @@ SSD_SHAPES = [
      128, "chunked"),
     ("jamba f32 prefill", (1, 300, 128, 64, 1, 16), torch.float32, 128,
      "sequential"),
+    # the corners of ssd_scan_pallas's domain that no instantiation takes as
+    # they are (ssd_scan.ssd_decomposed): mamba_ssm's default chunk of 256,
+    # chunks 160, 100, 48 and 8, P and N padded, P and N past 128 (slices),
+    # a batch of 66,000 (the grid's fold); each held to the plain version at
+    # the asked chunk
+    ("mamba_ssm chunk 256", (2, 1024, 24, 64, 1, 128), torch.bfloat16, 256,
+     "chunked"),
+    ("P 48 N 24 chunk 160", (2, 200, 2, 48, 1, 24), torch.bfloat16, 160,
+     "chunked"),
+    ("P 96 N 48 chunk 100", (1, 130, 4, 96, 2, 48), torch.float32, 100,
+     "chunked"),
+    ("P 8 N 8 chunk 48", (1, 100, 2, 8, 1, 8), torch.float32, 48, "chunked"),
+    ("chunk 8", (1, 40, 2, 16, 1, 16), torch.bfloat16, 8, "chunked"),
+    ("P 192", (1, 96, 2, 192, 1, 32), torch.bfloat16, 64, "chunked"),
+    ("N 256", (1, 96, 4, 32, 2, 256), torch.float32, 32, "chunked"),
+    ("P and N 136", (1, 70, 2, 136, 1, 136), torch.bfloat16, 48, "chunked"),
+    ("batch 66,000", (66_000, 8, 2, 16, 1, 16), torch.bfloat16, 32,
+     "chunked"),
 ]
+# the corners are held, not timed (the kernels they run are the ones the
+# shapes above time)
+SSD_CORNERS = {name for name, *_ in SSD_SHAPES[5:]}
 SSD_MAIN = "mamba2-130m training"
 SSD_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
 # relative error of the whole output (Frobenius) and of its worst (b, h)
@@ -741,12 +779,16 @@ def phase_build() -> None:
         for line in b["log"].splitlines():
             if any(w in line for w in ("registers", "spill", "smem")):
                 print(f"    {line.strip()}")
-    for name, lib in (("flash_attention", built[1]), ("ssd_scan", built[2]),
-                      ("flash_attention_bwd", built[3]),
-                      ("ssd_scan_bwd", built[4])):
-        sass = subprocess.run(
-            [kbuild.cuda_tool("cuobjdump"), "-sass", str(lib["path"])],
-            capture_output=True, text=True, check=True, timeout=300).stdout
+    dumps = [(name, subprocess.Popen(
+        [kbuild.cuda_tool("cuobjdump"), "-sass", str(lib["path"])],
+        stdout=subprocess.PIPE, text=True))     # all four at once
+        for name, lib in (("flash_attention", built[1]),
+                          ("ssd_scan", built[2]),
+                          ("flash_attention_bwd", built[3]),
+                          ("ssd_scan_bwd", built[4]))]
+    for name, proc in dumps:
+        sass, _ = proc.communicate(timeout=300)
+        check(proc.returncode == 0, f"cuobjdump -sass of the {name} library")
         hgmma = sum("HGMMA" in line for line in sass.splitlines())
         check(hgmma > 0, f"the {name} library's SASS has HGMMA instructions")
         say("build", f"{name} SASS: {hgmma} HGMMA (wgmma) instructions")
@@ -779,7 +821,8 @@ def phase_build() -> None:
     wider = (4, 20, 100, 136, 192, 256, 512, 520)
     for dtype, rows_ in ((torch.bfloat16, (64, 128)), (torch.float32, (64,))):
         for d in flash_attention.HEAD_DIMS + wider:
-            for rows in (rows_ if flash_attention.slices(d) == 1 else (64,)):
+            for rows in (rows_ if flash_attention.slices(d, dtype) == 1
+                         else (64,)):
                 built_bwd = flash_attention.kernel_geometry_bwd(dtype, d, rows)
                 mine = flash_attention.geometry_bwd(dtype, d, rows)
                 check(built_bwd == mine, f"flash_attention_bwd {dtype} D {d} "
@@ -788,7 +831,7 @@ def phase_build() -> None:
                       f"{mine}")
     for dtype, block_qs in ((torch.bfloat16, (64, 128)), (torch.float32, (64,))):
         for d in flash_attention.HEAD_DIMS + wider:
-            for block_q in (block_qs if flash_attention.slices(d) == 1
+            for block_q in (block_qs if flash_attention.slices(d, dtype) == 1
                             else (64,)):
                 built = flash_attention.kernel_geometry(dtype, d, block_q)
                 mine = flash_attention.geometry(dtype, d, block_q)
@@ -1053,10 +1096,19 @@ def padding_ms(shape, dtype, timer, reps: int,
     return timer(copies, (), reps)
 
 
-def phase_flash_kernel() -> tuple[dict, dict]:
-    """Phase 1's flash shapes; returns the records of FLASH_MAIN and of
-    WIDE_MAIN (the wide kernels)."""
-    record, wide_record = {}, {}
+def variant_of(shape, dtype) -> str:
+    """The plan variant a flash shape must run: the native bf16 kernels at
+    padded widths 136-256, else the dtype's."""
+    if flash_attention.native(shape[-1], dtype):
+        return "wgmma_256"
+    return "wgmma" if dtype == torch.bfloat16 else "cuda_cores"
+
+
+def phase_flash_kernel() -> tuple[dict, dict, dict]:
+    """Phase 1's flash shapes; returns the records of FLASH_MAIN, of
+    NATIVE_MAIN (the native bf16 kernel) and of WIDE_MAIN (the column
+    slices)."""
+    record, native_record, wide_record = {}, {}, {}
     for i, (name, shape, dtype, kw) in enumerate(FLASH_SHAPES):
         b, hq, hk, sq, sk, d = shape
         args = flash_inputs(shape, dtype, seed=100 + i)
@@ -1067,8 +1119,7 @@ def phase_flash_kernel() -> tuple[dict, dict]:
         torch.cuda.synchronize()
         check(flash_attention.flash_attention_cuda.last_plan == plan,
               f"flash_attention {name} launched its plan")
-        check(plan["variant"] == ("wgmma" if dtype == torch.bfloat16
-                                  else "cuda_cores"),
+        check(plan["variant"] == variant_of(shape, dtype),
               f"flash_attention {name}: {plan['variant']} for {dtype}")
         err, rel, row = hold_flash_out(name, out, want, dtype)
         tol = FLASH_TOL[dtype]
@@ -1121,13 +1172,15 @@ def phase_flash_kernel() -> tuple[dict, dict]:
             f"call with its enqueue {per_call!r} ms; {ops} operations, "
             f"{nbytes} bytes, bound {bound_ms!r} ms ({bound_by}), "
             f"{bound_ms / ms:.4f} of bound, {ops / ms / 1e9!r} TFLOP/s"))
-        if name in (FLASH_MAIN, WIDE_MAIN):
-            (record if name == FLASH_MAIN else wide_record).update(
+        mains = {FLASH_MAIN: record, NATIVE_MAIN: native_record,
+                 WIDE_MAIN: wide_record}
+        if name in mains:
+            mains[name].update(
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=library_ms)
         del args
         torch.cuda.empty_cache()
-    return record, wide_record
+    return record, native_record, wide_record
 
 
 def grad_errors(got: torch.Tensor, want: torch.Tensor
@@ -1180,15 +1233,15 @@ def phase_flash_bwd_kernel() -> tuple[dict, dict]:
     autograd (where SDPA computes the same function, ``sdpa_kwargs``: no
     window, no softcap, a causal mask through ``causal_lower_right`` where
     Sq < Sk; a window through its mask).  Returns the records of
-    FLASH_BWD_MAIN and of WIDE_MAIN (the wide kernels)."""
-    record, wide_record = {}, {}
+    FLASH_BWD_MAIN, NATIVE_MAIN (the native bf16 kernels) and WIDE_MAIN
+    (the column slices)."""
+    record, native_record, wide_record = {}, {}, {}
     fa = flash_attention
     for i, (name, shape, dtype, kw) in enumerate(FLASH_BWD_SHAPES):
         b, hq, hk, sq, sk, d = shape
         q, k, v, do = flash_bwd_inputs(name, shape, dtype, i)
         plan = fa.kernel_plan_bwd(b, hq, hk, sq, sk, d, dtype, N_SM)
-        check(plan["variant"] == ("wgmma" if dtype == torch.bfloat16
-                                  else "cuda_cores"),
+        check(plan["variant"] == variant_of(shape, dtype),
               f"flash_attention_bwd {name}: {plan['variant']} for {dtype}")
         blocks = fa.kernel_block_rows_bwd(b, hq, hk, sq, sk, d, dtype, N_SM)
         check(blocks == (plan["dkdv"]["rows"], plan["dq"]["rows"]),
@@ -1299,13 +1352,15 @@ def phase_flash_bwd_kernel() -> tuple[dict, dict]:
             f"{fwd_lse_ms!r} ms; {ops} operations, {nbytes} bytes, bound "
             f"{bound_ms!r} ms ({bound_by}), {bound_ms / ms:.4f} of bound, "
             f"{ops / ms / 1e9!r} TFLOP/s"))
-        if name in (FLASH_BWD_MAIN, WIDE_MAIN):
-            (record if name == FLASH_BWD_MAIN else wide_record).update(
+        mains = {FLASH_BWD_MAIN: record, NATIVE_MAIN: native_record,
+                 WIDE_MAIN: wide_record}
+        if name in mains:
+            mains[name].update(
                 max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
         del q, k, v, do, out, lse, args
         torch.cuda.empty_cache()
-    return record, wide_record
+    return record, native_record, wide_record
 
 
 def ssd_inputs(shape, dtype, seed: int):
@@ -1408,14 +1463,16 @@ def phase_ssd_kernel() -> dict:
         check(plan["variant"] == ("wgmma" if dtype == torch.bfloat16
                                   else "cuda_cores"),
               f"ssd_scan {name}: {plan['variant']} for {dtype}")
-        nc = -(-s // chunk)
+        nc = -(-s // plan["chunk"])
         if plan["variant"] == "wgmma":
             for ph in (plan["phases"][0], plan["phases"][2]):
-                check(ph["grid"] == (nc, h, b), f"ssd_scan {name}: "
-                      f"{ph['name']} launches S/Q x H x B blocks")
+                check(ph["grid"] == (nc, *head_grid(h, b)),
+                      f"ssd_scan {name}: {ph['name']} launches S/Q x H x B "
+                      "blocks")
         else:   # chunk-parallel: a block a (chunk, run of a group's heads, b)
-            tiles = plan["rows"] // 64 * (p // min(p, 64))
-            runs = (g * plan["runs"], b)
+            pw = plan["p_width"]
+            tiles = plan["rows"] // 64 * (pw // min(pw, 64))
+            runs = head_grid(g * plan["runs"], b)
             check(plan["phases"][0]["grid"] == (nc, *runs)
                   and plan["phases"][2]["grid"] == (nc * tiles, *runs),
                   f"ssd_scan {name}: the f32 phases have a chunk axis")
@@ -1432,6 +1489,20 @@ def phase_ssd_kernel() -> dict:
               f"{SSD_SLICE_TOL[dtype]})")
         state = ssd_state_check(name, args, chunk, out, dtype)
         del out, want
+        if name in SSD_CORNERS:
+            say("kernels", (
+                f"ssd_scan {name} x [{b}, {s}, {h}, {p}] B/C [{b}, {s}, {g}, "
+                f"{n}] {str(dtype).split('.')[1]} chunk {chunk}: plan "
+                f"{plan['variant']} (run chunk {plan['chunk']}, P "
+                f"{plan['p_slices']} x {plan['p_width']}, N "
+                f"{plan['n_slices']} x {plan['n_width']}, "
+                f"{plan['launches']} launches, grids "
+                f"{[ph['grid'] for ph in plan['phases']]}); max |err| "
+                f"{err!r} against the plain version at chunk {chunk} "
+                f"(tolerance {tol}); relative error {rel!r}, worst (b, h) "
+                f"slice {worst!r}; final state {state}"))
+            del args
+            continue
         # calls of milliseconds: CUDA events around eager calls, in turns
         with_state = functools.partial(kernel, return_state=True)
         times = {"plain": [], "kernel": [], "state": []}
@@ -1454,7 +1525,10 @@ def phase_ssd_kernel() -> dict:
         say("kernels", (
             f"ssd_scan {name} x [{b}, {s}, {h}, {p}] B/C [{b}, {s}, {g}, {n}] "
             f"{str(dtype).split('.')[1]} chunk {chunk}: plan {plan['variant']} "
-            f"(tile rows {plan['rows']}; {steps}; scratch "
+            f"(run chunk {plan['chunk']}, P {plan['p_slices']} x "
+            f"{plan['p_width']}, N {plan['n_slices']} x {plan['n_width']}, "
+            f"{plan['launches']} launches of: "
+            f"tile rows {plan['rows']}; {steps}; scratch "
             f"{plan['scratch_bytes']} B); max |err| {err!r} against the "
             f"{against} version (tolerance {tol}); relative error {rel!r} "
             f"(limit {SSD_REL_TOL[dtype]}), worst (b, h) slice {worst!r} "
@@ -1610,6 +1684,17 @@ def phase_ssd_bwd_kernel() -> dict:
                       for x, y in zip(got, want))
         del got, again, want
         torch.cuda.empty_cache()
+        if name in SSD_CORNERS:
+            say("kernels", (
+                f"ssd_scan_bwd {name} x [{b}, {s}, {h}, {p}] B/C [{b}, {s}, "
+                f"{g}, {n}] {str(dtype).split('.')[1]} chunk {chunk}: plan "
+                f"{plan['variant']} (run chunk {plan['chunk']}, P "
+                f"{plan['p_slices']} x {plan['p_width']}, N "
+                f"{plan['n_slices']} x {plan['n_width']}, "
+                f"{plan['launches']} launches); two calls bitwise equal; "
+                f"(max |err| / largest, relative error, worst slice) {errs}"))
+            del args
+            continue
         plain = ssd_plain_autograd(chunk)
         explicit = functools.partial(ref.ssd_scan_bwd_ref, chunk=chunk)
         times = {"plain": [], "kernel": []}
@@ -1632,14 +1717,15 @@ def phase_ssd_bwd_kernel() -> dict:
                 f"{launch_ms!r} ms a call (profiled); the whole backward "
                 f"{ms!r} ms, bound {bound_ms!r} ms, plain {plain_ms!r} ms, "
                 f"explicit plain {explicit_ms!r} ms")
+        pw, nw = plan["p_width"], plan["n_width"]
         if dtype == torch.bfloat16:
-            pp, np_ = (64 if w <= 64 else 128 for w in (p, n))
+            pp, np_ = (64 if w <= 64 else 128 for w in (pw, nw))
             rows = plan["rows"]
             wgs = plan["phases"][2]["threads"] // 128
             ends = (f"<{pp}, {np_}, {rows}>", f"<{pp}, {np_}, {rows}, {wgs}>",
                     "<bf16>", "<>")
         else:
-            ends = (f"<{p}, {n}>", "<>", "<f32>")
+            ends = (f"<{pw}, {nw}>", "<>", "<f32>")
         regs = [(k, r, sp) for k, r, sp in SSD_BWD_PTXAS if k.endswith(ends)]
         steps = ", ".join(f"{ph['name']} grid {ph['grid']} x "
                           f"{ph['threads']} threads, {ph['smem']} B"
@@ -2648,7 +2734,7 @@ def zero_launches() -> None:
         fn.launches = 0
     for fn in (flash_attention.flash_attention_cuda,
                flash_attention.flash_attention_bwd_cuda):
-        fn.wide_launches = fn.padded_launches = 0
+        fn.native_launches = fn.wide_launches = fn.padded_launches = 0
 
 
 def launches() -> dict[str, int]:
@@ -4443,19 +4529,22 @@ def phase_smoke_zoo() -> dict[str, int]:
 def wide_launches() -> dict[str, int]:
     fwd = flash_attention.flash_attention_cuda
     bwd = flash_attention.flash_attention_bwd_cuda
-    return {"wide": fwd.wide_launches, "padded": fwd.padded_launches,
-            "wide_bwd": bwd.wide_launches, "padded_bwd": bwd.padded_launches}
+    return {"native": fwd.native_launches, "wide": fwd.wide_launches,
+            "padded": fwd.padded_launches,
+            "native_bwd": bwd.native_launches, "wide_bwd": bwd.wide_launches,
+            "padded_bwd": bwd.padded_launches}
 
 
 def phase_wide_heads() -> dict[str, int]:
     """14: the smoke models of WIDE_HEAD_ARCHS with their heads widened by
-    ``dataclasses.replace`` to each of WIDE_HEAD_DIMS (256: the wide
-    kernels' column slices; 20: padded to 24), in f32 and bf16, from one CPU
-    draw of the weights: served and trained for 3 steps on the card and on
-    the CPU, and held to the CPU's runs as phase 13 holds the smoke zoo.
-    The flash forward and backward launch (wide at 256, padded at 20) and
-    their plain versions run 0 times on the card.  Returns the flash
-    launches, wide and padded among them."""
+    ``dataclasses.replace`` to each of WIDE_HEAD_DIMS (256: the native
+    kernels in bf16, the column slices in f32; 20: padded to 24), in f32
+    and bf16, from one CPU draw of the weights: served and trained for 3
+    steps on the card and on the CPU, and held to the CPU's runs as phase
+    13 holds the smoke zoo.  The flash forward and backward launch (native
+    or wide at 256, padded at 20) and their plain versions run 0 times on
+    the card.  Returns the flash launches, native, wide and padded among
+    them."""
     t0 = time.perf_counter()
     start = {**launches(), **wide_launches()}
     with PlainAttentionOnCard() as plain:
@@ -4473,7 +4562,8 @@ def phase_wide_heads() -> dict[str, int]:
                     trained = smoke_train(cfg, model, cpu)
                     count = {k: v - before[k] for k, v in
                              {**launches(), **wide_launches()}.items()}
-                    kind = "wide" if d_head > 128 else "padded"
+                    kind = ("padded" if d_head <= 128 else "native"
+                            if dtype == "bfloat16" else "wide")
                     check(count[kind] == count["flash"] > 0
                           and count[f"{kind}_bwd"] == count["flash_bwd"] > 0,
                           f"{arch} smoke, D {d_head}, {dtype}: every flash "
@@ -4501,8 +4591,9 @@ def main() -> None:
     phase_build()
     took["build"] = time.perf_counter() - t0
     sweep_record = phase_sweep_kernel()
-    flash_record, wide_record = phase_flash_kernel()
-    flash_bwd_record, wide_bwd_record = phase_flash_bwd_kernel()
+    flash_record, native_record, wide_record = phase_flash_kernel()
+    flash_bwd_record, native_bwd_record, wide_bwd_record = \
+        phase_flash_bwd_kernel()
     ssd_record = phase_ssd_kernel()
     ssd_bwd_record = phase_ssd_bwd_kernel()
     took["kernels"] = time.perf_counter() - t0 - sum(took.values())
@@ -4592,11 +4683,12 @@ def main() -> None:
           f"{fourteenth}")
     took["wide heads"] = time.perf_counter() - t0 - sum(took.values())
     say("proof", f"phase 14 (smoke models with heads of 256 and 20) "
-        f"launched the flash forward {fourteenth['flash']} ({fourteenth['wide']} "
-        f"wide, {fourteenth['padded']} padded) and backward "
-        f"{fourteenth['flash_bwd']} ({fourteenth['wide_bwd']} wide, "
-        f"{fourteenth['padded_bwd']} padded) times, their plain versions 0 "
-        f"times on the card")
+        f"launched the flash forward {fourteenth['flash']} "
+        f"({fourteenth['native']} native, {fourteenth['wide']} wide, "
+        f"{fourteenth['padded']} padded) and backward "
+        f"{fourteenth['flash_bwd']} ({fourteenth['native_bwd']} native, "
+        f"{fourteenth['wide_bwd']} wide, {fourteenth['padded_bwd']} padded) "
+        f"times, their plain versions 0 times on the card")
     say("timing", ", ".join(f"{k} {v:.1f} s" for k, v in took.items()))
 
     kernels = [{
@@ -4618,11 +4710,19 @@ def main() -> None:
                      + fourteenth["flash"]),
         **flash_record,
     }, {
+        "name": "flash_attention_native",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:99 (bf16 head "
+                    "widths 136-256)",
+        "launches": fourteenth["native"],
+        **native_record,
+    }, {
         "name": "flash_attention_wide",
         "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:99 (head widths "
-                    "past 128)",
+                    "past 256, f32 past 128)",
         "launches": fourteenth["wide"],
         **wide_record,
     }, {
@@ -4636,11 +4736,19 @@ def main() -> None:
                      + thirteenth["flash_bwd"] + fourteenth["flash_bwd"]),
         **flash_bwd_record,
     }, {
+        "name": "flash_attention_bwd_native",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/models/attention.py:40 flash_xla (gradient by "
+                    "jax.grad; bf16 head widths 136-256)",
+        "launches": fourteenth["native_bwd"],
+        **native_bwd_record,
+    }, {
         "name": "flash_attention_bwd_wide",
         "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
         "replaces": "src/repro/models/attention.py:40 flash_xla (gradient by "
-                    "jax.grad; head widths past 128)",
+                    "jax.grad; head widths past 256, f32 past 128)",
         "launches": fourteenth["wide_bwd"],
         **wide_bwd_record,
     }, {

@@ -3,7 +3,7 @@ one NVIDIA GPU.
 
     python3 scripts/flash_bwd_fault_reach.py
 
-Builds four broken copies of ``src/repro_torch/csrc/flash_attention_bwd.cu``
+Builds seven broken copies of ``src/repro_torch/csrc/flash_attention_bwd.cu``
 in a temporary directory (beside a copy of the headers it includes), each
 with one fault the bf16 backward can have:
 
@@ -13,13 +13,21 @@ with one fault the bf16 backward can have:
   reads the group's first head instead of its own;
 * ``missed_softcap``: the dQ kernel leaves the softcap's factor
   ``1 - (s / c)^2`` out of dS;
-* ``slice_only_s`` (the wide kernels past 128 columns): the dQ kernel
+* ``slice_only_s`` (the wide kernels past 256 columns): the dQ kernel
   forms S over its block's own slice of columns only, not the whole head
-  width.
+  width;
+* ``native_half_s`` (the native kernels, bf16 widths 136-256): the dQ
+  kernel forms S over the first 128 columns only;
+* ``native_wrong_head``: the native dK/dV kernel's last query head of a
+  share reads the share's first head instead of its own;
+* ``native_missed_share``: the native kernels' combine adds up every share
+  of a GQA group's dK and dV parts but the last.
 
-The first two are faults of the narrow kernels, the softcap's of both
-(``dq_probs`` is shared), the last of the wide dQ kernel: each applies only
-at the shapes its kernel runs.
+The first two are faults of the narrow kernels, the softcap's of all three
+(``dq_probs`` is shared), ``slice_only_s`` of the wide dQ kernel, the last
+three of the native kernels: each applies only at the shapes its kernel
+runs (``native_wrong_head`` where a share holds more than one head,
+``native_missed_share`` where a group is shared).
 
 Runs the sound kernel and each copy at ``chip_smoke.py``'s bf16 backward
 shapes, on the inputs chip_smoke gives them, and prints for each tensor the
@@ -50,6 +58,10 @@ HEAD = ("  auto tile_head = [&](int i) { return b * Hq + hk * group + i / nq; "
 CAP_Q = "    sc[e] = p * fac;\n"
 WIDE_S = ("        piece_item(sc, ring, i, min(kSlice, d - p * kSlice), "
           "p == 0);\n")
+NAT_S = "    product_abt_256(sc, opaque(q_wg), kQBox, k_t, d);\n"
+NAT_HEAD = ("  auto tile_head = [&](int i) { return b * Hq + hk * group + h_lo + "
+            "i / nq; };\n")
+NAT_SHARES = "  for (int s = 1; s < shares; ++s) {\n"
 FAULTS = {
     "dropped_tile": (KEY_TILES,
                      KEY_TILES + "  if (kt_hi - kt_lo > 16) ++kt_lo;\n"),
@@ -59,18 +71,33 @@ FAULTS = {
     "slice_only_s": (WIDE_S, "        piece_item(sc, ring, i, p * kSlice == "
                      "c0 ? min(kSlice, d - p * kSlice) : 0, p * kSlice == c0);"
                      "\n"),
+    "native_half_s": (NAT_S, NAT_S.replace(", d);", ", d < 128 ? d : 128);")),
+    "native_wrong_head": (NAT_HEAD, NAT_HEAD.replace(
+        "i / nq; };", "(i / nq > 0 && i / nq == h_hi - h_lo - 1 ? 0 : i / nq); "
+        "};")),
+    "native_missed_share": (NAT_SHARES, NAT_SHARES.replace(
+        "s < shares;", "s < shares - 1;")),
 }
 
 
 def applies(name: str, shape, kw) -> bool:
     b, hq, hk, sq, sk, d = shape
-    wide = fa.slices(d) > 1
+    bf16 = torch.bfloat16
+    native = fa.native(d, bf16)
+    wide = fa.slices(d, bf16) > 1
+    shares = fa.head_split(b, hk, sk, hq // hk, cs.N_SM) if native else 1
     if name == "slice_only_s":
         return wide
+    if name == "native_half_s":
+        return native
+    if name == "native_wrong_head":
+        return native and -(-(hq // hk) // shares) > 1
+    if name == "native_missed_share":
+        return native and shares > 1
     if name == "dropped_tile":
-        return not wide and -(-sk // 64) > 16
+        return not (wide or native) and -(-sk // 64) > 16
     if name == "wrong_head":
-        return not wide and hq // hk > 1
+        return not (wide or native) and hq // hk > 1
     if name == "missed_softcap":
         return kw.get("softcap", 0.0) > 0.0
     return True

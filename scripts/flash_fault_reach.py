@@ -3,7 +3,7 @@ NVIDIA GPU.
 
     python3 scripts/flash_fault_reach.py
 
-Builds four broken copies of ``src/repro_torch/csrc/flash_attention.cu`` in
+Builds seven broken copies of ``src/repro_torch/csrc/flash_attention.cu`` in
 a temporary directory (beside a copy of the headers it includes), each with
 one fault a pipelined kernel can have:
 
@@ -11,11 +11,18 @@ one fault a pipelined kernel can have:
 * ``stale_stage``: the last key tile of a row of more than 9 tiles takes V
   from the other stage of the shared-memory ring;
 * ``missed_rescale``: every fourth key tile leaves O unrescaled;
-* ``slice_only_s`` (the wide kernel past 128 columns): a block forms S
-  over its own slice's columns only, not the whole head width.
+* ``slice_only_s`` (the wide kernel past 256 columns): a block forms S
+  over its own slice's columns only, not the whole head width;
+* ``native_half_s`` (the native kernel, bf16 widths 136-256): S over the
+  first 128 columns only;
+* ``native_stale_v``: the native kernel's last P V of a row of more than 9
+  key tiles (of 64) reads V from the other stage;
+* ``native_missed_rescale``: the native kernel leaves O unrescaled after
+  every fourth key tile.
 
-The first three are faults of the narrow kernel, the last of the wide one:
-each applies only at the shapes its kernel runs.
+The first three are faults of the narrow kernel, ``slice_only_s`` of the
+wide one, the last three of the native one: each applies only at the
+shapes its kernel runs.
 
 Runs the sound kernel and each copy at ``chip_smoke.py``'s bf16 shapes and
 prints, for each, the largest elementwise error and whether the elementwise
@@ -46,6 +53,12 @@ RESCALE = "    for (int e = 0; e < kNo; ++e) acc_o[e] *= alpha[(e / 2) & 1];"
 V_STAGE = "gmma_desc(v_s + s * kKVTile + kk * 16 * 128, kKVBox)"
 WIDE_S = ("      piece_item(acc_s, ring, i, min(kSlice, d - p * kSlice), "
           "p == 0);  // S (+)= Q K^T\n")
+NAT_S = ("      if (16 * kk >= d) break;  // the slices past d are zeros\n"
+         "      wgmma_ss_n64(acc_s, k_major(qs, kNatQBox, kk)")
+NAT_V = ("    const uint32_t vs = opaque(v_s + s * kNatKTile);\n"
+         "    wgmma_fence();\n")
+NAT_RESCALE = ("      for (int e = 0; e < kNatCols / 2; ++e) acc_o[e] *= "
+               "alpha[(e / 2) & 1];")
 FAULTS = {
     "dropped_tile": (ANCHOR, ANCHOR + "  if (kt_hi - kt_lo > 16) ++kt_lo;\n"),
     "stale_stage": (V_STAGE, "gmma_desc(v_s + ((i == n_tiles - 1 && i > 8) "
@@ -54,21 +67,34 @@ FAULTS = {
     "slice_only_s": (WIDE_S, "      piece_item(acc_s, ring, i, p * kSlice == "
                      "c0 ? min(kSlice, d - p * kSlice) : 0, p * kSlice == c0);"
                      "\n"),
+    "native_half_s": (NAT_S, NAT_S.replace("16 * kk >= d)",
+                                           "16 * kk >= (d < 128 ? d : 128))")),
+    "native_stale_v": (NAT_V, NAT_V.replace(
+        "v_s + s * kNatKTile)", "v_s + ((i == n_tiles - 1 && i > 8) ? s ^ 1 "
+        ": s) * kNatKTile)")),
+    "native_missed_rescale": (NAT_RESCALE, "      if (i % 4 != 3)\n"
+                              + NAT_RESCALE),
 }
-# key tiles a row needs before the fault applies
+# key tiles a row needs before the fault applies (128 keys a narrow tile,
+# 64 a native one)
 MIN_TILES = {"sound": 0, "dropped_tile": 17, "stale_stage": 10,
-             "missed_rescale": 4, "slice_only_s": 0}
+             "missed_rescale": 4, "slice_only_s": 0, "native_half_s": 0,
+             "native_stale_v": 10, "native_missed_rescale": 4}
 
 
 def applies(name: str, shape) -> bool:
     """Whether the fault is in the kernel that runs ``shape`` and the rows
     are long enough for it."""
-    wide = fa.slices(shape[5]) > 1
+    native = fa.native(shape[5], torch.bfloat16)
+    wide = fa.slices(shape[5], torch.bfloat16) > 1
     if name == "sound":
         return True
     if name == "slice_only_s":
         return wide
-    return not wide and -(-shape[4] // fa.WGMMA_BLOCK_K) >= MIN_TILES[name]
+    if name.startswith("native_"):
+        return native and -(-shape[4] // 64) >= MIN_TILES[name]
+    return not (wide or native) and \
+        -(-shape[4] // fa.WGMMA_BLOCK_K) >= MIN_TILES[name]
 
 
 def readings(name: str) -> bool:

@@ -6,9 +6,12 @@ change to the kernels moved their times, shape by shape.
 Runs in OTHER_CHECKOUT, this checkout, this checkout and OTHER_CHECKOUT
 again, each in a process of its own that builds both flash libraries of its
 checkout, then times the forward (``flash_attention_cuda``) and the
-backward (``flash_attention_bwd_cuda``) at every shape of its
-chip_smoke.py's phases 1-2 (``FLASH_SHAPES``, ``FLASH_BWD_SHAPES``: bf16
-and f32, the narrow, padded and wide widths among them) with chip_smoke.py's
+backward (``flash_attention_bwd_cuda``) at every shape of this checkout's
+chip_smoke.py phases 1-2 (``FLASH_SHAPES``, ``FLASH_BWD_SHAPES``: bf16
+and f32, the narrow, padded, native (bf16 136-256) and wide widths among
+them; both checkouts run the same shapes, each through its own plan, so a
+width the two route to different kernels sets one against the other), on
+the inputs each checkout's chip_smoke.py makes, with chip_smoke.py's
 ``device_ms`` (CUDA-graph replay: eager calls of many milliseconds, timed
 with events, spread by ~10% between runs at some shapes; 5 replays of
 those, 200 of calls under 2^22 (query, key) pairs, whose ~10 us a graph of
@@ -45,14 +48,17 @@ def timer(shape):
     return cs.device_ms, 5 if pairs >= 2**27 else 20 if pairs >= 2**22 else 200
 
 
+fwd_shapes, bwd_shapes = json.loads(sys.argv[1])
 out = {"forward": {}, "backward": {}}
-for i, (name, shape, dtype, kw) in enumerate(cs.FLASH_SHAPES):
+for i, (name, shape, dtype, kw) in enumerate(fwd_shapes):
+    dtype = getattr(torch, dtype)
     q, k, v = cs.flash_inputs(shape, dtype, seed=100 + i)
     fn, reps = timer(shape)
     out["forward"][name] = fn(lambda *a: fa.flash_attention_cuda(*a, **kw),
                               (q, k, v), reps)
     del q, k, v
-for i, (name, shape, dtype, kw) in enumerate(cs.FLASH_BWD_SHAPES):
+for i, (name, shape, dtype, kw) in enumerate(bwd_shapes):
+    dtype = getattr(torch, dtype)
     q, k, v, do = cs.flash_bwd_inputs(name, shape, dtype, i)
     o, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
     fn, reps = timer(shape)
@@ -72,10 +78,15 @@ def main() -> None:
     ap.add_argument("--json", help="also write the runs and the summary here")
     args = ap.parse_args()
     here = Path(__file__).resolve().parents[1]
+    sys.path.insert(0, str(here))
+    import chip_smoke as cs  # exits without a CUDA device
+    shapes = json.dumps([[(name, shape, str(dtype).split(".")[1], kw)
+                          for name, shape, dtype, kw in table]
+                         for table in (cs.FLASH_SHAPES, cs.FLASH_BWD_SHAPES)])
     other = Path(args.other).resolve()
     runs = []
     for tree in (other, here, here, other):
-        proc = subprocess.run([sys.executable, "-c", RUN], cwd=tree,
+        proc = subprocess.run([sys.executable, "-c", RUN, shapes], cwd=tree,
                               capture_output=True, text=True, timeout=1200)
         if proc.returncode != 0:
             sys.exit(f"{tree} failed:\n{proc.stdout[-2000:]}"

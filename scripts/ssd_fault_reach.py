@@ -36,15 +36,19 @@ The backward's five:
 * ``cc_run_sum_drops_head``: the f32 dx / dS launch's sum likewise.
 
 Runs the sound kernels and each copy at every shape of ``chip_smoke.py``'s
-``SSD_SHAPES`` (bf16 and f32) and prints, for each: the forward's largest
+``SSD_SHAPES`` (bf16 and f32; its corners among them: chunks off the
+instantiations, P and N padded or sliced, a batch of 66,000 folded on the
+grid, each through ``ssd_scan.ssd_decomposed``) and prints, for each: the
+forward's largest
 elementwise error and whether the elementwise check passes, and the
 relative error of the whole output and of its worst (b, h) slice against
 chip_smoke's limits; the backward's errors per gradient (max |err| /
 largest, relative error of the whole tensor and of its worst slice) and the
 limits they break.  A fault applies at a shape whose dtype runs the code it
-breaks and that reaches it (more than nine chunks for the faults past the
-ninth, more than one for ``cc_stale_state``, 128-row tiles for
-``dropped_keys``).  Exits non-zero if a
+breaks and that reaches it (more than nine chunks of the chunk that runs,
+``ssd_scan.run_chunk``, for the faults past the ninth, more than one for
+``cc_stale_state`` and ``skipped_head``, whose state terms a single chunk
+does not have, 128-row tiles for ``dropped_keys``).  Exits non-zero if a
 sound kernel fails a check or a broken copy passes them all at a shape
 where its fault applies.  Every line carries the card's name and power
 limit.  Imports nothing of JAX or of the JAX package.
@@ -104,13 +108,14 @@ def applies(name: str, shape, dtype, chunk) -> bool:
     if name not in shared and name.startswith("cc_") != (dtype ==
                                                          torch.float32):
         return False
-    nc = -(-s // chunk)
+    run = ssd.run_chunk(chunk)     # the chunk the kernels run
+    nc = -(-s // run)
     if name in ("stale_state", "missed_decay", "grad_missed_decay"):
         return nc > 9
-    if name == "cc_stale_state":
-        return nc > 1
+    if name in ("cc_stale_state", "skipped_head"):
+        return nc > 1   # one chunk has no state entering it or leaving it
     if name == "dropped_keys":
-        return chunk > 64
+        return run > 64
     return True
 
 

@@ -880,7 +880,7 @@ def check_flash_plan(plan: dict, shape: tuple, entry: str,
     b, hq, _, sq, _, _ = shape
     what = f"flash forward {shape} {plan['variant']}"
     out = _check_block(what, plan["threads"], plan["smem"], plan["grid"],
-                       plan["variant"] == "wgmma", entry, rule_id)
+                       plan["variant"].startswith("wgmma"), entry, rule_id)
     gx, gy, gz = plan["grid"]
     if (gx * plan["block_q"] < sq * plan["slices"]
             or gy * gz * plan["pair_chunks"] < hq * b):
@@ -895,7 +895,7 @@ def check_flash_bwd_plan(plan: dict, shape: tuple, entry: str,
     """A flash backward plan: the dK/dV and dQ blocks inside Hopper's
     limits, and the grids of its three launches (times ``pair_chunks``)."""
     b, hq, hk, sq, sk, _ = shape
-    wgmma = plan["variant"] == "wgmma"
+    wgmma = plan["variant"].startswith("wgmma")
     out = []
     for kernel, rows, heads in (("dkdv", sk, hk), ("dq", sq, hq)):
         k = plan[kernel]
@@ -908,8 +908,10 @@ def check_flash_bwd_plan(plan: dict, shape: tuple, entry: str,
             out.append(_finding(rule_id, "error", entry,
                                 f"{what}: grid {grid} does not cover {rows} "
                                 f"rows x {heads} heads x {b}"))
-    out += _check_grid(f"flash backward delta {shape}",
-                       plan["grids"]["delta"], entry, rule_id)
+    for launch in ("delta", "combine"):   # combine: the native dK/dV shares
+        if launch in plan["grids"]:
+            out += _check_grid(f"flash backward {launch} {shape}",
+                               plan["grids"][launch], entry, rule_id)
     return out
 
 
@@ -1388,10 +1390,12 @@ def _plans(ctx: LintContext) -> dict:
     ssd_cases = list(_SSD_SHAPES) + [
         (1, 256, 2, p, 1, n) for p in ssd_scan.HEAD_DIMS
         for n in ssd_scan.HEAD_DIMS] + [
-        (1, 300, MAX_GRID_YZ, 64, 1, 64), (MAX_GRID_YZ, 64, 1, 64, 1, 64)]
+        (1, 300, MAX_GRID_YZ, 64, 1, 64), (MAX_GRID_YZ, 64, 1, 64, 1, 64),
+        (70_000, 8, 2, 16, 1, 16), (1, 8, 70_000, 16, 1, 16),
+        (1, 100, 2, 8, 1, 24), (1, 96, 2, 192, 1, 256)]
     for shape in ssd_cases:
         for dtype in (bf16, f32):
-            for chunk in (32, 64, 96, 128):
+            for chunk in (8, 32, 48, 64, 96, 128, 160, 256):
                 out["ssd"].append(((*shape, chunk), dtype,
                                    ssd_scan.kernel_plan(*shape, chunk,
                                                         dtype)))
@@ -1432,7 +1436,7 @@ def probe_geometry(plans: dict, n_sm: int) -> list:
                         None if built is None
                         else (built[0], built[1], built[2 + i])))
     for shape, dtype, plan in plans["ssd"]:
-        p, n = shape[3], shape[5]
+        p, n = plan["p_width"], plan["n_width"]     # the widths that run
         key = ("ssd", dtype, p, n, plan["rows"])
         if key in seen:
             continue

@@ -138,7 +138,7 @@
 //   strides; zero columns add exact zeros to q.k.  The scale is the
 //   caller's (D^-0.5 of the real D).
 // * The grid: every kernel's (batch, head) pair comes from the grid's y and
-//   z, folded where B or Hq passes 65,535 (flash_wide.cuh head_grid).
+//   z, folded where B or Hq passes 65,535 (grid_fold.cuh head_grid).
 //
 // The C entry point launches on the caller's stream, does not synchronise,
 // and returns cudaGetLastError() (or the error of cudaFuncSetAttribute, or
@@ -169,6 +169,22 @@ template <int D, int kWG>
 constexpr int wgmma_smem_bytes() {
   constexpr int dp = D <= 64 ? 64 : 128;
   return 1024 + (64 * kWG + 4 * kBk) * dp * 2 + 64;
+}
+
+// Wait until at most N committed groups of wgmma of this warpgroup are
+// still running (groups complete in order).
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// A shared-memory address the compiler must treat as new at each use, so
+// that it builds the wgmma descriptors from it where they are used instead
+// of holding every descriptor of the loop in registers (112 of them in the
+// native kernel: Q's 16 k-steps, K's of both stages, V's).
+__device__ __forceinline__ uint32_t opaque(uint32_t addr) {
+  asm volatile("" : "+r"(addr));
+  return addr;
 }
 
 __device__ __forceinline__ float quad_max(float x) {
@@ -1178,6 +1194,305 @@ int launch_f32_wide(const void* q, const void* k, const void* v, void* o, float*
   return static_cast<int>(cudaGetLastError());
 }
 
+// ============================== bf16 widths 136-256: the native kernel
+//
+// flash_fwd_wgmma_256<WG>: a block of 64 WG query rows and the head's
+// whole width (up to 256 columns: O of 64 x 256 f32 in one warpgroup's
+// registers, 128 a thread, so no slices), key tiles of 64.  WG warpgroups
+// own 64 query rows each and share every K and V tile (128-row blocks of
+// two, or 64-row blocks of one where those would leave SMs idle, as the
+// narrow kernel's rule picks); thread 0
+// issues the TMA loads: Q once for the block, each key tile's K and V into
+// two stages, each stage with a full and an empty mbarrier for K and for
+// V (K_{i+1} at the top of tile i, V_{i+1} as soon as V_{i-1} is
+// released).  No producer warp of its own: with one (or a producer
+// warpgroup handing its registers on by setmaxnreg) ptxas (CUDA 12.8) gave
+// the block 168 registers a thread and spilled O; 256 threads leave 255.
+// S = Q K^T is formed once a key tile over the whole width (m64n64k16, 16
+// k-steps at 256), O += P V on m64n256k16 (on m64n64k16 a 64-column box
+// where fewer than four boxes hold the width).  A warpgroup overlaps the
+// softmax of tile i with the P V of tile i - 1: it issues S_i and then
+// P_{i-1} V_{i-1}, waits for S_i alone (wgmma_wait<1>), forms P_i, and only
+// then waits for the product and rescales O by exp(m_{i-1} - m_i).
+// Shared memory at 128 rows: Q 64 KB, K and V 2 x 32 KB each: 197,760
+// bytes, one block an SM (164,992 at 64 rows).  Widths below 256 load ceil(d / 64) boxes of each tile; S
+// stops at the first 16-column slice past d, and the columns of O past
+// the loaded boxes (never stored) read stale shared memory.
+constexpr int kNatCols = 256;               // columns of O and of a tile
+constexpr int kNatBoxes = kNatCols / 64;    // 64-column boxes
+constexpr int kNatBk = 64;                  // keys a tile
+constexpr uint32_t kNatKBox = 64 * 128;     // a 64-row box of K or V
+constexpr uint32_t kNatKTile = kNatBoxes * kNatKBox;
+
+// 1 KB of alignment, Q of 64 WG rows, two stages of K and of V, nine
+// mbarriers.
+template <int kWG>
+constexpr int native_smem_bytes() {
+  return 1024 + static_cast<int>(kNatBoxes * 64 * kWG * 128 + 4 * kNatKTile) + 128;
+}
+
+template <int kWG>
+__global__ void __launch_bounds__(128 * kWG, 1)
+flash_fwd_wgmma_256(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
+                    float* __restrict__ lse, int n_heads, int Hq, int Hk, int Sq, int Sk, int d,
+                    int causal, int window, float softcap, float scale) {
+  constexpr int kBq = 64 * kWG;               // query rows of a block
+  constexpr uint32_t kNatQBox = kBq * 128;    // a box of Q
+  extern __shared__ uint8_t smem[];
+  const uint32_t q_s = (smem_u32(smem) + 1023u) & ~1023u;
+  const uint32_t k_s = q_s + kNatBoxes * kNatQBox;  // stage s at k_s + s * kNatKTile
+  const uint32_t v_s = k_s + 2 * kNatKTile;
+  const uint32_t q_full = v_s + 2 * kNatKTile;  // then k_full[2], v_full[2], k_empty[2], v_empty[2]
+  const uint32_t k_full = q_full + 8, v_full = q_full + 24;
+  const uint32_t k_empty = q_full + 40, v_empty = q_full + 56;
+
+  const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest query tiles first
+  const int qh = head_pair();                 // b * Hq + h
+  if (qh >= n_heads) return;
+  const int h = qh % Hq, b = qh / Hq;
+  const int kh = b * Hk + h / (Hq / Hk);
+  const int q0 = qt * kBq;
+  const int q_rows = min(kBq, Sq - q0);
+  const int offset = Sk - Sq;
+  const int nk = (Sk + kNatBk - 1) / kNatBk;
+  int kt_hi = nk;
+  if (causal) {
+    const int row_hi = q0 + q_rows - 1 + offset;
+    kt_hi = row_hi < 0 ? 0 : min(nk, row_hi / kNatBk + 1);
+  }
+  int kt_lo = 0;
+  if (window >= 0) {
+    const int first_col = q0 + offset - window + 1;
+    kt_lo = first_col <= 0 ? 0 : first_col / kNatBk;
+  }
+  const int n_tiles = kt_hi - kt_lo;
+  const int nb = (d + 63) / 64;  // boxes of a row that hold columns of the head
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(k_full + 8 * s, 1);
+      mbar_init(v_full + 8 * s, 1);
+      mbar_init(k_empty + 8 * s, 4 * kWG);  // one arrival per warp
+      mbar_init(v_empty + 8 * s, 4 * kWG);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  // Key tile i's K (or V) into stage i % 2 (thread 0 only).
+  auto load_k = [&](int i) {
+    const int s = i & 1, k0 = (kt_lo + i) * kNatBk;
+    mbar_expect_tx(k_full + 8 * s, nb * kNatKBox);
+    for (int x = 0; x < nb; ++x)
+      tma_load(k_s + s * kNatKTile + x * kNatKBox, &tk, k_full + 8 * s, 64 * x, k0, kh);
+  };
+  auto load_v = [&](int i) {
+    const int s = i & 1, k0 = (kt_lo + i) * kNatBk;
+    mbar_expect_tx(v_full + 8 * s, nb * kNatKBox);
+    for (int x = 0; x < nb; ++x)
+      tma_load(v_s + s * kNatKTile + x * kNatKBox, &tv, v_full + 8 * s, 64 * x, k0, kh);
+  };
+  if (tid == 0 && n_tiles > 0) {
+    mbar_expect_tx(q_full, nb * kNatQBox);
+    for (int x = 0; x < nb; ++x) tma_load(q_s + x * kNatQBox, &tq, q_full, 64 * x, q0, qh);
+    for (int i = 0; i < 2 && i < n_tiles; ++i) {
+      load_k(i);
+      load_v(i);
+    }
+  }
+
+  // warpgroup wg owns query rows q0 + 64 wg .. + 63
+  const int wg = warp / 4, wwarp = warp % 4;
+  float acc_o[kNatCols / 2];
+#pragma unroll
+  for (int e = 0; e < kNatCols / 2; ++e) acc_o[e] = 0.f;
+  float acc_s[32];
+#pragma unroll
+  for (int e = 0; e < 32; ++e) acc_s[e] = 0.f;  // overwritten (scale-d 0)
+  uint32_t pa[16];
+  float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
+  const float scale_l2 = scale * kLog2e;
+  const float cap_l2 = softcap * kLog2e, scale_cap = scale / softcap;
+  const int c_lane = 2 * (lane % 4);
+  const int wrow_lo = q0 + 64 * wg + offset, wrow_hi = wrow_lo + 63;  // the warpgroup's rows
+  const int row0 = wrow_lo + 16 * wwarp + lane / 4;  // this thread's rows: row0, row0 + 8
+  const uint32_t q_wg = q_s + wg * 64 * 128;
+
+  // S = Q K_i^T, issued and committed
+  auto issue_s = [&](int i) {
+    const int s = i & 1;
+    mbar_wait(k_full + 8 * s, (i >> 1) & 1);
+    const uint32_t ks = opaque(k_s + s * kNatKTile), qs = opaque(q_wg);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kNatCols / 16; ++kk) {
+      if (16 * kk >= d) break;  // the slices past d are zeros
+      wgmma_ss_n64(acc_s, k_major(qs, kNatQBox, kk), k_major(ks, kNatKBox, kk), kk > 0);
+    }
+    wgmma_commit();
+  };
+  // O += P V_i with P in pa, issued and committed
+  auto issue_pv = [&](int i) {
+    const int s = i & 1;
+    mbar_wait(v_full + 8 * s, (i >> 1) & 1);
+    const uint32_t vs = opaque(v_s + s * kNatKTile);
+    wgmma_fence();
+    if (nb == kNatBoxes) {
+#pragma unroll
+      for (int kk = 0; kk < kNatBk / 16; ++kk)
+        wgmma_rs_n256(acc_o, pa + 4 * kk, mn_major(vs, kNatKBox, kk));
+    } else {  // a box of 64 columns at a time: three boxes hold d (136-192)
+#pragma unroll
+      for (int kk = 0; kk < kNatBk / 16; ++kk) {
+        wgmma_rs_n64_box<0>(acc_o, pa + 4 * kk, mn_major(vs, kNatKBox, kk));
+        wgmma_rs_n64_box<1>(acc_o, pa + 4 * kk, mn_major(vs + kNatKBox, kNatKBox, kk));
+        wgmma_rs_n64_box<2>(acc_o, pa + 4 * kk, mn_major(vs + 2 * kNatKBox, kNatKBox, kk));
+      }
+    }
+    wgmma_commit();
+  };
+  auto release = [&](uint32_t bar) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar);
+  };
+  // scale (log2 units), softcap, mask and the online softmax of tile i's S
+  // (waited for): P into pn, the row maxima moved, l rescaled and summed;
+  // alpha = exp(m_old - m_new) for O
+  auto softmax = [&](int i, uint32_t (&pn)[16], float (&alpha)[2]) {
+    const int k0 = (kt_lo + i) * kNatBk;
+    if (softcap > 0.f) {
+#pragma unroll
+      for (int e = 0; e < 32; ++e) acc_s[e] = cap_l2 * tanhf(acc_s[e] * scale_cap);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 32; ++e) acc_s[e] *= scale_l2;
+    }
+    const bool need_mask = k0 + kNatBk > Sk || (causal && k0 + kNatBk - 1 > wrow_lo) ||
+                           (window >= 0 && k0 <= wrow_hi - window);
+    if (need_mask) {
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int col = k0 + 8 * (e / 4) + c_lane + (e & 1);
+        const int row = row0 + 8 * ((e / 2) & 1);
+        const bool ok = col < Sk && (!causal || col <= row) && (window < 0 || col > row - window);
+        acc_s[e] = ok ? acc_s[e] : kNeg;
+      }
+    }
+    float mx[2] = {kNeg, kNeg};
+#pragma unroll
+    for (int e = 0; e < 32; ++e) mx[(e / 2) & 1] = fmaxf(mx[(e / 2) & 1], acc_s[e]);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m_new = fmaxf(m[r], quad_max(mx[r]));
+      alpha[r] = exp2f(m[r] - m_new);
+      m[r] = m_new;
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int e = 0; e < 32; e += 2) {
+      const int r = (e / 2) & 1;
+      const float p0 = acc_s[e] > 0.5f * kNeg ? exp2f(acc_s[e] - m[r]) : 0.f;
+      const float p1 = acc_s[e + 1] > 0.5f * kNeg ? exp2f(acc_s[e + 1] - m[r]) : 0.f;
+      l[r] += p0 + p1;
+      pn[e / 2] = pack_bf16(p0, p1);
+    }
+  };
+
+  if (n_tiles > 0) {
+    mbar_wait(q_full, 0);
+    float alpha[2];
+    issue_s(0);
+    wgmma_wait<0>();
+    fence_regs(acc_s);
+    release(k_empty);
+    softmax(0, pa, alpha);  // O is zero: nothing to rescale
+    for (int i = 1; i < n_tiles; ++i) {
+      // K_{i+1} into the stage K_{i-1} (released at tile i - 1) used
+      if (tid == 0 && i + 1 < n_tiles) {
+        mbar_wait(k_empty + 8 * ((i + 1) & 1), ((i - 1) >> 1) & 1);
+        load_k(i + 1);
+      }
+      __syncwarp();
+      issue_s(i);
+      issue_pv(i - 1);
+      wgmma_wait<1>();  // S_i is in; P_{i-1} V_{i-1} may still run
+      fence_regs(acc_s);
+      release(k_empty + 8 * (i & 1));
+      uint32_t pn[16];
+      softmax(i, pn, alpha);
+      wgmma_wait<0>();
+      fence_regs(acc_o);
+      fence_regs(pa);
+      release(v_empty + 8 * ((i - 1) & 1));
+      // V_{i+1} into the stage V_{i-1}, released just now, used
+      if (tid == 0 && i + 1 < n_tiles) {
+        mbar_wait(v_empty + 8 * ((i + 1) & 1), ((i - 1) >> 1) & 1);
+        load_v(i + 1);
+      }
+      __syncwarp();
+#pragma unroll
+      for (int e = 0; e < kNatCols / 2; ++e) acc_o[e] *= alpha[(e / 2) & 1];
+#pragma unroll
+      for (int e = 0; e < 16; ++e) pa[e] = pn[e];
+    }
+    issue_pv(n_tiles - 1);
+    wgmma_wait<0>();
+    fence_regs(acc_o);
+    fence_regs(pa);
+  }
+
+  float inv[2], l_row[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_row[r] = quad_sum(l[r]);
+    inv[r] = 1.f / fmaxf(l_row[r], 1e-30f);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int rr = 64 * wg + 16 * wwarp + lane / 4 + 8 * r;
+    if (rr >= q_rows) continue;
+    if (lse != nullptr && lane % 4 == 0)
+      lse[static_cast<size_t>(qh) * Sq + q0 + rr] =
+          l_row[r] > 0.f ? (m[r] + log2f(l_row[r])) / kLog2e : INFINITY;
+    __nv_bfloat16* orow = o + (static_cast<size_t>(qh) * Sq + q0 + rr) * d + c_lane;
+#pragma unroll
+    for (int j = 0; j < kNatCols / 8; ++j) {
+      if (8 * j >= d) break;  // the row's own d columns only
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
+          __floats2bfloat162_rn(acc_o[4 * j + 2 * r] * inv[r], acc_o[4 * j + 2 * r + 1] * inv[r]);
+    }
+  }
+}
+
+template <int kWG>
+int launch_wgmma_256(const void* q, const void* k, const void* v, void* o, float* lse,
+                     float* /*part: f32 only*/, int B, int Hq, int Hk, int Sq, int Sk, int d,
+                     int causal, int window, float softcap, float scale, int /*n_split: 1*/,
+                     cudaStream_t stream) {
+  constexpr int kSmem = native_smem_bytes<kWG>();
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_fwd_wgmma_256<kWG>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
+  }
+  CUtensorMap tq, tk, tv;
+  int err = encode(&tq, q, d, Sq, B * Hq, 64 * kWG);
+  if (err == 0) err = encode(&tk, k, d, Sk, B * Hk, kNatBk);
+  if (err == 0) err = encode(&tv, v, d, Sk, B * Hk, kNatBk);
+  if (err != 0) return err;
+  const dim3 grid = head_grid((Sq + 64 * kWG - 1) / (64 * kWG), Hq, B);
+  flash_fwd_wgmma_256<kWG><<<grid, 128 * kWG, kSmem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, B * Hq, Hq, Hk, Sq, Sk, d, causal, window,
+      softcap, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // ========================================================== entry point
 
 using Launch = int (*)(const void*, const void*, const void*, void*, float*, float*, int, int,
@@ -1193,8 +1508,9 @@ struct Variant {
 // (kernels/flash_attention.py kernel_plan) picks those three; the key tile,
 // threads and shared memory are the instantiation's own.  D = 64, 96 and
 // 128 have their own; every other D with D % 8 == 0 up to 128 takes the
-// first `any` row whose width holds it (kernel_width in the plan), and
-// every D % 8 == 0 past 128 the wide row of its dtype (d = 0).
+// first `any` row whose width holds it (kernel_width in the plan); bf16
+// widths 136-256 the native row (d 256, block_q 128), and every other D %
+// 8 == 0 past 128 the wide row of its dtype (d = 0).
 constexpr Variant kVariants[] = {
     {1, 64, 64, kBk, 128, wgmma_smem_bytes<64, 1>(), false, launch_wgmma<64, 1, false>},
     {1, 64, 128, kBk, 256, wgmma_smem_bytes<64, 2>(), false, launch_wgmma<64, 2, false>},
@@ -1213,14 +1529,23 @@ constexpr Variant kVariants[] = {
     {0, 128, kCcRows, kCcRows, kCcThreads, f32_smem_bytes<128>(), true, launch_f32<128, true>},
     {1, 0, 64, 64, 128, wide_smem_bytes(0), true, launch_wgmma_wide},
     {0, 0, kCcRows, kCcRows, kCcThreads, f32_wide_smem_bytes(), true, launch_f32_wide},
+    {1, kNatCols, 64, kNatBk, 128, native_smem_bytes<1>(), true, launch_wgmma_256<1>},
+    {1, kNatCols, 128, kNatBk, 256, native_smem_bytes<2>(), true, launch_wgmma_256<2>},
 };
+
+// Whether row x runs head width D of dtype: bf16 widths 136-256 the native
+// row (d 256), the others past 128 the wide row (d 0), narrower ones as the
+// table's comment says.
+bool takes(const Variant& x, int dtype, int D) {
+  if (D > kNatCols || (D > 128 && dtype == 0)) return x.d == 0;
+  if (D > 128) return x.d == kNatCols;
+  return x.d != 0 && x.d <= 128 && (x.any ? D <= x.d : D == x.d);
+}
 
 const Variant* find(int dtype, int D, int block_q) {
   if (D < 8 || D % 8 != 0) return nullptr;
   for (const Variant& x : kVariants)
-    if (x.dtype == dtype && x.block_q == block_q &&
-        (D > 128 ? x.d == 0 : x.any ? D <= x.d : D == x.d))
-      return &x;
+    if (x.dtype == dtype && x.block_q == block_q && takes(x, dtype, D)) return &x;
   return nullptr;
 }
 

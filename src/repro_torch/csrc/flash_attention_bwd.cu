@@ -163,7 +163,7 @@
 //   and dO with zero columns and slices dq, dk and dv back: zero columns of
 //   v and dO give zero columns of dq, dk and dv, and add zeros to dP).
 // * Every kernel reads its (batch, head) pair from the grid's y and z,
-//   folded where a count passes 65,535 (flash_wide.cuh head_grid).
+//   folded where a count passes 65,535 (grid_fold.cuh head_grid).
 //
 // The C entry point launches on the caller's stream, does not synchronise,
 // and returns the first cudaGetLastError() that is not 0 (checked after
@@ -1538,6 +1538,458 @@ bwd_dq_cc_wide(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// ============================== bf16 widths 136-256: the native kernels
+//
+// No column slices: every product over the head's whole width (up to 256
+// columns, 64-column boxes, ceil(d / 64) of them loaded), each formed once
+// a tile.  Two warpgroups a block, 256 threads; thread 0 issues the TMA
+// loads, as the narrow kernels'.  Columns of an accumulator past the loaded
+// boxes read stale shared memory and are never stored.
+//
+// (b) bwd_dkdv_wgmma_256: a block owns 64 keys of kv head (b, hk), K and V
+// resident, and streams 64-row tiles of Q and dO (two stages) of the query
+// heads of its GQA group in its share (head_split shares a group, each a
+// block of its own, where the grid would fill fewer than two waves).
+// Warpgroup 0 forms S^T = K Q^T, P^T and owns dV += P^T dO (64 x 256 f32,
+// 128 registers a thread); warpgroup 1 forms dP^T = V dO^T and owns
+// dK += dS^T Q.  P^T times the softcap's factor passes from 0 to 1 through
+// shared memory in f32 (16 KB, two buffers, named barriers ready and
+// consumed), so each product is formed once a tile.  One share writes dK
+// (scaled) and dV in bf16; with shares, each writes its unscaled f32 part
+// and dkdv_combine adds the parts in share order.
+// (c) bwd_dq_wgmma_256: a block owns 128 query rows, 64 a warpgroup, Q and
+// dO resident; K in two stages, V in one (released as soon as dP is in, and
+// the next one loaded while dS and dQ += dS K run).  S and dP over the whole
+// width, dQ (64 x 256 f32) in registers.
+constexpr int kNatCols = 256;
+constexpr int kNatBoxes = kNatCols / 64;
+constexpr uint32_t kNatBox = 64 * 128;              // a 64-row box
+constexpr uint32_t kNatTile = kNatBoxes * kNatBox;  // a 64-row tile, 32 KB
+constexpr int kNatThreads = 256;
+
+// 1 KB of alignment, K, V, two stages of Q and dO, two f32 P^T buffers,
+// each warpgroup's two stages of 64 lse or delta, five mbarriers.
+constexpr int dkdv_256_smem_bytes() {
+  return 1024 + static_cast<int>(6 * kNatTile) + 2 * 32 * 128 * 4 + 4 * 64 * 4 + 64;
+}
+// 1 KB of alignment, Q and dO of 128 rows, two stages of K, one of V, seven
+// mbarriers, the rows' lse and delta.
+constexpr int dq_256_smem_bytes() {
+  return 1024 + static_cast<int>(4 * kNatTile + 3 * kNatTile) + 64 + 2 * 128 * 4;
+}
+
+// Named barriers between the two warpgroups of a native block (ids 3-6;
+// 1 and 2 are warpgroup_sync's): one warpgroup arrives, the other waits.
+// The id is an immediate, so that ptxas reserves seven barriers.
+template <int kId>
+__device__ __forceinline__ void named_sync() {
+  asm volatile("bar.sync %0, 256;" ::"n"(kId) : "memory");
+}
+template <int kId>
+__device__ __forceinline__ void named_arrive() {
+  asm volatile("bar.arrive %0, 256;" ::"n"(kId) : "memory");
+}
+
+// acc (64 x 64) = A B^T over d columns, A and B two 64-row tiles of 64-column
+// boxes of `box` bytes, K-major.
+__device__ __forceinline__ void product_abt_256(float (&acc)[32], uint32_t a, uint32_t a_box,
+                                                uint32_t b, int d) {
+#pragma unroll
+  for (int kk = 0; kk < kNatCols / 16; ++kk) {
+    if (16 * kk >= d) break;
+    wgmma_ss_n64(acc, k_major(a, a_box, kk), k_major(b, kNatBox, kk), kk > 0);
+  }
+}
+
+// acc (64 x 256) += X B, X (64 x 64) as bf16 A fragments, B a 64-row tile,
+// MN-major.
+__device__ __forceinline__ void product_xb_256(float (&acc)[128], const uint32_t (&x)[16],
+                                               uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_rs_n256(acc, x + 4 * kk, mn_major(b, kNatBox, kk));
+}
+
+__global__ void __launch_bounds__(kNatThreads, 1)
+bwd_dkdv_wgmma_256(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv,
+                   const __grid_constant__ CUtensorMap tdo, const float* __restrict__ lse,
+                   const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
+                   __nv_bfloat16* __restrict__ dv, float* __restrict__ part, int n_heads, int Hq,
+                   int Hk, int d, Mask mask, float softcap, float scale, int head_split) {
+  extern __shared__ uint8_t smem[];
+  const uint32_t base = smem_u32(smem);
+  const uint32_t k_s = (base + 1023u) & ~1023u;
+  const uint32_t v_s = k_s + kNatTile;
+  const uint32_t q_s = v_s + kNatTile;         // stage s at q_s + s * kNatTile
+  const uint32_t do_s = q_s + 2 * kNatTile;
+  const uint32_t p_s = do_s + 2 * kNatTile;    // buffer s: 32 x 128 floats
+  const uint32_t stats_s = p_s + 2 * 32 * 128 * 4;  // warpgroup w, stage s: 64 floats
+  const uint32_t kv_full = stats_s + 4 * 64 * 4;
+  const uint32_t full = kv_full + 8, empty = kv_full + 24;  // [2] each
+  float* pbuf = reinterpret_cast<float*>(smem + (p_s - base));
+  float* stats = reinterpret_cast<float*>(smem + (stats_s - base));
+
+  const int kvh = head_pair();  // b * Hk + hk
+  if (kvh >= n_heads) return;
+  const int hk = kvh % Hk, b = kvh / Hk, group = Hq / Hk;
+  const int share = blockIdx.x % head_split;
+  const int k0 = blockIdx.x / head_split * 64;  // causal: the first key blocks are the heaviest
+  const int per = (group + head_split - 1) / head_split;
+  const int h_lo = min(group, share * per), h_hi = min(group, h_lo + per);
+  int qt_lo, qt_hi;
+  mask.query_tiles(k0, 64, kTile, &qt_lo, &qt_hi);
+  const int nq = qt_hi - qt_lo, n_tiles = (h_hi - h_lo) * nq;
+  const int nb = (d + 63) / 64;
+  auto tile_head = [&](int i) { return b * Hq + hk * group + h_lo + i / nq; };
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128, warp = (tid / 32) % 4, lane = tid % 32, t = tid % 128;
+  if (tid == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 8);  // one arrival per warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  auto load_q = [&](int i) {  // tile i's Q and dO into stage i % 2 (thread 0)
+    const int s = i & 1, qh = tile_head(i), q0 = (qt_lo + i % nq) * kTile;
+    mbar_expect_tx(full + 8 * s, 2 * nb * kNatBox);
+    for (int x = 0; x < nb; ++x) {
+      tma_load(q_s + s * kNatTile + x * kNatBox, &tq, full + 8 * s, 64 * x, q0, qh);
+      tma_load(do_s + s * kNatTile + x * kNatBox, &tdo, full + 8 * s, 64 * x, q0, qh);
+    }
+  };
+  if (tid == 0 && n_tiles > 0) {
+    mbar_expect_tx(kv_full, 2 * nb * kNatBox);
+    for (int x = 0; x < nb; ++x) {
+      tma_load(k_s + x * kNatBox, &tk, kv_full, 64 * x, k0, kvh);
+      tma_load(v_s + x * kNatBox, &tv, kv_full, 64 * x, k0, kvh);
+    }
+    load_q(0);
+  }
+
+  // Thread t < 64 of warpgroup 0 carries tile i's lse of query row t, of
+  // warpgroup 1 its delta: +inf and 0 past Sq, so P is 0 on those columns.
+  const float* stat_src = wg == 0 ? lse : delta;
+  auto stat = [&](int i) {
+    const int qi = (qt_lo + i % nq) * kTile + t;
+    return qi < mask.Sq ? stat_src[static_cast<size_t>(tile_head(i)) * mask.Sq + qi]
+                        : (wg == 0 ? INFINITY : 0.f);
+  };
+  float next = n_tiles > 0 && t < 64 ? stat(0) : 0.f;
+
+  float acc[kNatCols / 2];  // dV (warpgroup 0) or dK (warpgroup 1)
+#pragma unroll
+  for (int e = 0; e < kNatCols / 2; ++e) acc[e] = 0.f;
+  float st[32];  // S^T, then P^T (0); dP^T, then dS^T (1)
+#pragma unroll
+  for (int e = 0; e < 32; ++e) st[e] = 0.f;  // overwritten (scale-d 0)
+  const float scale_l2 = scale * kLog2e;
+  const float cap_l2 = softcap * kLog2e, scale_cap = scale / softcap;
+  const int c_lane = 2 * (lane % 4);
+  const int key0 = k0 + 16 * warp + lane / 4;  // this thread's rows: key0, key0 + 8
+
+  if (n_tiles > 0) mbar_wait(kv_full, 0);
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i & 1;
+    const int q0 = (qt_lo + i % nq) * kTile;
+    if (tid == 0 && i + 1 < n_tiles) {
+      // tile i - 1 used the stage tile i + 1 goes to
+      if (i >= 1) mbar_wait(empty + 8 * ((i + 1) & 1), ((i - 1) >> 1) & 1);
+      load_q(i + 1);
+    }
+    __syncwarp();
+    // this tile's lse (log2 units) or delta into the warpgroup's stage s
+    // (read two tiles ago), the next tile's on their way from memory
+    float* tile_stats = stats + (2 * wg + s) * 64;
+    if (t < 64) {
+      tile_stats[t] = wg == 0 ? next * kLog2e : next;
+      if (i + 1 < n_tiles) next = stat(i + 1);
+    }
+    warpgroup_sync(wg);
+
+    mbar_wait(full + 8 * s, (i >> 1) & 1);
+    __syncwarp();
+    const uint32_t q_t = opaque(q_s + s * kNatTile), do_t = opaque(do_s + s * kNatTile);
+    wgmma_fence();
+    if (wg == 0)
+      product_abt_256(st, opaque(k_s), kNatBox, q_t, d);  // S^T = K Q^T
+    else
+      product_abt_256(st, opaque(v_s), kNatBox, do_t, d);  // dP^T = V dO^T
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(st);
+    float* pb = pbuf + s * 32 * 128;
+    uint32_t fa[16];
+    if (wg == 0) {
+      // P^T (keys are rows, the tile's queries columns), P^T times the
+      // softcap's factor to warpgroup 1, then dV += P^T dO
+      if (i >= 2) {  // warpgroup 1 is done with buffer s
+        if (s == 0) named_sync<5>(); else named_sync<6>();
+      }
+      const bool masked = mask.cuts(q0, k0);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 lse2 = *reinterpret_cast<const float2*>(tile_stats + 8 * j + c_lane);
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          float p[2];
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int e = 4 * j + 2 * hh + c;
+            float x, fac = 1.f;
+            if (softcap > 0.f) {
+              const float th = tanhf(st[e] * scale_cap);
+              x = cap_l2 * th;
+              fac = 1.f - th * th;
+            } else {
+              x = st[e] * scale_l2;
+            }
+            p[c] = exp2f(x - (c ? lse2.y : lse2.x));
+            if (masked && !mask.ok(q0 + 8 * j + c_lane + c, key0 + 8 * hh)) p[c] = 0.f;
+            pb[e * 128 + t] = p[c] * fac;
+          }
+          fa[2 * j + hh] = pack_bf16(p[0], p[1]);
+        }
+      }
+      if (s == 0) named_arrive<3>(); else named_arrive<4>();  // buffer s holds P^T
+      wgmma_fence();
+      product_xb_256(acc, fa, do_t);  // dV += P^T dO
+      wgmma_commit();
+    } else {
+      // dS^T = P^T (dP^T - delta), then dK += dS^T Q
+      if (s == 0) named_sync<3>(); else named_sync<4>();
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 dlt2 = *reinterpret_cast<const float2*>(tile_stats + 8 * j + c_lane);
+#pragma unroll
+        for (int e = 4 * j; e < 4 * j + 4; ++e)
+          st[e] = pb[e * 128 + t] * (st[e] - (e & 1 ? dlt2.y : dlt2.x));
+      }
+      if (i + 2 < n_tiles) {  // buffer s is free for tile i + 2
+        if (s == 0) named_arrive<5>(); else named_arrive<6>();
+      }
+#pragma unroll
+      for (int e = 0; e < 16; ++e) fa[e] = pack_bf16(st[2 * e], st[2 * e + 1]);
+      wgmma_fence();
+      product_xb_256(acc, fa, q_t);  // dK += dS^T Q
+      wgmma_commit();
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    fence_regs(fa);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * s);
+  }
+
+  const size_t n_all = static_cast<size_t>(n_heads) * mask.Sk * d;
+  const float f = head_split == 1 && wg == 1 ? scale : 1.f;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = key0 + 8 * r;
+    if (key >= mask.Sk) continue;
+    const size_t row = (static_cast<size_t>(kvh) * mask.Sk + key) * d + c_lane;
+    __nv_bfloat16* out = wg == 0 ? dv : dk;
+    float* pout = part + (static_cast<size_t>(wg) * head_split + share) * n_all;
+#pragma unroll
+    for (int j = 0; j < kNatCols / 8; ++j) {
+      if (8 * j >= d) break;  // the row's own d columns only
+      const float2 v2 = make_float2(acc[4 * j + 2 * r] * f, acc[4 * j + 2 * r + 1] * f);
+      if (head_split == 1)
+        *reinterpret_cast<__nv_bfloat162*>(out + row + 8 * j) = __float22bfloat162_rn(v2);
+      else
+        *reinterpret_cast<float2*>(pout + row + 8 * j) = v2;
+    }
+  }
+}
+
+// dV and dK (times scale) in bf16 from the shares' f32 parts, added in share
+// order: part [2 (dV, dK)][shares][n], n = B * Hk * Sk * d, 4 elements a
+// thread.
+__global__ void __launch_bounds__(256)
+dkdv_combine(const float* __restrict__ part, __nv_bfloat16* __restrict__ dk,
+             __nv_bfloat16* __restrict__ dv, size_t n, int shares, float scale) {
+  const size_t e = (static_cast<size_t>(blockIdx.x) * 256 + threadIdx.x) * 4;
+  if (e >= 2 * n) return;
+  const int which = e >= n;  // 0 dV, 1 dK
+  const size_t i = e - which * n;
+  const float* src = part + static_cast<size_t>(which) * shares * n + i;
+  float4 acc = *reinterpret_cast<const float4*>(src);
+  for (int s = 1; s < shares; ++s) {
+    const float4 x = *reinterpret_cast<const float4*>(src + s * n);
+    acc = make_float4(acc.x + x.x, acc.y + x.y, acc.z + x.z, acc.w + x.w);
+  }
+  const float f = which ? scale : 1.f;
+  __nv_bfloat16* out = (which ? dk : dv) + i;
+  *reinterpret_cast<uint2*>(out) =
+      make_uint2(pack_bf16(acc.x * f, acc.y * f), pack_bf16(acc.z * f, acc.w * f));
+}
+
+__global__ void __launch_bounds__(kNatThreads, 1)
+bwd_dq_wgmma_256(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                 const float* __restrict__ lse, const float* __restrict__ delta,
+                 __nv_bfloat16* __restrict__ dq, int n_heads, int Hq, int Hk, int d, Mask mask,
+                 float softcap, float scale) {
+  constexpr uint32_t kQBox = 128 * 128;  // a 128-row box of Q or dO
+  extern __shared__ uint8_t smem[];
+  const uint32_t q_s = (smem_u32(smem) + 1023u) & ~1023u;
+  const uint32_t do_s = q_s + kNatBoxes * kQBox;
+  const uint32_t k_s = do_s + kNatBoxes * kQBox;  // stage s at k_s + s * kNatTile
+  const uint32_t v_s = k_s + 2 * kNatTile;
+  const uint32_t qd_full = v_s + kNatTile;
+  const uint32_t k_full = qd_full + 8, k_empty = qd_full + 24;  // [2] each
+  const uint32_t v_full = qd_full + 40, v_empty = qd_full + 48;
+  // the block's rows' lse (log2 units) and delta: in shared memory, not in
+  // registers, which dQ (128 a thread), S, dP and dS fill
+  float* rows_lse = reinterpret_cast<float*>(smem + (qd_full + 64 - smem_u32(smem)));
+  float* rows_delta = rows_lse + 128;
+
+  const int qh = head_pair();  // b * Hq + h
+  if (qh >= n_heads) return;
+  const int h = qh % Hq, b = qh / Hq;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * 128;  // heaviest query blocks first
+  const int q_rows = min(128, mask.Sq - q0);
+  const int kvh = b * Hk + h / (Hq / Hk);
+  int kt_lo, kt_hi;
+  mask.key_tiles(q0, q_rows, kTile, &kt_lo, &kt_hi);  // the block's 128 rows
+  const int n_tiles = kt_hi - kt_lo;
+  const int nb = (d + 63) / 64;
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128, warp = (tid / 32) % 4, lane = tid % 32;
+  if (tid == 0) {
+    mbar_init(qd_full, 1);
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(k_full + 8 * s, 1);
+      mbar_init(k_empty + 8 * s, 8);  // one arrival per warp
+    }
+    mbar_init(v_full, 1);
+    mbar_init(v_empty, 8);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  auto load_k = [&](int i) {  // key tile i's K into stage i % 2 (thread 0)
+    const int s = i & 1, j0 = (kt_lo + i) * kTile;
+    mbar_expect_tx(k_full + 8 * s, nb * kNatBox);
+    for (int x = 0; x < nb; ++x)
+      tma_load(k_s + s * kNatTile + x * kNatBox, &tk, k_full + 8 * s, 64 * x, j0, kvh);
+  };
+  auto load_v = [&](int i) {  // key tile i's V (thread 0)
+    const int j0 = (kt_lo + i) * kTile;
+    mbar_expect_tx(v_full, nb * kNatBox);
+    for (int x = 0; x < nb; ++x) tma_load(v_s + x * kNatBox, &tv, v_full, 64 * x, j0, kvh);
+  };
+  if (tid == 0 && n_tiles > 0) {
+    mbar_expect_tx(qd_full, 2 * nb * kQBox);
+    for (int x = 0; x < nb; ++x) {
+      tma_load(q_s + x * kQBox, &tq, qd_full, 64 * x, q0, qh);
+      tma_load(do_s + x * kQBox, &tdo, qd_full, 64 * x, q0, qh);
+    }
+    load_k(0);
+    load_v(0);
+  }
+
+  const int qw0 = q0 + 64 * wg;                 // this warpgroup's rows
+  const int row0 = qw0 + 16 * warp + lane / 4;  // this thread's rows: row0, row0 + 8
+  const int rl = 64 * wg + 16 * warp + lane / 4;  // row0 within the block
+  if (tid < 128) {
+    const int qi = q0 + tid;
+    const size_t at = static_cast<size_t>(qh) * mask.Sq + qi;
+    rows_lse[tid] = qi < mask.Sq ? lse[at] * kLog2e : INFINITY;
+    rows_delta[tid] = qi < mask.Sq ? delta[at] : 0.f;
+  }
+  __syncthreads();
+  float acc_dq[kNatCols / 2];
+#pragma unroll
+  for (int e = 0; e < kNatCols / 2; ++e) acc_dq[e] = 0.f;
+  float sc[32], dp[32];
+#pragma unroll
+  for (int e = 0; e < 32; ++e) sc[e] = dp[e] = 0.f;  // overwritten (scale-d 0)
+  const float scale_l2 = scale * kLog2e;
+  const float cap_l2 = softcap * kLog2e, scale_cap = scale / softcap;
+  const int c_lane = 2 * (lane % 4);
+  const uint32_t q_wg = q_s + wg * 64 * 128, do_wg = do_s + wg * 64 * 128;
+
+  if (n_tiles > 0) mbar_wait(qd_full, 0);
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i & 1;
+    const int j0 = (kt_lo + i) * kTile;
+    if (tid == 0 && i + 1 < n_tiles) {
+      if (i >= 1) mbar_wait(k_empty + 8 * ((i + 1) & 1), ((i - 1) >> 1) & 1);
+      load_k(i + 1);
+    }
+    __syncwarp();
+    // S = Q K^T and dP = dO V^T: the warpgroup's queries are rows
+    mbar_wait(k_full + 8 * s, (i >> 1) & 1);
+    const uint32_t k_t = opaque(k_s + s * kNatTile);
+    wgmma_fence();
+    product_abt_256(sc, opaque(q_wg), kQBox, k_t, d);
+    wgmma_commit();
+    mbar_wait(v_full, i & 1);
+    product_abt_256(dp, opaque(do_wg), kQBox, opaque(v_s), d);
+    wgmma_commit();
+
+    // P from S while dP runs, then dS
+    wgmma_wait<1>();
+    fence_regs(sc);
+    const bool masked = j0 + kTile > mask.Sk || mask.cuts(qw0, j0);
+    const float lse_r[2] = {rows_lse[rl], rows_lse[rl + 8]};
+    if (softcap > 0.f) {
+      if (masked)
+        dq_probs<true, true>(sc, lse_r, mask, row0, j0 + c_lane, scale_l2, scale_cap, cap_l2);
+      else
+        dq_probs<true, false>(sc, lse_r, mask, row0, j0 + c_lane, scale_l2, scale_cap, cap_l2);
+    } else {
+      if (masked)
+        dq_probs<false, true>(sc, lse_r, mask, row0, j0 + c_lane, scale_l2, scale_cap, cap_l2);
+      else
+        dq_probs<false, false>(sc, lse_r, mask, row0, j0 + c_lane, scale_l2, scale_cap, cap_l2);
+    }
+    wgmma_wait<0>();
+    fence_regs(dp);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(v_empty);  // V is free: the next one loads
+    if (tid == 0 && i + 1 < n_tiles) {
+      mbar_wait(v_empty, i & 1);
+      load_v(i + 1);
+    }
+    __syncwarp();
+    const float delta_r[2] = {rows_delta[rl], rows_delta[rl + 8]};
+#pragma unroll
+    for (int e = 0; e < 32; ++e) dp[e] = sc[e] * (dp[e] - delta_r[(e >> 1) & 1]);
+
+    // dQ += dS K
+    uint32_t dsa[16];
+    to_fragments(dsa, dp);
+    wgmma_fence();
+    product_xb_256(acc_dq, dsa, k_t);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc_dq);
+    fence_regs(dsa);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(k_empty + 8 * s);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = row0 + 8 * r;
+    if (qi >= mask.Sq) continue;
+    __nv_bfloat16* out = dq + (static_cast<size_t>(qh) * mask.Sq + qi) * d + c_lane;
+#pragma unroll
+    for (int j = 0; j < kNatCols / 8; ++j) {
+      if (8 * j >= d) break;  // the row's own d columns only
+      *reinterpret_cast<__nv_bfloat162*>(out + 8 * j) =
+          __floats2bfloat162_rn(acc_dq[4 * j + 2 * r] * scale, acc_dq[4 * j + 2 * r + 1] * scale);
+    }
+  }
+}
+
 // =========================================================== launching
 
 struct Args {
@@ -1548,8 +2000,9 @@ struct Args {
   int B, Hq, Hk, d;
   Mask mask;
   float softcap, scale;
-  float* scratch;  // f32 dQ key splits: dq_split * B * Hq * Sq * d floats
-  int dq_split;
+  float* scratch;  // f32 dQ key splits: dq_split * B * Hq * Sq * d floats, or
+                   // the native dK/dV shares: 2 * head_split * B * Hk * Sk * d
+  int dq_split, head_split;
   cudaStream_t stream;
 };
 
@@ -1577,6 +2030,11 @@ int launch_delta(const Args& a) {
 // and bf16 past 128 columns (the wide kernels), take 64.
 void block_rows(int dtype, int B, int Hq, int Hk, int Sq, int Sk, int D, int n_sm, int* dkdv,
                 int* dq) {
+  if (dtype == 1 && D > 128 && D <= kNatCols) {  // the native kernels
+    *dkdv = 64;
+    *dq = 128;
+    return;
+  }
   if (dtype == 0 || D > 128) {
     *dkdv = *dq = kCcRows;
     return;
@@ -1711,6 +2169,46 @@ int launch_wide_wgmma(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// bf16 widths 136-256: the native kernels (dK/dV over 64-key blocks in
+// head_split shares, dQ over 128-row blocks), and dkdv_combine where the
+// shares write parts.
+int launch_wgmma_256(const Args& a) {
+  constexpr int kDkdv = dkdv_256_smem_bytes(), kDq = dq_256_smem_bytes();
+  static bool dkdv_ok = false, dq_ok = false;
+  const int hs = a.head_split;
+  if (hs < 1 || (hs > 1 && a.scratch == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
+  int err = launch_delta<__nv_bfloat16, 128, true>(a);
+  if (err == 0) err = allow_smem(bwd_dkdv_wgmma_256, kDkdv, &dkdv_ok);
+  if (err == 0) err = allow_smem(bwd_dq_wgmma_256, kDq, &dq_ok);
+  CUtensorMap tq, tk, tv, tdo;
+  if (err == 0) err = encode_all(a, 64, 64, &tq, &tk, &tv, &tdo);
+  if (err != 0) return err;
+  bwd_dkdv_wgmma_256<<<head_grid((a.mask.Sk + 63) / 64 * hs, a.Hk, a.B), kNatThreads, kDkdv,
+                       a.stream>>>(tq, tk, tv, tdo, a.lse, a.delta,
+                                   static_cast<__nv_bfloat16*>(a.dk),
+                                   static_cast<__nv_bfloat16*>(a.dv), a.scratch, a.B * a.Hk,
+                                   a.Hq, a.Hk, a.d, a.mask, a.softcap, a.scale, hs);
+  err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  if (hs > 1) {
+    const size_t n = static_cast<size_t>(a.B) * a.Hk * a.mask.Sk * a.d;
+    dkdv_combine<<<static_cast<unsigned>((2 * n / 4 + 255) / 256), 256, 0, a.stream>>>(
+        a.scratch, static_cast<__nv_bfloat16*>(a.dk), static_cast<__nv_bfloat16*>(a.dv), n, hs,
+        a.scale);
+    err = static_cast<int>(cudaGetLastError());
+    if (err != 0) return err;
+  }
+  CUtensorMap tq2, tdo2;  // Q and dO in boxes of the dQ block's 128 rows
+  err = encode(&tq2, a.q, a.d, a.mask.Sq, a.B * a.Hq, 128);
+  if (err == 0) err = encode(&tdo2, a.dout, a.d, a.mask.Sq, a.B * a.Hq, 128);
+  if (err != 0) return err;
+  bwd_dq_wgmma_256<<<head_grid((a.mask.Sq + 127) / 128, a.Hq, a.B), kNatThreads, kDq,
+                     a.stream>>>(tq2, tk, tv, tdo2, a.lse, a.delta,
+                                 static_cast<__nv_bfloat16*>(a.dq), a.B * a.Hq, a.Hq, a.Hk, a.d,
+                                 a.mask, a.softcap, a.scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 int launch_wide_cc(const Args& a) {
   using T = float;
   constexpr int kSmem = cc_wide_smem_bytes();
@@ -1754,8 +2252,9 @@ struct Variant {
 // rule of block_rows, the rows of each kernel's blocks; the other side's
 // tile, threads and shared memory are the instantiation's own.  D = 64, 96
 // and 128 have their own; every other D with D % 8 == 0 up to 128 takes the
-// first `any` row whose width holds it (kernel_width in the plan), and every
-// D % 8 == 0 past 128 the wide row of its dtype (d = 0).
+// first `any` row whose width holds it (kernel_width in the plan); bf16
+// widths 136-256 the native row (d 256), and every other D % 8 == 0 past
+// 128 the wide row of its dtype (d = 0).
 constexpr Variant kVariants[] = {
     {1, 64, 64, kTile, 128, dkdv_smem_bytes<64, 1>(), dq_smem_bytes<64, 1>(), false, launch_wgmma<64, false>},
     {1, 64, 128, kTile, 256, dkdv_smem_bytes<64, 2>(), dq_smem_bytes<64, 2>(), false, launch_wgmma<64, false>},
@@ -1780,14 +2279,24 @@ constexpr Variant kVariants[] = {
     {1, 0, 64, kTile, 128, wide_smem_bytes(1024), wide_smem_bytes(0), true, launch_wide_wgmma},
     {0, 0, kCcRows, kCcRows, kCcThreads, cc_wide_smem_bytes(), cc_wide_smem_bytes(), true,
      launch_wide_cc},
+    {1, kNatCols, 64, kTile, kNatThreads, dkdv_256_smem_bytes(), dq_256_smem_bytes(), true,
+     launch_wgmma_256},
 };
+
+// Whether row x runs head width D of dtype: bf16 widths 136-256 the native
+// row (d 256: dK/dV blocks of 64 keys, dQ blocks of 128 queries, either
+// asked for), the others past 128 the wide row (d 0), narrower ones as the
+// table's comment says.
+bool takes(const Variant& x, int dtype, int D, int rows) {
+  if (D > kNatCols || (D > 128 && dtype == 0)) return x.d == 0 && (rows < 0 || x.rows == rows);
+  if (D > 128) return x.d == kNatCols && (rows < 0 || rows == 64 || rows == 128);
+  return x.d != 0 && x.d <= 128 && (x.any ? D <= x.d : D == x.d) && (rows < 0 || x.rows == rows);
+}
 
 const Variant* find(int dtype, int D, int rows) {
   if (D < 8 || D % 8 != 0) return nullptr;
   for (const Variant& x : kVariants)
-    if (x.dtype == dtype && (D > 128 ? x.d == 0 : x.any ? D <= x.d : D == x.d) &&
-        (rows < 0 || x.rows == rows))
-      return &x;
+    if (x.dtype == dtype && takes(x, dtype, D, rows)) return &x;
   return nullptr;
 }
 
@@ -1822,15 +2331,21 @@ extern "C" int flash_attention_bwd_blocks(int B, int Hq, int Hk, int Sq, int Sk,
 // (the launch plan's; 1 for bf16): f32 dQ blocks split each query block's
 // keys dq_split ways and a fourth launch adds the splits up, through
 // scratch: f32, dq_split * B * Hq * Sq * D floats (null when dq_split is 1).
+// head_split (the plan's; 1 but for the native bf16 kernels of widths
+// 136-256): the dK/dV shares of a GQA group, whose f32 parts go through
+// scratch, 2 * head_split * B * Hk * Sk * D floats.
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                                    const void* dout, const float* lse, float* delta, void* dq,
                                    void* dk, void* dv, float* scratch, int B, int Hq, int Hk,
                                    int Sq, int Sk, int D, int dtype, int causal, int window,
-                                   float softcap, float scale, int dq_split, void* stream) {
+                                   float softcap, float scale, int dq_split, int head_split,
+                                   void* stream) {
   const Variant* x = find(dtype, D, -1);
-  if (x == nullptr || (dtype != 0 && dq_split != 1)) return static_cast<int>(cudaErrorInvalidValue);
+  if (x == nullptr || (dtype != 0 && dq_split != 1) ||
+      (x->launch != launch_wgmma_256 && head_split != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
   const Args a{q, k, v, o, dout, lse, delta, dq, dk, dv, B, Hq, Hk, D,
-               Mask{Sq, Sk, causal, window}, softcap, scale, scratch, dq_split,
+               Mask{Sq, Sk, causal, window}, softcap, scale, scratch, dq_split, head_split,
                static_cast<cudaStream_t>(stream)};
   return x->launch(a);
 }

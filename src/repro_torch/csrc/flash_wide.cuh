@@ -1,6 +1,5 @@
 // Pieces shared by the flash kernels (flash_attention.cu and
-// flash_attention_bwd.cu) for head widths past 128 columns, and the grid
-// fold of every flash kernel.
+// flash_attention_bwd.cu) for head widths past 128 columns.
 //
 // Column slices.  Attention's outputs split by columns: columns [c0, c0 +
 // w) of O, dQ, dK and dV need only the same columns of V, dO, Q or K; the
@@ -20,16 +19,13 @@
 // descriptors name them), with a full and an empty mbarrier a stage; f32
 // items by cp.async into two stages of two tiles (load_piece_async).
 //
-// The grid fold.  A flash kernel's grid puts query (or key) tiles, slices
-// and key splits on x, which holds 2^31 - 1, and the (batch, head) pairs on
-// y and z, which hold 65,535 each: (H, B) while both fit, else the pair's
-// index n = b * H + h folded as n = y + Y * z (head_grid).  Every kernel
-// reads its pair as blockIdx.y + gridDim.y * blockIdx.z, which is
-// h + H * b in both forms, and a block past the last pair returns.
+// The grid fold (head_grid, head_pair) is grid_fold.cuh's, shared with
+// the SSD kernels.
 
 #pragma once
 
 #include "cuda_cores.cuh"
+#include "grid_fold.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -45,19 +41,6 @@ constexpr uint32_t kWideStage = 2 * kWideTile;  // an item: two tiles
 // and empty of each stage), and `extra` bytes after them.
 __host__ __device__ constexpr int wide_smem_bytes(int extra) {
   return 1024 + kWideStages * static_cast<int>(kWideStage) + 64 + extra;
-}
-
-// The grid's y and z for H x B (batch, head) pairs (see the header).
-inline dim3 head_grid(unsigned x, int H, int B) {
-  if (H <= 65535 && B <= 65535) return dim3(x, H, B);
-  const long long n = static_cast<long long>(H) * B;
-  const unsigned y = n < 65535 ? static_cast<unsigned>(n) : 65535u;
-  return dim3(x, y, static_cast<unsigned>((n + y - 1) / y));
-}
-
-// The block's (batch, head) pair index, b * H + h.
-__device__ __forceinline__ int head_pair() {
-  return static_cast<int>(blockIdx.y + gridDim.y * blockIdx.z);
 }
 
 // The bf16 ring of a wide kernel: item i sits in stage i % kWideStages,

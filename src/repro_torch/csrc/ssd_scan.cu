@@ -91,11 +91,18 @@
 //   Scratch: cum and the f32 states (100.7 MB at mamba2-130m's training
 //   shape), no h_in of its own.
 //
+// Every phase but the state pass reads its (head or run, batch) pair from
+// the grid's y and z, folded past 65,535 (grid_fold.cuh).  The wrapper
+// brings every other input of ssd_scan_pallas's domain to these
+// instantiations (kernels/ssd_scan.py ssd_decomposed: the chunk, P and N
+// padded or sliced).
+//
 // The C entry point launches on the caller's stream, does not synchronise,
 // and returns cudaGetLastError() (or the error of cudaFuncSetAttribute, or
 // the codes kNoEncoder / kEncodeFailed of hopper.cuh) so the Python wrapper
 // can raise.
 
+#include "grid_fold.cuh"
 #include "ssd_cuda_cores.cuh"
 
 namespace {
@@ -137,8 +144,8 @@ template <int Pp, int Np, int QT>
 __global__ void __launch_bounds__(128, 1)
 ssd_fwd_chunk_state(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tb,
                     const float* __restrict__ dt, const float* __restrict__ A,
-                    float* __restrict__ cum, float* __restrict__ state, int S, int H, int G,
-                    int P, int N, int Q, Strides sdt) {
+                    float* __restrict__ cum, float* __restrict__ state, int B, int S, int H,
+                    int G, int P, int N, int Q, Strides sdt) {
   constexpr int kXB = Pp / 64, kNB = Np / 64;  // 64-column boxes of x and B
   constexpr uint32_t kBox = QT * 128;          // bytes of a box
   extern __shared__ uint8_t smem[];
@@ -149,7 +156,9 @@ ssd_fwd_chunk_state(const __grid_constant__ CUtensorMap tx, const __grid_constan
   float* sCum = sDt + QT;
   float* sW = sCum + QT;
 
-  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int c = blockIdx.x;
+  int h, b;
+  if (!fold_pair(H, B, h, b)) return;
   const int nc = gridDim.x, g = h / (H / G), t0 = c * Q;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int64_t bh = static_cast<int64_t>(b) * H + h;
@@ -301,8 +310,8 @@ __global__ void __launch_bounds__(2 * QT, 1)
 ssd_fwd_chunk_scan(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tb,
                    const __grid_constant__ CUtensorMap tc, const __grid_constant__ CUtensorMap th,
                    const float* __restrict__ dt, const float* __restrict__ cum,
-                   const float* __restrict__ Dv, __nv_bfloat16* __restrict__ y, int S, int H,
-                   int G, int P, int N, int Q, Strides sdt) {
+                   const float* __restrict__ Dv, __nv_bfloat16* __restrict__ y, int B, int S,
+                   int H, int G, int P, int N, int Q, Strides sdt) {
   constexpr int kThreads = 2 * QT;              // a warpgroup per 64 rows
   constexpr int kXB = Pp / 64, kNB = Np / 64;
   constexpr uint32_t kBox = QT * 128, kHBox = Pp * 128;
@@ -315,7 +324,9 @@ ssd_fwd_chunk_scan(const __grid_constant__ CUtensorMap tx, const __grid_constant
   float* sDt = reinterpret_cast<float*>(tiles + (bar - c_s) + 8);
   float* sCum = sDt + QT;
 
-  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int c = blockIdx.x;
+  int h, b;
+  if (!fold_pair(H, B, h, b)) return;
   const int nc = gridDim.x, g = h / (H / G), t0 = c * Q;
   const int tid = threadIdx.x;
   const int wg = tid / 128, warp = (tid / 32) % 4, lane = tid % 32;
@@ -488,9 +499,9 @@ int launch_wgmma(const Args& a, cudaStream_t stream) {
     err = encode_bf16(&th, a.h_in, 3, dims, strides, box);
   }
   if (err != 0) return err;
-  const dim3 grid(nc, a.H, a.B);
+  const dim3 grid = head_grid(nc, a.H, a.B);
   ssd_fwd_chunk_state<Pp, Np, QT><<<grid, 128, kSmem1, stream>>>(
-      tx, tb, a.dt, a.A, a.cum, a.state, a.S, a.H, a.G, a.P, a.N, a.Q, a.sdt);
+      tx, tb, a.dt, a.A, a.cum, a.state, a.B, a.S, a.H, a.G, a.P, a.N, a.Q, a.sdt);
   if (const cudaError_t e = cudaGetLastError(); e != cudaSuccess) return static_cast<int>(e);
   const int PN = a.P * a.N;
   const dim3 pass_grid(a.B * a.H, (PN / 4 + kPassThreads - 1) / kPassThreads);
@@ -498,8 +509,8 @@ int launch_wgmma(const Args& a, cudaStream_t stream) {
       a.cum, a.state, a.h_in, a.final_state, nc, a.Q, PN);
   if (const cudaError_t e = cudaGetLastError(); e != cudaSuccess) return static_cast<int>(e);
   ssd_fwd_chunk_scan<Pp, Np, QT><<<grid, 2 * QT, kSmem3, stream>>>(
-      tx, tb, tc, th, a.dt, a.cum, a.D, static_cast<__nv_bfloat16*>(a.y), a.S, a.H, a.G, a.P,
-      a.N, a.Q, a.sdt);
+      tx, tb, tc, th, a.dt, a.cum, a.D, static_cast<__nv_bfloat16*>(a.y), a.B, a.S, a.H, a.G,
+      a.P, a.N, a.Q, a.sdt);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -527,7 +538,9 @@ template <int P, int N>
 __global__ void __launch_bounds__(kCcThreads, 1)
 ssd_fwd_chunk_state_cc(const Args a) {
   extern __shared__ __align__(16) float smem_f[];
-  const int c = blockIdx.x, run = blockIdx.y % a.runs, g = blockIdx.y / a.runs, b = blockIdx.z;
+  int yr, b;
+  if (!fold_pair(a.G * a.runs, a.B, yr, b)) return;
+  const int c = blockIdx.x, run = yr % a.runs, g = yr / a.runs;
   const int hpg = a.H / a.G, h0 = g * hpg + run * a.run_len;
   const int nh = min(a.run_len, hpg - run * a.run_len);
   const int nc = gridDim.x, t0 = c * a.Q, QT = a.Q <= 64 ? 64 : 128;
@@ -660,7 +673,9 @@ ssd_fwd_chunk_scan_cc(const Args a) {
   const int halves = a.Q <= 64 ? 1 : 2, ps = P / pt_of(P);
   const int c = blockIdx.x / (halves * ps), rest = blockIdx.x % (halves * ps);
   const int ih = rest / ps, ph = rest % ps;
-  const int run = blockIdx.y % a.runs, g = blockIdx.y / a.runs, b = blockIdx.z;
+  int yr, b;
+  if (!fold_pair(a.G * a.runs, a.B, yr, b)) return;
+  const int run = yr % a.runs, g = yr / a.runs;
   const int hpg = a.H / a.G, h0 = g * hpg + run * a.run_len;
   const int nh = min(a.run_len, hpg - run * a.run_len);
   if (ih == 0)
@@ -686,7 +701,7 @@ int launch_cc(const Args& a, cudaStream_t stream) {
     configured = true;
   }
   const int nc = (a.S + a.Q - 1) / a.Q, QT = a.Q <= 64 ? 64 : 128, PN = P * N;
-  ssd_fwd_chunk_state_cc<P, N><<<dim3(nc, a.G * a.runs, a.B), kCcThreads,
+  ssd_fwd_chunk_state_cc<P, N><<<head_grid(nc, a.G * a.runs, a.B), kCcThreads,
                                   states_cc_floats(P, N, QT) * 4, stream>>>(a);
   if (const cudaError_t e = cudaGetLastError(); e != cudaSuccess) return static_cast<int>(e);
   const dim3 pass_grid(a.B * a.H, (PN / 4 + kPassThreads - 1) / kPassThreads);
@@ -694,7 +709,7 @@ int launch_cc(const Args& a, cudaStream_t stream) {
                                                                     a.final_state, nc, a.Q, PN);
   if (const cudaError_t e = cudaGetLastError(); e != cudaSuccess) return static_cast<int>(e);
   const int tiles = (QT / 64) * (P / pt_of(P));
-  ssd_fwd_chunk_scan_cc<P, N><<<dim3(nc * tiles, a.G * a.runs, a.B), kCcThreads,
+  ssd_fwd_chunk_scan_cc<P, N><<<head_grid(nc * tiles, a.G * a.runs, a.B), kCcThreads,
                                  scan_cc_floats(P, N, QT) * 4, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

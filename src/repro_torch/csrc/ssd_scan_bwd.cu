@@ -103,16 +103,22 @@
 //   5. ssd_bwd_dcum, a block per (chunk, h, b): dcum, its reverse cumsum
 //      by one warp, ddt, and the chunk's part of dA;
 //   6. ssd_bwd_reduce_runs<Out>: dA and dD sum their parts
-//      over batch and chunks in order; where the heads are split into runs,
+//      over batch and chunks in order, in f64 (a batch of thousands adds
+//      thousands of parts a lane); where the heads are split into runs,
 //      dBm and dCm sum the runs' parts in order.
 // No atomics: every sum runs in a fixed order, so the same inputs give
 // bitwise the same gradients.  Rows past S load as zeros with dt = 0
 // (identity steps, as the forward pads) and get no gradient written.
+// Every launch but the chain and the reduction reads its (head or run,
+// batch) pair from the grid's y and z, folded past 65,535 (grid_fold.cuh);
+// the wrapper brings every other input of the forward's domain to these
+// instantiations (kernels/ssd_scan.py ssd_bwd_decomposed).
 //
 // The C entry point returns cudaGetLastError() after each launch (or the
 // error of cudaFuncSetAttribute, or hopper.cuh's kNoEncoder /
 // kEncodeFailed), so the Python wrapper can raise.
 
+#include "grid_fold.cuh"
 #include "ssd_cuda_cores.cuh"
 
 namespace {
@@ -280,7 +286,7 @@ struct Dcum {
   const float *dt, *A, *cum, *colt, *dw, *rows, *erow, *dots;
   float *ddt, *dap;
   int64_t row_stride;
-  int row_parts, dot_parts, S, H, Q;
+  int row_parts, dot_parts, B, S, H, Q;
 };
 
 // 5. Per (chunk, h, b), thread i of row i: dcum, da its reverse cumsum, ddt
@@ -288,7 +294,9 @@ struct Dcum {
 __global__ void __launch_bounds__(kThreads)
 ssd_bwd_dcum(Dcum a) {
   __shared__ float sDc[kMaxQ], sDa[kMaxQ], red[kThreads / 32];
-  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int c = blockIdx.x;
+  int h, b;
+  if (!fold_pair(a.H, a.B, h, b)) return;
   const int nc = gridDim.x, Q = a.Q, S = a.S;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int64_t bh = static_cast<int64_t>(b) * a.H + h;
@@ -480,7 +488,9 @@ ssd_bwd_states_wgmma(const __grid_constant__ CUtensorMap tx, const __grid_consta
   float* sW = sCum + QT;
   float* sE = sW + QT;
 
-  const int c = blockIdx.x, run = blockIdx.y % a.runs, g = blockIdx.y / a.runs, b = blockIdx.z;
+  int yr, b;
+  if (!fold_pair(a.G * a.runs, a.B, yr, b)) return;
+  const int c = blockIdx.x, run = yr % a.runs, g = yr / a.runs;
   const int hpg = a.H / a.G, h0 = g * hpg + run * a.run_len;
   const int nh = min(a.run_len, hpg - run * a.run_len);
   const int Q = a.Q, S = a.S, nc = a.nc, t0 = c * Q;
@@ -614,7 +624,9 @@ ssd_bwd_dx_ds_wgmma(const __grid_constant__ CUtensorMap tx, const __grid_constan
 
   const int jbs = QT / JR;        // blocks over a tile's key rows
   const int c = blockIdx.x / jbs, jblk = blockIdx.x % jbs, jr0 = jblk * JR;
-  const int run = blockIdx.y % a.runs, g = blockIdx.y / a.runs, b = blockIdx.z;
+  int yr, b;
+  if (!fold_pair(a.G * a.runs, a.B, yr, b)) return;
+  const int run = yr % a.runs, g = yr / a.runs;
   const int hpg = a.H / a.G, h0 = g * hpg + run * a.run_len;
   const int nh = min(a.run_len, hpg - run * a.run_len);
   const int Q = a.Q, S = a.S, nc = a.nc, t0 = c * Q;
@@ -871,7 +883,9 @@ ssd_bwd_db_dc_wgmma(const __grid_constant__ CUtensorMap tx, const __grid_constan
   float* sV = reinterpret_cast<float*>(tiles + (bar_c - base) + 32);
 
   const int c = blockIdx.x >> 1, side = blockIdx.x & 1;
-  const int run = blockIdx.y % a.runs, g = blockIdx.y / a.runs, b = blockIdx.z;
+  int yr, b;
+  if (!fold_pair(a.G * a.runs, a.B, yr, b)) return;
+  const int run = yr % a.runs, g = yr / a.runs;
   const int hpg = a.H / a.G, h0 = g * hpg + run * a.run_len;
   const int nh = min(a.run_len, hpg - run * a.run_len);
   const int Q = a.Q, S = a.S, nc = a.nc, t0 = c * Q;
@@ -1028,8 +1042,8 @@ struct Reduce {
 };
 
 // 6. blockIdx.y 0: dA and dD, a warp a head, their parts over batch and
-// chunks summed by each lane over a fixed stride, then over the lanes in a
-// fixed tree; blockIdx.y 1 (heads split into runs): dBm and dCm as Out, 4
+// chunks summed in f64 by each lane over a fixed stride, then over the
+// lanes in a fixed tree; blockIdx.y 1 (heads split into runs): dBm and dCm as Out, 4
 // elements a thread, each the sum of the runs' parts in order.
 template <class Out>
 __global__ void __launch_bounds__(kPassThreads)
@@ -1038,17 +1052,22 @@ ssd_bwd_reduce_runs(const Reduce a) {
   if (blockIdx.y == 0) {
     const int head = static_cast<int>(e / 32), lane = threadIdx.x % 32;
     if (head >= a.H) return;
-    const int nd = a.nc * a.dd_parts;
-    float sa = 0.f, sd = 0.f;
-    for (int k = lane; k < a.B * a.nc; k += 32)
-      sa += a.dap[(static_cast<int64_t>(k / a.nc) * a.H + head) * a.nc + k % a.nc];
-    for (int k = lane; k < a.B * nd; k += 32)
-      sd += a.ddp[(static_cast<int64_t>(k / nd) * a.H + head) * nd + k % nd];
-    sa = warp_sum(sa);
-    sd = warp_sum(sd);
+    // in f64: a lane adds B nc / 32 parts in order, thousands where the
+    // batch is large, which f32 would round in every step
+    const int64_t nd = static_cast<int64_t>(a.nc) * a.dd_parts;
+    double sa = 0.0, sd = 0.0;
+    for (int64_t k = lane; k < static_cast<int64_t>(a.B) * a.nc; k += 32)
+      sa += a.dap[(k / a.nc * a.H + head) * a.nc + k % a.nc];
+    for (int64_t k = lane; k < a.B * nd; k += 32)
+      sd += a.ddp[(k / nd * a.H + head) * nd + k % nd];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      sa += __shfl_xor_sync(0xffffffffu, sa, o);
+      sd += __shfl_xor_sync(0xffffffffu, sd, o);
+    }
     if (lane == 0) {
-      a.dA[head] = sa;
-      a.dD[head] = sd;
+      a.dA[head] = static_cast<float>(sa);
+      a.dD[head] = static_cast<float>(sd);
     }
     return;
   }
@@ -1137,22 +1156,22 @@ int launch_wgmma(const WArgs& a, const void* x, const void* dy, const void* Bm, 
                        2 * QT, QT);
   if (err != 0) return err;
   const int tiles = (a.P * a.N + 4 * kChain - 1) / (4 * kChain), jbs = QT / (64 * WGS);
-  const dim3 runs_grid(a.nc, a.G * a.runs, a.B);
+  const dim3 runs_grid = head_grid(a.nc, a.G * a.runs, a.B);
   ssd_bwd_states_wgmma<Pp, Np, QT><<<runs_grid, 256, kS1, stream>>>(tx, tdy, tb, tc, a);
   if (const cudaError_t e = cudaGetLastError(); e != cudaSuccess) return static_cast<int>(e);
   ssd_bwd_chain<bf16><<<dim3(a.B * a.H, tiles), kChain, 0, stream>>>(a.state, a.grad, a.cum,
                                                                      a.dots, a.nc, a.Q, a.P, a.N);
   if (const cudaError_t e = cudaGetLastError(); e != cudaSuccess) return static_cast<int>(e);
-  ssd_bwd_dx_ds_wgmma<Pp, Np, QT, WGS><<<dim3(a.nc * jbs, a.G * a.runs, a.B), 128 * WGS, kS3,
+  ssd_bwd_dx_ds_wgmma<Pp, Np, QT, WGS><<<head_grid(a.nc * jbs, a.G * a.runs, a.B), 128 * WGS, kS3,
                                           stream>>>(tx, tdy, tb, tc, tg, a);
   if (const cudaError_t e = cudaGetLastError(); e != cudaSuccess) return static_cast<int>(e);
-  ssd_bwd_db_dc_wgmma<Pp, Np, QT><<<dim3(2 * a.nc, a.G * a.runs, a.B), 2 * QT, kS4, stream>>>(
+  ssd_bwd_db_dc_wgmma<Pp, Np, QT><<<head_grid(2 * a.nc, a.G * a.runs, a.B), 2 * QT, kS4, stream>>>(
       tx, tdy, tb, tc, th, tg, tds, a);
   if (const cudaError_t e = cudaGetLastError(); e != cudaSuccess) return static_cast<int>(e);
   const int64_t rows = static_cast<int64_t>(a.B) * a.H * a.nc * a.Q;
   const Dcum d{a.dt, a.A, a.cum, a.colt, a.dw, a.rowmr, a.erow, a.dots, a.ddt, a.dap,
-               rows, jbs, tiles, a.S, a.H, a.Q};
-  ssd_bwd_dcum<<<dim3(a.nc, a.H, a.B), kThreads, 0, stream>>>(d);
+               rows, jbs, tiles, a.B, a.S, a.H, a.Q};
+  ssd_bwd_dcum<<<head_grid(a.nc, a.H, a.B), kThreads, 0, stream>>>(d);
   if (const cudaError_t e = cudaGetLastError(); e != cudaSuccess) return static_cast<int>(e);
   const Reduce r{a.dap, a.ddp, a.bc_runs, a.dBm, a.dCm, a.dA, a.dD,
                  a.B, a.S, a.H, a.G, a.N, a.nc, a.runs, jbs};
@@ -1230,7 +1249,9 @@ __global__ void __launch_bounds__(kCcThreads, 1)
 ssd_bwd_states_cc(const CArgs a) {
   extern __shared__ __align__(16) float smem_f[];
   const int c = blockIdx.x >> 1, side = blockIdx.x & 1;
-  const int run = blockIdx.y % a.runs, g = blockIdx.y / a.runs, b = blockIdx.z;
+  int yr, b;
+  if (!fold_pair(a.G * a.runs, a.B, yr, b)) return;
+  const int run = yr % a.runs, g = yr / a.runs;
   const int hpg = a.H / a.G, h0 = g * hpg + run * a.run_len;
   const int nh = min(a.run_len, hpg - run * a.run_len);
   const int Q = a.Q, nc = a.nc, t0 = c * Q, QT = Q <= 64 ? 64 : 128;
@@ -1441,7 +1462,9 @@ __global__ void __launch_bounds__(kCcThreads, 1)
 ssd_bwd_dx_ds_cc(const CArgs a) {
   extern __shared__ __align__(16) float smem_f[];
   const int jbs = a.Q <= 64 ? 1 : 2, c = blockIdx.x / jbs, jb = blockIdx.x % jbs;
-  const int run = blockIdx.y % a.runs, g = blockIdx.y / a.runs, b = blockIdx.z;
+  int yr, b;
+  if (!fold_pair(a.G * a.runs, a.B, yr, b)) return;
+  const int run = yr % a.runs, g = yr / a.runs;
   const int hpg = a.H / a.G, h0 = g * hpg + run * a.run_len;
   const int nh = min(a.run_len, hpg - run * a.run_len);
   if (jbs == 2 && jb == 0)
@@ -1466,7 +1489,9 @@ ssd_bwd_db_dc_cc(const CArgs a) {
   extern __shared__ __align__(16) float smem_f[];
   const int Q = a.Q, S = a.S, nc = a.nc, QT = Q <= 64 ? 64 : 128, rbs = QT / 64;
   const int c = blockIdx.x / (2 * rbs), side = (blockIdx.x / rbs) & 1, rb = blockIdx.x % rbs;
-  const int run = blockIdx.y % a.runs, g = blockIdx.y / a.runs, b = blockIdx.z;
+  int yr, b;
+  if (!fold_pair(a.G * a.runs, a.B, yr, b)) return;
+  const int run = yr % a.runs, g = yr / a.runs;
   const int hpg = a.H / a.G, h0 = g * hpg + run * a.run_len;
   const int nh = min(a.run_len, hpg - run * a.run_len);
   const int t0 = c * Q, r0 = 64 * rb, rows = min(Q, S - t0), rv = max(0, min(64, rows - r0));
@@ -1600,23 +1625,22 @@ int launch_cc(const CArgs& a, cudaStream_t stream) {
   }
   const int QT = a.Q <= 64 ? 64 : 128, jbs = QT / 64;
   const int tiles = (P * N + 4 * kChain - 1) / (4 * kChain);
-  const dim3 runs(a.G * a.runs, a.B);
-  ssd_bwd_states_cc<P, N><<<dim3(2 * a.nc, runs.x, runs.y), kCcThreads,
+  ssd_bwd_states_cc<P, N><<<head_grid(2 * a.nc, a.G * a.runs, a.B), kCcThreads,
                              states_cc_floats(P, N, QT) * 4, stream>>>(a);
   if (const cudaError_t e = cudaGetLastError(); e != cudaSuccess) return static_cast<int>(e);
   ssd_bwd_chain<float><<<dim3(a.B * a.H, tiles), kChain, 0, stream>>>(a.state, a.grad, a.cum,
                                                                       a.dots, a.nc, a.Q, P, N);
   if (const cudaError_t e = cudaGetLastError(); e != cudaSuccess) return static_cast<int>(e);
-  ssd_bwd_dx_ds_cc<P, N><<<dim3(a.nc * jbs, runs.x, runs.y), kCcThreads,
+  ssd_bwd_dx_ds_cc<P, N><<<head_grid(a.nc * jbs, a.G * a.runs, a.B), kCcThreads,
                             dxds_cc_floats(P, N, QT, kSt3, kGinM) * 4, stream>>>(a);
   if (const cudaError_t e = cudaGetLastError(); e != cudaSuccess) return static_cast<int>(e);
-  ssd_bwd_db_dc_cc<P, N><<<dim3(2 * jbs * a.nc, runs.x, runs.y), kCcThreads,
+  ssd_bwd_db_dc_cc<P, N><<<head_grid(2 * jbs * a.nc, a.G * a.runs, a.B), kCcThreads,
                             dbdc_cc_floats(P, N, QT, kSt4) * 4, stream>>>(a);
   if (const cudaError_t e = cudaGetLastError(); e != cudaSuccess) return static_cast<int>(e);
   const int64_t rows = static_cast<int64_t>(a.B) * a.H * a.nc * a.Q;
   const Dcum d{a.dt, a.A, a.cum, a.colt, a.dw, a.rowmr, a.erow, a.dots, a.ddt, a.dap,
-               rows, jbs, tiles, a.S, a.H, a.Q};
-  ssd_bwd_dcum<<<dim3(a.nc, a.H, a.B), kThreads, 0, stream>>>(d);
+               rows, jbs, tiles, a.B, a.S, a.H, a.Q};
+  ssd_bwd_dcum<<<head_grid(a.nc, a.H, a.B), kThreads, 0, stream>>>(d);
   if (const cudaError_t e = cudaGetLastError(); e != cudaSuccess) return static_cast<int>(e);
   const Reduce r{a.dap, a.ddp, a.bc_runs, a.dBm, a.dCm, a.dA, a.dD,
                  a.B, a.S, a.H, a.G, a.N, a.nc, a.runs, jbs};

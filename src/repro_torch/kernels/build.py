@@ -33,6 +33,19 @@ BASE_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
 )
+MAX_GRID_YZ = 65535             # the grid's y and z
+
+
+def head_grid(h: int, b: int) -> tuple[int, int]:
+    """The grid's y and z of the flash and SSD kernels for ``b`` x ``h``
+    (batch, head) pairs (``h`` may count a kernel's own unit on y: a run
+    of a group's heads): ``(h, b)`` while both fit ``MAX_GRID_YZ``, else
+    the pair index ``b * h + head`` folded as ``y + Y * z``
+    (``csrc/grid_fold.cuh`` ``head_grid``)."""
+    if h <= MAX_GRID_YZ and b <= MAX_GRID_YZ:
+        return h, b
+    y = min(h * b, MAX_GRID_YZ)
+    return y, -(-h * b // y)
 
 
 def cuda_tool(name: str) -> str:

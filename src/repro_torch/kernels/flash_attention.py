@@ -78,6 +78,7 @@ from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build as kbuild
 from repro_torch.kernels import ref
+from repro_torch.kernels.build import MAX_GRID_YZ, head_grid  # noqa: F401
 
 SRC = kbuild.CSRC / "flash_attention.cu"
 SRC_BWD = kbuild.CSRC / "flash_attention_bwd.cu"
@@ -89,7 +90,6 @@ HEAD_DIMS = tuple(range(8, 129, 8))
 NATIVE_DIMS = (64, 96, 128)     # widths with instantiations of their own
 N_SM = 132                      # H100 SXM streaming multiprocessors
 MAX_SMEM = 232_448              # dynamic shared memory a block may have
-MAX_GRID_YZ = 65535             # the grid's y and z: (batch, head) pairs
 MAX_PAIRS = 2**31 - 1           # (batch, head) pairs of one launch
 WGMMA_BLOCK_K = 128             # keys per tile of the tensor-core kernel
 CC_ROWS = 64                    # rows (queries, keys) of an f32 tile
@@ -97,6 +97,11 @@ CC_THREADS = 256
 # past 128 columns (csrc/flash_wide.cuh): a block's output columns and the
 # columns of a piece of S; bf16 ring stages of two 64 x 128 tiles
 SLICE, WIDE_STAGES = 128, 3
+# bf16 widths past 128 up to this run the native kernels (whole width, no
+# slices), two warpgroups a block: forward 128 query rows, backward dK/dV
+# 64 keys, dQ 128 queries
+NATIVE_WIDTH = 256
+NATIVE_THREADS = 256
 # f32 key splits: a block's keys split when the grid leaves SMs idle, each
 # split at least SPLIT_MIN_TILES key tiles, at most MAX_SPLIT splits
 # (csrc/cuda_cores.cuh kMaxSplit)
@@ -150,23 +155,33 @@ def padded_width(d: int) -> int:
     return -(-d // 8) * 8
 
 
-def slices(d: int) -> int:
-    """The column slices of a head width ``d``: 1 up to 128 columns (after
-    padding), else ``ceil(padded / SLICE)``, each a block of its own that
-    forms S (and dP) over the whole width: the recompute factor."""
+def native(d: int, dtype: torch.dtype) -> bool:
+    """Whether head width ``d`` in ``dtype`` runs the native kernels: bf16
+    at padded widths 136-256."""
+    return dtype == torch.bfloat16 and 128 < padded_width(d) <= NATIVE_WIDTH
+
+
+def slices(d: int, dtype: torch.dtype) -> int:
+    """The column slices of a head width ``d`` in ``dtype``: 1 up to 128
+    columns (after padding) and for the native kernels (``native``), else
+    ``ceil(padded / SLICE)``, each a block of its own that forms S (and dP)
+    over the whole width: the recompute factor."""
     w = padded_width(d)
-    return 1 if w <= 128 else -(-w // SLICE)
+    return 1 if w <= 128 or native(d, dtype) else -(-w // SLICE)
 
 
-def head_grid(h: int, b: int) -> tuple[int, int]:
-    """The grid's y and z for ``b`` x ``h`` (batch, head) pairs, at most
-    ``MAX_PAIRS`` (one launch's): ``(h, b)`` while both fit
-    ``MAX_GRID_YZ``, else the pair index ``b * h + head`` folded as ``y + Y
-    * z`` (``csrc/flash_wide.cuh`` ``head_grid``)."""
-    if h <= MAX_GRID_YZ and b <= MAX_GRID_YZ:
-        return h, b
-    y = min(h * b, MAX_GRID_YZ)
-    return y, -(-h * b // y)
+def head_split(b: int, hk: int, sk: int, group: int, n_sm: int = N_SM) -> int:
+    """Shares of a GQA group's query heads in the native dK/dV kernel (each
+    share a block of its own over the same 64 keys, its f32 part added to
+    the others' in share order): 1 where the ``b * hk * ceil(sk / 64)``
+    key blocks fill two waves of ``n_sm`` SMs, else as many as bring the
+    grid to two waves, at most one a head of the group.  Under a causal
+    mask key block 0 sees every query tile of its group: shares cut that
+    longest block."""
+    blocks = b * hk * -(-sk // 64)
+    if blocks >= 2 * n_sm:
+        return 1
+    return max(1, min(group, -(-2 * n_sm // blocks)))
 
 
 def pair_chunks(b: int, hq: int, hk: int, limit: int | None = None
@@ -224,8 +239,15 @@ def geometry(dtype: torch.dtype, d: int, block_q: int) -> tuple[int, int, int]:
     128 columns ``wide_smem_bytes``, ``f32_wide_smem_bytes``).  The C entry
     point takes only (dtype, d, block_q) and launches with its own numbers;
     these are what the plan reports without the library, and
-    ``chip_smoke.py`` holds them against ``kernel_geometry``."""
-    if slices(d) > 1:
+    ``chip_smoke.py`` holds them against ``kernel_geometry``.  The native
+    kernel (bf16 136-256, a warpgroup a 64 of block_q's rows): 1 KB of
+    alignment, Q of block_q rows, two stages of K and of V of 64 keys, all
+    ``NATIVE_WIDTH`` columns of bf16, 128 bytes of mbarriers
+    (``native_smem_bytes``)."""
+    if native(d, dtype):
+        return 64, 2 * block_q, \
+            1024 + (block_q + 4 * 64) * NATIVE_WIDTH * 2 + 128
+    if slices(d, dtype) > 1:
         if dtype == torch.bfloat16:
             # 1 KB of alignment, the ring, its mbarriers
             return 64, 128, 1024 + WIDE_STAGES * 2 * 64 * 128 * 2 + 64
@@ -277,15 +299,20 @@ def kernel_plan(b: int, hq: int, hk: int, sq: int, sk: int, d: int,
     of each split), which a second launch puts together in a fixed order.
     bf16 never splits.
 
+    bf16 at padded widths 136-256 plans ``"wgmma_256"``, the native kernel
+    (``native``): a warpgroup a 64 query rows, 128-row blocks or 64 by the
+    rule above, key tiles of 64, the whole width in one block (no slices).
+
     ``width`` is the head width the kernels run (``padded_width(d)``: the
     op pads q, k and v to it), ``slices`` the column slices of the wide
-    kernels past 128 columns (1 below): 64-row blocks in both dtypes (bf16
-    key tiles of 64), each owning ``SLICE`` output columns, so the grid's x
-    counts query tiles x slices x key splits and S is formed ``slices``
-    times.  The grid's y and z are ``head_grid(hq, b)``.  Past
-    ``MAX_PAIRS`` pairs the plan is that of the first of ``pair_chunks``'s
-    launches, and ``pair_chunks`` their count (1 below).  Raises ValueError
-    on what no kernel takes (a head width below 1, another dtype).
+    kernels past 128 columns (1 below, and for the native kernel): 64-row
+    blocks in both dtypes (bf16 key tiles of 64), each owning ``SLICE``
+    output columns, so the grid's x counts query tiles x slices x key
+    splits and S is formed ``slices`` times.  The grid's y and z are
+    ``head_grid(hq, b)``.  Past ``MAX_PAIRS`` pairs the plan is that of the
+    first of ``pair_chunks``'s launches, and ``pair_chunks`` their count (1
+    below).  Raises ValueError on what no kernel takes (a head width below
+    1, another dtype).
     """
     _check_width("flash_attention_cuda", d)
     chunks = pair_chunks(b, hq, hk)
@@ -293,8 +320,11 @@ def kernel_plan(b: int, hq: int, hk: int, sq: int, sk: int, d: int,
         (r0, r1), (h0, h1) = chunks[0]
         return {**kernel_plan(r1 - r0, h1 - h0, 1, sq, sk, d, dtype, n_sm),
                 "pair_chunks": len(chunks)}
-    width, n_slices = padded_width(d), slices(d)
-    if dtype == torch.bfloat16:
+    width, n_slices = padded_width(d), slices(d, dtype)
+    if native(d, dtype):
+        block_q = 64 if b * hq * -(-sq // 128) < n_sm else 128
+        variant = "wgmma_256"
+    elif dtype == torch.bfloat16:
         block_q = (64 if n_slices > 1 or b * hq * -(-sq // 128) < n_sm
                    else 128)
         variant = "wgmma"
@@ -417,9 +447,9 @@ def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor, *,
 
     Launches on the current stream and does not synchronise.  Each call that
     launches adds one to ``flash_attention_cuda.launches`` (and to
-    ``.wide_launches`` where the wide kernels run, ``.padded_launches``
-    where the head axis was padded) and leaves its plan in
-    ``flash_attention_cuda.last_plan``.
+    ``.native_launches`` where the native kernel runs, ``.wide_launches``
+    where the wide kernels run, ``.padded_launches`` where the head axis
+    was padded) and leaves its plan in ``flash_attention_cuda.last_plan``.
     """
     kbuild.refuse_autograd("flash_attention_cuda", q=q, k=k, v=v)
     _check(q, k, v, window)
@@ -460,6 +490,7 @@ def _flash_fwd_op(q: Tensor, k: Tensor, v: Tensor, causal: bool,
                     _plan_fwd(qc, kc) if chunks else plan, causal, window,
                     softcap, scale)
     flash_attention_cuda.launches += 1
+    flash_attention_cuda.native_launches += plan["variant"] == "wgmma_256"
     flash_attention_cuda.wide_launches += plan["slices"] > 1
     flash_attention_cuda.padded_launches += width != d
     flash_attention_cuda.last_plan = plan
@@ -525,6 +556,7 @@ def _flash_fwd_flops(q_shape, k_shape, v_shape, causal, window, *args,
 
 
 flash_attention_cuda.launches = 0
+flash_attention_cuda.native_launches = 0
 flash_attention_cuda.wide_launches = 0
 flash_attention_cuda.padded_launches = 0
 flash_attention_cuda.last_plan = None
@@ -541,8 +573,20 @@ def geometry_bwd(dtype: torch.dtype, d: int,
     ``chip_smoke.py`` holds them against ``kernel_geometry_bwd``.  Other
     widths than 64, 96 and 128 run ``kernel_width(d)``'s instantiation,
     and widths past 128 the wide kernels (64 rows, one slice of ``SLICE``
-    columns: ``wide_smem_bytes``, ``cc_wide_smem_bytes``)."""
-    if slices(d) > 1:
+    columns: ``wide_smem_bytes``, ``cc_wide_smem_bytes``).  The native
+    kernels (bf16 136-256; dK/dV blocks of 64 keys, dQ of 128 queries,
+    whatever ``rows`` asks): dK/dV 1 KB of alignment, K, V, two stages of Q
+    and dO (64 rows of ``NATIVE_WIDTH`` bf16 columns each), two f32 P^T
+    buffers of 64 x 64, each warpgroup's two stages of 64 lse or delta, 64
+    bytes of mbarriers (``dkdv_256_smem_bytes``); dQ 1 KB, Q and dO of 128
+    rows, two stages of K and one of V, 64 bytes, the rows' lse and delta
+    (``dq_256_smem_bytes``)."""
+    if native(d, dtype):
+        tile = 64 * NATIVE_WIDTH * 2
+        return (64, NATIVE_THREADS,
+                1024 + 6 * tile + 2 * 64 * 64 * 4 + 4 * 64 * 4 + 64,
+                1024 + 7 * tile + 64 + 2 * 128 * 4)
+    if slices(d, dtype) > 1:
         if dtype == torch.bfloat16:
             # 1 KB of alignment, the ring, its mbarriers; dK/dV also two
             # stages of 64 lse and 64 delta
@@ -584,7 +628,12 @@ def kernel_plan_bwd(b: int, hq: int, hk: int, sq: int, sk: int, d: int,
     width`` floats), added up in a fourth launch in a fixed order; bf16
     never splits.  ``width`` and ``slices`` as in ``kernel_plan``: past 128
     columns both kernels' blocks own 64 rows and one slice of ``SLICE``
-    columns (the grids' x counts slices).  The grids' y and z are
+    columns (the grids' x counts slices).  bf16 at padded widths 136-256
+    plans ``"wgmma_256"``, the native kernels: dK/dV blocks of 64 keys in
+    ``dkdv["head_split"]`` shares of each GQA group (``head_split``; the
+    grid's x counts key blocks x shares; with more than one share their f32
+    parts, ``scratch`` bytes, go through ``dkdv_combine``, the grid
+    ``"combine"``), dQ blocks of 128 queries.  The grids' y and z are
     ``head_grid``'s; past ``MAX_PAIRS`` pairs the plan is the first launch's
     and ``pair_chunks`` their count, as in ``kernel_plan``.  Raises
     ValueError on what no kernel takes."""
@@ -594,8 +643,10 @@ def kernel_plan_bwd(b: int, hq: int, hk: int, sq: int, sk: int, d: int,
         (r0, r1), (h0, h1) = chunks[0]
         return {**kernel_plan_bwd(r1 - r0, h1 - h0, 1, sq, sk, d, dtype, n_sm),
                 "pair_chunks": len(chunks)}
-    width, n_slices = padded_width(d), slices(d)
-    if dtype == torch.bfloat16:
+    width, n_slices = padded_width(d), slices(d, dtype)
+    if native(d, dtype):
+        variant, block_rows = "wgmma_256", (64, 128)
+    elif dtype == torch.bfloat16:
         variant = "wgmma"
         block_rows = (64 if n_slices > 1 or b * hk * -(-sk // 128) < n_sm
                       else 128,
@@ -617,12 +668,19 @@ def kernel_plan_bwd(b: int, hq: int, hk: int, sq: int, sk: int, d: int,
     q_blocks = -(-sq // plan["dq"]["rows"]) * n_slices
     split = (key_split(b * hq * q_blocks, sk, n_sm)
              if dtype == torch.float32 else 1)
-    k_blocks = -(-sk // plan["dkdv"]["rows"]) * n_slices
+    shares = (head_split(b, hk, sk, hq // hk, n_sm)
+              if variant == "wgmma_256" else 1)
+    k_blocks = -(-sk // plan["dkdv"]["rows"]) * n_slices * shares
     plan["dq"]["split"] = split
-    plan["scratch"] = split * b * hq * sq * width * 4 if split > 1 else 0
+    plan["dkdv"]["head_split"] = shares
+    plan["scratch"] = (split * b * hq * sq * width * 4 if split > 1
+                       else 2 * shares * b * hk * sk * width * 4
+                       if shares > 1 else 0)
     plan["grids"] = {"delta": (-(-b * hq * sq // 8),),
                      "dkdv": (k_blocks, *head_grid(hk, b)),
                      "dq": (q_blocks * split, *head_grid(hq, b))}
+    if shares > 1:
+        plan["grids"]["combine"] = (-(-2 * b * hk * sk * width // 1024),)
     plan["width"], plan["slices"], plan["pair_chunks"] = width, n_slices, 1
     return plan
 
@@ -631,7 +689,7 @@ def kernel_plan_bwd(b: int, hq: int, hk: int, sq: int, sk: int, d: int,
 def _bwd_library() -> ctypes.CDLL:
     lib = kbuild.load(SRC_BWD, NVCC_FLAGS)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.flash_attention_bwd.argtypes = [p] * 11 + [i] * 9 + [f, f, i, p]
+    lib.flash_attention_bwd.argtypes = [p] * 11 + [i] * 9 + [f, f, i, i, p]
     lib.flash_attention_bwd.restype = i
     ip = ctypes.POINTER(i)
     lib.flash_attention_bwd_geometry.argtypes = [i, i, i, ip, ip, ip, ip]
@@ -677,10 +735,12 @@ def flash_attention_bwd_cuda(q: Tensor, k: Tensor, v: Tensor, o: Tensor,
     ``lse`` (``return_lse=True``) and the output's gradient ``do``; the
     contract of ``ref.attention_bwd_ref``.
 
-    Three launches on the current stream, no synchronisation.  Each call
-    that launches adds one to ``flash_attention_bwd_cuda.launches`` (and to
-    ``.wide_launches`` and ``.padded_launches`` as the forward does) and
-    leaves its plan in ``flash_attention_bwd_cuda.last_plan``.
+    Three launches on the current stream (four with the native kernels'
+    dK/dV shares or an f32 dQ split), no synchronisation.  Each call that
+    launches adds one to ``flash_attention_bwd_cuda.launches`` (and to
+    ``.native_launches``, ``.wide_launches`` and ``.padded_launches`` as
+    the forward does) and leaves its plan in
+    ``flash_attention_bwd_cuda.last_plan``.
     """
     kbuild.refuse_autograd("flash_attention_bwd_cuda", q=q, k=k, v=v, o=o,
                            do=do)
@@ -746,6 +806,7 @@ def _flash_bwd_op(q: Tensor, k: Tensor, v: Tensor, o: Tensor, lse: Tensor,
             dkc.add_(parts[0])
             dvc.add_(parts[1])
     flash_attention_bwd_cuda.launches += 1
+    flash_attention_bwd_cuda.native_launches += plan["variant"] == "wgmma_256"
     flash_attention_bwd_cuda.wide_launches += plan["slices"] > 1
     flash_attention_bwd_cuda.padded_launches += width != d
     flash_attention_bwd_cuda.last_plan = plan
@@ -763,15 +824,17 @@ def _launch_bwd(q: Tensor, k: Tensor, v: Tensor, o: Tensor, do: Tensor,
     hk, sk = k.shape[1], k.shape[2]
     split = plan["dq"]["split"]
     part = (torch.empty(plan["scratch"] // 4, dtype=torch.float32,
-                        device=q.device) if split > 1 else None)
+                        device=q.device) if plan["scratch"] else None)
     with torch.cuda.device(q.device):
         err = _bwd_library().flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(),
-            None if split == 1 else part.data_ptr(), b, hq, hk, sq, sk, width,
-            _DTYPES[q.dtype], int(causal), -1 if window is None else window,
-            softcap, scale, split, torch.cuda.current_stream().cuda_stream)
+            None if part is None else part.data_ptr(), b, hq, hk, sq, sk,
+            width, _DTYPES[q.dtype], int(causal),
+            -1 if window is None else window, softcap, scale, split,
+            plan["dkdv"].get("head_split", 1),
+            torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_bwd_cuda: launch failed: "
                            f"{_launch_error(err)} (q {tuple(q.shape)}, k "
@@ -797,6 +860,7 @@ def _flash_bwd_flops(q_shape, k_shape, v_shape, o_shape, lse_shape, do_shape,
 
 
 flash_attention_bwd_cuda.launches = 0
+flash_attention_bwd_cuda.native_launches = 0
 flash_attention_bwd_cuda.wide_launches = 0
 flash_attention_bwd_cuda.padded_launches = 0
 flash_attention_bwd_cuda.last_plan = None

@@ -13,6 +13,14 @@ tolerance needs, ``cp.async`` tiles, blocks walking a run of a group's
 heads with S = C B^T formed once a block).  There is no option that picks
 another: a CUDA tensor launches its dtype's phases or raises.
 
+Every input ``ssd_scan_pallas`` takes runs: P, N and chunk of at least 1,
+every batch and head count (``kernel_plan``).  ``ssd_decomposed`` and
+``ssd_bwd_decomposed`` bring an input to the instantiations' domain,
+exactly in arithmetic: the chunk to ``run_chunk``'s, P and N padded with
+zero columns to ``HEAD_DIMS`` or cut into slices of 128
+(``width_slices``); the grids fold (batch, head) pairs past 65,535
+(``build.head_grid``, ``csrc/grid_fold.cuh``).
+
 ``ssd_scan_cuda`` takes CUDA tensors only and returns a result outside the
 autograd graph; it refuses to run where autograd would need a gradient.
 With ``return_state`` it also returns the f32 ``[B, H, P, N]`` state after
@@ -47,14 +55,14 @@ from torch import Tensor
 from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build as kbuild
+from repro_torch.kernels.build import head_grid
 from repro_torch.kernels.flash_attention import N_SM
 
 SRC = kbuild.CSRC / "ssd_scan.cu"
 SRC_BWD = kbuild.CSRC / "ssd_scan_bwd.cu"
 NVCC_FLAGS = kbuild.BASE_FLAGS
-HEAD_DIMS = (16, 32, 64, 128)   # P and N the kernel takes
+HEAD_DIMS = (16, 32, 64, 128)   # P and N the instantiations take
 MAX_CHUNK = 128                 # chunk: a multiple of 32 up to this
-MAX_GRID_YZ = 65535             # heads (grid y) and batch (grid z)
 MAX_SMEM = 232_448              # dynamic shared memory a block may have
 PASS_THREADS = 256              # forward state pass (4 elements a thread),
                                 # backward reductions: threads a block
@@ -153,26 +161,58 @@ def geometry(dtype: torch.dtype, p: int, n: int,
             (CC_THREADS, scan * 4)]
 
 
+def run_chunk(chunk: int) -> int:
+    """The chunk the kernels run for an asked ``chunk`` >= 1: the smallest
+    multiple of 32 at or above it, at most ``MAX_CHUNK``.  y, the final
+    state and the gradients do not depend on the chunk but in rounding (the
+    chunked form is the recurrence regrouped, and a padded ``dt = 0`` row
+    is an identity step), so any chunk runs on an instantiated one: 8 runs
+    at 32, 48 at 64, 100 and 256 at 128."""
+    return min(MAX_CHUNK, -(-chunk // 32) * 32)
+
+
+def width_slices(w: int) -> tuple[int, int]:
+    """(slices, padded width) of a head dim P or state dim N of ``w``
+    columns: up to 128 one slice padded with zero columns to the next of
+    ``HEAD_DIMS``; past 128, ``ceil(w / 128)`` slices of 128 columns, the
+    last padded to 128."""
+    if w <= 128:
+        return 1, next(d for d in HEAD_DIMS if d >= w)
+    return -(-w // 128), 128
+
+
 def _refuse(name: str, b: int, h: int, p: int, n: int, chunk: int) -> None:
-    """The domain both directions take: P and N in HEAD_DIMS, a chunk that
-    is a multiple of 32 up to 128, heads and batch within the grid."""
-    if p not in HEAD_DIMS:
-        raise ValueError(f"{name}: head dim P={p} is not one of {HEAD_DIMS}")
-    if n not in HEAD_DIMS:
-        raise ValueError(f"{name}: state dim N={n} is not one of "
-                         f"{HEAD_DIMS}")
-    if chunk % 32 or not 0 < chunk <= MAX_CHUNK:
-        raise ValueError(f"{name}: chunk {chunk} is not a multiple of 32 up "
-                         f"to {MAX_CHUNK}")
-    if h > MAX_GRID_YZ or b > MAX_GRID_YZ:
-        raise ValueError(f"{name}: {h} heads or batch {b} exceed the grid's "
-                         f"{MAX_GRID_YZ}")
+    """What is outside the function: an empty head dim, state dim or chunk.
+    Every other P, N, chunk, batch and head count runs (``kernel_plan``'s
+    decomposition)."""
+    for what, v in (("head dim P", p), ("state dim N", n), ("chunk", chunk)):
+        if v < 1:
+            raise ValueError(f"{name}: {what} {v} is below 1")
+
+
+def _decomposition(b: int, s: int, h: int, p: int, g: int, n: int,
+                   chunk: int) -> tuple[dict, tuple[int, ...]]:
+    """The plans' decomposition keys and the in-domain shape each launch
+    runs (b, s, h, padded P, g, padded N, run chunk)."""
+    kp, pw = width_slices(p)
+    kn, nw = width_slices(n)
+    q = run_chunk(chunk)
+    keys = {"chunk": q, "p_slices": kp, "p_width": pw, "n_slices": kn,
+            "n_width": nw, "launches": kp * kn}
+    return keys, (b, s, h, pw, g, nw, q)
 
 
 def kernel_plan(b: int, s: int, h: int, p: int, g: int, n: int, chunk: int,
                 dtype: torch.dtype) -> dict:
     """Launch plan of ``ssd_scan_cuda`` for x ``[b, s, h, p]`` and Bm/Cm
-    ``[b, s, g, n]`` in chunks of ``chunk``.
+    ``[b, s, g, n]`` in chunks of ``chunk``: every P, N and chunk of at
+    least 1, every batch and head count.
+
+    The decomposition (``ssd_decomposed``): the scan runs at ``chunk`` =
+    ``run_chunk`` of the asked one; P in ``p_slices`` slices of
+    ``p_width`` columns and N in ``n_slices`` of ``n_width``
+    (``width_slices``: zero columns pad each), so ``launches`` = p_slices
+    x n_slices runs of the phases below, each at the padded widths.
 
     bf16 plans ``"wgmma"``: three phases, chunk state and chunk scan with
     one block per (chunk, head, batch), the state pass with one thread per
@@ -180,24 +220,33 @@ def kernel_plan(b: int, s: int, h: int, p: int, g: int, n: int, chunk: int,
     ``rows`` = the chunk rounded up to 64, one warpgroup per 64 rows in the
     chunk scan; ``mma`` lists each phase's wgmma shapes (m, n, k), P and N
     below 64 padded to 64.  ``scratch`` holds the shapes and dtypes the
-    wrapper allocates (cum, the chunks' own states, the states entering
-    them) and ``scratch_bytes`` their sum.  f32 plans ``"cuda_cores"``: the
-    same three phases on the CUDA cores, a group's heads split into
-    ``runs`` runs of ``run_len`` (``head_runs``) that a block walks in
-    order; the chunk state one block per (chunk, run, batch), the chunk
-    scan one per (chunk, 64-row query half, 64 columns of y where P = 128,
-    run, batch), S = C B^T formed once a block; the states entering the
-    chunks go over the chunks' own states in place (no ``h_in``).  Raises
-    ValueError on what no instantiation takes.
+    wrapper allocates for one launch (cum, the chunks' own states, the
+    states entering them) and ``scratch_bytes`` their sum.  f32 plans
+    ``"cuda_cores"``: the same three phases on the CUDA cores, a group's
+    heads split into ``runs`` runs of ``run_len`` (``head_runs``) that a
+    block walks in order; the chunk state one block per (chunk, run,
+    batch), the chunk scan one per (chunk, 64-row query half, 64 columns
+    of y where P = 128, run, batch), S = C B^T formed once a block; the
+    states entering the chunks go over the chunks' own states in place (no
+    ``h_in``).  The grids' y and z are ``head_grid``'s of (heads or runs,
+    batch): folded past 65,535.  Raises ValueError on another dtype and on
+    an empty P, N or chunk.
     """
     _refuse("ssd_scan_cuda", b, h, p, n, chunk)
+    keys, shape = _decomposition(b, s, h, p, g, n, chunk)
+    return {**_kernel_plan(*shape, dtype), **keys}
+
+
+def _kernel_plan(b: int, s: int, h: int, p: int, g: int, n: int, chunk: int,
+                 dtype: torch.dtype) -> dict:
+    """``kernel_plan``'s phases for one launch in the kernels' domain."""
     nc = -(-s // chunk)
     rows = 64 if chunk <= 64 else 128
     pass_grid = (b * h, -(-p * n // (4 * PASS_THREADS)), 1)
     extra = {}
     if dtype == torch.bfloat16:
         pp, np_ = _padded(p), _padded(n)
-        grids = [(nc, h, b), pass_grid, (nc, h, b)]
+        grids = [(nc, *head_grid(h, b)), pass_grid, (nc, *head_grid(h, b))]
         mma = [[(64, np_, 16)], [], [(64, rows, 16), (64, pp, 16)]]
         scratch = {
             "cum": ((b, h, nc * chunk), torch.float32),
@@ -208,7 +257,8 @@ def kernel_plan(b: int, s: int, h: int, p: int, g: int, n: int, chunk: int,
     elif dtype == torch.float32:
         runs, run_len = head_runs(b, s, h, g, chunk)
         tiles = rows // 64 * (p // min(p, 64))   # query halves x y's columns
-        grids = [(nc, g * runs, b), pass_grid, (nc * tiles, g * runs, b)]
+        yz = head_grid(g * runs, b)
+        grids = [(nc, *yz), pass_grid, (nc * tiles, *yz)]
         mma = [[], [], []]
         scratch = {
             "cum": ((b, h, nc * chunk), torch.float32),
@@ -366,7 +416,8 @@ def head_runs(b: int, s: int, h: int, g: int, chunk: int) -> tuple[int, int]:
 def kernel_plan_bwd(b: int, s: int, h: int, p: int, g: int, n: int,
                     chunk: int, dtype: torch.dtype) -> dict:
     """Launch plan of ``ssd_scan_bwd_cuda`` for x ``[b, s, h, p]`` and
-    Bm/Cm ``[b, s, g, n]`` in chunks of ``chunk``: the forward's domain.
+    Bm/Cm ``[b, s, g, n]`` in chunks of ``chunk``: the forward's domain
+    and its decomposition (``kernel_plan``; ``ssd_bwd_decomposed``).
 
     bf16 plans ``"wgmma"``: six launches (``BWD_PHASES["wgmma"]``).  The
     chunk states, dx / dS and dB / dC walk a run of a group's heads
@@ -382,13 +433,21 @@ def kernel_plan_bwd(b: int, s: int, h: int, p: int, g: int, n: int,
     the chunk states two blocks (state, state gradient) a (chunk, run),
     dx / dS one a 64-row key block (``key_blocks``), dB / dC two (dB, dC)
     a 64-row block, the chain handing h and G on in f32, dS kept in f32.
-    ``scratch`` holds the tensors the wrapper allocates, in the C entry
-    point's order (no ``[b, s, h, n]`` tensor in either variant), and
-    ``scratch_bytes`` their sum.  Raises ValueError on what the kernel does
-    not take.
+    The grids' y and z (groups x runs or heads, batch) are ``head_grid``'s.
+    ``scratch`` holds the tensors the wrapper allocates for one launch, in
+    the C entry point's order (no ``[b, s, h, n]`` tensor in either
+    variant), and ``scratch_bytes`` their sum.  Raises ValueError on
+    another dtype and on an empty P, N or chunk.
     """
+    _refuse("ssd_scan_bwd_cuda", b, h, p, n, chunk)
+    keys, shape = _decomposition(b, s, h, p, g, n, chunk)
+    return {**_kernel_plan_bwd(*shape, dtype), **keys}
+
+
+def _kernel_plan_bwd(b: int, s: int, h: int, p: int, g: int, n: int,
+                     chunk: int, dtype: torch.dtype) -> dict:
+    """``kernel_plan_bwd``'s launches for one run in the kernels' domain."""
     name = "ssd_scan_bwd_cuda"
-    _refuse(name, b, h, p, n, chunk)
     if dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"{name}: x is {dtype}, expected torch.float32 or "
                          "torch.bfloat16")
@@ -396,6 +455,7 @@ def kernel_plan_bwd(b: int, s: int, h: int, p: int, g: int, n: int,
     rows_ = (b, h, nc * chunk)
     rows = 64 if chunk <= 64 else 128
     runs, run_len = head_runs(b, s, h, g, chunk)
+    yz = head_grid(g * runs, b)
     tiles = -(-p * n // (4 * CHAIN_THREADS))
     reduce_x = max(-(-h // (PASS_THREADS // 32)),
                    -(-b * s * g * n // (4 * PASS_THREADS)) if runs > 1 else 0)
@@ -403,17 +463,17 @@ def kernel_plan_bwd(b: int, s: int, h: int, p: int, g: int, n: int,
         variant = "wgmma"
         pp, np_ = _padded(p), _padded(n)
         jbs = rows // (64 * dxds_warpgroups(p, n, rows))
-        grids = [(nc, g * runs, b), (b * h, tiles, 1), (nc * jbs, g * runs, b),
-                 (2 * nc, g * runs, b), (nc, h, b),
+        grids = [(nc, *yz), (b * h, tiles, 1), (nc * jbs, *yz),
+                 (2 * nc, *yz), (nc, *head_grid(h, b)),
                  (reduce_x, 2 if runs > 1 else 1, 1)]
         products = [[(64, np_, 16)], [], [(64, pp, 16), (64, 64, 16)],
                     [(64, np_, 16)], [], []]
         ds = torch.bfloat16
     else:
         variant, jbs = "cuda_cores", rows // 64
-        grids = [(2 * nc, g * runs, b), (b * h, tiles, 1),
-                 (nc * jbs, g * runs, b), (2 * jbs * nc, g * runs, b),
-                 (nc, h, b), (reduce_x, 2 if runs > 1 else 1, 1)]
+        grids = [(2 * nc, *yz), (b * h, tiles, 1),
+                 (nc * jbs, *yz), (2 * jbs * nc, *yz),
+                 (nc, *head_grid(h, b)), (reduce_x, 2 if runs > 1 else 1, 1)]
         products = [[]] * 6
         ds = f32
     scratch = {
@@ -538,9 +598,10 @@ def ssd_scan_cuda(x: Tensor, dt: Tensor, A: Tensor, Bm: Tensor, Cm: Tensor,
     one whose rows are not 16-byte aligned).
 
     Launches on the current stream and does not synchronise: the three
-    phases of ``kernel_plan`` with the scratch it lists.  Each
-    call that launches adds one to ``ssd_scan_cuda.launches`` and leaves its
-    plan in ``ssd_scan_cuda.last_plan``.
+    phases of ``kernel_plan`` with the scratch it lists, once for each pair
+    of its P and N slices (``ssd_decomposed``).  Each call that launches
+    adds one to ``ssd_scan_cuda.launches`` and leaves its plan in
+    ``ssd_scan_cuda.last_plan``.
     """
     kbuild.refuse_autograd("ssd_scan_cuda", x=x, dt=dt, A=A, Bm=Bm, Cm=Cm, D=D)
     _check(x, dt, A, Bm, Cm, D)
@@ -557,17 +618,36 @@ def _plan(x: Tensor, Bm: Tensor, chunk: int) -> dict:
 def _ssd_fwd_op(x: Tensor, dt: Tensor, A: Tensor, Bm: Tensor, Cm: Tensor,
                 D: Tensor, chunk: int,
                 return_state: bool) -> tuple[Tensor, Tensor]:
-    """The scan's plan, checks and launch (``ssd_scan_cuda`` checks the
-    shapes first); the state is ``[0]`` unless asked for."""
+    """The scan's plan, checks and launches (``ssd_scan_cuda`` checks the
+    shapes first), through ``ssd_decomposed``; the state is ``[0]`` unless
+    asked for."""
     plan = _plan(x, Bm, chunk)
+    _on_card("ssd_scan_cuda", (("x", x), ("dt", dt), ("A", A), ("Bm", Bm),
+                               ("Cm", Cm), ("D", D)))
+    b, s, h, p = x.shape
+    n = Bm.shape[3]
+    state = torch.zeros((b, h, p, n) if return_state else (0,),
+                        dtype=torch.float32, device=x.device)
+    if x.numel() == 0:
+        return torch.empty_like(x, memory_format=torch.contiguous_format), \
+            state
+    out = ssd_decomposed(functools.partial(_launch_fwd, plan), x, dt, A, Bm,
+                         Cm, D, chunk=chunk, return_state=return_state)
+    ssd_scan_cuda.launches += 1
+    ssd_scan_cuda.last_plan = plan
+    return out if return_state else (out, state)
+
+
+def _launch_fwd(plan: dict, x: Tensor, dt: Tensor, A: Tensor, Bm: Tensor,
+                Cm: Tensor, D: Tensor, *, chunk: int, return_state: bool):
+    """One launch of the three phases for tensors in the kernels' domain
+    (``plan``'s padded widths and run chunk): y, or (y, state)."""
     _check_placed(plan, x, dt, A, Bm, Cm, D)
     b, s, h, p = x.shape
     g, n = Bm.shape[2], Bm.shape[3]
     y = torch.empty((b, s, h, p), dtype=x.dtype, device=x.device)
     state = torch.empty((b, h, p, n) if return_state else (0,),
                         dtype=torch.float32, device=x.device)
-    if y.numel() == 0:
-        return y, state.zero_()
     A, D = A.contiguous(), D.contiguous()
     if plan["variant"] == "cuda_cores":
         # cp.async reads 16-byte pieces of x, Bm and Cm rows
@@ -590,9 +670,111 @@ def _ssd_fwd_op(x: Tensor, dt: Tensor, A: Tensor, Bm: Tensor, Cm: Tensor,
             *Cm.stride()[:3], torch.cuda.current_stream().cuda_stream)
     if err != 0:
         _launch_failed("ssd_scan_cuda", err, x, Bm, chunk, plan)
-    ssd_scan_cuda.launches += 1
-    ssd_scan_cuda.last_plan = plan
-    return y, state
+    return (y, state) if return_state else y
+
+
+def _cols(t: Tensor, k: int, w: int) -> list[Tensor]:
+    """The ``k`` slices of ``t``'s last axis that ``width_slices`` cuts
+    (128 columns each past 128), each padded with zero columns to ``w``;
+    ``[t]`` where ``t`` is one slice of width ``w`` already."""
+    if k == 1 and t.shape[-1] == w:
+        return [t]
+    pieces = [t[..., 128 * i:128 * i + w] for i in range(k)]
+    return [torch.nn.functional.pad(c, (0, w - c.shape[-1])) for c in pieces]
+
+
+def _cut(parts: list[Tensor], width: int, dtype: torch.dtype,
+         dim: int = -1) -> Tensor:
+    """The slices put back together along ``dim``, cut to ``width``, in
+    ``dtype``, contiguous."""
+    t = parts[0] if len(parts) == 1 else torch.cat(parts, dim)
+    return t.narrow(dim, 0, width).to(dtype).contiguous()
+
+
+def _add(total: Tensor | None, part: Tensor) -> Tensor:
+    """A running sum over slices, in f32 past the first part."""
+    return part if total is None else total.float() + part.float()
+
+
+def ssd_decomposed(scan, x: Tensor, dt: Tensor, A: Tensor, Bm: Tensor,
+                   Cm: Tensor, D: Tensor, *, chunk: int,
+                   return_state: bool = False):
+    """The SSD scan at any P, N and chunk of at least 1 through ``scan``, a
+    scan of the kernels' domain with ``ssd_scan_cuda``'s signature (the
+    kernel's launch on the card, ``ref.ssd_scan_ref`` in the CPU tests):
+    y, or (y, the f32 final state) with ``return_state``.
+
+    Exact in arithmetic (only the order of sums changes): the scan runs at
+    ``run_chunk(chunk)``; P and N are cut by ``width_slices``.  Zero
+    columns of x give zero columns of y and zero rows of the state; zero
+    columns of B and C add nothing.  Slices of P are scans of their own
+    (D goes to each; y and the state's rows are concatenated).  The scan is
+    linear in the pair (B, C) over slices of N, since C.B and C.h are sums
+    over N whose state columns are independent: y = sum_s scan(x, dt, A,
+    B_s, C_s, D_s) with D on the first slice and zero on the others (summed
+    in f32), and the state's columns are concatenated.
+    """
+    p, n = x.shape[3], Bm.shape[3]
+    kp, pw = width_slices(p)
+    kn, nw = width_slices(n)
+    q = run_chunk(chunk)
+    if kp == kn == 1 and (pw, nw) == (p, n):
+        return scan(x, dt, A, Bm, Cm, D, chunk=q, return_state=return_state)
+    bs, cs = _cols(Bm, kn, nw), _cols(Cm, kn, nw)
+    ds = [D] + [torch.zeros_like(D)] * (kn - 1)
+    ys, states = [], []
+    for xs in _cols(x, kp, pw):
+        y, row = None, []
+        for b_, c_, d_ in zip(bs, cs, ds):
+            out = scan(xs, dt, A, b_, c_, d_, chunk=q,
+                       return_state=return_state)
+            y = _add(y, out[0] if return_state else out)
+            row.append(out[1] if return_state else None)
+        ys.append(y)
+        if return_state:
+            states.append(torch.cat(row, 3) if kn > 1 else row[0])
+    y = _cut(ys, p, x.dtype)
+    if not return_state:
+        return y
+    state = _cut(states, p, torch.float32, 2)
+    return y, state[..., :n].contiguous()
+
+
+def ssd_bwd_decomposed(bwd, x: Tensor, dt: Tensor, A: Tensor, Bm: Tensor,
+                       Cm: Tensor, D: Tensor, dy: Tensor, *,
+                       chunk: int) -> tuple[Tensor, ...]:
+    """The gradient of ``ssd_decomposed`` through ``bwd``, a backward of
+    the kernels' domain with ``ssd_scan_bwd_cuda``'s signature (the
+    kernel's launches on the card, ``ref.ssd_scan_bwd_ref`` in the CPU
+    tests): ``(dx, ddt, dA, dBm, dCm, dD)``.  Each run takes its slice of x
+    and dy (zero-padded) and its slice of B and C with D (zero past the
+    first N slice): dx is concatenated over P slices and summed over N
+    slices; dB and dC concatenated over N slices and summed over P slices;
+    ddt and dA summed over every run; dD (which does not depend on D) from
+    the first N slice, summed over P slices.  Sums in f32."""
+    p, n = x.shape[3], Bm.shape[3]
+    kp, pw = width_slices(p)
+    kn, nw = width_slices(n)
+    q = run_chunk(chunk)
+    if kp == kn == 1 and (pw, nw) == (p, n):
+        return bwd(x, dt, A, Bm, Cm, D, dy, chunk=q)
+    bs, cs = _cols(Bm, kn, nw), _cols(Cm, kn, nw)
+    ds = [D] + [torch.zeros_like(D)] * (kn - 1)
+    dxs, dbs, dcs = [], [None] * kn, [None] * kn
+    ddt = dA = dD = None
+    for xs, dys in zip(_cols(x, kp, pw), _cols(dy, kp, pw)):
+        dx = None
+        for i, (b_, c_, d_) in enumerate(zip(bs, cs, ds)):
+            gx, gdt, gA, gB, gC, gD = bwd(xs, dt, A, b_, c_, d_, dys,
+                                          chunk=q)
+            dx, ddt, dA = _add(dx, gx), _add(ddt, gdt), _add(dA, gA)
+            dbs[i], dcs[i] = _add(dbs[i], gB), _add(dcs[i], gC)
+            if i == 0:
+                dD = _add(dD, gD)
+        dxs.append(dx)
+    f32 = torch.float32
+    return (_cut(dxs, p, x.dtype), ddt.to(f32), dA.to(f32),
+            _cut(dbs, n, Bm.dtype), _cut(dcs, n, Cm.dtype), dD.to(f32))
 
 
 kbuild.define_op("ssd_scan_fwd(Tensor x, Tensor dt, Tensor A, Tensor Bm, "
@@ -657,10 +839,10 @@ def ssd_scan_bwd_cuda(x: Tensor, dt: Tensor, A: Tensor, Bm: Tensor,
     dx, dBm and dCm in x's dtype and contiguous, ddt, dA and dD in f32; the
     contract of ``ref.ssd_scan_bwd_ref``.
 
-    Six launches on the current stream (``kernel_plan_bwd``), no
-    synchronisation; the inputs are read contiguous and 16-byte aligned (a
-    copy is made of one that is not: bf16 reads them by TMA, f32 by
-    cp.async).  Each call that launches adds one to
+    Six launches on the current stream (``kernel_plan_bwd``) for each pair
+    of its P and N slices (``ssd_bwd_decomposed``), no synchronisation; the
+    inputs are read contiguous and 16-byte aligned (a copy is made of one
+    that is not: bf16 reads them by TMA, f32 by cp.async).  Each call that launches adds one to
     ``ssd_scan_bwd_cuda.launches`` and leaves its plan in
     ``ssd_scan_bwd_cuda.last_plan``.
     """
@@ -682,14 +864,34 @@ def _dense(t: Tensor) -> Tensor:
 
 def _ssd_bwd_op(x: Tensor, dt: Tensor, A: Tensor, Bm: Tensor, Cm: Tensor,
                 D: Tensor, dy: Tensor, chunk: int) -> tuple[Tensor, ...]:
-    """The backward's plan, checks and six launches
-    (``ssd_scan_bwd_cuda`` checks the shapes first)."""
+    """The backward's plan, checks and launches (``ssd_scan_bwd_cuda``
+    checks the shapes first), through ``ssd_bwd_decomposed``."""
     b, s, h, p = x.shape
     g, n = Bm.shape[2], Bm.shape[3]
     plan = kernel_plan_bwd(b, s, h, p, g, n, chunk, x.dtype)
     _on_card("ssd_scan_bwd_cuda", (("x", x), ("dt", dt), ("A", A),
                                    ("Bm", Bm), ("Cm", Cm), ("D", D),
                                    ("dy", dy)))
+    if x.numel() == 0:
+        dense = torch.contiguous_format
+        return (torch.zeros_like(x, memory_format=dense),
+                dt.new_zeros((b, s, h)), A.new_zeros((h,)),
+                torch.zeros_like(Bm, memory_format=dense),
+                torch.zeros_like(Cm, memory_format=dense), A.new_zeros((h,)))
+    out = ssd_bwd_decomposed(functools.partial(_launch_bwd, plan), x, dt, A,
+                             Bm, Cm, D, dy, chunk=chunk)
+    ssd_scan_bwd_cuda.launches += 1
+    ssd_scan_bwd_cuda.last_plan = plan
+    return out
+
+
+def _launch_bwd(plan: dict, x: Tensor, dt: Tensor, A: Tensor, Bm: Tensor,
+                Cm: Tensor, D: Tensor, dy: Tensor, *,
+                chunk: int) -> tuple[Tensor, ...]:
+    """The six launches for tensors in the kernels' domain (``plan``'s
+    padded widths and run chunk)."""
+    b, s, h, p = x.shape
+    g, n = Bm.shape[2], Bm.shape[3]
     x, dt, A, Bm, Cm, D, dy = (_dense(t) for t in (x, dt, A, Bm, Cm, D, dy))
     dx = torch.empty_like(x)
     ddt = torch.empty((b, s, h), dtype=torch.float32, device=x.device)
@@ -697,8 +899,6 @@ def _ssd_bwd_op(x: Tensor, dt: Tensor, A: Tensor, Bm: Tensor, Cm: Tensor,
               for _ in range(2))
     dBm, dCm = torch.empty_like(Bm), torch.empty_like(Cm)
     out = (dx, ddt, dA, dBm, dCm, dD)
-    if x.numel() == 0:
-        return tuple(t.zero_() for t in out)
     scratch = [torch.empty(shape, dtype=dtype, device=x.device)
                for shape, dtype in plan["scratch"].values()]
     ptrs = (ctypes.c_void_p * len(scratch))(*(t.data_ptr() for t in scratch))
@@ -710,8 +910,6 @@ def _ssd_bwd_op(x: Tensor, dt: Tensor, A: Tensor, Bm: Tensor, Cm: Tensor,
             plan.get("runs", 1), torch.cuda.current_stream().cuda_stream)
     if err != 0:
         _launch_failed("ssd_scan_bwd_cuda", err, x, Bm, chunk, plan)
-    ssd_scan_bwd_cuda.launches += 1
-    ssd_scan_bwd_cuda.last_plan = plan
     return out
 
 

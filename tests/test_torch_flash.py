@@ -344,11 +344,22 @@ def test_both_plans_refuse_widths_outside_the_domain(d, dtype):
                 plan(1, 2, 2, 64, 64, width, dtype)
 
 
-# d, the kernels' width (padded), the column slices
+# d, the kernels' width (padded), the column slices (f32; bf16 at widths
+# 136-256 runs the native kernels, one slice)
 WIDTHS = [(1, 8, 1), (4, 8, 1), (12, 16, 1), (20, 24, 1), (100, 104, 1),
           (128, 128, 1), (129, 136, 2), (136, 136, 2), (192, 192, 2),
           (256, 256, 2), (257, 264, 3), (512, 512, 4), (520, 520, 5),
           (1000, 1000, 8)]
+# the native kernels' (block_q, block_k, threads, shared memory) at 64-row
+# blocks (24 blocks of 128 would leave SMs idle): the forward's 1 KB of
+# alignment, Q of 64 rows and two stages of K and of V of 64 rows, 256 bf16
+# columns each, 128 bytes of mbarriers; the backward's
+# dK/dV (K, V, two stages of Q and dO, two f32 64 x 64 P^T buffers, 4 x 64
+# floats of lse and delta, 64 bytes) and dQ (Q and dO of 128 rows, two
+# stages of K, one of V, 64 bytes, 128 rows' lse and delta)
+NATIVE_GEOMETRY = (64, 64, 128, 1024 + (64 + 4 * 64) * 512 + 128)
+NATIVE_BWD_SMEM = (1024 + 6 * 64 * 512 + 2 * 64 * 64 * 4 + 4 * 64 * 4 + 64,
+                   1024 + 7 * 64 * 512 + 64 + 2 * 128 * 4)
 
 
 def test_both_plans_take_every_width():
@@ -357,20 +368,38 @@ def test_both_plans_take_every_width():
     wide kernels cut the output into ``slices`` slices of 128 columns, each
     forming S over the whole width (the recompute factor): 64-row blocks in
     both plans, the grids' x counting query (key) blocks x slices, and
-    shared memory that does not grow with the width.  (One test over the widths: the collection's size decides
-    xdist's first chunks, ROADMAP Queue C.)"""
+    shared memory that does not grow with the width; bf16 at widths
+    136-256 plans the native kernels (no slices; the dK/dV grid's x counts
+    key blocks x shares of the group).  (One test over the widths: the
+    collection's size decides xdist's first chunks, ROADMAP Queue C.)"""
     b, hq, hk, sq, sk = 2, 4, 2, 300, 300
-    for d, width, slices in WIDTHS:
+    for d, width, f32_slices in WIDTHS:
         for dtype in (torch.bfloat16, torch.float32):
             what = (d, dtype)
+            native = dtype == torch.bfloat16 and 136 <= width <= 256
+            slices = 1 if native else f32_slices
             fwd = fa.kernel_plan(b, hq, hk, sq, sk, d, dtype)
             bwd = fa.kernel_plan_bwd(b, hq, hk, sq, sk, d, dtype)
-            assert (fa.padded_width(d), fa.slices(d)) == (width, slices), what
+            assert (fa.padded_width(d), fa.slices(d, dtype)) == \
+                (width, slices), what
             assert (fwd["width"], fwd["slices"]) == (width, slices), what
             assert (bwd["width"], bwd["slices"]) == (width, slices), what
             assert fwd["smem"] <= fa.MAX_SMEM, what
             assert max(bwd["dkdv"]["smem"], bwd["dq"]["smem"]) <= \
                 fa.MAX_SMEM, what
+            if native:   # 5 blocks of 64 rows; 5 key blocks in 2 shares
+                assert fwd["variant"] == bwd["variant"] == "wgmma_256", what
+                assert (fwd["block_q"], fwd["block_k"], fwd["threads"],
+                        fwd["smem"]) == NATIVE_GEOMETRY, what
+                assert fwd["grid"] == (5, hq, b) and fwd["scratch"] == 0
+                assert (bwd["dkdv"]["rows"], bwd["dq"]["rows"]) == (64, 128)
+                assert (bwd["dkdv"]["smem"], bwd["dq"]["smem"]) == \
+                    NATIVE_BWD_SMEM, what
+                assert bwd["dkdv"]["head_split"] == 2, what
+                assert bwd["grids"]["dkdv"] == (10, hk, b), what
+                assert bwd["grids"]["dq"] == (3, hq, b), what
+                assert bwd["scratch"] == 2 * 2 * b * hk * sk * width * 4
+                continue
             if slices == 1:
                 assert fwd["smem"] == GEOMETRY[(
                     dtype, fa.kernel_width(d), fwd["block_q"])][2], what

@@ -54,7 +54,18 @@ WIDE_CASES = [
     (1, 4, 2, 48, 48, 192, dict(causal=True, window=16)),
     (1, 2, 2, 56, 40, 256, dict(causal=True, softcap=5.0)),   # Sq > Sk
     (1, 2, 1, 37, 53, 520, dict(causal=False)),               # ragged
+    (1, 4, 1, 48, 48, 192, dict(causal=True, window=16)),     # MQA 4/1
 ]
+# MQA 4/1 past 128 columns: dk sums the terms of 4 query heads, and the f32
+# sums of the plain version and of jax.vjp alike land up to ~1.8e-6 from the
+# f64 gradient (0.44 and 0.80 units below), past ATOL where an element is
+# near zero.  There dk is held elementwise to the f64 gradient (numpy, the
+# conventions of ``_masked_logits``) within one unit of f32 rounding of the
+# magnitude of its terms, u A with u = 2^-24 and A = scale sum |dS^T| |q|
+# over the group, |dS| = |P| (|dO| |V|^T + rowsum |dO o|): the first-order
+# bound of each f32 product and sum that makes it; and the plain version to
+# jax.vjp within 2 u A.  dq and dv are held as every case.
+F64_HELD = [(1, 4, 1, 48, 48, 192, dict(causal=True, window=16))]
 IDS = [f"{c[0]}x{c[1]}/{c[2]}x{c[3]}x{c[4]}xD{c[5]}-" +
        "-".join(f"{k}{v}" for k, v in c[6].items()) for c in CASES]
 
@@ -98,12 +109,41 @@ def _masked_logits(q, k, kw):
     return np.where(valid, s, -np.inf)
 
 
+def _dk_f64(q, k, v, do, kw):
+    """dk of attention in f64 (numpy) and the magnitude A of its terms (see
+    ``F64_HELD``), both ``[B, Hk, Sk, D]``."""
+    b, hq, sq, d = q.shape
+    hk, sk = k.shape[1], k.shape[2]
+    g, scale = hq // hk, d ** -0.5
+    q, k, v, do = (x.astype(np.float64) for x in (q, k, v, do))
+    s = _masked_logits(q, k, kw)
+    m = np.max(s, axis=-1, keepdims=True)
+    p = np.where(np.isfinite(s), np.exp(s - np.where(np.isfinite(m), m, 0)),
+                 0.0)
+    p = p / np.maximum(p.sum(-1, keepdims=True), 1e-300)
+    vv = np.repeat(v, g, axis=1)
+    o = p @ vv
+    ds = p * (do @ vv.transpose(0, 1, 3, 2) - (do * o).sum(-1, keepdims=True))
+    if kw.get("softcap"):
+        raise ValueError("the f64 check is written without a softcap")
+    abs_ds = p * (np.abs(do) @ np.abs(vv).transpose(0, 1, 3, 2)
+                  + (np.abs(do) * np.abs(o)).sum(-1, keepdims=True))
+
+    def dk_of(dscores, queries):   # scale dS^T q, summed over the group
+        return scale * (dscores.transpose(0, 1, 3, 2) @ queries).reshape(
+            b, hk, g, sk, d).sum(2)
+
+    return dk_of(ds, q), dk_of(abs_ds, np.abs(q))
+
+
 def _close(got, want, what):
     np.testing.assert_allclose(got.detach().numpy(), want, rtol=RTOL,
                                atol=ATOL, err_msg=what)
 
 
-def _matches_jax_vjp(b, hq, hk, sq, sk, d, kw, path):
+def _matches_jax_vjp(b, hq, hk, sq, sk, d, kw, path, f64=False):
+    """The path's out, dq, dk, dv against jax.vjp's; with ``f64``, dk as
+    ``F64_HELD`` holds it."""
     q, k, v, do = _inputs(sq * 7 + sk, b, hq, hk, sq, sk, d)
     jout, jgrads = _jax_vjp(q, k, v, do, kw)
     tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
@@ -119,6 +159,14 @@ def _matches_jax_vjp(b, hq, hk, sq, sk, d, kw, path):
     _close(out, jout, "out")
     for name, got, want in zip(("dq", "dk", "dv"), grads, jgrads):
         assert got.dtype == torch.float32 and got.shape == want.shape
+        if f64 and name == "dk":
+            exact, mag = _dk_f64(q, k, v, do, kw)
+            unit = 2.0 ** -24 * mag
+            got = got.detach().numpy()
+            assert np.all(np.abs(got - exact) <= unit), path
+            assert np.all(np.abs(want - exact) <= unit), "jax.vjp"
+            assert np.all(np.abs(got - want) <= 2 * unit), path
+            continue
         _close(got, want, name)
 
 
@@ -154,7 +202,7 @@ def test_backward_and_lse_match_jax_at_every_width():
     Queue C.)"""
     for case in WIDE_CASES:
         for path in ("attention_bwd_ref", "FlashAttention"):
-            _matches_jax_vjp(*case, path)
+            _matches_jax_vjp(*case, path, f64=case in F64_HELD)
         _lse_matches(*case)
 
 
@@ -285,6 +333,7 @@ def test_kernel_plan_bwd(b, hq, hk, sq, sk, d, bf16_rows, f32_split, dtype,
         kernels[kernel] = {"rows": r, "other": other, "threads": threads,
                            "smem": smem[i]}
     kernels["dq"]["split"] = split
+    kernels["dkdv"]["head_split"] = 1
     assert plan == {
         "variant": variant, **kernels,
         "scratch": split * b * hq * sq * d * 4 if split > 1 else 0,
@@ -370,15 +419,18 @@ WIDE_BWD = {torch.bfloat16: (64, 128, 1024 + 3 * 32_768 + 64 + 1024,
 
 
 def _wide_plans_bwd_slice_columns_and_split_keys():
-    """Past 128 columns both backward kernels take 64-row blocks, one slice
-    of 128 columns each (the grids' x counts blocks x slices), the wide
-    geometry; the f32 dQ split sees the slices' blocks, its scratch at the
-    padded width, and a dK/dV block walks every query head of its GQA
-    group.  (One test over the widths and shapes: the collection's size
-    decides xdist's first chunks, ROADMAP Queue C.)"""
+    """Past 128 columns in f32, and past 256 in bf16 (below, the native
+    kernels), both backward kernels take 64-row blocks, one slice of 128
+    columns each (the grids' x counts blocks x slices), the wide geometry;
+    the f32 dQ split sees the slices' blocks, its scratch at the padded
+    width, and a dK/dV block walks every query head of its GQA group.  (One
+    test over the widths and shapes: the collection's size decides xdist's
+    first chunks, ROADMAP Queue C.)"""
     for dtype in (torch.bfloat16, torch.float32):
         for d, width, n in ((136, 136, 2), (192, 192, 2), (256, 256, 2),
                             (300, 304, 3), (512, 512, 4), (520, 520, 5)):
+            if dtype == torch.bfloat16 and d <= 256:
+                continue     # the native kernels
             assert fa.geometry_bwd(dtype, d, 64) == WIDE_BWD[dtype]
             for b, hq, hk, sq, sk in ((2, 4, 2, 300, 300), (1, 16, 2, 4096,
                                                             4096),
@@ -394,7 +446,7 @@ def _wide_plans_bwd_slice_columns_and_split_keys():
                 split = (fa.key_split(b * hq * blocks, sk)
                          if dtype == torch.float32 else 1)
                 assert plan["dq"]["split"] == split, what
-                assert "split" not in plan["dkdv"], what
+                assert plan["dkdv"]["head_split"] == 1, what
                 assert plan["grids"]["dq"] == (blocks * split, hq, b), what
                 assert plan["grids"]["dkdv"] == (-(-sk // 64) * n, hk, b), \
                     what
@@ -426,3 +478,57 @@ def test_wide_plans_bwd_slice_columns_and_split_keys():
     """The wide backward plans' slices, geometry, splits and scratch
     (``_wide_plans_bwd_slice_columns_and_split_keys``)."""
     _wide_plans_bwd_slice_columns_and_split_keys()
+
+
+# (b, hq, hk, sq, sk), then the native dK/dV shares of the group: one where
+# the key blocks fill two waves of 132 SMs, else as many as reach two waves,
+# at most the group's heads
+NATIVE_SHARES = [
+    ((1, 16, 2, 4096, 4096), 3),     # Qwen3-Next: 128 key blocks
+    ((2, 4, 2, 300, 300), 2),        # 20 blocks: 14 wanted, the group's 2
+    ((8, 16, 8, 2048, 2048), 1),     # 2,048 blocks
+    ((1, 8, 1, 1000, 1000), 8),      # MQA: 16 blocks, 17 wanted, 8 heads
+    ((1, 4, 4, 128, 128), 1),        # MHA: a group of one head
+]
+
+
+def test_native_variant_by_width_and_dtype():
+    """The native kernels run exactly at bf16 padded widths 136-256 (D 129
+    pads to 136): forward 256 threads (two warpgroups) on 128-row blocks
+    (64 where those would leave SMs idle), backward 256 threads, dK/dV blocks of
+    64 keys in the group's shares (``head_split``), dQ blocks of 128
+    queries; shared memory within 232,448 bytes.  Past 256 and in f32 the
+    slice kernels ("wgmma" / "cuda_cores" with slices) run.  The shares'
+    f32 parts are the scratch, and add a combine launch."""
+    for d in (120, 128, 129, 136, 192, 200, 256, 257, 264, 512):
+        for dtype in (torch.bfloat16, torch.float32):
+            native = dtype == torch.bfloat16 and 129 <= d <= 256
+            fwd = fa.kernel_plan(1, 16, 2, 4096, 4096, d, dtype)
+            bwd = fa.kernel_plan_bwd(1, 16, 2, 4096, 4096, d, dtype)
+            assert fa.native(d, dtype) == native, (d, dtype)
+            assert (fwd["variant"] == "wgmma_256") == native, (d, dtype)
+            assert (bwd["variant"] == "wgmma_256") == native, (d, dtype)
+            assert fwd["smem"] <= 232_448
+            assert max(bwd["dkdv"]["smem"], bwd["dq"]["smem"]) <= 232_448
+            if not native:
+                assert (fwd["slices"] > 1) == (d > 128), (d, dtype)
+                continue
+            assert (fwd["threads"], fwd["block_q"], fwd["slices"]) == \
+                (256, 128, 1)
+            assert bwd["dkdv"]["threads"] == bwd["dq"]["threads"] == 256
+            assert (bwd["dkdv"]["rows"], bwd["dq"]["rows"]) == (64, 128)
+            assert bwd["dkdv"]["head_split"] == 3
+            assert bwd["grids"]["dkdv"] == (64 * 3, 2, 1)
+            assert bwd["grids"]["dq"] == (32, 16, 1)
+            width = fa.padded_width(d)
+            assert bwd["scratch"] == 2 * 3 * 2 * 4096 * width * 4
+            assert bwd["grids"]["combine"] == (2 * 2 * 4096 * width // 1024,)
+    small = fa.kernel_plan(2, 4, 1, 300, 500, 136, torch.bfloat16)
+    assert (small["variant"], small["block_q"], small["threads"],
+            small["smem"]) == ("wgmma_256", 64, 128, 1024 + 320 * 512 + 128)
+    for (b, hq, hk, sq, sk), shares in NATIVE_SHARES:
+        assert fa.head_split(b, hk, sk, hq // hk) == shares, (b, hq, hk)
+        plan = fa.kernel_plan_bwd(b, hq, hk, sq, sk, 256, torch.bfloat16)
+        assert plan["dkdv"]["head_split"] == shares
+        assert plan["grids"]["dkdv"][0] == -(-sk // 64) * shares
+        assert ("combine" in plan["grids"]) == (shares > 1)

@@ -37,6 +37,13 @@ ROW_MIN_D = 16
 VARIANT = {"float32": "cuda_cores", "bfloat16": "wgmma"}
 
 
+def variant(d: int, dtype: str) -> str:
+    """The plan variant of head width ``d``: the native bf16 kernels at
+    padded widths 136-256 ("wgmma_256"), else the dtype's."""
+    return "wgmma_256" if fa.native(d, getattr(torch, dtype)) \
+        else VARIANT[dtype]
+
+
 def _card(seed, b, hq, hk, sq, sk, d, dtype):
     """q, k, v, dO on the card, standard normal from a numpy seed."""
     if not torch.cuda.is_available():
@@ -113,6 +120,8 @@ WIDE_SHAPES = [
     (2, 4, 2, 300, 300, 520, dict(causal=True)),
     (1, 4, 2, 150, 150, 256, dict(causal=True, window=48, softcap=50.0)),
     (1, 4, 1, 96, 224, 192, dict(causal=True)),
+    (2, 4, 1, 300, 500, 136, dict(causal=True, window=100)),    # MQA, Sq < Sk
+    (1, 8, 2, 200, 200, 192, dict(causal=False, softcap=30.0)),
     (2, 4, 2, 80, 48, 200, dict(causal=True)),                  # no keys
     (1, 4, 1, 64, 8192, 256, dict(causal=True)),                # f32 split
     (1, 8, 1, 512, 512, 512, dict(causal=True, window=128)),
@@ -145,10 +154,10 @@ def _check_backward(b, hq, hk, sq, sk, d, dtype, kw):
     torch.cuda.synchronize()
     assert fa.flash_attention_bwd_cuda.launches == launches + 2
     plan = fa.flash_attention_bwd_cuda.last_plan
-    assert plan["variant"] == VARIANT[dtype]
+    assert plan["variant"] == variant(d, dtype)
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    assert (plan["width"], plan["slices"]) == (fa.padded_width(d),
-                                               fa.slices(d))
+    assert (plan["width"], plan["slices"]) == (
+        fa.padded_width(d), fa.slices(d, getattr(torch, dtype)))
     # past fa.MAX_PAIRS pairs the plan is the first launch's
     chunks = fa.pair_chunks(b, hq, hk)
     assert plan["pair_chunks"] == max(1, len(chunks))

@@ -30,6 +30,13 @@ pytestmark = [pytest.mark.tier1, pytest.mark.cuda]
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 VARIANT = {"float32": "cuda_cores", "bfloat16": "wgmma"}
+
+
+def variant(d: int, dtype: str) -> str:
+    """The plan variant of head width ``d``: the native bf16 kernels at
+    padded widths 136-256 ("wgmma_256"), else the dtype's."""
+    return "wgmma_256" if fa.native(d, getattr(torch, dtype)) \
+        else VARIANT[dtype]
 ROW_TOL = {"float32": 1e-5, "bfloat16": 8e-3}
 # the bf16 row limit holds from D 16, where it was set: a row of 4 or 8
 # values whose terms cancel has a norm of ~0.05, which P's rounding to bf16
@@ -89,6 +96,8 @@ WIDE_SHAPES = [
     (2, 4, 2, 300, 300, 520, dict(causal=True)),
     (1, 4, 2, 150, 150, 256, dict(causal=True, window=48, softcap=50.0)),
     (1, 4, 1, 96, 224, 192, dict(causal=True)),
+    (2, 4, 1, 300, 500, 136, dict(causal=True, window=100)),    # MQA, Sq < Sk
+    (1, 8, 2, 200, 200, 192, dict(causal=False, softcap=30.0)),
     (2, 4, 2, 80, 48, 200, dict(causal=True)),                  # masked rows
     (1, 16, 2, 1024, 1024, 256, dict(causal=True)),
     (1, 8, 1, 512, 512, 512, dict(causal=True, window=128)),
@@ -103,7 +112,7 @@ def _matches_plain_version(b, hq, hk, sq, sk, d, dtype, kw):
     want = ref.attention_ref(*args, **kw)
     torch.cuda.synchronize()
     assert fa.flash_attention_cuda.launches == launches + 1
-    assert fa.flash_attention_cuda.last_plan["variant"] == VARIANT[dtype]
+    assert fa.flash_attention_cuda.last_plan["variant"] == variant(d, dtype)
     assert out.dtype == want.dtype and out.shape == want.shape
     torch.testing.assert_close(out.float(), want.float(), rtol=TOL[dtype],
                                atol=TOL[dtype])
@@ -113,8 +122,8 @@ def _matches_plain_version(b, hq, hk, sq, sk, d, dtype, kw):
         diff = out.float() - want.float()
         assert float(diff.norm() / want.float().norm()) < REL_TOL[dtype]
     plan = fa.flash_attention_cuda.last_plan
-    assert (plan["width"], plan["slices"]) == (fa.padded_width(d),
-                                               fa.slices(d))
+    assert (plan["width"], plan["slices"]) == (
+        fa.padded_width(d), fa.slices(d, getattr(torch, dtype)))
     assert plan["pair_chunks"] == max(1, len(fa.pair_chunks(b, hq, hk)))
 
 

@@ -433,7 +433,7 @@ def _wide_and_folded_flash_plans_pass_and_trip():
             bwd = flash_attention.kernel_plan_bwd(*shape, dtype)
             assert simlint.check_flash_plan(plan, shape, "t") == [], shape
             assert simlint.check_flash_bwd_plan(bwd, shape, "t") == [], shape
-    shape = (1, 16, 2, 4096, 4096, 256)
+    shape = (1, 16, 2, 4096, 4096, 512)   # bf16 slices past 256 columns
     plan = flash_attention.kernel_plan(*shape, torch.bfloat16)
     no_slices = dict(plan, grid=(64, 16, 1))
     assert any("does not cover" in e.message for e in _errors(
@@ -461,8 +461,8 @@ def test_r6_audits_every_kernel(ctx):
     assert {k: len(v) > 10 for k, v in plans.items()} == {
         "sweep": True, "flash": True, "flash_bwd": True, "ssd": True}
     assert {p["variant"] for _, _, p in plans["sweep"]} == {"fused", "split"}
-    assert {p["variant"] for _, _, p in plans["flash"]} == {"wgmma",
-                                                            "cuda_cores"}
+    assert {p["variant"] for _, _, p in plans["flash"]} == {
+        "wgmma", "wgmma_256", "cuda_cores"}
 
 
 # ---------------------------------------------------------------------------

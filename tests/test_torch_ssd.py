@@ -247,6 +247,13 @@ def test_kernel_wrapper_refuses_cpu_tensors_and_autograd():
 # of y a block, C's 64 rows [64, N + 4], h_in's [pt, N + 4], x's first
 # stage [rows, pt + 4], then the larger of B's rows [rows, N + 4] and W
 # [64, rows + 4] with x's second stage, then 2 floats a row.
+def _one(p, n, chunk):
+    """The decomposition keys of a shape in the kernels' own domain: one
+    launch at the asked chunk and widths."""
+    return {"chunk": chunk, "p_slices": 1, "p_width": p, "n_slices": 1,
+            "n_width": n, "launches": 1}
+
+
 def _phases(state, scan, rows_grid, pass_grid):
     return [
         {"name": "ssd_fwd_chunk_state", "grid": rows_grid, "threads": 128,
@@ -270,6 +277,7 @@ PLANS = [
     # mamba2-130m's training shape: 16 chunks x 24 heads x 8; state pass
     # 8 blocks of 1,024 state elements for each of 192 heads
     ((8, 2048, 24, 64, 1, 128, 128, torch.bfloat16), {
+        **_one(64, 128, 128),
         "variant": "wgmma", "rows": 128,
         "phases": _phases(
             (1_024 + 16_384 * 3 + 8 + 1_536, [(64, 128, 16)]),     # 51,720
@@ -282,6 +290,7 @@ PLANS = [
         "scratch_bytes": 1_572_864 + 100_663_296 + 50_331_648}),
     # jamba-shaped: N = 16 pads to one 64-column box
     ((1, 4096, 128, 64, 1, 16, 128, torch.bfloat16), {
+        **_one(64, 16, 128),
         "variant": "wgmma", "rows": 128,
         "phases": _phases(
             (1_024 + 16_384 * 2 + 8 + 1_536, [(64, 64, 16)]),      # 35,336
@@ -294,6 +303,7 @@ PLANS = [
         "scratch_bytes": 2_097_152 + 16_777_216 + 8_388_608}),
     # chunk 32 in 64-row tiles, one warpgroup in the chunk scan
     ((1, 256, 4, 64, 1, 128, 32, torch.bfloat16), {
+        **_one(64, 128, 32),
         "variant": "wgmma", "rows": 64,
         "phases": _phases(
             (1_024 + 8_192 * 3 + 8 + 768, [(64, 128, 16)]),        # 26,376
@@ -308,6 +318,7 @@ PLANS = [
     # group's 4 heads go in 4 runs of one (48 blocks; 96 in the scan, its
     # two 64-row halves a chunk)
     ((2, 300, 8, 32, 2, 64, 128, torch.float32), {
+        **_one(32, 64, 128),
         "variant": "cuda_cores", "rows": 128, "runs": 4, "run_len": 1,
         "phases": _f32_phases(
             [(3, 8, 2), (16, 2, 1), (6, 8, 2)],
@@ -321,6 +332,7 @@ PLANS = [
     # one run of all 24 heads; the scan's late room is W [64, 132] and x's
     # second stage [128, 68] (B's [128, 132] is smaller)
     ((8, 2048, 24, 64, 1, 128, 128, torch.float32), {
+        **_one(64, 128, 128),
         "variant": "cuda_cores", "rows": 128, "runs": 1, "run_len": 24,
         "phases": _f32_phases(
             [(16, 1, 8), (192, 8, 1), (32, 1, 8)],
@@ -333,6 +345,7 @@ PLANS = [
     # jamba's layer in f32 (phase 7): 3 chunks, so 128 heads in 43 runs of
     # 3 (the last of 2): 129 blocks, 258 in the scan
     ((1, 300, 128, 64, 1, 16, 128, torch.float32), {
+        **_one(64, 16, 128),
         "variant": "cuda_cores", "rows": 128, "runs": 43, "run_len": 3,
         "phases": _f32_phases(
             [(3, 43, 1), (128, 1, 1), (6, 43, 1)],
@@ -345,6 +358,7 @@ PLANS = [
     # f32, two groups of 6 heads in 3 runs of 2, chunk 64 (64-row tiles),
     # P = 128: y's two 64-column halves are two blocks of the scan
     ((2, 512, 12, 128, 2, 32, 64, torch.float32), {
+        **_one(128, 32, 64),
         "variant": "cuda_cores", "rows": 64, "runs": 3, "run_len": 2,
         "phases": _f32_phases(
             [(8, 6, 2), (24, 4, 1), (16, 6, 2)],
@@ -394,24 +408,118 @@ def test_kernel_plan_tiles_fit_wgmma_and_the_card(p, n):
         assert f32["phases"][0]["smem"] <= 232_448
 
 
-@pytest.mark.parametrize("shape,dtype,match", [
-    ((1, 64, 2, 8, 1, 16, 32), torch.bfloat16, "head dim P=8"),
-    ((1, 64, 2, 16, 1, 24, 32), torch.float32, "state dim N=24"),
-    ((1, 64, 2, 16, 1, 16, 48), torch.bfloat16, "chunk 48"),
+@pytest.mark.parametrize("shape,dtype,want", [
+    # P 8 pads to 16; N 24 pads to 32; chunk 48 runs at 64
+    ((1, 64, 2, 8, 1, 16, 32), torch.bfloat16,
+     {"p_width": 16, "p_slices": 1, "launches": 1}),
+    ((1, 64, 2, 16, 1, 24, 32), torch.float32,
+     {"n_width": 32, "n_slices": 1, "launches": 1}),
+    ((1, 64, 2, 16, 1, 16, 48), torch.bfloat16, {"chunk": 64, "rows": 64}),
+    # a batch past the grid's z: (2 heads x 65,536) pairs folded on y, z
+    ((65536, 64, 2, 16, 1, 16, 32), torch.bfloat16,
+     {"grid": (2, 65535, 3)}),
     ((1, 64, 2, 16, 1, 16, 32), torch.float16, "float16"),
-    ((65536, 64, 2, 16, 1, 16, 32), torch.bfloat16, "exceed the grid"),
+    ((1, 64, 2, 16, 1, 16, 0), torch.float32, "chunk 0 is below 1"),
 ])
-def test_kernel_wrapper_raises_on_what_the_plan_refuses(shape, dtype, match):
-    """The plan refuses before any device is looked at: meta tensors (no
-    memory) reach it here, and the wrapper raises its ValueError."""
+def test_kernel_wrapper_raises_on_what_the_plan_refuses(shape, dtype, want):
+    """What was outside the instantiations (P or N off (16, 32, 64, 128), a
+    chunk off the multiples of 32, a batch past the grid) the plan now
+    takes and reports: its pads, slices, run chunk and folded grid; the
+    wrapper on meta tensors (no memory) gives the output's shape.  Another
+    dtype and an empty chunk stay refusals, before any device is looked
+    at."""
     b, s, h, p, g, n, chunk = shape
-    with pytest.raises(ValueError, match=match):
-        ssd.kernel_plan(b, s, h, p, g, n, chunk, dtype)
     meta = dict(device="meta")
     args = (torch.empty(b, s, h, p, dtype=dtype, **meta),
             torch.empty(b, s, h, **meta), torch.empty(h, **meta),
             torch.empty(b, s, g, n, dtype=dtype, **meta),
             torch.empty(b, s, g, n, dtype=dtype, **meta),
             torch.empty(h, **meta))
-    with pytest.raises(ValueError, match=match):
-        ssd.ssd_scan_cuda(*args, chunk=chunk)
+    if isinstance(want, str):
+        with pytest.raises(ValueError, match=want):
+            ssd.kernel_plan(b, s, h, p, g, n, chunk, dtype)
+        with pytest.raises(ValueError, match=want):
+            ssd.ssd_scan_cuda(*args, chunk=chunk)
+        return
+    plan = ssd.kernel_plan(b, s, h, p, g, n, chunk, dtype)
+    grid = want.pop("grid", None)
+    assert {k: plan[k] for k in want} == want
+    if grid is not None:
+        assert plan["phases"][0]["grid"] == grid
+        assert plan["phases"][2]["grid"] == grid
+    y = ssd.ssd_scan_cuda(*args, chunk=chunk)
+    assert y.shape == (b, s, h, p) and y.dtype == dtype
+
+
+# The corners of ssd_scan_pallas's domain that no instantiation takes as
+# they are: b, s, h, p, g, n, chunk.  mamba_ssm's default chunk of 256;
+# chunks 48, 160, 100 and 8; P 8, 48, 96 and 192 (past 128: two slices);
+# N 8, 24, 48 and 256 (two slices); P and N past 128 together.
+CORNERS = [
+    (1, 300, 2, 16, 1, 16, 256),
+    (1, 100, 2, 8, 1, 8, 48),
+    (2, 200, 2, 48, 1, 24, 160),
+    (1, 130, 4, 96, 2, 48, 100),
+    (1, 40, 2, 16, 1, 16, 8),
+    (1, 96, 2, 192, 1, 32, 64),
+    (1, 96, 4, 32, 2, 256, 32),
+    (1, 70, 2, 136, 1, 136, 48),
+]
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", CORNERS)
+def test_decomposition_matches_pallas_at_the_asked_chunk(b, s, h, p, g, n,
+                                                         chunk):
+    """``ssd_decomposed`` over the plain version (what the card runs over
+    the kernel: the run chunk, P and N padded and sliced) against the
+    Pallas kernel in interpret mode at the asked chunk, and its final state
+    against the JAX package's chunked scan over the inputs padded to that
+    chunk with ``dt = 0``, within the file's 2e-4."""
+    arrays = _inputs(s * 5 + p + n, b, s, h, p, g, n)
+    y, state = ssd.ssd_decomposed(ref.ssd_scan_ref, *_port(arrays),
+                                  chunk=chunk, return_state=True)
+    _close(y, ssd_scan_pallas(*_jax(arrays), chunk=chunk, interpret=True))
+    assert y.shape == (b, s, h, p) and state.shape == (b, h, p, n)
+    pad = (-s) % chunk
+    padded = [np.pad(a, [(0, 0), (0, pad)] + [(0, 0)] * (a.ndim - 2))
+              if a.ndim > 1 else a for a in arrays]
+    _close(state, jref.ssd_chunked_ref(*_jax(padded), chunk=chunk,
+                                       return_state=True)[1])
+    assert torch.equal(ssd.ssd_decomposed(ref.ssd_scan_ref, *_port(arrays),
+                                          chunk=chunk), y)
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", CORNERS)
+def test_kernel_plan_reports_the_decomposition(b, s, h, p, g, n, chunk):
+    """Every corner plans in both dtypes: the run chunk (the smallest
+    multiple of 32 at or above the asked one, at most 128), the padded
+    widths and slice counts of P and N, one launch a pair of slices, and
+    phases in the instantiations' domain."""
+    for dtype in (torch.bfloat16, torch.float32):
+        for plan in (ssd.kernel_plan(b, s, h, p, g, n, chunk, dtype),
+                     ssd.kernel_plan_bwd(b, s, h, p, g, n, chunk, dtype)):
+            assert plan["chunk"] == min(128, -(-chunk // 32) * 32)
+            for w, k, pad in ((p, plan["p_slices"], plan["p_width"]),
+                              (n, plan["n_slices"], plan["n_width"])):
+                assert pad in ssd.HEAD_DIMS and k * pad >= w
+                assert k == (1 if w <= 128 else -(-w // 128))
+                assert k > 1 or pad == 16 or pad < 2 * w   # the least
+            assert plan["launches"] == plan["p_slices"] * plan["n_slices"]
+            for ph in plan["phases"]:
+                assert ph["smem"] <= 232_448 and max(ph["grid"][1:]) <= 65535
+
+
+@pytest.mark.parametrize("b,h", [(66_000, 2), (1, 66_000), (66_000, 64)])
+def test_kernel_plans_fold_batch_and_heads_past_the_grid(b, h):
+    """A batch or a head count of 66,000: every grid's y and z within
+    65,535 and covering every (batch, head or run) pair, forward and
+    backward, both dtypes."""
+    for dtype in (torch.bfloat16, torch.float32):
+        for plan in (ssd.kernel_plan(b, 64, h, 16, 1, 16, 32, dtype),
+                     ssd.kernel_plan_bwd(b, 64, h, 16, 1, 16, 32, dtype)):
+            for ph in plan["phases"]:
+                gx, gy, gz = ph["grid"]
+                assert gy <= 65535 and gz <= 65535 and gx < 2**31
+            heads = plan["phases"][0]["grid"]
+            per = plan.get("runs", h)     # one group: its runs, or heads
+            assert heads[1] * heads[2] >= b * per

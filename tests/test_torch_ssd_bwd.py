@@ -172,6 +172,13 @@ def test_meta_tensors_trace_the_backward_op():
     assert ssd.ssd_scan_bwd_cuda.launches == launches
 
 
+def _one(p, n, chunk):
+    """The decomposition keys of a shape in the kernels' own domain: one
+    launch at the asked chunk and widths."""
+    return {"chunk": chunk, "p_slices": 1, "p_width": p, "n_slices": 1,
+            "n_width": n, "launches": 1}
+
+
 def _bwd_phases(variant, grids, threads, smem, mma):
     return [{"name": name, "grid": grid, "threads": t, "smem": m, "mma": k}
             for name, grid, t, m, k
@@ -208,6 +215,7 @@ PLANS_BWD = [
     # one run of 24 heads; two warpgroups over the key rows fit (one key
     # block); the chain: 8 blocks of 1,024 elements for each of 192 heads
     ((8, 2048, 24, 64, 1, 128, 128, torch.bfloat16), {
+        **_one(64, 128, 128),
         "variant": "wgmma", "rows": 128, "runs": 1, "run_len": 24,
         "key_blocks": 1,
         "phases": _bwd_phases(
@@ -243,6 +251,7 @@ PLANS_BWD = [
     # 32 blocks, so its 128 heads go in 4 runs of 32 (128 blocks) whose dB
     # and dC parts the reduction adds up (grid y 1, 65,536 / 1,024 blocks)
     ((1, 4096, 128, 64, 1, 16, 128, torch.bfloat16), {
+        **_one(64, 16, 128),
         "variant": "wgmma", "rows": 128, "runs": 4, "run_len": 32,
         "key_blocks": 1,
         "phases": _bwd_phases(
@@ -280,6 +289,7 @@ PLANS_BWD = [
     # chunks x 2 groups x 2 = 16 blocks, so each group's 4 heads go in 4
     # runs of one, whose dB and dC parts the reduction adds up
     ((2, 300, 8, 32, 2, 64, 96, torch.float32), {
+        **_one(32, 64, 96),
         "variant": "cuda_cores", "rows": 128, "runs": 4, "run_len": 1,
         "key_blocks": 2,
         "phases": _bwd_phases(
@@ -311,6 +321,7 @@ PLANS_BWD = [
     # mamba2-130m trained in f32: one run of 24 heads, as bf16's; dx / dS
     # two stages of x [64, 68] and dy [128, 68] with G [64, 132] apart
     ((8, 2048, 24, 64, 1, 128, 128, torch.float32), {
+        **_one(64, 128, 128),
         "variant": "cuda_cores", "rows": 128, "runs": 1, "run_len": 24,
         "key_blocks": 2,
         "phases": _bwd_phases(
@@ -420,24 +431,76 @@ def test_kernel_plan_bwd_bf16_keeps_no_head_partials(shape, dtype):
         assert plan["scratch_bytes"] <= 250_000_000
 
 
-@pytest.mark.parametrize("shape,dtype,match", [
-    ((1, 64, 2, 8, 1, 16, 32), torch.bfloat16, "head dim P=8"),
-    ((1, 64, 2, 16, 1, 24, 32), torch.float32, "state dim N=24"),
-    ((1, 64, 2, 16, 1, 16, 48), torch.bfloat16, "chunk 48"),
-    ((1, 64, 2, 16, 1, 16, 160), torch.float32, "chunk 160"),
+@pytest.mark.parametrize("shape,dtype,want", [
+    ((1, 64, 2, 8, 1, 16, 32), torch.bfloat16,
+     {"p_width": 16, "p_slices": 1, "launches": 1}),
+    ((1, 64, 2, 16, 1, 24, 32), torch.float32,
+     {"n_width": 32, "n_slices": 1, "launches": 1}),
+    ((1, 64, 2, 16, 1, 16, 48), torch.bfloat16, {"chunk": 64, "rows": 64}),
+    ((1, 64, 2, 16, 1, 16, 160), torch.float32, {"chunk": 128, "rows": 128}),
     ((1, 64, 2, 16, 1, 16, 32), torch.float16, "float16"),
-    ((65536, 64, 2, 16, 1, 16, 32), torch.bfloat16, "exceed the grid"),
+    ((65536, 64, 2, 16, 1, 16, 32), torch.bfloat16,
+     {"grids": [(2, 65535, 2), (131072, 1, 1), (2, 65535, 2), (4, 65535, 2),
+                (2, 65535, 3)]}),
+    ((1, 64, 2, 16, 1, 0, 32), torch.bfloat16, "state dim N 0 is below 1"),
 ])
-def test_kernel_plan_bwd_refuses_outside_the_domain(shape, dtype, match):
-    """The forward's domain: the plan refuses the rest, and so does the
-    wrapper on meta tensors (the shape is in the message)."""
+def test_kernel_plan_bwd_refuses_outside_the_domain(shape, dtype, want):
+    """The forward's domain: P or N off the instantiations, a chunk off the
+    multiples of 32 and a batch past the grid are taken (the plan reports
+    its pads, slices, run chunk and folded grids: 65,536 x 1 run of the
+    group's 2 heads, or 65,536 x 2 heads for dcum), and the wrapper on meta
+    tensors gives the gradients' shapes; another dtype and an empty state
+    dim stay refusals, in the plan and the wrapper."""
     b, s, h, p, g, n, chunk = shape
-    with pytest.raises(ValueError, match=match):
-        ssd.kernel_plan_bwd(b, s, h, p, g, n, chunk, dtype)
     meta = dict(device="meta")
     x = torch.empty(b, s, h, p, dtype=dtype, **meta)
     bm = torch.empty(b, s, g, n, dtype=dtype, **meta)
-    with pytest.raises(ValueError, match=match):
-        ssd.ssd_scan_bwd_cuda(x, torch.empty(b, s, h, **meta),
-                              torch.empty(h, **meta), bm, bm,
-                              torch.empty(h, **meta), x, chunk=chunk)
+    args = (x, torch.empty(b, s, h, **meta), torch.empty(h, **meta), bm, bm,
+            torch.empty(h, **meta), x)
+    if isinstance(want, str):
+        with pytest.raises(ValueError, match=want):
+            ssd.kernel_plan_bwd(b, s, h, p, g, n, chunk, dtype)
+        with pytest.raises(ValueError, match=want):
+            ssd.ssd_scan_bwd_cuda(*args, chunk=chunk)
+        return
+    plan = ssd.kernel_plan_bwd(b, s, h, p, g, n, chunk, dtype)
+    grids = want.pop("grids", None)
+    assert {k: plan[k] for k in want} == want
+    if grids is not None:
+        assert [ph["grid"] for ph in plan["phases"][:5]] == grids
+    out = ssd.ssd_scan_bwd_cuda(*args, chunk=chunk)
+    assert [tuple(t.shape) for t in out] == [
+        (b, s, h, p), (b, s, h), (h,), (b, s, g, n), (b, s, g, n), (h,)]
+
+
+# ssd_scan_pallas's corners that no instantiation takes as they are (as
+# tests/test_torch_ssd.py's CORNERS): b, s, h, p, g, n, chunk
+CORNERS = [
+    (1, 300, 2, 16, 1, 16, 256),
+    (1, 100, 2, 8, 1, 8, 48),
+    (2, 200, 2, 48, 1, 24, 160),
+    (1, 130, 4, 96, 2, 48, 100),
+    (1, 40, 2, 16, 1, 16, 8),
+    (1, 96, 2, 192, 1, 32, 64),
+    (1, 96, 4, 32, 2, 256, 32),
+    (1, 70, 2, 136, 1, 136, 48),
+]
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", CORNERS)
+def test_decomposed_backward_matches_jax_grad(b, s, h, p, g, n, chunk):
+    """``ssd_bwd_decomposed`` over the plain backward (the card's route
+    over the kernel: run chunk, P and N padded and sliced) against jax.grad
+    of the JAX package's sequential scan, and against autograd of the
+    port's plain forward at the asked chunk, within the file's 1e-4 of each
+    leaf's largest value."""
+    arrays, dy = _inputs(s + 3 * p + 7 * n, b, s, h, p, g, n, 0.1, None)
+    got = ssd.ssd_bwd_decomposed(
+        ref.ssd_scan_bwd_ref, *(torch.from_numpy(a) for a in arrays),
+        torch.from_numpy(dy), chunk=chunk)
+    got = [t.numpy() for t in got]
+    _grads_close(got, _jax_grads(jref.ssd_ref, arrays, dy))
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in arrays]
+    want = torch.autograd.grad(ref.ssd_scan_ref(*leaves, chunk=chunk),
+                               leaves, torch.from_numpy(dy))
+    _grads_close(got, [w.numpy() for w in want])

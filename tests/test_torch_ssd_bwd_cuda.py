@@ -158,12 +158,16 @@ def test_cuda_backward_reads_strided_inputs(dtype):
 
 
 def test_cuda_backward_refuses_what_it_does_not_take():
-    """The plan's refusals on the card, the shape in the message."""
+    """P 8 and chunk 48 run through the decomposition (the plan reports
+    P padded to 16, the chunk run at 64) and hold to the plain version at
+    the asked chunk; another dtype, a dy of another dtype and a call under
+    autograd stay refusals."""
     x, dt, A, Bm, Cm, D, dy = _card(1, 1, 64, 2, 64, 1, 16, "float32")
-    with pytest.raises(ValueError, match="head dim P=8"):
-        ssd.ssd_scan_bwd_cuda(x[..., :8], dt, A, Bm, Cm, D, dy[..., :8])
-    with pytest.raises(ValueError, match="chunk 48"):
-        ssd.ssd_scan_bwd_cuda(x, dt, A, Bm, Cm, D, dy, chunk=48)
+    for args, chunk, key, want in (
+            ((x[..., :8], dt, A, Bm, Cm, D, dy[..., :8]), 128, "p_width", 16),
+            ((x, dt, A, Bm, Cm, D, dy), 48, "chunk", 64)):
+        _holds(args, chunk, "float32")
+        assert ssd.ssd_scan_bwd_cuda.last_plan[key] == want
     with pytest.raises(ValueError, match="float16"):
         ssd.ssd_scan_bwd_cuda(x.half(), dt, A, Bm.half(), Cm.half(), D,
                               dy.half())
@@ -171,6 +175,34 @@ def test_cuda_backward_refuses_what_it_does_not_take():
         ssd.ssd_scan_bwd_cuda(x, dt, A, Bm, Cm, D, dy.bfloat16())
     with pytest.raises(RuntimeError, match="no backward"):
         ssd.ssd_scan_bwd_cuda(x.requires_grad_(True), dt, A, Bm, Cm, D, dy)
+
+
+# ssd_scan_pallas's corners that no instantiation takes as they are (as
+# tests/test_torch_ssd.py's CORNERS), and a batch of 66,000 past the
+# grid's z: b, s, h, p, g, n, chunk
+CORNERS = [
+    (1, 300, 2, 16, 1, 16, 256),
+    (1, 100, 2, 8, 1, 8, 48),
+    (2, 200, 2, 48, 1, 24, 160),
+    (1, 130, 4, 96, 2, 48, 100),
+    (1, 40, 2, 16, 1, 16, 8),
+    (1, 96, 2, 192, 1, 32, 64),
+    (1, 96, 4, 32, 2, 256, 32),
+    (1, 70, 2, 136, 1, 136, 48),
+    (66_000, 8, 2, 16, 1, 16, 32),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_backward_takes_every_corner(dtype):
+    """Every corner in one looping test: one counted call through the
+    decomposition, bitwise the same on a second call, within the dtype's
+    limits of the plain backward at the asked chunk (``_holds``)."""
+    for i, (b, s, h, p, g, n, chunk) in enumerate(CORNERS):
+        try:
+            _holds(_card(31 + i, b, s, h, p, g, n, dtype), chunk, dtype)
+        except AssertionError as e:
+            raise AssertionError(f"{CORNERS[i]}: {e}") from e
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -243,20 +243,76 @@ def test_cuda_gradients_match_plain_version():
 
 
 def test_cuda_kernel_refuses_what_it_does_not_take():
+    """What no instantiation takes as it is runs through the decomposition
+    (P 8 padded to 16, N 24 to 32, chunk 48 at 64; the plan reports it)
+    and equals the plain version at the asked chunk; another dtype, an f32
+    input in bf16 and a call under autograd stay refusals."""
     x, dt, A, Bm, Cm, D = _card(1, 1, 64, 2, 64, 1, 16, "float32")
-    with pytest.raises(ValueError, match="head dim P=8"):
-        ssd.ssd_scan_cuda(x[..., :8], dt, A, Bm, Cm, D)
-    wide = Bm.new_zeros(1, 64, 1, 24)
-    with pytest.raises(ValueError, match="state dim N=24"):
-        ssd.ssd_scan_cuda(x, dt, A, wide, wide, D)
-    with pytest.raises(ValueError, match="chunk 48"):
-        ssd.ssd_scan_cuda(x, dt, A, Bm, Cm, D, chunk=48)
+    wide = Bm.new_zeros(1, 64, 1, 24).normal_()
+    for args, chunk, key, want in (
+            ((x[..., :8], dt, A, Bm, Cm, D), 128, "p_width", 16),
+            ((x, dt, A, wide, wide, D), 128, "n_width", 32),
+            ((x, dt, A, Bm, Cm, D), 48, "chunk", 64)):
+        out = ssd.ssd_scan_cuda(*args, chunk=chunk)
+        assert ssd.ssd_scan_cuda.last_plan[key] == want
+        torch.testing.assert_close(out, ref.ssd_scan_ref(*args, chunk=chunk),
+                                   rtol=2e-4, atol=2e-4)
     with pytest.raises(ValueError, match="float16"):
         ssd.ssd_scan_cuda(x.half(), dt, A, Bm.half(), Cm.half(), D)
     with pytest.raises(ValueError, match="dt is torch.bfloat16"):
         ssd.ssd_scan_cuda(x, dt.bfloat16(), A, Bm, Cm, D)
     with pytest.raises(RuntimeError, match="no backward"):
         ssd.ssd_scan_cuda(x.requires_grad_(True), dt, A, Bm, Cm, D)
+
+
+# ssd_scan_pallas's corners that no instantiation takes as they are (as
+# tests/test_torch_ssd.py's CORNERS), and a batch of 66,000 past the
+# grid's z: b, s, h, p, g, n, chunk
+CORNERS = [
+    (1, 300, 2, 16, 1, 16, 256),
+    (1, 100, 2, 8, 1, 8, 48),
+    (2, 200, 2, 48, 1, 24, 160),
+    (1, 130, 4, 96, 2, 48, 100),
+    (1, 40, 2, 16, 1, 16, 8),
+    (1, 96, 2, 192, 1, 32, 64),
+    (1, 96, 4, 32, 2, 256, 32),
+    (1, 70, 2, 136, 1, 136, 48),
+    (66_000, 8, 2, 16, 1, 16, 32),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_kernel_takes_every_corner(dtype):
+    """Every corner in one looping test: one counted call of the kernel
+    through the decomposition (the plan's launches), y and the final state
+    against the plain version at the asked chunk, under the file's limits
+    (f32 2e-4; bf16 2e-2 elementwise and the relative errors)."""
+    for i, (b, s, h, p, g, n, chunk) in enumerate(CORNERS):
+        args = _card(17 + i, b, s, h, p, g, n, dtype)
+        launches = ssd.ssd_scan_cuda.launches
+        with torch.no_grad():
+            y, state = ops.ssd_scan(*args, chunk=chunk, return_state=True)
+        want_y, want = ref.ssd_scan_ref(*args, chunk=chunk,
+                                        return_state=True)
+        torch.cuda.synchronize()
+        case = (b, s, h, p, g, n, chunk)
+        assert ssd.ssd_scan_cuda.launches == launches + 1, case
+        plan = ssd.ssd_scan_cuda.last_plan
+        assert plan["variant"] == VARIANT[dtype], case
+        assert y.shape == (b, s, h, p) and state.shape == (b, h, p, n), case
+        assert bool(y.isfinite().all()) and bool(state.isfinite().all())
+        torch.testing.assert_close(y.float(), want_y.float(),
+                                   rtol=TOL[dtype], atol=TOL[dtype])
+        if dtype == "float32":
+            torch.testing.assert_close(state, want, rtol=2e-4, atol=2e-4)
+            continue
+        whole, worst = relative_errors(y, want_y)
+        assert whole < REL_TOL and worst < SLICE_TOL, (case, whole, worst)
+        diff = state - want
+        whole = float(diff.norm() / want.norm())
+        worst = float((diff.norm(dim=(2, 3))
+                       / want.norm(dim=(2, 3)).clamp_min(1e-30)).max())
+        assert whole < REL_TOL and worst < SLICE_TOL, (case, whole, worst)
 
 
 STATE_CASES = [
