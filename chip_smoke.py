@@ -23,8 +23,9 @@ mesh layer, and fails with a non-zero exit code if any phase fails:
              the ``kernel_plan`` functions report against the
              built library's, for every instantiation and every flash head
              width (8 to 128 in steps of 8, and 4, 20, 100 padded, 136,
-             192, 256 on the native bf16 kernels and 512, 520 (and f32 past
-             128) on the wide ones); the flash libraries' nvcc seconds
+             192, 256 on the native bf16 kernels and 264, 512, 520 on the
+             wide ones; f32 past 128 on the whole-width kernels); the flash
+             libraries' nvcc seconds
              beside those of the sources before the narrow widths
 2. kernels   each kernel against its plain PyTorch version on the card at the
              paths' shapes, with its device time (CUDA-graph replay, or CUDA
@@ -52,10 +53,11 @@ mesh layer, and fails with a non-zero exit code if any phase fails:
              Qwen3-Next-80B-A3B ``[1, 16/2, 4096, 256]`` and of
              DeepSeek-V4-Flash ``[1, 64/1, 4096, 512]`` (window 128) in
              bf16, f32 ``[2, 4/2, 300, 300, D]`` at D 4, 20, 136, 192,
-             256, 520, bf16 at D 136 (MQA, window, Sq < Sk) and 192 (GQA,
-             softcap), and a batch of 66,000 in both dtypes (the folded
-             grid), each with its plan's variant (bf16 136-256 the native
-             kernels), width and column slices (the times S is
+             256, 520 and Qwen3-Next's attention in f32, bf16 at
+             D 136 (MQA, window, Sq < Sk) and 192 (GQA, softcap), and a
+             batch of 66,000 in both dtypes (the folded grid), each with
+             its plan's variant (bf16 136-256 and f32 past 128 the
+             whole-width kernels), width and column slices (the times S is
              formed), the op's padding copies timed apart, and SDPA's time
              and backend (the longest kernel of a profiled call; a window
              through its mask).  SSD scan: within 2e-2 (bf16) of
@@ -292,8 +294,9 @@ mesh layer, and fails with a non-zero exit code if any phase fails:
              flash forward and backward, every SSM arch the SSD kernel and
              its backward
 14. wide heads  gemma2's and internlm2's smoke models with ``d_head``
-             widened to 256 (the native kernels in bf16, the wide ones in
-             f32) and 20 (padded to 24), f32 and bf16, served and trained
+             widened to 256 (the whole-width kernels in both dtypes), 512
+             (the wide ones in bf16, the f32 whole-width ones in two
+             slices) and 20 (padded to 24), f32 and bf16, served and trained
              for 3 steps on the card and the CPU as phase 13 does: every
              flash launch native, wide or padded, the flash kernels' plain
              versions 0 times on the card
@@ -506,13 +509,17 @@ FLASH_BWD_MAIN = "internlm2 training"
 # 16 query / 2 KV heads of 256, config.json of
 # huggingface.co/Qwen/Qwen3-Next-80B-A3B-Instruct; DeepSeek-V4-Flash, 64 / 1
 # heads of 512, a sliding window of 128), f32 at each new width (padded: 4,
-# 20; column slices: 136, 192, 256, 520), and a batch past the grid's
-# 65,535 in both dtypes; forward (phase 1) and backward (phase 2)
+# 20; whole-width: 136, 192, 256, 520 in three slices), and a batch past the grid's
+# 65,535 in both dtypes; forward (phase 1) and backward (phase 2).
+# Qwen3-Next's attention in f32 too: the f32 whole-width kernels at
+# a size where their work, and not a short grid's latency, sets the time
 WIDE_SHAPES = [
     ("qwen3-next-80b-a3b layer", (1, 16, 2, 4096, 4096, 256), torch.bfloat16,
      dict(causal=True)),
     ("deepseek-v4-flash layer", (1, 64, 1, 4096, 4096, 512), torch.bfloat16,
      dict(causal=True, window=128)),
+    ("f32 qwen3-next layer", (1, 16, 2, 4096, 4096, 256), torch.float32,
+     dict(causal=True)),
 ] + [(f"f32 D {d}", (2, 4, 2, 300, 300, d), torch.float32, dict(causal=True))
      for d in (4, 20, 136, 192, 256, 520)] + [
     # the native bf16 kernels below 256: MQA with a window over offset rows,
@@ -525,21 +532,23 @@ WIDE_SHAPES = [
     (f"batch past the grid {str(dtype).split('.')[1]}",
      (66000, 2, 1, 8, 8, 16), dtype, dict(causal=True))
     for dtype in (torch.bfloat16, torch.float32)]
-# SDPA's backend is named (a profiled call) at the two public configs and
-# the batches past the grid.  Qwen3-Next's D 256 runs the native bf16
-# kernels (NATIVE_MAIN), DeepSeek-V4-Flash's 512 the column slices
-# (WIDE_MAIN).
-PUBLIC_WIDE = ("qwen3-next-80b-a3b layer", "deepseek-v4-flash layer")
-NATIVE_MAIN, WIDE_MAIN = PUBLIC_WIDE
+# SDPA's backend is named (a profiled call) at the public configs and the
+# batches past the grid.  Qwen3-Next's D 256 runs the native bf16 kernels
+# (NATIVE_MAIN) and in f32 the f32 whole-width ones (F32_MAIN),
+# DeepSeek-V4-Flash's 512 the column slices (WIDE_MAIN).
+PUBLIC_WIDE = ("qwen3-next-80b-a3b layer", "deepseek-v4-flash layer",
+               "f32 qwen3-next layer")
+NATIVE_MAIN, WIDE_MAIN, F32_MAIN = PUBLIC_WIDE
 NAMED_BACKEND = PUBLIC_WIDE + tuple(
     name for name, *_ in WIDE_SHAPES if name.startswith("batch past"))
 FLASH_SHAPES += WIDE_SHAPES
 FLASH_BWD_SHAPES += WIDE_SHAPES
 # phase 14: the smoke models of two attention families with heads widened
-# past the narrow domain (256: the native kernels in bf16, column slices in
-# f32; padding at 20)
+# past the narrow domain (256: the whole-width kernels in both dtypes; 512:
+# the bf16 column slices and the f32 whole-width kernels in two slices;
+# padding at 20)
 WIDE_HEAD_ARCHS = ("gemma2-27b", "internlm2-1.8b")
-WIDE_HEAD_DIMS = (256, 20)
+WIDE_HEAD_DIMS = (256, 512, 20)
 # q scaled so that the logits (std ~6) reach the softcap's bend, as a
 # trained gemma2's do: with unit logits the cap of 50 moves dS by ~4e-4
 # (at D 16 a dQ without the cap's factor stayed within the limits)
@@ -817,8 +826,9 @@ def phase_build() -> None:
             if "wgmma.mma_async" in line:   # ptxas's advisories (serialised)
                 print(f"    {line.strip()}")
     # every narrow width and the widths past the narrow domain (padded: 4,
-    # 20, 100; column slices past 128, 64-row blocks only)
-    wider = (4, 20, 100, 136, 192, 256, 512, 520)
+    # 20, 100; past 128 the whole-width kernels, and bf16 column slices past
+    # 256, 64-row blocks only)
+    wider = (4, 20, 100, 136, 192, 256, 264, 512, 520)
     for dtype, rows_ in ((torch.bfloat16, (64, 128)), (torch.float32, (64,))):
         for d in flash_attention.HEAD_DIMS + wider:
             for rows in (rows_ if flash_attention.slices(d, dtype) == 1
@@ -1097,18 +1107,18 @@ def padding_ms(shape, dtype, timer, reps: int,
 
 
 def variant_of(shape, dtype) -> str:
-    """The plan variant a flash shape must run: the native bf16 kernels at
-    padded widths 136-256, else the dtype's."""
+    """The plan variant a flash shape must run: the whole-width kernels at
+    bf16 padded widths 136-256 and f32 past 128, else the dtype's."""
     if flash_attention.native(shape[-1], dtype):
-        return "wgmma_256"
+        return "wgmma_256" if dtype == torch.bfloat16 else "cuda_cores_256"
     return "wgmma" if dtype == torch.bfloat16 else "cuda_cores"
 
 
-def phase_flash_kernel() -> tuple[dict, dict, dict]:
+def phase_flash_kernel() -> tuple[dict, dict, dict, dict]:
     """Phase 1's flash shapes; returns the records of FLASH_MAIN, of
-    NATIVE_MAIN (the native bf16 kernel) and of WIDE_MAIN (the column
-    slices)."""
-    record, native_record, wide_record = {}, {}, {}
+    NATIVE_MAIN (the native bf16 kernel), of WIDE_MAIN (the column slices)
+    and of F32_MAIN (the f32 whole-width kernel)."""
+    record, native_record, wide_record, f32_record = {}, {}, {}, {}
     for i, (name, shape, dtype, kw) in enumerate(FLASH_SHAPES):
         b, hq, hk, sq, sk, d = shape
         args = flash_inputs(shape, dtype, seed=100 + i)
@@ -1173,14 +1183,14 @@ def phase_flash_kernel() -> tuple[dict, dict, dict]:
             f"{nbytes} bytes, bound {bound_ms!r} ms ({bound_by}), "
             f"{bound_ms / ms:.4f} of bound, {ops / ms / 1e9!r} TFLOP/s"))
         mains = {FLASH_MAIN: record, NATIVE_MAIN: native_record,
-                 WIDE_MAIN: wide_record}
+                 WIDE_MAIN: wide_record, F32_MAIN: f32_record}
         if name in mains:
             mains[name].update(
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=library_ms)
         del args
         torch.cuda.empty_cache()
-    return record, native_record, wide_record
+    return record, native_record, wide_record, f32_record
 
 
 def grad_errors(got: torch.Tensor, want: torch.Tensor
@@ -1223,7 +1233,7 @@ def flash_bwd_inputs(name: str, shape, dtype, i: int):
     return (q * FLASH_BWD_Q_SCALE.get(name, 1.0)).to(dtype), k, v, do
 
 
-def phase_flash_bwd_kernel() -> tuple[dict, dict]:
+def phase_flash_bwd_kernel() -> tuple[dict, dict, dict, dict]:
     """The backward kernel against ``ref.attention_bwd_ref`` on the card,
     both from the forward kernel's own output and lse (held against
     ``ref.attention_ref`` and ``ref.attention_lse_ref`` first), at phase
@@ -1233,9 +1243,9 @@ def phase_flash_bwd_kernel() -> tuple[dict, dict]:
     autograd (where SDPA computes the same function, ``sdpa_kwargs``: no
     window, no softcap, a causal mask through ``causal_lower_right`` where
     Sq < Sk; a window through its mask).  Returns the records of
-    FLASH_BWD_MAIN, NATIVE_MAIN (the native bf16 kernels) and WIDE_MAIN
-    (the column slices)."""
-    record, native_record, wide_record = {}, {}, {}
+    FLASH_BWD_MAIN, NATIVE_MAIN (the native bf16 kernels), WIDE_MAIN (the
+    column slices) and F32_MAIN (the f32 whole-width kernels)."""
+    record, native_record, wide_record, f32_record = {}, {}, {}, {}
     fa = flash_attention
     for i, (name, shape, dtype, kw) in enumerate(FLASH_BWD_SHAPES):
         b, hq, hk, sq, sk, d = shape
@@ -1353,14 +1363,14 @@ def phase_flash_bwd_kernel() -> tuple[dict, dict]:
             f"{bound_ms!r} ms ({bound_by}), {bound_ms / ms:.4f} of bound, "
             f"{ops / ms / 1e9!r} TFLOP/s"))
         mains = {FLASH_BWD_MAIN: record, NATIVE_MAIN: native_record,
-                 WIDE_MAIN: wide_record}
+                 WIDE_MAIN: wide_record, F32_MAIN: f32_record}
         if name in mains:
             mains[name].update(
                 max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
         del q, k, v, do, out, lse, args
         torch.cuda.empty_cache()
-    return record, native_record, wide_record
+    return record, native_record, wide_record, f32_record
 
 
 def ssd_inputs(shape, dtype, seed: int):
@@ -4535,18 +4545,22 @@ def wide_launches() -> dict[str, int]:
             "padded_bwd": bwd.padded_launches}
 
 
-def phase_wide_heads() -> dict[str, int]:
+def phase_wide_heads() -> tuple[dict[str, int], dict[str, int]]:
     """14: the smoke models of WIDE_HEAD_ARCHS with their heads widened by
-    ``dataclasses.replace`` to each of WIDE_HEAD_DIMS (256: the native
-    kernels in bf16, the column slices in f32; 20: padded to 24), in f32
-    and bf16, from one CPU draw of the weights: served and trained for 3
-    steps on the card and on the CPU, and held to the CPU's runs as phase
-    13 holds the smoke zoo.  The flash forward and backward launch (native
-    or wide at 256, padded at 20) and their plain versions run 0 times on
+    ``dataclasses.replace`` to each of WIDE_HEAD_DIMS (256: the whole-width
+    kernels in both dtypes; 512: the column slices in bf16, the f32
+    whole-width kernels in f32; 20: padded to 24), in f32 and bf16, from
+    one CPU draw of the weights: served and trained for 3 steps on the card
+    and on the CPU, and held to the CPU's runs as phase 13 holds the smoke
+    zoo.  Every flash forward and backward launch of a model is the kind
+    its width and dtype ask for (native past 128 in f32 and at 256 in bf16,
+    wide at bf16 512, padded at 20) and their plain versions run 0 times on
     the card.  Returns the flash launches, native, wide and padded among
-    them."""
+    them, and the f32 models' native forward and backward launches (the f32
+    whole-width kernels')."""
     t0 = time.perf_counter()
     start = {**launches(), **wide_launches()}
+    f32_native = {"fwd": 0, "bwd": 0}
     with PlainAttentionOnCard() as plain:
         for arch in WIDE_HEAD_ARCHS:
             for d_head in WIDE_HEAD_DIMS:
@@ -4563,11 +4577,16 @@ def phase_wide_heads() -> dict[str, int]:
                     count = {k: v - before[k] for k, v in
                              {**launches(), **wide_launches()}.items()}
                     kind = ("padded" if d_head <= 128 else "native"
-                            if dtype == "bfloat16" else "wide")
+                            if flash_attention.native(d_head,
+                                                      getattr(torch, dtype))
+                            else "wide")
                     check(count[kind] == count["flash"] > 0
                           and count[f"{kind}_bwd"] == count["flash_bwd"] > 0,
                           f"{arch} smoke, D {d_head}, {dtype}: every flash "
                           f"launch {kind} ({count})")
+                    if kind == "native" and dtype == "float32":
+                        f32_native["fwd"] += count["native"]
+                        f32_native["bwd"] += count["native_bwd"]
                     say("wide heads", (
                         f"{arch} smoke ({cfg.n_layers} layers, d_model "
                         f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads "
@@ -4580,7 +4599,7 @@ def phase_wide_heads() -> dict[str, int]:
              {**launches(), **wide_launches()}.items()}
     torch.cuda.empty_cache()
     say("timing", f"wide heads: phase 14 {time.perf_counter() - t0:.1f} s")
-    return count
+    return count, f32_native
 
 
 def main() -> None:
@@ -4591,9 +4610,10 @@ def main() -> None:
     phase_build()
     took["build"] = time.perf_counter() - t0
     sweep_record = phase_sweep_kernel()
-    flash_record, native_record, wide_record = phase_flash_kernel()
-    flash_bwd_record, native_bwd_record, wide_bwd_record = \
-        phase_flash_bwd_kernel()
+    flash_record, native_record, wide_record, f32_record = \
+        phase_flash_kernel()
+    (flash_bwd_record, native_bwd_record, wide_bwd_record,
+     f32_bwd_record) = phase_flash_bwd_kernel()
     ssd_record = phase_ssd_kernel()
     ssd_bwd_record = phase_ssd_bwd_kernel()
     took["kernels"] = time.perf_counter() - t0 - sum(took.values())
@@ -4676,19 +4696,21 @@ def main() -> None:
         f"{thirteenth['flash_bwd']} and the SSD kernel {thirteenth['ssd']} "
         f"(its backward {thirteenth['ssd_bwd']}) times")
     zero_launches()
-    fourteenth = phase_wide_heads()
+    fourteenth, f32_fourteenth = phase_wide_heads()
     check({k: v for k, v in {**launches(), **wide_launches()}.items()
            if k in fourteenth} == fourteenth,
           f"phase 14 launches {launches()} {wide_launches()} == its runs' "
           f"{fourteenth}")
     took["wide heads"] = time.perf_counter() - t0 - sum(took.values())
-    say("proof", f"phase 14 (smoke models with heads of 256 and 20) "
+    say("proof", f"phase 14 (smoke models with heads of 256, 512 and 20) "
         f"launched the flash forward {fourteenth['flash']} "
-        f"({fourteenth['native']} native, {fourteenth['wide']} wide, "
-        f"{fourteenth['padded']} padded) and backward "
-        f"{fourteenth['flash_bwd']} ({fourteenth['native_bwd']} native, "
-        f"{fourteenth['wide_bwd']} wide, {fourteenth['padded_bwd']} padded) "
-        f"times, their plain versions 0 times on the card")
+        f"({fourteenth['native']} native, {f32_fourteenth['fwd']} of them "
+        f"f32, {fourteenth['wide']} wide, {fourteenth['padded']} padded) "
+        f"and backward {fourteenth['flash_bwd']} "
+        f"({fourteenth['native_bwd']} native, {f32_fourteenth['bwd']} of "
+        f"them f32, {fourteenth['wide_bwd']} wide, "
+        f"{fourteenth['padded_bwd']} padded) times, their plain versions 0 "
+        f"times on the card")
     say("timing", ", ".join(f"{k} {v:.1f} s" for k, v in took.items()))
 
     kernels = [{
@@ -4715,14 +4737,22 @@ def main() -> None:
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:99 (bf16 head "
                     "widths 136-256)",
-        "launches": fourteenth["native"],
+        "launches": fourteenth["native"] - f32_fourteenth["fwd"],
         **native_record,
+    }, {
+        "name": "flash_attention_f32_256",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:99 (f32 head "
+                    "widths past 128)",
+        "launches": f32_fourteenth["fwd"],
+        **f32_record,
     }, {
         "name": "flash_attention_wide",
         "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:99 (head widths "
-                    "past 256, f32 past 128)",
+        "replaces": "src/repro/kernels/flash_attention.py:99 (bf16 head "
+                    "widths past 256)",
         "launches": fourteenth["wide"],
         **wide_record,
     }, {
@@ -4741,14 +4771,22 @@ def main() -> None:
         "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
         "replaces": "src/repro/models/attention.py:40 flash_xla (gradient by "
                     "jax.grad; bf16 head widths 136-256)",
-        "launches": fourteenth["native_bwd"],
+        "launches": fourteenth["native_bwd"] - f32_fourteenth["bwd"],
         **native_bwd_record,
+    }, {
+        "name": "flash_attention_bwd_f32_256",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/models/attention.py:40 flash_xla (gradient by "
+                    "jax.grad; f32 head widths past 128)",
+        "launches": f32_fourteenth["bwd"],
+        **f32_bwd_record,
     }, {
         "name": "flash_attention_bwd_wide",
         "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
         "replaces": "src/repro/models/attention.py:40 flash_xla (gradient by "
-                    "jax.grad; head widths past 256, f32 past 128)",
+                    "jax.grad; bf16 head widths past 256)",
         "launches": fourteenth["wide_bwd"],
         **wide_bwd_record,
     }, {

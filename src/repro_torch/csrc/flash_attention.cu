@@ -30,10 +30,11 @@
 // short prompts of the f32 paths (a few query tiles a head) have to be cut
 // finer than query tiles to fill 132 SMs.
 //
-// Two kernels; the launch plan (kernels/flash_attention.py kernel_plan)
-// picks one by dtype, and its query tile; the entry point finds the
-// instantiation, which brings its own key tile, threads and shared memory
-// (flash_attention_geometry reports them):
+// Two kernels up to 128 columns; the launch plan
+// (kernels/flash_attention.py kernel_plan) picks one by dtype, and its
+// query tile; the entry point finds the instantiation, which brings its own
+// key tile, threads and shared memory (flash_attention_geometry reports
+// them):
 //
 // * bf16: flash_fwd_wgmma<D, WG>, on the tensor cores.  A block of WG
 //   warpgroups (128 threads each) owns 64 * WG query rows, 64 per
@@ -114,24 +115,47 @@
 //     16-column tail group, 2 columns a lane, after the full 32-column
 //     ones), and the store writes D columns.
 //
-// * Widths past 128 columns (flash_fwd_wgmma_wide, flash_fwd_f32_wide; the
-//   column slices and the item ring are flash_wide.cuh's).  A native
-//   instantiation at 256 would need O's 256 columns in registers (128 f32
-//   a thread at 64 rows, beside S), and f32 tiles of 64 x 256 are 66 KB
-//   each, so two K/V stages would pass 227 KB.  Instead a block owns 64
-//   query rows and one slice of w = 128 output columns: w is the widest
-//   slice whose accumulators the narrow kernels already hold without a
-//   spill (O 64 f32 a thread in bf16, 4 x 16 in f32), and the slices go on
-//   the grid's x beside the query tiles.  S is formed over the whole width
-//   by ceil(D / 128) pieces of 128 columns (more wgmma k-steps in bf16,
-//   more FMA passes in f32), so it is formed ceil(D / 128) times in all,
-//   once a slice: the plan's "slices", its recompute factor.  Key tiles of
-//   64 in bf16, so that S (32 f32 a thread) and O fit beside each other.
-//   bf16 items come through a ring of three stages of two 64 x 128 tiles
-//   (97 KB, two blocks an SM), f32 items by cp.async two stages deep
-//   (150 KB with P).  A simple first design: a stage is waited for before
-//   its products, and the piece loads of Q repeat for every key tile (from
-//   L2).
+// * bf16 widths 136-256: flash_fwd_wgmma_256 (below, by its own kernel).
+// * bf16 widths past 256 (flash_fwd_wgmma_wide; the column slices and the
+//   item ring are flash_wide.cuh's).  A block owns 64 query rows and one
+//   slice of w = 128 output columns (O 64 f32 a thread), the slices on the
+//   grid's x beside the query tiles.  S is formed over the whole width by
+//   ceil(D / 128) pieces of 128 columns (more wgmma k-steps), so it is
+//   formed ceil(D / 128) times in all, once a slice: the plan's "slices",
+//   its recompute factor.  Key tiles of 64, so that S (32 f32 a thread)
+//   and O fit beside each other; items through a ring of three stages of
+//   two 64 x 128 tiles (97 KB, two blocks an SM).  A simple first design: a
+//   stage is waited for before its products.
+// * f32 widths past 128: flash_fwd_f32_256 (the pieces, the ring and the
+//   products are flash_wide.cuh's).  What bounds it is the CUDA cores'
+//   67 TFLOP/s: 4 D FMAs a (query, key) pair, fed from shared memory.  What
+//   held the column-slice design it replaces: S formed once a 128-column
+//   slice (slices + 1 full-width products for the function's 2), Q's pieces
+//   brought again with every key tile, every item waited for (two stages),
+//   and the two key halves of a block each keeping an O and merging at the
+//   end.  The design:
+//   - A block owns 64 query rows and the whole width: O of 64 x 256 is 64
+//     f32 a thread at 256 threads, as the narrow D 128 kernel holds, so S is
+//     formed once a key tile.  Past 256 columns the output goes in ceil(D /
+//     256) slices of at most 4 pieces of 64 columns (S once a slice).
+//   - Warp w owns rows 8w..8w+7 across every key of a tile: a row's max and
+//     sum reduce over the 16 lanes that hold it, with no exchange between
+//     warps and no merge at the end.  A thread's 4 x 4 block of S (rows
+//     8w + 4ly + i, keys lx + 16j) and of each piece of O (columns 4lx..)
+//     costs 8 float4 loads for 64 FMAs: 2 rows of Q (one wavefront) and 16
+//     consecutive rows of K (two).
+//   - Q is loaded once a block into shared memory at the whole width (66.5
+//     KB at 256 columns); K and V stream through a ring of four stages of
+//     64 x 64 pieces (17 KB each) by cp.async, three items in flight while
+//     one is used: a key tile is ceil(D / 64) items of S, the softmax, then
+//     one item of V for each of the block's pieces of O.  Past 256 columns
+//     Q comes a piece at a time beside K's (items of two pieces).
+//   - Short grids: a query tile's keys split over up to 16 blocks, as many
+//     as bring the grid to two waves (kernel_plan's wave_split), and
+//     fwd_combine adds them up in order (split 0 first), so two runs are
+//     bitwise equal; the heaviest query tiles go first.
+//   Shared memory at 256 columns: Q 66.5 KB, the ring 68 KB, P 17 KB (150
+//   KB, one block an SM; 220 registers, no spill).
 // * Head widths off the multiple of 8: the wrapper pads q, k and v with
 //   zero columns to the next multiple of 8 and slices the output back
 //   (kernels/flash_attention.py), since TMA and cp.async need 16-byte row
@@ -478,9 +502,9 @@ __device__ __forceinline__ float group8_sum(float x) {
 
 // Scores in log2 units (scale, then the softcap with kCap), and kNeg where
 // the mask hides the pair (kMask: the tile needs element masks): rows
-// row + 4r, keys col + 8j.  Both are template arguments, so that a tile
-// without a softcap or a mask runs no tanh and no comparison.
-template <bool kCap, bool kMask>
+// row + kRS r, keys col + kCS j.  kCap and kMask are template arguments, so
+// that a tile without a softcap or a mask runs no tanh and no comparison.
+template <bool kCap, bool kMask, int kRS = 4, int kCS = 8>
 __device__ __forceinline__ void fwd_scores(float (&sc)[4][4], int row, int col, int Sk,
                                            int causal, int window, float scale_l2, float cap_l2,
                                            float scale_cap) {
@@ -490,7 +514,7 @@ __device__ __forceinline__ void fwd_scores(float (&sc)[4][4], int row, int col, 
     for (int j = 0; j < 4; ++j) {
       float x = kCap ? cap_l2 * tanhf(sc[r][j] * scale_cap) : sc[r][j] * scale_l2;
       if constexpr (kMask) {
-        const int c = col + 8 * j, rw = row + 4 * r;
+        const int c = col + kCS * j, rw = row + kRS * r;
         const bool ok = c < Sk && (!causal || c <= rw) && (window < 0 || c > rw - window);
         x = ok ? x : kNeg;
       }
@@ -716,7 +740,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// The key splits of flash_fwd_f32 (and flash_fwd_f32_wide) put together in
+// The key splits of flash_fwd_f32 (and flash_fwd_f32_256) put together in
 // a fixed order (split 0 first), so two runs are bitwise equal: one warp a
 // row, a lane 4 columns of each 128.  part holds [n_split, rows, dw]
 // unnormalised O, then [n_split, rows, 2] (m in log2 units, l); a split
@@ -961,31 +985,60 @@ int launch_wgmma_wide(const void* q, const void* k, const void* v, void* o, floa
   return static_cast<int>(cudaGetLastError());
 }
 
-// f32: the narrow kernel's layout (warp w: 16 rows, half w / 4 of each
-// 64-key tile) on one slice of 128 output columns.  A key tile is n_pieces
-// items (Q and K, 128 columns each, summed into S a piece at a time) and
-// one item of V's slice, each by cp.async into two stages of two 64 x 128
-// tiles; P as in the narrow kernel.  Key splits as the narrow kernel's,
-// fwd_combine putting them together.
-constexpr int f32_wide_smem_bytes() {
-  return (4 * kWideTileF + kCcRows * kLdP) * static_cast<int>(sizeof(float));
+// f32: flash_fwd_f32_256, a block of 64 query rows over the whole width
+// (the design is in this file's header; the pieces, the ring and the
+// products are flash_wide.cuh's).
+//
+// Dynamic shared memory: the ring's stages (a piece of K or V, and beside
+// K's a piece of Q where Q is not resident), Q at the whole width where it
+// is (f32_resident), and P.
+constexpr int f32_256_smem_bytes(int d) {
+  const int stage = (f32_resident(d) ? 1 : 2) * kCcRows * kLdPiece;
+  const int own = f32_resident(d) ? kCcRows * f32_ld(d) : 0;
+  return (kF32Stages * stage + own + kCcRows * kLdS) * static_cast<int>(sizeof(float));
 }
 
+__device__ __forceinline__ float group16_max(float x) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+__device__ __forceinline__ float group16_sum(float x) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// Warp w owns rows 8w..8w+7 of the query tile across every key of a tile,
+// with one online softmax and one O for them: lane (ly, lx) = (lane / 16,
+// lane % 16) owns rows 8w + 4ly + i (i < 4), of S the keys lx + 16j (j <
+// 4), of O the columns 4lx..4lx+3 of each of the block's pieces.  A key
+// tile is n_pieces items of S (K's piece p, and Q's where Q is not
+// resident: S += Q_p K_p^T), the softmax after the last, then one item of
+// V for each of the block's own pieces g (O_g += P V_g).  Key splits as
+// the narrow kernel's, fwd_combine putting them together.
 __global__ void __launch_bounds__(kCcThreads, 1)
-flash_fwd_f32_wide(const float* __restrict__ q, const float* __restrict__ k,
-                   const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
-                   float* __restrict__ part, int n_heads, int Hq, int Hk, int Sq, int Sk, int d,
-                   int causal, int window, float softcap, float scale, int n_split) {
+flash_fwd_f32_256(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
+                  float* __restrict__ part, int n_heads, int Hq, int Hk, int Sq, int Sk, int d,
+                  int causal, int window, float softcap, float scale, int n_split) {
+  constexpr int kOwn = kF32Cols / kPiece;  // pieces of O a block holds, at most
+  const bool res = f32_resident(d);
+  const int n_pieces = f32_pieces(d), n_slices = f32_slices(d);
+  const int stage = (res ? 1 : 2) * kCcRows * kLdPiece;
+  const int ldq = res ? f32_ld(d) : kLdPiece;
   extern __shared__ float4 smem4[];
-  float* stages = reinterpret_cast<float*>(smem4);  // stage s: tiles at 2s, 2s + 1
-  float* ps = stages + 4 * kWideTileF;
+  float* ring = reinterpret_cast<float*>(smem4);  // stage s at ring + s * stage
+  float* qs = ring + kF32Stages * stage;          // Q at the whole width (res)
+  float* ps = qs + (res ? kCcRows * ldq : 0);     // P: [query][key]
 
   int rest;
   const int xi = heavy_first(&rest);  // the last query tiles are the heaviest
   if (rest >= n_heads) return;        // rest: the pair b * Hq + h
-  const int n_slices = (d + kSlice - 1) / kSlice, per = n_slices * n_split;
-  const int qt = gridDim.x / per - 1 - xi / per;
-  const int c0 = xi % per / n_split * kSlice, sp = xi % n_split;
+  const int per = n_slices * n_split;
+  const int qt = gridDim.x / per - 1 - xi / per, sp = xi % n_split;
+  const int g0 = xi % per / n_split * f32_slice_pieces(d);  // the block's first piece
+  const int n_own = min(f32_slice_pieces(d), n_pieces - g0);
   const int h = rest % Hq, b = rest / Hq, qh = rest;
   const int q0 = qt * kCcRows;
   const int q_rows = min(kCcRows, Sq - q0);
@@ -994,10 +1047,8 @@ flash_fwd_f32_wide(const float* __restrict__ q, const float* __restrict__ k,
   const float* q_tile = q + (static_cast<size_t>(qh) * Sq + q0) * d;
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int half = warp >> 2;
-  const int row0 = 16 * (warp & 3) + (lane >> 3);
-  const int key0 = 32 * half + (lane & 7);
-  const int col0 = 4 * (lane & 7);
+  const int row0 = 8 * warp + 4 * (lane >> 4);  // rows row0 + i
+  const int lx = lane & 15;                      // keys lx + 16j, columns 4lx + 64g
 
   const int row_lo = q0 + offset;
   const int row_hi = q0 + q_rows - 1 + offset;
@@ -1012,177 +1063,161 @@ flash_fwd_f32_wide(const float* __restrict__ q, const float* __restrict__ k,
   const int per_split = (nk + n_split - 1) / n_split;
   kt_lo = max(kt_lo, sp * per_split);
   kt_hi = min(kt_hi, (sp + 1) * per_split);
-  const int per_tile = n_slices + 1;
+  const int per_tile = n_pieces + n_own;
   const int n_items = max(0, kt_hi - kt_lo) * per_tile;
 
-  // item j into stage s: piece p < n_slices of Q and K, or V's slice
+  // item j into stage s: piece p < n_pieces of K (and of Q unless it is
+  // resident), else V's piece g0 + p - n_pieces
   auto load = [&](int j, int s) {
     const int p = j % per_tile, k0 = (kt_lo + j / per_tile) * kCcRows;
-    const int rows = min(kCcRows, Sk - k0);
-    float* a = stages + 2 * s * kWideTileF;
-    if (p < n_slices) {
-      const int w = min(kSlice, d - p * kSlice);
-      load_piece_async(a, q_tile + p * kSlice, d, q_rows, w);
-      load_piece_async(a + kWideTileF, k + kv_off + static_cast<size_t>(k0) * d + p * kSlice, d,
-                       rows, w);
-    } else {
-      load_piece_async(a + kWideTileF, v + kv_off + static_cast<size_t>(k0) * d + c0, d, rows,
-                       min(kSlice, d - c0));
-    }
+    const int c = (p < n_pieces ? p : g0 + p - n_pieces) * kPiece;
+    float* a = ring + s * stage;
+    load_f32_piece<kCcRows>(a, (p < n_pieces ? k : v) + kv_off + static_cast<size_t>(k0) * d + c,
+                            d, min(kCcRows, Sk - k0), d - c);
+    if (!res && p < n_pieces)
+      load_f32_piece<kCcRows>(a + kCcRows * kLdPiece, q_tile + c, d, q_rows, d - c);
   };
-  if (n_items > 0) load(0, 0);
-  cp_async_commit();
+  if (res && n_items > 0) load_f32_rows<kCcRows>(qs, ldq, q_tile, d, q_rows, d, ldq - 4);
+#pragma unroll
+  for (int j = 0; j < kF32Stages - 1; ++j) {
+    if (j < n_items) load(j, j);
+    cp_async_commit();
+  }
 
-  float acc[4][kSlice / 8];
+  float acc[kOwn][4][4];  // [piece][row][column]
   float m[4], l[4], sc[4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     m[i] = kNeg;
     l[i] = 0.f;
 #pragma unroll
-    for (int c = 0; c < kSlice / 8; ++c) acc[i][c] = 0.f;
+    for (int g = 0; g < kOwn; ++g)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[g][i][e] = 0.f;
   }
   const float scale_l2 = scale * kLog2e;
   const float cap_l2 = softcap * kLog2e, scale_cap = scale / softcap;
 
   for (int i = 0; i < n_items; ++i) {
-    const int s = i & 1, p = i % per_tile, k0 = (kt_lo + i / per_tile) * kCcRows;
-    cp_async_wait_all();
+    const int p = i % per_tile, k0 = (kt_lo + i / per_tile) * kCcRows;
+    cp_async_wait<kF32Stages - 2>();
     __syncthreads();  // item i is in; every thread is done with item i - 1
-    if (i + 1 < n_items) load(i + 1, s ^ 1);
-    cp_async_commit();
-    const float* a = stages + 2 * s * kWideTileF;
-    const float* bt = a + kWideTileF;
-    if (p < n_slices) {
-      // S (+)= Q K^T over this piece's columns, rows row0 + 4r, keys key0 + 8j
-      float sp_[4][4];
-      dot_4x4<kSlice, 4, 8>(sp_, a + row0 * kLdWide, bt + key0 * kLdWide,
-                            min(kSlice, d - p * kSlice));
+    if (i + kF32Stages - 1 < n_items) load(i + kF32Stages - 1, (i + kF32Stages - 1) % kF32Stages);
+    cp_async_commit();  // (empty past the last item: the wait's count stays right)
+    const float* a = ring + (i % kF32Stages) * stage;
+    if (p < n_pieces) {
+      // S += Q K^T over piece p: rows row0 + i, keys k0 + lx + 16j
+      if (p == 0) zero_block(sc);
+      const float* qp = res ? qs + p * kPiece : a + kCcRows * kLdPiece;
+      dot_piece<4, 4, 1, 16>(sc, qp + row0 * ldq, ldq, a + lx * kLdPiece, kLdPiece,
+                             min(kPiece, d - p * kPiece));
+      if (p < n_pieces - 1) continue;
+      // the whole width is in: scale (log2 units), softcap, mask, then the
+      // rows' online softmax (a row's 64 keys are its 16 lanes')
+      const bool need_mask = k0 + kCcRows > Sk || (causal && k0 + kCcRows - 1 > row_lo) ||
+                             (window >= 0 && k0 <= row_hi - window);
+      const int row = q0 + row0 + offset, col = k0 + lx;
+      if (softcap > 0.f) {
+        if (need_mask)
+          fwd_scores<true, true, 1, 16>(sc, row, col, Sk, causal, window, scale_l2, cap_l2,
+                                        scale_cap);
+        else
+          fwd_scores<true, false, 1, 16>(sc, row, col, Sk, causal, window, scale_l2, cap_l2,
+                                         scale_cap);
+      } else {
+        if (need_mask)
+          fwd_scores<false, true, 1, 16>(sc, row, col, Sk, causal, window, scale_l2, cap_l2,
+                                         scale_cap);
+        else
+          fwd_scores<false, false, 1, 16>(sc, row, col, Sk, causal, window, scale_l2, cap_l2,
+                                          scale_cap);
+      }
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
+      for (int r = 0; r < 4; ++r) {
+        const float mx = fmaxf(fmaxf(sc[r][0], sc[r][1]), fmaxf(sc[r][2], sc[r][3]));
+        const float m_new = fmaxf(m[r], group16_max(mx));
+        const float alpha = fast_exp2(m[r] - m_new);
+        float psum = 0.f;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) sc[r][j] = p == 0 ? sp_[r][j] : sc[r][j] + sp_[r][j];
+        for (int j = 0; j < 4; ++j) {
+          const float pr = sc[r][j] > 0.5f * kNeg ? fast_exp2(sc[r][j] - m_new) : 0.f;
+          psum += pr;
+          ps[(row0 + r) * kLdS + lx + 16 * j] = pr;
+        }
+        // each thread keeps its own keys' part of l; alpha is the same on
+        // the 16 lanes of a row, so the parts add up at the end
+        l[r] = alpha * l[r] + psum;
+#pragma unroll
+        for (int g = 0; g < kOwn; ++g)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[g][r][e] *= alpha;
+        m[r] = m_new;
+      }
+      __syncwarp();  // P's rows are this warp's own, where written and read
       continue;
     }
-    const bool need_mask = k0 + kCcRows > Sk || (causal && k0 + kCcRows - 1 > row_lo) ||
-                           (window >= 0 && k0 <= row_hi - window);
-    const int row = q0 + row0 + offset, col = k0 + key0;
-    if (softcap > 0.f) {
-      if (need_mask)
-        fwd_scores<true, true>(sc, row, col, Sk, causal, window, scale_l2, cap_l2, scale_cap);
-      else
-        fwd_scores<true, false>(sc, row, col, Sk, causal, window, scale_l2, cap_l2, scale_cap);
-    } else {
-      if (need_mask)
-        fwd_scores<false, true>(sc, row, col, Sk, causal, window, scale_l2, cap_l2, scale_cap);
-      else
-        fwd_scores<false, false>(sc, row, col, Sk, causal, window, scale_l2, cap_l2, scale_cap);
-    }
+    // O_g += P V_g over the tile's keys, rows row0 + i, columns 4lx of piece g
+    const int g = p - n_pieces, k_end = rows_end(Sk - k0);
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const float mx = fmaxf(fmaxf(sc[r][0], sc[r][1]), fmaxf(sc[r][2], sc[r][3]));
-      const float m_new = fmaxf(m[r], group8_max(mx));
-      const float alpha = fast_exp2(m[r] - m_new);
-      float psum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float pr = sc[r][j] > 0.5f * kNeg ? fast_exp2(sc[r][j] - m_new) : 0.f;
-        psum += pr;
-        ps[(row0 + 4 * r) * kLdP + key0 + 8 * j] = pr;
-      }
-      l[r] = alpha * l[r] + psum;
-#pragma unroll
-      for (int c = 0; c < kSlice / 8; ++c) acc[r][c] *= alpha;
-      m[r] = m_new;
-    }
-    __syncwarp();  // P's rows and keys are this warp's own
-    // O += P V over this half's keys, for rows row0 + 4r, columns col0 + 32g
-    // (V's columns past the slice's are zeros)
-    acc_quads_g<kSlice, kSlice / 32, false, 4, kLdP>(acc, ps + row0 * kLdP + 32 * half,
-                                                     bt + 32 * half * kLdWide + col0,
-                                                     half_end(Sk - k0 - 32 * half));
+    for (int gg = 0; gg < kOwn; ++gg)
+      if (gg == g)
+        acc_piece<4, 1>(acc[gg], ps + row0 * kLdS, kLdS, a + 4 * lx, kLdPiece, k_end);
   }
 
-  // the two halves of each row put together, half 0's first (as the narrow
-  // kernel: half 1 leaves m, l and O in stage 0)
 #pragma unroll
-  for (int r = 0; r < 4; ++r) l[r] = group8_sum(l[r]);
-  __syncthreads();
-  float* o1 = stages;
-  float* ml1 = stages + kWideTileF;
-  if (half == 1) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-#pragma unroll
-      for (int g = 0; g < kSlice / 32; ++g)
-        *reinterpret_cast<float4*>(o1 + (row0 + 4 * r) * kLdWide + col0 + 32 * g) =
-            make_float4(acc[r][4 * g], acc[r][4 * g + 1], acc[r][4 * g + 2], acc[r][4 * g + 3]);
-      if ((lane & 7) == 0) {
-        ml1[2 * (row0 + 4 * r)] = m[r];
-        ml1[2 * (row0 + 4 * r) + 1] = l[r];
-      }
-    }
-  }
-  __syncthreads();
-  if (half == 1) return;
-
+  for (int r = 0; r < 4; ++r) l[r] = group16_sum(l[r]);
   const size_t rows_all = static_cast<size_t>(n_heads) * Sq;
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
-    const int rr = row0 + 4 * r;
+    const int rr = row0 + r;
     if (rr >= q_rows) continue;
-    const float m1 = ml1[2 * rr], l1 = ml1[2 * rr + 1];
-    const float mm = fmaxf(m[r], m1);
-    const float a0 = fast_exp2(m[r] - mm), a1 = fast_exp2(m1 - mm);
-    const float l_row = fmaf(a1, l1, a0 * l[r]);
     const size_t row = static_cast<size_t>(qh) * Sq + q0 + rr;
     float* out;
     float f;
     if (part == nullptr) {
-      if (c0 == 0 && lse != nullptr && (lane & 7) == 0)
-        lse[row] = l_row > 0.f ? (mm + log2f(l_row)) / kLog2e : INFINITY;
+      // m and l are in log2 units: lse = (m + log2 l) / log2(e)
+      if (g0 == 0 && lse != nullptr && lx == 0)
+        lse[row] = l[r] > 0.f ? (m[r] + log2f(l[r])) / kLog2e : INFINITY;
       out = o + row * d;
-      f = 1.f / fmaxf(l_row, 1e-30f);
+      f = 1.f / fmaxf(l[r], 1e-30f);
     } else {
       const size_t at = static_cast<size_t>(sp) * rows_all + row;
-      if (c0 == 0 && (lane & 7) == 0) {
+      if (g0 == 0 && lx == 0) {
         float* ml = part + static_cast<size_t>(n_split) * rows_all * d;
-        ml[2 * at] = mm;
-        ml[2 * at + 1] = l_row;
+        ml[2 * at] = m[r];
+        ml[2 * at + 1] = l[r];
       }
       out = part + at * d;
       f = 1.f;
     }
 #pragma unroll
-    for (int g = 0; g < kSlice / 32; ++g) {
-      const int c = c0 + col0 + 32 * g;
-      if (c >= d) continue;  // the row's own d columns only
-      const float4 x1 = *reinterpret_cast<const float4*>(o1 + rr * kLdWide + col0 + 32 * g);
-      *reinterpret_cast<float4*>(out + c) =
-          make_float4(fmaf(a1, x1.x, a0 * acc[r][4 * g]) * f,
-                      fmaf(a1, x1.y, a0 * acc[r][4 * g + 1]) * f,
-                      fmaf(a1, x1.z, a0 * acc[r][4 * g + 2]) * f,
-                      fmaf(a1, x1.w, a0 * acc[r][4 * g + 3]) * f);
+    for (int g = 0; g < kOwn; ++g) {
+      const int c = (g0 + g) * kPiece + 4 * lx;
+      if (g < n_own && c < d)  // the row's own d columns only
+        *reinterpret_cast<float4*>(out + c) = make_float4(acc[g][r][0] * f, acc[g][r][1] * f,
+                                                          acc[g][r][2] * f, acc[g][r][3] * f);
     }
   }
 }
 
-int launch_f32_wide(const void* q, const void* k, const void* v, void* o, float* lse, float* part,
-                    int B, int Hq, int Hk, int Sq, int Sk, int d, int causal, int window,
-                    float softcap, float scale, int n_split, cudaStream_t stream) {
-  constexpr int kSmem = f32_wide_smem_bytes();
+int launch_f32_256(const void* q, const void* k, const void* v, void* o, float* lse, float* part,
+                   int B, int Hq, int Hk, int Sq, int Sk, int d, int causal, int window,
+                   float softcap, float scale, int n_split, cudaStream_t stream) {
+  // the most any width asks for (the streamed layout just past kF32Cols)
+  constexpr int kMost = f32_256_smem_bytes(kF32Cols) > f32_256_smem_bytes(kF32Cols + 8)
+                            ? f32_256_smem_bytes(kF32Cols)
+                            : f32_256_smem_bytes(kF32Cols + 8);
   if (n_split < 1 || n_split > kMaxSplit || (n_split > 1 && part == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   static bool configured = false;
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_f32_wide, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+        flash_fwd_f32_256, cudaFuncAttributeMaxDynamicSharedMemorySize, kMost);
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
-  const int n_slices = (d + kSlice - 1) / kSlice;
-  const dim3 grid = head_grid((Sq + kCcRows - 1) / kCcRows * n_slices * n_split, Hq, B);
-  flash_fwd_f32_wide<<<grid, kCcThreads, kSmem, stream>>>(
+  const dim3 grid = head_grid((Sq + kCcRows - 1) / kCcRows * f32_slices(d) * n_split, Hq, B);
+  flash_fwd_f32_256<<<grid, kCcThreads, f32_256_smem_bytes(d), stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<float*>(o), lse, n_split > 1 ? part : nullptr, B * Hq, Hq, Hk, Sq, Sk, d,
       causal, window, softcap, scale, n_split);
@@ -1502,6 +1537,7 @@ struct Variant {
   int dtype, d, block_q, block_k, threads, smem;
   bool any;  // takes every width up to d with d % 8 == 0 (d = 0: past 128), not d alone
   Launch launch;
+  int (*smem_of)(int);  // the shared memory of head width D, where it depends on it
 };
 
 // Every instantiation, found by (dtype, D, block_q): the launch plan
@@ -1509,8 +1545,8 @@ struct Variant {
 // threads and shared memory are the instantiation's own.  D = 64, 96 and
 // 128 have their own; every other D with D % 8 == 0 up to 128 takes the
 // first `any` row whose width holds it (kernel_width in the plan); bf16
-// widths 136-256 the native row (d 256, block_q 128), and every other D %
-// 8 == 0 past 128 the wide row of its dtype (d = 0).
+// widths 136-256 the native row (d 256), bf16 past 256 the wide row, and f32
+// past 128 the whole-width row (both d = 0; its shared memory depends on D).
 constexpr Variant kVariants[] = {
     {1, 64, 64, kBk, 128, wgmma_smem_bytes<64, 1>(), false, launch_wgmma<64, 1, false>},
     {1, 64, 128, kBk, 256, wgmma_smem_bytes<64, 2>(), false, launch_wgmma<64, 2, false>},
@@ -1528,14 +1564,14 @@ constexpr Variant kVariants[] = {
     {0, 64, kCcRows, kCcRows, kCcThreads, f32_smem_bytes<64>(), true, launch_f32<64, true>},
     {0, 128, kCcRows, kCcRows, kCcThreads, f32_smem_bytes<128>(), true, launch_f32<128, true>},
     {1, 0, 64, 64, 128, wide_smem_bytes(0), true, launch_wgmma_wide},
-    {0, 0, kCcRows, kCcRows, kCcThreads, f32_wide_smem_bytes(), true, launch_f32_wide},
+    {0, 0, kCcRows, kCcRows, kCcThreads, 0, true, launch_f32_256, f32_256_smem_bytes},
     {1, kNatCols, 64, kNatBk, 128, native_smem_bytes<1>(), true, launch_wgmma_256<1>},
     {1, kNatCols, 128, kNatBk, 256, native_smem_bytes<2>(), true, launch_wgmma_256<2>},
 };
 
 // Whether row x runs head width D of dtype: bf16 widths 136-256 the native
-// row (d 256), the others past 128 the wide row (d 0), narrower ones as the
-// table's comment says.
+// row (d 256), bf16 past 256 and f32 past 128 the row of d 0, narrower ones
+// as the table's comment says.
 bool takes(const Variant& x, int dtype, int D) {
   if (D > kNatCols || (D > 128 && dtype == 0)) return x.d == 0;
   if (D > 128) return x.d == kNatCols;
@@ -1560,7 +1596,7 @@ extern "C" int flash_attention_geometry(int dtype, int D, int block_q, int* bloc
   if (x == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   *block_k = x->block_k;
   *threads = x->threads;
-  *smem = x->smem;
+  *smem = x->smem_of != nullptr ? x->smem_of(D) : x->smem;
   return 0;
 }
 
@@ -1568,8 +1604,8 @@ extern "C" int flash_attention_geometry(int dtype, int D, int block_q, int* bloc
 // rows' log-sum-exp.  (dtype, D, block_q, n_split) are the launch plan's;
 // n_split > 1 (f32 only) splits each query tile's keys over n_split blocks
 // and puts them together in a second launch, through part: f32 scratch of
-// n_split * B * Hq * Sq * (D + 2) floats.  D past 128 runs the wide kernels
-// (block_q 64).  What no instantiation takes (D % 8 != 0: the wrapper pads
+// n_split * B * Hq * Sq * (D + 2) floats.  D past 128 runs block_q 64 but
+// for the native bf16 kernel's 128.  What no instantiation takes (D % 8 != 0: the wrapper pads
 // the head axis) is refused with cudaErrorInvalidValue before anything is
 // launched.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,

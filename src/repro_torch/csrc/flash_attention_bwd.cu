@@ -25,9 +25,10 @@
 // spends its issue slots on loads, with the elementwise work (exp2, the
 // masks, the softcap) kept to what each tile needs.
 //
-// Three launches (four for an f32 dQ whose keys are split, below), no
-// atomics, so two runs give bitwise the same gradients (the recompute of a
-// checkpointed period relies on it):
+// Three launches (more where a kernel's work is shared over blocks whose
+// parts a combine launch adds up, below), no atomics, so two runs give
+// bitwise the same gradients (the recompute of a checkpointed period
+// relies on it):
 //
 // (a) bwd_delta: delta = rowsum(dO o o) in f32, one warp a row.
 // (b) dK, dV over key blocks: grid (key blocks, Hk, B).  A block holds its K
@@ -133,32 +134,57 @@
 //     loaded zero past D, products to D (S, dP) or to the last 32-column
 //     group holding D columns (dK, dV, dQ), D columns stored.
 //
-// * Widths past 128 columns: bwd_dkdv_wgmma_wide, bwd_dq_wgmma_wide,
-//   bwd_dkdv_cc_wide, bwd_dq_cc_wide (column slices and the item ring:
-//   flash_wide.cuh).  At D = 128 the bf16 dK/dV kernel already holds its
-//   two 64 x 128 f32 accumulators, S^T, dP^T and P in 246 registers, so dK
-//   and dV of 256 columns cannot live in one warpgroup's registers.  A
-//   block owns 64 rows (keys in (b), queries in (c)) and one slice of w =
-//   128 columns of dK and dV, or of dQ: the narrow kernels' accumulators,
-//   which fit without a spill; the slices go on the grids' x.  S and dP are
-//   formed over the whole width in pieces of 128 columns (items of two 64 x
-//   128 tiles: K and Q, then V and dO, in (b); Q and K, then dO and V, in
-//   (c)), then one item brings the slice's own columns (dO and Q in (b), K
-//   in (c)) for the products that give the slice.  So S and dP are formed
-//   ceil(D / 128) times each (the plan's "slices"), and the bound stays the
-//   function's own count (flash_bwd_work), which shows the recompute as a
-//   lower share of it.  bf16 items by TMA through a ring of three stages
-//   (97 KB; dK/dV 1 KB more of lse and delta), f32 by cp.async two stages
-//   deep (149 KB with the score tile).  The f32 dQ splits its keys and
-//   dq_combine adds the splits as the narrow kernel does; bwd_delta reads
-//   the width at run time.
-//   - A (b) block walks every query head of its GQA group, so under a long
-//     causal mask key block 0 walks all of its group's query tiles while
-//     the last key blocks finish at once (at Qwen3-Next's [1, 16/2, 4096,
-//     256] the wide grid is 256 blocks, one wave, led by a block 2x the
-//     average).  Issuing the pieces of S and dP back to back without
-//     waiting for each (releasing a stage once the next piece was in
-//     flight) ran slower: the ring's next load then went out an item later.
+// * bf16 widths 136-256: the native kernels (below, by their own header).
+// * bf16 widths past 256: bwd_dkdv_wgmma_wide, bwd_dq_wgmma_wide (column
+//   slices and the item ring: flash_wide.cuh).  At D = 128 the bf16 dK/dV
+//   kernel already holds its two 64 x 128 f32 accumulators, S^T, dP^T and P
+//   in 246 registers, so a block owns 64 rows (keys in (b), queries in (c))
+//   and one slice of w = 128 columns of dK and dV, or of dQ; the slices go
+//   on the grids' x.  S and dP are formed over the whole width in pieces of
+//   128 columns (items of two 64 x 128 tiles: K and Q, then V and dO, in
+//   (b); Q and K, then dO and V, in (c)), then one item brings the slice's
+//   own columns (dO and Q in (b), K in (c)) for the products that give the
+//   slice.  So S and dP are formed ceil(D / 128) times each (the plan's
+//   "slices"), and the bound stays the function's own count
+//   (flash_bwd_work).  Items by TMA through a ring of three stages (97 KB;
+//   dK/dV 1 KB more of lse and delta); bwd_delta reads the width at run
+//   time.  A (b) block walks every query head of its GQA group.
+// * f32 widths past 128: bwd_dkdv_cc_256, bwd_dq_cc_256 (the pieces, the
+//   ring and the products are flash_wide.cuh's).  What bounds them is the
+//   CUDA cores' 67 TFLOP/s over the function's five products of 2 D
+//   operations a pair, which two kernels make seven (S and dP in each) and
+//   the two walks of (b) below eight.  What held the column-slice kernels they
+//   replace: S and dP formed once a 128-column slice in both kernels (4 x
+//   slices + 3 full-width products for seven), every item waited for (two
+//   stages), and grids of 40-80 blocks at short prompts, each walking every
+//   tile.  The design:
+//   - (b) runs as two launches of one kernel, dV then dK: a block owns 64
+//     keys and the whole width of one of them (64 x 256 is 64 f32 a thread
+//     at 256 threads, as the forward's O; both at once would be 128, too
+//     many beside S^T and dP^T), so S^T is formed twice, once a walk, and
+//     dP^T once (a 32-key block holding both ran its products on 2 x 4
+//     register blocks at 0.19 loads an FMA and lost more than the
+//     recompute costs: 25.2 against 22.1 ms at Qwen3-Next's f32 shape on
+//     an H100).  The forward's
+//     layout with keys for rows: a warp owns 8 keys across the query tile,
+//     a thread a 4 x 4 block of S^T and dP^T and 4 keys x 4 columns of each
+//     piece; P^T (dV) or dS^T (dK) goes through shared memory to dV +=
+//     P^T dO or dK += dS^T Q.  Past 256 columns dK and dV go in ceil(D /
+//     256) slices.
+//   - The block's own rows (K and V in (b), Q and dO in (c)) are loaded
+//     once into shared memory at the whole width up to 256 columns; the
+//     other side streams through a ring of four stages of 64 x 64 pieces by
+//     cp.async, three items in flight while one is used (a tile: the
+//     pieces of S, of dP, then those of the block's outputs).  Past 256
+//     columns the own rows come a piece at a time beside the other's.
+//   - Short grids: dQ's keys split, and a dK/dV block's query tiles
+//     shared, over as many blocks as bring each grid to two waves (the
+//     plan's wave_split, at most 16); each share writes its f32 part and
+//     dq_combine adds them in order (share 0 first): no atomics, two runs
+//     bitwise equal.
+//   Shared memory at 256 columns, both kernels: their own two tiles 133 KB,
+//   the ring 68 KB, the score tile 17 KB (215 KB); 246 (b) and 240 (c)
+//   registers, no spill.
 // * Widths off the multiple of 8 run padded (the wrapper pads q, k, v, o
 //   and dO with zero columns and slices dq, dk and dv back: zero columns of
 //   v and dO give zero columns of dq, dk and dv, and add zeros to dP).
@@ -1299,156 +1325,218 @@ bwd_dq_wgmma_wide(const __grid_constant__ CUtensorMap tq, const __grid_constant_
   }
 }
 
-// f32: the narrow kernels' layouts (thread (ty, tx): rows 4ty.., columns
-// tx + 16j of the 64 x 64 products; dK, dV or dQ column pairs 2tx + 32g of
-// the slice) over items of two 64 x 128 tiles by cp.async, two stages deep,
-// as the bf16 wide kernels' items; the 64 x 64 score tile as the narrow
-// kernels'.  The f32 dQ splits keys as the narrow kernel does.
-constexpr int cc_wide_smem_bytes() {
-  return (4 * kWideTileF + kCcRows * kLdS) * static_cast<int>(sizeof(float));
+// f32: bwd_dkdv_cc_256 and bwd_dq_cc_256, over the whole width (the design
+// is in this file's header; the pieces, the ring and the products are
+// flash_wide.cuh's).
+//
+// Dynamic shared memory of bwd_dkdv_cc_256 and bwd_dq_cc_256: the ring's
+// stages (a piece of the other side's rows, and beside it one of the
+// block's own where those are not resident), the block's own two tiles at
+// the whole width where they are (f32_resident: K and V, or Q and dO), and
+// a 64 x 64 score tile (P^T or dS^T, or dS).
+constexpr int cc_256_smem_bytes(int d) {
+  const int stage = (f32_resident(d) ? 1 : 2) * kCcRows * kLdPiece;
+  const int own = f32_resident(d) ? 2 * kCcRows * f32_ld(d) : 0;
+  return (kF32Stages * stage + own + kCcRows * kLdS) * static_cast<int>(sizeof(float));
 }
 
-// s (+)= the 4 x 4 block of A B^T over the first w columns of two tiles.
-__device__ __forceinline__ void piece_rows(float (&s)[4][4], const float* a, const float* b,
-                                           int ty, int tx, int w, bool first) {
-  float x[4][4];
-  dot_rows<kSlice>(x, a, b, ty, tx, w);
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[r][j] = first ? x[r][j] : s[r][j] + x[r][j];
-}
-
-// (b) f32: 64 keys of kv head (b, hk), one slice of their dK and dV
-// columns, over the query tiles of the group's heads that see them.
+// (b) f32, one of two launches: keys [k0, k0 + 64) of kv head (b, hk) and
+// the block's pieces of their dV columns (want_dk 0) or of their dK columns
+// (want_dk 1), over share sh of n_share of the 64-row query tiles of the
+// group's heads that see them (n_share > 1: the share's sum, dK without the
+// scale, goes to part, [n_share][B * Hk * Sk * d], and dq_combine adds the
+// shares up in order).  A query tile is n_pieces items of S^T (Q's piece
+// p, and K's where K is not resident: S^T += K_p Q_p^T), for dK n_pieces
+// more of dP^T (dO's and V's), then P^T (dV) or dS^T (dK) into shared
+// memory, then one item for each of the block's pieces g (dV_g += P^T dO_g,
+// or dK_g += dS^T Q_g).  The forward's layout with keys for rows: warp w
+// owns keys 8w..8w+7, lane (ly, lx) = (lane / 16, lane % 16) the keys 8w +
+// 4ly + i (i < 4), the queries lx + 16j (j < 4) of S^T and dP^T, and the
+// columns 4lx..4lx+3 of each of the block's pieces of dV or dK, in
+// registers over the whole walk.
 __global__ void __launch_bounds__(kCcThreads, 1)
-bwd_dkdv_cc_wide(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, const float* __restrict__ dout,
-                 const float* __restrict__ lse, const float* __restrict__ delta,
-                 float* __restrict__ dk, float* __restrict__ dv, int n_heads, int Hq, int Hk,
-                 int d, Mask mask, float softcap, float scale) {
+bwd_dkdv_cc_256(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, const float* __restrict__ dout,
+                const float* __restrict__ lse, const float* __restrict__ delta,
+                float* __restrict__ out, float* __restrict__ part, int n_heads, int Hq, int Hk,
+                int d, Mask mask, float softcap, float scale, int want_dk, int n_share) {
+  constexpr int kOwn = kF32Cols / kPiece;  // pieces of dV or dK a block holds, at most
+  const bool res = f32_resident(d);
+  const int n_pieces = f32_pieces(d), n_slices = f32_slices(d);
+  const int stage = (res ? 1 : 2) * kCcRows * kLdPiece;
+  const int ldk = res ? f32_ld(d) : kLdPiece;
   extern __shared__ float4 smem_cc[];
-  float* stages = reinterpret_cast<float*>(smem_cc);  // stage s: tiles 2s, 2s + 1
-  float* xs = stages + 4 * kWideTileF;               // P^T, then dS^T: [key][query]
+  float* ring = reinterpret_cast<float*>(smem_cc);  // stage s at ring + s * stage
+  float* ks = ring + kF32Stages * stage;            // K and V at the whole width (res)
+  float* vs = ks + (res ? kCcRows * ldk : 0);
+  float* xs = vs + (res ? kCcRows * ldk : 0);       // P^T or dS^T: [key][query]
 
   int rest;
   const int xi = heavy_first(&rest);  // causal: the first key blocks are the heaviest
   if (rest >= n_heads) return;        // rest: the pair b * Hk + hk
-  const int n = (d + kSlice - 1) / kSlice;
-  const int k0 = xi / n * kCcRows, c0 = xi % n * kSlice;  // xi = key block * n + slice
+  const int per = n_slices * n_share;  // xi = (key block, slice, share)
+  const int k0 = xi / per * kCcRows, sh = xi % n_share;
+  const int g0 = xi % per / n_share * f32_slice_pieces(d);  // the block's first piece
+  const int n_own = min(f32_slice_pieces(d), n_pieces - g0);
   const int hk = rest % Hk, b = rest / Hk, group = Hq / Hk;
   const int k_rows = min(kCcRows, mask.Sk - k0);
   const size_t kv_off = static_cast<size_t>(rest) * mask.Sk * d;
+  const float* k_blk = k + kv_off + static_cast<size_t>(k0) * d;
+  const float* v_blk = v + kv_off + static_cast<size_t>(k0) * d;
   int qt_lo, qt_hi;
   mask.query_tiles(k0, kCcRows, kCcRows, &qt_lo, &qt_hi);
   const int nq = qt_hi - qt_lo, n_tiles = group * nq;
-  const int per_tile = 2 * n + 1, n_items = n_tiles * per_tile;
+  const int per_share = (n_tiles + n_share - 1) / n_share;
+  const int t0 = min(n_tiles, sh * per_share), t1 = min(n_tiles, t0 + per_share);
+  const int n_dots = (want_dk ? 2 : 1) * n_pieces;  // items of S^T (and dP^T) a tile
+  const int per_tile = n_dots + n_own, n_items = (t1 - t0) * per_tile;
+  // tile t of the walk: query tile qt_lo + t % nq of the group's head t /
+  // nq, whose rows start at row q_row(t) of the [B * Hq * Sq] rows; the
+  // share walks tiles [t0, t1)
   auto q_first = [&](int t) { return (qt_lo + t % nq) * kCcRows; };
   auto q_row = [&](int t) {
     return (static_cast<size_t>(b) * Hq + hk * group + t / nq) * mask.Sq + q_first(t);
   };
 
-  const int lane = threadIdx.x & 31, tx = lane & 15;
-  const int ty = (threadIdx.x >> 5) * 2 + (lane >> 4);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int row0 = 8 * warp + 4 * (lane >> 4);  // keys row0 + i
+  const int lx = lane & 15;                      // queries lx + 16j, columns 4lx + 64g
 
+  // item j into stage s: Q's piece p for S^T, dO's for dP^T (each beside K's
+  // or V's piece where those are not resident), then the pieces g0 + g of
+  // dO (dV) or of Q (dK)
   auto load = [&](int j, int s) {
-    const int t = j / per_tile, p = j % per_tile;
-    const int c = p < 2 * n ? p % n * kSlice : c0, w = min(kSlice, d - c);
-    const int q_rows = min(kCcRows, mask.Sq - q_first(t));
-    float* a = stages + 2 * s * kWideTileF;
-    const size_t at_q = q_row(t) * d + c, at_k = kv_off + static_cast<size_t>(k0) * d + c;
-    if (p < 2 * n) {
-      load_piece_async(a, (p < n ? k : v) + at_k, d, k_rows, w);
-      load_piece_async(a + kWideTileF, (p < n ? q : dout) + at_q, d, q_rows, w);
-    } else {
-      load_piece_async(a, dout + at_q, d, q_rows, w);
-      load_piece_async(a + kWideTileF, q + at_q, d, q_rows, w);
-    }
+    const int t = t0 + j / per_tile, p = j % per_tile;
+    const bool dot = p < n_dots, of_dp = dot && p >= n_pieces;
+    const int c = (dot ? p % n_pieces : g0 + p - n_dots) * kPiece;
+    const float* src = of_dp || (!dot && !want_dk) ? dout : q;
+    float* a = ring + s * stage;
+    load_f32_piece<kCcRows>(a, src + q_row(t) * d + c, d, min(kCcRows, mask.Sq - q_first(t)),
+                            d - c);
+    if (!res && dot)
+      load_f32_piece<kCcRows>(a + kCcRows * kLdPiece, (of_dp ? v_blk : k_blk) + c, d, k_rows,
+                              d - c);
   };
-  if (n_items > 0) load(0, 0);
-  cp_async_commit();
+  if (res && n_items > 0) {
+    load_f32_rows<kCcRows>(ks, ldk, k_blk, d, k_rows, d, ldk - 4);
+    if (want_dk) load_f32_rows<kCcRows>(vs, ldk, v_blk, d, k_rows, d, ldk - 4);
+  }
+#pragma unroll
+  for (int j = 0; j < kF32Stages - 1; ++j) {
+    if (j < n_items) load(j, j);
+    cp_async_commit();
+  }
 
-  float acc_dk[4][kSlice / 16], acc_dv[4][kSlice / 16], st[4][4], dpt[4][4];
+  float acc[kOwn][4][4], st[4][4], dpt[4][4];
+  float lse_c[4], dlt_c[4];
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < kSlice / 16; ++c) acc_dk[r][c] = acc_dv[r][c] = 0.f;
+  for (int g = 0; g < kOwn; ++g) zero_block(acc[g]);
+  zero_block(dpt);  // the dV walk forms no dP^T: cc_grads reads zeros
   const float scale_l2 = scale * kLog2e;
   const float cap_l2 = softcap * kLog2e, scale_cap = scale / softcap;
 
   for (int i = 0; i < n_items; ++i) {
-    const int s = i & 1, t = i / per_tile, p = i % per_tile;
-    cp_async_wait_all();
+    const int t = t0 + i / per_tile, p = i % per_tile, q0 = q_first(t);
+    if (p == 0) {
+      // the lse (log2 units) and delta of this thread's queries q0 + lx +
+      // 16j: +inf and 0 past Sq, so P is 0 there; read while the pieces land
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const bool in = q0 + lx + 16 * j < mask.Sq;
+        const size_t at = q_row(t) + lx + 16 * j;
+        lse_c[j] = in ? lse[at] * kLog2e : INFINITY;
+        dlt_c[j] = in ? delta[at] : 0.f;
+      }
+    }
+    cp_async_wait<kF32Stages - 2>();
     __syncthreads();  // item i is in; every thread is done with item i - 1
-    if (i + 1 < n_items) load(i + 1, s ^ 1);
-    cp_async_commit();
-    const float* a = stages + 2 * s * kWideTileF;
-    const float* bt = a + kWideTileF;
-    if (p < 2 * n) {
-      // S^T (+)= K Q^T, then dP^T (+)= V dO^T: keys are rows
-      if (p < n)
-        piece_rows(st, a, bt, ty, tx, min(kSlice, d - p * kSlice), p == 0);
-      else
-        piece_rows(dpt, a, bt, ty, tx, min(kSlice, d - (p - n) * kSlice), p == n);
+    if (i + kF32Stages - 1 < n_items) load(i + kF32Stages - 1, (i + kF32Stages - 1) % kF32Stages);
+    cp_async_commit();  // (empty past the last item: the wait's count stays right)
+    const float* a = ring + (i % kF32Stages) * stage;
+    if (p < n_dots) {
+      // S^T += K_p Q_p^T, then (dK) dP^T += V_p dO_p^T: keys are rows (two
+      // calls, so that st and dpt stay in registers)
+      const int pp = p % n_pieces, n = min(kPiece, d - pp * kPiece);
+      const float* kp = res ? (p < n_pieces ? ks : vs) + pp * kPiece : a + kCcRows * kLdPiece;
+      if (p < n_pieces) {
+        if (pp == 0) zero_block(st);
+        dot_piece<4, 4, 1, 16>(st, kp + row0 * ldk, ldk, a + lx * kLdPiece, kLdPiece, n);
+      } else {
+        if (pp == 0) zero_block(dpt);
+        dot_piece<4, 4, 1, 16>(dpt, kp + row0 * ldk, ldk, a + lx * kLdPiece, kLdPiece, n);
+      }
+      if (p < n_dots - 1) continue;
+      // P^T (dV) or dS^T without the scale (dK) into xs: rows are keys k0 +
+      // row0 + i, columns queries q0 + lx + 16j; the next item's barrier
+      // makes them the block's
+      cc_grads_any<true>(softcap > 0.f, mask.cuts(q0, k0), st, dpt, lse_c, dlt_c, mask, q0 + lx,
+                         16, k0 + row0, 1, scale_l2, scale_cap, cap_l2,
+                         want_dk ? nullptr : xs + row0 * kLdS + lx);
+      if (want_dk) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) xs[(row0 + r) * kLdS + lx + 16 * j] = dpt[r][j];
+      }
       continue;
     }
-    const int q0 = q_first(t);
-    float lse_c[4], dlt_c[4];
+    // dV_g += P^T dO_g or dK_g += dS^T Q_g: keys row0 + i, columns 4lx of piece g
+    const int g = p - n_dots, q_end = rows_end(mask.Sq - q0);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const bool in = q0 + tx + 16 * j < mask.Sq;
-      const size_t at = q_row(t) + tx + 16 * j;
-      lse_c[j] = in ? lse[at] * kLog2e : INFINITY;
-      dlt_c[j] = in ? delta[at] : 0.f;
-    }
-    cc_grads_any<true>(softcap > 0.f, mask.cuts(q0, k0), st, dpt, lse_c, dlt_c, mask, q0 + tx,
-                       16, k0 + 4 * ty, 1, scale_l2, scale_cap, cap_l2, xs + 4 * ty * kLdS + tx);
-    __syncwarp();  // P^T's rows are this warp's own
-    const int q_end = rows_end(mask.Sq - q0);
-    acc_rows_g<kSlice, kSlice / 32>(acc_dv, xs, a, ty, tx, q_end);  // dV += P^T dO
-    __syncwarp();
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) xs[(4 * ty + r) * kLdS + tx + 16 * j] = dpt[r][j];
-    __syncwarp();
-    acc_rows_g<kSlice, kSlice / 32>(acc_dk, xs, bt, ty, tx, q_end);  // dK += dS^T Q
+    for (int gg = 0; gg < kOwn; ++gg)
+      if (gg == g) acc_piece<4, 1>(acc[gg], xs + row0 * kLdS, kLdS, a + 4 * lx, kLdPiece, q_end);
   }
 
+  // every share writes its part, a share without tiles zeros
+  const size_t n_all = static_cast<size_t>(n_heads) * mask.Sk * d;
+  float* dst = n_share == 1 ? out : part + sh * n_all;
+  const float f = n_share == 1 && want_dk ? scale : 1.f;
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
-    if (4 * ty + r >= k_rows) continue;
-    const size_t row = kv_off + static_cast<size_t>(k0 + 4 * ty + r) * d;
+    if (row0 + r >= k_rows) continue;
+    const size_t row = kv_off + static_cast<size_t>(k0 + row0 + r) * d;
 #pragma unroll
-    for (int g = 0; g < kSlice / 32; ++g) {
-      const int c = c0 + 2 * tx + 32 * g;
-      if (c >= d) continue;  // the row's own d columns only
-      *reinterpret_cast<float2*>(dk + row + c) =
-          make_float2(acc_dk[r][2 * g] * scale, acc_dk[r][2 * g + 1] * scale);
-      *reinterpret_cast<float2*>(dv + row + c) =
-          make_float2(acc_dv[r][2 * g], acc_dv[r][2 * g + 1]);
+    for (int g = 0; g < kOwn; ++g) {
+      const int c = (g0 + g) * kPiece + 4 * lx;
+      if (g < n_own && c < d)  // the row's own d columns only
+        *reinterpret_cast<float4*>(dst + row + c) =
+            make_float4(acc[g][r][0] * f, acc[g][r][1] * f, acc[g][r][2] * f, acc[g][r][3] * f);
     }
   }
 }
 
-// (c) f32: 64 query rows of head (b, h), one slice of their dQ columns, key
-// split sp of n_split (the narrow kernel's part and dq_combine).
+// (c) f32: 64 query rows of head (b, h), the block's pieces of their dQ
+// columns, key split sp of n_split (the narrow kernel's part and
+// dq_combine).  A key tile is n_pieces items of S (K's piece p, and Q's
+// where Q is not resident), n_pieces of dP (V's, and dO's), then dS into
+// shared memory, then one item of K for each of the block's pieces g (dQ_g
+// += dS K_g).  The forward's layout: warp w owns rows 8w..8w+7, lane (ly,
+// lx) = (lane / 16, lane % 16) the rows 8w + 4ly + i (i < 4), the keys lx +
+// 16j (j < 4) and the columns 4lx..4lx+3 of each piece.
 __global__ void __launch_bounds__(kCcThreads, 1)
-bwd_dq_cc_wide(const float* __restrict__ q, const float* __restrict__ k,
-               const float* __restrict__ v, const float* __restrict__ dout,
-               const float* __restrict__ lse, const float* __restrict__ delta,
-               float* __restrict__ dq, float* __restrict__ part, int n_heads, int Hq, int Hk,
-               int d, Mask mask, float softcap, float scale, int n_split) {
+bwd_dq_cc_256(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, const float* __restrict__ dout,
+              const float* __restrict__ lse, const float* __restrict__ delta,
+              float* __restrict__ dq, float* __restrict__ part, int n_heads, int Hq, int Hk, int d,
+              Mask mask, float softcap, float scale, int n_split) {
+  constexpr int kOwn = kF32Cols / kPiece;  // pieces of dQ a block holds, at most
+  const bool res = f32_resident(d);
+  const int n_pieces = f32_pieces(d), n_slices = f32_slices(d);
+  const int stage = (res ? 1 : 2) * kCcRows * kLdPiece;
+  const int ldq = res ? f32_ld(d) : kLdPiece;
   extern __shared__ float4 smem_cc[];
-  float* stages = reinterpret_cast<float*>(smem_cc);
-  float* xs = stages + 4 * kWideTileF;  // dS: [query][key]
+  float* ring = reinterpret_cast<float*>(smem_cc);  // stage s at ring + s * stage
+  float* qs = ring + kF32Stages * stage;            // Q and dO at the whole width (res)
+  float* dos = qs + (res ? kCcRows * ldq : 0);
+  float* xs = dos + (res ? kCcRows * ldq : 0);      // dS: [query][key]
 
   int rest;
   const int xi = heavy_first(&rest);  // the last query blocks are the heaviest
   if (rest >= n_heads) return;        // rest: the pair b * Hq + h
-  const int n = (d + kSlice - 1) / kSlice, per = n * n_split;
-  const int q0 = (gridDim.x / per - 1 - xi / per) * kCcRows;
-  const int c0 = xi % per / n_split * kSlice, sp = xi % n_split;
+  const int per = n_slices * n_split;
+  const int q0 = (gridDim.x / per - 1 - xi / per) * kCcRows, sp = xi % n_split;
+  const int g0 = xi % per / n_split * f32_slice_pieces(d);  // the block's first piece
+  const int n_own = min(f32_slice_pieces(d), n_pieces - g0);
   const int h = rest % Hq, b = rest / Hq;
   const int q_rows = min(kCcRows, mask.Sq - q0);
   const size_t q_at = static_cast<size_t>(rest) * mask.Sq + q0;
@@ -1458,82 +1546,105 @@ bwd_dq_cc_wide(const float* __restrict__ q, const float* __restrict__ k,
   const int nk = (mask.Sk + kCcRows - 1) / kCcRows, per_split = (nk + n_split - 1) / n_split;
   lo = max(lo, sp * per_split);
   hi = min(hi, (sp + 1) * per_split);
-  const int per_tile = 2 * n + 1, n_items = max(0, hi - lo) * per_tile;
+  const int per_tile = 2 * n_pieces + n_own, n_items = max(0, hi - lo) * per_tile;
 
-  const int lane = threadIdx.x & 31, tx = lane & 15;
-  const int ty = (threadIdx.x >> 5) * 2 + (lane >> 4);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int row0 = 8 * warp + 4 * (lane >> 4);  // rows row0 + i
+  const int lx = lane & 15;                      // keys lx + 16j, columns 4lx + 64g
   float lse_r[4], delta_r[4];
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
-    const bool in = 4 * ty + r < q_rows;
-    lse_r[r] = in ? lse[q_at + 4 * ty + r] * kLog2e : INFINITY;
-    delta_r[r] = in ? delta[q_at + 4 * ty + r] : 0.f;
+    const bool in = row0 + r < q_rows;
+    lse_r[r] = in ? lse[q_at + row0 + r] * kLog2e : INFINITY;
+    delta_r[r] = in ? delta[q_at + row0 + r] : 0.f;
   }
 
+  // item j into stage s: K's piece p for S, V's for dP (each beside Q's or
+  // dO's piece where those are not resident), then K's pieces g0 + g for dQ
   auto load = [&](int j, int s) {
     const int p = j % per_tile, j0 = (lo + j / per_tile) * kCcRows;
-    const int c = p < 2 * n ? p % n * kSlice : c0, w = min(kSlice, d - c);
-    const int k_rows = min(kCcRows, mask.Sk - j0);
-    float* a = stages + 2 * s * kWideTileF;
-    const size_t at_k = kv_off + static_cast<size_t>(j0) * d + c;
-    if (p < 2 * n) {
-      load_piece_async(a, (p < n ? q : dout) + q_at * d + c, d, q_rows, w);
-      load_piece_async(a + kWideTileF, (p < n ? k : v) + at_k, d, k_rows, w);
-    } else {
-      load_piece_async(a + kWideTileF, k + at_k, d, k_rows, w);
-    }
+    const int kind = p < n_pieces ? 0 : p < 2 * n_pieces ? 1 : 2;
+    const int c = (kind == 0 ? p : kind == 1 ? p - n_pieces : g0 + p - 2 * n_pieces) * kPiece;
+    float* a = ring + s * stage;
+    load_f32_piece<kCcRows>(a, (kind == 1 ? v : k) + kv_off + static_cast<size_t>(j0) * d + c, d,
+                            min(kCcRows, mask.Sk - j0), d - c);
+    if (!res && kind < 2)
+      load_f32_piece<kCcRows>(a + kCcRows * kLdPiece, (kind == 0 ? q : dout) + q_at * d + c, d,
+                              q_rows, d - c);
   };
-  if (n_items > 0) load(0, 0);
-  cp_async_commit();
+  if (res && n_items > 0) {
+    load_f32_rows<kCcRows>(qs, ldq, q + q_at * d, d, q_rows, d, ldq - 4);
+    load_f32_rows<kCcRows>(dos, ldq, dout + q_at * d, d, q_rows, d, ldq - 4);
+  }
+#pragma unroll
+  for (int j = 0; j < kF32Stages - 1; ++j) {
+    if (j < n_items) load(j, j);
+    cp_async_commit();
+  }
 
-  float acc[4][kSlice / 16], sc[4][4], dp[4][4];
+  float acc[kOwn][4][4], sc[4][4], dp[4][4];
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
+  for (int g = 0; g < kOwn; ++g)
 #pragma unroll
-    for (int c = 0; c < kSlice / 16; ++c) acc[r][c] = 0.f;
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[g][r][e] = 0.f;
   const float scale_l2 = scale * kLog2e;
   const float cap_l2 = softcap * kLog2e, scale_cap = scale / softcap;
 
   for (int i = 0; i < n_items; ++i) {
-    const int s = i & 1, p = i % per_tile, j0 = (lo + i / per_tile) * kCcRows;
-    cp_async_wait_all();
+    const int p = i % per_tile, j0 = (lo + i / per_tile) * kCcRows;
+    cp_async_wait<kF32Stages - 2>();
     __syncthreads();  // item i is in; every thread is done with item i - 1
-    if (i + 1 < n_items) load(i + 1, s ^ 1);
-    cp_async_commit();
-    const float* a = stages + 2 * s * kWideTileF;
-    const float* bt = a + kWideTileF;
-    if (p < 2 * n) {
-      // S (+)= Q K^T, then dP (+)= dO V^T: queries are rows
-      if (p < n)
-        piece_rows(sc, a, bt, ty, tx, min(kSlice, d - p * kSlice), p == 0);
-      else
-        piece_rows(dp, a, bt, ty, tx, min(kSlice, d - (p - n) * kSlice), p == n);
+    if (i + kF32Stages - 1 < n_items) load(i + kF32Stages - 1, (i + kF32Stages - 1) % kF32Stages);
+    cp_async_commit();  // (empty past the last item: the wait's count stays right)
+    const float* a = ring + (i % kF32Stages) * stage;
+    if (p < 2 * n_pieces) {
+      // S += Q_p K_p^T, then dP += dO_p V_p^T: queries are rows
+      // (two calls, so that sc and dp stay in registers)
+      const int pp = p < n_pieces ? p : p - n_pieces, n = min(kPiece, d - pp * kPiece);
+      const float* qp = res ? (p < n_pieces ? qs : dos) + pp * kPiece : a + kCcRows * kLdPiece;
+      if (p < n_pieces) {
+        if (pp == 0) zero_block(sc);
+        dot_piece<4, 4, 1, 16>(sc, qp + row0 * ldq, ldq, a + lx * kLdPiece, kLdPiece, n);
+      } else {
+        if (pp == 0) zero_block(dp);
+        dot_piece<4, 4, 1, 16>(dp, qp + row0 * ldq, ldq, a + lx * kLdPiece, kLdPiece, n);
+      }
+      if (p < 2 * n_pieces - 1) continue;
+      // dS (without the scale) into xs: rows are queries q0 + row0 + i,
+      // columns keys j0 + lx + 16j
+      cc_grads_any<false>(softcap > 0.f, j0 + kCcRows > mask.Sk || mask.cuts(q0, j0), sc, dp,
+                          lse_r, delta_r, mask, q0 + row0, 1, j0 + lx, 16, scale_l2, scale_cap,
+                          cap_l2, nullptr);
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) xs[(row0 + r) * kLdS + lx + 16 * j] = dp[r][j];
+      __syncwarp();  // dS's rows are this warp's own, where written and read
       continue;
     }
-    cc_grads_any<false>(softcap > 0.f, j0 + kCcRows > mask.Sk || mask.cuts(q0, j0), sc, dp,
-                        lse_r, delta_r, mask, q0 + 4 * ty, 1, j0 + tx, 16, scale_l2, scale_cap,
-                        cap_l2, nullptr);
+    // dQ_g += dS K_g over the tile's keys, rows row0 + i, columns 4lx of piece g
+    const int g = p - 2 * n_pieces, k_end = rows_end(mask.Sk - j0);
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) xs[(4 * ty + r) * kLdS + tx + 16 * j] = dp[r][j];
-    __syncwarp();  // dS's rows 4ty..4ty+3 are this warp's own
-    acc_rows_g<kSlice, kSlice / 32>(acc, xs, bt, ty, tx, rows_end(mask.Sk - j0));  // dQ += dS K
+    for (int gg = 0; gg < kOwn; ++gg)
+      if (gg == g) acc_piece<4, 1>(acc[gg], xs + row0 * kLdS, kLdS, a + 4 * lx, kLdPiece, k_end);
   }
 
   const size_t rows_all = static_cast<size_t>(n_heads) * mask.Sq;
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
-    if (4 * ty + r >= q_rows) continue;
-    const size_t row = q_at + 4 * ty + r;
+    if (row0 + r >= q_rows) continue;
+    const size_t row = q_at + row0 + r;
     float* out = part == nullptr ? dq + row * d
                                  : part + (static_cast<size_t>(sp) * rows_all + row) * d;
     const float f = part == nullptr ? scale : 1.f;
 #pragma unroll
-    for (int g = 0; g < kSlice / 32; ++g) {
-      const int c = c0 + 2 * tx + 32 * g;
-      if (c < d)  // the row's own d columns only
-        *reinterpret_cast<float2*>(out + c) = make_float2(acc[r][2 * g] * f, acc[r][2 * g + 1] * f);
+    for (int g = 0; g < kOwn; ++g) {
+      const int c = (g0 + g) * kPiece + 4 * lx;
+      if (g < n_own && c < d)  // the row's own d columns only
+        *reinterpret_cast<float4*>(out + c) = make_float4(acc[g][r][0] * f, acc[g][r][1] * f,
+                                                          acc[g][r][2] * f, acc[g][r][3] * f);
     }
   }
 }
@@ -2000,9 +2111,13 @@ struct Args {
   int B, Hq, Hk, d;
   Mask mask;
   float softcap, scale;
-  float* scratch;  // f32 dQ key splits: dq_split * B * Hq * Sq * d floats, or
-                   // the native dK/dV shares: 2 * head_split * B * Hk * Sk * d
-  int dq_split, head_split;
+  float* scratch;  // f32 dQ key splits: dq_split * B * Hq * Sq * d floats,
+                   // then dK/dV shares: 2 * dkdv_split * B * Hk * Sk * d
+  int dq_split;
+  int dkdv_split;  // shares of a dK/dV block's work: the native bf16 kernels'
+                   // of a GQA group's heads, the f32 whole-width ones' of
+                   // a key block's query tiles
+
   cudaStream_t stream;
 };
 
@@ -2027,7 +2142,7 @@ int launch_delta(const Args& a) {
 
 // The own rows of a (b) and a (c) block: bf16 takes 128 (two warpgroups)
 // unless that leaves fewer blocks than the card's n_sm SMs, then 64; f32,
-// and bf16 past 128 columns (the wide kernels), take 64.
+// and bf16 past 256 columns (the wide kernels), take 64.
 void block_rows(int dtype, int B, int Hq, int Hk, int Sq, int Sk, int D, int n_sm, int* dkdv,
                 int* dq) {
   if (dtype == 1 && D > 128 && D <= kNatCols) {  // the native kernels
@@ -2175,7 +2290,7 @@ int launch_wide_wgmma(const Args& a) {
 int launch_wgmma_256(const Args& a) {
   constexpr int kDkdv = dkdv_256_smem_bytes(), kDq = dq_256_smem_bytes();
   static bool dkdv_ok = false, dq_ok = false;
-  const int hs = a.head_split;
+  const int hs = a.dkdv_split;
   if (hs < 1 || (hs > 1 && a.scratch == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
   int err = launch_delta<__nv_bfloat16, 128, true>(a);
   if (err == 0) err = allow_smem(bwd_dkdv_wgmma_256, kDkdv, &dkdv_ok);
@@ -2209,35 +2324,55 @@ int launch_wgmma_256(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch_wide_cc(const Args& a) {
+// f32 past 128 columns: the whole-width kernels (dV, then dK, over 64-key
+// blocks in dkdv_split shares of their query tiles; dQ over 64-row blocks
+// in dq_split shares of their keys; each a slice of the columns past 256),
+// each shared one followed by dq_combine.
+int launch_cc_256(const Args& a) {
   using T = float;
-  constexpr int kSmem = cc_wide_smem_bytes();
+  // the most any width asks for (the streamed layout just past kF32Cols)
+  constexpr int kMost = cc_256_smem_bytes(kF32Cols) > cc_256_smem_bytes(kF32Cols + 8)
+                            ? cc_256_smem_bytes(kF32Cols)
+                            : cc_256_smem_bytes(kF32Cols + 8);
   static bool dkdv_ok = false, dq_ok = false;
-  const int split = a.dq_split;
-  if (split < 1 || split > kMaxSplit || (split > 1 && a.scratch == nullptr))
+  const int split = a.dq_split, shares = a.dkdv_split;
+  if (split < 1 || split > kMaxSplit || shares < 1 || shares > kMaxSplit ||
+      ((split > 1 || shares > 1) && a.scratch == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   int err = launch_delta<T, 128, true>(a);
-  if (err == 0) err = allow_smem(bwd_dkdv_cc_wide, kSmem, &dkdv_ok);
-  if (err == 0) err = allow_smem(bwd_dq_cc_wide, kSmem, &dq_ok);
+  if (err == 0) err = allow_smem(bwd_dkdv_cc_256, kMost, &dkdv_ok);
+  if (err == 0) err = allow_smem(bwd_dq_cc_256, kMost, &dq_ok);
   if (err != 0) return err;
   const T *q = static_cast<const T*>(a.q), *k = static_cast<const T*>(a.k),
           *v = static_cast<const T*>(a.v), *dout = static_cast<const T*>(a.dout);
-  const int n = (a.d + kSlice - 1) / kSlice;
-  bwd_dkdv_cc_wide<<<head_grid((a.mask.Sk + kCcRows - 1) / kCcRows * n, a.Hk, a.B), kCcThreads,
-                     kSmem, a.stream>>>(q, k, v, dout, a.lse, a.delta, static_cast<T*>(a.dk),
-                                        static_cast<T*>(a.dv), a.B * a.Hk, a.Hq, a.Hk, a.d,
-                                        a.mask, a.softcap, a.scale);
-  err = static_cast<int>(cudaGetLastError());
-  if (err != 0) return err;
-  bwd_dq_cc_wide<<<head_grid((a.mask.Sq + kCcRows - 1) / kCcRows * n * split, a.Hq, a.B),
-                   kCcThreads, kSmem, a.stream>>>(
+  const int n = f32_slices(a.d);
+  // the scratch: dQ's key splits (where split), then dK's and dV's shares
+  const size_t n_q = static_cast<size_t>(a.B) * a.Hq * a.mask.Sq * a.d;
+  const size_t n_kv = static_cast<size_t>(a.B) * a.Hk * a.mask.Sk * a.d;
+  float* kv_part = a.scratch + (split > 1 ? split * n_q : 0);
+  for (int want_dk = 0; want_dk < 2; ++want_dk) {  // dV, then dK
+    T* out = static_cast<T*>(want_dk ? a.dk : a.dv);
+    float* part = shares > 1 ? kv_part + want_dk * shares * n_kv : nullptr;
+    bwd_dkdv_cc_256<<<head_grid((a.mask.Sk + kCcRows - 1) / kCcRows * n * shares, a.Hk, a.B),
+                      kCcThreads, cc_256_smem_bytes(a.d), a.stream>>>(
+        q, k, v, dout, a.lse, a.delta, out, part, a.B * a.Hk, a.Hq, a.Hk, a.d, a.mask,
+        a.softcap, a.scale, want_dk, shares);
+    err = static_cast<int>(cudaGetLastError());
+    if (err == 0 && shares > 1) {
+      dq_combine<<<static_cast<unsigned>((n_kv / 4 + 255) / 256), 256, 0, a.stream>>>(
+          part, out, n_kv / 4, shares, want_dk ? a.scale : 1.f);
+      err = static_cast<int>(cudaGetLastError());
+    }
+    if (err != 0) return err;
+  }
+  bwd_dq_cc_256<<<head_grid((a.mask.Sq + kCcRows - 1) / kCcRows * n * split, a.Hq, a.B),
+                  kCcThreads, cc_256_smem_bytes(a.d), a.stream>>>(
       q, k, v, dout, a.lse, a.delta, static_cast<T*>(a.dq), split > 1 ? a.scratch : nullptr,
       a.B * a.Hq, a.Hq, a.Hk, a.d, a.mask, a.softcap, a.scale, split);
   err = static_cast<int>(cudaGetLastError());
   if (err != 0 || split == 1) return err;
-  const size_t n4 = static_cast<size_t>(a.B) * a.Hq * a.mask.Sq * a.d / 4;
-  dq_combine<<<static_cast<unsigned>((n4 + 255) / 256), 256, 0, a.stream>>>(
-      a.scratch, static_cast<T*>(a.dq), n4, split, a.scale);
+  dq_combine<<<static_cast<unsigned>((n_q / 4 + 255) / 256), 256, 0, a.stream>>>(
+      a.scratch, static_cast<T*>(a.dq), n_q / 4, split, a.scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -2245,6 +2380,8 @@ struct Variant {
   int dtype, d, rows, other, threads, smem_dkdv, smem_dq;
   bool any;  // takes every width up to d with d % 8 == 0 (d = 0: past 128), not d alone
   int (*launch)(const Args&);
+  int (*smem_dkdv_of)(int);  // the shared memory of head width D, where it depends on it
+  int (*smem_dq_of)(int);
 };
 
 // Every instantiation, found by (dtype, D, rows): the launch plan
@@ -2253,8 +2390,8 @@ struct Variant {
 // tile, threads and shared memory are the instantiation's own.  D = 64, 96
 // and 128 have their own; every other D with D % 8 == 0 up to 128 takes the
 // first `any` row whose width holds it (kernel_width in the plan); bf16
-// widths 136-256 the native row (d 256), and every other D % 8 == 0 past
-// 128 the wide row of its dtype (d = 0).
+// widths 136-256 the native row (d 256), bf16 past 256 the wide row, and f32
+// past 128 the whole-width row (both d = 0; its shared memory depends on D).
 constexpr Variant kVariants[] = {
     {1, 64, 64, kTile, 128, dkdv_smem_bytes<64, 1>(), dq_smem_bytes<64, 1>(), false, launch_wgmma<64, false>},
     {1, 64, 128, kTile, 256, dkdv_smem_bytes<64, 2>(), dq_smem_bytes<64, 2>(), false, launch_wgmma<64, false>},
@@ -2277,16 +2414,16 @@ constexpr Variant kVariants[] = {
     {0, 128, kCcRows, kCcRows, kCcThreads, cc_smem_bytes<128>(), cc_smem_bytes<128>(), true,
      launch_cc<128, true>},
     {1, 0, 64, kTile, 128, wide_smem_bytes(1024), wide_smem_bytes(0), true, launch_wide_wgmma},
-    {0, 0, kCcRows, kCcRows, kCcThreads, cc_wide_smem_bytes(), cc_wide_smem_bytes(), true,
-     launch_wide_cc},
+    {0, 0, kCcRows, kCcRows, kCcThreads, 0, 0, true, launch_cc_256, cc_256_smem_bytes,
+     cc_256_smem_bytes},
     {1, kNatCols, 64, kTile, kNatThreads, dkdv_256_smem_bytes(), dq_256_smem_bytes(), true,
      launch_wgmma_256},
 };
 
 // Whether row x runs head width D of dtype: bf16 widths 136-256 the native
 // row (d 256: dK/dV blocks of 64 keys, dQ blocks of 128 queries, either
-// asked for), the others past 128 the wide row (d 0), narrower ones as the
-// table's comment says.
+// asked for), bf16 past 256 the wide row and f32 past 128 the whole-width
+// row (both d 0), narrower ones as the table's comment says.
 bool takes(const Variant& x, int dtype, int D, int rows) {
   if (D > kNatCols || (D > 128 && dtype == 0)) return x.d == 0 && (rows < 0 || x.rows == rows);
   if (D > 128) return x.d == kNatCols && (rows < 0 || rows == 64 || rows == 128);
@@ -2311,8 +2448,8 @@ extern "C" int flash_attention_bwd_geometry(int dtype, int D, int rows, int* oth
   if (x == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   *other = x->other;
   *threads = x->threads;
-  *smem_dkdv = x->smem_dkdv;
-  *smem_dq = x->smem_dq;
+  *smem_dkdv = x->smem_dkdv_of != nullptr ? x->smem_dkdv_of(D) : x->smem_dkdv;
+  *smem_dq = x->smem_dq_of != nullptr ? x->smem_dq_of(D) : x->smem_dq;
   return 0;
 }
 
@@ -2331,21 +2468,22 @@ extern "C" int flash_attention_bwd_blocks(int B, int Hq, int Hk, int Sq, int Sk,
 // (the launch plan's; 1 for bf16): f32 dQ blocks split each query block's
 // keys dq_split ways and a fourth launch adds the splits up, through
 // scratch: f32, dq_split * B * Hq * Sq * D floats (null when dq_split is 1).
-// head_split (the plan's; 1 but for the native bf16 kernels of widths
-// 136-256): the dK/dV shares of a GQA group, whose f32 parts go through
-// scratch, 2 * head_split * B * Hk * Sk * D floats.
+// dkdv_split (the plan's; 1 but for the whole-width kernels past 128
+// columns): the dK/dV shares, of a GQA group's heads (bf16 136-256) or of a
+// key block's query tiles (f32), whose f32 parts go through scratch, 2 *
+// dkdv_split * B * Hk * Sk * D floats after those of the dQ split.
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                                    const void* dout, const float* lse, float* delta, void* dq,
                                    void* dk, void* dv, float* scratch, int B, int Hq, int Hk,
                                    int Sq, int Sk, int D, int dtype, int causal, int window,
-                                   float softcap, float scale, int dq_split, int head_split,
+                                   float softcap, float scale, int dq_split, int dkdv_split,
                                    void* stream) {
   const Variant* x = find(dtype, D, -1);
   if (x == nullptr || (dtype != 0 && dq_split != 1) ||
-      (x->launch != launch_wgmma_256 && head_split != 1))
+      (x->launch != launch_wgmma_256 && x->launch != launch_cc_256 && dkdv_split != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{q, k, v, o, dout, lse, delta, dq, dk, dv, B, Hq, Hk, D,
-               Mask{Sq, Sk, causal, window}, softcap, scale, scratch, dq_split, head_split,
+               Mask{Sq, Sk, causal, window}, softcap, scale, scratch, dq_split, dkdv_split,
                static_cast<cudaStream_t>(stream)};
   return x->launch(a);
 }

@@ -26,10 +26,14 @@ Pallas kernel does:
 * a multiple of 8 up to 128 (``HEAD_DIMS``, the Pallas kernel's tests' 16
   and 32 among them): 64, 96 and 128 have instantiations of their own, any
   other width the one of ``kernel_width(d)``;
-* past 128: the wide kernels (``csrc/flash_wide.cuh``), in which a block
-  owns one slice of ``SLICE`` output columns and forms S (and dP) over the
-  whole width, a piece at a time: S is formed ``slices`` times (the plans'
-  recompute factor);
+* past 128: the whole-width kernels (``native``): bf16 up to 256 on the
+  tensor cores (``"wgmma_256"``), f32 at every width on the CUDA cores
+  (``"cuda_cores_256"``: a block's accumulators hold ``F32_COLS`` columns,
+  so past 256 the outputs go in ``slices`` slices of them), each forming S
+  (and dP) once a tile; bf16 past 256 the wide kernels
+  (``csrc/flash_wide.cuh``), in which a block owns one slice of ``SLICE``
+  output columns and forms S (and dP) over the whole width, a piece at a
+  time: S is formed ``slices`` times (the plans' recompute factor);
 * off the multiple of 8: the op pads the head axis of its inputs with zeros
   to ``padded_width(d)`` (TMA and ``cp.async`` need 16-byte row strides) and
   slices its outputs back, which is exact (zero columns add zeros to q.k
@@ -49,7 +53,9 @@ on the tensor cores (``"wgmma"``: TMA into a two-stage shared-memory ring,
 cores (``"cuda_cores"``: 64-row blocks, the other side's tiles two stages
 deep, dK and dV in registers over a key block; dQ blocks that would leave
 SMs idle split their keys, and a fourth launch adds the splits up in a
-fixed order).
+fixed order; past 128 columns ``"cuda_cores_256"``, dV and dK in two
+launches of their own so that each fits a block's registers at the whole
+width).
 
 Each kernel is a ``torch.library`` op
 (``repro_torch::flash_attention_fwd``, ``repro_torch::flash_attention_bwd``)
@@ -85,7 +91,7 @@ SRC_BWD = kbuild.CSRC / "flash_attention_bwd.cu"
 NVCC_FLAGS = kbuild.BASE_FLAGS
 # the head widths the narrow instantiations take: every multiple of 8 up to
 # 128, the Pallas kernel's 16 and 32 among them (every other width pads to a
-# multiple of 8; past 128 the wide kernels run)
+# multiple of 8; past 128 the whole-width and wide kernels run)
 HEAD_DIMS = tuple(range(8, 129, 8))
 NATIVE_DIMS = (64, 96, 128)     # widths with instantiations of their own
 N_SM = 132                      # H100 SXM streaming multiprocessors
@@ -94,9 +100,12 @@ MAX_PAIRS = 2**31 - 1           # (batch, head) pairs of one launch
 WGMMA_BLOCK_K = 128             # keys per tile of the tensor-core kernel
 CC_ROWS = 64                    # rows (queries, keys) of an f32 tile
 CC_THREADS = 256
-# past 128 columns (csrc/flash_wide.cuh): a block's output columns and the
-# columns of a piece of S; bf16 ring stages of two 64 x 128 tiles
+# bf16 past 256 columns (csrc/flash_wide.cuh): a block's output columns and
+# the columns of a piece of S; ring stages of two 64 x 128 tiles
 SLICE, WIDE_STAGES = 128, 3
+# f32 past 128 columns (csrc/flash_wide.cuh): columns of a piece, of a
+# block's accumulators (its widest slice), the ring's stages
+PIECE, F32_COLS, F32_STAGES = 64, 256, 4
 # bf16 widths past 128 up to this run the native kernels (whole width, no
 # slices), two warpgroups a block: forward 128 query rows, backward dK/dV
 # 64 keys, dQ 128 queries
@@ -107,6 +116,8 @@ NATIVE_THREADS = 256
 # (csrc/cuda_cores.cuh kMaxSplit)
 SPLIT_MIN_TILES, MAX_SPLIT = 2, 16
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the plan variants of the whole-width kernels (``native``)
+NATIVE = ("wgmma_256", "cuda_cores_256")
 # the C entry point's codes besides cudaError_t
 _NO_ENCODER, _ENCODE_FAILED = 999, 1000
 
@@ -156,18 +167,39 @@ def padded_width(d: int) -> int:
 
 
 def native(d: int, dtype: torch.dtype) -> bool:
-    """Whether head width ``d`` in ``dtype`` runs the native kernels: bf16
-    at padded widths 136-256."""
-    return dtype == torch.bfloat16 and 128 < padded_width(d) <= NATIVE_WIDTH
+    """Whether head width ``d`` in ``dtype`` runs the whole-width kernels:
+    bf16 at padded widths 136-256, f32 at every padded width past 128."""
+    w = padded_width(d)
+    return w > 128 and (dtype == torch.float32 or w <= NATIVE_WIDTH)
 
 
 def slices(d: int, dtype: torch.dtype) -> int:
-    """The column slices of a head width ``d`` in ``dtype``: 1 up to 128
-    columns (after padding) and for the native kernels (``native``), else
-    ``ceil(padded / SLICE)``, each a block of its own that forms S (and dP)
-    over the whole width: the recompute factor."""
+    """The column slices of a head width ``d`` in ``dtype``, each a block of
+    its own that forms S (and dP) over the whole width (the recompute
+    factor): 1 up to 128 columns (after padding) and for the native bf16
+    kernels; f32 past 128 ``ceil(padded / F32_COLS)`` (1 up to 256); bf16
+    past 256 ``ceil(padded / SLICE)``."""
     w = padded_width(d)
-    return 1 if w <= 128 or native(d, dtype) else -(-w // SLICE)
+    if w <= 128 or (native(d, dtype) and dtype == torch.bfloat16):
+        return 1
+    return -(-w // (F32_COLS if dtype == torch.float32 else SLICE))
+
+
+def _f32_smem(w: int) -> tuple[int, int]:
+    """Shared-memory bytes of the f32 whole-width kernels at padded width
+    ``w`` (``csrc/flash_wide.cuh``): the forward's, and the backward's (dK/dV
+    and dQ alike).  Each has its ring of ``F32_STAGES`` stages of 64-row
+    pieces (``PIECE`` columns at a row stride of ``PIECE + 4`` floats),
+    beside a piece of the block's own rows where those are not held at the
+    whole width (past ``F32_COLS``), the block's own rows where they are
+    (pieces side by side, 4 floats of pad: Q in the forward; K and V, or Q
+    and dO), and a 64 x 68 score tile (P; P^T or dS^T; dS)."""
+    resident = w <= F32_COLS
+    ld, tile = PIECE * -(-w // PIECE) + 4, CC_ROWS * (PIECE + 4)
+    stages = F32_STAGES * tile * (1 if resident else 2)
+    scores = CC_ROWS * (CC_ROWS + 4)
+    own = CC_ROWS * ld if resident else 0
+    return (stages + own + scores) * 4, (stages + 2 * own + scores) * 4
 
 
 def head_split(b: int, hk: int, sk: int, group: int, n_sm: int = N_SM) -> int:
@@ -224,8 +256,8 @@ def kernel_width(d: int) -> int:
     (``padded_width(d)`` first): 64, 96 and 128 themselves; 64 below 64 and
     128 up to 128, whose ``kAny`` instantiations read the width at run time
     and leave the columns past it zero (``csrc/flash_attention.cu``'s and
-    ``csrc/flash_attention_bwd.cu``'s ``find``); past 128, ``SLICE``, the
-    wide kernels' slice."""
+    ``csrc/flash_attention_bwd.cu``'s ``find``); past 128 the whole-width
+    and wide kernels take every padded width themselves."""
     d = padded_width(d)
     if d in NATIVE_DIMS:
         return d
@@ -236,7 +268,8 @@ def geometry(dtype: torch.dtype, d: int, block_q: int) -> tuple[int, int, int]:
     """Key tile, threads and shared-memory bytes of the kernel that runs
     (dtype, d, block_q), as ``csrc/flash_attention.cu`` lays it out
     (``wgmma_smem_bytes``, ``f32_smem_bytes`` of ``kernel_width(d)``; past
-    128 columns ``wide_smem_bytes``, ``f32_wide_smem_bytes``).  The C entry
+    128 columns ``f32_256_smem_bytes`` (``_f32_smem``) and, bf16 past 256,
+    ``wide_smem_bytes``).  The C entry
     point takes only (dtype, d, block_q) and launches with its own numbers;
     these are what the plan reports without the library, and
     ``chip_smoke.py`` holds them against ``kernel_geometry``.  The native
@@ -244,16 +277,14 @@ def geometry(dtype: torch.dtype, d: int, block_q: int) -> tuple[int, int, int]:
     alignment, Q of block_q rows, two stages of K and of V of 64 keys, all
     ``NATIVE_WIDTH`` columns of bf16, 128 bytes of mbarriers
     (``native_smem_bytes``)."""
+    if native(d, dtype) and dtype == torch.float32:
+        return CC_ROWS, CC_THREADS, _f32_smem(padded_width(d))[0]
     if native(d, dtype):
         return 64, 2 * block_q, \
             1024 + (block_q + 4 * 64) * NATIVE_WIDTH * 2 + 128
     if slices(d, dtype) > 1:
-        if dtype == torch.bfloat16:
-            # 1 KB of alignment, the ring, its mbarriers
-            return 64, 128, 1024 + WIDE_STAGES * 2 * 64 * 128 * 2 + 64
-        # two stages of two 64 x 128 tiles at 132 floats a row, P at 72
-        return CC_ROWS, CC_THREADS, (4 * CC_ROWS * (SLICE + 4)
-                                     + CC_ROWS * (CC_ROWS + 8)) * 4
+        # 1 KB of alignment, the ring, its mbarriers
+        return 64, 128, 1024 + WIDE_STAGES * 2 * 64 * 128 * 2 + 64
     d = kernel_width(d)
     if dtype == torch.bfloat16:
         cols = 64 if d <= 64 else 128
@@ -281,6 +312,22 @@ def key_split(blocks: int, sk: int, n_sm: int = N_SM) -> int:
                       MAX_SPLIT))
 
 
+def wave_split(blocks: int, tiles: int, n_sm: int = N_SM) -> int:
+    """How many blocks share the walk of one block of the f32 whole-width
+    kernels (a query tile's key tiles in the forward and dQ, a key block's
+    query tiles in dK/dV) when the grid has ``blocks`` such blocks on a card
+    of ``n_sm`` SMs and a block walks at most ``tiles`` tiles: 1 when the
+    grid fills the card, else as many as bring it to two waves, at most one
+    a tile and ``MAX_SPLIT``.  Each walk of these kernels is a long chain of
+    items, so a short grid's time is its longest walk: under a causal mask
+    the splits of the short walks end at once, and the heaviest-first order
+    puts the long ones in the first wave.  A later launch adds the splits
+    up in a fixed order."""
+    if blocks >= n_sm:
+        return 1
+    return max(1, min(MAX_SPLIT, tiles, 2 * n_sm // blocks))
+
+
 def kernel_plan(b: int, hq: int, hk: int, sq: int, sk: int, d: int,
                 dtype: torch.dtype, n_sm: int = N_SM) -> dict:
     """Launch plan of ``flash_attention_cuda`` for q ``[b, hq, sq, d]`` and
@@ -302,13 +349,17 @@ def kernel_plan(b: int, hq: int, hk: int, sq: int, sk: int, d: int,
     bf16 at padded widths 136-256 plans ``"wgmma_256"``, the native kernel
     (``native``): a warpgroup a 64 query rows, 128-row blocks or 64 by the
     rule above, key tiles of 64, the whole width in one block (no slices).
+    f32 past 128 columns plans ``"cuda_cores_256"``: 64 query rows and 64
+    keys a tile, 256 threads, S once a tile over the whole width, O of up
+    to ``F32_COLS`` columns in registers, the keys split by ``wave_split``.
 
     ``width`` is the head width the kernels run (``padded_width(d)``: the
-    op pads q, k and v to it), ``slices`` the column slices of the wide
-    kernels past 128 columns (1 below, and for the native kernel): 64-row
-    blocks in both dtypes (bf16 key tiles of 64), each owning ``SLICE``
-    output columns, so the grid's x counts query tiles x slices x key
-    splits and S is formed ``slices`` times.  The grid's y and z are
+    op pads q, k and v to it), ``slices`` the column slices (1 up to 128
+    columns and for the native bf16 kernel): f32 past 256 slices of up to
+    ``F32_COLS`` columns, bf16 past 256 the wide kernel's 64-row blocks
+    (key tiles of 64) each owning ``SLICE`` output columns; the grid's x
+    counts query tiles x slices x key splits, and S is formed ``slices``
+    times.  The grid's y and z are
     ``head_grid(hq, b)``.  Past ``MAX_PAIRS`` pairs the plan is that of the
     first of ``pair_chunks``'s launches, and ``pair_chunks`` their count (1
     below).  Raises ValueError on what no kernel takes (a head width below
@@ -321,7 +372,7 @@ def kernel_plan(b: int, hq: int, hk: int, sq: int, sk: int, d: int,
         return {**kernel_plan(r1 - r0, h1 - h0, 1, sq, sk, d, dtype, n_sm),
                 "pair_chunks": len(chunks)}
     width, n_slices = padded_width(d), slices(d, dtype)
-    if native(d, dtype):
+    if native(d, dtype) and dtype == torch.bfloat16:
         block_q = 64 if b * hq * -(-sq // 128) < n_sm else 128
         variant = "wgmma_256"
     elif dtype == torch.bfloat16:
@@ -329,14 +380,18 @@ def kernel_plan(b: int, hq: int, hk: int, sq: int, sk: int, d: int,
                    else 128)
         variant = "wgmma"
     elif dtype == torch.float32:
-        block_q, variant = CC_ROWS, "cuda_cores"
+        block_q = CC_ROWS
+        variant = "cuda_cores_256" if native(d, dtype) else "cuda_cores"
     else:
         raise ValueError(f"flash_attention_cuda: dtype {dtype}, expected "
                          "torch.float32 or torch.bfloat16")
     block_k, threads, smem = geometry(dtype, width, block_q)
     tiles = -(-sq // block_q) * n_slices
-    split = (key_split(b * hq * tiles, sk, n_sm)
-             if dtype == torch.float32 else 1)
+    if variant == "cuda_cores_256":
+        split = wave_split(b * hq * tiles, -(-sk // CC_ROWS), n_sm)
+    else:
+        split = (key_split(b * hq * tiles, sk, n_sm)
+                 if dtype == torch.float32 else 1)
     grid = (tiles * split, *head_grid(hq, b))
     if smem > MAX_SMEM:
         raise ValueError(f"flash_attention_cuda: {smem} bytes of shared "
@@ -447,9 +502,10 @@ def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor, *,
 
     Launches on the current stream and does not synchronise.  Each call that
     launches adds one to ``flash_attention_cuda.launches`` (and to
-    ``.native_launches`` where the native kernel runs, ``.wide_launches``
-    where the wide kernels run, ``.padded_launches`` where the head axis
-    was padded) and leaves its plan in ``flash_attention_cuda.last_plan``.
+    ``.native_launches`` where a whole-width kernel runs, bf16 136-256 or
+    f32 past 128, ``.wide_launches`` where the bf16 wide kernel runs,
+    ``.padded_launches`` where the head axis was padded) and leaves its
+    plan in ``flash_attention_cuda.last_plan``.
     """
     kbuild.refuse_autograd("flash_attention_cuda", q=q, k=k, v=v)
     _check(q, k, v, window)
@@ -490,8 +546,9 @@ def _flash_fwd_op(q: Tensor, k: Tensor, v: Tensor, causal: bool,
                     _plan_fwd(qc, kc) if chunks else plan, causal, window,
                     softcap, scale)
     flash_attention_cuda.launches += 1
-    flash_attention_cuda.native_launches += plan["variant"] == "wgmma_256"
-    flash_attention_cuda.wide_launches += plan["slices"] > 1
+    flash_attention_cuda.native_launches += plan["variant"] in NATIVE
+    flash_attention_cuda.wide_launches += plan["variant"] == "wgmma" \
+        and plan["slices"] > 1
     flash_attention_cuda.padded_launches += width != d
     flash_attention_cuda.last_plan = plan
     return _unpad(d, out)[0], lse
@@ -572,8 +629,10 @@ def geometry_bwd(dtype: torch.dtype, d: int,
     out (``dkdv_smem_bytes``, ``dq_smem_bytes``, ``cc_smem_bytes``);
     ``chip_smoke.py`` holds them against ``kernel_geometry_bwd``.  Other
     widths than 64, 96 and 128 run ``kernel_width(d)``'s instantiation,
-    and widths past 128 the wide kernels (64 rows, one slice of ``SLICE``
-    columns: ``wide_smem_bytes``, ``cc_wide_smem_bytes``).  The native
+    f32 past 128 the whole-width kernels (64-row blocks, tiles of 64 rows
+    of the other side: ``cc_256_smem_bytes``, ``_f32_smem``),
+    and bf16 past 256 the wide kernels (64 rows, one slice of ``SLICE``
+    columns: ``wide_smem_bytes``).  The native
     kernels (bf16 136-256; dK/dV blocks of 64 keys, dQ of 128 queries,
     whatever ``rows`` asks): dK/dV 1 KB of alignment, K, V, two stages of Q
     and dO (64 rows of ``NATIVE_WIDTH`` bf16 columns each), two f32 P^T
@@ -581,21 +640,19 @@ def geometry_bwd(dtype: torch.dtype, d: int,
     bytes of mbarriers (``dkdv_256_smem_bytes``); dQ 1 KB, Q and dO of 128
     rows, two stages of K and one of V, 64 bytes, the rows' lse and delta
     (``dq_256_smem_bytes``)."""
+    if native(d, dtype) and dtype == torch.float32:
+        smem = _f32_smem(padded_width(d))[1]
+        return CC_ROWS, CC_THREADS, smem, smem
     if native(d, dtype):
         tile = 64 * NATIVE_WIDTH * 2
         return (64, NATIVE_THREADS,
                 1024 + 6 * tile + 2 * 64 * 64 * 4 + 4 * 64 * 4 + 64,
                 1024 + 7 * tile + 64 + 2 * 128 * 4)
     if slices(d, dtype) > 1:
-        if dtype == torch.bfloat16:
-            # 1 KB of alignment, the ring, its mbarriers; dK/dV also two
-            # stages of 64 lse and 64 delta
-            smem = 1024 + WIDE_STAGES * 2 * 64 * 128 * 2 + 64
-            return 64, 128, smem + 1024, smem
-        # two stages of two 64 x 128 tiles at 132 floats a row, a 64 x 68
-        # score tile
-        smem = (4 * CC_ROWS * (SLICE + 4) + CC_ROWS * (CC_ROWS + 4)) * 4
-        return CC_ROWS, CC_THREADS, smem, smem
+        # 1 KB of alignment, the ring, its mbarriers; dK/dV also two stages
+        # of 64 lse and 64 delta
+        smem = 1024 + WIDE_STAGES * 2 * 64 * 128 * 2 + 64
+        return 64, 128, smem + 1024, smem
     d = kernel_width(d)
     if dtype == torch.bfloat16:
         cols = 64 if d <= 64 else 128
@@ -626,9 +683,16 @@ def kernel_plan_bwd(b: int, hq: int, hk: int, sq: int, sk: int, d: int,
     blocks that leave SMs idle split their keys ``dq["split"]`` ways
     (``key_split``) into ``scratch`` bytes of f32 (``split * b * hq * sq *
     width`` floats), added up in a fourth launch in a fixed order; bf16
-    never splits.  ``width`` and ``slices`` as in ``kernel_plan``: past 128
-    columns both kernels' blocks own 64 rows and one slice of ``SLICE``
-    columns (the grids' x counts slices).  bf16 at padded widths 136-256
+    never splits.  ``width`` and ``slices`` as in ``kernel_plan``: the
+    grids' x count slices.  f32 past 128 columns plans ``"cuda_cores_256"``,
+    the whole-width kernels: 64-row blocks, dK/dV in two launches (dV, then
+    dK, each forming S^T once a (key block, query tile), dK also dP^T), dQ
+    forming S and dP once a (query block, key tile), all over the whole
+    width; dQ's keys split and the dK/dV blocks' query tiles shared by
+    ``wave_split`` (``dq["split"]``, ``dkdv["split"]``), each shared
+    kernel's f32 parts in ``scratch`` (dQ's first, then dK's and dV's) added
+    up in a later launch; bf16 past 256 the wide kernels' 64-row blocks,
+    each a slice of ``SLICE`` columns.  bf16 at padded widths 136-256
     plans ``"wgmma_256"``, the native kernels: dK/dV blocks of 64 keys in
     ``dkdv["head_split"]`` shares of each GQA group (``head_split``; the
     grid's x counts key blocks x shares; with more than one share their f32
@@ -644,7 +708,7 @@ def kernel_plan_bwd(b: int, hq: int, hk: int, sq: int, sk: int, d: int,
         return {**kernel_plan_bwd(r1 - r0, h1 - h0, 1, sq, sk, d, dtype, n_sm),
                 "pair_chunks": len(chunks)}
     width, n_slices = padded_width(d), slices(d, dtype)
-    if native(d, dtype):
+    if native(d, dtype) and dtype == torch.bfloat16:
         variant, block_rows = "wgmma_256", (64, 128)
     elif dtype == torch.bfloat16:
         variant = "wgmma"
@@ -653,7 +717,8 @@ def kernel_plan_bwd(b: int, hq: int, hk: int, sq: int, sk: int, d: int,
                       64 if n_slices > 1 or b * hq * -(-sq // 128) < n_sm
                       else 128)
     elif dtype == torch.float32:
-        variant, block_rows = "cuda_cores", (CC_ROWS, CC_ROWS)
+        variant = "cuda_cores_256" if native(d, dtype) else "cuda_cores"
+        block_rows = (CC_ROWS, CC_ROWS)
     else:
         raise ValueError(f"flash_attention_bwd_cuda: dtype {dtype}, expected "
                          "torch.float32 or torch.bfloat16")
@@ -666,16 +731,25 @@ def kernel_plan_bwd(b: int, hq: int, hk: int, sq: int, sk: int, d: int,
         plan[kernel] = {"rows": rows, "other": other, "threads": threads,
                         "smem": smem[i]}
     q_blocks = -(-sq // plan["dq"]["rows"]) * n_slices
-    split = (key_split(b * hq * q_blocks, sk, n_sm)
-             if dtype == torch.float32 else 1)
+    k_blocks = -(-sk // plan["dkdv"]["rows"]) * n_slices
+    if variant == "cuda_cores_256":
+        split = wave_split(b * hq * q_blocks, -(-sk // CC_ROWS), n_sm)
+        kv_split = wave_split(b * hk * k_blocks,
+                              hq // hk * -(-sq // CC_ROWS), n_sm)
+        plan["dkdv"]["split"] = kv_split
+    else:
+        split = (key_split(b * hq * q_blocks, sk, n_sm)
+                 if dtype == torch.float32 else 1)
+        kv_split = 1
     shares = (head_split(b, hk, sk, hq // hk, n_sm)
               if variant == "wgmma_256" else 1)
-    k_blocks = -(-sk // plan["dkdv"]["rows"]) * n_slices * shares
+    k_blocks *= shares * kv_split
     plan["dq"]["split"] = split
     plan["dkdv"]["head_split"] = shares
-    plan["scratch"] = (split * b * hq * sq * width * 4 if split > 1
-                       else 2 * shares * b * hk * sk * width * 4
-                       if shares > 1 else 0)
+    plan["scratch"] = (
+        (split * b * hq * sq * width * 4 if split > 1 else 0)
+        + (2 * shares * kv_split * b * hk * sk * width * 4
+           if shares * kv_split > 1 else 0))
     plan["grids"] = {"delta": (-(-b * hq * sq // 8),),
                      "dkdv": (k_blocks, *head_grid(hk, b)),
                      "dq": (q_blocks * split, *head_grid(hq, b))}
@@ -735,8 +809,9 @@ def flash_attention_bwd_cuda(q: Tensor, k: Tensor, v: Tensor, o: Tensor,
     ``lse`` (``return_lse=True``) and the output's gradient ``do``; the
     contract of ``ref.attention_bwd_ref``.
 
-    Three launches on the current stream (four with the native kernels'
-    dK/dV shares or an f32 dQ split), no synchronisation.  Each call that
+    Three launches on the current stream (more where the dK/dV blocks'
+    work or the f32 dQ keys are shared, each sum a launch of its own), no
+    synchronisation.  Each call that
     launches adds one to ``flash_attention_bwd_cuda.launches`` (and to
     ``.native_launches``, ``.wide_launches`` and ``.padded_launches`` as
     the forward does) and leaves its plan in
@@ -806,8 +881,9 @@ def _flash_bwd_op(q: Tensor, k: Tensor, v: Tensor, o: Tensor, lse: Tensor,
             dkc.add_(parts[0])
             dvc.add_(parts[1])
     flash_attention_bwd_cuda.launches += 1
-    flash_attention_bwd_cuda.native_launches += plan["variant"] == "wgmma_256"
-    flash_attention_bwd_cuda.wide_launches += plan["slices"] > 1
+    flash_attention_bwd_cuda.native_launches += plan["variant"] in NATIVE
+    flash_attention_bwd_cuda.wide_launches += plan["variant"] == "wgmma" \
+        and plan["slices"] > 1
     flash_attention_bwd_cuda.padded_launches += width != d
     flash_attention_bwd_cuda.last_plan = plan
     return tuple(_unpad(d, dq, dk, dv))
@@ -833,7 +909,7 @@ def _launch_bwd(q: Tensor, k: Tensor, v: Tensor, o: Tensor, do: Tensor,
             None if part is None else part.data_ptr(), b, hq, hk, sq, sk,
             width, _DTYPES[q.dtype], int(causal),
             -1 if window is None else window, softcap, scale, split,
-            plan["dkdv"].get("head_split", 1),
+            plan["dkdv"]["head_split"] * plan["dkdv"].get("split", 1),
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_bwd_cuda: launch failed: "

@@ -60,8 +60,8 @@ CASES = [
     (1, 4, 2, 100, 100, 24, dict(causal=False)),                 # ragged
     (1, 4, 2, 96, 96, 80, dict(causal=True, window=32)),
 ]
-# widths off the multiple of 8 (the card pads them) and past 128 (the wide
-# kernels' column slices; 136's second slice has 8 columns)
+# widths off the multiple of 8 (the card pads them) and past 128 (on the
+# card the whole-width kernels; f32 520 in three slices)
 WIDE_CASES = [
     (1, 4, 2, 64, 64, 4, dict(causal=True)),
     (1, 4, 2, 100, 100, 20, dict(causal=True, window=32, softcap=20.0)),
@@ -173,11 +173,23 @@ GEOMETRY = {
     (torch.float32, 96, 64): (64, 256, 146_432),
     (torch.float32, 128, 64): (64, 256, 187_392),
 }
-# past 128 columns (any width), 64 query rows: bf16 is 1 KB of alignment, a
-# ring of three stages of two 64 x 128 tiles and 64 bytes of mbarriers; f32
-# two stages of two 64 x 128 tiles at 132 floats and P at 72
-WIDE_GEOMETRY = {torch.bfloat16: (64, 128, 1024 + 3 * 2 * 64 * 128 * 2 + 64),
-                 torch.float32: (64, 256, (4 * 64 * 132 + 64 * 72) * 4)}
+# bf16 past 256 columns (any width), 64 query rows: 1 KB of alignment, a
+# ring of three stages of two 64 x 128 tiles and 64 bytes of mbarriers
+WIDE_GEOMETRY = {torch.bfloat16: (64, 128, 1024 + 3 * 2 * 64 * 128 * 2 + 64)}
+
+
+def f32_256_geometry(width: int) -> tuple[int, int, int]:
+    """The f32 whole-width forward past 128 columns: 64 keys a tile, 256
+    threads, and four ring stages of 64-row pieces of 64 columns at 68
+    floats a row, Q of 64 rows at the whole width (its pieces side by
+    side, 4 floats of pad) up to 256 columns, past it a piece of Q beside
+    each piece of K instead, and P of 64 x 68."""
+    pieces = -(-width // 64)
+    if width <= 256:
+        floats = 4 * 64 * 68 + 64 * (64 * pieces + 4) + 64 * 68
+    else:
+        floats = 4 * 2 * 64 * 68 + 64 * 68
+    return 64, 256, floats * 4
 
 PLAN_SHAPES = [
     # b, hq, hk, sq, sk, then the bf16 plan's query rows and blocks along
@@ -344,12 +356,15 @@ def test_both_plans_refuse_widths_outside_the_domain(d, dtype):
                 plan(1, 2, 2, 64, 64, width, dtype)
 
 
-# d, the kernels' width (padded), the column slices (f32; bf16 at widths
-# 136-256 runs the native kernels, one slice)
-WIDTHS = [(1, 8, 1), (4, 8, 1), (12, 16, 1), (20, 24, 1), (100, 104, 1),
-          (128, 128, 1), (129, 136, 2), (136, 136, 2), (192, 192, 2),
-          (256, 256, 2), (257, 264, 3), (512, 512, 4), (520, 520, 5),
-          (1000, 1000, 8)]
+# d, the kernels' width (padded), the column slices of bf16 (the native
+# kernels at widths 136-256, one slice; past 256 slices of 128 columns) and
+# of f32 (the whole-width kernels: one slice up to 256 columns, past it
+# slices of up to 256)
+WIDTHS = [(1, 8, 1, 1), (4, 8, 1, 1), (12, 16, 1, 1), (20, 24, 1, 1),
+          (100, 104, 1, 1), (128, 128, 1, 1), (129, 136, 1, 1),
+          (136, 136, 1, 1), (192, 192, 1, 1), (256, 256, 1, 1),
+          (257, 264, 3, 2), (512, 512, 4, 2), (520, 520, 5, 3),
+          (1000, 1000, 8, 4)]
 # the native kernels' (block_q, block_k, threads, shared memory) at 64-row
 # blocks (24 blocks of 128 would leave SMs idle): the forward's 1 KB of
 # alignment, Q of 64 rows and two stages of K and of V of 64 rows, 256 bf16
@@ -364,20 +379,25 @@ NATIVE_BWD_SMEM = (1024 + 6 * 64 * 512 + 2 * 64 * 64 * 4 + 4 * 64 * 4 + 64,
 
 def test_both_plans_take_every_width():
     """Every head width >= 1 (WIDTHS, f32 and bf16): the kernels' width is
-    d padded to a multiple of 8 (zero columns), and past 128 columns the
-    wide kernels cut the output into ``slices`` slices of 128 columns, each
-    forming S over the whole width (the recompute factor): 64-row blocks in
-    both plans, the grids' x counting query (key) blocks x slices, and
-    shared memory that does not grow with the width; bf16 at widths
-    136-256 plans the native kernels (no slices; the dK/dV grid's x counts
-    key blocks x shares of the group).  (One test over the widths: the
-    collection's size decides xdist's first chunks, ROADMAP Queue C.)"""
+    d padded to a multiple of 8 (zero columns).  Past 128 columns f32 plans
+    the whole-width kernels (one slice up to 256 columns, past it at most
+    ceil(width / 256) slices, each forming S over the whole width: 64-row
+    blocks, the grids' x counting blocks x slices x splits, the split
+    seeing those blocks); bf16 at widths
+    136-256 the native kernels (no slices; the dK/dV grid's x counts key
+    blocks x shares of the group), past 256 the wide kernels, whose slices
+    of 128 columns each form S over the whole width (64-row blocks in both
+    plans, shared memory that does not grow with the width).  (One test
+    over the widths: the collection's size decides xdist's first chunks,
+    ROADMAP Queue C.)"""
     b, hq, hk, sq, sk = 2, 4, 2, 300, 300
-    for d, width, f32_slices in WIDTHS:
+    for d, width, bf16_slices, f32_slices in WIDTHS:
         for dtype in (torch.bfloat16, torch.float32):
             what = (d, dtype)
             native = dtype == torch.bfloat16 and 136 <= width <= 256
-            slices = 1 if native else f32_slices
+            slices = f32_slices if dtype == torch.float32 else bf16_slices
+            assert slices <= max(1, -(-width // 256)) or \
+                dtype == torch.bfloat16, what
             fwd = fa.kernel_plan(b, hq, hk, sq, sk, d, dtype)
             bwd = fa.kernel_plan_bwd(b, hq, hk, sq, sk, d, dtype)
             assert (fa.padded_width(d), fa.slices(d, dtype)) == \
@@ -400,23 +420,34 @@ def test_both_plans_take_every_width():
                 assert bwd["grids"]["dq"] == (3, hq, b), what
                 assert bwd["scratch"] == 2 * 2 * b * hk * sk * width * 4
                 continue
-            if slices == 1:
+            if width <= 128:
                 assert fwd["smem"] == GEOMETRY[(
                     dtype, fa.kernel_width(d), fwd["block_q"])][2], what
                 continue
+            f32 = dtype == torch.float32
+            assert fwd["variant"] == bwd["variant"] == (
+                "cuda_cores_256" if f32 else "wgmma"), what
             assert (fwd["block_q"], fwd["block_k"], fwd["threads"],
-                    fwd["smem"]) == (64, *WIDE_GEOMETRY[dtype]), what
+                    fwd["smem"]) == (64, *(f32_256_geometry(width) if f32
+                                           else WIDE_GEOMETRY[dtype])), what
             assert fwd["grid"] == (5 * slices * fwd["split"], hq, b), what
             assert fwd["scratch"] == (
                 fwd["split"] * b * hq * sq * (width + 2) * 4
                 if fwd["split"] > 1 else 0), what
             assert bwd["dkdv"]["rows"] == bwd["dq"]["rows"] == 64, what
-            assert bwd["grids"]["dkdv"] == (5 * slices, hk, b), what
+            assert bwd["grids"]["dkdv"][1:] == (hk, b), what
             assert bwd["grids"]["dq"] == (5 * slices * bwd["dq"]["split"],
                                           hq, b), what
-            # the split rule sees the slices' blocks
-            assert fwd["split"] == (fa.key_split(b * hq * 5 * slices, sk)
-                                    if dtype == torch.float32 else 1), what
+            # the split rule sees the slices' blocks: f32 two waves of
+            # 132 SMs, at most a split a key tile (5 of them)
+            assert fwd["split"] == (min(5, 264 // (b * hq * 5 * slices))
+                                    if f32 else 1), what
+            assert bwd["dq"]["split"] == fwd["split"], what
+            if f32:   # a dK/dV block walks at most 2 heads x 5 query tiles
+                kv_blocks = b * hk * 5 * slices
+                assert bwd["dkdv"]["split"] == min(10, 264 // kv_blocks)
+                assert bwd["grids"]["dkdv"][0] == \
+                    5 * slices * bwd["dkdv"]["split"], what
 
 
 # (b, h), then the grid's (y, z)

@@ -408,50 +408,100 @@ def test_kernel_plan_bwd_takes_every_width(d, dtype, variant):
         assert k["smem"] <= fa.MAX_SMEM and k["threads"] <= 1024
 
 
-# past 128 columns: 64-row blocks owning one slice of 128 columns, 1 KB of
-# alignment, a ring of three stages of two 64 x 128 bf16 tiles, 64 bytes of
-# mbarriers (dK/dV 1 KB more of lse and delta); f32 two stages of two 64 x
-# 128 tiles at 132 floats and the 64 x 68 score tile
-WIDE_BWD = {torch.bfloat16: (64, 128, 1024 + 3 * 32_768 + 64 + 1024,
-                             1024 + 3 * 32_768 + 64),
-            torch.float32: (64, 256, (4 * 64 * 132 + 64 * 68) * 4,
-                            (4 * 64 * 132 + 64 * 68) * 4)}
+# bf16 past 256 columns: 64-row blocks owning one slice of 128 columns, 1 KB
+# of alignment, a ring of three stages of two 64 x 128 bf16 tiles, 64 bytes
+# of mbarriers (dK/dV 1 KB more of lse and delta)
+WIDE_BWD = (64, 128, 1024 + 3 * 32_768 + 64 + 1024, 1024 + 3 * 32_768 + 64)
+
+
+def f32_256_bwd_geometry(width: int) -> tuple[int, int, int, int]:
+    """The f32 whole-width backward past 128 columns: tiles of 64 rows of
+    the other side, 256 threads, and the dK/dV and dQ shared memory (the
+    same): four ring stages of 64-row pieces of 64 columns at 68 floats a
+    row; up to 256 columns the block's two own tiles of 64 rows at the
+    whole width (K and V; Q and dO; pieces side by side, 4 floats of pad),
+    past it a piece of them beside each piece instead; a 64 x 68 score
+    tile."""
+    pieces, piece = -(-width // 64), 64 * 68
+    if width <= 256:
+        floats = 4 * piece + 2 * 64 * (64 * pieces + 4) + 64 * 68
+    else:
+        floats = 4 * 2 * piece + 64 * 68
+    return 64, 256, floats * 4, floats * 4
+
+
+# (b, hq, hk, sq, sk, f32 slices), then the f32 whole-width kernels' dQ key
+# split and dK/dV shares (``wave_split``): 1 where the grid fills 132 SMs,
+# else as many as bring it to two waves (264 blocks), at most one a tile of
+# the block's walk and 16.  [2, 4/2, 300, 300]: 40 dQ blocks of 5 key
+# tiles and 20 dK/dV blocks walking 2 heads x 5 query tiles, a slice;
+# 4,096 tokens: 1,024 dQ blocks, 128 dK/dV blocks of 8 heads x up to 64
+# tiles; 64 x 8,192: 4 dQ blocks of 128 key tiles, 128 dK/dV blocks of 4
+# heads x 1 tile
+WAVE_SPLITS = {
+    (2, 4, 2, 300, 300, 1): (5, 10),
+    (2, 4, 2, 300, 300, 2): (3, 6),
+    (2, 4, 2, 300, 300, 3): (2, 4),
+    (1, 16, 2, 4096, 4096, 1): (1, 2),
+    (1, 16, 2, 4096, 4096, 2): (1, 1),
+    (1, 16, 2, 4096, 4096, 3): (1, 1),
+    (1, 4, 1, 64, 8192, 1): (16, 2),
+    (1, 4, 1, 64, 8192, 2): (16, 1),
+    (1, 4, 1, 64, 8192, 3): (16, 1),
+}
 
 
 def _wide_plans_bwd_slice_columns_and_split_keys():
-    """Past 128 columns in f32, and past 256 in bf16 (below, the native
-    kernels), both backward kernels take 64-row blocks, one slice of 128
-    columns each (the grids' x counts blocks x slices), the wide geometry;
-    the f32 dQ split sees the slices' blocks, its scratch at the padded
-    width, and a dK/dV block walks every query head of its GQA group.  (One
-    test over the widths and shapes: the collection's size decides xdist's
-    first chunks, ROADMAP Queue C.)"""
+    """Past 128 columns in f32 the whole-width kernels: 64-row blocks, one
+    slice up to 256 columns and past it at most ceil(width / 256); past 256
+    in bf16 (below, the native kernels) the wide kernels' 64-row blocks,
+    one slice of 128 columns each.  The grids' x count blocks x
+    slices, the f32 dQ split sees the slices' blocks, its scratch at the
+    padded width, and a dK/dV block walks every query head of its GQA
+    group.  (One test over the widths and shapes: the collection's size
+    decides xdist's first chunks, ROADMAP Queue C.)"""
+    for blocks, tiles, n_sm, split in ((40, 5, 132, 5), (120, 5, 132, 2),
+                                       (132, 9, 132, 1), (4, 128, 132, 16),
+                                       (40, 10, 114, 5), (1, 1, 132, 1)):
+        assert fa.wave_split(blocks, tiles, n_sm) == split
     for dtype in (torch.bfloat16, torch.float32):
-        for d, width, n in ((136, 136, 2), (192, 192, 2), (256, 256, 2),
-                            (300, 304, 3), (512, 512, 4), (520, 520, 5)):
-            if dtype == torch.bfloat16 and d <= 256:
+        f32 = dtype == torch.float32
+        for d, width, n_bf16, n_f32 in (
+                (136, 136, 1, 1), (192, 192, 1, 1), (200, 200, 1, 1),
+                (256, 256, 1, 1), (300, 304, 3, 2), (512, 512, 4, 2),
+                (520, 520, 5, 3)):
+            if not f32 and d <= 256:
                 continue     # the native kernels
-            assert fa.geometry_bwd(dtype, d, 64) == WIDE_BWD[dtype]
+            n = n_f32 if f32 else n_bf16
+            geometry = f32_256_bwd_geometry(width) if f32 else WIDE_BWD
+            assert fa.geometry_bwd(dtype, d, 64) == geometry
+            assert geometry[2] <= fa.MAX_SMEM and geometry[3] <= fa.MAX_SMEM
             for b, hq, hk, sq, sk in ((2, 4, 2, 300, 300), (1, 16, 2, 4096,
                                                             4096),
                                       (1, 4, 1, 64, 8192)):
                 plan = fa.kernel_plan_bwd(b, hq, hk, sq, sk, d, dtype)
                 what = (dtype, d, b, hq, hk, sq, sk)
+                assert plan["variant"] == ("cuda_cores_256" if f32
+                                           else "wgmma"), what
                 assert (plan["width"], plan["slices"]) == (width, n), what
                 assert plan["dkdv"]["rows"] == plan["dq"]["rows"] == 64, what
-                other, threads, s_dkdv, s_dq = WIDE_BWD[dtype]
+                other, threads, s_dkdv, s_dq = geometry
                 assert (plan["dkdv"]["smem"], plan["dq"]["smem"]) == \
                     (s_dkdv, s_dq), what
                 blocks = -(-sq // 64) * n
-                split = (fa.key_split(b * hq * blocks, sk)
-                         if dtype == torch.float32 else 1)
+                k_blocks = -(-sk // 64) * n
+                split, shares = (WAVE_SPLITS[(b, hq, hk, sq, sk, n)]
+                                 if f32 else (1, 1))
                 assert plan["dq"]["split"] == split, what
+                assert plan["dkdv"].get("split", 1) == shares, what
                 assert plan["dkdv"]["head_split"] == 1, what
                 assert plan["grids"]["dq"] == (blocks * split, hq, b), what
-                assert plan["grids"]["dkdv"] == (-(-sk // 64) * n, hk, b), \
+                assert plan["grids"]["dkdv"] == (k_blocks * shares, hk, b), \
                     what
                 assert plan["scratch"] == (
-                    split * b * hq * sq * width * 4 if split > 1 else 0), what
+                    (split * b * hq * sq * width * 4 if split > 1 else 0)
+                    + (2 * shares * b * hk * sk * width * 4 if shares > 1
+                       else 0)), what
 
 
 def test_padding_the_backward_is_exact():
@@ -497,20 +547,36 @@ def test_native_variant_by_width_and_dtype():
     pads to 136): forward 256 threads (two warpgroups) on 128-row blocks
     (64 where those would leave SMs idle), backward 256 threads, dK/dV blocks of
     64 keys in the group's shares (``head_split``), dQ blocks of 128
-    queries; shared memory within 232,448 bytes.  Past 256 and in f32 the
-    slice kernels ("wgmma" / "cuda_cores" with slices) run.  The shares'
-    f32 parts are the scratch, and add a combine launch."""
+    queries; shared memory within 232,448 bytes.  bf16 past 256 runs the
+    slice kernels ("wgmma" with slices); f32 at every width past 128 the
+    whole-width kernels ("cuda_cores_256": one slice up to 256 columns, two
+    at 264-512), 64-row blocks, dK/dV's 128 blocks (of 132 SMs) shared two
+    ways at one slice.  The native shares' f32 parts are the scratch, and
+    add a combine launch."""
     for d in (120, 128, 129, 136, 192, 200, 256, 257, 264, 512):
         for dtype in (torch.bfloat16, torch.float32):
-            native = dtype == torch.bfloat16 and 129 <= d <= 256
+            bf16_native = dtype == torch.bfloat16 and 129 <= d <= 256
+            f32_native = dtype == torch.float32 and d > 128
             fwd = fa.kernel_plan(1, 16, 2, 4096, 4096, d, dtype)
             bwd = fa.kernel_plan_bwd(1, 16, 2, 4096, 4096, d, dtype)
-            assert fa.native(d, dtype) == native, (d, dtype)
-            assert (fwd["variant"] == "wgmma_256") == native, (d, dtype)
-            assert (bwd["variant"] == "wgmma_256") == native, (d, dtype)
+            assert fa.native(d, dtype) == (bf16_native or f32_native)
+            assert (fwd["variant"] == "wgmma_256") == bf16_native, (d, dtype)
+            assert (bwd["variant"] == "wgmma_256") == bf16_native, (d, dtype)
+            assert (fwd["variant"] == bwd["variant"] == "cuda_cores_256") \
+                == f32_native, (d, dtype)
             assert fwd["smem"] <= 232_448
             assert max(bwd["dkdv"]["smem"], bwd["dq"]["smem"]) <= 232_448
-            if not native:
+            if f32_native:
+                assert fwd["slices"] == bwd["slices"] == (1 if d <= 256
+                                                          else 2), d
+                assert (fwd["block_q"], fwd["threads"]) == (64, 256)
+                assert (bwd["dkdv"]["rows"], bwd["dq"]["rows"]) == (64, 64)
+                assert bwd["dkdv"]["head_split"] == 1
+                assert bwd["dkdv"]["split"] == (2 if d <= 256 else 1)
+                assert bwd["grids"]["dkdv"] == (128, 2, 1)
+                assert "combine" not in bwd["grids"]
+                continue
+            if not bf16_native:
                 assert (fwd["slices"] > 1) == (d > 128), (d, dtype)
                 continue
             assert (fwd["threads"], fwd["block_q"], fwd["slices"]) == \

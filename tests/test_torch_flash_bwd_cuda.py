@@ -38,10 +38,12 @@ VARIANT = {"float32": "cuda_cores", "bfloat16": "wgmma"}
 
 
 def variant(d: int, dtype: str) -> str:
-    """The plan variant of head width ``d``: the native bf16 kernels at
-    padded widths 136-256 ("wgmma_256"), else the dtype's."""
-    return "wgmma_256" if fa.native(d, getattr(torch, dtype)) \
-        else VARIANT[dtype]
+    """The plan variant of head width ``d``: the whole-width kernels at
+    bf16 padded widths 136-256 ("wgmma_256") and f32 past 128
+    ("cuda_cores_256"), else the dtype's."""
+    if fa.native(d, getattr(torch, dtype)):
+        return "wgmma_256" if dtype == "bfloat16" else "cuda_cores_256"
+    return VARIANT[dtype]
 
 
 def _card(seed, b, hq, hk, sq, sk, d, dtype):
@@ -130,7 +132,8 @@ WIDE_SHAPES = [
 ]
 # the f32 kernels' 64-row tiles: Sq and Sk one past a tile, D 8, 24, 40 and
 # 120, GQA groups of 4, rows without keys, window with softcap, and dQ
-# blocks whose keys split (16 and 8 ways)
+# blocks whose keys split (16 and 8 ways); then Qwen3-Next's attention in
+# f32 at 4,096 tokens (the whole-width kernels on a full grid)
 F32_EDGES = [
     (1, 4, 2, 65, 65, 64, dict(causal=True)),
     (1, 8, 2, 129, 129, 8, dict(causal=True)),
@@ -139,6 +142,8 @@ F32_EDGES = [
     (1, 4, 2, 200, 65, 120, dict(causal=True)),                 # no keys
     (1, 4, 4, 64, 2048, 64, dict(causal=True)),                 # split 16
     (1, 8, 2, 100, 1500, 120, dict(causal=True, window=700, softcap=50.0)),
+    # Qwen3-Next's attention in f32: the whole-width kernels
+    (1, 16, 2, 4096, 4096, 256, dict(causal=True)),
 ]
 
 
@@ -163,9 +168,12 @@ def _check_backward(b, hq, hk, sq, sk, d, dtype, kw):
     assert plan["pair_chunks"] == max(1, len(chunks))
     (r0, r1), (h0, h1) = chunks[0] if chunks else ((0, b), (0, hq))
     pairs = (r1 - r0) * (h1 - h0)
+    blocks = pairs * -(-sq // 64) * plan["slices"]
     assert plan["dq"]["split"] == (
-        fa.key_split(pairs * -(-sq // 64) * plan["slices"], sk, n_sm)
-        if dtype == "float32" else 1)
+        1 if dtype != "float32" else
+        fa.wave_split(blocks, -(-sk // 64), n_sm)
+        if plan["variant"] == "cuda_cores_256" else
+        fa.key_split(blocks, sk, n_sm))
     assert all(torch.equal(x, y) for x, y in zip(grads, again))
     _hold(grads, want, dtype, row_check=d >= ROW_MIN_D or dtype == "float32")
     lse0 = ref.attention_lse_ref(q, k, **kw)

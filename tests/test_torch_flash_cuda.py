@@ -33,10 +33,12 @@ VARIANT = {"float32": "cuda_cores", "bfloat16": "wgmma"}
 
 
 def variant(d: int, dtype: str) -> str:
-    """The plan variant of head width ``d``: the native bf16 kernels at
-    padded widths 136-256 ("wgmma_256"), else the dtype's."""
-    return "wgmma_256" if fa.native(d, getattr(torch, dtype)) \
-        else VARIANT[dtype]
+    """The plan variant of head width ``d``: the whole-width kernels at
+    bf16 padded widths 136-256 ("wgmma_256") and f32 past 128
+    ("cuda_cores_256"), else the dtype's."""
+    if fa.native(d, getattr(torch, dtype)):
+        return "wgmma_256" if dtype == "bfloat16" else "cuda_cores_256"
+    return VARIANT[dtype]
 ROW_TOL = {"float32": 1e-5, "bfloat16": 8e-3}
 # the bf16 row limit holds from D 16, where it was set: a row of 4 or 8
 # values whose terms cancel has a norm of ~0.05, which P's rounding to bf16
@@ -249,6 +251,8 @@ SPLIT_CASES = [
     (2, 4, 2, 300, 300, 64, dict(causal=True), 2),             # f32 ragged
     (1, 2, 2, 1200, 1100, 64, dict(causal=True), 3),
     (1, 16, 8, 128, 1000, 128, dict(causal=True), 4),           # offset rows
+    # Qwen3-Next's attention in f32: the whole-width kernel, 1,024 blocks
+    (1, 16, 2, 4096, 4096, 256, dict(causal=True), 1),
 ]
 
 
@@ -266,7 +270,7 @@ def test_f32_tile_edges_and_key_splits_match_plain_version():
         n_sm = n_sm or torch.cuda.get_device_properties(0).multi_processor_count
         out, lse = fa.flash_attention_cuda(q, k, v, return_lse=True, **kw)
         plan = fa.flash_attention_cuda.last_plan
-        assert plan["variant"] == "cuda_cores", case
+        assert plan["variant"] == variant(d, "float32"), case
         assert plan["split"] == (fa.key_split(b * hq * -(-sq // 64), sk, n_sm)
                                  if split is None else split), case
         again = fa.flash_attention_cuda(q, k, v, **kw)

@@ -462,7 +462,7 @@ def test_r6_audits_every_kernel(ctx):
         "sweep": True, "flash": True, "flash_bwd": True, "ssd": True}
     assert {p["variant"] for _, _, p in plans["sweep"]} == {"fused", "split"}
     assert {p["variant"] for _, _, p in plans["flash"]} == {
-        "wgmma", "wgmma_256", "cuda_cores"}
+        "wgmma", "wgmma_256", "cuda_cores", "cuda_cores_256"}
 
 
 # ---------------------------------------------------------------------------

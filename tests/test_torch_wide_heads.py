@@ -2,8 +2,8 @@
 against the JAX package's, on the CPU.
 
 gemma2 (window, both softcaps, GQA 4/2) and internlm2 at their smoke sizes
-with ``d_head`` widened by ``dataclasses.replace`` to 256 (the wide kernels'
-column slices on the card) and to 20 (padded to 24 on the card), the same
+with ``d_head`` widened by ``dataclasses.replace`` to 256 (the whole-width
+kernels on the card) and to 20 (padded to 24 on the card), the same
 replacement on both sides.  Parameters are drawn by the JAX package and
 carried across; tokens come from numpy seeds.  Serving: a prefill against
 the Pallas flash kernel in interpret mode (``attn_impl="pallas"``) and four
